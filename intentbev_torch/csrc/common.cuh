@@ -1,0 +1,81 @@
+// Shared device helpers for the port's hand-written Hopper kernels.
+//
+// Matrix products use the warp-level tensor-core instruction
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) through inline PTX. Fragment
+// layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
+// g = lane / 4 and t = lane % 4:
+//   A 16x16 (row-major): a0 = (g, 2t..2t+1)    a1 = (g+8, 2t..2t+1)
+//                        a2 = (g, 2t+8..2t+9)  a3 = (g+8, 2t+8..2t+9)
+//   B 16x8  (k x n):     b0 = (k 2t..2t+1, n g) b1 = (k 2t+8..2t+9, n g)
+//   C 16x8  (f32):       c0,c1 = (g, 2t..2t+1)  c2,c3 = (g+8, 2t..2t+1)
+// Each 32-bit register holds two bf16 values, the lower column in the low
+// half. Shared-memory operands are stored so that the two values of one
+// register are adjacent: A as [row][k], B as [n][k].
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragment of the 16x16 tile at (r0, k0) of a [row][k] array, stride ld.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
+                                       int r0, int k0, int lane) {
+  const bf16* p = s + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  a[0] = ld_u32(p);
+  a[1] = ld_u32(p + 8 * ld);
+  a[2] = ld_u32(p + 8);
+  a[3] = ld_u32(p + 8 * ld + 8);
+}
+
+// B fragment of the 16x8 tile at (k0, n0) of an [n][k] array, stride ld.
+__device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* s, int ld,
+                                       int n0, int k0, int lane) {
+  const bf16* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  b[0] = ld_u32(p);
+  b[1] = ld_u32(p + 8);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Row LayerNorm of 384 f32 values spread as 12 per lane of one warp
+// (lane holds columns 2*lane + 64*i + {0, 1}, i < 6): two-pass f32
+// statistics, as the JAX kernels compute them (mean, then mean of the
+// squared deviations).
+__device__ __forceinline__ void warp_ln_stats(const float (&v)[12], float eps,
+                                              float& mean, float& inv) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) s += v[i];
+  mean = warp_sum(s) * (1.f / 384.f);
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    const float c = v[i] - mean;
+    q += c * c;
+  }
+  inv = rsqrtf(warp_sum(q) * (1.f / 384.f) + eps);
+}

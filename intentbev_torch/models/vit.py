@@ -1,0 +1,276 @@
+"""IntentNetViT at inference: two ViT-S/8 streams, adapters, residual
+fusion, detection and intention heads.
+
+Counterpart of ``intentbev/models/vit.py`` on its serving path
+(``deterministic=True`` with the serving LN chain):
+
+- lidar tokens come from placement chunks through the voxel-embed kernel,
+  map tokens from a stride-8 patch embed (a plain matmul over patches);
+- CLS token and position embeddings, then per encoder one standalone LN
+  kernel for block 0's norm1; every block runs qkv (GEMM), the flash
+  kernel, proj (GEMM) + residual, and the fused LN+MLP kernel, whose
+  epilogue emits the next block's norm1 and, in the last block, the final
+  norm;
+- per stream an adapter LN kernel, Linear and exact-erf GELU, reshaped to
+  NHWC; the fusion ResidualStage; the heads; f32 logits out.
+
+Tokens are not padded: the flash kernel takes any T and the LN/MLP
+kernels any row count. LayerNorm eps is 1e-6 throughout. Matmul weights
+are held in the compute dtype and biases/LN parameters in f32, the
+rounding the JAX package gets by casting its f32 parameters at use.
+``plain_ops=True`` runs each kernel's plain PyTorch version instead (the
+on-card oracle); CPU tensors always take the plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..bev.rasterize import decode_map_transport
+from ..ops.flash_packed import flash_attention_packed, flash_attention_packed_plain
+from ..ops.fused_ln_mlp import GELU_MODES, fused_ln_mlp, fused_ln_mlp_plain
+from ..ops.layernorm import layernorm, layernorm_plain
+from ..ops.voxel_embed import (VoxelChunks, voxel_embed_tokens,
+                               voxel_embed_tokens_plain)
+from .blocks import ResidualStage
+from .heads import DetectionHead, IntentionHead, flatten_head_outputs
+
+LN_EPS = 1e-6
+
+
+class Ops(NamedTuple):
+    layernorm: Callable
+    fused_ln_mlp: Callable
+    flash: Callable
+    voxel_embed: Callable
+
+
+KERNEL_OPS = Ops(layernorm, fused_ln_mlp, flash_attention_packed, voxel_embed_tokens)
+PLAIN_OPS = Ops(layernorm_plain, fused_ln_mlp_plain, flash_attention_packed_plain,
+                voxel_embed_tokens_plain)
+
+
+class LayerNormParams(nn.Module):
+    """LayerNorm scale/bias (f32); the math runs in the LN kernels."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+
+class Linear(nn.Module):
+    """Dense layer: weight [out, in] in the compute dtype, bias in f32 (cast
+    to the compute dtype at use, like flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, fin: int, fout: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(fout, fin, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(fout)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight, b)
+
+
+class PatchEmbed(nn.Module):
+    """Stride-P patch-embed conv parameters in the JAX layout: weight
+    [P, P, C, D] (compute dtype), bias [D] (f32)."""
+
+    def __init__(self, patch: int, in_ch: int, dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.patch = patch
+        self.weight = nn.Parameter(torch.empty(patch, patch, in_ch, dim, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def dense(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """conv_PxP,sP over a dense NHWC input as one matmul over patches."""
+        b, h, w, c = x_nhwc.shape
+        p = self.patch
+        xp = x_nhwc.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+        xp = xp.reshape(b, (h // p) * (w // p), p * p * c)
+        wt = self.weight.reshape(p * p * c, -1)
+        return torch.matmul(xp.to(wt.dtype), wt) + self.bias.to(wt.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool, dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Linear(dim, 3 * dim, qkv_bias, dtype)
+        self.proj = Linear(dim, dim, True, dtype)
+
+    def forward(self, xn: torch.Tensor, residual: torch.Tensor, ops: Ops):
+        d = xn.shape[-1]
+        qkv = self.qkv(xn)  # q, k, v are column slices: no split copies
+        out, _ = ops.flash(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
+                           self.num_heads)
+        return residual + self.proj(out)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden, True, dtype)
+        self.fc2 = Linear(hidden, dim, True, dtype)
+
+
+class EncoderBlock(nn.Module):
+    """Pre-LN block of the serving LN chain: takes x and xn = norm1(x),
+    returns (x', ln_next(x'))."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 qkv_bias: bool, dtype: torch.dtype):
+        super().__init__()
+        self.norm1 = LayerNormParams(dim)
+        self.attn = Attention(dim, num_heads, qkv_bias, dtype)
+        self.norm2 = LayerNormParams(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+
+    def forward(self, x, xn, ln_next: LayerNormParams, ops: Ops, gelu: str):
+        x = self.attn(xn, x, ops)
+        m = self.mlp
+        return ops.fused_ln_mlp(
+            x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+            m.fc2.weight, m.fc2.bias, ln_next.weight, ln_next.bias, LN_EPS, gelu)
+
+
+class ViTEncoder(nn.Module):
+    """Patch embed + CLS + pos embed + blocks; returns final-normed tokens
+    [B, 1+N, D]."""
+
+    def __init__(self, cfg, in_channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        h, w = cfg.img_size
+        p = cfg.patch_size
+        n = (h // p) * (w // p)
+        d = cfg.embed_dim
+        self.patch_embed = PatchEmbed(p, in_channels, d, dtype)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        self.pos_embed = nn.Parameter(torch.zeros(1, 1 + n, d))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, dtype)
+            for _ in range(cfg.depth))
+        self.norm = LayerNormParams(d)
+
+    def forward(self, x, ops: Ops, gelu: str) -> torch.Tensor:
+        cfg = self.cfg
+        pe = self.patch_embed
+        if isinstance(x, VoxelChunks):
+            tokens = ops.voxel_embed(x, pe.weight, pe.bias, cfg.patch_size,
+                                     tuple(cfg.img_size))
+        else:
+            tokens = pe.dense(x)
+        b, _, d = tokens.shape
+        dt = tokens.dtype
+        tokens = torch.cat([self.cls_token.to(dt).expand(b, 1, d), tokens], 1)
+        tokens = tokens + self.pos_embed.to(dt)
+        blocks = self.blocks
+        xn = ops.layernorm(tokens, blocks[0].norm1.weight, blocks[0].norm1.bias, LN_EPS)
+        for i, blk in enumerate(blocks):
+            nxt = blocks[i + 1].norm1 if i + 1 < len(blocks) else self.norm
+            tokens, xn = blk(tokens, xn, nxt, ops, gelu)
+        return xn
+
+
+class TwoStreamViTBackbone(nn.Module):
+    def __init__(self, cfg, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        d, a = cfg.embed_dim, cfg.adapter_out_channels
+        self.vit_lidar = ViTEncoder(cfg, cfg.lidar_input_channels, dtype)
+        self.vit_map = ViTEncoder(cfg, cfg.map_input_channels, dtype)
+        self.adapter_lidar_norm = LayerNormParams(d)
+        self.adapter_lidar_proj = Linear(d, a, True, dtype)
+        self.adapter_map_norm = LayerNormParams(d)
+        self.adapter_map_proj = Linear(d, a, True, dtype)
+        self.fusion = ResidualStage(2 * a, cfg.fusion_planes, cfg.fusion_layers,
+                                    cfg.fusion_stride, cfg.fusion_kernel_size, dtype)
+
+    def forward(self, lidar, map_nhwc, ops: Ops, gelu: str) -> torch.Tensor:
+        gh, gw = self.cfg.grid_size
+
+        def stream(enc, norm, proj, x):
+            tokens = enc(x, ops, gelu)[:, 1:].contiguous()  # strip CLS
+            h = ops.layernorm(tokens, norm.weight, norm.bias, LN_EPS)
+            h = F.gelu(proj(h))  # exact erf, as the JAX adapter
+            return h.reshape(h.shape[0], gh, gw, -1)
+
+        feats = torch.cat([
+            stream(self.vit_lidar, self.adapter_lidar_norm, self.adapter_lidar_proj, lidar),
+            stream(self.vit_map, self.adapter_map_norm, self.adapter_map_proj, map_nhwc),
+        ], dim=-1)
+        return self.fusion(feats)
+
+
+class IntentNetViT(nn.Module):
+    """(lidar: decoded VoxelChunks or an NHWC BEV; map: NHWC, or bit-packed
+    u8 [B, H, W, ceil(C/8)]) -> f32 (cls [B, N, 1], box deltas [B, N, 6],
+    intent logits [B, N, C]), N = Hf*Wf*A."""
+
+    def __init__(self, cfg, head_cfg, dtype: torch.dtype = torch.float32,
+                 gelu: str = "erf", plain_ops: bool = False):
+        super().__init__()
+        if gelu not in GELU_MODES:
+            raise ValueError(f"gelu mode {gelu!r} not in {GELU_MODES}")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.gelu = gelu
+        self.ops = PLAIN_OPS if plain_ops else KERNEL_OPS
+        self.backbone = TwoStreamViTBackbone(cfg, dtype)
+        self.det_head = DetectionHead(cfg.fusion_planes, head_cfg.num_anchors,
+                                      head_cfg.num_box_params, dtype)
+        self.intention_head = IntentionHead(cfg.fusion_planes, head_cfg.num_anchors,
+                                            head_cfg.num_intention_classes, dtype)
+
+    def forward(self, lidar, map_bev: torch.Tensor):
+        m = decode_map_transport(map_bev, self.cfg.map_input_channels, self.dtype)
+        feats = self.backbone(lidar, m, self.ops, self.gelu)
+        cls_l, box = self.det_head(feats)
+        intent = self.intention_head(feats)
+        return tuple(t.float() for t in flatten_head_outputs(cls_l, box, intent))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded random init: truncated normal (std 0.02, cut at 2 std) for
+        dense, patch-embed, CLS and position parameters; Kaiming normal
+        (fan-out) for the fusion convs; LeCun normal for the head convs;
+        zero biases; unit BN/LN scales and BN running variance."""
+        def trunc(t):
+            nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+        for mod in self.modules():
+            if isinstance(mod, (Linear, PatchEmbed)):
+                trunc(mod.weight)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, ViTEncoder):
+                trunc(mod.cls_token)
+                trunc(mod.pos_embed)
+            elif isinstance(mod, nn.Conv2d):
+                fan_out = mod.out_channels * mod.kernel_size[0] * mod.kernel_size[1]
+                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+                head = mod.bias is not None
+                std = (1.0 / fan_in) ** 0.5 if head else (2.0 / fan_out) ** 0.5
+                mod.weight.normal_(0.0, std, generator=generator)
+                if head:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+            elif isinstance(mod, LayerNormParams):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+
+def init_params(cfg, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Seeded random f32 parameters (CPU) for ``IntentNetViT(cfg.vit,
+    cfg.heads)``, as a state dict."""
+    model = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.state_dict()

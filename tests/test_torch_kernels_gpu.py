@@ -1,0 +1,163 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one. On a machine
+with an H100 (which has no JAX, so the suite's conftest cannot load):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+Readings are relative L2 errors, ||kernel - plain|| / ||plain||, in bf16:
+both sides round the same f32 quantities at the same points, so a sound
+kernel differs only where f32 summation order tips a value to the
+neighbouring bf16. Each limit (those of ``chip_smoke.py``) lies between that
+noise and the reading of a control, the plain version with one plausible
+fault, and each test also checks that the control reaches the limit.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from intentbev.configs import GridConfig, default_vit_config  # noqa: E402
+from intentbev_torch.ops import (  # noqa: E402
+    flash_attention_packed, flash_attention_packed_plain, fused_ln_mlp,
+    fused_ln_mlp_plain, launches, layernorm, layernorm_plain,
+    reset_launch_counts, voxel_embed_tokens, voxel_embed_tokens_plain)
+from intentbev_torch.ops.voxel_embed import (  # noqa: E402
+    chunks_to_device, decode_chunk_transport)
+from intentbev_torch.parallel.inference import build_chunk_transport  # noqa: E402
+from intentbev_torch.synthetic import serving_batch  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+D = 384
+MAIN_ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _randn(shape, std, seed, dtype=torch.bfloat16):
+    return (torch.randn(shape, generator=_gen(seed), device="cuda") * std).to(dtype)
+
+
+def _rel(got, want):
+    assert torch.isfinite(got).all()
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def _layernorm_unbiased(x, g, b, eps=1e-6):  # control fault: variance over N-1
+    xf = x.float()
+    var = xf.var(-1, keepdim=True, correction=1)
+    return ((xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
+
+
+@pytest.mark.parametrize("rows", [10, MAIN_ROWS])
+def test_layernorm(dev, rows):
+    x = _randn((rows, D), 2.0, 0) + 0.5
+    g = _randn((D,), 0.3, 1, torch.float32) + 1
+    b = _randn((D,), 0.3, 2, torch.float32)
+    got = layernorm(x, g, b)
+    assert _rel(got, layernorm_plain(x, g, b)) < 3e-4
+    assert _rel(got, _layernorm_unbiased(x, g, b)) >= 3e-4
+
+
+@pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
+@pytest.mark.parametrize("rows", [100, MAIN_ROWS])
+def test_fused_ln_mlp(dev, rows, gelu):
+    x = _randn((rows, D), 1.0, 0)
+    ln = [_randn((D,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2, 3, 4)]
+    w1 = _randn((4 * D, D), D ** -0.5, 5)
+    b1 = _randn((4 * D,), 0.1, 6, torch.float32)
+    w2 = _randn((D, 4 * D), (4 * D) ** -0.5, 7)
+    b2 = _randn((D,), 0.1, 8, torch.float32)
+    args = (x, ln[0], ln[1], w1, b1, w2, b2, ln[2], ln[3])
+    y, yn = fused_ln_mlp(*args, gelu_mode=gelu)
+    y_ref, yn_ref = fused_ln_mlp_plain(*args, gelu_mode=gelu)
+    assert _rel(y, y_ref) < 1e-3
+    assert _rel(yn, yn_ref) < 1e-3
+    other = "sigmoid" if gelu == "erf" else "erf"  # control: the other GELU
+    y_ctl, yn_ctl = fused_ln_mlp_plain(*args, gelu_mode=other)
+    assert _rel(y, y_ctl) >= 1e-3 and _rel(yn, yn_ctl) >= 1e-3
+
+
+@pytest.mark.parametrize("b,t,seq_len", [(1, 300, 250), (2, 130, 130), (8, 4501, 4501)])
+def test_flash_packed_on_qkv_slices(dev, b, t, seq_len):
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    o, lse = flash_attention_packed(q, k, v, 6, seq_len)
+    o_ref, lse_ref = flash_attention_packed_plain(q, k, v, 6, seq_len)
+    assert o.shape == (b, t, D) and lse.shape == (b, 6, t)
+    assert _rel(o, o_ref) < 1e-2
+    assert float((lse - lse_ref).abs().max()) < 1e-3
+    # control: the keys of the last partial 64-key tile (or the last tile) masked
+    o_ctl, _ = flash_attention_packed_plain(q, k, v, 6, (seq_len - 1) // 64 * 64)
+    assert _rel(o, o_ctl) >= 1e-2
+
+
+def _chunks(grid, batch, points, seed, num_chunks):
+    pts, valid, _ = serving_batch(grid, batch, points, seed)
+    host = build_chunk_transport(pts, valid, grid, 8, num_chunks)
+    return decode_chunk_transport(chunks_to_device(host, "cuda"))
+
+
+@pytest.mark.parametrize("size", ["small", "main"])
+def test_voxel_embed(dev, size):
+    if size == "small":
+        grid = GridConfig(height_px=80, width_px=96, lidar_height_channels=4,
+                          lidar_sweeps=2)
+        chunks = _chunks(grid, 2, 3000, 0, 64)
+    else:
+        grid = default_vit_config().grid
+        chunks = _chunks(grid, 8, 16384, 0, 512)
+    c = grid.lidar_total_channels
+    w = _randn((8, 8, c, D), 0.05, 1)
+    bias = _randn((D,), 0.1, 2, torch.float32)
+    hw = (grid.height_px, grid.width_px)
+    got = voxel_embed_tokens(chunks, w, bias, 8, hw)
+    want = voxel_embed_tokens_plain(chunks, w, bias, 8, hw)
+    assert got.shape == ((chunks.wid.shape[0], (hw[0] // 8) * (hw[1] // 8), D))
+    assert _rel(got, want) < 3e-3
+    skipped = chunks._replace(count=(chunks.count - 1).clamp(min=0))  # control
+    assert _rel(got, voxel_embed_tokens_plain(skipped, w, bias, 8, hw)) >= 3e-3
+
+
+def test_voxel_embed_skips_out_of_range_channel(dev):
+    grid = GridConfig(height_px=80, width_px=96, lidar_height_channels=4, lidar_sweeps=2)
+    chunks = _chunks(grid, 1, 500, 3, 64)
+    c = grid.lidar_total_channels
+    ch = chunks.ch.clone()
+    ch[0, 0, 0, 0, 0] = c  # must be dropped, not read past W
+    chunks = chunks._replace(ch=ch)
+    w = _randn((8, 8, c, D), 0.05, 1)
+    bias = torch.zeros(D, device="cuda")
+    hw = (grid.height_px, grid.width_px)
+    got = voxel_embed_tokens(chunks, w, bias, 8, hw)
+    assert _rel(got, voxel_embed_tokens_plain(chunks, w, bias, 8, hw)) < 3e-3
+
+
+def test_launch_counts(dev):
+    x = _randn((64, D), 1.0, 0)
+    g, b = torch.ones(D, device="cuda"), torch.zeros(D, device="cuda")
+    reset_launch_counts()
+    layernorm(x, g, b)
+    layernorm(x, g, b)
+    layernorm_plain(x, g, b)
+    assert launches["layernorm"] == 2
+    assert launches["flash_packed"] == 0
+
+
+def test_cuda_tensors_never_take_the_plain_version(dev):
+    x = torch.randn(8, 32, device="cuda", dtype=torch.bfloat16)  # D != 384
+    with pytest.raises(ValueError):
+        layernorm(x, torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
+    with pytest.raises(ValueError):  # f32 input
+        layernorm(x.float(), torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))

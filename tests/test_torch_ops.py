@@ -1,0 +1,119 @@
+"""Plain versions of the port's kernels against the JAX package's Pallas
+kernels (interpret mode on the CPU), on the same numpy inputs, in f32.
+
+Tolerances, f32: 1e-5 where both sides compute the same sums in another
+order (LayerNorm, voxel embed); 1e-4 where the JAX kernel's GELU uses the
+A&S 7.1.26 erf (abs error 1.5e-7, summed over the hidden layer) or its
+softmax runs online over KV tiles against the plain version's whole row.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax.experimental.pallas import tpu as pltpu
+
+torch = pytest.importorskip("torch")
+
+from intentbev.configs import GridConfig  # noqa: E402
+from intentbev.ops import flash_packed as jfp  # noqa: E402
+from intentbev.ops import voxel_embed as jve  # noqa: E402
+from intentbev.ops.fused_ln_mlp import fused_ln_mlp as jax_fused_ln_mlp  # noqa: E402
+from intentbev.ops.layernorm import fused_layernorm as jax_layernorm  # noqa: E402
+from intentbev_torch.ops import (flash_attention_packed, fused_ln_mlp,  # noqa: E402
+                                 layernorm, voxel_embed_tokens)
+from intentbev_torch.ops.voxel_embed import VoxelChunks  # noqa: E402
+
+GRID = GridConfig(height_px=80, width_px=96, lidar_height_channels=4, lidar_sweeps=2)
+PATCH = 8
+# the module (``intentbev.ops`` re-exports a function of the same name)
+jfm = importlib.import_module("intentbev.ops.fused_mlp")
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def test_layernorm_matches_pallas(rng):
+    x = rng.normal(0.5, 2.0, (300, 128)).astype(np.float32)
+    g = rng.normal(1.0, 0.3, 128).astype(np.float32)
+    b = rng.normal(0.0, 0.3, 128).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_layernorm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b)))
+    got = layernorm(_t(x), _t(g), _t(b)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
+def test_fused_ln_mlp_ln_out_matches_pallas(rng, gelu, monkeypatch):
+    monkeypatch.setattr(jfm, "_GELU_MODE", gelu)
+    n, d, hid = 300, 128, 512
+    x = rng.normal(0, 1, (n, d)).astype(np.float32)
+    ln = [rng.normal(1 - i % 2, 0.2, d).astype(np.float32) for i in range(4)]
+    w1 = rng.normal(0, d ** -0.5, (d, hid)).astype(np.float32)   # JAX [in, out]
+    b1 = rng.normal(0, 0.1, hid).astype(np.float32)
+    w2 = rng.normal(0, hid ** -0.5, (hid, d)).astype(np.float32)
+    b2 = rng.normal(0, 0.1, d).astype(np.float32)
+    j = [jnp.asarray(a) for a in (x, ln[0], ln[1], w1, b1, w2, b2)]
+    with pltpu.force_tpu_interpret_mode():
+        y_w, yn_w = jax_fused_ln_mlp(*j, ln_out=(jnp.asarray(ln[2]), jnp.asarray(ln[3])))
+    y, yn = fused_ln_mlp(_t(x), _t(ln[0]), _t(ln[1]), _t(w1.T.copy()), _t(b1),
+                         _t(w2.T.copy()), _t(b2), _t(ln[2]), _t(ln[3]),
+                         gelu_mode=gelu)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_w), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(yn.numpy(), np.asarray(yn_w), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("unsafe", [False, True])
+@pytest.mark.parametrize("kv_chunk", [0, 128])
+def test_flash_packed_matches_pallas(rng, kv_chunk, unsafe):
+    b, t, h, seq_len = 2, 300, 6, 283  # ragged: keys >= 283 are masked
+    dm = h * 64
+    q, k, v = (rng.normal(0, 1, (b, t, dm)).astype(np.float32) for _ in range(3))
+    t_pad = 768  # the JAX wrapper's padding: lcm of its row blocks
+
+    def pad(a):
+        return jnp.asarray(np.pad(a, ((0, 0), (0, t_pad - t), (0, 0))))
+
+    with pltpu.force_tpu_interpret_mode():
+        o_w, lse_w = jfp._fwd(pad(q), pad(k), pad(v), h, 64 ** -0.5, seq_len,
+                              kv_chunk, safe=not unsafe)
+    o, lse = flash_attention_packed(_t(q), _t(k), _t(v), h, seq_len)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_w)[:, :t], atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_w)[:, :, :t, 0],
+                               atol=1e-4, rtol=1e-5)
+
+
+def _points(rng, s=2, p=1500):
+    pts = np.empty((s, p, 4), np.float32)
+    pts[..., 0] = rng.uniform(GRID.bev_x_min, GRID.bev_x_max, (s, p))
+    pts[..., 1] = rng.uniform(GRID.bev_y_min, GRID.bev_y_max, (s, p))
+    pts[..., 2] = rng.uniform(-3, 5, (s, p))
+    pts[..., 3] = rng.uniform(0, 255, (s, p))
+    return pts, rng.uniform(size=(s, p)) < 0.9
+
+
+def test_voxel_embed_matches_pallas(rng):
+    """Two samples, the second empty; one cell's channel set to C (the TPU
+    kernel's one-hot drops it, the port skips it)."""
+    c = GRID.lidar_total_channels
+    pts, valid = _points(rng)
+    full, _ = jve.build_voxel_chunks(pts, valid, GRID, PATCH, num_chunks=64)
+    empty, _ = jve.build_voxel_chunks(pts, np.zeros_like(valid), GRID, PATCH,
+                                      num_chunks=64)
+    chunks = jve.stack_voxel_chunks([full, empty])
+    ch = np.asarray(chunks.ch).copy()
+    ch[0, 0, 0, 0, 0] = c
+    chunks = chunks._replace(ch=ch)
+    kern = rng.normal(0, 0.05, (PATCH, PATCH, c, 64)).astype(np.float32)
+    bias = rng.normal(0, 0.1, 64).astype(np.float32)
+    hw = (GRID.height_px, GRID.width_px)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jve.voxel_embed_tokens(
+            VoxelChunks(*(jnp.asarray(a) for a in chunks)), jnp.asarray(kern),
+            jnp.asarray(bias), PATCH, hw))
+    got = voxel_embed_tokens(VoxelChunks(*(_t(a) for a in chunks)), _t(kern),
+                             _t(bias), PATCH, hw).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(got[1], np.broadcast_to(bias, got[1].shape))
