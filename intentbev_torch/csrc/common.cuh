@@ -61,6 +61,36 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Column sums of per-block partials: out[c] = sum_p part[p * width + c],
+// p in order (deterministic). One thread per column.
+static __global__ void sum_partials_kernel(const float* __restrict__ part, int n_parts,
+                                           int width, float* __restrict__ out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= width) return;
+  float s = 0.f;
+  for (int p = 0; p < n_parts; ++p) s += part[(size_t)p * width + c];
+  out[c] = s;
+}
+
+static inline void sum_partials(const float* part, int n_parts, int width, float* out,
+                                cudaStream_t stream) {
+  sum_partials_kernel<<<(width + 255) / 256, 256, 0, stream>>>(part, n_parts, width, out);
+}
+
+// B fragment of the 16x8 tile at (k0, n0) of a [k][n] array (stride ld),
+// read as scalars: for operands stored with the contraction axis outermost.
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[2], const bf16* s, int ld,
+                                          int n0, int k0, int lane) {
+  const bf16* p = s + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+  __nv_bfloat162 v0, v1;
+  v0.x = p[0];
+  v0.y = p[ld];
+  v1.x = p[8 * ld];
+  v1.y = p[9 * ld];
+  b[0] = *reinterpret_cast<uint32_t*>(&v0);
+  b[1] = *reinterpret_cast<uint32_t*>(&v1);
+}
+
 // Row LayerNorm of 384 f32 values spread as 12 per lane of one warp
 // (lane holds columns 2*lane + 64*i + {0, 1}, i < 6): two-pass f32
 // statistics, as the JAX kernels compute them (mean, then mean of the

@@ -180,6 +180,281 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward. Replaces intentbev/ops/flash_packed.py::_bwd_fused_kernel:
+//   p = exp(qh k^T - lse),  t = p * (dO v^T - delta),  delta = rowsum(dO * O)
+//   dv = p^T dO,  dk = t^T qh,  dq = scale * t k
+// with the JAX kernel's rounding points: qh = q * scale rounded to bf16,
+// p recomputed in f32 from lse, and p and t rounded to bf16 before the
+// products (dk is taken against the scaled qh, so it needs no scale).
+// Bound on the H100: tensor-core throughput, 5 products of 2*B*H*T*T*64 =
+// 622 GFLOP at B=8, T=4501, 6 heads (this design recomputes the scores in
+// both passes: 7 products).
+// Design: the TPU kernel keeps dk/dv resident in VMEM across a sequential
+// query-block grid; blocks on the H100 run in parallel and in no order, so
+// the work is split into two deterministic passes, as in FlashAttention-2:
+//  - dkdv: one 128-thread block per (64-key tile, head, batch); each warp
+//    owns 16 keys, holds k and v as mma.sync A fragments and walks every
+//    64-query tile (qh and dO staged in shared memory in both layouts),
+//    accumulating dk and dv in registers. Keys at or past seq_len get
+//    dk = dv = 0.
+//  - dq: one block per (64-query tile, head, batch); each warp holds its
+//    qh and dO rows as A fragments and walks the key tiles below seq_len,
+//    accumulating dq in registers.
+// S^T and P^T stay in registers and feed the next product as A fragments
+// (the register reuse of the forward). dq, dk and dv are written straight
+// into one [B, T, 3*H*64] gradient of the qkv projection.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&c)[8][4],
+                                              int kk) {
+  a[0] = pack_bf16x2(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16x2(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// Stage a 64 x 64 tile of rows r0.. (row-major, stride ld, zero past T) into
+// s[row][d] and, when st is given, st[d][row]; scale != 1 multiplies in f32
+// before the bf16 rounding.
+__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, size_t base,
+                                           long long ld, int r0, int T, float scale,
+                                           bf16* s, bf16* st, int tid) {
+  for (int i = tid; i < 64 * HD / 8; i += 128) {
+    const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (r0 + r < T) raw = *reinterpret_cast<const uint4*>(src + base + (size_t)(r0 + r) * ld + c8);
+    if (scale != 1.f) {
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+      uint32_t o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[j] = pack_bf16x2(__bfloat162float(e[2 * j]) * scale,
+                           __bfloat162float(e[2 * j + 1]) * scale);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[j] = o[j];
+    }
+    *reinterpret_cast<uint4*>(s + r * LDS + c8) = raw;
+    if (st) {
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) st[(c8 + j) * LDS + r] = e[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(128)
+    flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dqkv, int T, int seq_len, int H,
+                          long long row_stride, long long batch_stride, float scale) {
+  __shared__ __align__(16) bf16 qs[BQ * LDS];   // qh [query][d]
+  __shared__ __align__(16) bf16 qtr[HD * LDS];  // qh [d][query]
+  __shared__ __align__(16) bf16 dos[BQ * LDS];  // dO [query][d]
+  __shared__ __align__(16) bf16 dot[HD * LDS];  // dO [d][query]
+  __shared__ float ls[BQ], ds[BQ];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int dm = H * HD;
+  const size_t base = (size_t)b * batch_stride + (size_t)h * HD;
+  const size_t obase = (size_t)b * T * dm + (size_t)h * HD;  // dO: contiguous
+  const size_t lbase = ((size_t)b * H + h) * T;
+  const int wr = warp * 16;
+
+  // k and v rows of this warp as A fragments
+  stage_tile(k, base, row_stride, k0, T, 1.f, qs, nullptr, tid);
+  stage_tile(v, base, row_stride, k0, T, 1.f, dos, nullptr, tid);
+  __syncthreads();
+  uint32_t ka[4][4], va[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    load_a(ka[kk], qs, LDS, wr, kk * 16, lane);
+    load_a(va[kk], dos, LDS, wr, kk * 16, lane);
+  }
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int q0 = 0; q0 < T; q0 += BQ) {
+    __syncthreads();  // previous tile (or the k/v staging) consumed
+    stage_tile(q, base, row_stride, q0, T, scale, qs, qtr, tid);
+    stage_tile(dout, obase, dm, q0, T, 1.f, dos, dot, tid);
+    if (tid < BQ) {
+      const bool ok = q0 + tid < T;
+      ls[tid] = ok ? lse[lbase + q0 + tid] : INFINITY;  // p = 0 past T
+      ds[tid] = ok ? delta[lbase + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+    float p[8][4], t[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = t[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bq[2], bd[2];
+        load_b(bq, qs, LDS, n * 8, kk * 16, lane);
+        mma_16816(p[n], ka[kk], bq);   // S^T[key][query]
+        load_b(bd, dos, LDS, n * 8, kk * 16, lane);
+        mma_16816(t[n], va[kk], bd);   // (dO v^T)^T[key][query]
+      }
+      const int c = n * 8 + 2 * t4;
+      const float l0 = ls[c], l1 = ls[c + 1], d0 = ds[c], d1 = ds[c + 1];
+      p[n][0] = expf(p[n][0] - l0);
+      p[n][1] = expf(p[n][1] - l1);
+      p[n][2] = expf(p[n][2] - l0);
+      p[n][3] = expf(p[n][3] - l1);
+      t[n][0] = p[n][0] * (t[n][0] - d0);
+      t[n][1] = p[n][1] * (t[n][1] - d1);
+      t[n][2] = p[n][2] * (t[n][2] - d0);
+      t[n][3] = p[n][3] * (t[n][3] - d1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4], ta[4];
+      pack_a_from_c(pa, p, kk);
+      pack_a_from_c(ta, t, kk);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t bo[2], bq[2];
+        load_b(bo, dot, LDS, n * 8, kk * 16, lane);
+        mma_16816(dv[n], pa, bo);
+        load_b(bq, qtr, LDS, n * 8, kk * 16, lane);
+        mma_16816(dk[n], ta, bq);
+      }
+    }
+  }
+
+  const int r0 = k0 + wr + g, r1 = r0 + 8;
+  const float z0 = r0 < seq_len ? 1.f : 0.f, z1 = r1 < seq_len ? 1.f : 0.f;
+  const size_t ld3 = (size_t)3 * dm;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = h * HD + n * 8 + 2 * t4;
+    if (r0 < T) {
+      bf16* row = dqkv + ((size_t)b * T + r0) * ld3;
+      *reinterpret_cast<uint32_t*>(row + dm + c) = pack_bf16x2(dk[n][0] * z0, dk[n][1] * z0);
+      *reinterpret_cast<uint32_t*>(row + 2 * dm + c) =
+          pack_bf16x2(dv[n][0] * z0, dv[n][1] * z0);
+    }
+    if (r1 < T) {
+      bf16* row = dqkv + ((size_t)b * T + r1) * ld3;
+      *reinterpret_cast<uint32_t*>(row + dm + c) = pack_bf16x2(dk[n][2] * z1, dk[n][3] * z1);
+      *reinterpret_cast<uint32_t*>(row + 2 * dm + c) =
+          pack_bf16x2(dv[n][2] * z1, dv[n][3] * z1);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(128)
+    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dqkv, int T, int seq_len, int H,
+                        long long row_stride, long long batch_stride, float scale) {
+  __shared__ __align__(16) bf16 ks[BK * LDS];   // k [key][d]
+  __shared__ __align__(16) bf16 ktr[HD * LDS];  // k [d][key]
+  __shared__ __align__(16) bf16 vs[BK * LDS];   // v [key][d]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int dm = H * HD;
+  const size_t base = (size_t)b * batch_stride + (size_t)h * HD;
+  const size_t obase = (size_t)b * T * dm + (size_t)h * HD;
+  const size_t lbase = ((size_t)b * H + h) * T;
+  const int wr = warp * 16;
+  const int r0 = q0 + wr + g, r1 = r0 + 8;
+
+  stage_tile(q, base, row_stride, q0, T, scale, ks, nullptr, tid);
+  stage_tile(dout, obase, dm, q0, T, 1.f, vs, nullptr, tid);
+  __syncthreads();
+  uint32_t qa[4][4], oa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    load_a(qa[kk], ks, LDS, wr, kk * 16, lane);
+    load_a(oa[kk], vs, LDS, wr, kk * 16, lane);
+  }
+  const float l0 = r0 < T ? lse[lbase + r0] : 0.f, l1 = r1 < T ? lse[lbase + r1] : 0.f;
+  const float d0 = r0 < T ? delta[lbase + r0] : 0.f, d1 = r1 < T ? delta[lbase + r1] : 0.f;
+
+  float dq[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  const int n_tiles = (seq_len + BK - 1) / BK;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * BK;
+    __syncthreads();  // previous tile (or the q/dO staging) consumed
+    stage_tile(k, base, row_stride, kv0, T, 1.f, ks, ktr, tid);
+    stage_tile(v, base, row_stride, kv0, T, 1.f, vs, nullptr, tid);
+    __syncthreads();
+
+    float p[8][4], t[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = t[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bk_[2], bv[2];
+        load_b(bk_, ks, LDS, n * 8, kk * 16, lane);
+        mma_16816(p[n], qa[kk], bk_);   // S[query][key]
+        load_b(bv, vs, LDS, n * 8, kk * 16, lane);
+        mma_16816(t[n], oa[kk], bv);    // dO v^T [query][key]
+      }
+      const int key = kv0 + n * 8 + 2 * t4;  // keys past seq_len: p = 0
+      p[n][0] = key < seq_len ? expf(p[n][0] - l0) : 0.f;
+      p[n][1] = key + 1 < seq_len ? expf(p[n][1] - l0) : 0.f;
+      p[n][2] = key < seq_len ? expf(p[n][2] - l1) : 0.f;
+      p[n][3] = key + 1 < seq_len ? expf(p[n][3] - l1) : 0.f;
+      t[n][0] = p[n][0] * (t[n][0] - d0);
+      t[n][1] = p[n][1] * (t[n][1] - d0);
+      t[n][2] = p[n][2] * (t[n][2] - d1);
+      t[n][3] = p[n][3] * (t[n][3] - d1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ta[4];
+      pack_a_from_c(ta, t, kk);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t bk_[2];
+        load_b(bk_, ktr, LDS, n * 8, kk * 16, lane);
+        mma_16816(dq[n], ta, bk_);
+      }
+    }
+  }
+
+  const size_t ld3 = (size_t)3 * dm;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = h * HD + n * 8 + 2 * t4;
+    if (r0 < T)
+      *reinterpret_cast<uint32_t*>(dqkv + ((size_t)b * T + r0) * ld3 + c) =
+          pack_bf16x2(dq[n][0] * scale, dq[n][1] * scale);
+    if (r1 < T)
+      *reinterpret_cast<uint32_t*>(dqkv + ((size_t)b * T + r1) * ld3 + c) =
+          pack_bf16x2(dq[n][2] * scale, dq[n][3] * scale);
+  }
+}
+
 }  // namespace
 
 // q/k/v: bf16, element (b, t, h*64 + d) at b*batch_stride + t*row_stride +
@@ -193,6 +468,29 @@ extern "C" int ibk_flash_fwd(const void* q, const void* k, const void* v, void* 
     flash_fwd_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
         T, seq_len, H, row_stride, batch_stride, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Backward: q/k/v as in the forward; dout bf16 [B, T, H*64] contiguous; lse,
+// delta f32 [B, H, T]; dqkv bf16 [B, T, 3*H*64] contiguous (dq | dk | dv).
+extern "C" int ibk_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dqkv, int B, int T,
+                             int seq_len, int H, long long row_stride,
+                             long long batch_stride, float scale, void* stream) {
+  if (B > 0 && T > 0 && seq_len > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    dim3 grid((T + BQ - 1) / BQ, H, B);
+    flash_bwd_dkdv_kernel<<<grid, 128, 0, s>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dqkv, T, seq_len, H, row_stride,
+        batch_stride, scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_kernel<<<grid, 128, 0, s>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dqkv, T, seq_len, H, row_stride,
+        batch_stride, scale);
   }
   return (int)cudaGetLastError();
 }

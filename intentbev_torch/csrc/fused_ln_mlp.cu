@@ -1,22 +1,26 @@
-// Fused transformer block tail with the serving LN epilogue:
-//   xn = LN2(x);  y = x + (GELU(xn W1 + b1) W2 + b2);  yn = LN_next(y)
+// Fused transformer block tail, three kernels:
 //
-// Replaces: intentbev/ops/fused_ln_mlp.py::_fwd_ln_out_kernel (+ _mlp_body),
-// the one kernel per encoder block of the serving LN chain.
-// Bound on the H100: tensor-core throughput. At 36008 x 384 rows and a
-// 1536-wide hidden layer a call is 4*N*384*1536 = 85 GFLOP against 83 MB of
-// activations in and out; W1 + W2 (2.36 MB bf16) sit in L2.
-// Design: one 256-thread block owns 64 whole rows, so both LayerNorms are
-// block-local and the [64, 1536] hidden activation never leaves the SM. The
-// block normalises its rows into shared memory (bf16, as the JAX kernel
-// feeds the MXU), then walks the hidden dimension in 64-wide tiles: stage
-// the W1 and W2 tiles in shared memory, g = xn W1[:, tile] (mma.sync),
-// bias + GELU in f32, h as bf16 in shared memory, acc += h W2[tile, :].
-// The f32 accumulator [64, 384] lives in registers (96 per thread). The
-// epilogue adds b2 and the residual in f32, writes y as bf16 and takes the
-// next LayerNorm from the f32 y (not the bf16-rounded y), like the JAX
-// kernel. The drop-path gate of the training kernel is 1 at inference and
-// is left out.
+// 1. Serving, with the LN epilogue of the serving LN chain:
+//      xn = LN2(x);  y = x + (GELU(xn W1 + b1) W2 + b2);  yn = LN_next(y)
+//    Replaces intentbev/ops/fused_ln_mlp.py::_fwd_ln_out_kernel (+ _mlp_body).
+// 2. Training forward, with the per-row drop-path gate and no epilogue:
+//      y = x + gate * (GELU(xn W1 + b1) W2 + b2)
+//    Replaces intentbev/ops/fused_ln_mlp.py::_fwd_kernel.
+// 3. Training backward (below), replacing ::_bwd_kernel.
+//
+// Forward bound on the H100: tensor-core throughput. At 36008 x 384 rows and
+// a 1536-wide hidden layer a call is 4*N*384*1536 = 85 GFLOP against 83 MB
+// of activations in and out; W1 + W2 (2.36 MB bf16) sit in L2.
+// Forward design: one 256-thread block owns 64 whole rows, so both
+// LayerNorms are block-local and the [64, 1536] hidden activation never
+// leaves the SM. The block normalises its rows into shared memory (bf16, as
+// the JAX kernel feeds the MXU), then walks the hidden dimension in 64-wide
+// tiles: stage the W1 and W2 tiles in shared memory, g = xn W1[:, tile]
+// (mma.sync), bias + GELU in f32, h as bf16 in shared memory,
+// acc += h W2[tile, :]. The f32 accumulator [64, 384] lives in registers
+// (96 per thread). The epilogue adds b2, scales by the gate (training) and
+// adds the residual in f32, writes y as bf16 and, serving, takes the next
+// LayerNorm from the f32 y (not the bf16-rounded y), like the JAX kernel.
 #include "common.cuh"
 
 namespace {
@@ -43,14 +47,22 @@ __device__ __forceinline__ float gelu(float v) {
   return v / (1.f + expf(-1.702f * v));
 }
 
-template <int GELU>
+__device__ __forceinline__ float dgelu_erf(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * 0.3989422804014327f * expf(-0.5f * v * v);
+}
+
+// TRAIN: y = x + gate * mlp (gate may be null: 1), no yn; else the serving
+// kernel with the LN_next epilogue.
+template <int GELU, bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
     fused_ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ g2,
                         const float* __restrict__ be2, const bf16* __restrict__ w1,
                         const float* __restrict__ b1, const bf16* __restrict__ w2,
                         const float* __restrict__ b2, const float* __restrict__ gn,
-                        const float* __restrict__ bn, bf16* __restrict__ y,
-                        bf16* __restrict__ yn, int n_rows, int hidden, float eps) {
+                        const float* __restrict__ bn, const float* __restrict__ gate,
+                        bf16* __restrict__ y, bf16* __restrict__ yn, int n_rows,
+                        int hidden, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* w1s = xs + XN_ELEMS;
@@ -158,7 +170,8 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  // 3. epilogue: f32 (acc + b2) -> shared, then per row y = . + x, LN_next
+  // 3. epilogue: f32 (acc + b2) -> shared, then per row y = . (* gate) + x,
+  //    LN_next (serving)
   __syncthreads();  // every warp is done reading w2s before ys aliases it
 #pragma unroll
   for (int n = 0; n < 24; ++n) {
@@ -175,6 +188,19 @@ __global__ void __launch_bounds__(THREADS)
     const int grow = row0 + r;
     if (grow >= n_rows) break;  // warp-uniform
     float v[12];
+    if constexpr (TRAIN) {
+      const float gt = gate ? gate[grow] : 1.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int c = 2 * lane + 64 * i;
+        const __nv_bfloat162 p =
+            *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)grow * D + c);
+        *reinterpret_cast<uint32_t*>(y + (size_t)grow * D + c) =
+            pack_bf16x2(ys[r * LDY + c] * gt + __bfloat162float(p.x),
+                        ys[r * LDY + c + 1] * gt + __bfloat162float(p.y));
+      }
+      continue;
+    }
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
       const int c = 2 * lane + 64 * i;
@@ -197,20 +223,20 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int GELU>
+template <int GELU, bool TRAIN>
 int launch(const void* x, const void* g2, const void* be2, const void* w1,
            const void* b1, const void* w2, const void* b2, const void* gn,
-           const void* bn, void* y, void* yn, int n_rows, int hidden, float eps,
-           cudaStream_t stream) {
+           const void* bn, const void* gate, void* y, void* yn, int n_rows,
+           int hidden, float eps, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_ln_mlp_kernel<GELU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_ln_mlp_kernel<GELU, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_rows + ROWS - 1) / ROWS;
-  fused_ln_mlp_kernel<GELU><<<blocks, THREADS, SMEM_BYTES, stream>>>(
+  fused_ln_mlp_kernel<GELU, TRAIN><<<blocks, THREADS, SMEM_BYTES, stream>>>(
       (const bf16*)x, (const float*)g2, (const float*)be2, (const bf16*)w1,
       (const float*)b1, (const bf16*)w2, (const float*)b2, (const float*)gn,
-      (const float*)bn, (bf16*)y, (bf16*)yn, n_rows, hidden, eps);
+      (const float*)bn, (const float*)gate, (bf16*)y, (bf16*)yn, n_rows, hidden, eps);
   return (int)cudaGetLastError();
 }
 
@@ -225,8 +251,416 @@ extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
                                 float eps, int gelu_mode, void* stream) {
   if (n_rows <= 0) return (int)cudaGetLastError();
   if (gelu_mode == 0)
-    return launch<0>(x, g2, be2, w1, b1, w2, b2, gn, bn, y, yn, n_rows, hidden,
-                     eps, (cudaStream_t)stream);
-  return launch<1>(x, g2, be2, w1, b1, w2, b2, gn, bn, y, yn, n_rows, hidden,
-                   eps, (cudaStream_t)stream);
+    return launch<0, false>(x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, y, yn,
+                            n_rows, hidden, eps, (cudaStream_t)stream);
+  return launch<1, false>(x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, y, yn, n_rows,
+                          hidden, eps, (cudaStream_t)stream);
+}
+
+// Training forward (exact erf GELU): gate is f32 [n_rows] or null (1).
+extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void* be2,
+                                      const void* w1, const void* b1, const void* w2,
+                                      const void* b2, const void* gate, void* y,
+                                      int n_rows, int hidden, float eps, void* stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  return launch<0, true>(x, g2, be2, w1, b1, w2, b2, nullptr, nullptr, gate, y, nullptr,
+                         n_rows, hidden, eps, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// 3. Training backward. Replaces intentbev/ops/fused_ln_mlp.py::_bwd_kernel:
+//      recompute xhat, inv, xn = LN2(x), g = xn W1 + b1, h = GELU(g)
+//      dy_eff = dy * gate;  dh = dy_eff W2^T;  dg = dh * GELU'(g)
+//      dxn = dg W1;  dgamma = sum dxn * xhat;  dbeta = sum dxn
+//      dx = inv * (dxn*gamma - mean(dxn*gamma) - xhat * mean(dxn*gamma*xhat)) + dy
+//      dW1 = dg^T xn;  db1 = sum dg;  dW2 = dy_eff^T h;  db2 = sum dy_eff
+// with the JAX kernel's rounding points: xn, dy_eff, h and dg are rounded to
+// bf16 before they enter a product; the products accumulate in f32.
+// Bound on the H100: tensor-core throughput, 5 products of 2*N*384*1536 =
+// 212 GFLOP at N = 36008 (the row kernel recomputes g: 6 products here).
+// Design: the TPU kernel accumulates dW1/dW2 (2.36 MB f32 each) in VMEM
+// across a sequential row grid, which has no counterpart on 132 SMs running
+// in parallel. So the work is split in two kernels:
+//  (a) a row kernel, one 256-thread block per 64 rows: LN recompute into
+//      shared memory, then per 64-wide hidden tile g (xn W1^T), dh
+//      (dy_eff W2), h and dg; h and dg go to device memory as bf16, and
+//      dxn += dg W1 accumulates in registers ([64, 384] f32, 96 a thread).
+//      The epilogue finishes dx row by row and writes per-block column
+//      partials of dgamma, dbeta, db1 and db2;
+//  (b) a split-K GEMM kernel C = A^T B over the rows, 64 x 64 output tiles,
+//      for dW1 = dg^T xn and dW2 = dy_eff^T h; each split writes an f32
+//      partial. A second small kernel sums the partials of every output in
+//      a fixed order, so the result is deterministic (no atomics).
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int BWD_THREADS = 256;
+constexpr size_t BX_ELEMS = (size_t)ROWS * LDX;   // xn, dy_eff, W1 tile
+constexpr size_t BW2_ELEMS = (size_t)D * LDH;     // W2 tile as [d][h]
+constexpr size_t BDG_ELEMS = (size_t)ROWS * LDH;  // dg tile
+constexpr size_t BWD_SMEM_BYTES = (3 * BX_ELEMS + BW2_ELEMS + BDG_ELEMS) * 2 +
+                                  (4 * HT + 2 * ROWS) * 4;
+static_assert((size_t)ROWS * LDY * 4 <= (BX_ELEMS + BW2_ELEMS) * 2,
+              "f32 dxn tile must fit in the W1/W2 staging area");
+static_assert((size_t)3 * 8 * D * 4 <= BX_ELEMS * 2,
+              "column partials must fit in the xn area");
+
+__global__ void __launch_bounds__(BWD_THREADS)
+    ln_mlp_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g2,
+                           const float* __restrict__ be2, const bf16* __restrict__ w1,
+                           const float* __restrict__ b1, const bf16* __restrict__ w2,
+                           const float* __restrict__ gate, const bf16* __restrict__ dy,
+                           bf16* __restrict__ dx, bf16* __restrict__ xn_out,
+                           bf16* __restrict__ dye_out, bf16* __restrict__ h_out,
+                           bf16* __restrict__ dg_out, float* __restrict__ part_db1,
+                           float* __restrict__ part_cols, int n_rows, int hidden,
+                           float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* dys = xs + BX_ELEMS;
+  bf16* w1s = dys + BX_ELEMS;
+  bf16* w2s = w1s + BX_ELEMS;
+  bf16* dgs = w2s + BW2_ELEMS;
+  float* red = reinterpret_cast<float*>(dgs + BDG_ELEMS);  // [4][HT]
+  float* rmean = red + 4 * HT;
+  float* rinv = rmean + ROWS;
+  float* ys = reinterpret_cast<float*>(w1s);  // epilogue: f32 dxn [ROWS][LDY]
+  float* cols = reinterpret_cast<float*>(xs);  // epilogue: [3][8][D]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = blockIdx.x * ROWS;
+
+  // 1. xn = LN2(x) and dy_eff = dy * gate -> shared (bf16) and device memory
+  for (int rr = 0; rr < ROWS / 8; ++rr) {
+    const int r = warp * (ROWS / 8) + rr;
+    const int grow = row0 + r;
+    const bool ok = grow < n_rows;
+    float v[12], d[12];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      float a = 0.f, b = 0.f, da = 0.f, db = 0.f;
+      if (ok) {
+        const size_t off = (size_t)grow * D + 2 * lane + 64 * i;
+        const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(x + off);
+        const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(dy + off);
+        a = __bfloat162float(p.x);
+        b = __bfloat162float(p.y);
+        da = __bfloat162float(q.x);
+        db = __bfloat162float(q.y);
+      }
+      v[2 * i] = a;
+      v[2 * i + 1] = b;
+      d[2 * i] = da;
+      d[2 * i + 1] = db;
+    }
+    const float gt = ok ? (gate ? gate[grow] : 1.f) : 0.f;
+    float mean, inv;
+    warp_ln_stats(v, eps, mean, inv);
+    if (lane == 0) {
+      rmean[r] = mean;
+      rinv[r] = inv;
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const int c = 2 * lane + 64 * i;
+      const uint32_t xn2 =
+          pack_bf16x2((v[2 * i] - mean) * inv * g2[c] + be2[c],
+                      (v[2 * i + 1] - mean) * inv * g2[c + 1] + be2[c + 1]);
+      const uint32_t dy2 = pack_bf16x2(d[2 * i] * gt, d[2 * i + 1] * gt);
+      *reinterpret_cast<uint32_t*>(xs + r * LDX + c) = xn2;
+      *reinterpret_cast<uint32_t*>(dys + r * LDX + c) = dy2;
+      if (ok) {
+        *reinterpret_cast<uint32_t*>(xn_out + (size_t)grow * D + c) = xn2;
+        *reinterpret_cast<uint32_t*>(dye_out + (size_t)grow * D + c) = dy2;
+      }
+    }
+  }
+
+  // warp tiling: rows wr..wr+15; hidden columns wc..wc+31 of the tile for
+  // g and dh; dxn output columns oc..oc+191
+  const int wr = (warp & 3) * 16;
+  const int wc = (warp >> 2) * 32;
+  const int oc = (warp >> 2) * 192;
+  float acc[24][4];
+#pragma unroll
+  for (int n = 0; n < 24; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int h0 = 0; h0 < hidden; h0 += HT) {
+    __syncthreads();  // xs/dys written (first pass) / previous tile consumed
+    // W1 rows h0..h0+63 of [hidden][D] -> w1s [h][d]
+    for (int i = tid; i < HT * D / 8; i += BWD_THREADS) {
+      const int n = i / (D / 8), c8 = (i % (D / 8)) * 8;
+      *reinterpret_cast<uint4*>(w1s + n * LDX + c8) =
+          *reinterpret_cast<const uint4*>(w1 + (size_t)(h0 + n) * D + c8);
+    }
+    // W2 columns h0..h0+63 of [D][hidden] -> w2s [d][h]
+    for (int i = tid; i < D * HT / 8; i += BWD_THREADS) {
+      const int n = i / (HT / 8), c8 = (i % (HT / 8)) * 8;
+      *reinterpret_cast<uint4*>(w2s + n * LDH + c8) =
+          *reinterpret_cast<const uint4*>(w2 + (size_t)n * hidden + h0 + c8);
+    }
+    __syncthreads();
+
+    float gacc[4][4], hacc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gacc[n][e] = hacc[n][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < D; k0 += 16) {
+      uint32_t a[4], ad[4];
+      load_a(a, xs, LDX, wr, k0, lane);
+      load_a(ad, dys, LDX, wr, k0, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        uint32_t b[2], bd[2];
+        load_b(b, w1s, LDX, wc + n * 8, k0, lane);      // W1 tile as [n=h][k=d]
+        mma_16816(gacc[n], a, b);
+        load_b_kn(bd, w2s, LDH, wc + n * 8, k0, lane);  // W2 tile as [k=d][n=h]
+        mma_16816(hacc[n], ad, bd);
+      }
+    }
+    // h, dg (f32 -> bf16), db1 column sums over this block's rows
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = wc + n * 8 + 2 * t4;
+      const float bb0 = b1[h0 + c], bb1 = b1[h0 + c + 1];
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = wr + g + 8 * half;
+        const float ga = gacc[n][2 * half] + bb0, gb = gacc[n][2 * half + 1] + bb1;
+        const float da = hacc[n][2 * half] * dgelu_erf(ga);
+        const float db = hacc[n][2 * half + 1] * dgelu_erf(gb);
+        s0 += da;
+        s1 += db;
+        const uint32_t dg2 = pack_bf16x2(da, db);
+        *reinterpret_cast<uint32_t*>(dgs + r * LDH + c) = dg2;
+        if (row0 + r < n_rows) {
+          const size_t off = (size_t)(row0 + r) * hidden + h0 + c;
+          *reinterpret_cast<uint32_t*>(dg_out + off) = dg2;
+          *reinterpret_cast<uint32_t*>(h_out + off) =
+              pack_bf16x2(gelu<0>(ga), gelu<0>(gb));
+        }
+      }
+#pragma unroll
+      for (int o_ = 4; o_ <= 16; o_ <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o_);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o_);
+      }
+      if (g == 0) {
+        red[(warp & 3) * HT + c] = s0;
+        red[(warp & 3) * HT + c + 1] = s1;
+      }
+    }
+    __syncthreads();
+    if (tid < HT)
+      part_db1[(size_t)blockIdx.x * hidden + h0 + tid] =
+          red[tid] + red[HT + tid] + red[2 * HT + tid] + red[3 * HT + tid];
+    // dxn += dg W1[tile, :]
+#pragma unroll
+    for (int k0 = 0; k0 < HT; k0 += 16) {
+      uint32_t a[4];
+      load_a(a, dgs, LDH, wr, k0, lane);
+#pragma unroll
+      for (int n = 0; n < 24; ++n) {
+        uint32_t b[2];
+        load_b_kn(b, w1s, LDX, oc + n * 8, k0, lane);  // W1 tile as [k=h][n=d]
+        mma_16816(acc[n], a, b);
+      }
+    }
+  }
+
+  // 2. epilogue: dxn -> shared (f32), then per row the LN backward
+  __syncthreads();  // every warp is done with w1s/w2s/xs before the aliases
+#pragma unroll
+  for (int n = 0; n < 24; ++n) {
+    const int c = oc + n * 8 + 2 * t4;
+    ys[(wr + g) * LDY + c] = acc[n][0];
+    ys[(wr + g) * LDY + c + 1] = acc[n][1];
+    ys[(wr + g + 8) * LDY + c] = acc[n][2];
+    ys[(wr + g + 8) * LDY + c + 1] = acc[n][3];
+  }
+  __syncthreads();
+  float cg[12], cb[12], cd[12];  // column sums: dgamma, dbeta, db2
+#pragma unroll
+  for (int i = 0; i < 12; ++i) cg[i] = cb[i] = cd[i] = 0.f;
+  for (int rr = 0; rr < ROWS / 8; ++rr) {
+    const int r = warp * (ROWS / 8) + rr;
+    const int grow = row0 + r;
+    if (grow >= n_rows) break;  // warp-uniform
+    const float mean = rmean[r], inv = rinv[r];
+    const float gt = gate ? gate[grow] : 1.f;
+    float xh[12], dxn[12], d[12];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const int c = 2 * lane + 64 * i;
+      const size_t off = (size_t)grow * D + c;
+      const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(x + off);
+      const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(dy + off);
+      xh[2 * i] = (__bfloat162float(p.x) - mean) * inv;
+      xh[2 * i + 1] = (__bfloat162float(p.y) - mean) * inv;
+      d[2 * i] = __bfloat162float(q.x);
+      d[2 * i + 1] = __bfloat162float(q.y);
+      dxn[2 * i] = ys[r * LDY + c];
+      dxn[2 * i + 1] = ys[r * LDY + c + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      const int c = 2 * lane + 64 * (i >> 1) + (i & 1);
+      cg[i] += dxn[i] * xh[i];
+      cb[i] += dxn[i];
+      cd[i] += d[i] * gt;
+      dxn[i] *= g2[c];  // dyg
+      s1 += dxn[i];
+      s2 += dxn[i] * xh[i];
+    }
+    const float m1 = warp_sum(s1) * (1.f / D), m2 = warp_sum(s2) * (1.f / D);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      const int c = 2 * lane + 64 * i;
+      *reinterpret_cast<uint32_t*>(dx + (size_t)grow * D + c) = pack_bf16x2(
+          inv * (dxn[2 * i] - m1 - xh[2 * i] * m2) + d[2 * i],
+          inv * (dxn[2 * i + 1] - m1 - xh[2 * i + 1] * m2) + d[2 * i + 1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    const int c = 2 * lane + 64 * (i >> 1) + (i & 1);
+    cols[(0 * 8 + warp) * D + c] = cg[i];
+    cols[(1 * 8 + warp) * D + c] = cb[i];
+    cols[(2 * 8 + warp) * D + c] = cd[i];
+  }
+  __syncthreads();
+  const int nb = gridDim.x;
+  for (int i = tid; i < 3 * D; i += BWD_THREADS) {
+    const int which = i / D, c = i % D;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += cols[(which * 8 + w) * D + c];
+    part_cols[((size_t)which * nb + blockIdx.x) * D + c] = s;
+  }
+}
+
+// Split-K C = A^T B over rows: A [R][M], B [R][N] (bf16, row-major), one
+// f32 partial [M][N] per split (blockIdx.z) into part. M, N multiples of 64.
+constexpr int GT = 64;       // output tile (M and N)
+constexpr int GK = 64;       // rows per staged chunk
+constexpr int LDK = GK + 8;
+
+__global__ void __launch_bounds__(256)
+    gemm_at_b_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                     float* __restrict__ part, int R, int M, int N, int rows_per_split) {
+  __shared__ __align__(16) bf16 as[GT * LDK];  // [m][r]
+  __shared__ __align__(16) bf16 bs[GT * LDK];  // [n][r]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;
+  float acc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += GK) {
+    __syncthreads();  // previous chunk consumed
+    for (int i = tid; i < GK * GT / 8; i += 256) {
+      const int r = i / (GT / 8), c8 = (i % (GT / 8)) * 8;
+      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
+      if (r0 + r < r_end) {
+        va = *reinterpret_cast<const uint4*>(A + (size_t)(r0 + r) * M + m0 + c8);
+        vb = *reinterpret_cast<const uint4*>(B + (size_t)(r0 + r) * N + n0 + c8);
+      }
+      const bf16* ea = reinterpret_cast<const bf16*>(&va);
+      const bf16* eb = reinterpret_cast<const bf16*>(&vb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        as[(c8 + e) * LDK + r] = ea[e];
+        bs[(c8 + e) * LDK + r] = eb[e];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k0 = 0; k0 < GK; k0 += 16) {
+      uint32_t a[4];
+      load_a(a, as, LDK, wr, k0, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        uint32_t b[2];
+        load_b(b, bs, LDK, wc + n * 8, k0, lane);
+        mma_16816(acc[n], a, b);
+      }
+    }
+  }
+  float* out = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int c = n0 + wc + n * 8 + 2 * t4;
+    const int r = m0 + wr + g;
+    out[(size_t)r * N + c] = acc[n][0];
+    out[(size_t)r * N + c + 1] = acc[n][1];
+    out[(size_t)(r + 8) * N + c] = acc[n][2];
+    out[(size_t)(r + 8) * N + c + 1] = acc[n][3];
+  }
+}
+
+int gemm_at_b(const bf16* A, const bf16* B, float* part, float* out, int R, int M,
+              int N, int splits, cudaStream_t s) {
+  const int per = ((R + splits - 1) / splits + GK - 1) / GK * GK;
+  dim3 grid(M / GT, N / GT, splits);
+  gemm_at_b_kernel<<<grid, 256, 0, s>>>(A, B, part, R, M, N, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials(part, splits, M * N, out, s);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Training backward (exact erf GELU). Outputs: dx bf16 [n_rows, 384];
+// dgamma, dbeta, db2 f32 [384]; db1 f32 [hidden]; dw1 f32 [hidden, 384];
+// dw2 f32 [384, hidden]. Workspaces: xn_ws, dye_ws bf16 [n_rows, 384];
+// h_ws, dg_ws bf16 [n_rows, hidden]; part f32 of
+// max(splits * hidden * 384, ceil(n_rows / 64) * (hidden + 3 * 384)).
+extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* be2,
+                                    const void* w1, const void* b1, const void* w2,
+                                    const void* gate, const void* dy, void* dx,
+                                    void* dgamma, void* dbeta, void* dw1, void* db1,
+                                    void* dw2, void* db2, void* xn_ws, void* dye_ws,
+                                    void* h_ws, void* dg_ws, void* part, int n_rows,
+                                    int hidden, float eps, int splits, void* stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd_rows_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)BWD_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int nb = (n_rows + ROWS - 1) / ROWS;
+  float* p_db1 = (float*)part;
+  float* p_cols = p_db1 + (size_t)nb * hidden;  // [3][nb][D]
+  ln_mlp_bwd_rows_kernel<<<nb, BWD_THREADS, BWD_SMEM_BYTES, s>>>(
+      (const bf16*)x, (const float*)g2, (const float*)be2, (const bf16*)w1,
+      (const float*)b1, (const bf16*)w2, (const float*)gate, (const bf16*)dy, (bf16*)dx,
+      (bf16*)xn_ws, (bf16*)dye_ws, (bf16*)h_ws, (bf16*)dg_ws, p_db1, p_cols, n_rows,
+      hidden, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials(p_db1, nb, hidden, (float*)db1, s);
+  sum_partials(p_cols, nb, D, (float*)dgamma, s);
+  sum_partials(p_cols + (size_t)nb * D, nb, D, (float*)dbeta, s);
+  sum_partials(p_cols + (size_t)2 * nb * D, nb, D, (float*)db2, s);
+  int e = gemm_at_b((const bf16*)dg_ws, (const bf16*)xn_ws, (float*)part, (float*)dw1,
+                    n_rows, hidden, D, splits, s);
+  if (e) return e;
+  return gemm_at_b((const bf16*)dye_ws, (const bf16*)h_ws, (float*)part, (float*)dw2,
+                   n_rows, D, hidden, splits, s);
 }

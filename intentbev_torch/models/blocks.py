@@ -1,10 +1,14 @@
-"""Residual building blocks at inference (NHWC at the public boundary).
+"""Residual building blocks (NHWC at the public boundary).
 
 Counterpart of ``intentbev/models/blocks.py``: BasicBlock (conv-BN-ReLU x2
-+ identity or 1x1 projection shortcut) with torch-style symmetric padding,
-BatchNorm from its running statistics (eps 1e-5) computed in f32 and
-rounded to the compute dtype, as flax does. Convolutions are plain
-``F.conv2d`` (XLA convolutions in the JAX package).
++ identity or 1x1 projection shortcut) with torch-style symmetric padding.
+BatchNorm (eps 1e-5) is computed in f32 and rounded to the compute dtype,
+as flax does: from its running statistics in eval mode; in training mode
+from the batch, with the biased (fast) variance max(0, E[x^2] - E[x]^2),
+and the running averages follow ra = 0.9 ra + 0.1 batch (flax momentum
+0.9; ``nn.BatchNorm2d`` itself would use the unbiased variance).
+Convolutions are plain ``F.conv2d`` (XLA convolutions in the JAX package),
+with the weights cast to the input's dtype at use.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 
+BN_MOMENTUM = 0.9
+
+
 def batch_norm_infer(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """BN over NCHW with running statistics, math in f32."""
     mul = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
@@ -21,6 +28,27 @@ def batch_norm_infer(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     y = (x.float() - bn.running_mean.float().view(shape)) * mul.view(shape) \
         + bn.bias.float().view(shape)
     return y.to(x.dtype)
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """BN over NCHW with the batch's f32 statistics (biased variance);
+    updates the running averages in place."""
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+    shape = (1, -1, 1, 1)
+    mul = bn.weight.float() * torch.rsqrt(var + bn.eps)
+    return ((xf - mean.view(shape)) * mul.view(shape) + bn.bias.float().view(shape)).to(x.dtype)
+
+
+def conv(mod: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``mod`` applied with its parameters cast to x's dtype (f32 master
+    weights in training; a no-op cast when they already are)."""
+    b = None if mod.bias is None else mod.bias.to(x.dtype)
+    return F.conv2d(x, mod.weight.to(x.dtype), b, mod.stride, mod.padding)
 
 
 class BasicBlock(nn.Module):
@@ -41,11 +69,12 @@ class BasicBlock(nn.Module):
             self.proj_bn = nn.BatchNorm2d(planes, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
-        y = F.relu(batch_norm_infer(self.conv1(x), self.bn1))
-        y = batch_norm_infer(self.conv2(y), self.bn2)
+        bn = batch_norm_train if self.training else batch_norm_infer
+        y = F.relu(bn(conv(self.conv1, x), self.bn1))
+        y = bn(conv(self.conv2, y), self.bn2)
         identity = x
         if self.proj_conv is not None:
-            identity = batch_norm_infer(self.proj_conv(x), self.proj_bn)
+            identity = bn(conv(self.proj_conv, x), self.proj_bn)
         return F.relu(y + identity)
 
 

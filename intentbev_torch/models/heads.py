@@ -11,9 +11,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .blocks import conv
 
-def _conv_nhwc(conv: nn.Conv2d, x_nhwc: torch.Tensor, per_anchor: int):
-    out = conv(x_nhwc.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+def _conv_nhwc(mod: nn.Conv2d, x_nhwc: torch.Tensor, per_anchor: int):
+    out = conv(mod, x_nhwc.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     b, hf, wf, _ = out.shape
     return out.reshape(b, hf, wf, -1, per_anchor)
 

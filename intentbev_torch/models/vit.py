@@ -1,8 +1,8 @@
-"""IntentNetViT at inference: two ViT-S/8 streams, adapters, residual
-fusion, detection and intention heads.
+"""IntentNetViT: two ViT-S/8 streams, adapters, residual fusion,
+detection and intention heads.
 
-Counterpart of ``intentbev/models/vit.py`` on its serving path
-(``deterministic=True`` with the serving LN chain):
+Counterpart of ``intentbev/models/vit.py``. In eval mode the module runs
+the serving path (``deterministic=True`` with the serving LN chain):
 
 - lidar tokens come from placement chunks through the voxel-embed kernel,
   map tokens from a stride-8 patch embed (a plain matmul over patches);
@@ -14,12 +14,24 @@ Counterpart of ``intentbev/models/vit.py`` on its serving path
 - per stream an adapter LN kernel, Linear and exact-erf GELU, reshaped to
   NHWC; the fusion ResidualStage; the heads; f32 logits out.
 
+In training mode (``model.train()``) it runs the JAX model's training
+structure, which is unchained (``deterministic=False``): the lidar stream
+takes a dense BEV through the patch embed (a matmul over patches); every
+block runs a standalone norm1 LN kernel, qkv (GEMM), the flash kernel, proj
+(GEMM) times the attention drop-path gate plus the residual, and the fused
+LN+MLP training tail with its gate; the final norm and each adapter norm
+are LN kernels; BatchNorm uses the batch statistics. Each of these kernels
+is a ``torch.autograd.Function`` whose backward is a kernel too. The
+drop-path gates (per sample, 0 or 1/keep, rates linspace(0, rate, depth))
+are drawn from the generator the caller passes.
+
 Tokens are not padded: the flash kernel takes any T and the LN/MLP
-kernels any row count. LayerNorm eps is 1e-6 throughout. Matmul weights
-are held in the compute dtype and biases/LN parameters in f32, the
-rounding the JAX package gets by casting its f32 parameters at use.
-``plain_ops=True`` runs each kernel's plain PyTorch version instead (the
-on-card oracle); CPU tensors always take the plain versions.
+kernels any row count. LayerNorm eps is 1e-6 throughout. Weights are held
+in ``param_dtype`` (the compute dtype for serving, f32 master weights for
+training) and cast to the compute dtype at use; biases and LN parameters
+are f32, the rounding the JAX package gets by casting its f32 parameters
+at use. ``plain_ops=True`` runs each kernel's plain PyTorch version instead
+(the on-card oracle); CPU tensors always take the plain versions.
 """
 
 from __future__ import annotations
@@ -30,10 +42,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import numpy as np
+
 from ..bev.rasterize import decode_map_transport
-from ..ops.flash_packed import flash_attention_packed, flash_attention_packed_plain
-from ..ops.fused_ln_mlp import GELU_MODES, fused_ln_mlp, fused_ln_mlp_plain
-from ..ops.layernorm import layernorm, layernorm_plain
+from ..ops.flash_packed import (flash_attention_fn, flash_attention_packed,
+                                flash_attention_packed_plain)
+from ..ops.fused_ln_mlp import GELU_MODES, fused_ln_mlp, fused_ln_mlp_fn, fused_ln_mlp_plain
+from ..ops.layernorm import layernorm, layernorm_fn, layernorm_plain
 from ..ops.voxel_embed import (VoxelChunks, voxel_embed_tokens,
                                voxel_embed_tokens_plain)
 from .blocks import ResidualStage
@@ -64,8 +79,8 @@ class LayerNormParams(nn.Module):
 
 
 class Linear(nn.Module):
-    """Dense layer: weight [out, in] in the compute dtype, bias in f32 (cast
-    to the compute dtype at use, like flax ``nn.Dense(dtype=...)``)."""
+    """Dense layer: weight [out, in] in the parameter dtype, bias in f32,
+    both cast to the input's dtype at use, like flax ``nn.Dense(dtype=...)``."""
 
     def __init__(self, fin: int, fout: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -75,12 +90,12 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight, b)
+        return F.linear(x, self.weight.to(x.dtype), b)
 
 
 class PatchEmbed(nn.Module):
     """Stride-P patch-embed conv parameters in the JAX layout: weight
-    [P, P, C, D] (compute dtype), bias [D] (f32)."""
+    [P, P, C, D] (parameter dtype), bias [D] (f32)."""
 
     def __init__(self, patch: int, in_ch: int, dim: int, dtype: torch.dtype):
         super().__init__()
@@ -94,8 +109,8 @@ class PatchEmbed(nn.Module):
         p = self.patch
         xp = x_nhwc.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         xp = xp.reshape(b, (h // p) * (w // p), p * p * c)
-        wt = self.weight.reshape(p * p * c, -1)
-        return torch.matmul(xp.to(wt.dtype), wt) + self.bias.to(wt.dtype)
+        wt = self.weight.to(x_nhwc.dtype).reshape(p * p * c, -1)
+        return torch.matmul(xp, wt) + self.bias.to(x_nhwc.dtype)
 
 
 class Attention(nn.Module):
@@ -139,6 +154,21 @@ class EncoderBlock(nn.Module):
             x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
             m.fc2.weight, m.fc2.bias, ln_next.weight, ln_next.bias, LN_EPS, gelu)
 
+    def forward_train(self, x, gates, plain: bool):
+        """Unchained training block; ``gates``: (attention, MLP) per-sample
+        f32 [B] drop-path gates, each None for 1."""
+        h = layernorm_fn(x, self.norm1.weight, self.norm1.bias, LN_EPS, plain)
+        o = flash_attention_fn(self.attn.qkv(h), self.attn.num_heads, None, plain)
+        y = self.attn.proj(o)
+        if gates[0] is not None:
+            y = y * gates[0].to(y.dtype)[:, None, None]
+        x = x + y
+        m, dt = self.mlp, x.dtype
+        gate = None if gates[1] is None else gates[1][:, None].expand(x.shape[:2])
+        return fused_ln_mlp_fn(
+            x, self.norm2.weight, self.norm2.bias, m.fc1.weight.to(dt), m.fc1.bias,
+            m.fc2.weight.to(dt), m.fc2.bias, gate, LN_EPS, plain)
+
 
 class ViTEncoder(nn.Module):
     """Patch embed + CLS + pos embed + blocks; returns final-normed tokens
@@ -158,6 +188,34 @@ class ViTEncoder(nn.Module):
             EncoderBlock(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, dtype)
             for _ in range(cfg.depth))
         self.norm = LayerNormParams(d)
+
+    def drop_path_gates(self, batch: int, generator, device):
+        """Per block, the (attention, MLP) gates: per sample 0 or 1/keep at
+        the block's rate, or None where the rate is 0 or no generator is
+        given."""
+        rates = np.linspace(0.0, self.cfg.drop_path_rate, self.cfg.depth)
+        gates = []
+        for rate in rates:
+            if rate <= 0 or generator is None:
+                gates.append((None, None))
+                continue
+            keep = 1.0 - float(rate)
+            gates.append(tuple(
+                (torch.rand(batch, generator=generator, device=device) < keep).float() / keep
+                for _ in range(2)))
+        return gates
+
+    def forward_train(self, x_nhwc, generator, plain: bool) -> torch.Tensor:
+        """Dense BEV -> final-normed tokens [B, 1+N, D], training structure."""
+        tokens = self.patch_embed.dense(x_nhwc)
+        b, _, d = tokens.shape
+        dt = tokens.dtype
+        tokens = torch.cat([self.cls_token.to(dt).expand(b, 1, d), tokens], 1)
+        tokens = tokens + self.pos_embed.to(dt)
+        gates = self.drop_path_gates(b, generator, tokens.device)
+        for blk, g in zip(self.blocks, gates):
+            tokens = blk.forward_train(tokens, g, plain)
+        return layernorm_fn(tokens, self.norm.weight, self.norm.bias, LN_EPS, plain)
 
     def forward(self, x, ops: Ops, gelu: str) -> torch.Tensor:
         cfg = self.cfg
@@ -208,30 +266,59 @@ class TwoStreamViTBackbone(nn.Module):
         ], dim=-1)
         return self.fusion(feats)
 
+    def forward_train(self, lidar, map_nhwc, generator, plain: bool) -> torch.Tensor:
+        gh, gw = self.cfg.grid_size
+
+        def stream(enc, norm, proj, x):
+            tokens = enc.forward_train(x, generator, plain)[:, 1:].contiguous()
+            h = F.gelu(proj(layernorm_fn(tokens, norm.weight, norm.bias, LN_EPS, plain)))
+            return h.reshape(h.shape[0], gh, gw, -1)
+
+        feats = torch.cat([
+            stream(self.vit_lidar, self.adapter_lidar_norm, self.adapter_lidar_proj, lidar),
+            stream(self.vit_map, self.adapter_map_norm, self.adapter_map_proj, map_nhwc),
+        ], dim=-1)
+        return self.fusion(feats)
+
 
 class IntentNetViT(nn.Module):
     """(lidar: decoded VoxelChunks or an NHWC BEV; map: NHWC, or bit-packed
     u8 [B, H, W, ceil(C/8)]) -> f32 (cls [B, N, 1], box deltas [B, N, 6],
-    intent logits [B, N, C]), N = Hf*Wf*A."""
+    intent logits [B, N, C]), N = Hf*Wf*A.
+
+    ``dtype`` is the compute dtype, ``param_dtype`` that of the weights
+    (default: the compute dtype; training passes f32). In training mode the
+    lidar input is a dense NHWC BEV and the block MLPs take the exact erf
+    GELU."""
 
     def __init__(self, cfg, head_cfg, dtype: torch.dtype = torch.float32,
-                 gelu: str = "erf", plain_ops: bool = False):
+                 gelu: str = "erf", plain_ops: bool = False,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         if gelu not in GELU_MODES:
             raise ValueError(f"gelu mode {gelu!r} not in {GELU_MODES}")
+        pdt = dtype if param_dtype is None else param_dtype
         self.cfg = cfg
         self.dtype = dtype
         self.gelu = gelu
+        self.plain_ops = plain_ops
         self.ops = PLAIN_OPS if plain_ops else KERNEL_OPS
-        self.backbone = TwoStreamViTBackbone(cfg, dtype)
+        self.backbone = TwoStreamViTBackbone(cfg, pdt)
         self.det_head = DetectionHead(cfg.fusion_planes, head_cfg.num_anchors,
-                                      head_cfg.num_box_params, dtype)
+                                      head_cfg.num_box_params, pdt)
         self.intention_head = IntentionHead(cfg.fusion_planes, head_cfg.num_anchors,
-                                            head_cfg.num_intention_classes, dtype)
+                                            head_cfg.num_intention_classes, pdt)
 
-    def forward(self, lidar, map_bev: torch.Tensor):
+    def forward(self, lidar, map_bev: torch.Tensor, generator=None):
+        """``generator`` draws the drop-path gates in training mode."""
         m = decode_map_transport(map_bev, self.cfg.map_input_channels, self.dtype)
-        feats = self.backbone(lidar, m, self.ops, self.gelu)
+        if self.training:
+            if self.gelu != "erf":
+                raise ValueError("training takes the exact erf GELU")
+            feats = self.backbone.forward_train(lidar.to(self.dtype), m, generator,
+                                                self.plain_ops)
+        else:
+            feats = self.backbone(lidar, m, self.ops, self.gelu)
         cls_l, box = self.det_head(feats)
         intent = self.intention_head(feats)
         return tuple(t.float() for t in flatten_head_outputs(cls_l, box, intent))

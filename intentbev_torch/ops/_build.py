@@ -32,7 +32,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("voxel_embed", "flash_packed", "fused_ln_mlp", "layernorm")
+KERNELS = ("voxel_embed", "flash_packed", "fused_ln_mlp", "layernorm",
+           "flash_packed_bwd", "fused_ln_mlp_train", "fused_ln_mlp_bwd",
+           "layernorm_train", "layernorm_bwd")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: ctypes.CDLL | None = None
@@ -99,6 +101,11 @@ _SIGNATURES = {
     "ibk_fused_ln_mlp": (_P,) * 11 + (_I, _I, _F, _I, _P),
     "ibk_flash_fwd": (_P,) * 5 + (_I, _I, _I, _I, _L, _L, _F, _P),
     "ibk_voxel_embed": (_P,) * 8 + (_I,) * 7 + (_P,),
+    "ibk_layernorm_train": (_P,) * 6 + (_I, _F, _P),
+    "ibk_layernorm_bwd": (_P,) * 8 + (_I, _P),
+    "ibk_fused_ln_mlp_train": (_P,) * 9 + (_I, _I, _F, _P),
+    "ibk_fused_ln_mlp_bwd": (_P,) * 20 + (_I, _I, _F, _I, _P),
+    "ibk_flash_bwd": (_P,) * 7 + (_I, _I, _I, _I, _L, _L, _F, _P),
 }
 
 

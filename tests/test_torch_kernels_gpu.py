@@ -11,17 +11,23 @@ kernel differs only where f32 summation order tips a value to the
 neighbouring bf16. Each limit (those of ``chip_smoke.py``) lies between that
 noise and the reading of a control, the plain version with one plausible
 fault, and each test also checks that the control reaches the limit.
+The training kernels (LayerNorm forward/backward, LN+MLP forward with a
+drop-path gate and backward, flash backward) run at small and at the
+training step's full-width shapes.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from intentbev.configs import GridConfig, default_vit_config  # noqa: E402
+from intentbev_torch.configs import GridConfig, default_vit_config  # noqa: E402
 from intentbev_torch.ops import (  # noqa: E402
-    flash_attention_packed, flash_attention_packed_plain, fused_ln_mlp,
-    fused_ln_mlp_plain, launches, layernorm, layernorm_plain,
-    reset_launch_counts, voxel_embed_tokens, voxel_embed_tokens_plain)
+    flash_attention_packed, flash_attention_packed_bwd, flash_attention_packed_bwd_plain,
+    flash_attention_packed_plain, fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
+    fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, launches, layernorm,
+    layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
+    layernorm_train_plain, reset_launch_counts, voxel_embed_tokens,
+    voxel_embed_tokens_plain)
 from intentbev_torch.ops.voxel_embed import (  # noqa: E402
     chunks_to_device, decode_chunk_transport)
 from intentbev_torch.parallel.inference import build_chunk_transport  # noqa: E402
@@ -161,3 +167,98 @@ def test_cuda_tensors_never_take_the_plain_version(dev):
         layernorm(x, torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
     with pytest.raises(ValueError):  # f32 input
         layernorm(x.float(), torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
+
+
+# Limits of the training kernels (those of chip_smoke.py; PERF.md has the
+# sound and control readings they sit between).
+LN_BWD_LIMIT = 1e-3
+MLP_BWD_LIMIT = 2e-3
+FLASH_BWD_LIMIT = 1e-2
+
+
+def _rels(got, want):
+    return [_rel(a, b) for a, b in zip(got, want)]
+
+
+def layernorm_bwd_no_m2(dy, xhat, inv, g):
+    """Control fault: the LN backward without its mean(dyg * xhat) term."""
+    dyg = dy.float() * g
+    dx = inv[..., None] * (dyg - dyg.mean(-1, keepdim=True))
+    return dx.to(dy.dtype), (dy.float() * xhat.float()).sum(0), dy.float().sum(0)
+
+
+def _gate(rows_b, t, seed):
+    """Per-sample drop-path gate (0 or 1/0.9) broadcast over t tokens."""
+    keep = torch.rand(rows_b, generator=_gen(seed), device="cuda") < 0.7
+    return (keep.float() / 0.9)[:, None].expand(rows_b, t).contiguous()
+
+
+@pytest.mark.parametrize("rows", [10, MAIN_ROWS])
+def test_layernorm_train_and_bwd(dev, rows):
+    x = _randn((rows, D), 2.0, 0) + 0.5
+    g = _randn((D,), 0.3, 1, torch.float32) + 1
+    b = _randn((D,), 0.3, 2, torch.float32)
+    y, xhat, inv = layernorm_train(x, g, b)
+    y_p, xhat_p, inv_p = layernorm_train_plain(x, g, b)
+    assert _rel(y, y_p) < 3e-4 and _rel(xhat, xhat_p) < 3e-4 and _rel(inv, inv_p) < 1e-5
+    assert _rel(y, _layernorm_unbiased(x, g, b)) >= 3e-4
+    dy = _randn((rows, D), 1.0, 3)
+    got = layernorm_bwd(dy, xhat, inv, g)
+    want = layernorm_bwd_plain(dy, xhat, inv, g)
+    assert max(_rels(got, want)) < LN_BWD_LIMIT
+    assert max(_rels(got, layernorm_bwd_no_m2(dy, xhat, inv, g))) >= LN_BWD_LIMIT
+
+
+def _mlp_params():
+    ln = [_randn((D,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2)]
+    w1 = _randn((4 * D, D), D ** -0.5, 5)
+    b1 = _randn((4 * D,), 0.1, 6, torch.float32)
+    w2 = _randn((D, 4 * D), (4 * D) ** -0.5, 7)
+    b2 = _randn((D,), 0.1, 8, torch.float32)
+    return ln[0], ln[1], w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("b,t", [(2, 50), (8, 4501)])
+def test_fused_ln_mlp_train_and_bwd(dev, b, t):
+    x = _randn((b, t, D), 1.0, 0)
+    gamma, beta, w1, b1, w2, b2 = _mlp_params()
+    gate = _gate(b, t, 9)
+    gate[0] = 0.0  # one sample dropped
+    y = fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate)
+    assert _rel(y, fused_ln_mlp_train_plain(x, gamma, beta, w1, b1, w2, b2, gate)) < 1e-3
+    # control: the gate ignored
+    assert _rel(y, fused_ln_mlp_train_plain(x, gamma, beta, w1, b1, w2, b2)) >= 1e-3
+    dy = _randn((b, t, D), 1.0, 10)
+    got = fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gate, dy)
+    want = fused_ln_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, gate, dy)
+    assert max(_rels(got, want)) < MLP_BWD_LIMIT, _rels(got, want)
+    ctrl = fused_ln_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, None, dy)
+    assert max(_rels(got, ctrl)) >= MLP_BWD_LIMIT
+
+
+@pytest.mark.parametrize("b,t,seq_len", [(1, 300, 250), (2, 130, 130), (8, 4501, 4501)])
+def test_flash_bwd_on_qkv_slices(dev, b, t, seq_len):
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    o, lse = flash_attention_packed(q, k, v, 6, seq_len)
+    do = _randn((b, t, D), 1.0, 1)
+    got = flash_attention_packed_bwd(q, k, v, o, lse, do, 6, seq_len)
+    want = flash_attention_packed_bwd_plain(q, k, v, o, lse, do, 6, seq_len)
+    parts = [slice(j * D, (j + 1) * D) for j in range(3)]
+    rels = [_rel(got[..., p], want[..., p]) for p in parts]
+    assert max(rels) < FLASH_BWD_LIMIT, rels
+    assert not got[:, seq_len:, D:].any()  # masked keys: dk = dv = 0
+    # control: delta = rowsum(dO * O) left out (O = 0)
+    ctrl = flash_attention_packed_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, 6, seq_len)
+    assert max(_rel(got[..., p], ctrl[..., p]) for p in parts) >= FLASH_BWD_LIMIT
+
+
+def test_training_launch_counts(dev):
+    x = _randn((64, D), 1.0, 0)
+    g, b = torch.ones(D, device="cuda"), torch.zeros(D, device="cuda")
+    reset_launch_counts()
+    y, xhat, inv = layernorm_train(x, g, b)
+    layernorm_bwd(x, xhat, inv, g)
+    layernorm_bwd_plain(x, xhat, inv, g)
+    assert launches["layernorm_train"] == 1 and launches["layernorm_bwd"] == 1
+    assert launches["layernorm"] == 0

@@ -5,10 +5,15 @@ Tolerances, f32: 1e-5 where both sides compute the same sums in another
 order (LayerNorm, voxel embed); 1e-4 where the JAX kernel's GELU uses the
 A&S 7.1.26 erf (abs error 1.5e-7, summed over the hidden layer) or its
 softmax runs online over KV tiles against the plain version's whole row.
+The training entries (forward and backward, autograd) are held against
+``jax.grad`` through the Pallas kernels' custom VJPs: LayerNorm to 1e-5
+(dgamma/dbeta sums over 300 rows: 1e-4 absolute), LN+MLP and flash to 1e-4
+relative (weight gradients sum over all rows: 1e-4 of their largest value).
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,8 +26,9 @@ from intentbev.ops import flash_packed as jfp  # noqa: E402
 from intentbev.ops import voxel_embed as jve  # noqa: E402
 from intentbev.ops.fused_ln_mlp import fused_ln_mlp as jax_fused_ln_mlp  # noqa: E402
 from intentbev.ops.layernorm import fused_layernorm as jax_layernorm  # noqa: E402
-from intentbev_torch.ops import (flash_attention_packed, fused_ln_mlp,  # noqa: E402
-                                 layernorm, voxel_embed_tokens)
+from intentbev_torch.ops import (flash_attention_fn, flash_attention_packed,  # noqa: E402
+                                 fused_ln_mlp, fused_ln_mlp_fn, layernorm, layernorm_fn,
+                                 voxel_embed_tokens)
 from intentbev_torch.ops.voxel_embed import VoxelChunks  # noqa: E402
 
 GRID = GridConfig(height_px=80, width_px=96, lidar_height_channels=4, lidar_sweeps=2)
@@ -117,3 +123,91 @@ def test_voxel_embed_matches_pallas(rng):
                              _t(bias), PATCH, hw).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     np.testing.assert_array_equal(got[1], np.broadcast_to(bias, got[1].shape))
+
+
+def _close(got, want, rel, name):
+    """max|got - want| <= rel * max|want| (gradients summed over many rows)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, name
+    err = np.abs(got - want).max()
+    assert err <= rel * max(np.abs(want).max(), 1e-30), f"{name}: {err} vs {np.abs(want).max()}"
+
+
+def _leaf(a):
+    return _t(a).clone().requires_grad_(True)
+
+
+def test_layernorm_grad_matches_pallas(rng):
+    x = rng.normal(0.5, 2.0, (300, 128)).astype(np.float32)
+    g = rng.normal(1.0, 0.3, 128).astype(np.float32)
+    b = rng.normal(0.0, 0.3, 128).astype(np.float32)
+    dy = rng.normal(0, 1, (300, 128)).astype(np.float32)
+
+    def loss(x_, g_, b_):
+        return jnp.sum(jax_layernorm(x_, g_, b_) * jnp.asarray(dy))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, g, b)))
+    leaves = [_leaf(a) for a in (x, g, b)]
+    y = layernorm_fn(*leaves)
+    (y * _t(dy)).sum().backward()
+    for name, leaf, w, tol in zip(("dx", "dgamma", "dbeta"), leaves, want, (1e-5, 1e-5, 1e-5)):
+        _close(leaf.grad.numpy(), w, tol, name)
+    with torch.no_grad():  # no gradient: the inference kernel's plain twin
+        np.testing.assert_allclose(layernorm_fn(*leaves).numpy(), y.detach().numpy(),
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_fused_ln_mlp_grad_matches_pallas(rng, gated):
+    """Gate None, and a per-sample 0-or-1/keep gate broadcast over tokens."""
+    b, t, d, hid = 3, 100, 128, 512
+    x = rng.normal(0, 1, (b, t, d)).astype(np.float32)
+    gamma = rng.normal(1, 0.2, d).astype(np.float32)
+    beta = rng.normal(0, 0.2, d).astype(np.float32)
+    w1 = rng.normal(0, d ** -0.5, (d, hid)).astype(np.float32)   # JAX [in, out]
+    b1 = rng.normal(0, 0.1, hid).astype(np.float32)
+    w2 = rng.normal(0, hid ** -0.5, (hid, d)).astype(np.float32)
+    b2 = rng.normal(0, 0.1, d).astype(np.float32)
+    dy = rng.normal(0, 1, (b, t, d)).astype(np.float32)
+    gate = (np.array([1.0, 0.0, 1.0], np.float32) / 0.9)[:, None] * np.ones((b, t), np.float32)
+    gate_j = jnp.asarray(gate) if gated else None
+
+    def loss(*a):
+        return jnp.sum(jax_fused_ln_mlp(*a, gate=gate_j) * jnp.asarray(dy))
+
+    args = (x, gamma, beta, w1, b1, w2, b2)
+    with pltpu.force_tpu_interpret_mode():
+        y_w = jax_fused_ln_mlp(*map(jnp.asarray, args), gate=gate_j)
+        want = jax.grad(loss, argnums=tuple(range(7)))(*map(jnp.asarray, args))
+    torch_args = (x, gamma, beta, w1.T.copy(), b1, w2.T.copy(), b2)
+    leaves = [_leaf(a) for a in torch_args]
+    y = fused_ln_mlp_fn(*leaves, gate=_t(gate) if gated else None)
+    _close(y.detach().numpy(), y_w, 1e-5, "y")
+    (y * _t(dy)).sum().backward()
+    names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for i, (name, leaf, w) in enumerate(zip(names, leaves, want)):
+        w = np.asarray(w)
+        if name in ("dw1", "dw2"):
+            w = w.T
+        _close(leaf.grad.numpy(), w, 1e-4, name)
+
+
+def test_flash_grad_matches_pallas(rng):
+    """Ragged: keys >= seq_len are masked, their dk and dv are 0."""
+    b, t, h, seq_len = 2, 300, 6, 283
+    dm = h * 64
+    q, k, v, do = (rng.normal(0, 1, (b, t, dm)).astype(np.float32) for _ in range(4))
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jfp.flash_attention_packed(q_, k_, v_, h, seq_len) * jnp.asarray(do))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qkv = _leaf(np.concatenate([q, k, v], -1))
+    o = flash_attention_fn(qkv, h, seq_len)
+    (o * _t(do)).sum().backward()
+    got = qkv.grad.numpy()
+    for j, (name, w) in enumerate(zip(("dq", "dk", "dv"), want)):
+        _close(got[..., j * dm:(j + 1) * dm], w, 1e-4, name)
+    assert not got[:, seq_len:, dm:].any()

@@ -1,11 +1,13 @@
-"""Where a serving request's time goes in the PyTorch port, on one CUDA card.
+"""Where a serving request's, or a training step's, time goes in the
+PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--requests 4] [--out chiprun_out/profile_slice]
+    python3 tools/profile_torch_slice.py --train [--out DIR]
 
-Drives ``intentbev_torch``'s ``StreamingInferencer`` (``default_vit_config()``
-at full width and depth, seeded random weights, bf16, the serving sigmoid
-GELU) over synthetic batches of 8 drawn as ``bench.py`` draws them, and
-reports:
+Serving: drives ``intentbev_torch``'s ``StreamingInferencer``
+(``default_vit_config()`` at full width and depth, seeded random weights,
+bf16, the serving sigmoid GELU) over synthetic batches of 8 drawn as
+``bench.py`` draws them, and reports:
 
 - per request, the wall time of each stage: host chunk build; H2D copy and
   forward, synchronized; post-processing (decode, top-k, fixpoint NMS) and
@@ -14,8 +16,19 @@ reports:
   kernel group, the device's busy time (the union of its kernel, copy and
   memset intervals), and its idle share of the request and of the forward.
 
-It prints a summary and writes ``profile_slice.json`` and the Chrome trace
-``trace.json`` under ``--out``. It imports no JAX.
+``--train``: drives ``make_train_step`` (the same model with f32 master
+weights, erf GELU, drop-path 0.1, batch 8 drawn as ``tools/bench_train.py``
+draws it, resident on the device) and reports the wall time of each step
+(synchronized) and, from one traced step, the device time per kernel
+group, the busy time and idle share of the step, and the device time of
+the kernels each of its spans launched (inputs, forward, loss, backward,
+optimizer; matched to their launch by the trace's correlation ids, as the
+device runs behind the host).
+
+It prints a summary and writes ``profile_slice.json`` (``profile_train.json``)
+and the Chrome trace ``trace.json`` under ``--out`` (for ``--train`` by
+default a ``profile_train`` directory beside the serving default). It
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -33,9 +46,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # kernel-name substring -> group, first match wins
 GROUPS = (
     ("flash_fwd_kernel", "flash_packed"),
-    ("fused_ln_mlp_kernel", "fused_ln_mlp"),
+    ("flash_bwd", "flash_packed_bwd"),
+    ("fused_ln_mlp_kernel", "fused_ln_mlp (serving or train forward)"),
+    ("ln_mlp_bwd_rows", "fused_ln_mlp_bwd (row kernel)"),
+    ("gemm_at_b", "fused_ln_mlp_bwd (dW kernel)"),
+    ("sum_partials", "column partial sums (LN, LN+MLP backward)"),
     ("layernorm_kernel", "layernorm"),
+    ("layernorm_train_kernel", "layernorm_train"),
+    ("layernorm_bwd_kernel", "layernorm_bwd"),
     ("voxel_embed_kernel", "voxel_embed"),
+    ("scatter", "scatter (voxelizer, assignment)"),
+    ("multi_tensor_apply", "optimizer (AdamW, foreach)"),
     ("fprop", "conv (map embed, fusion, heads)"),  # cuDNN's implicit-GEMM convs
     ("conv", "conv (map embed, fusion, heads)"),
     ("cudnn", "conv (map embed, fusion, heads)"),
@@ -73,9 +94,104 @@ def union_us(intervals, lo=float("-inf"), hi=float("inf")) -> float:
     return total
 
 
+def device_groups(dev):
+    """Device time (ms) and calls per kernel group and per kernel name."""
+    groups = collections.defaultdict(lambda: [0.0, 0])
+    names = collections.defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        g = group_of(e["name"]) if e["cat"] == "kernel" else e["cat"]
+        groups[g][0] += e["dur"] / 1e3
+        groups[g][1] += 1
+        names[e["name"][:90]][0] += e["dur"] / 1e3
+        names[e["name"][:90]][1] += 1
+    return (dict(sorted(groups.items(), key=lambda kv: -kv[1][0])),
+            dict(sorted(names.items(), key=lambda kv: -kv[1][0])[:15]))
+
+
+def profile_train(args, card) -> None:
+    import torch
+
+    from intentbev_torch.boxes import generate_anchors
+    from intentbev_torch.configs import default_vit_config
+    from intentbev_torch.models import IntentNetViT, init_params
+    from intentbev_torch.synthetic import train_batch
+    from intentbev_torch.train import make_optimizer, make_train_step
+
+    cfg = default_vit_config()
+    model = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32)
+    model.load_state_dict(init_params(cfg, seed=0))
+    model.to("cuda")
+    anchors = torch.from_numpy(generate_anchors(cfg.grid, cfg.anchors)).to("cuda")
+    step = make_train_step(model, cfg, anchors, make_optimizer(model.parameters(), cfg))
+    batch = {k: torch.from_numpy(a).to("cuda") for k, a in train_batch(
+        cfg.grid, 8, 16384, cfg.loss.max_gt_boxes, seed=0).items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(batch, gen)  # warm-up
+    step_ms = []
+    for _ in range(args.requests):
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    trace_path = out / "trace.json"
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("train/step"):
+            step(batch, gen)
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_path))
+
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name", "").startswith("train/")}
+    lo, hi = spans.pop("train/step")
+    busy = union_us([(e["ts"], e["ts"] + e["dur"]) for e in dev], lo, hi) / 1e3
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    span_dev = collections.defaultdict(float)
+    for e in dev:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        span = next((k for k, (a, b) in spans.items() if t is not None and a <= t < b),
+                    "outside the spans")
+        span_dev[span] += e["dur"] / 1e3
+    groups, names = device_groups(dev)
+    result = {
+        "card": card,
+        "step_ms": step_ms,
+        "profiled_step": {
+            "step_window_ms": (hi - lo) / 1e3,
+            "device_busy_ms": busy,
+            "device_idle_share": 1 - busy * 1e3 / (hi - lo),
+            "span_host_ms": {k: (b - a) / 1e3 for k, (a, b) in spans.items()},
+            "span_device_ms": dict(span_dev),
+            "groups_ms_calls": groups,
+            "top_kernels_ms_calls": names,
+        },
+    }
+    (out / "profile_train.json").write_text(json.dumps(result, indent=1))
+    print(f"card: {card}")
+    print("step ms (synchronized): " + " ".join(f"{x:.1f}" for x in step_ms))
+    p = result["profiled_step"]
+    print(f"profiled step: {p['step_window_ms']:.2f} ms, device busy "
+          f"{p['device_busy_ms']:.2f} ms, idle share {p['device_idle_share']:.4f}")
+    for k, w in p["span_host_ms"].items():
+        print(f"span {k}: host {w:.2f} ms, device time it launched "
+              f"{p['span_device_ms'].get(k, 0.0):.2f} ms")
+    for g, (ms, n) in p["groups_ms_calls"].items():
+        print(f"  {g}: {ms:.3f} ms over {n} calls")
+    print(f"wrote {out / 'profile_train.json'} and {trace_path}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=4,
+                    help="timed requests (serving) or steps (--train)")
+    ap.add_argument("--train", action="store_true", help="profile a training step")
     ap.add_argument("--out", default="chiprun_out/profile_slice")
     args = ap.parse_args()
 
@@ -86,8 +202,13 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0].strip()
+    if args.train:
+        if args.out == ap.get_default("out"):
+            args.out = str(Path(args.out).with_name("profile_train"))
+        profile_train(args, card)
+        return
 
-    from intentbev.configs import default_vit_config
+    from intentbev_torch.configs import default_vit_config
     from intentbev_torch.models import init_params
     from intentbev_torch.parallel import StreamingInferencer
     from intentbev_torch.synthetic import serving_batch
@@ -138,15 +259,7 @@ def main() -> None:
     busy_req = union_us(intervals, req_lo, req_hi)
     busy_fwd = union_us(intervals, fwd_lo, fwd_hi)
 
-    groups = collections.defaultdict(lambda: [0.0, 0])
-    names = collections.defaultdict(lambda: [0.0, 0])
-    for e in dev:
-        g = group_of(e["name"]) if e["cat"] == "kernel" else e["cat"]
-        groups[g][0] += e["dur"] / 1e3
-        groups[g][1] += 1
-        names[e["name"][:90]][0] += e["dur"] / 1e3
-        names[e["name"][:90]][1] += 1
-
+    groups, names = device_groups(dev)
     result = {
         "card": card,
         "requests": len(stages),
@@ -158,8 +271,8 @@ def main() -> None:
             "device_busy_ms": {"request": busy_req / 1e3, "forward": busy_fwd / 1e3},
             "device_idle_share": {"request": 1 - busy_req / (req_hi - req_lo),
                                   "forward": 1 - busy_fwd / (fwd_hi - fwd_lo)},
-            "groups_ms_calls": dict(sorted(groups.items(), key=lambda kv: -kv[1][0])),
-            "top_kernels_ms_calls": dict(sorted(names.items(), key=lambda kv: -kv[1][0])[:15]),
+            "groups_ms_calls": groups,
+            "top_kernels_ms_calls": names,
         },
     }
     (out / "profile_slice.json").write_text(json.dumps(result, indent=1))
