@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port on one CUDA card: the serving path and the
-training step.
+"""Smoke run of the PyTorch port on one CUDA card: the serving paths and the
+training steps of both model families.
 
     python3 chip_smoke.py
 
@@ -32,6 +32,23 @@ Phases (each prints a line; any failure exits nonzero with no result):
    it hides in the bf16 noise, and the kernel check of phase 3 carries
    it); then one warm-up and 3 timed steps, whose launch counts show every
    kernel of the step ran and whose loss and gradients are finite.
+6. CNN serving: the full-width IntentNetCNN (default_cnn_config, random
+   seeded weights whose BatchNorm statistics are those of a synthetic
+   batch, bf16) serves 3 requests of 8 synthetic frames through
+   ``StreamingInferencer(transport="chunks")``: one ``voxel_fill`` launch per
+   request and no other kernel; the logits agree with the same model run
+   through the plain fill and with ``transport="points"`` on the same
+   points (the fill's BEV and the voxelizer's agree cell for cell); a plain
+   run with the last chunk of each band skipped is caught; the Detections
+   are fixed-shape and finite.
+7. CNN training over the chunk train transport (f32 master weights, bf16
+   compute): one step's loss and gradients agree with the same step
+   through the plain fill and with the points-transport step on the same
+   points (identity augmentation), and the plain step with the last chunk
+   of each band skipped is caught; then one warm-up and 3 timed steps of
+   one ``voxel_fill`` launch each. The ViT of phase 5 then takes one step
+   over the chunk train transport: finite, with one ``voxel_fill`` launch
+   beside its 24/24/24/24/28/28.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -79,20 +96,24 @@ def main() -> None:
     import torch.nn.functional as F
 
     from intentbev_torch.bev.augment import draw_dropout
+    from intentbev_torch.bev.voxelize import quantize_points_cm, voxelize_packed
     from intentbev_torch.boxes import generate_anchors
-    from intentbev_torch.configs import default_vit_config
-    from intentbev_torch.models import IntentNetViT, init_params
+    from intentbev_torch.configs import default_cnn_config, default_vit_config
+    from intentbev_torch.data.pipeline import chunk_batch_to_device
+    from intentbev_torch.models import IntentNetCNN, IntentNetViT, init_params
     from intentbev_torch.ops import _build
     from intentbev_torch.ops import (
         flash_attention_packed, flash_attention_packed_bwd, flash_attention_packed_bwd_plain,
         flash_attention_packed_plain, fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
         fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, layernorm,
         layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
-        layernorm_train_plain, voxel_embed_tokens, voxel_embed_tokens_plain)
+        layernorm_train_plain, voxel_embed_tokens, voxel_embed_tokens_plain, voxel_fill_bev,
+        voxel_fill_bev_plain)
     from intentbev_torch.ops.voxel_embed import chunks_to_device, decode_chunk_transport
     from intentbev_torch.parallel import StreamingInferencer
     from intentbev_torch.parallel.inference import build_chunk_transport
-    from intentbev_torch.synthetic import serving_batch, train_batch
+    from intentbev_torch.synthetic import (calibrated_params, chunk_train_batch, serving_batch,
+                                           train_batch)
     from intentbev_torch.train import StepDraws, make_optimizer, make_train_step
     from intentbev_torch.utils import native
 
@@ -135,6 +156,9 @@ def main() -> None:
 
     def max_abs(got, want):
         return float((got.float() - want.float()).abs().max())
+
+    def n_differ(got, want):
+        return float((got != want).sum())
 
     def readings(name, got, want, metrics):
         """One reading per output (metrics: one function per output)."""
@@ -211,6 +235,10 @@ def main() -> None:
     do = randn((batch, tokens, d), 1.0)
     used = torch.arange(chunks.wid.shape[-1], device=dev) < chunks.count[..., None]
     cells = int(((chunks.val != 0) & used[..., None, None]).sum())
+    # the fill reads each band's chunks up to its count (wid and 64 cells of
+    # sl, ch, val) and writes every byte of the dense bf16 BEV
+    fill_bytes = (int(used.sum()) * (4 + 64 * 12) + nbytes(chunks.count)
+                  + batch * g.height_px * g.width_px * g.lidar_total_channels * 2)
 
     # library yardsticks (timed only): SDPA over [B, H, T, 64], F.layer_norm
     def bhtd(t):
@@ -240,7 +268,9 @@ def main() -> None:
         return tuple(t[..., i * d:(i + 1) * d] for i in range(3))
 
     # Readings: relative L2, ||kernel - plain|| / ||plain||, per output; max|d|
-    # for flash's f32 lse. Both sides round the same f32 values to bf16 at the
+    # for flash's f32 lse; for the fill, which rounds each cell to bf16 as
+    # its plain version does and sums nothing, the count of elements that
+    # differ (limit: none). Both sides round the same f32 values to bf16 at the
     # same points, so a sound kernel differs only where f32 summation order
     # tips a value to the neighbouring bf16; flash also rounds P against its
     # running max where the plain version uses the row max (~2.4e-3). Each
@@ -264,6 +294,13 @@ def main() -> None:
             "last chunk of each band skipped", (rel_l2,), (3e-3,), 10, 3,
             nbytes(*chunks, w_pe, b_pe) + batch * v.num_patches * d * 2,
             2 * cells * d, None),
+        "voxel_fill": (
+            lambda: voxel_fill_bev(chunks, hw, g.lidar_total_channels, v.patch_size),
+            lambda: voxel_fill_bev_plain(chunks, hw, g.lidar_total_channels, v.patch_size),
+            lambda: voxel_fill_bev_plain(
+                chunks._replace(count=(chunks.count - 1).clamp(min=0)), hw,
+                g.lidar_total_channels, v.patch_size),
+            "last chunk of each band skipped", (n_differ,), (1,), 20, 3, fill_bytes, 0, None),
         "flash_packed": (
             lambda: flash_attention_packed(q, k, vv, heads),
             lambda: flash_attention_packed_plain(q, k, vv, heads),
@@ -532,6 +569,179 @@ def main() -> None:
           f"{batch / ms_step * 1e3:.2f} samples/s at batch {batch}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
 
+    del tbatch, metrics
+    torch.cuda.empty_cache()
+
+    # 6. CNN serving over the chunk transport
+    ccfg = default_cnn_config()
+    cg = ccfg.grid
+    cparams = calibrated_params(ccfg, 0, dev)  # finite box decode at random weights
+    cinf = StreamingInferencer(ccfg, cparams, "cuda", transport="chunks")
+    creqs = [serving_batch(cg, batch, 16384, seed=s_) for s_ in (1, 2, 3)]
+    cinf(*creqs[0])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    cdets = [cinf(*r) for r in creqs]
+    elapsed = time.perf_counter() - t0
+    cnn_serve_counts = dict(_build.launches)
+    want_counts = {k_: len(creqs) if k_ == "voxel_fill" else 0 for k_ in cnn_serve_counts}
+    check(cnn_serve_counts == want_counts,
+          f"CNN serving launch counts {cnn_serve_counts} != {want_counts}")
+    print(f"cnn serving: launches over {len(creqs)} requests {cnn_serve_counts}", flush=True)
+
+    # The comparisons below run cuDNN's deterministic algorithms: each pair
+    # of runs gives the model the same BEV, so a sound reading is then 0
+    # and any difference is the kernel's. The timed runs use the default.
+    torch.backends.cudnn.deterministic = True
+    cpts, cvalid, cmap = creqs[0]
+    t0 = time.perf_counter()
+    host_chunks = cinf.build_chunks(cpts, cvalid)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    skipped = host_chunks._replace(count=np.maximum(host_chunks.count - 1, 0))
+    cplain = StreamingInferencer(ccfg, cparams, "cuda", transport="chunks", plain_ops=True)
+    cpoints = StreamingInferencer(ccfg, cparams, "cuda", transport="points")
+    got = cinf.logits(host_chunks, cmap)
+    want, ctrl = cplain.logits(host_chunks, cmap), cplain.logits(skipped, cmap)
+    via_points = cpoints.logits_points(cpts, cvalid, cmap)
+    for name, a, wdt in zip(("cls", "box", "intent"), got, widths):
+        check(tuple(a.shape) == (batch, n_anchor, wdt), f"CNN {name} logits shape {tuple(a.shape)}")
+    with torch.inference_mode():
+        dev_chunks = decode_chunk_transport(chunks_to_device(host_chunks, dev))
+        bev = voxel_fill_bev(dev_chunks, (cg.height_px, cg.width_px), cg.lidar_total_channels,
+                             cinf.chunk_patch)
+        bev_pts = voxelize_packed(torch.from_numpy(cpts).to(dev), torch.from_numpy(cvalid).to(dev),
+                                  cg, out_dtype=torch.bfloat16)
+        bev_cells = int((bev != bev_pts).sum())
+    del dev_chunks, bev, bev_pts
+    check(bev_cells == 0, f"CNN: the fill's BEV and the voxelizer's differ in {bev_cells} cells")
+    # Both paths give the model the same BEV and run the same deterministic
+    # convolutions; the control (a plain fill that skips the last chunk of
+    # each band) changes the input.
+    cnn_limit = (1e-6,) * 3
+    sound, ctrl_r = compare("CNN logits, kernel vs plain fill", got, want, ctrl, (rel_l2,) * 3,
+                            cnn_limit, "last chunk of each band skipped")
+    sound_p, ctrl_p = compare("CNN logits, points vs chunks", via_points, got, ctrl,
+                              (rel_l2,) * 3, cnn_limit, "last chunk of each band skipped")
+    fmt3 = ", ".join
+    print("cnn serving: BEV of the fill vs the voxelizer: 0 differing cells; logits relative L2 "
+          f"(cls, box, intent), kernel vs plain fill [{fmt3(f'{r:.3e}' for r in sound)}], "
+          f"points transport vs chunks [{fmt3(f'{r:.3e}' for r in sound_p)}] under "
+          f"{cnn_limit[0]:g}; control (plain fill, last chunk of each band skipped) "
+          f"[{fmt3(f'{r:.3e}' for r in ctrl_r)}] / [{fmt3(f'{r:.3e}' for r in ctrl_p)}] caught",
+          flush=True)
+    cdet_plain = cplain.infer_chunks(host_chunks, cmap)
+    for det in cdets + [cdet_plain]:
+        check(det.boxes_xywha.shape == (batch, ev.max_detections, 5), "CNN boxes shape")
+        check(det.scores.shape == det.valid.shape == (batch, ev.max_detections),
+              "CNN scores shape")
+        check(np.isfinite(det.boxes_xywha).all() and np.isfinite(det.scores).all(),
+              "non-finite CNN detections")
+    fps = len(creqs) * batch / elapsed
+    print(f"cnn serving: valid per frame {cdets[0].valid.sum(1).tolist()}, num_conf "
+          f"{cdets[0].num_conf.tolist()}; {fps:.2f} frames/s over {len(creqs)} requests of "
+          f"{batch} (host chunk build {host_ms:.1f} ms/request included) [{card}]", flush=True)
+    del cinf, cplain, cpoints, cdets, cdet_plain, got, want, ctrl, via_points
+    torch.cuda.empty_cache()
+
+    # 7. CNN training over the chunk train transport
+    cmodel = IntentNetCNN(ccfg.cnn, ccfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32)
+    cmodel.load_state_dict(cparams)
+    cmodel.to(dev)
+    cb = chunk_train_batch(ccfg, batch, 16384, seed=0)
+    cbatch = chunk_batch_to_device(cb, dev)
+    cskip = {**cbatch, "chunks": cbatch["chunks"]._replace(
+        count=(cbatch["chunks"].count - 1).clamp(min=0))}
+    tb = train_batch(cg, batch, 16384, ccfg.loss.max_gt_boxes, seed=0)  # the same draw
+    pbatch = {k_: torch.from_numpy(a).to(dev) for k_, a in tb.items()}
+    pbatch["points"] = torch.from_numpy(quantize_points_cm(tb["points"])).to(dev)
+    cdraws = StepDraws(draw_dropout(ccfg.augment, cg.height_px, cg.width_px, batch, gen, dev),
+                       torch.rand(batch * n_anchor, generator=gen, device=dev))
+
+    def cnn_step(plain_ops, b_):
+        """One CNN step at lr 0 with the same draws: metrics, gradients."""
+        cmodel.plain_ops = plain_ops
+        step0 = make_train_step(cmodel, ccfg, anchors,
+                                torch.optim.SGD(cmodel.parameters(), lr=0.0))
+        m = step0(b_, None, cdraws)
+        return ({k_: float(t) for k_, t in m.items()},
+                {k_: p_.grad.detach().float().clone() for k_, p_ in cmodel.named_parameters()})
+
+    cm_k, cg_k = cnn_step(False, cbatch)
+    check(all(np.isfinite(val) for val in cm_k.values()), f"non-finite CNN metrics {cm_k}")
+    check(all(bool(torch.isfinite(t).all()) for t in cg_k.values()), "non-finite CNN gradient")
+    cm_p, cg_p = cnn_step(True, cbatch)
+    cm_c, cg_c = cnn_step(True, cskip)
+    cm_pts, cg_pts = cnn_step(False, pbatch)
+    cmodel.plain_ops = False
+    r_plain, r_ctrl, r_pts, r_pts_ctrl = (grad_readings(a, b) for a, b in (
+        (cg_k, cg_p), (cg_c, cg_p), (cg_pts, cg_k), (cg_c, cg_k)))
+    torch.backends.cudnn.deterministic = False
+    # Same BEV and deterministic convolutions on both sides of each reading;
+    # the control changes the input.
+    cnn_grad_limit, cnn_worst_limit, cnn_loss_limit = 1e-6, 1e-5, 1e-6
+    for name, sound_r, ctrl_r, m_a, m_b in (
+            ("kernel vs plain fill", r_plain, r_ctrl, cm_k, cm_p),
+            ("points vs chunk transport", r_pts, r_pts_ctrl, cm_pts, cm_k)):
+        loss_rel = abs(m_a["loss"] - m_b["loss"]) / abs(m_b["loss"])
+        said = (f"sound {sound_r[:2]} (worst {sound_r[2]}), control {ctrl_r[:2]} (worst "
+                f"{ctrl_r[2]}), limits {cnn_grad_limit}, {cnn_worst_limit}; loss rel {loss_rel}")
+        check(sound_r[0] < cnn_grad_limit and sound_r[1] < cnn_worst_limit
+              and loss_rel < cnn_loss_limit, f"CNN train step, {name}, reaches a limit: {said}")
+        check(ctrl_r[0] >= cnn_grad_limit or ctrl_r[1] >= cnn_worst_limit,
+              f"CNN train step, {name}: the control stays under the limits: {said}")
+        print(f"cnn train: step {name}, loss {m_a['loss']:.6f} vs {m_b['loss']:.6f} (rel "
+              f"{loss_rel:.3e} < {cnn_loss_limit:g}); gradients relative L2 all "
+              f"{sound_r[0]:.3e} < {cnn_grad_limit:g}, worst {sound_r[1]:.3e} ({sound_r[2]}) < "
+              f"{cnn_worst_limit:g}; control (plain fill, last chunk of each band skipped) all "
+              f"{ctrl_r[0]:.3e}, worst {ctrl_r[1]:.3e} ({ctrl_r[2]}) caught", flush=True)
+    del cg_k, cg_p, cg_c, cg_pts, cskip, pbatch
+
+    copt = make_optimizer(cmodel.parameters(), ccfg)
+    cstep = make_train_step(cmodel, ccfg, anchors, copt)
+    cstep(cbatch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    cstep_ms, cmetrics = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        cmetrics.append(cstep(cbatch))
+        torch.cuda.synchronize()
+        cstep_ms.append((time.perf_counter() - t0) * 1e3)
+    cnn_train_counts = dict(_build.launches)
+    want_counts = {k_: len(cstep_ms) if k_ == "voxel_fill" else 0 for k_ in cnn_train_counts}
+    check(cnn_train_counts == want_counts,
+          f"CNN train launch counts {cnn_train_counts} != {want_counts}")
+    for m in cmetrics:
+        check(all(bool(torch.isfinite(t)) for t in m.values()), f"non-finite CNN metrics {m}")
+    check(all(bool(torch.isfinite(p_.grad).all()) for p_ in cmodel.parameters()),
+          "non-finite CNN gradient")
+    ms_step = sum(cstep_ms) / len(cstep_ms)
+    print(f"cnn train: launches over {len(cstep_ms)} steps {cnn_train_counts}; losses "
+          f"{[round(float(m['loss']), 6) for m in cmetrics]}; step ms "
+          f"{[round(t, 2) for t in cstep_ms]}; {ms_step:.2f} ms/step, "
+          f"{batch / ms_step * 1e3:.2f} samples/s at batch {batch}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    del cmodel, copt, cstep, cbatch, cmetrics
+    torch.cuda.empty_cache()
+
+    # the ViT of phase 5, one step over the chunk train transport
+    vbatch = chunk_batch_to_device(chunk_train_batch(cfg, batch, 16384, seed=0), dev)
+    _build.reset_launch_counts()
+    vm = step(vbatch, tgen)
+    torch.cuda.synchronize()
+    vit_chunk_counts = dict(_build.launches)
+    want_counts = {k_: per_step.get(k_, 0) for k_ in vit_chunk_counts}
+    want_counts["voxel_fill"] = 1
+    check(vit_chunk_counts == want_counts,
+          f"ViT chunk-transport step launch counts {vit_chunk_counts} != {want_counts}")
+    check(all(bool(torch.isfinite(t)) for t in vm.values()), f"non-finite ViT metrics {vm}")
+    check(all(bool(torch.isfinite(p_.grad).all()) for p_ in model.parameters()),
+          "non-finite ViT gradient")
+    print(f"vit train, chunk transport: launches {vit_chunk_counts}; loss "
+          f"{float(vm['loss']):.6f}", flush=True)
+
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", (serve_counts,)),
@@ -549,7 +759,9 @@ def main() -> None:
             ("layernorm_train", "layernorm.cu", "intentbev/ops/layernorm.py:53",
              (train_counts,)),
             ("layernorm_bwd", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             (train_counts,))):
+             (train_counts,)),
+            ("voxel_fill", "voxel_fill.cu", "intentbev/ops/voxel_embed.py:507",
+             (cnn_serve_counts, cnn_train_counts, vit_chunk_counts))):
         r = record[name]
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[name] for c in runs),

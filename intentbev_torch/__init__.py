@@ -7,6 +7,8 @@ kernels (``csrc/*.cu``) are built with nvcc for sm_90a at first CUDA use;
 every kernel has a plain PyTorch version beside it, which CPU tensors take.
 
 Slices ported so far: the flagship ViT serving path over the chunk
-transport (``parallel.inference.StreamingInferencer``) and the ViT training
-step over the points transport (``train.make_train_step``).
+transport (``parallel.inference.StreamingInferencer``), the ViT training
+step (``train.make_train_step``), and the IntentNetCNN family: serving over
+the chunk and the points transports, training over both train transports
+(the chunk train transport for either family, ``data.pipeline``).
 """

@@ -3,8 +3,9 @@
 Counterpart of the point-space half of ``intentbev/bev/augment.py``:
 
 - on the host, per sample (numpy): :func:`draw_aug_params` draws
-  (flip_sign, theta, scale) and :func:`aug_linear_matrix` gives the 2x2
-  content transform, copies of the JAX package's functions;
+  (flip_sign, theta, scale), :func:`aug_linear_matrix` gives the 2x2
+  content transform and :func:`augment_points_np` applies it to the points
+  of the chunk train transport, copies of the JAX package's functions;
 - on the device: :func:`augment_points_gt` applies
   p' = s * R(theta) * diag(1, flip_sign) * p to the raw points and the same
   transform (with the L/R intention swap under a flip) to the GT boxes;
@@ -52,6 +53,20 @@ def aug_linear_matrix(params_row) -> np.ndarray:
     c, si = np.cos(theta), np.sin(theta)
     rot = np.array([[c, -si], [si, c]], dtype=np.float64)
     return s * rot @ np.array([[1.0, 0.0], [0.0, fs]], dtype=np.float64)
+
+
+def augment_points_np(points: np.ndarray, aug_params) -> np.ndarray:
+    """Host (numpy) twin of the point half of :func:`augment_points_gt`:
+    p' = s * R(theta) * diag(1, flip_sign) * p on f32[..., 4] points, in
+    the same f32 operation order."""
+    fs, theta, s = (np.float32(aug_params[i]) for i in range(3))
+    x = points[..., 0]
+    y = points[..., 1] * fs
+    ca, sa = np.cos(theta, dtype=np.float32), np.sin(theta, dtype=np.float32)
+    out = points.copy()
+    out[..., 0] = s * (x * ca - y * sa)
+    out[..., 1] = s * (x * sa + y * ca)
+    return out
 
 
 def augment_gt(gt_boxes, gt_intentions, gt_valid, aug_params):

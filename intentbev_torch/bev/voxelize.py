@@ -1,7 +1,8 @@
 """Multi-sweep LiDAR BEV voxelization on the device (points transport).
 
-Counterpart of ``intentbev/bev/voxelize.py`` (``dequantize_points``,
-``voxelize_packed``): per sweep, points are floored into the H x W grid,
+Counterpart of ``intentbev/bev/voxelize.py`` (``quantize_points_cm`` on
+the host, ``dequantize_points`` and ``voxelize_packed`` on the device): per
+sweep, points are floored into the H x W grid,
 z in [z_min, z_max) is binned into Z height slices, and each (sweep, slice)
 channel takes the per-cell max intensity into a zero-initialised target,
 so a cell holds max(0, intensity). Output is channels-last [B, H, W, S*Z]
@@ -12,9 +13,24 @@ outside the grid or the z range, and invalid ones, are dropped by index.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _DEQUANT = (0.01, 0.01, 0.01, 1.0)  # i16 transport: xyz in cm, raw intensity
+_QUANT = np.array([100.0, 100.0, 100.0, 1.0], np.float32)
+
+
+def quantize_points_cm(points: np.ndarray) -> np.ndarray:
+    """Host: f32[..., 4] (x, y, z, intensity) -> the i16 transport (xyz in
+    cm, rounded and clipped to +-32767; intensity rounded, exact for the
+    integral 0-255 LiDAR intensities)."""
+    return np.clip(np.round(points * _QUANT), -32767, 32767).astype(np.int16)
+
+
+def dequantize_points_np(points: np.ndarray) -> np.ndarray:
+    """Host twin of :func:`dequantize_points` for the i16 transport: the same
+    f32 products, so both transports see identical coordinates."""
+    return points.astype(np.float32) * np.asarray(_DEQUANT, np.float32)
 
 
 def dequantize_points(points: torch.Tensor) -> torch.Tensor:

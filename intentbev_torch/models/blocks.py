@@ -44,9 +44,32 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return ((xf - mean.view(shape)) * mul.view(shape) + bn.bias.float().view(shape)).to(x.dtype)
 
 
+@torch.no_grad()
+def reset_conv_bn(mod: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of one conv or BN module as the JAX models init theirs:
+    Kaiming normal (fan-out) for the bias-free backbone convs, LeCun normal
+    and a zero bias for the head convs; unit BN scale and running variance,
+    zero BN bias and running mean."""
+    if isinstance(mod, nn.Conv2d):
+        fan_out = mod.out_channels * mod.kernel_size[0] * mod.kernel_size[1]
+        fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+        head = mod.bias is not None
+        std = (1.0 / fan_in) ** 0.5 if head else (2.0 / fan_out) ** 0.5
+        mod.weight.normal_(0.0, std, generator=generator)
+        if head:
+            mod.bias.zero_()
+    elif isinstance(mod, nn.BatchNorm2d):
+        mod.reset_parameters()
+
+
 def conv(mod: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``mod`` applied with its parameters cast to x's dtype (f32 master
-    weights in training; a no-op cast when they already are)."""
+    weights in training; a no-op cast when they already are). On the CPU
+    the input is made NCHW-contiguous first: PyTorch's CPU backward of a
+    strided 1x1 conv over a channels-last input corrupts the heap (seen with
+    torch 2.13, 12 -> 16 channels at stride 2)."""
+    if x.device.type == "cpu":
+        x = x.contiguous()
     b = None if mod.bias is None else mod.bias.to(x.dtype)
     return F.conv2d(x, mod.weight.to(x.dtype), b, mod.stride, mod.padding)
 
@@ -95,3 +118,16 @@ class ResidualStage(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return x.permute(0, 2, 3, 1)
+
+
+def ensure_nhwc(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """Accept NCHW (the reference's torch layout) or NHWC and return NHWC
+    (a permuted view for NCHW)."""
+    if x.ndim != 4:
+        raise ValueError(f"expected a rank-4 BEV tensor, got shape {tuple(x.shape)}")
+    if x.shape[-1] == channels:
+        return x
+    if x.shape[1] == channels:
+        return x.permute(0, 2, 3, 1)
+    raise ValueError(f"neither axis 1 nor axis 3 matches channels={channels}: "
+                     f"{tuple(x.shape)}")

@@ -51,7 +51,7 @@ from ..ops.fused_ln_mlp import GELU_MODES, fused_ln_mlp, fused_ln_mlp_fn, fused_
 from ..ops.layernorm import layernorm, layernorm_fn, layernorm_plain
 from ..ops.voxel_embed import (VoxelChunks, voxel_embed_tokens,
                                voxel_embed_tokens_plain)
-from .blocks import ResidualStage
+from .blocks import ResidualStage, reset_conv_bn
 from .heads import DetectionHead, IntentionHead, flatten_head_outputs
 
 LN_EPS = 1e-6
@@ -340,24 +340,8 @@ class IntentNetViT(nn.Module):
             elif isinstance(mod, ViTEncoder):
                 trunc(mod.cls_token)
                 trunc(mod.pos_embed)
-            elif isinstance(mod, nn.Conv2d):
-                fan_out = mod.out_channels * mod.kernel_size[0] * mod.kernel_size[1]
-                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
-                head = mod.bias is not None
-                std = (1.0 / fan_in) ** 0.5 if head else (2.0 / fan_out) ** 0.5
-                mod.weight.normal_(0.0, std, generator=generator)
-                if head:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
-                mod.reset_parameters()
+            elif isinstance(mod, (nn.Conv2d, nn.BatchNorm2d)):
+                reset_conv_bn(mod, generator)
             elif isinstance(mod, LayerNormParams):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-
-
-def init_params(cfg, seed: int = 0) -> dict[str, torch.Tensor]:
-    """Seeded random f32 parameters (CPU) for ``IntentNetViT(cfg.vit,
-    cfg.heads)``, as a state dict."""
-    model = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.float32)
-    model.reset_parameters(torch.Generator().manual_seed(seed))
-    return model.state_dict()

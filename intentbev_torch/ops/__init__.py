@@ -9,7 +9,8 @@ from .fused_ln_mlp import (fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plai
                            fused_ln_mlp_train_plain)
 from .layernorm import (layernorm, layernorm_bwd, layernorm_bwd_plain, layernorm_fn,
                         layernorm_plain, layernorm_train, layernorm_train_plain)
-from .voxel_embed import VoxelChunks, voxel_embed_tokens, voxel_embed_tokens_plain
+from .voxel_embed import (VoxelChunks, voxel_embed_tokens, voxel_embed_tokens_plain,
+                          voxel_fill_bev, voxel_fill_bev_plain)
 
 __all__ = [
     "launches", "reset_launch_counts",
@@ -20,4 +21,5 @@ __all__ = [
     "layernorm", "layernorm_plain", "layernorm_train", "layernorm_train_plain",
     "layernorm_bwd", "layernorm_bwd_plain", "layernorm_fn",
     "VoxelChunks", "voxel_embed_tokens", "voxel_embed_tokens_plain",
+    "voxel_fill_bev", "voxel_fill_bev_plain",
 ]

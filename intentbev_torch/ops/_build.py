@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernel library; count kernel launches.
 
-Every source in ``intentbev_torch/csrc`` compiles in ONE ``nvcc`` call into
-one shared library with a plain C interface, loaded with ctypes. The
-library is built at first CUDA use into ``intentbev_torch/_build`` (listed
-in ``.gitignore``), under a directory keyed by a hash of the sources and
-flags, so a fresh checkout builds it once and an edited source rebuilds.
-Nothing here includes PyTorch's headers, so the build takes seconds.
+Every source in ``intentbev_torch/csrc`` compiles in its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the
+objects into one shared library with a plain C interface, loaded with
+ctypes. The library is built at first CUDA use into
+``intentbev_torch/_build`` (listed in ``.gitignore``), under a directory
+keyed by a hash of the sources and flags, so a fresh checkout builds it
+once and an edited source rebuilds. Nothing here includes PyTorch's
+headers, so the build takes seconds.
 
 Each kernel wrapper in ``intentbev_torch.ops`` adds one to its entry of
 :data:`launches` where it launches its kernel, and nowhere else; a run can
@@ -29,17 +31,17 @@ BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libintentbev_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 KERNELS = ("voxel_embed", "flash_packed", "fused_ln_mlp", "layernorm",
            "flash_packed_bwd", "fused_ln_mlp_train", "fused_ln_mlp_bwd",
-           "layernorm_train", "layernorm_bwd")
+           "layernorm_train", "layernorm_bwd", "voxel_fill")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
-build_seconds: float | None = None  # wall time of this process's nvcc run
+build_seconds: float | None = None  # wall time of this process's nvcc runs
 
 
 def reset_launch_counts() -> None:
@@ -80,14 +82,28 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(srcs, objs)]
+    failed = []
+    for src, proc in zip(srcs, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, lib)  # atomic against a concurrent builder
     return lib
 
@@ -106,6 +122,7 @@ _SIGNATURES = {
     "ibk_fused_ln_mlp_train": (_P,) * 9 + (_I, _I, _F, _P),
     "ibk_fused_ln_mlp_bwd": (_P,) * 20 + (_I, _I, _F, _I, _P),
     "ibk_flash_bwd": (_P,) * 7 + (_I, _I, _I, _I, _L, _L, _F, _P),
+    "ibk_voxel_fill": (_P,) * 6 + (_I,) * 6 + (_P,),
 }
 
 

@@ -1,10 +1,12 @@
 """Fused voxelize + patch-embed over host-built placement chunks
-(CUDA kernel ``csrc/voxel_embed.cu``), plus the chunk transport.
+(CUDA kernel ``csrc/voxel_embed.cu``), the dense BEV fill from the same
+chunks (CUDA kernel ``csrc/voxel_fill.cu``), and the chunk transport.
 
 Counterpart of ``intentbev/ops/voxel_embed.py``. The host half builds,
 stacks, packs and decodes the chunk transport; the device half turns
 chunks into patch-embed tokens, equal to conv8x8,s8(voxelize(points)) +
-bias, without a dense BEV.
+bias, without a dense BEV (the ViT), or into the dense BEV itself (the CNN
+family and the chunk train transport).
 
 Chunk format (one sample's BEV is cut into bands of ``rows_per_program``
 patch rows; a band's pixels into 64-pixel row-major windows; a window's
@@ -26,6 +28,10 @@ from ._build import check_launch, kernels, require, stream_ptr
 WINDOW = 64  # pixels per placement window
 CAP = 64     # max cells per chunk
 ROWS_PER_PROGRAM = 5  # patch rows per band when they divide the grid
+# Band geometry of the CNN family's chunks (it has no patch of its own; the
+# chunk build and the fill only have to agree on one value)
+CNN_CHUNK_PATCH = 8
+FILL_SMEM_BYTES = 200 * 1024  # the fill kernel's [64, C] tile must fit a block
 
 
 class VoxelChunks(NamedTuple):
@@ -145,6 +151,21 @@ def _geometry(chunks, kernel, patch, grid_hw):
     return b, nb, nc, rpp, c, d
 
 
+def _require_decoded(chunks: VoxelChunks, device, name: str) -> None:
+    """The kernels' input contract: contiguous decoded chunks on ``device``."""
+    b, nb, nc = chunks.wid.shape
+    cells = (b, nb, nc, 1, CAP)
+    for field, t, dt, shape in (
+            ("wid", chunks.wid, torch.int32, (b, nb, nc)),
+            ("sl", chunks.sl, torch.int32, cells), ("ch", chunks.ch, torch.int32, cells),
+            ("val", chunks.val, torch.float32, cells),
+            ("count", chunks.count, torch.int32, (b, nb))):
+        require(t.device == device and t.dtype == dt
+                and tuple(t.shape) == shape and t.is_contiguous(),
+                f"{name}: {field} must be contiguous {dt} {shape} on {device}, "
+                f"got {t.dtype} {tuple(t.shape)} {t.device}")
+
+
 def voxel_embed_tokens_plain(chunks: VoxelChunks, kernel, bias, patch: int,
                              grid_hw: tuple[int, int]) -> torch.Tensor:
     """Plain PyTorch version over decoded chunks: gathers one kernel row per
@@ -192,16 +213,7 @@ def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
     require(bias.device == kernel.device and bias.dtype == torch.float32
             and tuple(bias.shape) == (d,) and bias.is_contiguous(),
             "voxel_embed: bias must be contiguous f32 [D] on the kernel's device")
-    cells = (b, nb, nc, 1, CAP)
-    for name, t, dt, shape in (
-            ("wid", chunks.wid, torch.int32, (b, nb, nc)),
-            ("sl", chunks.sl, torch.int32, cells), ("ch", chunks.ch, torch.int32, cells),
-            ("val", chunks.val, torch.float32, cells),
-            ("count", chunks.count, torch.int32, (b, nb))):
-        require(t.device == kernel.device and t.dtype == dt
-                and tuple(t.shape) == shape and t.is_contiguous(),
-                f"voxel_embed: {name} must be contiguous {dt} {shape} on the "
-                f"kernel's device, got {t.dtype} {tuple(t.shape)} {t.device}")
+    _require_decoded(chunks, kernel.device, "voxel_embed")
     out = torch.empty(b, (h // patch) * (w // patch), d, dtype=kernel.dtype,
                       device=kernel.device)
     err = kernels().ibk_voxel_embed(
@@ -210,4 +222,66 @@ def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
         bias.data_ptr(), out.data_ptr(), b, nb, nc, c, w, patch, rpp,
         stream_ptr(kernel))
     check_launch(err, "voxel_embed")
+    return out
+
+
+def _fill_geometry(chunks, grid_hw, patch):
+    h, w = grid_hw
+    b, nb, nc = chunks.wid.shape
+    rows_band = rows_per_program(h, patch) * patch
+    if nb * rows_band != h or (rows_band * w) % WINDOW:
+        raise ValueError(f"{nb} bands do not tile a {h}x{w} grid at patch {patch}")
+    return b, nb, nc, rows_band * w
+
+
+def voxel_fill_bev_plain(chunks: VoxelChunks, grid_hw: tuple[int, int], channels: int,
+                         patch: int, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version over decoded chunks: every cell's value,
+    rounded to ``dtype``, is added into a zero f32 BEV at its (pixel,
+    channel) (``index_put_`` with accumulate), then cast to ``dtype``.
+    Chunks past ``count``, zero-valued slots and cells whose channel lies
+    outside [0, channels) or whose pixel lies outside the band add nothing."""
+    b, nb, nc, band_px = _fill_geometry(chunks, grid_hw, patch)
+    h, w = grid_hw
+    dev = chunks.wid.device
+    cap = chunks.sl.shape[-1]
+    real = torch.arange(nc, device=dev)[None, None, :] < chunks.count[:, :, None]
+    val = chunks.val.reshape(b, nb, nc, cap)
+    ch = chunks.ch.reshape(b, nb, nc, cap).long()
+    sl = chunks.sl.reshape(b, nb, nc, cap).long()
+    px = chunks.wid[..., None].long() * WINDOW + sl
+    keep = real[..., None] & (val != 0) & (ch >= 0) & (ch < channels) \
+        & (sl >= 0) & (sl < WINDOW) & (px >= 0) & (px < band_px)
+    bi, band, _, _ = torch.nonzero(keep, as_tuple=True)
+    flat = ((bi * nb + band) * band_px + px[keep]) * channels + ch[keep]
+    out = torch.zeros(b * h * w * channels, dtype=torch.float32, device=dev)
+    out.index_put_((flat,), val[keep].to(dtype).float(), accumulate=True)
+    return out.to(dtype).reshape(b, h, w, channels)
+
+
+def voxel_fill_bev(chunks: VoxelChunks, grid_hw: tuple[int, int], channels: int,
+                   patch: int, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Decoded chunks -> dense BEV [B, H, W, channels] in ``dtype`` (bf16 or
+    f32), the placement of :func:`voxel_embed_tokens` written out as image
+    rows. ``patch`` is the value the chunks were built with (it sets the
+    band height). Contract: at most one cell per (pixel, channel), which
+    the host chunk build guarantees by deduplicating cells; the kernel stores a
+    cell's value where :func:`voxel_fill_bev_plain` adds it into zeros, the
+    same result under the contract. CPU tensors take the plain version."""
+    if chunks.wid.device.type == "cpu":
+        return voxel_fill_bev_plain(chunks, grid_hw, channels, patch, dtype)
+    b, nb, nc, band_px = _fill_geometry(chunks, grid_hw, patch)
+    h, w = grid_hw
+    require(dtype in (torch.bfloat16, torch.float32),
+            f"voxel_fill: output dtype must be bf16 or f32, got {dtype}")
+    elt = 2 if dtype == torch.bfloat16 else 4
+    require(0 < channels and WINDOW * channels * elt <= FILL_SMEM_BYTES,
+            f"voxel_fill: a [{WINDOW}, {channels}] {dtype} tile does not fit a block")
+    _require_decoded(chunks, chunks.wid.device, "voxel_fill")
+    out = torch.empty(b, h, w, channels, dtype=dtype, device=chunks.wid.device)
+    err = kernels().ibk_voxel_fill(
+        chunks.wid.data_ptr(), chunks.sl.data_ptr(), chunks.ch.data_ptr(),
+        chunks.val.data_ptr(), chunks.count.data_ptr(), out.data_ptr(), b, nb, nc,
+        channels, band_px, int(dtype == torch.float32), stream_ptr(out))
+    check_launch(err, "voxel_fill")
     return out

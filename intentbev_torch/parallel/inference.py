@@ -1,10 +1,18 @@
-"""Streaming detection on one device over the chunk transport.
+"""Streaming detection on one device, over the chunk or the points transport.
 
-Counterpart of ``intentbev/parallel/inference.py::StreamingInferencer``
-with ``transport="chunks"`` on one device: the host builds and packs
-placement chunks (C++ ``ib_build_chunks``), the device decodes the compact
-transport, runs IntentNetViT through the port's kernels, decodes boxes and
-runs NMS, and returns fixed-size :class:`Detections`.
+Counterpart of ``intentbev/parallel/inference.py::StreamingInferencer`` on
+one device, for either model family (``cfg.model_family``):
+
+- ``transport="chunks"``: the host builds and packs placement chunks (C++
+  ``ib_build_chunks``) at the band geometry of ``train.chunk_patch_for``
+  and the device decodes them. The ViT turns them into lidar tokens with
+  the voxel-embed kernel; for the CNN the ``voxel_fill`` kernel writes the
+  dense BEV (bf16 on CUDA), as ``bench.py``'s CNN chunk line does.
+- ``transport="points"``: the device decodes the points (i16 transport or
+  f32), voxelizes them (scatter-max) and runs the model on the dense BEV.
+
+The model's logits then go through box decode and NMS on the device into
+fixed-size :class:`Detections`.
 """
 
 from __future__ import annotations
@@ -12,12 +20,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..bev.voxelize import dequantize_points, voxelize_packed
 from ..boxes.anchors import generate_anchors
 from ..boxes.nms import Detections, batched_postprocess
-from ..models.vit import IntentNetViT
+from ..models import build_model
 from ..ops.voxel_embed import (VoxelChunks, build_voxel_chunks, chunks_to_device,
                                decode_chunk_transport, pack_chunk_transport,
-                               stack_voxel_chunks)
+                               stack_voxel_chunks, voxel_fill_bev, voxel_fill_bev_plain)
+from ..train import chunk_patch_for
 
 
 def build_chunk_transport(points, points_valid, grid, patch: int,
@@ -34,25 +44,27 @@ def build_chunk_transport(points, points_valid, grid, patch: int,
 class StreamingInferencer:
     """Load-once, feed-forever detector on one device.
 
-    ``params``: a state dict for ``IntentNetViT(cfg.vit, cfg.heads)`` (from
+    ``params``: a state dict for the configured family's model (from
     :func:`intentbev_torch.weights.from_flax` or
     :func:`intentbev_torch.models.init_params`). The compute dtype is bf16
-    on CUDA and f32 on the CPU. ``gelu`` is the block MLP
-    GELU ("erf" or the serving "sigmoid"). ``plain_ops`` runs every kernel's
-    plain PyTorch version (the oracle on the card). ``num_chunks`` fixes the
-    chunk capacity per band; overfull bands drop their excess chunks.
+    on CUDA and f32 on the CPU. ``gelu`` is the ViT block MLP GELU ("erf"
+    or the serving "sigmoid"; the CNN has none). ``plain_ops`` runs every
+    kernel's plain PyTorch version (the oracle on the card). ``num_chunks``
+    fixes the chunk capacity per band; overfull bands drop their excess
+    chunks.
     """
 
     def __init__(self, cfg, params, device, transport: str = "chunks",
                  num_chunks: int = 512, gelu: str = "erf", plain_ops: bool = False):
-        if transport != "chunks":
-            raise ValueError(f"transport {transport!r}: the port serves 'chunks' only")
+        if transport not in ("chunks", "points"):
+            raise ValueError(f"transport {transport!r} not in ('chunks', 'points')")
         self.cfg = cfg
+        self.transport = transport
         self.num_chunks = num_chunks
+        self.chunk_patch = chunk_patch_for(cfg)
         self.device = torch.device(device)
-        dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        model = IntentNetViT(cfg.vit, cfg.heads, dtype=dtype, gelu=gelu,
-                             plain_ops=plain_ops)
+        self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        model = build_model(cfg, dtype=self.dtype, gelu=gelu, plain_ops=plain_ops)
         model.load_state_dict(params)
         self.model = model.to(self.device).eval()
         self.anchors = torch.from_numpy(
@@ -62,15 +74,32 @@ class StreamingInferencer:
         """Host side of the transport (callable from loader threads); see
         :func:`build_chunk_transport`."""
         return build_chunk_transport(points, points_valid, self.cfg.grid,
-                                     self.cfg.vit.patch_size, self.num_chunks)
+                                     self.chunk_patch, self.num_chunks)
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     @torch.inference_mode()
     def logits(self, chunks, map_bev):
         """Packed host chunks + map (any transport encoding) -> the model's
         f32 (cls, box deltas, intent logits) on the device."""
-        dev_chunks = decode_chunk_transport(chunks_to_device(chunks, self.device))
-        m = torch.from_numpy(np.ascontiguousarray(map_bev)).to(self.device)
-        return self.model(dev_chunks, m)
+        lidar = decode_chunk_transport(chunks_to_device(chunks, self.device))
+        if self.cfg.model_family == "cnn":
+            fill = voxel_fill_bev_plain if self.model.plain_ops else voxel_fill_bev
+            g = self.cfg.grid
+            lidar = fill(lidar, (g.height_px, g.width_px), g.lidar_total_channels,
+                         self.chunk_patch, self.dtype)
+        return self.model(lidar, self._to_device(map_bev))
+
+    @torch.inference_mode()
+    def logits_points(self, points, points_valid, map_bev):
+        """Host points [B, S, P, 4] (f32 metres or the i16 transport), valid
+        [B, S, P] and map -> the model's f32 logits on the device, through
+        the device voxelizer."""
+        lidar = voxelize_packed(dequantize_points(self._to_device(points)),
+                                self._to_device(points_valid), self.cfg.grid,
+                                out_dtype=self.dtype)
+        return self.model(lidar, self._to_device(map_bev))
 
     @torch.inference_mode()
     def postprocess(self, cls, box, intent) -> Detections:
@@ -90,10 +119,18 @@ class StreamingInferencer:
         det = self.postprocess(*self.logits(chunks, map_bev))
         return self.fetch(det) if blocking else det
 
+    def infer_points(self, points, points_valid, map_bev, blocking: bool = True) -> Detections:
+        """Run host points over the points transport; ``blocking`` as in
+        :meth:`infer_chunks`."""
+        det = self.postprocess(*self.logits_points(points, points_valid, map_bev))
+        return self.fetch(det) if blocking else det
+
     @staticmethod
     def fetch(det: Detections) -> Detections:
         """Device Detections -> host numpy arrays."""
         return Detections(*(t.cpu().numpy() for t in det))
 
     def __call__(self, points, points_valid, map_bev) -> Detections:
+        if self.transport == "points":
+            return self.infer_points(points, points_valid, map_bev)
         return self.infer_chunks(self.build_chunks(points, points_valid), map_bev)

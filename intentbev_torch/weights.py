@@ -1,6 +1,8 @@
-"""JAX (flax) parameters -> the port's IntentNetViT state dict.
+"""JAX (flax) parameters -> the port's IntentNetViT or IntentNetCNN state
+dict.
 
-The inverse of the layout map in ``intentbev/import_torch.py``:
+The inverse of the layout map in ``intentbev/import_torch.py``, the same
+rules for both families (the port's modules carry the flax names):
 
 - flax Conv kernel [kh, kw, in, out] -> torch Conv2d weight [out, in, kh, kw]
   (except the patch embeds, which keep [P, P, C, D] for the voxel-embed
@@ -41,8 +43,8 @@ def _key(path: tuple[str, ...]) -> str:
 
 def from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` of ``intentbev.models.IntentNetViT``
-    (nested dicts of arrays) -> an f32 state dict for
-    ``intentbev_torch.models.IntentNetViT``."""
+    or ``IntentNetCNN`` (nested dicts of arrays) -> an f32 state dict for
+    the port's model of the same family."""
     state: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _walk(variables.get(collection, {})):

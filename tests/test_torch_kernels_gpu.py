@@ -13,7 +13,9 @@ noise and the reading of a control, the plain version with one plausible
 fault, and each test also checks that the control reaches the limit.
 The training kernels (LayerNorm forward/backward, LN+MLP forward with a
 drop-path gate and backward, flash backward) run at small and at the
-training step's full-width shapes.
+training step's full-width shapes. The dense BEV fill is exact: its reading
+is the count of elements that differ from the plain version, which must be
+0, and its control (the last chunk of each band skipped) must differ.
 """
 
 import pytest
@@ -27,7 +29,7 @@ from intentbev_torch.ops import (  # noqa: E402
     fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, launches, layernorm,
     layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
     layernorm_train_plain, reset_launch_counts, voxel_embed_tokens,
-    voxel_embed_tokens_plain)
+    voxel_embed_tokens_plain, voxel_fill_bev, voxel_fill_bev_plain)
 from intentbev_torch.ops.voxel_embed import (  # noqa: E402
     chunks_to_device, decode_chunk_transport)
 from intentbev_torch.parallel.inference import build_chunk_transport  # noqa: E402
@@ -148,6 +150,38 @@ def test_voxel_embed_skips_out_of_range_channel(dev):
     hw = (grid.height_px, grid.width_px)
     got = voxel_embed_tokens(chunks, w, bias, 8, hw)
     assert _rel(got, voxel_embed_tokens_plain(chunks, w, bias, 8, hw)) < 3e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("size", ["small", "main"])
+def test_voxel_fill(dev, size, dtype):
+    if size == "small":  # bands of one patch row
+        grid = GridConfig(height_px=64, width_px=96, lidar_height_channels=4,
+                          lidar_sweeps=2)
+        chunks = _chunks(grid, 2, 3000, 0, 64)
+    else:  # bands of five patch rows, serving capacity
+        grid = default_vit_config().grid
+        chunks = _chunks(grid, 8, 16384, 0, 512)
+    c, hw = grid.lidar_total_channels, (grid.height_px, grid.width_px)
+    reset_launch_counts()
+    got = voxel_fill_bev(chunks, hw, c, 8, dtype)
+    assert launches["voxel_fill"] == 1
+    want = voxel_fill_bev_plain(chunks, hw, c, 8, dtype)
+    assert got.dtype == dtype and got.shape == (chunks.wid.shape[0], *hw, c)
+    assert int((got != want).sum()) == 0 and int((want != 0).sum()) > 1000
+    skipped = chunks._replace(count=(chunks.count - 1).clamp(min=0))  # control
+    assert int((got != voxel_fill_bev_plain(skipped, hw, c, 8, dtype)).sum()) > 0
+
+
+def test_voxel_fill_drops_out_of_range_channel(dev):
+    grid = GridConfig(height_px=64, width_px=96, lidar_height_channels=4, lidar_sweeps=2)
+    chunks = _chunks(grid, 1, 500, 3, 64)
+    c, hw = grid.lidar_total_channels, (grid.height_px, grid.width_px)
+    ch = chunks.ch.clone()
+    ch[0, 0, 0, 0, :2] = torch.tensor([c, -1])  # must be dropped, not written
+    chunks = chunks._replace(ch=ch)
+    got = voxel_fill_bev(chunks, hw, c, 8)
+    assert int((got != voxel_fill_bev_plain(chunks, hw, c, 8)).sum()) == 0
 
 
 def test_launch_counts(dev):

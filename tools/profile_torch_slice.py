@@ -1,8 +1,8 @@
 """Where a serving request's, or a training step's, time goes in the
 PyTorch port, on one CUDA card.
 
-    python3 tools/profile_torch_slice.py [--requests 4] [--out chiprun_out/profile_slice]
-    python3 tools/profile_torch_slice.py --train [--out DIR]
+    python3 tools/profile_torch_slice.py [--model vit|cnn] [--requests 4] [--out DIR]
+    python3 tools/profile_torch_slice.py --train [--model vit|cnn] [--out DIR]
 
 Serving: drives ``intentbev_torch``'s ``StreamingInferencer``
 (``default_vit_config()`` at full width and depth, seeded random weights,
@@ -25,10 +25,23 @@ the kernels each of its spans launched (inputs, forward, loss, backward,
 optimizer; matched to their launch by the trace's correlation ids, as the
 device runs behind the host).
 
+``--model cnn`` profiles IntentNetCNN (``default_cnn_config()``, random
+seeded weights with BatchNorm statistics from a synthetic batch,
+``synthetic.calibrated_params``) the same way: serving over the chunk transport (the ``voxel_fill`` kernel, then the
+CNN), training over the chunk train transport (``chunk_train_batch``).
+Device time is grouped as the fill, the first conv (the 290 -> 160 5x5/s2
+conv and the 1x1/s2 projection beside it, both reading the fill's
+channels-last output; their forward kernels are found through a profiler
+span), the other convs, BatchNorm's elementwise work (forward kernels
+launched in a BN span), and the rest by kernel name. A copy kernel inside
+the first-conv span would be cuDNN relaying out the 290-channel input. The
+first conv is also timed alone with CUDA events, on the fill's output as
+the model reads it and on an NCHW-contiguous copy of it.
+
 It prints a summary and writes ``profile_slice.json`` (``profile_train.json``)
-and the Chrome trace ``trace.json`` under ``--out`` (for ``--train`` by
-default a ``profile_train`` directory beside the serving default). It
-imports no JAX.
+and the Chrome trace ``trace.json`` under ``--out`` (by default
+directories ``profile_slice``, ``profile_train``, ``profile_cnn_slice`` or
+``profile_cnn_train`` side by side). It imports no JAX.
 """
 
 from __future__ import annotations
@@ -43,8 +56,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+# profiler span (see instrument_cnn) -> group of the kernels launched in it
+SPAN_GROUPS = {"cnn/first_conv": "first conv (290->160 5x5/s2 + 1x1/s2 projection)",
+               "cnn/bn": "BatchNorm elementwise (forward)"}
 # kernel-name substring -> group, first match wins
 GROUPS = (
+    ("voxel_fill_kernel", "voxel_fill"),
     ("flash_fwd_kernel", "flash_packed"),
     ("flash_bwd", "flash_packed_bwd"),
     ("fused_ln_mlp_kernel", "fused_ln_mlp (serving or train forward)"),
@@ -94,12 +111,55 @@ def union_us(intervals, lo=float("-inf"), hi=float("inf")) -> float:
     return total
 
 
-def device_groups(dev):
-    """Device time (ms) and calls per kernel group and per kernel name."""
+def launch_spans(events, dev, prefix):
+    """For each device event, the innermost ``prefix`` span (by the host
+    time of its launch, matched through the trace's correlation ids) that
+    launched it, or None."""
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name", "").startswith(prefix)]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = []
+    for e in dev:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        inside = [(b - a, name) for a, b, name in spans if t is not None and a <= t < b]
+        out.append(min(inside)[1] if inside else None)
+    return out
+
+
+def span_kernels(dev, span_of) -> dict:
+    """Device ms and calls per kernel name inside each span of
+    :data:`SPAN_GROUPS` (what the first conv really launched)."""
+    out = collections.defaultdict(lambda: collections.defaultdict(lambda: [0.0, 0]))
+    for e, span in zip(dev, span_of):
+        if span in SPAN_GROUPS and span != "cnn/bn":
+            out[span][e["name"][:90]][0] += e["dur"] / 1e3
+            out[span][e["name"][:90]][1] += 1
+    return {k: dict(v) for k, v in out.items()}
+
+
+def host_api_ms(events, lo, hi) -> dict:
+    """Host ms and calls per CUDA runtime/driver call inside [lo, hi), the
+    largest 8: where the host waits (synchronize, allocation, copies)."""
+    out = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and lo <= e["ts"] < hi:
+            out[e["name"]][0] += e.get("dur", 0) / 1e3
+            out[e["name"]][1] += 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0])[:8])
+
+
+def device_groups(dev, span_of=None):
+    """Device time (ms) and calls per kernel group and per kernel name;
+    ``span_of`` (one span name or None per event) overrides the name group
+    of the kernels launched in a span of :data:`SPAN_GROUPS`."""
     groups = collections.defaultdict(lambda: [0.0, 0])
     names = collections.defaultdict(lambda: [0.0, 0])
-    for e in dev:
+    for i, e in enumerate(dev):
         g = group_of(e["name"]) if e["cat"] == "kernel" else e["cat"]
+        if span_of is not None and span_of[i] in SPAN_GROUPS and e["cat"] == "kernel":
+            g = SPAN_GROUPS[span_of[i]]
         groups[g][0] += e["dur"] / 1e3
         groups[g][1] += 1
         names[e["name"][:90]][0] += e["dur"] / 1e3
@@ -108,23 +168,91 @@ def device_groups(dev):
             dict(sorted(names.items(), key=lambda kv: -kv[1][0])[:15]))
 
 
+def instrument_cnn(model):
+    """Wrap the CNN's first conv (and its projection) and every BatchNorm in
+    profiler spans: ``cnn/first_conv``, ``cnn/bn``. Returns a function that
+    undoes it."""
+    import torch
+
+    from intentbev_torch.models import blocks
+
+    blk = model.backbone.lidar_stage1.blocks[0]
+    first = {id(blk.conv1), id(blk.proj_conv)}
+    saved = blocks.conv, blocks.batch_norm_infer, blocks.batch_norm_train
+
+    def spanned(fn, name, pick=lambda mod: True):
+        def call(mod, x):
+            if not pick(mod):
+                return fn(mod, x)
+            with torch.profiler.record_function(name):
+                return fn(mod, x)
+        return call
+
+    blocks.conv = spanned(saved[0], "cnn/first_conv", lambda mod: id(mod) in first)
+    blocks.batch_norm_infer = spanned(saved[1], "cnn/bn")
+    blocks.batch_norm_train = spanned(saved[2], "cnn/bn")
+
+    def undo():
+        blocks.conv, blocks.batch_norm_infer, blocks.batch_norm_train = saved
+    return undo
+
+
+def first_conv_ms(model, lidar_nhwc) -> dict:
+    """CUDA-event time of the CNN's first conv (forward) on the fill's NHWC
+    output as the model reads it (a channels-last NCHW view), and on an
+    NCHW-contiguous copy of the same input."""
+    import torch
+
+    from intentbev_torch.models.blocks import conv
+
+    mod = model.backbone.lidar_stage1.blocks[0].conv1
+    out = {}
+    with torch.no_grad():
+        for name, x in (("channels_last_view", lidar_nhwc.permute(0, 3, 1, 2)),
+                        ("nchw_contiguous", lidar_nhwc.permute(0, 3, 1, 2).contiguous())):
+            conv(mod, x)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                conv(mod, x)
+            end.record()
+            end.synchronize()
+            out[name] = start.elapsed_time(end) / 10
+    return out
+
+
+def print_details(p) -> None:
+    for span, kernels in p["span_kernels_ms_calls"].items():
+        print(f"kernels launched in {span}:")
+        for name, (ms, n) in kernels.items():
+            print(f"    {ms:.3f} ms over {n} calls: {name}")
+    print("host CUDA API calls (forward or step window): " + "; ".join(
+        f"{k} {ms:.2f} ms / {n}" for k, (ms, n) in p["host_api_ms_calls"].items()))
+
+
 def profile_train(args, card) -> None:
     import torch
 
     from intentbev_torch.boxes import generate_anchors
-    from intentbev_torch.configs import default_vit_config
-    from intentbev_torch.models import IntentNetViT, init_params
-    from intentbev_torch.synthetic import train_batch
+    from intentbev_torch.configs import default_cnn_config, default_vit_config
+    from intentbev_torch.data.pipeline import chunk_batch_to_device
+    from intentbev_torch.models import build_model, init_params
+    from intentbev_torch.synthetic import calibrated_params, chunk_train_batch, train_batch
     from intentbev_torch.train import make_optimizer, make_train_step
 
-    cfg = default_vit_config()
-    model = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32)
-    model.load_state_dict(init_params(cfg, seed=0))
+    cnn = args.model == "cnn"
+    cfg = default_cnn_config() if cnn else default_vit_config()
+    model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.float32)
+    model.load_state_dict(calibrated_params(cfg, 0, "cuda") if cnn else init_params(cfg, seed=0))
     model.to("cuda")
     anchors = torch.from_numpy(generate_anchors(cfg.grid, cfg.anchors)).to("cuda")
     step = make_train_step(model, cfg, anchors, make_optimizer(model.parameters(), cfg))
-    batch = {k: torch.from_numpy(a).to("cuda") for k, a in train_batch(
-        cfg.grid, 8, 16384, cfg.loss.max_gt_boxes, seed=0).items()}
+    if cnn:  # the CNN trains over the chunk train transport
+        batch = chunk_batch_to_device(chunk_train_batch(cfg, 8, 16384, seed=0), "cuda")
+    else:
+        batch = {k: torch.from_numpy(a).to("cuda") for k, a in train_batch(
+            cfg.grid, 8, 16384, cfg.loss.max_gt_boxes, seed=0).items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     step(batch, gen)  # warm-up
     step_ms = []
@@ -134,14 +262,25 @@ def profile_train(args, card) -> None:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
 
+    peak_gib = None
+    if cnn:
+        torch.cuda.reset_peak_memory_stats()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     trace_path = out / "trace.json"
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        with torch.profiler.record_function("train/step"):
-            step(batch, gen)
-            torch.cuda.synchronize()
+    undo = instrument_cnn(model) if cnn else (lambda: None)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("train/step"):
+                step(batch, gen)
+                torch.cuda.synchronize()
+    finally:
+        undo()
     prof.export_chrome_trace(str(trace_path))
 
     events = json.loads(trace_path.read_text())["traceEvents"]
@@ -159,10 +298,13 @@ def profile_train(args, card) -> None:
         span = next((k for k, (a, b) in spans.items() if t is not None and a <= t < b),
                     "outside the spans")
         span_dev[span] += e["dur"] / 1e3
-    groups, names = device_groups(dev)
+    span_of = launch_spans(events, dev, "cnn/")
+    groups, names = device_groups(dev, span_of)
     result = {
         "card": card,
+        "model": args.model,
         "step_ms": step_ms,
+        "peak_memory_gib": peak_gib,
         "profiled_step": {
             "step_window_ms": (hi - lo) / 1e3,
             "device_busy_ms": busy,
@@ -171,11 +313,15 @@ def profile_train(args, card) -> None:
             "span_device_ms": dict(span_dev),
             "groups_ms_calls": groups,
             "top_kernels_ms_calls": names,
+            "span_kernels_ms_calls": span_kernels(dev, span_of),
+            "host_api_ms_calls": host_api_ms(events, lo, hi),
         },
     }
     (out / "profile_train.json").write_text(json.dumps(result, indent=1))
     print(f"card: {card}")
     print("step ms (synchronized): " + " ".join(f"{x:.1f}" for x in step_ms))
+    if peak_gib is not None:
+        print(f"peak device memory of a step: {peak_gib:.2f} GiB")
     p = result["profiled_step"]
     print(f"profiled step: {p['step_window_ms']:.2f} ms, device busy "
           f"{p['device_busy_ms']:.2f} ms, idle share {p['device_idle_share']:.4f}")
@@ -184,6 +330,7 @@ def profile_train(args, card) -> None:
               f"{p['span_device_ms'].get(k, 0.0):.2f} ms")
     for g, (ms, n) in p["groups_ms_calls"].items():
         print(f"  {g}: {ms:.3f} ms over {n} calls")
+    print_details(p)
     print(f"wrote {out / 'profile_train.json'} and {trace_path}")
 
 
@@ -192,8 +339,12 @@ def main() -> None:
     ap.add_argument("--requests", type=int, default=4,
                     help="timed requests (serving) or steps (--train)")
     ap.add_argument("--train", action="store_true", help="profile a training step")
+    ap.add_argument("--model", choices=("vit", "cnn"), default="vit")
     ap.add_argument("--out", default="chiprun_out/profile_slice")
     args = ap.parse_args()
+    if args.out == ap.get_default("out"):
+        args.out = str(Path(args.out).with_name("profile_" + "cnn_" * (args.model == "cnn")
+                                                + ("train" if args.train else "slice")))
 
     import torch
 
@@ -203,20 +354,21 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0].strip()
     if args.train:
-        if args.out == ap.get_default("out"):
-            args.out = str(Path(args.out).with_name("profile_train"))
         profile_train(args, card)
         return
 
-    from intentbev_torch.configs import default_vit_config
+    from intentbev_torch.configs import default_cnn_config, default_vit_config
     from intentbev_torch.models import init_params
+    from intentbev_torch.ops.voxel_embed import (chunks_to_device, decode_chunk_transport,
+                                                 voxel_fill_bev)
     from intentbev_torch.parallel import StreamingInferencer
-    from intentbev_torch.synthetic import serving_batch
+    from intentbev_torch.synthetic import calibrated_params, serving_batch
 
-    cfg = default_vit_config()
+    cnn = args.model == "cnn"
+    cfg = default_cnn_config() if cnn else default_vit_config()
     batch = 8
-    inf = StreamingInferencer(cfg, init_params(cfg, seed=0), "cuda", transport="chunks",
-                              gelu="sigmoid")
+    params = calibrated_params(cfg, 0, "cuda") if cnn else init_params(cfg, seed=0)
+    inf = StreamingInferencer(cfg, params, "cuda", transport="chunks", gelu="sigmoid")
     requests = [serving_batch(cfg.grid, batch, 16384, seed=s)
                 for s in range(args.requests + 1)]
 
@@ -244,9 +396,23 @@ def main() -> None:
     out.mkdir(parents=True, exist_ok=True)
     trace_path = out / "trace.json"
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        request(*requests[1], [])
+    undo = instrument_cnn(inf.model) if cnn else (lambda: None)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            request(*requests[1], [])
+    finally:
+        undo()
     prof.export_chrome_trace(str(trace_path))
+    conv_ms = None
+    if cnn:
+        g = cfg.grid
+        with torch.inference_mode():
+            lidar = voxel_fill_bev(
+                decode_chunk_transport(chunks_to_device(inf.build_chunks(*requests[1][:2]),
+                                                        "cuda")),
+                (g.height_px, g.width_px), g.lidar_total_channels, inf.chunk_patch)
+        conv_ms = first_conv_ms(inf.model, lidar)
+        del lidar
 
     events = json.loads(trace_path.read_text())["traceEvents"]
     dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
@@ -259,9 +425,12 @@ def main() -> None:
     busy_req = union_us(intervals, req_lo, req_hi)
     busy_fwd = union_us(intervals, fwd_lo, fwd_hi)
 
-    groups, names = device_groups(dev)
+    span_of = launch_spans(events, dev, "cnn/")
+    groups, names = device_groups(dev, span_of)
     result = {
         "card": card,
+        "model": args.model,
+        "first_conv_ms": conv_ms,
         "requests": len(stages),
         "stage_ms": {k: [s[i] for s in stages]
                      for i, k in enumerate(("host_chunk_build", "h2d_forward_sync",
@@ -273,6 +442,8 @@ def main() -> None:
                                   "forward": 1 - busy_fwd / (fwd_hi - fwd_lo)},
             "groups_ms_calls": groups,
             "top_kernels_ms_calls": names,
+            "span_kernels_ms_calls": span_kernels(dev, span_of),
+            "host_api_ms_calls": host_api_ms(events, fwd_lo, fwd_hi),
         },
     }
     (out / "profile_slice.json").write_text(json.dumps(result, indent=1))
@@ -289,6 +460,10 @@ def main() -> None:
           f"{p['device_idle_share']['forward']:.4f}")
     for g, (ms, n) in p["groups_ms_calls"].items():
         print(f"  {g}: {ms:.3f} ms over {n} calls")
+    print_details(p)
+    if conv_ms is not None:
+        print("first conv alone (CUDA events): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in conv_ms.items()))
     print(f"wrote {out / 'profile_slice.json'} and {trace_path}")
 
 
