@@ -11,9 +11,10 @@ Phases (each prints a line; any failure exits nonzero with no result):
 3. kernels: each hand-written kernel (serving and training entries)
    against its plain PyTorch version at the main paths' shapes in bf16,
    with CUDA-event times of both and, where one PyTorch call computes the
-   same function (SDPA, layer_norm), of that call; the least time the card
-   could take (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16)
-   is computed from the inputs. Each reading (relative L2 error) must lie
+   same function (SDPA, layer_norm, conv2d), of that call; the least time
+   the card could take (bytes over 3.35 TB/s or operations over 989
+   TFLOP/s bf16, 1979 TOP/s for the int8 kernel) is computed from the
+   inputs. Each reading (relative L2 error) must lie
    under its limit, and a control, the plain version with one named fault,
    must reach it.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
@@ -49,6 +50,15 @@ Phases (each prints a line; any failure exits nonzero with no result):
    one ``voxel_fill`` launch each. The ViT of phase 5 then takes one step
    over the chunk train transport: finite, with one ``voxel_fill`` launch
    beside its 24/24/24/24/28/28.
+8. ViT serving configurations: the full-width ViT of phase 4 under four
+   kernel switches of ``ViTBackboneConfig`` serves 3 requests of 8 frames
+   each: A ``serving_int8`` (the ``bench.py --int8`` line, points
+   transport), B ``fuse_ln_dense`` (chunks), C ``use_fused_layernorm=False``
+   (chunks), D ``fuse_patch_embed`` (points). The launch counts per request
+   are those of the JAX model's structure for the configuration; the logits
+   agree with the same configuration through the plain versions (and the
+   plain run with the erf GELU is caught); the Detections are fixed-shape
+   and finite; frames/s are printed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -64,6 +74,15 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores
+# Phase 8: limits of the relative L2 error of each configuration's logits,
+# kernels against plain versions, between the sound readings and those of
+# the control (the plain path with the erf GELU); PERF.md has both. Under
+# W8A8 the bf16 noise of 24 blocks flips int8 codes, which lifts the sound
+# reading to ~2e-2; the int8 kernel itself is exact against its plain
+# version (phase 3).
+CONFIG_LIMITS = {"A serving_int8": (2.3e-2,) * 3, **{name: (1.3e-2,) * 3 for name in (
+    "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed")}}
 
 
 def fail(msg: str) -> None:
@@ -103,14 +122,18 @@ def main() -> None:
     from intentbev_torch.models import IntentNetCNN, IntentNetViT, init_params
     from intentbev_torch.ops import _build
     from intentbev_torch.ops import (
+        fused_ln_dense, fused_ln_dense_plain, fused_mlp, fused_mlp_int8, fused_mlp_int8_plain,
+        fused_mlp_plain, patch_embed, patch_embed_plain, quantize_linear, quantize_rows,
         flash_attention_packed, flash_attention_packed_bwd, flash_attention_packed_bwd_plain,
         flash_attention_packed_plain, fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
         fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, layernorm,
         layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
         layernorm_train_plain, voxel_embed_tokens, voxel_embed_tokens_plain, voxel_fill_bev,
         voxel_fill_bev_plain)
+    from intentbev_torch.ops.fused_ln_mlp import gelu as gelu_fn
+    from intentbev_torch.ops.int8 import int_matmul
     from intentbev_torch.ops.voxel_embed import chunks_to_device, decode_chunk_transport
-    from intentbev_torch.parallel import StreamingInferencer
+    from intentbev_torch.parallel import StreamingInferencer, vit_serving_variant
     from intentbev_torch.parallel.inference import build_chunk_transport
     from intentbev_torch.synthetic import (calibrated_params, chunk_train_batch, serving_batch,
                                            train_batch)
@@ -169,18 +192,24 @@ def main() -> None:
             out.append(metric(a, b))
         return out
 
-    def compare(name, got, want, control, metrics, limits, fault):
+    def compare(name, got, want, control, metrics, limits, fault, failures=None):
         """Every reading of the kernel against its plain version must lie under
         its limit, and the control (the plain version with one named fault)
-        must reach a limit, which shows the limits can see such a fault."""
+        must reach a limit, which shows the limits can see such a fault.
+        With a ``failures`` list, what fails is added to it instead."""
         sound = readings(name, got, want, metrics)
         ctrl = readings(name, got, control, metrics)
         said = f"readings {sound}, control ({fault}) {ctrl}, limits {limits}"
-        check(all(r < lim for r, lim in zip(sound, limits)),
-              f"{name}: a reading reaches its limit: {said}")
-        check(any(r >= lim for r, lim in zip(ctrl, limits)),
-              f"{name}: the control stays under every limit, so the check cannot "
-              f"see that fault: {said}")
+        problems = []
+        if not all(r < lim for r, lim in zip(sound, limits)):
+            problems.append(f"{name}: a reading reaches its limit: {said}")
+        if not any(r >= lim for r, lim in zip(ctrl, limits)):
+            problems.append(f"{name}: the control stays under every limit, so the check "
+                            f"cannot see that fault: {said}")
+        if failures is None:
+            check(not problems, "; ".join(problems))
+        else:
+            failures.extend(problems)
         return sound, ctrl
 
     def layernorm_unbiased(x, gamma, beta, eps=1e-6, train=False):
@@ -201,11 +230,22 @@ def main() -> None:
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def bound(n_bytes, flops):
+    def bound(n_bytes, flops, rate=BF16_FLOPS_PER_S):
         """Least time (ms) for this work: bytes over the memory rate or
-        operations over the bf16 peak, whichever is larger."""
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+        operations over the peak rate of their type, whichever is larger."""
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def fused_mlp_int8_block_scale(x_, w1q_, s1_, b1_, w2q_, s2_, b2_, res_, mode, block=32):
+        # the control's fault: one scale of h per block of 32 rows, not per row
+        xq, xs = quantize_rows(x_.reshape(-1, x_.shape[-1]))
+        h = gelu_fn(int_matmul(xq, w1q_.t()) * xs * s1_ + b1_, mode)
+        n = h.shape[0]
+        amax = F.pad(h.abs().amax(-1), (0, -n % block)).reshape(-1, block).amax(-1)
+        hs = amax.repeat_interleave(block)[:n, None].clamp(min=1e-8) / 127.0
+        hq = torch.clamp(torch.round(h / hs), -127, 127)
+        y = int_matmul(hq, w2q_.t()) * hs * s2_ + b2_ + res_.reshape(n, -1).float()
+        return y.to(x_.dtype).reshape(x_.shape)
 
     pts, valid, mp = serving_batch(g, batch, 16384, seed=0)
     chunks = decode_chunk_transport(chunks_to_device(
@@ -233,6 +273,26 @@ def main() -> None:
     _, xhat, inv = layernorm_train_plain(x, ln[0], ln[1])
     o, lse = flash_attention_packed(q, k, vv, heads)
     do = randn((batch, tokens, d), 1.0)
+    # the other serving configurations' kernels: W8A8 MLP inputs (rows of
+    # varied scale, as a residual stream's are; codes of f32 weights), the
+    # qkv and adapter LN + dense, a dense lidar BEV for the patch embed
+    x8 = (torch.randn(rows, d, generator=gen, device=dev)
+          * torch.exp(0.5 * torch.randn(rows, 1, generator=gen, device=dev))).bfloat16()
+    w1q, s1 = quantize_linear(w1.float())
+    w2q, s2 = quantize_linear(w2.float())
+    int8_args = (x8, w1q, s1, b1, w2q, s2, b2, x)
+    w_qkv, b_qkv = randn((3 * d, d), d ** -0.5), randn((3 * d,), 0.1, torch.float32)
+    a_out = v.adapter_out_channels
+    x_ad = randn((batch * v.num_patches, d), 1.0)
+    w_ad, b_ad = randn((a_out, d), d ** -0.5), randn((a_out,), 0.1, torch.float32)
+    x_pe = randn((batch, g.height_px, g.width_px, v.lidar_input_channels), 1.0)
+    w_conv = w_pe.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    b_conv = b_pe.bfloat16()
+
+    @torch.no_grad()
+    def lib_conv():
+        return F.conv2d(x_pe.permute(0, 3, 1, 2), w_conv, b_conv, stride=v.patch_size)
+
     used = torch.arange(chunks.wid.shape[-1], device=dev) < chunks.count[..., None]
     cells = int(((chunks.val != 0) & used[..., None, None]).sum())
     # the fill reads each band's chunks up to its count (wid and 64 cells of
@@ -281,6 +341,8 @@ def main() -> None:
     # backward; LN and voxel_embed are bound by their bytes.
     flash_flops = 4 * batch * tokens * tokens * d
     mlp_flops = 4 * rows * d * hidden
+    pe_flops = 2 * batch * v.num_patches * v.patch_size ** 2 * v.lidar_input_channels * d
+    rates = {"fused_mlp_int8": INT8_OPS_PER_S}  # ops of another type than bf16
     cases = {
         # json name: (kernel call, plain call, control call, the control's
         #   fault, metrics, limits, kernel iters, plain iters, bytes, flops,
@@ -357,6 +419,40 @@ def main() -> None:
                 q, k, vv, torch.zeros_like(o), lse, do, heads)),
             "delta = rowsum(dO*O) left out", (rel_l2,) * 3, (1e-2,) * 3, 5, 2,
             nbytes(q, k, vv, o, do, lse) + nbytes(qkv), 5 * flash_flops // 2, lib_sdpa_bwd),
+        "fused_mlp_int8": (
+            lambda: fused_mlp_int8(*int8_args, "sigmoid"),
+            lambda: fused_mlp_int8_plain(*int8_args, "sigmoid"),
+            lambda: fused_mlp_int8_block_scale(*int8_args, "sigmoid"),
+            "one h scale per 32-row block", (rel_l2,), (5e-4,), 10, 2,
+            nbytes(*int8_args) + nbytes(x), mlp_flops, None),
+        "fused_mlp": (
+            lambda: fused_mlp(x8, w1, b1, w2, b2, x, gelu_mode="sigmoid"),
+            lambda: fused_mlp_plain(x8, w1, b1, w2, b2, x, gelu_mode="sigmoid"),
+            lambda: fused_mlp_plain(x8, w1, torch.zeros_like(b1), w2, b2, x,
+                                    gelu_mode="sigmoid"),
+            "b1 left out", (rel_l2,), (1e-3,), 10, 3,
+            nbytes(x8, w1, b1, w2, b2, x) + nbytes(x), mlp_flops, None),
+        "fused_ln_dense": (
+            lambda: fused_ln_dense(x, ln[0], ln[1], w_qkv, b_qkv),
+            lambda: fused_ln_dense_plain(x, ln[0], ln[1], w_qkv, b_qkv),
+            lambda: fused_ln_dense_plain(x, ln[0], ln[1], w_qkv, torch.zeros_like(b_qkv)),
+            "bias left out", (rel_l2,), (1e-3,), 20, 3,
+            nbytes(x, ln[0], ln[1], w_qkv, b_qkv) + rows * 3 * d * 2, 2 * rows * d * 3 * d,
+            None),
+        "fused_ln_dense[adapter]": (
+            lambda: fused_ln_dense(x_ad, ln[0], ln[1], w_ad, b_ad, gelu_mode="sigmoid"),
+            lambda: fused_ln_dense_plain(x_ad, ln[0], ln[1], w_ad, b_ad, gelu_mode="sigmoid"),
+            lambda: fused_ln_dense_plain(x_ad, ln[0], ln[1], w_ad, b_ad),
+            "GELU epilogue skipped", (rel_l2,), (1e-3,), 20, 3,
+            nbytes(x_ad, ln[0], ln[1], w_ad, b_ad) + x_ad.shape[0] * a_out * 2,
+            2 * x_ad.shape[0] * d * a_out, None),
+        "patch_embed": (
+            lambda: patch_embed(x_pe, w_pe, b_pe, v.patch_size),
+            lambda: patch_embed_plain(x_pe, w_pe, b_pe, v.patch_size),
+            lambda: patch_embed_plain(x_pe, w_pe.transpose(0, 1).contiguous(), b_pe,
+                                      v.patch_size),
+            "weight read as w[dx, dy]", (rel_l2,), (1e-3,), 10, 2,
+            nbytes(x_pe, w_pe, b_pe) + batch * v.num_patches * d * 2, pe_flops, lib_conv),
     }
     record = {}
     for name, (kern, plain, control, fault, metrics, limits, it_k, it_p, n_bytes, flops,
@@ -370,7 +466,7 @@ def main() -> None:
         del got, want, ctrl
         ms, plain_ms = cuda_ms(kern, it_k), cuda_ms(plain, it_p)
         lib_ms = cuda_ms(library, it_k) if library is not None else None
-        bound_ms, bound_by = bound(n_bytes, flops)
+        bound_ms, bound_by = bound(n_bytes, flops, rates.get(name, BF16_FLOPS_PER_S))
         record[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
         fmt = ", ".join
@@ -381,7 +477,8 @@ def main() -> None:
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, bound "
               f"{bound_ms:.4f} ms ({bound_by})  [{card}]", flush=True)
     del chunks, x, qkv, q, k, vv, o, lse, do, dy, x3, dy3, xhat, inv, gate, train_mlp
-    del qh, kh, vh, doh, o_sdpa, xl, gl, bl, y_ln, mlp_args
+    del qh, kh, vh, doh, o_sdpa, xl, gl, bl, y_ln, mlp_args, x8, int8_args, x_ad
+    del x_pe, w_conv
     torch.cuda.empty_cache()
 
     # 4. the slice
@@ -742,18 +839,81 @@ def main() -> None:
     print(f"vit train, chunk transport: launches {vit_chunk_counts}; loss "
           f"{float(vm['loss']):.6f}", flush=True)
 
+
+    # 8. ViT serving configurations
+    per_request_by_config = {  # label: (variant, launches per request)
+        "A serving_int8": ("int8", {"flash_packed": 24, "fused_mlp_int8": 24,
+                                    "layernorm": 52}),
+        "B fuse_ln_dense": ("ln_dense", {"voxel_embed": 1, "fused_ln_dense": 26,
+                                         "flash_packed": 24, "fused_ln_mlp_train": 24,
+                                         "layernorm": 2}),
+        "C use_fused_layernorm=False": ("unfused_ln", {"voxel_embed": 1, "flash_packed": 24,
+                                                       "fused_mlp": 24}),
+        "D fuse_patch_embed": ("patch_embed", {"patch_embed": 1, "flash_packed": 24,
+                                               "fused_ln_mlp": 24, "layernorm": 4}),
+    }
+    config_counts, config_failures = {}, []
+    for cname, (variant, per_req) in per_request_by_config.items():
+        vcfg, transport = vit_serving_variant(cfg, variant)
+        vinf = StreamingInferencer(vcfg, params, "cuda", transport=transport, gelu="sigmoid")
+        vinf(*requests[0])  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        vdets = [vinf(*r) for r in requests]
+        elapsed = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        config_counts[cname] = counts
+        want_counts = {k_: per_req.get(k_, 0) * len(requests) for k_ in counts}
+        check(counts == want_counts, f"{cname}: launch counts {counts} != {want_counts}")
+
+        def config_logits(inf_):
+            pts_, valid_, map_ = requests[0]
+            if transport == "points":
+                return inf_.logits_points(pts_, valid_, map_)
+            return inf_.logits(inf_.build_chunks(pts_, valid_), map_)
+
+        got = config_logits(vinf)
+        want = config_logits(StreamingInferencer(vcfg, params, "cuda", transport=transport,
+                                                 gelu="sigmoid", plain_ops=True))
+        ctrl = config_logits(StreamingInferencer(vcfg, params, "cuda", transport=transport,
+                                                 gelu="erf", plain_ops=True))
+        for name, a, wdt in zip(("cls", "box", "intent"), got, widths):
+            check(tuple(a.shape) == (batch, n_anchor, wdt),
+                  f"{cname}: {name} logits shape {tuple(a.shape)}")
+        sound, ctrl_r = compare(f"{cname} logits", got, want, ctrl, (rel_l2,) * 3,
+                                CONFIG_LIMITS[cname], "plain, erf GELU in the blocks",
+                                config_failures)
+        for det in vdets:
+            check(det.boxes_xywha.shape == (batch, ev.max_detections, 5), f"{cname}: boxes shape")
+            check(det.scores.shape == det.valid.shape == (batch, ev.max_detections),
+                  f"{cname}: scores shape")
+            check(np.isfinite(det.boxes_xywha).all() and np.isfinite(det.scores).all(),
+                  f"{cname}: non-finite detections")
+        fmt3 = ", ".join
+        print(f"config {cname} ({transport}): launches per request {per_req}; logits kernel vs "
+              f"plain, relative L2 (cls, box, intent) [{fmt3(f'{r:.3e}' for r in sound)}] under "
+              f"{CONFIG_LIMITS[cname][0]:g}; control (plain, erf GELU in the blocks) "
+              f"[{fmt3(f'{r:.3e}' for r in ctrl_r)}]; valid per frame "
+              f"{vdets[0].valid.sum(1).tolist()}; {len(requests) * batch / elapsed:.2f} frames/s "
+              f"over {len(requests)} requests of {batch} [{card}]", flush=True)
+        del vinf, vdets, got, want, ctrl
+        torch.cuda.empty_cache()
+    check(not config_failures, "; ".join(config_failures))
+
+    serving_runs = (serve_counts, *config_counts.values())
     kernels = []
     for name, src, replaces, runs in (
-            ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", (serve_counts,)),
+            ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
             ("flash_packed", "flash_packed.cu", "intentbev/ops/flash_packed.py:157",
-             (serve_counts, train_counts)),
+             (*serving_runs, train_counts)),
             ("fused_ln_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:116",
-             (serve_counts,)),
-            ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39", (serve_counts,)),
+             serving_runs),
+            ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39", serving_runs),
             ("flash_packed_bwd", "flash_packed.cu", "intentbev/ops/flash_packed.py:523",
              (train_counts,)),
             ("fused_ln_mlp_train", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
-             (train_counts,)),
+             (train_counts, *config_counts.values())),
             ("fused_ln_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
              (train_counts,)),
             ("layernorm_train", "layernorm.cu", "intentbev/ops/layernorm.py:53",
@@ -761,11 +921,20 @@ def main() -> None:
             ("layernorm_bwd", "layernorm.cu", "intentbev/ops/layernorm.py:66",
              (train_counts,)),
             ("voxel_fill", "voxel_fill.cu", "intentbev/ops/voxel_embed.py:507",
-             (cnn_serve_counts, cnn_train_counts, vit_chunk_counts))):
+             (cnn_serve_counts, cnn_train_counts, vit_chunk_counts)),
+            ("fused_mlp_int8", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
+             serving_runs),
+            ("fused_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103", serving_runs),
+            ("fused_ln_dense", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:56",
+             serving_runs),
+            ("patch_embed", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
+             serving_runs)):
         r = record[name]
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[name] for c in runs),
                         **r})
+    check(len(kernels) == 14 and all(k_["launches"] > 0 for k_ in kernels),
+          f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,17 @@
-// Fused transformer block tail, three kernels:
+// Fused transformer block tail, four kernels:
 //
 // 1. Serving, with the LN epilogue of the serving LN chain:
 //      xn = LN2(x);  y = x + (GELU(xn W1 + b1) W2 + b2);  yn = LN_next(y)
 //    Replaces intentbev/ops/fused_ln_mlp.py::_fwd_ln_out_kernel (+ _mlp_body).
-// 2. Training forward, with the per-row drop-path gate and no epilogue:
+// 2. Training forward, and the serving tail without the chain, with the
+//    per-row drop-path gate (null: 1) and no epilogue:
 //      y = x + gate * (GELU(xn W1 + b1) W2 + b2)
 //    Replaces intentbev/ops/fused_ln_mlp.py::_fwd_kernel.
-// 3. Training backward (below), replacing ::_bwd_kernel.
+// 3. The MLP without LN, on an already normed input h, with a separate
+//    residual (the use_fused_layernorm=False serving tail; gate 1):
+//      y = res + (GELU(h W1 + b1) W2 + b2)
+//    Replaces intentbev/ops/fused_mlp.py::_fwd_kernel.
+// 4. Training backward (below), replacing ::_bwd_kernel.
 //
 // Forward bound on the H100: tensor-core throughput. At 36008 x 384 rows and
 // a 1536-wide hidden layer a call is 4*N*384*1536 = 85 GFLOP against 83 MB
@@ -14,13 +19,14 @@
 // Forward design: one 256-thread block owns 64 whole rows, so both
 // LayerNorms are block-local and the [64, 1536] hidden activation never
 // leaves the SM. The block normalises its rows into shared memory (bf16, as
-// the JAX kernel feeds the MXU), then walks the hidden dimension in 64-wide
-// tiles: stage the W1 and W2 tiles in shared memory, g = xn W1[:, tile]
-// (mma.sync), bias + GELU in f32, h as bf16 in shared memory,
-// acc += h W2[tile, :]. The f32 accumulator [64, 384] lives in registers
-// (96 per thread). The epilogue adds b2, scales by the gate (training) and
-// adds the residual in f32, writes y as bf16 and, serving, takes the next
-// LayerNorm from the f32 y (not the bf16-rounded y), like the JAX kernel.
+// the JAX kernel feeds the MXU; kernel 3 copies h there as it is), then
+// walks the hidden dimension in 64-wide tiles: stage the W1 and W2 tiles in
+// shared memory, g = xn W1[:, tile] (mma.sync), bias + GELU in f32, h as
+// bf16 in shared memory, acc += h W2[tile, :]. The f32 accumulator
+// [64, 384] lives in registers (96 per thread). The epilogue adds b2,
+// scales by the gate and adds the residual in f32, writes y as bf16 and,
+// serving with the chain, takes the next LayerNorm from the f32 y (not the
+// bf16-rounded y), like the JAX kernel.
 #include "common.cuh"
 
 namespace {
@@ -41,28 +47,23 @@ constexpr size_t SMEM_BYTES = (XN_ELEMS + W1_ELEMS + W2_ELEMS + H_ELEMS) * 2;
 static_assert((size_t)ROWS * LDY * 4 <= (W1_ELEMS + W2_ELEMS) * 2,
               "f32 epilogue tile must fit in the weight staging area");
 
-template <int GELU>
-__device__ __forceinline__ float gelu(float v) {
-  if (GELU == 0) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-  return v / (1.f + expf(-1.702f * v));
-}
-
 __device__ __forceinline__ float dgelu_erf(float v) {
   return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
          v * 0.3989422804014327f * expf(-0.5f * v * v);
 }
 
-// TRAIN: y = x + gate * mlp (gate may be null: 1), no yn; else the serving
-// kernel with the LN_next epilogue.
-template <int GELU, bool TRAIN>
+// LN_IN: the MLP reads LN2(x) (res is x); else it reads x as it is.
+// LN_OUT: the LN_next epilogue writes yn (gate is null); else y = res +
+// gate * mlp with gate null for 1.
+template <int GELU, bool LN_IN, bool LN_OUT>
 __global__ void __launch_bounds__(THREADS)
     fused_ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ g2,
                         const float* __restrict__ be2, const bf16* __restrict__ w1,
                         const float* __restrict__ b1, const bf16* __restrict__ w2,
                         const float* __restrict__ b2, const float* __restrict__ gn,
                         const float* __restrict__ bn, const float* __restrict__ gate,
-                        bf16* __restrict__ y, bf16* __restrict__ yn, int n_rows,
-                        int hidden, float eps) {
+                        const bf16* __restrict__ res, bf16* __restrict__ y,
+                        bf16* __restrict__ yn, int n_rows, int hidden, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* w1s = xs + XN_ELEMS;
@@ -75,10 +76,20 @@ __global__ void __launch_bounds__(THREADS)
   const int g = lane >> 2, t4 = lane & 3;
   const int row0 = blockIdx.x * ROWS;
 
-  // 1. xn = LN2(x) -> shared memory (bf16); warp w owns rows 8w..8w+7
+  // 1. xn = LN2(x), or x itself, -> shared memory (bf16); warp w owns rows
+  //    8w..8w+7
   for (int rr = 0; rr < ROWS / 8; ++rr) {
     const int r = warp * (ROWS / 8) + rr;
     const int grow = row0 + r;
+    if constexpr (!LN_IN) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int c = 2 * lane + 64 * i;
+        *reinterpret_cast<uint32_t*>(xs + r * LDX + c) =
+            grow < n_rows ? *reinterpret_cast<const uint32_t*>(x + (size_t)grow * D + c) : 0u;
+      }
+      continue;
+    }
     float v[12];
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
@@ -170,8 +181,8 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  // 3. epilogue: f32 (acc + b2) -> shared, then per row y = . (* gate) + x,
-  //    LN_next (serving)
+  // 3. epilogue: f32 (acc + b2) -> shared, then per row y = . (* gate) + res,
+  //    LN_next (serving chain)
   __syncthreads();  // every warp is done reading w2s before ys aliases it
 #pragma unroll
   for (int n = 0; n < 24; ++n) {
@@ -188,13 +199,13 @@ __global__ void __launch_bounds__(THREADS)
     const int grow = row0 + r;
     if (grow >= n_rows) break;  // warp-uniform
     float v[12];
-    if constexpr (TRAIN) {
+    if constexpr (!LN_OUT) {
       const float gt = gate ? gate[grow] : 1.f;
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
         const int c = 2 * lane + 64 * i;
         const __nv_bfloat162 p =
-            *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)grow * D + c);
+            *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)grow * D + c);
         *reinterpret_cast<uint32_t*>(y + (size_t)grow * D + c) =
             pack_bf16x2(ys[r * LDY + c] * gt + __bfloat162float(p.x),
                         ys[r * LDY + c + 1] * gt + __bfloat162float(p.y));
@@ -205,7 +216,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = 0; i < 6; ++i) {
       const int c = 2 * lane + 64 * i;
       const __nv_bfloat162 p =
-          *reinterpret_cast<const __nv_bfloat162*>(x + (size_t)grow * D + c);
+          *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)grow * D + c);
       v[2 * i] = ys[r * LDY + c] + __bfloat162float(p.x);
       v[2 * i + 1] = ys[r * LDY + c + 1] + __bfloat162float(p.y);
       *reinterpret_cast<uint32_t*>(y + (size_t)grow * D + c) =
@@ -223,52 +234,73 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int GELU, bool TRAIN>
+template <int GELU, bool LN_IN, bool LN_OUT>
 int launch(const void* x, const void* g2, const void* be2, const void* w1,
            const void* b1, const void* w2, const void* b2, const void* gn,
-           const void* bn, const void* gate, void* y, void* yn, int n_rows,
-           int hidden, float eps, cudaStream_t stream) {
+           const void* bn, const void* gate, const void* res, void* y, void* yn,
+           int n_rows, int hidden, float eps, cudaStream_t stream) {
+  auto kernel = fused_ln_mlp_kernel<GELU, LN_IN, LN_OUT>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_ln_mlp_kernel<GELU, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_rows + ROWS - 1) / ROWS;
-  fused_ln_mlp_kernel<GELU, TRAIN><<<blocks, THREADS, SMEM_BYTES, stream>>>(
+  kernel<<<blocks, THREADS, SMEM_BYTES, stream>>>(
       (const bf16*)x, (const float*)g2, (const float*)be2, (const bf16*)w1,
       (const float*)b1, (const bf16*)w2, (const float*)b2, (const float*)gn,
-      (const float*)bn, (const float*)gate, (bf16*)y, (bf16*)yn, n_rows, hidden, eps);
+      (const float*)bn, (const float*)gate, (const bf16*)res, (bf16*)y, (bf16*)yn,
+      n_rows, hidden, eps);
   return (int)cudaGetLastError();
+}
+
+// One entry per (LN_IN, LN_OUT) variant: gelu_mode 0 = exact erf GELU,
+// 1 = x * sigmoid(1.702 x).
+template <bool LN_IN, bool LN_OUT>
+int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
+             const void* w1, const void* b1, const void* w2, const void* b2,
+             const void* gn, const void* bn, const void* gate, const void* res, void* y,
+             void* yn, int n_rows, int hidden, float eps, void* stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  if (gelu_mode == 0)
+    return launch<0, LN_IN, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate, res, y, yn,
+                                    n_rows, hidden, eps, (cudaStream_t)stream);
+  return launch<1, LN_IN, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate, res, y, yn,
+                                  n_rows, hidden, eps, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// gelu_mode: 0 = exact erf GELU, 1 = x * sigmoid(1.702 x).
-// hidden must be a multiple of 64.
+// hidden must be a multiple of 64 in every entry.
 extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
                                 const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* gn, const void* bn,
                                 void* y, void* yn, int n_rows, int hidden,
                                 float eps, int gelu_mode, void* stream) {
-  if (n_rows <= 0) return (int)cudaGetLastError();
-  if (gelu_mode == 0)
-    return launch<0, false>(x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, y, yn,
-                            n_rows, hidden, eps, (cudaStream_t)stream);
-  return launch<1, false>(x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, y, yn, n_rows,
-                          hidden, eps, (cudaStream_t)stream);
+  return dispatch<true, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, x, y,
+                              yn, n_rows, hidden, eps, stream);
 }
 
-// Training forward (exact erf GELU): gate is f32 [n_rows] or null (1).
+// Training forward and the unchained serving tail: gate is f32 [n_rows] or
+// null (1).
 extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void* be2,
                                       const void* w1, const void* b1, const void* w2,
                                       const void* b2, const void* gate, void* y,
-                                      int n_rows, int hidden, float eps, void* stream) {
-  if (n_rows <= 0) return (int)cudaGetLastError();
-  return launch<0, true>(x, g2, be2, w1, b1, w2, b2, nullptr, nullptr, gate, y, nullptr,
-                         n_rows, hidden, eps, (cudaStream_t)stream);
+                                      int n_rows, int hidden, float eps, int gelu_mode,
+                                      void* stream) {
+  return dispatch<true, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2, nullptr, nullptr, gate,
+                               x, y, nullptr, n_rows, hidden, eps, stream);
+}
+
+// The MLP without LN, serving: y = res + mlp(h).
+extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, const void* w2,
+                             const void* b2, const void* res, void* y, int n_rows,
+                             int hidden, int gelu_mode, void* stream) {
+  return dispatch<false, false>(gelu_mode, h, nullptr, nullptr, w1, b1, w2, b2, nullptr,
+                                nullptr, nullptr, res, y, nullptr, n_rows, hidden, 0.f,
+                                stream);
 }
 
 // ---------------------------------------------------------------------------
-// 3. Training backward. Replaces intentbev/ops/fused_ln_mlp.py::_bwd_kernel:
+// 4. Training backward. Replaces intentbev/ops/fused_ln_mlp.py::_bwd_kernel:
 //      recompute xhat, inv, xn = LN2(x), g = xn W1 + b1, h = GELU(g)
 //      dy_eff = dy * gate;  dh = dy_eff W2^T;  dg = dh * GELU'(g)
 //      dxn = dg W1;  dgamma = sum dxn * xhat;  dbeta = sum dxn

@@ -14,6 +14,26 @@ the serving path (``deterministic=True`` with the serving LN chain):
 - per stream an adapter LN kernel, Linear and exact-erf GELU, reshaped to
   NHWC; the fusion ResidualStage; the heads; f32 logits out.
 
+The kernel switches of ``ViTBackboneConfig`` select the JAX model's other
+deterministic structures, each kernel where the TPU runs a Pallas kernel
+and plain PyTorch where it runs XLA:
+
+- without the chain (``fuse_ln_chain``, ``use_fused_layernorm`` or
+  ``use_fused_mlp`` off, or ``fuse_ln_dense`` or ``serving_int8`` on) every
+  block takes its own norm1, and the stack a final norm;
+- ``fuse_ln_dense``: norm1 folded into the qkv projection and each adapter's
+  LN -> Linear -> GELU as one kernel (``ops/fused_ln_dense``); the tail is
+  the LN+MLP kernel without the epilogue;
+- ``use_fused_layernorm=False``: LayerNorms in plain PyTorch with the JAX
+  FastLayerNorm's rounding, and the tail MLP, if ``use_fused_mlp``, as the
+  MLP kernel without LN (``ops/fused_mlp``);
+- ``use_fused_mlp=False``: the tail MLP as two Linears and the exact GELU;
+- ``serving_int8``: the tail MLP as the W8A8 kernel (``ops/fused_mlp_int8``)
+  on codes quantized once, at load, from the f32 parameters; attention
+  stays bf16, as in the JAX code;
+- ``fuse_patch_embed``: a dense lidar input of >= 128 channels embeds
+  through the patch-embed kernel (``ops/patch_embed``).
+
 In training mode (``model.train()``) it runs the JAX model's training
 structure, which is unchained (``deterministic=False``): the lidar stream
 takes a dense BEV through the patch embed (a matmul over patches); every
@@ -23,7 +43,10 @@ LN+MLP training tail with its gate; the final norm and each adapter norm
 are LN kernels; BatchNorm uses the batch statistics. Each of these kernels
 is a ``torch.autograd.Function`` whose backward is a kernel too. The
 drop-path gates (per sample, 0 or 1/keep, rates linspace(0, rate, depth))
-are drawn from the generator the caller passes.
+are drawn from the generator the caller passes. Training raises under
+``serving_int8`` (inference only) and under the switches whose backward
+kernels are not ported: ``fuse_ln_dense``, and ``use_fused_layernorm=False``
+with ``use_fused_mlp``.
 
 Tokens are not padded: the flash kernel takes any T and the LN/MLP
 kernels any row count. LayerNorm eps is 1e-6 throughout. Weights are held
@@ -47,8 +70,14 @@ import numpy as np
 from ..bev.rasterize import decode_map_transport
 from ..ops.flash_packed import (flash_attention_fn, flash_attention_packed,
                                 flash_attention_packed_plain)
-from ..ops.fused_ln_mlp import GELU_MODES, fused_ln_mlp, fused_ln_mlp_fn, fused_ln_mlp_plain
+from ..ops.fused_ln_dense import fused_ln_dense, fused_ln_dense_plain
+from ..ops.fused_ln_mlp import (GELU_MODES, fused_ln_mlp, fused_ln_mlp_fn, fused_ln_mlp_plain,
+                                fused_ln_mlp_train, fused_ln_mlp_train_plain)
+from ..ops.fused_mlp import fused_mlp, fused_mlp_plain
+from ..ops.fused_mlp_int8 import fused_mlp_int8, fused_mlp_int8_plain
+from ..ops.int8 import quantize_linear
 from ..ops.layernorm import layernorm, layernorm_fn, layernorm_plain
+from ..ops.patch_embed import patch_embed, patch_embed_plain
 from ..ops.voxel_embed import (VoxelChunks, voxel_embed_tokens,
                                voxel_embed_tokens_plain)
 from .blocks import ResidualStage, reset_conv_bn
@@ -62,11 +91,57 @@ class Ops(NamedTuple):
     fused_ln_mlp: Callable
     flash: Callable
     voxel_embed: Callable
+    fused_ln_mlp_tail: Callable  # the LN+MLP tail without the chain's epilogue
+    fused_mlp: Callable
+    fused_mlp_int8: Callable
+    fused_ln_dense: Callable
+    patch_embed: Callable
 
 
-KERNEL_OPS = Ops(layernorm, fused_ln_mlp, flash_attention_packed, voxel_embed_tokens)
+KERNEL_OPS = Ops(layernorm, fused_ln_mlp, flash_attention_packed, voxel_embed_tokens,
+                 fused_ln_mlp_train, fused_mlp, fused_mlp_int8, fused_ln_dense, patch_embed)
 PLAIN_OPS = Ops(layernorm_plain, fused_ln_mlp_plain, flash_attention_packed_plain,
-                voxel_embed_tokens_plain)
+                voxel_embed_tokens_plain, fused_ln_mlp_train_plain, fused_mlp_plain,
+                fused_mlp_int8_plain, fused_ln_dense_plain, patch_embed_plain)
+PATCH_EMBED_MIN_CHANNELS = 128  # the fused patch embed's gate (JAX: wide inputs only)
+
+
+def fast_layernorm(x, gamma, beta, eps: float = LN_EPS):
+    """The JAX FastLayerNorm (``use_fused_layernorm=False``) in plain
+    PyTorch: elementwise math in x's dtype, f32 accumulation inside the two
+    reductions only."""
+    dt = x.dtype
+    xc = x - x.float().mean(-1, keepdim=True).to(dt)
+    var = (xc * xc).float().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(dt)
+    return xc * inv * gamma.to(dt) + beta.to(dt)
+
+
+def _norm(x, params, ops: Ops, fused: bool):
+    """A standalone LayerNorm: the LN kernel, or FastLayerNorm's plain math."""
+    if fused:
+        return ops.layernorm(x, params.weight, params.bias, LN_EPS)
+    return fast_layernorm(x, params.weight, params.bias)
+
+
+def uses_ln_chain(cfg) -> bool:
+    """The JAX gate of the serving LN chain (deterministic passes)."""
+    return (cfg.fuse_ln_chain and cfg.use_fused_layernorm and cfg.use_fused_mlp
+            and not cfg.fuse_ln_dense and not cfg.serving_int8 and cfg.depth > 0)
+
+
+def check_trainable(cfg) -> None:
+    """Raise for the switches a training step cannot take yet."""
+    if cfg.serving_int8:
+        raise NotImplementedError("serving_int8 is inference-only, as in the JAX package")
+    if cfg.fuse_ln_dense:
+        raise NotImplementedError(
+            "fuse_ln_dense trains through the fused_ln_dense backward kernel, not ported "
+            "yet (ROADMAP.md section 2, item 11)")
+    if not cfg.use_fused_layernorm and cfg.use_fused_mlp:
+        raise NotImplementedError(
+            "use_fused_layernorm=False with use_fused_mlp trains through the fused_mlp "
+            "backward kernel, not ported yet (ROADMAP.md section 2, item 8)")
 
 
 class LayerNormParams(nn.Module):
@@ -121,18 +196,47 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim, True, dtype)
 
     def forward(self, xn: torch.Tensor, residual: torch.Tensor, ops: Ops):
-        d = xn.shape[-1]
-        qkv = self.qkv(xn)  # q, k, v are column slices: no split copies
+        return self.attend(self.qkv(xn), residual, ops)
+
+    def attend(self, qkv: torch.Tensor, residual: torch.Tensor, ops: Ops):
+        d = qkv.shape[-1] // 3  # q, k, v are column slices: no split copies
         out, _ = ops.flash(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
                            self.num_heads)
         return residual + self.proj(out)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
+    """fc1 -> GELU -> fc2. With ``int8`` it also holds the W8A8 codes of
+    both weights (int8 [out, in]) and their f32 scales as buffers, computed
+    when a state dict is loaded (and at ``reset_parameters``) from the
+    weights as they arrive there, f32 from ``from_flax`` or ``init_params``,
+    not from the compute-dtype copies."""
+
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype, int8: bool = False):
         super().__init__()
         self.fc1 = Linear(dim, hidden, True, dtype)
         self.fc2 = Linear(hidden, dim, True, dtype)
+        self.int8 = int8
+        if int8:
+            for name, shape in (("w1q", (hidden, dim)), ("w2q", (dim, hidden))):
+                self.register_buffer(name, torch.zeros(shape, dtype=torch.int8),
+                                     persistent=False)
+            self.register_buffer("s1", torch.zeros(hidden), persistent=False)
+            self.register_buffer("s2", torch.zeros(dim), persistent=False)
+            self.register_load_state_dict_pre_hook(Mlp._quantize_on_load)
+
+    @torch.no_grad()
+    def quantize(self, w1: torch.Tensor, w2: torch.Tensor) -> None:
+        for (q_name, s_name), w in ((("w1q", "s1"), w1), (("w2q", "s2"), w2)):
+            q, scale = quantize_linear(w)
+            getattr(self, q_name).copy_(q)
+            getattr(self, s_name).copy_(scale)
+
+    @staticmethod
+    def _quantize_on_load(module, state_dict, prefix, *_):
+        w1, w2 = state_dict.get(prefix + "fc1.weight"), state_dict.get(prefix + "fc2.weight")
+        if w1 is not None and w2 is not None:
+            module.quantize(w1, w2)
 
 
 class EncoderBlock(nn.Module):
@@ -140,12 +244,12 @@ class EncoderBlock(nn.Module):
     returns (x', ln_next(x'))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 qkv_bias: bool, dtype: torch.dtype):
+                 qkv_bias: bool, dtype: torch.dtype, int8: bool = False):
         super().__init__()
         self.norm1 = LayerNormParams(dim)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype)
         self.norm2 = LayerNormParams(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, int8)
 
     def forward(self, x, xn, ln_next: LayerNormParams, ops: Ops, gelu: str):
         x = self.attn(xn, x, ops)
@@ -153,6 +257,31 @@ class EncoderBlock(nn.Module):
         return ops.fused_ln_mlp(
             x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
             m.fc2.weight, m.fc2.bias, ln_next.weight, ln_next.bias, LN_EPS, gelu)
+
+    def forward_unchained(self, x, ops: Ops, gelu: str, cfg):
+        """The JAX block's deterministic structures without the chain: takes
+        and returns the residual stream x."""
+        fused_ln, a, m = cfg.use_fused_layernorm, self.attn, self.mlp
+        dt = x.dtype
+        if (fused_ln and cfg.fuse_ln_dense and a.qkv.bias is not None
+                and not cfg.serving_int8):
+            qkv = ops.fused_ln_dense(x, self.norm1.weight, self.norm1.bias,
+                                     a.qkv.weight.to(dt), a.qkv.bias, LN_EPS)
+            x = a.attend(qkv, x, ops)
+        else:
+            x = a(_norm(x, self.norm1, ops, fused_ln), x, ops)
+        if cfg.use_fused_mlp and fused_ln and not cfg.serving_int8:
+            return ops.fused_ln_mlp_tail(
+                x, self.norm2.weight, self.norm2.bias, m.fc1.weight.to(dt), m.fc1.bias,
+                m.fc2.weight.to(dt), m.fc2.bias, None, LN_EPS, gelu)
+        h = _norm(x, self.norm2, ops, fused_ln)
+        if cfg.serving_int8:
+            return ops.fused_mlp_int8(h, m.w1q, m.s1, m.fc1.bias, m.w2q, m.s2, m.fc2.bias,
+                                      x, gelu)
+        if cfg.use_fused_mlp:
+            return ops.fused_mlp(h, m.fc1.weight.to(dt), m.fc1.bias, m.fc2.weight.to(dt),
+                                 m.fc2.bias, x, gelu)
+        return x + m.fc2(F.gelu(m.fc1(h)))  # XLA in the JAX model: exact erf
 
     def forward_train(self, x, gates, plain: bool):
         """Unchained training block; ``gates``: (attention, MLP) per-sample
@@ -185,7 +314,8 @@ class ViTEncoder(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + n, d))
         self.blocks = nn.ModuleList(
-            EncoderBlock(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, dtype)
+            EncoderBlock(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias, dtype,
+                         cfg.serving_int8)
             for _ in range(cfg.depth))
         self.norm = LayerNormParams(d)
 
@@ -223,6 +353,8 @@ class ViTEncoder(nn.Module):
         if isinstance(x, VoxelChunks):
             tokens = ops.voxel_embed(x, pe.weight, pe.bias, cfg.patch_size,
                                      tuple(cfg.img_size))
+        elif cfg.fuse_patch_embed and x.shape[-1] >= PATCH_EMBED_MIN_CHANNELS:
+            tokens = ops.patch_embed(x, pe.weight.to(x.dtype), pe.bias, cfg.patch_size)
         else:
             tokens = pe.dense(x)
         b, _, d = tokens.shape
@@ -230,6 +362,10 @@ class ViTEncoder(nn.Module):
         tokens = torch.cat([self.cls_token.to(dt).expand(b, 1, d), tokens], 1)
         tokens = tokens + self.pos_embed.to(dt)
         blocks = self.blocks
+        if not uses_ln_chain(cfg):
+            for blk in blocks:
+                tokens = blk.forward_unchained(tokens, ops, gelu, cfg)
+            return _norm(tokens, self.norm, ops, cfg.use_fused_layernorm)
         xn = ops.layernorm(tokens, blocks[0].norm1.weight, blocks[0].norm1.bias, LN_EPS)
         for i, blk in enumerate(blocks):
             nxt = blocks[i + 1].norm1 if i + 1 < len(blocks) else self.norm
@@ -252,12 +388,18 @@ class TwoStreamViTBackbone(nn.Module):
                                     cfg.fusion_stride, cfg.fusion_kernel_size, dtype)
 
     def forward(self, lidar, map_nhwc, ops: Ops, gelu: str) -> torch.Tensor:
-        gh, gw = self.cfg.grid_size
+        cfg = self.cfg
+        gh, gw = cfg.grid_size
 
         def stream(enc, norm, proj, x):
             tokens = enc(x, ops, gelu)[:, 1:].contiguous()  # strip CLS
-            h = ops.layernorm(tokens, norm.weight, norm.bias, LN_EPS)
-            h = F.gelu(proj(h))  # exact erf, as the JAX adapter
+            if cfg.use_fused_layernorm and cfg.fuse_ln_dense:
+                # one kernel; its GELU is the block MLPs' (the JAX kernel's _gelu)
+                h = ops.fused_ln_dense(tokens, norm.weight, norm.bias,
+                                       proj.weight.to(tokens.dtype), proj.bias, LN_EPS, gelu)
+            else:
+                h = _norm(tokens, norm, ops, cfg.use_fused_layernorm)
+                h = F.gelu(proj(h))  # exact erf, as the JAX adapter
             return h.reshape(h.shape[0], gh, gw, -1)
 
         feats = torch.cat([
@@ -313,6 +455,7 @@ class IntentNetViT(nn.Module):
         """``generator`` draws the drop-path gates in training mode."""
         m = decode_map_transport(map_bev, self.cfg.map_input_channels, self.dtype)
         if self.training:
+            check_trainable(self.cfg)
             if self.gelu != "erf":
                 raise ValueError("training takes the exact erf GELU")
             feats = self.backbone.forward_train(lidar.to(self.dtype), m, generator,
@@ -345,3 +488,6 @@ class IntentNetViT(nn.Module):
             elif isinstance(mod, LayerNormParams):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+        for mod in self.modules():  # after every weight is drawn
+            if isinstance(mod, Mlp) and mod.int8:
+                mod.quantize(mod.fc1.weight, mod.fc2.weight)

@@ -9,7 +9,9 @@ epilogue of the serving LN chain (``fused_ln_mlp(..., ln_out=...)``):
 Training (:func:`fused_ln_mlp_fn`, the JAX ``custom_vjp``): the forward
 ``y = x + gate * mlp(LN(x))`` with a per-row f32 drop-path gate and the
 backward kernel that recomputes the tail and gives dx, dgamma, dbeta, dW1,
-db1, dW2 and db2 (no gradient for the gate, a random mask).
+db1, dW2 and db2 (no gradient for the gate, a random mask). The same
+forward without a gate is the serving tail of the configurations that run
+no LN chain (:func:`fused_ln_mlp_train` with either GELU).
 
 Weights use PyTorch's Linear layout: ``w1`` [hidden, D], ``w2`` [D, hidden].
 The serving drop-path gate is 1 and is not an argument. ``gelu`` is
@@ -102,14 +104,14 @@ def _gate_rows(gate, x):
 
 
 def fused_ln_mlp_train_plain(x, gamma, beta, w1, b1, w2, b2, gate=None,
-                             eps: float = 1e-6):
+                             eps: float = 1e-6, gelu_mode: str = "erf"):
     """Plain training forward with the kernel's rounding points (those of
     :func:`fused_ln_mlp_plain`): y = (mlp + b2) * gate + x in f32, rounded
     once. ``gate``: f32 of x.shape[:-1], or None for 1."""
     dt, d = x.dtype, x.shape[-1]
     xf = x.reshape(-1, d).float()
     xn = layernorm_plain(xf, gamma, beta, eps).to(dt).float()
-    h = gelu(torch.matmul(xn, w1.to(dt).float().t()) + b1.float(), "erf")
+    h = gelu(torch.matmul(xn, w1.to(dt).float().t()) + b1.float(), gelu_mode)
     m = torch.matmul(h.to(dt).float(), w2.to(dt).float().t()) + b2.float()
     y = m * _gate_rows(gate, x) + xf
     return y.to(dt).reshape(x.shape)
@@ -169,12 +171,17 @@ def _gate_arg(gate, x, name):
     return g
 
 
-def fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate=None, eps: float = 1e-6):
-    """Training forward y = x + gate * mlp(LN(x)) (exact erf GELU) of a
-    contiguous bf16 [..., 384] CUDA tensor; ``gate`` f32 broadcastable to
-    x.shape[:-1] or None. CPU tensors take :func:`fused_ln_mlp_train_plain`."""
+def fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate=None, eps: float = 1e-6,
+                       gelu_mode: str = "erf"):
+    """Forward y = x + gate * mlp(LN(x)) of a contiguous bf16 [..., 384]
+    CUDA tensor; ``gate`` f32 broadcastable to x.shape[:-1] or None.
+    Training takes the exact erf GELU; the unchained serving tail either.
+    CPU tensors take :func:`fused_ln_mlp_train_plain`."""
+    if gelu_mode not in GELU_MODES:
+        raise ValueError(f"gelu mode {gelu_mode!r} not in {GELU_MODES}")
     if x.device.type == "cpu":
-        return fused_ln_mlp_train_plain(x, gamma, beta, w1, b1, w2, b2, gate, eps)
+        return fused_ln_mlp_train_plain(x, gamma, beta, w1, b1, w2, b2, gate, eps,
+                                        gelu_mode)
     _check_train_args(x, gamma, beta, w1, b1, w2, "fused_ln_mlp_train")
     require(b2.dtype == torch.float32 and b2.shape == (x.shape[-1],)
             and b2.is_contiguous() and b2.device == x.device,
@@ -184,7 +191,8 @@ def fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate=None, eps: float = 1
     err = kernels().ibk_fused_ln_mlp_train(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), None if g is None else g.data_ptr(), y.data_ptr(),
-        x.numel() // x.shape[-1], w1.shape[0], float(eps), stream_ptr(x))
+        x.numel() // x.shape[-1], w1.shape[0], float(eps), GELU_MODES.index(gelu_mode),
+        stream_ptr(x))
     check_launch(err, "fused_ln_mlp_train")
     return y
 

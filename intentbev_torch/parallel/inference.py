@@ -12,10 +12,14 @@ one device, for either model family (``cfg.model_family``):
   f32), voxelizes them (scatter-max) and runs the model on the dense BEV.
 
 The model's logits then go through box decode and NMS on the device into
-fixed-size :class:`Detections`.
+fixed-size :class:`Detections`. :data:`VIT_SERVING_VARIANTS` names the
+ViT's serving configurations beyond the default, each with the transport it
+serves on.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -28,6 +32,21 @@ from ..ops.voxel_embed import (VoxelChunks, build_voxel_chunks, chunks_to_device
                                decode_chunk_transport, pack_chunk_transport,
                                stack_voxel_chunks, voxel_fill_bev, voxel_fill_bev_plain)
 from ..train import chunk_patch_for
+
+# name -> (ViTBackboneConfig switches, transport)
+VIT_SERVING_VARIANTS = {
+    "int8": ({"serving_int8": True}, "points"),  # bench.py's --int8 line
+    "ln_dense": ({"fuse_ln_dense": True}, "chunks"),
+    "unfused_ln": ({"use_fused_layernorm": False}, "chunks"),
+    "patch_embed": ({"fuse_patch_embed": True}, "points"),
+}
+
+
+def vit_serving_variant(cfg, name: str):
+    """``cfg`` with the switches of serving variant ``name`` -> (config,
+    transport)."""
+    switches, transport = VIT_SERVING_VARIANTS[name]
+    return dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, **switches)), transport
 
 
 def build_chunk_transport(points, points_valid, grid, patch: int,

@@ -11,6 +11,11 @@ rules for both families (the port's modules carry the flax names):
 - LayerNorm/BatchNorm ``scale`` -> ``weight``; BatchNorm ``batch_stats``
   ``mean``/``var`` -> ``running_mean``/``running_var``;
 - ``block{i}`` -> ``blocks.{i}``; every other name is the same.
+
+The state dict is f32 and carries no int8 codes: a ViT built with
+``serving_int8`` quantizes its block MLPs (per output channel, as the JAX
+``quantize_cols`` of the f32 parameters) when it loads the state dict, and
+keeps the codes and scales as buffers.
 """
 
 from __future__ import annotations

@@ -15,7 +15,9 @@ The training kernels (LayerNorm forward/backward, LN+MLP forward with a
 drop-path gate and backward, flash backward) run at small and at the
 training step's full-width shapes. The dense BEV fill is exact: its reading
 is the count of elements that differ from the plain version, which must be
-0, and its control (the last chunk of each band skipped) must differ.
+0, and its control (the last chunk of each band skipped) must differ. The
+kernels of the other serving configurations (W8A8 MLP, MLP without LN,
+LN + dense, patch embed) run at small and at main-path shapes.
 """
 
 import pytest
@@ -24,6 +26,8 @@ torch = pytest.importorskip("torch")
 
 from intentbev_torch.configs import GridConfig, default_vit_config  # noqa: E402
 from intentbev_torch.ops import (  # noqa: E402
+    fused_ln_dense, fused_ln_dense_plain, fused_mlp, fused_mlp_int8, fused_mlp_int8_plain,
+    fused_mlp_plain, patch_embed, patch_embed_plain, quantize_linear, quantize_rows,
     flash_attention_packed, flash_attention_packed_bwd, flash_attention_packed_bwd_plain,
     flash_attention_packed_plain, fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
     fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, launches, layernorm,
@@ -296,3 +300,91 @@ def test_training_launch_counts(dev):
     layernorm_bwd_plain(x, xhat, inv, g)
     assert launches["layernorm_train"] == 1 and launches["layernorm_bwd"] == 1
     assert launches["layernorm"] == 0
+
+
+# The other serving configurations' kernels (limits those of chip_smoke.py).
+INT8_LIMIT = 5e-4
+MLP_LIMIT = 1e-3
+LN_DENSE_LIMIT = 1e-3
+PATCH_LIMIT = 1e-3
+
+
+def fused_mlp_int8_block_scale(x, w1q, s1, b1, w2q, s2, b2, res, gelu_mode, rows=32):
+    """Control fault: one scale of h per block of ``rows`` rows, not per row."""
+    from intentbev_torch.ops.fused_ln_mlp import gelu
+    from intentbev_torch.ops.int8 import int_matmul
+
+    d = x.shape[-1]
+    xq, xs = quantize_rows(x.reshape(-1, d))
+    h = gelu(int_matmul(xq, w1q.t()) * xs * s1 + b1, gelu_mode)
+    n = h.shape[0]
+    amax = h.abs().amax(-1)
+    pad = torch.nn.functional.pad(amax, (0, -n % rows)).reshape(-1, rows).amax(-1)
+    hs = (pad.repeat_interleave(rows)[:n, None].clamp(min=1e-8) / 127.0)
+    hq = torch.clamp(torch.round(h / hs), -127, 127)
+    y = int_matmul(hq, w2q.t()) * hs * s2 + b2
+    return (y + res.reshape(-1, d).float()).to(x.dtype).reshape(x.shape)
+
+
+def int8_inputs(rows, seed=0):
+    """Rows of varied scale (as a residual stream's are), the f32 weights'
+    codes and scales, f32 biases."""
+    scale = torch.exp(0.5 * torch.randn(rows, 1, generator=_gen(seed), device="cuda"))
+    x = (torch.randn(rows, D, generator=_gen(seed + 1), device="cuda") * scale).bfloat16()
+    res = _randn((rows, D), 1.0, seed + 2)
+    w1q, s1 = quantize_linear(_randn((4 * D, D), D ** -0.5, seed + 3, torch.float32))
+    w2q, s2 = quantize_linear(_randn((D, 4 * D), (4 * D) ** -0.5, seed + 4, torch.float32))
+    b1 = _randn((4 * D,), 0.1, seed + 5, torch.float32)
+    b2 = _randn((D,), 0.1, seed + 6, torch.float32)
+    return x, w1q, s1, b1, w2q, s2, b2, res
+
+
+@pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
+@pytest.mark.parametrize("rows", [100, MAIN_ROWS])
+def test_fused_mlp_int8(dev, rows, gelu):
+    args = int8_inputs(rows)
+    reset_launch_counts()
+    got = fused_mlp_int8(*args, gelu)
+    assert launches["fused_mlp_int8"] == 1
+    assert _rel(got, fused_mlp_int8_plain(*args, gelu)) < INT8_LIMIT
+    assert _rel(got, fused_mlp_int8_block_scale(*args, gelu)) >= INT8_LIMIT
+
+
+@pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
+@pytest.mark.parametrize("rows", [100, MAIN_ROWS])
+def test_fused_mlp(dev, rows, gelu):
+    h, res = _randn((rows, D), 1.0, 0), _randn((rows, D), 1.0, 1)
+    _, _, w1, b1, w2, b2 = _mlp_params()
+    got = fused_mlp(h, w1, b1, w2, b2, res, gelu_mode=gelu)
+    assert _rel(got, fused_mlp_plain(h, w1, b1, w2, b2, res, gelu_mode=gelu)) < MLP_LIMIT
+    ctrl = fused_mlp_plain(h, w1, torch.zeros_like(b1), w2, b2, res, gelu_mode=gelu)
+    assert _rel(got, ctrl) >= MLP_LIMIT  # control: b1 left out
+
+
+@pytest.mark.parametrize("rows,dout,gelu", [(100, 3 * D, None), (MAIN_ROWS, 3 * D, None),
+                                            (100, D // 2, "erf"), (8 * 4500, D // 2, "sigmoid")])
+def test_fused_ln_dense(dev, rows, dout, gelu):
+    x = _randn((rows, D), 1.5, 0) + 0.3
+    g = _randn((D,), 0.2, 1, torch.float32) + 1
+    b = _randn((D,), 0.2, 2, torch.float32)
+    w = _randn((dout, D), D ** -0.5, 3)
+    bias = _randn((dout,), 0.1, 4, torch.float32)
+    got = fused_ln_dense(x, g, b, w, bias, gelu_mode=gelu)
+    assert got.shape == (rows, dout)
+    assert _rel(got, fused_ln_dense_plain(x, g, b, w, bias, gelu_mode=gelu)) < LN_DENSE_LIMIT
+    # control: the GELU epilogue skipped, or (no GELU) the bias left out
+    ctrl = (fused_ln_dense_plain(x, g, b, w, bias) if gelu else
+            fused_ln_dense_plain(x, g, b, w, torch.zeros_like(bias)))
+    assert _rel(got, ctrl) >= LN_DENSE_LIMIT
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 96, 290), (8, 400, 720, 290)])
+def test_patch_embed(dev, shape):
+    x = _randn(shape, 1.0, 0)
+    w = _randn((8, 8, shape[-1], D), 0.02, 1)
+    bias = _randn((D,), 0.1, 2, torch.float32)
+    got = patch_embed(x, w, bias, 8)
+    assert got.shape == (shape[0], (shape[1] // 8) * (shape[2] // 8), D)
+    assert _rel(got, patch_embed_plain(x, w, bias, 8)) < PATCH_LIMIT
+    ctrl = patch_embed_plain(x, w.transpose(0, 1).contiguous(), bias, 8)  # w read as [dx, dy]
+    assert _rel(got, ctrl) >= PATCH_LIMIT

@@ -2,6 +2,7 @@
 PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--model vit|cnn] [--requests 4] [--out DIR]
+    python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed}
     python3 tools/profile_torch_slice.py --train [--model vit|cnn] [--out DIR]
 
 Serving: drives ``intentbev_torch``'s ``StreamingInferencer``
@@ -25,6 +26,12 @@ the kernels each of its spans launched (inputs, forward, loss, backward,
 optimizer; matched to their launch by the trace's correlation ids, as the
 device runs behind the host).
 
+``--vit-config`` serves one of the ViT's other serving configurations
+(``intentbev_torch.parallel.VIT_SERVING_VARIANTS``: W8A8 ``int8``, the
+``bench.py --int8`` line, and ``patch_embed`` over the points transport,
+whose host stage is empty; ``ln_dense`` and ``unfused_ln`` over chunks), so
+that device time splits by the groups of its kernels.
+
 ``--model cnn`` profiles IntentNetCNN (``default_cnn_config()``, random
 seeded weights with BatchNorm statistics from a synthetic batch,
 ``synthetic.calibrated_params``) the same way: serving over the chunk transport (the ``voxel_fill`` kernel, then the
@@ -41,7 +48,8 @@ the model reads it and on an NCHW-contiguous copy of it.
 It prints a summary and writes ``profile_slice.json`` (``profile_train.json``)
 and the Chrome trace ``trace.json`` under ``--out`` (by default
 directories ``profile_slice``, ``profile_train``, ``profile_cnn_slice`` or
-``profile_cnn_train`` side by side). It imports no JAX.
+``profile_cnn_train`` side by side; ``profile_slice_<config>`` for
+``--vit-config``). It imports no JAX.
 """
 
 from __future__ import annotations
@@ -64,7 +72,12 @@ GROUPS = (
     ("voxel_fill_kernel", "voxel_fill"),
     ("flash_fwd_kernel", "flash_packed"),
     ("flash_bwd", "flash_packed_bwd"),
+    ("fused_mlp_int8_kernel", "fused_mlp_int8"),
+    ("fused_ln_mlp_kernel<0, false, false>", "fused_mlp (no LN)"),
+    ("fused_ln_mlp_kernel<1, false, false>", "fused_mlp (no LN)"),
     ("fused_ln_mlp_kernel", "fused_ln_mlp (serving or train forward)"),
+    ("fused_ln_dense_kernel", "fused_ln_dense"),
+    ("patch_embed_kernel", "patch_embed"),
     ("ln_mlp_bwd_rows", "fused_ln_mlp_bwd (row kernel)"),
     ("gemm_at_b", "fused_ln_mlp_bwd (dW kernel)"),
     ("sum_partials", "column partial sums (LN, LN+MLP backward)"),
@@ -340,11 +353,18 @@ def main() -> None:
                     help="timed requests (serving) or steps (--train)")
     ap.add_argument("--train", action="store_true", help="profile a training step")
     ap.add_argument("--model", choices=("vit", "cnn"), default="vit")
+    ap.add_argument("--vit-config", choices=("default", "int8", "ln_dense", "unfused_ln",
+                                             "patch_embed"), default="default",
+                    help="the ViT serving configuration (serving only)")
     ap.add_argument("--out", default="chiprun_out/profile_slice")
     args = ap.parse_args()
+    if args.vit_config != "default" and (args.train or args.model != "vit"):
+        ap.error("--vit-config profiles ViT serving")
     if args.out == ap.get_default("out"):
+        suffix = "" if args.vit_config == "default" else f"_{args.vit_config}"
         args.out = str(Path(args.out).with_name("profile_" + "cnn_" * (args.model == "cnn")
-                                                + ("train" if args.train else "slice")))
+                                                + ("train" if args.train else "slice")
+                                                + suffix))
 
     import torch
 
@@ -361,24 +381,28 @@ def main() -> None:
     from intentbev_torch.models import init_params
     from intentbev_torch.ops.voxel_embed import (chunks_to_device, decode_chunk_transport,
                                                  voxel_fill_bev)
-    from intentbev_torch.parallel import StreamingInferencer
+    from intentbev_torch.parallel import StreamingInferencer, vit_serving_variant
     from intentbev_torch.synthetic import calibrated_params, serving_batch
 
     cnn = args.model == "cnn"
     cfg = default_cnn_config() if cnn else default_vit_config()
     batch = 8
     params = calibrated_params(cfg, 0, "cuda") if cnn else init_params(cfg, seed=0)
-    inf = StreamingInferencer(cfg, params, "cuda", transport="chunks", gelu="sigmoid")
+    transport = "chunks"
+    if args.vit_config != "default":
+        cfg, transport = vit_serving_variant(cfg, args.vit_config)
+    inf = StreamingInferencer(cfg, params, "cuda", transport=transport, gelu="sigmoid")
     requests = [serving_batch(cfg.grid, batch, 16384, seed=s)
                 for s in range(args.requests + 1)]
 
     def request(pts, valid, mp, stamps):
         with torch.profiler.record_function("host_chunk_build"):
             t0 = time.perf_counter()
-            chunks = inf.build_chunks(pts, valid)
+            chunks = inf.build_chunks(pts, valid) if transport == "chunks" else None
             t1 = time.perf_counter()
         with torch.profiler.record_function("forward"):
-            logits = inf.logits(chunks, mp)
+            logits = (inf.logits(chunks, mp) if chunks is not None
+                      else inf.logits_points(pts, valid, mp))
             torch.cuda.synchronize()
             t2 = time.perf_counter()
         with torch.profiler.record_function("postprocess"):
@@ -430,6 +454,7 @@ def main() -> None:
     result = {
         "card": card,
         "model": args.model,
+        "vit_config": args.vit_config,
         "first_conv_ms": conv_ms,
         "requests": len(stages),
         "stage_ms": {k: [s[i] for s in stages]
