@@ -8,8 +8,9 @@ Phases (each prints a line; any failure exits nonzero with no result):
 1. device: CUDA must be present; prints the card's name and power limit.
 2. build: compiles the kernel library (nvcc, sm_90a) and the host library
    (g++) from the checkout's sources.
-3. kernels: each hand-written kernel (serving and training entries)
-   against its plain PyTorch version at the main paths' shapes in bf16,
+3. kernels: each hand-written kernel (serving and training entries, those
+   of the MLP without LN and of the LN + dense too) against its plain
+   PyTorch version at the main paths' shapes in bf16,
    with CUDA-event times of both and, where one PyTorch call computes the
    same function (SDPA, layer_norm, conv2d), of that call; the least time
    the card could take (bytes over 3.35 TB/s or operations over 989
@@ -59,6 +60,17 @@ Phases (each prints a line; any failure exits nonzero with no result):
    agree with the same configuration through the plain versions (and the
    plain run with the erf GELU is caught); the Detections are fixed-shape
    and finite; frames/s are printed.
+9. ViT training under two of those switches: the full-width ViT of phase 5
+   takes train steps under B ``fuse_ln_dense`` and C
+   ``use_fused_layernorm=False`` (the JAX model's training structures: the
+   LN + dense kernel for qkv and the adapters with its backward kernel; the
+   MLP without LN with its drop-path gate and its backward kernel, every
+   LayerNorm in plain PyTorch). One step's loss and gradients agree with the
+   same step through the plain versions, and a plain step with one fault in
+   the new backward is caught (B: the adapters' LN + dense backward without
+   GELU'; C: the MLP backward ignoring the gate); then one warm-up and 3
+   timed steps whose launch counts are those of the structure, with finite
+   metrics, ms/step, samples/s and peak memory.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -122,8 +134,10 @@ def main() -> None:
     from intentbev_torch.models import IntentNetCNN, IntentNetViT, init_params
     from intentbev_torch.ops import _build
     from intentbev_torch.ops import (
-        fused_ln_dense, fused_ln_dense_plain, fused_mlp, fused_mlp_int8, fused_mlp_int8_plain,
-        fused_mlp_plain, patch_embed, patch_embed_plain, quantize_linear, quantize_rows,
+        fused_ln_dense, fused_ln_dense_bwd, fused_ln_dense_bwd_plain, fused_ln_dense_plain,
+        fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_int8, fused_mlp_int8_plain,
+        fused_mlp_plain, fused_mlp_train, patch_embed, patch_embed_plain, quantize_linear,
+        quantize_rows,
         flash_attention_packed, flash_attention_packed_bwd, flash_attention_packed_bwd_plain,
         flash_attention_packed_plain, fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
         fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, layernorm,
@@ -227,6 +241,27 @@ def main() -> None:
         dy2, xh2 = dy.float().reshape(-1, d), xhat.float().reshape(-1, d)
         return dx.to(dy.dtype), (dy2 * xh2).sum(0), dy2.sum(0)
 
+    def gelu_grad_skipped(module, fn):
+        """fn() with the control's fault: the plain backward of ``module``
+        takes GELU'(g) as 1. (``intentbev_torch.ops`` re-exports functions
+        named like their modules, hence importlib.)"""
+        mod = importlib.import_module(f"intentbev_torch.ops.{module}")
+        sound_fn = mod.gelu_erf_grad
+        mod.gelu_erf_grad = torch.ones_like
+        try:
+            return fn()
+        finally:
+            mod.gelu_erf_grad = sound_fn
+
+    def ln_dense_bwd_no_m2(x_, gamma_, beta_, w_, bias_, dy_):
+        # the control's fault (no GELU): dx through an LN backward without
+        # its mean(dyg*xhat) term; the other gradients sound
+        _, dgamma_, dbeta_, dw_, db_ = fused_ln_dense_bwd_plain(x_, gamma_, beta_, w_, bias_, dy_)
+        _, xhat_, inv_ = layernorm_train_plain(x_, gamma_, beta_)
+        dxn = torch.matmul(dy_.float(), w_.float())
+        return (layernorm_bwd_no_m2(dxn, xhat_, inv_, gamma_)[0].to(x_.dtype), dgamma_, dbeta_,
+                dw_, db_)
+
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -285,6 +320,10 @@ def main() -> None:
     a_out = v.adapter_out_channels
     x_ad = randn((batch * v.num_patches, d), 1.0)
     w_ad, b_ad = randn((a_out, d), d ** -0.5), randn((a_out,), 0.1, torch.float32)
+    # training entries of the MLP without LN and of the LN + dense: a
+    # per-row gate, the upstream gradients of qkv and of an adapter
+    gate_r = gate.reshape(rows)
+    dy_qkv, dy_ad = randn((rows, 3 * d), 1.0), randn((x_ad.shape[0], a_out), 1.0)
     x_pe = randn((batch, g.height_px, g.width_px, v.lidar_input_channels), 1.0)
     w_conv = w_pe.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     b_conv = b_pe.bfloat16()
@@ -446,6 +485,43 @@ def main() -> None:
             "GELU epilogue skipped", (rel_l2,), (1e-3,), 20, 3,
             nbytes(x_ad, ln[0], ln[1], w_ad, b_ad) + x_ad.shape[0] * a_out * 2,
             2 * x_ad.shape[0] * d * a_out, None),
+        "fused_mlp_train": (
+            lambda: fused_mlp_train(x8, w1, b1, w2, b2, x, gate_r),
+            lambda: fused_mlp_plain(x8, w1, b1, w2, b2, x, gate=gate_r),
+            lambda: fused_mlp_plain(x8, w1, b1, w2, b2, x),
+            "gate ignored", (rel_l2,), (1e-3,), 10, 3,
+            nbytes(x8, w1, b1, w2, b2, x, gate_r) + nbytes(x), mlp_flops, None),
+        "fused_mlp_bwd": (
+            lambda: fused_mlp_bwd(x8, w1, b1, w2, gate_r, dy),
+            lambda: fused_mlp_bwd_plain(x8, w1, b1, w2, gate_r, dy),
+            lambda: fused_mlp_bwd_plain(x8, w1, b1, w2, None, dy),
+            "gate ignored", (rel_l2,) * 5, (2e-3,) * 5, 5, 2,
+            3 * nbytes(x8) + nbytes(w1, b1, w2, gate_r) + 4 * (d + hidden + 2 * d * hidden),
+            5 * mlp_flops // 2, None),
+        "fused_mlp_bwd[no gate]": (
+            lambda: fused_mlp_bwd(x8, w1, b1, w2, None, dy),
+            lambda: fused_mlp_bwd_plain(x8, w1, b1, w2, None, dy),
+            lambda: gelu_grad_skipped(
+                "fused_mlp", lambda: fused_mlp_bwd_plain(x8, w1, b1, w2, None, dy)),
+            "GELU' skipped", (rel_l2,) * 5, (2e-3,) * 5, 5, 2,
+            3 * nbytes(x8) + nbytes(w1, b1, w2) + 4 * (d + hidden + 2 * d * hidden),
+            5 * mlp_flops // 2, None),
+        "fused_ln_dense_bwd": (
+            lambda: fused_ln_dense_bwd(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv),
+            lambda: fused_ln_dense_bwd_plain(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv),
+            lambda: ln_dense_bwd_no_m2(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv),
+            "no mean(dyg*xhat) term", (rel_l2,) * 5, (2e-3,) * 5, 10, 2,
+            2 * nbytes(x) + nbytes(dy_qkv, ln[0], ln[1], w_qkv, b_qkv)
+            + 4 * (2 * d + 3 * d * d + 3 * d), 2 * 2 * rows * d * 3 * d, None),
+        "fused_ln_dense_bwd[adapter]": (
+            lambda: fused_ln_dense_bwd(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad, gelu_mode="erf"),
+            lambda: fused_ln_dense_bwd_plain(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad,
+                                             gelu_mode="erf"),
+            lambda: gelu_grad_skipped("fused_ln_dense", lambda: fused_ln_dense_bwd_plain(
+                x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad, gelu_mode="erf")),
+            "GELU' skipped", (rel_l2,) * 5, (2e-3,) * 5, 10, 2,
+            2 * nbytes(x_ad) + nbytes(dy_ad, ln[0], ln[1], w_ad, b_ad)
+            + 4 * (2 * d + a_out * d + a_out), 3 * 2 * x_ad.shape[0] * d * a_out, None),
         "patch_embed": (
             lambda: patch_embed(x_pe, w_pe, b_pe, v.patch_size),
             lambda: patch_embed_plain(x_pe, w_pe, b_pe, v.patch_size),
@@ -478,7 +554,7 @@ def main() -> None:
               f"{bound_ms:.4f} ms ({bound_by})  [{card}]", flush=True)
     del chunks, x, qkv, q, k, vv, o, lse, do, dy, x3, dy3, xhat, inv, gate, train_mlp
     del qh, kh, vh, doh, o_sdpa, xl, gl, bl, y_ln, mlp_args, x8, int8_args, x_ad
-    del x_pe, w_conv
+    del x_pe, w_conv, gate_r, dy_qkv, dy_ad
     torch.cuda.empty_cache()
 
     # 4. the slice
@@ -591,15 +667,14 @@ def main() -> None:
         torch.backends.cudnn.allow_tf32 = tf32
     del ref
 
-    def faulty_plain(module, name, fault):
+    def faulty_plain(module, name, fault, net=model, step_cfg=cfg):
         """The plain step with one plausible fault in a plain backward:
-        its gradients. (``intentbev_torch.ops`` re-exports functions named
-        like their modules, hence importlib.)"""
+        its gradients."""
         mod = importlib.import_module(f"intentbev_torch.ops.{module}")
         sound_fn = getattr(mod, name)
         setattr(mod, name, fault(sound_fn))
         try:
-            return loss_and_grads(True)[1]
+            return loss_and_grads(True, net, step_cfg)[1]
         finally:
             setattr(mod, name, sound_fn)
 
@@ -666,7 +741,7 @@ def main() -> None:
           f"{batch / ms_step * 1e3:.2f} samples/s at batch {batch}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
 
-    del tbatch, metrics
+    del metrics  # tbatch: phase 9 trains on the same batch
     torch.cuda.empty_cache()
 
     # 6. CNN serving over the chunk transport
@@ -901,39 +976,128 @@ def main() -> None:
         torch.cuda.empty_cache()
     check(not config_failures, "; ".join(config_failures))
 
+    # 9. ViT training under B fuse_ln_dense and C use_fused_layernorm=False
+    def adapter_no_gelu_grad(f):
+        # B's control: the adapters' (erf GELU) LN + dense backward without GELU'
+        def call(*args):
+            if args[-1] is None:  # qkv: no GELU
+                return f(*args)
+            return gelu_grad_skipped("fused_ln_dense", lambda: f(*args))
+        return call
+
+    train_by_config = {  # label: (variant, launches per step, control, its fault)
+        "B fuse_ln_dense": (
+            "ln_dense", {"fused_ln_dense": 26, "fused_ln_dense_bwd": 26, "flash_packed": 24,
+                         "flash_packed_bwd": 24, "fused_ln_mlp_train": 24,
+                         "fused_ln_mlp_bwd": 24, "layernorm_train": 2, "layernorm_bwd": 2},
+            ("fused_ln_dense", "fused_ln_dense_bwd_plain", adapter_no_gelu_grad),
+            "adapters' LN + dense backward without GELU'"),
+        "C use_fused_layernorm=False": (
+            "unfused_ln", {"flash_packed": 24, "flash_packed_bwd": 24, "fused_mlp_train": 24,
+                           "fused_mlp_bwd": 24},
+            ("fused_mlp", "fused_mlp_bwd_plain",
+             lambda f: lambda h_, w1_, b1_, w2_, gate_, dy_: f(h_, w1_, b1_, w2_, None, dy_)),
+            "MLP backward ignores the gate"),
+    }
+    config_train_counts = {}
+    for cname, (variant, per_step_c, (c_mod, c_name, c_fault), fault) in train_by_config.items():
+        tcfg_, _ = vit_serving_variant(cfg, variant)
+        net = IntentNetViT(tcfg_.vit, tcfg_.heads, dtype=torch.bfloat16,
+                           param_dtype=torch.float32)
+        net.load_state_dict(params)
+        net.to(dev)
+        m_k, g_k = loss_and_grads(False, net, tcfg_)
+        check(all(np.isfinite(val) for val in m_k.values()), f"{cname}: non-finite metrics {m_k}")
+        check(all(bool(torch.isfinite(t).all()) for t in g_k.values()),
+              f"{cname}: non-finite gradient")
+        m_p, g_p = loss_and_grads(True, net, tcfg_)
+        g_c = faulty_plain(c_mod, c_name, c_fault, net, tcfg_)
+        net.plain_ops = False
+        sound_g, ctrl_g = grad_readings(g_k, g_p), grad_readings(g_c, g_p)
+        loss_rel = abs(m_k["loss"] - m_p["loss"]) / abs(m_p["loss"])
+        said = (f"sound {sound_g[:2]} (worst {sound_g[2]}), control {ctrl_g[:2]} "
+                f"(worst {ctrl_g[2]}), limits {grad_limit}, {worst_limit}")
+        check(sound_g[0] < grad_limit and sound_g[1] < worst_limit and loss_rel < loss_limit,
+              f"{cname} train step: kernel vs plain reaches a limit: {said}; loss {m_k} vs {m_p}")
+        check(ctrl_g[0] >= grad_limit or ctrl_g[1] >= worst_limit,
+              f"{cname} train step: the control stays under the limits: {said}")
+        print(f"config {cname} train: step kernel vs plain, loss {m_k['loss']:.6f} vs "
+              f"{m_p['loss']:.6f} (rel {loss_rel:.3e} < {loss_limit:g}); gradients relative L2 "
+              f"all {sound_g[0]:.3e} < {grad_limit:g}, worst {sound_g[1]:.3e} ({sound_g[2]}) < "
+              f"{worst_limit:g}; control (plain, {fault}) all {ctrl_g[0]:.3e}, worst "
+              f"{ctrl_g[1]:.3e} ({ctrl_g[2]}) caught", flush=True)
+        del g_k, g_p, g_c
+
+        cstep_ = make_train_step(net, tcfg_, anchors, make_optimizer(net.parameters(), tcfg_))
+        tgen = torch.Generator(device="cuda").manual_seed(2)
+        cstep_(tbatch, tgen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        step_ms, metrics = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            metrics.append(cstep_(tbatch, tgen))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(_build.launches)
+        config_train_counts[cname] = counts
+        want_counts = {k_: per_step_c.get(k_, 0) * len(step_ms) for k_ in counts}
+        check(counts == want_counts, f"{cname} train launch counts {counts} != {want_counts}")
+        for m in metrics:
+            check(all(bool(torch.isfinite(t)) for t in m.values()),
+                  f"{cname}: non-finite metrics {m}")
+        check(all(bool(torch.isfinite(p_.grad).all()) for p_ in net.parameters()),
+              f"{cname}: non-finite gradient")
+        ms_step = sum(step_ms) / len(step_ms)
+        print(f"config {cname} train: launches per step {per_step_c}; losses "
+              f"{[round(float(m['loss']), 6) for m in metrics]}; step ms "
+              f"{[round(t, 2) for t in step_ms]}; {ms_step:.2f} ms/step, "
+              f"{batch / ms_step * 1e3:.2f} samples/s at batch {batch}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+        del net, cstep_, metrics
+        torch.cuda.empty_cache()
+    train_b, train_c = config_train_counts.values()
+
     serving_runs = (serve_counts, *config_counts.values())
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
             ("flash_packed", "flash_packed.cu", "intentbev/ops/flash_packed.py:157",
-             (*serving_runs, train_counts)),
+             (*serving_runs, train_counts, train_b, train_c)),
             ("fused_ln_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:116",
              serving_runs),
             ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39", serving_runs),
             ("flash_packed_bwd", "flash_packed.cu", "intentbev/ops/flash_packed.py:523",
-             (train_counts,)),
+             (train_counts, train_b, train_c)),
             ("fused_ln_mlp_train", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
-             (train_counts, *config_counts.values())),
+             (train_counts, *config_counts.values(), train_b)),
             ("fused_ln_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
-             (train_counts,)),
+             (train_counts, train_b)),
             ("layernorm_train", "layernorm.cu", "intentbev/ops/layernorm.py:53",
-             (train_counts,)),
+             (train_counts, train_b)),
             ("layernorm_bwd", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             (train_counts,)),
+             (train_counts, train_b)),
             ("voxel_fill", "voxel_fill.cu", "intentbev/ops/voxel_embed.py:507",
              (cnn_serve_counts, cnn_train_counts, vit_chunk_counts)),
             ("fused_mlp_int8", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
              serving_runs),
             ("fused_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103", serving_runs),
             ("fused_ln_dense", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:56",
-             serving_runs),
+             (*serving_runs, train_b)),
             ("patch_embed", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
-             serving_runs)):
+             serving_runs),
+            ("fused_mlp_train", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103",
+             (train_c,)),
+            ("fused_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:148",
+             (train_c,)),
+            ("fused_ln_dense_bwd", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:94",
+             (train_b,))):
         r = record[name]
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[name] for c in runs),
                         **r})
-    check(len(kernels) == 14 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 17 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

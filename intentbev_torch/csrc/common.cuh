@@ -63,6 +63,12 @@ __device__ __forceinline__ float gelu(float v) {
   return v / (1.f + expf(-1.702f * v));
 }
 
+// d/dv of the exact erf GELU (the backward kernels; training takes only it).
+__device__ __forceinline__ float dgelu_erf(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * 0.3989422804014327f * expf(-0.5f * v * v);
+}
+
 // Integer products: mma.sync.m16n8k32 (s8 x s8 -> s32). In bytes, its
 // fragments sit where those of m16n8k16 bf16 do: a 32-bit register holds
 // four int8 of one row (A) or one column (B), at byte 4t (and 4t + 16) of
@@ -116,6 +122,87 @@ static __global__ void sum_partials_kernel(const float* __restrict__ part, int n
 static inline void sum_partials(const float* part, int n_parts, int width, float* out,
                                 cudaStream_t stream) {
   sum_partials_kernel<<<(width + 255) / 256, 256, 0, stream>>>(part, n_parts, width, out);
+}
+
+// Split-K C = A^T B over rows, the weight gradients of the backward kernels:
+// A [R][M], B [R][N] (bf16, row-major), C [M][N] f32. Each split
+// (blockIdx.z) of the rows writes an f32 partial [M][N] into part, 64 x 64
+// output tiles a block (mma.sync), and sum_partials adds the partials in a
+// fixed order, so the result is deterministic (no atomics). M and N are
+// multiples of 64; part holds splits * M * N floats.
+constexpr int ATB_T = 64;              // output tile (M and N)
+constexpr int ATB_K = 64;              // rows per staged chunk
+constexpr int ATB_LDK = ATB_K + 8;
+
+static __global__ void __launch_bounds__(256)
+    gemm_at_b_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                     float* __restrict__ part, int R, int M, int N, int rows_per_split) {
+  __shared__ __align__(16) bf16 as[ATB_T * ATB_LDK];  // [m][r]
+  __shared__ __align__(16) bf16 bs[ATB_T * ATB_LDK];  // [n][r]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = blockIdx.x * ATB_T, n0 = blockIdx.y * ATB_T;
+  const int r_begin = blockIdx.z * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;
+  float acc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += ATB_K) {
+    __syncthreads();  // previous chunk consumed
+    for (int i = tid; i < ATB_K * ATB_T / 8; i += 256) {
+      const int r = i / (ATB_T / 8), c8 = (i % (ATB_T / 8)) * 8;
+      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
+      if (r0 + r < r_end) {
+        va = *reinterpret_cast<const uint4*>(A + (size_t)(r0 + r) * M + m0 + c8);
+        vb = *reinterpret_cast<const uint4*>(B + (size_t)(r0 + r) * N + n0 + c8);
+      }
+      const bf16* ea = reinterpret_cast<const bf16*>(&va);
+      const bf16* eb = reinterpret_cast<const bf16*>(&vb);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        as[(c8 + e) * ATB_LDK + r] = ea[e];
+        bs[(c8 + e) * ATB_LDK + r] = eb[e];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k0 = 0; k0 < ATB_K; k0 += 16) {
+      uint32_t a[4];
+      load_a(a, as, ATB_LDK, wr, k0, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        uint32_t b[2];
+        load_b(b, bs, ATB_LDK, wc + n * 8, k0, lane);
+        mma_16816(acc[n], a, b);
+      }
+    }
+  }
+  float* out = part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int c = n0 + wc + n * 8 + 2 * t4;
+    const int r = m0 + wr + g;
+    out[(size_t)r * N + c] = acc[n][0];
+    out[(size_t)r * N + c + 1] = acc[n][1];
+    out[(size_t)(r + 8) * N + c] = acc[n][2];
+    out[(size_t)(r + 8) * N + c + 1] = acc[n][3];
+  }
+}
+
+static inline int gemm_at_b(const bf16* A, const bf16* B, float* part, float* out, int R,
+                            int M, int N, int splits, cudaStream_t s) {
+  const int per = ((R + splits - 1) / splits + ATB_K - 1) / ATB_K * ATB_K;
+  dim3 grid(M / ATB_T, N / ATB_T, splits);
+  gemm_at_b_kernel<<<grid, 256, 0, s>>>(A, B, part, R, M, N, per);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials(part, splits, M * N, out, s);
+  return (int)cudaGetLastError();
 }
 
 // B fragment of the 16x8 tile at (k0, n0) of a [k][n] array (stride ld),

@@ -8,10 +8,13 @@
 //      y = x + gate * (GELU(xn W1 + b1) W2 + b2)
 //    Replaces intentbev/ops/fused_ln_mlp.py::_fwd_kernel.
 // 3. The MLP without LN, on an already normed input h, with a separate
-//    residual (the use_fused_layernorm=False serving tail; gate 1):
-//      y = res + (GELU(h W1 + b1) W2 + b2)
+//    residual (the use_fused_layernorm=False tail), serving (gate 1) and
+//    training (the per-row drop-path gate):
+//      y = res + gate * (GELU(h W1 + b1) W2 + b2)
 //    Replaces intentbev/ops/fused_mlp.py::_fwd_kernel.
-// 4. Training backward (below), replacing ::_bwd_kernel.
+// 4. Training backward of 2 and of 3 (below), replacing
+//    intentbev/ops/fused_ln_mlp.py::_bwd_kernel and
+//    intentbev/ops/fused_mlp.py::_bwd_kernel.
 //
 // Forward bound on the H100: tensor-core throughput. At 36008 x 384 rows and
 // a 1536-wide hidden layer a call is 4*N*384*1536 = 85 GFLOP against 83 MB
@@ -46,11 +49,6 @@ constexpr size_t H_ELEMS = (size_t)ROWS * LDH;
 constexpr size_t SMEM_BYTES = (XN_ELEMS + W1_ELEMS + W2_ELEMS + H_ELEMS) * 2;
 static_assert((size_t)ROWS * LDY * 4 <= (W1_ELEMS + W2_ELEMS) * 2,
               "f32 epilogue tile must fit in the weight staging area");
-
-__device__ __forceinline__ float dgelu_erf(float v) {
-  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
-         v * 0.3989422804014327f * expf(-0.5f * v * v);
-}
 
 // LN_IN: the MLP reads LN2(x) (res is x); else it reads x as it is.
 // LN_OUT: the LN_next epilogue writes yn (gate is null); else y = res +
@@ -290,13 +288,13 @@ extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void*
                                x, y, nullptr, n_rows, hidden, eps, stream);
 }
 
-// The MLP without LN, serving: y = res + mlp(h).
+// The MLP without LN: y = res + gate * mlp(h); gate is f32 [n_rows] or null
+// (1, serving).
 extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, const void* w2,
-                             const void* b2, const void* res, void* y, int n_rows,
-                             int hidden, int gelu_mode, void* stream) {
+                             const void* b2, const void* res, const void* gate, void* y,
+                             int n_rows, int hidden, int gelu_mode, void* stream) {
   return dispatch<false, false>(gelu_mode, h, nullptr, nullptr, w1, b1, w2, b2, nullptr,
-                                nullptr, nullptr, res, y, nullptr, n_rows, hidden, 0.f,
-                                stream);
+                                nullptr, gate, res, y, nullptr, n_rows, hidden, 0.f, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -308,6 +306,9 @@ extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, cons
 //      dW1 = dg^T xn;  db1 = sum dg;  dW2 = dy_eff^T h;  db2 = sum dy_eff
 // with the JAX kernel's rounding points: xn, dy_eff, h and dg are rounded to
 // bf16 before they enter a product; the products accumulate in f32.
+// Without LN (LN_IN false) it replaces intentbev/ops/fused_mlp.py::_bwd_kernel:
+// the row kernel reads the normed input as it is (xn = x), and dx is dxn
+// itself; the residual's gradient, dy, is added by autograd.
 // Bound on the H100: tensor-core throughput, 5 products of 2*N*384*1536 =
 // 212 GFLOP at N = 36008 (the row kernel recomputes g: 6 products here).
 // Design: the TPU kernel accumulates dW1/dW2 (2.36 MB f32 each) in VMEM
@@ -319,10 +320,8 @@ extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, cons
 //      dxn += dg W1 accumulates in registers ([64, 384] f32, 96 a thread).
 //      The epilogue finishes dx row by row and writes per-block column
 //      partials of dgamma, dbeta, db1 and db2;
-//  (b) a split-K GEMM kernel C = A^T B over the rows, 64 x 64 output tiles,
-//      for dW1 = dg^T xn and dW2 = dy_eff^T h; each split writes an f32
-//      partial. A second small kernel sums the partials of every output in
-//      a fixed order, so the result is deterministic (no atomics).
+//  (b) the split-K GEMM C = A^T B of common.cuh over the rows for
+//      dW1 = dg^T xn and dW2 = dy_eff^T h, summed in a fixed order.
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -337,6 +336,10 @@ static_assert((size_t)ROWS * LDY * 4 <= (BX_ELEMS + BW2_ELEMS) * 2,
 static_assert((size_t)3 * 8 * D * 4 <= BX_ELEMS * 2,
               "column partials must fit in the xn area");
 
+// LN_IN: x is LN2's input (xn is recomputed and written to xn_out, dx is
+// the LN backward + dy); else x is the MLP's input itself (xn_out unused,
+// dx = dxn, and only db2 of the column partials is written).
+template <bool LN_IN>
 __global__ void __launch_bounds__(BWD_THREADS)
     ln_mlp_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g2,
                            const float* __restrict__ be2, const bf16* __restrict__ w1,
@@ -364,7 +367,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int g = lane >> 2, t4 = lane & 3;
   const int row0 = blockIdx.x * ROWS;
 
-  // 1. xn = LN2(x) and dy_eff = dy * gate -> shared (bf16) and device memory
+  // 1. xn = LN2(x) (or x) and dy_eff = dy * gate -> shared (bf16) and
+  //    device memory
   for (int rr = 0; rr < ROWS / 8; ++rr) {
     const int r = warp * (ROWS / 8) + rr;
     const int grow = row0 + r;
@@ -388,23 +392,27 @@ __global__ void __launch_bounds__(BWD_THREADS)
       d[2 * i + 1] = db;
     }
     const float gt = ok ? (gate ? gate[grow] : 1.f) : 0.f;
-    float mean, inv;
-    warp_ln_stats(v, eps, mean, inv);
-    if (lane == 0) {
-      rmean[r] = mean;
-      rinv[r] = inv;
+    float mean = 0.f, inv = 1.f;
+    if constexpr (LN_IN) {
+      warp_ln_stats(v, eps, mean, inv);
+      if (lane == 0) {
+        rmean[r] = mean;
+        rinv[r] = inv;
+      }
     }
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
       const int c = 2 * lane + 64 * i;
+      // without LN the bf16 input itself (exact: v came from bf16)
       const uint32_t xn2 =
-          pack_bf16x2((v[2 * i] - mean) * inv * g2[c] + be2[c],
-                      (v[2 * i + 1] - mean) * inv * g2[c + 1] + be2[c + 1]);
+          LN_IN ? pack_bf16x2((v[2 * i] - mean) * inv * g2[c] + be2[c],
+                              (v[2 * i + 1] - mean) * inv * g2[c + 1] + be2[c + 1])
+                : pack_bf16x2(v[2 * i], v[2 * i + 1]);
       const uint32_t dy2 = pack_bf16x2(d[2 * i] * gt, d[2 * i + 1] * gt);
       *reinterpret_cast<uint32_t*>(xs + r * LDX + c) = xn2;
       *reinterpret_cast<uint32_t*>(dys + r * LDX + c) = dy2;
       if (ok) {
-        *reinterpret_cast<uint32_t*>(xn_out + (size_t)grow * D + c) = xn2;
+        if constexpr (LN_IN) *reinterpret_cast<uint32_t*>(xn_out + (size_t)grow * D + c) = xn2;
         *reinterpret_cast<uint32_t*>(dye_out + (size_t)grow * D + c) = dy2;
       }
     }
@@ -507,7 +515,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
     }
   }
 
-  // 2. epilogue: dxn -> shared (f32), then per row the LN backward
+  // 2. epilogue: dxn -> shared (f32), then per row the LN backward (or dx =
+  //    dxn without LN)
   __syncthreads();  // every warp is done with w1s/w2s/xs before the aliases
 #pragma unroll
   for (int n = 0; n < 24; ++n) {
@@ -525,8 +534,21 @@ __global__ void __launch_bounds__(BWD_THREADS)
     const int r = warp * (ROWS / 8) + rr;
     const int grow = row0 + r;
     if (grow >= n_rows) break;  // warp-uniform
-    const float mean = rmean[r], inv = rinv[r];
     const float gt = gate ? gate[grow] : 1.f;
+    if constexpr (!LN_IN) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int c = 2 * lane + 64 * i;
+        const size_t off = (size_t)grow * D + c;
+        const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(dy + off);
+        cd[2 * i] += __bfloat162float(q.x) * gt;
+        cd[2 * i + 1] += __bfloat162float(q.y) * gt;
+        *reinterpret_cast<uint32_t*>(dx + off) =
+            pack_bf16x2(ys[r * LDY + c], ys[r * LDY + c + 1]);
+      }
+      continue;
+    }
+    const float mean = rmean[r], inv = rinv[r];
     float xh[12], dxn[12], d[12];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -570,7 +592,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   }
   __syncthreads();
   const int nb = gridDim.x;
-  for (int i = tid; i < 3 * D; i += BWD_THREADS) {
+  for (int i = (LN_IN ? 0 : 2 * D) + tid; i < 3 * D; i += BWD_THREADS) {
     const int which = i / D, c = i % D;
     float s = 0.f;
 #pragma unroll
@@ -579,81 +601,41 @@ __global__ void __launch_bounds__(BWD_THREADS)
   }
 }
 
-// Split-K C = A^T B over rows: A [R][M], B [R][N] (bf16, row-major), one
-// f32 partial [M][N] per split (blockIdx.z) into part. M, N multiples of 64.
-constexpr int GT = 64;       // output tile (M and N)
-constexpr int GK = 64;       // rows per staged chunk
-constexpr int LDK = GK + 8;
-
-__global__ void __launch_bounds__(256)
-    gemm_at_b_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                     float* __restrict__ part, int R, int M, int N, int rows_per_split) {
-  __shared__ __align__(16) bf16 as[GT * LDK];  // [m][r]
-  __shared__ __align__(16) bf16 bs[GT * LDK];  // [n][r]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int m0 = blockIdx.x * GT, n0 = blockIdx.y * GT;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;
-  float acc[4][4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += GK) {
-    __syncthreads();  // previous chunk consumed
-    for (int i = tid; i < GK * GT / 8; i += 256) {
-      const int r = i / (GT / 8), c8 = (i % (GT / 8)) * 8;
-      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-      if (r0 + r < r_end) {
-        va = *reinterpret_cast<const uint4*>(A + (size_t)(r0 + r) * M + m0 + c8);
-        vb = *reinterpret_cast<const uint4*>(B + (size_t)(r0 + r) * N + n0 + c8);
-      }
-      const bf16* ea = reinterpret_cast<const bf16*>(&va);
-      const bf16* eb = reinterpret_cast<const bf16*>(&vb);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        as[(c8 + e) * LDK + r] = ea[e];
-        bs[(c8 + e) * LDK + r] = eb[e];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k0 = 0; k0 < GK; k0 += 16) {
-      uint32_t a[4];
-      load_a(a, as, LDK, wr, k0, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        uint32_t b[2];
-        load_b(b, bs, LDK, wc + n * 8, k0, lane);
-        mma_16816(acc[n], a, b);
-      }
-    }
-  }
-  float* out = part + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const int c = n0 + wc + n * 8 + 2 * t4;
-    const int r = m0 + wr + g;
-    out[(size_t)r * N + c] = acc[n][0];
-    out[(size_t)r * N + c + 1] = acc[n][1];
-    out[(size_t)(r + 8) * N + c] = acc[n][2];
-    out[(size_t)(r + 8) * N + c + 1] = acc[n][3];
-  }
-}
-
-int gemm_at_b(const bf16* A, const bf16* B, float* part, float* out, int R, int M,
-              int N, int splits, cudaStream_t s) {
-  const int per = ((R + splits - 1) / splits + GK - 1) / GK * GK;
-  dim3 grid(M / GT, N / GT, splits);
-  gemm_at_b_kernel<<<grid, 256, 0, s>>>(A, B, part, R, M, N, per);
-  cudaError_t err = cudaGetLastError();
+// Both backwards: the row kernel, the column sums, then dW1 = dg^T xn (xn is
+// x itself without LN) and dW2 = dy_eff^T h.
+template <bool LN_IN>
+int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, const void* b1,
+            const void* w2, const void* gate, const void* dy, void* dx, void* dgamma,
+            void* dbeta, void* dw1, void* db1, void* dw2, void* db2, void* xn_ws,
+            void* dye_ws, void* h_ws, void* dg_ws, void* part, int n_rows, int hidden,
+            float eps, int splits, void* stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd_rows_kernel<LN_IN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)BWD_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  sum_partials(part, splits, M * N, out, s);
-  return (int)cudaGetLastError();
+  const int nb = (n_rows + ROWS - 1) / ROWS;
+  float* p_db1 = (float*)part;
+  float* p_cols = p_db1 + (size_t)nb * hidden;  // [3][nb][D]
+  ln_mlp_bwd_rows_kernel<LN_IN><<<nb, BWD_THREADS, BWD_SMEM_BYTES, s>>>(
+      (const bf16*)x, (const float*)g2, (const float*)be2, (const bf16*)w1,
+      (const float*)b1, (const bf16*)w2, (const float*)gate, (const bf16*)dy, (bf16*)dx,
+      (bf16*)xn_ws, (bf16*)dye_ws, (bf16*)h_ws, (bf16*)dg_ws, p_db1, p_cols, n_rows,
+      hidden, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials(p_db1, nb, hidden, (float*)db1, s);
+  if (LN_IN) {
+    sum_partials(p_cols, nb, D, (float*)dgamma, s);
+    sum_partials(p_cols + (size_t)nb * D, nb, D, (float*)dbeta, s);
+  }
+  sum_partials(p_cols + (size_t)2 * nb * D, nb, D, (float*)db2, s);
+  int e = gemm_at_b((const bf16*)dg_ws, (const bf16*)(LN_IN ? xn_ws : x), (float*)part,
+                    (float*)dw1, n_rows, hidden, D, splits, s);
+  if (e) return e;
+  return gemm_at_b((const bf16*)dye_ws, (const bf16*)h_ws, (float*)part, (float*)dw2,
+                   n_rows, D, hidden, splits, s);
 }
 
 }  // namespace
@@ -670,29 +652,20 @@ extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* b
                                     void* dw2, void* db2, void* xn_ws, void* dye_ws,
                                     void* h_ws, void* dg_ws, void* part, int n_rows,
                                     int hidden, float eps, int splits, void* stream) {
-  if (n_rows <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd_rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)BWD_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const int nb = (n_rows + ROWS - 1) / ROWS;
-  float* p_db1 = (float*)part;
-  float* p_cols = p_db1 + (size_t)nb * hidden;  // [3][nb][D]
-  ln_mlp_bwd_rows_kernel<<<nb, BWD_THREADS, BWD_SMEM_BYTES, s>>>(
-      (const bf16*)x, (const float*)g2, (const float*)be2, (const bf16*)w1,
-      (const float*)b1, (const bf16*)w2, (const float*)gate, (const bf16*)dy, (bf16*)dx,
-      (bf16*)xn_ws, (bf16*)dye_ws, (bf16*)h_ws, (bf16*)dg_ws, p_db1, p_cols, n_rows,
-      hidden, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials(p_db1, nb, hidden, (float*)db1, s);
-  sum_partials(p_cols, nb, D, (float*)dgamma, s);
-  sum_partials(p_cols + (size_t)nb * D, nb, D, (float*)dbeta, s);
-  sum_partials(p_cols + (size_t)2 * nb * D, nb, D, (float*)db2, s);
-  int e = gemm_at_b((const bf16*)dg_ws, (const bf16*)xn_ws, (float*)part, (float*)dw1,
-                    n_rows, hidden, D, splits, s);
-  if (e) return e;
-  return gemm_at_b((const bf16*)dye_ws, (const bf16*)h_ws, (float*)part, (float*)dw2,
-                   n_rows, D, hidden, splits, s);
+  return mlp_bwd<true>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma, dbeta, dw1, db1, dw2,
+                       db2, xn_ws, dye_ws, h_ws, dg_ws, part, n_rows, hidden, eps, splits,
+                       stream);
+}
+
+// Backward of the MLP without LN: dh = dg W1 (bf16 [n_rows, 384]; the
+// residual's gradient is dy, added by the caller), dw1, db1, dw2, db2 as
+// above. Workspaces as above without xn_ws.
+extern "C" int ibk_fused_mlp_bwd(const void* h, const void* w1, const void* b1,
+                                 const void* w2, const void* gate, const void* dy, void* dh,
+                                 void* dw1, void* db1, void* dw2, void* db2, void* dye_ws,
+                                 void* a_ws, void* dg_ws, void* part, int n_rows, int hidden,
+                                 int splits, void* stream) {
+  return mlp_bwd<false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh, nullptr, nullptr, dw1,
+                        db1, dw2, db2, nullptr, dye_ws, a_ws, dg_ws, part, n_rows, hidden,
+                        0.f, splits, stream);
 }

@@ -15,38 +15,41 @@ the serving path (``deterministic=True`` with the serving LN chain):
   NHWC; the fusion ResidualStage; the heads; f32 logits out.
 
 The kernel switches of ``ViTBackboneConfig`` select the JAX model's other
-deterministic structures, each kernel where the TPU runs a Pallas kernel
-and plain PyTorch where it runs XLA:
+structures, each kernel where the TPU runs a Pallas kernel and plain
+PyTorch where it runs XLA:
 
 - without the chain (``fuse_ln_chain``, ``use_fused_layernorm`` or
-  ``use_fused_mlp`` off, or ``fuse_ln_dense`` or ``serving_int8`` on) every
-  block takes its own norm1, and the stack a final norm;
-- ``fuse_ln_dense``: norm1 folded into the qkv projection and each adapter's
-  LN -> Linear -> GELU as one kernel (``ops/fused_ln_dense``); the tail is
-  the LN+MLP kernel without the epilogue;
+  ``use_fused_mlp`` off, or ``fuse_ln_dense`` or ``serving_int8`` on, and
+  always in training) every block takes its own norm1, and the stack a
+  final norm;
+- ``fuse_ln_dense``: norm1 folded into the qkv projection (with the flash
+  path; without it the JAX model folds it eagerly) and each adapter's LN ->
+  Linear -> GELU as one kernel (``ops/fused_ln_dense``); the tail is the
+  LN+MLP kernel without the epilogue;
 - ``use_fused_layernorm=False``: LayerNorms in plain PyTorch with the JAX
   FastLayerNorm's rounding, and the tail MLP, if ``use_fused_mlp``, as the
   MLP kernel without LN (``ops/fused_mlp``);
 - ``use_fused_mlp=False``: the tail MLP as two Linears and the exact GELU;
-- ``serving_int8``: the tail MLP as the W8A8 kernel (``ops/fused_mlp_int8``)
-  on codes quantized once, at load, from the f32 parameters; attention
-  stays bf16, as in the JAX code;
-- ``fuse_patch_embed``: a dense lidar input of >= 128 channels embeds
-  through the patch-embed kernel (``ops/patch_embed``).
+- ``use_flash_attention=False``: attention as the JAX model's dense
+  ``reference_attention``, in plain PyTorch;
+- ``serving_int8`` (serving only): the tail MLP as the W8A8 kernel
+  (``ops/fused_mlp_int8``) on codes quantized once, at load, from the f32
+  parameters; attention stays bf16, as in the JAX code;
+- ``fuse_patch_embed`` (serving only): a dense lidar input of >= 128
+  channels embeds through the patch-embed kernel (``ops/patch_embed``).
 
-In training mode (``model.train()``) it runs the JAX model's training
-structure, which is unchained (``deterministic=False``): the lidar stream
-takes a dense BEV through the patch embed (a matmul over patches); every
-block runs a standalone norm1 LN kernel, qkv (GEMM), the flash kernel, proj
-(GEMM) times the attention drop-path gate plus the residual, and the fused
-LN+MLP training tail with its gate; the final norm and each adapter norm
-are LN kernels; BatchNorm uses the batch statistics. Each of these kernels
-is a ``torch.autograd.Function`` whose backward is a kernel too. The
-drop-path gates (per sample, 0 or 1/keep, rates linspace(0, rate, depth))
-are drawn from the generator the caller passes. Training raises under
-``serving_int8`` (inference only) and under the switches whose backward
-kernels are not ported: ``fuse_ln_dense``, and ``use_fused_layernorm=False``
-with ``use_fused_mlp``.
+The unchained structure is written once (``EncoderBlock.forward_unchained``,
+the encoder's final norm and the backbone's adapters) and reads the
+switches; an :class:`Ops` table gives it its entries. Serving takes the
+forward-only kernels (``KERNEL_OPS``, or ``PLAIN_OPS``); training
+(``model.train()``, the JAX model's ``deterministic=False``) takes
+:func:`train_ops`, the differentiable entries, each a
+``torch.autograd.Function`` whose backward is a kernel too. In training the
+lidar stream takes a dense BEV through the patch embed (a matmul over
+patches), BatchNorm uses the batch statistics, and the drop-path gates
+(per sample, 0 or 1/keep, rates linspace(0, rate, depth)) are drawn from
+the generator the caller passes. Training raises under ``serving_int8``
+(inference only) and for a GELU other than the exact erf.
 
 Tokens are not padded: the flash kernel takes any T and the LN/MLP
 kernels any row count. LayerNorm eps is 1e-6 throughout. Weights are held
@@ -59,6 +62,7 @@ at use. ``plain_ops=True`` runs each kernel's plain PyTorch version instead
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
@@ -69,11 +73,11 @@ import numpy as np
 
 from ..bev.rasterize import decode_map_transport
 from ..ops.flash_packed import (flash_attention_fn, flash_attention_packed,
-                                flash_attention_packed_plain)
-from ..ops.fused_ln_dense import fused_ln_dense, fused_ln_dense_plain
+                                flash_attention_packed_plain, reference_attention)
+from ..ops.fused_ln_dense import fused_ln_dense, fused_ln_dense_fn, fused_ln_dense_plain
 from ..ops.fused_ln_mlp import (GELU_MODES, fused_ln_mlp, fused_ln_mlp_fn, fused_ln_mlp_plain,
                                 fused_ln_mlp_train, fused_ln_mlp_train_plain)
-from ..ops.fused_mlp import fused_mlp, fused_mlp_plain
+from ..ops.fused_mlp import fused_mlp, fused_mlp_fn, fused_mlp_plain
 from ..ops.fused_mlp_int8 import fused_mlp_int8, fused_mlp_int8_plain
 from ..ops.int8 import quantize_linear
 from ..ops.layernorm import layernorm, layernorm_fn, layernorm_plain
@@ -86,24 +90,59 @@ from .heads import DetectionHead, IntentionHead, flatten_head_outputs
 LN_EPS = 1e-6
 
 
+def _split_qkv(qkv):
+    d = qkv.shape[-1] // 3  # q, k, v are column slices: no split copies
+    return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+
+
 class Ops(NamedTuple):
-    layernorm: Callable
-    fused_ln_mlp: Callable
-    flash: Callable
+    """The entries a structure calls, by call convention; the serving
+    chain's tail, the voxel embed, the W8A8 MLP and the patch embed are
+    forward-only (None in training)."""
+    layernorm: Callable          # (x, gamma, beta, eps) -> y
+    fused_ln_mlp: Callable       # the serving chain's tail
+    flash: Callable              # (qkv, num_heads) -> o
     voxel_embed: Callable
-    fused_ln_mlp_tail: Callable  # the LN+MLP tail without the chain's epilogue
-    fused_mlp: Callable
+    fused_ln_mlp_tail: Callable  # (x, gamma, beta, w1, b1, w2, b2, gate, eps, gelu) -> y
+    fused_mlp: Callable          # (h, w1, b1, w2, b2, residual, gelu, gate) -> y
     fused_mlp_int8: Callable
-    fused_ln_dense: Callable
+    fused_ln_dense: Callable     # (x, gamma, beta, w, bias, eps, gelu) -> y
     patch_embed: Callable
 
 
-KERNEL_OPS = Ops(layernorm, fused_ln_mlp, flash_attention_packed, voxel_embed_tokens,
-                 fused_ln_mlp_train, fused_mlp, fused_mlp_int8, fused_ln_dense, patch_embed)
-PLAIN_OPS = Ops(layernorm_plain, fused_ln_mlp_plain, flash_attention_packed_plain,
-                voxel_embed_tokens_plain, fused_ln_mlp_train_plain, fused_mlp_plain,
-                fused_mlp_int8_plain, fused_ln_dense_plain, patch_embed_plain)
+def _flash(qkv, num_heads):
+    return flash_attention_packed(*_split_qkv(qkv), num_heads)[0]
+
+
+def _flash_plain(qkv, num_heads):
+    return flash_attention_packed_plain(*_split_qkv(qkv), num_heads)[0]
+
+
+KERNEL_OPS = Ops(layernorm, fused_ln_mlp, _flash, voxel_embed_tokens, fused_ln_mlp_train,
+                 fused_mlp, fused_mlp_int8, fused_ln_dense, patch_embed)
+PLAIN_OPS = Ops(layernorm_plain, fused_ln_mlp_plain, _flash_plain, voxel_embed_tokens_plain,
+                fused_ln_mlp_train_plain, fused_mlp_plain, fused_mlp_int8_plain,
+                fused_ln_dense_plain, patch_embed_plain)
 PATCH_EMBED_MIN_CHANNELS = 128  # the fused patch embed's gate (JAX: wide inputs only)
+
+
+def train_ops(plain: bool) -> Ops:
+    """The differentiable entries of a training pass (exact erf GELU):
+    kernels forward and backward, or with ``plain`` their plain versions."""
+    return Ops(
+        layernorm=partial(layernorm_fn, plain=plain),
+        fused_ln_mlp=None,
+        flash=lambda qkv, heads: flash_attention_fn(qkv, heads, None, plain),
+        voxel_embed=None,
+        fused_ln_mlp_tail=lambda x, g, b, w1, b1, w2, b2, gate, eps, gelu: fused_ln_mlp_fn(
+            x, g, b, w1, b1, w2, b2, gate, eps, plain),
+        fused_mlp=lambda h, w1, b1, w2, b2, res, gelu, gate: fused_mlp_fn(
+            h, w1, b1, w2, b2, res, gate, plain),
+        fused_mlp_int8=None,
+        fused_ln_dense=lambda x, g, b, w, bias, eps, gelu: fused_ln_dense_fn(
+            x, g, b, w, bias, eps, gelu, plain),
+        patch_embed=None,
+    )
 
 
 def fast_layernorm(x, gamma, beta, eps: float = LN_EPS):
@@ -115,6 +154,16 @@ def fast_layernorm(x, gamma, beta, eps: float = LN_EPS):
     var = (xc * xc).float().mean(-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(dt)
     return xc * inv * gamma.to(dt) + beta.to(dt)
+
+
+def folded_layernorm(x, gamma, beta, eps: float = LN_EPS):
+    """The JAX Attention's eager fold of norm1 (``fuse_ln_dense`` off the
+    flash path): f32 statistics, xc and inv rounded to x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps).to(dt)
+    return xc.to(dt) * inv * gamma.to(dt) + beta.to(dt)
 
 
 def _norm(x, params, ops: Ops, fused: bool):
@@ -131,17 +180,9 @@ def uses_ln_chain(cfg) -> bool:
 
 
 def check_trainable(cfg) -> None:
-    """Raise for the switches a training step cannot take yet."""
+    """Raise for the switches a training step cannot take."""
     if cfg.serving_int8:
         raise NotImplementedError("serving_int8 is inference-only, as in the JAX package")
-    if cfg.fuse_ln_dense:
-        raise NotImplementedError(
-            "fuse_ln_dense trains through the fused_ln_dense backward kernel, not ported "
-            "yet (ROADMAP.md section 2, item 11)")
-    if not cfg.use_fused_layernorm and cfg.use_fused_mlp:
-        raise NotImplementedError(
-            "use_fused_layernorm=False with use_fused_mlp trains through the fused_mlp "
-            "backward kernel, not ported yet (ROADMAP.md section 2, item 8)")
 
 
 class LayerNormParams(nn.Module):
@@ -195,14 +236,18 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, qkv_bias, dtype)
         self.proj = Linear(dim, dim, True, dtype)
 
-    def forward(self, xn: torch.Tensor, residual: torch.Tensor, ops: Ops):
-        return self.attend(self.qkv(xn), residual, ops)
-
-    def attend(self, qkv: torch.Tensor, residual: torch.Tensor, ops: Ops):
-        d = qkv.shape[-1] // 3  # q, k, v are column slices: no split copies
-        out, _ = ops.flash(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
-                           self.num_heads)
-        return residual + self.proj(out)
+    def attend(self, qkv, residual, ops: Ops, flash: bool, gate=None):
+        """residual + gate * proj(attention(qkv)): the flash entry, or the
+        JAX model's dense attention where ``use_flash_attention`` is off;
+        ``gate`` per-sample f32 [B] or None."""
+        if flash:
+            o = ops.flash(qkv, self.num_heads)
+        else:
+            o = reference_attention(*_split_qkv(qkv), self.num_heads)
+        y = self.proj(o)
+        if gate is not None:
+            y = y * gate.to(y.dtype)[:, None, None]
+        return residual + y
 
 
 class Mlp(nn.Module):
@@ -240,8 +285,9 @@ class Mlp(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN block of the serving LN chain: takes x and xn = norm1(x),
-    returns (x', ln_next(x'))."""
+    """Pre-LN block. ``forward`` is the serving LN chain's: takes x and xn =
+    norm1(x), returns (x', ln_next(x')); ``forward_unchained`` every other
+    structure."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, dtype: torch.dtype, int8: bool = False):
@@ -251,52 +297,46 @@ class EncoderBlock(nn.Module):
         self.norm2 = LayerNormParams(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, int8)
 
-    def forward(self, x, xn, ln_next: LayerNormParams, ops: Ops, gelu: str):
-        x = self.attn(xn, x, ops)
-        m = self.mlp
+    def forward(self, x, xn, ln_next: LayerNormParams, ops: Ops, gelu: str, flash: bool):
+        a, m = self.attn, self.mlp
+        x = a.attend(a.qkv(xn), x, ops, flash)
         return ops.fused_ln_mlp(
             x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
             m.fc2.weight, m.fc2.bias, ln_next.weight, ln_next.bias, LN_EPS, gelu)
 
-    def forward_unchained(self, x, ops: Ops, gelu: str, cfg):
-        """The JAX block's deterministic structures without the chain: takes
-        and returns the residual stream x."""
+    def forward_unchained(self, x, ops: Ops, gelu: str, cfg, gates=(None, None)):
+        """The JAX block's structures without the chain, serving and
+        training alike: takes and returns the residual stream x. ``gates``:
+        (attention, MLP) per-sample f32 [B] drop-path gates, each None for
+        1 (always None serving)."""
         fused_ln, a, m = cfg.use_fused_layernorm, self.attn, self.mlp
-        dt = x.dtype
+        dt, n1 = x.dtype, self.norm1
         if (fused_ln and cfg.fuse_ln_dense and a.qkv.bias is not None
                 and not cfg.serving_int8):
-            qkv = ops.fused_ln_dense(x, self.norm1.weight, self.norm1.bias,
-                                     a.qkv.weight.to(dt), a.qkv.bias, LN_EPS)
-            x = a.attend(qkv, x, ops)
+            if cfg.use_flash_attention:
+                qkv = ops.fused_ln_dense(x, n1.weight, n1.bias, a.qkv.weight.to(dt),
+                                         a.qkv.bias, LN_EPS, None)
+            else:
+                qkv = a.qkv(folded_layernorm(x, n1.weight, n1.bias))
         else:
-            x = a(_norm(x, self.norm1, ops, fused_ln), x, ops)
+            qkv = a.qkv(_norm(x, n1, ops, fused_ln))
+        x = a.attend(qkv, x, ops, cfg.use_flash_attention, gates[0])
+        gate = None if gates[1] is None else gates[1][:, None].expand(x.shape[:2])
         if cfg.use_fused_mlp and fused_ln and not cfg.serving_int8:
             return ops.fused_ln_mlp_tail(
                 x, self.norm2.weight, self.norm2.bias, m.fc1.weight.to(dt), m.fc1.bias,
-                m.fc2.weight.to(dt), m.fc2.bias, None, LN_EPS, gelu)
+                m.fc2.weight.to(dt), m.fc2.bias, gate, LN_EPS, gelu)
         h = _norm(x, self.norm2, ops, fused_ln)
         if cfg.serving_int8:
             return ops.fused_mlp_int8(h, m.w1q, m.s1, m.fc1.bias, m.w2q, m.s2, m.fc2.bias,
                                       x, gelu)
         if cfg.use_fused_mlp:
             return ops.fused_mlp(h, m.fc1.weight.to(dt), m.fc1.bias, m.fc2.weight.to(dt),
-                                 m.fc2.bias, x, gelu)
-        return x + m.fc2(F.gelu(m.fc1(h)))  # XLA in the JAX model: exact erf
-
-    def forward_train(self, x, gates, plain: bool):
-        """Unchained training block; ``gates``: (attention, MLP) per-sample
-        f32 [B] drop-path gates, each None for 1."""
-        h = layernorm_fn(x, self.norm1.weight, self.norm1.bias, LN_EPS, plain)
-        o = flash_attention_fn(self.attn.qkv(h), self.attn.num_heads, None, plain)
-        y = self.attn.proj(o)
-        if gates[0] is not None:
-            y = y * gates[0].to(y.dtype)[:, None, None]
-        x = x + y
-        m, dt = self.mlp, x.dtype
-        gate = None if gates[1] is None else gates[1][:, None].expand(x.shape[:2])
-        return fused_ln_mlp_fn(
-            x, self.norm2.weight, self.norm2.bias, m.fc1.weight.to(dt), m.fc1.bias,
-            m.fc2.weight.to(dt), m.fc2.bias, gate, LN_EPS, plain)
+                                 m.fc2.bias, x, gelu, gate)
+        y = m.fc2(F.gelu(m.fc1(h)))  # XLA in the JAX model: exact erf
+        if gate is not None:
+            y = y * gate.to(y.dtype)[..., None]
+        return x + y
 
 
 class ViTEncoder(nn.Module):
@@ -335,25 +375,17 @@ class ViTEncoder(nn.Module):
                 for _ in range(2)))
         return gates
 
-    def forward_train(self, x_nhwc, generator, plain: bool) -> torch.Tensor:
-        """Dense BEV -> final-normed tokens [B, 1+N, D], training structure."""
-        tokens = self.patch_embed.dense(x_nhwc)
-        b, _, d = tokens.shape
-        dt = tokens.dtype
-        tokens = torch.cat([self.cls_token.to(dt).expand(b, 1, d), tokens], 1)
-        tokens = tokens + self.pos_embed.to(dt)
-        gates = self.drop_path_gates(b, generator, tokens.device)
-        for blk, g in zip(self.blocks, gates):
-            tokens = blk.forward_train(tokens, g, plain)
-        return layernorm_fn(tokens, self.norm.weight, self.norm.bias, LN_EPS, plain)
-
-    def forward(self, x, ops: Ops, gelu: str) -> torch.Tensor:
+    def forward(self, x, ops: Ops, gelu: str, generator=None) -> torch.Tensor:
+        """Lidar chunks or a dense NHWC BEV -> final-normed tokens; in
+        training mode the unchained structure with drop-path gates drawn
+        from ``generator``."""
         cfg = self.cfg
         pe = self.patch_embed
         if isinstance(x, VoxelChunks):
             tokens = ops.voxel_embed(x, pe.weight, pe.bias, cfg.patch_size,
                                      tuple(cfg.img_size))
-        elif cfg.fuse_patch_embed and x.shape[-1] >= PATCH_EMBED_MIN_CHANNELS:
+        elif (cfg.fuse_patch_embed and not self.training
+              and x.shape[-1] >= PATCH_EMBED_MIN_CHANNELS):
             tokens = ops.patch_embed(x, pe.weight.to(x.dtype), pe.bias, cfg.patch_size)
         else:
             tokens = pe.dense(x)
@@ -362,14 +394,16 @@ class ViTEncoder(nn.Module):
         tokens = torch.cat([self.cls_token.to(dt).expand(b, 1, d), tokens], 1)
         tokens = tokens + self.pos_embed.to(dt)
         blocks = self.blocks
-        if not uses_ln_chain(cfg):
-            for blk in blocks:
-                tokens = blk.forward_unchained(tokens, ops, gelu, cfg)
+        if self.training or not uses_ln_chain(cfg):
+            gates = self.drop_path_gates(b, generator if self.training else None,
+                                         tokens.device)
+            for blk, g in zip(blocks, gates):
+                tokens = blk.forward_unchained(tokens, ops, gelu, cfg, g)
             return _norm(tokens, self.norm, ops, cfg.use_fused_layernorm)
         xn = ops.layernorm(tokens, blocks[0].norm1.weight, blocks[0].norm1.bias, LN_EPS)
         for i, blk in enumerate(blocks):
             nxt = blocks[i + 1].norm1 if i + 1 < len(blocks) else self.norm
-            tokens, xn = blk(tokens, xn, nxt, ops, gelu)
+            tokens, xn = blk(tokens, xn, nxt, ops, gelu, cfg.use_flash_attention)
         return xn
 
 
@@ -387,12 +421,12 @@ class TwoStreamViTBackbone(nn.Module):
         self.fusion = ResidualStage(2 * a, cfg.fusion_planes, cfg.fusion_layers,
                                     cfg.fusion_stride, cfg.fusion_kernel_size, dtype)
 
-    def forward(self, lidar, map_nhwc, ops: Ops, gelu: str) -> torch.Tensor:
+    def forward(self, lidar, map_nhwc, ops: Ops, gelu: str, generator=None) -> torch.Tensor:
         cfg = self.cfg
         gh, gw = cfg.grid_size
 
         def stream(enc, norm, proj, x):
-            tokens = enc(x, ops, gelu)[:, 1:].contiguous()  # strip CLS
+            tokens = enc(x, ops, gelu, generator)[:, 1:].contiguous()  # strip CLS
             if cfg.use_fused_layernorm and cfg.fuse_ln_dense:
                 # one kernel; its GELU is the block MLPs' (the JAX kernel's _gelu)
                 h = ops.fused_ln_dense(tokens, norm.weight, norm.bias,
@@ -400,20 +434,6 @@ class TwoStreamViTBackbone(nn.Module):
             else:
                 h = _norm(tokens, norm, ops, cfg.use_fused_layernorm)
                 h = F.gelu(proj(h))  # exact erf, as the JAX adapter
-            return h.reshape(h.shape[0], gh, gw, -1)
-
-        feats = torch.cat([
-            stream(self.vit_lidar, self.adapter_lidar_norm, self.adapter_lidar_proj, lidar),
-            stream(self.vit_map, self.adapter_map_norm, self.adapter_map_proj, map_nhwc),
-        ], dim=-1)
-        return self.fusion(feats)
-
-    def forward_train(self, lidar, map_nhwc, generator, plain: bool) -> torch.Tensor:
-        gh, gw = self.cfg.grid_size
-
-        def stream(enc, norm, proj, x):
-            tokens = enc.forward_train(x, generator, plain)[:, 1:].contiguous()
-            h = F.gelu(proj(layernorm_fn(tokens, norm.weight, norm.bias, LN_EPS, plain)))
             return h.reshape(h.shape[0], gh, gw, -1)
 
         feats = torch.cat([
@@ -444,7 +464,6 @@ class IntentNetViT(nn.Module):
         self.dtype = dtype
         self.gelu = gelu
         self.plain_ops = plain_ops
-        self.ops = PLAIN_OPS if plain_ops else KERNEL_OPS
         self.backbone = TwoStreamViTBackbone(cfg, pdt)
         self.det_head = DetectionHead(cfg.fusion_planes, head_cfg.num_anchors,
                                       head_cfg.num_box_params, pdt)
@@ -458,10 +477,10 @@ class IntentNetViT(nn.Module):
             check_trainable(self.cfg)
             if self.gelu != "erf":
                 raise ValueError("training takes the exact erf GELU")
-            feats = self.backbone.forward_train(lidar.to(self.dtype), m, generator,
-                                                self.plain_ops)
+            ops, lidar = train_ops(self.plain_ops), lidar.to(self.dtype)
         else:
-            feats = self.backbone(lidar, m, self.ops, self.gelu)
+            ops = PLAIN_OPS if self.plain_ops else KERNEL_OPS
+        feats = self.backbone(lidar, m, ops, self.gelu, generator)
         cls_l, box = self.det_head(feats)
         intent = self.intention_head(feats)
         return tuple(t.float() for t in flatten_head_outputs(cls_l, box, intent))

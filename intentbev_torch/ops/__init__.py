@@ -3,12 +3,14 @@
 from ._build import launches, reset_launch_counts
 from .flash_packed import (flash_attention_fn, flash_attention_packed,
                            flash_attention_packed_bwd, flash_attention_packed_bwd_plain,
-                           flash_attention_packed_plain)
-from .fused_ln_dense import fused_ln_dense, fused_ln_dense_plain
+                           flash_attention_packed_plain, reference_attention)
+from .fused_ln_dense import (fused_ln_dense, fused_ln_dense_bwd, fused_ln_dense_bwd_plain,
+                             fused_ln_dense_fn, fused_ln_dense_plain)
 from .fused_ln_mlp import (fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
                            fused_ln_mlp_fn, fused_ln_mlp_plain, fused_ln_mlp_train,
                            fused_ln_mlp_train_plain)
-from .fused_mlp import fused_mlp, fused_mlp_plain
+from .fused_mlp import (fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_fn,
+                        fused_mlp_plain, fused_mlp_train)
 from .fused_mlp_int8 import fused_mlp_int8, fused_mlp_int8_plain
 from .int8 import int8_dense, quantize_cols, quantize_linear, quantize_rows
 from .layernorm import (layernorm, layernorm_bwd, layernorm_bwd_plain, layernorm_fn,
@@ -21,12 +23,15 @@ __all__ = [
     "launches", "reset_launch_counts",
     "flash_attention_packed", "flash_attention_packed_plain",
     "flash_attention_packed_bwd", "flash_attention_packed_bwd_plain", "flash_attention_fn",
+    "reference_attention",
     "fused_ln_mlp", "fused_ln_mlp_plain", "fused_ln_mlp_train", "fused_ln_mlp_train_plain",
     "fused_ln_mlp_bwd", "fused_ln_mlp_bwd_plain", "fused_ln_mlp_fn",
     "layernorm", "layernorm_plain", "layernorm_train", "layernorm_train_plain",
     "layernorm_bwd", "layernorm_bwd_plain", "layernorm_fn",
-    "fused_mlp", "fused_mlp_plain", "fused_mlp_int8", "fused_mlp_int8_plain",
-    "fused_ln_dense", "fused_ln_dense_plain", "patch_embed", "patch_embed_plain",
+    "fused_mlp", "fused_mlp_plain", "fused_mlp_train", "fused_mlp_bwd", "fused_mlp_bwd_plain",
+    "fused_mlp_fn", "fused_mlp_int8", "fused_mlp_int8_plain",
+    "fused_ln_dense", "fused_ln_dense_plain", "fused_ln_dense_bwd", "fused_ln_dense_bwd_plain",
+    "fused_ln_dense_fn", "patch_embed", "patch_embed_plain",
     "int8_dense", "quantize_cols", "quantize_linear", "quantize_rows",
     "VoxelChunks", "voxel_embed_tokens", "voxel_embed_tokens_plain",
     "voxel_fill_bev", "voxel_fill_bev_plain",

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 KERNELS = ("voxel_embed", "flash_packed", "fused_ln_mlp", "layernorm",
            "flash_packed_bwd", "fused_ln_mlp_train", "fused_ln_mlp_bwd",
            "layernorm_train", "layernorm_bwd", "voxel_fill", "fused_mlp_int8", "fused_mlp",
-           "fused_ln_dense", "patch_embed")
+           "fused_ln_dense", "patch_embed", "fused_mlp_train", "fused_mlp_bwd",
+           "fused_ln_dense_bwd")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: ctypes.CDLL | None = None
@@ -125,8 +126,10 @@ _SIGNATURES = {
     "ibk_flash_bwd": (_P,) * 7 + (_I, _I, _I, _I, _L, _L, _F, _P),
     "ibk_voxel_fill": (_P,) * 6 + (_I,) * 6 + (_P,),
     "ibk_fused_mlp_int8": (_P,) * 9 + (_I, _I, _I, _P),
-    "ibk_fused_mlp": (_P,) * 7 + (_I, _I, _I, _P),
+    "ibk_fused_mlp": (_P,) * 8 + (_I, _I, _I, _P),
+    "ibk_fused_mlp_bwd": (_P,) * 15 + (_I, _I, _I, _P),
     "ibk_fused_ln_dense": (_P,) * 6 + (_I, _I, _F, _I, _P),
+    "ibk_fused_ln_dense_bwd": (_P,) * 14 + (_I, _I, _F, _I, _I, _P),
     "ibk_patch_embed": (_P,) * 4 + (_I,) * 7 + (_P,),
 }
 

@@ -6,7 +6,9 @@ and ``_bwd_fused``). Keys at or past ``seq_len`` are masked, so callers need
 not pad: the kernels take any T. q, k and v may be column slices of one qkv
 projection output (same strides, unit last stride); the backward writes
 dq, dk and dv into one gradient of that output. :func:`flash_attention_fn`
-is the differentiable entry over the qkv output.
+is the differentiable entry over the qkv output. :func:`reference_attention`
+is the dense attention the JAX model runs where ``use_flash_attention`` is
+off, in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -46,6 +48,28 @@ def flash_attention_packed_plain(q, k, v, num_heads: int,
         o[i] = oh.transpose(0, 1).reshape(t, dm).to(dt)
         lse[i] = (m + torch.log(den))[..., 0]
     return o, lse
+
+
+def reference_attention(q, k, v, num_heads: int, kv_len: int | None = None):
+    """Dense softmax(q k^T / sqrt(D)) v over packed [B, T, H*D] tensors, a
+    copy of ``intentbev/ops/attention.py::reference_attention`` (which takes
+    [B, H, T, D]) with its rounding points: f32 logits from q and k as they
+    are, the scale and softmax in f32, the probabilities cast to v's dtype
+    for the product with v. Keys at or past ``kv_len`` are masked (-1e30).
+    Differentiable by autograd; on CUDA tensors it is cuBLAS, as the JAX
+    path is XLA."""
+    b, t, dm = q.shape
+    dh = dm // num_heads
+
+    def heads(x):  # [B, T, H*D] -> [B, H, T, D]
+        return x.reshape(b, t, num_heads, dh).transpose(1, 2)
+
+    logits = torch.matmul(heads(q).float(), heads(k).float().transpose(-1, -2))
+    if kv_len is not None and kv_len < t:
+        logits = logits.masked_fill(torch.arange(t, device=q.device) >= kv_len, -1e30)
+    probs = torch.softmax(logits * (1.0 / dh ** 0.5), dim=-1)
+    out = torch.matmul(probs.to(v.dtype), heads(v))
+    return out.transpose(1, 2).reshape(b, t, dm)
 
 
 def flash_attention_packed(q, k, v, num_heads: int, seq_len: int | None = None):

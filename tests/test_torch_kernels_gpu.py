@@ -17,8 +17,13 @@ training step's full-width shapes. The dense BEV fill is exact: its reading
 is the count of elements that differ from the plain version, which must be
 0, and its control (the last chunk of each band skipped) must differ. The
 kernels of the other serving configurations (W8A8 MLP, MLP without LN,
-LN + dense, patch embed) run at small and at main-path shapes.
+LN + dense, patch embed) run at small and at main-path shapes, and so do
+the training entries of two of them: the MLP without LN (forward with a
+drop-path gate, backward with and without one) and the LN + dense backward
+(qkv without GELU, adapter with the erf GELU).
 """
+
+import importlib
 
 import pytest
 
@@ -26,8 +31,10 @@ torch = pytest.importorskip("torch")
 
 from intentbev_torch.configs import GridConfig, default_vit_config  # noqa: E402
 from intentbev_torch.ops import (  # noqa: E402
-    fused_ln_dense, fused_ln_dense_plain, fused_mlp, fused_mlp_int8, fused_mlp_int8_plain,
-    fused_mlp_plain, patch_embed, patch_embed_plain, quantize_linear, quantize_rows,
+    fused_ln_dense, fused_ln_dense_bwd, fused_ln_dense_bwd_plain, fused_ln_dense_plain,
+    fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_int8, fused_mlp_int8_plain,
+    fused_mlp_plain, fused_mlp_train, patch_embed, patch_embed_plain, quantize_linear,
+    quantize_rows,
     flash_attention_packed, flash_attention_packed_bwd, flash_attention_packed_bwd_plain,
     flash_attention_packed_plain, fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
     fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, launches, layernorm,
@@ -388,3 +395,77 @@ def test_patch_embed(dev, shape):
     assert _rel(got, patch_embed_plain(x, w, bias, 8)) < PATCH_LIMIT
     ctrl = patch_embed_plain(x, w.transpose(0, 1).contiguous(), bias, 8)  # w read as [dx, dy]
     assert _rel(got, ctrl) >= PATCH_LIMIT
+
+
+# The training entries of the MLP without LN and of the LN + dense (limits
+# those of chip_smoke.py). ``intentbev_torch.ops`` re-exports functions named
+# like their modules, hence importlib for the control's fault.
+LN_DENSE_BWD_LIMIT = 2e-3
+
+
+def _gelu_grad_skipped(monkeypatch, module):
+    """Control fault: the plain backward of ``module`` takes GELU'(g) as 1."""
+    monkeypatch.setattr(importlib.import_module(f"intentbev_torch.ops.{module}"),
+                        "gelu_erf_grad", torch.ones_like)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("b,t", [(2, 50), (8, 4501)])
+def test_fused_mlp_train_and_bwd(dev, b, t, gated, monkeypatch):
+    h, res = _randn((b, t, D), 1.0, 0), _randn((b, t, D), 1.0, 11)
+    _, _, w1, b1, w2, b2 = _mlp_params()
+    gate = None
+    if gated:
+        gate = _gate(b, t, 9)
+        gate[0] = 0.0  # one sample dropped
+    reset_launch_counts()
+    y = fused_mlp_train(h, w1, b1, w2, b2, res, gate)
+    assert _rel(y, fused_mlp_plain(h, w1, b1, w2, b2, res, gate=gate)) < MLP_LIMIT
+    # control: the gate ignored, or (no gate) b1 left out
+    ctrl = fused_mlp_plain(h, w1, b1 if gated else torch.zeros_like(b1), w2, b2, res)
+    assert _rel(y, ctrl) >= MLP_LIMIT
+    dy = _randn((b, t, D), 1.0, 10)
+    got = fused_mlp_bwd(h, w1, b1, w2, gate, dy)
+    assert launches["fused_mlp_train"] == 1 and launches["fused_mlp_bwd"] == 1
+    want = fused_mlp_bwd_plain(h, w1, b1, w2, gate, dy)
+    assert max(_rels(got, want)) < MLP_BWD_LIMIT, _rels(got, want)
+    # control: the gate ignored, or (no gate) GELU' skipped
+    if gated:
+        ctrl = fused_mlp_bwd_plain(h, w1, b1, w2, None, dy)
+    else:
+        _gelu_grad_skipped(monkeypatch, "fused_mlp")
+        ctrl = fused_mlp_bwd_plain(h, w1, b1, w2, gate, dy)
+    assert max(_rels(got, ctrl)) >= MLP_BWD_LIMIT
+
+
+def ln_dense_bwd_no_m2(x, g, b, w, bias, dy):
+    """Control fault (no GELU): dx through an LN backward without its
+    mean(dyg * xhat) term; the other gradients sound."""
+    _, dgamma, dbeta, dw, db = fused_ln_dense_bwd_plain(x, g, b, w, bias, dy)
+    _, xhat, inv = layernorm_train_plain(x, g, b)
+    dxn = torch.matmul(dy.float(), w.float())
+    return (layernorm_bwd_no_m2(dxn, xhat, inv, g)[0].to(x.dtype), dgamma, dbeta, dw, db)
+
+
+@pytest.mark.parametrize("rows,dout,gelu", [(100, 3 * D, None), (MAIN_ROWS, 3 * D, None),
+                                            (100, D // 2, "erf"), (8 * 4500, D // 2, "erf")])
+def test_fused_ln_dense_bwd(dev, rows, dout, gelu, monkeypatch):
+    x = _randn((rows, D), 1.5, 0) + 0.3
+    g = _randn((D,), 0.2, 1, torch.float32) + 1
+    b = _randn((D,), 0.2, 2, torch.float32)
+    w = _randn((dout, D), D ** -0.5, 3)
+    bias = _randn((dout,), 0.1, 4, torch.float32)
+    dy = _randn((rows, dout), 1.0, 5)
+    reset_launch_counts()
+    got = fused_ln_dense_bwd(x, g, b, w, bias, dy, gelu_mode=gelu)
+    assert launches["fused_ln_dense_bwd"] == 1
+    assert [tuple(t.shape) for t in got] == [(rows, D), (D,), (D,), (dout, D), (dout,)]
+    want = fused_ln_dense_bwd_plain(x, g, b, w, bias, dy, gelu_mode=gelu)
+    assert max(_rels(got, want)) < LN_DENSE_BWD_LIMIT, _rels(got, want)
+    # control: GELU' skipped, or (no GELU) the LN backward without its m2 term
+    if gelu:
+        _gelu_grad_skipped(monkeypatch, "fused_ln_dense")
+        ctrl = fused_ln_dense_bwd_plain(x, g, b, w, bias, dy, gelu_mode=gelu)
+    else:
+        ctrl = ln_dense_bwd_no_m2(x, g, b, w, bias, dy)
+    assert max(_rels(got, ctrl)) >= LN_DENSE_BWD_LIMIT

@@ -11,7 +11,10 @@ Same inputs from a numpy seed on both sides, f32. Tolerances:
   and the whole step (loss terms, every gradient mapped through
   ``from_flax``, the new BatchNorm statistics): 1e-4 of each tensor's
   largest value (f32 sums in another order through 2 blocks, the fusion
-  stage and the loss).
+  stage and the loss). Both run under the kernel switches whose training
+  structures differ (``fuse_ln_dense``, ``use_fused_layernorm=False``,
+  ``use_fused_mlp=False``) and with none, on the flash path (where the
+  JAX model pads the tokens to its flash block and masks the padded keys).
 
 The step's random draws cannot be matched across frameworks, so the test
 re-derives the JAX step's ``rng_aug``/``rng_loss`` split, computes the patch
@@ -49,7 +52,7 @@ from intentbev_torch.boxes.codec import encode_boxes  # noqa: E402
 from intentbev_torch.losses import assign_targets, detection_intention_loss  # noqa: E402
 from intentbev_torch.models import IntentNetViT  # noqa: E402
 from intentbev_torch.models.blocks import ResidualStage  # noqa: E402
-from intentbev_torch.models.vit import EncoderBlock  # noqa: E402
+from intentbev_torch.models.vit import EncoderBlock, train_ops  # noqa: E402
 from intentbev_torch.train import (PlateauScheduler, StepDraws, make_optimizer,  # noqa: E402
                                    make_train_step)
 from intentbev_torch.weights import from_flax  # noqa: E402
@@ -268,7 +271,18 @@ def test_plateau_scheduler_matches_jax():
     assert a.state() == b.state()
 
 
-def test_encoder_block_with_gates_matches_jax(rng, monkeypatch):
+# name: ViTBackboneConfig switches of the training structures
+SWITCHES = {"default": {}, "ln_dense": dict(fuse_ln_dense=True),
+            "unfused_ln": dict(use_fused_layernorm=False),
+            "unfused_mlp": dict(use_fused_mlp=False)}
+
+
+def _vit_switches(vit, name):
+    return dataclasses.replace(vit, use_flash_attention=True, **SWITCHES[name])
+
+
+@pytest.mark.parametrize("name", list(SWITCHES))
+def test_encoder_block_with_gates_matches_jax(rng, monkeypatch, name):
     """Injected per-sample drop-path gates (0 or 1/keep) for the attention
     and the MLP branch; forward and every gradient."""
     b, t, d = 3, 40, 32
@@ -279,8 +293,10 @@ def test_encoder_block_with_gates_matches_jax(rng, monkeypatch):
     monkeypatch.setattr(JEncoderBlock, "_drop_path_gate",
                         lambda self, x_: jnp.broadcast_to(jnp.asarray(next(calls))[:, None],
                                                           x_.shape[:-1]))
+    cfg = _vit_switches(tcfg.tiny_test_config().vit, name)
     blk = JEncoderBlock(dim=d, num_heads=2, mlp_ratio=4.0, qkv_bias=True,
-                        drop_path_rate=0.1, use_flash=False, fuse_ln_dense=False)
+                        drop_path_rate=0.1, use_flash=True, fused_ln=cfg.use_fused_layernorm,
+                        fuse_ln_dense=cfg.fuse_ln_dense, fused_mlp=cfg.use_fused_mlp)
     params = blk.init(jax.random.key(0), jnp.asarray(x), True)["params"]
     params = jax.tree_util.tree_map(
         lambda a: a + 0.05 * jax.random.normal(jax.random.key(1), a.shape), params)
@@ -296,7 +312,7 @@ def test_encoder_block_with_gates_matches_jax(rng, monkeypatch):
     port = EncoderBlock(d, 2, 4.0, True, torch.float32)
     port.load_state_dict(from_flax({"params": params}))
     xt = _t(x).requires_grad_(True)
-    y = port.forward_train(xt, tuple(_t(g) for g in gates), plain=False)
+    y = port.forward_unchained(xt, train_ops(False), "erf", cfg, tuple(_t(g) for g in gates))
     _close(y.detach().numpy(), want, 1e-5, "y")
     (y * _t(dy)).sum().backward()
     _close(xt.grad.numpy(), gx, 1e-4, "dx")
@@ -305,21 +321,23 @@ def test_encoder_block_with_gates_matches_jax(rng, monkeypatch):
         _close(named[k].grad.numpy(), v.numpy(), 1e-4, k)
 
 
-def _step_configs():
+def _step_configs(name):
     jc = jcfg.tiny_test_config()
-    kw = dict(vit=dataclasses.replace(jc.vit, drop_path_rate=0.0),
+    kw = dict(vit=dataclasses.replace(_vit_switches(jc.vit, name), drop_path_rate=0.0),
               augment=dataclasses.replace(jc.augment, dropout_prob=1.0))
     tc = tcfg.tiny_test_config()
     return (dataclasses.replace(jc, **kw),
-            dataclasses.replace(tc, vit=dataclasses.replace(tc.vit, drop_path_rate=0.0),
-                                augment=dataclasses.replace(tc.augment, dropout_prob=1.0)))
+            dataclasses.replace(
+                tc, vit=dataclasses.replace(_vit_switches(tc.vit, name), drop_path_rate=0.0),
+                augment=dataclasses.replace(tc.augment, dropout_prob=1.0)))
 
 
-def test_train_step_matches_jax(rng):
+@pytest.mark.parametrize("name", list(SWITCHES))
+def test_train_step_matches_jax(rng, name):
     """One step on tiny_test_config (drop-path 0, patch dropout always on):
     the loss terms, every gradient and the new BatchNorm statistics against
     the JAX step's math; the JAX step's own metrics and batch stats too."""
-    jc, tc = _step_configs()
+    jc, tc = _step_configs(name)
     g = jc.grid
     b, s, p, n_gt = 2, g.lidar_sweeps, 1500, jc.loss.max_gt_boxes
     pts, valid = _points(rng, b, s, p, g)

@@ -22,10 +22,20 @@ except the W8A8 configuration: there the JAX model takes the unfused
 ``int8_dense`` pair with the exact erf (``models/vit.py:211-218``), and the
 logits agree to 3e-4 relative to their scale, room for a few of the code
 flips above (this seed reads 5.5e-7: no code flips; a port that serves the
-f32 MLP instead, the fault this PR repairs, reads 2.2e-3). A training step
-raises under the switches whose backward is not ported.
+f32 MLP instead reads 2.2e-3).
+
+Training: the backwards of the MLP without LN and of the LN + dense (their
+autograd Functions on the CPU, so the plain backwards) against ``jax.grad``
+through the Pallas kernels in interpret mode, every gradient, f32, to 1e-4
+of each gradient's largest value (the A&S erf, and weight gradients summed
+over 300 rows in another order). The training forward reaches the entries
+each switch selects in the JAX model's training structure (its functions
+are counted), and the dense attention of ``use_flash_attention=False``
+matches the JAX ``reference_attention`` in bf16. A training step raises
+under ``serving_int8`` (inference only) and for the sigmoid GELU.
 """
 
+import collections
 import dataclasses
 import importlib
 
@@ -39,6 +49,7 @@ torch = pytest.importorskip("torch")
 
 from intentbev.bev.rasterize import decode_map_transport  # noqa: E402
 from intentbev.models import build_model  # noqa: E402
+from intentbev.ops.attention import reference_attention as jax_reference_attention  # noqa: E402
 from intentbev.ops import int8 as jint8  # noqa: E402
 from intentbev.ops import voxel_embed as jve  # noqa: E402
 from intentbev.ops.fused_ln_dense import fused_ln_dense as jax_fused_ln_dense  # noqa: E402
@@ -47,9 +58,12 @@ from intentbev.ops.patch_embed import patch_embed_matmul as jax_patch_embed  # n
 from intentbev_torch import configs as tcfg  # noqa: E402
 from intentbev_torch.bev.voxelize import voxelize_packed  # noqa: E402
 from intentbev_torch.models import IntentNetViT  # noqa: E402
-from intentbev_torch.ops import (fused_ln_dense, fused_mlp, fused_mlp_int8,  # noqa: E402
-                                 int8_dense, patch_embed, quantize_cols, quantize_linear,
-                                 quantize_rows)
+from intentbev_torch.models import vit as tvit  # noqa: E402
+from intentbev_torch.ops import (flash_attention_packed_plain, fused_ln_dense,  # noqa: E402
+                                 fused_ln_dense_fn, fused_mlp, fused_mlp_fn, fused_mlp_int8,
+                                 int8_dense, patch_embed,
+                                 quantize_cols, quantize_linear, quantize_rows,
+                                 reference_attention)
 from intentbev_torch.parallel import StreamingInferencer  # noqa: E402
 from intentbev_torch.synthetic import serving_batch  # noqa: E402
 from intentbev_torch.weights import from_flax  # noqa: E402
@@ -271,8 +285,156 @@ def test_from_flax_int8_codes_match_jax(variables_by_width):
                                               np.asarray(sj)[0])
 
 
-@pytest.mark.parametrize("switches", [dict(serving_int8=True), dict(fuse_ln_dense=True),
-                                      dict(use_fused_layernorm=False)])
+# -- training ------------------------------------------------------------------
+
+def _close(got, want, rel, name):
+    """max|got - want| <= rel * max|want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, f"{name}: {got.shape} vs {want.shape}"
+    err = np.abs(got - want).max()
+    assert err <= rel * np.abs(want).max(), f"{name}: max|d| {err} vs max|want| {np.abs(want).max()}"
+
+
+def _leaves(*arrays):
+    return [_t(a).requires_grad_(True) for a in arrays]
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_fused_mlp_backward_matches_jax_grad(rng, gated, monkeypatch):
+    """dh, dW1, db1, dW2, db2 and the residual's gradient (dy, ungated)."""
+    monkeypatch.setattr(jfm, "_GELU_MODE", "erf")
+    n, d, hid = 300, 128, 512
+    h, res, dy = (rng.normal(0, 1, (n, d)).astype(np.float32) for _ in range(3))
+    w1, b1, w2, b2 = _mlp_weights(rng, d, hid)
+    gate = ((rng.uniform(size=n) < 0.7) / 0.9).astype(np.float32) if gated else None
+
+    def loss(*args):
+        y = jfm.fused_mlp(*args, gate=None if gate is None else jnp.asarray(gate))
+        return jnp.sum(y * jnp.asarray(dy))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=tuple(range(6)))(*map(jnp.asarray, (h, w1, b1, w2, b2, res)))
+    leaves = _leaves(h, w1.T.copy(), b1, w2.T.copy(), b2, res)
+    y = fused_mlp_fn(*leaves, gate=None if gate is None else _t(gate))
+    (y * _t(dy)).sum().backward()
+    for name, leaf, w, transpose in zip(("dh", "dw1", "db1", "dw2", "db2", "dres"), leaves,
+                                        want, (0, 1, 0, 1, 0, 0)):
+        w = np.asarray(w)
+        _close(leaf.grad.numpy(), w.T if transpose else w, 1e-4, name)
+
+
+@pytest.mark.parametrize("gelu", [None, "erf"])
+@pytest.mark.parametrize("dout", [3 * 128, 192])  # qkv (3 D) and an adapter width
+def test_fused_ln_dense_backward_matches_jax_grad(rng, gelu, dout, monkeypatch):
+    """dx, dgamma, dbeta, dW and db over 300 rows (not a multiple of 64)."""
+    monkeypatch.setattr(jfm, "_GELU_MODE", "erf")
+    n, d = 300, 128
+    x = rng.normal(0.3, 1.5, (n, d)).astype(np.float32)
+    g = rng.normal(1, 0.2, d).astype(np.float32)
+    b = rng.normal(0, 0.2, d).astype(np.float32)
+    w = rng.normal(0, d ** -0.5, (d, dout)).astype(np.float32)  # JAX [in, out]
+    bias = rng.normal(0, 0.1, dout).astype(np.float32)
+    dy = rng.normal(0, 1, (n, dout)).astype(np.float32)
+
+    def loss(*args):
+        return jnp.sum(jax_fused_ln_dense(*args, gelu=gelu is not None) * jnp.asarray(dy))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=tuple(range(5)))(*map(jnp.asarray, (x, g, b, w, bias)))
+    leaves = _leaves(x, g, b, w.T.copy(), bias)
+    (fused_ln_dense_fn(*leaves, gelu_mode=gelu) * _t(dy)).sum().backward()
+    for name, leaf, want_g, transpose in zip(("dx", "dgamma", "dbeta", "dw", "db"), leaves,
+                                             want, (0, 0, 0, 1, 0)):
+        want_g = np.asarray(want_g)
+        _close(leaf.grad.numpy(), want_g.T if transpose else want_g, 1e-4, name)
+
+
+def test_reference_attention_matches_jax_in_bf16(rng):
+    """The dense attention of ``use_flash_attention=False`` against the JAX
+    one on the same bf16 inputs, masked keys included: both round at the same
+    points, so they could differ only where an f32 sum in another order tips a
+    value to the neighbouring bf16 (this seed reads 0). The limit, 2**-10 of
+    the largest output, is one that the flash path's plain version, which
+    rounds q * scale to bf16 first, reaches (3.9e-3 of 1.18 here)."""
+    b, t, h, dh, kv_len = 2, 37, 2, 16, 30
+    q, k, v = (rng.normal(0, 1, (b, h, t, dh)).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax_reference_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), kv_len=kv_len).astype(jnp.float32))
+
+    def packed(a):  # [B, H, T, D] -> [B, T, H*D] bf16
+        return _t(a.transpose(0, 2, 1, 3).reshape(b, t, h * dh)).bfloat16()
+
+    def unpacked(o):
+        return o.float().numpy().reshape(b, t, h, dh).transpose(0, 2, 1, 3)
+
+    got = reference_attention(packed(q), packed(k), packed(v), h, kv_len)
+    assert got.dtype == torch.bfloat16
+    limit = 2 ** -10 * np.abs(want).max()
+    assert np.abs(unpacked(got) - want).max() <= limit
+    flash, _ = flash_attention_packed_plain(packed(q), packed(k), packed(v), h, kv_len)
+    assert np.abs(unpacked(flash) - want).max() > limit
+
+
+def _train_config(switches):
+    return dataclasses.replace(_config(tcfg, {}, False), vit=dataclasses.replace(
+        _config(tcfg, {}, False).vit, **switches))
+
+
+# name: (switches on tiny_test_config, calls of the structure's entries in one
+# training forward of 2 streams x 2 blocks). tiny_test_config has
+# use_flash_attention=False; the JAX model's training structure under each.
+FLASH = dict(use_flash_attention=True)
+REACHED = {
+    "default": (FLASH, dict(layernorm_fn=8, flash_attention_fn=4, fused_ln_mlp_fn=4)),
+    "no_flash": ({}, dict(layernorm_fn=8, reference_attention=4, fused_ln_mlp_fn=4)),
+    "ln_dense": (dict(fuse_ln_dense=True, **FLASH),
+                 dict(fused_ln_dense_fn=6, flash_attention_fn=4, fused_ln_mlp_fn=4,
+                      layernorm_fn=2)),
+    "ln_dense_no_flash": (dict(fuse_ln_dense=True),
+                          dict(folded_layernorm=4, reference_attention=4, fused_ln_mlp_fn=4,
+                               fused_ln_dense_fn=2, layernorm_fn=2)),
+    "unfused_ln": (dict(use_fused_layernorm=False, **FLASH),
+                   dict(fast_layernorm=12, flash_attention_fn=4, fused_mlp_fn=4)),
+    "unfused_mlp": (dict(use_fused_mlp=False, **FLASH),
+                    dict(layernorm_fn=12, flash_attention_fn=4)),
+    "unfused_ln_mlp": (dict(use_fused_layernorm=False, use_fused_mlp=False, **FLASH),
+                       dict(fast_layernorm=12, flash_attention_fn=4)),
+}
+COUNTED = ("layernorm_fn", "fast_layernorm", "folded_layernorm", "flash_attention_fn",
+           "reference_attention", "fused_ln_mlp_fn", "fused_mlp_fn", "fused_ln_dense_fn")
+
+
+@pytest.mark.parametrize("name", list(REACHED))
+def test_training_forward_follows_the_switches(name, monkeypatch):
+    """Which of the model's entries a training forward reaches, counted; the
+    serving forward takes the dense attention where the flash path is off."""
+    switches, want = REACHED[name]
+    calls = collections.Counter()
+
+    def counted(key, fn):
+        def call(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for key in COUNTED:
+        monkeypatch.setattr(tvit, key, counted(key, getattr(tvit, key)), raising=False)
+    cfg = _train_config(switches)
+    model = IntentNetViT(cfg.vit, cfg.heads)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    g = cfg.grid
+    bev = torch.zeros(2, g.height_px, g.width_px, g.lidar_total_channels)
+    mp = torch.zeros(2, g.height_px, g.width_px, g.map_channels)
+    out = model.train()(bev, mp, torch.Generator().manual_seed(1))
+    assert dict(calls) == want
+    sum(o.sum() for o in out).backward()
+    calls.clear()
+    with torch.no_grad():
+        model.eval()(bev, mp)
+    assert calls["reference_attention"] == want.get("reference_attention", 0)
+
+
+@pytest.mark.parametrize("switches", [dict(serving_int8=True)])
 def test_training_raises_where_the_backward_is_not_ported(switches):
     cfg = _config(tcfg, switches, False)
     model = IntentNetViT(cfg.vit, cfg.heads).train()
@@ -280,3 +442,17 @@ def test_training_raises_where_the_backward_is_not_ported(switches):
     bev = torch.zeros(1, g.height_px, g.width_px, g.lidar_total_channels)
     with pytest.raises(NotImplementedError):
         model(bev, torch.zeros(1, g.height_px, g.width_px, g.map_channels))
+
+
+def test_training_takes_only_the_erf_gelu():
+    """The backwards pair the forward with the erf GELU's derivative."""
+    cfg = _config(tcfg, dict(fuse_ln_dense=True), False)
+    model = IntentNetViT(cfg.vit, cfg.heads, gelu="sigmoid").train()
+    g = cfg.grid
+    bev = torch.zeros(1, g.height_px, g.width_px, g.lidar_total_channels)
+    with pytest.raises(ValueError):
+        model(bev, torch.zeros(1, g.height_px, g.width_px, g.map_channels))
+    x = torch.zeros(3, 384)
+    with pytest.raises(ValueError):
+        fused_ln_dense_fn(x, torch.ones(384), torch.zeros(384), torch.zeros(64, 384),
+                          torch.zeros(64), gelu_mode="sigmoid")

@@ -4,6 +4,7 @@ PyTorch port, on one CUDA card.
     python3 tools/profile_torch_slice.py [--model vit|cnn] [--requests 4] [--out DIR]
     python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed}
     python3 tools/profile_torch_slice.py --train [--model vit|cnn] [--out DIR]
+    python3 tools/profile_torch_slice.py --train --vit-config {ln_dense,unfused_ln}
 
 Serving: drives ``intentbev_torch``'s ``StreamingInferencer``
 (``default_vit_config()`` at full width and depth, seeded random weights,
@@ -30,7 +31,9 @@ device runs behind the host).
 (``intentbev_torch.parallel.VIT_SERVING_VARIANTS``: W8A8 ``int8``, the
 ``bench.py --int8`` line, and ``patch_embed`` over the points transport,
 whose host stage is empty; ``ln_dense`` and ``unfused_ln`` over chunks), so
-that device time splits by the groups of its kernels.
+that device time splits by the groups of its kernels. With ``--train`` it
+profiles the training step under ``ln_dense`` or ``unfused_ln`` (the
+switches of those configurations; the step's points transport).
 
 ``--model cnn`` profiles IntentNetCNN (``default_cnn_config()``, random
 seeded weights with BatchNorm statistics from a synthetic batch,
@@ -48,8 +51,8 @@ the model reads it and on an NCHW-contiguous copy of it.
 It prints a summary and writes ``profile_slice.json`` (``profile_train.json``)
 and the Chrome trace ``trace.json`` under ``--out`` (by default
 directories ``profile_slice``, ``profile_train``, ``profile_cnn_slice`` or
-``profile_cnn_train`` side by side; ``profile_slice_<config>`` for
-``--vit-config``). It imports no JAX.
+``profile_cnn_train`` side by side; ``profile_slice_<config>`` or
+``profile_train_<config>`` for ``--vit-config``). It imports no JAX.
 """
 
 from __future__ import annotations
@@ -78,9 +81,11 @@ GROUPS = (
     ("fused_ln_mlp_kernel", "fused_ln_mlp (serving or train forward)"),
     ("fused_ln_dense_kernel", "fused_ln_dense"),
     ("patch_embed_kernel", "patch_embed"),
+    ("ln_mlp_bwd_rows_kernel<false>", "fused_mlp_bwd (row kernel)"),
     ("ln_mlp_bwd_rows", "fused_ln_mlp_bwd (row kernel)"),
-    ("gemm_at_b", "fused_ln_mlp_bwd (dW kernel)"),
-    ("sum_partials", "column partial sums (LN, LN+MLP backward)"),
+    ("ln_dense_bwd_rows", "fused_ln_dense_bwd (row kernel)"),
+    ("gemm_at_b", "dW kernel (LN+MLP, MLP, LN+dense backward)"),
+    ("sum_partials", "column partial sums (LN, LN+MLP, MLP, LN+dense backward)"),
     ("layernorm_kernel", "layernorm"),
     ("layernorm_train_kernel", "layernorm_train"),
     ("layernorm_bwd_kernel", "layernorm_bwd"),
@@ -251,11 +256,14 @@ def profile_train(args, card) -> None:
     from intentbev_torch.configs import default_cnn_config, default_vit_config
     from intentbev_torch.data.pipeline import chunk_batch_to_device
     from intentbev_torch.models import build_model, init_params
+    from intentbev_torch.parallel import vit_serving_variant
     from intentbev_torch.synthetic import calibrated_params, chunk_train_batch, train_batch
     from intentbev_torch.train import make_optimizer, make_train_step
 
     cnn = args.model == "cnn"
     cfg = default_cnn_config() if cnn else default_vit_config()
+    if args.vit_config != "default":  # the configuration's switches, not its transport
+        cfg, _ = vit_serving_variant(cfg, args.vit_config)
     model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.float32)
     model.load_state_dict(calibrated_params(cfg, 0, "cuda") if cnn else init_params(cfg, seed=0))
     model.to("cuda")
@@ -316,6 +324,7 @@ def profile_train(args, card) -> None:
     result = {
         "card": card,
         "model": args.model,
+        "vit_config": args.vit_config,
         "step_ms": step_ms,
         "peak_memory_gib": peak_gib,
         "profiled_step": {
@@ -355,11 +364,13 @@ def main() -> None:
     ap.add_argument("--model", choices=("vit", "cnn"), default="vit")
     ap.add_argument("--vit-config", choices=("default", "int8", "ln_dense", "unfused_ln",
                                              "patch_embed"), default="default",
-                    help="the ViT serving configuration (serving only)")
+                    help="the ViT configuration (training: ln_dense or unfused_ln)")
     ap.add_argument("--out", default="chiprun_out/profile_slice")
     args = ap.parse_args()
-    if args.vit_config != "default" and (args.train or args.model != "vit"):
-        ap.error("--vit-config profiles ViT serving")
+    if args.vit_config != "default" and args.model != "vit":
+        ap.error("--vit-config profiles the ViT")
+    if args.train and args.vit_config not in ("default", "ln_dense", "unfused_ln"):
+        ap.error("--train --vit-config takes ln_dense or unfused_ln")
     if args.out == ap.get_default("out"):
         suffix = "" if args.vit_config == "default" else f"_{args.vit_config}"
         args.out = str(Path(args.out).with_name("profile_" + "cnn_" * (args.model == "cnn")
