@@ -134,6 +134,8 @@ def main() -> None:
     from intentbev_torch.models import IntentNetCNN, IntentNetViT, init_params
     from intentbev_torch.ops import _build
     from intentbev_torch.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain,
         fused_ln_dense, fused_ln_dense_bwd, fused_ln_dense_bwd_plain, fused_ln_dense_plain,
         fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_int8, fused_mlp_int8_plain,
         fused_mlp_plain, fused_mlp_train, patch_embed, patch_embed_plain, quantize_linear,
@@ -144,6 +146,7 @@ def main() -> None:
         layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
         layernorm_train_plain, voxel_embed_tokens, voxel_embed_tokens_plain, voxel_fill_bev,
         voxel_fill_bev_plain)
+    from intentbev_torch.ops.flash_attention import flash_attention_packed_layout, heads_view
     from intentbev_torch.ops.fused_ln_mlp import gelu as gelu_fn
     from intentbev_torch.ops.int8 import int_matmul
     from intentbev_torch.ops.voxel_embed import chunks_to_device, decode_chunk_transport
@@ -238,7 +241,7 @@ def main() -> None:
         # the control's fault: the LN backward without its mean(dyg*xhat) term
         dyg = dy.float() * gamma
         dx = inv[..., None] * (dyg - dyg.mean(-1, keepdim=True))
-        dy2, xh2 = dy.float().reshape(-1, d), xhat.float().reshape(-1, d)
+        dy2, xh2 = (t.float().reshape(-1, dy.shape[-1]) for t in (dy, xhat))
         return dx.to(dy.dtype), (dy2 * xh2).sum(0), dy2.sum(0)
 
     def gelu_grad_skipped(module, fn):
@@ -530,6 +533,124 @@ def main() -> None:
             "weight read as w[dx, dy]", (rel_l2,), (1e-3,), 10, 2,
             nbytes(x_pe, w_pe, b_pe) + batch * v.num_patches * d * 2, pe_flops, lib_conv),
     }
+
+    # ViT-Ti (vit_tiny's widths, intentbev/import_torch.py:235: embed 192, 3
+    # heads of 64, MLP 768) at its main-path shapes: the BHTD attention on
+    # the views of the qkv projection output (its heads do not pair into 128
+    # lanes), and the D=192 instances of the row kernels, each case as the
+    # D=384 one of the same kernel (same faults, limits and work formulas).
+    # Attention also at head dim 32 on a small contiguous [2, 3, 1000, 32]
+    # input with keys past 950 masked (the scale 32**-0.5 rounds in bf16).
+    dt_, ht_ = d // 2, heads // 2
+    hid_t = int(dt_ * v.mlp_ratio)
+    qkv_t = randn((batch, tokens, 3 * dt_), 1.0)
+    qkv_v = [heads_view(qkv_t[..., i * dt_:(i + 1) * dt_], ht_) for i in range(3)]
+    o_t, lse_t = flash_attention_packed_layout(*(qkv_t[..., i * dt_:(i + 1) * dt_]
+                                                 for i in range(3)), ht_)
+    o_tv, do_tv = heads_view(o_t, ht_), heads_view(randn((batch, tokens, dt_), 1.0), ht_)
+    qh_t, kh_t, vh_t, doh_t = (t.contiguous().requires_grad_(t is not do_tv)
+                               for t in (*qkv_v, do_tv))
+    o_sdpa_t = F.scaled_dot_product_attention(qh_t, kh_t, vh_t)
+    q32, k32, v32, do32 = (randn((2, 3, 1000, 32), 1.0) for _ in range(4))
+    o32, lse32 = flash_attention_fwd_plain(q32, k32, v32, 950)
+    x_t, dy_t = randn((rows, dt_), 1.0), randn((rows, dt_), 1.0)
+    ln_t = [randn((dt_,), 0.2, torch.float32) + (1 - i % 2) for i in range(4)]
+    w1_t, b1_t = randn((hid_t, dt_), dt_ ** -0.5), randn((hid_t,), 0.1, torch.float32)
+    w2_t, b2_t = randn((dt_, hid_t), hid_t ** -0.5), randn((dt_,), 0.1, torch.float32)
+    mlp_t = (x_t, ln_t[0], ln_t[1], w1_t, b1_t, w2_t, b2_t, ln_t[2], ln_t[3])
+    train_t = (x_t.view(batch, tokens, dt_), ln_t[0], ln_t[1], w1_t, b1_t, w2_t)
+    _, xhat_t, inv_t = layernorm_train_plain(x_t, ln_t[0], ln_t[1])
+    w_pe_t, b_pe_t = randn(w_pe.shape[:3] + (dt_,), 0.02), randn((dt_,), 0.02, torch.float32)
+    gl_t, bl_t = (p.to(torch.bfloat16).requires_grad_(True) for p in (ln_t[0], ln_t[1]))
+    xl_t = x_t.detach().clone().requires_grad_(True)
+    y_ln_t = F.layer_norm(xl_t, (dt_,), gl_t, bl_t, 1e-6)
+    flash_flops_t = 4 * batch * tokens * tokens * dt_
+    mlp_flops_t = 4 * rows * dt_ * hid_t
+
+    def bhtd_attn_plain_ctl(*a):
+        # the control's fault: delta = rowsum(dO*O) left out (O = 0)
+        return flash_attention_bwd_plain(a[0], a[1], a[2], torch.zeros_like(a[3]), *a[4:])
+
+    cases.update({
+        "flash_attention": (
+            lambda: flash_attention_fwd(*qkv_v, out=o_tv),
+            lambda: flash_attention_fwd_plain(*qkv_v),
+            lambda: flash_attention_fwd_plain(*qkv_v, tile_len),
+            "keys of the last partial tile masked", (rel_l2, max_abs), (1e-2, 1e-3), 10, 3,
+            nbytes(qkv_t, o_t, lse_t), flash_flops_t,
+            torch.no_grad()(lambda: F.scaled_dot_product_attention(qh_t, kh_t, vh_t))),
+        "flash_attention_bwd": (
+            lambda: flash_attention_bwd(*qkv_v, o_tv, lse_t, do_tv),
+            lambda: flash_attention_bwd_plain(*qkv_v, o_tv, lse_t, do_tv),
+            lambda: bhtd_attn_plain_ctl(*qkv_v, o_tv, lse_t, do_tv),
+            "delta = rowsum(dO*O) left out", (rel_l2,) * 3, (1e-2,) * 3, 5, 2,
+            nbytes(qkv_t, o_t, o_t, lse_t) + nbytes(qkv_t), 5 * flash_flops_t // 2,
+            lambda: torch.autograd.grad(o_sdpa_t, (qh_t, kh_t, vh_t), doh_t,
+                                        retain_graph=True)),
+        "flash_attention[D=32]": (
+            lambda: flash_attention_fwd(q32, k32, v32, 950),
+            lambda: flash_attention_fwd_plain(q32, k32, v32, 950),
+            lambda: flash_attention_fwd_plain(q32, k32, v32, 1000),
+            "keys past seq_len not masked", (rel_l2, max_abs), (1e-2, 1e-3), 20, 3,
+            nbytes(q32, k32, v32, o32, lse32), 4 * 2 * 3 * 1000 * 950 * 32, None),
+        "flash_attention_bwd[D=32]": (
+            lambda: flash_attention_bwd(q32, k32, v32, o32, lse32, do32, 950),
+            lambda: flash_attention_bwd_plain(q32, k32, v32, o32, lse32, do32, 950),
+            lambda: bhtd_attn_plain_ctl(q32, k32, v32, o32, lse32, do32, 950),
+            "delta = rowsum(dO*O) left out", (rel_l2,) * 3, (1e-2,) * 3, 20, 3,
+            nbytes(q32, k32, v32, o32, do32, lse32) + 3 * nbytes(q32),
+            10 * 2 * 3 * 1000 * 950 * 32, None),
+        "voxel_embed[D=192]": (
+            lambda: voxel_embed_tokens(chunks, w_pe_t, b_pe_t, v.patch_size, hw),
+            lambda: voxel_embed_tokens_plain(chunks, w_pe_t, b_pe_t, v.patch_size, hw),
+            lambda: voxel_embed_tokens_plain(
+                chunks._replace(count=(chunks.count - 1).clamp(min=0)),
+                w_pe_t, b_pe_t, v.patch_size, hw),
+            "last chunk of each band skipped", (rel_l2,), (3e-3,), 10, 3,
+            nbytes(*chunks, w_pe_t, b_pe_t) + batch * v.num_patches * dt_ * 2,
+            2 * cells * dt_, None),
+        "fused_ln_mlp[D=192]": (
+            lambda: fused_ln_mlp(*mlp_t, gelu_mode="sigmoid"),
+            lambda: fused_ln_mlp_plain(*mlp_t, gelu_mode="sigmoid"),
+            lambda: fused_ln_mlp_plain(*mlp_t, gelu_mode="erf"),
+            "erf GELU", (rel_l2, rel_l2), (1e-3, 1e-3), 10, 3,
+            nbytes(x_t, w1_t, b1_t, w2_t, b2_t, *ln_t) + 2 * nbytes(x_t), mlp_flops_t, None),
+        "layernorm[D=192]": (
+            lambda: layernorm(x_t, ln_t[0], ln_t[1]),
+            lambda: layernorm_plain(x_t, ln_t[0], ln_t[1]),
+            lambda: layernorm_unbiased(x_t, ln_t[0], ln_t[1]),
+            "variance over N-1", (rel_l2,), (3e-4,), 20, 5,
+            2 * nbytes(x_t) + nbytes(ln_t[0], ln_t[1]), 0,
+            torch.no_grad()(lambda: F.layer_norm(x_t, (dt_,), gl_t, bl_t, 1e-6))),
+        "layernorm_train[D=192]": (
+            lambda: layernorm_train(x_t, ln_t[0], ln_t[1]),
+            lambda: layernorm_train_plain(x_t, ln_t[0], ln_t[1]),
+            lambda: layernorm_unbiased(x_t, ln_t[0], ln_t[1], train=True),
+            "variance over N-1", (rel_l2,) * 3, (3e-4, 3e-4, 1e-5), 20, 5,
+            3 * nbytes(x_t) + nbytes(inv_t, ln_t[0], ln_t[1]), 0,
+            torch.no_grad()(lambda: F.layer_norm(x_t, (dt_,), gl_t, bl_t, 1e-6))),
+        "layernorm_bwd[D=192]": (
+            lambda: layernorm_bwd(dy_t, xhat_t, inv_t, ln_t[0]),
+            lambda: layernorm_bwd_plain(dy_t, xhat_t, inv_t, ln_t[0]),
+            lambda: layernorm_bwd_no_m2(dy_t, xhat_t, inv_t, ln_t[0]),
+            "no mean(dyg*xhat) term", (rel_l2,) * 3, (1e-3,) * 3, 20, 5,
+            3 * nbytes(x_t) + nbytes(inv_t, ln_t[0]) + 2 * dt_ * 4, 0,
+            lambda: torch.autograd.grad(y_ln_t, (xl_t, gl_t, bl_t), dy_t, retain_graph=True)),
+        "fused_ln_mlp_train[D=192]": (
+            lambda: fused_ln_mlp_train(*train_t, b2_t, gate),
+            lambda: fused_ln_mlp_train_plain(*train_t, b2_t, gate),
+            lambda: fused_ln_mlp_train_plain(*train_t, b2_t),
+            "gate ignored", (rel_l2,), (1e-3,), 10, 3,
+            nbytes(x_t, w1_t, b1_t, w2_t, b2_t, ln_t[0], ln_t[1], gate) + nbytes(x_t),
+            mlp_flops_t, None),
+        "fused_ln_mlp_bwd[D=192]": (
+            lambda: fused_ln_mlp_bwd(*train_t, gate, dy_t.view(batch, tokens, dt_)),
+            lambda: fused_ln_mlp_bwd_plain(*train_t, gate, dy_t.view(batch, tokens, dt_)),
+            lambda: fused_ln_mlp_bwd_plain(*train_t, None, dy_t.view(batch, tokens, dt_)),
+            "gate ignored", (rel_l2,) * 7, (2e-3,) * 7, 5, 2,
+            3 * nbytes(x_t) + nbytes(w1_t, b1_t, w2_t, ln_t[0], ln_t[1], gate)
+            + 4 * (3 * dt_ + hid_t + 2 * dt_ * hid_t), 5 * mlp_flops_t // 2, None),
+    })
     record = {}
     for name, (kern, plain, control, fault, metrics, limits, it_k, it_p, n_bytes, flops,
                library) in cases.items():
@@ -555,6 +676,8 @@ def main() -> None:
     del chunks, x, qkv, q, k, vv, o, lse, do, dy, x3, dy3, xhat, inv, gate, train_mlp
     del qh, kh, vh, doh, o_sdpa, xl, gl, bl, y_ln, mlp_args, x8, int8_args, x_ad
     del x_pe, w_conv, gate_r, dy_qkv, dy_ad
+    del qkv_t, qkv_v, o_t, lse_t, o_tv, do_tv, qh_t, kh_t, vh_t, doh_t, o_sdpa_t, x_t, dy_t
+    del mlp_t, train_t, xhat_t, inv_t, xl_t, y_ln_t, q32, k32, v32, do32, o32, lse32, cases
     torch.cuda.empty_cache()
 
     # 4. the slice
@@ -1059,7 +1182,110 @@ def main() -> None:
         torch.cuda.empty_cache()
     train_b, train_c = config_train_counts.values()
 
+    # 10. ViT-Ti: the widths vit_config_from_state_dict reads for a timm
+    # vit_tiny checkpoint (intentbev/import_torch.py:235), at full depth on
+    # the flagship grid
+    tcfg = dataclasses.replace(cfg, vit=dataclasses.replace(v, embed_dim=dt_, num_heads=ht_))
+    tparams = init_params(tcfg, seed=0)
+    tinf = StreamingInferencer(tcfg, tparams, "cuda", transport="chunks", gelu="sigmoid")
+    tinf(*requests[0])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tdets = [tinf(*r) for r in requests]
+    elapsed = time.perf_counter() - t0
+    tiny_serve_counts = dict(_build.launches)
+    per_req_t = {"voxel_embed": 1, "layernorm": 4, "fused_ln_mlp": 2 * v.depth,
+                 "flash_attention": 2 * v.depth}
+    want_counts = {k_: per_req_t.get(k_, 0) * len(requests) for k_ in tiny_serve_counts}
+    check(tiny_serve_counts == want_counts,
+          f"ViT-Ti serving launch counts {tiny_serve_counts} != {want_counts}")
+    host_chunks = tinf.build_chunks(*requests[0][:2])
+    got = tinf.logits(host_chunks, requests[0][2])
+    want = StreamingInferencer(tcfg, tparams, "cuda", transport="chunks", gelu="sigmoid",
+                               plain_ops=True).logits(host_chunks, requests[0][2])
+    ctrl = StreamingInferencer(tcfg, tparams, "cuda", transport="chunks", gelu="erf",
+                               plain_ops=True).logits(host_chunks, requests[0][2])
+    for name, a, wdt in zip(("cls", "box", "intent"), got, widths):
+        check(tuple(a.shape) == (batch, n_anchor, wdt),
+              f"ViT-Ti {name} logits shape {tuple(a.shape)}")
+    sound, ctrl_r = compare("ViT-Ti logits", got, want, ctrl, (rel_l2,) * 3, slice_limit,
+                            "erf GELU in the blocks")
+    for det in tdets:
+        check(det.boxes_xywha.shape == (batch, ev.max_detections, 5), "ViT-Ti boxes shape")
+        check(det.scores.shape == det.valid.shape == (batch, ev.max_detections),
+              "ViT-Ti scores shape")
+        check(np.isfinite(det.boxes_xywha).all() and np.isfinite(det.scores).all(),
+              "non-finite ViT-Ti detections")
+    fmt3 = ", ".join
+    print(f"vit-ti serving: launches per request {per_req_t}; logits kernel vs plain, relative "
+          f"L2 (cls, box, intent) [{fmt3(f'{r:.3e}' for r in sound)}] under "
+          f"{slice_limit[0]:g}; control (plain, erf GELU in the blocks) "
+          f"[{fmt3(f'{r:.3e}' for r in ctrl_r)}] caught; valid per frame "
+          f"{tdets[0].valid.sum(1).tolist()}; {len(requests) * batch / elapsed:.2f} frames/s "
+          f"over {len(requests)} requests of {batch} [{card}]", flush=True)
+    del tinf, tdets, got, want, ctrl, host_chunks
+    torch.cuda.empty_cache()
+
+    tnet = IntentNetViT(tcfg.vit, tcfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32)
+    tnet.load_state_dict(tparams)
+    tnet.to(dev)
+    m_k, g_k = loss_and_grads(False, tnet, tcfg)
+    check(all(np.isfinite(val) for val in m_k.values()), f"ViT-Ti: non-finite metrics {m_k}")
+    check(all(bool(torch.isfinite(t).all()) for t in g_k.values()), "ViT-Ti: non-finite gradient")
+    m_p, g_p = loss_and_grads(True, tnet, tcfg)
+    g_c = faulty_plain("fused_ln_mlp", "fused_ln_mlp_bwd_plain",
+                       lambda f: lambda x_, ga, be, w1_, b1_, w2_, gate_, dy_, eps:
+                       f(x_, ga, be, w1_, b1_, w2_, None, dy_, eps), tnet, tcfg)
+    tnet.plain_ops = False
+    sound_g, ctrl_g = grad_readings(g_k, g_p), grad_readings(g_c, g_p)
+    loss_rel = abs(m_k["loss"] - m_p["loss"]) / abs(m_p["loss"])
+    said = (f"sound {sound_g[:2]} (worst {sound_g[2]}), control {ctrl_g[:2]} "
+            f"(worst {ctrl_g[2]}), limits {grad_limit}, {worst_limit}")
+    check(sound_g[0] < grad_limit and sound_g[1] < worst_limit and loss_rel < loss_limit,
+          f"ViT-Ti train step: kernel vs plain reaches a limit: {said}; loss {m_k} vs {m_p}")
+    check(ctrl_g[0] >= grad_limit or ctrl_g[1] >= worst_limit,
+          f"ViT-Ti train step: the control stays under the limits: {said}")
+    print(f"vit-ti train: step kernel vs plain, loss {m_k['loss']:.6f} vs {m_p['loss']:.6f} "
+          f"(rel {loss_rel:.3e} < {loss_limit:g}); gradients relative L2 all {sound_g[0]:.3e} "
+          f"< {grad_limit:g}, worst {sound_g[1]:.3e} ({sound_g[2]}) < {worst_limit:g}; control "
+          f"(plain, LN+MLP backward ignores the gate) all {ctrl_g[0]:.3e}, worst "
+          f"{ctrl_g[1]:.3e} ({ctrl_g[2]}) caught", flush=True)
+    del g_k, g_p, g_c
+    tstep = make_train_step(tnet, tcfg, anchors, make_optimizer(tnet.parameters(), tcfg))
+    tgen = torch.Generator(device="cuda").manual_seed(2)
+    tstep(tbatch, tgen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    step_ms, metrics = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics.append(tstep(tbatch, tgen))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    tiny_train_counts = dict(_build.launches)
+    per_step_t = {"flash_attention": 2 * v.depth, "flash_attention_bwd": 2 * v.depth,
+                  "fused_ln_mlp_train": 2 * v.depth, "fused_ln_mlp_bwd": 2 * v.depth,
+                  "layernorm_train": 2 * (v.depth + 2), "layernorm_bwd": 2 * (v.depth + 2)}
+    want_counts = {k_: per_step_t.get(k_, 0) * len(step_ms) for k_ in tiny_train_counts}
+    check(tiny_train_counts == want_counts,
+          f"ViT-Ti train launch counts {tiny_train_counts} != {want_counts}")
+    for m in metrics:
+        check(all(bool(torch.isfinite(t)) for t in m.values()), f"ViT-Ti: non-finite metrics {m}")
+    check(all(bool(torch.isfinite(p_.grad).all()) for p_ in tnet.parameters()),
+          "ViT-Ti: non-finite gradient")
+    ms_step = sum(step_ms) / len(step_ms)
+    print(f"vit-ti train: launches per step {per_step_t}; losses "
+          f"{[round(float(m['loss']), 6) for m in metrics]}; step ms "
+          f"{[round(t, 2) for t in step_ms]}; {ms_step:.2f} ms/step, "
+          f"{batch / ms_step * 1e3:.2f} samples/s at batch {batch}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    del tnet, tstep, metrics
+    torch.cuda.empty_cache()
+
     serving_runs = (serve_counts, *config_counts.values())
+    tiny_runs = (tiny_serve_counts, tiny_train_counts)
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
@@ -1092,12 +1318,32 @@ def main() -> None:
             ("fused_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:148",
              (train_c,)),
             ("fused_ln_dense_bwd", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:94",
-             (train_b,))):
+             (train_b,)),
+            # row 16, on the ViT-Ti path only
+            ("flash_attention", "flash_packed.cu", "intentbev/ops/flash_attention.py:66",
+             tiny_runs),
+            ("flash_attention_bwd", "flash_packed.cu",
+             "intentbev/ops/flash_attention.py:128 (dq), :152 (dk/dv)", tiny_runs),
+            # the D=192 instances the ViT-Ti path runs
+            ("voxel_embed[D=192]", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417",
+             tiny_runs),
+            ("fused_ln_mlp[D=192]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:116",
+             tiny_runs),
+            ("layernorm[D=192]", "layernorm.cu", "intentbev/ops/layernorm.py:39", tiny_runs),
+            ("fused_ln_mlp_train[D=192]", "fused_ln_mlp.cu",
+             "intentbev/ops/fused_ln_mlp.py:135", tiny_runs),
+            ("fused_ln_mlp_bwd[D=192]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
+             tiny_runs),
+            ("layernorm_train[D=192]", "layernorm.cu", "intentbev/ops/layernorm.py:53",
+             tiny_runs),
+            ("layernorm_bwd[D=192]", "layernorm.cu", "intentbev/ops/layernorm.py:66",
+             tiny_runs)):
         r = record[name]
+        counter = name.split("[")[0]
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
-                        "replaces": replaces, "launches": sum(c[name] for c in runs),
+                        "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 17 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 26 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

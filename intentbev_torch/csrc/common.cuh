@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
@@ -219,21 +221,33 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[2], const bf16* s, int l
   b[1] = *reinterpret_cast<uint32_t*>(&v1);
 }
 
-// Row LayerNorm of 384 f32 values spread as 12 per lane of one warp
-// (lane holds columns 2*lane + 64*i + {0, 1}, i < 6): two-pass f32
-// statistics, as the JAX kernels compute them (mean, then mean of the
-// squared deviations).
-__device__ __forceinline__ void warp_ln_stats(const float (&v)[12], float eps,
+// Row LayerNorm of D = 32 * N f32 values spread as N per lane of one warp
+// (lane holds columns 2*lane + 64*i + {0, 1}, i < N / 2; N = 12 at D = 384,
+// 6 at D = 192): two-pass f32 statistics, as the JAX kernels compute them
+// (mean, then mean of the squared deviations).
+template <int N>
+__device__ __forceinline__ void warp_ln_stats(const float (&v)[N], float eps,
                                               float& mean, float& inv) {
+  constexpr float inv_d = 1.f / (32 * N);
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 12; ++i) s += v[i];
-  mean = warp_sum(s) * (1.f / 384.f);
+  for (int i = 0; i < N; ++i) s += v[i];
+  mean = warp_sum(s) * inv_d;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
+  for (int i = 0; i < N; ++i) {
     const float c = v[i] - mean;
     q += c * c;
   }
-  inv = rsqrtf(warp_sum(q) * (1.f / 384.f) + eps);
+  inv = rsqrtf(warp_sum(q) * inv_d + eps);
+}
+
+// Model widths the row kernels are instantiated for (ViT-S 384, ViT-Ti 192):
+// calls launch(std::integral_constant<int, D>{}) for d == D, and refuses any
+// other width.
+template <typename F>
+static inline int by_width(int d, F&& launch) {
+  if (d == 384) return launch(std::integral_constant<int, 384>{});
+  if (d == 192) return launch(std::integral_constant<int, 192>{});
+  return (int)cudaErrorInvalidValue;
 }

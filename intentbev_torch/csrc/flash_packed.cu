@@ -1,42 +1,61 @@
-// Attention forward over the packed [B, T, H*64] layout, with lse.
+// Attention with lse, forward and backward, over strided [B, H, T, D] views:
+// the packed [B, T, H*64] layout of the ViT's qkv projection (heads that pair
+// into 128 lanes) and the BHTD layout (any other head layout).
 //
-// Replaces: intentbev/ops/flash_packed.py::_fwd_kernel_chunked (online
-// softmax over KV tiles, the serving configuration) and ::_fwd_kernel (the
-// whole key row at once). Both compute the same function; this kernel uses
-// the running-max (safe) softmax, which equals the TPU's fixed-max variant
-// wherever that one is exact (|s| < 88).
+// Forward. Replaces: intentbev/ops/flash_packed.py::_fwd_kernel_chunked
+// (online softmax over KV tiles, the serving configuration) and ::_fwd_kernel
+// (the whole key row at once), and intentbev/ops/flash_attention.py::
+// _fwd_kernel (the BHTD kernel, a whole key row per 512-query block). All
+// compute the same function; this kernel uses the running-max (safe)
+// softmax, which equals the TPU's fixed-max variant wherever that one is
+// exact (|s| < 88).
 // Bound on the H100: tensor-core throughput and the exp work of the softmax.
 // At B=8, T=4501, 6 heads of 64 a call is 4*B*T*T*384 = 249 GFLOP and
-// 8*6*4501^2 = 972 M exponentials against ~100 MB of q/k/v/o.
+// 8*6*4501^2 = 972 M exponentials against ~100 MB of q/k/v/o; at 3 heads of
+// 64 (ViT-Ti) half of each.
 // Design: one 128-thread block per (64-query tile, head, batch); each warp
-// owns 16 query rows. q is read once, scaled in bf16 (as the JAX kernel
-// does) and kept as mma.sync A fragments in registers. The block walks
-// 64-key tiles of K and V staged in shared memory (V transposed so that
-// the PV product reads it as [d][key]); S = q K^T and O += P V run on
-// mma.sync with f32 accumulation, the running max and row sums stay in
-// registers, and P is rounded to bf16 before PV like the JAX kernel.
-// Keys at or past seq_len get a score of -inf inside the kernel, so the
-// caller pads nothing. q, k and v are read through strides, so they can be
-// column slices of the qkv projection's output with no split copies.
+// owns 16 query rows. q is read once, scaled in bf16 (as the JAX kernels
+// do: the scale itself is the bf16-rounded 1/sqrt(D)) and kept as mma.sync
+// A fragments in registers. The block walks 64-key tiles of K and V staged
+// in shared memory (V transposed so that the PV product reads it as
+// [d][key]); S = q K^T and O += P V run on mma.sync with f32 accumulation,
+// the running max and row sums stay in registers, and P is rounded to bf16
+// before PV like the JAX kernels. Keys at or past seq_len get a score of
+// -inf inside the kernel, so the caller pads nothing. Every tensor is read
+// and written through its own batch, head and row strides (unit stride
+// along D), so q, k and v can be column slices of the qkv projection's
+// output and o can be written in either layout, with no copies. The TPU's
+// BHTD kernel keeps a whole [512, T_pad] score panel in VMEM, which has no
+// counterpart in a block's 227 KB: here it is the same online softmax as
+// the packed kernel. The head dim is a template parameter (32 or 64).
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr int HD = 64;   // head dim
-constexpr int LDS = HD + 8;
+constexpr int BQ = 64;       // query rows per block
+constexpr int BK = 64;       // keys per tile
+constexpr int LDR = 64 + 8;  // [d][row] tiles: 64 rows (keys or queries)
 
+// Element strides of a [B, H, T, D] view whose D stride is 1.
+struct Strides {
+  long long b, h, t;
+};
+
+__device__ __forceinline__ long long at(const Strides& s, int b, int h, int r) {
+  return (long long)b * s.b + (long long)h * s.h + (long long)r * s.t;
+}
+
+template <int HD>
 __global__ void __launch_bounds__(128)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int T, int seq_len, int H,
-                     long long row_stride, long long batch_stride, float scale) {
-  __shared__ __align__(16) bf16 qs[BQ * LDS];
-  __shared__ __align__(16) bf16 ks[BK * LDS];
-  __shared__ __align__(16) bf16 vt[HD * LDS];  // [d][key]
+                     const bf16* __restrict__ v, Strides in, bf16* __restrict__ o, Strides os,
+                     float* __restrict__ lse, int T, int seq_len, int H, float scale) {
+  constexpr int LDQ = HD + 8;  // [row][d] tiles
+  __shared__ __align__(16) bf16 qs[BQ * LDQ];
+  __shared__ __align__(16) bf16 ks[BK * LDQ];
+  __shared__ __align__(16) bf16 vt[HD * LDR];  // [d][key]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -44,14 +63,14 @@ __global__ void __launch_bounds__(128)
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t base = (size_t)b * batch_stride + (size_t)h * HD;
+  const long long base = at(in, b, h, 0);
 
   // q tile, scaled in bf16
   for (int i = tid; i < BQ * HD / 8; i += 128) {
     const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (q0 + r < T)
-      raw = *reinterpret_cast<const uint4*>(q + base + (size_t)(q0 + r) * row_stride + c8);
+      raw = *reinterpret_cast<const uint4*>(q + base + (long long)(q0 + r) * in.t + c8);
     const bf16* e = reinterpret_cast<const bf16*>(&raw);
     uint4 outv;
     uint32_t* ow = reinterpret_cast<uint32_t*>(&outv);
@@ -59,17 +78,17 @@ __global__ void __launch_bounds__(128)
     for (int j = 0; j < 4; ++j)
       ow[j] = pack_bf16x2(__bfloat162float(e[2 * j]) * scale,
                           __bfloat162float(e[2 * j + 1]) * scale);
-    *reinterpret_cast<uint4*>(qs + r * LDS + c8) = outv;
+    *reinterpret_cast<uint4*>(qs + r * LDQ + c8) = outv;
   }
   __syncthreads();
   const int wr = warp * 16;
-  uint32_t qa[4][4];
+  uint32_t qa[HD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) load_a(qa[kk], qs, LDS, wr, kk * 16, lane);
+  for (int kk = 0; kk < HD / 16; ++kk) load_a(qa[kk], qs, LDQ, wr, kk * 16, lane);
 
-  float oacc[8][4];
+  float oacc[HD / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g+8
@@ -83,32 +102,32 @@ __global__ void __launch_bounds__(128)
       const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
       uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
       if (kv0 + r < T) {
-        const size_t off = base + (size_t)(kv0 + r) * row_stride + c8;
+        const long long off = base + (long long)(kv0 + r) * in.t + c8;
         kr = *reinterpret_cast<const uint4*>(k + off);
         vr = *reinterpret_cast<const uint4*>(v + off);
       }
-      *reinterpret_cast<uint4*>(ks + r * LDS + c8) = kr;
+      *reinterpret_cast<uint4*>(ks + r * LDQ + c8) = kr;
       const bf16* ve = reinterpret_cast<const bf16*>(&vr);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(c8 + e) * LDS + r] = ve[e];
+      for (int e = 0; e < 8; ++e) vt[(c8 + e) * LDR + r] = ve[e];
     }
     __syncthreads();
 
-    float s[8][4];
+    float s[BK / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t bfr[2];
-        load_b(bfr, ks, LDS, n * 8, kk * 16, lane);
+        load_b(bfr, ks, LDQ, n * 8, kk * 16, lane);
         mma_16816(s[n], qa[kk], bfr);
       }
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < BK / 8; ++n) {
       const int key = kv0 + n * 8 + 2 * t4;
       if (key >= seq_len) { s[n][0] = -INFINITY; s[n][2] = -INFINITY; }
       if (key + 1 >= seq_len) { s[n][1] = -INFINITY; s[n][3] = -INFINITY; }
@@ -128,11 +147,14 @@ __global__ void __launch_bounds__(128)
     l0 *= c0;
     l1 *= c1;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < HD / 8; ++n) {
       oacc[n][0] *= c0;
       oacc[n][1] *= c0;
       oacc[n][2] *= c1;
       oacc[n][3] *= c1;
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
       s[n][0] = expf(s[n][0] - mn0);
       s[n][1] = expf(s[n][1] - mn0);
       s[n][2] = expf(s[n][2] - mn1);
@@ -141,16 +163,16 @@ __global__ void __launch_bounds__(128)
       l1 += s[n][2] + s[n][3];
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t pa[4];
       pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
       pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
       pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < HD / 8; ++n) {
         uint32_t bfr[2];
-        load_b(bfr, vt, LDS, n * 8, kk * 16, lane);
+        load_b(bfr, vt, LDR, n * 8, kk * 16, lane);
         mma_16816(oacc[n], pa, bfr);
       }
     }
@@ -162,16 +184,15 @@ __global__ void __launch_bounds__(128)
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
   const int r0 = q0 + wr + g, r1 = r0 + 8;
-  const int dm = H * HD;
   const float i0 = 1.f / l0, i1 = 1.f / l1;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = h * HD + n * 8 + 2 * t4;
+  for (int n = 0; n < HD / 8; ++n) {
+    const int c = n * 8 + 2 * t4;
     if (r0 < T)
-      *reinterpret_cast<uint32_t*>(o + ((size_t)b * T + r0) * dm + c) =
+      *reinterpret_cast<uint32_t*>(o + at(os, b, h, r0) + c) =
           pack_bf16x2(oacc[n][0] * i0, oacc[n][1] * i0);
     if (r1 < T)
-      *reinterpret_cast<uint32_t*>(o + ((size_t)b * T + r1) * dm + c) =
+      *reinterpret_cast<uint32_t*>(o + at(os, b, h, r1) + c) =
           pack_bf16x2(oacc[n][2] * i1, oacc[n][3] * i1);
   }
   if (t4 == 0) {
@@ -181,18 +202,26 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// Backward. Replaces intentbev/ops/flash_packed.py::_bwd_fused_kernel:
+// Backward. Replaces intentbev/ops/flash_packed.py::_bwd_fused_kernel and
+// intentbev/ops/flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel:
 //   p = exp(qh k^T - lse),  t = p * (dO v^T - delta),  delta = rowsum(dO * O)
-//   dv = p^T dO,  dk = t^T qh,  dq = scale * t k
-// with the JAX kernel's rounding points: qh = q * scale rounded to bf16,
+//   dv = p^T dO,  dk = t^T qh,  dq = scale * bf16(t k)
+// with the JAX kernels' rounding points: qh = q * scale rounded to bf16,
 // p recomputed in f32 from lse, and p and t rounded to bf16 before the
-// products (dk is taken against the scaled qh, so it needs no scale).
-// Bound on the H100: tensor-core throughput, 5 products of 2*B*H*T*T*64 =
-// 622 GFLOP at B=8, T=4501, 6 heads (this design recomputes the scores in
-// both passes: 7 products).
-// Design: the TPU kernel keeps dk/dv resident in VMEM across a sequential
-// query-block grid; blocks on the H100 run in parallel and in no order, so
-// the work is split into two deterministic passes, as in FlashAttention-2:
+// products (dk is taken against the scaled qh, so it needs no scale). dq is
+// rounded to bf16 before the bf16 scale multiplies it, as the BHTD path's
+// autodiff of the q scaling does; the packed kernel scales in f32 first,
+// which gives the same bf16 value where the scale is a power of two (head
+// dim 64, the only one the packed layout takes).
+// Bound on the H100: tensor-core throughput, 5 products of 2*B*H*T*T*D =
+// 622 GFLOP at B=8, T=4501, 6 heads of 64; 311 GFLOP at 3 heads (this
+// design recomputes the scores in both passes: 7 products).
+// Design: the TPU kernels keep dk/dv resident in VMEM across a sequential
+// query-block grid (packed) or hold a whole [T_pad, D] panel of q and dO
+// beside a [256, T_pad] score tile (BHTD); blocks on the H100 run in
+// parallel and in no order, with 227 KB of shared memory, so the work is
+// split into two deterministic passes over 64-row tiles, as in
+// FlashAttention-2, with no atomics:
 //  - dkdv: one 128-thread block per (64-key tile, head, batch); each warp
 //    owns 16 keys, holds k and v as mma.sync A fragments and walks every
 //    64-query tile (qh and dO staged in shared memory in both layouts),
@@ -202,11 +231,13 @@ __global__ void __launch_bounds__(128)
 //    qh and dO rows as A fragments and walks the key tiles below seq_len,
 //    accumulating dq in registers.
 // S^T and P^T stay in registers and feed the next product as A fragments
-// (the register reuse of the forward). dq, dk and dv are written straight
-// into one [B, T, 3*H*64] gradient of the qkv projection.
+// (the register reuse of the forward). dq, dk and dv are written through
+// their strides: into one [B, T, 3*H*64] gradient of the qkv projection
+// (packed) or into any [B, H, T, D] views.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&c)[8][4],
+template <int N>
+__device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&c)[N][4],
                                               int kk) {
   a[0] = pack_bf16x2(c[2 * kk][0], c[2 * kk][1]);
   a[1] = pack_bf16x2(c[2 * kk][2], c[2 * kk][3]);
@@ -214,16 +245,18 @@ __device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&c)
   a[3] = pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
-// Stage a 64 x 64 tile of rows r0.. (row-major, stride ld, zero past T) into
+// Stage a 64 x HD tile of rows r0.. (row stride ld, zero past T) into
 // s[row][d] and, when st is given, st[d][row]; scale != 1 multiplies in f32
 // before the bf16 rounding.
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, size_t base,
+template <int HD>
+__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, long long base,
                                            long long ld, int r0, int T, float scale,
                                            bf16* s, bf16* st, int tid) {
+  constexpr int LDQ = HD + 8;
   for (int i = tid; i < 64 * HD / 8; i += 128) {
     const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
     uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r0 + r < T) raw = *reinterpret_cast<const uint4*>(src + base + (size_t)(r0 + r) * ld + c8);
+    if (r0 + r < T) raw = *reinterpret_cast<const uint4*>(src + base + (long long)(r0 + r) * ld + c8);
     if (scale != 1.f) {
       const bf16* e = reinterpret_cast<const bf16*>(&raw);
       uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
@@ -235,25 +268,28 @@ __device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, size_t 
 #pragma unroll
       for (int j = 0; j < 4; ++j) w[j] = o[j];
     }
-    *reinterpret_cast<uint4*>(s + r * LDS + c8) = raw;
+    *reinterpret_cast<uint4*>(s + r * LDQ + c8) = raw;
     if (st) {
       const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) st[(c8 + j) * LDS + r] = e[j];
+      for (int j = 0; j < 8; ++j) st[(c8 + j) * LDR + r] = e[j];
     }
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(128)
     flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const bf16* __restrict__ v, Strides in,
+                          const bf16* __restrict__ dout, Strides dos_,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dqkv, int T, int seq_len, int H,
-                          long long row_stride, long long batch_stride, float scale) {
-  __shared__ __align__(16) bf16 qs[BQ * LDS];   // qh [query][d]
-  __shared__ __align__(16) bf16 qtr[HD * LDS];  // qh [d][query]
-  __shared__ __align__(16) bf16 dos[BQ * LDS];  // dO [query][d]
-  __shared__ __align__(16) bf16 dot[HD * LDS];  // dO [d][query]
+                          bf16* __restrict__ dk_out, bf16* __restrict__ dv_out, Strides gs,
+                          int T, int seq_len, int H, float scale) {
+  constexpr int LDQ = HD + 8;
+  __shared__ __align__(16) bf16 qs[BQ * LDQ];   // qh [query][d]
+  __shared__ __align__(16) bf16 qtr[HD * LDR];  // qh [d][query]
+  __shared__ __align__(16) bf16 dos[BQ * LDQ];  // dO [query][d]
+  __shared__ __align__(16) bf16 dot[HD * LDR];  // dO [d][query]
   __shared__ float ls[BQ], ds[BQ];
 
   const int tid = threadIdx.x;
@@ -262,33 +298,32 @@ __global__ void __launch_bounds__(128)
   const int k0 = blockIdx.x * BK;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int dm = H * HD;
-  const size_t base = (size_t)b * batch_stride + (size_t)h * HD;
-  const size_t obase = (size_t)b * T * dm + (size_t)h * HD;  // dO: contiguous
+  const long long base = at(in, b, h, 0);
+  const long long obase = at(dos_, b, h, 0);
   const size_t lbase = ((size_t)b * H + h) * T;
   const int wr = warp * 16;
 
   // k and v rows of this warp as A fragments
-  stage_tile(k, base, row_stride, k0, T, 1.f, qs, nullptr, tid);
-  stage_tile(v, base, row_stride, k0, T, 1.f, dos, nullptr, tid);
+  stage_tile<HD>(k, base, in.t, k0, T, 1.f, qs, nullptr, tid);
+  stage_tile<HD>(v, base, in.t, k0, T, 1.f, dos, nullptr, tid);
   __syncthreads();
-  uint32_t ka[4][4], va[4][4];
+  uint32_t ka[HD / 16][4], va[HD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    load_a(ka[kk], qs, LDS, wr, kk * 16, lane);
-    load_a(va[kk], dos, LDS, wr, kk * 16, lane);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    load_a(ka[kk], qs, LDQ, wr, kk * 16, lane);
+    load_a(va[kk], dos, LDQ, wr, kk * 16, lane);
   }
 
-  float dk[8][4], dv[8][4];
+  float dk[HD / 8][4], dv[HD / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
   for (int q0 = 0; q0 < T; q0 += BQ) {
     __syncthreads();  // previous tile (or the k/v staging) consumed
-    stage_tile(q, base, row_stride, q0, T, scale, qs, qtr, tid);
-    stage_tile(dout, obase, dm, q0, T, 1.f, dos, dot, tid);
+    stage_tile<HD>(q, base, in.t, q0, T, scale, qs, qtr, tid);
+    stage_tile<HD>(dout, obase, dos_.t, q0, T, 1.f, dos, dot, tid);
     if (tid < BQ) {
       const bool ok = q0 + tid < T;
       ls[tid] = ok ? lse[lbase + q0 + tid] : INFINITY;  // p = 0 past T
@@ -296,17 +331,17 @@ __global__ void __launch_bounds__(128)
     }
     __syncthreads();
 
-    float p[8][4], t[8][4];
+    float p[BQ / 8][4], t[BQ / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < BQ / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[n][e] = t[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t bq[2], bd[2];
-        load_b(bq, qs, LDS, n * 8, kk * 16, lane);
+        load_b(bq, qs, LDQ, n * 8, kk * 16, lane);
         mma_16816(p[n], ka[kk], bq);   // S^T[key][query]
-        load_b(bd, dos, LDS, n * 8, kk * 16, lane);
+        load_b(bd, dos, LDQ, n * 8, kk * 16, lane);
         mma_16816(t[n], va[kk], bd);   // (dO v^T)^T[key][query]
       }
       const int c = n * 8 + 2 * t4;
@@ -321,16 +356,16 @@ __global__ void __launch_bounds__(128)
       t[n][3] = p[n][3] * (t[n][3] - d1);
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < BQ / 16; ++kk) {
       uint32_t pa[4], ta[4];
       pack_a_from_c(pa, p, kk);
       pack_a_from_c(ta, t, kk);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < HD / 8; ++n) {
         uint32_t bo[2], bq[2];
-        load_b(bo, dot, LDS, n * 8, kk * 16, lane);
+        load_b(bo, dot, LDR, n * 8, kk * 16, lane);
         mma_16816(dv[n], pa, bo);
-        load_b(bq, qtr, LDS, n * 8, kk * 16, lane);
+        load_b(bq, qtr, LDR, n * 8, kk * 16, lane);
         mma_16816(dk[n], ta, bq);
       }
     }
@@ -338,34 +373,38 @@ __global__ void __launch_bounds__(128)
 
   const int r0 = k0 + wr + g, r1 = r0 + 8;
   const float z0 = r0 < seq_len ? 1.f : 0.f, z1 = r1 < seq_len ? 1.f : 0.f;
-  const size_t ld3 = (size_t)3 * dm;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = h * HD + n * 8 + 2 * t4;
+  for (int n = 0; n < HD / 8; ++n) {
+    const int c = n * 8 + 2 * t4;
     if (r0 < T) {
-      bf16* row = dqkv + ((size_t)b * T + r0) * ld3;
-      *reinterpret_cast<uint32_t*>(row + dm + c) = pack_bf16x2(dk[n][0] * z0, dk[n][1] * z0);
-      *reinterpret_cast<uint32_t*>(row + 2 * dm + c) =
-          pack_bf16x2(dv[n][0] * z0, dv[n][1] * z0);
+      const long long off = at(gs, b, h, r0) + c;
+      *reinterpret_cast<uint32_t*>(dk_out + off) = pack_bf16x2(dk[n][0] * z0, dk[n][1] * z0);
+      *reinterpret_cast<uint32_t*>(dv_out + off) = pack_bf16x2(dv[n][0] * z0, dv[n][1] * z0);
     }
     if (r1 < T) {
-      bf16* row = dqkv + ((size_t)b * T + r1) * ld3;
-      *reinterpret_cast<uint32_t*>(row + dm + c) = pack_bf16x2(dk[n][2] * z1, dk[n][3] * z1);
-      *reinterpret_cast<uint32_t*>(row + 2 * dm + c) =
-          pack_bf16x2(dv[n][2] * z1, dv[n][3] * z1);
+      const long long off = at(gs, b, h, r1) + c;
+      *reinterpret_cast<uint32_t*>(dk_out + off) = pack_bf16x2(dk[n][2] * z1, dk[n][3] * z1);
+      *reinterpret_cast<uint32_t*>(dv_out + off) = pack_bf16x2(dv[n][2] * z1, dv[n][3] * z1);
     }
   }
 }
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int HD>
 __global__ void __launch_bounds__(128)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const bf16* __restrict__ v, Strides in,
+                        const bf16* __restrict__ dout, Strides dos_,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dqkv, int T, int seq_len, int H,
-                        long long row_stride, long long batch_stride, float scale) {
-  __shared__ __align__(16) bf16 ks[BK * LDS];   // k [key][d]
-  __shared__ __align__(16) bf16 ktr[HD * LDS];  // k [d][key]
-  __shared__ __align__(16) bf16 vs[BK * LDS];   // v [key][d]
+                        bf16* __restrict__ dq_out, Strides gs, int T, int seq_len, int H,
+                        float scale) {
+  constexpr int LDQ = HD + 8;
+  __shared__ __align__(16) bf16 ks[BK * LDQ];   // k [key][d]
+  __shared__ __align__(16) bf16 ktr[HD * LDR];  // k [d][key]
+  __shared__ __align__(16) bf16 vs[BK * LDQ];   // v [key][d]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -373,28 +412,27 @@ __global__ void __launch_bounds__(128)
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int dm = H * HD;
-  const size_t base = (size_t)b * batch_stride + (size_t)h * HD;
-  const size_t obase = (size_t)b * T * dm + (size_t)h * HD;
+  const long long base = at(in, b, h, 0);
+  const long long obase = at(dos_, b, h, 0);
   const size_t lbase = ((size_t)b * H + h) * T;
   const int wr = warp * 16;
   const int r0 = q0 + wr + g, r1 = r0 + 8;
 
-  stage_tile(q, base, row_stride, q0, T, scale, ks, nullptr, tid);
-  stage_tile(dout, obase, dm, q0, T, 1.f, vs, nullptr, tid);
+  stage_tile<HD>(q, base, in.t, q0, T, scale, ks, nullptr, tid);
+  stage_tile<HD>(dout, obase, dos_.t, q0, T, 1.f, vs, nullptr, tid);
   __syncthreads();
-  uint32_t qa[4][4], oa[4][4];
+  uint32_t qa[HD / 16][4], oa[HD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    load_a(qa[kk], ks, LDS, wr, kk * 16, lane);
-    load_a(oa[kk], vs, LDS, wr, kk * 16, lane);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    load_a(qa[kk], ks, LDQ, wr, kk * 16, lane);
+    load_a(oa[kk], vs, LDQ, wr, kk * 16, lane);
   }
   const float l0 = r0 < T ? lse[lbase + r0] : 0.f, l1 = r1 < T ? lse[lbase + r1] : 0.f;
   const float d0 = r0 < T ? delta[lbase + r0] : 0.f, d1 = r1 < T ? delta[lbase + r1] : 0.f;
 
-  float dq[8][4];
+  float dq[HD / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
@@ -402,21 +440,21 @@ __global__ void __launch_bounds__(128)
   for (int j = 0; j < n_tiles; ++j) {
     const int kv0 = j * BK;
     __syncthreads();  // previous tile (or the q/dO staging) consumed
-    stage_tile(k, base, row_stride, kv0, T, 1.f, ks, ktr, tid);
-    stage_tile(v, base, row_stride, kv0, T, 1.f, vs, nullptr, tid);
+    stage_tile<HD>(k, base, in.t, kv0, T, 1.f, ks, ktr, tid);
+    stage_tile<HD>(v, base, in.t, kv0, T, 1.f, vs, nullptr, tid);
     __syncthreads();
 
-    float p[8][4], t[8][4];
+    float p[BK / 8][4], t[BK / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[n][e] = t[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t bk_[2], bv[2];
-        load_b(bk_, ks, LDS, n * 8, kk * 16, lane);
+        load_b(bk_, ks, LDQ, n * 8, kk * 16, lane);
         mma_16816(p[n], qa[kk], bk_);   // S[query][key]
-        load_b(bv, vs, LDS, n * 8, kk * 16, lane);
+        load_b(bv, vs, LDQ, n * 8, kk * 16, lane);
         mma_16816(t[n], oa[kk], bv);    // dO v^T [query][key]
       }
       const int key = kv0 + n * 8 + 2 * t4;  // keys past seq_len: p = 0
@@ -430,46 +468,74 @@ __global__ void __launch_bounds__(128)
       t[n][3] = p[n][3] * (t[n][3] - d1);
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t ta[4];
       pack_a_from_c(ta, t, kk);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < HD / 8; ++n) {
         uint32_t bk_[2];
-        load_b(bk_, ktr, LDS, n * 8, kk * 16, lane);
+        load_b(bk_, ktr, LDR, n * 8, kk * 16, lane);
         mma_16816(dq[n], ta, bk_);
       }
     }
   }
 
-  const size_t ld3 = (size_t)3 * dm;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = h * HD + n * 8 + 2 * t4;
+  for (int n = 0; n < HD / 8; ++n) {
+    const int c = n * 8 + 2 * t4;
     if (r0 < T)
-      *reinterpret_cast<uint32_t*>(dqkv + ((size_t)b * T + r0) * ld3 + c) =
-          pack_bf16x2(dq[n][0] * scale, dq[n][1] * scale);
+      *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r0) + c) =
+          pack_bf16x2(bf16_round(dq[n][0]) * scale, bf16_round(dq[n][1]) * scale);
     if (r1 < T)
-      *reinterpret_cast<uint32_t*>(dqkv + ((size_t)b * T + r1) * ld3 + c) =
-          pack_bf16x2(dq[n][2] * scale, dq[n][3] * scale);
+      *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r1) + c) =
+          pack_bf16x2(bf16_round(dq[n][2]) * scale, bf16_round(dq[n][3]) * scale);
   }
+}
+
+template <int HD>
+int launch_fwd(const void* q, const void* k, const void* v, Strides in, void* o, Strides os,
+               void* lse, int B, int T, int seq_len, int H, float scale, void* stream) {
+  if (B > 0 && T > 0 && seq_len > 0) {
+    dim3 grid((T + BQ - 1) / BQ, H, B);
+    flash_fwd_kernel<HD><<<grid, 128, 0, (cudaStream_t)stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (bf16*)o, os, (float*)lse, T,
+        seq_len, H, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, Strides in, const void* dout,
+               Strides dos_, const void* lse, const void* delta, void* dq, void* dk, void* dv,
+               Strides gs, int B, int T, int seq_len, int H, float scale, void* stream) {
+  if (B > 0 && T > 0 && seq_len > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    dim3 grid((T + BQ - 1) / BQ, H, B);
+    flash_bwd_dkdv_kernel<HD><<<grid, 128, 0, s>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, dos_,
+        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, gs, T, seq_len, H,
+        scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    flash_bwd_dq_kernel<HD><<<grid, 128, 0, s>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, dos_,
+        (const float*)lse, (const float*)delta, (bf16*)dq, gs, T, seq_len, H, scale);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/k/v: bf16, element (b, t, h*64 + d) at b*batch_stride + t*row_stride +
-// h*64 + d; o: bf16 [B, T, H*64] contiguous; lse: f32 [B, H, T].
+// Packed layout, head dim 64. q/k/v: bf16, element (b, t, h*64 + d) at
+// b*batch_stride + t*row_stride + h*64 + d; o: bf16 [B, T, H*64]
+// contiguous; lse: f32 [B, H, T].
 extern "C" int ibk_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int B, int T, int seq_len, int H,
                              long long row_stride, long long batch_stride,
                              float scale, void* stream) {
-  if (B > 0 && T > 0 && seq_len > 0) {
-    dim3 grid((T + BQ - 1) / BQ, H, B);
-    flash_fwd_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
-        T, seq_len, H, row_stride, batch_stride, scale);
-  }
-  return (int)cudaGetLastError();
+  const long long dm = (long long)H * 64;
+  return launch_fwd<64>(q, k, v, Strides{batch_stride, 64, row_stride}, o,
+                        Strides{T * dm, 64, dm}, lse, B, T, seq_len, H, scale, stream);
 }
 
 // Backward: q/k/v as in the forward; dout bf16 [B, T, H*64] contiguous; lse,
@@ -478,19 +544,43 @@ extern "C" int ibk_flash_bwd(const void* q, const void* k, const void* v, const 
                              const void* lse, const void* delta, void* dqkv, int B, int T,
                              int seq_len, int H, long long row_stride,
                              long long batch_stride, float scale, void* stream) {
-  if (B > 0 && T > 0 && seq_len > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    dim3 grid((T + BQ - 1) / BQ, H, B);
-    flash_bwd_dkdv_kernel<<<grid, 128, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dqkv, T, seq_len, H, row_stride,
-        batch_stride, scale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_kernel<<<grid, 128, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dqkv, T, seq_len, H, row_stride,
-        batch_stride, scale);
-  }
-  return (int)cudaGetLastError();
+  const long long dm = (long long)H * 64;
+  bf16* g = (bf16*)dqkv;
+  return launch_bwd<64>(q, k, v, Strides{batch_stride, 64, row_stride}, dout,
+                        Strides{T * dm, 64, dm}, lse, delta, g, g + dm, g + 2 * dm,
+                        Strides{3 * T * dm, 64, 3 * dm}, B, T, seq_len, H, scale, stream);
+}
+
+// BHTD layout, head dim D in {32, 64}: q, k, v share the element strides
+// (in_b, in_h, in_t) of a [B, H, T, D] view, o has (o_b, o_h, o_t); lse f32
+// [B, H, T] contiguous. scale: the bf16-rounded 1/sqrt(D).
+extern "C" int ibk_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int B, int T, int seq_len, int H, int D,
+                                  long long in_b, long long in_h, long long in_t,
+                                  long long o_b, long long o_h, long long o_t, float scale,
+                                  void* stream) {
+  const Strides in{in_b, in_h, in_t}, os{o_b, o_h, o_t};
+  if (D == 64) return launch_fwd<64>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, stream);
+  if (D == 32) return launch_fwd<32>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward: q, k, v as in the forward; dout with strides (do_b, do_h,
+// do_t); lse, delta f32 [B, H, T]; dq, dk, dv bf16 views sharing the strides
+// (g_b, g_h, g_t).
+extern "C" int ibk_flash_attn_bwd(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  void* dq, void* dk, void* dv, int B, int T, int seq_len,
+                                  int H, int D, long long in_b, long long in_h, long long in_t,
+                                  long long do_b, long long do_h, long long do_t,
+                                  long long g_b, long long g_h, long long g_t, float scale,
+                                  void* stream) {
+  const Strides in{in_b, in_h, in_t}, dos_{do_b, do_h, do_t}, gs{g_b, g_h, g_t};
+  if (D == 64)
+    return launch_bwd<64>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T, seq_len,
+                          H, scale, stream);
+  if (D == 32)
+    return launch_bwd<32>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T, seq_len,
+                          H, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,9 +16,13 @@
 //    intentbev/ops/fused_ln_mlp.py::_bwd_kernel and
 //    intentbev/ops/fused_mlp.py::_bwd_kernel.
 //
+// The model width D is a template parameter, instantiated at 384 (ViT-S)
+// and 192 (ViT-Ti) for the LN kernels (1, 2, 4 with LN) and at 384 for the
+// MLP without LN; the hidden width is any multiple of 64.
 // Forward bound on the H100: tensor-core throughput. At 36008 x 384 rows and
 // a 1536-wide hidden layer a call is 4*N*384*1536 = 85 GFLOP against 83 MB
-// of activations in and out; W1 + W2 (2.36 MB bf16) sit in L2.
+// of activations in and out; W1 + W2 (2.36 MB bf16) sit in L2. At 192 and
+// 768 it is a quarter of the operations (21 GFLOP) and half the bytes.
 // Forward design: one 256-thread block owns 64 whole rows, so both
 // LayerNorms are block-local and the [64, 1536] hidden activation never
 // leaves the SM. The block normalises its rows into shared memory (bf16, as
@@ -26,34 +30,38 @@
 // walks the hidden dimension in 64-wide tiles: stage the W1 and W2 tiles in
 // shared memory, g = xn W1[:, tile] (mma.sync), bias + GELU in f32, h as
 // bf16 in shared memory, acc += h W2[tile, :]. The f32 accumulator
-// [64, 384] lives in registers (96 per thread). The epilogue adds b2,
-// scales by the gate and adds the residual in f32, writes y as bf16 and,
-// serving with the chain, takes the next LayerNorm from the f32 y (not the
-// bf16-rounded y), like the JAX kernel.
+// [64, D] lives in registers (96 per thread at D = 384, 48 at 192). The
+// epilogue adds b2, scales by the gate and adds the residual in f32, writes
+// y as bf16 and, serving with the chain, takes the next LayerNorm from the
+// f32 y (not the bf16-rounded y), like the JAX kernel.
 #include "common.cuh"
 
 namespace {
 
-constexpr int D = 384;      // model width
 constexpr int ROWS = 64;    // rows per block
 constexpr int HT = 64;      // hidden tile
-constexpr int LDX = D + 8;  // padded row strides (bank-conflict-free
-constexpr int LDH = HT + 8; // 32-bit fragment loads)
-constexpr int LDY = D + 8;
-constexpr int THREADS = 256;
+constexpr int LDH = HT + 8; // padded row strides (bank-conflict-free
+constexpr int THREADS = 256; // 32-bit fragment loads)
 
-constexpr size_t XN_ELEMS = (size_t)ROWS * LDX;
-constexpr size_t W1_ELEMS = (size_t)HT * LDX;
-constexpr size_t W2_ELEMS = (size_t)D * LDH;
-constexpr size_t H_ELEMS = (size_t)ROWS * LDH;
-constexpr size_t SMEM_BYTES = (XN_ELEMS + W1_ELEMS + W2_ELEMS + H_ELEMS) * 2;
-static_assert((size_t)ROWS * LDY * 4 <= (W1_ELEMS + W2_ELEMS) * 2,
-              "f32 epilogue tile must fit in the weight staging area");
+// Forward shared memory at width D: 164,864 bytes at 384, 88,064 at 192.
+template <int D>
+struct FwdSmem {
+  static constexpr int LDX = D + 8;
+  static constexpr int LDY = D + 8;
+  static constexpr size_t XN_ELEMS = (size_t)ROWS * LDX;
+  static constexpr size_t W1_ELEMS = (size_t)HT * LDX;
+  static constexpr size_t W2_ELEMS = (size_t)D * LDH;
+  static constexpr size_t H_ELEMS = (size_t)ROWS * LDH;
+  static constexpr size_t BYTES = (XN_ELEMS + W1_ELEMS + W2_ELEMS + H_ELEMS) * 2;
+  static_assert((size_t)ROWS * LDY * 4 <= (W1_ELEMS + W2_ELEMS) * 2,
+                "f32 epilogue tile must fit in the weight staging area");
+  static_assert(D % 64 == 0 && BYTES <= 232448, "width outside the kernel's tiling");
+};
 
 // LN_IN: the MLP reads LN2(x) (res is x); else it reads x as it is.
 // LN_OUT: the LN_next epilogue writes yn (gate is null); else y = res +
 // gate * mlp with gate null for 1.
-template <int GELU, bool LN_IN, bool LN_OUT>
+template <int D, int GELU, bool LN_IN, bool LN_OUT>
 __global__ void __launch_bounds__(THREADS)
     fused_ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ g2,
                         const float* __restrict__ be2, const bf16* __restrict__ w1,
@@ -62,11 +70,13 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ bn, const float* __restrict__ gate,
                         const bf16* __restrict__ res, bf16* __restrict__ y,
                         bf16* __restrict__ yn, int n_rows, int hidden, float eps) {
+  using S = FwdSmem<D>;
+  constexpr int LDX = S::LDX, LDY = S::LDY;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* w1s = xs + XN_ELEMS;
-  bf16* w2s = w1s + W1_ELEMS;
-  bf16* hs = w2s + W2_ELEMS;
+  bf16* w1s = xs + S::XN_ELEMS;
+  bf16* w2s = w1s + S::W1_ELEMS;
+  bf16* hs = w2s + S::W2_ELEMS;
   float* ys = reinterpret_cast<float*>(w1s);  // epilogue alias
 
   const int tid = threadIdx.x;
@@ -81,16 +91,16 @@ __global__ void __launch_bounds__(THREADS)
     const int grow = row0 + r;
     if constexpr (!LN_IN) {
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
+      for (int i = 0; i < D / 64; ++i) {
         const int c = 2 * lane + 64 * i;
         *reinterpret_cast<uint32_t*>(xs + r * LDX + c) =
             grow < n_rows ? *reinterpret_cast<const uint32_t*>(x + (size_t)grow * D + c) : 0u;
       }
       continue;
     }
-    float v[12];
+    float v[D / 32];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       float a = 0.f, b = 0.f;
       if (grow < n_rows) {
         const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(
@@ -104,7 +114,7 @@ __global__ void __launch_bounds__(THREADS)
     float mean, inv;
     warp_ln_stats(v, eps, mean, inv);
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       const int c = 2 * lane + 64 * i;
       *reinterpret_cast<uint32_t*>(xs + r * LDX + c) =
           pack_bf16x2((v[2 * i] - mean) * inv * g2[c] + be2[c],
@@ -113,13 +123,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // warp tiling: rows wr..wr+15; GEMM1 columns wc..wc+31 of the hidden
-  // tile, GEMM2 output columns oc..oc+191
+  // tile, GEMM2 output columns oc..oc+D/2-1
   const int wr = (warp & 3) * 16;
   const int wc = (warp >> 2) * 32;
-  const int oc = (warp >> 2) * 192;
-  float acc[24][4];
+  const int oc = (warp >> 2) * (D / 2);
+  float acc[D / 16][4];
 #pragma unroll
-  for (int n = 0; n < 24; ++n)
+  for (int n = 0; n < D / 16; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -171,7 +181,7 @@ __global__ void __launch_bounds__(THREADS)
       uint32_t a[4];
       load_a(a, hs, LDH, wr, k0, lane);
 #pragma unroll
-      for (int n = 0; n < 24; ++n) {
+      for (int n = 0; n < D / 16; ++n) {
         uint32_t b[2];
         load_b(b, w2s, LDH, oc + n * 8, k0, lane);
         mma_16816(acc[n], a, b);
@@ -183,7 +193,7 @@ __global__ void __launch_bounds__(THREADS)
   //    LN_next (serving chain)
   __syncthreads();  // every warp is done reading w2s before ys aliases it
 #pragma unroll
-  for (int n = 0; n < 24; ++n) {
+  for (int n = 0; n < D / 16; ++n) {
     const int c = oc + n * 8 + 2 * t4;
     const float bb0 = b2[c], bb1 = b2[c + 1];
     ys[(wr + g) * LDY + c] = acc[n][0] + bb0;
@@ -196,11 +206,11 @@ __global__ void __launch_bounds__(THREADS)
     const int r = warp * (ROWS / 8) + rr;
     const int grow = row0 + r;
     if (grow >= n_rows) break;  // warp-uniform
-    float v[12];
+    float v[D / 32];
     if constexpr (!LN_OUT) {
       const float gt = gate ? gate[grow] : 1.f;
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
+      for (int i = 0; i < D / 64; ++i) {
         const int c = 2 * lane + 64 * i;
         const __nv_bfloat162 p =
             *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)grow * D + c);
@@ -211,7 +221,7 @@ __global__ void __launch_bounds__(THREADS)
       continue;
     }
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       const int c = 2 * lane + 64 * i;
       const __nv_bfloat162 p =
           *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)grow * D + c);
@@ -223,7 +233,7 @@ __global__ void __launch_bounds__(THREADS)
     float mean, inv;
     warp_ln_stats(v, eps, mean, inv);
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       const int c = 2 * lane + 64 * i;
       *reinterpret_cast<uint32_t*>(yn + (size_t)grow * D + c) =
           pack_bf16x2((v[2 * i] - mean) * inv * gn[c] + bn[c],
@@ -232,17 +242,18 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int GELU, bool LN_IN, bool LN_OUT>
+template <int D, int GELU, bool LN_IN, bool LN_OUT>
 int launch(const void* x, const void* g2, const void* be2, const void* w1,
            const void* b1, const void* w2, const void* b2, const void* gn,
            const void* bn, const void* gate, const void* res, void* y, void* yn,
            int n_rows, int hidden, float eps, cudaStream_t stream) {
-  auto kernel = fused_ln_mlp_kernel<GELU, LN_IN, LN_OUT>;
+  auto kernel = fused_ln_mlp_kernel<D, GELU, LN_IN, LN_OUT>;
+  constexpr size_t smem_bytes = FwdSmem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_rows + ROWS - 1) / ROWS;
-  kernel<<<blocks, THREADS, SMEM_BYTES, stream>>>(
+  kernel<<<blocks, THREADS, smem_bytes, stream>>>(
       (const bf16*)x, (const float*)g2, (const float*)be2, (const bf16*)w1,
       (const float*)b1, (const bf16*)w2, (const float*)b2, (const float*)gn,
       (const float*)bn, (const float*)gate, (const bf16*)res, (bf16*)y, (bf16*)yn,
@@ -250,31 +261,35 @@ int launch(const void* x, const void* g2, const void* be2, const void* w1,
   return (int)cudaGetLastError();
 }
 
-// One entry per (LN_IN, LN_OUT) variant: gelu_mode 0 = exact erf GELU,
+// One entry per (D, LN_IN, LN_OUT) variant: gelu_mode 0 = exact erf GELU,
 // 1 = x * sigmoid(1.702 x).
-template <bool LN_IN, bool LN_OUT>
+template <int D, bool LN_IN, bool LN_OUT>
 int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
              const void* w1, const void* b1, const void* w2, const void* b2,
              const void* gn, const void* bn, const void* gate, const void* res, void* y,
              void* yn, int n_rows, int hidden, float eps, void* stream) {
   if (n_rows <= 0) return (int)cudaGetLastError();
   if (gelu_mode == 0)
-    return launch<0, LN_IN, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate, res, y, yn,
+    return launch<D, 0, LN_IN, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate, res, y, yn,
                                     n_rows, hidden, eps, (cudaStream_t)stream);
-  return launch<1, LN_IN, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate, res, y, yn,
+  return launch<D, 1, LN_IN, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate, res, y, yn,
                                   n_rows, hidden, eps, (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// hidden must be a multiple of 64 in every entry.
+// hidden must be a multiple of 64 in every entry; d (the width of x) is
+// 384 or 192 in the LN entries, 384 in those without LN.
 extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
                                 const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* gn, const void* bn,
-                                void* y, void* yn, int n_rows, int hidden,
+                                void* y, void* yn, int n_rows, int d, int hidden,
                                 float eps, int gelu_mode, void* stream) {
-  return dispatch<true, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, x, y,
-                              yn, n_rows, hidden, eps, stream);
+  return by_width(d, [&](auto w) {
+    return dispatch<decltype(w)::value, true, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn,
+                                                    bn, nullptr, x, y, yn, n_rows, hidden, eps,
+                                                    stream);
+  });
 }
 
 // Training forward and the unchained serving tail: gate is f32 [n_rows] or
@@ -282,10 +297,13 @@ extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
 extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void* be2,
                                       const void* w1, const void* b1, const void* w2,
                                       const void* b2, const void* gate, void* y,
-                                      int n_rows, int hidden, float eps, int gelu_mode,
-                                      void* stream) {
-  return dispatch<true, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2, nullptr, nullptr, gate,
-                               x, y, nullptr, n_rows, hidden, eps, stream);
+                                      int n_rows, int d, int hidden, float eps,
+                                      int gelu_mode, void* stream) {
+  return by_width(d, [&](auto w) {
+    return dispatch<decltype(w)::value, true, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2,
+                                                     nullptr, nullptr, gate, x, y, nullptr,
+                                                     n_rows, hidden, eps, stream);
+  });
 }
 
 // The MLP without LN: y = res + gate * mlp(h); gate is f32 [n_rows] or null
@@ -293,7 +311,7 @@ extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void*
 extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, const void* w2,
                              const void* b2, const void* res, const void* gate, void* y,
                              int n_rows, int hidden, int gelu_mode, void* stream) {
-  return dispatch<false, false>(gelu_mode, h, nullptr, nullptr, w1, b1, w2, b2, nullptr,
+  return dispatch<384, false, false>(gelu_mode, h, nullptr, nullptr, w1, b1, w2, b2, nullptr,
                                 nullptr, gate, res, y, nullptr, n_rows, hidden, 0.f, stream);
 }
 
@@ -310,14 +328,16 @@ extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, cons
 // the row kernel reads the normed input as it is (xn = x), and dx is dxn
 // itself; the residual's gradient, dy, is added by autograd.
 // Bound on the H100: tensor-core throughput, 5 products of 2*N*384*1536 =
-// 212 GFLOP at N = 36008 (the row kernel recomputes g: 6 products here).
+// 212 GFLOP at N = 36008 (the row kernel recomputes g: 6 products here); a
+// quarter of that at D = 192, hidden 768.
 // Design: the TPU kernel accumulates dW1/dW2 (2.36 MB f32 each) in VMEM
 // across a sequential row grid, which has no counterpart on 132 SMs running
 // in parallel. So the work is split in two kernels:
 //  (a) a row kernel, one 256-thread block per 64 rows: LN recompute into
 //      shared memory, then per 64-wide hidden tile g (xn W1^T), dh
 //      (dy_eff W2), h and dg; h and dg go to device memory as bf16, and
-//      dxn += dg W1 accumulates in registers ([64, 384] f32, 96 a thread).
+//      dxn += dg W1 accumulates in registers ([64, D] f32, 96 a thread at
+//      D = 384, 48 at 192).
 //      The epilogue finishes dx row by row and writes per-block column
 //      partials of dgamma, dbeta, db1 and db2;
 //  (b) the split-K GEMM C = A^T B of common.cuh over the rows for
@@ -326,20 +346,28 @@ extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, cons
 namespace {
 
 constexpr int BWD_THREADS = 256;
-constexpr size_t BX_ELEMS = (size_t)ROWS * LDX;   // xn, dy_eff, W1 tile
-constexpr size_t BW2_ELEMS = (size_t)D * LDH;     // W2 tile as [d][h]
-constexpr size_t BDG_ELEMS = (size_t)ROWS * LDH;  // dg tile
-constexpr size_t BWD_SMEM_BYTES = (3 * BX_ELEMS + BW2_ELEMS + BDG_ELEMS) * 2 +
+
+// Backward shared memory at width D: 216,576 bytes at 384, 115,200 at 192.
+template <int D>
+struct BwdSmem {
+  static constexpr int LDX = D + 8;
+  static constexpr int LDY = D + 8;
+  static constexpr size_t BX_ELEMS = (size_t)ROWS * LDX;   // xn, dy_eff, W1 tile
+  static constexpr size_t BW2_ELEMS = (size_t)D * LDH;     // W2 tile as [d][h]
+  static constexpr size_t BDG_ELEMS = (size_t)ROWS * LDH;  // dg tile
+  static constexpr size_t BYTES = (3 * BX_ELEMS + BW2_ELEMS + BDG_ELEMS) * 2 +
                                   (4 * HT + 2 * ROWS) * 4;
-static_assert((size_t)ROWS * LDY * 4 <= (BX_ELEMS + BW2_ELEMS) * 2,
-              "f32 dxn tile must fit in the W1/W2 staging area");
-static_assert((size_t)3 * 8 * D * 4 <= BX_ELEMS * 2,
-              "column partials must fit in the xn area");
+  static_assert((size_t)ROWS * LDY * 4 <= (BX_ELEMS + BW2_ELEMS) * 2,
+                "f32 dxn tile must fit in the W1/W2 staging area");
+  static_assert((size_t)3 * 8 * D * 4 <= BX_ELEMS * 2,
+                "column partials must fit in the xn area");
+  static_assert(D % 64 == 0 && BYTES <= 232448, "width outside the kernel's tiling");
+};
 
 // LN_IN: x is LN2's input (xn is recomputed and written to xn_out, dx is
 // the LN backward + dy); else x is the MLP's input itself (xn_out unused,
 // dx = dxn, and only db2 of the column partials is written).
-template <bool LN_IN>
+template <int D, bool LN_IN>
 __global__ void __launch_bounds__(BWD_THREADS)
     ln_mlp_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g2,
                            const float* __restrict__ be2, const bf16* __restrict__ w1,
@@ -350,13 +378,15 @@ __global__ void __launch_bounds__(BWD_THREADS)
                            bf16* __restrict__ dg_out, float* __restrict__ part_db1,
                            float* __restrict__ part_cols, int n_rows, int hidden,
                            float eps) {
+  using S = BwdSmem<D>;
+  constexpr int LDX = S::LDX, LDY = S::LDY;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* dys = xs + BX_ELEMS;
-  bf16* w1s = dys + BX_ELEMS;
-  bf16* w2s = w1s + BX_ELEMS;
-  bf16* dgs = w2s + BW2_ELEMS;
-  float* red = reinterpret_cast<float*>(dgs + BDG_ELEMS);  // [4][HT]
+  bf16* dys = xs + S::BX_ELEMS;
+  bf16* w1s = dys + S::BX_ELEMS;
+  bf16* w2s = w1s + S::BX_ELEMS;
+  bf16* dgs = w2s + S::BW2_ELEMS;
+  float* red = reinterpret_cast<float*>(dgs + S::BDG_ELEMS);  // [4][HT]
   float* rmean = red + 4 * HT;
   float* rinv = rmean + ROWS;
   float* ys = reinterpret_cast<float*>(w1s);  // epilogue: f32 dxn [ROWS][LDY]
@@ -373,9 +403,9 @@ __global__ void __launch_bounds__(BWD_THREADS)
     const int r = warp * (ROWS / 8) + rr;
     const int grow = row0 + r;
     const bool ok = grow < n_rows;
-    float v[12], d[12];
+    float v[D / 32], d[D / 32];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       float a = 0.f, b = 0.f, da = 0.f, db = 0.f;
       if (ok) {
         const size_t off = (size_t)grow * D + 2 * lane + 64 * i;
@@ -401,7 +431,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
       }
     }
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       const int c = 2 * lane + 64 * i;
       // without LN the bf16 input itself (exact: v came from bf16)
       const uint32_t xn2 =
@@ -419,13 +449,13 @@ __global__ void __launch_bounds__(BWD_THREADS)
   }
 
   // warp tiling: rows wr..wr+15; hidden columns wc..wc+31 of the tile for
-  // g and dh; dxn output columns oc..oc+191
+  // g and dh; dxn output columns oc..oc+D/2-1
   const int wr = (warp & 3) * 16;
   const int wc = (warp >> 2) * 32;
-  const int oc = (warp >> 2) * 192;
-  float acc[24][4];
+  const int oc = (warp >> 2) * (D / 2);
+  float acc[D / 16][4];
 #pragma unroll
-  for (int n = 0; n < 24; ++n)
+  for (int n = 0; n < D / 16; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -507,7 +537,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
       uint32_t a[4];
       load_a(a, dgs, LDH, wr, k0, lane);
 #pragma unroll
-      for (int n = 0; n < 24; ++n) {
+      for (int n = 0; n < D / 16; ++n) {
         uint32_t b[2];
         load_b_kn(b, w1s, LDX, oc + n * 8, k0, lane);  // W1 tile as [k=h][n=d]
         mma_16816(acc[n], a, b);
@@ -519,7 +549,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   //    dxn without LN)
   __syncthreads();  // every warp is done with w1s/w2s/xs before the aliases
 #pragma unroll
-  for (int n = 0; n < 24; ++n) {
+  for (int n = 0; n < D / 16; ++n) {
     const int c = oc + n * 8 + 2 * t4;
     ys[(wr + g) * LDY + c] = acc[n][0];
     ys[(wr + g) * LDY + c + 1] = acc[n][1];
@@ -527,9 +557,9 @@ __global__ void __launch_bounds__(BWD_THREADS)
     ys[(wr + g + 8) * LDY + c + 1] = acc[n][3];
   }
   __syncthreads();
-  float cg[12], cb[12], cd[12];  // column sums: dgamma, dbeta, db2
+  float cg[D / 32], cb[D / 32], cd[D / 32];  // column sums: dgamma, dbeta, db2
 #pragma unroll
-  for (int i = 0; i < 12; ++i) cg[i] = cb[i] = cd[i] = 0.f;
+  for (int i = 0; i < D / 32; ++i) cg[i] = cb[i] = cd[i] = 0.f;
   for (int rr = 0; rr < ROWS / 8; ++rr) {
     const int r = warp * (ROWS / 8) + rr;
     const int grow = row0 + r;
@@ -537,7 +567,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     const float gt = gate ? gate[grow] : 1.f;
     if constexpr (!LN_IN) {
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
+      for (int i = 0; i < D / 64; ++i) {
         const int c = 2 * lane + 64 * i;
         const size_t off = (size_t)grow * D + c;
         const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(dy + off);
@@ -549,10 +579,10 @@ __global__ void __launch_bounds__(BWD_THREADS)
       continue;
     }
     const float mean = rmean[r], inv = rinv[r];
-    float xh[12], dxn[12], d[12];
+    float xh[D / 32], dxn[D / 32], d[D / 32];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       const int c = 2 * lane + 64 * i;
       const size_t off = (size_t)grow * D + c;
       const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(x + off);
@@ -565,7 +595,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
       dxn[2 * i + 1] = ys[r * LDY + c + 1];
     }
 #pragma unroll
-    for (int i = 0; i < 12; ++i) {
+    for (int i = 0; i < D / 32; ++i) {
       const int c = 2 * lane + 64 * (i >> 1) + (i & 1);
       cg[i] += dxn[i] * xh[i];
       cb[i] += dxn[i];
@@ -576,7 +606,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     }
     const float m1 = warp_sum(s1) * (1.f / D), m2 = warp_sum(s2) * (1.f / D);
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       const int c = 2 * lane + 64 * i;
       *reinterpret_cast<uint32_t*>(dx + (size_t)grow * D + c) = pack_bf16x2(
           inv * (dxn[2 * i] - m1 - xh[2 * i] * m2) + d[2 * i],
@@ -584,7 +614,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     }
   }
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
+  for (int i = 0; i < D / 32; ++i) {
     const int c = 2 * lane + 64 * (i >> 1) + (i & 1);
     cols[(0 * 8 + warp) * D + c] = cg[i];
     cols[(1 * 8 + warp) * D + c] = cb[i];
@@ -603,7 +633,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
 
 // Both backwards: the row kernel, the column sums, then dW1 = dg^T xn (xn is
 // x itself without LN) and dW2 = dy_eff^T h.
-template <bool LN_IN>
+template <int D, bool LN_IN>
 int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, const void* b1,
             const void* w2, const void* gate, const void* dy, void* dx, void* dgamma,
             void* dbeta, void* dw1, void* db1, void* dw2, void* db2, void* xn_ws,
@@ -611,14 +641,15 @@ int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, cons
             float eps, int splits, void* stream) {
   if (n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd_rows_kernel<LN_IN>,
+  constexpr size_t smem_bytes = BwdSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd_rows_kernel<D, LN_IN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)BWD_SMEM_BYTES);
+                                         (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int nb = (n_rows + ROWS - 1) / ROWS;
   float* p_db1 = (float*)part;
   float* p_cols = p_db1 + (size_t)nb * hidden;  // [3][nb][D]
-  ln_mlp_bwd_rows_kernel<LN_IN><<<nb, BWD_THREADS, BWD_SMEM_BYTES, s>>>(
+  ln_mlp_bwd_rows_kernel<D, LN_IN><<<nb, BWD_THREADS, smem_bytes, s>>>(
       (const bf16*)x, (const float*)g2, (const float*)be2, (const bf16*)w1,
       (const float*)b1, (const bf16*)w2, (const float*)gate, (const bf16*)dy, (bf16*)dx,
       (bf16*)xn_ws, (bf16*)dye_ws, (bf16*)h_ws, (bf16*)dg_ws, p_db1, p_cols, n_rows,
@@ -640,21 +671,23 @@ int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, cons
 
 }  // namespace
 
-// Training backward (exact erf GELU). Outputs: dx bf16 [n_rows, 384];
-// dgamma, dbeta, db2 f32 [384]; db1 f32 [hidden]; dw1 f32 [hidden, 384];
-// dw2 f32 [384, hidden]. Workspaces: xn_ws, dye_ws bf16 [n_rows, 384];
-// h_ws, dg_ws bf16 [n_rows, hidden]; part f32 of
-// max(splits * hidden * 384, ceil(n_rows / 64) * (hidden + 3 * 384)).
+// Training backward (exact erf GELU), d = 384 or 192. Outputs: dx bf16
+// [n_rows, d]; dgamma, dbeta, db2 f32 [d]; db1 f32 [hidden]; dw1 f32
+// [hidden, d]; dw2 f32 [d, hidden]. Workspaces: xn_ws, dye_ws bf16
+// [n_rows, d]; h_ws, dg_ws bf16 [n_rows, hidden]; part f32 of
+// max(splits * hidden * d, ceil(n_rows / 64) * (hidden + 3 * d)).
 extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* be2,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* gate, const void* dy, void* dx,
                                     void* dgamma, void* dbeta, void* dw1, void* db1,
                                     void* dw2, void* db2, void* xn_ws, void* dye_ws,
                                     void* h_ws, void* dg_ws, void* part, int n_rows,
-                                    int hidden, float eps, int splits, void* stream) {
-  return mlp_bwd<true>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma, dbeta, dw1, db1, dw2,
-                       db2, xn_ws, dye_ws, h_ws, dg_ws, part, n_rows, hidden, eps, splits,
-                       stream);
+                                    int d, int hidden, float eps, int splits, void* stream) {
+  return by_width(d, [&](auto w) {
+    return mlp_bwd<decltype(w)::value, true>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma,
+                                             dbeta, dw1, db1, dw2, db2, xn_ws, dye_ws, h_ws,
+                                             dg_ws, part, n_rows, hidden, eps, splits, stream);
+  });
 }
 
 // Backward of the MLP without LN: dh = dg W1 (bf16 [n_rows, 384]; the
@@ -665,7 +698,7 @@ extern "C" int ibk_fused_mlp_bwd(const void* h, const void* w1, const void* b1,
                                  void* dw1, void* db1, void* dw2, void* db2, void* dye_ws,
                                  void* a_ws, void* dg_ws, void* part, int n_rows, int hidden,
                                  int splits, void* stream) {
-  return mlp_bwd<false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh, nullptr, nullptr, dw1,
+  return mlp_bwd<384, false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh, nullptr, nullptr, dw1,
                         db1, dw2, db2, nullptr, dye_ws, a_ws, dg_ws, part, n_rows, hidden,
                         0.f, splits, stream);
 }

@@ -5,8 +5,10 @@
 // standalone LN of block 0's norm1 and of the two adapters on the serving
 // path); the training kernels are described where they are defined below.
 // Bound on the H100: device memory. Each row is read once and written once
-// (768 + 768 bytes at D = 384), so the floor is bytes / 3.35 TB/s.
-// Design: one warp per row, 12 values per lane held in registers, 32-bit
+// (768 + 768 bytes at D = 384, half at 192), so the floor is bytes / 3.35
+// TB/s.
+// Design: one warp per row, D / 32 values per lane held in registers (12 at
+// D = 384, 6 at D = 192; the width is a template parameter), 32-bit
 // (bf16x2) loads and stores; the row never touches shared memory. Eight
 // rows per 256-thread block keep enough warps in flight to cover the load
 // latency.
@@ -14,9 +16,9 @@
 
 namespace {
 
-constexpr int D = 384;
 constexpr int ROWS_PER_BLOCK = 8;
 
+template <int D>
 __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
     layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta, bf16* __restrict__ y,
@@ -25,9 +27,9 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
   const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const bf16* xr = x + (size_t)row * D;
-  float v[12];
+  float v[D / 32];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     const __nv_bfloat162 p =
         *reinterpret_cast<const __nv_bfloat162*>(xr + 2 * lane + 64 * i);
     v[2 * i] = __bfloat162float(p.x);
@@ -37,7 +39,7 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
   warp_ln_stats(v, eps, mean, inv);
   bf16* yr = y + (size_t)row * D;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     const int c = 2 * lane + 64 * i;
     const float a = (v[2 * i] - mean) * inv * gamma[c] + beta[c];
     const float b = (v[2 * i + 1] - mean) * inv * gamma[c + 1] + beta[c + 1];
@@ -49,6 +51,7 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
 // writes xhat = (x - mean) * inv (bf16) and inv (f32, one per row) for the
 // backward. Same bound and design as the inference kernel (5 bytes more per
 // element written).
+template <int D>
 __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
     layernorm_train_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                            const float* __restrict__ beta, bf16* __restrict__ y,
@@ -58,9 +61,9 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
   const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const bf16* xr = x + (size_t)row * D;
-  float v[12];
+  float v[D / 32];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     const __nv_bfloat162 p =
         *reinterpret_cast<const __nv_bfloat162*>(xr + 2 * lane + 64 * i);
     v[2 * i] = __bfloat162float(p.x);
@@ -71,7 +74,7 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
   bf16* yr = y + (size_t)row * D;
   bf16* hr = xhat + (size_t)row * D;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     const int c = 2 * lane + 64 * i;
     const float h0 = (v[2 * i] - mean) * inv, h1 = (v[2 * i + 1] - mean) * inv;
     *reinterpret_cast<uint32_t*>(yr + c) =
@@ -93,6 +96,7 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
 // result does not depend on scheduling.
 constexpr int BWD_ROWS = 64;
 
+template <int D>
 __global__ void __launch_bounds__(256)
     layernorm_bwd_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ xhat,
                          const float* __restrict__ inv, const float* __restrict__ gamma,
@@ -101,20 +105,20 @@ __global__ void __launch_bounds__(256)
   __shared__ float red_g[8][D];
   __shared__ float red_b[8][D];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float g[12], acc_g[12], acc_b[12];
+  float g[D / 32], acc_g[D / 32], acc_b[D / 32];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     g[2 * i] = gamma[2 * lane + 64 * i];
     g[2 * i + 1] = gamma[2 * lane + 64 * i + 1];
   }
 #pragma unroll
-  for (int i = 0; i < 12; ++i) acc_g[i] = acc_b[i] = 0.f;
+  for (int i = 0; i < D / 32; ++i) acc_g[i] = acc_b[i] = 0.f;
   for (int rr = 0; rr < BWD_ROWS / 8; ++rr) {
     const int row = blockIdx.x * BWD_ROWS + warp * (BWD_ROWS / 8) + rr;
     if (row >= n_rows) break;  // warp-uniform
-    float d[12], h[12];
+    float d[D / 32], h[D / 32];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       const size_t off = (size_t)row * D + 2 * lane + 64 * i;
       const __nv_bfloat162 pd = *reinterpret_cast<const __nv_bfloat162*>(dy + off);
       const __nv_bfloat162 ph = *reinterpret_cast<const __nv_bfloat162*>(xhat + off);
@@ -125,7 +129,7 @@ __global__ void __launch_bounds__(256)
     }
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 12; ++i) {
+    for (int i = 0; i < D / 32; ++i) {
       const float dyg = d[i] * g[i];
       s1 += dyg;
       s2 += dyg * h[i];
@@ -135,7 +139,7 @@ __global__ void __launch_bounds__(256)
     const float m1 = warp_sum(s1) * (1.f / D), m2 = warp_sum(s2) * (1.f / D);
     const float iv = inv[row];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < D / 64; ++i) {
       const float a = iv * (d[2 * i] * g[2 * i] - m1 - h[2 * i] * m2);
       const float b = iv * (d[2 * i + 1] * g[2 * i + 1] - m1 - h[2 * i + 1] * m2);
       *reinterpret_cast<uint32_t*>(dx + (size_t)row * D + 2 * lane + 64 * i) =
@@ -143,7 +147,7 @@ __global__ void __launch_bounds__(256)
     }
   }
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < D / 64; ++i) {
     const int c = 2 * lane + 64 * i;
     red_g[warp][c] = acc_g[2 * i];
     red_g[warp][c + 1] = acc_g[2 * i + 1];
@@ -166,33 +170,39 @@ __global__ void __launch_bounds__(256)
 }  // namespace
 
 extern "C" int ibk_layernorm_train(const void* x, const void* gamma, const void* beta,
-                                   void* y, void* xhat, void* inv, int n_rows, float eps,
-                                   void* stream) {
-  if (n_rows > 0) {
-    const int blocks = (n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-    layernorm_train_kernel<<<blocks, 32 * ROWS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const float*)gamma, (const float*)beta, (bf16*)y, (bf16*)xhat,
-        (float*)inv, n_rows, eps);
-  }
-  return (int)cudaGetLastError();
+                                   void* y, void* xhat, void* inv, int n_rows, int d,
+                                   float eps, void* stream) {
+  return by_width(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    if (n_rows > 0) {
+      const int blocks = (n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+      layernorm_train_kernel<D><<<blocks, 32 * ROWS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+          (const bf16*)x, (const float*)gamma, (const float*)beta, (bf16*)y, (bf16*)xhat,
+          (float*)inv, n_rows, eps);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
-// part: f32 workspace of 2 * ceil(n_rows / 64) * 384 values.
+// part: f32 workspace of 2 * ceil(n_rows / 64) * d values.
 extern "C" int ibk_layernorm_bwd(const void* dy, const void* xhat, const void* inv,
                                  const void* gamma, void* dx, void* part, void* dgamma,
-                                 void* dbeta, int n_rows, void* stream) {
-  if (n_rows > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    const int blocks = (n_rows + BWD_ROWS - 1) / BWD_ROWS;
-    float* pg = (float*)part;
-    float* pb = pg + (size_t)blocks * D;
-    layernorm_bwd_kernel<<<blocks, 256, 0, s>>>(
-        (const bf16*)dy, (const bf16*)xhat, (const float*)inv, (const float*)gamma,
-        (bf16*)dx, pg, pb, n_rows);
-    sum_partials(pg, blocks, D, (float*)dgamma, s);
-    sum_partials(pb, blocks, D, (float*)dbeta, s);
-  }
-  return (int)cudaGetLastError();
+                                 void* dbeta, int n_rows, int d, void* stream) {
+  return by_width(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    if (n_rows > 0) {
+      cudaStream_t s = (cudaStream_t)stream;
+      const int blocks = (n_rows + BWD_ROWS - 1) / BWD_ROWS;
+      float* pg = (float*)part;
+      float* pb = pg + (size_t)blocks * D;
+      layernorm_bwd_kernel<D><<<blocks, 256, 0, s>>>(
+          (const bf16*)dy, (const bf16*)xhat, (const float*)inv, (const float*)gamma,
+          (bf16*)dx, pg, pb, n_rows);
+      sum_partials(pg, blocks, D, (float*)dgamma, s);
+      sum_partials(pb, blocks, D, (float*)dbeta, s);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" const char* ibk_error_string(int err) {
@@ -200,12 +210,14 @@ extern "C" const char* ibk_error_string(int err) {
 }
 
 extern "C" int ibk_layernorm(const void* x, const void* gamma, const void* beta,
-                             void* y, int n_rows, float eps, void* stream) {
-  if (n_rows > 0) {
-    const int blocks = (n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-    layernorm_kernel<<<blocks, 32 * ROWS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const float*)gamma, (const float*)beta, (bf16*)y,
-        n_rows, eps);
-  }
-  return (int)cudaGetLastError();
+                             void* y, int n_rows, int d, float eps, void* stream) {
+  return by_width(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    if (n_rows > 0) {
+      const int blocks = (n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+      layernorm_kernel<D><<<blocks, 32 * ROWS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+          (const bf16*)x, (const float*)gamma, (const float*)beta, (bf16*)y, n_rows, eps);
+    }
+    return (int)cudaGetLastError();
+  });
 }

@@ -10,13 +10,14 @@
 // Bound on the H100: L2 reads of the embedding rows. Each occupied cell
 // adds one 384-wide row of W (768 bytes, bf16) into one token, so a batch
 // of 8 bench frames reads ~1 GB of W rows from L2 (W itself, 3.6 MB, stays
-// resident) for ~0.5 G multiply-adds.
+// resident) for ~0.5 G multiply-adds; at D = 192 half of each.
 // Design: the same function computed sparsely,
 //   token[b, t, :] = bias + sum over occupied cells in the patch of
 //                    bf16(val) * W[dy, dx, ch, :]  (f32 sums, bf16 out).
 // One block per (patch row, batch) with one thread per output column and
-// an f32 accumulator [90 tokens, 384] in shared memory. The block walks its
-// band's chunks in order, six chunks (384 cells, one per thread) at a time:
+// an f32 accumulator [90 tokens, D] in shared memory; the embed width D is a
+// template parameter (384 for ViT-S, 192 for ViT-Ti). The block walks its
+// band's chunks in order, D / 64 chunks (D cells, one per thread) at a time:
 // each thread tests its cell (inside this patch row, channel < C, nonzero),
 // a block-wide ballot compacts the hits in chunk order, and every thread
 // adds each hit into its own column. No atomics, so the result is
@@ -27,18 +28,18 @@
 
 namespace {
 
-constexpr int D = 384;      // embed width == threads per block
 constexpr int WINDOW = 64;  // pixels per placement window
 constexpr int CAP = 64;     // cells per chunk
-constexpr int CELLS = D;    // cells tested per phase (one per thread)
-constexpr int WARPS = D / 32;
 
+// D: embed width == threads per block == cells tested per phase
+template <int D>
 __global__ void __launch_bounds__(D)
     voxel_embed_kernel(const int* __restrict__ wid, const int* __restrict__ sl,
                        const int* __restrict__ ch, const float* __restrict__ val,
                        const int* __restrict__ count, const bf16* __restrict__ w,
                        const float* __restrict__ bias, bf16* __restrict__ out,
                        int nb, int nc, int C, int width, int patch, int rows_pp) {
+  constexpr int CELLS = D, WARPS = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   const int gw = width / patch;
   float* acc = reinterpret_cast<float*>(smem);  // [gw][D]
@@ -118,24 +119,27 @@ __global__ void __launch_bounds__(D)
 }  // namespace
 
 // wid i32 [B, NB, NC]; sl, ch i32 and val f32 [B, NB, NC, 64]; count i32
-// [B, NB]; w bf16 [P, P, C, 384]; bias f32 [384]; out bf16
-// [B, (NB*rows_pp) * (width/P), 384].
+// [B, NB]; w bf16 [P, P, C, d]; bias f32 [d]; out bf16
+// [B, (NB*rows_pp) * (width/P), d]; d is 384 or 192.
 extern "C" int ibk_voxel_embed(const void* wid, const void* sl, const void* ch,
                                const void* val, const void* count, const void* w,
                                const void* bias, void* out, int B, int nb, int nc,
-                               int C, int width, int patch, int rows_pp,
+                               int C, int width, int patch, int rows_pp, int d,
                                void* stream) {
-  const int gw = width / patch;
-  const size_t smem = (size_t)gw * D * 4 + (size_t)CELLS * 12 + WARPS * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      voxel_embed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0 && nb > 0) {
-    dim3 grid(nb * rows_pp, B);
-    voxel_embed_kernel<<<grid, D, smem, (cudaStream_t)stream>>>(
-        (const int*)wid, (const int*)sl, (const int*)ch, (const float*)val,
-        (const int*)count, (const bf16*)w, (const float*)bias, (bf16*)out, nb,
-        nc, C, width, patch, rows_pp);
-  }
-  return (int)cudaGetLastError();
+  return by_width(d, [&](auto dw) {
+    constexpr int D = decltype(dw)::value;
+    const int gw = width / patch;
+    const size_t smem = (size_t)gw * D * 4 + (size_t)D * 12 + (D / 32) * 4;
+    cudaError_t err = cudaFuncSetAttribute(
+        voxel_embed_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (B > 0 && nb > 0) {
+      dim3 grid(nb * rows_pp, B);
+      voxel_embed_kernel<D><<<grid, D, smem, (cudaStream_t)stream>>>(
+          (const int*)wid, (const int*)sl, (const int*)ch, (const float*)val,
+          (const int*)count, (const bf16*)w, (const float*)bias, (bf16*)out, nb,
+          nc, C, width, patch, rows_pp);
+    }
+    return (int)cudaGetLastError();
+  });
 }

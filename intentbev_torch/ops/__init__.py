@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels, each with its plain PyTorch version."""
 
 from ._build import launches, reset_launch_counts
+from .flash_attention import (flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+                              flash_attention_fwd, flash_attention_fwd_plain)
 from .flash_packed import (flash_attention_fn, flash_attention_packed,
                            flash_attention_packed_bwd, flash_attention_packed_bwd_plain,
                            flash_attention_packed_plain, reference_attention)
@@ -23,7 +25,8 @@ __all__ = [
     "launches", "reset_launch_counts",
     "flash_attention_packed", "flash_attention_packed_plain",
     "flash_attention_packed_bwd", "flash_attention_packed_bwd_plain", "flash_attention_fn",
-    "reference_attention",
+    "reference_attention", "flash_attention", "flash_attention_fwd",
+    "flash_attention_fwd_plain", "flash_attention_bwd", "flash_attention_bwd_plain",
     "fused_ln_mlp", "fused_ln_mlp_plain", "fused_ln_mlp_train", "fused_ln_mlp_train_plain",
     "fused_ln_mlp_bwd", "fused_ln_mlp_bwd_plain", "fused_ln_mlp_fn",
     "layernorm", "layernorm_plain", "layernorm_train", "layernorm_train_plain",

@@ -9,6 +9,14 @@ dq, dk and dv into one gradient of that output. :func:`flash_attention_fn`
 is the differentiable entry over the qkv output. :func:`reference_attention`
 is the dense attention the JAX model runs where ``use_flash_attention`` is
 off, in plain PyTorch.
+
+Dispatch as in JAX (``intentbev/ops/flash_packed.py:778``): a head layout
+whose heads do not pair into 128 lanes (:func:`pairs_heads`, e.g. ViT-Ti's
+3 heads of 64) goes to the BHTD kernels of :mod:`.flash_attention`, over
+strided views of the same tensors, from :func:`flash_attention_packed`,
+:func:`flash_attention_packed_plain` and :func:`flash_attention_fn`; JAX's
+fallback ignores ``kv_chunk`` and ``unsafe_softmax``, which the port's
+entries do not take.
 """
 
 from __future__ import annotations
@@ -16,15 +24,28 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
+from .flash_attention import flash_attention_packed_layout, flash_attention_qkv
+
+LANE_BLOCK = 128  # the JAX packed kernels' lane block
+
+
+def pairs_heads(head_dim: int, num_heads: int) -> bool:
+    """Whether the heads pair into 128 lanes, the JAX packed kernels' layout
+    (``intentbev/ops/flash_packed.py:778``); any other layout takes the BHTD
+    kernels."""
+    return LANE_BLOCK % head_dim == 0 and num_heads % (LANE_BLOCK // head_dim) == 0
 
 
 def flash_attention_packed_plain(q, k, v, num_heads: int,
                                  seq_len: int | None = None):
     """Plain PyTorch version with the JAX kernel's rounding points: q scaled
     in its own dtype, f32 scores and softmax, P rounded to v's dtype before
-    PV. Returns ``(o [B, T, H*D] in q's dtype, lse f32 [B, H, T])``."""
+    PV. Returns ``(o [B, T, H*D] in q's dtype, lse f32 [B, H, T])``. Heads
+    that do not pair take the BHTD plain version."""
     b, t, dm = q.shape
     dh = dm // num_heads
+    if not pairs_heads(dh, num_heads):
+        return flash_attention_packed_layout(q, k, v, num_heads, seq_len, plain=True)
     seq_len = t if seq_len is None else int(seq_len)
     dt = q.dtype
     scale = dh ** -0.5
@@ -74,8 +95,11 @@ def reference_attention(q, k, v, num_heads: int, kv_len: int | None = None):
 
 def flash_attention_packed(q, k, v, num_heads: int, seq_len: int | None = None):
     """softmax(q k^T / sqrt(D) + key mask) v per head over [B, T, H*64]
-    bf16 CUDA tensors; returns ``(o, lse)``. CPU tensors take
+    bf16 CUDA tensors; returns ``(o, lse)``. Heads that do not pair take the
+    BHTD kernel (:mod:`.flash_attention`). CPU tensors take
     :func:`flash_attention_packed_plain`."""
+    if not pairs_heads(q.shape[-1] // num_heads, num_heads):
+        return flash_attention_packed_layout(q, k, v, num_heads, seq_len)
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, num_heads, seq_len)
     b, t, dm = q.shape
@@ -198,5 +222,9 @@ def flash_attention_fn(qkv, num_heads: int, seq_len: int | None = None,
                        plain: bool = False):
     """Differentiable attention over the qkv projection output [B, T, 3*H*D]
     (q | k | v): the forward kernel saves O and lse, the backward kernels
-    return the gradient of qkv. ``plain`` runs the plain versions."""
+    return the gradient of qkv. Heads that do not pair take the BHTD kernels
+    (:func:`.flash_attention.flash_attention_qkv`). ``plain`` runs the plain
+    versions."""
+    if not pairs_heads(qkv.shape[-1] // 3 // num_heads, num_heads):
+        return flash_attention_qkv(qkv, num_heads, seq_len, plain)
     return _FlashFn.apply(qkv, num_heads, seq_len, plain)

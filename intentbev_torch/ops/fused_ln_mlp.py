@@ -14,6 +14,8 @@ forward without a gate is the serving tail of the configurations that run
 no LN chain (:func:`fused_ln_mlp_train` with either GELU).
 
 Weights use PyTorch's Linear layout: ``w1`` [hidden, D], ``w2`` [D, hidden].
+The kernels take D in ``layernorm.WIDTHS`` (384, 192) and any hidden width
+that is a multiple of 64.
 The serving drop-path gate is 1 and is not an argument. ``gelu`` is
 ``"erf"`` (exact; the JAX package's default, and the only mode training
 takes) or ``"sigmoid"`` (x * sigmoid(1.702 x), the serving variant
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .layernorm import layernorm_plain
+from .layernorm import WIDTHS, layernorm_plain
 
 GELU_MODES = ("erf", "sigmoid")
 
@@ -54,7 +56,7 @@ def fused_ln_mlp_plain(x, gamma, beta, w1, b1, w2, b2, gamma_next, beta_next,
 
 def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, gamma_next, beta_next,
                  eps: float = 1e-6, gelu_mode: str = "erf"):
-    """Returns ``(y, yn)`` for a contiguous bf16 [..., 384] CUDA tensor (f32
+    """Returns ``(y, yn)`` for a contiguous bf16 [..., D] CUDA tensor (f32
     LN params and biases, bf16 weights). CPU tensors take
     :func:`fused_ln_mlp_plain`."""
     if gelu_mode not in GELU_MODES:
@@ -66,7 +68,7 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, gamma_next, beta_next,
     hidden = w1.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"fused_ln_mlp: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d == 384, f"fused_ln_mlp kernel is built for D=384, got {d}")
+    require(d in WIDTHS, f"fused_ln_mlp kernel is built for D in {WIDTHS}, got {d}")
     require(hidden % 64 == 0, f"fused_ln_mlp: hidden {hidden} not a multiple of 64")
     for name, w, shape in (("w1", w1, (hidden, d)), ("w2", w2, (d, hidden))):
         require(w.device == x.device and w.dtype == torch.bfloat16
@@ -83,7 +85,7 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, gamma_next, beta_next,
     err = kernels().ibk_fused_ln_mlp(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma_next.data_ptr(),
-        beta_next.data_ptr(), y.data_ptr(), yn.data_ptr(), x.numel() // d,
+        beta_next.data_ptr(), y.data_ptr(), yn.data_ptr(), x.numel() // d, d,
         hidden, float(eps), GELU_MODES.index(gelu_mode), stream_ptr(x))
     check_launch(err, "fused_ln_mlp")
     return y, yn
@@ -150,7 +152,7 @@ def _check_train_args(x, gamma, beta, w1, b1, w2, name):
     d, hidden = x.shape[-1], w1.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"{name}: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d == 384, f"{name} kernel is built for D=384, got {d}")
+    require(d in WIDTHS, f"{name} kernel is built for D in {WIDTHS}, got {d}")
     require(hidden % 64 == 0, f"{name}: hidden {hidden} not a multiple of 64")
     for wname, w, shape in (("w1", w1, (hidden, d)), ("w2", w2, (d, hidden))):
         require(w.device == x.device and w.dtype == torch.bfloat16
@@ -173,7 +175,7 @@ def _gate_arg(gate, x, name):
 
 def fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate=None, eps: float = 1e-6,
                        gelu_mode: str = "erf"):
-    """Forward y = x + gate * mlp(LN(x)) of a contiguous bf16 [..., 384]
+    """Forward y = x + gate * mlp(LN(x)) of a contiguous bf16 [..., D]
     CUDA tensor; ``gate`` f32 broadcastable to x.shape[:-1] or None.
     Training takes the exact erf GELU; the unchained serving tail either.
     CPU tensors take :func:`fused_ln_mlp_train_plain`."""
@@ -191,8 +193,8 @@ def fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate=None, eps: float = 1
     err = kernels().ibk_fused_ln_mlp_train(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), None if g is None else g.data_ptr(), y.data_ptr(),
-        x.numel() // x.shape[-1], w1.shape[0], float(eps), GELU_MODES.index(gelu_mode),
-        stream_ptr(x))
+        x.numel() // x.shape[-1], x.shape[-1], w1.shape[0], float(eps),
+        GELU_MODES.index(gelu_mode), stream_ptr(x))
     check_launch(err, "fused_ln_mlp_train")
     return y
 
@@ -229,7 +231,7 @@ def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gate, dy, eps: float = 1e-6):
         w2.data_ptr(), None if g is None else g.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dgamma.data_ptr(), dbeta.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
         dw2.data_ptr(), db2.data_ptr(), xn_ws.data_ptr(), dye_ws.data_ptr(),
-        h_ws.data_ptr(), dg_ws.data_ptr(), part.data_ptr(), n, hidden, float(eps),
+        h_ws.data_ptr(), dg_ws.data_ptr(), part.data_ptr(), n, d, hidden, float(eps),
         BWD_SPLITS, stream_ptr(x))
     check_launch(err, "fused_ln_mlp_bwd")
     return dx, dgamma, dbeta, dw1, db1, dw2, db2

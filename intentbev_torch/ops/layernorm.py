@@ -6,7 +6,8 @@ in the input's dtype. :func:`layernorm_fn` is the differentiable entry, the
 dispatch of the JAX ``custom_vjp``: a call that needs no gradient takes the
 inference kernel; otherwise the training forward (y, xhat, inv) runs and the
 backward kernel gives dx and the dgamma/dbeta column sums. Any number of
-rows; no padding.
+rows; no padding. The kernels are built for the widths in :data:`WIDTHS`
+(ViT-S 384, ViT-Ti 192); any other width raises on CUDA.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
 
-D_KERNEL = 384
+WIDTHS = (192, 384)  # widths the kernels are instantiated for
 
 
 def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -58,35 +59,37 @@ def layernorm_bwd_plain(dy, xhat, inv, gamma):
 def _check_params(x, name, *params):
     for p in params:
         require(p.device == x.device and p.dtype == torch.float32
-                and p.shape == (D_KERNEL,) and p.is_contiguous(),
+                and p.shape == (x.shape[-1],) and p.is_contiguous(),
                 f"{name}: gamma/beta must be contiguous f32 [D] on x's device")
 
 
 def _check_rows(x, name):
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"{name}: want contiguous CUDA bf16, got {x.dtype} {x.device}")
-    require(x.shape[-1] == D_KERNEL,
-            f"{name} kernel is built for D={D_KERNEL}, got {x.shape[-1]}")
+    require(x.shape[-1] in WIDTHS,
+            f"{name} kernel is built for D in {WIDTHS}, got {x.shape[-1]}")
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis of a contiguous [..., 384] bf16 tensor;
-    gamma/beta f32 [384]. CPU tensors take :func:`layernorm_plain`."""
+    """LayerNorm over the last axis of a contiguous [..., D] bf16 tensor, D in
+    :data:`WIDTHS`; gamma/beta f32 [D]. CPU tensors take
+    :func:`layernorm_plain`."""
     if x.device.type == "cpu":
         return layernorm_plain(x, gamma, beta, eps)
     _check_rows(x, "layernorm")
     _check_params(x, "layernorm", gamma, beta)
+    d = x.shape[-1]
     y = torch.empty_like(x)
     err = kernels().ibk_layernorm(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-        x.numel() // D_KERNEL, float(eps), stream_ptr(x))
+        x.numel() // d, d, float(eps), stream_ptr(x))
     check_launch(err, "layernorm")
     return y
 
 
 def layernorm_train(x, gamma, beta, eps: float = 1e-6):
-    """Training forward, ``(y, xhat, inv)``, of a contiguous [..., 384] bf16
+    """Training forward, ``(y, xhat, inv)``, of a contiguous [..., D] bf16
     CUDA tensor. CPU tensors take :func:`layernorm_train_plain`."""
     if x.device.type == "cpu":
         return layernorm_train_plain(x, gamma, beta, eps)
@@ -96,7 +99,7 @@ def layernorm_train(x, gamma, beta, eps: float = 1e-6):
     inv = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     err = kernels().ibk_layernorm_train(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), xhat.data_ptr(),
-        inv.data_ptr(), x.numel() // D_KERNEL, float(eps), stream_ptr(x))
+        inv.data_ptr(), x.numel() // x.shape[-1], x.shape[-1], float(eps), stream_ptr(x))
     check_launch(err, "layernorm_train")
     return y, xhat, inv
 
@@ -110,18 +113,18 @@ def layernorm_bwd(dy, xhat, inv, gamma):
     require(xhat.shape == dy.shape and xhat.dtype == torch.bfloat16
             and xhat.is_contiguous() and xhat.device == dy.device,
             "layernorm_bwd: xhat must be contiguous bf16 of dy's shape")
-    n = dy.numel() // D_KERNEL
+    d = dy.shape[-1]
+    n = dy.numel() // d
     require(inv.dtype == torch.float32 and inv.numel() == n and inv.is_contiguous()
             and inv.device == dy.device, "layernorm_bwd: inv must be contiguous f32 [rows]")
     _check_params(dy, "layernorm_bwd", gamma)
     dx = torch.empty_like(dy)
-    dgamma = torch.zeros(D_KERNEL, dtype=torch.float32, device=dy.device)
+    dgamma = torch.zeros(d, dtype=torch.float32, device=dy.device)
     dbeta = torch.zeros_like(dgamma)
-    part = torch.empty(2 * ((n + 63) // 64) * D_KERNEL, dtype=torch.float32,
-                       device=dy.device)
+    part = torch.empty(2 * ((n + 63) // 64) * d, dtype=torch.float32, device=dy.device)
     err = kernels().ibk_layernorm_bwd(
         dy.data_ptr(), xhat.data_ptr(), inv.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), n, stream_ptr(dy))
+        part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), n, d, stream_ptr(dy))
     check_launch(err, "layernorm_bwd")
     return dx, dgamma, dbeta
 

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
+from .layernorm import WIDTHS
 
 WINDOW = 64  # pixels per placement window
 CAP = 64     # max cells per chunk
@@ -201,13 +202,14 @@ def voxel_embed_tokens_plain(chunks: VoxelChunks, kernel, bias, patch: int,
 def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
                        grid_hw: tuple[int, int]) -> torch.Tensor:
     """Decoded chunks -> tokens [B, (H/P)*(W/P), D] in the kernel's dtype.
-    ``kernel`` is the patch-embed conv weight [P, P, C, D] (bf16 on CUDA),
+    ``kernel`` is the patch-embed conv weight [P, P, C, D] (bf16 on CUDA; D
+    in ``layernorm.WIDTHS``),
     ``bias`` f32 [D]. CPU tensors take :func:`voxel_embed_tokens_plain`."""
     if kernel.device.type == "cpu":
         return voxel_embed_tokens_plain(chunks, kernel, bias, patch, grid_hw)
     b, nb, nc, rpp, c, d = _geometry(chunks, kernel, patch, grid_hw)
     h, w = grid_hw
-    require(d == 384, f"voxel_embed kernel is built for D=384, got {d}")
+    require(d in WIDTHS, f"voxel_embed kernel is built for D in {WIDTHS}, got {d}")
     require(kernel.is_cuda and kernel.dtype == torch.bfloat16 and kernel.is_contiguous(),
             "voxel_embed: kernel must be contiguous CUDA bf16")
     require(bias.device == kernel.device and bias.dtype == torch.float32
@@ -219,7 +221,7 @@ def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
     err = kernels().ibk_voxel_embed(
         chunks.wid.data_ptr(), chunks.sl.data_ptr(), chunks.ch.data_ptr(),
         chunks.val.data_ptr(), chunks.count.data_ptr(), kernel.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, nb, nc, c, w, patch, rpp,
+        bias.data_ptr(), out.data_ptr(), b, nb, nc, c, w, patch, rpp, d,
         stream_ptr(kernel))
     check_launch(err, "voxel_embed")
     return out

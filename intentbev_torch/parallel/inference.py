@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..bev.voxelize import dequantize_points, voxelize_packed
+from ..bev.voxelize import dequantize_points, dequantize_points_np, voxelize_packed
 from ..boxes.anchors import generate_anchors
 from ..boxes.nms import Detections, batched_postprocess
 from ..models import build_model
@@ -53,10 +53,15 @@ def build_chunk_transport(points, points_valid, grid, patch: int,
                           num_chunks: int) -> VoxelChunks:
     """Host side of the transport: one C++ chunk build per sample (overfull
     bands drop their excess chunks), stacked and packed (u16 slot|channel,
-    u8 values when the intensities are integral)."""
+    u8 values when the intensities are integral). ``points`` are f32 metres
+    or the i16 transport (cm, raw intensity), dequantized here first, as the
+    JAX inferencer does."""
+    pts = np.asarray(points)
+    if pts.dtype == np.int16:
+        pts = dequantize_points_np(pts)
     return pack_chunk_transport(stack_voxel_chunks([
         build_voxel_chunks(p, v, grid, patch, num_chunks, on_overflow="drop")
-        for p, v in zip(points, points_valid)
+        for p, v in zip(pts, points_valid)
     ]))
 
 

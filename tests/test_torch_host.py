@@ -4,6 +4,7 @@ the JAX package's originals, on the same numpy inputs."""
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,11 +17,18 @@ from intentbev.boxes import anchors as janchors  # noqa: E402
 from intentbev.boxes import codec as jcodec  # noqa: E402
 from intentbev.boxes import nms as jnms  # noqa: E402
 from intentbev.configs import GridConfig, default_vit_config, tiny_test_config  # noqa: E402
+from intentbev.bev.voxelize import quantize_points_cm  # noqa: E402
 from intentbev.ops import voxel_embed as jve  # noqa: E402
+from intentbev.parallel.inference import StreamingInferencer as JStreamingInferencer  # noqa: E402
 from intentbev_torch.bev import rasterize as tras  # noqa: E402
 from intentbev_torch.boxes import (batched_postprocess, decode_boxes,  # noqa: E402
                                    generate_anchors)
+from intentbev_torch.configs import tiny_test_config as t_tiny_test_config  # noqa: E402
+from intentbev_torch.models import init_params  # noqa: E402
 from intentbev_torch.ops import voxel_embed as tve  # noqa: E402
+from intentbev_torch.parallel import StreamingInferencer  # noqa: E402
+from intentbev_torch.parallel.inference import build_chunk_transport  # noqa: E402
+from intentbev_torch.synthetic import serving_batch  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 GRID = GridConfig(height_px=80, width_px=96, lidar_height_channels=4, lidar_sweeps=2)
@@ -75,6 +83,26 @@ def test_pack_and_decode_match_jax(rng, integral):
     for name, a, b, orig in zip(tve.VoxelChunks._fields, got, want, stacked):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
         np.testing.assert_array_equal(a.numpy(), orig, err_msg=name)
+
+
+def test_i16_points_build_the_same_chunks_as_jax():
+    """The loader's i16 points (cm, raw intensity) through the JAX
+    inferencer's ``build_chunks`` and the port's ``build_chunk_transport``
+    and ``StreamingInferencer.build_chunks``: identical, non-empty chunks
+    (the port dequantizes before the host build, as JAX does)."""
+    cfg = t_tiny_test_config()
+    pts, valid, _ = serving_batch(cfg.grid, 2, 600, seed=3)
+    pts16 = quantize_points_cm(pts)
+    assert pts16.dtype == np.int16
+    want = JStreamingInferencer.build_chunks(
+        SimpleNamespace(cfg=tiny_test_config(), num_chunks=64), pts16, valid)
+    inf = StreamingInferencer(cfg, init_params(cfg, seed=0), "cpu", num_chunks=64)
+    assert int(np.asarray(want.count).sum()) > 0
+    for got in (build_chunk_transport(pts16, valid, cfg.grid, cfg.vit.patch_size, 64),
+                inf.build_chunks(pts16, valid)):
+        for name in want._fields:
+            np.testing.assert_array_equal(getattr(got, name), np.asarray(getattr(want, name)),
+                                          err_msg=name)
 
 
 def test_pack_rejects_channels_past_ten_bits(rng):

@@ -20,7 +20,11 @@ kernels of the other serving configurations (W8A8 MLP, MLP without LN,
 LN + dense, patch embed) run at small and at main-path shapes, and so do
 the training entries of two of them: the MLP without LN (forward with a
 drop-path gate, backward with and without one) and the LN + dense backward
-(qkv without GELU, adapter with the erf GELU).
+(qkv without GELU, adapter with the erf GELU). The row kernels that the
+ViT-Ti width runs (LayerNorm, LN+MLP, voxel embed) run at D=384 and D=192,
+and the BHTD attention (forward and backward) at head dims 64 and 32, on
+contiguous [B, H, T, D] tensors and on the views of a qkv projection
+output, at small and at ViT-Ti's main-path shapes.
 """
 
 import importlib
@@ -31,6 +35,8 @@ torch = pytest.importorskip("torch")
 
 from intentbev_torch.configs import GridConfig, default_vit_config  # noqa: E402
 from intentbev_torch.ops import (  # noqa: E402
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain, flash_attention_fn,
     fused_ln_dense, fused_ln_dense_bwd, fused_ln_dense_bwd_plain, fused_ln_dense_plain,
     fused_mlp, fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_int8, fused_mlp_int8_plain,
     fused_mlp_plain, fused_mlp_train, patch_embed, patch_embed_plain, quantize_linear,
@@ -41,6 +47,8 @@ from intentbev_torch.ops import (  # noqa: E402
     layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
     layernorm_train_plain, reset_launch_counts, voxel_embed_tokens,
     voxel_embed_tokens_plain, voxel_fill_bev, voxel_fill_bev_plain)
+from intentbev_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_packed_layout, heads_view)
 from intentbev_torch.ops.voxel_embed import (  # noqa: E402
     chunks_to_device, decode_chunk_transport)
 from intentbev_torch.parallel.inference import build_chunk_transport  # noqa: E402
@@ -49,6 +57,7 @@ from intentbev_torch.synthetic import serving_batch  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 D = 384
+WIDTHS = [384, 192]  # ViT-S and ViT-Ti
 MAIN_ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 
 
@@ -79,25 +88,27 @@ def _layernorm_unbiased(x, g, b, eps=1e-6):  # control fault: variance over N-1
     return ((xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(var + eps) * g + b).to(x.dtype)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("rows", [10, MAIN_ROWS])
-def test_layernorm(dev, rows):
-    x = _randn((rows, D), 2.0, 0) + 0.5
-    g = _randn((D,), 0.3, 1, torch.float32) + 1
-    b = _randn((D,), 0.3, 2, torch.float32)
+def test_layernorm(dev, rows, d):
+    x = _randn((rows, d), 2.0, 0) + 0.5
+    g = _randn((d,), 0.3, 1, torch.float32) + 1
+    b = _randn((d,), 0.3, 2, torch.float32)
     got = layernorm(x, g, b)
     assert _rel(got, layernorm_plain(x, g, b)) < 3e-4
     assert _rel(got, _layernorm_unbiased(x, g, b)) >= 3e-4
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
 @pytest.mark.parametrize("rows", [100, MAIN_ROWS])
-def test_fused_ln_mlp(dev, rows, gelu):
-    x = _randn((rows, D), 1.0, 0)
-    ln = [_randn((D,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2, 3, 4)]
-    w1 = _randn((4 * D, D), D ** -0.5, 5)
-    b1 = _randn((4 * D,), 0.1, 6, torch.float32)
-    w2 = _randn((D, 4 * D), (4 * D) ** -0.5, 7)
-    b2 = _randn((D,), 0.1, 8, torch.float32)
+def test_fused_ln_mlp(dev, rows, gelu, d):
+    x = _randn((rows, d), 1.0, 0)
+    ln = [_randn((d,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2, 3, 4)]
+    w1 = _randn((4 * d, d), d ** -0.5, 5)
+    b1 = _randn((4 * d,), 0.1, 6, torch.float32)
+    w2 = _randn((d, 4 * d), (4 * d) ** -0.5, 7)
+    b2 = _randn((d,), 0.1, 8, torch.float32)
     args = (x, ln[0], ln[1], w1, b1, w2, b2, ln[2], ln[3])
     y, yn = fused_ln_mlp(*args, gelu_mode=gelu)
     y_ref, yn_ref = fused_ln_mlp_plain(*args, gelu_mode=gelu)
@@ -128,8 +139,9 @@ def _chunks(grid, batch, points, seed, num_chunks):
     return decode_chunk_transport(chunks_to_device(host, "cuda"))
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("size", ["small", "main"])
-def test_voxel_embed(dev, size):
+def test_voxel_embed(dev, size, d):
     if size == "small":
         grid = GridConfig(height_px=80, width_px=96, lidar_height_channels=4,
                           lidar_sweeps=2)
@@ -138,12 +150,12 @@ def test_voxel_embed(dev, size):
         grid = default_vit_config().grid
         chunks = _chunks(grid, 8, 16384, 0, 512)
     c = grid.lidar_total_channels
-    w = _randn((8, 8, c, D), 0.05, 1)
-    bias = _randn((D,), 0.1, 2, torch.float32)
+    w = _randn((8, 8, c, d), 0.05, 1)
+    bias = _randn((d,), 0.1, 2, torch.float32)
     hw = (grid.height_px, grid.width_px)
     got = voxel_embed_tokens(chunks, w, bias, 8, hw)
     want = voxel_embed_tokens_plain(chunks, w, bias, 8, hw)
-    assert got.shape == ((chunks.wid.shape[0], (hw[0] // 8) * (hw[1] // 8), D))
+    assert got.shape == ((chunks.wid.shape[0], (hw[0] // 8) * (hw[1] // 8), d))
     assert _rel(got, want) < 3e-3
     skipped = chunks._replace(count=(chunks.count - 1).clamp(min=0))  # control
     assert _rel(got, voxel_embed_tokens_plain(skipped, w, bias, 8, hw)) >= 3e-3
@@ -207,11 +219,14 @@ def test_launch_counts(dev):
 
 
 def test_cuda_tensors_never_take_the_plain_version(dev):
-    x = torch.randn(8, 32, device="cuda", dtype=torch.bfloat16)  # D != 384
+    x = torch.randn(8, 32, device="cuda", dtype=torch.bfloat16)  # D not in (192, 384)
     with pytest.raises(ValueError):
         layernorm(x, torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
     with pytest.raises(ValueError):  # f32 input
         layernorm(x.float(), torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
+    q = torch.randn(1, 3, 64, 48, device="cuda", dtype=torch.bfloat16)  # head dim 48
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, q, q)
 
 
 # Limits of the training kernels (those of chip_smoke.py; PERF.md has the
@@ -238,42 +253,44 @@ def _gate(rows_b, t, seed):
     return (keep.float() / 0.9)[:, None].expand(rows_b, t).contiguous()
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("rows", [10, MAIN_ROWS])
-def test_layernorm_train_and_bwd(dev, rows):
-    x = _randn((rows, D), 2.0, 0) + 0.5
-    g = _randn((D,), 0.3, 1, torch.float32) + 1
-    b = _randn((D,), 0.3, 2, torch.float32)
+def test_layernorm_train_and_bwd(dev, rows, d):
+    x = _randn((rows, d), 2.0, 0) + 0.5
+    g = _randn((d,), 0.3, 1, torch.float32) + 1
+    b = _randn((d,), 0.3, 2, torch.float32)
     y, xhat, inv = layernorm_train(x, g, b)
     y_p, xhat_p, inv_p = layernorm_train_plain(x, g, b)
     assert _rel(y, y_p) < 3e-4 and _rel(xhat, xhat_p) < 3e-4 and _rel(inv, inv_p) < 1e-5
     assert _rel(y, _layernorm_unbiased(x, g, b)) >= 3e-4
-    dy = _randn((rows, D), 1.0, 3)
+    dy = _randn((rows, d), 1.0, 3)
     got = layernorm_bwd(dy, xhat, inv, g)
     want = layernorm_bwd_plain(dy, xhat, inv, g)
     assert max(_rels(got, want)) < LN_BWD_LIMIT
     assert max(_rels(got, layernorm_bwd_no_m2(dy, xhat, inv, g))) >= LN_BWD_LIMIT
 
 
-def _mlp_params():
-    ln = [_randn((D,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2)]
-    w1 = _randn((4 * D, D), D ** -0.5, 5)
-    b1 = _randn((4 * D,), 0.1, 6, torch.float32)
-    w2 = _randn((D, 4 * D), (4 * D) ** -0.5, 7)
-    b2 = _randn((D,), 0.1, 8, torch.float32)
+def _mlp_params(d=D):
+    ln = [_randn((d,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2)]
+    w1 = _randn((4 * d, d), d ** -0.5, 5)
+    b1 = _randn((4 * d,), 0.1, 6, torch.float32)
+    w2 = _randn((d, 4 * d), (4 * d) ** -0.5, 7)
+    b2 = _randn((d,), 0.1, 8, torch.float32)
     return ln[0], ln[1], w1, b1, w2, b2
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("b,t", [(2, 50), (8, 4501)])
-def test_fused_ln_mlp_train_and_bwd(dev, b, t):
-    x = _randn((b, t, D), 1.0, 0)
-    gamma, beta, w1, b1, w2, b2 = _mlp_params()
+def test_fused_ln_mlp_train_and_bwd(dev, b, t, d):
+    x = _randn((b, t, d), 1.0, 0)
+    gamma, beta, w1, b1, w2, b2 = _mlp_params(d)
     gate = _gate(b, t, 9)
     gate[0] = 0.0  # one sample dropped
     y = fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate)
     assert _rel(y, fused_ln_mlp_train_plain(x, gamma, beta, w1, b1, w2, b2, gate)) < 1e-3
     # control: the gate ignored
     assert _rel(y, fused_ln_mlp_train_plain(x, gamma, beta, w1, b1, w2, b2)) >= 1e-3
-    dy = _randn((b, t, D), 1.0, 10)
+    dy = _randn((b, t, d), 1.0, 10)
     got = fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gate, dy)
     want = fused_ln_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, gate, dy)
     assert max(_rels(got, want)) < MLP_BWD_LIMIT, _rels(got, want)
@@ -296,6 +313,63 @@ def test_flash_bwd_on_qkv_slices(dev, b, t, seq_len):
     # control: delta = rowsum(dO * O) left out (O = 0)
     ctrl = flash_attention_packed_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, 6, seq_len)
     assert max(_rel(got[..., p], ctrl[..., p]) for p in parts) >= FLASH_BWD_LIMIT
+
+
+# The BHTD attention (limits those of the packed kernels in chip_smoke.py).
+FLASH_LIMIT, LSE_LIMIT = 1e-2, 1e-3
+
+
+@pytest.mark.parametrize("hd,b,t,seq_len", [(32, 2, 300, 250), (64, 2, 130, 130),
+                                            (32, 1, 1000, 950), (64, 8, 4501, 4501)])
+def test_flash_attention_bhtd(dev, hd, b, t, seq_len):
+    """Contiguous [B, 3, T, D]: o and lse, then dq, dk, dv (padded keys 0);
+    controls: the keys of the last partial tile masked (forward), delta
+    left out (backward)."""
+    q, k, v, do = (_randn((b, 3, t, hd), 1.0, s) for s in range(4))
+    reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, seq_len)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, seq_len)
+    assert _rel(o, o_p) < FLASH_LIMIT and float((lse - lse_p).abs().max()) < LSE_LIMIT
+    o_c = flash_attention_fwd_plain(q, k, v, (seq_len - 1) // 64 * 64)[0]
+    assert _rel(o, o_c) >= FLASH_LIMIT
+    got = flash_attention_bwd(q, k, v, o, lse, do, seq_len)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, seq_len)
+    assert max(_rels(got, want)) < FLASH_BWD_LIMIT, _rels(got, want)
+    assert not got[1][:, :, seq_len:].any() and not got[2][:, :, seq_len:].any()
+    ctrl = flash_attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, seq_len)
+    assert max(_rels(got, ctrl)) >= FLASH_BWD_LIMIT
+    assert launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 1
+    assert launches["flash_packed"] == launches["flash_packed_bwd"] == 0
+
+
+@pytest.mark.parametrize("b,t,seq_len", [(1, 300, 250), (8, 4501, 4501)])
+def test_flash_attention_on_qkv_views(dev, b, t, seq_len):
+    """ViT-Ti's 3 heads of 64 from the qkv projection output, by strides:
+    the packed entries dispatch to the BHTD kernels, o lands in the packed
+    layout and the gradient in one [B, T, 3*192] tensor."""
+    d = 192
+    qkv = _randn((b, t, 3 * d), 1.0, 0)
+    do = _randn((b, t, d), 1.0, 1)
+    reset_launch_counts()
+    parts = [slice(j * d, (j + 1) * d) for j in range(3)]
+    o, lse = flash_attention_packed_layout(*(qkv[..., p] for p in parts), 3, seq_len)
+    o_p, lse_p = flash_attention_packed_layout(*(qkv[..., p] for p in parts), 3, seq_len,
+                                               plain=True)
+    assert _rel(o, o_p) < FLASH_LIMIT and float((lse - lse_p).abs().max()) < LSE_LIMIT
+    leaf = qkv.clone().requires_grad_(True)
+    g_k, = torch.autograd.grad(flash_attention_fn(leaf, 3, seq_len), leaf, do)
+    g_p, = torch.autograd.grad(flash_attention_fn(leaf, 3, seq_len, plain=True), leaf, do)
+    rels = [_rel(g_k[..., p], g_p[..., p]) for p in parts]
+    assert max(rels) < FLASH_BWD_LIMIT, rels
+    assert not g_k[:, seq_len:, d:].any()
+    # control: delta = rowsum(dO * O) left out (O = 0)
+    views = [heads_view(qkv[..., p], 3) for p in parts]
+    ctrl = flash_attention_bwd_plain(*views, torch.zeros_like(views[0]), lse_p,
+                                     heads_view(do, 3), seq_len)
+    assert max(_rel(g_k[..., p], c.transpose(1, 2).reshape(b, t, d))
+               for p, c in zip(parts, ctrl)) >= FLASH_BWD_LIMIT
+    assert launches["flash_attention"] == 2 and launches["flash_attention_bwd"] == 1
+    assert launches["flash_packed"] == launches["flash_packed_bwd"] == 0
 
 
 def test_training_launch_counts(dev):

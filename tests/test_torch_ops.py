@@ -33,6 +33,9 @@ from intentbev_torch.ops.voxel_embed import VoxelChunks  # noqa: E402
 
 GRID = GridConfig(height_px=80, width_px=96, lidar_height_channels=4, lidar_sweeps=2)
 PATCH = 8
+# widths of the row kernels' cases: a lane-aligned one and ViT-Ti's 192 (the
+# port's kernels take 192 and 384), hidden 4x
+WIDTHS = [128, 192]
 # the module (``intentbev.ops`` re-exports a function of the same name)
 jfm = importlib.import_module("intentbev.ops.fused_mlp")
 
@@ -41,20 +44,22 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-def test_layernorm_matches_pallas(rng):
-    x = rng.normal(0.5, 2.0, (300, 128)).astype(np.float32)
-    g = rng.normal(1.0, 0.3, 128).astype(np.float32)
-    b = rng.normal(0.0, 0.3, 128).astype(np.float32)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_layernorm_matches_pallas(rng, d):
+    x = rng.normal(0.5, 2.0, (300, d)).astype(np.float32)
+    g = rng.normal(1.0, 0.3, d).astype(np.float32)
+    b = rng.normal(0.0, 0.3, d).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jax_layernorm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b)))
     got = layernorm(_t(x), _t(g), _t(b)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
-def test_fused_ln_mlp_ln_out_matches_pallas(rng, gelu, monkeypatch):
+def test_fused_ln_mlp_ln_out_matches_pallas(rng, gelu, monkeypatch, d):
     monkeypatch.setattr(jfm, "_GELU_MODE", gelu)
-    n, d, hid = 300, 128, 512
+    n, hid = 300, 4 * d
     x = rng.normal(0, 1, (n, d)).astype(np.float32)
     ln = [rng.normal(1 - i % 2, 0.2, d).astype(np.float32) for i in range(4)]
     w1 = rng.normal(0, d ** -0.5, (d, hid)).astype(np.float32)   # JAX [in, out]
@@ -100,7 +105,8 @@ def _points(rng, s=2, p=1500):
     return pts, rng.uniform(size=(s, p)) < 0.9
 
 
-def test_voxel_embed_matches_pallas(rng):
+@pytest.mark.parametrize("d", [64, 192])
+def test_voxel_embed_matches_pallas(rng, d):
     """Two samples, the second empty; one cell's channel set to C (the TPU
     kernel's one-hot drops it, the port skips it)."""
     c = GRID.lidar_total_channels
@@ -112,8 +118,8 @@ def test_voxel_embed_matches_pallas(rng):
     ch = np.asarray(chunks.ch).copy()
     ch[0, 0, 0, 0, 0] = c
     chunks = chunks._replace(ch=ch)
-    kern = rng.normal(0, 0.05, (PATCH, PATCH, c, 64)).astype(np.float32)
-    bias = rng.normal(0, 0.1, 64).astype(np.float32)
+    kern = rng.normal(0, 0.05, (PATCH, PATCH, c, d)).astype(np.float32)
+    bias = rng.normal(0, 0.1, d).astype(np.float32)
     hw = (GRID.height_px, GRID.width_px)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jve.voxel_embed_tokens(
@@ -137,11 +143,12 @@ def _leaf(a):
     return _t(a).clone().requires_grad_(True)
 
 
-def test_layernorm_grad_matches_pallas(rng):
-    x = rng.normal(0.5, 2.0, (300, 128)).astype(np.float32)
-    g = rng.normal(1.0, 0.3, 128).astype(np.float32)
-    b = rng.normal(0.0, 0.3, 128).astype(np.float32)
-    dy = rng.normal(0, 1, (300, 128)).astype(np.float32)
+@pytest.mark.parametrize("d", WIDTHS)
+def test_layernorm_grad_matches_pallas(rng, d):
+    x = rng.normal(0.5, 2.0, (300, d)).astype(np.float32)
+    g = rng.normal(1.0, 0.3, d).astype(np.float32)
+    b = rng.normal(0.0, 0.3, d).astype(np.float32)
+    dy = rng.normal(0, 1, (300, d)).astype(np.float32)
 
     def loss(x_, g_, b_):
         return jnp.sum(jax_layernorm(x_, g_, b_) * jnp.asarray(dy))
@@ -158,10 +165,11 @@ def test_layernorm_grad_matches_pallas(rng):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("gated", [False, True])
-def test_fused_ln_mlp_grad_matches_pallas(rng, gated):
+def test_fused_ln_mlp_grad_matches_pallas(rng, gated, d):
     """Gate None, and a per-sample 0-or-1/keep gate broadcast over tokens."""
-    b, t, d, hid = 3, 100, 128, 512
+    b, t, hid = 3, 100, 4 * d
     x = rng.normal(0, 1, (b, t, d)).astype(np.float32)
     gamma = rng.normal(1, 0.2, d).astype(np.float32)
     beta = rng.normal(0, 0.2, d).astype(np.float32)

@@ -34,11 +34,9 @@ from intentbev_torch.weights import from_flax  # noqa: E402
 NUM_CHUNKS = 64
 
 
-@pytest.fixture(scope="module")
-def slice_setup():
-    base = tiny_test_config()
-    cfg = dataclasses.replace(
-        base, vit=dataclasses.replace(base.vit, use_flash_attention=True))
+def serve_setup(cfg):
+    """JAX init of ``cfg``'s model (head kernels scaled up), two samples of
+    points and map, the JAX logits over chunks and its Detections."""
     g = cfg.grid
     model = build_model(cfg)
     bev0 = jnp.zeros((1, g.height_px, g.width_px, g.lidar_total_channels))
@@ -66,16 +64,23 @@ def slice_setup():
     return cfg, variables, pts, valid, mp, [np.asarray(w) for w in want], det
 
 
-def test_from_flax_covers_the_model(slice_setup):
-    cfg, variables = slice_setup[:2]
+@pytest.fixture(scope="module")
+def slice_setup():
+    base = tiny_test_config()
+    return serve_setup(dataclasses.replace(
+        base, vit=dataclasses.replace(base.vit, use_flash_attention=True)))
+
+
+def check_from_flax(cfg, variables):
     model = IntentNetViT(cfg.vit, cfg.heads)
     state = from_flax(variables)
     assert set(state) == set(model.state_dict())
     model.load_state_dict(state)  # shapes match
 
 
-def test_slice_matches_jax(slice_setup):
-    cfg, variables, pts, valid, mp, want, want_det = slice_setup
+def check_serving(cfg, variables, pts, valid, mp, want, want_det, box_rtol=0.0):
+    """The port's StreamingInferencer (CPU, plain versions) against the JAX
+    logits and Detections (decoded boxes also to ``box_rtol``)."""
     inf = StreamingInferencer(cfg, from_flax(variables), "cpu", num_chunks=NUM_CHUNKS)
     got = inf.logits(inf.build_chunks(pts, valid), mp)
     for name, a, b in zip(("cls", "box", "intent"), got, want):
@@ -85,6 +90,15 @@ def test_slice_matches_jax(slice_setup):
     for name in ("valid", "intentions", "num_conf", "num_kept"):
         np.testing.assert_array_equal(getattr(det, name),
                                       np.asarray(getattr(want_det, name)), err_msg=name)
-    np.testing.assert_allclose(det.boxes_xywha, np.asarray(want_det.boxes_xywha), atol=1e-4)
+    np.testing.assert_allclose(det.boxes_xywha, np.asarray(want_det.boxes_xywha), atol=1e-4,
+                               rtol=box_rtol)
     np.testing.assert_allclose(det.scores, np.asarray(want_det.scores), atol=1e-5)
     assert det.valid.any() and (det.num_kept < det.num_conf).all()  # NMS acted
+
+
+def test_from_flax_covers_the_model(slice_setup):
+    check_from_flax(*slice_setup[:2])
+
+
+def test_slice_matches_jax(slice_setup):
+    check_serving(*slice_setup)

@@ -337,7 +337,12 @@ def test_train_step_matches_jax(rng, name):
     """One step on tiny_test_config (drop-path 0, patch dropout always on):
     the loss terms, every gradient and the new BatchNorm statistics against
     the JAX step's math; the JAX step's own metrics and batch stats too."""
-    jc, tc = _step_configs(name)
+    check_train_step(rng, *_step_configs(name))
+
+
+def check_train_step(rng, jc, tc):
+    """One step of the JAX config ``jc`` and its port copy ``tc`` (the
+    checks of :func:`test_train_step_matches_jax`)."""
     g = jc.grid
     b, s, p, n_gt = 2, g.lidar_sweeps, 1500, jc.loss.max_gt_boxes
     pts, valid = _points(rng, b, s, p, g)

@@ -2,9 +2,9 @@
 PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--model vit|cnn] [--requests 4] [--out DIR]
-    python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed}
+    python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed,tiny}
     python3 tools/profile_torch_slice.py --train [--model vit|cnn] [--out DIR]
-    python3 tools/profile_torch_slice.py --train --vit-config {ln_dense,unfused_ln}
+    python3 tools/profile_torch_slice.py --train --vit-config {ln_dense,unfused_ln,tiny}
 
 Serving: drives ``intentbev_torch``'s ``StreamingInferencer``
 (``default_vit_config()`` at full width and depth, seeded random weights,
@@ -33,7 +33,11 @@ device runs behind the host).
 whose host stage is empty; ``ln_dense`` and ``unfused_ln`` over chunks), so
 that device time splits by the groups of its kernels. With ``--train`` it
 profiles the training step under ``ln_dense`` or ``unfused_ln`` (the
-switches of those configurations; the step's points transport).
+switches of those configurations; the step's points transport). ``tiny``
+is the default configuration at ViT-Ti's widths (embed 192, 3 heads of 64,
+as ``intentbev/import_torch.py:235`` reads a timm ``vit_tiny`` checkpoint),
+served over chunks and trained as the default is; its attention runs the
+BHTD kernels.
 
 ``--model cnn`` profiles IntentNetCNN (``default_cnn_config()``, random
 seeded weights with BatchNorm statistics from a synthetic batch,
@@ -59,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -73,15 +78,15 @@ SPAN_GROUPS = {"cnn/first_conv": "first conv (290->160 5x5/s2 + 1x1/s2 projectio
 # kernel-name substring -> group, first match wins
 GROUPS = (
     ("voxel_fill_kernel", "voxel_fill"),
-    ("flash_fwd_kernel", "flash_packed"),
-    ("flash_bwd", "flash_packed_bwd"),
+    ("flash_fwd_kernel", "flash forward (packed or BHTD)"),
+    ("flash_bwd", "flash backward (packed or BHTD)"),
     ("fused_mlp_int8_kernel", "fused_mlp_int8"),
-    ("fused_ln_mlp_kernel<0, false, false>", "fused_mlp (no LN)"),
-    ("fused_ln_mlp_kernel<1, false, false>", "fused_mlp (no LN)"),
+    ("fused_ln_mlp_kernel<384, 0, false, false>", "fused_mlp (no LN)"),
+    ("fused_ln_mlp_kernel<384, 1, false, false>", "fused_mlp (no LN)"),
     ("fused_ln_mlp_kernel", "fused_ln_mlp (serving or train forward)"),
     ("fused_ln_dense_kernel", "fused_ln_dense"),
     ("patch_embed_kernel", "patch_embed"),
-    ("ln_mlp_bwd_rows_kernel<false>", "fused_mlp_bwd (row kernel)"),
+    ("ln_mlp_bwd_rows_kernel<384, false>", "fused_mlp_bwd (row kernel)"),
     ("ln_mlp_bwd_rows", "fused_ln_mlp_bwd (row kernel)"),
     ("ln_dense_bwd_rows", "fused_ln_dense_bwd (row kernel)"),
     ("gemm_at_b", "dW kernel (LN+MLP, MLP, LN+dense backward)"),
@@ -102,6 +107,17 @@ GROUPS = (
     ("topk", "sort / top-k"),
 )
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TINY = dict(embed_dim=192, num_heads=3)  # ViT-Ti (intentbev/import_torch.py:235)
+
+
+def vit_config(cfg, name: str):
+    """(config, transport) of ``--vit-config name``: a serving variant's
+    switches, or ``tiny``, ViT-Ti's widths over chunks."""
+    from intentbev_torch.parallel import vit_serving_variant
+
+    if name == "tiny":
+        return dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, **TINY)), "chunks"
+    return vit_serving_variant(cfg, name)
 
 
 def group_of(name: str) -> str:
@@ -256,14 +272,13 @@ def profile_train(args, card) -> None:
     from intentbev_torch.configs import default_cnn_config, default_vit_config
     from intentbev_torch.data.pipeline import chunk_batch_to_device
     from intentbev_torch.models import build_model, init_params
-    from intentbev_torch.parallel import vit_serving_variant
     from intentbev_torch.synthetic import calibrated_params, chunk_train_batch, train_batch
     from intentbev_torch.train import make_optimizer, make_train_step
 
     cnn = args.model == "cnn"
     cfg = default_cnn_config() if cnn else default_vit_config()
     if args.vit_config != "default":  # the configuration's switches, not its transport
-        cfg, _ = vit_serving_variant(cfg, args.vit_config)
+        cfg, _ = vit_config(cfg, args.vit_config)
     model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.float32)
     model.load_state_dict(calibrated_params(cfg, 0, "cuda") if cnn else init_params(cfg, seed=0))
     model.to("cuda")
@@ -363,14 +378,14 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="profile a training step")
     ap.add_argument("--model", choices=("vit", "cnn"), default="vit")
     ap.add_argument("--vit-config", choices=("default", "int8", "ln_dense", "unfused_ln",
-                                             "patch_embed"), default="default",
-                    help="the ViT configuration (training: ln_dense or unfused_ln)")
+                                             "patch_embed", "tiny"), default="default",
+                    help="the ViT configuration (training: ln_dense, unfused_ln or tiny)")
     ap.add_argument("--out", default="chiprun_out/profile_slice")
     args = ap.parse_args()
     if args.vit_config != "default" and args.model != "vit":
         ap.error("--vit-config profiles the ViT")
-    if args.train and args.vit_config not in ("default", "ln_dense", "unfused_ln"):
-        ap.error("--train --vit-config takes ln_dense or unfused_ln")
+    if args.train and args.vit_config not in ("default", "ln_dense", "unfused_ln", "tiny"):
+        ap.error("--train --vit-config takes ln_dense, unfused_ln or tiny")
     if args.out == ap.get_default("out"):
         suffix = "" if args.vit_config == "default" else f"_{args.vit_config}"
         args.out = str(Path(args.out).with_name("profile_" + "cnn_" * (args.model == "cnn")
@@ -392,16 +407,16 @@ def main() -> None:
     from intentbev_torch.models import init_params
     from intentbev_torch.ops.voxel_embed import (chunks_to_device, decode_chunk_transport,
                                                  voxel_fill_bev)
-    from intentbev_torch.parallel import StreamingInferencer, vit_serving_variant
+    from intentbev_torch.parallel import StreamingInferencer
     from intentbev_torch.synthetic import calibrated_params, serving_batch
 
     cnn = args.model == "cnn"
     cfg = default_cnn_config() if cnn else default_vit_config()
     batch = 8
-    params = calibrated_params(cfg, 0, "cuda") if cnn else init_params(cfg, seed=0)
     transport = "chunks"
     if args.vit_config != "default":
-        cfg, transport = vit_serving_variant(cfg, args.vit_config)
+        cfg, transport = vit_config(cfg, args.vit_config)
+    params = calibrated_params(cfg, 0, "cuda") if cnn else init_params(cfg, seed=0)
     inf = StreamingInferencer(cfg, params, "cuda", transport=transport, gelu="sigmoid")
     requests = [serving_batch(cfg.grid, batch, 16384, seed=s)
                 for s in range(args.requests + 1)]
