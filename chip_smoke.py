@@ -71,6 +71,24 @@ Phases (each prints a line; any failure exits nonzero with no result):
    GELU'; C: the MLP backward ignoring the gate); then one warm-up and 3
    timed steps whose launch counts are those of the structure, with finite
    metrics, ms/step, samples/s and peak memory.
+10. ViT-Ti (embed 192, 3 heads of 64, whose heads do not pair: the BHTD
+    attention) serves 3 requests and trains: launch counts, logits and one
+    step's gradients against the plain versions with controls, 3 timed
+    steps.
+11. The flash backward's forms (JAX's split and chunked backwards, the
+    model's ``bwd_fused=False`` and ``bwd_kv_chunk=1152``) and the packed
+    path at head dim 32: each form's kernels against their plain versions
+    at [8, 4501, 384] in 6 heads of 64 (control: delta left out) and in 12
+    heads of 32, with the packed forward and the fused backward (controls:
+    another form's rounding, and the forward with the f32 scale); one
+    step's loss and gradients under split and under chunked against the
+    fused step's (one function at head dim 64, so the limits are far under
+    phase 5's), with launch counts under the forms' own names; then 3 timed
+    steps of each form at 6 heads of 64 and at 12 heads of 32.
+12. The bench twins: every line of ``bench_torch.py`` once (2 iterations;
+    ``_sustained`` one pass of 3 batches) with ``bench.py``'s keys in its
+    order, finite and positive, and ``tools/bench_train_torch.py``'s step
+    under the fused and the chunked backward (2 steps).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -83,6 +101,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
@@ -652,27 +671,33 @@ def main() -> None:
             + 4 * (3 * dt_ + hid_t + 2 * dt_ * hid_t), 5 * mlp_flops_t // 2, None),
     })
     record = {}
-    for name, (kern, plain, control, fault, metrics, limits, it_k, it_p, n_bytes, flops,
-               library) in cases.items():
-        def tup(r):
-            return r if isinstance(r, tuple) else (r,)
-        got, want, ctrl = tup(kern()), tup(plain()), tup(control())
-        torch.cuda.synchronize()
-        sound, ctrl_r = compare(name, got, want, ctrl, metrics, limits, fault)
-        abs_err = max(max_abs(a, b) for a, b in zip(got, want))
-        del got, want, ctrl
-        ms, plain_ms = cuda_ms(kern, it_k), cuda_ms(plain, it_p)
-        lib_ms = cuda_ms(library, it_k) if library is not None else None
-        bound_ms, bound_by = bound(n_bytes, flops, rates.get(name, BF16_FLOPS_PER_S))
-        record[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
-        fmt = ", ".join
-        lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
-        print(f"kernel {name}: readings [{fmt(f'{r:.3e}' for r in sound)}] "
-              f"under limits [{fmt(f'{lim:g}' for lim in limits)}]; control "
-              f"({fault}) [{fmt(f'{r:.3e}' for r in ctrl_r)}] caught; max|d| {abs_err:.3e}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, bound "
-              f"{bound_ms:.4f} ms ({bound_by})  [{card}]", flush=True)
+
+    def check_kernels(cases):
+        """Each case's kernel against its plain version and control; its
+        times, bound and library time go to ``record``."""
+        for name, (kern, plain, control, fault, metrics, limits, it_k, it_p, n_bytes, flops,
+                   library) in cases.items():
+            def tup(r):
+                return r if isinstance(r, tuple) else (r,)
+            got, want, ctrl = tup(kern()), tup(plain()), tup(control())
+            torch.cuda.synchronize()
+            sound, ctrl_r = compare(name, got, want, ctrl, metrics, limits, fault)
+            abs_err = max(max_abs(a, b) for a, b in zip(got, want))
+            del got, want, ctrl
+            ms, plain_ms = cuda_ms(kern, it_k), cuda_ms(plain, it_p)
+            lib_ms = cuda_ms(library, it_k) if library is not None else None
+            bound_ms, bound_by = bound(n_bytes, flops, rates.get(name, BF16_FLOPS_PER_S))
+            record[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+            fmt = ", ".join
+            lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+            print(f"kernel {name}: readings [{fmt(f'{r:.3e}' for r in sound)}] "
+                  f"under limits [{fmt(f'{lim:g}' for lim in limits)}]; control "
+                  f"({fault}) [{fmt(f'{r:.3e}' for r in ctrl_r)}] caught; max|d| {abs_err:.3e}; "
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})  [{card}]", flush=True)
+
+    check_kernels(cases)
     del chunks, x, qkv, q, k, vv, o, lse, do, dy, x3, dy3, xhat, inv, gate, train_mlp
     del qh, kh, vh, doh, o_sdpa, xl, gl, bl, y_ln, mlp_args, x8, int8_args, x_ad
     del x_pe, w_conv, gate_r, dy_qkv, dy_ad
@@ -1284,13 +1309,198 @@ def main() -> None:
     del tnet, tstep, metrics
     torch.cuda.empty_cache()
 
+    # 11. the flash backward's forms (row 11): JAX's split and chunked
+    # backwards (INTENTBEV_BWD_FUSED=0, INTENTBEV_BWD_KV_CHUNK) as the model's
+    # bwd_fused / bwd_kv_chunk, and the packed path at head dim 32 (ViT-S's
+    # width in 12 heads of 32, whose heads pair into 128 lanes)
+    fpk = importlib.import_module("intentbev_torch.ops.flash_packed")
+    chunk = 1152  # divides the 4608 rows JAX pads 4501 tokens to
+    forms = {"fused": (True, 0), "split": (False, 0), "chunked": (False, chunk)}
+    qkv = randn((batch, tokens, 3 * d), 1.0)
+    q, k, vv = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    do = randn((batch, tokens, d), 1.0)
+
+    def f32_scaled(fn):
+        """fn() with the packed path's fault before this check: q scaled by
+        the f32 scale, not the scale rounded to bf16."""
+        sound_scales = fpk.scales
+        fpk.scales = lambda dh_, dtype_: (dh_ ** -0.5, dh_ ** -0.5)
+        try:
+            return fn()
+        finally:
+            fpk.scales = sound_scales
+
+    def bwd_call(fn, form, h, o_, lse_, o_in=None):
+        return lambda: dqkv_parts(fn(q, k, vv, o_ if o_in is None else o_in, lse_, do, h,
+                                     None, *forms[form]))
+
+    def sdpa_calls(h):
+        """SDPA forward and backward over the same q, k, v in [B, H, T, D]."""
+        def heads_of(t):
+            return t.reshape(batch, tokens, h, d // h).transpose(1, 2).contiguous()
+        qs, ks, vs = (heads_of(t).requires_grad_(True) for t in (q, k, vv))
+        dos = heads_of(do)
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        return (torch.no_grad()(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+                lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
+
+    # Limits: at 12 heads of 32 the kernels read <= 1.9e-4 against their plain
+    # versions and a moved rounding point reads >= 2.5e-3 on dk (PERF.md).
+    row11_limit = (7e-4,) * 3
+    row11 = {}
+    for h_, tag in ((heads, ""), (2 * heads, "[D=32]")):
+        o_, lse_ = flash_attention_packed(q, k, vv, h_)
+        lib_fwd, lib_bwd = sdpa_calls(h_)
+        bwd_bytes = nbytes(q, k, vv, o_, do, lse_) + nbytes(qkv)
+        plain_bwd = flash_attention_packed_bwd_plain
+        if tag:
+            row11[f"flash_packed{tag}"] = (
+                lambda h_=h_: flash_attention_packed(q, k, vv, h_),
+                lambda h_=h_: flash_attention_packed_plain(q, k, vv, h_),
+                lambda h_=h_: f32_scaled(lambda: flash_attention_packed_plain(q, k, vv, h_)),
+                "q scaled by the f32 scale", (rel_l2, max_abs), (1e-2, 1e-3), 10, 3,
+                nbytes(q, k, vv, o_, lse_), flash_flops, lib_fwd)
+            row11[f"flash_packed_bwd{tag}"] = (
+                bwd_call(flash_attention_packed_bwd, "fused", h_, o_, lse_),
+                bwd_call(plain_bwd, "fused", h_, o_, lse_),
+                bwd_call(plain_bwd, "split", h_, o_, lse_),
+                "split's dk rounding", (rel_l2,) * 3, row11_limit, 5, 2,
+                bwd_bytes, 5 * flash_flops // 2, lib_bwd)
+        controls = ({"split": ("fused", None, "the fused dk rounding"),
+                     "chunked": ("split", None, "split's scores")} if tag else
+                    {form: (form, torch.zeros_like(o_), "delta = rowsum(dO*O) left out")
+                     for form in ("split", "chunked")})
+        for form, (c_form, c_o, fault) in controls.items():
+            row11[f"flash_packed_bwd_{form}{tag}"] = (
+                bwd_call(flash_attention_packed_bwd, form, h_, o_, lse_),
+                bwd_call(plain_bwd, form, h_, o_, lse_),
+                bwd_call(plain_bwd, c_form, h_, o_, lse_, c_o),
+                fault, (rel_l2,) * 3, row11_limit, 5, 2, bwd_bytes, 5 * flash_flops // 2,
+                lib_bwd)
+    check_kernels(row11)
+    del row11, qkv, q, k, vv, do
+    torch.cuda.empty_cache()
+
+    def vit_net(vcfg, **kw):
+        net = IntentNetViT(vcfg.vit, vcfg.heads, dtype=torch.bfloat16,
+                           param_dtype=torch.float32, **kw)
+        net.load_state_dict(params)  # 12 heads of 32 take the same parameter shapes
+        return net.to(dev)
+
+    # one step's loss and gradients under each form against the fused step's,
+    # on phase 5's batch, weights and draws; at head dim 64 the forms are one
+    # function (the scale 1/8 is exact), so the limits are far under phase 5's
+    m_f, g_f = loss_and_grads(False, vit_net(cfg), cfg)
+    form_limit, form_worst_limit, form_loss_limit = 1e-5, 1e-4, 1e-6
+    for form in ("split", "chunked"):
+        _build.reset_launch_counts()
+        m_s, g_s = loss_and_grads(False, vit_net(cfg, bwd_fused=False, bwd_kv_chunk=forms[form][1]),
+                                  cfg)
+        counter = fpk.BWD_COUNTERS[form]
+        check(_build.launches[counter] == 2 * v.depth and _build.launches["flash_packed_bwd"] == 0,
+              f"{form} step: launches {dict(_build.launches)}")
+        r_all, r_worst, r_name = grad_readings(g_s, g_f)
+        loss_rel = abs(m_s["loss"] - m_f["loss"]) / abs(m_f["loss"])
+        check(r_all < form_limit and r_worst < form_worst_limit and loss_rel < form_loss_limit,
+              f"{form} step against the fused step: all {r_all}, worst {r_worst} ({r_name}), "
+              f"loss rel {loss_rel}; limits {form_limit}, {form_worst_limit}, {form_loss_limit}")
+        print(f"flash forms: step {form} vs fused, loss {m_s['loss']:.6f} vs {m_f['loss']:.6f} "
+              f"(rel {loss_rel:.3e} < {form_loss_limit:g}); gradients relative L2 all "
+              f"{r_all:.3e} < {form_limit:g}, worst {r_worst:.3e} ({r_name}) < "
+              f"{form_worst_limit:g}; launches {counter} {_build.launches[counter]}, "
+              f"flash_packed_bwd 0", flush=True)
+        del g_s
+    del g_f
+
+    # timed steps under each form, at 6 heads of 64 and at 12 heads of 32
+    cfg32 = dataclasses.replace(cfg, vit=dataclasses.replace(v, num_heads=2 * heads))
+    form_counts = {}
+    for vcfg, tag in ((cfg, ""), (cfg32, "[D=32]")):
+        for form, (fused, ck_) in forms.items():
+            if not tag and form == "fused":
+                continue  # phase 5 timed it
+            net = vit_net(vcfg, bwd_fused=fused, bwd_kv_chunk=ck_)
+            fstep = make_train_step(net, vcfg, anchors, make_optimizer(net.parameters(), vcfg))
+            fgen = torch.Generator(device="cuda").manual_seed(2)
+            fstep(tbatch, fgen)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            step_ms, metrics = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                metrics.append(fstep(tbatch, fgen))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = dict(_build.launches)
+            form_counts[f"{form}{tag}"] = counts
+            per_step_f = {**per_step, "flash_packed_bwd": 0, fpk.BWD_COUNTERS[form]: 2 * v.depth}
+            want_counts = {k_: per_step_f.get(k_, 0) * len(step_ms) for k_ in counts}
+            check(counts == want_counts,
+                  f"{form}{tag} train launch counts {counts} != {want_counts}")
+            for m in metrics:
+                check(all(bool(torch.isfinite(t)) for t in m.values()),
+                      f"{form}{tag}: non-finite metrics {m}")
+            ms_step = sum(step_ms) / len(step_ms)
+            print(f"flash forms: train {form}{tag} ({vcfg.vit.num_heads} heads of "
+                  f"{d // vcfg.vit.num_heads}): launches per step "
+                  f"{ {k_: n // 3 for k_, n in counts.items() if n} }; losses "
+                  f"{[round(float(m['loss']), 6) for m in metrics]}; step ms "
+                  f"{[round(t, 2) for t in step_ms]}; {ms_step:.2f} ms/step, "
+                  f"{batch / ms_step * 1e3:.2f} samples/s at batch {batch}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+            del net, fstep, metrics
+            torch.cuda.empty_cache()
+
+    # 12. the bench twins (bench_torch.py, tools/bench_train_torch.py): every
+    # line once, through their functions, at a reduced count; the full runs
+    # are the scripts' own
+    import bench_torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import bench_train_torch
+
+    names = bench_torch.DEFAULT_LINES
+    bench_lines = []
+    for metric, kw in ((names[0], dict(model_name="cnn")),
+                       (names[1], dict(model_name="cnn", voxembed=True)),
+                       (names[2], dict(model_name="vit")), (names[3], None),
+                       (names[4], dict(model_name="vit", voxembed=True)),
+                       ("bev_frames_per_sec_per_chip_int8", dict(model_name="vit", int8=True)),
+                       ("bev_frames_per_sec_per_chip_cells", dict(model_name="vit", cells=True))):
+        if kw is None:
+            bench_lines.append(bench_torch.run_sustained(batches=3, passes=1))
+        else:
+            bench_lines.append(bench_torch.run_mode(metric, iters=2, **kw))
+        torch.cuda.empty_cache()
+    check([ln["metric"] for ln in bench_lines[:5]] == list(names),
+          f"bench lines {[ln['metric'] for ln in bench_lines]} != {names}")
+    for ln in bench_lines:
+        keys = bench_torch.SUSTAINED_KEYS if ln["metric"] == names[3] else bench_torch.KEYS
+        nums = [ln["value"], ln["vs_baseline"], *(
+            [*ln["passes"], ln["h2d_MiBps"], ln["transport_MiB_per_frame"],
+             ln["host_build_samples_per_sec"]] if ln["metric"] == names[3] else [])]
+        check(tuple(ln) == keys and ln["unit"] == "frames/s"
+              and all(np.isfinite(x) and x > 0 for x in nums), f"bench line {ln}")
+    bench_train = {}
+    for form in ("fused", "chunked"):
+        r = bench_train_torch.run(steps=2, bwd_fused=forms[form][0], bwd_kv_chunk=forms[form][1])
+        check(r["bwd_mode"] == form and r["launches_per_step"].get(fpk.BWD_COUNTERS[form]) == 24
+              and np.isfinite(r["loss"]) and r["ms_per_step"] > 0, f"bench_train {form}: {r}")
+        bench_train[form] = r
+        torch.cuda.empty_cache()
+    print(f"bench twins: {len(bench_lines)} bench_torch lines with bench.py's keys in its order "
+          f"(default run {list(names)}), bench_train_torch under fused and chunked "
+          f"({ {f: round(r['ms_per_step'], 2) for f, r in bench_train.items()} } ms/step over "
+          f"2 steps) [{card}]", flush=True)
+
     serving_runs = (serve_counts, *config_counts.values())
     tiny_runs = (tiny_serve_counts, tiny_train_counts)
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
             ("flash_packed", "flash_packed.cu", "intentbev/ops/flash_packed.py:157",
-             (*serving_runs, train_counts, train_b, train_c)),
+             (*serving_runs, train_counts, train_b, train_c, form_counts["split"],
+              form_counts["chunked"])),
             ("fused_ln_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:116",
              serving_runs),
             ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39", serving_runs),
@@ -1337,13 +1547,28 @@ def main() -> None:
             ("layernorm_train[D=192]", "layernorm.cu", "intentbev/ops/layernorm.py:53",
              tiny_runs),
             ("layernorm_bwd[D=192]", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             tiny_runs)):
+             tiny_runs),
+            # row 11, and the packed path at head dim 32 (phase 11)
+            ("flash_packed_bwd_split", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (form_counts["split"],)),
+            ("flash_packed_bwd_chunked", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:414 (dq), :467 (dk/dv)", (form_counts["chunked"],)),
+            ("flash_packed[D=32]", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
+             tuple(form_counts[f"{f}[D=32]"] for f in forms)),
+            ("flash_packed_bwd[D=32]", "flash_packed.cu", "intentbev/ops/flash_packed.py:523",
+             (form_counts["fused[D=32]"],)),
+            ("flash_packed_bwd_split[D=32]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)",
+             (form_counts["split[D=32]"],)),
+            ("flash_packed_bwd_chunked[D=32]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:414 (dq), :467 (dk/dv)",
+             (form_counts["chunked[D=32]"],))):
         r = record[name]
         counter = name.split("[")[0]
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 26 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 32 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Attention with lse, forward and backward, over strided [B, H, T, D] views:
-// the packed [B, T, H*64] layout of the ViT's qkv projection (heads that pair
-// into 128 lanes) and the BHTD layout (any other head layout).
+// the packed [B, T, H*D] layout of the ViT's qkv projection (heads that pair
+// into 128 lanes: D = 64 or 32) and the BHTD layout (any other head layout).
 //
 // Forward. Replaces: intentbev/ops/flash_packed.py::_fwd_kernel_chunked
 // (online softmax over KV tiles, the serving configuration) and ::_fwd_kernel
@@ -202,39 +202,60 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// Backward. Replaces intentbev/ops/flash_packed.py::_bwd_fused_kernel and
-// intentbev/ops/flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel:
-//   p = exp(qh k^T - lse),  t = p * (dO v^T - delta),  delta = rowsum(dO * O)
-//   dv = p^T dO,  dk = t^T qh,  dq = scale * bf16(t k)
-// with the JAX kernels' rounding points: qh = q * scale rounded to bf16,
-// p recomputed in f32 from lse, and p and t rounded to bf16 before the
-// products (dk is taken against the scaled qh, so it needs no scale). dq is
-// rounded to bf16 before the bf16 scale multiplies it, as the BHTD path's
-// autodiff of the q scaling does; the packed kernel scales in f32 first,
-// which gives the same bf16 value where the scale is a power of two (head
-// dim 64, the only one the packed layout takes).
+// Backward. Replaces intentbev/ops/flash_packed.py::_bwd_fused_kernel,
+// ::_bwd_dq_kernel and ::_bwd_dkv_kernel (split), ::_bwd_dq_kernel_chunked
+// and ::_bwd_dkv_kernel_chunked (chunked), and intentbev/ops/
+// flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel:
+//   p = exp(s - lse),  t = p * (dO v^T - delta),  delta = rowsum(dO * O)
+//   dv = p^T dO,  dk = scale * t^T q,  dq = scale * t k
+// with p recomputed in f32 from lse, and p and t rounded to bf16 before the
+// products. The four JAX versions compute this function with the scale
+// applied at other points; a template parameter (Mode) takes each one's
+// rounding points, with sb = the scale rounded to bf16 and sf = the f32
+// scale:
+//  - FUSED (_bwd_fused_kernel): s = qh k^T with qh = bf16(q * sb); dk =
+//    t^T qh (no epilogue scale); dq = bf16(f32(t k) * sf).
+//  - SPLIT (_bwd_dq_kernel, _bwd_dkv_kernel): s as FUSED; dk =
+//    bf16(f32(t^T q) * sf), the product over the UNSCALED q; dq as FUSED.
+//  - CHUNKED (_bwd_dkv_kernel_chunked): s = kh q^T with kh = bf16(k * sb)
+//    against the unscaled q; dk as SPLIT. Its dq pass
+//    (_bwd_dq_kernel_chunked) is SPLIT's: the TPU chunk is a tile of the
+//    contraction axis, and tiling changes only the order of f32 sums. The
+//    port's 64-wide tiles stand for both, and the caller picks this mode
+//    where JAX would take the chunked kernels.
+//  - BHTD (flash_attention.py): the JAX wrapper scales q by sb outside the
+//    kernels, which then see qh; dk as FUSED; dq = bf16(bf16(t k) * sb),
+//    the autodiff of that scaling.
+// At head dim 64 both scales are 1/8 and every mode is one function up to
+// the order of f32 sums; at head dim 32 they differ.
 // Bound on the H100: tensor-core throughput, 5 products of 2*B*H*T*T*D =
-// 622 GFLOP at B=8, T=4501, 6 heads of 64; 311 GFLOP at 3 heads (this
-// design recomputes the scores in both passes: 7 products).
+// 622 GFLOP at B=8, T=4501, 6 heads of 64 (12 heads of 32 alike); 311 GFLOP
+// at 3 heads of 64 (this design recomputes the scores in both passes: 7
+// products).
 // Design: the TPU kernels keep dk/dv resident in VMEM across a sequential
-// query-block grid (packed) or hold a whole [T_pad, D] panel of q and dO
-// beside a [256, T_pad] score tile (BHTD); blocks on the H100 run in
-// parallel and in no order, with 227 KB of shared memory, so the work is
-// split into two deterministic passes over 64-row tiles, as in
-// FlashAttention-2, with no atomics:
+// query-block grid (fused), hold whole [T_pad, 128] panels of q and dO
+// beside [256, T_pad] f32 score tiles (split), double-buffer [256, chunk]
+// score tiles (chunked), or hold a whole [T_pad, D] panel beside a
+// [256, T_pad] score tile (BHTD); blocks on the H100 run in parallel and in
+// no order, with 227 KB of shared memory, so every mode is split into two
+// deterministic passes over 64-row tiles, as in FlashAttention-2, with no
+// atomics:
 //  - dkdv: one 128-thread block per (64-key tile, head, batch); each warp
-//    owns 16 keys, holds k and v as mma.sync A fragments and walks every
-//    64-query tile (qh and dO staged in shared memory in both layouts),
-//    accumulating dk and dv in registers. Keys at or past seq_len get
-//    dk = dv = 0.
+//    owns 16 keys, holds k (kh for CHUNKED) and v as mma.sync A fragments
+//    and walks every 64-query tile (q, scaled or not as the mode wants, and
+//    dO staged in shared memory in both layouts), accumulating dk and dv in
+//    registers. Keys at or past seq_len get dk = dv = 0 (JAX's split dkv
+//    computes them without a key bias and zeroes them afterwards).
 //  - dq: one block per (64-query tile, head, batch); each warp holds its
 //    qh and dO rows as A fragments and walks the key tiles below seq_len,
 //    accumulating dq in registers.
 // S^T and P^T stay in registers and feed the next product as A fragments
 // (the register reuse of the forward). dq, dk and dv are written through
-// their strides: into one [B, T, 3*H*64] gradient of the qkv projection
+// their strides: into one [B, T, 3*H*D] gradient of the qkv projection
 // (packed) or into any [B, H, T, D] views.
 // ---------------------------------------------------------------------------
+
+enum Mode { FUSED = 0, SPLIT = 1, CHUNKED = 2, BHTD = 3 };
 
 template <int N>
 __device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&c)[N][4],
@@ -246,48 +267,59 @@ __device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&c)
 }
 
 // Stage a 64 x HD tile of rows r0.. (row stride ld, zero past T) into
-// s[row][d] and, when st is given, st[d][row]; scale != 1 multiplies in f32
-// before the bf16 rounding.
+// s[row][d] and, when st is given, st[d][row]; a scale != 1 multiplies in
+// f32 before the bf16 rounding (scale_s for s, scale_st for st).
+__device__ __forceinline__ uint4 scale_bf16x8(uint4 raw, float scale) {
+  if (scale == 1.f) return raw;
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+  uint4 out;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    w[j] = pack_bf16x2(__bfloat162float(e[2 * j]) * scale,
+                       __bfloat162float(e[2 * j + 1]) * scale);
+  return out;
+}
+
 template <int HD>
 __device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, long long base,
-                                           long long ld, int r0, int T, float scale,
-                                           bf16* s, bf16* st, int tid) {
+                                           long long ld, int r0, int T, float scale_s,
+                                           float scale_st, bf16* s, bf16* st, int tid) {
   constexpr int LDQ = HD + 8;
   for (int i = tid; i < 64 * HD / 8; i += 128) {
     const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (r0 + r < T) raw = *reinterpret_cast<const uint4*>(src + base + (long long)(r0 + r) * ld + c8);
-    if (scale != 1.f) {
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-      uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
-      uint32_t o[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        o[j] = pack_bf16x2(__bfloat162float(e[2 * j]) * scale,
-                           __bfloat162float(e[2 * j + 1]) * scale);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = o[j];
-    }
-    *reinterpret_cast<uint4*>(s + r * LDQ + c8) = raw;
+    *reinterpret_cast<uint4*>(s + r * LDQ + c8) = scale_bf16x8(raw, scale_s);
     if (st) {
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      const uint4 t = scale_bf16x8(raw, scale_st);
+      const bf16* e = reinterpret_cast<const bf16*>(&t);
 #pragma unroll
       for (int j = 0; j < 8; ++j) st[(c8 + j) * LDR + r] = e[j];
     }
   }
 }
 
-template <int HD>
+// MODE: FUSED (also BHTD's dk/dv), SPLIT or CHUNKED.
+template <int HD, int MODE>
 __global__ void __launch_bounds__(128)
     flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, Strides in,
                           const bf16* __restrict__ dout, Strides dos_,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dk_out, bf16* __restrict__ dv_out, Strides gs,
-                          int T, int seq_len, int H, float scale) {
+                          int T, int seq_len, int H, float scale_b, float scale_f) {
+  static_assert(MODE == FUSED || MODE == SPLIT || MODE == CHUNKED, "dkdv mode");
   constexpr int LDQ = HD + 8;
-  __shared__ __align__(16) bf16 qs[BQ * LDQ];   // qh [query][d]
-  __shared__ __align__(16) bf16 qtr[HD * LDR];  // qh [d][query]
+  // bf16 scales of the staged operands (1 = unscaled): q for the scores,
+  // q for the dk product, k. FUSED: qh, qh, k; SPLIT: qh, q, k; CHUNKED:
+  // q, q, kh.
+  const float sq = MODE == CHUNKED ? 1.f : scale_b;
+  const float sqt = MODE == FUSED ? scale_b : 1.f;
+  const float sk = MODE == CHUNKED ? scale_b : 1.f;
+  const float sdk = MODE == FUSED ? 1.f : scale_f;  // dk's epilogue scale
+  __shared__ __align__(16) bf16 qs[BQ * LDQ];   // q [query][d], for the scores
+  __shared__ __align__(16) bf16 qtr[HD * LDR];  // q [d][query], for dk
   __shared__ __align__(16) bf16 dos[BQ * LDQ];  // dO [query][d]
   __shared__ __align__(16) bf16 dot[HD * LDR];  // dO [d][query]
   __shared__ float ls[BQ], ds[BQ];
@@ -303,9 +335,9 @@ __global__ void __launch_bounds__(128)
   const size_t lbase = ((size_t)b * H + h) * T;
   const int wr = warp * 16;
 
-  // k and v rows of this warp as A fragments
-  stage_tile<HD>(k, base, in.t, k0, T, 1.f, qs, nullptr, tid);
-  stage_tile<HD>(v, base, in.t, k0, T, 1.f, dos, nullptr, tid);
+  // k (kh for CHUNKED) and v rows of this warp as A fragments
+  stage_tile<HD>(k, base, in.t, k0, T, sk, 1.f, qs, nullptr, tid);
+  stage_tile<HD>(v, base, in.t, k0, T, 1.f, 1.f, dos, nullptr, tid);
   __syncthreads();
   uint32_t ka[HD / 16][4], va[HD / 16][4];
 #pragma unroll
@@ -322,8 +354,8 @@ __global__ void __launch_bounds__(128)
 
   for (int q0 = 0; q0 < T; q0 += BQ) {
     __syncthreads();  // previous tile (or the k/v staging) consumed
-    stage_tile<HD>(q, base, in.t, q0, T, scale, qs, qtr, tid);
-    stage_tile<HD>(dout, obase, dos_.t, q0, T, 1.f, dos, dot, tid);
+    stage_tile<HD>(q, base, in.t, q0, T, sq, sqt, qs, qtr, tid);
+    stage_tile<HD>(dout, obase, dos_.t, q0, T, 1.f, 1.f, dos, dot, tid);
     if (tid < BQ) {
       const bool ok = q0 + tid < T;
       ls[tid] = ok ? lse[lbase + q0 + tid] : INFINITY;  // p = 0 past T
@@ -376,6 +408,10 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
     const int c = n * 8 + 2 * t4;
+    if (MODE != FUSED) {  // one f32 product, then the one bf16 rounding
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] *= sdk;
+    }
     if (r0 < T) {
       const long long off = at(gs, b, h, r0) + c;
       *reinterpret_cast<uint32_t*>(dk_out + off) = pack_bf16x2(dk[n][0] * z0, dk[n][1] * z0);
@@ -393,14 +429,16 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int HD>
+// MODE: FUSED (also SPLIT's and CHUNKED's dq) or BHTD.
+template <int HD, int MODE>
 __global__ void __launch_bounds__(128)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, Strides in,
                         const bf16* __restrict__ dout, Strides dos_,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dq_out, Strides gs, int T, int seq_len, int H,
-                        float scale) {
+                        float scale_b, float scale_f) {
+  static_assert(MODE == FUSED || MODE == BHTD, "dq mode");
   constexpr int LDQ = HD + 8;
   __shared__ __align__(16) bf16 ks[BK * LDQ];   // k [key][d]
   __shared__ __align__(16) bf16 ktr[HD * LDR];  // k [d][key]
@@ -418,8 +456,8 @@ __global__ void __launch_bounds__(128)
   const int wr = warp * 16;
   const int r0 = q0 + wr + g, r1 = r0 + 8;
 
-  stage_tile<HD>(q, base, in.t, q0, T, scale, ks, nullptr, tid);
-  stage_tile<HD>(dout, obase, dos_.t, q0, T, 1.f, vs, nullptr, tid);
+  stage_tile<HD>(q, base, in.t, q0, T, scale_b, 1.f, ks, nullptr, tid);
+  stage_tile<HD>(dout, obase, dos_.t, q0, T, 1.f, 1.f, vs, nullptr, tid);
   __syncthreads();
   uint32_t qa[HD / 16][4], oa[HD / 16][4];
 #pragma unroll
@@ -440,8 +478,8 @@ __global__ void __launch_bounds__(128)
   for (int j = 0; j < n_tiles; ++j) {
     const int kv0 = j * BK;
     __syncthreads();  // previous tile (or the q/dO staging) consumed
-    stage_tile<HD>(k, base, in.t, kv0, T, 1.f, ks, ktr, tid);
-    stage_tile<HD>(v, base, in.t, kv0, T, 1.f, vs, nullptr, tid);
+    stage_tile<HD>(k, base, in.t, kv0, T, 1.f, 1.f, ks, ktr, tid);
+    stage_tile<HD>(v, base, in.t, kv0, T, 1.f, 1.f, vs, nullptr, tid);
     __syncthreads();
 
     float p[BK / 8][4], t[BK / 8][4];
@@ -483,12 +521,15 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
     const int c = n * 8 + 2 * t4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)  // BHTD: rounded to bf16, then the bf16 scale
+      dq[n][e] = MODE == BHTD ? bf16_round(dq[n][e]) * scale_b : dq[n][e] * scale_f;
     if (r0 < T)
       *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r0) + c) =
-          pack_bf16x2(bf16_round(dq[n][0]) * scale, bf16_round(dq[n][1]) * scale);
+          pack_bf16x2(dq[n][0], dq[n][1]);
     if (r1 < T)
       *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r1) + c) =
-          pack_bf16x2(bf16_round(dq[n][2]) * scale, bf16_round(dq[n][3]) * scale);
+          pack_bf16x2(dq[n][2], dq[n][3]);
   }
 }
 
@@ -504,51 +545,86 @@ int launch_fwd(const void* q, const void* k, const void* v, Strides in, void* o,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+// mode: FUSED, SPLIT, CHUNKED or BHTD; scale_b the bf16-rounded scale,
+// scale_f the f32 one (BHTD takes scale_b for both).
+template <int HD, int MODE>
 int launch_bwd(const void* q, const void* k, const void* v, Strides in, const void* dout,
                Strides dos_, const void* lse, const void* delta, void* dq, void* dk, void* dv,
-               Strides gs, int B, int T, int seq_len, int H, float scale, void* stream) {
+               Strides gs, int B, int T, int seq_len, int H, float scale_b, float scale_f,
+               void* stream) {
+  constexpr int DKDV = MODE == BHTD ? FUSED : MODE;  // BHTD's dk/dv are FUSED's
+  constexpr int DQ = MODE == BHTD ? BHTD : FUSED;    // every packed mode's dq is FUSED's
   if (B > 0 && T > 0 && seq_len > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     dim3 grid((T + BQ - 1) / BQ, H, B);
-    flash_bwd_dkdv_kernel<HD><<<grid, 128, 0, s>>>(
+    flash_bwd_dkdv_kernel<HD, DKDV><<<grid, 128, 0, s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, dos_,
         (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, gs, T, seq_len, H,
-        scale);
+        scale_b, scale_f);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_kernel<HD><<<grid, 128, 0, s>>>(
+    flash_bwd_dq_kernel<HD, DQ><<<grid, 128, 0, s>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, dos_,
-        (const float*)lse, (const float*)delta, (bf16*)dq, gs, T, seq_len, H, scale);
+        (const float*)lse, (const float*)delta, (bf16*)dq, gs, T, seq_len, H, scale_b,
+        scale_f);
   }
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Packed layout, head dim 64. q/k/v: bf16, element (b, t, h*64 + d) at
-// b*batch_stride + t*row_stride + h*64 + d; o: bf16 [B, T, H*64]
-// contiguous; lse: f32 [B, H, T].
-extern "C" int ibk_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                             void* lse, int B, int T, int seq_len, int H,
-                             long long row_stride, long long batch_stride,
-                             float scale, void* stream) {
-  const long long dm = (long long)H * 64;
-  return launch_fwd<64>(q, k, v, Strides{batch_stride, 64, row_stride}, o,
-                        Strides{T * dm, 64, dm}, lse, B, T, seq_len, H, scale, stream);
+// Packed backward at head dim D in {32, 64}, in mode FUSED, SPLIT or CHUNKED.
+template <int HD>
+int launch_bwd_packed(int mode, const void* q, const void* k, const void* v, Strides in,
+                      const void* dout, Strides dos_, const void* lse, const void* delta,
+                      void* dq, void* dk, void* dv, Strides gs, int B, int T, int seq_len,
+                      int H, float scale_b, float scale_f, void* stream) {
+  if (mode == FUSED)
+    return launch_bwd<HD, FUSED>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
+                                 seq_len, H, scale_b, scale_f, stream);
+  if (mode == SPLIT)
+    return launch_bwd<HD, SPLIT>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
+                                 seq_len, H, scale_b, scale_f, stream);
+  if (mode == CHUNKED)
+    return launch_bwd<HD, CHUNKED>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
+                                   seq_len, H, scale_b, scale_f, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Backward: q/k/v as in the forward; dout bf16 [B, T, H*64] contiguous; lse,
-// delta f32 [B, H, T]; dqkv bf16 [B, T, 3*H*64] contiguous (dq | dk | dv).
+}  // namespace
+
+// Packed layout, head dim D in {32, 64} (heads that pair into 128 lanes).
+// q/k/v: bf16, element (b, t, h*D + d) at b*batch_stride + t*row_stride +
+// h*D + d; o: bf16 [B, T, H*D] contiguous; lse: f32 [B, H, T]. scale: the
+// bf16-rounded 1/sqrt(D), by which q is scaled in bf16.
+extern "C" int ibk_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                             void* lse, int B, int T, int seq_len, int H, int D,
+                             long long row_stride, long long batch_stride,
+                             float scale, void* stream) {
+  const long long dm = (long long)H * D;
+  const Strides in{batch_stride, D, row_stride}, os{T * dm, D, dm};
+  if (D == 64) return launch_fwd<64>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, stream);
+  if (D == 32) return launch_fwd<32>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Backward: q/k/v as in the forward; dout bf16 [B, T, H*D] contiguous; lse,
+// delta f32 [B, H, T]; dqkv bf16 [B, T, 3*H*D] contiguous (dq | dk | dv).
+// mode: 0 FUSED, 1 SPLIT, 2 CHUNKED (the rounding points of the JAX
+// kernels above); scale_b / scale_f: 1/sqrt(D) rounded to bf16 / in f32.
 extern "C" int ibk_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dqkv, int B, int T,
-                             int seq_len, int H, long long row_stride,
-                             long long batch_stride, float scale, void* stream) {
-  const long long dm = (long long)H * 64;
+                             int seq_len, int H, int D, long long row_stride,
+                             long long batch_stride, float scale_b, float scale_f, int mode,
+                             void* stream) {
+  const long long dm = (long long)H * D;
   bf16* g = (bf16*)dqkv;
-  return launch_bwd<64>(q, k, v, Strides{batch_stride, 64, row_stride}, dout,
-                        Strides{T * dm, 64, dm}, lse, delta, g, g + dm, g + 2 * dm,
-                        Strides{3 * T * dm, 64, 3 * dm}, B, T, seq_len, H, scale, stream);
+  const Strides in{batch_stride, D, row_stride}, dos_{T * dm, D, dm}, gs{3 * T * dm, D, 3 * dm};
+  if (D == 64)
+    return launch_bwd_packed<64>(mode, q, k, v, in, dout, dos_, lse, delta, g, g + dm,
+                                 g + 2 * dm, gs, B, T, seq_len, H, scale_b, scale_f, stream);
+  if (D == 32)
+    return launch_bwd_packed<32>(mode, q, k, v, in, dout, dos_, lse, delta, g, g + dm,
+                                 g + 2 * dm, gs, B, T, seq_len, H, scale_b, scale_f, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // BHTD layout, head dim D in {32, 64}: q, k, v share the element strides
@@ -577,10 +653,10 @@ extern "C" int ibk_flash_attn_bwd(const void* q, const void* k, const void* v,
                                   void* stream) {
   const Strides in{in_b, in_h, in_t}, dos_{do_b, do_h, do_t}, gs{g_b, g_h, g_t};
   if (D == 64)
-    return launch_bwd<64>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T, seq_len,
-                          H, scale, stream);
+    return launch_bwd<64, BHTD>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
+                                seq_len, H, scale, scale, stream);
   if (D == 32)
-    return launch_bwd<32>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T, seq_len,
-                          H, scale, stream);
+    return launch_bwd<32, BHTD>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
+                                seq_len, H, scale, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -44,7 +44,11 @@ switches; an :class:`Ops` table gives it its entries. Serving takes the
 forward-only kernels (``KERNEL_OPS``, or ``PLAIN_OPS``); training
 (``model.train()``, the JAX model's ``deterministic=False``) takes
 :func:`train_ops`, the differentiable entries, each a
-``torch.autograd.Function`` whose backward is a kernel too. In training the
+``torch.autograd.Function`` whose backward is a kernel too; the flash
+backward's form (JAX's ``INTENTBEV_BWD_FUSED`` / ``INTENTBEV_BWD_KV_CHUNK``)
+is the model's ``bwd_fused`` / ``bwd_kv_chunk``, and ``remat``
+(``TrainConfig.remat_vit_blocks``) recomputes each encoder block in the
+backward (``torch.utils.checkpoint``, JAX's ``nn.remat``). In training the
 lidar stream takes a dense BEV through the patch embed (a matmul over
 patches), BatchNorm uses the batch statistics, and the drop-path gates
 (per sample, 0 or 1/keep, rates linspace(0, rate, depth)) are drawn from
@@ -68,12 +72,13 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 import numpy as np
 
 from ..bev.rasterize import decode_map_transport
-from ..ops.flash_packed import (flash_attention_fn, flash_attention_packed,
-                                flash_attention_packed_plain, reference_attention)
+from ..ops.flash_packed import (MODEL_PAD_ROWS, flash_attention_fn, flash_attention_packed,
+                                flash_attention_packed_plain, pad_len, reference_attention)
 from ..ops.fused_ln_dense import fused_ln_dense, fused_ln_dense_fn, fused_ln_dense_plain
 from ..ops.fused_ln_mlp import (GELU_MODES, fused_ln_mlp, fused_ln_mlp_fn, fused_ln_mlp_plain,
                                 fused_ln_mlp_train, fused_ln_mlp_train_plain)
@@ -126,13 +131,18 @@ PLAIN_OPS = Ops(layernorm_plain, fused_ln_mlp_plain, _flash_plain, voxel_embed_t
 PATCH_EMBED_MIN_CHANNELS = 128  # the fused patch embed's gate (JAX: wide inputs only)
 
 
-def train_ops(plain: bool) -> Ops:
+def train_ops(plain: bool, bwd_fused: bool = True, bwd_kv_chunk: int = 0) -> Ops:
     """The differentiable entries of a training pass (exact erf GELU):
-    kernels forward and backward, or with ``plain`` their plain versions."""
+    kernels forward and backward, or with ``plain`` their plain versions.
+    ``bwd_fused`` / ``bwd_kv_chunk`` pick the flash backward's form
+    (``ops.flash_packed.bwd_mode``) over the token count padded as the JAX
+    ViT pads it."""
     return Ops(
         layernorm=partial(layernorm_fn, plain=plain),
         fused_ln_mlp=None,
-        flash=lambda qkv, heads: flash_attention_fn(qkv, heads, None, plain),
+        flash=lambda qkv, heads: flash_attention_fn(
+            qkv, heads, None, plain, bwd_fused, bwd_kv_chunk,
+            pad_len(qkv.shape[1], MODEL_PAD_ROWS)),
         voxel_embed=None,
         fused_ln_mlp_tail=lambda x, g, b, w1, b1, w2, b2, gate, eps, gelu: fused_ln_mlp_fn(
             x, g, b, w1, b1, w2, b2, gate, eps, plain),
@@ -341,11 +351,13 @@ class EncoderBlock(nn.Module):
 
 class ViTEncoder(nn.Module):
     """Patch embed + CLS + pos embed + blocks; returns final-normed tokens
-    [B, 1+N, D]."""
+    [B, 1+N, D]. With ``remat`` each block of a training pass keeps only
+    its input and runs its forward again in the backward."""
 
     def __init__(self, cfg, in_channels: int, dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
+        self.remat = False
         h, w = cfg.img_size
         p = cfg.patch_size
         n = (h // p) * (w // p)
@@ -397,8 +409,13 @@ class ViTEncoder(nn.Module):
         if self.training or not uses_ln_chain(cfg):
             gates = self.drop_path_gates(b, generator if self.training else None,
                                          tokens.device)
-            for blk, g in zip(blocks, gates):
-                tokens = blk.forward_unchained(tokens, ops, gelu, cfg, g)
+            remat = self.training and self.remat
+            for blk, g in zip(blocks, gates):  # the gates are drawn: a recompute sees them
+                if remat:
+                    tokens = checkpoint(blk.forward_unchained, tokens, ops, gelu, cfg, g,
+                                        use_reentrant=False)
+                else:
+                    tokens = blk.forward_unchained(tokens, ops, gelu, cfg, g)
             return _norm(tokens, self.norm, ops, cfg.use_fused_layernorm)
         xn = ops.layernorm(tokens, blocks[0].norm1.weight, blocks[0].norm1.bias, LN_EPS)
         for i, blk in enumerate(blocks):
@@ -451,11 +468,14 @@ class IntentNetViT(nn.Module):
     ``dtype`` is the compute dtype, ``param_dtype`` that of the weights
     (default: the compute dtype; training passes f32). In training mode the
     lidar input is a dense NHWC BEV and the block MLPs take the exact erf
-    GELU."""
+    GELU; ``bwd_fused`` and ``bwd_kv_chunk`` pick the flash backward's form
+    and ``remat`` recomputes the encoder blocks (:func:`train_ops`,
+    :class:`ViTEncoder`)."""
 
     def __init__(self, cfg, head_cfg, dtype: torch.dtype = torch.float32,
                  gelu: str = "erf", plain_ops: bool = False,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, bwd_fused: bool = True,
+                 bwd_kv_chunk: int = 0, remat: bool = False):
         super().__init__()
         if gelu not in GELU_MODES:
             raise ValueError(f"gelu mode {gelu!r} not in {GELU_MODES}")
@@ -464,7 +484,9 @@ class IntentNetViT(nn.Module):
         self.dtype = dtype
         self.gelu = gelu
         self.plain_ops = plain_ops
+        self.bwd_fused, self.bwd_kv_chunk = bwd_fused, bwd_kv_chunk
         self.backbone = TwoStreamViTBackbone(cfg, pdt)
+        self.backbone.vit_lidar.remat = self.backbone.vit_map.remat = remat
         self.det_head = DetectionHead(cfg.fusion_planes, head_cfg.num_anchors,
                                       head_cfg.num_box_params, pdt)
         self.intention_head = IntentionHead(cfg.fusion_planes, head_cfg.num_anchors,
@@ -477,7 +499,8 @@ class IntentNetViT(nn.Module):
             check_trainable(self.cfg)
             if self.gelu != "erf":
                 raise ValueError("training takes the exact erf GELU")
-            ops, lidar = train_ops(self.plain_ops), lidar.to(self.dtype)
+            ops = train_ops(self.plain_ops, self.bwd_fused, self.bwd_kv_chunk)
+            lidar = lidar.to(self.dtype)
         else:
             ops = PLAIN_OPS if self.plain_ops else KERNEL_OPS
         feats = self.backbone(lidar, m, ops, self.gelu, generator)

@@ -38,7 +38,8 @@ KERNELS = ("voxel_embed", "flash_packed", "fused_ln_mlp", "layernorm",
            "flash_packed_bwd", "fused_ln_mlp_train", "fused_ln_mlp_bwd",
            "layernorm_train", "layernorm_bwd", "voxel_fill", "fused_mlp_int8", "fused_mlp",
            "fused_ln_dense", "patch_embed", "fused_mlp_train", "fused_mlp_bwd",
-           "fused_ln_dense_bwd", "flash_attention", "flash_attention_bwd")
+           "fused_ln_dense_bwd", "flash_attention", "flash_attention_bwd",
+           "flash_packed_bwd_split", "flash_packed_bwd_chunked")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: ctypes.CDLL | None = None
@@ -117,13 +118,13 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ibk_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "ibk_fused_ln_mlp": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
-    "ibk_flash_fwd": (_P,) * 5 + (_I, _I, _I, _I, _L, _L, _F, _P),
+    "ibk_flash_fwd": (_P,) * 5 + (_I,) * 5 + (_L, _L, _F, _P),
     "ibk_voxel_embed": (_P,) * 8 + (_I,) * 8 + (_P,),
     "ibk_layernorm_train": (_P,) * 6 + (_I, _I, _F, _P),
     "ibk_layernorm_bwd": (_P,) * 8 + (_I, _I, _P),
     "ibk_fused_ln_mlp_train": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
     "ibk_fused_ln_mlp_bwd": (_P,) * 20 + (_I, _I, _I, _F, _I, _P),
-    "ibk_flash_bwd": (_P,) * 7 + (_I, _I, _I, _I, _L, _L, _F, _P),
+    "ibk_flash_bwd": (_P,) * 7 + (_I,) * 5 + (_L, _L, _F, _F, _I, _P),
     "ibk_voxel_fill": (_P,) * 6 + (_I,) * 6 + (_P,),
     "ibk_fused_mlp_int8": (_P,) * 9 + (_I, _I, _I, _P),
     "ibk_fused_mlp": (_P,) * 8 + (_I, _I, _I, _P),

@@ -2,13 +2,27 @@
 ``csrc/flash_packed.cu``): forward with O and lse, and the backward.
 
 Counterpart of ``intentbev/ops/flash_packed.py`` (``_fwd``, ``_fwd_chunked``
-and ``_bwd_fused``). Keys at or past ``seq_len`` are masked, so callers need
-not pad: the kernels take any T. q, k and v may be column slices of one qkv
-projection output (same strides, unit last stride); the backward writes
+and ``_bwd``). Keys at or past ``seq_len`` are masked, so callers need
+not pad: the kernels take any T. q, k and v may be column slices of one
+qkv projection output (same strides, unit last stride); the backward writes
 dq, dk and dv into one gradient of that output. :func:`flash_attention_fn`
 is the differentiable entry over the qkv output. :func:`reference_attention`
 is the dense attention the JAX model runs where ``use_flash_attention`` is
 off, in plain PyTorch.
+
+The packed kernels are built for head dims :data:`HEAD_DIMS` (32 and 64);
+any other head dim whose heads pair raises on CUDA. As in JAX, q is scaled
+in its own dtype by 1/sqrt(D) rounded to that dtype, and the epilogues of dq
+(and of dk, where the scale comes last) multiply by the f32 scale.
+
+The backward takes JAX's three forms (``_bwd``, ``:649-660``), chosen by
+explicit arguments where JAX reads ``INTENTBEV_BWD_FUSED`` and
+``INTENTBEV_BWD_KV_CHUNK`` at import: ``bwd_fused`` (default) runs the
+fused kernel's rounding; ``bwd_fused=False`` the split kernels'
+(``_bwd_dq_kernel``, ``_bwd_dkv_kernel``), or, where ``bwd_kv_chunk``
+divides JAX's padded length, the chunked ones' (:func:`bwd_mode`). They
+differ only in where the scale rounds (``csrc/flash_packed.cu``), so at head
+dim 64 all three are one function up to the order of f32 sums.
 
 Dispatch as in JAX (``intentbev/ops/flash_packed.py:778``): a head layout
 whose heads do not pair into 128 lanes (:func:`pairs_heads`, e.g. ViT-Ti's
@@ -21,12 +35,53 @@ entries do not take.
 
 from __future__ import annotations
 
+import math
+import warnings
+
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .flash_attention import flash_attention_packed_layout, flash_attention_qkv
+from .flash_attention import HEAD_DIMS, flash_attention_packed_layout, flash_attention_qkv
 
 LANE_BLOCK = 128  # the JAX packed kernels' lane block
+# JAX pads T to a multiple of its forward and backward row blocks
+# (BLOCK_Q_PK 384, BLOCK_BWD_PK 256; intentbev/ops/flash_packed.py:792); the
+# chunked backward runs where the chunk divides that length (:659)
+PAD_ROWS = math.lcm(384, 256)
+# the JAX ViT first pads its tokens to the BHTD flash block (BLOCK_Q 512,
+# intentbev/models/vit.py:578-583), so its packed entry sees that length
+MODEL_PAD_ROWS = 512
+BWD_MODES = ("fused", "split", "chunked")  # the C entry's mode numbers, in order
+BWD_COUNTERS = {"fused": "flash_packed_bwd", "split": "flash_packed_bwd_split",
+                "chunked": "flash_packed_bwd_chunked"}
+
+
+def pad_len(t: int, block: int) -> int:
+    return -(-t // block) * block
+
+
+def bwd_mode(t: int, bwd_fused: bool = True, bwd_kv_chunk: int = 0) -> str:
+    """The backward JAX's ``_bwd`` runs over ``t`` rows (the length its packed
+    entry is given): ``"fused"``, or with ``bwd_fused`` off ``"chunked"``
+    where ``bwd_kv_chunk`` divides the padded length and ``"split"``
+    otherwise. ``bwd_kv_chunk`` with ``bwd_fused`` on is ignored with a
+    warning, as JAX warns (``intentbev/ops/flash_packed.py:85-93``)."""
+    if bwd_fused:
+        if bwd_kv_chunk:
+            warnings.warn("bwd_kv_chunk is set but bwd_fused is on: the fused backward "
+                          "runs; turn bwd_fused off to run the chunked kernels",
+                          stacklevel=2)
+        return "fused"
+    if bwd_kv_chunk and pad_len(t, PAD_ROWS) % bwd_kv_chunk == 0:
+        return "chunked"
+    return "split"
+
+
+def scales(head_dim: int, dtype: torch.dtype) -> tuple[float, float]:
+    """(1/sqrt(D) rounded to ``dtype``, by which q or k is scaled before the
+    score product; 1/sqrt(D) as a Python float, the epilogues' scale)."""
+    scale = head_dim ** -0.5
+    return float(torch.tensor(scale, dtype=dtype)), scale
 
 
 def pairs_heads(head_dim: int, num_heads: int) -> bool:
@@ -39,16 +94,17 @@ def pairs_heads(head_dim: int, num_heads: int) -> bool:
 def flash_attention_packed_plain(q, k, v, num_heads: int,
                                  seq_len: int | None = None):
     """Plain PyTorch version with the JAX kernel's rounding points: q scaled
-    in its own dtype, f32 scores and softmax, P rounded to v's dtype before
-    PV. Returns ``(o [B, T, H*D] in q's dtype, lse f32 [B, H, T])``. Heads
-    that do not pair take the BHTD plain version."""
+    in its own dtype by the scale rounded to that dtype, f32 scores and
+    softmax, P rounded to v's dtype before PV. Returns ``(o [B, T, H*D] in
+    q's dtype, lse f32 [B, H, T])``. Heads that do not pair take the BHTD
+    plain version."""
     b, t, dm = q.shape
     dh = dm // num_heads
     if not pairs_heads(dh, num_heads):
         return flash_attention_packed_layout(q, k, v, num_heads, seq_len, plain=True)
     seq_len = t if seq_len is None else int(seq_len)
     dt = q.dtype
-    scale = dh ** -0.5
+    scale = scales(dh, dt)[0]
 
     def heads(x):  # one sample [T, H*D] -> [H, T, D]
         return x.reshape(t, num_heads, dh).transpose(0, 1)
@@ -93,67 +149,93 @@ def reference_attention(q, k, v, num_heads: int, kv_len: int | None = None):
     return out.transpose(1, 2).reshape(b, t, dm)
 
 
-def flash_attention_packed(q, k, v, num_heads: int, seq_len: int | None = None):
-    """softmax(q k^T / sqrt(D) + key mask) v per head over [B, T, H*64]
-    bf16 CUDA tensors; returns ``(o, lse)``. Heads that do not pair take the
-    BHTD kernel (:mod:`.flash_attention`). CPU tensors take
-    :func:`flash_attention_packed_plain`."""
-    if not pairs_heads(q.shape[-1] // num_heads, num_heads):
-        return flash_attention_packed_layout(q, k, v, num_heads, seq_len)
-    if q.device.type == "cpu":
-        return flash_attention_packed_plain(q, k, v, num_heads, seq_len)
+def _check_qkv(name, q, k, v, num_heads, seq_len):
+    """-> (b, t, dm, head dim, seq_len) of packed bf16 CUDA q, k, v that
+    share 16-byte-aligned rows."""
     b, t, dm = q.shape
+    dh = dm // num_heads
     seq_len = t if seq_len is None else int(seq_len)
-    require(0 < seq_len <= t, f"flash: seq_len {seq_len} outside (0, {t}]")
-    require(dm == num_heads * 64, f"flash kernel is built for head dim 64, got {dm}/{num_heads}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    require(0 < seq_len <= t, f"{name}: seq_len {seq_len} outside (0, {t}]")
+    require(dh * num_heads == dm and dh in HEAD_DIMS,
+            f"{name}: the packed kernels are built for head dims {HEAD_DIMS}, got head dim "
+            f"{dm / num_heads:g} ({dm} over {num_heads} heads)")
+    for x_name, x in (("q", q), ("k", k), ("v", v)):
         require(x.is_cuda and x.device == q.device and x.dtype == torch.bfloat16
                 and tuple(x.shape) == (b, t, dm),
-                f"flash: {name} must be CUDA bf16 {(b, t, dm)}, got "
+                f"{name}: {x_name} must be CUDA bf16 {(b, t, dm)}, got "
                 f"{x.dtype} {tuple(x.shape)} {x.device}")
         require(x.stride() == q.stride() and x.stride(-1) == 1
                 and x.stride(1) % 8 == 0 and x.stride(0) % 8 == 0
                 and x.data_ptr() % 16 == 0,
-                f"flash: {name} strides {x.stride()} not shared 16-byte-aligned rows")
+                f"{name}: {x_name} strides {x.stride()} not shared 16-byte-aligned rows")
+    return b, t, dm, dh, seq_len
+
+
+def flash_attention_packed(q, k, v, num_heads: int, seq_len: int | None = None):
+    """softmax(q k^T / sqrt(D) + key mask) v per head over [B, T, H*D] bf16
+    CUDA tensors (D in :data:`HEAD_DIMS`); returns ``(o, lse)``. Heads that
+    do not pair take the BHTD kernel (:mod:`.flash_attention`). CPU tensors
+    take :func:`flash_attention_packed_plain`."""
+    if not pairs_heads(q.shape[-1] // num_heads, num_heads):
+        return flash_attention_packed_layout(q, k, v, num_heads, seq_len)
+    if q.device.type == "cpu":
+        return flash_attention_packed_plain(q, k, v, num_heads, seq_len)
+    b, t, dm, dh, seq_len = _check_qkv("flash", q, k, v, num_heads, seq_len)
     o = torch.empty(b, t, dm, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, num_heads, t, dtype=torch.float32, device=q.device)
     err = kernels().ibk_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, t, seq_len, num_heads, q.stride(1), q.stride(0), 64 ** -0.5,
+        b, t, seq_len, num_heads, dh, q.stride(1), q.stride(0), scales(dh, q.dtype)[0],
         stream_ptr(q))
     check_launch(err, "flash_packed")
     return o, lse
 
 
 def flash_attention_packed_bwd_plain(q, k, v, o, lse, do, num_heads: int,
-                                     seq_len: int | None = None):
-    """Plain backward with the JAX kernel's rounding points: qh = q * scale
-    in q's dtype, p = exp(qh k^T - lse) in f32, delta = rowsum(dO * O) per
-    head, t = p * (dO v^T - delta); p and t rounded to q's dtype before the
-    products dv = p^T dO, dk = t^T qh and dq = scale * t k. Keys at or past
+                                     seq_len: int | None = None, bwd_fused: bool = True,
+                                     bwd_kv_chunk: int = 0, padded_len: int | None = None):
+    """Plain backward with the rounding points of the JAX kernels that
+    :func:`bwd_mode` picks for ``padded_len`` rows (default T): p =
+    exp(s - lse) in f32, delta = rowsum(dO * O) per head, t = p * (dO v^T -
+    delta); p and t rounded to q's dtype before the products dv = p^T dO and
+    dq = bf16(f32(t k) * scale), with s = qh k^T, qh = q * sb in q's dtype
+    (sb the scale rounded to it). dk is t^T qh (fused), bf16(f32(t^T q) *
+    scale) (split), or that with the scores s^T = kh q^T, kh = k * sb in k's
+    dtype (chunked; its dq takes split's scores). Keys at or past
     ``seq_len`` get dk = dv = 0. Returns dqkv [B, T, 3*H*D] in q's dtype."""
     b, t, dm = q.shape
     dh = dm // num_heads
     seq_len = t if seq_len is None else int(seq_len)
+    mode = bwd_mode(t if padded_len is None else padded_len, bwd_fused, bwd_kv_chunk)
     dt = q.dtype
-    scale = dh ** -0.5
+    sb, sf = scales(dh, dt)
 
     def heads(x):  # one sample [T, H*D] -> [H, T, D] f32
         return x.reshape(t, num_heads, dh).transpose(0, 1).float()
 
-    dqkv = torch.empty(b, t, 3 * dm, dtype=dt, device=q.device)
-    for i in range(b):  # one sample at a time bounds the [H, T, T] scores
-        qh = (heads(q[i]) * scale).to(dt).float()
-        kh, vh, oh, doh = heads(k[i]), heads(v[i]), heads(o[i]), heads(do[i])
-        s = torch.matmul(qh, kh.transpose(-1, -2))
+    def grad_s(s, doh, vh, delta, lse_i):
+        """(p, t rounded to dt) of scores s [H, T, T] (query rows)."""
         if seq_len < t:
             s[..., seq_len:] = float("-inf")
-        p = torch.exp(s - lse[i].float()[..., None])
+        p = torch.exp(s - lse_i[..., None])
+        return p, (p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta)).to(dt).float()
+
+    dqkv = torch.empty(b, t, 3 * dm, dtype=dt, device=q.device)
+    for i in range(b):  # one sample at a time bounds the [H, T, T] scores
+        qf, kh, vh, oh, doh = heads(q[i]), heads(k[i]), heads(v[i]), heads(o[i]), heads(do[i])
+        qh = (qf * sb).to(dt).float()
+        lse_i = lse[i].float()
         delta = (doh * oh).sum(-1, keepdim=True)
-        tt = (p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta)).to(dt).float()
+        p, tt = grad_s(torch.matmul(qh, kh.transpose(-1, -2)), doh, vh, delta, lse_i)
+        dq = torch.matmul(tt, kh) * sf
+        if mode == "chunked":  # dk/dv from the scores kh q^T
+            ks = (kh * sb).to(dt).float()
+            p, tt = grad_s(torch.matmul(qf, ks.transpose(-1, -2)), doh, vh, delta, lse_i)
         dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
-        dk = torch.matmul(tt.transpose(-1, -2), qh)
-        dq = torch.matmul(tt, kh) * scale
+        if mode == "fused":
+            dk = torch.matmul(tt.transpose(-1, -2), qh)
+        else:
+            dk = torch.matmul(tt.transpose(-1, -2), qf) * sf
         dk[:, seq_len:] = 0
         dv[:, seq_len:] = 0
         for j, g in enumerate((dq, dk, dv)):
@@ -162,49 +244,43 @@ def flash_attention_packed_bwd_plain(q, k, v, o, lse, do, num_heads: int,
 
 
 def flash_attention_packed_bwd(q, k, v, o, lse, do, num_heads: int,
-                               seq_len: int | None = None):
+                               seq_len: int | None = None, bwd_fused: bool = True,
+                               bwd_kv_chunk: int = 0, padded_len: int | None = None):
     """Backward kernels over bf16 CUDA tensors: q, k, v as in the forward
-    (column slices allowed), o and do [B, T, H*64], lse f32 [B, H, T].
-    delta = rowsum(dO * O) per head is plain PyTorch here, as it is XLA in
-    the JAX package. Returns dqkv [B, T, 3*H*64] bf16. CPU tensors take
-    :func:`flash_attention_packed_bwd_plain`."""
+    (column slices allowed), o and do [B, T, H*D], lse f32 [B, H, T]; the
+    rounding mode that :func:`bwd_mode` picks (counted apart:
+    :data:`BWD_COUNTERS`). delta = rowsum(dO * O) per head is plain PyTorch
+    here, as it is XLA in the JAX package. Returns dqkv [B, T, 3*H*D] bf16.
+    CPU tensors take :func:`flash_attention_packed_bwd_plain`."""
     if q.device.type == "cpu":
-        return flash_attention_packed_bwd_plain(q, k, v, o, lse, do, num_heads, seq_len)
-    b, t, dm = q.shape
-    seq_len = t if seq_len is None else int(seq_len)
-    require(0 < seq_len <= t, f"flash bwd: seq_len {seq_len} outside (0, {t}]")
-    require(dm == num_heads * 64, f"flash kernel is built for head dim 64, got {dm}/{num_heads}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        require(x.is_cuda and x.device == q.device and x.dtype == torch.bfloat16
-                and tuple(x.shape) == (b, t, dm) and x.stride() == q.stride()
-                and x.stride(-1) == 1 and x.stride(1) % 8 == 0 and x.stride(0) % 8 == 0
-                and x.data_ptr() % 16 == 0,
-                f"flash bwd: {name} must be CUDA bf16 {(b, t, dm)} with shared "
-                f"16-byte-aligned rows, got {x.dtype} {tuple(x.shape)} {x.stride()}")
+        return flash_attention_packed_bwd_plain(q, k, v, o, lse, do, num_heads, seq_len,
+                                                bwd_fused, bwd_kv_chunk, padded_len)
+    b, t, dm, dh, seq_len = _check_qkv("flash bwd", q, k, v, num_heads, seq_len)
+    mode = bwd_mode(t if padded_len is None else padded_len, bwd_fused, bwd_kv_chunk)
     do = do.contiguous()
     for name, x in (("o", o), ("do", do)):
         require(x.device == q.device and x.dtype == torch.bfloat16
                 and tuple(x.shape) == (b, t, dm), f"flash bwd: {name} must be bf16 {(b, t, dm)}")
     require(lse.dtype == torch.float32 and tuple(lse.shape) == (b, num_heads, t)
             and lse.is_contiguous(), "flash bwd: lse must be contiguous f32 [B, H, T]")
-    delta = (do.float() * o.float()).reshape(b, t, num_heads, dm // num_heads) \
+    delta = (do.float() * o.float()).reshape(b, t, num_heads, dh) \
         .sum(-1).transpose(1, 2).contiguous()
     dqkv = torch.empty(b, t, 3 * dm, dtype=q.dtype, device=q.device)
     err = kernels().ibk_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), b, t, seq_len, num_heads, q.stride(1),
-        q.stride(0), 64 ** -0.5, stream_ptr(q))
-    check_launch(err, "flash_packed_bwd")
+        delta.data_ptr(), dqkv.data_ptr(), b, t, seq_len, num_heads, dh, q.stride(1),
+        q.stride(0), *scales(dh, q.dtype), BWD_MODES.index(mode), stream_ptr(q))
+    check_launch(err, BWD_COUNTERS[mode])
     return dqkv
 
 
 class _FlashFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, num_heads, seq_len, plain):
+    def forward(ctx, qkv, num_heads, seq_len, plain, bwd):
         d = qkv.shape[-1] // 3
         fwd = flash_attention_packed_plain if plain else flash_attention_packed
         o, lse = fwd(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], num_heads, seq_len)
-        ctx.num_heads, ctx.seq_len, ctx.plain = num_heads, seq_len, plain
+        ctx.num_heads, ctx.seq_len, ctx.plain, ctx.bwd = num_heads, seq_len, plain, bwd
         ctx.save_for_backward(qkv, o, lse)
         return o
 
@@ -214,17 +290,21 @@ class _FlashFn(torch.autograd.Function):
         d = qkv.shape[-1] // 3
         bwd = flash_attention_packed_bwd_plain if ctx.plain else flash_attention_packed_bwd
         dqkv = bwd(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], o, lse, do,
-                   ctx.num_heads, ctx.seq_len)
-        return dqkv, None, None, None
+                   ctx.num_heads, ctx.seq_len, *ctx.bwd)
+        return dqkv, None, None, None, None
 
 
 def flash_attention_fn(qkv, num_heads: int, seq_len: int | None = None,
-                       plain: bool = False):
+                       plain: bool = False, bwd_fused: bool = True, bwd_kv_chunk: int = 0,
+                       padded_len: int | None = None):
     """Differentiable attention over the qkv projection output [B, T, 3*H*D]
     (q | k | v): the forward kernel saves O and lse, the backward kernels
-    return the gradient of qkv. Heads that do not pair take the BHTD kernels
-    (:func:`.flash_attention.flash_attention_qkv`). ``plain`` runs the plain
-    versions."""
+    return the gradient of qkv, in the form :func:`bwd_mode` picks from
+    ``bwd_fused``, ``bwd_kv_chunk`` and ``padded_len`` (the row count JAX's
+    packed entry would see; default T). Heads that do not pair take the BHTD
+    kernels (:func:`.flash_attention.flash_attention_qkv`), which have one
+    backward, as JAX's fallback does. ``plain`` runs the plain versions."""
     if not pairs_heads(qkv.shape[-1] // 3 // num_heads, num_heads):
         return flash_attention_qkv(qkv, num_heads, seq_len, plain)
-    return _FlashFn.apply(qkv, num_heads, seq_len, plain)
+    return _FlashFn.apply(qkv, num_heads, seq_len, plain,
+                          (bwd_fused, bwd_kv_chunk, padded_len))

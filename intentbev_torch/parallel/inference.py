@@ -101,13 +101,18 @@ class StreamingInferencer:
                                      self.chunk_patch, self.num_chunks)
 
     def _to_device(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     @torch.inference_mode()
     def logits(self, chunks, map_bev):
-        """Packed host chunks + map (any transport encoding) -> the model's
+        """Packed chunks + map (any transport encoding), on the host or
+        already copied to the device (``chunks_to_device``) -> the model's
         f32 (cls, box deltas, intent logits) on the device."""
-        lidar = decode_chunk_transport(chunks_to_device(chunks, self.device))
+        if not isinstance(chunks.wid, torch.Tensor):
+            chunks = chunks_to_device(chunks, self.device)
+        lidar = decode_chunk_transport(chunks)
         if self.cfg.model_family == "cnn":
             fill = voxel_fill_bev_plain if self.model.plain_ops else voxel_fill_bev
             g = self.cfg.grid

@@ -3,6 +3,8 @@
 - :func:`serving_batch` (``bench.py`` ``run_sustained.random_batch``):
   uniform points over the grid's metric extent, u8-integral intensities,
   and a bit-packed binary map with 5 % of its cells set;
+- :func:`bench_batch` (``bench.py`` ``build_bench``): uniform points and
+  intensities and a dense 0/1 f32 map, the timed lines' inputs;
 - :func:`train_batch` (``tools/bench_train.py``): uniform points and
   intensities, a dense 0/1 map, max_gt GT boxes per sample (2 x 4.5 m
   cars ahead of the ego), identity augmentation;
@@ -34,6 +36,21 @@ def serving_batch(grid, batch: int, points_per_sweep: int, seed: int):
     pts[..., 3] = r.integers(0, 256, shape).astype(np.float32)
     mp = pack_map_channels(
         r.uniform(0, 1, (batch, grid.height_px, grid.width_px, grid.map_channels)) < 0.05)
+    return pts, np.ones(shape, bool), mp
+
+
+def bench_batch(grid, batch: int, points_per_sweep: int, seed: int = 0):
+    """-> (points f32[B, S, P, 4], valid bool[B, S, P], map f32[B, H, W, C]),
+    drawn in ``bench.py``'s order."""
+    r = np.random.default_rng(seed)
+    shape = (batch, grid.lidar_sweeps, points_per_sweep)
+    pts = np.zeros(shape + (4,), np.float32)
+    pts[..., 0] = r.uniform(-20, 60, shape)
+    pts[..., 1] = r.uniform(-70, 70, shape)
+    pts[..., 2] = r.uniform(-2, 3.7, shape)
+    pts[..., 3] = r.uniform(0, 255, shape)
+    mp = (r.uniform(0, 1, (batch, grid.height_px, grid.width_px, grid.map_channels))
+          < 0.05).astype(np.float32)
     return pts, np.ones(shape, bool), mp
 
 

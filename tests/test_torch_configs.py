@@ -4,7 +4,8 @@ that the port imports nothing of the JAX package.
 Each factory's output is compared field by field (nested dataclasses,
 properties included), and the dict round trip is checked on the port's
 copy. The import rule is an AST scan of every module of ``intentbev_torch``
-and of ``chip_smoke.py``.
+and of its entry points: ``chip_smoke.py``, ``bench_torch.py``,
+``tools/bench_train_torch.py`` and ``tools/profile_torch_slice.py``.
 """
 
 import ast
@@ -58,7 +59,9 @@ def _imports_of(path: Path):
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    files = sorted((ROOT / "intentbev_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "intentbev_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "bench_train_torch.py",
+        ROOT / "tools" / "profile_torch_slice.py"]
     assert len(files) > 20
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in files for m in _imports_of(p)
            if m.split(".")[0] in ("intentbev", "jax", "jaxlib", "flax", "optax")]

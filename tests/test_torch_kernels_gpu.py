@@ -24,7 +24,9 @@ drop-path gate, backward with and without one) and the LN + dense backward
 ViT-Ti width runs (LayerNorm, LN+MLP, voxel embed) run at D=384 and D=192,
 and the BHTD attention (forward and backward) at head dims 64 and 32, on
 contiguous [B, H, T, D] tensors and on the views of a qkv projection
-output, at small and at ViT-Ti's main-path shapes.
+output, at small and at ViT-Ti's main-path shapes. The packed attention's
+three backward forms (fused, split, chunked: row 11) run at 6 heads of 64
+and at 12 heads of 32, with the packed forward at head dim 32.
 """
 
 import importlib
@@ -543,3 +545,82 @@ def test_fused_ln_dense_bwd(dev, rows, dout, gelu, monkeypatch):
     else:
         ctrl = ln_dense_bwd_no_m2(x, g, b, w, bias, dy)
     assert max(_rels(got, ctrl)) >= LN_DENSE_BWD_LIMIT
+
+
+# Row 11 (the split and chunked backwards) and the packed path at head dim
+# 32 (limits those of chip_smoke.py phase 11: sound readings <= 1.9e-4, a
+# moved rounding point >= 2.5e-3 on dk).
+ROW11_LIMIT = 7e-4
+tfp = importlib.import_module("intentbev_torch.ops.flash_packed")
+# (b, t, seq_len, chunk): the chunk divides JAX's padded length (768 rows
+# at T=300, 4608 at 4501), so the chunked form runs
+FORM_SHAPES = [(1, 300, 250, 256), (8, 4501, 4501, 1152)]
+
+
+def _packed_bwd_parts(fn, q, k, v, o, lse, do, heads, seq_len, form, chunk):
+    fused, kv_chunk = {"fused": (True, 0), "split": (False, 0), "chunked": (False, chunk)}[form]
+    g = fn(q, k, v, o, lse, do, heads, seq_len, fused, kv_chunk)
+    return [g[..., j * D:(j + 1) * D] for j in range(3)]
+
+
+@pytest.mark.parametrize("b,t,seq_len,chunk", FORM_SHAPES)
+def test_flash_packed_head_dim_32(dev, monkeypatch, b, t, seq_len, chunk):
+    """12 heads of 32 on qkv slices: the forward (control: q scaled by the
+    f32 scale, seen in lse) and the backward in each form (controls: another
+    form's rounding), each form counted under its own name."""
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    do = _randn((b, t, D), 1.0, 1)
+    o, lse = flash_attention_packed(q, k, v, 12, seq_len)
+    o_p, lse_p = flash_attention_packed_plain(q, k, v, 12, seq_len)
+    assert _rel(o, o_p) < FLASH_LIMIT and float((lse - lse_p).abs().max()) < LSE_LIMIT
+    for form, ctrl_form in (("fused", "split"), ("split", "fused"), ("chunked", "split")):
+        reset_launch_counts()
+        got = _packed_bwd_parts(flash_attention_packed_bwd, q, k, v, o, lse, do, 12, seq_len,
+                                form, chunk)
+        assert launches[tfp.BWD_COUNTERS[form]] == 1 and sum(launches.values()) == 1
+        want = _packed_bwd_parts(flash_attention_packed_bwd_plain, q, k, v, o, lse, do, 12,
+                                 seq_len, form, chunk)
+        assert max(_rels(got, want)) < ROW11_LIMIT, (form, _rels(got, want))
+        assert not got[1][:, seq_len:].any() and not got[2][:, seq_len:].any()
+        ctrl = _packed_bwd_parts(flash_attention_packed_bwd_plain, q, k, v, o, lse, do, 12,
+                                 seq_len, ctrl_form, chunk)
+        assert max(_rels(got, ctrl)) >= ROW11_LIMIT, (form, _rels(got, ctrl))
+    monkeypatch.setattr(tfp, "scales", lambda dh, dtype: (dh ** -0.5, dh ** -0.5))
+    lse_c = flash_attention_packed_plain(q, k, v, 12, seq_len)[1]
+    assert float((lse - lse_c).abs().max()) >= LSE_LIMIT
+
+
+@pytest.mark.parametrize("b,t,seq_len,chunk", FORM_SHAPES)
+def test_flash_bwd_forms_head_dim_64(dev, b, t, seq_len, chunk):
+    """6 heads of 64: the split and chunked kernels against their plain
+    versions (control: delta left out); at head dim 64 every form gives the
+    fused kernel's values."""
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    do = _randn((b, t, D), 1.0, 1)
+    o, lse = flash_attention_packed(q, k, v, 6, seq_len)
+    fused = _packed_bwd_parts(flash_attention_packed_bwd, q, k, v, o, lse, do, 6, seq_len,
+                              "fused", chunk)
+    for form in ("split", "chunked"):
+        reset_launch_counts()
+        got = _packed_bwd_parts(flash_attention_packed_bwd, q, k, v, o, lse, do, 6, seq_len,
+                                form, chunk)
+        assert launches[tfp.BWD_COUNTERS[form]] == 1 and sum(launches.values()) == 1
+        want = _packed_bwd_parts(flash_attention_packed_bwd_plain, q, k, v, o, lse, do, 6,
+                                 seq_len, form, chunk)
+        assert max(_rels(got, want)) < ROW11_LIMIT, (form, _rels(got, want))
+        ctrl = _packed_bwd_parts(flash_attention_packed_bwd_plain, q, k, v, torch.zeros_like(o),
+                                 lse, do, 6, seq_len, form, chunk)
+        assert max(_rels(got, ctrl)) >= ROW11_LIMIT
+        assert all(torch.equal(a, f) for a, f in zip(got, fused)), form
+
+
+def test_packed_head_dim_128_raises(dev):
+    """Heads of 128 pair into 128 lanes, but the packed kernels are built for
+    head dims 32 and 64: the entries raise, naming the head dim."""
+    x = _randn((1, 64, 256), 1.0, 0)
+    with pytest.raises(ValueError, match="head dim 128"):
+        flash_attention_packed(x, x, x, 2)
+    with pytest.raises(ValueError, match="head dim 128"):
+        flash_attention_packed_bwd(x, x, x, x, torch.zeros(1, 2, 64, device="cuda"), x, 2)

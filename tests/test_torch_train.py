@@ -340,9 +340,10 @@ def test_train_step_matches_jax(rng, name):
     check_train_step(rng, *_step_configs(name))
 
 
-def check_train_step(rng, jc, tc):
+def check_train_step(rng, jc, tc, port_kw=None):
     """One step of the JAX config ``jc`` and its port copy ``tc`` (the
-    checks of :func:`test_train_step_matches_jax`)."""
+    checks of :func:`test_train_step_matches_jax`); ``port_kw``: more
+    arguments of the port's ``IntentNetViT``."""
     g = jc.grid
     b, s, p, n_gt = 2, g.lidar_sweeps, 1500, jc.loss.max_gt_boxes
     pts, valid = _points(rng, b, s, p, g)
@@ -385,7 +386,7 @@ def check_train_step(rng, jc, tc):
     draws = StepDraws(
         _jax_dropout_draws(jax.random.split(rng_aug, b), jc.augment, g.height_px, g.width_px),
         _t(np.asarray(jax.random.uniform(rng_loss, (b * anchors.shape[0],)))))
-    port = IntentNetViT(tc.vit, tc.heads, dtype=torch.float32)
+    port = IntentNetViT(tc.vit, tc.heads, dtype=torch.float32, **(port_kw or {}))
     port.load_state_dict(from_flax(variables))
     step = make_train_step(port, tc, _t(anchors), make_optimizer(port.parameters(), tc))
     got = step({k: _t(v) for k, v in batch.items()}, draws=draws)
