@@ -89,6 +89,19 @@ Phases (each prints a line; any failure exits nonzero with no result):
     ``_sustained`` one pass of 3 batches) with ``bench.py``'s keys in its
     order, finite and positive, and ``tools/bench_train_torch.py``'s step
     under the fused and the chunked backward (2 steps).
+13. The library ops of ``intentbev_torch.ops.experimental``, which no model
+    path calls (in JAX neither): each op's own entry at the attention
+    sublayer's shapes of the flagship ViT ([8, 4608, 384], 4501 real keys),
+    counted, then each kernel against its plain version with a control:
+    ``flash_attention_packed_int8`` at 6 heads of 64 and 12 of 32 (control:
+    P's codes rounded against a running tile max) and
+    ``fused_dense_residual`` forward and backward through its autograd
+    function with a per-sample drop-path gate (controls: the Dense output
+    rounded before the gate and residual; db from the rounded dyg), with
+    the reference calls' times: the bf16 packed forward and SDPA for the
+    int8 attention; ``torch.addmm`` (gate 1, bias in the residual) and the
+    model's unfused Linear, gate and residual, forward and backward (the
+    kernels autograd launches for it) for the projection.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -127,6 +140,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     # 1. device
@@ -165,6 +179,9 @@ def main() -> None:
         layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
         layernorm_train_plain, voxel_embed_tokens, voxel_embed_tokens_plain, voxel_fill_bev,
         voxel_fill_bev_plain)
+    from intentbev_torch.ops.experimental import (
+        flash_attention_packed_int8, flash_attention_packed_int8_plain, fused_dense_residual,
+        fused_proj_bwd, fused_proj_bwd_plain, fused_proj_fwd, fused_proj_fwd_plain)
     from intentbev_torch.ops.flash_attention import flash_attention_packed_layout, heads_view
     from intentbev_torch.ops.fused_ln_mlp import gelu as gelu_fn
     from intentbev_torch.ops.int8 import int_matmul
@@ -1493,6 +1510,123 @@ def main() -> None:
           f"({ {f: round(r['ms_per_step'], 2) for f, r in bench_train.items()} } ms/step over "
           f"2 steps) [{card}]", flush=True)
 
+    # 13. the library ops of ops.experimental (rows 18 and 19): no model path
+    # calls them, so the path is each op's entry at the attention sublayer's
+    # shapes (JAX's ViT pads 4501 tokens to 4608 rows; 4501 real keys)
+    t13 = time.perf_counter()
+    t_pad = 4608
+    qkv = randn((batch, t_pad, 3 * d), 1.0)
+    q, k, vv = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    n_p = batch * t_pad
+    xp, rp, dyp = randn((n_p, d), 1.0), randn((n_p, d), 1.0), randn((n_p, d), 1.0)
+    wp, bp = randn((d, d), d ** -0.5), randn((d,), 0.1, torch.float32)
+    keep_p = (torch.rand(batch, 1, generator=gen, device=dev) < 0.9).float() / 0.9
+    gate_p = keep_p.repeat_interleave(t_pad, 0).contiguous()  # per sample, [N, 1]
+    exp_counts = {}
+    for h_, tag in ((heads, ""), (2 * heads, "[D=32]")):
+        _build.reset_launch_counts()
+        o8 = flash_attention_packed_int8(q, k, vv, h_, tokens)
+        torch.cuda.synchronize()
+        exp_counts[f"flash_int8{tag}"] = dict(_build.launches)
+        check(o8.shape == (batch, t_pad, d) and bool(torch.isfinite(o8).all()),
+              f"flash_int8{tag}: o {tuple(o8.shape)} not finite of shape {(batch, t_pad, d)}")
+    leaves = [t_.detach().clone().requires_grad_(True) for t_ in
+              (xp.view(batch, t_pad, d), wp, bp, rp.view(batch, t_pad, d), keep_p)]
+    _build.reset_launch_counts()
+    y_p = fused_dense_residual(*leaves)
+    y_p.backward(dyp.view(batch, t_pad, d))
+    torch.cuda.synchronize()
+    exp_counts["fused_proj"] = exp_counts["fused_proj_bwd"] = dict(_build.launches)
+    finite = bool(torch.isfinite(y_p).all()) and all(
+        bool(torch.isfinite(t_.grad).all()) for t_ in leaves)
+    check(finite and not leaves[4].grad.any()
+          and torch.equal(leaves[3].grad, dyp.view(batch, t_pad, d)),
+          "fused_dense_residual: non-finite output or gradient, a gate gradient, or d residual "
+          "!= dy")
+    for name, counter in (("flash_int8", "flash_int8"), ("flash_int8[D=32]", "flash_int8"),
+                          ("fused_proj", "fused_proj"), ("fused_proj", "fused_proj_bwd")):
+        check(exp_counts[name][counter] == 1 and sum(exp_counts[name].values()) == (
+            2 if name == "fused_proj" else 1), f"{name}: launches {exp_counts[name]}")
+    print(f"experimental: launches flash_int8 1 (6x64), 1 (12x32); fused_dense_residual "
+          f"forward + backward: fused_proj 1, fused_proj_bwd 1; d gate 0, d residual = dy",
+          flush=True)
+    del y_p, leaves, o8
+
+    def proj_unfused(x_, w_, b_, r_, g_):
+        # the control's fault: the model's rounding, the Dense output to bf16
+        # before the gate and the residual
+        return ((torch.matmul(x_.float(), w_.float()) + b_).to(x_.dtype).float() * g_
+                + r_.float()).to(x_.dtype)
+
+    int8_flops = 4 * batch * tokens * tokens * d  # two products over the real keys
+    exp_cases = {}
+    for h_, tag in ((heads, ""), (2 * heads, "[D=32]")):
+        exp_cases[f"flash_int8{tag}"] = (
+            lambda h_=h_: flash_attention_packed_int8(q, k, vv, h_, tokens),
+            lambda h_=h_: flash_attention_packed_int8_plain(q, k, vv, h_, tokens),
+            lambda h_=h_: flash_attention_packed_int8_plain(q, k, vv, h_, tokens, p_max="tile"),
+            "P rounded against a running tile max", (rel_l2,), (2e-3,), 10, 2,
+            nbytes(q, k, vv) + n_p * d * 2, int8_flops, None)
+    exp_cases["fused_proj"] = (
+        lambda: fused_proj_fwd(xp, wp, bp, rp, gate_p),
+        lambda: fused_proj_fwd_plain(xp, wp, bp, rp, gate_p),
+        lambda: proj_unfused(xp, wp, bp, rp, gate_p),
+        "Dense output rounded before gate and residual", (rel_l2,), (3e-4,), 20, 5,
+        nbytes(xp, wp, bp, rp, gate_p) + n_p * d * 2, 2 * n_p * d * d, None)
+    exp_cases["fused_proj_bwd"] = (
+        lambda: fused_proj_bwd(xp, wp, dyp, gate_p),
+        lambda: fused_proj_bwd_plain(xp, wp, dyp, gate_p),
+        lambda: (*fused_proj_bwd_plain(xp, wp, dyp, gate_p)[:2],
+                 (dyp.float() * gate_p).bfloat16().float().sum(0)),
+        "db from the rounded dyg", (rel_l2,) * 3, (1e-3, 1e-4, 1e-4), 20, 5,
+        nbytes(xp, wp, dyp, gate_p) + n_p * d * 2 + d * d * 4 + d * 4, 4 * n_p * d * d, None)
+    rates["flash_int8"] = rates["flash_int8[D=32]"] = INT8_OPS_PER_S
+    check_kernels(exp_cases)
+
+    # reference columns (timed only; none computes the same function): the
+    # bf16 packed forward and SDPA over the same q, k, v; cuBLAS's addmm with
+    # gate 1 and the bias in the residual, and the model's unfused Linear,
+    # gate and residual, forward and backward
+    refs = {}
+    for h_, tag in ((heads, ""), (2 * heads, "[D=32]")):
+        def heads_of(t_, h_=h_):
+            return t_[:, :tokens].reshape(batch, tokens, h_, d // h_).transpose(1, 2).contiguous()
+        qs_, ks_, vs_ = heads_of(q), heads_of(k), heads_of(vv)
+        refs[f"flash_int8{tag}"] = {
+            "bf16 packed forward": cuda_ms(lambda h_=h_: flash_attention_packed(q, k, vv, h_, tokens),
+                                           10),
+            "SDPA bf16": cuda_ms(torch.no_grad()(
+                lambda: F.scaled_dot_product_attention(qs_, ks_, vs_)), 10)}
+        del qs_, ks_, vs_
+    r2b = (rp.float() + bp).bfloat16()
+    w_lin = wp.t().contiguous()  # PyTorch's Linear layout [out, in]
+    x3p, r3p, b16, g16 = xp.view(batch, t_pad, d), rp.view(batch, t_pad, d), bp.bfloat16(), \
+        keep_p.view(batch, 1, 1).bfloat16()
+
+    @torch.no_grad()
+    def unfused_bwd():
+        # the kernels autograd launches for it: dyg = dy * gate, dx = dyg W,
+        # dW = dyg^T x, db = sum(dyg) (d residual = dy), without the
+        # engine's host time, which the card would otherwise wait on
+        dyg = (dyp.view(batch, t_pad, d) * g16).view(n_p, d)
+        return torch.matmul(dyg, w_lin), torch.matmul(dyg.t(), xp), dyg.sum(0)
+
+    refs["fused_proj"] = {
+        "addmm (gate 1, bias in residual)": cuda_ms(
+            torch.no_grad()(lambda: torch.addmm(r2b, xp, wp)), 20),
+        "unfused Linear, gate, residual": cuda_ms(
+            torch.no_grad()(lambda: r3p + F.linear(x3p, w_lin, b16) * g16), 20)}
+    refs["fused_proj_bwd"] = {"unfused backward (its kernels)": cuda_ms(unfused_bwd, 20)}
+    for name, cols in refs.items():
+        r = record[name]
+        print(f"experimental {name}: kernel {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms; references "
+              + ", ".join(f"{k_} {v_:.3f} ms" for k_, v_ in cols.items()) + f"  [{card}]",
+              flush=True)
+    del qkv, q, k, vv, xp, rp, dyp, r2b, w_lin, x3p, r3p, exp_cases
+    torch.cuda.empty_cache()
+    print(f"experimental: phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
+
     serving_runs = (serve_counts, *config_counts.values())
     tiny_runs = (tiny_serve_counts, tiny_train_counts)
     kernels = []
@@ -1562,14 +1696,24 @@ def main() -> None:
              (form_counts["split[D=32]"],)),
             ("flash_packed_bwd_chunked[D=32]", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:414 (dq), :467 (dk/dv)",
-             (form_counts["chunked[D=32]"],))):
+             (form_counts["chunked[D=32]"],)),
+            # rows 18 and 19, the library ops of ops.experimental (phase 13)
+            ("flash_int8", "flash_int8.cu", "intentbev/ops/experimental/flash_int8.py:49",
+             (exp_counts["flash_int8"],)),
+            ("flash_int8[D=32]", "flash_int8.cu", "intentbev/ops/experimental/flash_int8.py:49",
+             (exp_counts["flash_int8[D=32]"],)),
+            ("fused_proj", "fused_proj.cu", "intentbev/ops/experimental/fused_proj.py:32",
+             (exp_counts["fused_proj"],)),
+            ("fused_proj_bwd", "fused_proj.cu", "intentbev/ops/experimental/fused_proj.py:40",
+             (exp_counts["fused_proj_bwd"],))):
         r = record[name]
         counter = name.split("[")[0]
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 32 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 36 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -221,6 +221,46 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[2], const bf16* s, int l
   b[1] = *reinterpret_cast<uint32_t*>(&v1);
 }
 
+// Asynchronous 16-byte copies from device to shared memory (cp.async,
+// bypassing L1); with valid false the 16 bytes are zeros (nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A fragment of the 16x16 tile at (r0, k0) of a [row][k] array in shared
+// memory (stride ld), through ldmatrix: what load_a reads.
+__device__ __forceinline__ void load_a_x4(uint32_t (&a)[4], const bf16* s, int ld, int r0,
+                                          int k0, int lane) {
+  const bf16* p = s + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8;
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// B fragments of two 16x8 tiles, at (k0, n0) and (k0, n0 + 8), of a
+// [k][n] array (stride ld): b[0..1] for n0, b[2..3] for n0 + 8.
+__device__ __forceinline__ void load_b_trans_x4(uint32_t (&b)[4], const bf16* s, int ld,
+                                                int n0, int k0, int lane) {
+  const int i = lane >> 3, j = lane & 7;
+  const bf16* p = s + (k0 + (i & 1) * 8 + j) * ld + n0 + (i >> 1) * 8;
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(a));
+}
+
 // Row LayerNorm of D = 32 * N f32 values spread as N per lane of one warp
 // (lane holds columns 2*lane + 64*i + {0, 1}, i < N / 2; N = 12 at D = 384,
 // 6 at D = 192): two-pass f32 statistics, as the JAX kernels compute them

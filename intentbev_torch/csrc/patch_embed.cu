@@ -32,32 +32,6 @@ constexpr size_t A_ELEMS = (size_t)MT * (KC_MAX + 8);
 constexpr size_t B_ELEMS = (size_t)KC_MAX * LDB;
 constexpr size_t SMEM_BYTES = 2 * (A_ELEMS + B_ELEMS) * 2;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// B fragments of two 16x8 tiles, at (k0, n0) and (k0, n0 + 8), of a
-// [k][n] array (stride ld): b[0..1] for n0, b[2..3] for n0 + 8.
-__device__ __forceinline__ void load_b_trans_x4(uint32_t (&b)[4], const bf16* s, int ld,
-                                                int n0, int k0, int lane) {
-  const int i = lane >> 3, j = lane & 7;
-  const bf16* p = s + (k0 + (i & 1) * 8 + j) * ld + n0 + (i >> 1) * 8;
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(a));
-}
-
 __global__ void __launch_bounds__(THREADS)
     patch_embed_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                        const float* __restrict__ bias, bf16* __restrict__ out, int H,

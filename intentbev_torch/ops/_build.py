@@ -39,7 +39,8 @@ KERNELS = ("voxel_embed", "flash_packed", "fused_ln_mlp", "layernorm",
            "layernorm_train", "layernorm_bwd", "voxel_fill", "fused_mlp_int8", "fused_mlp",
            "fused_ln_dense", "patch_embed", "fused_mlp_train", "fused_mlp_bwd",
            "fused_ln_dense_bwd", "flash_attention", "flash_attention_bwd",
-           "flash_packed_bwd_split", "flash_packed_bwd_chunked")
+           "flash_packed_bwd_split", "flash_packed_bwd_chunked", "flash_int8", "fused_proj",
+           "fused_proj_bwd")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: ctypes.CDLL | None = None
@@ -134,6 +135,9 @@ _SIGNATURES = {
     "ibk_patch_embed": (_P,) * 4 + (_I,) * 7 + (_P,),
     "ibk_flash_attn_fwd": (_P,) * 5 + (_I,) * 5 + (_L,) * 6 + (_F, _P),
     "ibk_flash_attn_bwd": (_P,) * 9 + (_I,) * 5 + (_L,) * 9 + (_F, _P),
+    "ibk_flash_int8": (_P,) * 9 + (_I,) * 5 + (_L, _L, _F, _P),
+    "ibk_fused_proj": (_P,) * 6 + (_I,) * 3 + (_P,),
+    "ibk_fused_proj_bwd": (_P,) * 9 + (_I,) * 4 + (_P,),
 }
 
 

@@ -26,7 +26,10 @@ and the BHTD attention (forward and backward) at head dims 64 and 32, on
 contiguous [B, H, T, D] tensors and on the views of a qkv projection
 output, at small and at ViT-Ti's main-path shapes. The packed attention's
 three backward forms (fused, split, chunked: row 11) run at 6 heads of 64
-and at 12 heads of 32, with the packed forward at head dim 32.
+and at 12 heads of 32, with the packed forward at head dim 32. The library
+ops of ``ops.experimental`` (rows 18 and 19: the int8 attention, the
+residual projection forward and backward) run at small and at the
+attention sublayer's shapes, and raise on what they are not built for.
 """
 
 import importlib
@@ -49,6 +52,9 @@ from intentbev_torch.ops import (  # noqa: E402
     layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
     layernorm_train_plain, reset_launch_counts, voxel_embed_tokens,
     voxel_embed_tokens_plain, voxel_fill_bev, voxel_fill_bev_plain)
+from intentbev_torch.ops.experimental import (  # noqa: E402
+    flash_attention_packed_int8, flash_attention_packed_int8_plain, fused_dense_residual,
+    fused_proj_bwd, fused_proj_bwd_plain, fused_proj_fwd, fused_proj_fwd_plain)
 from intentbev_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_packed_layout, heads_view)
 from intentbev_torch.ops.voxel_embed import (  # noqa: E402
@@ -624,3 +630,129 @@ def test_packed_head_dim_128_raises(dev):
         flash_attention_packed(x, x, x, 2)
     with pytest.raises(ValueError, match="head dim 128"):
         flash_attention_packed_bwd(x, x, x, x, torch.zeros(1, 2, 64, device="cuda"), x, 2)
+
+
+# Rows 18 and 19 (limits those of chip_smoke.py phase 13). The int8 kernel
+# computes the plain version's integer products exactly; they differ only
+# where denom's f32 sum order tips o to the neighbouring bf16. Control: P's
+# codes rounded against a running max over 64-key tiles (an online softmax).
+# On an H100: <= 3.5e-5 against the control's >= 3.1e-2.
+FLASH_INT8_LIMIT = 2e-3
+# The projection: f32 sums in another order under one bf16 rounding.
+# Controls: the forward with the Dense output rounded to bf16 before the
+# gate and the residual (the model's unfused rounding); the backward with
+# db summed from the rounded dyg_c (with a gate; without one dyg_c = dy, and
+# the control is dW rounded to bf16). On an H100: forward <= 5.7e-5 against
+# the control's 2.2e-3; backward dx <= 4.4e-5, dW <= 1.3e-6, db <= 5.1e-7,
+# the control's db 1.7e-3.
+PROJ_LIMIT = 3e-4
+PROJ_BWD_LIMITS = (1e-3, 1e-4, 1e-4)  # dx, dW, db
+
+
+@pytest.mark.parametrize("heads", [6, 12])
+@pytest.mark.parametrize("b,t,seq_len", [(1, 300, 250), (8, 4608, 4501)])
+def test_flash_int8(dev, b, t, seq_len, heads):
+    """Int8 attention on qkv slices at 6 heads of 64 and 12 of 32 against
+    its plain version; one launch counted."""
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    reset_launch_counts()
+    got = flash_attention_packed_int8(q, k, v, heads, seq_len)
+    assert launches["flash_int8"] == 1 and sum(launches.values()) == 1
+    want = flash_attention_packed_int8_plain(q, k, v, heads, seq_len)
+    assert _rel(got, want) < FLASH_INT8_LIMIT
+    ctrl = flash_attention_packed_int8_plain(q, k, v, heads, seq_len, p_max="tile")
+    assert _rel(got, ctrl) >= FLASH_INT8_LIMIT
+
+
+def test_flash_int8_v_scale_takes_masked_rows(dev):
+    """v's rows past seq_len enter its panel scale: scaled x50 there, they
+    change o (with its scale over the real rows only, o would not move)."""
+    qkv = _randn((2, 300, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    o = flash_attention_packed_int8(q, k, v, 6, 250)
+    v[:, 250:] *= 50
+    o50 = flash_attention_packed_int8(q, k, v, 6, 250)
+    assert _rel(o50, flash_attention_packed_int8_plain(q, k, v, 6, 250)) < FLASH_INT8_LIMIT
+    assert _rel(o50, o) >= FLASH_INT8_LIMIT
+
+
+def test_flash_int8_raises(dev):
+    """Head dims other than 32 and 64, and f32 inputs, raise on the card."""
+    x = _randn((1, 64, 256), 1.0, 0)
+    with pytest.raises(ValueError, match="head dim 128"):
+        flash_attention_packed_int8(x, x, x, 2)
+    x32 = x[..., :128].float()
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention_packed_int8(x32, x32, x32, 2)
+
+
+def _proj_args(n, d_in, d_out, gated):
+    x, r = _randn((n, d_in), 1.0, 0), _randn((n, d_out), 1.0, 1)
+    w, bias = _randn((d_in, d_out), d_in ** -0.5, 2), _randn((d_out,), 0.1, 3, torch.float32)
+    # a per-sample drop-path gate (keep 0.9) over samples of 4608 rows
+    keep = (torch.rand(-(-n // 4608), generator=_gen(4), device="cuda") < 0.9).float() / 0.9
+    gate = keep.repeat_interleave(4608)[:n, None].contiguous() if gated else torch.ones(
+        n, 1, device="cuda")
+    return x, w, bias, r, gate
+
+
+def _proj_unfused(x, w, bias, r, gate):  # control: the Dense output rounded first
+    return ((torch.matmul(x.float(), w.float()) + bias).to(x.dtype).float() * gate
+            + r.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("n,d_in,d_out", [(600, 384, 192), (600, 192, 384),
+                                          (8 * 4608, 384, 384)])
+def test_fused_proj(dev, n, d_in, d_out, gated):
+    """The forward and the backward kernels against their plain versions;
+    one launch each."""
+    x, w, bias, r, gate = _proj_args(n, d_in, d_out, gated)
+    reset_launch_counts()
+    y = fused_proj_fwd(x, w, bias, r, gate)
+    assert launches["fused_proj"] == 1 and sum(launches.values()) == 1
+    assert _rel(y, fused_proj_fwd_plain(x, w, bias, r, gate)) < PROJ_LIMIT
+    assert _rel(y, _proj_unfused(x, w, bias, r, gate)) >= PROJ_LIMIT
+    dy = _randn((n, d_out), 1.0, 5)
+    got = fused_proj_bwd(x, w, dy, gate)
+    assert launches["fused_proj_bwd"] == 1
+    want = fused_proj_bwd_plain(x, w, dy, gate)
+    assert all(r_ < lim for r_, lim in zip(_rels(got, want), PROJ_BWD_LIMITS)), _rels(got, want)
+    if gated:  # control: db from the rounded dyg_c
+        ctrl = (want[0], want[1], (dy.float() * gate).bfloat16().float().sum(0))
+    else:  # dyg_c = dy, so no rounding point moves; control: dW rounded to bf16
+        ctrl = (want[0], want[1].bfloat16(), want[2])
+    assert any(r_ >= lim for r_, lim in zip(_rels(got, ctrl), PROJ_BWD_LIMITS))
+
+
+def test_fused_dense_residual_autograd(dev):
+    """The autograd function through the kernels against itself through the
+    plain versions: d residual = dy, d gate = 0, dW in w's dtype."""
+    x, w, bias, r, _ = _proj_args(2 * 300, 384, 384, False)
+    gate = (torch.rand(2, 1, generator=_gen(6), device="cuda") < 0.9).float() / 0.9
+    dy = _randn((2, 300, 384), 1.0, 7)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x.view(2, 300, 384), w, bias, r.view(2, 300, 384), gate)]
+        reset_launch_counts()
+        y = fused_dense_residual(*leaves[:4], leaves[4], plain=plain)
+        y.backward(dy)
+        assert launches["fused_proj"] == launches["fused_proj_bwd"] == (0 if plain else 1)
+        grads.append([y] + [t.grad for t in leaves])
+    (y, dx, dw, db, dr, dg), want = grads[0], grads[1]
+    assert _rel(y, want[0]) < PROJ_LIMIT
+    assert all(r_ < lim for r_, lim in zip(_rels((dx, dw, db), want[1:4]), PROJ_BWD_LIMITS))
+    assert dw.dtype == torch.bfloat16 and torch.equal(dr, dy) and not dg.any()
+
+
+def test_fused_proj_raises(dev):
+    """Widths other than 192 and 384, and f32 activations, raise on the card."""
+    x, w, bias, r, gate = _proj_args(64, 384, 384, False)
+    with pytest.raises(ValueError, match="d_in and d_out"):
+        fused_proj_fwd(x[:, :128].contiguous(), w[:128].contiguous(), bias, r, gate)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_proj_fwd(x.float(), w, bias, r, gate)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_proj_bwd(x, w, r.float(), gate)

@@ -5,6 +5,7 @@ PyTorch port, on one CUDA card.
     python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed,tiny}
     python3 tools/profile_torch_slice.py --train [--model vit|cnn] [--out DIR]
     python3 tools/profile_torch_slice.py --train --vit-config {ln_dense,unfused_ln,tiny}
+    python3 tools/profile_torch_slice.py --experimental [--out DIR]
 
 Serving: drives ``intentbev_torch``'s ``StreamingInferencer``
 (``default_vit_config()`` at full width and depth, seeded random weights,
@@ -51,6 +52,17 @@ launched in a BN span), and the rest by kernel name. A copy kernel inside
 the first-conv span would be cuDNN relaying out the 290-channel input. The
 first conv is also timed alone with CUDA events, on the fill's output as
 the model reads it and on an NCHW-contiguous copy of it.
+
+``--experimental`` traces one call of each library op of
+``intentbev_torch.ops.experimental`` (no model path calls them) at
+``chip_smoke.py`` phase 13's shapes: the int8 attention over [8, 4608, 384]
+with 4501 real keys at 6 heads of 64 and 12 of 32, and
+``fused_dense_residual`` over the same rows (W [384, 384], a per-sample
+drop-path gate), forward and backward through autograd, beside the
+model's unfused Linear, gate and residual on the same tensors, and reports
+the device time of each kernel each op launched (its pre-pass, row
+kernels, column sums and split-K GEMM; cuBLAS's GEMMs) in
+``profile_experimental.json``.
 
 It prints a summary and writes ``profile_slice.json`` (``profile_train.json``)
 and the Chrome trace ``trace.json`` under ``--out`` (by default
@@ -371,6 +383,78 @@ def profile_train(args, card) -> None:
     print(f"wrote {out / 'profile_train.json'} and {trace_path}")
 
 
+def profile_experimental(args, card) -> None:
+    """One traced call of each op of ``ops.experimental`` at phase 13's
+    shapes: device ms and calls per kernel, per op."""
+    import torch
+
+    from intentbev_torch.ops.experimental import (flash_attention_packed_int8,
+                                                  fused_dense_residual)
+
+    b, t, seq_len, d = 8, 4608, 4501, 384
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).bfloat16()
+
+    qkv = randn(b, t, 3 * d)
+    q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    dy = randn(b, t, d)
+    leaves = [a.requires_grad_(True) for a in (
+        randn(b, t, d), randn(d, d, std=d ** -0.5),
+        torch.randn(d, generator=gen, device="cuda") * 0.1, randn(b, t, d))]
+    gate = (torch.rand(b, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
+
+    w_lin = leaves[1].detach().t().contiguous().requires_grad_(True)  # [out, in]
+
+    def calls():
+        for heads in (6, 12):
+            with torch.profiler.record_function(f"exp/flash_int8 {heads}x{d // heads}"):
+                flash_attention_packed_int8(q, k, v, heads, seq_len)
+        for a in (*leaves, w_lin):
+            a.grad = None  # no accumulation kernels in the backward spans
+        with torch.profiler.record_function("exp/fused_proj forward"):
+            y = fused_dense_residual(*leaves, gate)
+        with torch.profiler.record_function("exp/fused_proj backward"):
+            y.backward(dy)  # the launches run on autograd's thread, inside this span
+        # the reference: the model's unfused Linear, gate and residual
+        for a in leaves:
+            a.grad = None
+        with torch.profiler.record_function("exp/unfused forward"):
+            y = leaves[3] + torch.nn.functional.linear(
+                leaves[0], w_lin, leaves[2].bfloat16()) * gate[:, :, None].bfloat16()
+        with torch.profiler.record_function("exp/unfused backward"):
+            y.backward(dy)
+        torch.cuda.synchronize()
+
+    calls()  # warm-up: the kernel library's build, the allocator
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    trace_path = out / "trace.json"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        calls()
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+    ops = collections.defaultdict(lambda: collections.defaultdict(lambda: [0.0, 0]))
+    for e, span in zip(dev, launch_spans(events, dev, "exp/")):
+        if span is not None:
+            ops[span][e["name"][:90]][0] += e["dur"] / 1e3
+            ops[span][e["name"][:90]][1] += 1
+    result = {"card": card, "ops": {
+        span: {"device_ms": sum(ms for ms, _ in kern.values()),
+               "kernels_ms_calls": dict(sorted(kern.items(), key=lambda kv: -kv[1][0]))}
+        for span, kern in ops.items()}}
+    (out / "profile_experimental.json").write_text(json.dumps(result, indent=1))
+    print(f"card: {card}")
+    for span, r in result["ops"].items():
+        print(f"{span}: device {r['device_ms']:.4f} ms")
+        for name, (ms, n) in r["kernels_ms_calls"].items():
+            print(f"  {name}: {ms:.4f} ms over {n} calls")
+    print(f"wrote {out / 'profile_experimental.json'} and {trace_path}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=4,
@@ -380,13 +464,20 @@ def main() -> None:
     ap.add_argument("--vit-config", choices=("default", "int8", "ln_dense", "unfused_ln",
                                              "patch_embed", "tiny"), default="default",
                     help="the ViT configuration (training: ln_dense, unfused_ln or tiny)")
+    ap.add_argument("--experimental", action="store_true",
+                    help="profile the library ops of ops.experimental")
     ap.add_argument("--out", default="chiprun_out/profile_slice")
     args = ap.parse_args()
     if args.vit_config != "default" and args.model != "vit":
         ap.error("--vit-config profiles the ViT")
     if args.train and args.vit_config not in ("default", "ln_dense", "unfused_ln", "tiny"):
         ap.error("--train --vit-config takes ln_dense, unfused_ln or tiny")
-    if args.out == ap.get_default("out"):
+    if args.experimental and (args.train or args.model != "vit"
+                              or args.vit_config != "default"):
+        ap.error("--experimental takes no other mode")
+    if args.out == ap.get_default("out") and args.experimental:
+        args.out = str(Path(args.out).with_name("profile_experimental"))
+    elif args.out == ap.get_default("out"):
         suffix = "" if args.vit_config == "default" else f"_{args.vit_config}"
         args.out = str(Path(args.out).with_name("profile_" + "cnn_" * (args.model == "cnn")
                                                 + ("train" if args.train else "slice")
@@ -401,6 +492,9 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0].strip()
     if args.train:
         profile_train(args, card)
+        return
+    if args.experimental:
+        profile_experimental(args, card)
         return
 
     from intentbev_torch.configs import default_cnn_config, default_vit_config
