@@ -17,7 +17,9 @@ Phases (each prints a line; any failure exits nonzero with no result):
    TFLOP/s bf16, 1979 TOP/s for the int8 kernel) is computed from the
    inputs. Each reading (relative L2 error) must lie
    under its limit, and a control, the plain version with one named fault,
-   must reach it.
+   must reach it. Each flash backward entry also prints its device time
+   split by kernel from a profiler trace (dk/dv, dq, the wrapper's own
+   kernels) and its TFLOP/s counted as the 5-product bound counts them.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -84,7 +86,8 @@ Phases (each prints a line; any failure exits nonzero with no result):
     step's loss and gradients under split and under chunked against the
     fused step's (one function at head dim 64, so the limits are far under
     phase 5's), with launch counts under the forms' own names; then 3 timed
-    steps of each form at 6 heads of 64 and at 12 heads of 32.
+    steps of each form at 6 heads of 64 and at 12 heads of 32. The
+    backward entries print the split of phase 3.
 12. The bench twins: every line of ``bench_torch.py`` once (2 iterations;
     ``_sustained`` one pass of 3 batches) with ``bench.py``'s keys in its
     order, finite and positive, and ``tools/bench_train_torch.py``'s step
@@ -689,6 +692,29 @@ def main() -> None:
     })
     record = {}
 
+    def bwd_split(fn, iters=3):
+        """Device ms per call of a flash backward entry, from a profiler
+        trace: its dk/dv kernel, its dq kernel, and the wrapper's own
+        kernels (delta = rowsum(dO*O) and the rest)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        parts = {"dk/dv": 0.0, "dq": 0.0, "wrapper": 0.0}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            part = ("dk/dv" if "flash_bwd_dkdv" in ev.key else
+                    "dq" if "flash_bwd_dq" in ev.key else "wrapper")
+            parts[part] += ev.device_time_total / 1e3 / iters
+        check(parts["dk/dv"] > 0 and parts["dq"] > 0,
+              f"backward trace without its kernels: {parts}")
+        return parts
+
     def check_kernels(cases):
         """Each case's kernel against its plain version and control; its
         times, bound and library time go to ``record``."""
@@ -713,6 +739,12 @@ def main() -> None:
                   f"({fault}) [{fmt(f'{r:.3e}' for r in ctrl_r)}] caught; max|d| {abs_err:.3e}; "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, bound "
                   f"{bound_ms:.4f} ms ({bound_by})  [{card}]", flush=True)
+            if name.startswith(("flash_packed_bwd", "flash_attention_bwd")):
+                parts = bwd_split(kern)
+                print(f"kernel {name} by kernel (profiler trace, per call): "
+                      + ", ".join(f"{k_} {t:.3f} ms" for k_, t in parts.items())
+                      + f"; {flops / ms / 1e9:.1f} TFLOP/s of the 5-product bound's work "
+                      f"(bound {bound_ms:.4f} ms)  [{card}]", flush=True)
 
     check_kernels(cases)
     del chunks, x, qkv, q, k, vv, o, lse, do, dy, x3, dy3, xhat, inv, gate, train_mlp

@@ -31,6 +31,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -226,51 +227,72 @@ __global__ void __launch_bounds__(128)
 //  - BHTD (flash_attention.py): the JAX wrapper scales q by sb outside the
 //    kernels, which then see qh; dk as FUSED; dq = bf16(bf16(t k) * sb),
 //    the autodiff of that scaling.
-// At head dim 64 both scales are 1/8 and every mode is one function up to
-// the order of f32 sums; at head dim 32 they differ.
+// At head dim 64 both scales are 1/8, a power of two: scaling a bf16
+// operand and scaling the f32 sum of its products give the same bits, so
+// the kernels read every tile as it is and scale the scores (and dk) in
+// f32, and every mode is one function. At head dim 32 they differ: the
+// kernels scale a copy of the landed tile in shared memory (qh for the
+// scores and FUSED's dk, kh for CHUNKED's scores, qh in the dq pass).
 // Bound on the H100: tensor-core throughput, 5 products of 2*B*H*T*T*D =
 // 622 GFLOP at B=8, T=4501, 6 heads of 64 (12 heads of 32 alike); 311 GFLOP
-// at 3 heads of 64 (this design recomputes the scores in both passes: 7
-// products).
+// at 3 heads of 64; and ~2 G exponentials (this design recomputes the
+// scores and dP in both passes: 7 products, two exponentials per score).
 // Design: the TPU kernels keep dk/dv resident in VMEM across a sequential
 // query-block grid (fused), hold whole [T_pad, 128] panels of q and dO
 // beside [256, T_pad] f32 score tiles (split), double-buffer [256, chunk]
 // score tiles (chunked), or hold a whole [T_pad, D] panel beside a
 // [256, T_pad] score tile (BHTD); blocks on the H100 run in parallel and in
 // no order, with 227 KB of shared memory, so every mode is split into two
-// deterministic passes over 64-row tiles, as in FlashAttention-2, with no
-// atomics:
-//  - dkdv: one 128-thread block per (64-key tile, head, batch); each warp
-//    owns 16 keys, holds k (kh for CHUNKED) and v as mma.sync A fragments
-//    and walks every 64-query tile (q, scaled or not as the mode wants, and
-//    dO staged in shared memory in both layouts), accumulating dk and dv in
-//    registers. Keys at or past seq_len get dk = dv = 0 (JAX's split dkv
-//    computes them without a key bias and zeroes them afterwards).
-//  - dq: one block per (64-query tile, head, batch); each warp holds its
-//    qh and dO rows as A fragments and walks the key tiles below seq_len,
-//    accumulating dq in registers.
-// S^T and P^T stay in registers and feed the next product as A fragments
-// (the register reuse of the forward). dq, dk and dv are written through
-// their strides: into one [B, T, 3*H*D] gradient of the qkv projection
-// (packed) or into any [B, H, T, D] views.
+// deterministic passes, as in FlashAttention-2, with no atomics. Both are
+// warp-specialised Hopper kernels of 384 threads: warpgroups 0 and 1
+// consume (64 rows each, registers raised to 240), warpgroup 2 produces
+// (registers lowered to 24): its first thread keeps TMA loads of 128-row
+// tiles (two 64-row boxes) in flight in a ring of BWD_STAGES slots
+// (mbarriers full / empty; in dkdv the warpgroup also stages each tile's
+// lse and delta, and at head dim 32 makes the qh copy), and every product
+// is a wgmma (m64nNk16, f32 accumulation):
+//  - dkdv: one block per (128 keys, head, batch); k and v of its keys land
+//    once. The ring carries q and dO tiles of 128 queries with their lse
+//    and delta (rows past T: lse = +inf, so p = 0). Each consumer computes
+//    S^T = K Q^T and dP^T = V dO^T (m64n128: A = its k / v rows, B = the q
+//    / dO tile, both K-major in shared memory), p and t in registers, then
+//    dV += P^T dO and dK += dS^T Q with A = the accumulators repacked as
+//    bf16 in registers and B the same q / dO tile read MN-major (the
+//    descriptor's transpose bit): no transposed copy. Keys at or past
+//    seq_len get dk = dv = 0 (JAX's split dkv computes them without a key
+//    bias and zeroes them afterwards); a block whose keys all lie there
+//    writes zeros and exits.
+//  - dq: one block per (128 queries, head, batch); q and dO of its rows
+//    land once and are read into registers (ldmatrix from the swizzled
+//    tiles), k and v tiles of 128 keys run through the ring up to seq_len.
+//    S = Q K^T and dP = dO V^T (m64n128, A in registers, B K-major), p and t
+//    in registers (keys at or past seq_len: p = 0), dQ += dS K with B the k
+//    tile read MN-major.
+// Tiles are swizzled at their row width (128 bytes at head dim 64, 64 at
+// 32), which is both the TMA map's and the wgmma descriptors' mode. dq,
+// dk and dv are written through their strides: into one [B, T, 3*H*D]
+// gradient of the qkv projection (packed) or into any [B, H, T, D] views.
+// dkdv's scores keep A in shared memory: k and v as register fragments
+// beside the 128-wide S^T and dP^T would pass the 240 registers.
+// Tried and dropped (PERF.md): issuing the next tile's scores under this
+// tile's products, a pingpong of the two consumers, 4-5 ring slots, a
+// producer of one warp; each measured slower or no faster.
 // ---------------------------------------------------------------------------
 
 enum Mode { FUSED = 0, SPLIT = 1, CHUNKED = 2, BHTD = 3 };
 
-template <int N>
-__device__ __forceinline__ void pack_a_from_c(uint32_t (&a)[4], const float (&c)[N][4],
-                                              int kk) {
-  a[0] = pack_bf16x2(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16x2(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
+constexpr int BWD_THREADS = 384;  // two consumer warpgroups and a producer
+constexpr int BWD_STAGES = 3;     // ring slots
+constexpr int RING_ROWS = 128;    // rows of a ring tile: two 64-row TMA boxes
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int ONE_PER_SM = 120 * 1024;  // more than half an SM's shared memory
+// registers a thread (setmaxnreg): 128 * 24 + 256 * 240 = 384 * 168, the
+// 168 a thread of a 384-thread block gets at launch
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
-// Stage a 64 x HD tile of rows r0.. (row stride ld, zero past T) into
-// s[row][d] and, when st is given, st[d][row]; a scale != 1 multiplies in
-// f32 before the bf16 rounding (scale_s for s, scale_st for st).
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
 __device__ __forceinline__ uint4 scale_bf16x8(uint4 raw, float scale) {
-  if (scale == 1.f) return raw;
   const bf16* e = reinterpret_cast<const bf16*>(&raw);
   uint4 out;
   uint32_t* w = reinterpret_cast<uint32_t*>(&out);
@@ -281,255 +303,427 @@ __device__ __forceinline__ uint4 scale_bf16x8(uint4 raw, float scale) {
   return out;
 }
 
-template <int HD>
-__device__ __forceinline__ void stage_tile(const bf16* __restrict__ src, long long base,
-                                           long long ld, int r0, int T, float scale_s,
-                                           float scale_st, bf16* s, bf16* st, int tid) {
-  constexpr int LDQ = HD + 8;
-  for (int i = tid; i < 64 * HD / 8; i += 128) {
-    const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r0 + r < T) raw = *reinterpret_cast<const uint4*>(src + base + (long long)(r0 + r) * ld + c8);
-    *reinterpret_cast<uint4*>(s + r * LDQ + c8) = scale_bf16x8(raw, scale_s);
-    if (st) {
-      const uint4 t = scale_bf16x8(raw, scale_st);
-      const bf16* e = reinterpret_cast<const bf16*>(&t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) st[(c8 + j) * LDR + r] = e[j];
-    }
-  }
-}
-
-// MODE: FUSED (also BHTD's dk/dv), SPLIT or CHUNKED.
-template <int HD, int MODE>
-__global__ void __launch_bounds__(128)
-    flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, Strides in,
-                          const bf16* __restrict__ dout, Strides dos_,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk_out, bf16* __restrict__ dv_out, Strides gs,
-                          int T, int seq_len, int H, float scale_b, float scale_f) {
-  static_assert(MODE == FUSED || MODE == SPLIT || MODE == CHUNKED, "dkdv mode");
-  constexpr int LDQ = HD + 8;
-  // bf16 scales of the staged operands (1 = unscaled): q for the scores,
-  // q for the dk product, k. FUSED: qh, qh, k; SPLIT: qh, q, k; CHUNKED:
-  // q, q, kh.
-  const float sq = MODE == CHUNKED ? 1.f : scale_b;
-  const float sqt = MODE == FUSED ? scale_b : 1.f;
-  const float sk = MODE == CHUNKED ? scale_b : 1.f;
-  const float sdk = MODE == FUSED ? 1.f : scale_f;  // dk's epilogue scale
-  __shared__ __align__(16) bf16 qs[BQ * LDQ];   // q [query][d], for the scores
-  __shared__ __align__(16) bf16 qtr[HD * LDR];  // q [d][query], for dk
-  __shared__ __align__(16) bf16 dos[BQ * LDQ];  // dO [query][d]
-  __shared__ __align__(16) bf16 dot[HD * LDR];  // dO [d][query]
-  __shared__ float ls[BQ], ds[BQ];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long base = at(in, b, h, 0);
-  const long long obase = at(dos_, b, h, 0);
-  const size_t lbase = ((size_t)b * H + h) * T;
-  const int wr = warp * 16;
-
-  // k (kh for CHUNKED) and v rows of this warp as A fragments
-  stage_tile<HD>(k, base, in.t, k0, T, sk, 1.f, qs, nullptr, tid);
-  stage_tile<HD>(v, base, in.t, k0, T, 1.f, 1.f, dos, nullptr, tid);
-  __syncthreads();
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    load_a(ka[kk], qs, LDQ, wr, kk * 16, lane);
-    load_a(va[kk], dos, LDQ, wr, kk * 16, lane);
-  }
-
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int q0 = 0; q0 < T; q0 += BQ) {
-    __syncthreads();  // previous tile (or the k/v staging) consumed
-    stage_tile<HD>(q, base, in.t, q0, T, sq, sqt, qs, qtr, tid);
-    stage_tile<HD>(dout, obase, dos_.t, q0, T, 1.f, 1.f, dos, dot, tid);
-    if (tid < BQ) {
-      const bool ok = q0 + tid < T;
-      ls[tid] = ok ? lse[lbase + q0 + tid] : INFINITY;  // p = 0 past T
-      ds[tid] = ok ? delta[lbase + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    float p[BQ / 8][4], t[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = t[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t bq[2], bd[2];
-        load_b(bq, qs, LDQ, n * 8, kk * 16, lane);
-        mma_16816(p[n], ka[kk], bq);   // S^T[key][query]
-        load_b(bd, dos, LDQ, n * 8, kk * 16, lane);
-        mma_16816(t[n], va[kk], bd);   // (dO v^T)^T[key][query]
-      }
-      const int c = n * 8 + 2 * t4;
-      const float l0 = ls[c], l1 = ls[c + 1], d0 = ds[c], d1 = ds[c + 1];
-      p[n][0] = expf(p[n][0] - l0);
-      p[n][1] = expf(p[n][1] - l1);
-      p[n][2] = expf(p[n][2] - l0);
-      p[n][3] = expf(p[n][3] - l1);
-      t[n][0] = p[n][0] * (t[n][0] - d0);
-      t[n][1] = p[n][1] * (t[n][1] - d1);
-      t[n][2] = p[n][2] * (t[n][2] - d0);
-      t[n][3] = p[n][3] * (t[n][3] - d1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], ta[4];
-      pack_a_from_c(pa, p, kk);
-      pack_a_from_c(ta, t, kk);
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        uint32_t bo[2], bq[2];
-        load_b(bo, dot, LDR, n * 8, kk * 16, lane);
-        mma_16816(dv[n], pa, bo);
-        load_b(bq, qtr, LDR, n * 8, kk * 16, lane);
-        mma_16816(dk[n], ta, bq);
-      }
-    }
-  }
-
-  const int r0 = k0 + wr + g, r1 = r0 + 8;
-  const float z0 = r0 < seq_len ? 1.f : 0.f, z1 = r1 < seq_len ? 1.f : 0.f;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (MODE != FUSED) {  // one f32 product, then the one bf16 rounding
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[n][e] *= sdk;
-    }
-    if (r0 < T) {
-      const long long off = at(gs, b, h, r0) + c;
-      *reinterpret_cast<uint32_t*>(dk_out + off) = pack_bf16x2(dk[n][0] * z0, dk[n][1] * z0);
-      *reinterpret_cast<uint32_t*>(dv_out + off) = pack_bf16x2(dv[n][0] * z0, dv[n][1] * z0);
-    }
-    if (r1 < T) {
-      const long long off = at(gs, b, h, r1) + c;
-      *reinterpret_cast<uint32_t*>(dk_out + off) = pack_bf16x2(dk[n][2] * z1, dk[n][3] * z1);
-      *reinterpret_cast<uint32_t*>(dv_out + off) = pack_bf16x2(dv[n][2] * z1, dv[n][3] * z1);
-    }
-  }
-}
-
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// dst = bf16(src * scale) over a 64-row tile of `bytes` bytes, 16 bytes at a
+// time (an elementwise pass: the swizzle does not matter), threads i0, i0 +
+// stride, ...
+__device__ __forceinline__ void scale_tile(const uint8_t* src, uint8_t* dst, int bytes,
+                                           float scale, int i0, int stride) {
+  for (int i = i0; i < bytes / 16; i += stride)
+    reinterpret_cast<uint4*>(dst)[i] =
+        scale_bf16x8(reinterpret_cast<const uint4*>(src)[i], scale);
+}
+
+// The consumer's A fragments of a [64 x 16 KS] accumulator (rows this
+// warpgroup's, columns the next product's contraction), 16 columns each.
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&c)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+}
+
+// acc[64 x 128] = A B^T over the head dim (the scores S, S^T and dP, dP^T):
+// A this warpgroup's 64-row tile, B a 128-row tile of the ring, both K-major.
+template <int RB, int HD>
+__device__ __forceinline__ void scores(float (&acc)[64], const uint8_t* a, const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    hopper::wgmma_ss_n128(acc, hopper::desc_kmajor<RB>(a, kk), hopper::desc_kmajor<RB>(b, kk),
+                          kk > 0);
+}
+
+// The same with A from registers: this warpgroup's rows as A fragments, 16
+// columns each.
+template <int RB, int HD>
+__device__ __forceinline__ void scores(float (&acc)[64], const uint32_t (&a)[HD / 16][4],
+                                       const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    hopper::wgmma_rs_n128(acc, a[kk], hopper::desc_kmajor<RB>(b, kk), kk > 0);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Shared memory of the dk/dv kernel: k and v of the block's 128 keys (two
+// 64-row tiles each), then per ring slot q, dO (and qh) of 128 rows each,
+// then lse and delta per slot, then the barriers. Every tile starts on a
+// 1024-byte boundary.
+template <int HD, int MODE>
+struct DkdvSmem {
+  static constexpr int TILE = 64 * HD * 2;
+  static constexpr bool EXACT = HD == 64;  // the bf16 scale is a power of two
+  static constexpr bool QH = !EXACT && MODE != CHUNKED;  // a scaled copy of q
+  static constexpr bool KH = !EXACT && MODE == CHUNKED;  // k scaled in place
+  static constexpr int SLOT = (QH ? 3 : 2) * 2 * TILE;  // q, dO (, qh): 128 rows each
+  static constexpr int K = 0, V = 2 * TILE, RING = 4 * TILE;
+  static constexpr int LSE = RING + BWD_STAGES * SLOT;
+  static constexpr int DELTA = LSE + BWD_STAGES * RING_ROWS * 4;
+  static constexpr int BARS = DELTA + BWD_STAGES * RING_ROWS * 4;
+  static constexpr int BYTES = BARS + (1 + 3 * BWD_STAGES) * 8;
+};
+
+template <int HD>
+struct DqSmem {
+  static constexpr int TILE = 64 * HD * 2;
+  static constexpr int Q = 0, DO = 2 * TILE, RING = 4 * TILE, SLOT = 4 * TILE;  // k, v
+  static constexpr int BARS = RING + BWD_STAGES * SLOT;
+  static constexpr int BYTES = BARS + (1 + 2 * BWD_STAGES) * 8;
+};
+
+// MODE: FUSED (also BHTD's dk/dv), SPLIT or CHUNKED.
+template <int HD, int MODE>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mdo,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk_out, bf16* __restrict__ dv_out, Strides gs,
+                          int T, int seq_len, int H, float scale_b, float scale_f) {
+  static_assert(MODE == FUSED || MODE == SPLIT || MODE == CHUNKED, "dkdv mode");
+  using L = DkdvSmem<HD, MODE>;
+  constexpr int RB = HD * 2, TILE = L::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  float* lse_s = reinterpret_cast<float*>(sm + L::LSE);
+  float* delta_s = reinterpret_cast<float*>(sm + L::DELTA);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* kvbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* ready = bars + 1 + BWD_STAGES;
+  uint64_t* empty = bars + 1 + 2 * BWD_STAGES;
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * 128;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  if (k0 >= seq_len) {  // every key of the block is masked: dk = dv = 0
+    for (int i = tid; i < 128 * HD / 8; i += BWD_THREADS) {
+      const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
+      if (k0 + r < T) {
+        const long long off = at(gs, b, h, k0 + r) + c8;
+        *reinterpret_cast<uint4*>(dk_out + off) = make_uint4(0, 0, 0, 0);
+        *reinterpret_cast<uint4*>(dv_out + off) = make_uint4(0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+  if (tid == 0) {
+    hopper::mbar_init(kvbar, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 128);   // the producer warpgroup, after lse/delta
+      hopper::mbar_init(&ready[s], 128);  // the producer warpgroup, after qh
+      hopper::mbar_init(&empty[s], 8);    // one per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  const int n_q = (T + RING_ROWS - 1) / RING_ROWS;
+  if (wg == 2) {  // producer
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const int p = tid - 256;
+    if (p == 0) {
+      hopper::mbar_arrive_expect_tx(kvbar, 4 * TILE);
+      for (int i = 0; i < 2; ++i) {
+        hopper::tma_load_4d(sm + L::K + i * TILE, &mk, kvbar, 0, h, k0 + 64 * i, b);
+        hopper::tma_load_4d(sm + L::V + i * TILE, &mv, kvbar, 0, h, k0 + 64 * i, b);
+      }
+    }
+    const size_t lbase = ((size_t)b * H + h) * T;
+    // the qh copy of tile j - LAG is made after tile j's loads are issued,
+    // so that the copies do not hold back the loads in flight. A consumer
+    // frees tile i - 1 before it waits for tile i + 1, so LAG may be 1 at
+    // most with 3 slots: the loads of tile i + 1 + LAG wait for slot i + LAG
+    // - 2 to be freed.
+    constexpr int LAG = L::QH ? BWD_STAGES - 2 : 0;
+    for (int j = 0; j < n_q + LAG; ++j) {
+      const int s = j % BWD_STAGES;
+      const uint32_t ph = (j / BWD_STAGES) & 1;
+      uint8_t* slot = sm + L::RING + s * L::SLOT;
+      if (j < n_q) {
+        // the row's lse and delta are read while the slot is still in use
+        const int r = j * RING_ROWS + p;
+        const float l = r < T ? lse[lbase + r] * LOG2E : INFINITY;  // p = 0 past T
+        const float d = r < T ? delta[lbase + r] : 0.f;
+        hopper::mbar_wait(&empty[s], ph ^ 1);
+        lse_s[s * RING_ROWS + p] = l;
+        delta_s[s * RING_ROWS + p] = d;
+        if (p == 0) {
+          hopper::mbar_arrive_expect_tx(&full[s], 4 * TILE);
+          for (int i = 0; i < 2; ++i) {
+            const int row = j * RING_ROWS + 64 * i;
+            hopper::tma_load_4d(slot + i * TILE, &mq, &full[s], 0, h, row, b);
+            hopper::tma_load_4d(slot + (2 + i) * TILE, &mdo, &full[s], 0, h, row, b);
+          }
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+      if (L::QH && j >= LAG) {  // qh = bf16(q * sb) beside q
+        const int i = j - LAG, si = i % BWD_STAGES;
+        uint8_t* qslot = sm + L::RING + si * L::SLOT;
+        hopper::mbar_wait(&full[si], (i / BWD_STAGES) & 1);
+        scale_tile(qslot, qslot + 4 * TILE, 2 * TILE, scale_b, p, 128);
+        hopper::fence_proxy_async();
+        hopper::mbar_arrive(&ready[si]);
+      }
+    }
+  } else {  // consumers: 64 keys each
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
+    const int t4 = lane & 3, g = lane >> 2;
+    uint8_t* kt = sm + L::K + wg * TILE;
+    const uint8_t* vt = sm + L::V + wg * TILE;
+    hopper::mbar_wait(kvbar, 0);
+    if constexpr (L::KH) {  // kh = bf16(k * sb), this warpgroup's rows
+      scale_tile(kt, kt, TILE, scale_b, wt, 128);
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, 128);
+    }
+    // scores in log2 units: s * c - lse * log2(e)
+    const float c = L::EXACT ? scale_b * LOG2E : LOG2E;
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % BWD_STAGES;
+      const uint32_t ph = (j / BWD_STAGES) & 1;
+      const uint8_t* qs = sm + L::RING + s * L::SLOT;
+      const uint8_t* dos = qs + 2 * TILE;
+      const uint8_t* qh = L::QH ? qs + 4 * TILE : qs;          // the scores' q
+      const uint8_t* qk = MODE == FUSED ? qh : qs;              // dk's q
+      hopper::mbar_wait(&full[s], ph);
+      if constexpr (L::QH) hopper::mbar_wait(&ready[s], ph);
+
+      float sc[64], dp[64];  // S^T and dP^T [key][query]
+      hopper::wgmma_fence();
+      scores<RB, HD>(sc, kt, qh);
+      hopper::wgmma_commit();
+      scores<RB, HD>(dp, vt, dos);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      const float* ls = lse_s + s * RING_ROWS;
+      const float* ds = delta_s + s * RING_ROWS;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t4);
+        sc[4 * n + 0] = hopper::ex2(sc[4 * n + 0] * c - l.x);
+        sc[4 * n + 1] = hopper::ex2(sc[4 * n + 1] * c - l.y);
+        sc[4 * n + 2] = hopper::ex2(sc[4 * n + 2] * c - l.x);
+        sc[4 * n + 3] = hopper::ex2(sc[4 * n + 3] * c - l.y);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const float2 d = *reinterpret_cast<const float2*>(ds + 8 * n + 2 * t4);
+        dp[4 * n + 0] = sc[4 * n + 0] * (dp[4 * n + 0] - d.x);
+        dp[4 * n + 1] = sc[4 * n + 1] * (dp[4 * n + 1] - d.y);
+        dp[4 * n + 2] = sc[4 * n + 2] * (dp[4 * n + 2] - d.x);
+        dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - d.y);
+      }
+      uint32_t pa[8][4], ta[8][4];
+      pack_a(pa, sc);
+      pack_a(ta, dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_rs<HD>(dv, pa[kk], hopper::desc_mnmajor<RB>(dos, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_rs<HD>(dk, ta[kk], hopper::desc_mnmajor<RB>(qk, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv);
+      hopper::fence_regs(dk);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    // dk's epilogue scale: FUSED's products ran over qh (or, at head dim 64,
+    // over q with the exact 1/8 left for here); SPLIT and CHUNKED scale the
+    // f32 sum by sf, then round once
+    const float sdk = MODE == FUSED ? (L::EXACT ? scale_b : 1.f) : scale_f;
+    const int r0 = k0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+    const float z0 = r0 < seq_len ? 1.f : 0.f, z1 = r1 < seq_len ? 1.f : 0.f;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (r0 < T) {
+        const long long off = at(gs, b, h, r0) + col;
+        *reinterpret_cast<uint32_t*>(dk_out + off) =
+            pack_bf16x2(dk[4 * n] * sdk * z0, dk[4 * n + 1] * sdk * z0);
+        *reinterpret_cast<uint32_t*>(dv_out + off) =
+            pack_bf16x2(dv[4 * n] * z0, dv[4 * n + 1] * z0);
+      }
+      if (r1 < T) {
+        const long long off = at(gs, b, h, r1) + col;
+        *reinterpret_cast<uint32_t*>(dk_out + off) =
+            pack_bf16x2(dk[4 * n + 2] * sdk * z1, dk[4 * n + 3] * sdk * z1);
+        *reinterpret_cast<uint32_t*>(dv_out + off) =
+            pack_bf16x2(dv[4 * n + 2] * z1, dv[4 * n + 3] * z1);
+      }
+    }
+  }
+}
+
 // MODE: FUSED (also SPLIT's and CHUNKED's dq) or BHTD.
 template <int HD, int MODE>
-__global__ void __launch_bounds__(128)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, Strides in,
-                        const bf16* __restrict__ dout, Strides dos_,
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        const __grid_constant__ CUtensorMap mdo,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         bf16* __restrict__ dq_out, Strides gs, int T, int seq_len, int H,
                         float scale_b, float scale_f) {
   static_assert(MODE == FUSED || MODE == BHTD, "dq mode");
-  constexpr int LDQ = HD + 8;
-  __shared__ __align__(16) bf16 ks[BK * LDQ];   // k [key][d]
-  __shared__ __align__(16) bf16 ktr[HD * LDR];  // k [d][key]
-  __shared__ __align__(16) bf16 vs[BK * LDQ];   // v [key][d]
+  using L = DqSmem<HD>;
+  constexpr int RB = HD * 2, TILE = L::TILE;
+  constexpr bool EXACT = HD == 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + BWD_STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * 128;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long long base = at(in, b, h, 0);
-  const long long obase = at(dos_, b, h, 0);
-  const size_t lbase = ((size_t)b * H + h) * T;
-  const int wr = warp * 16;
-  const int r0 = q0 + wr + g, r1 = r0 + 8;
-
-  stage_tile<HD>(q, base, in.t, q0, T, scale_b, 1.f, ks, nullptr, tid);
-  stage_tile<HD>(dout, obase, dos_.t, q0, T, 1.f, 1.f, vs, nullptr, tid);
+  if (tid == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qa[HD / 16][4], oa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    load_a(qa[kk], ks, LDQ, wr, kk * 16, lane);
-    load_a(oa[kk], vs, LDQ, wr, kk * 16, lane);
-  }
-  const float l0 = r0 < T ? lse[lbase + r0] : 0.f, l1 = r1 < T ? lse[lbase + r1] : 0.f;
-  const float d0 = r0 < T ? delta[lbase + r0] : 0.f, d1 = r1 < T ? delta[lbase + r1] : 0.f;
 
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  const int n_tiles = (seq_len + BK - 1) / BK;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BK;
-    __syncthreads();  // previous tile (or the q/dO staging) consumed
-    stage_tile<HD>(k, base, in.t, kv0, T, 1.f, 1.f, ks, ktr, tid);
-    stage_tile<HD>(v, base, in.t, kv0, T, 1.f, 1.f, vs, nullptr, tid);
-    __syncthreads();
-
-    float p[BK / 8][4], t[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = t[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t bk_[2], bv[2];
-        load_b(bk_, ks, LDQ, n * 8, kk * 16, lane);
-        mma_16816(p[n], qa[kk], bk_);   // S[query][key]
-        load_b(bv, vs, LDQ, n * 8, kk * 16, lane);
-        mma_16816(t[n], oa[kk], bv);    // dO v^T [query][key]
+  const int wg = tid / 128;
+  const int n_k = (seq_len + RING_ROWS - 1) / RING_ROWS;
+  if (wg == 2) {  // producer: one thread issues every load
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      hopper::mbar_arrive_expect_tx(qbar, 4 * TILE);
+      for (int i = 0; i < 2; ++i) {
+        hopper::tma_load_4d(sm + L::Q + i * TILE, &mq, qbar, 0, h, q0 + 64 * i, b);
+        hopper::tma_load_4d(sm + L::DO + i * TILE, &mdo, qbar, 0, h, q0 + 64 * i, b);
       }
-      const int key = kv0 + n * 8 + 2 * t4;  // keys past seq_len: p = 0
-      p[n][0] = key < seq_len ? expf(p[n][0] - l0) : 0.f;
-      p[n][1] = key + 1 < seq_len ? expf(p[n][1] - l0) : 0.f;
-      p[n][2] = key < seq_len ? expf(p[n][2] - l1) : 0.f;
-      p[n][3] = key + 1 < seq_len ? expf(p[n][3] - l1) : 0.f;
-      t[n][0] = p[n][0] * (t[n][0] - d0);
-      t[n][1] = p[n][1] * (t[n][1] - d0);
-      t[n][2] = p[n][2] * (t[n][2] - d1);
-      t[n][3] = p[n][3] * (t[n][3] - d1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t ta[4];
-      pack_a_from_c(ta, t, kk);
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        uint32_t bk_[2];
-        load_b(bk_, ktr, LDR, n * 8, kk * 16, lane);
-        mma_16816(dq[n], ta, bk_);
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % BWD_STAGES;
+        const uint32_t ph = (j / BWD_STAGES) & 1;
+        uint8_t* slot = sm + L::RING + s * L::SLOT;
+        hopper::mbar_wait(&empty[s], ph ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 4 * TILE);
+        for (int i = 0; i < 2; ++i) {
+          const int row = j * RING_ROWS + 64 * i;
+          hopper::tma_load_4d(slot + i * TILE, &mk, &full[s], 0, h, row, b);
+          hopper::tma_load_4d(slot + (2 + i) * TILE, &mv, &full[s], 0, h, row, b);
+        }
       }
     }
-  }
+  } else {  // consumers: 64 queries each
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
+    const int t4 = lane & 3, g = lane >> 2;
+    uint8_t* qt = sm + L::Q + wg * TILE;
+    const uint8_t* ot = sm + L::DO + wg * TILE;
+    const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+    const size_t lbase = ((size_t)b * H + h) * T;
+    // rows past T read dO = 0, so t = 0 there; their dq is not written
+    const float l0 = r0 < T ? lse[lbase + r0] * LOG2E : 0.f;
+    const float l1 = r1 < T ? lse[lbase + r1] * LOG2E : 0.f;
+    const float d0 = r0 < T ? delta[lbase + r0] : 0.f;
+    const float d1 = r1 < T ? delta[lbase + r1] : 0.f;
+    hopper::mbar_wait(qbar, 0);
+    if constexpr (!EXACT) {  // qh = bf16(q * sb), this warpgroup's rows
+      scale_tile(qt, qt, TILE, scale_b, wt, 128);
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, 128);
+    }
+    uint32_t qa[HD / 16][4], oa[HD / 16][4];  // this warp's q (qh) and dO rows
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      hopper::ldmatrix_a<RB>(qa[kk], qt, 16 * warp, kk, lane);
+      hopper::ldmatrix_a<RB>(oa[kk], ot, 16 * warp, kk, lane);
+    }
+    const float c = EXACT ? scale_b * LOG2E : LOG2E;
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+    for (int j = 0; j < n_k; ++j) {
+      const int s = j % BWD_STAGES;
+      const uint32_t ph = (j / BWD_STAGES) & 1;
+      const uint8_t* ks = sm + L::RING + s * L::SLOT;
+      const uint8_t* vs = ks + 2 * TILE;
+      hopper::mbar_wait(&full[s], ph);
+
+      float sc[64], dp[64];  // S and dP [query][key]
+      hopper::wgmma_fence();
+      scores<RB, HD>(sc, qa, ks);
+      hopper::wgmma_commit();
+      scores<RB, HD>(dp, oa, vs);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {  // keys past seq_len: p = 0
+        const int key = j * RING_ROWS + 8 * n + 2 * t4;
+        const bool m0 = key < seq_len, m1 = key + 1 < seq_len;
+        sc[4 * n + 0] = m0 ? hopper::ex2(sc[4 * n + 0] * c - l0) : 0.f;
+        sc[4 * n + 1] = m1 ? hopper::ex2(sc[4 * n + 1] * c - l0) : 0.f;
+        sc[4 * n + 2] = m0 ? hopper::ex2(sc[4 * n + 2] * c - l1) : 0.f;
+        sc[4 * n + 3] = m1 ? hopper::ex2(sc[4 * n + 3] * c - l1) : 0.f;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        dp[4 * n + 0] = sc[4 * n + 0] * (dp[4 * n + 0] - d0);
+        dp[4 * n + 1] = sc[4 * n + 1] * (dp[4 * n + 1] - d0);
+        dp[4 * n + 2] = sc[4 * n + 2] * (dp[4 * n + 2] - d1);
+        dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - d1);
+      }
+      uint32_t ta[8][4];
+      pack_a(ta, dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        hopper::wgmma_rs<HD>(dq, ta[kk], hopper::desc_mnmajor<RB>(ks, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
 
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
 #pragma unroll
-    for (int e = 0; e < 4; ++e)  // BHTD: rounded to bf16, then the bf16 scale
-      dq[n][e] = MODE == BHTD ? bf16_round(dq[n][e]) * scale_b : dq[n][e] * scale_f;
-    if (r0 < T)
-      *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r0) + c) =
-          pack_bf16x2(dq[n][0], dq[n][1]);
-    if (r1 < T)
-      *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r1) + c) =
-          pack_bf16x2(dq[n][2], dq[n][3]);
+      for (int e = 0; e < 4; ++e)  // BHTD: rounded to bf16, then the bf16 scale
+        dq[4 * n + e] =
+            MODE == BHTD ? bf16_round(dq[4 * n + e]) * scale_b : dq[4 * n + e] * scale_f;
+      if (r0 < T)
+        *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r0) + col) =
+            pack_bf16x2(dq[4 * n], dq[4 * n + 1]);
+      if (r1 < T)
+        *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r1) + col) =
+            pack_bf16x2(dq[4 * n + 2], dq[4 * n + 3]);
+    }
   }
 }
 
@@ -545,8 +739,21 @@ int launch_fwd(const void* q, const void* k, const void* v, Strides in, void* o,
   return (int)cudaGetLastError();
 }
 
+// Raises a kernel's dynamic shared-memory limit to `bytes` (once).
+template <typename K>
+int allow_smem(K kernel, int bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return (int)err;
+}
+
 // mode: FUSED, SPLIT, CHUNKED or BHTD; scale_b the bf16-rounded scale,
-// scale_f the f32 one (BHTD takes scale_b for both).
+// scale_f the f32 one (BHTD takes scale_b for both). q, k, v share the
+// strides `in`; each tensor is read through its own tensor map (dims (D, H,
+// T, B), byte strides twice the element strides, 64-row boxes), which
+// ops/flash_attention.py::tma_geometry computes alike and checks.
 template <int HD, int MODE>
 int launch_bwd(const void* q, const void* k, const void* v, Strides in, const void* dout,
                Strides dos_, const void* lse, const void* delta, void* dq, void* dk, void* dv,
@@ -554,20 +761,33 @@ int launch_bwd(const void* q, const void* k, const void* v, Strides in, const vo
                void* stream) {
   constexpr int DKDV = MODE == BHTD ? FUSED : MODE;  // BHTD's dk/dv are FUSED's
   constexpr int DQ = MODE == BHTD ? BHTD : FUSED;    // every packed mode's dq is FUSED's
-  if (B > 0 && T > 0 && seq_len > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    dim3 grid((T + BQ - 1) / BQ, H, B);
-    flash_bwd_dkdv_kernel<HD, DKDV><<<grid, 128, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, dos_,
-        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, gs, T, seq_len, H,
-        scale_b, scale_f);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dq_kernel<HD, DQ><<<grid, 128, 0, s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (const bf16*)dout, dos_,
-        (const float*)lse, (const float*)delta, (bf16*)dq, gs, T, seq_len, H, scale_b,
-        scale_f);
-  }
+  if (B <= 0 || T <= 0 || seq_len <= 0) return (int)cudaGetLastError();
+  CUtensorMap mq, mk, mv, mdo;
+  int err;
+  if ((err = hopper::encode_bhtd(&mq, q, B, H, T, HD, in.b, in.h, in.t, 64)) ||
+      (err = hopper::encode_bhtd(&mk, k, B, H, T, HD, in.b, in.h, in.t, 64)) ||
+      (err = hopper::encode_bhtd(&mv, v, B, H, T, HD, in.b, in.h, in.t, 64)) ||
+      (err = hopper::encode_bhtd(&mdo, dout, B, H, T, HD, dos_.b, dos_.h, dos_.t, 64)))
+    return err;
+  auto* kdkdv = flash_bwd_dkdv_kernel<HD, DKDV>;
+  auto* kdq = flash_bwd_dq_kernel<HD, DQ>;
+  // + alignment slack; at least ONE_PER_SM, so that no second block shares
+  // the SM's registers with the one whose consumers raise theirs
+  constexpr int dkdv_bytes = cmax(DkdvSmem<HD, DKDV>::BYTES + 1024, ONE_PER_SM);
+  constexpr int dq_bytes = cmax(DqSmem<HD>::BYTES + 1024, ONE_PER_SM);
+  static bool dkdv_ok = false, dq_ok = false;
+  if ((err = allow_smem(kdkdv, dkdv_bytes, dkdv_ok)) || (err = allow_smem(kdq, dq_bytes, dq_ok)))
+    return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((T + 127) / 128, H, B);
+  kdkdv<<<grid, BWD_THREADS, dkdv_bytes, s>>>(mq, mk, mv, mdo, (const float*)lse,
+                                              (const float*)delta, (bf16*)dk, (bf16*)dv, gs, T,
+                                              seq_len, H, scale_b, scale_f);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  kdq<<<grid, BWD_THREADS, dq_bytes, s>>>(mq, mk, mv, mdo, (const float*)lse,
+                                          (const float*)delta, (bf16*)dq, gs, T, seq_len, H,
+                                          scale_b, scale_f);
   return (int)cudaGetLastError();
 }
 

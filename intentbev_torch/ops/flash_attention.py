@@ -26,11 +26,14 @@ projection output.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
 
 HEAD_DIMS = (32, 64)  # head dims the kernels are instantiated for
+BOX_ROWS = 64  # rows of one TMA box of the backward kernels
 
 
 def _scale(d: int, dtype: torch.dtype) -> torch.Tensor:
@@ -104,6 +107,45 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, seq_len: int | None = None):
     return dq, dk, dv
 
 
+class TmaGeometry(NamedTuple):
+    """A TMA tensor map over a [B, H, T, D] view, innermost dimension first:
+    ``dims`` (D, H, T, B), ``strides`` the byte strides of H, T and B,
+    ``box`` (D, 1, BOX_ROWS, 1) and ``swizzle`` the bytes of a box row."""
+
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]
+    box: tuple[int, int, int, int]
+    swizzle: int
+
+
+def tma_geometry(x: torch.Tensor, name: str = "x") -> TmaGeometry:
+    """The tensor map through which the backward kernels read the [B, H, T,
+    D] view ``x`` (``launch_bwd`` in ``csrc/flash_packed.cu`` encodes the
+    same from the element strides it is given): four dimensions (d, head,
+    row, batch) with byte strides from the view's strides, boxes of
+    :data:`BOX_ROWS` rows of one head, swizzled at the box row's bytes (128
+    at D = 64, 64 at D = 32). Raises ValueError on a view TMA cannot take: a
+    head dim without a swizzle of its row width, a stride along D other
+    than 1, or a base address or stride that is not a multiple of 16 bytes.
+    Pure arithmetic on the view's shape, strides and address: any device."""
+    # messages are formatted only on failure: every backward call runs this
+    if x.dim() != 4:
+        raise ValueError(f"tma_geometry: {name} must be [B, H, T, D], got {tuple(x.shape)}")
+    b, h, t, d = x.shape
+    size = x.element_size()
+    if d * size not in (64, 128):
+        raise ValueError(f"tma_geometry: {name} rows of {d * size} bytes have no swizzle "
+                         "mode (64 or 128)")
+    if x.stride(3) != 1:
+        raise ValueError(f"tma_geometry: {name} stride along D is {x.stride(3)}, not 1")
+    sb, sh, st, _ = x.stride()
+    strides = (sh * size, st * size, sb * size)
+    if x.data_ptr() % 16 or strides[0] % 16 or strides[1] % 16 or strides[2] % 16:
+        raise ValueError(f"tma_geometry: {name} base address {x.data_ptr():#x} or byte "
+                         f"strides {strides} not a multiple of 16")
+    return TmaGeometry((d, h, t, b), strides, (d, 1, BOX_ROWS, 1), d * size)
+
+
 def _check_view(name, x, shape, device):
     require(x.is_cuda and x.device == device and x.dtype == torch.bfloat16
             and tuple(x.shape) == shape,
@@ -175,7 +217,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, seq_len: int | None = None, out=Non
         _check_view(name, x, (b, h, t, d), q.device)
         require(x.stride() == out[0].stride(), "flash_attention bwd: dq, dk and dv must "
                 "share strides")
-    delta = (do.float() * o.float()).sum(-1).contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        tma_geometry(x, name=name)
+    delta = (do.float() * o).sum(-1).contiguous()  # o enters the f32 product as it is
     err = kernels().ibk_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(x.data_ptr() for x in out), b, t, seq_len, h, d,

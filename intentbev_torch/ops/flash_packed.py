@@ -41,7 +41,8 @@ import warnings
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .flash_attention import HEAD_DIMS, flash_attention_packed_layout, flash_attention_qkv
+from .flash_attention import (HEAD_DIMS, flash_attention_packed_layout, flash_attention_qkv,
+                              heads_view, tma_geometry)
 
 LANE_BLOCK = 128  # the JAX packed kernels' lane block
 # JAX pads T to a multiple of its forward and backward row blocks
@@ -263,7 +264,9 @@ def flash_attention_packed_bwd(q, k, v, o, lse, do, num_heads: int,
                 and tuple(x.shape) == (b, t, dm), f"flash bwd: {name} must be bf16 {(b, t, dm)}")
     require(lse.dtype == torch.float32 and tuple(lse.shape) == (b, num_heads, t)
             and lse.is_contiguous(), "flash bwd: lse must be contiguous f32 [B, H, T]")
-    delta = (do.float() * o.float()).reshape(b, t, num_heads, dh) \
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        tma_geometry(heads_view(x, num_heads), name=name)
+    delta = (do.float() * o).reshape(b, t, num_heads, dh) \
         .sum(-1).transpose(1, 2).contiguous()
     dqkv = torch.empty(b, t, 3 * dm, dtype=q.dtype, device=q.device)
     err = kernels().ibk_flash_bwd(

@@ -61,7 +61,7 @@ def _imports_of(path: Path):
 def test_port_imports_nothing_of_the_jax_package():
     files = sorted((ROOT / "intentbev_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "tools" / "bench_train_torch.py",
-        ROOT / "tools" / "profile_torch_slice.py"]
+        ROOT / "tools" / "profile_torch_slice.py", ROOT / "tools" / "bench_flash_torch.py"]
     assert len(files) > 20
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in files for m in _imports_of(p)
            if m.split(".")[0] in ("intentbev", "jax", "jaxlib", "flax", "optax")]

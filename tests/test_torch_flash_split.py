@@ -85,9 +85,23 @@ def _inputs(rng, dtype):
             for _ in range(4)]
 
 
-def _jax_packed(q, k, v, do, heads, dtype, mode):
+@pytest.fixture(scope="module")
+def jax_runs():
+    """The JAX results computed so far in this module, by their arguments:
+    several tests hold the port against the same JAX trace on the same
+    inputs (a compile of the interpret-mode kernels each)."""
+    return {}
+
+
+def _jax_packed(q, k, v, do, heads, dtype, mode, runs=None):
     """JAX's o, lse and (dq, dk, dv) of the packed kernels in ``mode``, cut
-    to T rows."""
+    to T rows; with ``runs`` (:func:`jax_runs`), computed once per set of
+    arguments."""
+    if runs is not None:
+        key = (heads, dtype, mode, *(a.tobytes() for a in (q, k, v, do)))
+        if key not in runs:
+            runs[key] = _jax_packed(q, k, v, do, heads, dtype, mode)
+        return runs[key]
     jdt = DTYPES[dtype][0]
     dh = DM // heads
     t_pad = jfp._pad_len(T, 768)
@@ -135,12 +149,12 @@ def _limits(dtype):
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("dh", [64, 32])
-def test_packed_backward_matches_jax(rng, dh, dtype, mode):
+def test_packed_backward_matches_jax(rng, jax_runs, dh, dtype, mode):
     """dq, dk and dv of the plain backward in each form against JAX's
     ``_bwd`` with its constants patched; padded keys' dk and dv exactly 0."""
     heads = DM // dh
     q, k, v, do = _inputs(rng, dtype)
-    o, lse, want = _jax_packed(q, k, v, do, heads, dtype, mode)
+    o, lse, want = _jax_packed(q, k, v, do, heads, dtype, mode, jax_runs)
     got = _port_bwd(q, k, v, o, lse, do, heads, dtype, mode)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         _differ(a, w, name, *_limits(dtype))
@@ -149,13 +163,13 @@ def test_packed_backward_matches_jax(rng, dh, dtype, mode):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("dh", [64, 32])
-def test_packed_forward_matches_jax(rng, dh, dtype):
+def test_packed_forward_matches_jax(rng, jax_runs, dh, dtype):
     """o and lse of the plain forward against JAX's ``_fwd``: at head dim 32
     q is scaled by 1/sqrt(32) rounded to bf16 (with the f32 scale 23 % of o
     differs)."""
     heads = DM // dh
     q, k, v, do = _inputs(rng, dtype)
-    o, lse, _ = _jax_packed(q, k, v, do, heads, dtype, "fused")
+    o, lse, _ = _jax_packed(q, k, v, do, heads, dtype, "fused", jax_runs)
     tdt = DTYPES[dtype][1]
     got_o, got_lse = tfp.flash_attention_packed_plain(
         *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), heads, SEQ_LEN)
@@ -171,23 +185,23 @@ CONTROLS = {  # name: (JAX form, the port's form with the fault, output caught)
 
 
 @pytest.mark.parametrize("control", list(CONTROLS))
-def test_rounding_faults_are_seen(rng, control):
+def test_rounding_faults_are_seen(rng, jax_runs, control):
     """At head dim 32, bf16: the check of the backward fails for the plain
     version of another form (the form's fault), on the output named."""
     jax_mode, port_mode, caught = CONTROLS[control]
     q, k, v, do = _inputs(rng, "bf16")
-    o, lse, want = _jax_packed(q, k, v, do, 4, "bf16", jax_mode)
+    o, lse, want = _jax_packed(q, k, v, do, 4, "bf16", jax_mode, jax_runs)
     got = _port_bwd(q, k, v, o, lse, do, 4, "bf16", port_mode)
     i = ("dq", "dk", "dv").index(caught)
     with pytest.raises(AssertionError, match=caught):
         _differ(got[i], want[i], caught, BF16_REL, BF16_SHARE)
 
 
-def test_forward_f32_scale_is_seen(rng, monkeypatch):
+def test_forward_f32_scale_is_seen(rng, jax_runs, monkeypatch):
     """At head dim 32, bf16: the forward check fails for a plain forward
     that scales q by the f32 scale (the port's fault before this check)."""
     q, k, v, do = _inputs(rng, "bf16")
-    o = _jax_packed(q, k, v, do, 4, "bf16", "fused")[0]
+    o = _jax_packed(q, k, v, do, 4, "bf16", "fused", jax_runs)[0]
     monkeypatch.setattr(tfp, "scales", lambda dh, dtype: (dh ** -0.5, dh ** -0.5))
     got = tfp.flash_attention_packed_plain(
         *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), 4, SEQ_LEN)[0]
@@ -241,8 +255,15 @@ def _paired_32(cfg, **train):
         cfg.augment, dropout_prob=1.0), train=dataclasses.replace(cfg.train, **train))
 
 
+@pytest.fixture(scope="module")
+def jax_steps():
+    """What the JAX step computes alike under every backward form (the
+    initial state, the jitted step's metrics), by config and batch."""
+    return {}
+
+
 @pytest.mark.parametrize("mode", list(MODES))
-def test_train_step_form_matches_jax(rng, monkeypatch, mode):
+def test_train_step_form_matches_jax(rng, monkeypatch, jax_steps, mode):
     """One tiny ViT step (4 heads of 32, f32) with the port's ``bwd_fused``
     / ``bwd_kv_chunk`` against ``intentbev.train.make_train_step`` traced
     with the constants patched and its attention through the packed
@@ -256,7 +277,7 @@ def test_train_step_form_matches_jax(rng, monkeypatch, mode):
     with jax_bwd_form(fused, chunk), pltpu.force_tpu_interpret_mode():
         check_train_step(rng, _paired_32(jcfg.tiny_test_config()),
                          _paired_32(tcfg.tiny_test_config()),
-                         dict(bwd_fused=fused, bwd_kv_chunk=chunk))
+                         dict(bwd_fused=fused, bwd_kv_chunk=chunk), jax_steps)
     assert taken == [mode] * 4
 
 
@@ -408,7 +429,8 @@ def test_no_env_var_is_read_below_main():
     package's backward knobs there."""
     files = (sorted((ROOT / "intentbev_torch").rglob("*.py"))
              + [ROOT / "bench_torch.py", ROOT / "chip_smoke.py",
-                ROOT / "tools" / "bench_train_torch.py", ROOT / "tools" / "profile_torch_slice.py"])
+                ROOT / "tools" / "bench_train_torch.py", ROOT / "tools" / "profile_torch_slice.py",
+                ROOT / "tools" / "bench_flash_torch.py"])
     bad = {p.relative_to(ROOT).as_posix(): [r for r in _env_reads(p) if r[1] != "main"]
            for p in files}
     assert not any(bad.values()), bad

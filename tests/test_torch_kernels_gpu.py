@@ -26,7 +26,10 @@ and the BHTD attention (forward and backward) at head dims 64 and 32, on
 contiguous [B, H, T, D] tensors and on the views of a qkv projection
 output, at small and at ViT-Ti's main-path shapes. The packed attention's
 three backward forms (fused, split, chunked: row 11) run at 6 heads of 64
-and at 12 heads of 32, with the packed forward at head dim 32. The library
+and at 12 heads of 32, with the packed forward at head dim 32; the Hopper
+backward kernels (TMA rings, wgmma) also on ragged tiles and a 128-key
+block wholly past seq_len, twice each (the same bits), and refuse a view
+TMA cannot take. The library
 ops of ``ops.experimental`` (rows 18 and 19: the int8 attention, the
 residual projection forward and backward) run at small and at the
 attention sublayer's shapes, and raise on what they are not built for.
@@ -630,6 +633,81 @@ def test_packed_head_dim_128_raises(dev):
         flash_attention_packed(x, x, x, 2)
     with pytest.raises(ValueError, match="head dim 128"):
         flash_attention_packed_bwd(x, x, x, x, torch.zeros(1, 2, 64, device="cuda"), x, 2)
+
+
+# The Hopper backward (TMA tile rings, wgmma): every form at both head dims
+# on shapes that leave ragged 64- and 128-row tiles, one where a whole
+# 128-key block lies past seq_len (T=400, seq_len 250), and the main path's.
+# chunk 256 divides JAX's padded length at each T (768 rows; 4608 at 4501).
+TMA_SHAPES = [(1, 300, 250), (2, 130, 130), (1, 400, 250), (8, 4501, 4501)]
+OTHER_FORM = {"fused": "split", "split": "fused", "chunked": "split"}
+MODES_OF_FORM = tuple(OTHER_FORM)
+
+
+@pytest.mark.parametrize("b,t,seq_len", TMA_SHAPES)
+@pytest.mark.parametrize("hd", [64, 32])
+def test_flash_bwd_packed_forms(dev, hd, b, t, seq_len):
+    """Each form against its plain version (limit of the forms), dk = dv = 0
+    exactly past seq_len, the same bits from two calls; controls: delta left
+    out and, at head dim 32, another form's rounding."""
+    heads = D // hd
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    do = _randn((b, t, D), 1.0, 1)
+    o, lse = flash_attention_packed(q, k, v, heads, seq_len)
+    for form in MODES_OF_FORM:
+        args = (q, k, v, o, lse, do, heads, seq_len, form, 256)
+        reset_launch_counts()
+        got = _packed_bwd_parts(flash_attention_packed_bwd, *args)
+        again = _packed_bwd_parts(flash_attention_packed_bwd, *args)
+        assert launches[tfp.BWD_COUNTERS[form]] == 2 and sum(launches.values()) == 2
+        assert all(torch.equal(a, c) for a, c in zip(got, again)), form
+        assert not got[1][:, seq_len:].any() and not got[2][:, seq_len:].any()
+        want = _packed_bwd_parts(flash_attention_packed_bwd_plain, *args)
+        assert max(_rels(got, want)) < ROW11_LIMIT, (form, _rels(got, want))
+        ctrl = _packed_bwd_parts(flash_attention_packed_bwd_plain, q, k, v,
+                                 torch.zeros_like(o), *args[4:])
+        assert max(_rels(got, ctrl)) >= ROW11_LIMIT, form
+        if hd == 32:
+            ctrl = _packed_bwd_parts(flash_attention_packed_bwd_plain, *args[:8],
+                                     OTHER_FORM[form], 256)
+            assert max(_rels(got, ctrl)) >= ROW11_LIMIT, (form, _rels(got, ctrl))
+
+
+@pytest.mark.parametrize("b,t,seq_len", TMA_SHAPES)
+@pytest.mark.parametrize("hd", [64, 32])
+def test_flash_bwd_bhtd_tiles(dev, hd, b, t, seq_len):
+    """The BHTD backward on contiguous [B, 3, T, D]: against its plain
+    version, dk = dv = 0 exactly past seq_len, the same bits from two calls;
+    control: delta left out."""
+    q, k, v, do = (_randn((b, 3, t, hd), 1.0, s) for s in range(4))
+    o, lse = flash_attention_fwd_plain(q, k, v, seq_len)
+    reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, o, lse, do, seq_len)
+    again = flash_attention_bwd(q, k, v, o, lse, do, seq_len)
+    assert launches["flash_attention_bwd"] == 2 and sum(launches.values()) == 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert not got[1][:, :, seq_len:].any() and not got[2][:, :, seq_len:].any()
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, seq_len)
+    assert max(_rels(got, want)) < FLASH_BWD_LIMIT, _rels(got, want)
+    ctrl = flash_attention_bwd_plain(q, k, v, torch.zeros_like(o), lse, do, seq_len)
+    assert max(_rels(got, ctrl)) >= FLASH_BWD_LIMIT
+
+
+def test_flash_bwd_refuses_what_tma_cannot_take(dev):
+    """Views whose base address is not a multiple of 16 bytes raise before
+    any launch, in both entries."""
+    qkv = _randn((1, 130, 3 * D + 8), 1.0, 0)
+    q, k, v = (qkv[..., 1 + j * D:1 + (j + 1) * D] for j in range(3))  # 2 bytes off
+    do, o = _randn((1, 130, D), 1.0, 1), _randn((1, 130, D), 1.0, 2)
+    lse = torch.zeros(1, 6, 130, device="cuda")
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_packed_bwd(q, k, v, o, lse, do, 6)
+    views = [heads_view(x, 6) for x in (q, k, v, o, do)]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(*views[:4], lse, views[4])
+    assert sum(launches.values()) == 0
 
 
 # Rows 18 and 19 (limits those of chip_smoke.py phase 13). The int8 kernel

@@ -340,10 +340,14 @@ def test_train_step_matches_jax(rng, name):
     check_train_step(rng, *_step_configs(name))
 
 
-def check_train_step(rng, jc, tc, port_kw=None):
+def check_train_step(rng, jc, tc, port_kw=None, jax_cache=None):
     """One step of the JAX config ``jc`` and its port copy ``tc`` (the
     checks of :func:`test_train_step_matches_jax`); ``port_kw``: more
-    arguments of the port's ``IntentNetViT``."""
+    arguments of the port's ``IntentNetViT``. ``jax_cache``: a dict, filled
+    and reused, of what the JAX side computes alike for one config and
+    batch whatever the flash backward's form: the initial train state and
+    the jitted step's metrics (forward values; each is a compile of its
+    own)."""
     g = jc.grid
     b, s, p, n_gt = 2, g.lidar_sweeps, 1500, jc.loss.max_gt_boxes
     pts, valid = _points(rng, b, s, p, g)
@@ -360,7 +364,12 @@ def check_train_step(rng, jc, tc, port_kw=None):
 
     model = build_model(jc, train_mode=True)
     tx = jtrain.make_optimizer(jc)
-    state = jtrain.init_train_state(model, jc, tx, jax.random.key(0))
+    cache = {} if jax_cache is None else jax_cache
+    key = ("state", repr(jc))
+    if key not in cache:  # a host copy: the jitted step donates its state
+        cache[key] = jax.tree_util.tree_map(
+            np.asarray, jtrain.init_train_state(model, jc, tx, jax.random.key(0)))
+    state = jax.tree_util.tree_map(jnp.asarray, cache[key])
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     rng_step = jax.random.key(1)
 
@@ -380,8 +389,11 @@ def check_train_step(rng, jc, tc, port_kw=None):
     (_, (want, want_bs)), want_g = jax.value_and_grad(loss_fn, has_aux=True)(state.params)
     variables = {"params": state.params, "batch_stats": state.batch_stats}
     variables = jax.tree_util.tree_map(np.asarray, variables)
-    _, step_metrics = jtrain.make_train_step(model, jc, jnp.asarray(anchors), tx)(
-        state, jbatch, rng_step)
+    key = ("metrics", repr(jc), *(v.tobytes() for v in batch.values()))
+    if key not in cache:
+        cache[key] = jtrain.make_train_step(model, jc, jnp.asarray(anchors), tx)(
+            state, jbatch, rng_step)[1]
+    step_metrics = cache[key]
 
     draws = StepDraws(
         _jax_dropout_draws(jax.random.split(rng_aug, b), jc.augment, g.height_px, g.width_px),

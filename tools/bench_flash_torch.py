@@ -1,0 +1,134 @@
+"""Times the port's attention kernels at the main paths' shapes, on one CUDA card.
+
+Every flash entry of ``intentbev_torch.ops`` that the training and serving
+paths call, on the tensors they are called with: the packed layout at
+[8, 4501, 384] in 6 heads of 64 and 12 heads of 32 (column slices of one
+qkv projection output; the backward in its three forms, fused, split and
+chunked), and the BHTD layout on ViT-Ti's [8, 4501, 3*192] qkv output in 3
+heads of 64. For each: CUDA-event ms per call (10 calls after one), the
+device time split by kernel from a profiler trace (for a backward: the
+dk/dv kernel, the dq kernel and the wrapper's own kernels), TFLOP/s of the
+work the bound counts (forward 2 products, backward 5), the bound at 989
+TFLOP/s bf16, and the same function's time through
+``scaled_dot_product_attention`` (forward, or forward saved and backward
+through autograd) on contiguous [B, H, T, D] copies, as a yardstick only.
+
+    python3 tools/bench_flash_torch.py            # one JSON line per entry
+
+It imports no JAX, and runs as it stands on an older checkout of the port
+(the entries' signatures are unchanged since the packed backward's forms),
+so that one call can time two trees in turn.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+B, T = 8, 4501
+FORMS = {"fused": (True, 0), "split": (False, 0), "chunked": (False, 1152)}
+
+
+def main() -> None:
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from intentbev_torch.ops import (flash_attention_bwd, flash_attention_fwd,
+                                     flash_attention_packed, flash_attention_packed_bwd)
+    from intentbev_torch.ops.flash_attention import flash_attention_packed_layout, heads_view
+
+    if not torch.cuda.is_available():
+        sys.exit("bench_flash_torch: needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    print(card, flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    def event_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def kernel_ms(fn, iters=3):
+        """Device ms per call by kernel part, from a profiler trace."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        parts = {}
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                part = ("dk/dv" if "flash_bwd_dkdv" in ev.key else "dq" if "flash_bwd_dq" in ev.key
+                        else "forward" if "flash_fwd" in ev.key else "wrapper")
+                parts[part] = parts.get(part, 0.0) + ev.device_time_total / 1e3 / iters
+        return parts
+
+    def sdpa(q_, k_, v_, do_, h):
+        """SDPA forward and backward on contiguous [B, H, T, D] copies of
+        packed [B, T, H*D] (or [B, H, T, D] view) tensors."""
+        def bhtd(x):
+            x = x if x.dim() == 4 else x.unflatten(-1, (h, x.shape[-1] // h)).transpose(1, 2)
+            return x.contiguous()
+        qs, ks, vs = (bhtd(x).requires_grad_(True) for x in (q_, k_, v_))
+        dos = bhtd(do_)
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        return (torch.no_grad()(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+                lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
+
+    def report(name, fn, products, d_model, library):
+        ms = event_ms(fn)
+        flops = 2 * products * B * T * T * d_model
+        line = {"name": name, "ms": round(ms, 4), "parts_ms": {
+                    k: round(t, 4) for k, t in kernel_ms(fn).items()},
+                "tflops": round(flops / ms / 1e9, 1),
+                "bound_ms": round(flops / BF16_FLOPS_PER_S * 1e3, 4),
+                "sdpa_ms": round(event_ms(library), 4), "card": card}
+        print(json.dumps(line), flush=True)
+
+    d = 384
+    qkv = randn(B, T, 3 * d)
+    q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
+    do = randn(B, T, d)
+    for h in (6, 12):
+        tag = f"{h}x{d // h}"
+        o, lse = flash_attention_packed(q, k, v, h)
+        lib_fwd, lib_bwd = sdpa(q, k, v, do, h)
+        report(f"flash_packed {tag}", lambda h=h: flash_attention_packed(q, k, v, h), 2, d,
+               lib_fwd)
+        for form, (fused, chunk) in FORMS.items():
+            report(f"flash_packed_bwd {form} {tag}",
+                   lambda h=h, o=o, lse=lse, fused=fused, chunk=chunk: flash_attention_packed_bwd(
+                       q, k, v, o, lse, do, h, None, fused, chunk), 5, d, lib_bwd)
+        del o, lse, lib_fwd, lib_bwd
+    dt = d // 2
+    qkv_t = randn(B, T, 3 * dt)
+    parts = [qkv_t[..., i * dt:(i + 1) * dt] for i in range(3)]
+    views = [heads_view(x, 3) for x in parts]
+    o_t, lse_t = flash_attention_packed_layout(*parts, 3)
+    o_v, do_v = heads_view(o_t, 3), heads_view(randn(B, T, dt), 3)
+    lib_fwd, lib_bwd = sdpa(*views, do_v, 3)
+    report("flash_attention 3x64", lambda: flash_attention_fwd(*views, out=o_v), 2, dt, lib_fwd)
+    report("flash_attention_bwd 3x64",
+           lambda: flash_attention_bwd(*views, o_v, lse_t, do_v), 5, dt, lib_bwd)
+
+
+if __name__ == "__main__":
+    main()

@@ -91,7 +91,8 @@ SPAN_GROUPS = {"cnn/first_conv": "first conv (290->160 5x5/s2 + 1x1/s2 projectio
 GROUPS = (
     ("voxel_fill_kernel", "voxel_fill"),
     ("flash_fwd_kernel", "flash forward (packed or BHTD)"),
-    ("flash_bwd", "flash backward (packed or BHTD)"),
+    ("flash_bwd_dkdv", "flash backward dk/dv (packed or BHTD)"),
+    ("flash_bwd_dq", "flash backward dq (packed or BHTD)"),
     ("fused_mlp_int8_kernel", "fused_mlp_int8"),
     ("fused_ln_mlp_kernel<384, 0, false, false>", "fused_mlp (no LN)"),
     ("fused_ln_mlp_kernel<384, 1, false, false>", "fused_mlp (no LN)"),
