@@ -28,13 +28,15 @@ which waits for the device once per iteration of its fixpoint
 (``boxes/nms.py``), inside the timed loop. The ViT lines serve
 ``default_vit_config()`` with ``bench.py``'s serving switches
 (``fwd_kv_chunk=1152, unsafe_softmax=True``, attention through the flash
-kernels on the card) and the sigmoid GELU; the port's flash forward keeps
-a running max, which equals the fixed-max softmax wherever that is exact.
+kernels on the card: the forward in the fixed-max form, as JAX's) and the
+sigmoid GELU.
 Weights are random, from ``--seed`` (the CNN's BatchNorm statistics from one
 synthetic batch, ``synthetic.calibrated_params``).
 
 ``_sustained`` serves through ``StreamingInferencer`` as ``bench.py
---sustained`` does: per pass, a producer thread builds each batch's chunks
+--sustained`` does (``default_vit_config()`` without the serving switches,
+so the forward's monolithic safe form): per pass, a producer thread builds
+each batch's chunks
 and copies them to the card on a stream of its own while the device runs
 the previous batch; the Detections of batch i are fetched after batch i+1
 is launched; frames/s is the median of 3 passes. The line carries the best
@@ -74,8 +76,9 @@ def note(msg: str) -> None:
 
 
 def line(metric: str, fps: float, **extra) -> dict:
-    out = {"metric": metric, "value": round(fps, 2), "unit": "frames/s",
-           "vs_baseline": round(fps / 2000.0, 4), **extra}
+    value = round(fps, 2)  # vs_baseline from the printed value, so the line agrees with itself
+    out = {"metric": metric, "value": value, "unit": "frames/s",
+           "vs_baseline": round(value / 2000.0, 4), **extra}
     print(json.dumps(out), flush=True)
     return out
 

@@ -17,7 +17,12 @@ Phases (each prints a line; any failure exits nonzero with no result):
    TFLOP/s bf16, 1979 TOP/s for the int8 kernel) is computed from the
    inputs. Each reading (relative L2 error) must lie
    under its limit, and a control, the plain version with one named fault,
-   must reach it. Each flash backward entry also prints its device time
+   must reach it. The flash forward runs in JAX's three softmax forms
+   (monolithic safe, fixed max, chunked safe at 1152 keys), each against
+   its plain version in that form, o read both by its relative L2 and by
+   the share of its elements that differ; controls: the plain version of
+   another form (the rounding of P against another max) and the old masking
+   faults. Each flash backward entry also prints its device time
    split by kernel from a profiler trace (dk/dv, dq, the wrapper's own
    kernels) and its TFLOP/s counted as the 5-product bound counts them.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
@@ -87,11 +92,19 @@ Phases (each prints a line; any failure exits nonzero with no result):
     fused step's (one function at head dim 64, so the limits are far under
     phase 5's), with launch counts under the forms' own names; then 3 timed
     steps of each form at 6 heads of 64 and at 12 heads of 32. The
-    backward entries print the split of phase 3.
+    backward entries print the split of phase 3. The forward's three forms
+    at 12 heads of 32 against their plain versions (controls as phase 3's,
+    and q scaled by the f32 scale); then the full-width ViT serves 3
+    requests in the form the bench lines do not take, as phase 8 serves
+    its configurations: E the chunked safe softmax at 6 heads of 64
+    (``fwd_kv_chunk=1152``), counted under its form's own name.
 12. The bench twins: every line of ``bench_torch.py`` once (2 iterations;
     ``_sustained`` one pass of 3 batches) with ``bench.py``'s keys in its
-    order, finite and positive, and ``tools/bench_train_torch.py``'s step
-    under the fused and the chunked backward (2 steps).
+    order, finite and positive, its ViT lines through the fixed-max forward
+    (``bench.py``'s serving switches: ``flash_packed_fixed`` launched, the
+    other forms not; ``_sustained`` serves the default config, as
+    ``bench.py``'s does: the safe form), and ``tools/bench_train_torch.py``'s
+    step under the fused and the chunked backward (2 steps).
 13. The library ops of ``intentbev_torch.ops.experimental``, which no model
     path calls (in JAX neither): each op's own entry at the attention
     sublayer's shapes of the flagship ViT ([8, 4608, 384], 4501 real keys),
@@ -129,7 +142,8 @@ INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores
 # reading to ~2e-2; the int8 kernel itself is exact against its plain
 # version (phase 3).
 CONFIG_LIMITS = {"A serving_int8": (2.3e-2,) * 3, **{name: (1.3e-2,) * 3 for name in (
-    "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed")}}
+    "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
+    "E fwd_kv_chunk=1152")}}
 
 
 def fail(msg: str) -> None:
@@ -239,6 +253,13 @@ def main() -> None:
     def n_differ(got, want):
         return float((got != want).sum())
 
+    def share(got, want):
+        return float((got != want).float().mean())
+
+    def o_twice(r):
+        """A forward's (o, lse) as (o, o, lse): o read by two metrics."""
+        return r[0], r[0], r[1]
+
     def readings(name, got, want, metrics):
         """One reading per output (metrics: one function per output)."""
         out = []
@@ -337,7 +358,7 @@ def main() -> None:
     q, k, vv = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     hw = tuple(v.img_size)
     mlp_args = (x, ln[0], ln[1], w1, b1, w2, b2, ln[2], ln[3])
-    tile_len = tokens // 64 * 64  # keys before flash's last, partial key tile
+    tile_len = tokens // 128 * 128  # keys before flash's last, partial key tile
     heads = v.num_heads
     # training inputs: a per-sample drop-path gate (0 or 1/0.9; sample 0
     # dropped), upstream gradients, and the saved forward results
@@ -413,14 +434,36 @@ def main() -> None:
     # its plain version does and sums nothing, the count of elements that
     # differ (limit: none). Both sides round the same f32 values to bf16 at the
     # same points, so a sound kernel differs only where f32 summation order
-    # tips a value to the neighbouring bf16; flash also rounds P against its
-    # running max where the plain version uses the row max (~2.4e-3). Each
-    # limit lies between that noise and the reading of the case's control: the
-    # plain version with one fault the kernel could plausibly have (PERF.md
-    # has both readings). Work: flash 4*B*T*T*384 flops forward, 5 products
+    # tips a value to the neighbouring bf16. The flash forward's o is also
+    # read as the share of its elements that differ, which sees where P is
+    # rounded (another softmax form's max moves 30-50 % of o, its relative L2
+    # only ~2e-3). Each limit lies between that noise and the reading of the
+    # case's controls: the plain version with one fault the kernel could
+    # plausibly have (PERF.md has both readings). Work: flash 4*B*T*T*384
+    # flops forward (the two-pass forms do a third product), 5 products
     # (10*B*T*T*384) backward; LN+MLP 4*N*384*1536 forward, 5 products
     # backward; LN and voxel_embed are bound by their bytes.
     flash_flops = 4 * batch * tokens * tokens * d
+    fpk = importlib.import_module("intentbev_torch.ops.flash_packed")
+    FWD_CHUNK = 1152  # divides the 4608 rows JAX pads 4501 tokens to
+    # the forward's limits: sound <= 2.4e-4 (relative L2), <= 0.82 % of o
+    # (share), lse <= 2e-6; another form's P >= 2.1e-3 and >= 30 % (PERF.md)
+    FWD_METRICS, FWD_LIMITS = (rel_l2, share, max_abs), (1e-3, 2e-2, 1e-3)
+
+    def bhtd_plain_form(q_, k_, v_, seq=None, form="fixed"):
+        """The BHTD plain forward with P rounded against another form's max
+        (the controls' fault; the BHTD kernel takes the row max)."""
+        b_, h_, t_, d_ = q_.shape
+        seq = t_ if seq is None else seq
+        sc_ = torch.tensor(d_ ** -0.5, dtype=q_.dtype)
+        o_ = torch.empty(b_, h_, t_, d_, dtype=q_.dtype, device=q_.device)
+        lse_ = torch.empty(b_, h_, t_, device=q_.device)
+        for i in range(b_):
+            s_ = torch.matmul((q_[i] * sc_).float(), k_[i].float().transpose(-1, -2))
+            s_[..., seq:] = float("-inf")
+            oi, lse_[i] = fpk.softmax_pv(s_, v_[i].float(), q_.dtype, form)
+            o_[i] = oi.to(q_.dtype)
+        return o_, lse_
     mlp_flops = 4 * rows * d * hidden
     pe_flops = 2 * batch * v.num_patches * v.patch_size ** 2 * v.lidar_input_channels * d
     rates = {"fused_mlp_int8": INT8_OPS_PER_S}  # ops of another type than bf16
@@ -444,12 +487,27 @@ def main() -> None:
                 chunks._replace(count=(chunks.count - 1).clamp(min=0)), hw,
                 g.lidar_total_channels, v.patch_size),
             "last chunk of each band skipped", (n_differ,), (1,), 20, 3, fill_bytes, 0, None),
+        # the forward in JAX's three softmax forms (monolithic safe, fixed max,
+        # chunked safe at 1152 keys); controls: another form's plain version
         "flash_packed": (
-            lambda: flash_attention_packed(q, k, vv, heads),
-            lambda: flash_attention_packed_plain(q, k, vv, heads),
-            lambda: flash_attention_packed_plain(q, k, vv, heads, tile_len),
-            "keys of the last partial tile masked", (rel_l2, max_abs), (1e-2, 1e-3), 10, 3,
+            lambda: o_twice(flash_attention_packed(q, k, vv, heads)),
+            lambda: o_twice(flash_attention_packed_plain(q, k, vv, heads)),
+            [lambda: o_twice(flash_attention_packed_plain(q, k, vv, heads, None, 0, True)),
+             lambda: o_twice(flash_attention_packed_plain(q, k, vv, heads, tile_len))],
+            ["P rounded against the fixed max", "keys of the last partial tile masked"],
+            FWD_METRICS, FWD_LIMITS, 10, 3, nbytes(q, k, vv, o, lse), flash_flops, lib_sdpa),
+        "flash_packed_fixed": (
+            lambda: o_twice(flash_attention_packed(q, k, vv, heads, None, FWD_CHUNK, True)),
+            lambda: o_twice(flash_attention_packed_plain(q, k, vv, heads, None, FWD_CHUNK, True)),
+            lambda: o_twice(flash_attention_packed_plain(q, k, vv, heads)),
+            "P rounded against the row max", FWD_METRICS, FWD_LIMITS, 10, 3,
             nbytes(q, k, vv, o, lse), flash_flops, lib_sdpa),
+        "flash_packed_chunked": (
+            lambda: o_twice(flash_attention_packed(q, k, vv, heads, None, FWD_CHUNK)),
+            lambda: o_twice(flash_attention_packed_plain(q, k, vv, heads, None, FWD_CHUNK)),
+            lambda: o_twice(flash_attention_packed_plain(q, k, vv, heads)),
+            "P rounded against the row max, not the running max", FWD_METRICS, FWD_LIMITS,
+            10, 3, nbytes(q, k, vv, o, lse), flash_flops, lib_sdpa),
         "fused_ln_mlp[erf]": (
             lambda: fused_ln_mlp(*mlp_args, gelu_mode="erf"),
             lambda: fused_ln_mlp_plain(*mlp_args, gelu_mode="erf"),
@@ -612,11 +670,12 @@ def main() -> None:
 
     cases.update({
         "flash_attention": (
-            lambda: flash_attention_fwd(*qkv_v, out=o_tv),
-            lambda: flash_attention_fwd_plain(*qkv_v),
-            lambda: flash_attention_fwd_plain(*qkv_v, tile_len),
-            "keys of the last partial tile masked", (rel_l2, max_abs), (1e-2, 1e-3), 10, 3,
-            nbytes(qkv_t, o_t, lse_t), flash_flops_t,
+            lambda: o_twice(flash_attention_fwd(*qkv_v, out=o_tv)),
+            lambda: o_twice(flash_attention_fwd_plain(*qkv_v)),
+            [lambda: o_twice(bhtd_plain_form(*qkv_v)),
+             lambda: o_twice(flash_attention_fwd_plain(*qkv_v, tile_len))],
+            ["P rounded against the fixed max", "keys of the last partial tile masked"],
+            FWD_METRICS, FWD_LIMITS, 10, 3, nbytes(qkv_t, o_t, lse_t), flash_flops_t,
             torch.no_grad()(lambda: F.scaled_dot_product_attention(qh_t, kh_t, vh_t))),
         "flash_attention_bwd": (
             lambda: flash_attention_bwd(*qkv_v, o_tv, lse_t, do_tv),
@@ -627,11 +686,13 @@ def main() -> None:
             lambda: torch.autograd.grad(o_sdpa_t, (qh_t, kh_t, vh_t), doh_t,
                                         retain_graph=True)),
         "flash_attention[D=32]": (
-            lambda: flash_attention_fwd(q32, k32, v32, 950),
-            lambda: flash_attention_fwd_plain(q32, k32, v32, 950),
-            lambda: flash_attention_fwd_plain(q32, k32, v32, 1000),
-            "keys past seq_len not masked", (rel_l2, max_abs), (1e-2, 1e-3), 20, 3,
-            nbytes(q32, k32, v32, o32, lse32), 4 * 2 * 3 * 1000 * 950 * 32, None),
+            lambda: o_twice(flash_attention_fwd(q32, k32, v32, 950)),
+            lambda: o_twice(flash_attention_fwd_plain(q32, k32, v32, 950)),
+            [lambda: o_twice(bhtd_plain_form(q32, k32, v32, 950)),
+             lambda: o_twice(flash_attention_fwd_plain(q32, k32, v32, 1000))],
+            ["P rounded against the fixed max", "keys past seq_len not masked"],
+            FWD_METRICS, FWD_LIMITS, 20, 3, nbytes(q32, k32, v32, o32, lse32),
+            4 * 2 * 3 * 1000 * 950 * 32, None),
         "flash_attention_bwd[D=32]": (
             lambda: flash_attention_bwd(q32, k32, v32, o32, lse32, do32, 950),
             lambda: flash_attention_bwd_plain(q32, k32, v32, o32, lse32, do32, 950),
@@ -722,11 +783,16 @@ def main() -> None:
                    library) in cases.items():
             def tup(r):
                 return r if isinstance(r, tuple) else (r,)
-            got, want, ctrl = tup(kern()), tup(plain()), tup(control())
+            got, want = tup(kern()), tup(plain())
             torch.cuda.synchronize()
-            sound, ctrl_r = compare(name, got, want, ctrl, metrics, limits, fault)
+            controls = list(zip(control, fault)) if isinstance(control, list) else [
+                (control, fault)]
+            caught = []
+            for c_call, c_fault in controls:  # each control must be caught
+                sound, ctrl_r = compare(name, got, want, tup(c_call()), metrics, limits, c_fault)
+                caught.append(f"control ({c_fault}) [{', '.join(f'{r:.3e}' for r in ctrl_r)}]")
             abs_err = max(max_abs(a, b) for a, b in zip(got, want))
-            del got, want, ctrl
+            del got, want
             ms, plain_ms = cuda_ms(kern, it_k), cuda_ms(plain, it_p)
             lib_ms = cuda_ms(library, it_k) if library is not None else None
             bound_ms, bound_by = bound(n_bytes, flops, rates.get(name, BF16_FLOPS_PER_S))
@@ -735,8 +801,8 @@ def main() -> None:
             fmt = ", ".join
             lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
             print(f"kernel {name}: readings [{fmt(f'{r:.3e}' for r in sound)}] "
-                  f"under limits [{fmt(f'{lim:g}' for lim in limits)}]; control "
-                  f"({fault}) [{fmt(f'{r:.3e}' for r in ctrl_r)}] caught; max|d| {abs_err:.3e}; "
+                  f"under limits [{fmt(f'{lim:g}' for lim in limits)}]; {fmt(caught)} "
+                  f"caught; max|d| {abs_err:.3e}; "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, bound "
                   f"{bound_ms:.4f} ms ({bound_by})  [{card}]", flush=True)
             if name.startswith(("flash_packed_bwd", "flash_attention_bwd")):
@@ -1124,9 +1190,11 @@ def main() -> None:
         "D fuse_patch_embed": ("patch_embed", {"patch_embed": 1, "flash_packed": 24,
                                                "fused_ln_mlp": 24, "layernorm": 4}),
     }
-    config_counts, config_failures = {}, []
-    for cname, (variant, per_req) in per_request_by_config.items():
-        vcfg, transport = vit_serving_variant(cfg, variant)
+    def serve_config(cname, vcfg, transport, per_req, failures):
+        """Serve ``requests`` under ``vcfg``: launch counts per request as
+        ``per_req``, logits against the plain path (control: the plain path
+        with the erf GELU), fixed-shape finite Detections, frames/s; the
+        counts of the timed requests are returned."""
         vinf = StreamingInferencer(vcfg, params, "cuda", transport=transport, gelu="sigmoid")
         vinf(*requests[0])  # warm-up
         torch.cuda.synchronize()
@@ -1135,7 +1203,6 @@ def main() -> None:
         vdets = [vinf(*r) for r in requests]
         elapsed = time.perf_counter() - t0
         counts = dict(_build.launches)
-        config_counts[cname] = counts
         want_counts = {k_: per_req.get(k_, 0) * len(requests) for k_ in counts}
         check(counts == want_counts, f"{cname}: launch counts {counts} != {want_counts}")
 
@@ -1155,7 +1222,7 @@ def main() -> None:
                   f"{cname}: {name} logits shape {tuple(a.shape)}")
         sound, ctrl_r = compare(f"{cname} logits", got, want, ctrl, (rel_l2,) * 3,
                                 CONFIG_LIMITS[cname], "plain, erf GELU in the blocks",
-                                config_failures)
+                                failures)
         for det in vdets:
             check(det.boxes_xywha.shape == (batch, ev.max_detections, 5), f"{cname}: boxes shape")
             check(det.scores.shape == det.valid.shape == (batch, ev.max_detections),
@@ -1171,6 +1238,12 @@ def main() -> None:
               f"over {len(requests)} requests of {batch} [{card}]", flush=True)
         del vinf, vdets, got, want, ctrl
         torch.cuda.empty_cache()
+        return counts
+
+    config_counts, config_failures = {}, []
+    for cname, (variant, per_req) in per_request_by_config.items():
+        vcfg, transport = vit_serving_variant(cfg, variant)
+        config_counts[cname] = serve_config(cname, vcfg, transport, per_req, config_failures)
     check(not config_failures, "; ".join(config_failures))
 
     # 9. ViT training under B fuse_ln_dense and C use_fused_layernorm=False
@@ -1362,8 +1435,7 @@ def main() -> None:
     # backwards (INTENTBEV_BWD_FUSED=0, INTENTBEV_BWD_KV_CHUNK) as the model's
     # bwd_fused / bwd_kv_chunk, and the packed path at head dim 32 (ViT-S's
     # width in 12 heads of 32, whose heads pair into 128 lanes)
-    fpk = importlib.import_module("intentbev_torch.ops.flash_packed")
-    chunk = 1152  # divides the 4608 rows JAX pads 4501 tokens to
+    chunk = FWD_CHUNK
     forms = {"fused": (True, 0), "split": (False, 0), "chunked": (False, chunk)}
     qkv = randn((batch, tokens, 3 * d), 1.0)
     q, k, vv = (qkv[..., i * d:(i + 1) * d] for i in range(3))
@@ -1402,13 +1474,26 @@ def main() -> None:
         lib_fwd, lib_bwd = sdpa_calls(h_)
         bwd_bytes = nbytes(q, k, vv, o_, do, lse_) + nbytes(qkv)
         plain_bwd = flash_attention_packed_bwd_plain
-        if tag:
+        if tag:  # the forward's three forms at head dim 32
+            def fwd(fn, h_=h_, form="safe"):
+                args = {"safe": (), "fixed": (chunk, True), "chunked": (chunk,)}[form]
+                return lambda: o_twice(fn(q, k, vv, h_, None, *args))
+
             row11[f"flash_packed{tag}"] = (
-                lambda h_=h_: flash_attention_packed(q, k, vv, h_),
-                lambda h_=h_: flash_attention_packed_plain(q, k, vv, h_),
-                lambda h_=h_: f32_scaled(lambda: flash_attention_packed_plain(q, k, vv, h_)),
-                "q scaled by the f32 scale", (rel_l2, max_abs), (1e-2, 1e-3), 10, 3,
-                nbytes(q, k, vv, o_, lse_), flash_flops, lib_fwd)
+                fwd(flash_attention_packed), fwd(flash_attention_packed_plain),
+                [fwd(flash_attention_packed_plain, form="fixed"),
+                 lambda: f32_scaled(fwd(flash_attention_packed_plain))],
+                ["P rounded against the fixed max", "q scaled by the f32 scale"],
+                FWD_METRICS, FWD_LIMITS, 10, 3, nbytes(q, k, vv, o_, lse_), flash_flops, lib_fwd)
+            for form in ("fixed", "chunked"):
+                row11[f"{fpk.FWD_COUNTERS[form]}{tag}"] = (
+                    fwd(flash_attention_packed, form=form),
+                    fwd(flash_attention_packed_plain, form=form),
+                    fwd(flash_attention_packed_plain),
+                    "P rounded against the row max" + (", not the running max"
+                                                       if form == "chunked" else ""),
+                    FWD_METRICS, FWD_LIMITS, 10, 3, nbytes(q, k, vv, o_, lse_), flash_flops,
+                    lib_fwd)
             row11[f"flash_packed_bwd{tag}"] = (
                 bwd_call(flash_attention_packed_bwd, "fused", h_, o_, lse_),
                 bwd_call(plain_bwd, "fused", h_, o_, lse_),
@@ -1501,6 +1586,15 @@ def main() -> None:
             del net, fstep, metrics
             torch.cuda.empty_cache()
 
+    # the forward's chunked safe softmax served (fwd_kv_chunk=1152, the sweep
+    # of tools/perf_sweep.sh; phase 12's bench lines serve the fixed max)
+    form_failures = []
+    ecfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, fwd_kv_chunk=chunk))
+    chunked_serve_counts = serve_config(
+        "E fwd_kv_chunk=1152", ecfg, "chunks",
+        {**per_request, "flash_packed": 0, "flash_packed_chunked": 2 * v.depth}, form_failures)
+    check(not form_failures, "; ".join(form_failures))
+
     # 12. the bench twins (bench_torch.py, tools/bench_train_torch.py): every
     # line once, through their functions, at a reduced count; the full runs
     # are the scripts' own
@@ -1509,18 +1603,29 @@ def main() -> None:
     import bench_train_torch
 
     names = bench_torch.DEFAULT_LINES
-    bench_lines = []
+    bench_lines, line_counts = [], {}
     for metric, kw in ((names[0], dict(model_name="cnn")),
                        (names[1], dict(model_name="cnn", voxembed=True)),
                        (names[2], dict(model_name="vit")), (names[3], None),
                        (names[4], dict(model_name="vit", voxembed=True)),
                        ("bev_frames_per_sec_per_chip_int8", dict(model_name="vit", int8=True)),
                        ("bev_frames_per_sec_per_chip_cells", dict(model_name="vit", cells=True))):
+        _build.reset_launch_counts()
         if kw is None:
             bench_lines.append(bench_torch.run_sustained(batches=3, passes=1))
         else:
             bench_lines.append(bench_torch.run_mode(metric, iters=2, **kw))
+        line_counts[metric] = dict(_build.launches)
         torch.cuda.empty_cache()
+    # the ViT lines serve bench.py's switches (the fixed max); _sustained, as
+    # bench.py's run_sustained, the default config (the safe form)
+    bench_counts = {k_: sum(c[k_] for c in line_counts.values()) for k_ in _build.launches}
+    for metric, c in line_counts.items():
+        fwd_counts = {k_: c[k_] for k_ in fpk.FWD_COUNTERS.values()}
+        want = (None if "cnn" in metric else "flash_packed" if metric == names[3]
+                else "flash_packed_fixed")
+        check(all((n > 0) == (k_ == want) for k_, n in fwd_counts.items()),
+              f"bench line {metric}: flash forwards {fwd_counts}, want only {want}")
     check([ln["metric"] for ln in bench_lines[:5]] == list(names),
           f"bench lines {[ln['metric'] for ln in bench_lines]} != {names}")
     for ln in bench_lines:
@@ -1540,7 +1645,9 @@ def main() -> None:
     print(f"bench twins: {len(bench_lines)} bench_torch lines with bench.py's keys in its order "
           f"(default run {list(names)}), bench_train_torch under fused and chunked "
           f"({ {f: round(r['ms_per_step'], 2) for f, r in bench_train.items()} } ms/step over "
-          f"2 steps) [{card}]", flush=True)
+          f"2 steps); the bench_torch ViT lines launched flash_packed_fixed "
+          f"{bench_counts['flash_packed_fixed']} times and no other forward, _sustained "
+          f"flash_packed {line_counts[names[3]]['flash_packed']} [{card}]", flush=True)
 
     # 13. the library ops of ops.experimental (rows 18 and 19): no model path
     # calls them, so the path is each op's entry at the attention sublayer's
@@ -1664,9 +1771,16 @@ def main() -> None:
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
-            ("flash_packed", "flash_packed.cu", "intentbev/ops/flash_packed.py:157",
+            ("flash_packed", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
              (*serving_runs, train_counts, train_b, train_c, form_counts["split"],
               form_counts["chunked"])),
+            # the forward's fixed max (bench.py's serving form: the bench lines)
+            # and chunked safe form (phase 11)
+            ("flash_packed_fixed", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:157 (safe=False)", (bench_counts,)),
+            ("flash_packed_chunked", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:157 (safe=True)",
+             (chunked_serve_counts,)),
             ("fused_ln_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:116",
              serving_runs),
             ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39", serving_runs),
@@ -1743,7 +1857,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 36 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 38 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,43 +1,15 @@
 // Attention with lse, forward and backward, over strided [B, H, T, D] views:
 // the packed [B, T, H*D] layout of the ViT's qkv projection (heads that pair
 // into 128 lanes: D = 64 or 32) and the BHTD layout (any other head layout).
-//
-// Forward. Replaces: intentbev/ops/flash_packed.py::_fwd_kernel_chunked
-// (online softmax over KV tiles, the serving configuration) and ::_fwd_kernel
-// (the whole key row at once), and intentbev/ops/flash_attention.py::
-// _fwd_kernel (the BHTD kernel, a whole key row per 512-query block). All
-// compute the same function; this kernel uses the running-max (safe)
-// softmax, which equals the TPU's fixed-max variant wherever that one is
-// exact (|s| < 88).
-// Bound on the H100: tensor-core throughput and the exp work of the softmax.
-// At B=8, T=4501, 6 heads of 64 a call is 4*B*T*T*384 = 249 GFLOP and
-// 8*6*4501^2 = 972 M exponentials against ~100 MB of q/k/v/o; at 3 heads of
-// 64 (ViT-Ti) half of each.
-// Design: one 128-thread block per (64-query tile, head, batch); each warp
-// owns 16 query rows. q is read once, scaled in bf16 (as the JAX kernels
-// do: the scale itself is the bf16-rounded 1/sqrt(D)) and kept as mma.sync
-// A fragments in registers. The block walks 64-key tiles of K and V staged
-// in shared memory (V transposed so that the PV product reads it as
-// [d][key]); S = q K^T and O += P V run on mma.sync with f32 accumulation,
-// the running max and row sums stay in registers, and P is rounded to bf16
-// before PV like the JAX kernels. Keys at or past seq_len get a score of
-// -inf inside the kernel, so the caller pads nothing. Every tensor is read
-// and written through its own batch, head and row strides (unit stride
-// along D), so q, k and v can be column slices of the qkv projection's
-// output and o can be written in either layout, with no copies. The TPU's
-// BHTD kernel keeps a whole [512, T_pad] score panel in VMEM, which has no
-// counterpart in a block's 227 KB: here it is the same online softmax as
-// the packed kernel. The head dim is a template parameter (32 or 64).
+// Every kernel reads q, k, v (and dO) through four-dimensional TMA tensor
+// maps (csrc/hopper.cuh) and runs every product on wgmma; the head dim is a
+// template parameter (32 or 64).
 #include <math.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
-constexpr int LDR = 64 + 8;  // [d][row] tiles: 64 rows (keys or queries)
 
 // Element strides of a [B, H, T, D] view whose D stride is 1.
 struct Strides {
@@ -48,157 +20,458 @@ __device__ __forceinline__ long long at(const Strides& s, int b, int h, int r) {
   return (long long)b * s.b + (long long)h * s.h + (long long)r * s.t;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(128)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, Strides in, bf16* __restrict__ o, Strides os,
-                     float* __restrict__ lse, int T, int seq_len, int H, float scale) {
-  constexpr int LDQ = HD + 8;  // [row][d] tiles
-  __shared__ __align__(16) bf16 qs[BQ * LDQ];
-  __shared__ __align__(16) bf16 ks[BK * LDQ];
-  __shared__ __align__(16) bf16 vt[HD * LDR];  // [d][key]
+constexpr int RING_ROWS = 128;  // rows of a ring tile: two 64-row TMA boxes
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int ONE_PER_SM = 120 * 1024;  // more than half an SM's shared memory
+// registers a thread (setmaxnreg): 128 * 24 + 256 * 240 = 384 * 168, the
+// 168 a thread of a 384-thread block gets at launch
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+__device__ __forceinline__ uint4 scale_bf16x8(uint4 raw, float scale) {
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+  uint4 out;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    w[j] = pack_bf16x2(__bfloat162float(e[2 * j]) * scale,
+                       __bfloat162float(e[2 * j + 1]) * scale);
+  return out;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// dst = bf16(src * scale) over a 64-row tile of `bytes` bytes, 16 bytes at a
+// time (an elementwise pass: the swizzle does not matter), threads i0, i0 +
+// stride, ...
+__device__ __forceinline__ void scale_tile(const uint8_t* src, uint8_t* dst, int bytes,
+                                           float scale, int i0, int stride) {
+  for (int i = i0; i < bytes / 16; i += stride)
+    reinterpret_cast<uint4*>(dst)[i] =
+        scale_bf16x8(reinterpret_cast<const uint4*>(src)[i], scale);
+}
+
+// The consumer's A fragments of a [64 x 16 KS] accumulator (rows this
+// warpgroup's, columns the next product's contraction), 16 columns each.
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&c)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+}
+
+// acc[64 x 128] = A B^T over the head dim (the scores S, S^T and dP, dP^T):
+// A this warpgroup's 64-row tile, B a 128-row tile of the ring, both K-major.
+template <int RB, int HD>
+__device__ __forceinline__ void scores(float (&acc)[64], const uint8_t* a, const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    hopper::wgmma_ss_n128(acc, hopper::desc_kmajor<RB>(a, kk), hopper::desc_kmajor<RB>(b, kk),
+                          kk > 0);
+}
+
+// The same with A from registers: this warpgroup's rows as A fragments, 16
+// columns each.
+template <int RB, int HD>
+__device__ __forceinline__ void scores(float (&acc)[64], const uint32_t (&a)[HD / 16][4],
+                                       const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    hopper::wgmma_rs_n128(acc, a[kk], hopper::desc_kmajor<RB>(b, kk), kk > 0);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// ---------------------------------------------------------------------------
+// Forward. Replaces intentbev/ops/flash_packed.py::_fwd_kernel (the whole
+// key row at once; safe = the true row max, or the fixed max m = 0) and
+// ::_fwd_kernel_chunked (kv_chunk keys at a time; safe = a running max
+// updated once per chunk with the rescale corr = exp(m_old - m_new), or the
+// fixed max), and intentbev/ops/flash_attention.py::_fwd_kernel (the BHTD
+// kernel: the true row max). Each rounds P = exp(s - m) to bf16 against its
+// own m before the PV product, so the three forms differ in their bf16
+// values; a template parameter (Form) takes each one's m:
+//  - SAFE (_fwd_kernel, safe; the BHTD kernel): m = the row's max over
+//    every key. Two passes over the key tiles: pass 1 runs S = Q K^T and
+//    the row max only (no exponentials, half the products), pass 2 is the
+//    FIXED loop with that m, so no rescale of O.
+//  - FIXED (either JAX kernel with safe=False; the serving configuration
+//    of bench.py): m = 0, lse = log(d). One pass of pure accumulation: no
+//    max and no rescale. Exact while |s| < ~88; the P of every chunking is
+//    the same, so one kernel stands for both JAX kernels.
+//  - CHUNKED (_fwd_kernel_chunked, safe): the two passes per group of
+//    kv_chunk keys (a multiple of the 128-key tile), m the running max up to
+//    the group's last key, and JAX's corr on O and d at each group's start.
+// lse = m + log(d), d = the f32 sum of P before rounding; o = (P V) / d.
+// Bound on the H100: tensor-core throughput and the exponentials. At B=8,
+// T=4501, 6 heads of 64 a call is 4*B*T*T*384 = 249 GFLOP (0.25 ms at 989
+// TFLOP/s; SAFE and CHUNKED also run pass 1's 124 GFLOP) and 8*6*4501^2 =
+// 972 M exponentials (~0.23 ms at 16 a clock per SM on 132 SMs); 12 heads
+// of 32 the same products and twice the exponentials, so ex2 bounds that
+// shape; 3 heads of 64 (ViT-Ti) half of each.
+// Design: one block per (64 query rows per consumer, head, batch), warp-
+// specialised as the backward is: 2 or 3 consumer warpgroups (FwdShape,
+// registers raised) and a producer warpgroup (registers lowered to 24),
+// whose first thread loads the block's q once and keeps TMA loads in a ring
+// of FWD_STAGES slots (mbarriers full / empty), in the order the consumers
+// take them: pass 1 items of two 128-key k tiles, pass 2 items of the k and
+// v tiles of 128 keys. A consumer reads its q rows into registers (ldmatrix
+// from the swizzled tile; at head dim 32 scaled in bf16 first, in place: the
+// bf16 scale is not a power of two), runs S = Q K^T as wgmma m64n128 (A in
+// registers, the k tile K-major), masks keys at or past seq_len in the last
+// tile only (a tile wholly past seq_len is never loaded), takes row maxima
+// and sums as trees, computes P = ex2(s * c - m * c) with the scale and
+// log2(e) folded into c (head dim 64: c = scale * log2(e) on the f32 sum,
+// the same bits as scaling q in bf16 by 1/8), rounds P to bf16 A fragments
+// in registers and runs O += P V as wgmma m64nDk16 with the v tile read
+// MN-major through the descriptor's transpose bit (no transposed copy of
+// v). Pass 2 issues the P V of tile i - 1 beside the scores of tile i, so
+// tile i's exponentials run under that product. O / d goes to bf16 through
+// a staging tile in shared memory and out as 16-byte stores in either
+// layout; rows past T are read as TMA's zeros and never written.
+// ---------------------------------------------------------------------------
+
+enum Form { SAFE = 0, FIXED = 1, CHUNKED_SAFE = 2 };  // the C entries' form numbers
+
+// The forward's block shape, by head dim and form (PERF.md §6 has the
+// A/B runs behind each choice):
+//  - FWD_STAGES ring slots (3: pass 2 holds tile i - 1's v while it waits
+//    for tile i);
+//  - consumer warpgroups of 64 query rows: 3 at head dim 32, whose
+//    exponentials (twice as many per product as at 64) want more warps to
+//    hide their latency, 2 at 64 (a third slows every form there);
+//  - with 2 consumers, pass 1 takes the scores of an item's two tiles at
+//    once (with 3, the registers allow one at a time);
+//  - FIXED takes turns to issue pass 2's products (pingpong), so that one
+//    consumer's exponentials run under another's products; the two-pass
+//    forms do not (their passes already stagger the consumers, and turns
+//    slow them).
+constexpr int FWD_STAGES = 3;
+template <int HD, int FORM>
+struct FwdShape {
+  static constexpr int CONSUMERS = HD == 32 ? 3 : 2;
+  static constexpr bool PAIR = CONSUMERS == 2;
+  static constexpr bool PINGPONG = FORM == FIXED;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1), ROWS = 64 * CONSUMERS;
+  // setmaxnreg: 128 * PRODUCER_REGS + THREADS - 128 consumer threads * REGS
+  // <= 65536, a multiple of 8
+  static constexpr int REGS = CONSUMERS == 2 ? CONSUMER_REGS : 160;
+};
+
+// Shared memory of the forward: q (64 rows per consumer), then per ring slot
+// k and v of 128 keys, then each consumer's o staging tile, then the
+// barriers. The tiles start on 1024-byte boundaries.
+template <int HD, int FORM>
+struct FwdSmem {
+  static constexpr int TILE = 64 * HD * 2;
+  static constexpr int OLD = HD + 8;  // o staging row (bf16): conflict-free 4-byte writes
+  static constexpr int Q = 0, RING = FwdShape<HD, FORM>::CONSUMERS * TILE, SLOT = 4 * TILE;
+  static constexpr int O = RING + FWD_STAGES * SLOT;
+  static constexpr int BARS = O + FwdShape<HD, FORM>::CONSUMERS * 64 * OLD * 2;
+  static constexpr int BYTES = BARS + (1 + 2 * FWD_STAGES) * 8;
+};
+
+// op over the 32 values of one row of this thread's part of a 64 x 128
+// accumulator (ROW 0: row g, elements 4n, 4n + 1; ROW 2: row g + 8), as a tree
+// of depth 5 rather than a chain of 32.
+template <int ROW, typename Op>
+__device__ __forceinline__ float tree(const float (&s)[64], Op op) {
+  float t[16];
+#pragma unroll
+  for (int n = 0; n < 16; ++n) t[n] = op(s[4 * n + ROW], s[4 * n + ROW + 1]);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) t[n] = op(t[n], t[n + 8]);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) t[n] = op(t[n], t[n + 4]);
+  return op(op(t[0], t[2]), op(t[1], t[3]));
+}
+
+// Scores of keys at or past seq_len -> -inf (the accumulator layout of
+// hopper::wgmma_ss_n128; key0 the tile's first key).
+__device__ __forceinline__ void mask_keys(float (&sc)[64], int key0, int seq_len, int t4) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const int key = key0 + 8 * n + 2 * t4;
+    if (key >= seq_len) sc[4 * n + 0] = sc[4 * n + 2] = -INFINITY;
+    if (key + 1 >= seq_len) sc[4 * n + 1] = sc[4 * n + 3] = -INFINITY;
+  }
+}
+
+// group_tiles: 128-key tiles per CHUNKED_SAFE group (kv_chunk / 128).
+template <int HD, int FORM>
+__global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, Strides os,
+                     float* __restrict__ lse, int T, int seq_len, int H, int group_tiles,
+                     float scale) {
+  using L = FwdSmem<HD, FORM>;
+  using Shape = FwdShape<HD, FORM>;
+  constexpr int RB = HD * 2, TILE = L::TILE, CONSUMERS = Shape::CONSUMERS;
+  constexpr bool EXACT = HD == 64;  // the bf16 scale is a power of two
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + FWD_STAGES;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * Shape::ROWS;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long long base = at(in, b, h, 0);
-
-  // q tile, scaled in bf16
-  for (int i = tid; i < BQ * HD / 8; i += 128) {
-    const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (q0 + r < T)
-      raw = *reinterpret_cast<const uint4*>(q + base + (long long)(q0 + r) * in.t + c8);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
-    uint4 outv;
-    uint32_t* ow = reinterpret_cast<uint32_t*>(&outv);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      ow[j] = pack_bf16x2(__bfloat162float(e[2 * j]) * scale,
-                          __bfloat162float(e[2 * j + 1]) * scale);
-    *reinterpret_cast<uint4*>(qs + r * LDQ + c8) = outv;
+  if (tid == 0) {
+    hopper::mbar_init(qbar, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * CONSUMERS);  // one per consumer warp
+    }
+    hopper::fence_barrier_init();
   }
   __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) load_a(qa[kk], qs, LDQ, wr, kk * 16, lane);
 
-  float oacc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g+8
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
-
-  const int n_tiles = (seq_len + BK - 1) / BK;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * BK;
-    __syncthreads();  // previous tile consumed
-    for (int i = tid; i < BK * HD / 8; i += 128) {
-      const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (kv0 + r < T) {
-        const long long off = base + (long long)(kv0 + r) * in.t + c8;
-        kr = *reinterpret_cast<const uint4*>(k + off);
-        vr = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LDQ + c8) = kr;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vr);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(c8 + e) * LDR + r] = ve[e];
-    }
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t bfr[2];
-        load_b(bfr, ks, LDQ, n * 8, kk * 16, lane);
-        mma_16816(s[n], qa[kk], bfr);
+  const int wg = tid / 128;
+  const int n_tiles = (seq_len + RING_ROWS - 1) / RING_ROWS;
+  // tiles per softmax group: one group of every tile, but CHUNKED_SAFE's
+  const int group = FORM == CHUNKED_SAFE ? group_tiles : n_tiles;
+  if (wg == CONSUMERS) {  // producer: one thread issues every load
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 128 * CONSUMERS) {
+      hopper::mbar_arrive_expect_tx(qbar, CONSUMERS * TILE);
+      for (int i = 0; i < CONSUMERS; ++i)
+        hopper::tma_load_4d(sm + L::Q + i * TILE, &mq, qbar, 0, h, q0 + 64 * i, b);
+      // an item is the k tiles j and j + 1 (pass 1: a slot holds two) or the
+      // k and v tiles j (pass 2)
+      auto load = [&](int it, const CUtensorMap* m0, int j0, const CUtensorMap* m1, int j1) {
+        const int s = it % FWD_STAGES;
+        uint8_t* slot = sm + L::RING + s * L::SLOT;
+        hopper::mbar_wait(&empty[s], ((it / FWD_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], (m1 ? 4 : 2) * TILE);
+        for (int i = 0; i < 2; ++i) {
+          hopper::tma_load_4d(slot + i * TILE, m0, &full[s], 0, h, j0 * RING_ROWS + 64 * i, b);
+          if (m1)
+            hopper::tma_load_4d(slot + (2 + i) * TILE, m1, &full[s], 0, h,
+                                j1 * RING_ROWS + 64 * i, b);
+        }
+      };
+      int item = 0;
+      for (int g0 = 0; g0 < n_tiles; g0 += group) {
+        const int g1 = min(g0 + group, n_tiles);
+        if (FORM != FIXED)
+          for (int j = g0; j < g1; j += 2, ++item)
+            load(item, &mk, j, j + 1 < g1 ? &mk : nullptr, j + 1);
+        for (int j = g0; j < g1; ++j, ++item) load(item, &mk, j, &mv, j);
       }
     }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      const int key = kv0 + n * 8 + 2 * t4;
-      if (key >= seq_len) { s[n][0] = -INFINITY; s[n][2] = -INFINITY; }
-      if (key + 1 >= seq_len) { s[n][1] = -INFINITY; s[n][3] = -INFINITY; }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+  } else {  // consumers: 64 queries each
+    hopper::setmaxnreg_inc<Shape::REGS>();
+    const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
+    const int t4 = lane & 3, g = lane >> 2;
+    uint8_t* qt = sm + L::Q + wg * TILE;
+    hopper::mbar_wait(qbar, 0);
+    if constexpr (!EXACT) {  // qh = bf16(q * scale), this warpgroup's rows
+      scale_tile(qt, qt, TILE, scale, wt, 128);
+      hopper::named_sync(1 + wg, 128);
     }
+    uint32_t qa[HD / 16][4];  // this warp's q (qh) rows
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) hopper::ldmatrix_a<RB>(qa[kk], qt, 16 * warp, kk, lane);
+    // scores in log2 units: s * c; m in the units of the raw sums
+    const float c = EXACT ? scale * LOG2E : LOG2E;
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m0 = FORM == FIXED ? 0.f : -INFINITY, m1 = m0;  // rows g, g + 8 of the warp
+    float l0 = 0.f, l1 = 0.f;  // this thread's share of the row sums
+
+    // Pass 1 takes the scores of an item's two tiles at once (Shape::PAIR):
+    // the max of the first runs while the second's product is in flight.
+    // Pass 2 keeps P of tile i - 1 as bf16 A fragments and issues its P V
+    // beside the scores of tile i, so the exponentials of tile i run under
+    // that product. Under Shape::PINGPONG the consumers also take turns to
+    // issue pass 2's products (named barriers 8 + wg; 1 + wg are each
+    // warpgroup's own).
+    float sc[64], sn[64];
+    uint32_t pa[8][4];  // P of the tile before, bf16 A fragments
+    auto slot_of = [&](int it) { return sm + L::RING + (it % FWD_STAGES) * L::SLOT; };
+    auto landed = [&](int it) { hopper::mbar_wait(&full[it % FWD_STAGES], (it / FWD_STAGES) & 1); };
+    auto release = [&](int it) {
+      if (lane == 0) hopper::mbar_arrive(&empty[it % FWD_STAGES]);
+    };
+    auto my_turn = [&]() {
+      if (Shape::PINGPONG) hopper::named_sync(8 + wg, 256);  // after consumer wg - 1
+    };
+    auto their_turn = [&]() {
+      if (Shape::PINGPONG) hopper::named_arrive(8 + (wg + 1) % CONSUMERS, 256);
+    };
+    auto masked = [&](float (&s)[64], int j) {  // keys at or past seq_len in tile j
+      if ((j + 1) * RING_ROWS > seq_len) mask_keys(s, j * RING_ROWS, seq_len, t4);
+    };
+    if (Shape::PINGPONG && wg == CONSUMERS - 1) their_turn();  // consumer 0 issues first
+    int item = 0;
+    for (int g0 = 0; g0 < n_tiles; g0 += group) {
+      const int n = min(group, n_tiles - g0);  // tiles of this group
+      if constexpr (FORM != FIXED) {  // pass 1: the max up to the group's last key
+        float mx0 = m0, mx1 = m1;
+        auto row_max = [&](float (&s)[64], int j) {
+          masked(s, j);
+          mx0 = fmaxf(mx0, tree<0>(s, [](float x, float y) { return fmaxf(x, y); }));
+          mx1 = fmaxf(mx1, tree<2>(s, [](float x, float y) { return fmaxf(x, y); }));
+        };
+        int i = 0;
+        for (; i + 1 < n; i += 2, ++item) {  // an item of two k tiles
+          landed(item);
+          if constexpr (Shape::PAIR) {
+            hopper::wgmma_fence();
+            scores<RB, HD>(sc, qa, slot_of(item));
+            hopper::wgmma_commit();
+            scores<RB, HD>(sn, qa, slot_of(item) + 2 * TILE);
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<1>();
+            hopper::fence_regs(sc);
+            row_max(sc, g0 + i);
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(sn);
+            release(item);
+            row_max(sn, g0 + i + 1);
+          } else {
+            for (int t = 0; t < 2; ++t) {
+              hopper::wgmma_fence();
+              scores<RB, HD>(sc, qa, slot_of(item) + 2 * t * TILE);
+              hopper::wgmma_commit();
+              hopper::wgmma_wait<0>();
+              hopper::fence_regs(sc);
+              if (t == 1) release(item);
+              row_max(sc, g0 + i + t);
+            }
+          }
+        }
+        if (i < n) {  // an item of one
+          landed(item);
+          hopper::wgmma_fence();
+          scores<RB, HD>(sc, qa, slot_of(item));
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(sc);
+          release(item);
+          row_max(sc, g0 + i);
+          ++item;
+        }
+#pragma unroll
+        for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+        }
+        // JAX's corr = exp(m_old - m_new) (0 on the first group, where m_old
+        // = -inf; the group holds a key < seq_len, so m_new is finite)
+        const float c0 = hopper::ex2((m0 - mx0) * c), c1 = hopper::ex2((m1 - mx1) * c);
+        m0 = mx0;
+        m1 = mx1;
+        l0 *= c0;
+        l1 *= c1;
+#pragma unroll
+        for (int e = 0; e < HD / 8; ++e) {
+          acc[4 * e + 0] *= c0;
+          acc[4 * e + 1] *= c0;
+          acc[4 * e + 2] *= c1;
+          acc[4 * e + 3] *= c1;
+        }
+      }
+      // pass 2: P = exp(s - m) rounded to bf16, O += P V
+      const float mc0 = m0 * c, mc1 = m1 * c;
+      auto pv = [&](int it) {  // O += P V of item it (P in pa)
+        const uint8_t* vs = slot_of(it) + 2 * TILE;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          hopper::wgmma_rs<HD>(acc, pa[kk], hopper::desc_mnmajor<RB>(vs, kk), 1);
+        hopper::wgmma_commit();
+      };
+      auto softmax = [&](int j) {  // sc -> P = exp(s - m) in place, row sums
+        masked(sc, j);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          sc[4 * e + 0] = hopper::ex2(fmaf(sc[4 * e + 0], c, -mc0));
+          sc[4 * e + 1] = hopper::ex2(fmaf(sc[4 * e + 1], c, -mc0));
+          sc[4 * e + 2] = hopper::ex2(fmaf(sc[4 * e + 2], c, -mc1));
+          sc[4 * e + 3] = hopper::ex2(fmaf(sc[4 * e + 3], c, -mc1));
+        }
+        l0 += tree<0>(sc, [](float x, float y) { return x + y; });
+        l1 += tree<2>(sc, [](float x, float y) { return x + y; });
+      };
+
+      landed(item);
+      my_turn();
+      hopper::wgmma_fence();
+      scores<RB, HD>(sc, qa, slot_of(item));
+      hopper::wgmma_commit();
+      their_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      softmax(g0);
+      pack_a(pa, sc);
+      for (int i = 1; i < n; ++i) {
+        landed(item + i);
+        my_turn();
+        hopper::wgmma_fence();
+        scores<RB, HD>(sc, qa, slot_of(item + i));
+        hopper::wgmma_commit();
+        pv(item + i - 1);
+        their_turn();
+        hopper::wgmma_wait<1>();  // the scores of tile i
+        hopper::fence_regs(sc);
+        softmax(g0 + i);
+        hopper::wgmma_wait<0>();  // P V of tile i - 1: its slot and pa are free
+        hopper::fence_regs(acc);
+        release(item + i - 1);
+        pack_a(pa, sc);
+      }
+      my_turn();
+      hopper::wgmma_fence();
+      pv(item + n - 1);
+      their_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(item + n - 1);
+      item += n;
+    }
+
 #pragma unroll
     for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
     }
-    // every tile holds at least one key < seq_len, so the new max is finite
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= c0;
-    l1 *= c1;
+    // o = (P V) / d through this warpgroup's staging tile, 16 bytes a store
+    bf16* ost = reinterpret_cast<bf16*>(sm + L::O) + wg * 64 * L::OLD;
+    const int w0 = 16 * warp + g;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
-      oacc[n][0] *= c0;
-      oacc[n][1] *= c0;
-      oacc[n][2] *= c1;
-      oacc[n][3] *= c1;
+      const int col = n * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(ost + w0 * L::OLD + col) =
+          pack_bf16x2(acc[4 * n + 0] / l0, acc[4 * n + 1] / l0);
+      *reinterpret_cast<uint32_t*>(ost + (w0 + 8) * L::OLD + col) =
+          pack_bf16x2(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
     }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      l0 += s[n][0] + s[n][1];
-      l1 += s[n][2] + s[n][3];
+    const int r0 = q0 + 64 * wg + w0, r1 = r0 + 8;
+    if (t4 == 0) {  // m in natural units: at head dim 64 the sums were unscaled
+      const size_t lbase = ((size_t)b * H + h) * T;
+      const float mu = EXACT ? scale : 1.f;
+      if (r0 < T) lse[lbase + r0] = m0 * mu + logf(l0);
+      if (r1 < T) lse[lbase + r1] = m1 * mu + logf(l1);
     }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        uint32_t bfr[2];
-        load_b(bfr, vt, LDR, n * 8, kk * 16, lane);
-        mma_16816(oacc[n], pa, bfr);
-      }
+    hopper::named_sync(1 + wg, 128);
+    for (int i = wt; i < 64 * HD / 8; i += 128) {
+      const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
+      const int row = q0 + 64 * wg + r;
+      if (row < T)
+        *reinterpret_cast<uint4*>(o + at(os, b, h, row) + c8) =
+            *reinterpret_cast<const uint4*>(ost + r * L::OLD + c8);
     }
-  }
-
-#pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
-  }
-  const int r0 = q0 + wr + g, r1 = r0 + 8;
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (r0 < T)
-      *reinterpret_cast<uint32_t*>(o + at(os, b, h, r0) + c) =
-          pack_bf16x2(oacc[n][0] * i0, oacc[n][1] * i0);
-    if (r1 < T)
-      *reinterpret_cast<uint32_t*>(o + at(os, b, h, r1) + c) =
-          pack_bf16x2(oacc[n][2] * i1, oacc[n][3] * i1);
-  }
-  if (t4 == 0) {
-    if (r0 < T) lse[((size_t)b * H + h) * T + r0] = m0 + logf(l0);
-    if (r1 < T) lse[((size_t)b * H + h) * T + r1] = m1 + logf(l1);
   }
 }
 
@@ -283,73 +556,6 @@ enum Mode { FUSED = 0, SPLIT = 1, CHUNKED = 2, BHTD = 3 };
 
 constexpr int BWD_THREADS = 384;  // two consumer warpgroups and a producer
 constexpr int BWD_STAGES = 3;     // ring slots
-constexpr int RING_ROWS = 128;    // rows of a ring tile: two 64-row TMA boxes
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr int ONE_PER_SM = 120 * 1024;  // more than half an SM's shared memory
-// registers a thread (setmaxnreg): 128 * 24 + 256 * 240 = 384 * 168, the
-// 168 a thread of a 384-thread block gets at launch
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-__device__ __forceinline__ uint4 scale_bf16x8(uint4 raw, float scale) {
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
-  uint4 out;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    w[j] = pack_bf16x2(__bfloat162float(e[2 * j]) * scale,
-                       __bfloat162float(e[2 * j + 1]) * scale);
-  return out;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// dst = bf16(src * scale) over a 64-row tile of `bytes` bytes, 16 bytes at a
-// time (an elementwise pass: the swizzle does not matter), threads i0, i0 +
-// stride, ...
-__device__ __forceinline__ void scale_tile(const uint8_t* src, uint8_t* dst, int bytes,
-                                           float scale, int i0, int stride) {
-  for (int i = i0; i < bytes / 16; i += stride)
-    reinterpret_cast<uint4*>(dst)[i] =
-        scale_bf16x8(reinterpret_cast<const uint4*>(src)[i], scale);
-}
-
-// The consumer's A fragments of a [64 x 16 KS] accumulator (rows this
-// warpgroup's, columns the next product's contraction), 16 columns each.
-template <int KS>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&c)[8 * KS]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
-}
-
-// acc[64 x 128] = A B^T over the head dim (the scores S, S^T and dP, dP^T):
-// A this warpgroup's 64-row tile, B a 128-row tile of the ring, both K-major.
-template <int RB, int HD>
-__device__ __forceinline__ void scores(float (&acc)[64], const uint8_t* a, const uint8_t* b) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    hopper::wgmma_ss_n128(acc, hopper::desc_kmajor<RB>(a, kk), hopper::desc_kmajor<RB>(b, kk),
-                          kk > 0);
-}
-
-// The same with A from registers: this warpgroup's rows as A fragments, 16
-// columns each.
-template <int RB, int HD>
-__device__ __forceinline__ void scores(float (&acc)[64], const uint32_t (&a)[HD / 16][4],
-                                       const uint8_t* b) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    hopper::wgmma_rs_n128(acc, a[kk], hopper::desc_kmajor<RB>(b, kk), kk > 0);
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 
 // Shared memory of the dk/dv kernel: k and v of the block's 128 keys (two
 // 64-row tiles each), then per ring slot q, dO (and qh) of 128 rows each,
@@ -727,18 +933,6 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   }
 }
 
-template <int HD>
-int launch_fwd(const void* q, const void* k, const void* v, Strides in, void* o, Strides os,
-               void* lse, int B, int T, int seq_len, int H, float scale, void* stream) {
-  if (B > 0 && T > 0 && seq_len > 0) {
-    dim3 grid((T + BQ - 1) / BQ, H, B);
-    flash_fwd_kernel<HD><<<grid, 128, 0, (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, in, (bf16*)o, os, (float*)lse, T,
-        seq_len, H, scale);
-  }
-  return (int)cudaGetLastError();
-}
-
 // Raises a kernel's dynamic shared-memory limit to `bytes` (once).
 template <typename K>
 int allow_smem(K kernel, int bytes, bool& done) {
@@ -747,6 +941,52 @@ int allow_smem(K kernel, int bytes, bool& done) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   done = err == cudaSuccess;
   return (int)err;
+}
+
+template <int HD, int FORM>
+int launch_fwd_form(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o,
+                    Strides os, void* lse, int B, int T, int seq_len, int H, int group_tiles,
+                    float scale, cudaStream_t s) {
+  auto* kern = flash_fwd_kernel<HD, FORM>;
+  // + alignment slack; at least ONE_PER_SM, so that no second block shares
+  // the SM's registers with the one whose consumers raise theirs
+  constexpr int bytes = cmax(FwdSmem<HD, FORM>::BYTES + 1024, ONE_PER_SM);
+  static bool ok = false;
+  int err;
+  if ((err = allow_smem(kern, bytes, ok))) return err;
+  using Shape = FwdShape<HD, FORM>;
+  dim3 grid((T + Shape::ROWS - 1) / Shape::ROWS, H, B);
+  kern<<<grid, Shape::THREADS, bytes, s>>>(mq, mk, mv, (bf16*)o, os, (float*)lse, T, seq_len, H,
+                                        group_tiles, scale);
+  return (int)cudaGetLastError();
+}
+
+// form: SAFE, FIXED or CHUNKED_SAFE (kv_chunk keys a group, a multiple of
+// RING_ROWS); scale the bf16-rounded 1/sqrt(D). q, k, v share the strides
+// `in` and are read through tensor maps (dims (D, H, T, B), 64-row boxes),
+// as the backward reads them.
+template <int HD>
+int launch_fwd(const void* q, const void* k, const void* v, Strides in, void* o, Strides os,
+               void* lse, int B, int T, int seq_len, int H, float scale, int form, int kv_chunk,
+               void* stream) {
+  if (B <= 0 || T <= 0 || seq_len <= 0) return (int)cudaGetLastError();
+  if (form == CHUNKED_SAFE && (kv_chunk <= 0 || kv_chunk % RING_ROWS != 0))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int err;
+  if ((err = hopper::encode_bhtd(&mq, q, B, H, T, HD, in.b, in.h, in.t, 64)) ||
+      (err = hopper::encode_bhtd(&mk, k, B, H, T, HD, in.b, in.h, in.t, 64)) ||
+      (err = hopper::encode_bhtd(&mv, v, B, H, T, HD, in.b, in.h, in.t, 64)))
+    return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (form == SAFE)
+    return launch_fwd_form<HD, SAFE>(mq, mk, mv, o, os, lse, B, T, seq_len, H, 0, scale, s);
+  if (form == FIXED)
+    return launch_fwd_form<HD, FIXED>(mq, mk, mv, o, os, lse, B, T, seq_len, H, 0, scale, s);
+  if (form == CHUNKED_SAFE)
+    return launch_fwd_form<HD, CHUNKED_SAFE>(mq, mk, mv, o, os, lse, B, T, seq_len, H,
+                                             kv_chunk / RING_ROWS, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // mode: FUSED, SPLIT, CHUNKED or BHTD; scale_b the bf16-rounded scale,
@@ -814,15 +1054,20 @@ int launch_bwd_packed(int mode, const void* q, const void* k, const void* v, Str
 // Packed layout, head dim D in {32, 64} (heads that pair into 128 lanes).
 // q/k/v: bf16, element (b, t, h*D + d) at b*batch_stride + t*row_stride +
 // h*D + d; o: bf16 [B, T, H*D] contiguous; lse: f32 [B, H, T]. scale: the
-// bf16-rounded 1/sqrt(D), by which q is scaled in bf16.
+// bf16-rounded 1/sqrt(D), by which q is scaled in bf16. form: 0 SAFE, 1
+// FIXED, 2 CHUNKED_SAFE (kv_chunk keys a group, a multiple of 128).
 extern "C" int ibk_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int B, int T, int seq_len, int H, int D,
                              long long row_stride, long long batch_stride,
-                             float scale, void* stream) {
+                             float scale, int form, int kv_chunk, void* stream) {
   const long long dm = (long long)H * D;
   const Strides in{batch_stride, D, row_stride}, os{T * dm, D, dm};
-  if (D == 64) return launch_fwd<64>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, stream);
-  if (D == 32) return launch_fwd<32>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, stream);
+  if (D == 64)
+    return launch_fwd<64>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, form, kv_chunk,
+                          stream);
+  if (D == 32)
+    return launch_fwd<32>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, form, kv_chunk,
+                          stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -849,15 +1094,18 @@ extern "C" int ibk_flash_bwd(const void* q, const void* k, const void* v, const 
 
 // BHTD layout, head dim D in {32, 64}: q, k, v share the element strides
 // (in_b, in_h, in_t) of a [B, H, T, D] view, o has (o_b, o_h, o_t); lse f32
-// [B, H, T] contiguous. scale: the bf16-rounded 1/sqrt(D).
+// [B, H, T] contiguous. scale: the bf16-rounded 1/sqrt(D). The JAX BHTD
+// kernel takes the true row max: SAFE.
 extern "C" int ibk_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int T, int seq_len, int H, int D,
                                   long long in_b, long long in_h, long long in_t,
                                   long long o_b, long long o_h, long long o_t, float scale,
                                   void* stream) {
   const Strides in{in_b, in_h, in_t}, os{o_b, o_h, o_t};
-  if (D == 64) return launch_fwd<64>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, stream);
-  if (D == 32) return launch_fwd<32>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, stream);
+  if (D == 64)
+    return launch_fwd<64>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, SAFE, 0, stream);
+  if (D == 32)
+    return launch_fwd<32>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, SAFE, 0, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -46,7 +46,10 @@ forward-only kernels (``KERNEL_OPS``, or ``PLAIN_OPS``); training
 :func:`train_ops`, the differentiable entries, each a
 ``torch.autograd.Function`` whose backward is a kernel too; the flash
 backward's form (JAX's ``INTENTBEV_BWD_FUSED`` / ``INTENTBEV_BWD_KV_CHUNK``)
-is the model's ``bwd_fused`` / ``bwd_kv_chunk``, and ``remat``
+is the model's ``bwd_fused`` / ``bwd_kv_chunk``, its forward's softmax form
+(JAX's ``fwd_kv_chunk`` / ``unsafe_softmax``) the config's, serving and
+training alike (ignored where the heads do not pair, as by JAX's BHTD
+fallback), and ``remat``
 (``TrainConfig.remat_vit_blocks``) recomputes each encoder block in the
 backward (``torch.utils.checkpoint``, JAX's ``nn.remat``). In training the
 lidar stream takes a dense BEV through the patch embed (a matmul over
@@ -106,7 +109,7 @@ class Ops(NamedTuple):
     forward-only (None in training)."""
     layernorm: Callable          # (x, gamma, beta, eps) -> y
     fused_ln_mlp: Callable       # the serving chain's tail
-    flash: Callable              # (qkv, num_heads) -> o
+    flash: Callable              # (qkv, num_heads, kv_chunk, unsafe_softmax) -> o
     voxel_embed: Callable
     fused_ln_mlp_tail: Callable  # (x, gamma, beta, w1, b1, w2, b2, gate, eps, gelu) -> y
     fused_mlp: Callable          # (h, w1, b1, w2, b2, residual, gelu, gate) -> y
@@ -115,12 +118,14 @@ class Ops(NamedTuple):
     patch_embed: Callable
 
 
-def _flash(qkv, num_heads):
-    return flash_attention_packed(*_split_qkv(qkv), num_heads)[0]
+def _flash(qkv, num_heads, kv_chunk, unsafe_softmax):
+    return flash_attention_packed(*_split_qkv(qkv), num_heads, None, kv_chunk, unsafe_softmax,
+                                  pad_len(qkv.shape[1], MODEL_PAD_ROWS))[0]
 
 
-def _flash_plain(qkv, num_heads):
-    return flash_attention_packed_plain(*_split_qkv(qkv), num_heads)[0]
+def _flash_plain(qkv, num_heads, kv_chunk, unsafe_softmax):
+    return flash_attention_packed_plain(*_split_qkv(qkv), num_heads, None, kv_chunk,
+                                        unsafe_softmax, pad_len(qkv.shape[1], MODEL_PAD_ROWS))[0]
 
 
 KERNEL_OPS = Ops(layernorm, fused_ln_mlp, _flash, voxel_embed_tokens, fused_ln_mlp_train,
@@ -135,14 +140,16 @@ def train_ops(plain: bool, bwd_fused: bool = True, bwd_kv_chunk: int = 0) -> Ops
     """The differentiable entries of a training pass (exact erf GELU):
     kernels forward and backward, or with ``plain`` their plain versions.
     ``bwd_fused`` / ``bwd_kv_chunk`` pick the flash backward's form
-    (``ops.flash_packed.bwd_mode``) over the token count padded as the JAX
-    ViT pads it."""
+    (``ops.flash_packed.bwd_mode``) and the config's ``fwd_kv_chunk`` /
+    ``unsafe_softmax`` its forward's (``ops.flash_packed.fwd_form``, as JAX's
+    ``_fp_fwd`` applies them in training too), over the token count padded
+    as the JAX ViT pads it."""
     return Ops(
         layernorm=partial(layernorm_fn, plain=plain),
         fused_ln_mlp=None,
-        flash=lambda qkv, heads: flash_attention_fn(
+        flash=lambda qkv, heads, kv_chunk, unsafe_softmax: flash_attention_fn(
             qkv, heads, None, plain, bwd_fused, bwd_kv_chunk,
-            pad_len(qkv.shape[1], MODEL_PAD_ROWS)),
+            pad_len(qkv.shape[1], MODEL_PAD_ROWS), kv_chunk, unsafe_softmax),
         voxel_embed=None,
         fused_ln_mlp_tail=lambda x, g, b, w1, b1, w2, b2, gate, eps, gelu: fused_ln_mlp_fn(
             x, g, b, w1, b1, w2, b2, gate, eps, plain),
@@ -246,12 +253,13 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, qkv_bias, dtype)
         self.proj = Linear(dim, dim, True, dtype)
 
-    def attend(self, qkv, residual, ops: Ops, flash: bool, gate=None):
-        """residual + gate * proj(attention(qkv)): the flash entry, or the
+    def attend(self, qkv, residual, ops: Ops, cfg, gate=None):
+        """residual + gate * proj(attention(qkv)): the flash entry in the
+        softmax form of ``cfg.fwd_kv_chunk`` / ``cfg.unsafe_softmax``, or the
         JAX model's dense attention where ``use_flash_attention`` is off;
         ``gate`` per-sample f32 [B] or None."""
-        if flash:
-            o = ops.flash(qkv, self.num_heads)
+        if cfg.use_flash_attention:
+            o = ops.flash(qkv, self.num_heads, cfg.fwd_kv_chunk, cfg.unsafe_softmax)
         else:
             o = reference_attention(*_split_qkv(qkv), self.num_heads)
         y = self.proj(o)
@@ -307,9 +315,9 @@ class EncoderBlock(nn.Module):
         self.norm2 = LayerNormParams(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, int8)
 
-    def forward(self, x, xn, ln_next: LayerNormParams, ops: Ops, gelu: str, flash: bool):
+    def forward(self, x, xn, ln_next: LayerNormParams, ops: Ops, gelu: str, cfg):
         a, m = self.attn, self.mlp
-        x = a.attend(a.qkv(xn), x, ops, flash)
+        x = a.attend(a.qkv(xn), x, ops, cfg)
         return ops.fused_ln_mlp(
             x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
             m.fc2.weight, m.fc2.bias, ln_next.weight, ln_next.bias, LN_EPS, gelu)
@@ -330,7 +338,7 @@ class EncoderBlock(nn.Module):
                 qkv = a.qkv(folded_layernorm(x, n1.weight, n1.bias))
         else:
             qkv = a.qkv(_norm(x, n1, ops, fused_ln))
-        x = a.attend(qkv, x, ops, cfg.use_flash_attention, gates[0])
+        x = a.attend(qkv, x, ops, cfg, gates[0])
         gate = None if gates[1] is None else gates[1][:, None].expand(x.shape[:2])
         if cfg.use_fused_mlp and fused_ln and not cfg.serving_int8:
             return ops.fused_ln_mlp_tail(
@@ -420,7 +428,7 @@ class ViTEncoder(nn.Module):
         xn = ops.layernorm(tokens, blocks[0].norm1.weight, blocks[0].norm1.bias, LN_EPS)
         for i, blk in enumerate(blocks):
             nxt = blocks[i + 1].norm1 if i + 1 < len(blocks) else self.norm
-            tokens, xn = blk(tokens, xn, nxt, ops, gelu, cfg.use_flash_attention)
+            tokens, xn = blk(tokens, xn, nxt, ops, gelu, cfg)
         return xn
 
 

@@ -40,7 +40,7 @@ KERNELS = ("voxel_embed", "flash_packed", "fused_ln_mlp", "layernorm",
            "fused_ln_dense", "patch_embed", "fused_mlp_train", "fused_mlp_bwd",
            "fused_ln_dense_bwd", "flash_attention", "flash_attention_bwd",
            "flash_packed_bwd_split", "flash_packed_bwd_chunked", "flash_int8", "fused_proj",
-           "fused_proj_bwd")
+           "fused_proj_bwd", "flash_packed_fixed", "flash_packed_chunked")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: ctypes.CDLL | None = None
@@ -119,7 +119,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ibk_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "ibk_fused_ln_mlp": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
-    "ibk_flash_fwd": (_P,) * 5 + (_I,) * 5 + (_L, _L, _F, _P),
+    "ibk_flash_fwd": (_P,) * 5 + (_I,) * 5 + (_L, _L, _F, _I, _I, _P),
     "ibk_voxel_embed": (_P,) * 8 + (_I,) * 8 + (_P,),
     "ibk_layernorm_train": (_P,) * 6 + (_I, _I, _F, _P),
     "ibk_layernorm_bwd": (_P,) * 8 + (_I, _I, _P),

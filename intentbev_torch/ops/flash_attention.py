@@ -33,7 +33,7 @@ import torch
 from ._build import check_launch, kernels, require, stream_ptr
 
 HEAD_DIMS = (32, 64)  # head dims the kernels are instantiated for
-BOX_ROWS = 64  # rows of one TMA box of the backward kernels
+BOX_ROWS = 64  # rows of one TMA box of the flash kernels
 
 
 def _scale(d: int, dtype: torch.dtype) -> torch.Tensor:
@@ -119,16 +119,17 @@ class TmaGeometry(NamedTuple):
 
 
 def tma_geometry(x: torch.Tensor, name: str = "x") -> TmaGeometry:
-    """The tensor map through which the backward kernels read the [B, H, T,
-    D] view ``x`` (``launch_bwd`` in ``csrc/flash_packed.cu`` encodes the
-    same from the element strides it is given): four dimensions (d, head,
-    row, batch) with byte strides from the view's strides, boxes of
+    """The tensor map through which the flash kernels read the [B, H, T, D]
+    view ``x`` (``launch_fwd`` and ``launch_bwd`` in ``csrc/flash_packed.cu``
+    encode the same from the element strides they are given): four
+    dimensions (d, head, row, batch) with byte strides from the view's
+    strides, boxes of
     :data:`BOX_ROWS` rows of one head, swizzled at the box row's bytes (128
     at D = 64, 64 at D = 32). Raises ValueError on a view TMA cannot take: a
     head dim without a swizzle of its row width, a stride along D other
     than 1, or a base address or stride that is not a multiple of 16 bytes.
     Pure arithmetic on the view's shape, strides and address: any device."""
-    # messages are formatted only on failure: every backward call runs this
+    # messages are formatted only on failure: every flash call runs this
     if x.dim() != 4:
         raise ValueError(f"tma_geometry: {name} must be [B, H, T, D], got {tuple(x.shape)}")
     b, h, t, d = x.shape
@@ -180,6 +181,8 @@ def flash_attention_fwd(q, k, v, seq_len: int | None = None, out=None):
         o, lse = flash_attention_fwd_plain(q, k, v, seq_len)
         return _into(out, o), lse
     b, h, t, d, seq_len = _check_inputs(q, k, v, seq_len)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        tma_geometry(x, name=name)
     o = torch.empty(b, h, t, d, dtype=q.dtype, device=q.device) if out is None else out
     _check_view("out", o, (b, h, t, d), q.device)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)

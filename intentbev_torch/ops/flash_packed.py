@@ -24,13 +24,24 @@ divides JAX's padded length, the chunked ones' (:func:`bwd_mode`). They
 differ only in where the scale rounds (``csrc/flash_packed.cu``), so at head
 dim 64 all three are one function up to the order of f32 sums.
 
+The forward takes JAX's three softmax forms (``_fwd``, ``:303-306``), chosen
+by explicit arguments where JAX reads ``INTENTBEV_FWD_KV_CHUNK`` and
+``INTENTBEV_FWD_SOFTMAX`` at import (:func:`fwd_form`): ``unsafe_softmax``
+runs the fixed max (P = exp(s), lse = log d; the serving configuration of
+``bench.py``), ``kv_chunk`` dividing JAX's padded length the chunked safe
+softmax (a running max updated once per ``kv_chunk`` keys), and otherwise
+the monolithic safe one (the true row max). Each rounds P to bf16 against
+its own max, so the three give other bf16 values; the kernel computes each
+with JAX's rounding points (``csrc/flash_packed.cu``), counted apart
+(:data:`FWD_COUNTERS`).
+
 Dispatch as in JAX (``intentbev/ops/flash_packed.py:778``): a head layout
 whose heads do not pair into 128 lanes (:func:`pairs_heads`, e.g. ViT-Ti's
 3 heads of 64) goes to the BHTD kernels of :mod:`.flash_attention`, over
 strided views of the same tensors, from :func:`flash_attention_packed`,
 :func:`flash_attention_packed_plain` and :func:`flash_attention_fn`; JAX's
-fallback ignores ``kv_chunk`` and ``unsafe_softmax``, which the port's
-entries do not take.
+fallback ignores ``kv_chunk`` and ``unsafe_softmax``, and so do they there
+(the BHTD kernel takes the true row max).
 """
 
 from __future__ import annotations
@@ -55,6 +66,10 @@ MODEL_PAD_ROWS = 512
 BWD_MODES = ("fused", "split", "chunked")  # the C entry's mode numbers, in order
 BWD_COUNTERS = {"fused": "flash_packed_bwd", "split": "flash_packed_bwd_split",
                 "chunked": "flash_packed_bwd_chunked"}
+FWD_FORMS = ("safe", "fixed", "chunked")  # the C entry's form numbers, in order
+FWD_COUNTERS = {"safe": "flash_packed", "fixed": "flash_packed_fixed",
+                "chunked": "flash_packed_chunked"}
+KEY_TILE = 128  # keys of the forward kernel's tile: a chunk is a whole number of them
 
 
 def pad_len(t: int, block: int) -> int:
@@ -78,6 +93,19 @@ def bwd_mode(t: int, bwd_fused: bool = True, bwd_kv_chunk: int = 0) -> str:
     return "split"
 
 
+def fwd_form(t: int, kv_chunk: int = 0, unsafe_softmax: bool = False) -> str:
+    """The softmax form JAX's ``_fwd`` runs over ``t`` rows (the length its
+    packed entry is given): ``"fixed"`` (m = 0) under ``unsafe_softmax``,
+    whatever the chunk; else ``"chunked"`` (a running max per ``kv_chunk``
+    keys) where ``kv_chunk`` divides the padded length; else ``"safe"`` (the
+    true row max) (``intentbev/ops/flash_packed.py:303-306``)."""
+    if unsafe_softmax:
+        return "fixed"
+    if kv_chunk and pad_len(t, PAD_ROWS) % kv_chunk == 0:
+        return "chunked"
+    return "safe"
+
+
 def scales(head_dim: int, dtype: torch.dtype) -> tuple[float, float]:
     """(1/sqrt(D) rounded to ``dtype``, by which q or k is scaled before the
     score product; 1/sqrt(D) as a Python float, the epilogues' scale)."""
@@ -92,18 +120,49 @@ def pairs_heads(head_dim: int, num_heads: int) -> bool:
     return LANE_BLOCK % head_dim == 0 and num_heads % (LANE_BLOCK // head_dim) == 0
 
 
-def flash_attention_packed_plain(q, k, v, num_heads: int,
-                                 seq_len: int | None = None):
-    """Plain PyTorch version with the JAX kernel's rounding points: q scaled
-    in its own dtype by the scale rounded to that dtype, f32 scores and
-    softmax, P rounded to v's dtype before PV. Returns ``(o [B, T, H*D] in
-    q's dtype, lse f32 [B, H, T])``. Heads that do not pair take the BHTD
-    plain version."""
+def softmax_pv(s, vh, dt, form: str = "safe", kv_chunk: int = 0):
+    """(o, lse) of scores ``s`` [..., T, K] (masked keys -inf) against ``vh``
+    [..., K, D] in f32 with JAX's rounding points: P = exp(s - m) in f32, P
+    rounded to ``dt`` before the product with v, o = (P v) / d, d the f32 sum
+    of P, lse = m + log d. m is the row max (``"safe"``), 0 (``"fixed"``), or
+    the running max of ``_fwd_kernel_chunked`` (``"chunked"``): per
+    ``kv_chunk`` keys m_new = max(m, max s), corr = exp(m - m_new), d = d *
+    corr + sum P, acc = acc * corr + P v (chunks wholly past the last real
+    key add nothing: P = 0, corr = 1)."""
+    if form == "chunked":
+        m = torch.full(s.shape[:-1] + (1,), float("-inf"), device=s.device)
+        den = torch.zeros_like(m)
+        acc = torch.zeros(s.shape[:-1] + (vh.shape[-1],), device=s.device)
+        for c0 in range(0, s.shape[-1], kv_chunk):
+            sc = s[..., c0:c0 + kv_chunk]
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            corr = torch.exp(m - m_new)
+            den = den * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.matmul(p.to(dt).float(), vh[..., c0:c0 + kv_chunk, :])
+            m = m_new
+        return acc / den, (m + torch.log(den))[..., 0]
+    m = s.amax(-1, keepdim=True) if form == "safe" else torch.zeros_like(s[..., :1])
+    p = torch.exp(s - m)
+    den = p.sum(-1, keepdim=True)
+    return torch.matmul(p.to(dt).float(), vh) / den, (m + torch.log(den))[..., 0]
+
+
+def flash_attention_packed_plain(q, k, v, num_heads: int, seq_len: int | None = None,
+                                 kv_chunk: int = 0, unsafe_softmax: bool = False,
+                                 padded_len: int | None = None):
+    """Plain PyTorch version with the JAX kernels' rounding points: q scaled
+    in its own dtype by the scale rounded to that dtype, f32 scores, then
+    :func:`softmax_pv` in the form :func:`fwd_form` picks for ``padded_len``
+    rows (default T). Returns ``(o [B, T, H*D] in q's dtype, lse f32 [B, H,
+    T])``. Heads that do not pair take the BHTD plain version (the true row
+    max, whatever the form)."""
     b, t, dm = q.shape
     dh = dm // num_heads
     if not pairs_heads(dh, num_heads):
         return flash_attention_packed_layout(q, k, v, num_heads, seq_len, plain=True)
     seq_len = t if seq_len is None else int(seq_len)
+    form = fwd_form(t if padded_len is None else padded_len, kv_chunk, unsafe_softmax)
     dt = q.dtype
     scale = scales(dh, dt)[0]
 
@@ -114,17 +173,11 @@ def flash_attention_packed_plain(q, k, v, num_heads: int,
     lse = torch.empty(b, num_heads, t, dtype=torch.float32, device=q.device)
     for i in range(b):  # one sample at a time bounds the [H, T, T] scores
         qh = (heads(q[i]).float() * scale).to(dt).float()
-        kh = heads(k[i]).float()
-        vh = heads(v[i]).float()
-        s = torch.matmul(qh, kh.transpose(-1, -2))
+        s = torch.matmul(qh, heads(k[i]).float().transpose(-1, -2))
         if seq_len < t:
             s[..., seq_len:] = float("-inf")
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        den = p.sum(-1, keepdim=True)
-        oh = torch.matmul(p.to(dt).float(), vh) / den
+        oh, lse[i] = softmax_pv(s, heads(v[i]).float(), dt, form, kv_chunk)
         o[i] = oh.transpose(0, 1).reshape(t, dm).to(dt)
-        lse[i] = (m + torch.log(den))[..., 0]
     return o, lse
 
 
@@ -172,23 +225,35 @@ def _check_qkv(name, q, k, v, num_heads, seq_len):
     return b, t, dm, dh, seq_len
 
 
-def flash_attention_packed(q, k, v, num_heads: int, seq_len: int | None = None):
+def flash_attention_packed(q, k, v, num_heads: int, seq_len: int | None = None,
+                           kv_chunk: int = 0, unsafe_softmax: bool = False,
+                           padded_len: int | None = None):
     """softmax(q k^T / sqrt(D) + key mask) v per head over [B, T, H*D] bf16
-    CUDA tensors (D in :data:`HEAD_DIMS`); returns ``(o, lse)``. Heads that
+    CUDA tensors (D in :data:`HEAD_DIMS`), in the softmax form
+    :func:`fwd_form` picks for ``padded_len`` rows (default T; counted
+    apart: :data:`FWD_COUNTERS`); returns ``(o, lse)``. The chunked form
+    takes a ``kv_chunk`` that is a multiple of :data:`KEY_TILE`. Heads that
     do not pair take the BHTD kernel (:mod:`.flash_attention`). CPU tensors
     take :func:`flash_attention_packed_plain`."""
     if not pairs_heads(q.shape[-1] // num_heads, num_heads):
         return flash_attention_packed_layout(q, k, v, num_heads, seq_len)
     if q.device.type == "cpu":
-        return flash_attention_packed_plain(q, k, v, num_heads, seq_len)
+        return flash_attention_packed_plain(q, k, v, num_heads, seq_len, kv_chunk,
+                                            unsafe_softmax, padded_len)
     b, t, dm, dh, seq_len = _check_qkv("flash", q, k, v, num_heads, seq_len)
+    form = fwd_form(t if padded_len is None else padded_len, kv_chunk, unsafe_softmax)
+    require(form != "chunked" or kv_chunk % KEY_TILE == 0,
+            f"flash: the chunked forward takes kv_chunk in multiples of {KEY_TILE} keys, "
+            f"got kv_chunk {kv_chunk}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        tma_geometry(heads_view(x, num_heads), name=name)
     o = torch.empty(b, t, dm, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, num_heads, t, dtype=torch.float32, device=q.device)
     err = kernels().ibk_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, t, seq_len, num_heads, dh, q.stride(1), q.stride(0), scales(dh, q.dtype)[0],
-        stream_ptr(q))
-    check_launch(err, "flash_packed")
+        FWD_FORMS.index(form), kv_chunk if form == "chunked" else 0, stream_ptr(q))
+    check_launch(err, FWD_COUNTERS[form])
     return o, lse
 
 
@@ -279,10 +344,11 @@ def flash_attention_packed_bwd(q, k, v, o, lse, do, num_heads: int,
 
 class _FlashFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, num_heads, seq_len, plain, bwd):
+    def forward(ctx, qkv, num_heads, seq_len, plain, fwd, bwd):
         d = qkv.shape[-1] // 3
-        fwd = flash_attention_packed_plain if plain else flash_attention_packed
-        o, lse = fwd(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], num_heads, seq_len)
+        entry = flash_attention_packed_plain if plain else flash_attention_packed
+        o, lse = entry(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], num_heads, seq_len,
+                       *fwd)
         ctx.num_heads, ctx.seq_len, ctx.plain, ctx.bwd = num_heads, seq_len, plain, bwd
         ctx.save_for_backward(qkv, o, lse)
         return o
@@ -294,20 +360,26 @@ class _FlashFn(torch.autograd.Function):
         bwd = flash_attention_packed_bwd_plain if ctx.plain else flash_attention_packed_bwd
         dqkv = bwd(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], o, lse, do,
                    ctx.num_heads, ctx.seq_len, *ctx.bwd)
-        return dqkv, None, None, None, None
+        return dqkv, None, None, None, None, None
 
 
 def flash_attention_fn(qkv, num_heads: int, seq_len: int | None = None,
                        plain: bool = False, bwd_fused: bool = True, bwd_kv_chunk: int = 0,
-                       padded_len: int | None = None):
+                       padded_len: int | None = None, kv_chunk: int = 0,
+                       unsafe_softmax: bool = False):
     """Differentiable attention over the qkv projection output [B, T, 3*H*D]
-    (q | k | v): the forward kernel saves O and lse, the backward kernels
-    return the gradient of qkv, in the form :func:`bwd_mode` picks from
-    ``bwd_fused``, ``bwd_kv_chunk`` and ``padded_len`` (the row count JAX's
-    packed entry would see; default T). Heads that do not pair take the BHTD
+    (q | k | v): the forward kernel, in the softmax form :func:`fwd_form`
+    picks from ``kv_chunk`` and ``unsafe_softmax``, saves O and lse; the
+    backward kernels return the gradient of qkv, in the form
+    :func:`bwd_mode` picks from ``bwd_fused`` and ``bwd_kv_chunk``; both
+    over ``padded_len`` rows (the row count JAX's packed entry would see;
+    default T). The backward reads only lse, which every forward form
+    returns alike (JAX's ``_fp_bwd``). Heads that do not pair take the BHTD
     kernels (:func:`.flash_attention.flash_attention_qkv`), which have one
-    backward, as JAX's fallback does. ``plain`` runs the plain versions."""
+    forward form and one backward, as JAX's fallback does. ``plain`` runs
+    the plain versions."""
     if not pairs_heads(qkv.shape[-1] // 3 // num_heads, num_heads):
         return flash_attention_qkv(qkv, num_heads, seq_len, plain)
     return _FlashFn.apply(qkv, num_heads, seq_len, plain,
+                          (kv_chunk, unsafe_softmax, padded_len),
                           (bwd_fused, bwd_kv_chunk, padded_len))

@@ -29,7 +29,10 @@ three backward forms (fused, split, chunked: row 11) run at 6 heads of 64
 and at 12 heads of 32, with the packed forward at head dim 32; the Hopper
 backward kernels (TMA rings, wgmma) also on ragged tiles and a 128-key
 block wholly past seq_len, twice each (the same bits), and refuse a view
-TMA cannot take. The library
+TMA cannot take. The Hopper forward runs JAX's three softmax forms (the
+monolithic safe, the fixed max and the chunked safe) on the same shapes,
+each against its plain version in that form and, as a control, another
+form's: the relative L2 and the share of o's elements that differ. The library
 ops of ``ops.experimental`` (rows 18 and 19: the int8 attention, the
 residual projection forward and backward) run at small and at the
 attention sublayer's shapes, and raise on what they are not built for.
@@ -139,7 +142,7 @@ def test_flash_packed_on_qkv_slices(dev, b, t, seq_len):
     assert o.shape == (b, t, D) and lse.shape == (b, 6, t)
     assert _rel(o, o_ref) < 1e-2
     assert float((lse - lse_ref).abs().max()) < 1e-3
-    # control: the keys of the last partial 64-key tile (or the last tile) masked
+    # control: the keys from the last multiple of 64 below seq_len on masked
     o_ctl, _ = flash_attention_packed_plain(q, k, v, 6, (seq_len - 1) // 64 * 64)
     assert _rel(o, o_ctl) >= 1e-2
 
@@ -696,7 +699,8 @@ def test_flash_bwd_bhtd_tiles(dev, hd, b, t, seq_len):
 
 def test_flash_bwd_refuses_what_tma_cannot_take(dev):
     """Views whose base address is not a multiple of 16 bytes raise before
-    any launch, in both entries."""
+    any launch, in the forward and backward entries of both layouts (every
+    flash kernel reads q, k and v through TMA)."""
     qkv = _randn((1, 130, 3 * D + 8), 1.0, 0)
     q, k, v = (qkv[..., 1 + j * D:1 + (j + 1) * D] for j in range(3))  # 2 bytes off
     do, o = _randn((1, 130, D), 1.0, 1), _randn((1, 130, D), 1.0, 2)
@@ -704,10 +708,72 @@ def test_flash_bwd_refuses_what_tma_cannot_take(dev):
     reset_launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention_packed_bwd(q, k, v, o, lse, do, 6)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_packed(q, k, v, 6)
     views = [heads_view(x, 6) for x in (q, k, v, o, do)]
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention_bwd(*views[:4], lse, views[4])
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(*views[:3])
     assert sum(launches.values()) == 0
+
+
+# The Hopper forward (a TMA ring of k and v tiles, wgmma) in JAX's three
+# softmax forms: each against its plain version in the same form, by the
+# relative L2 (FLASH_LIMIT) and by the share of o's elements that differ
+# (FWD_SHARE_LIMIT; chip_smoke.py phases 3 and 11 and PERF.md have the sound
+# and control readings it lies between), lse, the same bits from two calls,
+# each form counted under its own name; control: the plain version of
+# another form (the monolithic safe one for the chunked form where a chunk
+# holds fewer keys than seq_len, else the fixed max).
+FWD_SHARE_LIMIT = 0.02
+FWD_FORMS = {"safe": (0, False), "fixed": (256, True), "chunked": (256, False)}
+
+
+def _share(got, want):
+    return float((got != want).float().mean())
+
+
+@pytest.mark.parametrize("b,t,seq_len", TMA_SHAPES)
+@pytest.mark.parametrize("hd", [64, 32])
+def test_flash_fwd_forms(dev, hd, b, t, seq_len):
+    heads = D // hd
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    plain = {form: flash_attention_packed_plain(q, k, v, heads, seq_len, *args)
+             for form, args in FWD_FORMS.items()}
+    other = {"safe": "fixed", "fixed": "safe", "chunked": "safe" if seq_len > 256 else "fixed"}
+    for form, args in FWD_FORMS.items():
+        reset_launch_counts()
+        o, lse = flash_attention_packed(q, k, v, heads, seq_len, *args)
+        again = flash_attention_packed(q, k, v, heads, seq_len, *args)
+        assert launches[tfp.FWD_COUNTERS[form]] == 2 and sum(launches.values()) == 2
+        assert torch.equal(o, again[0]) and torch.equal(lse, again[1]), form
+        o_p, lse_p = plain[form]
+        assert _rel(o, o_p) < FLASH_LIMIT and _share(o, o_p) < FWD_SHARE_LIMIT, (
+            form, _rel(o, o_p), _share(o, o_p))
+        assert float((lse - lse_p).abs().max()) < LSE_LIMIT, form
+        assert _share(o, plain[other[form]][0]) >= FWD_SHARE_LIMIT, (form, other[form])
+
+
+def test_flash_fwd_bhtd_is_the_safe_form(dev):
+    """The BHTD forward takes the true row max (JAX's BHTD kernel): on the
+    same heads it gives the packed safe kernel's bits; control: the packed
+    fixed-max form differs."""
+    qkv = _randn((2, 300, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    o_b, lse_b = flash_attention_packed_layout(q, k, v, 6, 250)
+    o_s, lse_s = flash_attention_packed(q, k, v, 6, 250)
+    assert torch.equal(o_b, o_s) and torch.equal(lse_b, lse_s)
+    assert _share(o_b, flash_attention_packed(q, k, v, 6, 250, 0, True)[0]) >= FWD_SHARE_LIMIT
+
+
+def test_flash_fwd_chunk_off_the_key_tile_raises(dev):
+    """A chunk that divides JAX's padded length but is not a whole number of
+    the kernel's 128-key tiles raises on CUDA, naming it."""
+    x = _randn((1, 300, D), 1.0, 0)
+    with pytest.raises(ValueError, match="kv_chunk 192"):
+        flash_attention_packed(x, x, x, 6, None, 192)
 
 
 # Rows 18 and 19 (limits those of chip_smoke.py phase 13). The int8 kernel

@@ -3,35 +3,71 @@
 Every flash entry of ``intentbev_torch.ops`` that the training and serving
 paths call, on the tensors they are called with: the packed layout at
 [8, 4501, 384] in 6 heads of 64 and 12 heads of 32 (column slices of one
-qkv projection output; the backward in its three forms, fused, split and
-chunked), and the BHTD layout on ViT-Ti's [8, 4501, 3*192] qkv output in 3
-heads of 64. For each: CUDA-event ms per call (10 calls after one), the
-device time split by kernel from a profiler trace (for a backward: the
-dk/dv kernel, the dq kernel and the wrapper's own kernels), TFLOP/s of the
-work the bound counts (forward 2 products, backward 5), the bound at 989
-TFLOP/s bf16, and the same function's time through
+qkv projection output; the forward in its three softmax forms, monolithic
+safe, fixed max and chunked safe at 1152 keys, and the backward in its
+three forms, fused, split and chunked), and the BHTD layout on ViT-Ti's
+[8, 4501, 3*192] qkv output in 3 heads of 64. For each: CUDA-event ms per
+call (10 calls after one), the device time split by kernel from a profiler
+trace (for a backward: the dk/dv kernel, the dq kernel and the wrapper's own
+kernels), TFLOP/s of the work the bound counts (forward 2 products,
+backward 5), the bound at 989 TFLOP/s bf16, for a forward also the bound of
+its B*H*T*T exponentials at 16 a clock per SM on every SM at the SM clock
+``nvidia-smi`` reads over half a second of its calls, and the same
+function's time through
 ``scaled_dot_product_attention`` (forward, or forward saved and backward
 through autograd) on contiguous [B, H, T, D] copies, as a yardstick only.
 
     python3 tools/bench_flash_torch.py            # one JSON line per entry
 
 It imports no JAX, and runs as it stands on an older checkout of the port
-(the entries' signatures are unchanged since the packed backward's forms),
-so that one call can time two trees in turn.
+(the entries' signatures are unchanged since the packed backward's forms;
+a forward that takes no softmax form is timed once per shape, as form
+"parent"), so that one call can time two trees in turn.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+EX2_PER_CLOCK_PER_SM = 16  # H100 special-function units
 B, T = 8, 4501
 FORMS = {"fused": (True, 0), "split": (False, 0), "chunked": (False, 1152)}
+# the forward's softmax forms: (kv_chunk, unsafe_softmax)
+FWD_FORMS = {"safe": (0, False), "fixed": (1152, True), "chunked": (1152, False)}
+
+
+class SmClock:
+    """Median SM clock (MHz) that ``nvidia-smi`` reads about every 50 ms while
+    the block runs."""
+
+    def __enter__(self):
+        self.samples, self.stop = [], threading.Event()
+
+        def sample():
+            while not self.stop.is_set():
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True).stdout.split()
+                self.samples.extend(float(s) for s in out[:1])
+                self.stop.wait(0.05)
+
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        mhz = sorted(self.samples)
+        self.mhz = mhz[len(mhz) // 2] if mhz else float("nan")
 
 
 def main() -> None:
@@ -93,26 +129,40 @@ def main() -> None:
         return (torch.no_grad()(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
                 lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
 
-    def report(name, fn, products, d_model, library):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def report(name, fn, products, d_model, library, heads=None):
         ms = event_ms(fn)
+        if heads is not None:  # the clock under this load, over half a second of calls
+            with SmClock() as clock:
+                event_ms(fn, max(10, int(500 / ms)))
         flops = 2 * products * B * T * T * d_model
         line = {"name": name, "ms": round(ms, 4), "parts_ms": {
                     k: round(t, 4) for k, t in kernel_ms(fn).items()},
                 "tflops": round(flops / ms / 1e9, 1),
-                "bound_ms": round(flops / BF16_FLOPS_PER_S * 1e3, 4),
-                "sdpa_ms": round(event_ms(library), 4), "card": card}
+                "bound_ms": round(flops / BF16_FLOPS_PER_S * 1e3, 4)}
+        if heads is not None:  # a forward: its exponentials at the measured clock
+            ex2_per_s = EX2_PER_CLOCK_PER_SM * sms * clock.mhz * 1e6
+            line.update(exp_bound_ms=round(B * heads * T * T / ex2_per_s * 1e3, 4),
+                        sm_clock_mhz=clock.mhz)
+        sdpa_ms = event_ms(library)
+        line.update(sdpa_ms=round(sdpa_ms, 4), vs_sdpa=round(ms / sdpa_ms, 3), card=card)
         print(json.dumps(line), flush=True)
 
     d = 384
     qkv = randn(B, T, 3 * d)
     q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
     do = randn(B, T, d)
+    forms = FWD_FORMS if "unsafe_softmax" in inspect.signature(
+        flash_attention_packed).parameters else {"parent": ()}
     for h in (6, 12):
         tag = f"{h}x{d // h}"
         o, lse = flash_attention_packed(q, k, v, h)
         lib_fwd, lib_bwd = sdpa(q, k, v, do, h)
-        report(f"flash_packed {tag}", lambda h=h: flash_attention_packed(q, k, v, h), 2, d,
-               lib_fwd)
+        for form, args in forms.items():
+            report(f"flash_packed {form} {tag}",
+                   lambda h=h, args=args: flash_attention_packed(q, k, v, h, None, *args), 2, d,
+                   lib_fwd, h)
         for form, (fused, chunk) in FORMS.items():
             report(f"flash_packed_bwd {form} {tag}",
                    lambda h=h, o=o, lse=lse, fused=fused, chunk=chunk: flash_attention_packed_bwd(
@@ -125,7 +175,8 @@ def main() -> None:
     o_t, lse_t = flash_attention_packed_layout(*parts, 3)
     o_v, do_v = heads_view(o_t, 3), heads_view(randn(B, T, dt), 3)
     lib_fwd, lib_bwd = sdpa(*views, do_v, 3)
-    report("flash_attention 3x64", lambda: flash_attention_fwd(*views, out=o_v), 2, dt, lib_fwd)
+    report("flash_attention 3x64", lambda: flash_attention_fwd(*views, out=o_v), 2, dt, lib_fwd,
+           3)
     report("flash_attention_bwd 3x64",
            lambda: flash_attention_bwd(*views, o_v, lse_t, do_v), 5, dt, lib_bwd)
 
