@@ -76,9 +76,8 @@ def note(msg: str) -> None:
 
 
 def line(metric: str, fps: float, **extra) -> dict:
-    value = round(fps, 2)  # vs_baseline from the printed value, so the line agrees with itself
-    out = {"metric": metric, "value": value, "unit": "frames/s",
-           "vs_baseline": round(value / 2000.0, 4), **extra}
+    out = {"metric": metric, "value": round(fps, 2), "unit": "frames/s",
+           "vs_baseline": round(fps / 2000.0, 4), **extra}  # bench.py's: from the unrounded rate
     print(json.dumps(out), flush=True)
     return out
 

@@ -54,16 +54,6 @@ __device__ __forceinline__ void scale_tile(const uint8_t* src, uint8_t* dst, int
         scale_bf16x8(reinterpret_cast<const uint4*>(src)[i], scale);
 }
 
-// The consumer's A fragments of a [64 x 16 KS] accumulator (rows this
-// warpgroup's, columns the next product's contraction), 16 columns each.
-template <int KS>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&c)[8 * KS]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16x2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
-}
-
 // acc[64 x 128] = A B^T over the head dim (the scores S, S^T and dP, dP^T):
 // A this warpgroup's 64-row tile, B a 128-row tile of the ring, both K-major.
 template <int RB, int HD>
@@ -82,10 +72,6 @@ __device__ __forceinline__ void scores(float (&acc)[64], const uint32_t (&a)[HD 
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
     hopper::wgmma_rs_n128(acc, a[kk], hopper::desc_kmajor<RB>(b, kk), kk > 0);
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // ---------------------------------------------------------------------------
@@ -216,7 +202,7 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
   constexpr int RB = HD * 2, TILE = L::TILE, CONSUMERS = Shape::CONSUMERS;
   constexpr bool EXACT = HD == 64;  // the bf16 scale is a power of two
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = align1024(smem_raw);
+  uint8_t* sm = hopper::align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
   uint64_t* qbar = bars;
   uint64_t* full = bars + 1;
@@ -414,7 +400,7 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       softmax(g0);
-      pack_a(pa, sc);
+      hopper::pack_a(pa, sc);
       for (int i = 1; i < n; ++i) {
         landed(item + i);
         my_turn();
@@ -429,7 +415,7 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
         hopper::wgmma_wait<0>();  // P V of tile i - 1: its slot and pa are free
         hopper::fence_regs(acc);
         release(item + i - 1);
-        pack_a(pa, sc);
+        hopper::pack_a(pa, sc);
       }
       my_turn();
       hopper::wgmma_fence();
@@ -597,7 +583,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   using L = DkdvSmem<HD, MODE>;
   constexpr int RB = HD * 2, TILE = L::TILE;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = align1024(smem_raw);
+  uint8_t* sm = hopper::align1024(smem_raw);
   float* lse_s = reinterpret_cast<float*>(sm + L::LSE);
   float* delta_s = reinterpret_cast<float*>(sm + L::DELTA);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
@@ -740,8 +726,8 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - d.y);
       }
       uint32_t pa[8][4], ta[8][4];
-      pack_a(pa, sc);
-      pack_a(ta, dp);
+      hopper::pack_a(pa, sc);
+      hopper::pack_a(ta, dp);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
@@ -798,7 +784,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   constexpr int RB = HD * 2, TILE = L::TILE;
   constexpr bool EXACT = HD == 64;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = align1024(smem_raw);
+  uint8_t* sm = hopper::align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
   uint64_t* qbar = bars;
   uint64_t* full = bars + 1;
@@ -905,7 +891,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - d1);
       }
       uint32_t ta[8][4];
-      pack_a(ta, dp);
+      hopper::pack_a(ta, dp);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)

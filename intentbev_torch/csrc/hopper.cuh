@@ -12,7 +12,9 @@
 // D = 64, 64 bytes at D = 32, which is also the swizzle mode of the wgmma
 // descriptors that read it. The maps are encoded by cuTensorMapEncodeTiled
 // of libcuda, looked up at run time through the CUDA runtime, so the
-// library does not link libcuda.
+// library does not link libcuda. A row-major [rows, cols] matrix is read
+// through a two-dimensional map (encode_2d), in boxes of up to 128 bytes of
+// a row, swizzled at the box's row width; rows past the last land as zeros.
 //
 // wgmma operands (PTX ISA, "Shared Memory Matrix Layout"): a tile of rows of
 // 2*D bytes as TMA lands it is
@@ -79,10 +81,38 @@ static inline int encode_bhtd(CUtensorMap* map, const void* ptr, int B, int H, i
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Map of the row-major bf16 [rows, cols] matrix at ptr (row stride cols):
+// boxes of box_cols x box_rows, swizzled at the box's row width (box_cols *
+// 2 bytes: 128 or 64). Returns 0 or a cudaError_t.
+static inline int encode_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+                            int box_cols) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUtensorMapSwizzle sw =
+      box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : (box_cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (sw == CU_TENSOR_MAP_SWIZZLE_NONE) return (int)cudaErrorInvalidValue;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // --------------------------------------------------------------- device --
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The first 1024-byte boundary at or after p: the swizzle atom of a 128-byte
+// swizzled tile, which TMA and the wgmma descriptors assume tiles start on.
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -131,6 +161,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of a two-dimensional map at (col, row) into dst, completing on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// The box of a two-dimensional map at (col, row) from src (rows outside the
+// map are not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Generic-proxy writes to shared memory made visible to the async proxy
 // (wgmma reads, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -169,6 +229,15 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint3
   d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
   d |= layout << 62;
   return d;
+}
+
+// Descriptor of a K-major tile at shared address addr (k-step 0).
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t desc_kmajor_at(uint32_t addr) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "swizzle width");
+  constexpr uint64_t hi = ((uint64_t)(ROW_BYTES == 128 ? 1 : 2) << 62) |
+                          ((uint64_t)((8 * ROW_BYTES) >> 4) << 32) | ((uint64_t)1 << 16);
+  return hi | ((addr & 0x3FFFF) >> 4);
 }
 
 // Descriptor of a K-major tile (contraction along the row), k-step kk of 16.
@@ -268,6 +337,78 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B from shared memory, both
+// K-major (accumulator layout as wgmma_ss_n128's).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+      IBK_F8(0), IBK_F8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory, both
+// K-major (accumulator layout as wgmma_ss_n128's).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      IBK_F8(0), IBK_F8(8), IBK_F8(16), IBK_F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 192] (+)= A[64 x 16] B[16 x 192], A and B from shared memory, both
+// K-major (accumulator layout as wgmma_ss_n128's).
+__device__ __forceinline__ void wgmma_ss_n192(float (&d)[96], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      :
+      IBK_F8(0), IBK_F8(8), IBK_F8(16), IBK_F8(24), IBK_F8(32), IBK_F8(40), IBK_F8(48),
+      IBK_F8(56), IBK_F8(64), IBK_F8(72), IBK_F8(80), IBK_F8(88)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 192] (+)= A[64 x 16] B[16 x 192], A from registers, B K-major.
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      :
+      IBK_F8(0), IBK_F8(8), IBK_F8(16), IBK_F8(24), IBK_F8(32), IBK_F8(40), IBK_F8(48),
+      IBK_F8(56), IBK_F8(64), IBK_F8(72), IBK_F8(80), IBK_F8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef IBK_F8
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], A from registers, B MN-major, N in
@@ -280,6 +421,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_rs_n64(d, a, db, accumulate);
   else
     wgmma_rs_n32(d, a, db, accumulate);
+}
+
+// The A fragments of a wgmma_rs product from a [64 x 16 KS] accumulator of
+// this warpgroup (rows the product's, columns its contraction), rounded to
+// bf16, 16 columns each.
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&c)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      __nv_bfloat162 v = __floats2bfloat162_rn(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
+      a[kk][r] = *reinterpret_cast<uint32_t*>(&v);
+    }
 }
 
 // The A fragment (mma.sync m16n8k16 layout) of rows row0..row0+15, columns

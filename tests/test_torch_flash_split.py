@@ -394,7 +394,14 @@ def test_bench_twins_print_bench_py_lines():
         want = sustained_keys if d["metric"] == names[3] else keys
         assert list(d) == want
         assert d["unit"] == "frames/s" and d["value"] > 0
-        assert d["vs_baseline"] == round(d["value"] / 2000.0, 4)
+        # bench.py's formula rounds the unrounded rate: within half a unit
+        # of the fourth decimal of the printed value's
+        assert abs(d["vs_baseline"] - d["value"] / 2000.0) <= 5e-5
+    # a rate where the two formulas differ: bench.py gives 0.0865, the rounded
+    # value's 173.1 / 2000 would give 0.0866
+    with contextlib.redirect_stdout(io.StringIO()):
+        d = bench_torch.line("bev_frames_per_sec_per_chip", 173.0999)
+    assert d["value"] == 173.1 and d["vs_baseline"] == round(173.0999 / 2000.0, 4) == 0.0865
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         r = bench_train_torch.run(batch=2, steps=1, points_per_sweep=300, device="cpu",

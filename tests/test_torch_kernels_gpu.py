@@ -36,6 +36,10 @@ form's: the relative L2 and the share of o's elements that differ. The library
 ops of ``ops.experimental`` (rows 18 and 19: the int8 attention, the
 residual projection forward and backward) run at small and at the
 attention sublayer's shapes, and raise on what they are not built for.
+The Hopper LN+MLP forward (its three entries) runs at row counts that are
+not a multiple of its 128-row block, with and without the gate, both
+GELUs, D=384 and 192, LN or none; its outputs are also read by the share
+of elements that differ, which an h kept in f32 before fc2 must move.
 """
 
 import importlib
@@ -131,6 +135,74 @@ def test_fused_ln_mlp(dev, rows, gelu, d):
     other = "sigmoid" if gelu == "erf" else "erf"  # control: the other GELU
     y_ctl, yn_ctl = fused_ln_mlp_plain(*args, gelu_mode=other)
     assert _rel(y, y_ctl) >= 1e-3 and _rel(yn, yn_ctl) >= 1e-3
+
+
+MLP_SHARE = 2e-2  # share of the forward's bf16 outputs that may differ
+
+
+def _mlp_h_f32(x, w1, b1, w2, b2, mode, ln=None, gate=None, res=None, ln_next=None):
+    """The plain forwards' math with one fault: h kept in f32 before fc2.
+    x's rows (LN2 with ``ln``, or none), the residual ``res`` (x if None), the
+    per-row ``gate``, the next LN ``ln_next`` -> y (and yn)."""
+    from intentbev_torch.ops.fused_ln_mlp import gelu
+
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    xn = layernorm_plain(xf, *ln).to(x.dtype).float() if ln else xf
+    m = gelu(xn @ w1.float().t() + b1, mode) @ w2.float().t() + b2
+    if gate is not None:
+        m = m * gate.float().reshape(-1, 1)
+    y = m + (x if res is None else res).reshape(-1, d).float()
+    y_lp = y.to(x.dtype).reshape(x.shape)
+    return (y_lp, layernorm_plain(y, *ln_next).to(x.dtype)) if ln_next else (y_lp,)
+
+
+def _share(got, want):
+    return float((got != want).float().mean())
+
+
+@pytest.mark.parametrize("entry,d,gated", [
+    ("fused_ln_mlp", 384, False), ("fused_ln_mlp", 192, False),
+    ("fused_ln_mlp_train", 384, True), ("fused_ln_mlp_train", 384, False),
+    ("fused_ln_mlp_train", 192, True), ("fused_ln_mlp_train", 192, False),
+    ("fused_mlp", 384, True), ("fused_mlp", 384, False)])
+@pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
+@pytest.mark.parametrize("rows", [300, MAIN_ROWS])
+def test_ln_mlp_forward_edges(dev, rows, gelu, entry, d, gated):
+    """The Hopper forward (128-row blocks; rows past the last land as TMA's
+    zeros and are not stored) at row counts that are not a multiple of the
+    block, with and without the gate, both GELUs, D=384 and 192, LN or
+    none: each output's relative L2 and share of differing elements against
+    the plain version; the control, h kept in f32 before fc2, must move the
+    share past its limit."""
+    x, res = _randn((rows, d), 1.0, 0), _randn((rows, d), 1.0, 11)
+    ln = [_randn((d,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2, 3, 4)]
+    w1 = _randn((4 * d, d), d ** -0.5, 5)
+    b1 = _randn((4 * d,), 0.1, 6, torch.float32)
+    w2 = _randn((d, 4 * d), (4 * d) ** -0.5, 7)
+    b2 = _randn((d,), 0.1, 8, torch.float32)
+    keep = torch.rand(rows, generator=_gen(9), device="cuda") < 0.7
+    gate = keep.float() / 0.9 if gated else None  # per row: 0 or 1/0.9
+    reset_launch_counts()
+    if entry == "fused_ln_mlp":
+        args = (x, ln[0], ln[1], w1, b1, w2, b2, ln[2], ln[3])
+        got = fused_ln_mlp(*args, gelu_mode=gelu)
+        want = fused_ln_mlp_plain(*args, gelu_mode=gelu)
+        ctrl = _mlp_h_f32(x, w1, b1, w2, b2, gelu, ln=ln[:2], ln_next=ln[2:])
+    elif entry == "fused_ln_mlp_train":
+        args = (x, ln[0], ln[1], w1, b1, w2, b2, gate)
+        got = (fused_ln_mlp_train(*args, gelu_mode=gelu),)
+        want = (fused_ln_mlp_train_plain(*args, gelu_mode=gelu),)
+        ctrl = _mlp_h_f32(x, w1, b1, w2, b2, gelu, ln=ln[:2], gate=gate)
+    else:
+        got = (fused_mlp(x, w1, b1, w2, b2, res, gelu, gate),)
+        want = (fused_mlp_plain(x, w1, b1, w2, b2, res, gelu, gate),)
+        ctrl = _mlp_h_f32(x, w1, b1, w2, b2, gelu, gate=gate, res=res)
+    assert launches[entry] == 1
+    for g, w, c in zip(got, want, ctrl):
+        assert g.shape == w.shape and _rel(g, w) < MLP_LIMIT, _rel(g, w)
+        assert _share(g, w) < MLP_SHARE, _share(g, w)
+    assert max(_share(g, c) for g, c in zip(got, ctrl)) >= MLP_SHARE
 
 
 @pytest.mark.parametrize("b,t,seq_len", [(1, 300, 250), (2, 130, 130), (8, 4501, 4501)])

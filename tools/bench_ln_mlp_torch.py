@@ -1,0 +1,136 @@
+"""Times the port's LN+MLP forward kernels at the main paths' shapes, on one CUDA card.
+
+The three forward entries of ``intentbev_torch.ops`` (``csrc/fused_ln_mlp.cu``)
+on the tensors the ViT gives them, at batch 8 x 4501 tokens = 36008 rows:
+ViT-S (D=384, hidden 1536) and ViT-Ti (D=192, hidden 768).
+
+- ``fused_ln_mlp``: the serving block tail with the next block's LN (both
+  GELUs; the bench lines serve the sigmoid one);
+- ``fused_ln_mlp_train``: the training forward with a per-sample drop-path
+  gate, and the unchained serving tail without one;
+- ``fused_mlp``: the MLP without LN (configuration C) at D=384, serving.
+
+For each case: CUDA-event ms per call (``--iters`` calls after one), TFLOP/s
+of its 4*N*D*H operations, the bound at 989 TFLOP/s bf16, the plain
+version's ms, and the ms of the same function as a chain of PyTorch calls
+in bf16 (``F.layer_norm``, ``F.linear``, the GELU, ``F.linear``, the
+residual; cuBLAS's GEMMs), a yardstick the port never calls; then each
+output's relative L2 and share of differing elements against the plain
+version.
+
+    python3 tools/bench_ln_mlp_torch.py [--iters 20]    # one JSON line per case
+
+It imports no JAX and runs as it stands on an older checkout of the port
+(the entries' signatures are unchanged), so that one call can time two
+trees in turn: copy it into the other tree's ``tools/`` and run it there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args()
+
+    import torch
+    import torch.nn.functional as F
+
+    from intentbev_torch.ops import (fused_ln_mlp, fused_ln_mlp_plain, fused_ln_mlp_train,
+                                     fused_ln_mlp_train_plain, fused_mlp, fused_mlp_plain)
+
+    if not torch.cuda.is_available():
+        sys.exit("bench_ln_mlp_torch: needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    print(card, flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+    def event_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(args.iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / args.iters
+
+    def tup(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    def gelu16(t, mode):  # the GELU in bf16, as the unfused model would run it
+        return F.gelu(t) if mode == "erf" else t * torch.sigmoid(1.702 * t)
+
+    def report(name, kern, plain, reference, flops):
+        got, want = tup(kern()), tup(plain())
+        readings = {"rel_l2": [float((a.double() - b.double()).norm() / b.double().norm())
+                               for a, b in zip(got, want)],
+                    "share_differing": [float((a != b).float().mean())
+                                        for a, b in zip(got, want)]}
+        del got, want
+        ms = event_ms(kern)
+        line = {"name": name, "ms": round(ms, 4), "tflops": round(flops / ms / 1e9, 1),
+                "bound_ms": round(flops / BF16_FLOPS_PER_S * 1e3, 4),
+                "plain_ms": round(event_ms(plain), 4),
+                "reference_ms": round(event_ms(reference), 4), **readings, "card": card}
+        print(json.dumps(line), flush=True)
+
+    keep = (torch.rand(8, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
+    gate = keep.expand(8, ROWS // 8).reshape(ROWS).contiguous()  # per sample, as drop-path
+    for d, tag in ((384, ""), (192, "[D=192]")):
+        hid = 4 * d
+        x, res = randn((ROWS, d), 1.0), randn((ROWS, d), 1.0)
+        ln = [randn((d,), 0.2, torch.float32) + (1 - i % 2) for i in range(4)]
+        w1, b1 = randn((hid, d), d ** -0.5), randn((hid,), 0.1, torch.float32)
+        w2, b2 = randn((d, hid), hid ** -0.5), randn((d,), 0.1, torch.float32)
+        ln16, b1_16, b2_16 = [p.bfloat16() for p in ln], b1.bfloat16(), b2.bfloat16()
+        flops = 4 * ROWS * d * hid
+        mlp_args = (x, ln[0], ln[1], w1, b1, w2, b2, ln[2], ln[3])
+        train_args = (x, ln[0], ln[1], w1, b1, w2, b2)
+
+        def chain(inp, mode, ln_in=True):  # fc2(GELU(fc1(LN(inp)))) in bf16
+            xn = F.layer_norm(inp, (d,), ln16[0], ln16[1], 1e-6) if ln_in else inp
+            return F.linear(gelu16(F.linear(xn, w1, b1_16), mode), w2, b2_16)
+
+        with torch.no_grad():
+            for mode in ("sigmoid", "erf"):
+                report(f"fused_ln_mlp[{mode}]{tag}",
+                       lambda mode=mode: fused_ln_mlp(*mlp_args, gelu_mode=mode),
+                       lambda mode=mode: fused_ln_mlp_plain(*mlp_args, gelu_mode=mode),
+                       lambda mode=mode: F.layer_norm(x + chain(x, mode), (d,), ln16[2], ln16[3],
+                                                      1e-6), flops)
+            report(f"fused_ln_mlp_train[gated]{tag}",
+                   lambda: fused_ln_mlp_train(*train_args, gate),
+                   lambda: fused_ln_mlp_train_plain(*train_args, gate),
+                   lambda: x + chain(x, "erf") * gate[:, None].bfloat16(), flops)
+            report(f"fused_ln_mlp_train[no gate, sigmoid]{tag}",
+                   lambda: fused_ln_mlp_train(*train_args, gelu_mode="sigmoid"),
+                   lambda: fused_ln_mlp_train_plain(*train_args, gelu_mode="sigmoid"),
+                   lambda: x + chain(x, "sigmoid"), flops)
+            if d == 384:
+                report("fused_mlp[sigmoid]",
+                       lambda: fused_mlp(x, w1, b1, w2, b2, res, gelu_mode="sigmoid"),
+                       lambda: fused_mlp_plain(x, w1, b1, w2, b2, res, gelu_mode="sigmoid"),
+                       lambda: res + chain(x, "sigmoid", ln_in=False), flops)
+        del x, res, w1, w2
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -94,9 +94,9 @@ GROUPS = (
     ("flash_bwd_dkdv", "flash backward dk/dv (packed or BHTD)"),
     ("flash_bwd_dq", "flash backward dq (packed or BHTD)"),
     ("fused_mlp_int8_kernel", "fused_mlp_int8"),
-    ("fused_ln_mlp_kernel<384, 0, false, false>", "fused_mlp (no LN)"),
-    ("fused_ln_mlp_kernel<384, 1, false, false>", "fused_mlp (no LN)"),
-    ("fused_ln_mlp_kernel", "fused_ln_mlp (serving or train forward)"),
+    ("ln_mlp_fwd_kernel<384, 0, false, false>", "fused_mlp (no LN)"),
+    ("ln_mlp_fwd_kernel<384, 1, false, false>", "fused_mlp (no LN)"),
+    ("ln_mlp_fwd_kernel", "fused_ln_mlp (serving or train forward)"),
     ("fused_ln_dense_kernel", "fused_ln_dense"),
     ("patch_embed_kernel", "patch_embed"),
     ("ln_mlp_bwd_rows_kernel<384, false>", "fused_mlp_bwd (row kernel)"),
