@@ -50,6 +50,7 @@
 // land as TMA's zeros and are not stored. The PERF.md findings of this
 // kernel record what its registers forced (opaque values below that keep
 // the compiler from holding addresses or loads across the loop).
+#include <algorithm>
 #include <utility>
 
 #include "common.cuh"
@@ -518,12 +519,6 @@ int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
                                   n_rows, hidden, eps, (cudaStream_t)stream);
 }
 
-// The backward's tiling (below): 64 rows a block, 64-wide hidden tiles,
-// padded row strides (bank-conflict-free 32-bit fragment loads).
-constexpr int ROWS = 64;
-constexpr int HT = 64;
-constexpr int LDH = HT + 8;
-
 }  // namespace
 
 // hidden must be a multiple of 64 in every entry; d (the width of x) is
@@ -563,358 +558,776 @@ extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, cons
                                 nullptr, gate, res, y, nullptr, n_rows, hidden, 0.f, stream);
 }
 
+
 // ---------------------------------------------------------------------------
 // 4. Training backward. Replaces intentbev/ops/fused_ln_mlp.py::_bwd_kernel:
-//      recompute xhat, inv, xn = LN2(x), g = xn W1 + b1, h = GELU(g)
-//      dy_eff = dy * gate;  dh = dy_eff W2^T;  dg = dh * GELU'(g)
+//      recompute xhat, inv, xn = LN2(x), g = xn W1^T + b1, h = GELU(g)
+//      dy_eff = dy * gate;  dh = dy_eff W2;  dg = dh * GELU'(g)
 //      dxn = dg W1;  dgamma = sum dxn * xhat;  dbeta = sum dxn
 //      dx = inv * (dxn*gamma - mean(dxn*gamma) - xhat * mean(dxn*gamma*xhat)) + dy
 //      dW1 = dg^T xn;  db1 = sum dg;  dW2 = dy_eff^T h;  db2 = sum dy_eff
 // with the JAX kernel's rounding points: xn, dy_eff, h and dg are rounded to
-// bf16 before they enter a product; the products accumulate in f32.
+// bf16 before they enter a product, the products accumulate in f32, and db1
+// and db2 sum the f32 dg and dy_eff (not the bf16 copies that the dW
+// products read: summing those would move db1's rounding point).
 // Without LN (LN_IN false) it replaces intentbev/ops/fused_mlp.py::_bwd_kernel:
-// the row kernel reads the normed input as it is (xn = x), and dx is dxn
-// itself; the residual's gradient, dy, is added by autograd.
-// Bound on the H100: tensor-core throughput, 5 products of 2*N*384*1536 =
-// 212 GFLOP at N = 36008 (the row kernel recomputes g: 6 products here); a
-// quarter of that at D = 192, hidden 768.
-// Design: the TPU kernel accumulates dW1/dW2 (2.36 MB f32 each) in VMEM
-// across a sequential row grid, which has no counterpart on 132 SMs running
-// in parallel. So the work is split in two kernels:
-//  (a) a row kernel, one 256-thread block per 64 rows: LN recompute into
-//      shared memory, then per 64-wide hidden tile g (xn W1^T), dh
-//      (dy_eff W2), h and dg; h and dg go to device memory as bf16, and
-//      dxn += dg W1 accumulates in registers ([64, D] f32, 96 a thread at
-//      D = 384, 48 at 192).
-//      The epilogue finishes dx row by row and writes per-block column
-//      partials of dgamma, dbeta, db1 and db2;
-//  (b) the split-K GEMM C = A^T B of common.cuh over the rows for
-//      dW1 = dg^T xn and dW2 = dy_eff^T h, summed in a fixed order.
+// xn is x as it is, and dx is dxn rounded once (the residual's gradient, dy,
+// is added by autograd).
+// Bound on the H100: tensor-core throughput. At 36008 rows, D = 384 and a
+// 1536-wide hidden layer the five products are 5 * 2*N*D*H = 212 GFLOP
+// (0.215 ms at 989 TFLOP/s; the row kernel recomputes g, a sixth); a quarter
+// of that at D = 192, hidden 768.
+// Design. The TPU kernel accumulates dW1 and dW2 (2.36 MB f32 each) in VMEM
+// across a sequential row grid, which 132 SMs running in parallel cannot; so
+// two kernels, both warp-specialised on wgmma fed by TMA:
+//  (a) ln_mlp_bwd_kernel: a block of 384 threads owns 64 rows (128 rows of xn
+//      and dy_eff would fill 192 KB of shared memory at D = 384 and leave no
+//      room for a weight tile). A producer warpgroup loads x and dy once by
+//      TMA, then walks the hidden dimension in 32-wide tiles, keeping TMA
+//      loads of the W1 tile [32, D] and the W2 tile [D, 32] in two 2-slot
+//      mbarrier rings. The two consumer warpgroups share the block's rows and
+//      split each tile's work: consumer 0 runs g = xn W1_tile^T (m64n32, B
+//      K-major), consumer 1 dh = dy_eff W2_tile (m64n32, B MN-major); they
+//      exchange g + b1 and dh in f32 through shared memory, each takes the
+//      GELU, GELU' and dg of 16 of the tile's columns, and both round h and
+//      dg into bf16 tiles that TMA stores to h_ws / dg_ws. Then each runs
+//      dxn[:, its half] += dg W1_tile[:, its half] (m64n(D/2): A the dg tile,
+//      B the same W1 tile read MN-major across three column boxes), so its
+//      f32 accumulator is [64, D/2] (96 registers at D = 384, 192 at 768,
+//      where 64 rows of xn and dy_eff alone would fill 192 KB of shared
+//      memory). The next tile's g / dh is issued beside this
+//      tile's dxn, after its GELU. LN2 and dy_eff are taken in place as
+//      the rows land and TMA-stored to xn_ws / dye_ws for (b). Once the rings
+//      drain the producer loads x and dy again into them for the epilogue: the
+//      LN backward per row (its row sums added across the two consumers
+//      through shared memory), dx stored by TMA.
+//  (b) dw_gemm_kernel: C = P^T Q over the rows for dW1 = dg^T xn and dW2 =
+//      dy_eff^T h, both in one launch: 128 x 192 output tiles on two consumer
+//      warpgroups (m64n192, A and B both MN-major: TMA boxes of the row-major
+//      P and Q as they land), a producer warpgroup keeping TMA loads of
+//      64-row chunks in a 4-slot ring, and the rows split so that the grid
+//      fills whole waves of the card's SMs; f32 partials per split.
+// Block partials (db1, dgamma, dbeta, db2) and split partials (dW1, dW2) are
+// summed in a fixed order (col_sums_kernel, split_sums_kernel): the result is
+// deterministic, with no atomics. Rows past n_rows land as TMA's zeros (dy =
+// 0, so dg and dxn are 0) and are not stored.
 // ---------------------------------------------------------------------------
 namespace {
 
-constexpr int BWD_THREADS = 256;
+constexpr int BWD_THREADS = 384;
+constexpr int BWD_ROWS = 64;  // rows of a block, shared by both consumers
+constexpr int BHT = 32;       // hidden tile
+constexpr int W2_BOX = 192;   // rows of a W2 box (TMA boxes take at most 256)
 
-// Backward shared memory at width D: 216,576 bytes at 384, 115,200 at 192.
+// The row kernel's shared memory at width D, from a 1024-byte boundary: xn
+// and dy_eff (D / 64 column blocks of [64][64], 128-byte rows as TMA swizzles
+// them), the W1 ring (slots of D / W1C boxes [32][W1C]), the W2 ring (slots
+// [D][32], 64-byte rows), the f32 exchange tiles (g + b1, dh), the bf16 dg
+// and h tiles ([64][32], 64-byte rows swizzled as TMA stores them), db1's
+// warp partials, the rows' LN statistics and row sums, the barriers. Once
+// the rings drain they take x and dy again (laid out as xn).
 template <int D>
-struct BwdSmem {
-  static constexpr int LDX = D + 8;
-  static constexpr int LDY = D + 8;
-  static constexpr size_t BX_ELEMS = (size_t)ROWS * LDX;   // xn, dy_eff, W1 tile
-  static constexpr size_t BW2_ELEMS = (size_t)D * LDH;     // W2 tile as [d][h]
-  static constexpr size_t BDG_ELEMS = (size_t)ROWS * LDH;  // dg tile
-  static constexpr size_t BYTES = (3 * BX_ELEMS + BW2_ELEMS + BDG_ELEMS) * 2 +
-                                  (4 * HT + 2 * ROWS) * 4;
-  static_assert((size_t)ROWS * LDY * 4 <= (BX_ELEMS + BW2_ELEMS) * 2,
-                "f32 dxn tile must fit in the W1/W2 staging area");
-  static_assert((size_t)3 * 8 * D * 4 <= BX_ELEMS * 2,
-                "column partials must fit in the xn area");
-  static_assert(D % 64 == 0 && BYTES <= 232448, "width outside the kernel's tiling");
+struct BwdTiles {
+  static constexpr int S = 2;                  // slots of each weight ring
+  static constexpr int NH = D / 2;             // dxn columns of a consumer
+  static constexpr int W1C = D / 6;            // columns of a W1 box: NH spans 3
+  static constexpr int W1RB = 2 * W1C;         // bytes of a W1 box row (128 or 64)
+  static constexpr int W1BOX = BHT * W1RB;
+  static constexpr int XBLK = BWD_ROWS * 128;  // one 64-column block of the rows
+  static constexpr int ROWS_B = D / 64 * XBLK;
+  static constexpr int W1_TILE = BHT * D * 2, W2_TILE = D * BHT * 2;
+  static constexpr int EX_LD = BHT + 4;        // floats a row of an exchange tile
+  static constexpr int EX_B = BWD_ROWS * EX_LD * 4;
+  static constexpr int XN = 0, DYE = ROWS_B, W1 = 2 * ROWS_B, W2 = W1 + S * W1_TILE;
+  static constexpr int EX = W2 + S * W2_TILE;
+  static constexpr int DG = EX + 2 * EX_B, H = DG + BWD_ROWS * BHT * 2;
+  static constexpr int RED = H + BWD_ROWS * BHT * 2;     // [2 consumers][4 warps][16]
+  static constexpr int STATS = RED + 2 * 4 * 16 * 4;     // mean [64], inv [64]
+  static constexpr int RSUM = STATS + 2 * BWD_ROWS * 4;  // [2 consumers][64][2]
+  static constexpr int BARS = RSUM + 2 * BWD_ROWS * 2 * 4;
+  static constexpr int N_BARS = 2 + 4 * S;
+  static constexpr int BYTES = BARS + N_BARS * 8 + 1024;  // + alignment slack
+  static_assert(D % W2_BOX == 0 && W1C % 32 == 0 && W1RB <= 128 && BYTES <= 232448,
+                "width outside the kernel's tiling");
+  static_assert(S * W1_TILE == ROWS_B && S * W2_TILE == ROWS_B,
+                "x and dy reload into the drained rings");
+  static_assert(8 * D * 4 <= 2 * EX_B, "the column partials fit in the exchange tiles");
 };
 
-// LN_IN: x is LN2's input (xn is recomputed and written to xn_out, dx is
-// the LN backward + dy); else x is the MLP's input itself (xn_out unused,
-// dx = dxn, and only db2 of the column partials is written).
+// LN_IN: x is LN2's input (xn = LN2(x) is stored to xn_ws, dx is the LN
+// backward + dy, dgamma's and dbeta's partials are written); else x is the
+// MLP's input itself and dx = dxn. Maps: mx / mdy / mxn / mdye / mdx [n_rows,
+// D] in 64 x 64 boxes, mw1 W1 [hidden, D] in 32 x W1C boxes, mw2 W2 [D,
+// hidden] in 192 x 32 boxes, mh / mdg [n_rows, hidden] in 64 x 32 boxes.
+// part_db1 [blocks][hidden] and part_cols [3][blocks][D] (dgamma, dbeta,
+// db2) take the block partials.
 template <int D, bool LN_IN>
-__global__ void __launch_bounds__(BWD_THREADS)
-    ln_mlp_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g2,
-                           const float* __restrict__ be2, const bf16* __restrict__ w1,
-                           const float* __restrict__ b1, const bf16* __restrict__ w2,
-                           const float* __restrict__ gate, const bf16* __restrict__ dy,
-                           bf16* __restrict__ dx, bf16* __restrict__ xn_out,
-                           bf16* __restrict__ dye_out, bf16* __restrict__ h_out,
-                           bf16* __restrict__ dg_out, float* __restrict__ part_db1,
-                           float* __restrict__ part_cols, int n_rows, int hidden,
-                           float eps) {
-  using S = BwdSmem<D>;
-  constexpr int LDX = S::LDX, LDY = S::LDY;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* dys = xs + S::BX_ELEMS;
-  bf16* w1s = dys + S::BX_ELEMS;
-  bf16* w2s = w1s + S::BX_ELEMS;
-  bf16* dgs = w2s + S::BW2_ELEMS;
-  float* red = reinterpret_cast<float*>(dgs + S::BDG_ELEMS);  // [4][HT]
-  float* rmean = red + 4 * HT;
-  float* rinv = rmean + ROWS;
-  float* ys = reinterpret_cast<float*>(w1s);  // epilogue: f32 dxn [ROWS][LDY]
-  float* cols = reinterpret_cast<float*>(xs);  // epilogue: [3][8][D]
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    ln_mlp_bwd_kernel(const __grid_constant__ CUtensorMap mx,
+                      const __grid_constant__ CUtensorMap mdy,
+                      const __grid_constant__ CUtensorMap mw1,
+                      const __grid_constant__ CUtensorMap mw2,
+                      const __grid_constant__ CUtensorMap mxn,
+                      const __grid_constant__ CUtensorMap mdye,
+                      const __grid_constant__ CUtensorMap mh,
+                      const __grid_constant__ CUtensorMap mdg,
+                      const __grid_constant__ CUtensorMap mdx, const float* __restrict__ g2,
+                      const float* __restrict__ be2, const float* __restrict__ b1,
+                      const float* __restrict__ gate, float* __restrict__ part_db1,
+                      float* __restrict__ part_cols, int n_rows, int hidden, float eps) {
+  using L = BwdTiles<D>;
+  constexpr int S = L::S, KB = L::W1C / 16;  // k-steps of 16 in a W1 box row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* rows_full = bar;   // x and dy
+  uint64_t* again_full = bar + 1;  // x and dy again, for the LN epilogue
+  uint64_t* w1full = bar + 2;
+  uint64_t* w1empty = w1full + S;
+  uint64_t* w2full = w1empty + S;
+  uint64_t* w2empty = w2full + S;
+  float* ex = reinterpret_cast<float*>(sm + L::EX);
+  float* red = reinterpret_cast<float*>(sm + L::RED);
+  float* stats = reinterpret_cast<float*>(sm + L::STATS);
+  float* rsum = reinterpret_cast<float*>(sm + L::RSUM);
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = blockIdx.x * ROWS;
-
-  // 1. xn = LN2(x) (or x) and dy_eff = dy * gate -> shared (bf16) and
-  //    device memory
-  for (int rr = 0; rr < ROWS / 8; ++rr) {
-    const int r = warp * (ROWS / 8) + rr;
-    const int grow = row0 + r;
-    const bool ok = grow < n_rows;
-    float v[D / 32], d[D / 32];
-#pragma unroll
-    for (int i = 0; i < D / 64; ++i) {
-      float a = 0.f, b = 0.f, da = 0.f, db = 0.f;
-      if (ok) {
-        const size_t off = (size_t)grow * D + 2 * lane + 64 * i;
-        const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(x + off);
-        const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(dy + off);
-        a = __bfloat162float(p.x);
-        b = __bfloat162float(p.y);
-        da = __bfloat162float(q.x);
-        db = __bfloat162float(q.y);
-      }
-      v[2 * i] = a;
-      v[2 * i + 1] = b;
-      d[2 * i] = da;
-      d[2 * i + 1] = db;
+  // the warpgroup through a shuffle: warp-uniform to the compiler, which
+  // otherwise takes the consumers' branches for divergent paths and
+  // serialises their wgmma
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
+  const int row0 = blockIdx.x * BWD_ROWS, nb = gridDim.x;
+  const int tiles = hidden / BHT;
+  if (tid == 0) {
+    hopper::mbar_init(rows_full, 1);
+    hopper::mbar_init(again_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&w1full[s], 1);
+      hopper::mbar_init(&w1empty[s], 8);  // each consumer warp, after its dxn product
+      hopper::mbar_init(&w2full[s], 1);
+      hopper::mbar_init(&w2empty[s], 4);  // consumer 1's warps, after dh
     }
-    const float gt = ok ? (gate ? gate[grow] : 1.f) : 0.f;
-    float mean = 0.f, inv = 1.f;
-    if constexpr (LN_IN) {
-      warp_ln_stats(v, eps, mean, inv);
-      if (lane == 0) {
-        rmean[r] = mean;
-        rinv[r] = inv;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < D / 64; ++i) {
-      const int c = 2 * lane + 64 * i;
-      // without LN the bf16 input itself (exact: v came from bf16)
-      const uint32_t xn2 =
-          LN_IN ? pack_bf16x2((v[2 * i] - mean) * inv * g2[c] + be2[c],
-                              (v[2 * i + 1] - mean) * inv * g2[c + 1] + be2[c + 1])
-                : pack_bf16x2(v[2 * i], v[2 * i + 1]);
-      const uint32_t dy2 = pack_bf16x2(d[2 * i] * gt, d[2 * i + 1] * gt);
-      *reinterpret_cast<uint32_t*>(xs + r * LDX + c) = xn2;
-      *reinterpret_cast<uint32_t*>(dys + r * LDX + c) = dy2;
-      if (ok) {
-        if constexpr (LN_IN) *reinterpret_cast<uint32_t*>(xn_out + (size_t)grow * D + c) = xn2;
-        *reinterpret_cast<uint32_t*>(dye_out + (size_t)grow * D + c) = dy2;
-      }
-    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  // warp tiling: rows wr..wr+15; hidden columns wc..wc+31 of the tile for
-  // g and dh; dxn output columns oc..oc+D/2-1
-  const int wr = (warp & 3) * 16;
-  const int wc = (warp >> 2) * 32;
-  const int oc = (warp >> 2) * (D / 2);
-  float acc[D / 16][4];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int h0 = 0; h0 < hidden; h0 += HT) {
-    __syncthreads();  // xs/dys written (first pass) / previous tile consumed
-    // W1 rows h0..h0+63 of [hidden][D] -> w1s [h][d]
-    for (int i = tid; i < HT * D / 8; i += BWD_THREADS) {
-      const int n = i / (D / 8), c8 = (i % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(w1s + n * LDX + c8) =
-          *reinterpret_cast<const uint4*>(w1 + (size_t)(h0 + n) * D + c8);
-    }
-    // W2 columns h0..h0+63 of [D][hidden] -> w2s [d][h]
-    for (int i = tid; i < D * HT / 8; i += BWD_THREADS) {
-      const int n = i / (HT / 8), c8 = (i % (HT / 8)) * 8;
-      *reinterpret_cast<uint4*>(w2s + n * LDH + c8) =
-          *reinterpret_cast<const uint4*>(w2 + (size_t)n * hidden + h0 + c8);
-    }
-    __syncthreads();
-
-    float gacc[4][4], hacc[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) gacc[n][e] = hacc[n][e] = 0.f;
-#pragma unroll 2
-    for (int k0 = 0; k0 < D; k0 += 16) {
-      uint32_t a[4], ad[4];
-      load_a(a, xs, LDX, wr, k0, lane);
-      load_a(ad, dys, LDX, wr, k0, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        uint32_t b[2], bd[2];
-        load_b(b, w1s, LDX, wc + n * 8, k0, lane);      // W1 tile as [n=h][k=d]
-        mma_16816(gacc[n], a, b);
-        load_b_kn(bd, w2s, LDH, wc + n * 8, k0, lane);  // W2 tile as [k=d][n=h]
-        mma_16816(hacc[n], ad, bd);
+  if (wg == 2) {  // producer: one thread issues every load
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      hopper::mbar_arrive_expect_tx(rows_full, 2 * L::ROWS_B);
+      for (int b = 0; b < D / 64; ++b) {
+        hopper::tma_load_2d(sm + L::XN + b * L::XBLK, &mx, rows_full, 64 * b, row0);
+        hopper::tma_load_2d(sm + L::DYE + b * L::XBLK, &mdy, rows_full, 64 * b, row0);
       }
-    }
-    // h, dg (f32 -> bf16), db1 column sums over this block's rows
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int c = wc + n * 8 + 2 * t4;
-      const float bb0 = b1[h0 + c], bb1 = b1[h0 + c + 1];
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wr + g + 8 * half;
-        const float ga = gacc[n][2 * half] + bb0, gb = gacc[n][2 * half + 1] + bb1;
-        const float da = hacc[n][2 * half] * dgelu_erf(ga);
-        const float db = hacc[n][2 * half + 1] * dgelu_erf(gb);
-        s0 += da;
-        s1 += db;
-        const uint32_t dg2 = pack_bf16x2(da, db);
-        *reinterpret_cast<uint32_t*>(dgs + r * LDH + c) = dg2;
-        if (row0 + r < n_rows) {
-          const size_t off = (size_t)(row0 + r) * hidden + h0 + c;
-          *reinterpret_cast<uint32_t*>(dg_out + off) = dg2;
-          *reinterpret_cast<uint32_t*>(h_out + off) =
-              pack_bf16x2(gelu<0>(ga), gelu<0>(gb));
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % S;
+        const uint32_t ph = ((j / S) & 1) ^ 1;
+        hopper::mbar_wait(&w1empty[s], ph);
+        hopper::mbar_arrive_expect_tx(&w1full[s], L::W1_TILE);
+        uint8_t* w1t = sm + L::W1 + s * L::W1_TILE;
+        for (int b = 0; b < D / L::W1C; ++b)
+          hopper::tma_load_2d(w1t + b * L::W1BOX, &mw1, &w1full[s], b * L::W1C, j * BHT);
+        hopper::mbar_wait(&w2empty[s], ph);
+        hopper::mbar_arrive_expect_tx(&w2full[s], L::W2_TILE);
+        uint8_t* w2t = sm + L::W2 + s * L::W2_TILE;
+        for (int q = 0; q < D / W2_BOX; ++q)
+          hopper::tma_load_2d(w2t + q * W2_BOX * 64, &mw2, &w2full[s], j * BHT, q * W2_BOX);
+      }
+      if constexpr (LN_IN) {  // every slot's last tile released: x and dy again
+        for (int j = max(tiles - S, 0); j < tiles; ++j) {
+          hopper::mbar_wait(&w1empty[j % S], (j / S) & 1);
+          hopper::mbar_wait(&w2empty[j % S], (j / S) & 1);
+        }
+        hopper::mbar_arrive_expect_tx(again_full, 2 * L::ROWS_B);
+        for (int b = 0; b < D / 64; ++b) {
+          hopper::tma_load_2d(sm + L::W1 + b * L::XBLK, &mx, again_full, 64 * b, row0);
+          hopper::tma_load_2d(sm + L::W2 + b * L::XBLK, &mdy, again_full, 64 * b, row0);
         }
       }
-#pragma unroll
-      for (int o_ = 4; o_ <= 16; o_ <<= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, o_);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, o_);
-      }
-      if (g == 0) {
-        red[(warp & 3) * HT + c] = s0;
-        red[(warp & 3) * HT + c + 1] = s1;
-      }
     }
-    __syncthreads();
-    if (tid < HT)
-      part_db1[(size_t)blockIdx.x * hidden + h0 + tid] =
-          red[tid] + red[HT + tid] + red[2 * HT + tid] + red[3 * HT + tid];
-    // dxn += dg W1[tile, :]
-#pragma unroll
-    for (int k0 = 0; k0 < HT; k0 += 16) {
-      uint32_t a[4];
-      load_a(a, dgs, LDH, wr, k0, lane);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        uint32_t b[2];
-        load_b_kn(b, w1s, LDX, oc + n * 8, k0, lane);  // W1 tile as [k=h][n=d]
-        mma_16816(acc[n], a, b);
-      }
-    }
+    return;
   }
 
-  // 2. epilogue: dxn -> shared (f32), then per row the LN backward (or dx =
-  //    dxn without LN)
-  __syncthreads();  // every warp is done with w1s/w2s/xs before the aliases
+  // consumers: both on the block's 64 rows
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wt = tid % 128, warp = wt / 32, cw = tid / 32;  // cw: warp of both, 0..7
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool issuer = tid == 0;  // issues the TMA stores
+  const uint32_t sbase = hopper::smem_u32(sm);
+
+  // 1. xn = LN2(x) (or x) and dy_eff = dy * gate in place, a warp a row: lane
+  //    l holds columns 2l, 2l + 1 of each 64-column block; db2's partials
+  //    from the f32 dy_eff
+  hopper::mbar_wait(rows_full, 0);
+  float cd[D / 32];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    const int c = oc + n * 8 + 2 * t4;
-    ys[(wr + g) * LDY + c] = acc[n][0];
-    ys[(wr + g) * LDY + c + 1] = acc[n][1];
-    ys[(wr + g + 8) * LDY + c] = acc[n][2];
-    ys[(wr + g + 8) * LDY + c + 1] = acc[n][3];
-  }
-  __syncthreads();
-  float cg[D / 32], cb[D / 32], cd[D / 32];  // column sums: dgamma, dbeta, db2
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) cg[i] = cb[i] = cd[i] = 0.f;
-  for (int rr = 0; rr < ROWS / 8; ++rr) {
-    const int r = warp * (ROWS / 8) + rr;
-    const int grow = row0 + r;
-    if (grow >= n_rows) break;  // warp-uniform
-    const float gt = gate ? gate[grow] : 1.f;
-    if constexpr (!LN_IN) {
+  for (int i = 0; i < D / 32; ++i) cd[i] = 0.f;
+  for (int rr = 0; rr < BWD_ROWS / 8; ++rr) {
+    const int r = (BWD_ROWS / 8) * cw + rr, grow = row0 + r;
+    const int off = r * 128 + (((lane >> 2) ^ (r & 7)) << 4) + (lane & 3) * 4;
+    if constexpr (LN_IN) {
+      uint8_t* xr = sm + L::XN + off;
+      float v[D / 32];
 #pragma unroll
       for (int i = 0; i < D / 64; ++i) {
-        const int c = 2 * lane + 64 * i;
-        const size_t off = (size_t)grow * D + c;
-        const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(dy + off);
-        cd[2 * i] += __bfloat162float(q.x) * gt;
-        cd[2 * i + 1] += __bfloat162float(q.y) * gt;
-        *reinterpret_cast<uint32_t*>(dx + off) =
-            pack_bf16x2(ys[r * LDY + c], ys[r * LDY + c + 1]);
+        const float2 p = bf16x2_at(xr + i * L::XBLK);
+        v[2 * i] = p.x;
+        v[2 * i + 1] = p.y;
       }
-      continue;
+      float mean, inv;
+      warp_ln_stats(v, eps, mean, inv);
+#pragma unroll
+      for (int i = 0; i < D / 64; ++i) {
+        const int c = 64 * i + 2 * lane;
+        *reinterpret_cast<uint32_t*>(xr + i * L::XBLK) =
+            pack_bf16x2((v[2 * i] - mean) * inv * g2[c] + be2[c],
+                        (v[2 * i + 1] - mean) * inv * g2[c + 1] + be2[c + 1]);
+      }
+      if (lane == 0) {
+        stats[r] = mean;
+        stats[BWD_ROWS + r] = inv;
+      }
     }
-    const float mean = rmean[r], inv = rinv[r];
-    float xh[D / 32], dxn[D / 32], d[D / 32];
-    float s1 = 0.f, s2 = 0.f;
+    const float gt = grow < n_rows ? (gate != nullptr ? gate[grow] : 1.f) : 0.f;
+    uint8_t* dr = sm + L::DYE + off;
 #pragma unroll
     for (int i = 0; i < D / 64; ++i) {
-      const int c = 2 * lane + 64 * i;
-      const size_t off = (size_t)grow * D + c;
-      const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(x + off);
-      const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(dy + off);
-      xh[2 * i] = (__bfloat162float(p.x) - mean) * inv;
-      xh[2 * i + 1] = (__bfloat162float(p.y) - mean) * inv;
-      d[2 * i] = __bfloat162float(q.x);
-      d[2 * i + 1] = __bfloat162float(q.y);
-      dxn[2 * i] = ys[r * LDY + c];
-      dxn[2 * i + 1] = ys[r * LDY + c + 1];
-    }
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      const int c = 2 * lane + 64 * (i >> 1) + (i & 1);
-      cg[i] += dxn[i] * xh[i];
-      cb[i] += dxn[i];
-      cd[i] += d[i] * gt;
-      dxn[i] *= g2[c];  // dyg
-      s1 += dxn[i];
-      s2 += dxn[i] * xh[i];
-    }
-    const float m1 = warp_sum(s1) * (1.f / D), m2 = warp_sum(s2) * (1.f / D);
-#pragma unroll
-    for (int i = 0; i < D / 64; ++i) {
-      const int c = 2 * lane + 64 * i;
-      *reinterpret_cast<uint32_t*>(dx + (size_t)grow * D + c) = pack_bf16x2(
-          inv * (dxn[2 * i] - m1 - xh[2 * i] * m2) + d[2 * i],
-          inv * (dxn[2 * i + 1] - m1 - xh[2 * i + 1] * m2) + d[2 * i + 1]);
+      const float2 p = bf16x2_at(dr + i * L::XBLK);
+      const float a = p.x * gt, b = p.y * gt;
+      cd[2 * i] += a;
+      cd[2 * i + 1] += b;
+      *reinterpret_cast<uint32_t*>(dr + i * L::XBLK) = pack_bf16x2(a, b);
     }
   }
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) {
-    const int c = 2 * lane + 64 * (i >> 1) + (i & 1);
-    cols[(0 * 8 + warp) * D + c] = cg[i];
-    cols[(1 * 8 + warp) * D + c] = cb[i];
-    cols[(2 * 8 + warp) * D + c] = cd[i];
+  hopper::fence_proxy_async();  // the wgmma reads and TMA stores are async-proxy reads
+  hopper::named_sync(3, 256);
+  if (issuer) {  // xn and dy_eff for the dW products
+    for (int b = 0; b < D / 64; ++b) {
+      if constexpr (LN_IN) hopper::tma_store_2d(&mxn, sm + L::XN + b * L::XBLK, 64 * b, row0);
+      hopper::tma_store_2d(&mdye, sm + L::DYE + b * L::XBLK, 64 * b, row0);
+    }
+    hopper::bulk_commit();
   }
-  __syncthreads();
-  const int nb = gridDim.x;
-  for (int i = (LN_IN ? 0 : 2 * D) + tid; i < 3 * D; i += BWD_THREADS) {
-    const int which = i / D, c = i % D;
+#pragma unroll
+  for (int i = 0; i < D / 64; ++i) {  // db2: the warps' sums, added in warp order
+    ex[cw * D + 64 * i + 2 * lane] = cd[2 * i];
+    ex[cw * D + 64 * i + 2 * lane + 1] = cd[2 * i + 1];
+  }
+  hopper::named_sync(3, 256);
+  for (int c = tid; c < D; c += 256) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < 8; ++w) s += cols[(which * 8 + w) * D + c];
-    part_cols[((size_t)which * nb + blockIdx.x) * D + c] = s;
+    for (int w = 0; w < 8; ++w) s += ex[w * D + c];
+    part_cols[((size_t)2 * nb + blockIdx.x) * D + c] = s;
+  }
+  hopper::named_sync(3, 256);  // the exchange tiles are free again
+
+  // 2. the hidden tiles
+  float acc[L::NH / 2];  // dxn: row 16 warp + g (+8), column NH wg + 8n + 2t4 (+1)
+#pragma unroll
+  for (int i = 0; i < L::NH / 2; ++i) acc[i] = 0.f;
+  float pacc[BHT / 2];  // g (consumer 0) or dh (consumer 1) of one tile
+
+  // Descriptors come from the tiles' shared addresses made opaque in each
+  // tile: else the compiler keeps every k-step's descriptor live across the
+  // loop.
+  auto product = [&](int j) {
+    const int s = j % S;
+    if (wg == 0) {  // g = xn W1[tile]^T
+      uint32_t a0 = sbase + L::XN, b0 = sbase + L::W1 + s * L::W1_TILE;
+      asm volatile("" : "+r"(a0), "+r"(b0));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da =
+            hopper::desc_kmajor_at<128>(a0 + (kk >> 2) * L::XBLK + (kk & 3) * 32);
+        const uint64_t db =
+            hopper::desc_kmajor_at<L::W1RB>(b0 + (kk / KB) * L::W1BOX + (kk % KB) * 32);
+        hopper::wgmma_sst<BHT, 0, 0>(pacc, da, db, kk > 0);
+      }
+    } else {  // dh = dy_eff W2[:, tile]
+      uint32_t a0 = sbase + L::DYE, b0 = sbase + L::W2 + s * L::W2_TILE;
+      asm volatile("" : "+r"(a0), "+r"(b0));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da =
+            hopper::desc_kmajor_at<128>(a0 + (kk >> 2) * L::XBLK + (kk & 3) * 32);
+        const uint64_t db = hopper::desc_mnmajor_at<64>(b0 + kk * 16 * 64, 8 * 64);
+        hopper::wgmma_sst<BHT, 0, 1>(pacc, da, db, kk > 0);
+      }
+    }
+  };
+  auto dxn = [&](int j) {  // acc += dg W1[tile, this consumer's half]
+    uint32_t a0 = sbase + L::DG, b0 = sbase + L::W1 + (j % S) * L::W1_TILE + 3 * wg * L::W1BOX;
+    asm volatile("" : "+r"(a0), "+r"(b0));
+#pragma unroll
+    for (int kk = 0; kk < BHT / 16; ++kk) {
+      const uint64_t da = hopper::desc_kmajor_at<64>(a0 + kk * 32);
+      const uint64_t db = hopper::desc_mnmajor_at<L::W1RB>(b0 + kk * 16 * L::W1RB, L::W1BOX);
+      hopper::wgmma_sst<L::NH, 0, 1>(acc, da, db, 1);
+    }
+  };
+  // b1 at this thread's columns of tile j (consumer 0; consumer 1's dh
+  // takes no bias), loaded ahead of the product that needs it
+  float2 bias[BHT / 8];
+  auto load_bias = [&](int j) {
+#pragma unroll
+    for (int n = 0; n < BHT / 8; ++n)
+      bias[n] = wg == 0 ? *reinterpret_cast<const float2*>(b1 + j * BHT + 8 * n + 2 * t4)
+                        : make_float2(0.f, 0.f);
+  };
+  auto exchange = [&]() {  // g + b1 or dh, f32, to this consumer's exchange tile
+    float* e = ex + wg * (L::EX_B / 4);
+    const int ra = 16 * warp + g;
+#pragma unroll
+    for (int n = 0; n < BHT / 8; ++n) {
+      const int c = 8 * n + 2 * t4;
+      *reinterpret_cast<float2*>(e + ra * L::EX_LD + c) =
+          make_float2(pacc[4 * n] + bias[n].x, pacc[4 * n + 1] + bias[n].y);
+      *reinterpret_cast<float2*>(e + (ra + 8) * L::EX_LD + c) =
+          make_float2(pacc[4 * n + 2] + bias[n].x, pacc[4 * n + 3] + bias[n].y);
+    }
+  };
+  // h = GELU(t), dg = dh * GELU'(t) of 8 columns of one row (t = g + b1),
+  // rounded into the h and dg tiles; db1's partials from the f32 dg
+  auto elementwise = [&](int j) {
+    const int r = wt >> 1, c0 = 16 * wg + 8 * (wt & 1);
+    const float* te = ex + r * L::EX_LD + c0;
+    const float* de = te + L::EX_B / 4;
+    const float4 t0 = *reinterpret_cast<const float4*>(te);
+    const float4 t1 = *reinterpret_cast<const float4*>(te + 4);
+    const float4 d0 = *reinterpret_cast<const float4*>(de);
+    const float4 d1 = *reinterpret_cast<const float4*>(de + 4);
+    const float t[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+    float dg[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    uint32_t hp[4], gp[4];
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      float hv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = t[i + e], cdf = 0.5f * (1.f + erff(v * 0.70710678118654752f));
+        hv[e] = v * cdf;
+        dg[i + e] *= cdf + v * 0.3989422804014327f * expf(-0.5f * v * v);
+      }
+      hp[i / 2] = pack_bf16x2(hv[0], hv[1]);
+      gp[i / 2] = pack_bf16x2(dg[i], dg[i + 1]);
+    }
+    *reinterpret_cast<uint4*>(sm + L::H + swz_row<64>(r, c0)) =
+        make_uint4(hp[0], hp[1], hp[2], hp[3]);
+    *reinterpret_cast<uint4*>(sm + L::DG + swz_row<64>(r, c0)) =
+        make_uint4(gp[0], gp[1], gp[2], gp[3]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)  // the warp's 16 rows (lanes of one parity)
+#pragma unroll
+      for (int o = 2; o <= 16; o <<= 1) dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], o);
+    if (lane < 2) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) red[(wg * 4 + warp) * 16 + 8 * lane + i] = dg[i];
+    }
+    hopper::named_sync(1 + wg, 128);
+    if (wt < 16) {
+      const float* rw = red + wg * 4 * 16 + wt;
+      part_db1[(size_t)blockIdx.x * hidden + j * BHT + 16 * wg + wt] =
+          ((rw[0] + rw[16]) + rw[32]) + rw[48];
+    }
+  };
+  auto release = [&](uint64_t* b) {
+    if (lane == 0) hopper::mbar_arrive(b);
+  };
+  auto landed = [&](uint64_t* full, int j) { hopper::mbar_wait(&full[j % S], (j / S) & 1); };
+
+  // tile j: its GELU, then its dxn product and (with `more`) the next tile's
+  // g / dh product back to back. The next tile's W1 slot is freed only by
+  // dxn of tile j - 1, so the GELU's time is the slack its TMA load needs
+  // (issued before the GELU, g waited out every load; dh alone before the
+  // GELU was 12 % slower). The last tile is peeled: ptxas serialises wgmma
+  // whose waits sit under a condition.
+  auto step = [&](int j, auto more) {
+    constexpr bool MORE = decltype(more)::value;
+    // the exchange tiles hold tile j; both consumers' dxn of tile j - 1 and
+    // the TMA stores of its dg and h tiles are done with those tiles
+    hopper::named_sync(3, 256);
+    if constexpr (MORE) load_bias(j + 1);
+    elementwise(j);
+    hopper::fence_proxy_async();
+    hopper::named_sync(4, 256);  // the dg and h tiles are whole
+    if (issuer) {
+      hopper::tma_store_2d(&mh, sm + L::H, j * BHT, row0);
+      hopper::tma_store_2d(&mdg, sm + L::DG, j * BHT, row0);
+      hopper::bulk_commit();
+    }
+    if (wg == 1) landed(w1full, j);
+    hopper::wgmma_fence();
+    dxn(j);
+    hopper::wgmma_commit();
+    if constexpr (MORE) {
+      landed(wg == 0 ? w1full : w2full, j + 1);
+      product(j + 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // dxn of tile j: its W1 slot is free
+      release(&w1empty[j % S]);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(pacc);
+      if (wg == 1) release(&w2empty[(j + 1) % S]);
+      exchange();
+    } else {
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(&w1empty[j % S]);
+    }
+    if (issuer) hopper::bulk_wait_read();
+  };
+
+  load_bias(0);
+  landed(wg == 0 ? w1full : w2full, 0);
+  hopper::wgmma_fence();
+  product(0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(pacc);
+  if (wg == 1) release(&w2empty[0]);
+  exchange();
+  for (int j = 0; j + 1 < tiles; ++j) step(j, std::true_type{});
+  step(tiles - 1, std::false_type{});
+
+  // 3. epilogue: rows la, lb = la + 8 of this thread's values; dx over xn
+  //    (the issuer's stores have read it), stored by TMA
+  const int la = 16 * warp + g, lb = la + 8;
+  const int cbase = wg * L::NH;
+  uint8_t* dxs = sm + L::XN;
+  if constexpr (LN_IN) {
+    hopper::mbar_wait(again_full, 0);
+    const uint8_t* xs = sm + L::W1;
+    const uint8_t* dys = sm + L::W2;
+    const float ma = stats[la], ia = stats[BWD_ROWS + la];
+    const float mb = stats[lb], ib = stats[BWD_ROWS + lb];
+    // this consumer's half of the row sums of dyg = dxn gamma and dyg xhat
+    // The rows and the gamma pointer are made opaque to the compiler at each
+    // pass (the pointer every four column groups): else it keeps the
+    // passes' shared addresses or loads ahead in registers the accumulator
+    // needs (a 300-byte spill at D = 384).
+    const float* gp = g2;
+    auto opaque = [&](auto i) {
+      if constexpr (decltype(i)::value % 4 == 0) asm volatile("" : "+l"(gp));
+    };
+    int ra_ = la, rb_ = lb;
+    asm volatile("" : "+r"(ra_), "+r"(rb_));
+    float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
+    static_for<L::NH / 8>([&](auto i) {
+      constexpr int n = decltype(i)::value;
+      const int c = cbase + 8 * n + 2 * t4;
+      opaque(i);
+      const float2 gg = make_float2(gp[c], gp[c + 1]);
+      const float2 xa = bf16x2_at(xs + swz<BWD_ROWS>(ra_, c));
+      const float2 xb = bf16x2_at(xs + swz<BWD_ROWS>(rb_, c));
+      const float ya0 = acc[4 * n] * gg.x, ya1 = acc[4 * n + 1] * gg.y;
+      const float yb0 = acc[4 * n + 2] * gg.x, yb1 = acc[4 * n + 3] * gg.y;
+      s1a += ya0 + ya1;
+      s1b += yb0 + yb1;
+      s2a += ya0 * ((xa.x - ma) * ia) + ya1 * ((xa.y - ma) * ia);
+      s2b += yb0 * ((xb.x - mb) * ib) + yb1 * ((xb.y - mb) * ib);
+    });
+    s1a = quad_sum(s1a);
+    s2a = quad_sum(s2a);
+    s1b = quad_sum(s1b);
+    s2b = quad_sum(s2b);
+    if (t4 == 0) {
+      rsum[(wg * BWD_ROWS + la) * 2] = s1a;
+      rsum[(wg * BWD_ROWS + la) * 2 + 1] = s2a;
+      rsum[(wg * BWD_ROWS + lb) * 2] = s1b;
+      rsum[(wg * BWD_ROWS + lb) * 2 + 1] = s2b;
+    }
+    hopper::named_sync(3, 256);
+    const float m1a = (rsum[la * 2] + rsum[(BWD_ROWS + la) * 2]) * (1.f / D);
+    const float m2a = (rsum[la * 2 + 1] + rsum[(BWD_ROWS + la) * 2 + 1]) * (1.f / D);
+    const float m1b = (rsum[lb * 2] + rsum[(BWD_ROWS + lb) * 2]) * (1.f / D);
+    const float m2b = (rsum[lb * 2 + 1] + rsum[(BWD_ROWS + lb) * 2 + 1]) * (1.f / D);
+    float* cs = ex + (wg * 4 + warp) * L::NH * 2;  // [NH][2]: dgamma, dbeta of the warp
+    asm volatile("" : "+r"(ra_), "+r"(rb_));
+    static_for<L::NH / 8>([&](auto i) {
+      constexpr int n = decltype(i)::value;
+      const int c = cbase + 8 * n + 2 * t4;
+      opaque(i);
+      const float2 gg = make_float2(gp[c], gp[c + 1]);
+      const float2 xa = bf16x2_at(xs + swz<BWD_ROWS>(ra_, c));
+      const float2 xb = bf16x2_at(xs + swz<BWD_ROWS>(rb_, c));
+      const float2 da = bf16x2_at(dys + swz<BWD_ROWS>(ra_, c));
+      const float2 db = bf16x2_at(dys + swz<BWD_ROWS>(rb_, c));
+      const float ha0 = (xa.x - ma) * ia, ha1 = (xa.y - ma) * ia;
+      const float hb0 = (xb.x - mb) * ib, hb1 = (xb.y - mb) * ib;
+      *reinterpret_cast<uint32_t*>(dxs + swz<BWD_ROWS>(ra_, c)) =
+          pack_bf16x2(ia * (acc[4 * n] * gg.x - m1a - ha0 * m2a) + da.x,
+                      ia * (acc[4 * n + 1] * gg.y - m1a - ha1 * m2a) + da.y);
+      *reinterpret_cast<uint32_t*>(dxs + swz<BWD_ROWS>(rb_, c)) =
+          pack_bf16x2(ib * (acc[4 * n + 2] * gg.x - m1b - hb0 * m2b) + db.x,
+                      ib * (acc[4 * n + 3] * gg.y - m1b - hb1 * m2b) + db.y);
+      float cg0 = acc[4 * n] * ha0 + acc[4 * n + 2] * hb0;
+      float cg1 = acc[4 * n + 1] * ha1 + acc[4 * n + 3] * hb1;
+      float cb0 = acc[4 * n] + acc[4 * n + 2], cb1 = acc[4 * n + 1] + acc[4 * n + 3];
+#pragma unroll
+      for (int o = 4; o <= 16; o <<= 1) {  // the warp's 16 rows
+        cg0 += __shfl_xor_sync(0xffffffffu, cg0, o);
+        cg1 += __shfl_xor_sync(0xffffffffu, cg1, o);
+        cb0 += __shfl_xor_sync(0xffffffffu, cb0, o);
+        cb1 += __shfl_xor_sync(0xffffffffu, cb1, o);
+      }
+      if (g == 0)
+        *reinterpret_cast<float4*>(cs + (8 * n + 2 * t4) * 2) = make_float4(cg0, cb0, cg1, cb1);
+    });
+    hopper::fence_proxy_async();
+    hopper::named_sync(3, 256);
+    if (issuer) {
+      for (int b = 0; b < D / 64; ++b) hopper::tma_store_2d(&mdx, dxs + b * L::XBLK, 64 * b, row0);
+      hopper::bulk_commit();
+    }
+    for (int c = tid; c < D; c += 256) {  // the warps' column sums, in warp order
+      const float* w0 = ex + (c / L::NH) * 4 * L::NH * 2 + (c % L::NH) * 2;
+      float sg = 0.f, sb = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        sg += w0[w * L::NH * 2];
+        sb += w0[w * L::NH * 2 + 1];
+      }
+      part_cols[(size_t)blockIdx.x * D + c] = sg;
+      part_cols[((size_t)nb + blockIdx.x) * D + c] = sb;
+    }
+  } else {
+    static_for<L::NH / 8>([&](auto i) {
+      constexpr int n = decltype(i)::value;
+      const int c = cbase + 8 * n + 2 * t4;
+      *reinterpret_cast<uint32_t*>(dxs + swz<BWD_ROWS>(la, c)) =
+          pack_bf16x2(acc[4 * n], acc[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(dxs + swz<BWD_ROWS>(lb, c)) =
+          pack_bf16x2(acc[4 * n + 2], acc[4 * n + 3]);
+    });
+    hopper::fence_proxy_async();
+    hopper::named_sync(3, 256);
+    if (issuer) {
+      for (int b = 0; b < D / 64; ++b) hopper::tma_store_2d(&mdx, dxs + b * L::XBLK, 64 * b, row0);
+      hopper::bulk_commit();
+    }
+  }
+  if (issuer) hopper::bulk_wait_read();
+}
+
+// The dW products: C = P^T Q over rows, P [R, M] and Q [R, N] row-major bf16
+// through maps of 64 x 64 boxes; product 1 (dW1 = dg^T xn: M = hidden, N = D)
+// takes the first tiles of the grid, product 2 (dW2 = dy_eff^T h: M = D, N =
+// hidden) the rest, in DW_M x DW_N output tiles (edge tiles read TMA's zeros
+// and store only what lies inside). Block b computes output tile b / splits
+// over the rows of split b % splits (rows_per_split, a multiple of 64; rows
+// past R land as zeros) into part[split] = [M1 * N1 | M2 * N2] f32. One block
+// an SM (two would leave ptxas 80 registers a thread, which the products
+// cannot take).
+constexpr int DW_THREADS = 384, DW_M = 128, DW_N = 192, DW_K = 64, DW_S = 4;
+constexpr int DW_A = DW_M * DW_K * 2, DW_B = DW_N * DW_K * 2;  // the P and Q chunks
+constexpr int DW_STAGE = DW_A + DW_B;
+constexpr int DW_BYTES = DW_S * DW_STAGE + 2 * DW_S * 8 + 1024;
+constexpr int BOX = 64 * 64 * 2;  // one 64 x 64 box
+
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    dw_gemm_kernel(const __grid_constant__ CUtensorMap mp1, const __grid_constant__ CUtensorMap mq1,
+                   const __grid_constant__ CUtensorMap mp2, const __grid_constant__ CUtensorMap mq2,
+                   float* __restrict__ part, int m1, int n1, int m2, int n2, int n_rows,
+                   int rows_per_split, int splits) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + DW_S * DW_STAGE);
+  uint64_t* empty = full + DW_S;
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
+  const int split = blockIdx.x % splits, tile = blockIdx.x / splits;
+  const int tiles1 = (m1 + DW_M - 1) / DW_M * ((n1 + DW_N - 1) / DW_N);
+  const bool second = tile >= tiles1;
+  const int m = second ? m2 : m1, n = second ? n2 : n1, t = second ? tile - tiles1 : tile;
+  const int tn = (n + DW_N - 1) / DW_N;
+  const int m0 = t / tn * DW_M, n0 = t % tn * DW_N;
+  const int r0 = split * rows_per_split;
+  const int chunks = (max(0, min(rows_per_split, n_rows - r0)) + DW_K - 1) / DW_K;
+  if (tid == 0) {
+    for (int s = 0; s < DW_S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      const CUtensorMap* mp = second ? &mp2 : &mp1;
+      const CUtensorMap* mq = second ? &mq2 : &mq1;
+      for (int c = 0; c < chunks; ++c) {
+        const int s = c % DW_S, r = r0 + c * DW_K;
+        hopper::mbar_wait(&empty[s], ((c / DW_S) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], DW_STAGE);
+        uint8_t* st = sm + s * DW_STAGE;
+        for (int b = 0; b < DW_M / 64; ++b)
+          hopper::tma_load_2d(st + b * BOX, mp, &full[s], m0 + 64 * b, r);
+        for (int b = 0; b < DW_N / 64; ++b)
+          hopper::tma_load_2d(st + DW_A + b * BOX, mq, &full[s], n0 + 64 * b, r);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int warp = (tid % 128) / 32, g = lane >> 2, t4 = lane & 3;
+  float acc[DW_N / 2];
+#pragma unroll
+  for (int i = 0; i < DW_N / 2; ++i) acc[i] = 0.f;
+  const uint32_t sbase = hopper::smem_u32(sm);
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % DW_S;
+    hopper::mbar_wait(&full[s], (c / DW_S) & 1);
+    // A: this consumer's 64 columns of the P chunk (one box); B: the Q
+    // chunk's DW_N columns, boxes BOX bytes apart. Both MN-major: K runs
+    // down the chunk's rows.
+    uint32_t a0 = sbase + s * DW_STAGE + wg * BOX, b0 = sbase + s * DW_STAGE + DW_A;
+    asm volatile("" : "+r"(a0), "+r"(b0));
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW_K / 16; ++kk) {
+      const uint64_t da = hopper::desc_mnmajor_at<128>(a0 + kk * 16 * 128, BOX);
+      const uint64_t db = hopper::desc_mnmajor_at<128>(b0 + kk * 16 * 128, BOX);
+      hopper::wgmma_sst<DW_N, 1, 1>(acc, da, db, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // the previous chunk's products: its slot is free
+    if (c > 0 && lane == 0) hopper::mbar_arrive(&empty[(c - 1) % DW_S]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  float* out = part + (size_t)split * ((size_t)m1 * n1 + (size_t)m2 * n2) +
+               (second ? (size_t)m1 * n1 : 0);
+  const int ra = m0 + 64 * wg + 16 * warp + g, rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < DW_N / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t4;
+    if (col < n) {
+      if (ra < m) *reinterpret_cast<float2*>(out + (size_t)ra * n + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (rb < m) *reinterpret_cast<float2*>(out + (size_t)rb * n + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
   }
 }
 
-// Both backwards: the row kernel, the column sums, then dW1 = dg^T xn (xn is
-// x itself without LN) and dW2 = dy_eff^T h.
+// Column sums of block partials, up to four (part [n_parts][width] -> out
+// [width]; a null out is skipped), blockIdx.y the one: 32 columns a block,
+// its eight warps take every eighth part in order and their sums are added
+// in warp order (deterministic).
+struct ColSums {
+  const float* part[4];
+  float* out[4];
+  int width[4];
+};
+
+__global__ void __launch_bounds__(256) col_sums_kernel(ColSums a, int n_parts) {
+  __shared__ float s[8][32];
+  const int y = blockIdx.y, lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int width = a.width[y], c = blockIdx.x * 32 + lane;
+  if (a.out[y] == nullptr || blockIdx.x * 32 >= width) return;  // the whole block
+  float v = 0.f;
+  if (c < width)
+    for (int p = w; p < n_parts; p += 8) v += a.part[y][(size_t)p * width + c];
+  s[w][lane] = v;
+  __syncthreads();
+  if (w == 0 && c < width) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t += s[i][lane];
+    a.out[y][c] = t;
+  }
+}
+
+// dW1 and dW2 from the dw_gemm_kernel's split partials, splits in order.
+__global__ void __launch_bounds__(256)
+    split_sums_kernel(const float4* __restrict__ part, int splits, int n1, int n,
+                      float4* __restrict__ out1, float4* __restrict__ out2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float4 s = part[i];
+  for (int p = 1; p < splits; ++p) {
+    const float4 v = part[(size_t)p * n + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  if (i < n1)
+    out1[i] = s;
+  else
+    out2[i - n1] = s;
+}
+
+template <typename K>
+int raise_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Both backwards: the row kernel, the block partials' sums, then dW1 = dg^T
+// xn (xn is x itself without LN) and dW2 = dy_eff^T h, and their sums.
 template <int D, bool LN_IN>
 int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, const void* b1,
             const void* w2, const void* gate, const void* dy, void* dx, void* dgamma,
             void* dbeta, void* dw1, void* db1, void* dw2, void* db2, void* xn_ws,
             void* dye_ws, void* h_ws, void* dg_ws, void* part, int n_rows, int hidden,
             float eps, int splits, void* stream) {
+  using L = BwdTiles<D>;
   if (n_rows <= 0) return (int)cudaGetLastError();
+  if (hidden % BHT != 0 || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  constexpr size_t smem_bytes = BwdSmem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_bwd_rows_kernel<D, LN_IN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int nb = (n_rows + ROWS - 1) / ROWS;
+  const void* xn = LN_IN ? xn_ws : x;
+  CUtensorMap mx, mdy, mw1, mw2, mxn, mdye, mh, mdg, mdx;
+  int err;
+  if ((err = hopper::encode_2d(&mx, x, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mdy, dy, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mw1, w1, hidden, D, BHT, L::W1C)) ||
+      (err = hopper::encode_2d(&mw2, w2, D, hidden, W2_BOX, BHT)) ||
+      (err = hopper::encode_2d(&mxn, xn, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mdye, dye_ws, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mh, h_ws, n_rows, hidden, 64, BHT)) ||
+      (err = hopper::encode_2d(&mdg, dg_ws, n_rows, hidden, 64, BHT)) ||
+      (err = hopper::encode_2d(&mdx, dx, n_rows, D, 64, 64)))
+    return err;
+  static bool ok = false;  // the shared-memory limits are raised once
+  if (!ok) {
+    if ((err = raise_smem(ln_mlp_bwd_kernel<D, LN_IN>, L::BYTES)) ||
+        (err = raise_smem(dw_gemm_kernel, DW_BYTES)))
+      return err;
+    ok = true;
+  }
+  const int nb = (n_rows + BWD_ROWS - 1) / BWD_ROWS;
   float* p_db1 = (float*)part;
   float* p_cols = p_db1 + (size_t)nb * hidden;  // [3][nb][D]
-  ln_mlp_bwd_rows_kernel<D, LN_IN><<<nb, BWD_THREADS, smem_bytes, s>>>(
-      (const bf16*)x, (const float*)g2, (const float*)be2, (const bf16*)w1,
-      (const float*)b1, (const bf16*)w2, (const float*)gate, (const bf16*)dy, (bf16*)dx,
-      (bf16*)xn_ws, (bf16*)dye_ws, (bf16*)h_ws, (bf16*)dg_ws, p_db1, p_cols, n_rows,
-      hidden, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials(p_db1, nb, hidden, (float*)db1, s);
-  if (LN_IN) {
-    sum_partials(p_cols, nb, D, (float*)dgamma, s);
-    sum_partials(p_cols + (size_t)nb * D, nb, D, (float*)dbeta, s);
-  }
-  sum_partials(p_cols + (size_t)2 * nb * D, nb, D, (float*)db2, s);
-  int e = gemm_at_b((const bf16*)dg_ws, (const bf16*)(LN_IN ? xn_ws : x), (float*)part,
-                    (float*)dw1, n_rows, hidden, D, splits, s);
-  if (e) return e;
-  return gemm_at_b((const bf16*)dye_ws, (const bf16*)h_ws, (float*)part, (float*)dw2,
-                   n_rows, D, hidden, splits, s);
+  ln_mlp_bwd_kernel<D, LN_IN><<<nb, BWD_THREADS, L::BYTES, s>>>(
+      mx, mdy, mw1, mw2, mxn, mdye, mh, mdg, mdx, (const float*)g2, (const float*)be2,
+      (const float*)b1, (const float*)gate, p_db1, p_cols, n_rows, hidden, eps);
+  if ((err = (int)cudaGetLastError())) return err;
+  ColSums cs = {{p_db1, p_cols, p_cols + (size_t)nb * D, p_cols + (size_t)2 * nb * D},
+                {(float*)db1, LN_IN ? (float*)dgamma : nullptr, LN_IN ? (float*)dbeta : nullptr,
+                 (float*)db2},
+                {hidden, D, D, D}};
+  col_sums_kernel<<<dim3((std::max(hidden, D) + 31) / 32, 4), 256, 0, s>>>(cs, nb);
+  if ((err = (int)cudaGetLastError())) return err;
+
+  CUtensorMap mp1, mq1, mp2, mq2;
+  if ((err = hopper::encode_2d(&mp1, dg_ws, n_rows, hidden, 64, 64)) ||
+      (err = hopper::encode_2d(&mq1, xn, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mp2, dye_ws, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mq2, h_ws, n_rows, hidden, 64, 64)))
+    return err;
+  const int tiles = (hidden + DW_M - 1) / DW_M * ((D + DW_N - 1) / DW_N) +
+                    (D + DW_M - 1) / DW_M * ((hidden + DW_N - 1) / DW_N);
+  const int per = ((n_rows + DW_K - 1) / DW_K + splits - 1) / splits * DW_K;
+  dw_gemm_kernel<<<tiles * splits, DW_THREADS, DW_BYTES, s>>>(
+      mp1, mq1, mp2, mq2, (float*)part, hidden, D, D, hidden, n_rows, per, splits);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int n4 = 2 * hidden * D / 4;
+  split_sums_kernel<<<(n4 + 255) / 256, 256, 0, s>>>((const float4*)part, splits,
+                                                     hidden * D / 4, n4, (float4*)dw1,
+                                                     (float4*)dw2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -923,7 +1336,9 @@ int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, cons
 // [n_rows, d]; dgamma, dbeta, db2 f32 [d]; db1 f32 [hidden]; dw1 f32
 // [hidden, d]; dw2 f32 [d, hidden]. Workspaces: xn_ws, dye_ws bf16
 // [n_rows, d]; h_ws, dg_ws bf16 [n_rows, hidden]; part f32 of
-// max(splits * hidden * d, ceil(n_rows / 64) * (hidden + 3 * d)).
+// max(splits * 2 * hidden * d, ceil(n_rows / 64) * (hidden + 3 * d)).
+// splits: the row splits of the dW products (ln_mlp_bwd_splits in
+// ops/fused_ln_mlp.py).
 extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* be2,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* gate, const void* dy, void* dx,

@@ -240,6 +240,18 @@ __device__ __forceinline__ uint64_t desc_kmajor_at(uint32_t addr) {
   return hi | ((addr & 0x3FFFF) >> 4);
 }
 
+// Descriptor of an MN-major tile at shared address addr (k-step 0) whose M or
+// N extent spans several ROW_BYTES-wide column boxes, lbo bytes apart (the
+// leading offset of an MN-major layout); 8-row groups of K are 8 * ROW_BYTES
+// apart. A 16-row step of K moves addr by 16 * ROW_BYTES.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t desc_mnmajor_at(uint32_t addr, uint32_t lbo) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "swizzle width");
+  constexpr uint64_t hi =
+      ((uint64_t)(ROW_BYTES == 128 ? 1 : 2) << 62) | ((uint64_t)((8 * ROW_BYTES) >> 4) << 32);
+  return hi | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) | ((addr & 0x3FFFF) >> 4);
+}
+
 // Descriptor of a K-major tile (contraction along the row), k-step kk of 16.
 template <int ROW_BYTES>
 __device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk) {
@@ -407,6 +419,66 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a
       IBK_F8(0), IBK_F8(8), IBK_F8(16), IBK_F8(24), IBK_F8(32), IBK_F8(40), IBK_F8(48),
       IBK_F8(56), IBK_F8(64), IBK_F8(72), IBK_F8(80), IBK_F8(88)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B from shared memory; TA / TB
+// 1 reads A / B MN-major (the contraction runs across the tile's rows: a
+// box of a row-major matrix read transposed), 0 K-major (accumulator layout
+// as wgmma_ss_n128's).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32t(float (&d)[16], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : IBK_F8(0), IBK_F8(8)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n96t(float (&d)[48], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : IBK_F8(0), IBK_F8(8), IBK_F8(16), IBK_F8(24), IBK_F8(32), IBK_F8(40)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n192t(float (&d)[96], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : IBK_F8(0), IBK_F8(8), IBK_F8(16), IBK_F8(24), IBK_F8(32), IBK_F8(40), IBK_F8(48), IBK_F8(56), IBK_F8(64), IBK_F8(72), IBK_F8(80), IBK_F8(88)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// The wgmma_ss_n*t of width N.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_sst(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  static_assert(N == 32 || N == 96 || N == 192, "wgmma N");
+  if constexpr (N == 32)
+    wgmma_ss_n32t<TA, TB>(d, da, db, accumulate);
+  else if constexpr (N == 96)
+    wgmma_ss_n96t<TA, TB>(d, da, db, accumulate);
+  else
+    wgmma_ss_n192t<TA, TB>(d, da, db, accumulate);
 }
 
 #undef IBK_F8

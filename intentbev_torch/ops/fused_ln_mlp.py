@@ -199,7 +199,29 @@ def fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate=None, eps: float = 1
     return y
 
 
-BWD_SPLITS = 8  # row splits of the dW products (split-K partials)
+DW_TILE = (128, 192)  # output tile (M, N) of the backward's dW products
+
+
+def ln_mlp_bwd_splits(n: int, d: int, hidden: int, device) -> int:
+    """Row splits of the backward's dW products (``dw_gemm_kernel``: dW1
+    [hidden, d] and dW2 [d, hidden] in 128 x 192 output tiles, one block an
+    SM): the fewest waves of the card's SMs that tiles x splits fills to at
+    least 90 %; each split writes an f32 partial."""
+    tm, tn = DW_TILE
+    tiles = -(-hidden // tm) * -(-d // tn) + -(-d // tm) * -(-hidden // tn)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    waves = 1
+    while (waves * sms // tiles) * tiles < 0.9 * waves * sms and waves < 8:
+        waves += 1
+    return max(1, min(waves * sms // tiles, -(-n // 64)))
+
+
+def bwd_workspace(n: int, d: int, hidden: int, splits: int, device):
+    """The backward's f32 partials: the dW products' split partials, or
+    (before them) the row kernel's 64-row block partials of db1, dgamma,
+    dbeta and db2."""
+    size = max(splits * 2 * hidden * d, -(-n // 64) * (hidden + 3 * d))
+    return torch.empty(size, dtype=torch.float32, device=device)
 
 
 def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gate, dy, eps: float = 1e-6):
@@ -224,7 +246,8 @@ def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gate, dy, eps: float = 1e-6):
     dx = torch.empty_like(x)
     dgamma, dbeta, db2, db1 = f32(d), f32(d), f32(d), f32(hidden)
     dw1, dw2 = f32(hidden, d), f32(d, hidden)
-    part = f32(max(BWD_SPLITS * hidden * d, (n + 63) // 64 * (hidden + 3 * d)))
+    splits = ln_mlp_bwd_splits(n, d, hidden, dev)
+    part = bwd_workspace(n, d, hidden, splits, dev)
     xn_ws, dye_ws, h_ws, dg_ws = bf(n, d), bf(n, d), bf(n, hidden), bf(n, hidden)
     err = kernels().ibk_fused_ln_mlp_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
@@ -232,7 +255,7 @@ def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gate, dy, eps: float = 1e-6):
         dgamma.data_ptr(), dbeta.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
         dw2.data_ptr(), db2.data_ptr(), xn_ws.data_ptr(), dye_ws.data_ptr(),
         h_ws.data_ptr(), dg_ws.data_ptr(), part.data_ptr(), n, d, hidden, float(eps),
-        BWD_SPLITS, stream_ptr(x))
+        splits, stream_ptr(x))
     check_launch(err, "fused_ln_mlp_bwd")
     return dx, dgamma, dbeta, dw1, db1, dw2, db2
 

@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .fused_ln_mlp import BWD_SPLITS, GELU_MODES, _gate_arg, _gate_rows, gelu, gelu_erf_grad
+from .fused_ln_mlp import (GELU_MODES, _gate_arg, _gate_rows, bwd_workspace, gelu,
+                           gelu_erf_grad, ln_mlp_bwd_splits)
 
 
 def fused_mlp_plain(h, w1, b1, w2, b2, residual, gelu_mode: str = "erf", gate=None):
@@ -127,7 +128,8 @@ def fused_mlp_bwd(h, w1, b1, w2, gate, dy):
 
     dh = torch.empty_like(h)
     db1, db2, dw1, dw2 = f32(hidden), f32(d), f32(hidden, d), f32(d, hidden)
-    part = f32(max(BWD_SPLITS * hidden * d, (n + 63) // 64 * (hidden + 3 * d)))
+    splits = ln_mlp_bwd_splits(n, d, hidden, h.device)
+    part = bwd_workspace(n, d, hidden, splits, h.device)
     dye_ws = torch.empty_like(h)
     act_ws = torch.empty(n, hidden, dtype=torch.bfloat16, device=h.device)
     dg_ws = torch.empty_like(act_ws)
@@ -135,7 +137,7 @@ def fused_mlp_bwd(h, w1, b1, w2, gate, dy):
         h.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         None if g is None else g.data_ptr(), dy.data_ptr(), dh.data_ptr(), dw1.data_ptr(),
         db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dye_ws.data_ptr(), act_ws.data_ptr(),
-        dg_ws.data_ptr(), part.data_ptr(), n, hidden, BWD_SPLITS, stream_ptr(h))
+        dg_ws.data_ptr(), part.data_ptr(), n, hidden, splits, stream_ptr(h))
     check_launch(err, "fused_mlp_bwd")
     return dh, dw1, db1, dw2, db2
 

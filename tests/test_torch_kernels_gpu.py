@@ -39,7 +39,12 @@ attention sublayer's shapes, and raise on what they are not built for.
 The Hopper LN+MLP forward (its three entries) runs at row counts that are
 not a multiple of its 128-row block, with and without the gate, both
 GELUs, D=384 and 192, LN or none; its outputs are also read by the share
-of elements that differ, which an h kept in f32 before fc2 must move.
+of elements that differ, which an h kept in f32 before fc2 must move. The
+Hopper LN+MLP backward (the row kernel and the dW products) runs at 1 to
+36008 rows, gated, ungated and with dropped rows, D=384 and 192 with LN and
+384 without; dx is also read by the share of elements that differ, which a
+dg kept in f32 before the dxn product must move, and two calls must give the
+same bits.
 """
 
 import importlib
@@ -382,6 +387,84 @@ def test_fused_ln_mlp_train_and_bwd(dev, b, t, d):
     assert max(_rels(got, want)) < MLP_BWD_LIMIT, _rels(got, want)
     ctrl = fused_ln_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, None, dy)
     assert max(_rels(got, ctrl)) >= MLP_BWD_LIMIT
+
+
+BWD_SHARE = 2e-2  # share of dx's elements that may differ from the plain backward
+
+
+def _dx_dg_f32(x, gamma, beta, w1, b1, w2, gate, dy, ln=True):
+    """Control fault: the plain backward's dx with dg kept in f32 before the
+    dxn product (the kernel and JAX round it to bf16 there)."""
+    from intentbev_torch.ops.fused_ln_mlp import gelu_erf_grad
+
+    dt, d = x.dtype, x.shape[-1]
+    xf, dyf = x.reshape(-1, d).float(), dy.reshape(-1, d).float()
+    xn = xf
+    if ln:
+        xc = xf - xf.mean(-1, keepdim=True)
+        inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-6)
+        xhat = xc * inv
+        xn = (xhat * gamma + beta).to(dt).float()
+    g = xn @ w1.float().t() + b1
+    gt = torch.ones_like(xf[:, :1]) if gate is None else gate.float().reshape(-1, 1)
+    dg = ((dyf * gt).to(dt).float() @ w2.float()) * gelu_erf_grad(g)
+    dxn = dg @ w1.float()
+    if not ln:
+        return dxn.to(dt).reshape(x.shape)
+    dyg = dxn * gamma
+    dx = inv * (dyg - dyg.mean(-1, keepdim=True) - xhat * (dyg * xhat).mean(-1, keepdim=True))
+    return (dx + dyf).to(dt).reshape(x.shape)
+
+
+def _rel_or_zero(got, want):
+    """Relative L2, or max |got| where the plain output is all zeros (a
+    dropped row's dW)."""
+    if float(want.double().norm()) == 0.0:
+        assert torch.isfinite(got).all()
+        return float(got.double().abs().max())
+    return _rel(got, want)
+
+
+@pytest.mark.parametrize("entry,d", [("fused_ln_mlp_bwd", 384), ("fused_ln_mlp_bwd", 192),
+                                     ("fused_mlp_bwd", 384)])
+@pytest.mark.parametrize("gating", ["gate", "none", "dropped"])
+@pytest.mark.parametrize("rows", [1, 50, 300, 4501, MAIN_ROWS])
+def test_ln_mlp_backward_edges(dev, rows, gating, entry, d):
+    """The Hopper backward (64-row blocks of the row kernel, 64-row chunks
+    of the dW products; rows past the last land as TMA's zeros) at row counts
+    that are not a multiple of either, with a per-row gate, none, and the
+    first half of the rows dropped (gate 0), D=384 and 192 with LN, 384
+    without: every output's relative L2 against the plain version, dx's
+    share of differing elements (the control, dg kept in f32 before the dxn
+    product, must move it past the limit), and two calls give the same bits.
+    The share is read from 50 rows on: a dg that rounds to the other bf16
+    neighbour (the two sides' f32 sums differ in order) moves its whole row
+    of dx, so one row's share is one sample of a spread (0-7.3 % over three
+    seeds at one row, where 36008 rows average 0.33 %)."""
+    x, dy = _randn((rows, d), 1.0, 0), _randn((rows, d), 1.0, 10)
+    gamma, beta, w1, b1, w2, _ = _mlp_params(d)
+    keep = torch.rand(rows, generator=_gen(9), device="cuda") < 0.7
+    gate = {"gate": keep.float() / 0.9, "none": None,
+            "dropped": (torch.arange(rows, device="cuda") >= rows // 2).float() / 0.9}[gating]
+    ln = entry == "fused_ln_mlp_bwd"
+    reset_launch_counts()
+    if ln:
+        args = (x, gamma, beta, w1, b1, w2, gate, dy)
+        got, again = fused_ln_mlp_bwd(*args), fused_ln_mlp_bwd(*args)
+        want = fused_ln_mlp_bwd_plain(*args)
+    else:
+        args = (x, w1, b1, w2, gate, dy)
+        got, again = fused_mlp_bwd(*args), fused_mlp_bwd(*args)
+        want = fused_mlp_bwd_plain(*args)
+    assert launches[entry] == 2
+    rels = [_rel_or_zero(a, b) for a, b in zip(got, want)]
+    assert all(a.shape == b.shape for a, b in zip(got, want))
+    assert max(rels) < MLP_BWD_LIMIT, rels
+    if rows >= 50:
+        assert _share(got[0], want[0]) < BWD_SHARE, _share(got[0], want[0])
+        ctrl = _dx_dg_f32(x, gamma, beta, w1, b1, w2, gate, dy, ln)
+        assert _share(got[0], ctrl) >= BWD_SHARE, _share(got[0], ctrl)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
 
 
 @pytest.mark.parametrize("b,t,seq_len", [(1, 300, 250), (2, 130, 130), (8, 4501, 4501)])

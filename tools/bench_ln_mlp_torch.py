@@ -10,15 +10,25 @@ ViT-S (D=384, hidden 1536) and ViT-Ti (D=192, hidden 768).
   gate, and the unchained serving tail without one;
 - ``fused_mlp``: the MLP without LN (configuration C) at D=384, serving.
 
-For each case: CUDA-event ms per call (``--iters`` calls after one), TFLOP/s
-of its 4*N*D*H operations, the bound at 989 TFLOP/s bf16, the plain
-version's ms, and the ms of the same function as a chain of PyTorch calls
-in bf16 (``F.layer_norm``, ``F.linear``, the GELU, ``F.linear``, the
-residual; cuBLAS's GEMMs), a yardstick the port never calls; then each
-output's relative L2 and share of differing elements against the plain
-version.
+and the backward entries on the same tensors (``--only bwd``):
 
-    python3 tools/bench_ln_mlp_torch.py [--iters 20]    # one JSON line per case
+- ``fused_ln_mlp_bwd``: row 7, the LN+MLP backward, with the per-sample
+  gate, at D=384 and 192;
+- ``fused_mlp_bwd``: row 13's backward, the MLP without LN (configuration
+  C), gated, at D=384.
+
+For each case: CUDA-event ms per call (``--iters`` calls after one), TFLOP/s
+of its operations (forward 4*N*D*H; backward the 5 products, 10*N*D*H), the
+bound at 989 TFLOP/s bf16, the plain version's ms, and the ms of the same
+function as a chain of PyTorch calls in bf16 (``F.layer_norm``,
+``F.linear``, the GELU, ``F.linear``, the residual; cuBLAS's GEMMs; for a
+backward, ``torch.autograd.grad`` through that chain), a yardstick the port
+never calls; then each output's relative L2 and share of differing elements
+against the plain version. A backward's line also splits its device time by
+kernel from a profiler trace: the row kernel, the dW products and the
+partial sums.
+
+    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd]   # a JSON line a case
 
 It imports no JAX and runs as it stands on an older checkout of the port
 (the entries' signatures are unchanged), so that one call can time two
@@ -42,13 +52,17 @@ ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", choices=("fwd", "bwd"), default=None,
+                    help="only the forward or only the backward cases")
     args = ap.parse_args()
 
     import torch
     import torch.nn.functional as F
 
-    from intentbev_torch.ops import (fused_ln_mlp, fused_ln_mlp_plain, fused_ln_mlp_train,
-                                     fused_ln_mlp_train_plain, fused_mlp, fused_mlp_plain)
+    from intentbev_torch.ops import (fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
+                                     fused_ln_mlp_plain, fused_ln_mlp_train,
+                                     fused_ln_mlp_train_plain, fused_mlp, fused_mlp_bwd,
+                                     fused_mlp_bwd_plain, fused_mlp_plain)
 
     if not torch.cuda.is_available():
         sys.exit("bench_ln_mlp_torch: needs a CUDA card")
@@ -77,7 +91,28 @@ def main() -> None:
     def gelu16(t, mode):  # the GELU in bf16, as the unfused model would run it
         return F.gelu(t) if mode == "erf" else t * torch.sigmoid(1.702 * t)
 
-    def report(name, kern, plain, reference, flops):
+    def by_kernel(fn, iters=3):
+        """Device ms per call of fn's kernels from a profiler trace: the
+        backward's row kernel, dW products and partial sums."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        parts = {"rows": 0.0, "dW": 0.0, "sums": 0.0, "other": 0.0}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            key = ("dW" if "dw_gemm" in ev.key or "gemm_at_b" in ev.key else
+                   "rows" if "bwd_rows" in ev.key or "ln_mlp_bwd_kernel" in ev.key else
+                   "sums" if "sum" in ev.key else "other")
+            parts[key] += ev.device_time_total / 1e3 / iters
+        return {k: round(v, 4) for k, v in parts.items()}
+
+    def report(name, kern, plain, reference, flops, split=False):
         got, want = tup(kern()), tup(plain())
         readings = {"rel_l2": [float((a.double() - b.double()).norm() / b.double().norm())
                                for a, b in zip(got, want)],
@@ -89,25 +124,12 @@ def main() -> None:
                 "bound_ms": round(flops / BF16_FLOPS_PER_S * 1e3, 4),
                 "plain_ms": round(event_ms(plain), 4),
                 "reference_ms": round(event_ms(reference), 4), **readings, "card": card}
+        if split:
+            line["ms_by_kernel"] = by_kernel(kern)
         print(json.dumps(line), flush=True)
 
-    keep = (torch.rand(8, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
-    gate = keep.expand(8, ROWS // 8).reshape(ROWS).contiguous()  # per sample, as drop-path
-    for d, tag in ((384, ""), (192, "[D=192]")):
-        hid = 4 * d
-        x, res = randn((ROWS, d), 1.0), randn((ROWS, d), 1.0)
-        ln = [randn((d,), 0.2, torch.float32) + (1 - i % 2) for i in range(4)]
-        w1, b1 = randn((hid, d), d ** -0.5), randn((hid,), 0.1, torch.float32)
-        w2, b2 = randn((d, hid), hid ** -0.5), randn((d,), 0.1, torch.float32)
-        ln16, b1_16, b2_16 = [p.bfloat16() for p in ln], b1.bfloat16(), b2.bfloat16()
-        flops = 4 * ROWS * d * hid
-        mlp_args = (x, ln[0], ln[1], w1, b1, w2, b2, ln[2], ln[3])
-        train_args = (x, ln[0], ln[1], w1, b1, w2, b2)
-
-        def chain(inp, mode, ln_in=True):  # fc2(GELU(fc1(LN(inp)))) in bf16
-            xn = F.layer_norm(inp, (d,), ln16[0], ln16[1], 1e-6) if ln_in else inp
-            return F.linear(gelu16(F.linear(xn, w1, b1_16), mode), w2, b2_16)
-
+    def forward_cases(d, tag, x, res, ln, w1, b1, w2, b2, ln16, b1_16, b2_16, flops,
+                      mlp_args, train_args, chain):
         with torch.no_grad():
             for mode in ("sigmoid", "erf"):
                 report(f"fused_ln_mlp[{mode}]{tag}",
@@ -128,6 +150,54 @@ def main() -> None:
                        lambda: fused_mlp(x, w1, b1, w2, b2, res, gelu_mode="sigmoid"),
                        lambda: fused_mlp_plain(x, w1, b1, w2, b2, res, gelu_mode="sigmoid"),
                        lambda: res + chain(x, "sigmoid", ln_in=False), flops)
+
+    def backward_cases(d, tag, x, res, ln, w1, b1, w2, b2, ln16, b1_16, b2_16, flops):
+        """Row 7 (and, at D=384, row 13's backward) against the plain
+        backward and autograd through the bf16 chain (erf GELU, the gate)."""
+        dy = randn((ROWS, d), 1.0)
+        gate16 = gate[:, None].bfloat16()
+
+        def chain_grads(ln_in):
+            leaves = [t.detach().clone().requires_grad_(True) for t in
+                      (x, w1, b1_16, w2, b2_16, *(ln16[:2] if ln_in else ()))]
+            xr, w1r, b1r, w2r, b2r = leaves[:5]
+            xn = F.layer_norm(xr, (d,), leaves[5], leaves[6], 1e-6) if ln_in else xr
+            out = F.linear(F.gelu(F.linear(xn, w1r, b1r)), w2r, b2r) * gate16
+            out = xr + out if ln_in else res + out
+            return lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
+
+        bwd_args = (x, ln[0], ln[1], w1, b1, w2, gate, dy)
+        report(f"fused_ln_mlp_bwd[gated]{tag}", lambda: fused_ln_mlp_bwd(*bwd_args),
+               lambda: fused_ln_mlp_bwd_plain(*bwd_args), chain_grads(True), 5 * flops // 2,
+               split=True)
+        if d == 384:
+            mlp_args_ = (x, w1, b1, w2, gate, dy)
+            report("fused_mlp_bwd[gated]", lambda: fused_mlp_bwd(*mlp_args_),
+                   lambda: fused_mlp_bwd_plain(*mlp_args_), chain_grads(False),
+                   5 * flops // 2, split=True)
+
+    keep = (torch.rand(8, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
+    gate = keep.expand(8, ROWS // 8).reshape(ROWS).contiguous()  # per sample, as drop-path
+    for d, tag in ((384, ""), (192, "[D=192]")):
+        hid = 4 * d
+        x, res = randn((ROWS, d), 1.0), randn((ROWS, d), 1.0)
+        ln = [randn((d,), 0.2, torch.float32) + (1 - i % 2) for i in range(4)]
+        w1, b1 = randn((hid, d), d ** -0.5), randn((hid,), 0.1, torch.float32)
+        w2, b2 = randn((d, hid), hid ** -0.5), randn((d,), 0.1, torch.float32)
+        ln16, b1_16, b2_16 = [p.bfloat16() for p in ln], b1.bfloat16(), b2.bfloat16()
+        flops = 4 * ROWS * d * hid
+        mlp_args = (x, ln[0], ln[1], w1, b1, w2, b2, ln[2], ln[3])
+        train_args = (x, ln[0], ln[1], w1, b1, w2, b2)
+
+        def chain(inp, mode, ln_in=True):  # fc2(GELU(fc1(LN(inp)))) in bf16
+            xn = F.layer_norm(inp, (d,), ln16[0], ln16[1], 1e-6) if ln_in else inp
+            return F.linear(gelu16(F.linear(xn, w1, b1_16), mode), w2, b2_16)
+
+        if args.only != "bwd":
+            forward_cases(d, tag, x, res, ln, w1, b1, w2, b2, ln16, b1_16, b2_16, flops,
+                          mlp_args, train_args, chain)
+        if args.only != "fwd":
+            backward_cases(d, tag, x, res, ln, w1, b1, w2, b2, ln16, b1_16, b2_16, flops)
         del x, res, w1, w2
         torch.cuda.empty_cache()
 

@@ -15,6 +15,7 @@ names, which ``main()`` reads once and passes down as the model's
     python3 tools/bench_train_torch.py --remat                  # TrainConfig.remat_vit_blocks
     python3 tools/bench_train_torch.py --model cnn --transport chunks
     python3 tools/bench_train_torch.py --trace [--top 18]      # device time by kernel group
+    python3 tools/bench_train_torch.py --vit-config unfused_ln  # or ln_dense, tiny
 
 ``INTENTBEV_BWD_LANE_BLOCK`` and ``INTENTBEV_BWD_BLOCK`` group the TPU
 kernels' tiles and change no arithmetic; the port has no counterpart and
@@ -150,6 +151,11 @@ def main() -> None:
     ap.add_argument("--transport", default="points", choices=["points", "chunks"],
                     help="'chunks' feeds host-built augmented voxel chunks, so the device "
                          "step skips the scatter-max voxelizer")
+    ap.add_argument("--vit-config", default="default",
+                    choices=("default", "ln_dense", "unfused_ln", "tiny"),
+                    help="the ViT's kernel switches (tools/profile_torch_slice.py's "
+                         "--vit-config): B fuse_ln_dense, C use_fused_layernorm=False, "
+                         "or ViT-Ti's widths")
     args = ap.parse_args()
     # the JAX package's knobs, read here once (intentbev/ops/flash_packed.py:73, :84)
     bwd_fused = os.environ.get("INTENTBEV_BWD_FUSED", "1") == "1"
@@ -163,8 +169,15 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0].strip()
     print(f"card: {card}", flush=True)
+    cfg = None
+    if args.vit_config != "default":
+        from intentbev_torch.configs import default_vit_config
+        from profile_torch_slice import vit_config
+
+        cfg = vit_config(default_vit_config(), args.vit_config)[0]
+        print(f"vit config: {args.vit_config}", flush=True)
     run(args.model, args.transport, args.batch, args.steps, args.points_per_sweep, args.remat,
-        args.trace, args.top, bwd_fused, bwd_kv_chunk)
+        args.trace, args.top, bwd_fused, bwd_kv_chunk, cfg=cfg)
 
 
 if __name__ == "__main__":

@@ -99,11 +99,14 @@ GROUPS = (
     ("ln_mlp_fwd_kernel", "fused_ln_mlp (serving or train forward)"),
     ("fused_ln_dense_kernel", "fused_ln_dense"),
     ("patch_embed_kernel", "patch_embed"),
-    ("ln_mlp_bwd_rows_kernel<384, false>", "fused_mlp_bwd (row kernel)"),
-    ("ln_mlp_bwd_rows", "fused_ln_mlp_bwd (row kernel)"),
+    ("ln_mlp_bwd_kernel<384, false>", "fused_mlp_bwd (row kernel)"),
+    ("ln_mlp_bwd_kernel", "fused_ln_mlp_bwd (row kernel)"),
+    ("dw_gemm_kernel", "LN+MLP / MLP backward dW (wgmma)"),
+    ("col_sums_kernel", "LN+MLP / MLP backward partial sums"),
+    ("split_sums_kernel", "LN+MLP / MLP backward partial sums"),
     ("ln_dense_bwd_rows", "fused_ln_dense_bwd (row kernel)"),
-    ("gemm_at_b", "dW kernel (LN+MLP, MLP, LN+dense backward)"),
-    ("sum_partials", "column partial sums (LN, LN+MLP, MLP, LN+dense backward)"),
+    ("gemm_at_b", "dW kernel gemm_at_b (LN+dense, projection backward)"),
+    ("sum_partials", "column partial sums (LN, LN+dense, projection backward)"),
     ("layernorm_kernel", "layernorm"),
     ("layernorm_train_kernel", "layernorm_train"),
     ("layernorm_bwd_kernel", "layernorm_bwd"),
