@@ -24,7 +24,16 @@ Phases (each prints a line; any failure exits nonzero with no result):
    another form (the rounding of P against another max) and the old masking
    faults. Each flash backward entry also prints its device time
    split by kernel from a profiler trace (dk/dv, dq, the wrapper's own
-   kernels) and its TFLOP/s counted as the 5-product bound counts them.
+   kernels) and its TFLOP/s counted as the 5-product bound counts them;
+   each LN + dense backward (row 14: qkv and the adapter with the erf GELU,
+   at D=384 and 192) its row kernel, dW product and partial sums. Row 14's
+   forward runs as qkv and as the adapter with each GELU, at both widths
+   (the instances the ViT and ViT-Ti paths launch). Row 14 also
+   reads y's and dx's shares of differing elements (controls: xn kept in
+   f32 before the product; dg kept in f32 before dxn, or without GELU dxn
+   rounded before the LN backward), and prints the time of the same
+   function as F.layer_norm, F.linear [+ the GELU] in bf16 (the backward by
+   autograd through them), a yardstick the port never calls.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -81,7 +90,9 @@ Phases (each prints a line; any failure exits nonzero with no result):
 10. ViT-Ti (embed 192, 3 heads of 64, whose heads do not pair: the BHTD
     attention) serves 3 requests and trains: launch counts, logits and one
     step's gradients against the plain versions with controls, 3 timed
-    steps.
+    steps. Then ViT-Ti under B ``fuse_ln_dense`` (the LN + dense pair at
+    D=192) serves one request and takes one timed train step, with the
+    checks and controls of phases 8 and 9.
 11. The flash backward's forms (JAX's split and chunked backwards, the
     model's ``bwd_fused=False`` and ``bwd_kv_chunk=1152``) and the packed
     path at head dim 32: each form's kernels against their plain versions
@@ -143,7 +154,7 @@ INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores
 # version (phase 3).
 CONFIG_LIMITS = {"A serving_int8": (2.3e-2,) * 3, **{name: (1.3e-2,) * 3 for name in (
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
-    "E fwd_kv_chunk=1152")}}
+    "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense")}}
 
 
 def fail(msg: str) -> None:
@@ -325,6 +336,31 @@ def main() -> None:
         dxn = torch.matmul(dy_.float(), w_.float())
         return (layernorm_bwd_no_m2(dxn, xhat_, inv_, gamma_)[0].to(x_.dtype), dgamma_, dbeta_,
                 dw_, db_)
+
+    def xn_f32(x_, ln_, w_, b_, mode=None):
+        # the control's fault: xn kept in f32 before the LN + dense product
+        y_ = layernorm_plain(x_.float(), *ln_) @ w_.float().t() + b_
+        return (gelu_fn(y_, mode) if mode else y_).to(x_.dtype)
+
+    def ln_dense_dx_moved(x_, ln_, w_, b_, dy_, mode=None):
+        # the control's fault for dx's share, the other outputs sound: with
+        # the GELU, dg kept in f32 before dxn; without (dg = dy, already
+        # bf16), dxn rounded to bf16 before the LN backward
+        xf = x_.float()
+        xc = xf - xf.mean(-1, keepdim=True)
+        inv_ = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-6)
+        xh = xc * inv_
+        dg = dy_.float()
+        if mode:
+            xn = (xh * ln_[0] + ln_[1]).to(x_.dtype).float()
+            dg = dg * gelu_grad_fn(xn @ w_.float().t() + b_)
+        dxn = dg @ w_.float()
+        if not mode:
+            dxn = dxn.to(x_.dtype).float()
+        dyg = dxn * ln_[0]
+        dx_ = inv_ * (dyg - dyg.mean(-1, keepdim=True) - xh * (dyg * xh).mean(-1, keepdim=True))
+        rest = fused_ln_dense_bwd_plain(x_, *ln_, w_, b_, dy_, gelu_mode=mode)[1:]
+        return dx_twice((dx_.to(x_.dtype),) + tuple(rest))
 
     def nbytes(*tensors):
         return sum(t.numel() * t.element_size() for t in tensors)
@@ -634,17 +670,31 @@ def main() -> None:
             ["b1 left out", "h kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 10, 3,
             nbytes(x8, w1, b1, w2, b2, x) + nbytes(x), mlp_flops, None),
         "fused_ln_dense": (
-            lambda: fused_ln_dense(x, ln[0], ln[1], w_qkv, b_qkv),
-            lambda: fused_ln_dense_plain(x, ln[0], ln[1], w_qkv, b_qkv),
-            lambda: fused_ln_dense_plain(x, ln[0], ln[1], w_qkv, torch.zeros_like(b_qkv)),
-            "bias left out", (rel_l2,), (1e-3,), 20, 3,
+            lambda: twice(fused_ln_dense(x, ln[0], ln[1], w_qkv, b_qkv)),
+            lambda: twice(fused_ln_dense_plain(x, ln[0], ln[1], w_qkv, b_qkv)),
+            [lambda: twice(fused_ln_dense_plain(x, ln[0], ln[1], w_qkv, torch.zeros_like(b_qkv))),
+             lambda: twice(xn_f32(x, ln[:2], w_qkv, b_qkv))],
+            ["bias left out", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 3,
             nbytes(x, ln[0], ln[1], w_qkv, b_qkv) + rows * 3 * d * 2, 2 * rows * d * 3 * d,
             None),
         "fused_ln_dense[adapter]": (
-            lambda: fused_ln_dense(x_ad, ln[0], ln[1], w_ad, b_ad, gelu_mode="sigmoid"),
-            lambda: fused_ln_dense_plain(x_ad, ln[0], ln[1], w_ad, b_ad, gelu_mode="sigmoid"),
-            lambda: fused_ln_dense_plain(x_ad, ln[0], ln[1], w_ad, b_ad),
-            "GELU epilogue skipped", (rel_l2,), (1e-3,), 20, 3,
+            lambda: twice(fused_ln_dense(x_ad, ln[0], ln[1], w_ad, b_ad, gelu_mode="sigmoid")),
+            lambda: twice(fused_ln_dense_plain(x_ad, ln[0], ln[1], w_ad, b_ad,
+                                               gelu_mode="sigmoid")),
+            [lambda: twice(fused_ln_dense_plain(x_ad, ln[0], ln[1], w_ad, b_ad)),
+             lambda: twice(xn_f32(x_ad, ln[:2], w_ad, b_ad, "sigmoid"))],
+            ["GELU epilogue skipped", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 3,
+            nbytes(x_ad, ln[0], ln[1], w_ad, b_ad) + x_ad.shape[0] * a_out * 2,
+            2 * x_ad.shape[0] * d * a_out, None),
+        # the adapter's training forward (erf GELU): held, not listed (its
+        # launches count under fused_ln_dense)
+        "fused_ln_dense[adapter,erf]": (
+            lambda: twice(fused_ln_dense(x_ad, ln[0], ln[1], w_ad, b_ad, gelu_mode="erf")),
+            lambda: twice(fused_ln_dense_plain(x_ad, ln[0], ln[1], w_ad, b_ad, gelu_mode="erf")),
+            [lambda: twice(fused_ln_dense_plain(x_ad, ln[0], ln[1], w_ad, b_ad,
+                                                gelu_mode="sigmoid")),
+             lambda: twice(xn_f32(x_ad, ln[:2], w_ad, b_ad, "erf"))],
+            ["sigmoid GELU", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 3,
             nbytes(x_ad, ln[0], ln[1], w_ad, b_ad) + x_ad.shape[0] * a_out * 2,
             2 * x_ad.shape[0] * d * a_out, None),
         "fused_mlp_train": (
@@ -673,19 +723,23 @@ def main() -> None:
             3 * nbytes(x8) + nbytes(w1, b1, w2) + 4 * (d + hidden + 2 * d * hidden),
             5 * mlp_flops // 2, None),
         "fused_ln_dense_bwd": (
-            lambda: fused_ln_dense_bwd(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv),
-            lambda: fused_ln_dense_bwd_plain(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv),
-            lambda: ln_dense_bwd_no_m2(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv),
-            "no mean(dyg*xhat) term", (rel_l2,) * 5, (2e-3,) * 5, 10, 2,
+            lambda: dx_twice(fused_ln_dense_bwd(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv)),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv)),
+            [lambda: dx_twice(ln_dense_bwd_no_m2(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv)),
+             lambda: ln_dense_dx_moved(x, ln[:2], w_qkv, b_qkv, dy_qkv)],
+            ["no mean(dyg*xhat) term", "dxn rounded before the LN backward"],
+            BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
             2 * nbytes(x) + nbytes(dy_qkv, ln[0], ln[1], w_qkv, b_qkv)
             + 4 * (2 * d + 3 * d * d + 3 * d), 2 * 2 * rows * d * 3 * d, None),
         "fused_ln_dense_bwd[adapter]": (
-            lambda: fused_ln_dense_bwd(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad, gelu_mode="erf"),
-            lambda: fused_ln_dense_bwd_plain(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad,
-                                             gelu_mode="erf"),
-            lambda: gelu_grad_skipped("fused_ln_dense", lambda: fused_ln_dense_bwd_plain(
-                x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad, gelu_mode="erf")),
-            "GELU' skipped", (rel_l2,) * 5, (2e-3,) * 5, 10, 2,
+            lambda: dx_twice(fused_ln_dense_bwd(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad,
+                                                gelu_mode="erf")),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad,
+                                                      gelu_mode="erf")),
+            [lambda: dx_twice(gelu_grad_skipped("fused_ln_dense", lambda: fused_ln_dense_bwd_plain(
+                x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad, gelu_mode="erf"))),
+             lambda: ln_dense_dx_moved(x_ad, ln[:2], w_ad, b_ad, dy_ad, "erf")],
+            ["GELU' skipped", "dg kept in f32"], BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
             2 * nbytes(x_ad) + nbytes(dy_ad, ln[0], ln[1], w_ad, b_ad)
             + 4 * (2 * d + a_out * d + a_out), 3 * 2 * x_ad.shape[0] * d * a_out, None),
         "patch_embed": (
@@ -729,6 +783,16 @@ def main() -> None:
     y_ln_t = F.layer_norm(xl_t, (dt_,), gl_t, bl_t, 1e-6)
     flash_flops_t = 4 * batch * tokens * tokens * dt_
     mlp_flops_t = 4 * rows * dt_ * hid_t
+    # ViT-Ti's qkv projection under B: the LN + dense pair at D=192, Dout 576
+    w_qkv_t, b_qkv_t = randn((3 * dt_, dt_), dt_ ** -0.5), randn((3 * dt_,), 0.1, torch.float32)
+    dy_qkv_t = randn((rows, 3 * dt_), 1.0)
+    # and its adapters: [36000, 192] -> 192, the serving sigmoid GELU, the
+    # training erf GELU and its backward
+    x_ad_t = randn((x_ad.shape[0], dt_), 1.0)
+    w_ad_t, b_ad_t = randn((a_out, dt_), dt_ ** -0.5), randn((a_out,), 0.1, torch.float32)
+    dy_ad_t = randn((x_ad.shape[0], a_out), 1.0)
+    ad_bytes_t = nbytes(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t) + x_ad.shape[0] * a_out * 2
+    ad_flops_t = 2 * x_ad.shape[0] * dt_ * a_out
 
     def bhtd_attn_plain_ctl(*a):
         # the control's fault: delta = rowsum(dO*O) left out (O = 0)
@@ -824,31 +888,94 @@ def main() -> None:
             ["gate ignored", "dg kept in f32"], BWD_METRICS[7], BWD_LIMITS[7], 5, 2,
             3 * nbytes(x_t) + nbytes(w1_t, b1_t, w2_t, ln_t[0], ln_t[1], gate)
             + 4 * (3 * dt_ + hid_t + 2 * dt_ * hid_t), 5 * mlp_flops_t // 2, None),
+        "fused_ln_dense[D=192]": (
+            lambda: twice(fused_ln_dense(x_t, ln_t[0], ln_t[1], w_qkv_t, b_qkv_t)),
+            lambda: twice(fused_ln_dense_plain(x_t, ln_t[0], ln_t[1], w_qkv_t, b_qkv_t)),
+            [lambda: twice(fused_ln_dense_plain(x_t, ln_t[0], ln_t[1], w_qkv_t,
+                                                torch.zeros_like(b_qkv_t))),
+             lambda: twice(xn_f32(x_t, ln_t[:2], w_qkv_t, b_qkv_t))],
+            ["bias left out", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 3,
+            nbytes(x_t, ln_t[0], ln_t[1], w_qkv_t, b_qkv_t) + rows * 3 * dt_ * 2,
+            2 * rows * dt_ * 3 * dt_, None),
+        "fused_ln_dense_bwd[D=192]": (
+            lambda: dx_twice(fused_ln_dense_bwd(x_t, ln_t[0], ln_t[1], w_qkv_t, b_qkv_t,
+                                                dy_qkv_t)),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x_t, ln_t[0], ln_t[1], w_qkv_t, b_qkv_t,
+                                                      dy_qkv_t)),
+            [lambda: dx_twice(ln_dense_bwd_no_m2(x_t, ln_t[0], ln_t[1], w_qkv_t, b_qkv_t,
+                                                 dy_qkv_t)),
+             lambda: ln_dense_dx_moved(x_t, ln_t[:2], w_qkv_t, b_qkv_t, dy_qkv_t)],
+            ["no mean(dyg*xhat) term", "dxn rounded before the LN backward"],
+            BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
+            2 * nbytes(x_t) + nbytes(dy_qkv_t, ln_t[0], ln_t[1], w_qkv_t, b_qkv_t)
+            + 4 * (2 * dt_ + 3 * dt_ * dt_ + 3 * dt_), 2 * 2 * rows * dt_ * 3 * dt_, None),
+        # ViT-Ti's adapter instances: held, not listed (their launches count
+        # under fused_ln_dense[D=192] and fused_ln_dense_bwd[D=192])
+        "fused_ln_dense[adapter,D=192]": (
+            lambda: twice(fused_ln_dense(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t,
+                                         gelu_mode="sigmoid")),
+            lambda: twice(fused_ln_dense_plain(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t,
+                                               gelu_mode="sigmoid")),
+            [lambda: twice(fused_ln_dense_plain(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t)),
+             lambda: twice(xn_f32(x_ad_t, ln_t[:2], w_ad_t, b_ad_t, "sigmoid"))],
+            ["GELU epilogue skipped", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 3,
+            ad_bytes_t, ad_flops_t, None),
+        "fused_ln_dense[adapter,erf,D=192]": (
+            lambda: twice(fused_ln_dense(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t,
+                                         gelu_mode="erf")),
+            lambda: twice(fused_ln_dense_plain(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t,
+                                               gelu_mode="erf")),
+            [lambda: twice(fused_ln_dense_plain(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t,
+                                                gelu_mode="sigmoid")),
+             lambda: twice(xn_f32(x_ad_t, ln_t[:2], w_ad_t, b_ad_t, "erf"))],
+            ["sigmoid GELU", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 3,
+            ad_bytes_t, ad_flops_t, None),
+        "fused_ln_dense_bwd[adapter,D=192]": (
+            lambda: dx_twice(fused_ln_dense_bwd(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t,
+                                                dy_ad_t, gelu_mode="erf")),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t,
+                                                      dy_ad_t, gelu_mode="erf")),
+            [lambda: dx_twice(gelu_grad_skipped("fused_ln_dense", lambda: fused_ln_dense_bwd_plain(
+                x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t, dy_ad_t, gelu_mode="erf"))),
+             lambda: ln_dense_dx_moved(x_ad_t, ln_t[:2], w_ad_t, b_ad_t, dy_ad_t, "erf")],
+            ["GELU' skipped", "dg kept in f32"], BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
+            2 * nbytes(x_ad_t) + nbytes(dy_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t)
+            + 4 * (2 * dt_ + a_out * dt_ + a_out), 3 * ad_flops_t, None),
     })
     record = {}
 
-    def bwd_split(fn, iters=3):
-        """Device ms per call of a flash backward entry, from a profiler
-        trace: its dk/dv kernel, its dq kernel, and the wrapper's own
-        kernels (delta = rowsum(dO*O) and the rest)."""
+    def bwd_split(fn, kinds, iters=3):
+        """Device ms per call of a backward entry, from a profiler trace:
+        its kernels by part (``kinds``: part -> kernel-name substring; the
+        last part takes every other kernel: a flash backward's dk/dv and dq
+        kernels and its wrapper's own (delta = rowsum(dO*O) and the rest);
+        the LN + dense backward's row kernel, dW product and partial sums).
+        A trace that holds no device event at all is taken again, up to
+        three sessions (the profiler has returned one empty in a long run)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        parts = {"dk/dv": 0.0, "dq": 0.0, "wrapper": 0.0}
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            part = ("dk/dv" if "flash_bwd_dkdv" in ev.key else
-                    "dq" if "flash_bwd_dq" in ev.key else "wrapper")
-            parts[part] += ev.device_time_total / 1e3 / iters
-        check(parts["dk/dv"] > 0 and parts["dq"] > 0,
+        for session in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            parts = dict.fromkeys(kinds, 0.0)
+            for ev in prof.key_averages():
+                if ev.device_type != DeviceType.CUDA:
+                    continue
+                part = next((p_ for p_, key in kinds.items() if key in ev.key), list(kinds)[-1])
+                parts[part] += ev.device_time_total / 1e3 / iters
+            if any(t > 0 for t in parts.values()):
+                break
+            print(f"profiler session {session + 1} held no device event; again", flush=True)
+        check(all(t > 0 for p_, t in parts.items() if kinds[p_]),
               f"backward trace without its kernels: {parts}")
         return parts
+
+    flash_parts = {"dk/dv": "flash_bwd_dkdv", "dq": "flash_bwd_dq", "wrapper": ""}
+    ln_dense_parts = {"rows": "ln_dense_bwd_kernel", "dW": "dw_gemm", "sums": ""}
 
     def check_kernels(cases):
         """Each case's kernel against its plain version and control; its
@@ -879,11 +1006,12 @@ def main() -> None:
                   f"caught; max|d| {abs_err:.3e}; "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, bound "
                   f"{bound_ms:.4f} ms ({bound_by})  [{card}]", flush=True)
-            if name.startswith(("flash_packed_bwd", "flash_attention_bwd")):
-                parts = bwd_split(kern)
+            if name.startswith(("flash_packed_bwd", "flash_attention_bwd", "fused_ln_dense_bwd")):
+                parts = bwd_split(kern, ln_dense_parts if name.startswith("fused_ln_dense")
+                                  else flash_parts)
                 print(f"kernel {name} by kernel (profiler trace, per call): "
                       + ", ".join(f"{k_} {t:.3f} ms" for k_, t in parts.items())
-                      + f"; {flops / ms / 1e9:.1f} TFLOP/s of the 5-product bound's work "
+                      + f"; {flops / ms / 1e9:.1f} TFLOP/s of the bound's work "
                       f"(bound {bound_ms:.4f} ms)  [{card}]", flush=True)
 
     check_kernels(cases)
@@ -912,12 +1040,44 @@ def main() -> None:
             x_t + mlp_chain(x_t, *w_t, "sigmoid", ln_t[:2]), ln_t[2:]),
         "fused_ln_mlp_train[D=192]": lambda: train_t[0] + mlp_chain(
             train_t[0], *w_t, "erf", ln_t[:2]) * gate16}
+    # and for the LN + dense pair: F.layer_norm, F.linear [+ the GELU], and
+    # the backward by autograd through them
+    def ln_dense_chain(x_, ln_, w_, b_, mode=None):
+        y_ = F.linear(F.layer_norm(x_, (x_.shape[-1],), ln_[0].bfloat16(), ln_[1].bfloat16(),
+                                   1e-6), w_, b_.bfloat16())
+        return (F.gelu(y_) if mode == "erf" else y_ * torch.sigmoid(1.702 * y_)) if mode else y_
+
+    def ln_dense_chain_bwd(x_, ln_, w_, b_, dy_, mode=None):
+        leaves = [t.detach().clone().requires_grad_(True) for t in
+                  (x_, ln_[0].bfloat16(), ln_[1].bfloat16(), w_, b_.bfloat16())]
+        y_ = F.linear(F.layer_norm(leaves[0], (x_.shape[-1],), leaves[1], leaves[2], 1e-6),
+                      leaves[3], leaves[4])
+        y_ = F.gelu(y_) if mode == "erf" else y_
+        return lambda: torch.autograd.grad(y_, leaves, dy_, retain_graph=True)
+
+    mlp_refs.update({
+        "fused_ln_dense": torch.no_grad()(lambda: ln_dense_chain(x, ln, w_qkv, b_qkv)),
+        "fused_ln_dense[adapter]": torch.no_grad()(
+            lambda: ln_dense_chain(x_ad, ln, w_ad, b_ad, "sigmoid")),
+        "fused_ln_dense[adapter,erf]": torch.no_grad()(
+            lambda: ln_dense_chain(x_ad, ln, w_ad, b_ad, "erf")),
+        "fused_ln_dense[D=192]": torch.no_grad()(
+            lambda: ln_dense_chain(x_t, ln_t, w_qkv_t, b_qkv_t)),
+        "fused_ln_dense[adapter,D=192]": torch.no_grad()(
+            lambda: ln_dense_chain(x_ad_t, ln_t, w_ad_t, b_ad_t, "sigmoid")),
+        "fused_ln_dense[adapter,erf,D=192]": torch.no_grad()(
+            lambda: ln_dense_chain(x_ad_t, ln_t, w_ad_t, b_ad_t, "erf")),
+        "fused_ln_dense_bwd": ln_dense_chain_bwd(x, ln, w_qkv, b_qkv, dy_qkv),
+        "fused_ln_dense_bwd[adapter]": ln_dense_chain_bwd(x_ad, ln, w_ad, b_ad, dy_ad, "erf"),
+        "fused_ln_dense_bwd[D=192]": ln_dense_chain_bwd(x_t, ln_t, w_qkv_t, b_qkv_t, dy_qkv_t),
+        "fused_ln_dense_bwd[adapter,D=192]": ln_dense_chain_bwd(x_ad_t, ln_t, w_ad_t, b_ad_t,
+                                                                dy_ad_t, "erf")})
     for name, ref in mlp_refs.items():
-        ref_ms = cuda_ms(torch.no_grad()(ref), 10)
+        ref_ms = cuda_ms(torch.no_grad()(ref) if "bwd" not in name else ref, 10)
         print(f"kernel {name}: kernel {record[name]['ms']:.3f} ms; reference (the same "
               f"function as a chain of PyTorch calls, bf16) {ref_ms:.3f} ms  [{card}]",
               flush=True)
-    del mlp_refs, ref, gate16, w_t
+    del mlp_refs, ref, gate16, w_t, w_qkv_t, b_qkv_t, dy_qkv_t, x_ad_t, w_ad_t, b_ad_t, dy_ad_t
     del chunks, x, qkv, q, k, vv, o, lse, do, dy, x3, dy3, xhat, inv, gate, train_mlp
     del qh, kh, vh, doh, o_sdpa, xl, gl, bl, y_ln, mlp_args, x8, int8_args, x_ad
     del x_pe, w_conv, gate_r, dy_qkv, dy_ad
@@ -1295,20 +1455,21 @@ def main() -> None:
         "D fuse_patch_embed": ("patch_embed", {"patch_embed": 1, "flash_packed": 24,
                                                "fused_ln_mlp": 24, "layernorm": 4}),
     }
-    def serve_config(cname, vcfg, transport, per_req, failures):
-        """Serve ``requests`` under ``vcfg``: launch counts per request as
-        ``per_req``, logits against the plain path (control: the plain path
-        with the erf GELU), fixed-shape finite Detections, frames/s; the
-        counts of the timed requests are returned."""
-        vinf = StreamingInferencer(vcfg, params, "cuda", transport=transport, gelu="sigmoid")
+    def serve_config(cname, vcfg, transport, per_req, failures, net_params=params,
+                     reqs=requests):
+        """Serve ``reqs`` under ``vcfg`` with ``net_params``: launch counts per
+        request as ``per_req``, logits against the plain path (control: the
+        plain path with the erf GELU), fixed-shape finite Detections,
+        frames/s; the counts of the timed requests are returned."""
+        vinf = StreamingInferencer(vcfg, net_params, "cuda", transport=transport, gelu="sigmoid")
         vinf(*requests[0])  # warm-up
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
-        vdets = [vinf(*r) for r in requests]
+        vdets = [vinf(*r) for r in reqs]
         elapsed = time.perf_counter() - t0
         counts = dict(_build.launches)
-        want_counts = {k_: per_req.get(k_, 0) * len(requests) for k_ in counts}
+        want_counts = {k_: per_req.get(k_, 0) * len(reqs) for k_ in counts}
         check(counts == want_counts, f"{cname}: launch counts {counts} != {want_counts}")
 
         def config_logits(inf_):
@@ -1318,9 +1479,9 @@ def main() -> None:
             return inf_.logits(inf_.build_chunks(pts_, valid_), map_)
 
         got = config_logits(vinf)
-        want = config_logits(StreamingInferencer(vcfg, params, "cuda", transport=transport,
+        want = config_logits(StreamingInferencer(vcfg, net_params, "cuda", transport=transport,
                                                  gelu="sigmoid", plain_ops=True))
-        ctrl = config_logits(StreamingInferencer(vcfg, params, "cuda", transport=transport,
+        ctrl = config_logits(StreamingInferencer(vcfg, net_params, "cuda", transport=transport,
                                                  gelu="erf", plain_ops=True))
         for name, a, wdt in zip(("cls", "box", "intent"), got, widths):
             check(tuple(a.shape) == (batch, n_anchor, wdt),
@@ -1339,8 +1500,8 @@ def main() -> None:
               f"plain, relative L2 (cls, box, intent) [{fmt3(f'{r:.3e}' for r in sound)}] under "
               f"{CONFIG_LIMITS[cname][0]:g}; control (plain, erf GELU in the blocks) "
               f"[{fmt3(f'{r:.3e}' for r in ctrl_r)}]; valid per frame "
-              f"{vdets[0].valid.sum(1).tolist()}; {len(requests) * batch / elapsed:.2f} frames/s "
-              f"over {len(requests)} requests of {batch} [{card}]", flush=True)
+              f"{vdets[0].valid.sum(1).tolist()}; {len(reqs) * batch / elapsed:.2f} frames/s "
+              f"over {len(reqs)} requests of {batch} [{card}]", flush=True)
         del vinf, vdets, got, want, ctrl
         torch.cuda.empty_cache()
         return counts
@@ -1374,12 +1535,16 @@ def main() -> None:
              lambda f: lambda h_, w1_, b1_, w2_, gate_, dy_: f(h_, w1_, b1_, w2_, None, dy_)),
             "MLP backward ignores the gate"),
     }
-    config_train_counts = {}
-    for cname, (variant, per_step_c, (c_mod, c_name, c_fault), fault) in train_by_config.items():
-        tcfg_, _ = vit_serving_variant(cfg, variant)
+    def train_config(cname, tcfg_, net_params, per_step_c, control, fault, steps=3):
+        """Train the ViT under ``tcfg_`` from ``net_params``: one step's loss
+        and gradients against the plain step, and the plain step with
+        ``control`` (module, plain backward, fault) caught; then a warm-up
+        and ``steps`` timed steps whose launch counts are ``per_step_c``
+        each. Returns the timed steps' counts."""
+        c_mod, c_name, c_fault = control
         net = IntentNetViT(tcfg_.vit, tcfg_.heads, dtype=torch.bfloat16,
                            param_dtype=torch.float32)
-        net.load_state_dict(params)
+        net.load_state_dict(net_params)
         net.to(dev)
         m_k, g_k = loss_and_grads(False, net, tcfg_)
         check(all(np.isfinite(val) for val in m_k.values()), f"{cname}: non-finite metrics {m_k}")
@@ -1410,13 +1575,12 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         step_ms, metrics = [], []
-        for _ in range(3):
+        for _ in range(steps):
             t0 = time.perf_counter()
             metrics.append(cstep_(tbatch, tgen))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         counts = dict(_build.launches)
-        config_train_counts[cname] = counts
         want_counts = {k_: per_step_c.get(k_, 0) * len(step_ms) for k_ in counts}
         check(counts == want_counts, f"{cname} train launch counts {counts} != {want_counts}")
         for m in metrics:
@@ -1432,6 +1596,12 @@ def main() -> None:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
         del net, cstep_, metrics
         torch.cuda.empty_cache()
+        return counts
+
+    config_train_counts = {
+        cname: train_config(cname, vit_serving_variant(cfg, variant)[0], params, per_step_c,
+                            control, fault)
+        for cname, (variant, per_step_c, control, fault) in train_by_config.items()}
     train_b, train_c = config_train_counts.values()
 
     # 10. ViT-Ti: the widths vit_config_from_state_dict reads for a timm
@@ -1535,6 +1705,22 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
     del tnet, tstep, metrics
     torch.cuda.empty_cache()
+
+    # ViT-Ti under B fuse_ln_dense (the LN + dense pair at D=192: qkv 576
+    # wide, the adapters 192) serves one request and takes one timed train
+    # step, with phase 8's and phase 9's checks and controls
+    tcfg_b, _ = vit_serving_variant(tcfg, "ln_dense")
+    tiny_b_serve_counts = serve_config(
+        "Ti B fuse_ln_dense", tcfg_b, "chunks",
+        {"voxel_embed": 1, "fused_ln_dense": 26, "flash_attention": 24,
+         "fused_ln_mlp_train": 24, "layernorm": 2}, config_failures, tparams, requests[:1])
+    check(not config_failures, "; ".join(config_failures))
+    tiny_b_train_counts = train_config(
+        "Ti B fuse_ln_dense", tcfg_b, tparams,
+        {"fused_ln_dense": 26, "fused_ln_dense_bwd": 26, "flash_attention": 24,
+         "flash_attention_bwd": 24, "fused_ln_mlp_train": 24, "fused_ln_mlp_bwd": 24,
+         "layernorm_train": 2, "layernorm_bwd": 2}, *train_by_config["B fuse_ln_dense"][2:],
+        steps=1)
 
     # 11. the flash backward's forms (row 11): JAX's split and chunked
     # backwards (INTENTBEV_BWD_FUSED=0, INTENTBEV_BWD_KV_CHUNK) as the model's
@@ -1933,6 +2119,10 @@ def main() -> None:
              tiny_runs),
             ("layernorm_bwd[D=192]", "layernorm.cu", "intentbev/ops/layernorm.py:66",
              tiny_runs),
+            ("fused_ln_dense[D=192]", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:56",
+             (tiny_b_serve_counts, tiny_b_train_counts)),
+            ("fused_ln_dense_bwd[D=192]", "fused_ln_dense.cu",
+             "intentbev/ops/fused_ln_dense.py:94", (tiny_b_train_counts,)),
             # row 11, and the packed path at head dim 32 (phase 11)
             ("flash_packed_bwd_split", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (form_counts["split"],)),
@@ -1962,7 +2152,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 38 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 40 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

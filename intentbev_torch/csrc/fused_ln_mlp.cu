@@ -55,14 +55,12 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "ln_kernels.cuh"
 
 namespace {
 
 constexpr int FWD_THREADS = 384;  // two consumer warpgroups and the producer
 constexpr int FWD_ROWS = 128;     // rows of a block, 64 per consumer
-// setmaxnreg: 128 * 24 + 256 * 240 = 384 * 168, the 168 a thread of the
-// block gets at launch
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int N2 = 192;  // the N of an fc2 product, and the rows of a W2 box
 
 // The forward's tiles at width D in shared memory, from a 1024-byte
@@ -92,10 +90,6 @@ struct FwdTiles {
   static_assert(D / 64 * XBLK <= H - W1, "the residual rows must fit in the rings");
 };
 
-__device__ __forceinline__ float2 bf16x2_at(const void* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
 // The GELU of the forward: erf (the exact form, erff) or JAX's sigmoid form
 // x / (1 + exp(-1.702 x)) with ex2.approx and the approximate divide (a few
 // f32 ulp from the IEEE form; h is rounded to bf16 after it).
@@ -103,21 +97,6 @@ template <int GELU>
 __device__ __forceinline__ float fwd_gelu(float v) {
   if constexpr (GELU == 0) return gelu<0>(v);
   return __fdividef(v, 1.f + __expf(-1.702f * v));
-}
-
-// Byte offset of column c (bf16) of row r in a tile of 64-column blocks of
-// ROWS_ 128-byte rows, 16-byte chunks swizzled as TMA lands them (chunk ^ r
-// % 8).
-template <int ROWS_>
-__device__ __forceinline__ int swz(int r, int c) {
-  return (c >> 6) * ROWS_ * 128 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
-}
-
-// The same in a tile of RB-byte rows (64 or 128): chunk ^ (r / 2) % 4 or ^ r % 8.
-template <int RB>
-__device__ __forceinline__ int swz_row(int r, int c) {
-  const int sw = RB == 128 ? (r & 7) : ((r >> 1) & 3);
-  return r * RB + ((((c * 2) >> 4) ^ sw) << 4) + ((c * 2) & 15);
 }
 
 // g = GELU(g + b1) in place, b1 at the columns of this thread's
@@ -136,25 +115,6 @@ __device__ __forceinline__ void bias_gelu(float (&g)[N], const float* __restrict
     g[4 * n + 3] = fwd_gelu<GELU>(g[4 * n + 3] + v);
     if constexpr (GROUPS) hopper::fence_regs(g);
   }
-}
-
-// f(std::integral_constant<int, I>{}) for I = 0 .. N - 1, expanded by the
-// compiler's front end. The epilogue's passes over the accumulator use it:
-// as nested #pragma unroll loops the same passes spilled ~330 bytes at D =
-// 384 with the LN_next epilogue (ptxas, CUDA 12.9); expanded, none.
-template <typename F, int... I>
-__device__ __forceinline__ void static_for_(F&& f, std::integer_sequence<int, I...>) {
-  (f(std::integral_constant<int, I>{}), ...);
-}
-template <int N, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  static_for_(f, std::make_integer_sequence<int, N>{});
-}
-
-// The sum over the quad of threads that holds a row of an accumulator.
-__device__ __forceinline__ float quad_sum(float s) {
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  return s + __shfl_xor_sync(0xffffffffu, s, 2);
 }
 
 // A warpgroup's 64 rows of a D-wide tile (column blocks XBLK bytes apart)
@@ -262,28 +222,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   uint8_t* xs = sm + wg * 64 * 128;  // this consumer's rows in each column block
   hopper::mbar_wait(&xfull[wg], 0);
   if constexpr (LN_IN) {
-    // xn = LN2(x) in place, a warp a row: lane l holds columns 2l, 2l + 1
-    // of each 64-column block (16-byte chunk l / 4 of the row, swizzled)
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = 16 * warp + rr;
-      uint8_t* row = xs + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) + (lane & 3) * 4;
-      float v[D / 32];
-#pragma unroll
-      for (int i = 0; i < D / 64; ++i) {
-        const float2 p = bf16x2_at(row + i * L::XBLK);
-        v[2 * i] = p.x;
-        v[2 * i + 1] = p.y;
-      }
-      float mean, inv;
-      warp_ln_stats(v, eps, mean, inv);
-#pragma unroll
-      for (int i = 0; i < D / 64; ++i) {
-        const int c = 64 * i + 2 * lane;
-        *reinterpret_cast<uint32_t*>(row + i * L::XBLK) =
-            pack_bf16x2((v[2 * i] - mean) * inv * g2[c] + be2[c],
-                        (v[2 * i + 1] - mean) * inv * g2[c + 1] + be2[c + 1]);
-      }
-    }
+    ln_in_place<D, L::XBLK>(xs, warp, lane, g2, be2, eps);  // xn = LN2(x)
     hopper::fence_proxy_async();  // the wgmma reads below are async-proxy reads
     hopper::named_sync(1 + wg, 128);
   }
@@ -1109,162 +1048,6 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   if (issuer) hopper::bulk_wait_read();
 }
 
-// The dW products: C = P^T Q over rows, P [R, M] and Q [R, N] row-major bf16
-// through maps of 64 x 64 boxes; product 1 (dW1 = dg^T xn: M = hidden, N = D)
-// takes the first tiles of the grid, product 2 (dW2 = dy_eff^T h: M = D, N =
-// hidden) the rest, in DW_M x DW_N output tiles (edge tiles read TMA's zeros
-// and store only what lies inside). Block b computes output tile b / splits
-// over the rows of split b % splits (rows_per_split, a multiple of 64; rows
-// past R land as zeros) into part[split] = [M1 * N1 | M2 * N2] f32. One block
-// an SM (two would leave ptxas 80 registers a thread, which the products
-// cannot take).
-constexpr int DW_THREADS = 384, DW_M = 128, DW_N = 192, DW_K = 64, DW_S = 4;
-constexpr int DW_A = DW_M * DW_K * 2, DW_B = DW_N * DW_K * 2;  // the P and Q chunks
-constexpr int DW_STAGE = DW_A + DW_B;
-constexpr int DW_BYTES = DW_S * DW_STAGE + 2 * DW_S * 8 + 1024;
-constexpr int BOX = 64 * 64 * 2;  // one 64 x 64 box
-
-__global__ void __launch_bounds__(DW_THREADS, 1)
-    dw_gemm_kernel(const __grid_constant__ CUtensorMap mp1, const __grid_constant__ CUtensorMap mq1,
-                   const __grid_constant__ CUtensorMap mp2, const __grid_constant__ CUtensorMap mq2,
-                   float* __restrict__ part, int m1, int n1, int m2, int n2, int n_rows,
-                   int rows_per_split, int splits) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = hopper::align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + DW_S * DW_STAGE);
-  uint64_t* empty = full + DW_S;
-  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
-  const int split = blockIdx.x % splits, tile = blockIdx.x / splits;
-  const int tiles1 = (m1 + DW_M - 1) / DW_M * ((n1 + DW_N - 1) / DW_N);
-  const bool second = tile >= tiles1;
-  const int m = second ? m2 : m1, n = second ? n2 : n1, t = second ? tile - tiles1 : tile;
-  const int tn = (n + DW_N - 1) / DW_N;
-  const int m0 = t / tn * DW_M, n0 = t % tn * DW_N;
-  const int r0 = split * rows_per_split;
-  const int chunks = (max(0, min(rows_per_split, n_rows - r0)) + DW_K - 1) / DW_K;
-  if (tid == 0) {
-    for (int s = 0; s < DW_S; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 8);
-    }
-    hopper::fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 2) {  // producer
-    hopper::setmaxnreg_dec<PRODUCER_REGS>();
-    if (tid == 256) {
-      const CUtensorMap* mp = second ? &mp2 : &mp1;
-      const CUtensorMap* mq = second ? &mq2 : &mq1;
-      for (int c = 0; c < chunks; ++c) {
-        const int s = c % DW_S, r = r0 + c * DW_K;
-        hopper::mbar_wait(&empty[s], ((c / DW_S) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], DW_STAGE);
-        uint8_t* st = sm + s * DW_STAGE;
-        for (int b = 0; b < DW_M / 64; ++b)
-          hopper::tma_load_2d(st + b * BOX, mp, &full[s], m0 + 64 * b, r);
-        for (int b = 0; b < DW_N / 64; ++b)
-          hopper::tma_load_2d(st + DW_A + b * BOX, mq, &full[s], n0 + 64 * b, r);
-      }
-    }
-    return;
-  }
-
-  hopper::setmaxnreg_inc<CONSUMER_REGS>();
-  const int warp = (tid % 128) / 32, g = lane >> 2, t4 = lane & 3;
-  float acc[DW_N / 2];
-#pragma unroll
-  for (int i = 0; i < DW_N / 2; ++i) acc[i] = 0.f;
-  const uint32_t sbase = hopper::smem_u32(sm);
-  for (int c = 0; c < chunks; ++c) {
-    const int s = c % DW_S;
-    hopper::mbar_wait(&full[s], (c / DW_S) & 1);
-    // A: this consumer's 64 columns of the P chunk (one box); B: the Q
-    // chunk's DW_N columns, boxes BOX bytes apart. Both MN-major: K runs
-    // down the chunk's rows.
-    uint32_t a0 = sbase + s * DW_STAGE + wg * BOX, b0 = sbase + s * DW_STAGE + DW_A;
-    asm volatile("" : "+r"(a0), "+r"(b0));
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DW_K / 16; ++kk) {
-      const uint64_t da = hopper::desc_mnmajor_at<128>(a0 + kk * 16 * 128, BOX);
-      const uint64_t db = hopper::desc_mnmajor_at<128>(b0 + kk * 16 * 128, BOX);
-      hopper::wgmma_sst<DW_N, 1, 1>(acc, da, db, 1);
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();  // the previous chunk's products: its slot is free
-    if (c > 0 && lane == 0) hopper::mbar_arrive(&empty[(c - 1) % DW_S]);
-  }
-  hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc);
-  float* out = part + (size_t)split * ((size_t)m1 * n1 + (size_t)m2 * n2) +
-               (second ? (size_t)m1 * n1 : 0);
-  const int ra = m0 + 64 * wg + 16 * warp + g, rb = ra + 8;
-#pragma unroll
-  for (int j = 0; j < DW_N / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * t4;
-    if (col < n) {
-      if (ra < m) *reinterpret_cast<float2*>(out + (size_t)ra * n + col) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-      if (rb < m) *reinterpret_cast<float2*>(out + (size_t)rb * n + col) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
-}
-
-// Column sums of block partials, up to four (part [n_parts][width] -> out
-// [width]; a null out is skipped), blockIdx.y the one: 32 columns a block,
-// its eight warps take every eighth part in order and their sums are added
-// in warp order (deterministic).
-struct ColSums {
-  const float* part[4];
-  float* out[4];
-  int width[4];
-};
-
-__global__ void __launch_bounds__(256) col_sums_kernel(ColSums a, int n_parts) {
-  __shared__ float s[8][32];
-  const int y = blockIdx.y, lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int width = a.width[y], c = blockIdx.x * 32 + lane;
-  if (a.out[y] == nullptr || blockIdx.x * 32 >= width) return;  // the whole block
-  float v = 0.f;
-  if (c < width)
-    for (int p = w; p < n_parts; p += 8) v += a.part[y][(size_t)p * width + c];
-  s[w][lane] = v;
-  __syncthreads();
-  if (w == 0 && c < width) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) t += s[i][lane];
-    a.out[y][c] = t;
-  }
-}
-
-// dW1 and dW2 from the dw_gemm_kernel's split partials, splits in order.
-__global__ void __launch_bounds__(256)
-    split_sums_kernel(const float4* __restrict__ part, int splits, int n1, int n,
-                      float4* __restrict__ out1, float4* __restrict__ out2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float4 s = part[i];
-  for (int p = 1; p < splits; ++p) {
-    const float4 v = part[(size_t)p * n + i];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  if (i < n1)
-    out1[i] = s;
-  else
-    out2[i - n1] = s;
-}
-
-template <typename K>
-int raise_smem(K kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // Both backwards: the row kernel, the block partials' sums, then dW1 = dg^T
 // xn (xn is x itself without LN) and dW2 = dy_eff^T h, and their sums.
 template <int D, bool LN_IN>
@@ -1307,8 +1090,9 @@ int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, cons
   ColSums cs = {{p_db1, p_cols, p_cols + (size_t)nb * D, p_cols + (size_t)2 * nb * D},
                 {(float*)db1, LN_IN ? (float*)dgamma : nullptr, LN_IN ? (float*)dbeta : nullptr,
                  (float*)db2},
-                {hidden, D, D, D}};
-  col_sums_kernel<<<dim3((std::max(hidden, D) + 31) / 32, 4), 256, 0, s>>>(cs, nb);
+                {hidden, D, D, D},
+                {nb, nb, nb, nb}};
+  col_sums_kernel<<<dim3((std::max(hidden, D) + 31) / 32, 4), 256, 0, s>>>(cs);
   if ((err = (int)cudaGetLastError())) return err;
 
   CUtensorMap mp1, mq1, mp2, mq2;

@@ -130,8 +130,8 @@ _SIGNATURES = {
     "ibk_fused_mlp_int8": (_P,) * 9 + (_I, _I, _I, _P),
     "ibk_fused_mlp": (_P,) * 8 + (_I, _I, _I, _P),
     "ibk_fused_mlp_bwd": (_P,) * 15 + (_I, _I, _I, _P),
-    "ibk_fused_ln_dense": (_P,) * 6 + (_I, _I, _F, _I, _P),
-    "ibk_fused_ln_dense_bwd": (_P,) * 14 + (_I, _I, _F, _I, _I, _P),
+    "ibk_fused_ln_dense": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
+    "ibk_fused_ln_dense_bwd": (_P,) * 14 + (_I, _I, _I, _F, _I, _I, _P),
     "ibk_patch_embed": (_P,) * 4 + (_I,) * 7 + (_P,),
     "ibk_flash_attn_fwd": (_P,) * 5 + (_I,) * 5 + (_L,) * 6 + (_F, _P),
     "ibk_flash_attn_bwd": (_P,) * 9 + (_I,) * 5 + (_L,) * 9 + (_F, _P),

@@ -16,8 +16,13 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .fused_ln_mlp import GELU_MODES, gelu, gelu_erf_grad
+from .fused_ln_mlp import GELU_MODES, dw_splits, dw_tiles, gelu, gelu_erf_grad
 from .layernorm import layernorm_plain
+
+WIDTHS = (384, 192)  # model widths the kernels are built for (ViT-S, ViT-Ti)
+DOUT_STEP = 64       # Dout is a multiple of a TMA box's 64 columns
+FWD_TILE = 192       # the forward kernel's column tile: it reads the bias a tile at a time
+ROWS = 128           # rows of a row kernel's block
 
 
 def fused_ln_dense_plain(x, gamma, beta, w, bias, eps: float = 1e-6,
@@ -37,8 +42,9 @@ def _check_args(x, gamma, beta, w, bias, name):
     d, dout = x.shape[-1], w.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"{name}: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d == 384, f"{name} kernel is built for D=384, got {d}")
-    require(dout % 64 == 0 and dout > 0, f"{name}: Dout {dout} not a multiple of 64")
+    require(d in WIDTHS, f"{name} kernel is built for D in {WIDTHS}, got {d}")
+    require(dout % DOUT_STEP == 0 and dout > 0,
+            f"{name}: Dout {dout} not a multiple of {DOUT_STEP}")
     require(w.device == x.device and w.dtype == torch.bfloat16
             and tuple(w.shape) == (dout, d) and w.is_contiguous(),
             f"{name}: w must be contiguous bf16 {(dout, d)}")
@@ -50,9 +56,9 @@ def _check_args(x, gamma, beta, w, bias, name):
 
 def fused_ln_dense(x, gamma, beta, w, bias, eps: float = 1e-6,
                    gelu_mode: str | None = None):
-    """[GELU](LN(x) w^T + bias) of a contiguous bf16 [..., 384] CUDA tensor
-    (gamma, beta, bias f32; w bf16 [Dout, 384], Dout a multiple of 64) ->
-    bf16 [..., Dout]. CPU tensors take :func:`fused_ln_dense_plain`."""
+    """[GELU](LN(x) w^T + bias) of a contiguous bf16 [..., D] CUDA tensor, D
+    384 or 192 (gamma, beta, bias f32; w bf16 [Dout, D], Dout a multiple of
+    64) -> bf16 [..., Dout]. CPU tensors take :func:`fused_ln_dense_plain`."""
     if gelu_mode is not None and gelu_mode not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu_mode!r} not in (None, *{GELU_MODES})")
     if x.device.type == "cpu":
@@ -61,9 +67,11 @@ def fused_ln_dense(x, gamma, beta, w, bias, eps: float = 1e-6,
     d, dout = x.shape[-1], w.shape[0]
     y = torch.empty(x.shape[:-1] + (dout,), dtype=x.dtype, device=x.device)
     mode = -1 if gelu_mode is None else GELU_MODES.index(gelu_mode)
+    if dout % FWD_TILE:  # a last partial tile: the bias padded to whole tiles
+        bias = torch.nn.functional.pad(bias, (0, -dout % FWD_TILE))
     err = kernels().ibk_fused_ln_dense(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), x.numel() // d, dout, float(eps), mode, stream_ptr(x))
+        y.data_ptr(), x.numel() // d, d, dout, float(eps), mode, stream_ptr(x))
     check_launch(err, "fused_ln_dense")
     return y
 
@@ -103,13 +111,6 @@ def _train_gelu(gelu_mode):
                          f"not {gelu_mode!r}")
 
 
-def _splits(dout: int, d: int, n: int) -> int:
-    """Row splits of the dW product: about 1024 blocks of 64 x 64 outputs,
-    at most one a 64-row chunk."""
-    tiles = (dout // 64) * (d // 64)
-    return max(1, min(64, -(-1024 // tiles), -(-n // 64)))
-
-
 def fused_ln_dense_bwd(x, gamma, beta, w, bias, dy, eps: float = 1e-6,
                        gelu_mode: str | None = None):
     """Backward kernels; returns what :func:`fused_ln_dense_bwd_plain` does.
@@ -129,17 +130,20 @@ def fused_ln_dense_bwd(x, gamma, beta, w, bias, dy, eps: float = 1e-6,
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    splits = _splits(dout, d, n)
+    # the dW product's row splits (dw_gemm_kernel), and the f32 partials:
+    # its split partials, or (before it) the row kernel's per-consumer db
+    # and per-block dgamma and dbeta partials
+    splits = dw_splits(n, dw_tiles(dout, d), dev)
     dx = torch.empty_like(x)
     dgamma, dbeta, dw, db = f32(d), f32(d), f32(dout, d), f32(dout)
-    part = f32(max(splits * dout * d, (n + 63) // 64 * (dout + 2 * d)))
+    part = f32(max(splits * dout * d, 2 * -(-n // ROWS) * (dout + d)))
     xn_ws = torch.empty(n, d, dtype=torch.bfloat16, device=dev)
     dg_ws = torch.empty(n, dout, dtype=torch.bfloat16, device=dev) if gelu_mode else None
     err = kernels().ibk_fused_ln_dense_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(), bias.data_ptr(),
         dy.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dw.data_ptr(),
         db.data_ptr(), xn_ws.data_ptr(), None if dg_ws is None else dg_ws.data_ptr(),
-        part.data_ptr(), n, dout, float(eps), -1 if gelu_mode is None else 0, splits,
+        part.data_ptr(), n, d, dout, float(eps), -1 if gelu_mode is None else 0, splits,
         stream_ptr(x))
     check_launch(err, "fused_ln_dense_bwd")
     return dx, dgamma, dbeta, dw, db

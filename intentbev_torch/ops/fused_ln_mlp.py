@@ -202,18 +202,28 @@ def fused_ln_mlp_train(x, gamma, beta, w1, b1, w2, b2, gate=None, eps: float = 1
 DW_TILE = (128, 192)  # output tile (M, N) of the backward's dW products
 
 
-def ln_mlp_bwd_splits(n: int, d: int, hidden: int, device) -> int:
-    """Row splits of the backward's dW products (``dw_gemm_kernel``: dW1
-    [hidden, d] and dW2 [d, hidden] in 128 x 192 output tiles, one block an
-    SM): the fewest waves of the card's SMs that tiles x splits fills to at
-    least 90 %; each split writes an f32 partial."""
+def dw_tiles(m: int, n: int) -> int:
+    """Output tiles of one dW product [m, n] (``dw_gemm_kernel``)."""
     tm, tn = DW_TILE
-    tiles = -(-hidden // tm) * -(-d // tn) + -(-d // tm) * -(-hidden // tn)
+    return -(-m // tm) * -(-n // tn)
+
+
+def dw_splits(n: int, tiles: int, device) -> int:
+    """Row splits of the dW products over n rows (``dw_gemm_kernel``, one
+    block an SM, ``tiles`` output tiles in all): the fewest waves of the
+    card's SMs that tiles x splits fills to at least 90 %; each split writes
+    an f32 partial."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     waves = 1
     while (waves * sms // tiles) * tiles < 0.9 * waves * sms and waves < 8:
         waves += 1
     return max(1, min(waves * sms // tiles, -(-n // 64)))
+
+
+def ln_mlp_bwd_splits(n: int, d: int, hidden: int, device) -> int:
+    """Row splits of the backward's dW products: dW1 [hidden, d] and dW2
+    [d, hidden] in one launch."""
+    return dw_splits(n, dw_tiles(hidden, d) + dw_tiles(d, hidden), device)
 
 
 def bwd_workspace(n: int, d: int, hidden: int, splits: int, device):

@@ -44,7 +44,13 @@ Hopper LN+MLP backward (the row kernel and the dW products) runs at 1 to
 36008 rows, gated, ungated and with dropped rows, D=384 and 192 with LN and
 384 without; dx is also read by the share of elements that differ, which a
 dg kept in f32 before the dxn product must move, and two calls must give the
-same bits.
+same bits. The Hopper LN + dense pair (row 14, forward and backward) runs
+at 1 to 36008 rows, D=384 and 192, qkv (Dout 3D, no GELU) and the adapter
+(Dout 192, each GELU its entry takes), and at Dout 64, 128 and 320 (the
+forward's last 192-wide column tile partial): y's and dx's shares of
+differing elements (controls: xn kept in f32 before the product; dg kept
+in f32 before dxn, or without GELU dxn rounded before the LN backward), and
+two calls give the same bits.
 """
 
 import importlib
@@ -611,21 +617,76 @@ def test_fused_mlp(dev, rows, gelu):
     assert _rel(got, ctrl) >= MLP_LIMIT  # control: b1 left out
 
 
-@pytest.mark.parametrize("rows,dout,gelu", [(100, 3 * D, None), (MAIN_ROWS, 3 * D, None),
-                                            (100, D // 2, "erf"), (8 * 4500, D // 2, "sigmoid")])
-def test_fused_ln_dense(dev, rows, dout, gelu):
-    x = _randn((rows, D), 1.5, 0) + 0.3
-    g = _randn((D,), 0.2, 1, torch.float32) + 1
-    b = _randn((D,), 0.2, 2, torch.float32)
-    w = _randn((dout, D), D ** -0.5, 3)
+# Row 14 (the LN + dense pair, csrc/fused_ln_dense.cu): 128-row blocks, so
+# row counts below, at and past a block and one not a multiple of it (the
+# adapter's 36000, qkv's 36008); D = 384 and 192; Dout = 3D (qkv, no GELU)
+# and 192 (the adapter: the erf GELU of training, the serving sigmoid one).
+LN_DENSE_ROWS = [1, 100, 300, 8 * 4500, MAIN_ROWS]
+LN_DENSE_CASES = [(3, None), (1, "erf"), (1, "sigmoid")]  # (Dout: 3D, or 192; GELU)
+
+
+def _ln_dense_inputs(rows, d, dout):
+    x = _randn((rows, d), 1.5, 0) + 0.3
+    g = _randn((d,), 0.2, 1, torch.float32) + 1
+    b = _randn((d,), 0.2, 2, torch.float32)
+    w = _randn((dout, d), d ** -0.5, 3)
     bias = _randn((dout,), 0.1, 4, torch.float32)
+    return x, g, b, w, bias
+
+
+def _xn_f32(x, g, b, w, bias, gelu):
+    """Control fault: y with xn kept in f32 before the product (the kernel and
+    JAX round it to bf16 there)."""
+    from intentbev_torch.ops.fused_ln_mlp import gelu as gelu_fn
+
+    y = layernorm_plain(x.float(), g, b) @ w.float().t() + bias
+    return (gelu_fn(y, gelu) if gelu else y).to(x.dtype)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dout_x,gelu", LN_DENSE_CASES)
+@pytest.mark.parametrize("rows", LN_DENSE_ROWS)
+def test_fused_ln_dense(dev, rows, dout_x, gelu, d):
+    """The Hopper forward against its plain version: relative L2 (control:
+    the GELU epilogue skipped, or without GELU the bias left out), the share
+    of y's elements that differ (control: xn kept in f32 before the product),
+    read from 100 rows on (a row's share is one sample of a spread), and two
+    calls give the same bits."""
+    _check_ln_dense(rows, 3 * d if dout_x == 3 else 192, gelu, d)
+
+
+# Dout a multiple of 64 but not of the forward's 192-wide column tile (an
+# adapter width a checkpoint may give): the forward's last tile is partial
+LN_DENSE_NARROW = [64, 128, 320]
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("gelu", [None, "erf", "sigmoid"])
+@pytest.mark.parametrize("dout", LN_DENSE_NARROW)
+@pytest.mark.parametrize("rows", [300, MAIN_ROWS])
+def test_fused_ln_dense_narrow(dev, rows, dout, gelu, d):
+    """The forward at a Dout whose last column tile is partial: the checks
+    of :func:`test_fused_ln_dense`."""
+    _check_ln_dense(rows, dout, gelu, d)
+
+
+def _check_ln_dense(rows, dout, gelu, d):
+    x, g, b, w, bias = _ln_dense_inputs(rows, d, dout)
+    reset_launch_counts()
     got = fused_ln_dense(x, g, b, w, bias, gelu_mode=gelu)
+    again = fused_ln_dense(x, g, b, w, bias, gelu_mode=gelu)
+    assert launches["fused_ln_dense"] == 2
     assert got.shape == (rows, dout)
-    assert _rel(got, fused_ln_dense_plain(x, g, b, w, bias, gelu_mode=gelu)) < LN_DENSE_LIMIT
-    # control: the GELU epilogue skipped, or (no GELU) the bias left out
+    want = fused_ln_dense_plain(x, g, b, w, bias, gelu_mode=gelu)
+    assert _rel(got, want) < LN_DENSE_LIMIT
     ctrl = (fused_ln_dense_plain(x, g, b, w, bias) if gelu else
             fused_ln_dense_plain(x, g, b, w, torch.zeros_like(bias)))
     assert _rel(got, ctrl) >= LN_DENSE_LIMIT
+    if rows >= 100:
+        assert _share(got, want) < MLP_SHARE, _share(got, want)
+        ctrl = _xn_f32(x, g, b, w, bias, gelu)
+        assert _share(got, ctrl) >= MLP_SHARE, _share(got, ctrl)
+    assert torch.equal(got, again)  # deterministic
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 96, 290), (8, 400, 720, 290)])
@@ -690,22 +751,66 @@ def ln_dense_bwd_no_m2(x, g, b, w, bias, dy):
     return (layernorm_bwd_no_m2(dxn, xhat, inv, g)[0].to(x.dtype), dgamma, dbeta, dw, db)
 
 
-@pytest.mark.parametrize("rows,dout,gelu", [(100, 3 * D, None), (MAIN_ROWS, 3 * D, None),
-                                            (100, D // 2, "erf"), (8 * 4500, D // 2, "erf")])
-def test_fused_ln_dense_bwd(dev, rows, dout, gelu, monkeypatch):
-    x = _randn((rows, D), 1.5, 0) + 0.3
-    g = _randn((D,), 0.2, 1, torch.float32) + 1
-    b = _randn((D,), 0.2, 2, torch.float32)
-    w = _randn((dout, D), D ** -0.5, 3)
-    bias = _randn((dout,), 0.1, 4, torch.float32)
+def _ln_dense_dx_moved(x, g, b, w, bias, dy, gelu):
+    """Control fault for dx's share: with GELU, dg kept in f32 before the
+    dxn product; without it (dg = dy, already bf16), dxn rounded to bf16
+    before the LN backward (the kernel and JAX keep it in f32)."""
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-6)
+    xhat = xc * inv
+    dg = dy.float()
+    if gelu:
+        from intentbev_torch.ops.fused_ln_mlp import gelu_erf_grad
+
+        xn = (xhat * g + b).to(x.dtype).float()
+        dg = dg * gelu_erf_grad(xn @ w.float().t() + bias)
+    dxn = dg @ w.float()
+    if not gelu:
+        dxn = dxn.to(x.dtype).float()
+    dyg = dxn * g
+    dx = inv * (dyg - dyg.mean(-1, keepdim=True) - xhat * (dyg * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dout_x,gelu", LN_DENSE_CASES[:2])
+@pytest.mark.parametrize("rows", LN_DENSE_ROWS)
+def test_fused_ln_dense_bwd(dev, rows, dout_x, gelu, d, monkeypatch):
+    """The Hopper backward (the row kernel, the dW product, the partial
+    sums) against its plain version: every output's relative L2 (control:
+    GELU' skipped, or without GELU the LN backward without its m2 term),
+    dx's share of differing elements from 100 rows on (control: a rounding
+    point moved, ``_ln_dense_dx_moved``), and two calls give the same bits."""
+    _check_ln_dense_bwd(rows, 3 * d if dout_x == 3 else 192, gelu, d, monkeypatch)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("gelu", [None, "erf"])
+@pytest.mark.parametrize("dout", LN_DENSE_NARROW)
+@pytest.mark.parametrize("rows", [300, MAIN_ROWS])
+def test_fused_ln_dense_bwd_narrow(dev, rows, dout, gelu, d, monkeypatch):
+    """The backward at a Dout that is not a multiple of 192 (the dW
+    product's last 128-row tile partial at 64 and 320): the checks of
+    :func:`test_fused_ln_dense_bwd`."""
+    _check_ln_dense_bwd(rows, dout, gelu, d, monkeypatch)
+
+
+def _check_ln_dense_bwd(rows, dout, gelu, d, monkeypatch):
+    x, g, b, w, bias = _ln_dense_inputs(rows, d, dout)
     dy = _randn((rows, dout), 1.0, 5)
     reset_launch_counts()
     got = fused_ln_dense_bwd(x, g, b, w, bias, dy, gelu_mode=gelu)
-    assert launches["fused_ln_dense_bwd"] == 1
-    assert [tuple(t.shape) for t in got] == [(rows, D), (D,), (D,), (dout, D), (dout,)]
+    again = fused_ln_dense_bwd(x, g, b, w, bias, dy, gelu_mode=gelu)
+    assert launches["fused_ln_dense_bwd"] == 2
+    assert [tuple(t.shape) for t in got] == [(rows, d), (d,), (d,), (dout, d), (dout,)]
     want = fused_ln_dense_bwd_plain(x, g, b, w, bias, dy, gelu_mode=gelu)
     assert max(_rels(got, want)) < LN_DENSE_BWD_LIMIT, _rels(got, want)
-    # control: GELU' skipped, or (no GELU) the LN backward without its m2 term
+    if rows >= 100:
+        assert _share(got[0], want[0]) < BWD_SHARE, _share(got[0], want[0])
+        moved = _ln_dense_dx_moved(x, g, b, w, bias, dy, gelu)
+        assert _share(got[0], moved) >= BWD_SHARE, _share(got[0], moved)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))  # deterministic
     if gelu:
         _gelu_grad_skipped(monkeypatch, "fused_ln_dense")
         ctrl = fused_ln_dense_bwd_plain(x, g, b, w, bias, dy, gelu_mode=gelu)

@@ -17,18 +17,27 @@ and the backward entries on the same tensors (``--only bwd``):
 - ``fused_mlp_bwd``: row 13's backward, the MLP without LN (configuration
   C), gated, at D=384.
 
+and row 14, the LN + dense pair (``--only ln_dense``; configuration B), at
+D=384 and 192: ``fused_ln_dense`` as the qkv projection (Dout 3D, no GELU;
+36008 rows) and as an adapter (Dout 192, 36000 rows; the serving sigmoid and
+the training erf GELU), and ``fused_ln_dense_bwd`` for both (the adapter's
+with the erf GELU).
+
 For each case: CUDA-event ms per call (``--iters`` calls after one), TFLOP/s
-of its operations (forward 4*N*D*H; backward the 5 products, 10*N*D*H), the
-bound at 989 TFLOP/s bf16, the plain version's ms, and the ms of the same
-function as a chain of PyTorch calls in bf16 (``F.layer_norm``,
-``F.linear``, the GELU, ``F.linear``, the residual; cuBLAS's GEMMs; for a
-backward, ``torch.autograd.grad`` through that chain), a yardstick the port
-never calls; then each output's relative L2 and share of differing elements
+of its operations (forward 4*N*D*H; backward the 5 products, 10*N*D*H; row
+14 2*N*D*Dout a product: one forward, two or three backward), the bound (at
+989 TFLOP/s bf16 or, for row 14 where it is larger, its bytes at 3.35
+TB/s), the plain version's ms, and the ms of the same function as a chain
+of PyTorch calls in bf16 (``F.layer_norm``, ``F.linear``, the GELU,
+``F.linear``, the residual; cuBLAS's GEMMs; for a backward,
+``torch.autograd.grad`` through that chain), a yardstick the port never
+calls; then each output's relative L2 and share of differing elements
 against the plain version. A backward's line also splits its device time by
 kernel from a profiler trace: the row kernel, the dW products and the
-partial sums.
+partial sums. A case the tree's kernels refuse (row 14 at D=192 before
+they took it) prints its error in place of its numbers.
 
-    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd]   # a JSON line a case
+    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd|ln_dense]   # a JSON line a case
 
 It imports no JAX and runs as it stands on an older checkout of the port
 (the entries' signatures are unchanged), so that one call can time two
@@ -46,20 +55,23 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("fwd", "bwd"), default=None,
-                    help="only the forward or only the backward cases")
+    ap.add_argument("--only", choices=("fwd", "bwd", "ln_dense"), default=None,
+                    help="only the LN+MLP forward or backward cases, or only row 14's")
     args = ap.parse_args()
 
     import torch
     import torch.nn.functional as F
 
-    from intentbev_torch.ops import (fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
+    from intentbev_torch.ops import (fused_ln_dense, fused_ln_dense_bwd,
+                                     fused_ln_dense_bwd_plain, fused_ln_dense_plain,
+                                     fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
                                      fused_ln_mlp_plain, fused_ln_mlp_train,
                                      fused_ln_mlp_train_plain, fused_mlp, fused_mlp_bwd,
                                      fused_mlp_bwd_plain, fused_mlp_plain)
@@ -107,21 +119,29 @@ def main() -> None:
             if ev.device_type != DeviceType.CUDA:
                 continue
             key = ("dW" if "dw_gemm" in ev.key or "gemm_at_b" in ev.key else
-                   "rows" if "bwd_rows" in ev.key or "ln_mlp_bwd_kernel" in ev.key else
+                   "rows" if any(k in ev.key for k in ("bwd_rows", "ln_mlp_bwd_kernel",
+                                                       "ln_dense_bwd_kernel")) else
                    "sums" if "sum" in ev.key else "other")
             parts[key] += ev.device_time_total / 1e3 / iters
         return {k: round(v, 4) for k, v in parts.items()}
 
-    def report(name, kern, plain, reference, flops, split=False):
-        got, want = tup(kern()), tup(plain())
+    def report(name, kern, plain, reference, flops, split=False, n_bytes=0):
+        try:
+            got = tup(kern())
+        except ValueError as e:  # a case this tree's kernels refuse (`require`)
+            print(json.dumps({"name": name, "error": str(e), "card": card}), flush=True)
+            return
+        want = tup(plain())
         readings = {"rel_l2": [float((a.double() - b.double()).norm() / b.double().norm())
                                for a, b in zip(got, want)],
                     "share_differing": [float((a != b).float().mean())
                                         for a, b in zip(got, want)]}
         del got, want
         ms = event_ms(kern)
+        bounds = {"operations": flops / BF16_FLOPS_PER_S, "bytes": n_bytes / HBM_BYTES_PER_S}
+        by = max(bounds, key=bounds.get)
         line = {"name": name, "ms": round(ms, 4), "tflops": round(flops / ms / 1e9, 1),
-                "bound_ms": round(flops / BF16_FLOPS_PER_S * 1e3, 4),
+                "bound_ms": round(bounds[by] * 1e3, 4), "bound_by": by,
                 "plain_ms": round(event_ms(plain), 4),
                 "reference_ms": round(event_ms(reference), 4), **readings, "card": card}
         if split:
@@ -176,9 +196,49 @@ def main() -> None:
                    lambda: fused_mlp_bwd_plain(*mlp_args_), chain_grads(False),
                    5 * flops // 2, split=True)
 
+    def ln_dense_cases(d, tag):
+        """Row 14 at width d: qkv and an adapter, forward and backward."""
+        g, b = randn((d,), 0.2, torch.float32) + 1, randn((d,), 0.2, torch.float32)
+        g16, b16 = g.bfloat16(), b.bfloat16()
+        for case, n, dout, modes, bwd_mode in (("qkv", ROWS, 3 * d, (None,), None),
+                                               ("adapter", 8 * 4500, 192, ("sigmoid", "erf"),
+                                                "erf")):
+            x = randn((n, d), 1.0)
+            w, bias = randn((dout, d), d ** -0.5), randn((dout,), 0.1, torch.float32)
+            bias16 = bias.bfloat16()
+            flops = 2 * n * d * dout
+
+            def chain(xr, wr, br, mode, g_=g16, b_=b16):  # [GELU](F.linear(F.layer_norm(x)))
+                y = F.linear(F.layer_norm(xr, (d,), g_, b_, 1e-6), wr, br)
+                return gelu16(y, mode) if mode else y
+
+            with torch.no_grad():
+                for mode in modes:
+                    report(f"fused_ln_dense[{case}, {mode or 'no GELU'}]{tag}",
+                           lambda mode=mode: fused_ln_dense(x, g, b, w, bias, gelu_mode=mode),
+                           lambda mode=mode: fused_ln_dense_plain(x, g, b, w, bias,
+                                                                  gelu_mode=mode),
+                           lambda mode=mode: chain(x, w, bias16, mode), flops,
+                           n_bytes=2 * (n * d + n * dout + dout * d) + 4 * (2 * d + dout))
+            dy = randn((n, dout), 1.0)
+            leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, bias16, g16, b16)]
+            out = chain(leaves[0], leaves[1], leaves[2], bwd_mode, leaves[3], leaves[4])
+            bwd_args = (x, g, b, w, bias, dy)
+            report(f"fused_ln_dense_bwd[{case}, {bwd_mode or 'no GELU'}]{tag}",
+                   lambda: fused_ln_dense_bwd(*bwd_args, gelu_mode=bwd_mode),
+                   lambda: fused_ln_dense_bwd_plain(*bwd_args, gelu_mode=bwd_mode),
+                   lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True),
+                   (3 if bwd_mode else 2) * flops, split=True,
+                   n_bytes=2 * (2 * n * d + n * dout + dout * d) + 4 * (dout * d + dout + 2 * d))
+            del x, dy, out, leaves
+            torch.cuda.empty_cache()
+
     keep = (torch.rand(8, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
     gate = keep.expand(8, ROWS // 8).reshape(ROWS).contiguous()  # per sample, as drop-path
     for d, tag in ((384, ""), (192, "[D=192]")):
+        if args.only == "ln_dense":
+            ln_dense_cases(d, tag)
+            continue
         hid = 4 * d
         x, res = randn((ROWS, d), 1.0), randn((ROWS, d), 1.0)
         ln = [randn((d,), 0.2, torch.float32) + (1 - i % 2) for i in range(4)]

@@ -15,7 +15,7 @@ names, which ``main()`` reads once and passes down as the model's
     python3 tools/bench_train_torch.py --remat                  # TrainConfig.remat_vit_blocks
     python3 tools/bench_train_torch.py --model cnn --transport chunks
     python3 tools/bench_train_torch.py --trace [--top 18]      # device time by kernel group
-    python3 tools/bench_train_torch.py --vit-config unfused_ln  # or ln_dense, tiny
+    python3 tools/bench_train_torch.py --vit-config unfused_ln  # or ln_dense, tiny, tiny_ln_dense
 
 ``INTENTBEV_BWD_LANE_BLOCK`` and ``INTENTBEV_BWD_BLOCK`` group the TPU
 kernels' tiles and change no arithmetic; the port has no counterpart and
@@ -152,10 +152,10 @@ def main() -> None:
                     help="'chunks' feeds host-built augmented voxel chunks, so the device "
                          "step skips the scatter-max voxelizer")
     ap.add_argument("--vit-config", default="default",
-                    choices=("default", "ln_dense", "unfused_ln", "tiny"),
+                    choices=("default", "ln_dense", "unfused_ln", "tiny", "tiny_ln_dense"),
                     help="the ViT's kernel switches (tools/profile_torch_slice.py's "
                          "--vit-config): B fuse_ln_dense, C use_fused_layernorm=False, "
-                         "or ViT-Ti's widths")
+                         "ViT-Ti's widths, or ViT-Ti under B")
     args = ap.parse_args()
     # the JAX package's knobs, read here once (intentbev/ops/flash_packed.py:73, :84)
     bwd_fused = os.environ.get("INTENTBEV_BWD_FUSED", "1") == "1"

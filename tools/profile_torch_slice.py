@@ -4,7 +4,7 @@ PyTorch port, on one CUDA card.
     python3 tools/profile_torch_slice.py [--model vit|cnn] [--requests 4] [--out DIR]
     python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed,tiny}
     python3 tools/profile_torch_slice.py --train [--model vit|cnn] [--out DIR]
-    python3 tools/profile_torch_slice.py --train --vit-config {ln_dense,unfused_ln,tiny}
+    python3 tools/profile_torch_slice.py --train --vit-config {ln_dense,unfused_ln,tiny,tiny_ln_dense}
     python3 tools/profile_torch_slice.py --experimental [--out DIR]
 
 Serving: drives ``intentbev_torch``'s ``StreamingInferencer``
@@ -26,7 +26,9 @@ draws it, resident on the device) and reports the wall time of each step
 group, the busy time and idle share of the step, and the device time of
 the kernels each of its spans launched (inputs, forward, loss, backward,
 optimizer; matched to their launch by the trace's correlation ids, as the
-device runs behind the host).
+device runs behind the host). The dW and partial-sum kernels that several
+backward entries share are also split by the row kernel launched before
+them on their stream (row 14's, row 7's, the LayerNorm backward's).
 
 ``--vit-config`` serves one of the ViT's other serving configurations
 (``intentbev_torch.parallel.VIT_SERVING_VARIANTS``: W8A8 ``int8``, the
@@ -38,7 +40,8 @@ switches of those configurations; the step's points transport). ``tiny``
 is the default configuration at ViT-Ti's widths (embed 192, 3 heads of 64,
 as ``intentbev/import_torch.py:235`` reads a timm ``vit_tiny`` checkpoint),
 served over chunks and trained as the default is; its attention runs the
-BHTD kernels.
+BHTD kernels. ``tiny_ln_dense`` is ViT-Ti under ``ln_dense``'s switches (the
+LN + dense pair at D=192).
 
 ``--model cnn`` profiles IntentNetCNN (``default_cnn_config()``, random
 seeded weights with BatchNorm statistics from a synthetic batch,
@@ -97,16 +100,18 @@ GROUPS = (
     ("ln_mlp_fwd_kernel<384, 0, false, false>", "fused_mlp (no LN)"),
     ("ln_mlp_fwd_kernel<384, 1, false, false>", "fused_mlp (no LN)"),
     ("ln_mlp_fwd_kernel", "fused_ln_mlp (serving or train forward)"),
-    ("fused_ln_dense_kernel", "fused_ln_dense"),
+    ("ln_dense_fwd_kernel", "fused_ln_dense"),
+    ("fused_ln_dense_kernel", "fused_ln_dense"),  # its mma.sync form, on older trees
     ("patch_embed_kernel", "patch_embed"),
     ("ln_mlp_bwd_kernel<384, false>", "fused_mlp_bwd (row kernel)"),
     ("ln_mlp_bwd_kernel", "fused_ln_mlp_bwd (row kernel)"),
-    ("dw_gemm_kernel", "LN+MLP / MLP backward dW (wgmma)"),
-    ("col_sums_kernel", "LN+MLP / MLP backward partial sums"),
-    ("split_sums_kernel", "LN+MLP / MLP backward partial sums"),
-    ("ln_dense_bwd_rows", "fused_ln_dense_bwd (row kernel)"),
-    ("gemm_at_b", "dW kernel gemm_at_b (LN+dense, projection backward)"),
-    ("sum_partials", "column partial sums (LN, LN+dense, projection backward)"),
+    ("ln_dense_bwd_kernel", "fused_ln_dense_bwd (row kernel)"),
+    ("ln_dense_bwd_rows", "fused_ln_dense_bwd (row kernel)"),  # its mma.sync form
+    ("dw_gemm_kernel", "LN+MLP / MLP / LN+dense backward dW (wgmma)"),
+    ("col_sums_kernel", "LN+MLP / MLP / LN+dense backward partial sums"),
+    ("split_sums_kernel", "LN+MLP / MLP / LN+dense backward partial sums"),
+    ("gemm_at_b", "dW kernel gemm_at_b (projection backward)"),
+    ("sum_partials", "column partial sums (LN, projection backward)"),
     ("layernorm_kernel", "layernorm"),
     ("layernorm_train_kernel", "layernorm_train"),
     ("layernorm_bwd_kernel", "layernorm_bwd"),
@@ -122,17 +127,23 @@ GROUPS = (
     ("sort", "sort / top-k"),
     ("topk", "sort / top-k"),
 )
+# kernels that several backward entries launch after their row kernel:
+# their device time is also split by that row kernel's group (shared_by_owner)
+SHARED = ("dw_gemm_kernel", "col_sums_kernel", "split_sums_kernel", "gemm_at_b",
+          "sum_partials")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TINY = dict(embed_dim=192, num_heads=3)  # ViT-Ti (intentbev/import_torch.py:235)
 
 
 def vit_config(cfg, name: str):
     """(config, transport) of ``--vit-config name``: a serving variant's
-    switches, or ``tiny``, ViT-Ti's widths over chunks."""
+    switches, ``tiny``, ViT-Ti's widths over chunks, or ``tiny_ln_dense``,
+    ViT-Ti under B's switches."""
     from intentbev_torch.parallel import vit_serving_variant
 
-    if name == "tiny":
-        return dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, **TINY)), "chunks"
+    if name.startswith("tiny"):
+        cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, **TINY))
+        return (cfg, "chunks") if name == "tiny" else vit_serving_variant(cfg, "ln_dense")
     return vit_serving_variant(cfg, name)
 
 
@@ -218,6 +229,25 @@ def device_groups(dev, span_of=None):
             dict(sorted(names.items(), key=lambda kv: -kv[1][0])[:15]))
 
 
+def shared_by_owner(dev) -> dict:
+    """Device ms and calls of each :data:`SHARED` kernel group by the group of
+    the kernel launched last before it on the same stream: an entry's row
+    kernel, since an entry launches its row kernel, dW product and sums
+    back to back (row 14's, row 7's and the LayerNorm backward's share the
+    dW and sums kernels)."""
+    out = collections.defaultdict(lambda: collections.defaultdict(lambda: [0.0, 0]))
+    owner = {}
+    for e in sorted((e for e in dev if e["cat"] == "kernel"), key=lambda e: e["ts"]):
+        stream = e.get("args", {}).get("stream", e.get("tid"))
+        if any(k in e["name"] for k in SHARED):
+            cell = out[owner.get(stream, "none")][group_of(e["name"])]
+            cell[0] += e["dur"] / 1e3
+            cell[1] += 1
+        else:
+            owner[stream] = group_of(e["name"])
+    return {k: dict(v) for k, v in out.items()}
+
+
 def instrument_cnn(model):
     """Wrap the CNN's first conv (and its projection) and every BatchNorm in
     profiler spans: ``cnn/first_conv``, ``cnn/bn``. Returns a function that
@@ -273,6 +303,9 @@ def first_conv_ms(model, lidar_nhwc) -> dict:
 
 
 def print_details(p) -> None:
+    for owner, shared in p["shared_by_owner_ms_calls"].items():
+        print(f"shared kernels after {owner}: " + "; ".join(
+            f"{g} {ms:.3f} ms / {n}" for g, (ms, n) in shared.items()))
     for span, kernels in p["span_kernels_ms_calls"].items():
         print(f"kernels launched in {span}:")
         for name, (ms, n) in kernels.items():
@@ -367,6 +400,7 @@ def profile_train(args, card) -> None:
             "groups_ms_calls": groups,
             "top_kernels_ms_calls": names,
             "span_kernels_ms_calls": span_kernels(dev, span_of),
+            "shared_by_owner_ms_calls": shared_by_owner(dev),
             "host_api_ms_calls": host_api_ms(events, lo, hi),
         },
     }
@@ -466,8 +500,10 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="profile a training step")
     ap.add_argument("--model", choices=("vit", "cnn"), default="vit")
     ap.add_argument("--vit-config", choices=("default", "int8", "ln_dense", "unfused_ln",
-                                             "patch_embed", "tiny"), default="default",
-                    help="the ViT configuration (training: ln_dense, unfused_ln or tiny)")
+                                             "patch_embed", "tiny", "tiny_ln_dense"),
+                    default="default",
+                    help="the ViT configuration (training: ln_dense, unfused_ln, tiny or "
+                         "tiny_ln_dense)")
     ap.add_argument("--experimental", action="store_true",
                     help="profile the library ops of ops.experimental")
     ap.add_argument("--out", default="chiprun_out/profile_slice")
@@ -592,6 +628,7 @@ def main() -> None:
             "groups_ms_calls": groups,
             "top_kernels_ms_calls": names,
             "span_kernels_ms_calls": span_kernels(dev, span_of),
+            "shared_by_owner_ms_calls": shared_by_owner(dev),
             "host_api_ms_calls": host_api_ms(events, fwd_lo, fwd_hi),
         },
     }
