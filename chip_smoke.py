@@ -33,7 +33,10 @@ Phases (each prints a line; any failure exits nonzero with no result):
    f32 before the product; dg kept in f32 before dxn, or without GELU dxn
    rounded before the LN backward), and prints the time of the same
    function as F.layer_norm, F.linear [+ the GELU] in bf16 (the backward by
-   autograd through them), a yardstick the port never calls.
+   autograd through them), a yardstick the port never calls. Row 17, the
+   W8A8 MLP, runs at D=384 and 192 (the instances the A paths launch), y
+   read by its relative L2 and its share of differing elements (controls:
+   one h scale per 32-row block; h rounded to bf16 before its codes).
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -91,7 +94,8 @@ Phases (each prints a line; any failure exits nonzero with no result):
     attention) serves 3 requests and trains: launch counts, logits and one
     step's gradients against the plain versions with controls, 3 timed
     steps. Then ViT-Ti under B ``fuse_ln_dense`` (the LN + dense pair at
-    D=192) serves one request and takes one timed train step, with the
+    D=192) serves one request and takes one timed train step, and under A
+    ``serving_int8`` (the W8A8 MLP at D=192) serves one request, with the
     checks and controls of phases 8 and 9.
 11. The flash backward's forms (JAX's split and chunked backwards, the
     model's ``bwd_fused=False`` and ``bwd_kv_chunk=1152``) and the packed
@@ -152,7 +156,8 @@ INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores
 # W8A8 the bf16 noise of 24 blocks flips int8 codes, which lifts the sound
 # reading to ~2e-2; the int8 kernel itself is exact against its plain
 # version (phase 3).
-CONFIG_LIMITS = {"A serving_int8": (2.3e-2,) * 3, **{name: (1.3e-2,) * 3 for name in (
+CONFIG_LIMITS = {**{name: (2.3e-2,) * 3 for name in ("A serving_int8", "Ti A serving_int8")},
+                 **{name: (1.3e-2,) * 3 for name in (
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
     "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense")}}
 
@@ -371,16 +376,20 @@ def main() -> None:
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def fused_mlp_int8_block_scale(x_, w1q_, s1_, b1_, w2q_, s2_, b2_, res_, mode, block=32):
-        # the control's fault: one scale of h per block of 32 rows, not per row
+    def fused_mlp_int8_faulty(x_, w1q_, s1_, b1_, w2q_, s2_, b2_, res_, mode, fault):
+        # the controls' faults: one scale of h per block of 32 rows, not per
+        # row ("block"); h rounded to bf16 before its codes ("h_bf16")
         xq, xs = quantize_rows(x_.reshape(-1, x_.shape[-1]))
         h = gelu_fn(int_matmul(xq, w1q_.t()) * xs * s1_ + b1_, mode)
         n = h.shape[0]
-        amax = F.pad(h.abs().amax(-1), (0, -n % block)).reshape(-1, block).amax(-1)
-        hs = amax.repeat_interleave(block)[:n, None].clamp(min=1e-8) / 127.0
-        hq = torch.clamp(torch.round(h / hs), -127, 127)
+        if fault == "h_bf16":
+            hq, hs = quantize_rows(h.bfloat16().float())
+        else:
+            amax = F.pad(h.abs().amax(-1), (0, -n % 32)).reshape(-1, 32).amax(-1)
+            hs = amax.repeat_interleave(32)[:n, None].clamp(min=1e-8) / 127.0
+            hq = torch.clamp(torch.round(h / hs), -127, 127)
         y = int_matmul(hq, w2q_.t()) * hs * s2_ + b2_ + res_.reshape(n, -1).float()
-        return y.to(x_.dtype).reshape(x_.shape)
+        return twice(y.to(x_.dtype).reshape(x_.shape))
 
     def h_f32(x_, w1_, b1_, w2_, b2_, mode, ln_=None, gate_=None, res_=None, ln_next=None):
         # the control's fault: h kept in f32 before fc2 (the plain forwards'
@@ -557,8 +566,12 @@ def main() -> None:
             o_[i] = oi.to(q_.dtype)
         return o_, lse_
     mlp_flops = 4 * rows * d * hidden
+    # row 17: y's relative L2 and share of differing elements (the kernel
+    # matches its plain version bit for bit; the controls move most of y)
+    INT8_METRICS, INT8_LIMITS = (rel_l2, share), (5e-4, 1e-3)
     pe_flops = 2 * batch * v.num_patches * v.patch_size ** 2 * v.lidar_input_channels * d
-    rates = {"fused_mlp_int8": INT8_OPS_PER_S}  # ops of another type than bf16
+    rates = {"fused_mlp_int8": INT8_OPS_PER_S,  # ops of another type than bf16
+             "fused_mlp_int8[D=192]": INT8_OPS_PER_S}
     cases = {
         # json name: (kernel call, plain call, control call, the control's
         #   fault, metrics, limits, kernel iters, plain iters, bytes, flops,
@@ -656,11 +669,12 @@ def main() -> None:
             "delta = rowsum(dO*O) left out", (rel_l2,) * 3, (1e-2,) * 3, 5, 2,
             nbytes(q, k, vv, o, do, lse) + nbytes(qkv), 5 * flash_flops // 2, lib_sdpa_bwd),
         "fused_mlp_int8": (
-            lambda: fused_mlp_int8(*int8_args, "sigmoid"),
-            lambda: fused_mlp_int8_plain(*int8_args, "sigmoid"),
-            lambda: fused_mlp_int8_block_scale(*int8_args, "sigmoid"),
-            "one h scale per 32-row block", (rel_l2,), (5e-4,), 10, 2,
-            nbytes(*int8_args) + nbytes(x), mlp_flops, None),
+            lambda: twice(fused_mlp_int8(*int8_args, "sigmoid")),
+            lambda: twice(fused_mlp_int8_plain(*int8_args, "sigmoid")),
+            [lambda: fused_mlp_int8_faulty(*int8_args, "sigmoid", "block"),
+             lambda: fused_mlp_int8_faulty(*int8_args, "sigmoid", "h_bf16")],
+            ["one h scale per 32-row block", "h rounded to bf16 before its codes"],
+            INT8_METRICS, INT8_LIMITS, 10, 2, nbytes(*int8_args) + nbytes(x), mlp_flops, None),
         "fused_mlp": (
             lambda: twice(fused_mlp(x8, w1, b1, w2, b2, x, gelu_mode="sigmoid")),
             lambda: twice(fused_mlp_plain(x8, w1, b1, w2, b2, x, gelu_mode="sigmoid")),
@@ -793,6 +807,12 @@ def main() -> None:
     dy_ad_t = randn((x_ad.shape[0], a_out), 1.0)
     ad_bytes_t = nbytes(x_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t) + x_ad.shape[0] * a_out * 2
     ad_flops_t = 2 * x_ad.shape[0] * dt_ * a_out
+    # and its W8A8 MLP under A: rows of varied scale, the codes of its weights
+    x8_t = (torch.randn(rows, dt_, generator=gen, device=dev)
+            * torch.exp(0.5 * torch.randn(rows, 1, generator=gen, device=dev))).bfloat16()
+    w1q_t, s1_t = quantize_linear(w1_t.float())
+    w2q_t, s2_t = quantize_linear(w2_t.float())
+    int8_args_t = (x8_t, w1q_t, s1_t, b1_t, w2q_t, s2_t, b2_t, x_t)
 
     def bhtd_attn_plain_ctl(*a):
         # the control's fault: delta = rowsum(dO*O) left out (O = 0)
@@ -909,6 +929,14 @@ def main() -> None:
             BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
             2 * nbytes(x_t) + nbytes(dy_qkv_t, ln_t[0], ln_t[1], w_qkv_t, b_qkv_t)
             + 4 * (2 * dt_ + 3 * dt_ * dt_ + 3 * dt_), 2 * 2 * rows * dt_ * 3 * dt_, None),
+        "fused_mlp_int8[D=192]": (
+            lambda: twice(fused_mlp_int8(*int8_args_t, "sigmoid")),
+            lambda: twice(fused_mlp_int8_plain(*int8_args_t, "sigmoid")),
+            [lambda: fused_mlp_int8_faulty(*int8_args_t, "sigmoid", "block"),
+             lambda: fused_mlp_int8_faulty(*int8_args_t, "sigmoid", "h_bf16")],
+            ["one h scale per 32-row block", "h rounded to bf16 before its codes"],
+            INT8_METRICS, INT8_LIMITS, 10, 2, nbytes(*int8_args_t) + nbytes(x_t), mlp_flops_t,
+            None),
         # ViT-Ti's adapter instances: held, not listed (their launches count
         # under fused_ln_dense[D=192] and fused_ln_dense_bwd[D=192])
         "fused_ln_dense[adapter,D=192]": (
@@ -1083,6 +1111,7 @@ def main() -> None:
     del x_pe, w_conv, gate_r, dy_qkv, dy_ad
     del qkv_t, qkv_v, o_t, lse_t, o_tv, do_tv, qh_t, kh_t, vh_t, doh_t, o_sdpa_t, x_t, dy_t
     del mlp_t, train_t, xhat_t, inv_t, xl_t, y_ln_t, q32, k32, v32, do32, o32, lse32, cases
+    del x8_t, w1q_t, w2q_t, int8_args_t
     torch.cuda.empty_cache()
 
     # 4. the slice
@@ -1714,6 +1743,12 @@ def main() -> None:
         "Ti B fuse_ln_dense", tcfg_b, "chunks",
         {"voxel_embed": 1, "fused_ln_dense": 26, "flash_attention": 24,
          "fused_ln_mlp_train": 24, "layernorm": 2}, config_failures, tparams, requests[:1])
+    # and under A serving_int8 (the W8A8 MLP at D=192), one request over points
+    tcfg_a, transport_a = vit_serving_variant(tcfg, "int8")
+    tiny_a_serve_counts = serve_config(
+        "Ti A serving_int8", tcfg_a, transport_a,
+        {"flash_attention": 24, "fused_mlp_int8": 24, "layernorm": 52}, config_failures,
+        tparams, requests[:1])
     check(not config_failures, "; ".join(config_failures))
     tiny_b_train_counts = train_config(
         "Ti B fuse_ln_dense", tcfg_b, tparams,
@@ -2123,6 +2158,8 @@ def main() -> None:
              (tiny_b_serve_counts, tiny_b_train_counts)),
             ("fused_ln_dense_bwd[D=192]", "fused_ln_dense.cu",
              "intentbev/ops/fused_ln_dense.py:94", (tiny_b_train_counts,)),
+            ("fused_mlp_int8[D=192]", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
+             (tiny_a_serve_counts,)),
             # row 11, and the packed path at head dim 32 (phase 11)
             ("flash_packed_bwd_split", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (form_counts["split"],)),
@@ -2152,7 +2189,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 40 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 41 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -84,26 +84,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A fragment of the 16x32 int8 tile at (r0, k0) of a [row][k] array whose
-// rows are ld bytes apart.
-__device__ __forceinline__ void load_a_s8(uint32_t (&a)[4], const int8_t* s, int ld,
-                                          int r0, int k0, int lane) {
-  const int8_t* p = s + (size_t)(r0 + (lane >> 2)) * ld + k0 + 4 * (lane & 3);
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 16);
-}
-
-// B fragment of the 32x8 int8 tile at (k0, n0) of an [n][k] array in device
-// memory (rows ld bytes apart), read through the read-only cache.
-__device__ __forceinline__ void load_b_s8(uint32_t (&b)[2], const int8_t* w, int ld,
-                                          int n0, int k0, int lane) {
-  const int8_t* p = w + (size_t)(n0 + (lane >> 2)) * ld + k0 + 4 * (lane & 3);
-  b[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-  b[1] = __ldg(reinterpret_cast<const unsigned int*>(p + 16));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

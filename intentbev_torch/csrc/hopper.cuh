@@ -103,6 +103,28 @@ static inline int encode_2d(CUtensorMap* map, const void* ptr, int rows, int col
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Map of the row-major int8 [rows, cols] matrix at ptr (row stride cols
+// bytes, a multiple of 16): boxes of box_cols bytes x box_rows, swizzled at
+// the box's row width (box_cols: 128 or 64 bytes). Returns 0 or a
+// cudaError_t.
+static inline int encode_2d_s8(CUtensorMap* map, const void* ptr, int rows, int cols,
+                               int box_rows, int box_cols) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUtensorMapSwizzle sw =
+      box_cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : (box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (sw == CU_TENSOR_MAP_SWIZZLE_NONE) return (int)cudaErrorInvalidValue;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // --------------------------------------------------------------- device --
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -168,6 +190,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar (a bulk copy, no tensor map).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -282,6 +315,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define IBK_F8(b) "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), \
@@ -482,6 +520,72 @@ __device__ __forceinline__ void wgmma_sst(float (&d)[N / 2], uint64_t da, uint64
 }
 
 #undef IBK_F8
+
+// Integer products: D[64 x N] (+)= A[64 x 32] B[32 x N], s8 x s8 -> s32, A
+// and B from shared memory. 8-bit wgmma reads both operands K-major only (no
+// transpose for .s8): A as rows of K bytes, B as rows (N of them) of K bytes,
+// the layout of PyTorch's [out, in] int8 weight codes. One instruction takes
+// K = 32 bytes. The accumulator layout is that of wgmma_ss_n128's (d[4n + e]:
+// row 16w + g (+8 for e >= 2), column 8n + 2t + (e & 1)).
+#define IBK_I8(b) "+r"(d[b]), "+r"(d[b + 1]), "+r"(d[b + 2]), "+r"(d[b + 3]), \
+                  "+r"(d[b + 4]), "+r"(d[b + 5]), "+r"(d[b + 6]), "+r"(d[b + 7])
+
+__device__ __forceinline__ void wgmma_s8_n32(int (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : IBK_I8(0), IBK_I8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_n96(int (&d)[48], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n}\n"
+      : IBK_I8(0), IBK_I8(8), IBK_I8(16), IBK_I8(24), IBK_I8(32), IBK_I8(40)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_n192(int (&d)[96], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : IBK_I8(0), IBK_I8(8), IBK_I8(16), IBK_I8(24), IBK_I8(32), IBK_I8(40), IBK_I8(48),
+        IBK_I8(56), IBK_I8(64), IBK_I8(72), IBK_I8(80), IBK_I8(88)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef IBK_I8
+
+// The wgmma_s8_n* of width N.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 32 || N == 96 || N == 192, "wgmma N");
+  if constexpr (N == 32)
+    wgmma_s8_n32(d, da, db, accumulate);
+  else if constexpr (N == 96)
+    wgmma_s8_n96(d, da, db, accumulate);
+  else
+    wgmma_s8_n192(d, da, db, accumulate);
+}
+
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], A from registers, B MN-major, N in
 // {64, 32} (the products that accumulate over rows: dV, dK, dQ).

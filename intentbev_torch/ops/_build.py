@@ -127,7 +127,7 @@ _SIGNATURES = {
     "ibk_fused_ln_mlp_bwd": (_P,) * 20 + (_I, _I, _I, _F, _I, _P),
     "ibk_flash_bwd": (_P,) * 7 + (_I,) * 5 + (_L, _L, _F, _F, _I, _P),
     "ibk_voxel_fill": (_P,) * 6 + (_I,) * 6 + (_P,),
-    "ibk_fused_mlp_int8": (_P,) * 9 + (_I, _I, _I, _P),
+    "ibk_fused_mlp_int8": (_P,) * 9 + (_I, _I, _I, _I, _P),
     "ibk_fused_mlp": (_P,) * 8 + (_I, _I, _I, _P),
     "ibk_fused_mlp_bwd": (_P,) * 15 + (_I, _I, _I, _P),
     "ibk_fused_ln_dense": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),

@@ -24,7 +24,8 @@ from ._build import check_launch, kernels, require, stream_ptr
 from .fused_ln_mlp import GELU_MODES, gelu
 from .int8 import int_matmul, quantize_rows
 
-MAX_HIDDEN = 1536  # the kernel's f32 hidden rows fill a block's shared memory
+WIDTHS = (384, 192)  # the model widths the kernel is built for
+HIDDEN_STEP = 128  # the hidden width is a multiple of two of its 64-wide tiles
 
 
 def fused_mlp_int8_plain(x, w1q, s1, b1, w2q, s2, b2, residual, gelu_mode: str = "erf"):
@@ -41,8 +42,9 @@ def fused_mlp_int8_plain(x, w1q, s1, b1, w2q, s2, b2, residual, gelu_mode: str =
 
 
 def fused_mlp_int8(x, w1q, s1, b1, w2q, s2, b2, residual, gelu_mode: str = "erf"):
-    """W8A8 ``residual + mlp(x)`` of contiguous bf16 [..., 384] CUDA tensors
-    (int8 codes, f32 scales and biases). CPU tensors take
+    """W8A8 ``residual + mlp(x)`` of contiguous bf16 [..., D] CUDA tensors,
+    D 384 or 192 and the hidden width a multiple of ``HIDDEN_STEP`` (int8
+    codes, f32 scales and biases). CPU tensors take
     :func:`fused_mlp_int8_plain`."""
     if gelu_mode not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu_mode!r} not in {GELU_MODES}")
@@ -51,9 +53,9 @@ def fused_mlp_int8(x, w1q, s1, b1, w2q, s2, b2, residual, gelu_mode: str = "erf"
     d, hidden = x.shape[-1], w1q.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"fused_mlp_int8: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d == 384, f"fused_mlp_int8 kernel is built for D=384, got {d}")
-    require(hidden % 128 == 0 and hidden <= MAX_HIDDEN,
-            f"fused_mlp_int8: hidden {hidden} not a multiple of 128 up to {MAX_HIDDEN}")
+    require(d in WIDTHS, f"fused_mlp_int8 kernel is built for D in {WIDTHS}, got {d}")
+    require(hidden > 0 and hidden % HIDDEN_STEP == 0,
+            f"fused_mlp_int8: hidden {hidden} not a multiple of {HIDDEN_STEP}")
     require(residual.shape == x.shape and residual.dtype == x.dtype
             and residual.is_contiguous() and residual.device == x.device,
             "fused_mlp_int8: residual must be contiguous bf16 like x")
@@ -65,10 +67,12 @@ def fused_mlp_int8(x, w1q, s1, b1, w2q, s2, b2, residual, gelu_mode: str = "erf"
         require(p.device == x.device and p.dtype == torch.float32
                 and tuple(p.shape) == (n,) and p.is_contiguous(),
                 f"fused_mlp_int8: {name} must be contiguous f32 [{n}]")
+    require(all(t.data_ptr() % 16 == 0 for t in (x, residual, w1q, w2q, s1, b1, s2, b2)),
+            "fused_mlp_int8: every tensor must be 16-byte aligned (TMA and bulk copies)")
     y = torch.empty_like(x)
     err = kernels().ibk_fused_mlp_int8(
         x.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
-        s2.data_ptr(), b2.data_ptr(), residual.data_ptr(), y.data_ptr(), x.numel() // d,
+        s2.data_ptr(), b2.data_ptr(), residual.data_ptr(), y.data_ptr(), x.numel() // d, d,
         hidden, GELU_MODES.index(gelu_mode), stream_ptr(x))
     check_launch(err, "fused_mlp_int8")
     return y

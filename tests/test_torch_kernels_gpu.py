@@ -50,7 +50,12 @@ at 1 to 36008 rows, D=384 and 192, qkv (Dout 3D, no GELU) and the adapter
 forward's last 192-wide column tile partial): y's and dx's shares of
 differing elements (controls: xn kept in f32 before the product; dg kept
 in f32 before dxn, or without GELU dxn rounded before the LN backward), and
-two calls give the same bits.
+two calls give the same bits. Row 17, the W8A8 MLP (Hopper, s8 wgmma), runs
+at 1 to 36008 rows (blocks of 64), D=384 and 192, hidden 4D and 4D - 128, both
+GELUs: y's relative L2 and share of differing elements against the plain
+version, which it matches bit for bit (controls: one h scale per 32-row
+block; h rounded to bf16 before its codes), two calls with the same bits,
+and the shapes it refuses.
 """
 
 import importlib
@@ -565,45 +570,74 @@ LN_DENSE_LIMIT = 1e-3
 PATCH_LIMIT = 1e-3
 
 
-def fused_mlp_int8_block_scale(x, w1q, s1, b1, w2q, s2, b2, res, gelu_mode, rows=32):
-    """Control fault: one scale of h per block of ``rows`` rows, not per row."""
+INT8_SHARE = 1e-3  # share of y's elements that may differ (sound: 0 on the card)
+
+
+def _fused_mlp_int8_faulty(x, w1q, s1, b1, w2q, s2, b2, res, gelu_mode, fault):
+    """Control faults of row 17: ``block_scale`` (one scale of h per block of
+    32 rows, not per row) or ``h_bf16`` (h rounded to bf16 before its codes)."""
     from intentbev_torch.ops.fused_ln_mlp import gelu
     from intentbev_torch.ops.int8 import int_matmul
 
     d = x.shape[-1]
     xq, xs = quantize_rows(x.reshape(-1, d))
     h = gelu(int_matmul(xq, w1q.t()) * xs * s1 + b1, gelu_mode)
-    n = h.shape[0]
-    amax = h.abs().amax(-1)
-    pad = torch.nn.functional.pad(amax, (0, -n % rows)).reshape(-1, rows).amax(-1)
-    hs = (pad.repeat_interleave(rows)[:n, None].clamp(min=1e-8) / 127.0)
-    hq = torch.clamp(torch.round(h / hs), -127, 127)
+    if fault == "h_bf16":
+        hq, hs = quantize_rows(h.bfloat16().float())
+    else:
+        n = h.shape[0]
+        amax = torch.nn.functional.pad(h.abs().amax(-1), (0, -n % 32)).reshape(-1, 32).amax(-1)
+        hs = (amax.repeat_interleave(32)[:n, None].clamp(min=1e-8) / 127.0)
+        hq = torch.clamp(torch.round(h / hs), -127, 127)
     y = int_matmul(hq, w2q.t()) * hs * s2 + b2
     return (y + res.reshape(-1, d).float()).to(x.dtype).reshape(x.shape)
 
 
-def int8_inputs(rows, seed=0):
+def int8_inputs(rows, seed=0, d=D, hidden=None):
     """Rows of varied scale (as a residual stream's are), the f32 weights'
-    codes and scales, f32 biases."""
+    codes and scales (hidden 4d unless given), f32 biases."""
+    hidden = hidden or 4 * d
     scale = torch.exp(0.5 * torch.randn(rows, 1, generator=_gen(seed), device="cuda"))
-    x = (torch.randn(rows, D, generator=_gen(seed + 1), device="cuda") * scale).bfloat16()
-    res = _randn((rows, D), 1.0, seed + 2)
-    w1q, s1 = quantize_linear(_randn((4 * D, D), D ** -0.5, seed + 3, torch.float32))
-    w2q, s2 = quantize_linear(_randn((D, 4 * D), (4 * D) ** -0.5, seed + 4, torch.float32))
-    b1 = _randn((4 * D,), 0.1, seed + 5, torch.float32)
-    b2 = _randn((D,), 0.1, seed + 6, torch.float32)
+    x = (torch.randn(rows, d, generator=_gen(seed + 1), device="cuda") * scale).bfloat16()
+    res = _randn((rows, d), 1.0, seed + 2)
+    w1q, s1 = quantize_linear(_randn((hidden, d), d ** -0.5, seed + 3, torch.float32))
+    w2q, s2 = quantize_linear(_randn((d, hidden), hidden ** -0.5, seed + 4, torch.float32))
+    b1 = _randn((hidden,), 0.1, seed + 5, torch.float32)
+    b2 = _randn((d,), 0.1, seed + 6, torch.float32)
     return x, w1q, s1, b1, w2q, s2, b2, res
 
 
+# Row 17 (csrc/fused_mlp_int8.cu): 128-row blocks, the hidden dimension in
+# steps of 64 (D=384) or 128 (D=192). Readings: relative L2 and the share of
+# y's elements that differ from the plain version (which the kernel matches
+# bit for bit); controls: one h scale per 32-row block, h rounded to bf16
+# before its codes; and two calls give the same bits.
 @pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
-@pytest.mark.parametrize("rows", [100, MAIN_ROWS])
-def test_fused_mlp_int8(dev, rows, gelu):
-    args = int8_inputs(rows)
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("rows", [1, 100, 300, 36000, MAIN_ROWS])
+def test_fused_mlp_int8(dev, rows, d, narrow, gelu):
+    # hidden 4d, or 4d - 128: a tile count that the kernel's ring slots (3 at
+    # D=384, 4 at 192) do not divide
+    args = int8_inputs(rows, d=d, hidden=4 * d - 128 * narrow)
     reset_launch_counts()
     got = fused_mlp_int8(*args, gelu)
-    assert launches["fused_mlp_int8"] == 1
-    assert _rel(got, fused_mlp_int8_plain(*args, gelu)) < INT8_LIMIT
-    assert _rel(got, fused_mlp_int8_block_scale(*args, gelu)) >= INT8_LIMIT
+    again = fused_mlp_int8(*args, gelu)
+    assert launches["fused_mlp_int8"] == 2
+    assert torch.equal(got, again)
+    want = fused_mlp_int8_plain(*args, gelu)
+    assert _rel(got, want) < INT8_LIMIT and _share(got, want) < INT8_SHARE
+    if rows > 1:  # one row is its own 32-row block
+        ctrl = _fused_mlp_int8_faulty(*args, gelu, "block_scale")
+        assert _rel(got, ctrl) >= INT8_LIMIT and _share(got, ctrl) >= INT8_SHARE
+    assert _share(got, _fused_mlp_int8_faulty(*args, gelu, "h_bf16")) >= INT8_SHARE
+
+
+def test_fused_mlp_int8_refuses(dev):
+    """Widths other than 384 and 192, and a hidden width off the kernel's step."""
+    for d, hidden in ((256, 1024), (384, 96), (192, 64)):
+        with pytest.raises(ValueError):
+            fused_mlp_int8(*int8_inputs(64, d=d, hidden=hidden), "sigmoid")
 
 
 @pytest.mark.parametrize("gelu", ["erf", "sigmoid"])

@@ -23,6 +23,13 @@ D=384 and 192: ``fused_ln_dense`` as the qkv projection (Dout 3D, no GELU;
 the training erf GELU), and ``fused_ln_dense_bwd`` for both (the adapter's
 with the erf GELU).
 
+and row 17, the W8A8 serving MLP (``--only int8``; configuration A),
+``fused_mlp_int8`` at D=384 (hidden 1536) and D=192 (hidden 768), 36008 rows
+of varied scale as a residual stream's, the codes of f32 weights, both
+GELUs: beside its plain version, with the int8 operations' bound (1979
+TOP/s) and a SHA-256 digest of y on the seeded inputs, so that one call on
+two trees shows whether their kernels give the same bits.
+
 For each case: CUDA-event ms per call (``--iters`` calls after one), TFLOP/s
 of its operations (forward 4*N*D*H; backward the 5 products, 10*N*D*H; row
 14 2*N*D*Dout a product: one forward, two or three backward), the bound (at
@@ -37,7 +44,7 @@ kernel from a profiler trace: the row kernel, the dW products and the
 partial sums. A case the tree's kernels refuse (row 14 at D=192 before
 they took it) prints its error in place of its numbers.
 
-    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd|ln_dense]   # a JSON line a case
+    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd|ln_dense|int8]   # a JSON line a case
 
 It imports no JAX and runs as it stands on an older checkout of the port
 (the entries' signatures are unchanged), so that one call can time two
@@ -47,6 +54,7 @@ trees in turn: copy it into the other tree's ``tools/`` and run it there.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -55,6 +63,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 
@@ -62,8 +71,8 @@ ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("fwd", "bwd", "ln_dense"), default=None,
-                    help="only the LN+MLP forward or backward cases, or only row 14's")
+    ap.add_argument("--only", choices=("fwd", "bwd", "ln_dense", "int8"), default=None,
+                    help="only the LN+MLP forward or backward cases, or only row 14's or 17's")
     args = ap.parse_args()
 
     import torch
@@ -74,7 +83,8 @@ def main() -> None:
                                      fused_ln_mlp, fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
                                      fused_ln_mlp_plain, fused_ln_mlp_train,
                                      fused_ln_mlp_train_plain, fused_mlp, fused_mlp_bwd,
-                                     fused_mlp_bwd_plain, fused_mlp_plain)
+                                     fused_mlp_bwd_plain, fused_mlp_int8, fused_mlp_int8_plain,
+                                     fused_mlp_plain, quantize_linear)
 
     if not torch.cuda.is_available():
         sys.exit("bench_ln_mlp_torch: needs a CUDA card")
@@ -125,7 +135,8 @@ def main() -> None:
             parts[key] += ev.device_time_total / 1e3 / iters
         return {k: round(v, 4) for k, v in parts.items()}
 
-    def report(name, kern, plain, reference, flops, split=False, n_bytes=0):
+    def report(name, kern, plain, reference, flops, split=False, n_bytes=0,
+               rate=BF16_FLOPS_PER_S, digest=False):
         try:
             got = tup(kern())
         except ValueError as e:  # a case this tree's kernels refuse (`require`)
@@ -136,14 +147,18 @@ def main() -> None:
                                for a, b in zip(got, want)],
                     "share_differing": [float((a != b).float().mean())
                                         for a, b in zip(got, want)]}
+        if digest:  # the kernel's bits, to hold against another tree's
+            readings["sha256"] = [hashlib.sha256(a.cpu().view(torch.int16).numpy().tobytes())
+                                  .hexdigest()[:16] for a in got]
         del got, want
         ms = event_ms(kern)
-        bounds = {"operations": flops / BF16_FLOPS_PER_S, "bytes": n_bytes / HBM_BYTES_PER_S}
+        bounds = {"operations": flops / rate, "bytes": n_bytes / HBM_BYTES_PER_S}
         by = max(bounds, key=bounds.get)
         line = {"name": name, "ms": round(ms, 4), "tflops": round(flops / ms / 1e9, 1),
                 "bound_ms": round(bounds[by] * 1e3, 4), "bound_by": by,
                 "plain_ms": round(event_ms(plain), 4),
-                "reference_ms": round(event_ms(reference), 4), **readings, "card": card}
+                "reference_ms": None if reference is None else round(event_ms(reference), 4),
+                **readings, "card": card}
         if split:
             line["ms_by_kernel"] = by_kernel(kern)
         print(json.dumps(line), flush=True)
@@ -233,9 +248,31 @@ def main() -> None:
             del x, dy, out, leaves
             torch.cuda.empty_cache()
 
+    def int8_cases(d):
+        """Row 17 at width d, hidden 4d: rows of varied scale, the codes of
+        f32 weights, f32 biases; the residual another bf16 stream."""
+        hid = 4 * d
+        x = (torch.randn(ROWS, d, generator=gen, device="cuda")
+             * torch.exp(0.5 * torch.randn(ROWS, 1, generator=gen, device="cuda"))).bfloat16()
+        res = randn((ROWS, d), 1.0)
+        w1q, s1 = quantize_linear(randn((hid, d), d ** -0.5, torch.float32))
+        w2q, s2 = quantize_linear(randn((d, hid), hid ** -0.5, torch.float32))
+        b1, b2 = randn((hid,), 0.1, torch.float32), randn((d,), 0.1, torch.float32)
+        args8 = (x, w1q, s1, b1, w2q, s2, b2, res)
+        with torch.no_grad():
+            for mode in ("sigmoid", "erf"):
+                report(f"fused_mlp_int8[{mode}]" + ("" if d == 384 else f"[D={d}]"),
+                       lambda mode=mode: fused_mlp_int8(*args8, mode),
+                       lambda mode=mode: fused_mlp_int8_plain(*args8, mode), None,
+                       4 * ROWS * d * hid, n_bytes=2 * 3 * ROWS * d + 2 * d * hid
+                       + 4 * (2 * hid + 2 * d), rate=INT8_OPS_PER_S, digest=True)
+
     keep = (torch.rand(8, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
     gate = keep.expand(8, ROWS // 8).reshape(ROWS).contiguous()  # per sample, as drop-path
     for d, tag in ((384, ""), (192, "[D=192]")):
+        if args.only == "int8":
+            int8_cases(d)
+            continue
         if args.only == "ln_dense":
             ln_dense_cases(d, tag)
             continue

@@ -2,7 +2,7 @@
 PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--model vit|cnn] [--requests 4] [--out DIR]
-    python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed,tiny}
+    python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed,tiny,tiny_int8}
     python3 tools/profile_torch_slice.py --train [--model vit|cnn] [--out DIR]
     python3 tools/profile_torch_slice.py --train --vit-config {ln_dense,unfused_ln,tiny,tiny_ln_dense}
     python3 tools/profile_torch_slice.py --experimental [--out DIR]
@@ -41,7 +41,8 @@ is the default configuration at ViT-Ti's widths (embed 192, 3 heads of 64,
 as ``intentbev/import_torch.py:235`` reads a timm ``vit_tiny`` checkpoint),
 served over chunks and trained as the default is; its attention runs the
 BHTD kernels. ``tiny_ln_dense`` is ViT-Ti under ``ln_dense``'s switches (the
-LN + dense pair at D=192).
+LN + dense pair at D=192), ``tiny_int8`` ViT-Ti under ``int8``'s (the W8A8
+MLP at D=192, serving only).
 
 ``--model cnn`` profiles IntentNetCNN (``default_cnn_config()``, random
 seeded weights with BatchNorm statistics from a synthetic batch,
@@ -96,7 +97,8 @@ GROUPS = (
     ("flash_fwd_kernel", "flash forward (packed or BHTD)"),
     ("flash_bwd_dkdv", "flash backward dk/dv (packed or BHTD)"),
     ("flash_bwd_dq", "flash backward dq (packed or BHTD)"),
-    ("fused_mlp_int8_kernel", "fused_mlp_int8"),
+    ("mlp_int8_fwd_kernel", "fused_mlp_int8"),
+    ("fused_mlp_int8_kernel", "fused_mlp_int8"),  # its mma.sync form, on older trees
     ("ln_mlp_fwd_kernel<384, 0, false, false>", "fused_mlp (no LN)"),
     ("ln_mlp_fwd_kernel<384, 1, false, false>", "fused_mlp (no LN)"),
     ("ln_mlp_fwd_kernel", "fused_ln_mlp (serving or train forward)"),
@@ -137,13 +139,13 @@ TINY = dict(embed_dim=192, num_heads=3)  # ViT-Ti (intentbev/import_torch.py:235
 
 def vit_config(cfg, name: str):
     """(config, transport) of ``--vit-config name``: a serving variant's
-    switches, ``tiny``, ViT-Ti's widths over chunks, or ``tiny_ln_dense``,
-    ViT-Ti under B's switches."""
+    switches, ``tiny``, ViT-Ti's widths over chunks, or ``tiny_ln_dense`` /
+    ``tiny_int8``, ViT-Ti under B's / A's switches."""
     from intentbev_torch.parallel import vit_serving_variant
 
     if name.startswith("tiny"):
         cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, **TINY))
-        return (cfg, "chunks") if name == "tiny" else vit_serving_variant(cfg, "ln_dense")
+        return (cfg, "chunks") if name == "tiny" else vit_serving_variant(cfg, name[5:])
     return vit_serving_variant(cfg, name)
 
 
@@ -500,7 +502,8 @@ def main() -> None:
     ap.add_argument("--train", action="store_true", help="profile a training step")
     ap.add_argument("--model", choices=("vit", "cnn"), default="vit")
     ap.add_argument("--vit-config", choices=("default", "int8", "ln_dense", "unfused_ln",
-                                             "patch_embed", "tiny", "tiny_ln_dense"),
+                                             "patch_embed", "tiny", "tiny_ln_dense",
+                                             "tiny_int8"),
                     default="default",
                     help="the ViT configuration (training: ln_dense, unfused_ln, tiny or "
                          "tiny_ln_dense)")
