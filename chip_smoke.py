@@ -36,7 +36,15 @@ Phases (each prints a line; any failure exits nonzero with no result):
    autograd through them), a yardstick the port never calls. Row 17, the
    W8A8 MLP, runs at D=384 and 192 (the instances the A paths launch), y
    read by its relative L2 and its share of differing elements (controls:
-   one h scale per 32-row block; h rounded to bf16 before its codes).
+   one h scale per 32-row block; h rounded to bf16 before its codes). The
+   patch embeds, rows 15 (dense BEV) and 1 (chunks), run at D=384 and 192,
+   their tokens read by relative L2 and share (controls: the weight read as
+   w[dx, dy] and the sum rounded to bf16 before the bias; the last chunk of
+   each band skipped); row 15 prints F.conv2d over contiguous NCHW copies
+   beside its library call (channels_last strides) and the PatchEmbed.dense
+   chain as its reference; row 1's first kernel, the token-ordered hit list,
+   must equal its plain version entry for entry, and two calls of row 1 the
+   same bits.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -94,9 +102,10 @@ Phases (each prints a line; any failure exits nonzero with no result):
     attention) serves 3 requests and trains: launch counts, logits and one
     step's gradients against the plain versions with controls, 3 timed
     steps. Then ViT-Ti under B ``fuse_ln_dense`` (the LN + dense pair at
-    D=192) serves one request and takes one timed train step, and under A
-    ``serving_int8`` (the W8A8 MLP at D=192) serves one request, with the
-    checks and controls of phases 8 and 9.
+    D=192) serves one request and takes one timed train step, under A
+    ``serving_int8`` (the W8A8 MLP at D=192) and under D
+    ``fuse_patch_embed`` (the dense patch embed at D=192, points) serves one
+    request each, with the checks and controls of phases 8 and 9.
 11. The flash backward's forms (JAX's split and chunked backwards, the
     model's ``bwd_fused=False`` and ``bwd_kv_chunk=1152``) and the packed
     path at head dim 32: each form's kernels against their plain versions
@@ -159,7 +168,7 @@ INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores
 CONFIG_LIMITS = {**{name: (2.3e-2,) * 3 for name in ("A serving_int8", "Ti A serving_int8")},
                  **{name: (1.3e-2,) * 3 for name in (
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
-    "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense")}}
+    "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense", "Ti D fuse_patch_embed")}}
 
 
 def fail(msg: str) -> None:
@@ -211,7 +220,7 @@ def main() -> None:
         fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, layernorm,
         layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
         layernorm_train_plain, voxel_embed_tokens, voxel_embed_tokens_plain, voxel_fill_bev,
-        voxel_fill_bev_plain)
+        voxel_fill_bev_plain, voxel_hits, voxel_hits_plain)
     from intentbev_torch.ops.experimental import (
         flash_attention_packed_int8, flash_attention_packed_int8_plain, fused_dense_residual,
         fused_proj_bwd, fused_proj_bwd_plain, fused_proj_fwd, fused_proj_fwd_plain)
@@ -484,8 +493,22 @@ def main() -> None:
     b_conv = b_pe.bfloat16()
 
     @torch.no_grad()
-    def lib_conv():
+    def lib_conv():  # input and weight in channels_last strides (x_pe's NHWC as a view)
         return F.conv2d(x_pe.permute(0, 3, 1, 2), w_conv, b_conv, stride=v.patch_size)
+
+    def pe_dense_chain(w_, b_):
+        """The PatchEmbed.dense chain (a reference the port never calls on
+        this path): a permute copy of the patches, one matmul, the bias."""
+        p_ = v.patch_size
+        xp = x_pe.reshape(batch, g.height_px // p_, p_, g.width_px // p_, p_, -1)
+        xp = xp.permute(0, 1, 3, 2, 4, 5).reshape(batch, v.num_patches, -1)
+        return torch.matmul(xp, w_.reshape(-1, w_.shape[-1])) + b_.bfloat16()
+
+    def pe_rounded(w_, b_):
+        """The plain patch embed with the control's fault: the f32 sum
+        rounded to bf16 before the bias."""
+        return (patch_embed_plain(x_pe, w_, torch.zeros_like(b_), v.patch_size).float()
+                + b_).bfloat16()
 
     used = torch.arange(chunks.wid.shape[-1], device=dev) < chunks.count[..., None]
     cells = int(((chunks.val != 0) & used[..., None, None]).sum())
@@ -570,6 +593,11 @@ def main() -> None:
     # matches its plain version bit for bit; the controls move most of y)
     INT8_METRICS, INT8_LIMITS = (rel_l2, share), (5e-4, 1e-3)
     pe_flops = 2 * batch * v.num_patches * v.patch_size ** 2 * v.lidar_input_channels * d
+    # rows 15 and 1: the tokens' relative L2 and share of differing elements
+    # (the plain versions sum in another order: sound ~1 % of row 15's
+    # tokens over K = 18560, ~0.01 % of row 1's; the sum rounded before the
+    # bias moves ~26 %, a skipped chunk the relative L2)
+    PATCH_LIMITS, VOXEL_LIMITS = (1e-3, 5e-2), (3e-3, 2e-2)
     rates = {"fused_mlp_int8": INT8_OPS_PER_S,  # ops of another type than bf16
              "fused_mlp_int8[D=192]": INT8_OPS_PER_S}
     cases = {
@@ -577,12 +605,12 @@ def main() -> None:
         #   fault, metrics, limits, kernel iters, plain iters, bytes, flops,
         #   library call or None)
         "voxel_embed": (
-            lambda: voxel_embed_tokens(chunks, w_pe, b_pe, v.patch_size, hw),
-            lambda: voxel_embed_tokens_plain(chunks, w_pe, b_pe, v.patch_size, hw),
-            lambda: voxel_embed_tokens_plain(
+            lambda: twice(voxel_embed_tokens(chunks, w_pe, b_pe, v.patch_size, hw)),
+            lambda: twice(voxel_embed_tokens_plain(chunks, w_pe, b_pe, v.patch_size, hw)),
+            lambda: twice(voxel_embed_tokens_plain(
                 chunks._replace(count=(chunks.count - 1).clamp(min=0)),
-                w_pe, b_pe, v.patch_size, hw),
-            "last chunk of each band skipped", (rel_l2,), (3e-3,), 10, 3,
+                w_pe, b_pe, v.patch_size, hw)),
+            "last chunk of each band skipped", (rel_l2, share), VOXEL_LIMITS, 10, 3,
             nbytes(*chunks, w_pe, b_pe) + batch * v.num_patches * d * 2,
             2 * cells * d, None),
         "voxel_fill": (
@@ -757,11 +785,13 @@ def main() -> None:
             2 * nbytes(x_ad) + nbytes(dy_ad, ln[0], ln[1], w_ad, b_ad)
             + 4 * (2 * d + a_out * d + a_out), 3 * 2 * x_ad.shape[0] * d * a_out, None),
         "patch_embed": (
-            lambda: patch_embed(x_pe, w_pe, b_pe, v.patch_size),
-            lambda: patch_embed_plain(x_pe, w_pe, b_pe, v.patch_size),
-            lambda: patch_embed_plain(x_pe, w_pe.transpose(0, 1).contiguous(), b_pe,
-                                      v.patch_size),
-            "weight read as w[dx, dy]", (rel_l2,), (1e-3,), 10, 2,
+            lambda: twice(patch_embed(x_pe, w_pe, b_pe, v.patch_size)),
+            lambda: twice(patch_embed_plain(x_pe, w_pe, b_pe, v.patch_size)),
+            [lambda: twice(patch_embed_plain(x_pe, w_pe.transpose(0, 1).contiguous(), b_pe,
+                                             v.patch_size)),
+             lambda: twice(pe_rounded(w_pe, b_pe))],
+            ["weight read as w[dx, dy]", "sum rounded to bf16 before the bias"],
+            (rel_l2, share), PATCH_LIMITS, 10, 2,
             nbytes(x_pe, w_pe, b_pe) + batch * v.num_patches * d * 2, pe_flops, lib_conv),
     }
 
@@ -792,6 +822,7 @@ def main() -> None:
     train_t = (x_t.view(batch, tokens, dt_), ln_t[0], ln_t[1], w1_t, b1_t, w2_t)
     _, xhat_t, inv_t = layernorm_train_plain(x_t, ln_t[0], ln_t[1])
     w_pe_t, b_pe_t = randn(w_pe.shape[:3] + (dt_,), 0.02), randn((dt_,), 0.02, torch.float32)
+    w_conv_t = w_pe_t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     gl_t, bl_t = (p.to(torch.bfloat16).requires_grad_(True) for p in (ln_t[0], ln_t[1]))
     xl_t = x_t.detach().clone().requires_grad_(True)
     y_ln_t = F.layer_norm(xl_t, (dt_,), gl_t, bl_t, 1e-6)
@@ -851,14 +882,25 @@ def main() -> None:
             nbytes(q32, k32, v32, o32, do32, lse32) + 3 * nbytes(q32),
             10 * 2 * 3 * 1000 * 950 * 32, None),
         "voxel_embed[D=192]": (
-            lambda: voxel_embed_tokens(chunks, w_pe_t, b_pe_t, v.patch_size, hw),
-            lambda: voxel_embed_tokens_plain(chunks, w_pe_t, b_pe_t, v.patch_size, hw),
-            lambda: voxel_embed_tokens_plain(
+            lambda: twice(voxel_embed_tokens(chunks, w_pe_t, b_pe_t, v.patch_size, hw)),
+            lambda: twice(voxel_embed_tokens_plain(chunks, w_pe_t, b_pe_t, v.patch_size, hw)),
+            lambda: twice(voxel_embed_tokens_plain(
                 chunks._replace(count=(chunks.count - 1).clamp(min=0)),
-                w_pe_t, b_pe_t, v.patch_size, hw),
-            "last chunk of each band skipped", (rel_l2,), (3e-3,), 10, 3,
+                w_pe_t, b_pe_t, v.patch_size, hw)),
+            "last chunk of each band skipped", (rel_l2, share), VOXEL_LIMITS, 10, 3,
             nbytes(*chunks, w_pe_t, b_pe_t) + batch * v.num_patches * dt_ * 2,
             2 * cells * dt_, None),
+        "patch_embed[D=192]": (
+            lambda: twice(patch_embed(x_pe, w_pe_t, b_pe_t, v.patch_size)),
+            lambda: twice(patch_embed_plain(x_pe, w_pe_t, b_pe_t, v.patch_size)),
+            [lambda: twice(patch_embed_plain(x_pe, w_pe_t.transpose(0, 1).contiguous(), b_pe_t,
+                                             v.patch_size)),
+             lambda: twice(pe_rounded(w_pe_t, b_pe_t))],
+            ["weight read as w[dx, dy]", "sum rounded to bf16 before the bias"],
+            (rel_l2, share), PATCH_LIMITS, 10, 2,
+            nbytes(x_pe, w_pe_t, b_pe_t) + batch * v.num_patches * dt_ * 2, pe_flops // 2,
+            torch.no_grad()(lambda: F.conv2d(x_pe.permute(0, 3, 1, 2), w_conv_t,
+                                             b_pe_t.bfloat16(), stride=v.patch_size))),
         "fused_ln_mlp[D=192]": (
             lambda: twice(fused_ln_mlp(*mlp_t, gelu_mode="sigmoid")),
             lambda: twice(fused_ln_mlp_plain(*mlp_t, gelu_mode="sigmoid")),
@@ -1100,15 +1142,45 @@ def main() -> None:
         "fused_ln_dense_bwd[D=192]": ln_dense_chain_bwd(x_t, ln_t, w_qkv_t, b_qkv_t, dy_qkv_t),
         "fused_ln_dense_bwd[adapter,D=192]": ln_dense_chain_bwd(x_ad_t, ln_t, w_ad_t, b_ad_t,
                                                                 dy_ad_t, "erf")})
+    # the patch embeds' reference: PatchEmbed.dense, a permute copy and one matmul
+    mlp_refs.update({"patch_embed": lambda: pe_dense_chain(w_pe, b_pe),
+                     "patch_embed[D=192]": lambda: pe_dense_chain(w_pe_t, b_pe_t)})
     for name, ref in mlp_refs.items():
         ref_ms = cuda_ms(torch.no_grad()(ref) if "bwd" not in name else ref, 10)
         print(f"kernel {name}: kernel {record[name]['ms']:.3f} ms; reference (the same "
               f"function as a chain of PyTorch calls, bf16) {ref_ms:.3f} ms  [{card}]",
               flush=True)
+    # row 15's library call both ways: the line's library_ms takes input and
+    # weight in channels_last strides; here over contiguous NCHW copies
+    x_nchw = x_pe.permute(0, 3, 1, 2).contiguous()
+    for name, w_, b_ in (("patch_embed", w_pe, b_pe), ("patch_embed[D=192]", w_pe_t, b_pe_t)):
+        w_nchw = w_.permute(3, 2, 0, 1).contiguous()
+        nchw_ms = cuda_ms(torch.no_grad()(lambda: F.conv2d(
+            x_nchw, w_nchw, b_.bfloat16(), stride=v.patch_size)), 3)
+        print(f"kernel {name}: library F.conv2d over contiguous NCHW input and weight "
+              f"{nchw_ms:.3f} ms; in channels_last strides (library_ms) "
+              f"{record[name]['library_ms']:.3f} ms  [{card}]", flush=True)
+    del x_nchw, w_nchw
+    # row 1's first kernel: its token-ordered hit list against the plain
+    # version's, entry for entry; and two calls of row 1 give the same bits
+    hk = voxel_hits(chunks, g.lidar_total_channels, v.patch_size, hw)
+    hp = voxel_hits_plain(chunks, g.lidar_total_channels, v.patch_size, hw)
+    in_list = torch.arange(hp.wrow.shape[-1], device=dev) < hp.offsets[..., -1:].long()
+    check(torch.equal(hk.offsets, hp.offsets) and torch.equal(hk.wrow[in_list], hp.wrow[in_list])
+          and torch.equal(hk.val[in_list], hp.val[in_list]),
+          "voxel_hits: the kernel's hit list differs from the plain version's")
+    for w_, b_ in ((w_pe, b_pe), (w_pe_t, b_pe_t)):
+        check(torch.equal(voxel_embed_tokens(chunks, w_, b_, v.patch_size, hw),
+                          voxel_embed_tokens(chunks, w_, b_, v.patch_size, hw)),
+              "voxel_embed: two calls differ")
+    print(f"kernel voxel_embed: the hit list of its first kernel equals the plain version's "
+          f"({int(hp.offsets[..., -1].sum())} hits); two calls give the same bits at D={d} and "
+          f"{dt_}", flush=True)
+    del hk, hp, in_list
     del mlp_refs, ref, gate16, w_t, w_qkv_t, b_qkv_t, dy_qkv_t, x_ad_t, w_ad_t, b_ad_t, dy_ad_t
     del chunks, x, qkv, q, k, vv, o, lse, do, dy, x3, dy3, xhat, inv, gate, train_mlp
     del qh, kh, vh, doh, o_sdpa, xl, gl, bl, y_ln, mlp_args, x8, int8_args, x_ad
-    del x_pe, w_conv, gate_r, dy_qkv, dy_ad
+    del x_pe, w_conv, w_conv_t, gate_r, dy_qkv, dy_ad
     del qkv_t, qkv_v, o_t, lse_t, o_tv, do_tv, qh_t, kh_t, vh_t, doh_t, o_sdpa_t, x_t, dy_t
     del mlp_t, train_t, xhat_t, inv_t, xl_t, y_ln_t, q32, k32, v32, do32, o32, lse32, cases
     del x8_t, w1q_t, w2q_t, int8_args_t
@@ -1749,6 +1821,12 @@ def main() -> None:
         "Ti A serving_int8", tcfg_a, transport_a,
         {"flash_attention": 24, "fused_mlp_int8": 24, "layernorm": 52}, config_failures,
         tparams, requests[:1])
+    # and under D fuse_patch_embed (row 15 at D=192), one request over points
+    tcfg_d, transport_d = vit_serving_variant(tcfg, "patch_embed")
+    tiny_d_serve_counts = serve_config(
+        "Ti D fuse_patch_embed", tcfg_d, transport_d,
+        {"patch_embed": 1, "flash_attention": 24, "fused_ln_mlp": 24, "layernorm": 4},
+        config_failures, tparams, requests[:1])
     check(not config_failures, "; ".join(config_failures))
     tiny_b_train_counts = train_config(
         "Ti B fuse_ln_dense", tcfg_b, tparams,
@@ -2160,6 +2238,8 @@ def main() -> None:
              "intentbev/ops/fused_ln_dense.py:94", (tiny_b_train_counts,)),
             ("fused_mlp_int8[D=192]", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
              (tiny_a_serve_counts,)),
+            ("patch_embed[D=192]", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
+             (tiny_d_serve_counts,)),
             # row 11, and the packed path at head dim 32 (phase 11)
             ("flash_packed_bwd_split", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (form_counts["split"],)),
@@ -2189,7 +2269,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 41 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 42 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

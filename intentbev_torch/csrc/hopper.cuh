@@ -103,6 +103,28 @@ static inline int encode_2d(CUtensorMap* map, const void* ptr, int rows, int col
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Map of the contiguous bf16 [d2, d1, d0] tensor at ptr: boxes of box0 x box1
+// x 1, swizzled at the box's row width (box0 * 2 bytes: 128 or 64); elements
+// outside the tensor land as zeros and are not stored. Returns 0 or a
+// cudaError_t.
+static inline int encode_3d(CUtensorMap* map, const void* ptr, long long d0, long long d1,
+                            long long d2, int box0, int box1) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(d0 * 2), (cuuint64_t)(d0 * d1 * 2)};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      box0 * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : (box0 * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (sw == CU_TENSOR_MAP_SWIZZLE_NONE) return (int)cudaErrorInvalidValue;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // Map of the row-major int8 [rows, cols] matrix at ptr (row stride cols
 // bytes, a multiple of 16): boxes of box_cols bytes x box_rows, swizzled at
 // the box's row width (box_cols: 128 or 64 bytes). Returns 0 or a
@@ -193,6 +215,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of a three-dimensional map at (c0, c1, c2) into dst, completing on
+// bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // bytes (a multiple of 16) from global src to shared dst, both 16-byte
 // aligned, completing on bar (a bulk copy, no tensor map).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -212,6 +245,17 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// The box of a three-dimensional map at (c0, c1, c2) from src (elements
+// outside the map are not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -18,8 +18,9 @@ from .int8 import int8_dense, quantize_cols, quantize_linear, quantize_rows
 from .layernorm import (layernorm, layernorm_bwd, layernorm_bwd_plain, layernorm_fn,
                         layernorm_plain, layernorm_train, layernorm_train_plain)
 from .patch_embed import patch_embed, patch_embed_plain
-from .voxel_embed import (VoxelChunks, voxel_embed_tokens, voxel_embed_tokens_plain,
-                          voxel_fill_bev, voxel_fill_bev_plain)
+from .voxel_embed import (VoxelChunks, VoxelHits, voxel_embed_tokens,
+                          voxel_embed_tokens_plain, voxel_fill_bev, voxel_fill_bev_plain,
+                          voxel_hits, voxel_hits_plain)
 
 __all__ = [
     "launches", "reset_launch_counts",
@@ -36,6 +37,6 @@ __all__ = [
     "fused_ln_dense", "fused_ln_dense_plain", "fused_ln_dense_bwd", "fused_ln_dense_bwd_plain",
     "fused_ln_dense_fn", "patch_embed", "patch_embed_plain",
     "int8_dense", "quantize_cols", "quantize_linear", "quantize_rows",
-    "VoxelChunks", "voxel_embed_tokens", "voxel_embed_tokens_plain",
-    "voxel_fill_bev", "voxel_fill_bev_plain",
+    "VoxelChunks", "VoxelHits", "voxel_embed_tokens", "voxel_embed_tokens_plain",
+    "voxel_hits", "voxel_hits_plain", "voxel_fill_bev", "voxel_fill_bev_plain",
 ]

@@ -40,7 +40,7 @@ KERNELS = ("voxel_embed", "flash_packed", "fused_ln_mlp", "layernorm",
            "fused_ln_dense", "patch_embed", "fused_mlp_train", "fused_mlp_bwd",
            "fused_ln_dense_bwd", "flash_attention", "flash_attention_bwd",
            "flash_packed_bwd_split", "flash_packed_bwd_chunked", "flash_int8", "fused_proj",
-           "fused_proj_bwd", "flash_packed_fixed", "flash_packed_chunked")
+           "fused_proj_bwd", "flash_packed_fixed", "flash_packed_chunked", "voxel_hits")
 launches: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lib: ctypes.CDLL | None = None
@@ -120,7 +120,8 @@ _SIGNATURES = {
     "ibk_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "ibk_fused_ln_mlp": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
     "ibk_flash_fwd": (_P,) * 5 + (_I,) * 5 + (_L, _L, _F, _I, _I, _P),
-    "ibk_voxel_embed": (_P,) * 8 + (_I,) * 8 + (_P,),
+    "ibk_voxel_embed": (_P,) * 10 + (_I,) * 8 + (_P,),
+    "ibk_voxel_hits": (_P,) * 7 + (_I,) * 7 + (_P,),
     "ibk_layernorm_train": (_P,) * 6 + (_I, _I, _F, _P),
     "ibk_layernorm_bwd": (_P,) * 8 + (_I, _I, _P),
     "ibk_fused_ln_mlp_train": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
@@ -132,7 +133,7 @@ _SIGNATURES = {
     "ibk_fused_mlp_bwd": (_P,) * 15 + (_I, _I, _I, _P),
     "ibk_fused_ln_dense": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
     "ibk_fused_ln_dense_bwd": (_P,) * 14 + (_I, _I, _I, _F, _I, _I, _P),
-    "ibk_patch_embed": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "ibk_patch_embed": (_P,) * 4 + (_I,) * 6 + (_P,),
     "ibk_flash_attn_fwd": (_P,) * 5 + (_I,) * 5 + (_L,) * 6 + (_F, _P),
     "ibk_flash_attn_bwd": (_P,) * 9 + (_I,) * 5 + (_L,) * 9 + (_F, _P),
     "ibk_flash_int8": (_P,) * 9 + (_I,) * 5 + (_L, _L, _F, _P),

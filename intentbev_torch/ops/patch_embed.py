@@ -5,7 +5,8 @@ Counterpart of ``intentbev/ops/patch_embed.py::patch_embed_matmul``, behind
 ``ViTBackboneConfig.fuse_patch_embed`` for dense inputs of at least 128
 channels: tokens = conv_PxP,sP(x) + bias over x [B, H, W, C] with the conv
 kernel in the JAX layout [P, P, C, D], tokens [B, (H/P)*(W/P), D] in
-row-major patch order, in x's dtype.
+row-major patch order, in x's dtype. The kernel is built for the model
+widths D in ``layernorm.WIDTHS`` (384 and 192).
 """
 
 from __future__ import annotations
@@ -13,10 +14,9 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
+from .layernorm import WIDTHS
 
-MAX_TOKENS_PER_ROW = 96  # the kernel's M tile: one patch row of tokens
-N_TILE = 128             # output columns per block
-K_CHUNKS = (80, 64, 48, 32, 16)  # the kernel's K chunk: the largest dividing P*C
+MAX_TOKENS_PER_ROW = 96  # the kernel's TMA box of one patch row's tokens
 
 
 def patch_embed_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -35,8 +35,8 @@ def patch_embed_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 def patch_embed(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                 patch: int) -> torch.Tensor:
     """Tokens of a contiguous bf16 NHWC CUDA BEV (kernel bf16 [P, P, C, D],
-    D a multiple of 128; bias f32 [D]; W/P <= 96 and P*C a multiple of 16).
-    CPU tensors take :func:`patch_embed_plain`."""
+    D in ``layernorm.WIDTHS``; bias f32 [D]; W/P <= 96 and P*C a multiple of
+    8). CPU tensors take :func:`patch_embed_plain`."""
     if x.device.type == "cpu":
         return patch_embed_plain(x, kernel, bias, patch)
     b, h, w, c = x.shape
@@ -47,10 +47,8 @@ def patch_embed(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     require(h % p == 0 and w % p == 0, f"patch_embed: grid {h}x{w} not divisible by {p}")
     require(w // p <= MAX_TOKENS_PER_ROW,
             f"patch_embed: {w // p} tokens a patch row > {MAX_TOKENS_PER_ROW}")
-    kc = next((k for k in K_CHUNKS if (p * c) % k == 0), None)
-    require(kc is not None and (w * c) % 8 == 0,
-            f"patch_embed: P*C = {p * c} not a multiple of 16 or W*C not of 8")
-    require(d % N_TILE == 0, f"patch_embed: D {d} not a multiple of {N_TILE}")
+    require((p * c) % 8 == 0, f"patch_embed: P*C = {p * c} not a multiple of 8")
+    require(d in WIDTHS, f"patch_embed kernel is built for D in {WIDTHS}, got {d}")
     require(kernel.device == x.device and kernel.dtype == torch.bfloat16
             and tuple(kernel.shape) == (p, p, c, d) and kernel.is_contiguous(),
             f"patch_embed: kernel must be contiguous bf16 {(p, p, c, d)}")
@@ -60,6 +58,6 @@ def patch_embed(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     out = torch.empty(b, (h // p) * (w // p), d, dtype=x.dtype, device=x.device)
     err = kernels().ibk_patch_embed(
         x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, d, p,
-        kc, stream_ptr(x))
+        stream_ptr(x))
     check_launch(err, "patch_embed")
     return out

@@ -167,6 +167,30 @@ def _require_decoded(chunks: VoxelChunks, device, name: str) -> None:
                 f"got {t.dtype} {tuple(t.shape)} {t.device}")
 
 
+def _hit_cells(chunks: VoxelChunks, channels: int, patch: int, grid_hw):
+    """The cells that add into a token, in chunk order, then cell order:
+    (band index b * NB + band, band-local token, W row, value)."""
+    h, w = grid_hw
+    b, nb, nc = chunks.wid.shape
+    rpp = rows_per_program(h, patch)
+    gw = w // patch
+    dev = chunks.wid.device
+    cap = chunks.sl.shape[-1]
+    real = (torch.arange(nc, device=dev)[None, None, :]
+            < chunks.count[:, :, None])                        # [B, NB, NC]
+    val = chunks.val.reshape(b, nb, nc, cap)
+    ch = chunks.ch.reshape(b, nb, nc, cap).long()
+    px = chunks.wid[..., None].long() * WINDOW + chunks.sl.reshape(b, nb, nc, cap).long()
+    keep = real[..., None] & (val != 0) & (ch >= 0) & (ch < channels) \
+        & (px >= 0) & (px < rpp * patch * w)
+    bi, band, _, _ = torch.nonzero(keep, as_tuple=True)
+    px, ch, val = px[keep], ch[keep], val[keep]
+    rib, col = px // w, px % w
+    tok = (rib // patch) * gw + col // patch
+    wrow = ((rib % patch) * patch + col % patch) * channels + ch
+    return bi * nb + band, tok, wrow, val
+
+
 def voxel_embed_tokens_plain(chunks: VoxelChunks, kernel, bias, patch: int,
                              grid_hw: tuple[int, int]) -> torch.Tensor:
     """Plain PyTorch version over decoded chunks: gathers one kernel row per
@@ -175,28 +199,85 @@ def voxel_embed_tokens_plain(chunks: VoxelChunks, kernel, bias, patch: int,
     is >= C, and zero-padded slots, add nothing."""
     b, nb, nc, rpp, c, d = _geometry(chunks, kernel, patch, grid_hw)
     h, w = grid_hw
-    gw = w // patch
-    n_tok = (h // patch) * gw
-    dev = kernel.device
-    cap = chunks.sl.shape[-1]
-    real = (torch.arange(nc, device=dev)[None, None, :]
-            < chunks.count[:, :, None])                        # [B, NB, NC]
-    val = chunks.val.reshape(b, nb, nc, cap)
-    ch = chunks.ch.reshape(b, nb, nc, cap).long()
-    px = chunks.wid[..., None].long() * WINDOW + chunks.sl.reshape(b, nb, nc, cap).long()
-    keep = real[..., None] & (val != 0) & (ch >= 0) & (ch < c) \
-        & (px >= 0) & (px < rpp * patch * w)
-    bi, band, _, _ = torch.nonzero(keep, as_tuple=True)
-    px, ch, val = px[keep], ch[keep], val[keep]
-    row = band * rpp * patch + px // w
-    col = px % w
-    tok = bi * n_tok + (row // patch) * gw + col // patch
-    widx = ((row % patch) * patch + col % patch) * c + ch
-    wrows = kernel.reshape(-1, d)[widx].float()
+    n_tok = (h // patch) * (w // patch)
+    band, tok, wrow, val = _hit_cells(chunks, c, patch, grid_hw)
+    wrows = kernel.reshape(-1, d)[wrow].float()
     vals = val.to(kernel.dtype).float()[:, None]
     out = bias.float().expand(b * n_tok, d).clone()
-    out.index_add_(0, tok, wrows * vals)
+    out.index_add_(0, band * (rpp * (w // patch)) + tok, wrows * vals)
     return out.to(kernel.dtype).reshape(b, n_tok, d)
+
+
+class VoxelHits(NamedTuple):
+    """The token-ordered hit list of row 1's first kernel: per (batch, band),
+    its occupied cells sorted by token (stable: chunk order, then cell
+    order), ``offsets`` i32 [B, NB, T + 1] each band-local token's first
+    position (T = rows_per_program * W/P tokens a band; ``offsets[..., T]``
+    the band's total), ``wrow`` i32 [B, NB, NC * CAP] a hit's W row
+    ((dy * P + dx) * C + ch) and ``val`` f32 [B, NB, NC * CAP] its value
+    rounded to bf16. Entries past a band's total are zero in the plain
+    version and unspecified from the kernel."""
+
+    offsets: torch.Tensor
+    wrow: torch.Tensor
+    val: torch.Tensor
+
+
+def voxel_hits_plain(chunks: VoxelChunks, channels: int, patch: int,
+                     grid_hw: tuple[int, int]) -> VoxelHits:
+    """Plain PyTorch version of row 1's first kernel over decoded chunks: a
+    stable sort of each band's hits by token (values rounded to bf16)."""
+    h, w = grid_hw
+    b, nb, nc = chunks.wid.shape
+    t_band = rows_per_program(h, patch) * (w // patch)
+    n_slots = nc * chunks.sl.shape[-1]
+    band, tok, wrow, val = _hit_cells(chunks, channels, patch, grid_hw)
+    key = band * t_band + tok
+    order = torch.sort(key, stable=True).indices
+    per_tok = torch.bincount(key, minlength=b * nb * t_band).reshape(b * nb, t_band)
+    offsets = torch.zeros(b * nb, t_band + 1, dtype=torch.int64, device=key.device)
+    offsets[:, 1:] = per_tok.cumsum(1)
+    band_s = band[order]
+    first = torch.cat([torch.zeros(1, dtype=torch.int64, device=key.device),
+                       offsets[:, -1].cumsum(0)[:-1]])        # band's first sorted hit
+    pos = torch.arange(order.numel(), device=key.device) - first[band_s]
+    wrow_out = torch.zeros(b * nb, n_slots, dtype=torch.int32, device=key.device)
+    val_out = torch.zeros(b * nb, n_slots, dtype=torch.float32, device=key.device)
+    wrow_out[band_s, pos] = wrow[order].to(torch.int32)
+    val_out[band_s, pos] = val[order].to(torch.bfloat16).float()
+    return VoxelHits(offsets.to(torch.int32).reshape(b, nb, t_band + 1),
+                     wrow_out.reshape(b, nb, n_slots), val_out.reshape(b, nb, n_slots))
+
+
+def _hit_scratch(chunks: VoxelChunks, t_band: int, device):
+    """The kernels' hit list ([B, NB, NC * CAP, 2] i32) and offsets."""
+    b, nb, nc = chunks.wid.shape
+    return (torch.empty(b, nb, nc * CAP, 2, dtype=torch.int32, device=device),
+            torch.empty(b, nb, t_band + 1, dtype=torch.int32, device=device))
+
+
+def voxel_hits(chunks: VoxelChunks, channels: int, patch: int,
+               grid_hw: tuple[int, int]) -> VoxelHits:
+    """Row 1's first kernel alone (``voxel_hits_kernel``): the token-ordered
+    hit list of decoded chunks, values rounded to bf16. A launch counts
+    under ``voxel_hits``, not under ``voxel_embed``, whose launches each
+    produce tokens. CPU tensors take :func:`voxel_hits_plain`."""
+    if chunks.wid.device.type == "cpu":
+        return voxel_hits_plain(chunks, channels, patch, grid_hw)
+    h, w = grid_hw
+    b, nb, nc, _ = _fill_geometry(chunks, grid_hw, patch)
+    require(w % patch == 0, f"voxel_hits: width {w} not divisible by {patch}")
+    _require_decoded(chunks, chunks.wid.device, "voxel_hits")
+    rpp = rows_per_program(h, patch)
+    t_band = rpp * (w // patch)
+    hits, offsets = _hit_scratch(chunks, t_band, chunks.wid.device)
+    err = kernels().ibk_voxel_hits(
+        chunks.wid.data_ptr(), chunks.sl.data_ptr(), chunks.ch.data_ptr(),
+        chunks.val.data_ptr(), chunks.count.data_ptr(), hits.data_ptr(), offsets.data_ptr(),
+        b, nb, nc, channels, w, patch, rpp, stream_ptr(chunks.wid))
+    check_launch(err, "voxel_hits")
+    hits = hits.reshape(b, nb, nc * CAP, 2)
+    return VoxelHits(offsets, hits[..., 0], hits[..., 1].view(torch.float32))
 
 
 def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
@@ -204,7 +285,10 @@ def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
     """Decoded chunks -> tokens [B, (H/P)*(W/P), D] in the kernel's dtype.
     ``kernel`` is the patch-embed conv weight [P, P, C, D] (bf16 on CUDA; D
     in ``layernorm.WIDTHS``),
-    ``bias`` f32 [D]. CPU tensors take :func:`voxel_embed_tokens_plain`."""
+    ``bias`` f32 [D]. On CUDA two kernels run, one launch: the hit list of
+    :func:`voxel_hits` into a scratch of NC * 64 entries a band (8 bytes
+    each), then a warp a token sums its hits' W rows. CPU tensors take
+    :func:`voxel_embed_tokens_plain`."""
     if kernel.device.type == "cpu":
         return voxel_embed_tokens_plain(chunks, kernel, bias, patch, grid_hw)
     b, nb, nc, rpp, c, d = _geometry(chunks, kernel, patch, grid_hw)
@@ -218,11 +302,12 @@ def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
     _require_decoded(chunks, kernel.device, "voxel_embed")
     out = torch.empty(b, (h // patch) * (w // patch), d, dtype=kernel.dtype,
                       device=kernel.device)
+    hits, offsets = _hit_scratch(chunks, rpp * (w // patch), kernel.device)
     err = kernels().ibk_voxel_embed(
         chunks.wid.data_ptr(), chunks.sl.data_ptr(), chunks.ch.data_ptr(),
         chunks.val.data_ptr(), chunks.count.data_ptr(), kernel.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, nb, nc, c, w, patch, rpp, d,
-        stream_ptr(kernel))
+        bias.data_ptr(), out.data_ptr(), hits.data_ptr(), offsets.data_ptr(), b, nb, nc, c, w,
+        patch, rpp, d, stream_ptr(kernel))
     check_launch(err, "voxel_embed")
     return out
 

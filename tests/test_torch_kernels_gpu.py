@@ -55,11 +55,20 @@ at 1 to 36008 rows (blocks of 64), D=384 and 192, hidden 4D and 4D - 128, both
 GELUs: y's relative L2 and share of differing elements against the plain
 version, which it matches bit for bit (controls: one h scale per 32-row
 block; h rounded to bf16 before its codes), two calls with the same bits,
-and the shapes it refuses.
+and the shapes it refuses. The patch embeds run at D=384 and 192: row 15
+(Hopper, wgmma fed by TMA) on one token, 12 tokens a patch row, gw = 90 over
+an odd count of patch rows and the full bench batch, C = 128 and 290, read
+by relative L2 and share (controls: the weight read as w[dx, dy]; the sum
+rounded to bf16 before the bias), and the shapes it refuses; row 1 (the
+token-ordered hit list, then a warp a token) at the bench density, with an
+empty batch element, ~5000 hits in one token, a band filled to its
+capacity and an out-of-range channel, its hit list equal to the plain
+version's entry for entry; both give the same bits on two calls.
 """
 
 import importlib
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -77,14 +86,15 @@ from intentbev_torch.ops import (  # noqa: E402
     fused_ln_mlp_plain, fused_ln_mlp_train, fused_ln_mlp_train_plain, launches, layernorm,
     layernorm_bwd, layernorm_bwd_plain, layernorm_plain, layernorm_train,
     layernorm_train_plain, reset_launch_counts, voxel_embed_tokens,
-    voxel_embed_tokens_plain, voxel_fill_bev, voxel_fill_bev_plain)
+    voxel_embed_tokens_plain, voxel_fill_bev, voxel_fill_bev_plain, voxel_hits,
+    voxel_hits_plain)
 from intentbev_torch.ops.experimental import (  # noqa: E402
     flash_attention_packed_int8, flash_attention_packed_int8_plain, fused_dense_residual,
     fused_proj_bwd, fused_proj_bwd_plain, fused_proj_fwd, fused_proj_fwd_plain)
 from intentbev_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_packed_layout, heads_view)
 from intentbev_torch.ops.voxel_embed import (  # noqa: E402
-    chunks_to_device, decode_chunk_transport)
+    CAP, WINDOW, VoxelChunks, chunks_to_device, decode_chunk_transport)
 from intentbev_torch.parallel.inference import build_chunk_transport  # noqa: E402
 from intentbev_torch.synthetic import serving_batch  # noqa: E402
 
@@ -241,6 +251,37 @@ def _chunks(grid, batch, points, seed, num_chunks):
     return decode_chunk_transport(chunks_to_device(host, "cuda"))
 
 
+VOXEL_LIMIT = 3e-3  # relative L2 of row 1's tokens against the plain version
+
+
+def _check_voxel_embed(chunks, c, d, hw, control=True):
+    """Row 1 against its plain version: the tokens' relative L2 and share of
+    differing elements (the plain version's index_add runs in another
+    order), the hit list of its first kernel equal entry for entry to the
+    plain one's, two calls with the same bits; control: the last chunk of
+    each band skipped."""
+    w = _randn((8, 8, c, d), 0.05, 1)
+    bias = _randn((d,), 0.1, 2, torch.float32)
+    reset_launch_counts()
+    got = voxel_embed_tokens(chunks, w, bias, 8, hw)
+    again = voxel_embed_tokens(chunks, w, bias, 8, hw)
+    assert launches["voxel_embed"] == 2
+    want = voxel_embed_tokens_plain(chunks, w, bias, 8, hw)
+    assert got.shape == ((chunks.wid.shape[0], (hw[0] // 8) * (hw[1] // 8), d))
+    assert _rel(got, want) < VOXEL_LIMIT
+    assert _share(got, want) < MLP_SHARE, _share(got, want)
+    assert torch.equal(got, again)  # deterministic
+    hk, hp = voxel_hits(chunks, c, 8, hw), voxel_hits_plain(chunks, c, 8, hw)
+    assert launches["voxel_hits"] == 1 and launches["voxel_embed"] == 2
+    assert torch.equal(hk.offsets, hp.offsets)
+    used = torch.arange(hp.wrow.shape[-1], device="cuda") < hp.offsets[..., -1:].long()
+    assert torch.equal(hk.wrow[used], hp.wrow[used]) and torch.equal(hk.val[used], hp.val[used])
+    if control:
+        skipped = chunks._replace(count=(chunks.count - 1).clamp(min=0))
+        assert _rel(got, voxel_embed_tokens_plain(skipped, w, bias, 8, hw)) >= VOXEL_LIMIT
+    return got, bias
+
+
 @pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("size", ["small", "main"])
 def test_voxel_embed(dev, size, d):
@@ -248,33 +289,85 @@ def test_voxel_embed(dev, size, d):
         grid = GridConfig(height_px=80, width_px=96, lidar_height_channels=4,
                           lidar_sweeps=2)
         chunks = _chunks(grid, 2, 3000, 0, 64)
-    else:
+    else:  # the bench density: 8 frames of 16384 points, 512 chunks a band
         grid = default_vit_config().grid
         chunks = _chunks(grid, 8, 16384, 0, 512)
-    c = grid.lidar_total_channels
-    w = _randn((8, 8, c, d), 0.05, 1)
-    bias = _randn((d,), 0.1, 2, torch.float32)
-    hw = (grid.height_px, grid.width_px)
-    got = voxel_embed_tokens(chunks, w, bias, 8, hw)
-    want = voxel_embed_tokens_plain(chunks, w, bias, 8, hw)
-    assert got.shape == ((chunks.wid.shape[0], (hw[0] // 8) * (hw[1] // 8), d))
-    assert _rel(got, want) < 3e-3
-    skipped = chunks._replace(count=(chunks.count - 1).clamp(min=0))  # control
-    assert _rel(got, voxel_embed_tokens_plain(skipped, w, bias, 8, hw)) >= 3e-3
+    _check_voxel_embed(chunks, grid.lidar_total_channels, d, (grid.height_px, grid.width_px))
 
 
-def test_voxel_embed_skips_out_of_range_channel(dev):
+@pytest.mark.parametrize("d", WIDTHS)
+def test_voxel_embed_skips_out_of_range_channel(dev, d):
     grid = GridConfig(height_px=80, width_px=96, lidar_height_channels=4, lidar_sweeps=2)
     chunks = _chunks(grid, 1, 500, 3, 64)
     c = grid.lidar_total_channels
     ch = chunks.ch.clone()
     ch[0, 0, 0, 0, 0] = c  # must be dropped, not read past W
     chunks = chunks._replace(ch=ch)
-    w = _randn((8, 8, c, D), 0.05, 1)
-    bias = torch.zeros(D, device="cuda")
-    hw = (grid.height_px, grid.width_px)
-    got = voxel_embed_tokens(chunks, w, bias, 8, hw)
-    assert _rel(got, voxel_embed_tokens_plain(chunks, w, bias, 8, hw)) < 3e-3
+    _check_voxel_embed(chunks, c, d, (grid.height_px, grid.width_px))
+
+
+def _cell_chunks(bands, nc, grid, seed):
+    """Decoded chunks on the card from cells: bands[b][band] = (pixels within
+    the band, channels), unique pairs, or None; each window's cells in chunks
+    of 64, non-integral values."""
+    rng = np.random.default_rng(seed)
+    b, nb = len(bands), len(bands[0])
+    wid = np.zeros((b, nb, nc), np.int32)
+    sl, ch = (np.zeros((b, nb, nc, 1, CAP), np.int32) for _ in range(2))
+    val = np.zeros((b, nb, nc, 1, CAP), np.float32)
+    count = np.zeros((b, nb), np.int32)
+    for i, sample in enumerate(bands):
+        for j, cells in enumerate(sample):
+            if cells is None:
+                continue
+            px, chan = cells
+            n = 0
+            for win in np.unique(px // WINDOW):
+                idx = np.nonzero(px // WINDOW == win)[0]
+                for s0 in range(0, idx.size, CAP):
+                    part = idx[s0:s0 + CAP]
+                    wid[i, j, n] = win
+                    sl[i, j, n, 0, :part.size] = px[part] % WINDOW
+                    ch[i, j, n, 0, :part.size] = chan[part]
+                    val[i, j, n, 0, :part.size] = rng.uniform(0.5, 255.0, part.size)
+                    n += 1
+            count[i, j] = n
+    return VoxelChunks(*(torch.from_numpy(a).cuda() for a in (wid, sl, ch, val, count)))
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("case", ["empty_sample", "one_patch", "full_band"])
+def test_voxel_embed_edges(dev, case, d):
+    """The flagship grid (C = 290, bands of 5 patch rows): a batch whose
+    second element is empty (its tokens are the bias); 5000 hits in one
+    token; a band filled to its capacity, nc chunks of 64 cells."""
+    grid = default_vit_config().grid
+    c, hw = grid.lidar_total_channels, (grid.height_px, grid.width_px)
+    nb, band_px = grid.height_px // 40, 40 * grid.width_px
+    rng = np.random.default_rng(5)
+    empty = [None] * nb
+    if case == "empty_sample":
+        chunks = _chunks(grid, 2, 16384, 0, 512)
+        chunks = chunks._replace(count=chunks.count * torch.tensor([[1], [0]], device="cuda",
+                                                                   dtype=torch.int32))
+    elif case == "one_patch":  # patch row 2, column 40 of band 3
+        r, col = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+        pixels = ((16 + r) * grid.width_px + 320 + col).ravel()
+        flat = rng.choice(pixels.size * c, 5000, replace=False)
+        band = empty.copy()
+        band[3] = (pixels[flat // c], (flat % c).astype(np.int32))
+        chunks = _cell_chunks([band], 128, grid, 6)
+    else:  # band 7: 64 windows of 64 cells, the capacity nc = 64
+        px = np.arange(64)[:, None] * WINDOW * 7 + rng.integers(0, WINDOW, (64, CAP))
+        chan = np.stack([rng.permutation(c)[:CAP] for _ in range(64)])
+        assert px.max() < band_px
+        band = empty.copy()
+        band[7] = (px.ravel(), chan.ravel().astype(np.int32))
+        chunks = _cell_chunks([band, empty], 64, grid, 7)
+        assert int(chunks.count[0, 7]) == 64
+    got, bias = _check_voxel_embed(chunks, c, d, hw)
+    if case == "empty_sample":
+        assert torch.equal(got[1], bias.bfloat16().expand_as(got[1]))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -723,16 +816,49 @@ def _check_ln_dense(rows, dout, gelu, d):
     assert torch.equal(got, again)  # deterministic
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 96, 290), (8, 400, 720, 290)])
-def test_patch_embed(dev, shape):
+PATCH_SHARE = 5e-2  # share of row 15's tokens that may differ from the plain version
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("shape", [(1, 8, 8, 128), (2, 16, 96, 290), (3, 24, 720, 290),
+                                   (8, 400, 720, 290)])
+def test_patch_embed(dev, shape, d):
+    """Row 15 on ragged shapes (one token; 12 tokens a patch row; gw = 90 over
+    9 patch rows, an odd count; the full bench batch), C = 128 where P*C is a
+    multiple of 64: the tokens' relative L2 and share of differing elements
+    against the plain version, two calls with the same bits; controls: the
+    weight read as w[dx, dy] (relative L2) and the sum rounded to bf16
+    before the bias (share)."""
     x = _randn(shape, 1.0, 0)
-    w = _randn((8, 8, shape[-1], D), 0.02, 1)
-    bias = _randn((D,), 0.1, 2, torch.float32)
+    w = _randn((8, 8, shape[-1], d), 0.02, 1)
+    bias = _randn((d,), 0.1, 2, torch.float32)
+    reset_launch_counts()
     got = patch_embed(x, w, bias, 8)
-    assert got.shape == (shape[0], (shape[1] // 8) * (shape[2] // 8), D)
-    assert _rel(got, patch_embed_plain(x, w, bias, 8)) < PATCH_LIMIT
+    again = patch_embed(x, w, bias, 8)
+    assert launches["patch_embed"] == 2
+    assert got.shape == (shape[0], (shape[1] // 8) * (shape[2] // 8), d)
+    want = patch_embed_plain(x, w, bias, 8)
+    assert _rel(got, want) < PATCH_LIMIT
+    assert _share(got, want) < PATCH_SHARE, _share(got, want)
+    assert torch.equal(got, again)  # deterministic
     ctrl = patch_embed_plain(x, w.transpose(0, 1).contiguous(), bias, 8)  # w read as [dx, dy]
     assert _rel(got, ctrl) >= PATCH_LIMIT
+    rounded = (patch_embed_plain(x, w, torch.zeros_like(bias), 8).float() + bias).bfloat16()
+    assert _share(got, rounded) >= PATCH_SHARE, _share(got, rounded)
+
+
+def test_patch_embed_refuses(dev):
+    """Widths the kernel is not built for, more than 96 tokens a patch row,
+    P*C not a multiple of 8."""
+    x = _randn((1, 8, 8, 128), 1.0, 0)
+    with pytest.raises(ValueError):
+        patch_embed(x, _randn((8, 8, 128, 256), 0.02, 1), torch.zeros(256, device="cuda"), 8)
+    with pytest.raises(ValueError):
+        patch_embed(_randn((1, 8, 776, 128), 1.0, 0), _randn((8, 8, 128, D), 0.02, 1),
+                    torch.zeros(D, device="cuda"), 8)
+    with pytest.raises(ValueError):
+        patch_embed(_randn((1, 4, 8, 3), 1.0, 0), _randn((4, 4, 3, D), 0.02, 1),
+                    torch.zeros(D, device="cuda"), 4)
 
 
 # The training entries of the MLP without LN and of the LN + dense (limits

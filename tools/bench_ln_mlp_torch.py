@@ -30,6 +30,17 @@ GELUs: beside its plain version, with the int8 operations' bound (1979
 TOP/s) and a SHA-256 digest of y on the seeded inputs, so that one call on
 two trees shows whether their kernels give the same bits.
 
+and the two patch-embed kernels (``--only embed``; the ViT's lidar embed,
+conv8x8,s8 + bias from one [8, 8, 290, D] weight), at D=384 and 192: row
+15, ``patch_embed`` over a dense bf16 BEV [8, 400, 720, 290] (configuration
+D), beside ``F.conv2d`` with input and weight in channels_last strides (the
+input a permuted view of the NHWC BEV) and over contiguous NCHW copies, and
+the ``PatchEmbed.dense`` chain (a permute copy and one matmul) as its
+reference; and row 1, ``voxel_embed_tokens`` over the flagship line's
+chunks (8 frames of 16384 points each, ``serving_batch`` seed 0, 512 chunks
+a band), split by kernel (the hit list, the gather), with the bytes of W's
+rows its occupied cells read from L2. Both print a SHA-256 of the tokens.
+
 For each case: CUDA-event ms per call (``--iters`` calls after one), TFLOP/s
 of its operations (forward 4*N*D*H; backward the 5 products, 10*N*D*H; row
 14 2*N*D*Dout a product: one forward, two or three backward), the bound (at
@@ -44,7 +55,7 @@ kernel from a profiler trace: the row kernel, the dW products and the
 partial sums. A case the tree's kernels refuse (row 14 at D=192 before
 they took it) prints its error in place of its numbers.
 
-    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd|ln_dense|int8]   # a JSON line a case
+    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd|ln_dense|int8|embed]   # a JSON line a case
 
 It imports no JAX and runs as it stands on an older checkout of the port
 (the entries' signatures are unchanged), so that one call can time two
@@ -71,8 +82,9 @@ ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("fwd", "bwd", "ln_dense", "int8"), default=None,
-                    help="only the LN+MLP forward or backward cases, or only row 14's or 17's")
+    ap.add_argument("--only", choices=("fwd", "bwd", "ln_dense", "int8", "embed"), default=None,
+                    help="only the LN+MLP forward or backward cases, or only row 14's, 17's or "
+                    "the patch embeds' (rows 15 and 1)")
     args = ap.parse_args()
 
     import torch
@@ -84,7 +96,9 @@ def main() -> None:
                                      fused_ln_mlp_plain, fused_ln_mlp_train,
                                      fused_ln_mlp_train_plain, fused_mlp, fused_mlp_bwd,
                                      fused_mlp_bwd_plain, fused_mlp_int8, fused_mlp_int8_plain,
-                                     fused_mlp_plain, quantize_linear)
+                                     fused_mlp_plain, patch_embed, patch_embed_plain,
+                                     quantize_linear, voxel_embed_tokens,
+                                     voxel_embed_tokens_plain)
 
     if not torch.cuda.is_available():
         sys.exit("bench_ln_mlp_torch: needs a CUDA card")
@@ -113,9 +127,15 @@ def main() -> None:
     def gelu16(t, mode):  # the GELU in bf16, as the unfused model would run it
         return F.gelu(t) if mode == "erf" else t * torch.sigmoid(1.702 * t)
 
-    def by_kernel(fn, iters=3):
-        """Device ms per call of fn's kernels from a profiler trace: the
-        backward's row kernel, dW products and partial sums."""
+    bwd_kinds = (("dW", ("dw_gemm", "gemm_at_b")),
+                 ("rows", ("bwd_rows", "ln_mlp_bwd_kernel", "ln_dense_bwd_kernel")),
+                 ("sums", ("sum",)))
+
+    def by_kernel(fn, kinds, iters=3):
+        """Device ms per call of fn's kernels from a profiler trace, by
+        ``kinds`` ((part, name substrings), the first match wins; the rest
+        is "other"), as ``bwd_kinds``: the backward's row kernel, dW
+        products and partial sums."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
@@ -124,19 +144,16 @@ def main() -> None:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        parts = {"rows": 0.0, "dW": 0.0, "sums": 0.0, "other": 0.0}
+        parts = {**{k: 0.0 for k, _ in kinds}, "other": 0.0}
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 continue
-            key = ("dW" if "dw_gemm" in ev.key or "gemm_at_b" in ev.key else
-                   "rows" if any(k in ev.key for k in ("bwd_rows", "ln_mlp_bwd_kernel",
-                                                       "ln_dense_bwd_kernel")) else
-                   "sums" if "sum" in ev.key else "other")
+            key = next((k for k, subs in kinds if any(x in ev.key for x in subs)), "other")
             parts[key] += ev.device_time_total / 1e3 / iters
         return {k: round(v, 4) for k, v in parts.items()}
 
-    def report(name, kern, plain, reference, flops, split=False, n_bytes=0,
-               rate=BF16_FLOPS_PER_S, digest=False):
+    def report(name, kern, plain, reference, flops, split=None, n_bytes=0,
+               rate=BF16_FLOPS_PER_S, digest=False, library=None, extra=None):
         try:
             got = tup(kern())
         except ValueError as e:  # a case this tree's kernels refuse (`require`)
@@ -159,8 +176,11 @@ def main() -> None:
                 "plain_ms": round(event_ms(plain), 4),
                 "reference_ms": None if reference is None else round(event_ms(reference), 4),
                 **readings, "card": card}
+        for label, fn in (library or {}).items():  # one PyTorch call each
+            line[f"library_ms[{label}]"] = round(event_ms(fn), 4)
+        line.update(extra or {})
         if split:
-            line["ms_by_kernel"] = by_kernel(kern)
+            line["ms_by_kernel"] = by_kernel(kern, split)
         print(json.dumps(line), flush=True)
 
     def forward_cases(d, tag, x, res, ln, w1, b1, w2, b2, ln16, b1_16, b2_16, flops,
@@ -204,12 +224,12 @@ def main() -> None:
         bwd_args = (x, ln[0], ln[1], w1, b1, w2, gate, dy)
         report(f"fused_ln_mlp_bwd[gated]{tag}", lambda: fused_ln_mlp_bwd(*bwd_args),
                lambda: fused_ln_mlp_bwd_plain(*bwd_args), chain_grads(True), 5 * flops // 2,
-               split=True)
+               split=bwd_kinds)
         if d == 384:
             mlp_args_ = (x, w1, b1, w2, gate, dy)
             report("fused_mlp_bwd[gated]", lambda: fused_mlp_bwd(*mlp_args_),
                    lambda: fused_mlp_bwd_plain(*mlp_args_), chain_grads(False),
-                   5 * flops // 2, split=True)
+                   5 * flops // 2, split=bwd_kinds)
 
     def ln_dense_cases(d, tag):
         """Row 14 at width d: qkv and an adapter, forward and backward."""
@@ -243,7 +263,7 @@ def main() -> None:
                    lambda: fused_ln_dense_bwd(*bwd_args, gelu_mode=bwd_mode),
                    lambda: fused_ln_dense_bwd_plain(*bwd_args, gelu_mode=bwd_mode),
                    lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True),
-                   (3 if bwd_mode else 2) * flops, split=True,
+                   (3 if bwd_mode else 2) * flops, split=bwd_kinds,
                    n_bytes=2 * (2 * n * d + n * dout + dout * d) + 4 * (dout * d + dout + 2 * d))
             del x, dy, out, leaves
             torch.cuda.empty_cache()
@@ -267,9 +287,59 @@ def main() -> None:
                        4 * ROWS * d * hid, n_bytes=2 * 3 * ROWS * d + 2 * d * hid
                        + 4 * (2 * hid + 2 * d), rate=INT8_OPS_PER_S, digest=True)
 
+    def embed_cases(d):
+        """Rows 15 and 1 at width d: the patch embed over a dense BEV and
+        over the flagship's chunks, from one [8, 8, 290, d] weight."""
+        from intentbev_torch.configs import default_vit_config
+        from intentbev_torch.ops.voxel_embed import chunks_to_device, decode_chunk_transport
+        from intentbev_torch.parallel.inference import build_chunk_transport
+        from intentbev_torch.synthetic import serving_batch
+
+        tag = "" if d == 384 else f"[D={d}]"
+        grid = default_vit_config().grid
+        h, w, c, p = grid.height_px, grid.width_px, grid.lidar_total_channels, 8
+        n_tok = 8 * (h // p) * (w // p)
+        kern, bias = randn((p, p, c, d), 0.02), randn((d,), 0.1, torch.float32)
+        bias16 = bias.bfloat16()
+        x = randn((8, h, w, c), 1.0)
+        w_cl = kern.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        x_nchw, w_nchw = x.permute(0, 3, 1, 2).contiguous(), kern.permute(3, 2, 0, 1).contiguous()
+
+        def dense_chain():  # PatchEmbed.dense: a permute copy, one matmul, the bias
+            xp = x.reshape(8, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+            xp = xp.reshape(8, n_tok // 8, p * p * c)
+            return torch.matmul(xp, kern.reshape(p * p * c, d)) + bias16
+
+        with torch.no_grad():
+            report(f"patch_embed{tag}", lambda: patch_embed(x, kern, bias, p),
+                   lambda: patch_embed_plain(x, kern, bias, p), dense_chain,
+                   2 * n_tok * p * p * c * d,
+                   n_bytes=2 * (x.numel() + kern.numel() + n_tok * d) + 4 * d, digest=True,
+                   library={"conv2d channels_last": lambda: F.conv2d(
+                                x.permute(0, 3, 1, 2), w_cl, bias16, stride=p),
+                            "conv2d NCHW": lambda: F.conv2d(x_nchw, w_nchw, bias16, stride=p)})
+        del x, x_nchw, w_cl, w_nchw
+        torch.cuda.empty_cache()
+        pts, valid, _ = serving_batch(grid, 8, 16384, 0)
+        chunks = decode_chunk_transport(chunks_to_device(
+            build_chunk_transport(pts, valid, grid, p, 512), "cuda"))
+        used = torch.arange(chunks.wid.shape[-1], device="cuda") < chunks.count[..., None]
+        cells = int(((chunks.val != 0) & used[..., None, None]).sum())
+        in_bytes = sum(t.numel() * t.element_size() for t in chunks)
+        with torch.no_grad():
+            report(f"voxel_embed{tag}", lambda: voxel_embed_tokens(chunks, kern, bias, p, (h, w)),
+                   lambda: voxel_embed_tokens_plain(chunks, kern, bias, p, (h, w)), None,
+                   2 * cells * d, n_bytes=in_bytes + 2 * kern.numel() + 4 * d + 2 * n_tok * d,
+                   digest=True, split=(("hits", ("voxel_hits",)), ("gather", ("voxel_gather",)),
+                                       ("kernel", ("voxel_embed",))),
+                   extra={"occupied_cells": cells, "w_row_bytes_from_l2": cells * d * 2})
+
     keep = (torch.rand(8, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
     gate = keep.expand(8, ROWS // 8).reshape(ROWS).contiguous()  # per sample, as drop-path
     for d, tag in ((384, ""), (192, "[D=192]")):
+        if args.only == "embed":
+            embed_cases(d)
+            continue
         if args.only == "int8":
             int8_cases(d)
             continue

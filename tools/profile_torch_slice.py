@@ -2,7 +2,7 @@
 PyTorch port, on one CUDA card.
 
     python3 tools/profile_torch_slice.py [--model vit|cnn] [--requests 4] [--out DIR]
-    python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed,tiny,tiny_int8}
+    python3 tools/profile_torch_slice.py --vit-config {int8,ln_dense,unfused_ln,patch_embed,tiny,tiny_int8,tiny_patch_embed}
     python3 tools/profile_torch_slice.py --train [--model vit|cnn] [--out DIR]
     python3 tools/profile_torch_slice.py --train --vit-config {ln_dense,unfused_ln,tiny,tiny_ln_dense}
     python3 tools/profile_torch_slice.py --experimental [--out DIR]
@@ -42,7 +42,8 @@ as ``intentbev/import_torch.py:235`` reads a timm ``vit_tiny`` checkpoint),
 served over chunks and trained as the default is; its attention runs the
 BHTD kernels. ``tiny_ln_dense`` is ViT-Ti under ``ln_dense``'s switches (the
 LN + dense pair at D=192), ``tiny_int8`` ViT-Ti under ``int8``'s (the W8A8
-MLP at D=192, serving only).
+MLP at D=192, serving only), ``tiny_patch_embed`` ViT-Ti under
+``patch_embed``'s (the dense patch embed at D=192, serving only).
 
 ``--model cnn`` profiles IntentNetCNN (``default_cnn_config()``, random
 seeded weights with BatchNorm statistics from a synthetic batch,
@@ -117,7 +118,9 @@ GROUPS = (
     ("layernorm_kernel", "layernorm"),
     ("layernorm_train_kernel", "layernorm_train"),
     ("layernorm_bwd_kernel", "layernorm_bwd"),
-    ("voxel_embed_kernel", "voxel_embed"),
+    ("voxel_hits_kernel", "voxel_embed (hit list)"),
+    ("voxel_gather_kernel", "voxel_embed (gather)"),
+    ("voxel_embed_kernel", "voxel_embed"),  # its one-kernel form, on older trees
     ("scatter", "scatter (voxelizer, assignment)"),
     ("multi_tensor_apply", "optimizer (AdamW, foreach)"),
     ("fprop", "conv (map embed, fusion, heads)"),  # cuDNN's implicit-GEMM convs
@@ -140,7 +143,8 @@ TINY = dict(embed_dim=192, num_heads=3)  # ViT-Ti (intentbev/import_torch.py:235
 def vit_config(cfg, name: str):
     """(config, transport) of ``--vit-config name``: a serving variant's
     switches, ``tiny``, ViT-Ti's widths over chunks, or ``tiny_ln_dense`` /
-    ``tiny_int8``, ViT-Ti under B's / A's switches."""
+    ``tiny_int8`` / ``tiny_patch_embed``, ViT-Ti under B's / A's / D's
+    switches."""
     from intentbev_torch.parallel import vit_serving_variant
 
     if name.startswith("tiny"):
@@ -503,7 +507,7 @@ def main() -> None:
     ap.add_argument("--model", choices=("vit", "cnn"), default="vit")
     ap.add_argument("--vit-config", choices=("default", "int8", "ln_dense", "unfused_ln",
                                              "patch_embed", "tiny", "tiny_ln_dense",
-                                             "tiny_int8"),
+                                             "tiny_int8", "tiny_patch_embed"),
                     default="default",
                     help="the ViT configuration (training: ln_dense, unfused_ln, tiny or "
                          "tiny_ln_dense)")
