@@ -573,6 +573,10 @@ def main() -> None:
     # relative L2 (PERF.md has the sound and control readings)
     BWD_METRICS = {7: (rel_l2, share) + (rel_l2,) * 6, 5: (rel_l2, share) + (rel_l2,) * 4}
     BWD_LIMITS = {7: (2e-3, 2e-2) + (2e-3,) * 6, 5: (2e-3, 2e-2) + (2e-3,) * 4}
+    # the LN backward (row 9): dx's relative L2 and share of differing
+    # elements, dgamma's and dbeta's relative L2 (the control without the
+    # mean(dyg*xhat) term moves most of dx)
+    LN_BWD_METRICS, LN_BWD_LIMITS = (rel_l2, share, rel_l2, rel_l2), (1e-3, 2e-2, 1e-3, 1e-3)
 
     def bhtd_plain_form(q_, k_, v_, seq=None, form="fixed"):
         """The BHTD plain forward with P rounded against another form's max
@@ -668,10 +672,10 @@ def main() -> None:
             "variance over N-1", (rel_l2,) * 3, (3e-4, 3e-4, 1e-5), 20, 5,
             3 * nbytes(x) + nbytes(inv, ln[0], ln[1]), 0, lib_ln),
         "layernorm_bwd": (
-            lambda: layernorm_bwd(dy, xhat, inv, ln[0]),
-            lambda: layernorm_bwd_plain(dy, xhat, inv, ln[0]),
-            lambda: layernorm_bwd_no_m2(dy, xhat, inv, ln[0]),
-            "no mean(dyg*xhat) term", (rel_l2,) * 3, (1e-3,) * 3, 20, 5,
+            lambda: dx_twice(layernorm_bwd(dy, xhat, inv, ln[0])),
+            lambda: dx_twice(layernorm_bwd_plain(dy, xhat, inv, ln[0])),
+            lambda: dx_twice(layernorm_bwd_no_m2(dy, xhat, inv, ln[0])),
+            "no mean(dyg*xhat) term", LN_BWD_METRICS, LN_BWD_LIMITS, 20, 5,
             3 * nbytes(x) + nbytes(inv, ln[0]) + 2 * d * 4, 0, lib_ln_bwd),
         "fused_ln_mlp_train": (
             lambda: twice(fused_ln_mlp_train(*train_mlp, b2, gate)),
@@ -924,10 +928,10 @@ def main() -> None:
             3 * nbytes(x_t) + nbytes(inv_t, ln_t[0], ln_t[1]), 0,
             torch.no_grad()(lambda: F.layer_norm(x_t, (dt_,), gl_t, bl_t, 1e-6))),
         "layernorm_bwd[D=192]": (
-            lambda: layernorm_bwd(dy_t, xhat_t, inv_t, ln_t[0]),
-            lambda: layernorm_bwd_plain(dy_t, xhat_t, inv_t, ln_t[0]),
-            lambda: layernorm_bwd_no_m2(dy_t, xhat_t, inv_t, ln_t[0]),
-            "no mean(dyg*xhat) term", (rel_l2,) * 3, (1e-3,) * 3, 20, 5,
+            lambda: dx_twice(layernorm_bwd(dy_t, xhat_t, inv_t, ln_t[0])),
+            lambda: dx_twice(layernorm_bwd_plain(dy_t, xhat_t, inv_t, ln_t[0])),
+            lambda: dx_twice(layernorm_bwd_no_m2(dy_t, xhat_t, inv_t, ln_t[0])),
+            "no mean(dyg*xhat) term", LN_BWD_METRICS, LN_BWD_LIMITS, 20, 5,
             3 * nbytes(x_t) + nbytes(inv_t, ln_t[0]) + 2 * dt_ * 4, 0,
             lambda: torch.autograd.grad(y_ln_t, (xl_t, gl_t, bl_t), dy_t, retain_graph=True)),
         "fused_ln_mlp_train[D=192]": (
@@ -1084,7 +1088,18 @@ def main() -> None:
                       + f"; {flops / ms / 1e9:.1f} TFLOP/s of the bound's work "
                       f"(bound {bound_ms:.4f} ms)  [{card}]", flush=True)
 
+    def same_bits(cases_, names):
+        """Two calls of each named kernel give the same bits (its sums run in
+        a fixed order)."""
+        for name in names:
+            kern = cases_[name][0]
+            a_, b_ = kern(), kern()
+            check(all(torch.equal(u, w_) for u, w_ in zip(a_, b_)),
+                  f"{name}: two calls differ")
+            print(f"kernel {name}: two calls give the same bits", flush=True)
+
     check_kernels(cases)
+    same_bits(cases, ("layernorm_bwd", "layernorm_bwd[D=192]"))
     # the reference for the LN+MLP forwards (timed only, the port never
     # calls it): the same function as a chain of PyTorch calls in bf16,
     # F.layer_norm, F.linear, the GELU, F.linear and the residual (cuBLAS)
@@ -2110,21 +2125,25 @@ def main() -> None:
             lambda h_=h_: flash_attention_packed_int8_plain(q, k, vv, h_, tokens, p_max="tile"),
             "P rounded against a running tile max", (rel_l2,), (2e-3,), 10, 2,
             nbytes(q, k, vv) + n_p * d * 2, int8_flops, None)
+    # row 19: y's and dx's relative L2 and share of differing elements, dW's
+    # and db's relative L2 (the forward's control moves most of y)
     exp_cases["fused_proj"] = (
-        lambda: fused_proj_fwd(xp, wp, bp, rp, gate_p),
-        lambda: fused_proj_fwd_plain(xp, wp, bp, rp, gate_p),
-        lambda: proj_unfused(xp, wp, bp, rp, gate_p),
-        "Dense output rounded before gate and residual", (rel_l2,), (3e-4,), 20, 5,
+        lambda: twice(fused_proj_fwd(xp, wp, bp, rp, gate_p)),
+        lambda: twice(fused_proj_fwd_plain(xp, wp, bp, rp, gate_p)),
+        lambda: twice(proj_unfused(xp, wp, bp, rp, gate_p)),
+        "Dense output rounded before gate and residual", (rel_l2, share), (3e-4, 2e-2), 20, 5,
         nbytes(xp, wp, bp, rp, gate_p) + n_p * d * 2, 2 * n_p * d * d, None)
     exp_cases["fused_proj_bwd"] = (
-        lambda: fused_proj_bwd(xp, wp, dyp, gate_p),
-        lambda: fused_proj_bwd_plain(xp, wp, dyp, gate_p),
-        lambda: (*fused_proj_bwd_plain(xp, wp, dyp, gate_p)[:2],
-                 (dyp.float() * gate_p).bfloat16().float().sum(0)),
-        "db from the rounded dyg", (rel_l2,) * 3, (1e-3, 1e-4, 1e-4), 20, 5,
-        nbytes(xp, wp, dyp, gate_p) + n_p * d * 2 + d * d * 4 + d * 4, 4 * n_p * d * d, None)
+        lambda: dx_twice(fused_proj_bwd(xp, wp, dyp, gate_p)),
+        lambda: dx_twice(fused_proj_bwd_plain(xp, wp, dyp, gate_p)),
+        lambda: dx_twice((*fused_proj_bwd_plain(xp, wp, dyp, gate_p)[:2],
+                          (dyp.float() * gate_p).bfloat16().float().sum(0))),
+        "db from the rounded dyg", (rel_l2, share, rel_l2, rel_l2), (1e-3, 2e-2, 1e-4, 1e-4),
+        20, 5, nbytes(xp, wp, dyp, gate_p) + n_p * d * 2 + d * d * 4 + d * 4, 4 * n_p * d * d,
+        None)
     rates["flash_int8"] = rates["flash_int8[D=32]"] = INT8_OPS_PER_S
     check_kernels(exp_cases)
+    same_bits(exp_cases, ("fused_proj", "fused_proj_bwd"))
 
     # reference columns (timed only; none computes the same function): the
     # bf16 packed forward and SDPA over the same q, k, v; cuBLAS's addmm with

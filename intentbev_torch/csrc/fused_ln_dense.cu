@@ -177,14 +177,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (wt == 0) hopper::bulk_wait_read();  // the stores have read the tile
 }
 
-template <typename K>
-int raise_once(K kernel, int bytes, bool& ok) {
-  if (ok) return 0;
-  const int err = raise_smem(kernel, bytes);
-  ok = err == 0;
-  return err;
-}
-
 template <int D, int ACT>
 int launch_fwd(const void* x, const void* gamma, const void* beta, const void* w,
                const void* bias, void* y, int n_rows, int dout, float eps, cudaStream_t stream) {

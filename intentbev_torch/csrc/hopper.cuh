@@ -42,7 +42,17 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The driver's encoder needs a context current on the calling thread. A
+// thread on which no CUDA runtime call has run yet may have none (PyTorch's
+// autograd worker for device 0, while its allocator serves every tensor
+// from its cache: the encode then fails), so the first call on each thread
+// binds the device's primary context (cudaFree(nullptr)).
 static inline EncodeTiledFn encode_tiled_fn() {
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

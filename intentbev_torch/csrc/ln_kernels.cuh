@@ -4,8 +4,8 @@
 // offsets as TMA swizzles them, compile-time loops, quad sums, 32-bit
 // shared-memory accesses and the in-place LayerNorm of a consumer's rows;
 // and the dW product over rows (dw_gemm_kernel) with the fixed-order sums
-// of the block and split partials (col_sums_kernel, split_sums_kernel),
-// which both backwards run after their row kernels.
+// of its split partials (split_sums_kernel), which both backwards run after
+// their row kernels (the block partials' col_sums_kernel is in common.cuh).
 #pragma once
 
 #include <utility>
@@ -214,35 +214,6 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
   }
 }
 
-// Column sums of block partials, up to four (part [parts][width] -> out
-// [width]; a null out is skipped), blockIdx.y the one: 32 columns a block,
-// its eight warps take every eighth part in order and their sums are added
-// in warp order (deterministic).
-struct ColSums {
-  const float* part[4];
-  float* out[4];
-  int width[4];
-  int parts[4];
-};
-
-__global__ void __launch_bounds__(256) col_sums_kernel(ColSums a) {
-  __shared__ float s[8][32];
-  const int y = blockIdx.y, lane = threadIdx.x % 32, w = threadIdx.x / 32;
-  const int width = a.width[y], c = blockIdx.x * 32 + lane;
-  if (a.out[y] == nullptr || blockIdx.x * 32 >= width) return;  // the whole block
-  float v = 0.f;
-  if (c < width)
-    for (int p = w; p < a.parts[y]; p += 8) v += a.part[y][(size_t)p * width + c];
-  s[w][lane] = v;
-  __syncthreads();
-  if (w == 0 && c < width) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) t += s[i][lane];
-    a.out[y][c] = t;
-  }
-}
-
 // The dw_gemm_kernel's outputs from its split partials, splits in order:
 // the first n1 float4s to out1 (dW1, or the LN+dense's dW with n = n1), the
 // rest to out2 (dW2).
@@ -268,6 +239,16 @@ __global__ void __launch_bounds__(256)
 template <typename K>
 int raise_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// raise_smem once, the first time it succeeds (ok: the caller's flag for
+// this kernel).
+template <typename K>
+int raise_once(K kernel, int bytes, bool& ok) {
+  if (ok) return 0;
+  const int err = raise_smem(kernel, bytes);
+  ok = err == 0;
+  return err;
 }
 
 }  // namespace

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .._build import check_launch, kernels, require, stream_ptr
+from ..fused_ln_mlp import dw_splits, dw_tiles
 
 WIDTHS = (192, 384)  # d_in and d_out the kernels are instantiated for
 
@@ -48,7 +49,8 @@ def fused_proj_bwd_plain(x2, w, dy2, gate2):
 
 def _check(x2, w, r2, gate2, name, r2_name):
     """-> (n, d_in, d_out) of bf16 CUDA x2 [n, d_in], w [d_in, d_out] and r2
-    (the residual or dy) [n, d_out], contiguous, with an f32 gate of n rows."""
+    (the residual or dy) [n, d_out], contiguous and 16-byte aligned (the
+    kernels read them by TMA), with an f32 gate of n rows."""
     n, d_in = x2.shape
     d_out = w.shape[1]
     require(x2.is_cuda and x2.dtype == torch.bfloat16 and x2.is_contiguous(),
@@ -67,6 +69,8 @@ def _check(x2, w, r2, gate2, name, r2_name):
             and tuple(r2.shape) == (n, d_out) and r2.is_contiguous(),
             f"{name}: {r2_name} must be contiguous bf16 {(n, d_out)}, got {r2.dtype} "
             f"{tuple(r2.shape)}")
+    require(all(t.data_ptr() % 16 == 0 for t in (x2, w, r2)),
+            f"{name}: x, w and {r2_name} must be 16-byte aligned")
     return n, d_in, d_out
 
 
@@ -88,13 +92,6 @@ def fused_proj_fwd(x2, w, b, r2, gate2):
     return y
 
 
-def _splits(d_in: int, d_out: int, n: int) -> int:
-    """Row splits of the dW product: about 1024 blocks of 64 x 64 outputs,
-    at most one a 64-row chunk."""
-    tiles = (d_in // 64) * (d_out // 64)
-    return max(1, min(64, -(-1024 // tiles), -(-n // 64)))
-
-
 def fused_proj_bwd(x2, w, dy2, gate2):
     """Backward kernels over rows; returns what :func:`fused_proj_bwd_plain`
     does. CPU tensors take the plain version."""
@@ -102,12 +99,14 @@ def fused_proj_bwd(x2, w, dy2, gate2):
         return fused_proj_bwd_plain(x2, w, dy2, gate2)
     n, d_in, d_out = _check(x2, w, dy2, gate2, "fused_proj_bwd", "dy")
     dev = x2.device
-    splits, blocks = _splits(d_in, d_out, n), -(-n // 64)
+    splits = dw_splits(n, dw_tiles(d_in, d_out), dev)
     dx = torch.empty_like(x2)
     dw = torch.empty(d_in, d_out, dtype=torch.float32, device=dev)
     db = torch.empty(d_out, dtype=torch.float32, device=dev)
     dg_ws = torch.empty(n, d_out, dtype=torch.bfloat16, device=dev)
-    part = torch.empty(blocks * d_out + splits * d_in * d_out, dtype=torch.float32, device=dev)
+    # db's block partials (128-row blocks), then the dW product's split partials
+    part = torch.empty(max(-(-n // 128) * d_out, splits * d_in * d_out), dtype=torch.float32,
+                       device=dev)
     err = kernels().ibk_fused_proj_bwd(
         x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), gate2.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), db.data_ptr(), dg_ws.data_ptr(), part.data_ptr(), n, d_in, d_out,

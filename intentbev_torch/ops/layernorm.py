@@ -113,15 +113,19 @@ def layernorm_bwd(dy, xhat, inv, gamma):
     require(xhat.shape == dy.shape and xhat.dtype == torch.bfloat16
             and xhat.is_contiguous() and xhat.device == dy.device,
             "layernorm_bwd: xhat must be contiguous bf16 of dy's shape")
+    require(dy.data_ptr() % 8 == 0 and xhat.data_ptr() % 8 == 0,
+            "layernorm_bwd: dy and xhat must be 8-byte aligned (the kernel's loads)")
     d = dy.shape[-1]
     n = dy.numel() // d
     require(inv.dtype == torch.float32 and inv.numel() == n and inv.is_contiguous()
             and inv.device == dy.device, "layernorm_bwd: inv must be contiguous f32 [rows]")
     _check_params(dy, "layernorm_bwd", gamma)
     dx = torch.empty_like(dy)
-    dgamma = torch.zeros(d, dtype=torch.float32, device=dy.device)
-    dbeta = torch.zeros_like(dgamma)
-    part = torch.empty(2 * ((n + 63) // 64) * d, dtype=torch.float32, device=dy.device)
+    dgamma = torch.empty(d, dtype=torch.float32, device=dy.device)  # the kernels write all
+    dbeta = torch.empty_like(dgamma)
+    # the block partials of dgamma and dbeta: one block an SM at most
+    sms = torch.cuda.get_device_properties(dy.device).multi_processor_count
+    part = torch.empty(2 * sms * d, dtype=torch.float32, device=dy.device)
     err = kernels().ibk_layernorm_bwd(
         dy.data_ptr(), xhat.data_ptr(), inv.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
         part.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), n, d, stream_ptr(dy))

@@ -63,10 +63,18 @@ rounded to bf16 before the bias), and the shapes it refuses; row 1 (the
 token-ordered hit list, then a warp a token) at the bench density, with an
 empty batch element, ~5000 hits in one token, a band filled to its
 capacity and an out-of-range channel, its hit list equal to the plain
-version's entry for entry; both give the same bits on two calls.
+version's entry for entry; both give the same bits on two calls. The LN
+backward (row 9: a persistent grid, then one column-sum launch) runs at 1
+to 36864 rows, D=384 and 192; the residual projection (row 19, forward
+and backward on wgmma fed by TMA) at 1 to 36864 rows, every (d_in, d_out)
+pair of 192 and 384, gated and not: dx's and y's shares of differing
+elements with their controls, and two calls with the same bits. A TMA
+entry whose first CUDA call on a host thread is its own (autograd's worker
+with a warm allocator) must still encode its tensor maps.
 """
 
 import importlib
+import threading
 
 import numpy as np
 import pytest
@@ -448,9 +456,20 @@ def _gate(rows_b, t, seed):
     return (keep.float() / 0.9)[:, None].expand(rows_b, t).contiguous()
 
 
+# The LN backward's dx is also read by the share of its elements that differ
+# from the plain version (f32 sums in another order tip a few to the
+# neighbouring bf16); the control without the mean(dyg * xhat) term moves
+# most of them.
+LN_BWD_SHARE = 2e-2
+
+
 @pytest.mark.parametrize("d", WIDTHS)
-@pytest.mark.parametrize("rows", [10, MAIN_ROWS])
+@pytest.mark.parametrize("rows", [1, 10, 300, 4501, MAIN_ROWS, 8 * 4608])
 def test_layernorm_train_and_bwd(dev, rows, d):
+    """The training forward and the backward (row 9: one row kernel on a
+    persistent grid, then one column-sum launch) against their plain
+    versions, from 1 row to the padded attention rows; two backward calls
+    give the same bits."""
     x = _randn((rows, d), 2.0, 0) + 0.5
     g = _randn((d,), 0.3, 1, torch.float32) + 1
     b = _randn((d,), 0.3, 2, torch.float32)
@@ -459,10 +478,16 @@ def test_layernorm_train_and_bwd(dev, rows, d):
     assert _rel(y, y_p) < 3e-4 and _rel(xhat, xhat_p) < 3e-4 and _rel(inv, inv_p) < 1e-5
     assert _rel(y, _layernorm_unbiased(x, g, b)) >= 3e-4
     dy = _randn((rows, d), 1.0, 3)
+    reset_launch_counts()
     got = layernorm_bwd(dy, xhat, inv, g)
+    assert launches["layernorm_bwd"] == 1 and sum(launches.values()) == 1
     want = layernorm_bwd_plain(dy, xhat, inv, g)
     assert max(_rels(got, want)) < LN_BWD_LIMIT
-    assert max(_rels(got, layernorm_bwd_no_m2(dy, xhat, inv, g))) >= LN_BWD_LIMIT
+    assert _share(got[0], want[0]) < LN_BWD_SHARE
+    ctrl = layernorm_bwd_no_m2(dy, xhat, inv, g)
+    assert max(_rels(got, ctrl)) >= LN_BWD_LIMIT and _share(got[0], ctrl[0]) >= LN_BWD_SHARE
+    again = layernorm_bwd(dy, xhat, inv, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 def _mlp_params(d=D):
@@ -1206,9 +1231,9 @@ FLASH_INT8_LIMIT = 2e-3
 # Controls: the forward with the Dense output rounded to bf16 before the
 # gate and the residual (the model's unfused rounding); the backward with
 # db summed from the rounded dyg_c (with a gate; without one dyg_c = dy, and
-# the control is dW rounded to bf16). On an H100: forward <= 5.7e-5 against
-# the control's 2.2e-3; backward dx <= 4.4e-5, dW <= 1.3e-6, db <= 5.1e-7,
-# the control's db 1.7e-3.
+# the control is dW rounded to bf16). On an H100 at the attention
+# sublayer's shape: forward 3.1e-5 against the control's 2.2e-3; backward dx
+# 4.1e-5, dW 1.7e-6, db 2.9e-7, the control's db 1.9e-3.
 PROJ_LIMIT = 3e-4
 PROJ_BWD_LIMITS = (1e-3, 1e-4, 1e-4)  # dx, dW, db
 
@@ -1266,28 +1291,68 @@ def _proj_unfused(x, w, bias, r, gate):  # control: the Dense output rounded fir
             + r.float()).to(x.dtype)
 
 
+# y's and dx's shares of differing elements (wgmma's f32 sums in another
+# order than the plain version's tip a few to the neighbouring bf16); the
+# forward's control moves most of y.
+PROJ_SHARE = 2e-2
+PROJ_WIDTHS = [(384, 384), (384, 192), (192, 384), (192, 192)]  # (d_in, d_out)
+
+
 @pytest.mark.parametrize("gated", [False, True])
 @pytest.mark.parametrize("n,d_in,d_out", [(600, 384, 192), (600, 192, 384),
-                                          (8 * 4608, 384, 384)])
+                                          (8 * 4608, 384, 384)] + [
+    (n, d_in, d_out) for n in (1, 300, 4501, 8 * 4608) for d_in, d_out in PROJ_WIDTHS
+    if (n, d_in, d_out) != (8 * 4608, 384, 384)])
 def test_fused_proj(dev, n, d_in, d_out, gated):
-    """The forward and the backward kernels against their plain versions;
-    one launch each."""
+    """The forward and the backward kernels (row 19: wgmma fed by TMA; dW on
+    dw_gemm_kernel, db on col_sums_kernel) against their plain versions,
+    from 1 row to the padded attention rows, every width pair; one launch
+    each, and two calls give the same bits."""
     x, w, bias, r, gate = _proj_args(n, d_in, d_out, gated)
     reset_launch_counts()
     y = fused_proj_fwd(x, w, bias, r, gate)
     assert launches["fused_proj"] == 1 and sum(launches.values()) == 1
-    assert _rel(y, fused_proj_fwd_plain(x, w, bias, r, gate)) < PROJ_LIMIT
-    assert _rel(y, _proj_unfused(x, w, bias, r, gate)) >= PROJ_LIMIT
+    want_y = fused_proj_fwd_plain(x, w, bias, r, gate)
+    assert _rel(y, want_y) < PROJ_LIMIT and _share(y, want_y) < PROJ_SHARE
+    ctrl_y = _proj_unfused(x, w, bias, r, gate)
+    assert _rel(y, ctrl_y) >= PROJ_LIMIT and _share(y, ctrl_y) >= PROJ_SHARE
+    assert torch.equal(y, fused_proj_fwd(x, w, bias, r, gate))
     dy = _randn((n, d_out), 1.0, 5)
     got = fused_proj_bwd(x, w, dy, gate)
     assert launches["fused_proj_bwd"] == 1
     want = fused_proj_bwd_plain(x, w, dy, gate)
     assert all(r_ < lim for r_, lim in zip(_rels(got, want), PROJ_BWD_LIMITS)), _rels(got, want)
+    assert _share(got[0], want[0]) < PROJ_SHARE
     if gated:  # control: db from the rounded dyg_c
         ctrl = (want[0], want[1], (dy.float() * gate).bfloat16().float().sum(0))
     else:  # dyg_c = dy, so no rounding point moves; control: dW rounded to bf16
         ctrl = (want[0], want[1].bfloat16(), want[2])
     assert any(r_ >= lim for r_, lim in zip(_rels(got, ctrl), PROJ_BWD_LIMITS))
+    assert all(torch.equal(a, b) for a, b in zip(got, fused_proj_bwd(x, w, dy, gate)))
+
+
+def test_tma_entry_on_a_new_host_thread(dev):
+    """A TMA entry whose first CUDA call on a host thread is its own (as on
+    autograd's worker while the allocator serves every tensor from its
+    cache): the tensor-map encoder needs a context current on the thread,
+    which the entry binds; the thread's call gives the main thread's bits."""
+    x, w, bias, r, gate = _proj_args(600, 384, 384, True)
+    dy = _randn((600, 384), 1.0, 5)
+    want = [t.cpu() for t in fused_proj_bwd(x, w, dy, gate)]  # frees its outputs to the cache
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = [t.cpu() for t in fused_proj_bwd(x, w, dy, gate)]
+        except RuntimeError as e:
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in out, out.get("error")
+    assert all(torch.equal(a, b) for a, b in zip(out["got"], want))
 
 
 def test_fused_dense_residual_autograd(dev):

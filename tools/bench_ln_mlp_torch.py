@@ -41,6 +41,19 @@ chunks (8 frames of 16384 points each, ``serving_batch`` seed 0, 512 chunks
 a band), split by kernel (the hit list, the gather), with the bytes of W's
 rows its occupied cells read from L2. Both print a SHA-256 of the tokens.
 
+and the row LayerNorms (``--only ln``; rows 5, 8 and 9 of ``PERF.md``),
+``layernorm``, ``layernorm_train`` and ``layernorm_bwd`` over 36008 rows at
+D=384 and 192, beside ``F.layer_norm`` (forward, and its backward through
+``torch.autograd.grad``); and the residual projection (``--only proj``; row
+19, a library op), ``fused_proj_fwd`` and ``fused_proj_bwd`` over 36864 rows
+(8 x 4608, the attention sublayer's padded rows) with a per-sample gate at
+(d_in, d_out) = (384, 384) and (192, 384), beside ``torch.addmm``, the
+model's unfused Linear, gate and residual, and that chain's backward
+kernels. Both read each call's device time from a profiler trace
+(``device_ms``: the sum of its kernels' durations, split by kernel), since
+the host's launch rate bounds a loop of these short calls, and check that
+two calls give the same bits.
+
 For each case: CUDA-event ms per call (``--iters`` calls after one), TFLOP/s
 of its operations (forward 4*N*D*H; backward the 5 products, 10*N*D*H; row
 14 2*N*D*Dout a product: one forward, two or three backward), the bound (at
@@ -55,7 +68,7 @@ kernel from a profiler trace: the row kernel, the dW products and the
 partial sums. A case the tree's kernels refuse (row 14 at D=192 before
 they took it) prints its error in place of its numbers.
 
-    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd|ln_dense|int8|embed]   # a JSON line a case
+    python3 tools/bench_ln_mlp_torch.py [--iters 20] [--only fwd|bwd|ln_dense|int8|embed|ln|proj]   # a JSON line a case
 
 It imports no JAX and runs as it stands on an older checkout of the port
 (the entries' signatures are unchanged), so that one call can time two
@@ -82,9 +95,11 @@ ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--only", choices=("fwd", "bwd", "ln_dense", "int8", "embed"), default=None,
-                    help="only the LN+MLP forward or backward cases, or only row 14's, 17's or "
-                    "the patch embeds' (rows 15 and 1)")
+    ap.add_argument("--only", choices=("fwd", "bwd", "ln_dense", "int8", "embed", "ln", "proj"),
+                    default=None,
+                    help="only the LN+MLP forward or backward cases, or only row 14's, 17's, "
+                    "the patch embeds' (rows 15 and 1), the LayerNorms' (rows 5, 8, 9) or the "
+                    "residual projection's (row 19)")
     args = ap.parse_args()
 
     import torch
@@ -96,9 +111,13 @@ def main() -> None:
                                      fused_ln_mlp_plain, fused_ln_mlp_train,
                                      fused_ln_mlp_train_plain, fused_mlp, fused_mlp_bwd,
                                      fused_mlp_bwd_plain, fused_mlp_int8, fused_mlp_int8_plain,
-                                     fused_mlp_plain, patch_embed, patch_embed_plain,
+                                     fused_mlp_plain, layernorm, layernorm_bwd,
+                                     layernorm_bwd_plain, layernorm_plain, layernorm_train,
+                                     layernorm_train_plain, patch_embed, patch_embed_plain,
                                      quantize_linear, voxel_embed_tokens,
                                      voxel_embed_tokens_plain)
+    from intentbev_torch.ops.experimental import (fused_proj_bwd, fused_proj_bwd_plain,
+                                                  fused_proj_fwd, fused_proj_fwd_plain)
 
     if not torch.cuda.is_available():
         sys.exit("bench_ln_mlp_torch: needs a CUDA card")
@@ -128,7 +147,8 @@ def main() -> None:
         return F.gelu(t) if mode == "erf" else t * torch.sigmoid(1.702 * t)
 
     bwd_kinds = (("dW", ("dw_gemm", "gemm_at_b")),
-                 ("rows", ("bwd_rows", "ln_mlp_bwd_kernel", "ln_dense_bwd_kernel")),
+                 ("rows", ("bwd_rows", "ln_mlp_bwd_kernel", "ln_dense_bwd_kernel",
+                           "proj_bwd_kernel")),
                  ("sums", ("sum",)))
 
     def by_kernel(fn, kinds, iters=3):
@@ -153,7 +173,7 @@ def main() -> None:
         return {k: round(v, 4) for k, v in parts.items()}
 
     def report(name, kern, plain, reference, flops, split=None, n_bytes=0,
-               rate=BF16_FLOPS_PER_S, digest=False, library=None, extra=None):
+               rate=BF16_FLOPS_PER_S, digest=False, library=None, extra=None, repeat=False):
         try:
             got = tup(kern())
         except ValueError as e:  # a case this tree's kernels refuse (`require`)
@@ -167,6 +187,8 @@ def main() -> None:
         if digest:  # the kernel's bits, to hold against another tree's
             readings["sha256"] = [hashlib.sha256(a.cpu().view(torch.int16).numpy().tobytes())
                                   .hexdigest()[:16] for a in got]
+        if repeat:  # a second call gives the same bits
+            readings["same_bits_twice"] = all(torch.equal(a, b) for a, b in zip(got, tup(kern())))
         del got, want
         ms = event_ms(kern)
         bounds = {"operations": flops / rate, "bytes": n_bytes / HBM_BYTES_PER_S}
@@ -181,6 +203,7 @@ def main() -> None:
         line.update(extra or {})
         if split:
             line["ms_by_kernel"] = by_kernel(kern, split)
+            line["device_ms"] = round(sum(line["ms_by_kernel"].values()), 4)
         print(json.dumps(line), flush=True)
 
     def forward_cases(d, tag, x, res, ln, w1, b1, w2, b2, ln16, b1_16, b2_16, flops,
@@ -334,9 +357,76 @@ def main() -> None:
                                        ("kernel", ("voxel_embed",))),
                    extra={"occupied_cells": cells, "w_row_bytes_from_l2": cells * d * 2})
 
+    def ln_cases(d, tag):
+        """Rows 5, 8 and 9 at width d over ROWS rows, beside F.layer_norm."""
+        x, dy = randn((ROWS, d), 1.0), randn((ROWS, d), 1.0)
+        g, b = randn((d,), 0.2, torch.float32) + 1, randn((d,), 0.2, torch.float32)
+        _, xhat, inv = layernorm_train_plain(x, g, b)
+        xl = x.detach().clone().requires_grad_(True)
+        g16, b16 = (p.bfloat16().requires_grad_(True) for p in (g, b))
+        y_ln = F.layer_norm(xl, (d,), g16, b16, 1e-6)
+        rows_n = ROWS * d * 2  # bytes of one [ROWS, d] bf16 tensor
+        kinds = (("rows", ("layernorm",)), ("sums", ("sum",)))
+        with torch.no_grad():
+            report(f"layernorm{tag}", lambda: layernorm(x, g, b), lambda: layernorm_plain(x, g, b),
+                   None, 0, split=kinds, n_bytes=2 * rows_n + 8 * d, repeat=True,
+                   library={"F.layer_norm": lambda: F.layer_norm(x, (d,), g16, b16, 1e-6)})
+            report(f"layernorm_train{tag}", lambda: layernorm_train(x, g, b),
+                   lambda: layernorm_train_plain(x, g, b), None, 0, split=kinds,
+                   n_bytes=3 * rows_n + 4 * ROWS + 8 * d, repeat=True,
+                   library={"F.layer_norm": lambda: F.layer_norm(x, (d,), g16, b16, 1e-6)})
+        report(f"layernorm_bwd{tag}", lambda: layernorm_bwd(dy, xhat, inv, g),
+               lambda: layernorm_bwd_plain(dy, xhat, inv, g), None, 0, split=kinds,
+               n_bytes=3 * rows_n + 4 * ROWS + 4 * d + 8 * d, repeat=True,
+               library={"F.layer_norm backward": lambda: torch.autograd.grad(
+                   y_ln, (xl, g16, b16), dy, retain_graph=True)})
+        del x, dy, xhat, inv, xl, y_ln
+        torch.cuda.empty_cache()
+
+    def proj_cases(d_in, d_out):
+        """Row 19 over 8 x 4608 rows with a per-sample gate, beside addmm,
+        the unfused chain and that chain's backward kernels."""
+        n = 8 * 4608
+        tag = "" if (d_in, d_out) == (384, 384) else f"[{d_in}x{d_out}]"
+        x, r, dy = randn((n, d_in), 1.0), randn((n, d_out), 1.0), randn((n, d_out), 1.0)
+        w, bias = randn((d_in, d_out), d_in ** -0.5), randn((d_out,), 0.1, torch.float32)
+        keep_p = (torch.rand(8, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
+        gate_p = keep_p.repeat_interleave(4608, 0).contiguous()  # [n, 1]
+        w_lin, b16, g16 = w.t().contiguous(), bias.bfloat16(), keep_p.view(8, 1, 1).bfloat16()
+        r2b = (r.float() + bias).bfloat16()
+        x3, r3 = x.view(8, 4608, d_in), r.view(8, 4608, d_out)
+        flops = 2 * n * d_in * d_out
+
+        @torch.no_grad()
+        def unfused_bwd():  # the kernels autograd launches for the unfused chain
+            dyg = (dy.view(8, 4608, d_out) * g16).view(n, d_out)
+            return torch.matmul(dyg, w_lin), torch.matmul(dyg.t(), x), dyg.sum(0)
+
+        with torch.no_grad():
+            report(f"fused_proj{tag}", lambda: fused_proj_fwd(x, w, bias, r, gate_p),
+                   lambda: fused_proj_fwd_plain(x, w, bias, r, gate_p),
+                   lambda: r3 + F.linear(x3, w_lin, b16) * g16, flops,
+                   split=(("rows", ("proj",)),), repeat=True,
+                   n_bytes=2 * (n * d_in + 2 * n * d_out + d_in * d_out) + 4 * (d_out + n),
+                   library={"addmm (gate 1, bias in residual)": lambda: torch.addmm(r2b, x, w)})
+        report(f"fused_proj_bwd{tag}", lambda: fused_proj_bwd(x, w, dy, gate_p),
+               lambda: fused_proj_bwd_plain(x, w, dy, gate_p), unfused_bwd, 2 * flops,
+               split=bwd_kinds, repeat=True,
+               n_bytes=2 * (2 * n * d_in + n * d_out + d_in * d_out) + 4 * (
+                   n + d_in * d_out + d_out))
+        del x, r, dy, x3, r3, r2b
+        torch.cuda.empty_cache()
+
     keep = (torch.rand(8, 1, generator=gen, device="cuda") < 0.9).float() / 0.9
     gate = keep.expand(8, ROWS // 8).reshape(ROWS).contiguous()  # per sample, as drop-path
+    if args.only == "proj":
+        for d_in, d_out in ((384, 384), (192, 384)):
+            proj_cases(d_in, d_out)
+        return
     for d, tag in ((384, ""), (192, "[D=192]")):
+        if args.only == "ln":
+            ln_cases(d, tag)
+            continue
         if args.only == "embed":
             embed_cases(d)
             continue

@@ -110,11 +110,15 @@ GROUPS = (
     ("ln_mlp_bwd_kernel", "fused_ln_mlp_bwd (row kernel)"),
     ("ln_dense_bwd_kernel", "fused_ln_dense_bwd (row kernel)"),
     ("ln_dense_bwd_rows", "fused_ln_dense_bwd (row kernel)"),  # its mma.sync form
-    ("dw_gemm_kernel", "LN+MLP / MLP / LN+dense backward dW (wgmma)"),
-    ("col_sums_kernel", "LN+MLP / MLP / LN+dense backward partial sums"),
-    ("split_sums_kernel", "LN+MLP / MLP / LN+dense backward partial sums"),
-    ("gemm_at_b", "dW kernel gemm_at_b (projection backward)"),
-    ("sum_partials", "column partial sums (LN, projection backward)"),
+    ("dw_gemm_kernel", "LN+MLP / MLP / LN+dense / projection backward dW (wgmma)"),
+    ("col_sums_kernel", "backward partial sums (LN+MLP, MLP, LN+dense, LN, projection)"),
+    ("split_sums_kernel", "backward partial sums (LN+MLP, MLP, LN+dense, LN, projection)"),
+    ("proj_fwd_kernel", "fused_proj"),
+    ("proj_bwd_kernel", "fused_proj_bwd (row kernel)"),
+    ("fused_proj_kernel", "fused_proj"),  # its mma.sync form, on older trees
+    ("fused_proj_bwd_rows", "fused_proj_bwd (row kernel)"),  # its mma.sync form
+    ("gemm_at_b", "dW kernel gemm_at_b (projection backward, older trees)"),
+    ("sum_partials", "column partial sums (LN, projection backward, older trees)"),
     ("layernorm_kernel", "layernorm"),
     ("layernorm_train_kernel", "layernorm_train"),
     ("layernorm_bwd_kernel", "layernorm_bwd"),
