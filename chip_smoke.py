@@ -133,13 +133,14 @@ Phases (each prints a line; any failure exits nonzero with no result):
     path calls (in JAX neither): each op's own entry at the attention
     sublayer's shapes of the flagship ViT ([8, 4608, 384], 4501 real keys),
     counted, then each kernel against its plain version with a control:
-    ``flash_attention_packed_int8`` at 6 heads of 64 and 12 of 32 (control:
-    P's codes rounded against a running tile max) and
+    ``flash_attention_packed_int8`` at 6 heads of 64, 12 of 32, 24 of 16
+    and 3 of 128 in bf16 and at 6 of 64 in f32 (control: P's codes rounded
+    against a running tile max; two calls give the same bits) and
     ``fused_dense_residual`` forward and backward through its autograd
     function with a per-sample drop-path gate (controls: the Dense output
     rounded before the gate and residual; db from the rounded dyg), with
-    the reference calls' times: the bf16 packed forward and SDPA for the
-    int8 attention; ``torch.addmm`` (gate 1, bias in the residual) and the
+    the reference calls' times: the bf16 packed forward (head dims 32 and
+    64) and SDPA for the int8 attention; ``torch.addmm`` (gate 1, bias in the residual) and the
     model's unfused Linear, gate and residual, forward and backward (the
     kernels autograd launches for it) for the projection.
 
@@ -381,8 +382,12 @@ def main() -> None:
 
     def bound(n_bytes, flops, rate=BF16_FLOPS_PER_S):
         """Least time (ms) for this work: bytes over the memory rate or
-        operations over the peak rate of their type, whichever is larger."""
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+        operations over the peak rate of their type, whichever is larger.
+        ``flops`` may be a list of (operations, rate) pairs, each the work of
+        one unit (the int8 products, the exponentials): the slowest counts."""
+        pairs = flops if isinstance(flops, list) else [(flops, rate)]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(n_ / r_ * 1e3 for n_, r_ in pairs)
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def fused_mlp_int8_faulty(x_, w1q_, s1_, b1_, w2q_, s2_, b2_, res_, mode, fault):
@@ -2081,13 +2086,22 @@ def main() -> None:
     keep_p = (torch.rand(batch, 1, generator=gen, device=dev) < 0.9).float() / 0.9
     gate_p = keep_p.repeat_interleave(t_pad, 0).contiguous()  # per sample, [N, 1]
     exp_counts = {}
-    for h_, tag in ((heads, ""), (2 * heads, "[D=32]")):
+    qkv32 = qkv.float()  # the f32 instance's q, k, v: slices of one f32 qkv
+    q32, k32, v32 = (qkv32[..., i * d:(i + 1) * d] for i in range(3))
+    # the int8 attention's instances: name -> (heads, q, k, v)
+    int8_cases = {"flash_int8": (heads, q, k, vv), "flash_int8[D=32]": (2 * heads, q, k, vv),
+                  "flash_int8[D=16]": (4 * heads, q, k, vv),
+                  "flash_int8[D=128]": (heads // 2, q, k, vv),
+                  "flash_int8[f32]": (heads, q32, k32, v32)}
+    for name, (h_, q_, k_, v_) in int8_cases.items():
         _build.reset_launch_counts()
-        o8 = flash_attention_packed_int8(q, k, vv, h_, tokens)
+        o8 = flash_attention_packed_int8(q_, k_, v_, h_, tokens)
         torch.cuda.synchronize()
-        exp_counts[f"flash_int8{tag}"] = dict(_build.launches)
-        check(o8.shape == (batch, t_pad, d) and bool(torch.isfinite(o8).all()),
-              f"flash_int8{tag}: o {tuple(o8.shape)} not finite of shape {(batch, t_pad, d)}")
+        exp_counts[name] = dict(_build.launches)
+        check(o8.shape == (batch, t_pad, d) and o8.dtype == q_.dtype
+              and bool(torch.isfinite(o8).all()),
+              f"{name}: o {tuple(o8.shape)} {o8.dtype} not finite {q_.dtype} of shape "
+              f"{(batch, t_pad, d)}")
     leaves = [t_.detach().clone().requires_grad_(True) for t_ in
               (xp.view(batch, t_pad, d), wp, bp, rp.view(batch, t_pad, d), keep_p)]
     _build.reset_launch_counts()
@@ -2101,11 +2115,12 @@ def main() -> None:
           and torch.equal(leaves[3].grad, dyp.view(batch, t_pad, d)),
           "fused_dense_residual: non-finite output or gradient, a gate gradient, or d residual "
           "!= dy")
-    for name, counter in (("flash_int8", "flash_int8"), ("flash_int8[D=32]", "flash_int8"),
+    for name, counter in (*((n_, "flash_int8") for n_ in int8_cases),
                           ("fused_proj", "fused_proj"), ("fused_proj", "fused_proj_bwd")):
         check(exp_counts[name][counter] == 1 and sum(exp_counts[name].values()) == (
             2 if name == "fused_proj" else 1), f"{name}: launches {exp_counts[name]}")
-    print(f"experimental: launches flash_int8 1 (6x64), 1 (12x32); fused_dense_residual "
+    print(f"experimental: launches flash_int8 1 each ({', '.join(int8_cases)}); "
+          f"fused_dense_residual "
           f"forward + backward: fused_proj 1, fused_proj_bwd 1; d gate 0, d residual = dy",
           flush=True)
     del y_p, leaves, o8
@@ -2116,15 +2131,23 @@ def main() -> None:
         return ((torch.matmul(x_.float(), w_.float()) + b_).to(x_.dtype).float() * g_
                 + r_.float()).to(x_.dtype)
 
-    int8_flops = 4 * batch * tokens * tokens * d  # two products over the real keys
+    # the int8 attention's bound: the largest of its bytes, its two integer
+    # products over the real keys (1979 TOP/s) and its B*H*T*seq_len
+    # exponentials (16 a clock per SM at the card's top SM clock)
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    ex2_per_s = 16 * torch.cuda.get_device_properties(0).multi_processor_count * max_mhz * 1e6
     exp_cases = {}
-    for h_, tag in ((heads, ""), (2 * heads, "[D=32]")):
-        exp_cases[f"flash_int8{tag}"] = (
-            lambda h_=h_: flash_attention_packed_int8(q, k, vv, h_, tokens),
-            lambda h_=h_: flash_attention_packed_int8_plain(q, k, vv, h_, tokens),
-            lambda h_=h_: flash_attention_packed_int8_plain(q, k, vv, h_, tokens, p_max="tile"),
+    for name, (h_, q_, k_, v_) in int8_cases.items():
+        exp_cases[name] = (
+            lambda a=(q_, k_, v_, h_): flash_attention_packed_int8(*a, tokens),
+            lambda a=(q_, k_, v_, h_): flash_attention_packed_int8_plain(*a, tokens),
+            lambda a=(q_, k_, v_, h_): flash_attention_packed_int8_plain(*a, tokens, p_max="tile"),
             "P rounded against a running tile max", (rel_l2,), (2e-3,), 10, 2,
-            nbytes(q, k, vv) + n_p * d * 2, int8_flops, None)
+            nbytes(q_, k_, v_) + n_p * d * q_.element_size(),
+            [(4 * batch * t_pad * tokens * d, INT8_OPS_PER_S),
+             (batch * h_ * t_pad * tokens, ex2_per_s)], None)
     # row 19: y's and dx's relative L2 and share of differing elements, dW's
     # and db's relative L2 (the forward's control moves most of y)
     exp_cases["fused_proj"] = (
@@ -2141,24 +2164,23 @@ def main() -> None:
         "db from the rounded dyg", (rel_l2, share, rel_l2, rel_l2), (1e-3, 2e-2, 1e-4, 1e-4),
         20, 5, nbytes(xp, wp, dyp, gate_p) + n_p * d * 2 + d * d * 4 + d * 4, 4 * n_p * d * d,
         None)
-    rates["flash_int8"] = rates["flash_int8[D=32]"] = INT8_OPS_PER_S
     check_kernels(exp_cases)
-    same_bits(exp_cases, ("fused_proj", "fused_proj_bwd"))
+    same_bits(exp_cases, (*int8_cases, "fused_proj", "fused_proj_bwd"))
 
     # reference columns (timed only; none computes the same function): the
     # bf16 packed forward and SDPA over the same q, k, v; cuBLAS's addmm with
     # gate 1 and the bias in the residual, and the model's unfused Linear,
     # gate and residual, forward and backward
     refs = {}
-    for h_, tag in ((heads, ""), (2 * heads, "[D=32]")):
+    for name, (h_, q_, k_, v_) in int8_cases.items():
         def heads_of(t_, h_=h_):
             return t_[:, :tokens].reshape(batch, tokens, h_, d // h_).transpose(1, 2).contiguous()
-        qs_, ks_, vs_ = heads_of(q), heads_of(k), heads_of(vv)
-        refs[f"flash_int8{tag}"] = {
-            "bf16 packed forward": cuda_ms(lambda h_=h_: flash_attention_packed(q, k, vv, h_, tokens),
-                                           10),
-            "SDPA bf16": cuda_ms(torch.no_grad()(
-                lambda: F.scaled_dot_product_attention(qs_, ks_, vs_)), 10)}
+        qs_, ks_, vs_ = heads_of(q_), heads_of(k_), heads_of(v_)
+        refs[name] = {f"SDPA {str(q_.dtype)[6:]}": cuda_ms(torch.no_grad()(
+            lambda: F.scaled_dot_product_attention(qs_, ks_, vs_)), 10)}
+        if q_.dtype == torch.bfloat16 and d // h_ in (32, 64):
+            refs[name]["bf16 packed forward"] = cuda_ms(
+                lambda h_=h_: flash_attention_packed(q, k, vv, h_, tokens), 10)
         del qs_, ks_, vs_
     r2b = (rp.float() + bp).bfloat16()
     w_lin = wp.t().contiguous()  # PyTorch's Linear layout [out, in]
@@ -2185,7 +2207,7 @@ def main() -> None:
               f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms; references "
               + ", ".join(f"{k_} {v_:.3f} ms" for k_, v_ in cols.items()) + f"  [{card}]",
               flush=True)
-    del qkv, q, k, vv, xp, rp, dyp, r2b, w_lin, x3p, r3p, exp_cases
+    del qkv, q, k, vv, qkv32, q32, k32, v32, xp, rp, dyp, r2b, w_lin, x3p, r3p, exp_cases
     torch.cuda.empty_cache()
     print(f"experimental: phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
 
@@ -2279,6 +2301,12 @@ def main() -> None:
              (exp_counts["flash_int8"],)),
             ("flash_int8[D=32]", "flash_int8.cu", "intentbev/ops/experimental/flash_int8.py:49",
              (exp_counts["flash_int8[D=32]"],)),
+            ("flash_int8[D=16]", "flash_int8.cu", "intentbev/ops/experimental/flash_int8.py:49",
+             (exp_counts["flash_int8[D=16]"],)),
+            ("flash_int8[D=128]", "flash_int8.cu", "intentbev/ops/experimental/flash_int8.py:49",
+             (exp_counts["flash_int8[D=128]"],)),
+            ("flash_int8[f32]", "flash_int8.cu", "intentbev/ops/experimental/flash_int8.py:49",
+             (exp_counts["flash_int8[f32]"],)),
             ("fused_proj", "fused_proj.cu", "intentbev/ops/experimental/fused_proj.py:32",
              (exp_counts["fused_proj"],)),
             ("fused_proj_bwd", "fused_proj.cu", "intentbev/ops/experimental/fused_proj.py:40",
@@ -2288,7 +2316,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 42 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 45 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

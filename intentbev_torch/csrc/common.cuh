@@ -1,10 +1,8 @@
 // Shared device helpers for the port's hand-written kernels: the bf16 pack,
-// the block MLPs' GELUs, the integer mma.sync of the int8 attention
-// (flash_int8.cu, the one kernel that still issues mma.sync), warp sums and
-// the two-pass LayerNorm statistics of a row spread over a warp, the
-// fixed-order column sums of block partials (col_sums_kernel), and the
-// dispatch over the model widths. The Hopper pieces (TMA, mbarriers, wgmma)
-// are in hopper.cuh.
+// the block MLPs' GELUs, warp sums and the two-pass LayerNorm statistics of
+// a row spread over a warp, the fixed-order column sums of block partials
+// (col_sums_kernel), and the dispatch over the model widths. The Hopper
+// pieces (TMA, mbarriers, wgmma) are in hopper.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,20 +30,6 @@ __device__ __forceinline__ float gelu(float v) {
 __device__ __forceinline__ float dgelu_erf(float v) {
   return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
          v * 0.3989422804014327f * expf(-0.5f * v * v);
-}
-
-// Integer products: mma.sync.m16n8k32 (s8 x s8 -> s32), with g = lane / 4
-// and t = lane % 4: a 32-bit register holds four int8 of one row (A) or one
-// column (B), at byte 4t (and 4t + 16) of the 32-byte K slice, rows g and
-// g+8 for A, column g for B; C (s32) c0, c1 at (g, 2t..2t+1), c2, c3 at
-// (g+8, 2t..2t+1).
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

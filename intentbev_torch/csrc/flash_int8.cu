@@ -4,48 +4,101 @@
 //   sv = max(absmax of v over every row, 1e-8) / 127;  vq = codes of v / sv
 //   s  = (f32(qq kq^T) * (qs * scale)) * ks, keys at or past seq_len masked
 //   p  = exp(s - rowmax(s));  denom = sum(p) in f32;  pq = round(p * 127)
-//   o  = (f32(pq vq) * (sv / 127)) / denom  -> bf16
+//   o  = (f32(pq vq) * (sv / 127)) / denom  -> q's dtype (bf16 or f32)
 // with codes clip(round(x / s), +-127), s = max(row absmax, 1e-8) / 127,
 // round half to even and IEEE division (__fdiv_rn), and every product of
 // the score and output chains rounded on its own (__fmul_rn), so no
 // multiply-add is contracted into an FMA that would move a code.
 // Replaces intentbev/ops/experimental/flash_int8.py::_fwd_kernel_int8.
+// Head dims 16, 32, 64 and 128 (the heads pair into 128 lanes), bf16 or f32
+// inputs: both are template parameters.
 //
-// Bound on the H100: int8 tensor-core throughput. At [8, 4608, 384] with
-// 4501 real keys the two products are 4 * B * T^2 * D = 2.49e11 integer
-// operations (0.126 ms at 1979 TOPS) against ~113 MB of q, k, v and o
-// (0.034 ms); the row also takes 9.7e8 exps, as the bf16 forward does.
+// Bound on the H100: the softmax's per-score work, not the products. At
+// [8, 4608, 384] with 4501 real keys, 6 heads of 64, the two products are
+// 4 * B * T^2 * D = 2.49e11 integer operations (0.126 ms at 1979 TOP/s;
+// pass 1 adds half of that again) against ~113 MB of q, k, v and o (0.034
+// ms), but every one of the 9.7e8 scores takes an exponential (0.25 ms at
+// 16 a clock per SM on 132 SMs at 1.98 GHz) and ~21 instructions on the
+// CUDA cores over the two passes (~0.6 ms at one a clock per scheduler);
+// 12 heads of 32 twice as many scores, 24 of 16 four times, 3 of 128 half.
 // The crux: P's codes are rounded against the row's final max, so an
 // online softmax that rescales a running accumulator computes another
-// function. Design: a pre-pass quantizes k and v once per (batch, head):
-// quant_k_kernel writes k's codes [B][H][Tk][D] with their row scales and
-// per-tile absmax partials of v; quant_v_kernel reduces those partials to
-// the panel scale sv and writes v's codes transposed ([B][H][D][Tk], keys
-// contiguous) for the P.V product, the keys of each 32-key group permuted
-// so that the P codes a thread holds as a score fragment are already its
-// A fragment (below). The attention kernel gives each warp 16 query rows
-// (a block 128 rows of one head), quantizes q into A fragments in
-// registers, then walks the key tiles twice: pass 1 takes the row max of
-// the scores, pass 2 recomputes the same scores (bit for bit), takes p,
-// denom and P's codes and accumulates pq.vq in int32. Both products are
-// mma.sync.m16n8k32 s8 from K and V tiles of 64 keys staged in shared
-// memory (rows padded by 16 bytes: conflict-free fragments). The integer
-// sums are exact, so the order of the keys changes only denom's f32 sum.
-// The softmax's elementwise work per score, not the tensor cores, bounds
-// the kernel (its time grows with the head count at a fixed width), so the
-// int32 -> f32 of a score and P's round-to-int go through the mantissa of
-// 1.5 * 2^23 (full-rate adds, exact here) instead of the quarter-rate
-// conversion instructions, and only the last key tile tests the mask.
+// function; the kernel keeps two passes over the keys.
+// Design. A pre-pass quantizes k and v once per (batch, head):
+// quant_k_kernel writes k's codes [B][H][Tk][KB] (KB = max(D, 64) bytes a
+// row: at head dims 16 and 32 the rows are zero-padded to 64 bytes, which
+// keeps the 64-byte swizzle of row 17's tiles; zeros add nothing to an
+// integer sum, and the products read only the first D rounded up to 32
+// bytes) with their row scales, and per-tile absmax partials of v;
+// quant_v_kernel reduces those partials to the panel scale sv and writes
+// v's codes transposed ([B][H][D][Tk], keys contiguous: K-major for O = P
+// V, since 8-bit wgmma has no transpose), the keys of each 32-key group
+// permuted so that the P codes a thread holds as a score fragment are
+// already its A fragment (perm32). The attention kernel is warp-
+// specialised as csrc/flash_packed.cu's SAFE forward: a block holds 64
+// query rows per consumer warpgroup of one (batch, head), 3 consumers
+// (160 registers) up to head dim 64 and 2 (240) at 128, whose [64, 128]
+// s32 accumulator leaves no room for a third; the elementwise work is
+// latency-bound at two warps a scheduler (three measured faster at 64).
+// One producer warpgroup (registers lowered) has its first thread keep a
+// ring of 128-key items in flight by TMA on mbarriers: pass 1 items the K
+// tile [128][KB] with its 128 row scales (a bulk copy beside it: values
+// read from device memory beside a busy shared memory wait on L2), pass 2
+// items K, the V tile [D][128] and the scales. Each consumer quantizes its
+// q rows straight into s8 A fragments in registers. Pass 1: S = Q K^T on
+// wgmma m64n128k32 (A in registers, K K-major), the scores, and the row
+// max (two tiles' products in flight at once with two consumers); pass 2:
+// the same scores bit for bit, p = expf(s - m), denom, P's codes packed
+// into A registers, and O += P V on wgmma m64nDk32 (A in registers, the V
+// tile K-major), tile i - 1's P V issued beside tile i's S so that tile
+// i's exponentials run under it. Only the last tile tests the mask (a tile
+// wholly past seq_len is never loaded). P's round-to-int goes through the
+// mantissa of 1.5 * 2^23 (a full-rate add, exact here). o goes
+// out through a staging tile in shared memory as 16-byte stores; rows past
+// T are never written. The integer sums are exact, so the order of the
+// keys changes only denom's f32 sum (fixed: two calls give the same bits).
+// PERF.md (row 18) has the variants measured against this design.
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 128;  // query rows a block: 8 warps x 16
-constexpr int THREADS = 256;
-constexpr int BK = 64;   // keys a tile
-constexpr int PAD = 16;  // bytes added to each shared row of codes
+constexpr int BK = 128;           // keys a ring item
+constexpr int PRE_THREADS = 256;  // the pre-pass kernels
+constexpr int STAGES = 3;         // ring slots
+constexpr int PRODUCER_REGS = 24;
+constexpr int ONE_PER_SM = 120 * 1024;  // more than half an SM's shared memory
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// The attention kernel's block shape by head dim (setmaxnreg: 128 *
+// PRODUCER_REGS + 128 * CONSUMERS * REGS <= 65536).
+template <int DH>
+struct Shape {
+  static constexpr int KB = DH < 64 ? 64 : DH;   // bytes a row of k's codes
+  static constexpr int KSTEPS = (DH + 31) / 32;  // 32-byte k-steps of S = Q K^T
+  static constexpr int CONSUMERS = DH <= 64 ? 3 : 2;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1), ROWS = 64 * CONSUMERS;
+  static constexpr int REGS = CONSUMERS == 2 ? 240 : 160;
+};
+
+// Shared memory: per ring slot the K tile [128][KB] (swizzled at KB bytes),
+// the V tile [D][128] (swizzled at 128 bytes) and the K tile's row scales;
+// then each consumer's o staging tile [64][D + 8] of q's dtype; then the
+// barriers. Tiles start on 1024-byte boundaries.
+template <int DH, typename T>
+struct Smem {
+  static constexpr int K_TILE = BK * Shape<DH>::KB, V_TILE = DH * BK;
+  static constexpr int KS = K_TILE + V_TILE;  // in a slot
+  static constexpr int SLOT = (KS + BK * 4 + 1023) / 1024 * 1024;
+  static constexpr int OLD = DH + 8;  // staging row (elements): conflict-free writes
+  static constexpr int O = STAGES * SLOT;
+  static constexpr int BARS = O + Shape<DH>::CONSUMERS * 64 * OLD * (int)sizeof(T);
+  static constexpr int BYTES = BARS + 2 * STAGES * 8;
+  static_assert(BYTES + 1024 <= 232448, "shared memory");
+};
 
 __device__ __forceinline__ int8_t quant(float v, float scale) {
   const float q = fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
@@ -58,65 +111,84 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float absmax4(const float4& v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// four consecutive elements as f32 (8- or 16-byte aligned)
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// two consecutive elements, rounded to the element type
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // the low bytes of a, b, c, d, in that order from the lowest
 __device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint32_t c,
                                                    uint32_t d) {
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-// B fragment of the 32x8 int8 tile at (k0, n0) of an [n][k] array in shared
-// memory (rows ld bytes apart).
-__device__ __forceinline__ void load_b_s8_shared(uint32_t (&b)[2], const int8_t* s, int ld,
-                                                 int n0, int k0, int lane) {
-  const int8_t* p = s + (n0 + (lane >> 2)) * ld + k0 + 4 * (lane & 3);
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 16);
+__device__ __forceinline__ uint32_t codes4(const float4& v, float scale) {
+  return pack_low_bytes((uint8_t)quant(v.x, scale), (uint8_t)quant(v.y, scale),
+                        (uint8_t)quant(v.z, scale), (uint8_t)quant(v.w, scale));
 }
 
 // Where key j of a 32-key group sits in v's codes. A score fragment gives
-// lane (g, t) keys 8i + 2t and 8i + 2t + 1 of each 8-key tile i; the A
-// fragment of m16n8k32 wants bytes 4t..4t+3 (and 16 + 4t..) of the group.
-// So byte 4t + e (e < 4) holds key 8 (e / 2) + 2t + e % 2, and byte 16 + 4t
-// + e key 16 + 8 (e / 2) + 2t + e % 2: P's codes pack into A registers as
-// they come, and v's codes are stored in that order (the integer sum does
-// not depend on it).
+// lane (g, t) keys 8i + 2t and 8i + 2t + 1 of each 8-key group i; the A
+// fragment of an s8 k32 product wants bytes 4t..4t+3 (and 16 + 4t..) of
+// the group. So byte 4t + e (e < 4) holds key 8 (e / 2) + 2t + e % 2, and
+// byte 16 + 4t + e key 16 + 8 (e / 2) + 2t + e % 2: P's codes pack into A
+// registers as they come, and v's codes are stored in that order (the
+// integer sum does not depend on it).
 __device__ __forceinline__ int perm32(int j) {
   const int w = j & 15;
   return (j & 16) | (((w & 7) >> 1) << 2) | ((w >> 3) << 1) | (w & 1);
 }
 
-// k's codes and row scales (rows past t: codes 0, scale 0), and the absmax
-// of v over each 64-row tile. Grid (Tk / 64, H, B); warp w: rows 8w..8w+7.
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    quant_k_kernel(const bf16* __restrict__ k, const bf16* __restrict__ v,
-                   int8_t* __restrict__ kq, float* __restrict__ ks, float* __restrict__ vmax,
-                   int t, int heads, long long st, long long sb) {
-  constexpr int E = DH / 32;  // values a lane
-  __shared__ float red[THREADS / 32];
+// k's codes and row scales (rows past t: codes 0, scale 0; bytes D..KB-1 of
+// each row 0), and the absmax of v over each 128-row tile. Grid (Tk / 128,
+// H, B); DH / 4 lanes a row, four values a lane.
+template <int DH, typename T>
+__global__ void __launch_bounds__(PRE_THREADS)
+    quant_k_kernel(const T* __restrict__ k, const T* __restrict__ v, int8_t* __restrict__ kq,
+                   float* __restrict__ ks, float* __restrict__ vmax, int t, int heads,
+                   long long st, long long sb) {
+  constexpr int LPR = DH / 4, RPW = 32 / LPR, KB = Shape<DH>::KB;
+  __shared__ float red[PRE_THREADS / 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lr = lane % LPR, sub = lane / LPR;
   const int b = blockIdx.z, h = blockIdx.y;
   const int tk = gridDim.x * BK;
   const size_t bh = (size_t)b * heads + h;
   float vm = 0.f;
-  for (int rr = 0; rr < BK / 8; ++rr) {
-    const int r = blockIdx.x * BK + warp * (BK / 8) + rr;
-    float kv[E], am = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      kv[e] = 0.f;
-      if (r < t) {
-        const size_t off = (size_t)b * sb + (size_t)r * st + h * DH + E * lane + e;
-        kv[e] = __bfloat162float(k[off]);
-        vm = fmaxf(vm, fabsf(__bfloat162float(v[off])));
-      }
-      am = fmaxf(am, fabsf(kv[e]));
+  for (int r0 = warp * RPW; r0 < BK; r0 += (PRE_THREADS / 32) * RPW) {
+    const int r = blockIdx.x * BK + r0 + sub;
+    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < t) {
+      const size_t off = (size_t)b * sb + (size_t)r * st + h * DH + 4 * lr;
+      kv = load4(k + off);
+      vm = fmaxf(vm, absmax4(load4(v + off)));
     }
-    const float sc = __fdiv_rn(fmaxf(warp_max(am), 1e-8f), 127.f);
-    int8_t* dst = kq + (bh * tk + r) * DH + E * lane;
+    float am = absmax4(kv);
 #pragma unroll
-    for (int e = 0; e < E; ++e) dst[e] = r < t ? quant(kv[e], sc) : (int8_t)0;
-    if (lane == 0) ks[bh * tk + r] = r < t ? sc : 0.f;
+    for (int o = LPR / 2; o > 0; o >>= 1) am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
+    const float sc = __fdiv_rn(fmaxf(am, 1e-8f), 127.f);
+    int8_t* row = kq + (bh * tk + r) * KB;
+    *reinterpret_cast<uint32_t*>(row + 4 * lr) = r < t ? codes4(kv, sc) : 0u;
+#pragma unroll
+    for (int c = DH + 4 * lr; c < KB; c += DH) *reinterpret_cast<uint32_t*>(row + c) = 0u;
+    if (lr == 0) ks[bh * tk + r] = r < t ? sc : 0.f;
   }
   vm = warp_max(vm);
   if (lane == 0) red[warp] = vm;
@@ -124,20 +196,24 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) {
     float m = 0.f;
 #pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) m = fmaxf(m, red[w]);
+    for (int w = 0; w < PRE_THREADS / 32; ++w) m = fmaxf(m, red[w]);
     vmax[bh * gridDim.x + blockIdx.x] = m;
   }
 }
 
 // v's panel scale sv (from the tile partials) and its codes, transposed to
 // [d][key] with the keys of each 32-key group in perm32 order (keys past t:
-// 0). Grid (Tk / 64, H, B).
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    quant_v_kernel(const bf16* __restrict__ v, const float* __restrict__ vmax,
+// 0). Grid (Tk / 128, H, B). The codes are staged in shared memory as rows
+// of D + 1 bytes, one a permuted key position: the stores (4 bytes of one
+// row a lane) and the transposing loads (a byte of 32 rows an odd number of
+// words apart) each touch 32 banks.
+template <int DH, typename T>
+__global__ void __launch_bounds__(PRE_THREADS)
+    quant_v_kernel(const T* __restrict__ v, const float* __restrict__ vmax,
                    int8_t* __restrict__ vq, float* __restrict__ sv_out, int t, int heads,
                    long long st, long long sb) {
-  __shared__ __align__(16) int8_t tile[DH * BK];  // [d][key, permuted]
+  constexpr int LD = DH + 1;
+  __shared__ int8_t tile[BK * LD];  // [key, permuted][d]
   const int tid = threadIdx.x, lane = tid & 31;
   const int b = blockIdx.z, h = blockIdx.y, nkt = gridDim.x;
   const int r0 = blockIdx.x * BK, tk = nkt * BK;
@@ -146,60 +222,25 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = lane; i < nkt; i += 32) m = fmaxf(m, vmax[bh * nkt + i]);
   const float sv = __fdiv_rn(fmaxf(warp_max(m), 1e-8f), 127.f);
   if (blockIdx.x == 0 && tid == 0) sv_out[bh] = sv;
-  for (int i = tid; i < BK * DH / 2; i += THREADS) {
-    const int j = i / (DH / 2), d = (i % (DH / 2)) * 2;
+  for (int i = tid; i < BK * DH / 4; i += PRE_THREADS) {  // four values of a row a thread
+    const int j = i / (DH / 4), d = (i % (DH / 4)) * 4;
     const int r = r0 + j;
-    int8_t c0 = 0, c1 = 0;
-    if (r < t) {
-      const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(
-          v + (size_t)b * sb + (size_t)r * st + h * DH + d);
-      c0 = quant(__bfloat162float(p.x), sv);
-      c1 = quant(__bfloat162float(p.y), sv);
-    }
-    const int pj = (j & 32) | perm32(j & 31);
-    tile[d * BK + pj] = c0;
-    tile[(d + 1) * BK + pj] = c1;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < t) x = load4(v + (size_t)b * sb + (size_t)r * st + h * DH + d);
+    int8_t* dst = tile + ((j & ~31) | perm32(j & 31)) * LD + d;
+    dst[0] = quant(x.x, sv);
+    dst[1] = quant(x.y, sv);
+    dst[2] = quant(x.z, sv);
+    dst[3] = quant(x.w, sv);
   }
   __syncthreads();
-  for (int i = tid; i < DH * BK / 16; i += THREADS) {
-    const int d = i / (BK / 16), c = (i % (BK / 16)) * 16;
-    *reinterpret_cast<uint4*>(vq + (bh * DH + d) * tk + r0 + c) =
-        *reinterpret_cast<const uint4*>(tile + d * BK + c);
+  for (int i = tid; i < DH * BK / 4; i += PRE_THREADS) {  // four positions of a d row a thread
+    const int d = i / (BK / 4), p = (i % (BK / 4)) * 4;
+    const int8_t* src = tile + p * LD + d;
+    *reinterpret_cast<uint32_t*>(vq + (bh * DH + d) * tk + r0 + p) =
+        pack_low_bytes((uint8_t)src[0], (uint8_t)src[LD], (uint8_t)src[2 * LD],
+                       (uint8_t)src[3 * LD]);
   }
-}
-
-template <int DH>
-struct Tiles {
-  static constexpr int LDK = DH + PAD;  // bytes a key row of the K tile
-  static constexpr int LDV = BK + PAD;  // bytes a head-dim row of the V tile
-  int8_t k[BK * LDK];                   // [key][d]
-  int8_t v[DH * LDV];                   // [d][key, permuted]
-  float ks[BK];
-};
-
-// Integer scores of a warp's 16 rows against the staged 64-key tile.
-template <int DH>
-__device__ __forceinline__ void tile_scores(int (&acc)[8][4], const uint32_t (&qa)[DH / 32][4],
-                                            const Tiles<DH>& sm, int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-#pragma unroll
-  for (int kk = 0; kk < DH / 32; ++kk)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t bf[2];
-      load_b_s8_shared(bf, sm.k, Tiles<DH>::LDK, 8 * j, 32 * kk, lane);
-      mma_s8(acc[j], qa[kk], bf);
-    }
-}
-
-// int32 -> f32, exact for |i| < 2^22 (a score is at most 64 * 127^2):
-// through the mantissa of 1.5 * 2^23, two full-rate operations in place of a
-// quarter-rate conversion.
-__device__ __forceinline__ float i2f_exact(int i) {
-  return __fsub_rn(__int_as_float(0x4B400000 + i), 12582912.f);
 }
 
 // round half to even of 0 <= x < 2^22, the integer in the low bits of the
@@ -208,137 +249,195 @@ __device__ __forceinline__ uint32_t rint_bits(float x) {
   return __float_as_uint(__fadd_rn(x, 12582912.f));
 }
 
-// The score (f32(acc) * (qs * scale)) * ks, each product rounded.
+// The score (f32(acc) * (qs * scale)) * ks, each product rounded. The
+// conversion is exact (|acc| <= 128 * 127^2 < 2^24); on sm_90 it is one
+// I2FP.F32.S32, which measured faster than two full-rate operations through
+// the mantissa of 1.5 * 2^23.
 __device__ __forceinline__ float score(int acc, float qsc, float ks) {
-  return __fmul_rn(__fmul_rn(i2f_exact(acc), qsc), ks);
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), qsc), ks);
 }
 
-// Pass 1 on a tile: the running row max over its keys (MASK: keys at or
-// past lim = seq_len - k0 left out; only the last tile needs it).
-template <int DH, bool MASK>
-__device__ __forceinline__ void tile_max(float (&m)[2], const int (&acc)[8][4],
-                                         const float (&qsc)[2], const Tiles<DH>& sm, int t4,
-                                         int lim) {
+// op over the 32 values of one row of this thread's part of a 64 x 128
+// accumulator held as f32 bits (ROW 0: row g, elements 4n, 4n + 1; ROW 2:
+// row g + 8), as a tree of depth 5 rather than a chain of 32.
+template <int ROW, typename Op>
+__device__ __forceinline__ float tree(const int (&s)[64], Op op) {
+  float t[16];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int n = 0; n < 16; ++n)
+    t[n] = op(__int_as_float(s[4 * n + ROW]), __int_as_float(s[4 * n + ROW + 1]));
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kj = 8 * j + 2 * t4 + (e & 1);
-      if (!MASK || kj < lim)
-        m[e >> 1] = fmaxf(m[e >> 1], score(acc[j][e], qsc[e >> 1], sm.ks[kj]));
-    }
+  for (int n = 0; n < 8; ++n) t[n] = op(t[n], t[n + 8]);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) t[n] = op(t[n], t[n + 4]);
+  return op(op(t[0], t[2]), op(t[1], t[3]));
 }
 
-// Pass 2 on a tile: p = exp(s - m) into denom, and P's codes round(p * 127)
-// packed as the A fragments of the tile's two 32-key slices (perm32).
-template <int DH, bool MASK>
-__device__ __forceinline__ void tile_p(uint32_t (&pa)[2][4], float (&den)[2],
-                                       const int (&acc)[8][4], const float (&qsc)[2],
-                                       const float (&m)[2], const Tiles<DH>& sm, int t4,
-                                       int lim) {
-  uint32_t c[8][4];
+// acc (the integer scores of a tile, accumulator layout: acc[4n + e] row g
+// (+8 for e >= 2), key 8n + 2t + (e & 1)) -> the f32 scores, in place; ks
+// the tile's key scales; keys at or past lim (the tile's first key's
+// distance to seq_len) -> -inf.
+__device__ __forceinline__ void scores_f32(int (&acc)[64], const float* ks, const float (&qsc)[2],
+                                           int t4, int lim) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int n = 0; n < 16; ++n) {
+    const float2 kv = reinterpret_cast<const float2*>(ks)[4 * n + t4];
+    acc[4 * n + 0] = __float_as_int(score(acc[4 * n + 0], qsc[0], kv.x));
+    acc[4 * n + 1] = __float_as_int(score(acc[4 * n + 1], qsc[0], kv.y));
+    acc[4 * n + 2] = __float_as_int(score(acc[4 * n + 2], qsc[1], kv.x));
+    acc[4 * n + 3] = __float_as_int(score(acc[4 * n + 3], qsc[1], kv.y));
+  }
+  if (lim < BK) {  // the last tile only
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kj = 8 * j + 2 * t4 + (e & 1);
-      float p = 0.f;
-      if (!MASK || kj < lim)
-        p = expf(__fsub_rn(score(acc[j][e], qsc[e >> 1], sm.ks[kj]), m[e >> 1]));
-      den[e >> 1] = __fadd_rn(den[e >> 1], p);
-      c[j][e] = rint_bits(__fmul_rn(p, 127.f));
+    for (int n = 0; n < 16; ++n) {
+      const int key = 8 * n + 2 * t4;
+      if (key >= lim) acc[4 * n + 0] = acc[4 * n + 2] = __float_as_int(-INFINITY);
+      if (key + 1 >= lim) acc[4 * n + 1] = acc[4 * n + 3] = __float_as_int(-INFINITY);
     }
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    const int j0 = 4 * kk;
-    pa[kk][0] = pack_low_bytes(c[j0][0], c[j0][1], c[j0 + 1][0], c[j0 + 1][1]);
-    pa[kk][1] = pack_low_bytes(c[j0][2], c[j0][3], c[j0 + 1][2], c[j0 + 1][3]);
-    pa[kk][2] = pack_low_bytes(c[j0 + 2][0], c[j0 + 2][1], c[j0 + 3][0], c[j0 + 3][1]);
-    pa[kk][3] = pack_low_bytes(c[j0 + 2][2], c[j0 + 2][3], c[j0 + 3][2], c[j0 + 3][3]);
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    flash_int8_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ kq,
-                      const int8_t* __restrict__ vq, const float* __restrict__ ks,
-                      const float* __restrict__ svs, bf16* __restrict__ o, int t, int seq_len,
-                      int heads, long long st, long long sb, float scale) {
-  constexpr int KS = DH / 32;  // 32-deep slices of the head dim
-  constexpr int NO = DH / 8;   // 8-wide tiles of the output
-  __shared__ __align__(16) Tiles<DH> sm;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tk = (t + BK - 1) / BK * BK;
+template <int DH, typename T>
+__global__ void __launch_bounds__(Shape<DH>::THREADS, 1)
+    flash_int8_kernel(const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv, const T* __restrict__ q,
+                      const float* __restrict__ ks, const float* __restrict__ svs,
+                      T* __restrict__ o, int t, int tk, int seq_len, int heads, long long st,
+                      long long sb, float scale) {
+  using S = Shape<DH>;
+  using L = Smem<DH, T>;
+  constexpr int KSTEPS = S::KSTEPS, CONSUMERS = S::CONSUMERS;
+  extern __shared__ uint8_t smem_raw[];
+  // aligned to 1024 bytes by an offset, not through an integer, so that the
+  // compiler keeps the shared address space: the key scales load as LDS
+  uint8_t* sm = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + STAGES;
+
+  // the warpgroup index through a shuffle: else ptxas takes the consumers'
+  // branches for divergent paths and serialises wgmma (C7520)
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int q0 = blockIdx.x * S::ROWS, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * heads + h;
-  const int8_t* kq_bh = kq + bh * tk * DH;
-  const int8_t* vq_bh = vq + bh * DH * tk;
-  const float* ks_bh = ks + bh * tk;
-  const int row_g = blockIdx.x * BQ + warp * 16 + g;  // rows row_g and row_g + 8
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * CONSUMERS);  // one per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int n_tiles = (seq_len + BK - 1) / BK;
+
+  if (wg == CONSUMERS) {  // producer: one thread issues every load
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 128 * CONSUMERS) {
+      // item it < n_tiles: pass 1's K tile it; else pass 2's K and V tiles
+      // it - n_tiles; each with the K tile's row scales
+      const float* ks_bh = ks + bh * tk;
+      for (int it = 0; it < 2 * n_tiles; ++it) {
+        const int s = it % STAGES, j = it < n_tiles ? it : it - n_tiles;
+        uint8_t* slot = sm + s * L::SLOT;
+        hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s],
+                                      L::K_TILE + BK * 4 + (it >= n_tiles ? L::V_TILE : 0));
+        hopper::tma_load_2d(slot, &mk, &full[s], 0, (int)(bh * tk) + j * BK);
+        hopper::bulk_load(slot + L::KS, ks_bh + j * BK, BK * 4, &full[s]);
+        if (it >= n_tiles)
+          hopper::tma_load_2d(slot + L::K_TILE, &mv, &full[s], j * BK, (int)(bh * DH));
+      }
+    }
+    return;
+  }
+
+  // consumers: 64 query rows each
+  hopper::setmaxnreg_inc<S::REGS>();
+  const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row_g = q0 + 64 * wg + 16 * warp + g;  // rows row_g and row_g + 8
 
   // 1. q's codes, straight into A fragments: lane (g, t) holds columns
-  //    32kk + 4t.. and 32kk + 16 + 4t.. of rows g and g + 8, and the four
-  //    lanes of a row reduce its absmax
-  uint32_t qa[KS][4];
+  //    32kk + 4t.. and 32kk + 16 + 4t.. of rows g and g + 8 (those past D:
+  //    0), and the four lanes of a row reduce its absmax
+  uint32_t qa[KSTEPS][4];
   float qsc[2];
-  {
-    float x[2][KS][8];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row_g + 8 * half;
-      float am = 0.f;
+  for (int half = 0; half < 2; ++half) {
+    const int r = row_g + 8 * half;
+    float4 x[KSTEPS][2];
+    float am = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
-        for (int part = 0; part < 2; ++part) {
-          uint2 u = make_uint2(0, 0);
-          if (r < t)
-            u = *reinterpret_cast<const uint2*>(q + (size_t)b * sb + (size_t)r * st + h * DH +
-                                                32 * kk + 16 * part + 4 * t4);
-          const bf16* e = reinterpret_cast<const bf16*>(&u);
+      for (int part = 0; part < 2; ++part) {
+        const int col = 32 * kk + 16 * part + 4 * t4;
+        x[kk][part] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (col < DH && r < t) x[kk][part] = load4(q + (size_t)b * sb + (size_t)r * st + h * DH + col);
+        am = fmaxf(am, absmax4(x[kk][part]));
+      }
+    am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, 1));
+    am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, 2));
+    const float qs = __fdiv_rn(fmaxf(am, 1e-8f), 127.f);
+    qsc[half] = __fmul_rn(qs, scale);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            x[half][kk][4 * part + i] = __bfloat162float(e[i]);
-            am = fmaxf(am, fabsf(x[half][kk][4 * part + i]));
-          }
-        }
-      am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, 1));
-      am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, 2));
-      const float qs = __fdiv_rn(fmaxf(am, 1e-8f), 127.f);
-      qsc[half] = __fmul_rn(qs, scale);
+    for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-        for (int part = 0; part < 2; ++part) {
-          const float* xv = &x[half][kk][4 * part];
-          qa[kk][half + 2 * part] = pack_low_bytes(quant(xv[0], qs), quant(xv[1], qs),
-                                                   quant(xv[2], qs), quant(xv[3], qs));
-        }
-    }
+      for (int part = 0; part < 2; ++part) qa[kk][half + 2 * part] = codes4(x[kk][part], qs);
   }
 
-  auto load_k = [&](int k0) {  // the K tile's codes and row scales
-    for (int i = tid; i < BK * DH / 16; i += THREADS) {
-      const int r = i / (DH / 16), c = (i % (DH / 16)) * 16;
-      *reinterpret_cast<uint4*>(sm.k + r * Tiles<DH>::LDK + c) =
-          *reinterpret_cast<const uint4*>(kq_bh + (size_t)(k0 + r) * DH + c);
-    }
-    if (tid < BK) sm.ks[tid] = ks_bh[k0 + tid];
+  auto slot_of = [&](int it) { return sm + (it % STAGES) * L::SLOT; };
+  auto landed = [&](int it) { hopper::mbar_wait(&full[it % STAGES], (it / STAGES) & 1); };
+  auto release = [&](int it) {
+    if (lane == 0) hopper::mbar_arrive(&empty[it % STAGES]);
   };
+  auto scores = [&](int(&acc)[64], int it) {  // acc = Q K^T of item it's K tile
+    const uint32_t kt = hopper::smem_u32(slot_of(it));
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      hopper::wgmma_s8_rs<BK>(acc, qa[kk], hopper::desc_kmajor_at<S::KB>(kt + 32 * kk), kk > 0);
+  };
+  auto ks_of = [&](int it) { return reinterpret_cast<const float*>(slot_of(it) + L::KS); };
 
   // 2. pass 1: the row max of the scores over every real key
   float m[2] = {-INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < seq_len; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    load_k(k0);
-    __syncthreads();
-    int acc[8][4];
-    tile_scores<DH>(acc, qa, sm, lane);
-    if (seq_len - k0 >= BK)
-      tile_max<DH, false>(m, acc, qsc, sm, t4, BK);
-    else
-      tile_max<DH, true>(m, acc, qsc, sm, t4, seq_len - k0);
+  auto row_max = [&](int(&acc)[64], int it) {  // item it is tile it
+    scores_f32(acc, ks_of(it), qsc, t4, seq_len - it * BK);
+    m[0] = fmaxf(m[0], tree<0>(acc, [](float x, float y) { return fmaxf(x, y); }));
+    m[1] = fmaxf(m[1], tree<2>(acc, [](float x, float y) { return fmaxf(x, y); }));
+  };
+  int sc[64];
+  {
+    int it = 0;
+    if constexpr (CONSUMERS == 2) {  // two tiles' products in flight at once
+      int sn[64];
+      for (; it + 1 < n_tiles; it += 2) {
+        landed(it);
+        hopper::wgmma_fence();
+        scores(sc, it);
+        hopper::wgmma_commit();
+        landed(it + 1);
+        scores(sn, it + 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+        row_max(sc, it);
+        release(it);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sn);
+        row_max(sn, it + 1);
+        release(it + 1);
+      }
+    }
+    for (; it < n_tiles; ++it) {
+      landed(it);
+      hopper::wgmma_fence();
+      scores(sc, it);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      row_max(sc, it);
+      release(it);
+    }
   }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -346,96 +445,174 @@ __global__ void __launch_bounds__(THREADS)
     m[half] = fmaxf(m[half], __shfl_xor_sync(0xffffffffu, m[half], 2));
   }
 
-  // 3. pass 2: the same scores, p = exp(s - m), denom, P's codes, pq.vq
+  // 3. pass 2: the same scores, p = exp(s - m), denom, P's codes, O += P V
+  int oacc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) oacc[i] = 0;
   float den[2] = {0.f, 0.f};
-  int oacc[NO][4];
+  uint32_t pa[BK / 32][4];  // P's codes of the tile before, A fragments
+  auto probs = [&](int(&acc)[64], int it) {  // acc -> p (f32 bits), into denom
+    scores_f32(acc, ks_of(it), qsc, t4, seq_len - (it - n_tiles) * BK);
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+    for (int i = 0; i < 64; ++i)
+      acc[i] = __float_as_int(expf(__fsub_rn(__int_as_float(acc[i]), m[(i >> 1) & 1])));
+    den[0] = __fadd_rn(den[0], tree<0>(acc, [](float x, float y) { return __fadd_rn(x, y); }));
+    den[1] = __fadd_rn(den[1], tree<2>(acc, [](float x, float y) { return __fadd_rn(x, y); }));
+  };
+  auto pack = [&](const int(&acc)[64]) {  // P's codes round(p * 127) as A fragments
+    uint32_t c[64];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0;
-  for (int k0 = 0; k0 < seq_len; k0 += BK) {
-    __syncthreads();
-    load_k(k0);
-    for (int i = tid; i < DH * BK / 16; i += THREADS) {
-      const int d = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      *reinterpret_cast<uint4*>(sm.v + d * Tiles<DH>::LDV + c) =
-          *reinterpret_cast<const uint4*>(vq_bh + (size_t)d * tk + k0 + c);
+    for (int i = 0; i < 64; ++i) c[i] = rint_bits(__fmul_rn(__int_as_float(acc[i]), 127.f));
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      const int j = 16 * kk;  // element 4n of n = 4kk
+      pa[kk][0] = pack_low_bytes(c[j + 0], c[j + 1], c[j + 4], c[j + 5]);
+      pa[kk][1] = pack_low_bytes(c[j + 2], c[j + 3], c[j + 6], c[j + 7]);
+      pa[kk][2] = pack_low_bytes(c[j + 8], c[j + 9], c[j + 12], c[j + 13]);
+      pa[kk][3] = pack_low_bytes(c[j + 10], c[j + 11], c[j + 14], c[j + 15]);
     }
-    __syncthreads();
-    int acc[8][4];
-    tile_scores<DH>(acc, qa, sm, lane);
-    uint32_t pa[2][4];
-    if (seq_len - k0 >= BK)
-      tile_p<DH, false>(pa, den, acc, qsc, m, sm, t4, BK);
-    else
-      tile_p<DH, true>(pa, den, acc, qsc, m, sm, t4, seq_len - k0);
+  };
+  auto pv = [&](int it) {  // O += P V of item it (P in pa)
+    const uint32_t vt = hopper::smem_u32(slot_of(it) + L::K_TILE);
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t bf[2];
-        load_b_s8_shared(bf, sm.v, Tiles<DH>::LDV, 8 * n, 32 * kk, lane);
-        mma_s8(oacc[n], pa[kk], bf);
-      }
+    for (int kk = 0; kk < BK / 32; ++kk)
+      hopper::wgmma_s8_rs<DH>(oacc, pa[kk], hopper::desc_kmajor_at<128>(vt + 32 * kk), 1);
+  };
+  const int item = n_tiles;
+  landed(item);
+  hopper::wgmma_fence();
+  scores(sc, item);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  probs(sc, item);
+  pack(sc);
+  for (int i = 1; i < n_tiles; ++i) {
+    landed(item + i);
+    hopper::wgmma_fence();
+    scores(sc, item + i);
+    hopper::wgmma_commit();
+    pv(item + i - 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // the scores of tile i
+    hopper::fence_regs(sc);
+    probs(sc, item + i);
+    hopper::wgmma_wait<0>();  // P V of tile i - 1: its slot and pa are free
+    hopper::fence_regs(oacc);
+    release(item + i - 1);
+    pack(sc);
   }
+  hopper::wgmma_fence();
+  pv(item + n_tiles - 1);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(oacc);
+  release(item + n_tiles - 1);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     den[half] = __fadd_rn(den[half], __shfl_xor_sync(0xffffffffu, den[half], 1));
     den[half] = __fadd_rn(den[half], __shfl_xor_sync(0xffffffffu, den[half], 2));
   }
 
-  // 4. o = (f32(pq.vq) * (sv / 127)) / denom
+  // 4. o = (f32(pq.vq) * (sv / 127)) / denom, through this warpgroup's
+  //    staging tile, 16 bytes a store
   const float svc = __fdiv_rn(svs[bh], 127.f);
+  T* ost = reinterpret_cast<T*>(sm + L::O) + wg * 64 * L::OLD;
+  const int w0 = 16 * warp + g;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row_g + 8 * half;
-    if (r >= t) continue;
-    bf16* op = o + ((size_t)b * t + r) * ((size_t)heads * DH) + h * DH;
+  for (int n = 0; n < DH / 8; ++n) {
+    const int col = 8 * n + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<uint32_t*>(op + 8 * n + 2 * t4) = pack_bf16x2(
-          __fdiv_rn(__fmul_rn(__int2float_rn(oacc[n][2 * half]), svc), den[half]),
-          __fdiv_rn(__fmul_rn(__int2float_rn(oacc[n][2 * half + 1]), svc), den[half]));
+    for (int half = 0; half < 2; ++half)
+      store2(ost + (w0 + 8 * half) * L::OLD + col,
+             __fdiv_rn(__fmul_rn(__int2float_rn(oacc[4 * n + 2 * half]), svc), den[half]),
+             __fdiv_rn(__fmul_rn(__int2float_rn(oacc[4 * n + 2 * half + 1]), svc), den[half]));
+  }
+  hopper::named_sync(1 + wg, 128);
+  constexpr int CHUNKS = DH * (int)sizeof(T) / 16, PER = 16 / (int)sizeof(T);  // a row's
+  for (int i = wt; i < 64 * CHUNKS; i += 128) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * PER;
+    const int row = q0 + 64 * wg + r;
+    if (row < t)
+      *reinterpret_cast<uint4*>(o + ((size_t)b * t + row) * ((size_t)heads * DH) + h * DH + c) =
+          *reinterpret_cast<const uint4*>(ost + r * L::OLD + c);
   }
 }
 
-template <int DH>
+template <int DH, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* kq, void* vq, void* ks,
            void* vmax, void* sv, int b, int t, int seq_len, int heads, long long st,
            long long sb, float scale, cudaStream_t s) {
-  const dim3 pre((t + BK - 1) / BK, heads, b);
-  quant_k_kernel<DH><<<pre, THREADS, 0, s>>>((const bf16*)k, (const bf16*)v, (int8_t*)kq,
-                                             (float*)ks, (float*)vmax, t, heads, st, sb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  quant_v_kernel<DH><<<pre, THREADS, 0, s>>>((const bf16*)v, (const float*)vmax, (int8_t*)vq,
-                                             (float*)sv, t, heads, st, sb);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t + BQ - 1) / BQ, heads, b);
-  flash_int8_kernel<DH><<<grid, THREADS, 0, s>>>(
-      (const bf16*)q, (const int8_t*)kq, (const int8_t*)vq, (const float*)ks,
-      (const float*)sv, (bf16*)o, t, seq_len, heads, st, sb, scale);
+  using L = Smem<DH, T>;
+  using Sh = Shape<DH>;
+  const int tk = (t + BK - 1) / BK * BK;
+  CUtensorMap mk, mv;
+  int err;
+  // k's codes as one [B*H*Tk, KB] matrix in boxes of [128][KB]; v's as one
+  // [B*H*D, Tk] matrix in boxes of [D][128]
+  if ((err = hopper::encode_2d_s8(&mk, kq, b * heads * tk, Sh::KB, BK, Sh::KB)) ||
+      (err = hopper::encode_2d_s8(&mv, vq, b * heads * DH, tk, DH, BK)))
+    return err;
+  const dim3 pre(tk / BK, heads, b);
+  quant_k_kernel<DH, T><<<pre, PRE_THREADS, 0, s>>>((const T*)k, (const T*)v, (int8_t*)kq,
+                                                    (float*)ks, (float*)vmax, t, heads, st, sb);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  quant_v_kernel<DH, T><<<pre, PRE_THREADS, 0, s>>>((const T*)v, (const float*)vmax,
+                                                    (int8_t*)vq, (float*)sv, t, heads, st, sb);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  auto* kern = flash_int8_kernel<DH, T>;
+  // + alignment slack; at least ONE_PER_SM, so that no second block shares
+  // the SM's registers with the one whose consumers raise theirs
+  constexpr int bytes = cmax(L::BYTES + 1024, ONE_PER_SM);
+  static bool ok = false;  // the shared-memory limit is raised once
+  if (!ok) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    ok = true;
+  }
+  const dim3 grid((t + Sh::ROWS - 1) / Sh::ROWS, heads, b);
+  kern<<<grid, Sh::THREADS, bytes, s>>>(mk, mv, (const T*)q, (const float*)ks,
+                                        (const float*)sv, (T*)o, t, tk, seq_len, heads, st, sb,
+                                        scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dh(int dh, const void* q, const void* k, const void* v, void* o, void* kq, void* vq,
+              void* ks, void* vmax, void* sv, int b, int t, int seq_len, int heads,
+              long long st, long long sb, float scale, cudaStream_t s) {
+  if (dh == 16)
+    return launch<16, T>(q, k, v, o, kq, vq, ks, vmax, sv, b, t, seq_len, heads, st, sb, scale, s);
+  if (dh == 32)
+    return launch<32, T>(q, k, v, o, kq, vq, ks, vmax, sv, b, t, seq_len, heads, st, sb, scale, s);
+  if (dh == 64)
+    return launch<64, T>(q, k, v, o, kq, vq, ks, vmax, sv, b, t, seq_len, heads, st, sb, scale, s);
+  if (dh == 128)
+    return launch<128, T>(q, k, v, o, kq, vq, ks, vmax, sv, b, t, seq_len, heads, st, sb, scale,
+                          s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v bf16 [B, T, H*dh] with row stride st and batch stride sb (elements;
-// the same for all three, rows 16-byte aligned); o bf16 [B, T, H*dh]
-// contiguous. Workspaces, with Tk = T rounded up to 64: kq int8 [B, H, Tk,
-// dh], vq int8 [B, H, dh, Tk], ks f32 [B, H, Tk], vmax f32 [B, H, Tk / 64],
-// sv f32 [B, H]. dh 32 or 64; scale the f32 1/sqrt(dh); keys at or past
+// q, k, v [B, T, H*dh] of one dtype (f32 = 1: float, else bf16) with row
+// stride st and batch stride sb (elements; the same for all three, rows
+// 16-byte aligned); o [B, T, H*dh] contiguous, of q's dtype. Workspaces,
+// with Tk = T rounded up to 128: kq int8 [B, H, Tk, max(dh, 64)], vq int8
+// [B, H, dh, Tk], ks f32 [B, H, Tk], vmax f32 [B, H, Tk / 128], sv f32 [B,
+// H]. dh 16, 32, 64 or 128; scale the f32 1/sqrt(dh); keys at or past
 // seq_len are masked.
 extern "C" int ibk_flash_int8(const void* q, const void* k, const void* v, void* o, void* kq,
                               void* vq, void* ks, void* vmax, void* sv, int b, int t,
-                              int seq_len, int heads, int dh, long long st, long long sb,
-                              float scale, void* stream) {
-  if (seq_len <= 0 || seq_len > t) return (int)cudaErrorInvalidValue;
+                              int seq_len, int heads, int dh, int f32, long long st,
+                              long long sb, float scale, void* stream) {
+  if (b <= 0 || t <= 0 || seq_len <= 0 || seq_len > t) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dh == 64)
-    return launch<64>(q, k, v, o, kq, vq, ks, vmax, sv, b, t, seq_len, heads, st, sb, scale, s);
-  if (dh == 32)
-    return launch<32>(q, k, v, o, kq, vq, ks, vmax, sv, b, t, seq_len, heads, st, sb, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (f32)
+    return launch_dh<float>(dh, q, k, v, o, kq, vq, ks, vmax, sv, b, t, seq_len, heads, st, sb,
+                            scale, s);
+  return launch_dh<bf16>(dh, q, k, v, o, kq, vq, ks, vmax, sv, b, t, seq_len, heads, st, sb,
+                         scale, s);
 }

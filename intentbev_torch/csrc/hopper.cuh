@@ -625,6 +625,59 @@ __device__ __forceinline__ void wgmma_s8_n192(int (&d)[96], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The same with A from registers: a[0..3] hold the bytes of an
+// mma.sync.m16n8k32 A fragment for the warp's 16 rows of the 32-byte K
+// slice (a0 row g bytes 4t..4t+3, a1 row g + 8, a2 row g bytes 16 + 4t..,
+// a3 row g + 8), B K-major.
+__device__ __forceinline__ void wgmma_s8_rs_n16(int (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : IBK_I8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_n32(int (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : IBK_I8(0), IBK_I8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_n64(int (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : IBK_I8(0), IBK_I8(8), IBK_I8(16), IBK_I8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_n128(int (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : IBK_I8(0), IBK_I8(8), IBK_I8(16), IBK_I8(24), IBK_I8(32), IBK_I8(40), IBK_I8(48),
+        IBK_I8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef IBK_I8
 
 // The wgmma_s8_n* of width N.
@@ -638,6 +691,21 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t 
     wgmma_s8_n96(d, da, db, accumulate);
   else
     wgmma_s8_n192(d, da, db, accumulate);
+}
+
+// The wgmma_s8_rs_n* of width N.
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma N");
+  if constexpr (N == 16)
+    wgmma_s8_rs_n16(d, a, db, accumulate);
+  else if constexpr (N == 32)
+    wgmma_s8_rs_n32(d, a, db, accumulate);
+  else if constexpr (N == 64)
+    wgmma_s8_rs_n64(d, a, db, accumulate);
+  else
+    wgmma_s8_rs_n128(d, a, db, accumulate);
 }
 
 

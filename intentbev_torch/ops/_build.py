@@ -136,7 +136,7 @@ _SIGNATURES = {
     "ibk_patch_embed": (_P,) * 4 + (_I,) * 6 + (_P,),
     "ibk_flash_attn_fwd": (_P,) * 5 + (_I,) * 5 + (_L,) * 6 + (_F, _P),
     "ibk_flash_attn_bwd": (_P,) * 9 + (_I,) * 5 + (_L,) * 9 + (_F, _P),
-    "ibk_flash_int8": (_P,) * 9 + (_I,) * 5 + (_L, _L, _F, _P),
+    "ibk_flash_int8": (_P,) * 9 + (_I,) * 6 + (_L, _L, _F, _P),
     "ibk_fused_proj": (_P,) * 6 + (_I,) * 3 + (_P,),
     "ibk_fused_proj_bwd": (_P,) * 9 + (_I,) * 4 + (_P,),
 }

@@ -6,11 +6,12 @@ does not call either (its attention stays bf16 under ``serving_int8``; its
 out-projection is a plain Dense, gate and residual):
 
 - :func:`flash_attention_packed_int8` (``csrc/flash_int8.cu``): int8
-  attention over packed [B, T, H*D] tensors, forward only. On an H100
-  80GB HBM3 (700 W) at [8, 4608, 384] with 4501 real keys it takes 2.054
-  ms at 6 heads of 64 against 2.217 ms for the bf16 packed forward, and
-  3.302 ms at 12 heads of 32 against 2.355: the per-score softmax work,
-  not the integer products, bounds it.
+  attention over packed [B, T, H*D] tensors, forward only, head dims 16 to
+  128 in bf16 or f32. On an H100 80GB HBM3 (700 W) at [8, 4608, 384] with
+  4501 real keys it takes ~1.15 ms at 6 heads of 64 against ~0.71 ms for
+  the bf16 packed forward (safe form), and ~1.97 ms at 12 heads of 32
+  against ~0.98: the per-score softmax work, not the integer products,
+  bounds it.
 - :func:`fused_dense_residual` (``csrc/fused_proj.cu``): ``gate * (x W +
   b) + residual`` and its backward. On the same card at [36864, 384] x
   [384, 384] the forward takes 0.080 ms against 0.103 ms for the unfused

@@ -20,9 +20,10 @@ that the model does not call, as in JAX. Per batch and head:
 
 The integer products are exact, so the kernel may sum the keys in any
 order; only ``denom`` is an f32 sum whose order differs from JAX's.
-:func:`flash_attention_packed_int8` takes bf16 CUDA tensors with head dims
-:data:`HEAD_DIMS` (JAX also takes 16 and 128, and f32 inputs: those raise
-on CUDA). CPU tensors take :func:`flash_attention_packed_int8_plain`.
+:func:`flash_attention_packed_int8` takes bf16 or f32 CUDA tensors with head
+dims :data:`HEAD_DIMS`, the head dims of JAX's op that divide 128 but 8 and
+below, which raise. CPU tensors take
+:func:`flash_attention_packed_int8_plain`.
 """
 
 from __future__ import annotations
@@ -33,9 +34,11 @@ from .._build import check_launch, kernels, require, stream_ptr
 from ..flash_packed import LANE_BLOCK, pad_len
 from ..int8 import int_matmul
 
-HEAD_DIMS = (32, 64)  # head dims the kernels are instantiated for
+HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are instantiated for
+DTYPES = (torch.bfloat16, torch.float32)  # input dtypes the kernels are instantiated for
 NEG_INF = -1e30  # the JAX key bias past seq_len (intentbev/ops/flash_attention.py)
-KEY_TILE = 64  # the kernels' key tile: their code buffers hold T rounded up to it
+KEY_TILE = 128  # the kernels' key tile: their code buffers hold T rounded up to it
+CONTROL_TILE = 64  # keys a tile of the faulty p_max="tile" variant
 
 
 def _head_dim(dm: int, num_heads: int) -> int:
@@ -55,14 +58,22 @@ def _codes(x: torch.Tensor, absmax: torch.Tensor):
     return torch.clamp(torch.round(x / s), -127, 127), s
 
 
+def head_scores(qh, kh, scale, bias):
+    """``s = (f32(qq kq^T) * (qs * scale)) * ks + bias`` of one sample's
+    heads: qh, kh [H, T, D] f32 -> [H, T, T] f32."""
+    qq, qs = _codes(qh, qh.abs().amax(-1, keepdim=True))
+    kq, ks = _codes(kh, kh.abs().amax(-1, keepdim=True))
+    return int_matmul(qq, kq.transpose(-1, -2)) * (qs * scale) * ks.transpose(-1, -2) + bias
+
+
 def flash_attention_packed_int8_plain(q, k, v, num_heads: int, seq_len: int | None = None,
                                       p_max: str = "row"):
     """Plain PyTorch version with the JAX kernel's rounding points (module
     doc): codes and scales in f32, integer products exact (float64),
     returns o [B, T, H*D] in q's dtype. ``p_max="tile"`` is a faulty variant
-    kept for the on-card checks' control: P's codes rounded against a
-    running max over 64-key tiles, as an online softmax would, with the
-    accumulators rescaled."""
+    kept for the checks' control: P's codes rounded against a running max
+    over :data:`CONTROL_TILE`-key tiles, as an online softmax would, with
+    the accumulators rescaled."""
     b, t, dm = q.shape
     dh = _head_dim(dm, num_heads)
     seq_len = t if seq_len is None else int(seq_len)
@@ -76,11 +87,9 @@ def flash_attention_packed_int8_plain(q, k, v, num_heads: int, seq_len: int | No
 
     o = torch.empty(b, t, dm, dtype=q.dtype, device=q.device)
     for i in range(b):  # one sample at a time bounds the [H, T, T] scores
-        qh, kh, vh = heads(q[i]), heads(k[i]), heads(v[i])
-        qq, qs = _codes(qh, qh.abs().amax(-1, keepdim=True))
-        kq, ks = _codes(kh, kh.abs().amax(-1, keepdim=True))
+        vh = heads(v[i])
         vq, sv = _codes(vh, vh.abs().amax((-2, -1), keepdim=True))
-        s = int_matmul(qq, kq.transpose(-1, -2)) * (qs * scale) * ks.transpose(-1, -2) + bias
+        s = head_scores(heads(q[i]), heads(k[i]), scale, bias)
         if p_max == "row":
             m = s.amax(-1, keepdim=True)
             p = torch.exp(s - m)
@@ -88,13 +97,13 @@ def flash_attention_packed_int8_plain(q, k, v, num_heads: int, seq_len: int | No
             o32 = int_matmul(torch.round(p * 127.0), vq)
         else:
             o32, denom, m = 0.0, 0.0, None
-            for j in range(0, t, KEY_TILE):
-                st = s[..., j:j + KEY_TILE]
+            for j in range(0, t, CONTROL_TILE):
+                st = s[..., j:j + CONTROL_TILE]
                 m_new = st.amax(-1, keepdim=True) if m is None else torch.maximum(
                     m, st.amax(-1, keepdim=True))
                 alpha = 1.0 if m is None else torch.exp(m - m_new)
                 p = torch.exp(st - m_new)
-                o32 = o32 * alpha + int_matmul(torch.round(p * 127.0), vq[:, j:j + KEY_TILE])
+                o32 = o32 * alpha + int_matmul(torch.round(p * 127.0), vq[:, j:j + CONTROL_TILE])
                 denom = denom * alpha + p.sum(-1, keepdim=True)
                 m = m_new
         oh = o32 * (sv / c127) / denom
@@ -103,19 +112,21 @@ def flash_attention_packed_int8_plain(q, k, v, num_heads: int, seq_len: int | No
 
 
 def _check_qkv(q, k, v, num_heads, seq_len):
-    """-> (b, t, dm, head dim, seq_len) of bf16 CUDA q, k, v that share
-    16-byte-aligned rows (strided views of one qkv tensor pass)."""
+    """-> (b, t, dm, head dim, seq_len) of CUDA q, k, v of one dtype of
+    :data:`DTYPES` that share 16-byte-aligned rows (strided views of one qkv
+    tensor pass). The head dim is checked first, on any device."""
     b, t, dm = q.shape
     dh = _head_dim(dm, num_heads)
-    seq_len = t if seq_len is None else int(seq_len)
-    require(0 < seq_len <= t, f"flash_int8: seq_len {seq_len} outside (0, {t}]")
     require(dh in HEAD_DIMS, f"flash_int8: the kernels are built for head dims {HEAD_DIMS}, "
                              f"got head dim {dh} ({dm} over {num_heads} heads)")
+    seq_len = t if seq_len is None else int(seq_len)
+    require(0 < seq_len <= t, f"flash_int8: seq_len {seq_len} outside (0, {t}]")
+    require(q.dtype in DTYPES, f"flash_int8: the kernels take {DTYPES}, got {q.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        require(x.is_cuda and x.device == q.device and x.dtype == torch.bfloat16
+        require(x.is_cuda and x.device == q.device and x.dtype == q.dtype
                 and tuple(x.shape) == (b, t, dm),
-                f"flash_int8: {name} must be CUDA bf16 {(b, t, dm)}, got {x.dtype} "
-                f"{tuple(x.shape)} {x.device}")
+                f"flash_int8: {name} must be {q.dtype} {(b, t, dm)} on {q.device}, got "
+                f"{x.dtype} {tuple(x.shape)} {x.device}")
         require(x.stride() == q.stride() and x.stride(-1) == 1
                 and x.stride(1) % 8 == 0 and x.stride(0) % 8 == 0 and x.data_ptr() % 16 == 0,
                 f"flash_int8: {name} strides {x.stride()} not shared 16-byte-aligned rows")
@@ -123,7 +134,7 @@ def _check_qkv(q, k, v, num_heads, seq_len):
 
 
 def flash_attention_packed_int8(q, k, v, num_heads: int, seq_len: int | None = None):
-    """Int8 attention over bf16 CUDA [B, T, H*D] tensors (head dims
+    """Int8 attention over bf16 or f32 CUDA [B, T, H*D] tensors (head dims
     :data:`HEAD_DIMS`, heads that pair into 128 lanes); o in q's dtype. A
     pre-pass quantizes k and v once (codes, row scales of k, the panel
     scale of v), then the attention kernel quantizes q and takes two passes
@@ -133,7 +144,7 @@ def flash_attention_packed_int8(q, k, v, num_heads: int, seq_len: int | None = N
         return flash_attention_packed_int8_plain(q, k, v, num_heads, seq_len)
     b, t, dm, dh, seq_len = _check_qkv(q, k, v, num_heads, seq_len)
     dev, tk = q.device, pad_len(t, KEY_TILE)
-    kq = torch.empty(b, num_heads, tk, dh, dtype=torch.int8, device=dev)
+    kq = torch.empty(b, num_heads, tk, max(dh, 64), dtype=torch.int8, device=dev)
     vq = torch.empty(b, num_heads, dh, tk, dtype=torch.int8, device=dev)
     ks = torch.empty(b, num_heads, tk, dtype=torch.float32, device=dev)
     vmax = torch.empty(b, num_heads, tk // KEY_TILE, dtype=torch.float32, device=dev)
@@ -142,6 +153,6 @@ def flash_attention_packed_int8(q, k, v, num_heads: int, seq_len: int | None = N
     err = kernels().ibk_flash_int8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), kq.data_ptr(), vq.data_ptr(),
         ks.data_ptr(), vmax.data_ptr(), sv.data_ptr(), b, t, seq_len, num_heads, dh,
-        q.stride(1), q.stride(0), dh ** -0.5, stream_ptr(q))
+        int(q.dtype == torch.float32), q.stride(1), q.stride(0), dh ** -0.5, stream_ptr(q))
     check_launch(err, "flash_int8")
     return o

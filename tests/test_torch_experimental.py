@@ -82,19 +82,77 @@ def _port_int8(q, k, v, heads, seq_len, dtype, **kw):
     return flash_attention_packed_int8_plain(*t, heads, seq_len, **kw).float().numpy()
 
 
+# (dh, t) -> the (batch, head, row) of o where the f32 plain version and
+# JAX's kernel differ at seed 18 (rows a tie exempts; none elsewhere). At
+# head dim 16 one key of batch 0, head 2, row 381 has torch's p * 127
+# exactly 18.5 and JAX's one ulp above it (XLA's CPU exp and torch's differ
+# by one ulp in 41 of that row's probabilities), so its P code rounds the
+# other way; t 768 draws other inputs and meets a tie in the same row.
+KNOWN_TIES = {(16, 384): {(0, 2, 381)}, (16, 768): {(0, 2, 381)}}
+TIE_SHARE = 1e-3  # of the (batch, head, row) triples a tie may exempt
+
+
+def _ties(q, k, v, heads, seq_len):
+    """Per (batch, head, row): how many keys have torch's p * 127 (as the
+    plain version computes it) within one ulp of k + 0.5, where another
+    exp's last bit can round the P code the other way, and sv / denom, the
+    weight of one P code in o (|vq| <= 127 over the divisor 127)."""
+    b, t, dm = q.shape
+    dh = dm // heads
+    scale = torch.tensor(dh ** -0.5, dtype=torch.float32)
+    bias = torch.zeros(t)
+    bias[t if seq_len is None else seq_len:] = tint8.NEG_INF
+    n_ties, weight = np.zeros((b, heads, t), int), np.zeros((b, heads, t))
+    for i in range(b):
+        qh, kh, vh = (torch.from_numpy(a[i]).reshape(t, heads, dh).transpose(0, 1)
+                      for a in (q, k, v))
+        s = tint8.head_scores(qh, kh, scale, bias)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        x = (p * 127.0).numpy()
+        n_ties[i] = (np.abs(x - (np.floor(x) + 0.5)) <= np.spacing(x)).sum(-1)
+        sv = tint8._codes(vh, vh.abs().amax((-2, -1), keepdim=True))[1]
+        weight[i] = (sv.reshape(heads, 1) / p.sum(-1)).numpy()
+    return n_ties, weight
+
+
+def _close_f32_with_ties(got, want, q, k, v, heads, seq_len):
+    """The f32 comparison of o: each (batch, head, row) within 1e-6 of
+    max|want|, but a row where the test sees a tie (``_ties``), which may
+    differ by the weight of one P code a tie and at most TIE_SHARE of the
+    rows; -> the set of exempt rows."""
+    b, t, dm = want.shape
+    tol = 1e-6 * np.abs(want).max()
+    row_err = np.abs(got - want).reshape(b, t, heads, dm // heads).max(-1).transpose(0, 2, 1)
+    n_ties, weight = _ties(q, k, v, heads, seq_len)
+    off = row_err > tol
+    assert np.all(row_err[off] <= n_ties[off] * weight[off] * (1 + 1e-5) + tol), (
+        f"o: {int(off.sum())} rows off, {int((off & (n_ties == 0)).sum())} of them without a tie")
+    assert off.mean() <= TIE_SHARE, f"o: {off.mean():.5f} of the rows exempt"
+    return {tuple(int(x) for x in r) for r in np.argwhere(off)}
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("t,seq_len", [(384, None), (768, 700)])
-@pytest.mark.parametrize("dh", [64, 32])
+@pytest.mark.parametrize("dh", [64, 32, 16, 128])
 def test_int8_attention_matches_jax(dh, t, seq_len, dtype):
-    """o of the plain version against the JAX kernel at 2 (dh 64) or 4 (dh
-    32) heads a 128-lane panel, with and without masked keys."""
+    """o of the plain version against the JAX kernel at 128 // dh heads a
+    128-lane panel, with and without masked keys. In f32 at head dims 16
+    and 128 a row is exempt only where the test shows a P code on a tie
+    (KNOWN_TIES); at 64 and 32 every row keeps the 1e-6 limit."""
     rng = np.random.default_rng(18)
     b, dm = (1, 128) if t == 768 else (2, 128)
     q, k, v = _arrays(rng, dtype, *[(b, t, dm)] * 3)
     want = _jax_int8(q, k, v, dm // dh, seq_len, dtype)
     got = _port_int8(q, k, v, dm // dh, seq_len, dtype)
     assert got.shape == want.shape == (b, t, dm)
-    _close(got, want, dtype, "o")
+    if dtype == "f32" and dh in (16, 128):
+        exempt = _close_f32_with_ties(got, want, q, k, v, dm // dh, seq_len)
+        assert exempt == KNOWN_TIES.get((dh, t), set())
+        ctl = _port_int8(q, k, v, dm // dh, seq_len, dtype, p_max="tile")
+        with pytest.raises(AssertionError):
+            _close_f32_with_ties(ctl, want, q, k, v, dm // dh, seq_len)
+    else:
+        _close(got, want, dtype, "o")
 
 
 @pytest.mark.parametrize("dh", [64, 32])
@@ -159,6 +217,21 @@ def test_int8_attention_rejects_unpaired_heads():
     with pytest.raises(ValueError, match="pair"):
         flash_attention_packed_int8(x, x, x, 3)
     assert tint8._head_dim(384, 12) == 32 and tint8._head_dim(384, 6) == 64
+
+
+def test_int8_attention_card_entry_refuses_head_dim_8_and_unpaired_heads():
+    """The card's entry check (run before any device check) refuses head dim
+    8, which JAX takes and the kernels are not built for, and heads that do
+    not pair into 128 lanes; it takes head dims 16 to 128."""
+    x = torch.zeros(1, 8, 128)
+    with pytest.raises(ValueError, match="head dim 8"):
+        tint8._check_qkv(x, x, x, 16, None)
+    x = torch.zeros(1, 8, 192)
+    with pytest.raises(ValueError, match="pair"):
+        tint8._check_qkv(x, x, x, 3, None)
+    for heads in (8, 4, 2, 1):  # head dims 16 to 128 pass the head check
+        with pytest.raises(ValueError, match="must be"):  # then the device check
+            tint8._check_qkv(*[torch.zeros(1, 8, 128)] * 3, heads, None)
 
 
 GATES = {

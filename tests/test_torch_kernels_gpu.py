@@ -33,9 +33,10 @@ TMA cannot take. The Hopper forward runs JAX's three softmax forms (the
 monolithic safe, the fixed max and the chunked safe) on the same shapes,
 each against its plain version in that form and, as a control, another
 form's: the relative L2 and the share of o's elements that differ. The library
-ops of ``ops.experimental`` (rows 18 and 19: the int8 attention, the
-residual projection forward and backward) run at small and at the
-attention sublayer's shapes, and raise on what they are not built for.
+ops of ``ops.experimental`` (rows 18 and 19: the int8 attention at head
+dims 16 to 128 in bf16 and f32, twice each for the same bits; the residual
+projection forward and backward) run at small and at the attention
+sublayer's shapes, and raise on what they are not built for.
 The Hopper LN+MLP forward (its three entries) runs at row counts that are
 not a multiple of its 128-row block, with and without the gate, both
 GELUs, D=384 and 192, LN or none; its outputs are also read by the share
@@ -1223,9 +1224,10 @@ def test_flash_fwd_chunk_off_the_key_tile_raises(dev):
 
 # Rows 18 and 19 (limits those of chip_smoke.py phase 13). The int8 kernel
 # computes the plain version's integer products exactly; they differ only
-# where denom's f32 sum order tips o to the neighbouring bf16. Control: P's
-# codes rounded against a running max over 64-key tiles (an online softmax).
-# On an H100: <= 3.5e-5 against the control's >= 3.1e-2.
+# where denom's f32 sum order tips o to the neighbouring bf16 (or moves it
+# by an ulp in f32). Control: P's codes rounded against a running max over
+# 64-key tiles (an online softmax). On an H100 at the attention sublayer's
+# shape: <= 2e-5 (bf16) and <= 1e-7 (f32) against the control's >= 3e-2.
 FLASH_INT8_LIMIT = 2e-3
 # The projection: f32 sums in another order under one bf16 rounding.
 # Controls: the forward with the Dense output rounded to bf16 before the
@@ -1238,16 +1240,20 @@ PROJ_LIMIT = 3e-4
 PROJ_BWD_LIMITS = (1e-3, 1e-4, 1e-4)  # dx, dW, db
 
 
-@pytest.mark.parametrize("heads", [6, 12])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads", [24, 12, 6, 3])
 @pytest.mark.parametrize("b,t,seq_len", [(1, 300, 250), (8, 4608, 4501)])
-def test_flash_int8(dev, b, t, seq_len, heads):
-    """Int8 attention on qkv slices at 6 heads of 64 and 12 of 32 against
-    its plain version; one launch counted."""
-    qkv = _randn((b, t, 3 * D), 1.0, 0)
+def test_flash_int8(dev, b, t, seq_len, heads, dtype):
+    """Int8 attention on qkv slices at head dims 16 to 128 over 384 lanes,
+    bf16 and f32, against its plain version; one launch counted, and two
+    calls give the same bits."""
+    qkv = _randn((b, t, 3 * D), 1.0, 0, dtype)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     reset_launch_counts()
     got = flash_attention_packed_int8(q, k, v, heads, seq_len)
     assert launches["flash_int8"] == 1 and sum(launches.values()) == 1
+    assert got.dtype == dtype and got.shape == (b, t, D)
+    assert torch.equal(flash_attention_packed_int8(q, k, v, heads, seq_len), got)
     want = flash_attention_packed_int8_plain(q, k, v, heads, seq_len)
     assert _rel(got, want) < FLASH_INT8_LIMIT
     ctrl = flash_attention_packed_int8_plain(q, k, v, heads, seq_len, p_max="tile")
@@ -1266,14 +1272,20 @@ def test_flash_int8_v_scale_takes_masked_rows(dev):
     assert _rel(o50, o) >= FLASH_INT8_LIMIT
 
 
-def test_flash_int8_raises(dev):
-    """Head dims other than 32 and 64, and f32 inputs, raise on the card."""
-    x = _randn((1, 64, 256), 1.0, 0)
-    with pytest.raises(ValueError, match="head dim 128"):
-        flash_attention_packed_int8(x, x, x, 2)
-    x32 = x[..., :128].float()
-    with pytest.raises(ValueError, match="bf16"):
-        flash_attention_packed_int8(x32, x32, x32, 2)
+def test_flash_int8_refusals(dev):
+    """What the card's entry still refuses: head dim 8 (JAX takes it; the
+    kernels start at 16), heads that do not pair into 128 lanes, tensors on
+    two devices, and mixed dtypes."""
+    x = _randn((1, 64, 128), 1.0, 0)
+    with pytest.raises(ValueError, match="head dim 8"):
+        flash_attention_packed_int8(x, x, x, 16)
+    x3 = _randn((1, 64, 192), 1.0, 0)
+    with pytest.raises(ValueError, match="pair"):
+        flash_attention_packed_int8(x3, x3, x3, 3)
+    with pytest.raises(ValueError, match="must be"):
+        flash_attention_packed_int8(x, x.cpu(), x, 2)
+    with pytest.raises(ValueError, match="must be"):
+        flash_attention_packed_int8(x, x.float(), x, 2)
 
 
 def _proj_args(n, d_in, d_out, gated):

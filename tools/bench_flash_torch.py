@@ -17,17 +17,27 @@ function's time through
 ``scaled_dot_product_attention`` (forward, or forward saved and backward
 through autograd) on contiguous [B, H, T, D] copies, as a yardstick only.
 
-    python3 tools/bench_flash_torch.py            # one JSON line per entry
+The library op ``flash_attention_packed_int8`` (row 18) at the attention
+sublayer's shapes, [8, 4608, 384] with 4501 real keys, in 6 heads of 64, 12
+of 32, 24 of 16 and 3 of 128 (bf16) and 6 of 64 in f32: CUDA-event ms, the
+device time of its pre-pass (``quant_k_kernel`` + ``quant_v_kernel``) and of
+its attention kernel from a profiler trace, its bounds (the int8 ops of its
+two products at 1979 TOP/s, its B*H*T*seq_len exponentials at 16 a clock per
+SM at the measured SM clock, its bytes at 3.35 TB/s), and as yardsticks
+only the bf16 packed forward in its safe form (head dims 32 and 64) and
+SDPA on the same q, k, v. A shape the tree's entry refuses prints its error.
+
+    python3 tools/bench_flash_torch.py              # one JSON line per entry
+    python3 tools/bench_flash_torch.py --only int8  # the int8 op's lines only
 
 It imports no JAX, and runs as it stands on an older checkout of the port
-(the entries' signatures are unchanged since the packed backward's forms;
-a forward that takes no softmax form is timed once per shape, as form
-"parent"), so that one call can time two trees in turn.
+whose packed forward takes its softmax forms, so that one call can time two
+trees in turn.
 """
 
 from __future__ import annotations
 
-import inspect
+import argparse
 import json
 import subprocess
 import sys
@@ -37,11 +47,17 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
+HBM_BYTES_PER_S = 3.35e12
 EX2_PER_CLOCK_PER_SM = 16  # H100 special-function units
 B, T = 8, 4501
 FORMS = {"fused": (True, 0), "split": (False, 0), "chunked": (False, 1152)}
 # the forward's softmax forms: (kv_chunk, unsafe_softmax)
 FWD_FORMS = {"safe": (0, False), "fixed": (1152, True), "chunked": (1152, False)}
+# the int8 op's cases: (heads over 384 lanes, dtype name); rows and real keys
+INT8_CASES = ((6, "bfloat16"), (12, "bfloat16"), (24, "bfloat16"), (3, "bfloat16"),
+              (6, "float32"))
+INT8_T, INT8_SEQ = 4608, 4501
 
 
 class SmClock:
@@ -71,6 +87,9 @@ class SmClock:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("int8",), help="time only the int8 op's lines")
+    args = ap.parse_args()
     import torch
     import torch.nn.functional as F
     from torch.autograd import DeviceType
@@ -78,6 +97,7 @@ def main() -> None:
 
     from intentbev_torch.ops import (flash_attention_bwd, flash_attention_fwd,
                                      flash_attention_packed, flash_attention_packed_bwd)
+    from intentbev_torch.ops.experimental import flash_attention_packed_int8
     from intentbev_torch.ops.flash_attention import flash_attention_packed_layout, heads_view
 
     if not torch.cuda.is_available():
@@ -102,7 +122,8 @@ def main() -> None:
         return start.elapsed_time(end) / iters
 
     def kernel_ms(fn, iters=3):
-        """Device ms per call by kernel part, from a profiler trace."""
+        """Device ms per call by kernel part, from a profiler trace (an empty
+        dict where the trace held no device event)."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -113,7 +134,9 @@ def main() -> None:
         for ev in prof.key_averages():
             if ev.device_type == DeviceType.CUDA:
                 part = ("dk/dv" if "flash_bwd_dkdv" in ev.key else "dq" if "flash_bwd_dq" in ev.key
-                        else "forward" if "flash_fwd" in ev.key else "wrapper")
+                        else "forward" if "flash_fwd" in ev.key
+                        else "pre-pass" if "quant_k_kernel" in ev.key or "quant_v_kernel" in ev.key
+                        else "attention" if "flash_int8_kernel" in ev.key else "wrapper")
                 parts[part] = parts.get(part, 0.0) + ev.device_time_total / 1e3 / iters
         return parts
 
@@ -150,11 +173,53 @@ def main() -> None:
         print(json.dumps(line), flush=True)
 
     d = 384
+
+    def int8_lines():
+        qkv8 = torch.randn(B, INT8_T, 3 * d, generator=gen, device="cuda")
+        for heads, dt_name in INT8_CASES:
+            dt = getattr(torch, dt_name)
+            x = qkv8.to(dt)
+            q8, k8, v8 = (x[..., i * d:(i + 1) * d] for i in range(3))
+            name = f"flash_int8 {heads}x{d // heads} {dt_name}"
+
+            def fn(h_=heads, a=(q8, k8, v8)):
+                return flash_attention_packed_int8(*a, h_, INT8_SEQ)
+            try:
+                fn()
+            except ValueError as exc:  # a shape this tree's entry refuses
+                print(json.dumps({"name": name, "raises": str(exc), "card": card}), flush=True)
+                continue
+            ms = event_ms(fn)
+            with SmClock() as clock:
+                event_ms(fn, max(10, int(500 / ms)))
+            scores = B * heads * INT8_T * INT8_SEQ
+            ex2_per_s = EX2_PER_CLOCK_PER_SM * sms * clock.mhz * 1e6
+            n_bytes = 4 * B * INT8_T * d * x.element_size()  # q, k, v read, o written
+            line = {"name": name, "ms": round(ms, 4),
+                    "parts_ms": {k_: round(t_, 4) for k_, t_ in kernel_ms(fn).items()},
+                    "int8_ops_bound_ms": round(4 * scores * (d // heads) / INT8_OPS_PER_S * 1e3, 4),
+                    "exp_bound_ms": round(scores / ex2_per_s * 1e3, 4),
+                    "bytes_bound_ms": round(n_bytes / HBM_BYTES_PER_S * 1e3, 4),
+                    "sm_clock_mhz": clock.mhz}
+            if dt == torch.bfloat16 and d // heads in (32, 64):
+                line["bf16_safe_forward_ms"] = round(event_ms(
+                    lambda h_=heads: flash_attention_packed(q8, k8, v8, h_, INT8_SEQ)), 4)
+            qs, ks, vs = (t_[:, :INT8_SEQ].unflatten(-1, (heads, d // heads)).transpose(1, 2)
+                          .contiguous() for t_ in (q8, k8, v8))
+            line["sdpa_ms"] = round(event_ms(torch.no_grad()(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs))), 4)
+            line["card"] = card
+            print(json.dumps(line), flush=True)
+            del x, q8, k8, v8, qs, ks, vs
+            torch.cuda.empty_cache()
+
+    if args.only == "int8":
+        int8_lines()
+        return
     qkv = randn(B, T, 3 * d)
     q, k, v = (qkv[..., i * d:(i + 1) * d] for i in range(3))
     do = randn(B, T, d)
-    forms = FWD_FORMS if "unsafe_softmax" in inspect.signature(
-        flash_attention_packed).parameters else {"parent": ()}
+    forms = FWD_FORMS
     for h in (6, 12):
         tag = f"{h}x{d // h}"
         o, lse = flash_attention_packed(q, k, v, h)
@@ -179,6 +244,9 @@ def main() -> None:
            3)
     report("flash_attention_bwd 3x64",
            lambda: flash_attention_bwd(*views, o_v, lse_t, do_v), 5, dt, lib_bwd)
+    del qkv, q, k, v, do, qkv_t, parts, views, o_t, lse_t, o_v, do_v, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
+    int8_lines()
 
 
 if __name__ == "__main__":
