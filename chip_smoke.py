@@ -67,13 +67,17 @@ Phases (each prints a line; any failure exits nonzero with no result):
    ``StreamingInferencer(transport="chunks")``: one ``voxel_fill`` launch per
    request and no other kernel; the logits agree with the same model run
    through the plain fill and with ``transport="points"`` on the same
-   points (the fill's BEV and the voxelizer's agree cell for cell); a plain
+   points binned as the host chunk build bins them (the fill's BEV and the
+   host bins agree cell for cell; the device voxelizer, which bins as
+   the jitted JAX one, differs only where a point on a cell boundary
+   moved, at most 2 cells a point); a plain
    run with the last chunk of each band skipped is caught; the Detections
    are fixed-shape and finite.
 7. CNN training over the chunk train transport (f32 master weights, bf16
    compute): one step's loss and gradients agree with the same step
    through the plain fill and with the points-transport step on the same
-   points (identity augmentation), and the plain step with the last chunk
+   points (identity augmentation, the host bins as in phase 6), and
+   the plain step with the last chunk
    of each band skipped is caught; then one warm-up and 3 timed steps of
    one ``voxel_fill`` launch each. The ViT of phase 5 then takes one step
    over the chunk train transport: finite, with one ``voxel_fill`` launch
@@ -144,12 +148,30 @@ Phases (each prints a line; any failure exits nonzero with no result):
     model's unfused Linear, gate and residual, forward and backward (the
     kernels autograd launches for it) for the projection.
 
+14. The lifecycle at full width, through the port's entry points: 2
+    synthetic AV2-format logs of 17 frames (40000 points a sweep, the
+    default grid, 10 sweeps: 16 sequences) written, labelled
+    (``precompute_labels.run``), loaded (the loader alone timed, cold);
+    ``train()`` of ``default_vit_config()`` at batch 8 (bf16 compute, f32
+    master weights, points) for 3 steps with checkpoints every 2, then a
+    resume to step 4: the step count continues, ``loop.epoch_batch`` is
+    restored, the saved parameters equal the live model's bit for bit,
+    every logged loss is finite, and the loop's launch counts are 4 x phase
+    5's per step; one step over the chunk train transport (one
+    ``voxel_fill``); ``evaluate()`` of the run on 2 batches (16 samples,
+    every mAP in [0, 1]; launches ``flash_packed`` / ``fused_ln_mlp`` 24 and
+    ``layernorm`` 4 a batch); one eval batch's logits through the kernels
+    against the plain path (limit 1.3e-2; control: the plain path binning
+    the points by true division, as the host chunk build does). It prints the loader's samples/s, the loop's ms/step
+    beside phase 5's step alone, and eval's samples/s.
+
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -182,6 +204,21 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+@contextlib.contextmanager
+def with_host_bins(module):
+    """``module.voxelize_packed`` takes the host chunk build's bins inside
+    (``arithmetic="host"``): the points transport then fills the BEV the
+    chunk transport fills, and a reading can hold one against the other."""
+    import functools
+
+    sound = module.voxelize_packed
+    module.voxelize_packed = functools.partial(sound, arithmetic="host")
+    try:
+        yield
+    finally:
+        module.voxelize_packed = sound
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -203,7 +240,7 @@ def main() -> None:
     import torch.nn.functional as F
 
     from intentbev_torch.bev.augment import draw_dropout
-    from intentbev_torch.bev.voxelize import quantize_points_cm, voxelize_packed
+    from intentbev_torch.bev.voxelize import moved_points, quantize_points_cm, voxelize_packed
     from intentbev_torch.boxes import generate_anchors
     from intentbev_torch.configs import default_cnn_config, default_vit_config
     from intentbev_torch.data.pipeline import chunk_batch_to_device
@@ -1383,6 +1420,7 @@ def main() -> None:
     check(all(bool(torch.isfinite(p_.grad).all()) for p_ in model.parameters()),
           "non-finite gradient")
     ms_step = sum(step_ms) / len(step_ms)
+    vit_step_ms, vit_per_step = ms_step, per_step  # phase 14 reads the step alone
     print(f"train: launches over {len(step_ms)} steps {train_counts} (per step {per_step})",
           flush=True)
     print(f"train: losses {[round(float(m['loss']), 6) for m in metrics]}; step ms "
@@ -1424,18 +1462,29 @@ def main() -> None:
     cpoints = StreamingInferencer(ccfg, cparams, "cuda", transport="points")
     got = cinf.logits(host_chunks, cmap)
     want, ctrl = cplain.logits(host_chunks, cmap), cplain.logits(skipped, cmap)
-    via_points = cpoints.logits_points(cpts, cvalid, cmap)
+    # the points transport on the host chunk build's bins: one BEV on both sides
+    with with_host_bins(importlib.import_module("intentbev_torch.parallel.inference")):
+        via_points = cpoints.logits_points(cpts, cvalid, cmap)
     for name, a, wdt in zip(("cls", "box", "intent"), got, widths):
         check(tuple(a.shape) == (batch, n_anchor, wdt), f"CNN {name} logits shape {tuple(a.shape)}")
     with torch.inference_mode():
         dev_chunks = decode_chunk_transport(chunks_to_device(host_chunks, dev))
         bev = voxel_fill_bev(dev_chunks, (cg.height_px, cg.width_px), cg.lidar_total_channels,
                              cinf.chunk_patch)
-        bev_pts = voxelize_packed(torch.from_numpy(cpts).to(dev), torch.from_numpy(cvalid).to(dev),
-                                  cg, out_dtype=torch.bfloat16)
+        pts_t, valid_t = torch.from_numpy(cpts).to(dev), torch.from_numpy(cvalid).to(dev)
+        bev_host = voxelize_packed(pts_t, valid_t, cg, out_dtype=torch.bfloat16,
+                                   arithmetic="host")
+        bev_pts = voxelize_packed(pts_t, valid_t, cg, out_dtype=torch.bfloat16)
+        fill_cells = int((bev != bev_host).sum())
         bev_cells = int((bev != bev_pts).sum())
-    del dev_chunks, bev, bev_pts
-    check(bev_cells == 0, f"CNN: the fill's BEV and the voxelizer's differ in {bev_cells} cells")
+        n_moved = moved_points(pts_t, valid_t, cg)
+    del dev_chunks, bev, bev_pts, bev_host, pts_t, valid_t
+    # the fill against the host bins: cell for cell; against the device
+    # voxelizer: only where a boundary point moved (at most 2 cells each)
+    check(fill_cells == 0, f"CNN: the fill's BEV and the host bins differ in "
+                           f"{fill_cells} cells")
+    check(bev_cells <= 2 * n_moved, f"CNN: the fill's BEV and the voxelizer's differ in "
+                                    f"{bev_cells} cells, {n_moved} boundary points moved")
     # Both paths give the model the same BEV and run the same deterministic
     # convolutions; the control (a plain fill that skips the last chunk of
     # each band) changes the input.
@@ -1445,9 +1494,11 @@ def main() -> None:
     sound_p, ctrl_p = compare("CNN logits, points vs chunks", via_points, got, ctrl,
                               (rel_l2,) * 3, cnn_limit, "last chunk of each band skipped")
     fmt3 = ", ".join
-    print("cnn serving: BEV of the fill vs the voxelizer: 0 differing cells; logits relative L2 "
+    print(f"cnn serving: BEV of the fill vs the host bins: 0 differing cells, vs the "
+          f"device voxelizer: {bev_cells} ({n_moved} points on a cell boundary moved); logits "
+          "relative L2 "
           f"(cls, box, intent), kernel vs plain fill [{fmt3(f'{r:.3e}' for r in sound)}], "
-          f"points transport vs chunks [{fmt3(f'{r:.3e}' for r in sound_p)}] under "
+          f"points transport (host bins) vs chunks [{fmt3(f'{r:.3e}' for r in sound_p)}] under "
           f"{cnn_limit[0]:g}; control (plain fill, last chunk of each band skipped) "
           f"[{fmt3(f'{r:.3e}' for r in ctrl_r)}] / [{fmt3(f'{r:.3e}' for r in ctrl_p)}] caught",
           flush=True)
@@ -1493,7 +1544,8 @@ def main() -> None:
     check(all(bool(torch.isfinite(t).all()) for t in cg_k.values()), "non-finite CNN gradient")
     cm_p, cg_p = cnn_step(True, cbatch)
     cm_c, cg_c = cnn_step(True, cskip)
-    cm_pts, cg_pts = cnn_step(False, pbatch)
+    with with_host_bins(importlib.import_module("intentbev_torch.train")):
+        cm_pts, cg_pts = cnn_step(False, pbatch)  # one BEV on both transports
     cmodel.plain_ops = False
     r_plain, r_ctrl, r_pts, r_pts_ctrl = (grad_readings(a, b) for a, b in (
         (cg_k, cg_p), (cg_c, cg_p), (cg_pts, cg_k), (cg_c, cg_k)))
@@ -1503,7 +1555,7 @@ def main() -> None:
     cnn_grad_limit, cnn_worst_limit, cnn_loss_limit = 1e-6, 1e-5, 1e-6
     for name, sound_r, ctrl_r, m_a, m_b in (
             ("kernel vs plain fill", r_plain, r_ctrl, cm_k, cm_p),
-            ("points vs chunk transport", r_pts, r_pts_ctrl, cm_pts, cm_k)):
+            ("points (host bins) vs chunk transport", r_pts, r_pts_ctrl, cm_pts, cm_k)):
         loss_rel = abs(m_a["loss"] - m_b["loss"]) / abs(m_b["loss"])
         said = (f"sound {sound_r[:2]} (worst {sound_r[2]}), control {ctrl_r[:2]} (worst "
                 f"{ctrl_r[2]}), limits {cnn_grad_limit}, {cnn_worst_limit}; loss rel {loss_rel}")
@@ -2211,14 +2263,174 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"experimental: phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
 
+    # 14. the lifecycle at full width: AV2-format logs -> labels -> train()
+    # with checkpoints and resume -> evaluate(), through the port's entry points
+    import tempfile
+
+    from intentbev_torch.checkpoint import load_checkpoint
+    from intentbev_torch.data.argoverse import (ArgoverseSampleLoader, ScenarioValidator,
+                                                build_sequence_index)
+    from intentbev_torch.data.pipeline import batch_iterator
+    from intentbev_torch.data.synthetic import multi_lane_map_data, write_synthetic_log
+    from intentbev_torch.evaluate import evaluate
+    from intentbev_torch.precompute_labels import run as precompute_labels
+    from intentbev_torch.train import train as train_loop
+
+    t14 = time.perf_counter()
+    lcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=batch, checkpoint_every_steps=2, log_every_steps=1))
+    check(lcfg.train.compute_dtype == "bfloat16" and lcfg.train.transport == "points",
+          f"phase 14 trains bf16 over points, not {lcfg.train}")
+    frames, sweeps = 17, g.lidar_sweeps
+    with tempfile.TemporaryDirectory(prefix="smoke14_") as tmp:
+        root = Path(tmp)
+        split, run_dir = root / "train", root / "run"
+        for k_ in range(2):  # 2 logs: 2 x (17 - 10 + 1) = 16 sequences, 2 batches an epoch
+            write_synthetic_log(
+                split, log_id=f"smokelog{k_:02d}", num_frames=frames, seed=k_,
+                points_per_sweep=40000, map_data=multi_lane_map_data(),
+                vehicles=[{"start": (12.0 + 5 * k_, 1.75), "velocity": (6.0, 0.0)},
+                          {"start": (8.0, -5.25), "velocity": (3.0, 0.0), "yaw_rate": 0.3},
+                          {"start": (20.0, 9.0), "velocity": (0.0, 0.0)}])
+        labelled = precompute_labels(str(root), ["train"], force=True)
+        check(labelled == {"ok": 2, "skipped": 0, "failed": 0}, f"labels: {labelled}")
+        seqs = build_sequence_index(ScenarioValidator(str(split), verbose=False)
+                                    .find_valid_scenarios(), sweeps)
+        check(len(seqs) == 16, f"{len(seqs)} sequences, want 16")
+
+        # the loader alone, cold (feather reads, map rasters at augmented poses)
+        loader = ArgoverseSampleLoader(g, max_gt=cfg.loss.max_gt_boxes, verbose=False)
+        t0 = time.perf_counter()
+        n_loaded = sum(b_.gt_boxes.shape[0] for b_ in batch_iterator(
+            seqs, loader, batch, shuffle=True, num_workers=4, augment=cfg.augment))
+        load_s = time.perf_counter() - t0
+        check(n_loaded == 16, f"the loader gave {n_loaded} samples")
+        pts_per_sweep = min(int(s_.points_valid.sum(1).min()) for s_ in (
+            loader.load(seqs[0]), loader.load(seqs[-1])))
+        check(pts_per_sweep >= 20000, f"{pts_per_sweep} points in a sweep, want >= 20000")
+        print(f"lifecycle: 2 logs x {frames} frames, {pts_per_sweep}+ points a sweep, "
+              f"{len(seqs)} sequences; loader {n_loaded / load_s:.2f} samples/s cold "
+              f"(4 threads, augmented, batch {batch}) [{card}]", flush=True)
+
+        def timed_log(stamps):
+            def log(line):
+                stamps.append((time.perf_counter(), str(line)))
+                print(f"lifecycle: {line}", flush=True)
+            return log
+
+        live, stamps1, stamps2 = {}, [], []
+        _build.reset_launch_counts()
+        train_loop(lcfg, str(split), str(run_dir), num_workers=4, max_steps=3,
+                   log_fn=timed_log(stamps1), state_out=live)
+        torch.cuda.synchronize()
+        ckpt, ckpt_cfg = load_checkpoint(run_dir, map_location=dev)
+        check(ckpt["step"] == live["step"] == 3 and ckpt_cfg == lcfg,
+              f"checkpoint step {ckpt['step']}, live {live['step']}")
+        check(ckpt["loop"]["epoch"] == 1 and ckpt["loop"]["epoch_batch"] == 1,
+              f"after 3 steps of 2-batch epochs: loop {ckpt['loop']}")
+        live_sd = live["model"].state_dict()
+        check(set(live_sd) == set(ckpt["model"]) and all(
+            torch.equal(ckpt["model"][k_], v_) for k_, v_ in live_sd.items()),
+            "the saved parameters differ from the live model's")
+        check(sorted(p_.name for p_ in run_dir.glob("step_*")) == ["step_00000002",
+                                                                   "step_00000003"],
+              f"checkpoints {sorted(p_.name for p_ in run_dir.glob('step_*'))}")
+        del live, live_sd, ckpt
+        train_loop(lcfg, str(split), str(run_dir), num_workers=4, max_steps=4, resume=True,
+                   log_fn=timed_log(stamps2))
+        torch.cuda.synchronize()
+        loop_counts = dict(_build.launches)
+        check(any("resumed from step 3 (epoch 1 batch 1" in s_ for _, s_ in stamps2),
+              "the resumed run did not report step 3, epoch 1, batch 1")
+        ckpt, _ = load_checkpoint(run_dir)
+        check(ckpt["step"] == 4 and ckpt["loop"]["epoch"] == 1
+              and ckpt["loop"]["epoch_batch"] == 2,
+              f"resumed run: step {ckpt['step']}, loop {ckpt['loop']} (want 4, epoch 1, "
+              f"batch 2)")
+        records = [json.loads(ln) for ln in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        check([r_["step"] for r_ in records] == [1, 2, 3, 4], f"logged steps {records}")
+        check(all(np.isfinite(r_[k_]) for r_ in records for k_ in ("loss", "cls_loss",
+                                                                   "box_loss", "intent_loss")),
+              f"non-finite losses {records}")
+        want_counts = {k_: vit_per_step.get(k_, 0) * 4 for k_ in loop_counts}
+        check(loop_counts == want_counts,
+              f"train loop launch counts {loop_counts} != {want_counts}")
+        step_times = [t_ for t_, s_ in stamps1 if " step " in s_ and "loss" in s_]
+        loop_ms = (step_times[2] - step_times[0]) / 2 * 1e3  # steps 2 and 3, sync each
+        print(f"lifecycle: train loop, 3 steps then a resume to step 4: launches "
+              f"{loop_counts}; losses {[round(r_['loss'], 4) for r_ in records]}; loop "
+              f"{loop_ms:.1f} ms/step (steps 2-3, loader and an epoch turn included) "
+              f"against {vit_step_ms:.2f} ms/step for the step alone (phase 5) [{card}]",
+              flush=True)
+
+        # one step over the chunk train transport (row 12's fill in the loop)
+        ccfg14 = dataclasses.replace(lcfg, train=dataclasses.replace(
+            lcfg.train, transport="chunks"))
+        _build.reset_launch_counts()
+        m14 = train_loop(ccfg14, str(split), str(root / "run_chunks"), num_workers=4,
+                         max_steps=1, log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        chunk_loop_counts = dict(_build.launches)
+        want_counts = {k_: vit_per_step.get(k_, 0) for k_ in chunk_loop_counts}
+        want_counts["voxel_fill"] = 1
+        check(chunk_loop_counts == want_counts and np.isfinite(m14["loss"]),
+              f"chunk-transport loop: launches {chunk_loop_counts} != {want_counts}, {m14}")
+        print(f"lifecycle: one step over the chunk train transport: launches "
+              f"{chunk_loop_counts}, loss {m14['loss']:.4f}", flush=True)
+
+        _build.reset_launch_counts()
+        eval_logs = []
+        t0 = time.perf_counter()
+        results = evaluate(str(run_dir), str(split), num_workers=4, max_batches=2,
+                           log_fn=eval_logs.append)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_counts = dict(_build.launches)
+        per_batch = {"flash_packed": 2 * v.depth, "fused_ln_mlp": 2 * v.depth, "layernorm": 4}
+        want_counts = {k_: per_batch.get(k_, 0) * 2 for k_ in eval_counts}
+        check(eval_counts == want_counts, f"eval launch counts {eval_counts} != {want_counts}")
+        check(results["num_samples"] == 16, f"eval: {results['num_samples']} samples")
+        maps = {k_: v_ for k_, v_ in results.items() if k_.startswith("mAP@")}
+        check(len(maps) == 5 and all(np.isfinite(m_) and 0.0 <= m_ <= 1.0
+                                     for m_ in maps.values()), f"eval mAPs {maps}")
+        print(f"lifecycle: eval {results}; launches {eval_counts}; "
+              f"{results['num_samples'] / eval_s:.2f} samples/s (2 batches of {batch}, "
+              f"checkpoint load and loader included) [{card}]", flush=True)
+        for line in eval_logs:
+            print(f"lifecycle: eval | {line}", flush=True)
+
+        # the eval logits of one batch through the kernels against the plain
+        # versions; control: the plain path binning the points with true
+        # divisions (the host chunk build's arithmetic, not the jitted JAX
+        # voxelizer's: a fault this slice repaired)
+        ckpt, ckpt_cfg = load_checkpoint(run_dir)
+        ebatch = next(iter(batch_iterator(seqs[:batch], ArgoverseSampleLoader(
+            g, max_gt=cfg.loss.max_gt_boxes, verbose=False), batch, num_workers=4)))
+        eargs = (ebatch.points, ebatch.points_valid, ebatch.map_bev)
+        got = StreamingInferencer(ckpt_cfg, ckpt["model"], "cuda").logits_points(*eargs)
+        eplain = StreamingInferencer(ckpt_cfg, ckpt["model"], "cuda", plain_ops=True)
+        want = eplain.logits_points(*eargs)
+        with with_host_bins(importlib.import_module("intentbev_torch.parallel.inference")):
+            ctrl = eplain.logits_points(*eargs)
+        sound, ctrl_r = compare("eval logits", got, want, ctrl, (rel_l2,) * 3, slice_limit,
+                                "points binned by true division")
+        print("lifecycle: eval logits kernel vs plain path, relative L2 (cls, box, intent) "
+              f"[{', '.join(f'{r:.3e}' for r in sound)}] under {slice_limit[0]:g}; control "
+              f"(plain path, points binned by true division) "
+              f"[{', '.join(f'{r:.3e}' for r in ctrl_r)}] caught", flush=True)
+        del got, want, ctrl, ckpt, ebatch, eplain
+    torch.cuda.empty_cache()
+    print(f"lifecycle: phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
+
     serving_runs = (serve_counts, *config_counts.values())
+    lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
     tiny_runs = (tiny_serve_counts, tiny_train_counts)
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
             ("flash_packed", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
              (*serving_runs, train_counts, train_b, train_c, form_counts["split"],
-              form_counts["chunked"])),
+              form_counts["chunked"], *lifecycle_runs)),
             # the forward's fixed max (bench.py's serving form: the bench lines)
             # and chunked safe form (phase 11)
             ("flash_packed_fixed", "flash_packed.cu",
@@ -2227,20 +2439,21 @@ def main() -> None:
              "intentbev/ops/flash_packed.py:157 (safe=True)",
              (chunked_serve_counts,)),
             ("fused_ln_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:116",
-             serving_runs),
-            ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39", serving_runs),
+             (*serving_runs, eval_counts)),
+            ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39",
+             (*serving_runs, eval_counts)),
             ("flash_packed_bwd", "flash_packed.cu", "intentbev/ops/flash_packed.py:523",
-             (train_counts, train_b, train_c)),
+             (train_counts, train_b, train_c, *lifecycle_runs)),
             ("fused_ln_mlp_train", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
-             (train_counts, *config_counts.values(), train_b)),
+             (train_counts, *config_counts.values(), train_b, *lifecycle_runs)),
             ("fused_ln_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
-             (train_counts, train_b)),
+             (train_counts, train_b, *lifecycle_runs)),
             ("layernorm_train", "layernorm.cu", "intentbev/ops/layernorm.py:53",
-             (train_counts, train_b)),
+             (train_counts, train_b, *lifecycle_runs)),
             ("layernorm_bwd", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             (train_counts, train_b)),
+             (train_counts, train_b, *lifecycle_runs)),
             ("voxel_fill", "voxel_fill.cu", "intentbev/ops/voxel_embed.py:507",
-             (cnn_serve_counts, cnn_train_counts, vit_chunk_counts)),
+             (cnn_serve_counts, cnn_train_counts, vit_chunk_counts, chunk_loop_counts)),
             ("fused_mlp_int8", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
              serving_runs),
             ("fused_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103", serving_runs),

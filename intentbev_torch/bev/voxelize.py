@@ -10,6 +10,15 @@ so a cell holds max(0, intensity). Output is channels-last [B, H, W, S*Z]
 with channel = sweep * Z + z_slice. The scatter-max is plain PyTorch
 (``scatter_reduce_`` with ``amax``), as it is an XLA scatter in JAX; points
 outside the grid or the z range, and invalid ones, are dropped by index.
+
+The bins follow the JAX voxelizer's arithmetic as XLA compiles it (it is
+``jax.jit``-ed): the division by the voxel size becomes a product with the
+f32 reciprocal, fused with the pixel offset into one rounding (an FMA),
+and the height bin is ``(z - z_min) * f32(f32(1 / range) * Z)``. A point
+on the i16-centimetre lattice of the transport often sits exactly on a
+cell boundary, where a true division rounds to the other side: the host
+host chunk build divides (as the JAX package's does), so the two transports
+differ in such cells, in JAX as here (``cell_bins``, ``moved_points``).
 """
 
 from __future__ import annotations
@@ -43,11 +52,47 @@ def dequantize_points(points: torch.Tensor) -> torch.Tensor:
     return points
 
 
+ARITHMETIC = ("device", "host")
+
+
+def cell_bins(points: torch.Tensor, valid: torch.Tensor, grid, arithmetic: str = "device"):
+    """(row, col, z slice, in range) of each point of f32[..., 4].
+
+    ``arithmetic``: "device", the jitted JAX voxelizer's (the module
+    docstring); "host", the host chunk build's (true f32 divisions,
+    ``cpp/intentbev_host.cpp``), the cells the chunk transport fills. The
+    two differ only for a point on a cell boundary."""
+    if arithmetic not in ARITHMETIC:
+        raise ValueError(f"arithmetic {arithmetic!r} not in {ARITHMETIC}")
+    h, w, zc = grid.height_px, grid.width_px, grid.lidar_height_channels
+    x, y, z, _ = points.unbind(-1)
+    if arithmetic == "device":
+        inv = float(np.float32(1.0) / np.float32(grid.voxel_size_m))
+        # offset +- v * inv rounded once (f64 holds the f32 product exactly)
+        col = torch.floor((float(np.float32(grid.pixel_offset_x)) + y.double() * inv).float())
+        row = torch.floor((float(np.float32(grid.pixel_offset_y)) - x.double() * inv).float())
+        z_scale = np.float32(np.float32(1.0) / np.float32(grid.z_max - grid.z_min)) * np.float32(zc)
+        zi = torch.floor((z - grid.z_min) * torch.tensor(z_scale, device=points.device))
+    else:
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=points.device)
+
+        col = torch.floor(grid.pixel_offset_x + y / f32(grid.voxel_size_m))
+        row = torch.floor(grid.pixel_offset_y - x / f32(grid.voxel_size_m))
+        zi = torch.floor((z - grid.z_min) / f32(grid.z_max - grid.z_min) * zc)
+    row, col, zi = row.long(), col.long(), zi.long().clamp(0, zc - 1)
+    ok = (valid.bool() & (col >= 0) & (col < w) & (row >= 0) & (row < h)
+          & (z >= grid.z_min) & (z < grid.z_max))
+    return row, col, zi, ok
+
+
 def voxelize_packed(points: torch.Tensor, valid: torch.Tensor, grid,
-                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    out_dtype: torch.dtype = torch.float32,
+                    arithmetic: str = "device") -> torch.Tensor:
     """points f32[B, S, P, 4] (x, y, z, intensity), valid bool[B, S, P] ->
-    BEV [B, H, W, S*Z] in ``out_dtype``. The divisions are true f32
-    divisions by tensors, as XLA computes them, so cells match exactly."""
+    BEV [B, H, W, S*Z] in ``out_dtype``: the cells of the JAX voxelizer, or,
+    with ``arithmetic="host"``, those the chunk transport fills
+    (:func:`cell_bins`)."""
     if not points.is_floating_point():
         raise TypeError(f"voxelize_packed expects float points (metres), got "
                         f"{points.dtype}; decode i16 transport points first")
@@ -55,25 +100,25 @@ def voxelize_packed(points: torch.Tensor, valid: torch.Tensor, grid,
     h, w, zc = grid.height_px, grid.width_px, grid.lidar_height_channels
     c = s * zc
     dev = points.device
-
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
-
-    x, y, z, inten = points.unbind(-1)
-    col = torch.floor(grid.pixel_offset_x + y / f32(grid.voxel_size_m)).long()
-    row = torch.floor(grid.pixel_offset_y - x / f32(grid.voxel_size_m)).long()
-    ok = (valid.bool() & (col >= 0) & (col < w) & (row >= 0) & (row < h)
-          & (z >= grid.z_min) & (z < grid.z_max))
-    zi = torch.floor((z - grid.z_min) / f32(grid.z_max - grid.z_min) * zc).long()
-    zi = zi.clamp(0, zc - 1)
+    row, col, zi, ok = cell_bins(points, valid, grid, arithmetic)
     sweep = torch.arange(s, device=dev)[:, None]
     sample = torch.arange(b, device=dev)[:, None, None]
     flat = sample * (h * w * c) + (row * w + col) * c + sweep * zc + zi
     total = b * h * w * c
     flat = torch.where(ok, flat, total)  # one spare cell takes the dropped points
     bev = torch.zeros(total + 1, dtype=out_dtype, device=dev)
-    bev.scatter_reduce_(0, flat.reshape(-1), inten.reshape(-1).to(out_dtype), "amax")
+    bev.scatter_reduce_(0, flat.reshape(-1), points[..., 3].reshape(-1).to(out_dtype), "amax")
     return bev[:total].view(b, h, w, c)
+
+
+def moved_points(points: torch.Tensor, valid: torch.Tensor, grid) -> int:
+    """How many in-range points the two arithmetics of :func:`cell_bins` put
+    into different cells (each changes at most two cells of a BEV)."""
+    dev_bins, host_bins = (cell_bins(points, valid, grid, a) for a in ARITHMETIC)
+    moved = dev_bins[3] & host_bins[3] & ((dev_bins[0] != host_bins[0])
+                                          | (dev_bins[1] != host_bins[1])
+                                          | (dev_bins[2] != host_bins[2]))
+    return int((moved | (dev_bins[3] != host_bins[3])).sum())
 
 
 def dedup_cells_host(points: np.ndarray, valid: np.ndarray, grid) -> tuple[np.ndarray, np.ndarray]:

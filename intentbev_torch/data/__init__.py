@@ -1,1 +1,2 @@
-"""Host half of the input pipeline (batch stacking for the transports)."""
+"""Host input pipeline: AV2-format logs (``argoverse``), the synthetic log
+writer (``synthetic``), batching and prefetch (``pipeline``)."""

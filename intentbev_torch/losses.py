@@ -3,15 +3,16 @@
 Counterpart of ``intentbev/losses.py`` (the JAX package's ``vmap`` over the
 batch is a batch dimension here):
 
-- anchors x GT axis-aligned IoU; per anchor max IoU < 0.45 -> negative,
-  >= 0.6 -> positive, in between ignored; each valid GT's best anchor is
+- anchors x GT IoU (axis-aligned, or rotated with ``use_rotated_iou``);
+  per anchor max IoU < 0.45 -> negative, >= 0.6 -> positive, in between
+  ignored; each valid GT's best anchor is
   forced positive when that IoU clears 0.45; every positive anchor
   regresses to and takes the intention of its own best-IoU GT;
 - sigmoid focal loss (alpha 0.25, gamma 2) over non-ignored anchors and
   smooth-L1 (beta 1/9) over positive box deltas, each / max(1, num_pos);
 - intention CE over positive anchors with the stochastic drop of the
   dominant classes (kept with probability 1 - 0.85); its uniforms are
-  passed in;
+  passed in; with the drop off, optional per-class weights of the CE;
 - total = cls + box + 0.5 intent; a non-finite total zeroes the dict.
 """
 
@@ -21,17 +22,18 @@ import torch
 import torch.nn.functional as F
 
 from .boxes.codec import encode_boxes
-from .boxes.iou import axis_aligned_iou
+from .boxes.iou import axis_aligned_iou, rotated_iou
 
 
 def assign_targets(anchors, gt_boxes, gt_intentions, gt_valid, cfg):
     """anchors f32[N, 5]; gt_boxes f32[B, G, 5]; gt_intentions int[B, G];
     gt_valid bool[B, G] -> (cls i32[B, N] in {-1, 0, 1}, box f32[B, N, 6],
     intent i32[B, N], class id or -1)."""
-    if cfg.use_rotated_iou:
-        raise NotImplementedError("rotated-IoU assignment is not ported")
     valid = gt_valid.bool()
-    iou = axis_aligned_iou(anchors[None, :, :4], gt_boxes[..., :4])  # [B, N, G]
+    if cfg.use_rotated_iou:
+        iou = rotated_iou(anchors[None], gt_boxes)  # [B, N, G]
+    else:
+        iou = axis_aligned_iou(anchors[None, :, :4], gt_boxes[..., :4])
     iou = torch.where(valid[:, None, :], iou, -1.0)
     max_iou, best_gt = iou.max(-1).values, iou.argmax(-1)
     num_gt = valid.sum(-1, keepdim=True)  # [B, 1]
@@ -79,10 +81,14 @@ def softmax_ce(logits, labels):
 
 
 def detection_intention_loss(cls_logits, box_preds, intent_logits, anchors, gt_boxes,
-                             gt_intentions, gt_valid, cfg, uniforms) -> dict:
+                             gt_intentions, gt_valid, cfg, uniforms,
+                             intention_class_weights=None) -> dict:
     """cls [B, N, 1], box [B, N, 6], intent [B, N, C] logits; anchors [N, 5];
     GT padded to G. ``uniforms`` f32[B*N] are the dominant-class drop's
-    draws. Returns {"loss",
+    draws. ``intention_class_weights`` f32[C] (optional) scale each
+    positive anchor's CE by its target class's weight, only where the
+    dominant-class drop is off (``cfg.apply_intention_downsampling``), as
+    the JAX loss does. Returns {"loss",
     "cls_loss", "box_loss", "intent_loss", "num_pos_anchors"} as f32
     scalars on the logits' device."""
     cls_t, box_t, intent_t = assign_targets(anchors, gt_boxes, gt_intentions, gt_valid, cfg)
@@ -103,6 +109,8 @@ def detection_intention_loss(cls_logits, box_preds, intent_logits, anchors, gt_b
                            0.0).sum() / denom
 
     ce = softmax_ce(intent_l, intent_t)
+    if intention_class_weights is not None and not cfg.apply_intention_downsampling:
+        ce = ce * intention_class_weights[intent_t.long().clamp(min=0)]
     mask = pos.float()
     if cfg.apply_intention_downsampling:
         dominant = torch.zeros_like(pos)

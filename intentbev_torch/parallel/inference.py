@@ -3,13 +3,14 @@
 Counterpart of ``intentbev/parallel/inference.py::StreamingInferencer`` on
 one device, for either model family (``cfg.model_family``):
 
+- ``transport="points"`` (the default, as in JAX): the device decodes the
+  points (i16 transport or f32), voxelizes them (scatter-max) and runs the
+  model on the dense BEV.
 - ``transport="chunks"``: the host builds and packs placement chunks (C++
   ``ib_build_chunks``) at the band geometry of ``train.chunk_patch_for``
   and the device decodes them. The ViT turns them into lidar tokens with
   the voxel-embed kernel; for the CNN the ``voxel_fill`` kernel writes the
   dense BEV (bf16 on CUDA), as ``bench.py``'s CNN chunk line does.
-- ``transport="points"``: the device decodes the points (i16 transport or
-  f32), voxelizes them (scatter-max) and runs the model on the dense BEV.
 
 The model's logits then go through box decode and NMS on the device into
 fixed-size :class:`Detections`. :data:`VIT_SERVING_VARIANTS` names the
@@ -20,6 +21,7 @@ serves on.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -78,7 +80,7 @@ class StreamingInferencer:
     chunks.
     """
 
-    def __init__(self, cfg, params, device, transport: str = "chunks",
+    def __init__(self, cfg, params, device, transport: str = "points",
                  num_chunks: int = 512, gelu: str = "erf", plain_ops: bool = False):
         if transport not in ("chunks", "points"):
             raise ValueError(f"transport {transport!r} not in ('chunks', 'points')")
@@ -163,3 +165,10 @@ class StreamingInferencer:
         if self.transport == "points":
             return self.infer_points(points, points_valid, map_bev)
         return self.infer_chunks(self.build_chunks(points, points_valid), map_bev)
+
+    def stream(self, batches: Iterator) -> Iterator[Detections]:
+        """Host Detections for each batch (a mapping with ``points``,
+        ``points_valid`` and ``map_bev``), one after the other, as the JAX
+        harness's ``stream``."""
+        for batch in batches:
+            yield self(batch["points"], batch["points_valid"], batch["map_bev"])

@@ -1,9 +1,13 @@
-"""ctypes binding of the C++ host library's chunk builder.
+"""ctypes binding of the C++ host library.
 
 Builds ``cpp/intentbev_host.cpp`` with g++ into ``intentbev_torch/_build``
-(keyed by a hash of the source) on first use and binds ``ib_build_chunks``.
-The port has no numpy fallback for the chunk builder, so a failed build
-raises.
+(keyed by a hash of the source) on first use and binds the chunk build
+``ib_build_chunks`` and the loader's raster and pose primitives
+``ib_fill_polygon``, ``ib_draw_polyline`` and ``ib_transform_points`` (the
+counterparts of ``intentbev/utils/native.py``). The port has no numpy
+fallback for the chunk build, so a failed build raises; the rasterizer
+keeps its numpy forms (``bev.rasterize``), and the loader its numpy pose
+transform (``geometry.transform_points``).
 """
 
 from __future__ import annotations
@@ -56,6 +60,11 @@ def host_lib() -> ctypes.CDLL:
                 ptr, ptr, i64, i64, i64, i64, i64,
                 f64, f64, f64, f64, f64, i64, i64, i64, i64,
                 ptr, ptr, ptr, ptr, ptr]
+            for name in ("ib_fill_polygon", "ib_draw_polyline"):
+                getattr(lib, name).restype = None
+                getattr(lib, name).argtypes = [ptr, i64, i64, ptr, i64]
+            lib.ib_transform_points.restype = None
+            lib.ib_transform_points.argtypes = [ptr, i64, ptr, ptr]
             _lib = lib
     return _lib
 
@@ -86,3 +95,37 @@ def build_chunks_native(points: np.ndarray, valid: np.ndarray, grid, *,
         wid.ctypes.data, sl.ctypes.data, ch.ctypes.data, val.ctypes.data,
         count.ctypes.data)
     return wid, sl, ch, val, count, int(needed)
+
+
+def _mask_call(fn, mask: np.ndarray, pts: np.ndarray) -> None:
+    mask_c = np.ascontiguousarray(mask, dtype=np.uint8)
+    pts_c = np.ascontiguousarray(pts, dtype=np.int32)
+    fn(mask_c.ctypes.data, mask.shape[0], mask.shape[1], pts_c.ctypes.data, pts_c.shape[0])
+    if mask_c is not mask:
+        mask[...] = mask_c
+
+
+def fill_polygon_native(mask: np.ndarray, pts: np.ndarray) -> None:
+    """Even-odd scanline fill of int (col, row) vertices [K, 2] into the
+    u8 mask [H, W], in place (``ib_fill_polygon``; fewer than 3 vertices
+    draw nothing)."""
+    if pts.shape[0] >= 3:
+        _mask_call(host_lib().ib_fill_polygon, mask, pts)
+
+
+def draw_polyline_native(mask: np.ndarray, pts: np.ndarray) -> None:
+    """1-px polyline through int (col, row) vertices [K, 2] into the u8
+    mask [H, W], in place (``ib_draw_polyline``)."""
+    if pts.shape[0] >= 2:
+        _mask_call(host_lib().ib_draw_polyline, mask, pts)
+
+
+def transform_points_native(points: np.ndarray, transform: np.ndarray) -> np.ndarray:
+    """Points [N, >=3] (their xyz in f64) through a 4x4 transform -> f32
+    [N, 3] (``ib_transform_points``)."""
+    pts = np.ascontiguousarray(points[:, :3], dtype=np.float64)
+    m = np.ascontiguousarray(transform, dtype=np.float64)
+    out = np.empty((pts.shape[0], 3), dtype=np.float32)
+    host_lib().ib_transform_points(pts.ctypes.data, pts.shape[0], m.ctypes.data,
+                                   out.ctypes.data)
+    return out

@@ -96,7 +96,8 @@ def test_i16_points_build_the_same_chunks_as_jax():
     assert pts16.dtype == np.int16
     want = JStreamingInferencer.build_chunks(
         SimpleNamespace(cfg=tiny_test_config(), num_chunks=64), pts16, valid)
-    inf = StreamingInferencer(cfg, init_params(cfg, seed=0), "cpu", num_chunks=64)
+    inf = StreamingInferencer(cfg, init_params(cfg, seed=0), "cpu", transport="chunks",
+                              num_chunks=64)
     assert int(np.asarray(want.count).sum()) > 0
     for got in (build_chunk_transport(pts16, valid, cfg.grid, cfg.vit.patch_size, 64),
                 inf.build_chunks(pts16, valid)):

@@ -81,7 +81,8 @@ def check_from_flax(cfg, variables):
 def check_serving(cfg, variables, pts, valid, mp, want, want_det, box_rtol=0.0):
     """The port's StreamingInferencer (CPU, plain versions) against the JAX
     logits and Detections (decoded boxes also to ``box_rtol``)."""
-    inf = StreamingInferencer(cfg, from_flax(variables), "cpu", num_chunks=NUM_CHUNKS)
+    inf = StreamingInferencer(cfg, from_flax(variables), "cpu", transport="chunks",
+                              num_chunks=NUM_CHUNKS)
     got = inf.logits(inf.build_chunks(pts, valid), mp)
     for name, a, b in zip(("cls", "box", "intent"), got, want):
         np.testing.assert_allclose(a.numpy(), b, atol=1e-4, rtol=1e-4, err_msg=name)

@@ -222,6 +222,45 @@ def test_loss_matches_jax(rng):
         _close(leaf.grad.numpy(), w, 1e-5, name)
 
 
+def test_loss_with_intention_weights_matches_jax(rng):
+    """Random intention class weights with the dominant-class drop off: the
+    loss terms and the logits' gradients against JAX's (f32, 1e-6); the
+    same call without the weights must differ (the control)."""
+    cfg, anchors, boxes, intents, valid, logits, u = _loss_case(rng)
+    jl_cfg = dataclasses.replace(cfg.loss, apply_intention_downsampling=False)
+    tl_cfg = dataclasses.replace(tcfg.tiny_test_config().loss,
+                                 apply_intention_downsampling=False)
+    w = rng.uniform(0.05, 1.0, 8).astype(np.float32)
+    w /= w.sum()
+    key = jax.random.key(7)
+
+    def jl(*lg):
+        return jloss(*lg, *map(jnp.asarray, (anchors, boxes, intents, valid)), jl_cfg, key,
+                     intention_class_weights=jnp.asarray(w))
+
+    want = jl(*map(jnp.asarray, logits))
+    want_g = jax.grad(lambda *lg: jl(*lg)["loss"], argnums=(0, 1, 2))(*map(jnp.asarray, logits))
+    leaves = [_t(a).requires_grad_(True) for a in logits]
+    args = (*map(_t, (anchors, boxes, intents, valid)), tl_cfg, _t(u))
+    got = detection_intention_loss(*leaves, *args, intention_class_weights=_t(w))
+    got["loss"].backward()
+    assert float(want["num_pos_anchors"]) > 0
+    for k, v in want.items():
+        np.testing.assert_allclose(float(got[k].detach()), float(v), rtol=1e-6, err_msg=k)
+    for name, leaf, g in zip(("cls", "box", "intent"), leaves, want_g):
+        _close(leaf.grad.numpy(), g, 1e-6, name)
+    unweighted = detection_intention_loss(*map(_t, logits), *args)
+    assert abs(float(unweighted["intent_loss"]) - float(want["intent_loss"])) \
+        > 1e-2 * abs(float(want["intent_loss"]))
+    # with the drop on, the weights are ignored, as in JAX
+    on = detection_intention_loss(*map(_t, logits), *map(_t, (anchors, boxes, intents, valid)),
+                                  tcfg.tiny_test_config().loss, _t(u),
+                                  intention_class_weights=_t(w))
+    off = detection_intention_loss(*map(_t, logits), *map(_t, (anchors, boxes, intents, valid)),
+                                   tcfg.tiny_test_config().loss, _t(u))
+    assert float(on["intent_loss"]) == float(off["intent_loss"])
+
+
 def test_bn_training_statistics(rng):
     """A fusion stage in training mode: output and the new batch stats."""
     x = rng.normal(0.3, 1.5, (2, 6, 10, 12)).astype(np.float32)
