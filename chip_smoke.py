@@ -164,6 +164,24 @@ Phases (each prints a line; any failure exits nonzero with no result):
     against the plain path (limit 1.3e-2; control: the plain path binning
     the points by true division, as the host chunk build does). It prints the loader's samples/s, the loop's ms/step
     beside phase 5's step alone, and eval's samples/s.
+15. The deployment paths: 8 stream rings (``data.streaming``) of the
+    default grid's 10 sweeps x 65536 points, 12 sweeps pushed at advancing
+    poses on the card; ``batched_voxelize_rings`` on the card against the
+    same function on a CPU copy and against ``voxelize_packed`` over the
+    host's f64 re-projection (cells that differ: at most 2 a point whose
+    exact bins lie within 1e-3 of a boundary); phase 14's log's map as a
+    ``CityRaster``, warped to the 8 current poses on the card against the
+    host warp (share of differing values under 2e-3, the JAX test's
+    limit); the full-width ViT on those BEVs and maps through NMS (launch
+    counts; logits against the plain path under phase 4's limit, control
+    the erf GELU); the card's ms for a ring voxelize and a warp a batch of
+    8. Then, in a child process with a 600 s timeout (``--dp-child``), a
+    one-rank NCCL group through a TCPStore on a free localhost port: the
+    sharded train step on phase 5's batch and draws against phase 5's
+    kernel step (loss terms within 1e-3 relative, num_pos equal, gradients
+    under phase 5's limits) and the distributed eval of phase 14's
+    checkpoint against phase 14's (counts and confusion matrix equal), with
+    launch counts; the group is destroyed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -217,6 +235,95 @@ def with_host_bins(module):
         yield
     finally:
         module.voxelize_packed = sound
+
+
+@contextlib.contextmanager
+def capture_confusion(store: list):
+    """Inside, each ``evaluate()`` appends its confusion matrix (as nested
+    lists) to ``store``."""
+    import intentbev_torch.evaluate as ev
+
+    sound = ev.confusion_to_metrics
+
+    def spy(confusion):
+        store.append(confusion.cpu().tolist())
+        return sound(confusion)
+
+    ev.confusion_to_metrics = spy
+    try:
+        yield
+    finally:
+        ev.confusion_to_metrics = sound
+
+
+def dp_child(dp_dir: Path, run_dir: str, split: str) -> None:
+    """Phase 15's data-parallel half, in its own process: a one-rank NCCL
+    group through a TCPStore on a free localhost port; the sharded train
+    step on phase 5's batch and draws (gradients to ``grads.pt``) and the
+    distributed eval of phase 14's checkpoint, with their launch counts
+    (``result.json``); the group destroyed at the end."""
+    import socket
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from intentbev_torch.boxes import generate_anchors
+    from intentbev_torch.configs import default_vit_config
+    from intentbev_torch.evaluate import evaluate
+    from intentbev_torch.models import IntentNetViT
+    from intentbev_torch.ops import _build
+    from intentbev_torch.parallel import create_mesh, make_sharded_train_step, shard_train_state
+    from intentbev_torch.train import StepDraws
+    from intentbev_torch.utils import native
+
+    check(torch.cuda.is_available(), "the data-parallel child needs the CUDA card")
+    torch.cuda.set_device(0)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 1, True, timeout=timedelta(seconds=60))
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=timedelta(seconds=120), device_id=torch.device("cuda", 0))
+    try:
+        _build.kernels()
+        native.host_lib()
+        dev = torch.device("cuda", 0)
+        inp = torch.load(dp_dir / "inputs.pt", weights_only=False)
+        cfg = default_vit_config()
+        mesh = create_mesh(cfg.mesh, "cuda")
+        model = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32)
+        model.load_state_dict(inp["params"])
+        model.to(dev)
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)  # phase 5's step at lr 0
+        shard_train_state(model, opt, mesh, cfg)
+        anchors = torch.from_numpy(generate_anchors(cfg.grid, cfg.anchors)).to(dev)
+        step = make_sharded_train_step(model, cfg, anchors, opt, mesh)
+        draws = inp["draws"]
+        draws = StepDraws(type(draws.dropout)(*(t.to(dev) for t in draws.dropout)),
+                          draws.intent_u.to(dev))
+        batch = {k: t.to(dev) for k, t in inp["batch"].items()}
+        _build.reset_launch_counts()
+        metrics = step(batch, torch.Generator(device="cuda").manual_seed(1), draws)
+        torch.cuda.synchronize()
+        step_counts = dict(_build.launches)
+        torch.save({k: p.grad.detach().float().cpu() for k, p in model.named_parameters()},
+                   dp_dir / "grads.pt")
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+        print(f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, backend "
+              f"{dist.get_backend()}, world {dist.get_world_size()}", flush=True)
+        confusion = []
+        _build.reset_launch_counts()
+        with capture_confusion(confusion):
+            res = evaluate(run_dir, split, num_workers=4, max_batches=2, device="cuda",
+                           distributed=True, log_fn=lambda line: print(line, flush=True))
+        torch.cuda.synchronize()
+        (dp_dir / "result.json").write_text(json.dumps({
+            "metrics": {k: float(v) for k, v in metrics.items()}, "step_counts": step_counts,
+            "eval": res, "confusion": confusion[-1], "eval_counts": dict(_build.launches)}))
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> None:
@@ -1394,6 +1501,7 @@ def main() -> None:
     print(f"train: against the f32 plain step, the kernel step reads all {k_ref[0]:.3e}, "
           f"worst {k_ref[1]:.3e} ({k_ref[2]}); the bf16 plain step all {p_ref[0]:.3e}, "
           f"worst {p_ref[1]:.3e} ({p_ref[2]})", flush=True)
+    p5_metrics, p5_grads = m_k, {k_: t.cpu() for k_, t in g_k.items()}  # phase 15 reads them
     del g_k, g_p, g_c, g_ln, g_ref
 
     opt = make_optimizer(model.parameters(), cfg)
@@ -2282,7 +2390,8 @@ def main() -> None:
     check(lcfg.train.compute_dtype == "bfloat16" and lcfg.train.transport == "points",
           f"phase 14 trains bf16 over points, not {lcfg.train}")
     frames, sweeps = 17, g.lidar_sweeps
-    with tempfile.TemporaryDirectory(prefix="smoke14_") as tmp:
+    tmp14 = tempfile.TemporaryDirectory(prefix="smoke14_")  # phase 15 evaluates its run too
+    with contextlib.nullcontext(tmp14.name) as tmp:
         root = Path(tmp)
         split, run_dir = root / "train", root / "run"
         for k_ in range(2):  # 2 logs: 2 x (17 - 10 + 1) = 16 sequences, 2 batches an epoch
@@ -2381,8 +2490,10 @@ def main() -> None:
         _build.reset_launch_counts()
         eval_logs = []
         t0 = time.perf_counter()
-        results = evaluate(str(run_dir), str(split), num_workers=4, max_batches=2,
-                           log_fn=eval_logs.append)
+        p14_confusion = []
+        with capture_confusion(p14_confusion):
+            results = evaluate(str(run_dir), str(split), num_workers=4, max_batches=2,
+                               log_fn=eval_logs.append)
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
         eval_counts = dict(_build.launches)
@@ -2422,15 +2533,207 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"lifecycle: phase 14 took {time.perf_counter() - t14:.1f} s", flush=True)
 
+    # 15. deploy: sweep rings and city-raster maps on the card, the full-width
+    # ViT served on them, and data parallel at world size 1 in a child process
+    from intentbev_torch.bev.city_raster import (build_city_raster, warp_city_to_ego,
+                                                 warp_city_to_ego_device)
+    from intentbev_torch.bev.rasterize import parse_map_json
+    from intentbev_torch.data.streaming import (SweepRing, batched_voxelize_rings, make_ring,
+                                                push_sweep, stack_rings)
+    from intentbev_torch.geometry import se3_from_quat_translation
+
+    t15 = time.perf_counter()
+    n_streams, n_slots, n_pts, n_push = batch, g.lidar_sweeps, 65536, g.lidar_sweeps + 2
+    srng = np.random.default_rng(15)
+
+    def stream_pose(b_, i_):
+        """Stream b_'s world pose at sweep i_: down the corridor, turning."""
+        yaw_ = 0.15 * b_ - 0.5 + 0.01 * i_
+        return se3_from_quat_translation(
+            [0.0, 0.0, np.sin(yaw_ / 2), np.cos(yaw_ / 2)],
+            [12.0 + 13.0 * b_ + 1.3 * i_, -4.0 + b_ + 0.05 * i_, 0.02 * i_]).astype(np.float32)
+
+    rings = stack_rings([make_ring(n_slots, n_pts, dev) for _ in range(n_streams)])
+    host_sweeps = []  # the last n_slots pushes: (points, valid, poses), oldest first
+    for i_ in range(n_push):
+        pts_ = np.zeros((n_streams, n_pts, 4), np.float32)
+        pts_[..., 0] = srng.uniform(g.bev_x_min - 3, g.bev_x_max + 3, (n_streams, n_pts))
+        pts_[..., 1] = srng.uniform(g.bev_y_min - 3, g.bev_y_max + 3, (n_streams, n_pts))
+        pts_[..., 2] = srng.uniform(-2.5, 4.2, (n_streams, n_pts))
+        pts_[..., 3] = np.round(srng.uniform(0, 255, (n_streams, n_pts)))
+        vld_ = srng.uniform(size=(n_streams, n_pts)) < 0.95
+        poses_ = np.stack([stream_pose(b_, i_) for b_ in range(n_streams)])
+        rings = push_sweep(rings, torch.from_numpy(pts_).to(dev), torch.from_numpy(vld_).to(dev),
+                           torch.from_numpy(poses_).to(dev))
+        host_sweeps = (host_sweeps + [(pts_, vld_, poses_)])[-n_slots:]
+    check(rings.head.tolist() == [n_push % n_slots] * n_streams
+          and rings.count.tolist() == [n_slots] * n_streams,
+          f"ring head {rings.head.tolist()}, count {rings.count.tolist()}")
+    currents = np.stack([stream_pose(b_, n_push - 1) for b_ in range(n_streams)])
+    cur_dev = torch.from_numpy(currents).to(dev)
+    ring_bev = batched_voxelize_rings(rings, cur_dev, g)
+    torch.cuda.synchronize()
+    cpu_bev = batched_voxelize_rings(SweepRing(*(t_.cpu() for t_ in rings)),
+                                     torch.from_numpy(currents), g)
+    # the host's re-projection in f64 (oldest sweep first), and the points
+    # whose exact bins lie within 1e-3 of a cell or slice boundary
+    inv_v = float(np.float32(1.0) / np.float32(g.voxel_size_m))
+    z_scale = float(np.float32(np.float32(1.0) / np.float32(g.z_max - g.z_min))
+                    * np.float32(g.lidar_height_channels))
+    host_pts = np.zeros((n_streams, n_slots, n_pts, 4), np.float32)
+    host_vld = np.zeros((n_streams, n_slots, n_pts), bool)
+    n_near = 0
+    for b_ in range(n_streams):
+        inv_cur = np.linalg.inv(currents[b_].astype(np.float64))
+        for a_, (pts_, vld_, poses_) in enumerate(host_sweeps):
+            rel = inv_cur @ poses_[b_].astype(np.float64)
+            xyz = pts_[b_, :, :3].astype(np.float64) @ rel[:3, :3].T + rel[:3, 3]
+            host_pts[b_, a_, :, :3] = xyz
+            host_pts[b_, a_, :, 3] = pts_[b_, :, 3]
+            host_vld[b_, a_] = vld_[b_]
+            near = np.zeros(n_pts, bool)
+            for v_ in (g.pixel_offset_x + xyz[:, 1] * inv_v, g.pixel_offset_y - xyz[:, 0] * inv_v,
+                       (xyz[:, 2] - g.z_min) * z_scale):
+                near |= np.abs(v_ - np.round(v_)) < 1e-3
+            n_near += int((near & vld_[b_]).sum())
+    host_bev = voxelize_packed(torch.from_numpy(host_pts).to(dev),
+                               torch.from_numpy(host_vld).to(dev), g)
+    diff_cpu = int((ring_bev.cpu() != cpu_bev).sum())
+    diff_host = int((ring_bev != host_bev).sum())
+    occupied = int((ring_bev > 0).sum())
+    check(diff_cpu <= 2 * n_near and diff_host <= 2 * n_near and occupied > 1_000_000,
+          f"ring BEVs: {diff_cpu} cells differ from the CPU's, {diff_host} from the host "
+          f"re-projection's, {n_near} points near a boundary (limit 2 cells each), "
+          f"{occupied} occupied")
+    print(f"deploy: {n_streams} rings x {n_slots} sweeps x {n_pts} points, {n_push} pushes; "
+          f"batched_voxelize_rings on the card vs on the CPU: {diff_cpu} cells differ, vs "
+          f"voxelize_packed over the host's f64 re-projection: {diff_host} (limit 2 a point "
+          f"within 1e-3 of a boundary: {n_near} such points); {occupied} occupied cells",
+          flush=True)
+
+    (map_json,) = (next(split.iterdir()) / "map").glob("log_map_archive_*.json")
+    city = build_city_raster(parse_map_json(str(map_json)), g)
+    raster = torch.from_numpy(city.raster).to(dev)
+    xy_yaw = np.stack([[p_[0, 3], p_[1, 3], np.arctan2(p_[1, 0], p_[0, 0])] for p_ in currents])
+    xy_yaw_dev = torch.from_numpy(xy_yaw.astype(np.float32)).to(dev)
+    maps = warp_city_to_ego_device(raster, city.origin_xy, xy_yaw_dev, g)
+    host_maps = []
+    for tx_, ty_, yaw_ in xy_yaw.astype(np.float32).tolist():
+        host_maps.append(warp_city_to_ego(city, {"tx_m": tx_, "ty_m": ty_, "qx": 0.0, "qy": 0.0,
+                                                 "qz": np.sin(yaw_ / 2), "qw": np.cos(yaw_ / 2)},
+                                          g))
+    map_share = float((maps.cpu().numpy() != np.stack(host_maps)).mean())
+    # JAX's own test holds its device warp to its host warp at a 0.002 share
+    check(map_share < 2e-3 and float(maps[..., 0].sum()) > 0,
+          f"the device warp differs from the host warp in a share {map_share} of its pixels")
+    print(f"deploy: city raster {tuple(city.raster.shape)} of the log's map; "
+          f"warp_city_to_ego_device of {n_streams} poses against the host warp: a share "
+          f"{map_share:.3e} of the values differ (limit 2e-3)", flush=True)
+
+    ring_ms = cuda_ms(lambda: batched_voxelize_rings(rings, cur_dev, g, torch.bfloat16), 10)
+    warp_ms = cuda_ms(lambda: warp_city_to_ego_device(raster, city.origin_xy, xy_yaw_dev, g),
+                      10)
+    print(f"deploy: per batch of {n_streams} streams: ring voxelize {ring_ms:.3f} ms, map warp "
+          f"{warp_ms:.3f} ms [{card}]", flush=True)
+
+    lidar15 = ring_bev.to(torch.bfloat16)
+    sinf = StreamingInferencer(cfg, params, "cuda", gelu="sigmoid")
+    with torch.inference_mode():
+        sinf.model(lidar15, maps)  # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = sinf.model(lidar15, maps)
+        det15 = sinf.fetch(sinf.postprocess(*got))
+        torch.cuda.synchronize()
+        stream_counts = dict(_build.launches)
+        want = StreamingInferencer(cfg, params, "cuda", gelu="sigmoid",
+                                   plain_ops=True).model(lidar15, maps)
+        ctrl = StreamingInferencer(cfg, params, "cuda", gelu="erf",
+                                   plain_ops=True).model(lidar15, maps)
+    want_counts = {k_: {"flash_packed": 2 * v.depth, "fused_ln_mlp": 2 * v.depth,
+                        "layernorm": 4}.get(k_, 0) for k_ in stream_counts}
+    check(stream_counts == want_counts,
+          f"ring + map serving launch counts {stream_counts} != {want_counts}")
+    sound, ctrl_r = compare("ring + map logits", got, want, ctrl, (rel_l2,) * 3, slice_limit,
+                            "erf GELU in the blocks")
+    check(det15.boxes_xywha.shape == (n_streams, cfg.eval.max_detections, 5)
+          and np.isfinite(det15.boxes_xywha).all() and np.isfinite(det15.scores).all(),
+          "ring + map detections: shape or non-finite values")
+    print(f"deploy: the ViT on the ring BEVs and warped maps: launches "
+          f"{ {k_: n_ for k_, n_ in stream_counts.items() if n_} }; logits "
+          f"kernel vs plain path, relative L2 (cls, box, intent) "
+          f"[{', '.join(f'{r:.3e}' for r in sound)}] under {slice_limit[0]:g}; control "
+          f"(plain path, erf GELU) [{', '.join(f'{r:.3e}' for r in ctrl_r)}] caught; valid "
+          f"detections per stream {det15.valid.sum(1).tolist()}", flush=True)
+    del rings, ring_bev, cpu_bev, host_bev, maps, lidar15, sinf, got, want, ctrl, raster
+    torch.cuda.empty_cache()
+
+    # data parallel at world size 1: one NCCL rank in a child process
+    dp_dir = root / "dp"
+    dp_dir.mkdir()
+    torch.save({"params": params, "batch": {k_: t_.cpu() for k_, t_ in tbatch.items()},
+                "draws": StepDraws(type(draws.dropout)(*(t_.cpu() for t_ in draws.dropout)),
+                                   draws.intent_u.cpu())}, dp_dir / "inputs.pt")
+    t0 = time.perf_counter()
+    try:
+        child = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-child", str(dp_dir),
+             str(run_dir), str(split)], capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired as e:
+        fail(f"deploy: the data-parallel child did not finish within 600 s: {e.stdout}")
+    for line in child.stdout.splitlines():
+        print(f"deploy: child | {line}", flush=True)
+    check(child.returncode == 0, f"deploy: the data-parallel child exited "
+          f"{child.returncode}: {child.stderr[-4000:]}")
+    dp = json.loads((dp_dir / "result.json").read_text())
+    dp_grads = torch.load(dp_dir / "grads.pt", weights_only=True)
+    dp_step_counts, dp_eval_counts = dp["step_counts"], dp["eval_counts"]
+    check(dp_step_counts == {k_: vit_per_step.get(k_, 0) for k_ in dp_step_counts},
+          f"DP step launch counts {dp_step_counts} != phase 5's {vit_per_step}")
+    check(dp_eval_counts == eval_counts,
+          f"distributed eval launch counts {dp_eval_counts} != phase 14's {eval_counts}")
+    # the rule of phase 5's kernel step against its plain step: loss terms within 1e-2
+    # relative (here 1e-3), gradients' relative L2 under 6e-3 overall and 0.4 the worst tensor
+    m_rel = {k_: abs(dp["metrics"][k_] - p5_metrics[k_]) / max(abs(p5_metrics[k_]), 1e-30)
+             for k_ in p5_metrics}
+    dp_g = grad_readings(dp_grads, p5_grads)
+    check(all(r_ < 1e-3 for r_ in m_rel.values())
+          and dp["metrics"]["num_pos_anchors"] == p5_metrics["num_pos_anchors"]
+          and dp_g[0] < grad_limit and dp_g[1] < worst_limit,
+          f"DP step at world 1 vs phase 5's step: metrics {dp['metrics']} vs {p5_metrics} "
+          f"(relative {m_rel}), gradients {dp_g}")
+    p14_counts = {k_: results[k_] for k_ in ("num_samples", "pre_nms_overflow", "det_overflow",
+                                            "gt_overflow")}
+    dp_counts = {k_: dp["eval"][k_] for k_ in p14_counts}
+    check(dp_counts == p14_counts and dp["confusion"] == p14_confusion[-1]
+          and set(dp["eval"]) == set(results),
+          f"distributed eval: {dp['eval']} vs {results}, confusion {dp['confusion']} vs "
+          f"{p14_confusion[-1]}")
+    map_diff = max(abs(dp["eval"][k_] - results[k_]) for k_ in results
+                   if k_.startswith(("mAP@", "intention_")))
+    print(f"deploy: DP at world size 1 (NCCL): the sharded step on phase 5's batch and draws, "
+          f"metrics {dp['metrics']} (largest relative difference to phase 5's "
+          f"{max(m_rel.values()):.3e}, limit 1e-3), gradients relative L2 all {dp_g[0]:.3e}, "
+          f"worst {dp_g[1]:.3e} ({dp_g[2]}); launches "
+          f"{ {k_: n_ for k_, n_ in dp_step_counts.items() if n_} }; distributed eval of "
+          f"phase 14's checkpoint: counts {dp_counts} and the confusion matrix equal phase "
+          f"14's, mAPs and intention metrics within {map_diff:.3e}; launches "
+          f"{ {k_: n_ for k_, n_ in dp_eval_counts.items() if n_} }; "
+          f"the child took {time.perf_counter() - t0:.1f} s", flush=True)
+    del p5_grads, dp_grads
+    tmp14.cleanup()
+    print(f"deploy: phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+
     serving_runs = (serve_counts, *config_counts.values())
     lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
+    deploy_runs = (stream_counts, dp_step_counts, dp_eval_counts)  # phase 15
     tiny_runs = (tiny_serve_counts, tiny_train_counts)
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
             ("flash_packed", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
              (*serving_runs, train_counts, train_b, train_c, form_counts["split"],
-              form_counts["chunked"], *lifecycle_runs)),
+              form_counts["chunked"], *lifecycle_runs, *deploy_runs)),
             # the forward's fixed max (bench.py's serving form: the bench lines)
             # and chunked safe form (phase 11)
             ("flash_packed_fixed", "flash_packed.cu",
@@ -2439,19 +2742,19 @@ def main() -> None:
              "intentbev/ops/flash_packed.py:157 (safe=True)",
              (chunked_serve_counts,)),
             ("fused_ln_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:116",
-             (*serving_runs, eval_counts)),
+             (*serving_runs, eval_counts, *deploy_runs)),
             ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39",
-             (*serving_runs, eval_counts)),
+             (*serving_runs, eval_counts, *deploy_runs)),
             ("flash_packed_bwd", "flash_packed.cu", "intentbev/ops/flash_packed.py:523",
-             (train_counts, train_b, train_c, *lifecycle_runs)),
+             (train_counts, train_b, train_c, *lifecycle_runs, *deploy_runs)),
             ("fused_ln_mlp_train", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
-             (train_counts, *config_counts.values(), train_b, *lifecycle_runs)),
+             (train_counts, *config_counts.values(), train_b, *lifecycle_runs, *deploy_runs)),
             ("fused_ln_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
-             (train_counts, train_b, *lifecycle_runs)),
+             (train_counts, train_b, *lifecycle_runs, *deploy_runs)),
             ("layernorm_train", "layernorm.cu", "intentbev/ops/layernorm.py:53",
-             (train_counts, train_b, *lifecycle_runs)),
+             (train_counts, train_b, *lifecycle_runs, *deploy_runs)),
             ("layernorm_bwd", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             (train_counts, train_b, *lifecycle_runs)),
+             (train_counts, train_b, *lifecycle_runs, *deploy_runs)),
             ("voxel_fill", "voxel_fill.cu", "intentbev/ops/voxel_embed.py:507",
              (cnn_serve_counts, cnn_train_counts, vit_chunk_counts, chunk_loop_counts)),
             ("fused_mlp_int8", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
@@ -2539,4 +2842,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-child"]:
+        dp_child(Path(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

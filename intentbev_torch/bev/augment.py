@@ -11,7 +11,9 @@ Counterpart of the point-space half of ``intentbev/bev/augment.py``:
   transform (with the L/R intention swap under a flip) to the GT boxes;
 - patch dropout: :func:`draw_dropout` draws the random numbers, and
   :func:`dropout_keep_mask` is the function of them, so a test can feed
-  the JAX package's draws.
+  the JAX package's draws;
+- :func:`bilinear_sample`, JAX's ``_bilinear_sample``: the device map warp
+  of ``bev/city_raster.py`` samples with it.
 """
 
 from __future__ import annotations
@@ -99,6 +101,31 @@ def augment_points_gt(points, gt_boxes, gt_intentions, gt_valid, aug_params):
                        points[..., 2], points[..., 3]], dim=-1)
     boxes, intents = augment_gt(gt_boxes, gt_intentions, gt_valid, aug_params)
     return pts, boxes, intents
+
+
+def bilinear_sample(img: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample img [H, W, C] at float (rows, cols) [..., h, w] ->
+    [..., h, w, C]; taps outside the image read 0. The four taps and their
+    weights are summed in the JAX function's order."""
+    h, w, _ = img.shape
+    r0 = torch.floor(rows)
+    c0 = torch.floor(cols)
+    dr = (rows - r0)[..., None]
+    dc = (cols - c0)[..., None]
+    r0i = r0.long()
+    c0i = c0.long()
+
+    def gather(ri, ci):
+        ok = (ri >= 0) & (ri < h) & (ci >= 0) & (ci < w)
+        vals = img[ri.clamp(0, h - 1), ci.clamp(0, w - 1)]
+        return torch.where(ok[..., None], vals, 0.0)
+
+    v00 = gather(r0i, c0i)
+    v01 = gather(r0i, c0i + 1)
+    v10 = gather(r0i + 1, c0i)
+    v11 = gather(r0i + 1, c0i + 1)
+    return (v00 * (1 - dr) * (1 - dc) + v01 * (1 - dr) * dc
+            + v10 * dr * (1 - dc) + v11 * dr * dc)
 
 
 class DropoutDraws(NamedTuple):

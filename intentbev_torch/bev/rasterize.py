@@ -19,8 +19,8 @@ Channel semantics (reference utils.py:146-180):
   5 bus-lane fill
   6 DASHED_WHITE markings   7 SOLID_WHITE   8 SOLID_YELLOW
 
-The city-frame raster cache (``bev/city_raster.py``) is not ported
-(``ROADMAP.md`` §1).
+The city-frame raster cache, drawn once a log with these primitives and
+warped per sample, is ``bev/city_raster.py``.
 """
 
 from __future__ import annotations

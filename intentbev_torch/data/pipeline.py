@@ -119,7 +119,11 @@ def batch_to_device(batch, device) -> dict:
     return {name: _to_device(a, device) for name, a in batch._asdict().items()}
 
 
-def _stack(samples: Sequence, aug: Sequence[np.ndarray]) -> Batch:
+def stack_batch(samples: Sequence, aug: Sequence[np.ndarray] | None = None) -> Batch:
+    """Loader samples -> one points-transport :class:`Batch` (identity
+    augmentation parameters unless ``aug`` gives them)."""
+    if aug is None:
+        aug = [IDENTITY_AUG] * len(samples)
     return Batch(
         points=quantize_points_cm(np.stack([s.points for s in samples])),
         points_valid=np.stack([s.points_valid for s in samples]),
@@ -180,7 +184,7 @@ def batch_iterator(
         def stack(samples, aug):
             return _stack_chunks(samples, aug, grid, chunk_patch, chunk_capacity)
     elif transport == "points":
-        stack = _stack
+        stack = stack_batch
     else:
         raise ValueError(f"transport {transport!r} not in ('points', 'chunks')")
 

@@ -19,6 +19,14 @@ its kernels). On CUDA that runs in bf16 with the erf GELU; on the CPU in
 f32, the JAX package's eval dtype. Only the small accumulators (AP sums,
 the confusion matrix, the audits' counts) cross to the host, at the end.
 
+``distributed=True`` (``--distributed``, under ``torchrun``) evaluates
+data-parallel: each rank loads and evaluates its contiguous share of every
+global batch (``cfg.eval.batch_size``, which must divide by the data
+axis), the padded tail masked by ``sample_valid``, and the accumulators
+are summed over the ranks at the end, so the counts, the confusion matrix
+and the mAPs are one process's (the AP sums in another order). Rank 0
+logs.
+
     python -m intentbev_torch.evaluate --ckpt_dir RUN --data_dir SPLIT [--device cpu]
 """
 
@@ -85,12 +93,46 @@ def make_eval_step(inferencer):
     return eval_step, init_accum
 
 
+def rank_eval_batches(sequences, loader, batch_size: int, group, num_workers: int = 4):
+    """This rank's share of every global eval batch: for global batch i,
+    the samples ``[i * B + r * L, i * B + (r + 1) * L)`` of ``sequences``
+    (B = ``batch_size``, L = B / size), as (points-transport Batch of L
+    samples, sample_valid bool[L]). Every rank yields ceil(N / B) batches; a
+    slot past the end of the sequences loads the first sequence in its place
+    and is masked, as is a padded slot where a sample fails to load."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from .data.pipeline import pad_batch, stack_batch
+
+    n, local = len(sequences), batch_size // group.size
+    with ThreadPoolExecutor(max_workers=max(1, num_workers),
+                            thread_name_prefix="eval-loader") as pool:
+        for start in range(0, n, batch_size):
+            idx = range(start + group.rank * local, start + (group.rank + 1) * local)
+            loaded = list(pool.map(loader.load, [sequences[j if j < n else 0] for j in idx]))
+            kept = [(s, j < n) for s, j in zip(loaded, idx) if s is not None]
+            if not kept:  # every load of the share failed: one masked stand-in
+                stand_in = loader.load(sequences[0])
+                if stand_in is None:
+                    raise RuntimeError("no sample of the eval split loads")
+                kept = [(stand_in, False)]
+            batch, present = pad_batch(stack_batch([s for s, _ in kept]), local)
+            real = np.zeros(local, dtype=bool)
+            real[:len(kept)] = [r for _, r in kept]
+            yield batch, present & real
+
+
 def evaluate(ckpt_dir: str, data_dir: str, cfg_override=None, num_workers: int = 4,
              max_batches: int | None = None, log_fn=print, step: int | None = None,
-             device="cuda") -> dict:
+             device="cuda", distributed: bool = False) -> dict:
     """Evaluate the latest checkpoint (or retained ``step``) of ``ckpt_dir``
     on the logs of ``data_dir``; returns the metrics and the audits' counts.
-    ``device``: CUDA by default; ``"cpu"`` runs the plain versions in f32."""
+    ``device``: CUDA by default (this rank's under ``distributed``); ``"cpu"``
+    runs the plain versions in f32. ``distributed``: data-parallel over the
+    process group (the module docstring), which the caller brings up first
+    (:func:`main` does under ``torchrun``)."""
     from .checkpoint import load_checkpoint
     from .data.argoverse import ArgoverseSampleLoader, ScenarioValidator, build_sequence_index
     from .data.pipeline import batch_iterator, batch_to_device, device_prefetch, pad_batch
@@ -101,7 +143,23 @@ def evaluate(ckpt_dir: str, data_dir: str, cfg_override=None, num_workers: int =
     state, cfg = load_checkpoint(ckpt_dir, step=step)
     if cfg_override is not None:
         cfg = cfg_override
-    inferencer = StreamingInferencer(cfg, state["model"], device, transport="points")
+    mesh = group = None
+    if distributed:
+        from .parallel.mesh import create_mesh, data_group
+
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())  # this rank's card
+        mesh = create_mesh(cfg.mesh, device.type)
+        group = data_group(mesh, cfg.mesh)
+        if cfg.eval.batch_size % group.size:
+            raise ValueError(f"eval batch_size {cfg.eval.batch_size} not divisible by the "
+                             f"data axis ({group.size} of mesh {tuple(mesh.shape)})")
+        if group.rank:
+            def log_fn(*_):  # rank 0 logs
+                return None
+        log_fn(f"distributed eval: mesh {tuple(mesh.shape)} (data x model)")
+    inferencer = StreamingInferencer(cfg, state["model"], device, transport="points",
+                                     mesh=mesh)
     del state
     eval_step, init_accum = make_eval_step(inferencer)
 
@@ -114,13 +172,17 @@ def evaluate(ckpt_dir: str, data_dir: str, cfg_override=None, num_workers: int =
     loader = ArgoverseSampleLoader(cfg.grid, max_gt=cfg.loss.max_gt_boxes, verbose=False)
     accum = init_accum()
     t0 = time.time()
-    it = batch_iterator(sequences, loader, cfg.eval.batch_size, num_workers=num_workers)
+    if group is None:
+        it = (pad_batch(b, cfg.eval.batch_size) for b in batch_iterator(
+            sequences, loader, cfg.eval.batch_size, num_workers=num_workers))
+    else:
+        it = rank_eval_batches(sequences, loader, cfg.eval.batch_size, group, num_workers)
 
-    def pad_and_put(batch):
-        padded, sample_valid = pad_batch(batch, cfg.eval.batch_size)
+    def put(item):
+        padded, sample_valid = item
         return batch_to_device(padded, device), torch.from_numpy(sample_valid).to(device)
 
-    batches = device_prefetch(it, size=2, put=pad_and_put)
+    batches = device_prefetch(it, size=2, put=put)
     try:
         for n, (bdict, sample_valid) in enumerate(batches, 1):
             accum, _ = eval_step(bdict, sample_valid, accum)
@@ -129,13 +191,19 @@ def evaluate(ckpt_dir: str, data_dir: str, cfg_override=None, num_workers: int =
     finally:
         batches.close()
 
+    # counted by the loader over every sample it produced (the prefetch may
+    # load past max_batches)
+    gt_ovf = torch.tensor(loader.gt_overflow_samples, device=device)
+    if group is not None:  # the global batches' sums: one process's counts
+        from .utils.distributed import all_reduce_sum
+
+        accum = EvalAccum(*(all_reduce_sum(t, group) for t in accum))
+        gt_ovf = all_reduce_sum(gt_ovf, group)
     num_samples = int(accum.num_samples)
     maps = (accum.ap_sum / max(num_samples, 1)).cpu().numpy()
     confusion = accum.confusion.cpu()
     pre_ovf, det_ovf = int(accum.pre_nms_overflow), int(accum.det_overflow)
-    # counted by the loader over every sample it produced (the prefetch may
-    # load past max_batches)
-    gt_ovf = loader.gt_overflow_samples
+    gt_ovf = int(gt_ovf)
     results = {"num_samples": num_samples, "pre_nms_overflow": pre_ovf,
                "det_overflow": det_ovf, "gt_overflow": gt_ovf}
     log_fn(f"GT-truncation audit: {gt_ovf} samples with more than "
@@ -187,15 +255,29 @@ def main(argv=None):
                    help="evaluate this retained checkpoint step (default: latest)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions in f32)")
+    p.add_argument("--distributed", action="store_true",
+                   help="evaluate data-parallel over the ranks of a torchrun launch "
+                        "(each rank its share of every batch; the sums reduced)")
     args = p.parse_args(argv)
     cfg_override = None
     if args.rotated_iou:
         cfg = load_config(args.ckpt_dir)
         cfg_override = dataclasses.replace(
             cfg, eval=dataclasses.replace(cfg.eval, use_rotated_iou=True))
-    evaluate(args.ckpt_dir, args.data_dir, cfg_override=cfg_override,
-             num_workers=args.num_workers, max_batches=args.max_batches, step=args.step,
-             device=args.device)
+    if args.distributed:
+        import os
+
+        from .parallel.mesh import initialize_distributed
+
+        initialize_distributed(os.environ,
+                               "nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    try:
+        evaluate(args.ckpt_dir, args.data_dir, cfg_override=cfg_override,
+                 num_workers=args.num_workers, max_batches=args.max_batches, step=args.step,
+                 device=args.device, distributed=args.distributed)
+    finally:
+        if args.distributed and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

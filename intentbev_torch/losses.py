@@ -14,6 +14,14 @@ batch is a batch dimension here):
   dominant classes (kept with probability 1 - 0.85); its uniforms are
   passed in; with the drop off, optional per-class weights of the CE;
 - total = cls + box + 0.5 intent; a non-finite total zeroes the dict.
+
+Under data parallelism (``group``, a ``utils.distributed.DataGroup``) each
+rank holds a share of the global batch, and the denominators are the
+global batch's, as in the JAX loss over a sharded batch: num_pos and the
+intention mask's sum are summed over the group before they divide, and the
+``num_pos > 0`` guards and the non-finite guard read the global values.
+Each term is then this rank's share, and the shares sum over the group to
+the global batch's term.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 
 from .boxes.codec import encode_boxes
 from .boxes.iou import axis_aligned_iou, rotated_iou
+from .utils.distributed import DataGroup, all_reduce_sum
 
 
 def assign_targets(anchors, gt_boxes, gt_intentions, gt_valid, cfg):
@@ -82,7 +91,8 @@ def softmax_ce(logits, labels):
 
 def detection_intention_loss(cls_logits, box_preds, intent_logits, anchors, gt_boxes,
                              gt_intentions, gt_valid, cfg, uniforms,
-                             intention_class_weights=None) -> dict:
+                             intention_class_weights=None,
+                             group: DataGroup | None = None) -> dict:
     """cls [B, N, 1], box [B, N, 6], intent [B, N, C] logits; anchors [N, 5];
     GT padded to G. ``uniforms`` f32[B*N] are the dominant-class drop's
     draws. ``intention_class_weights`` f32[C] (optional) scale each
@@ -90,7 +100,9 @@ def detection_intention_loss(cls_logits, box_preds, intent_logits, anchors, gt_b
     dominant-class drop is off (``cfg.apply_intention_downsampling``), as
     the JAX loss does. Returns {"loss",
     "cls_loss", "box_loss", "intent_loss", "num_pos_anchors"} as f32
-    scalars on the logits' device."""
+    scalars on the logits' device. ``group``: the data-parallel group the
+    batch is a share of (the module docstring); the four loss terms are
+    then this rank's shares and ``num_pos_anchors`` the global count."""
     cls_t, box_t, intent_t = assign_targets(anchors, gt_boxes, gt_intentions, gt_valid, cfg)
     cls_t, box_t, intent_t = cls_t.reshape(-1), box_t.reshape(-1, 6), intent_t.reshape(-1)
     cls_l = cls_logits.reshape(-1).float()
@@ -99,7 +111,7 @@ def detection_intention_loss(cls_logits, box_preds, intent_logits, anchors, gt_b
 
     valid = cls_t >= 0
     pos = cls_t == 1
-    num_pos = pos.float().sum()
+    num_pos = all_reduce_sum(pos.float().sum(), group)
     denom = num_pos.clamp(min=1.0)
 
     focal = sigmoid_focal_loss(cls_l, cls_t.float(), cfg.focal_loss_alpha,
@@ -118,13 +130,13 @@ def detection_intention_loss(cls_logits, box_preds, intent_logits, anchors, gt_b
             dominant = dominant | (intent_t == d)
         keep = torch.where(dominant, uniforms < 1.0 - cfg.intention_downsample_ratio, True)
         mask = keep.float() * mask
-    intent_loss = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    intent_loss = (ce * mask).sum() / all_reduce_sum(mask.sum(), group).clamp(min=1.0)
     intent_loss = torch.where(num_pos > 0, intent_loss, 0.0)
     box_loss = torch.where(num_pos > 0, box_loss, 0.0)
 
     total = cfg.cls_weight * cls_loss + cfg.box_weight * box_loss \
         + cfg.intent_weight * intent_loss
-    bad = ~torch.isfinite(total)
+    bad = ~torch.isfinite(all_reduce_sum(total, group))
 
     def guard(v):
         return torch.where(bad, torch.zeros_like(v), v)

@@ -6,7 +6,10 @@ BatchNorm (eps 1e-5) is computed in f32 and rounded to the compute dtype,
 as flax does: from its running statistics in eval mode; in training mode
 from the batch, with the biased (fast) variance max(0, E[x^2] - E[x]^2),
 and the running averages follow ra = 0.9 ra + 0.1 batch (flax momentum
-0.9; ``nn.BatchNorm2d`` itself would use the unbiased variance).
+0.9; ``nn.BatchNorm2d`` itself would use the unbiased variance). Under data
+parallelism (``group``) the statistics are the global batch's, as GSPMD
+reduces JAX's over the sharded batch: sum(x), sum(x^2) and the count go
+through one differentiable all-reduce over the group.
 Convolutions are plain ``F.conv2d`` (XLA convolutions in the JAX package),
 with the weights cast to the input's dtype at use.
 """
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.distributed import DataGroup, all_reduce_sum
 
 BN_MOMENTUM = 0.9
 
@@ -30,12 +34,23 @@ def batch_norm_infer(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """BN over NCHW with the batch's f32 statistics (biased variance);
-    updates the running averages in place."""
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
+                     group: DataGroup | None = None) -> torch.Tensor:
+    """BN over NCHW with the batch's f32 statistics (biased variance),
+    those of the global batch under ``group``; updates the running averages
+    in place."""
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+    if group is None:
+        mean = xf.mean((0, 2, 3))
+        sq = (xf * xf).mean((0, 2, 3))
+    else:
+        n = xf.shape[0] * xf.shape[2] * xf.shape[3]
+        sums = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                          xf.new_full((1,), float(n))])
+        sums = all_reduce_sum(sums, group, grad=True)
+        c = xf.shape[1]
+        mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+    var = (sq - mean * mean).clamp(min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
@@ -91,8 +106,12 @@ class BasicBlock(nn.Module):
                                        dtype=dtype)
             self.proj_bn = nn.BatchNorm2d(planes, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
-        bn = batch_norm_train if self.training else batch_norm_infer
+    def forward(self, x: torch.Tensor, group: DataGroup | None = None) -> torch.Tensor:  # NCHW
+        """``group``: the data-parallel group whose global batch the
+        training statistics cover (None: this batch alone)."""
+        def bn(y, mod):
+            return batch_norm_train(y, mod, group) if self.training else batch_norm_infer(y, mod)
+
         y = F.relu(bn(conv(self.conv1, x), self.bn1))
         y = bn(conv(self.conv2, y), self.bn2)
         identity = x
@@ -113,10 +132,10 @@ class ResidualStage(nn.Module):
                        stride if i == 0 else 1, kernel_size, dtype)
             for i in range(num_blocks))
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_nhwc: torch.Tensor, group: DataGroup | None = None) -> torch.Tensor:
         x = x_nhwc.permute(0, 3, 1, 2)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, group)
         return x.permute(0, 2, 3, 1)
 
 

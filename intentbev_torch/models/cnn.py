@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..bev.rasterize import decode_map_transport
+from ..utils.distributed import DataGroup
 from .blocks import ResidualStage, ensure_nhwc, reset_conv_bn
 from .heads import DetectionHead, IntentionHead, flatten_head_outputs
 
@@ -44,14 +45,15 @@ class CNNBackbone(nn.Module):
                                     cfg.fusion_planes, cfg.fusion_layers, cfg.fusion_stride,
                                     cfg.fusion_kernel_size, dtype)
 
-    def forward(self, lidar_nhwc: torch.Tensor, map_nhwc: torch.Tensor) -> torch.Tensor:
+    def forward(self, lidar_nhwc: torch.Tensor, map_nhwc: torch.Tensor,
+                group: DataGroup | None = None) -> torch.Tensor:
         def stream(x, prefix):
             for i in range(len(self.cfg.stage_strides)):
-                x = getattr(self, f"{prefix}_stage{i + 1}")(x)
+                x = getattr(self, f"{prefix}_stage{i + 1}")(x, group)
             return x
 
         return self.fusion(torch.cat([stream(lidar_nhwc, "lidar"), stream(map_nhwc, "map")],
-                                     dim=-1))
+                                     dim=-1), group)
 
 
 class IntentNetCNN(nn.Module):
@@ -79,14 +81,16 @@ class IntentNetCNN(nn.Module):
         self.intention_head = IntentionHead(cfg.fusion_planes, head_cfg.num_anchors,
                                             head_cfg.num_intention_classes, pdt)
 
-    def forward(self, lidar_bev: torch.Tensor, map_bev: torch.Tensor, generator=None):
+    def forward(self, lidar_bev: torch.Tensor, map_bev: torch.Tensor, generator=None,
+                group: DataGroup | None = None):
         """``generator`` is unused (the CNN draws nothing); the train step
-        passes it to either family."""
+        passes it to either family. ``group``: the data-parallel group whose
+        global batch BatchNorm's training statistics cover."""
         cfg = self.cfg
         lidar = ensure_nhwc(lidar_bev, cfg.lidar_input_channels).to(self.dtype)
         m = ensure_nhwc(decode_map_transport(map_bev, cfg.map_input_channels, self.dtype),
                         cfg.map_input_channels)
-        feats = self.backbone(lidar, m)
+        feats = self.backbone(lidar, m, group)
         cls_l, box = self.det_head(feats)
         intent = self.intention_head(feats)
         return tuple(t.float() for t in flatten_head_outputs(cls_l, box, intent))

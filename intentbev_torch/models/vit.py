@@ -92,6 +92,7 @@ from ..ops.layernorm import layernorm, layernorm_fn, layernorm_plain
 from ..ops.patch_embed import patch_embed, patch_embed_plain
 from ..ops.voxel_embed import (VoxelChunks, voxel_embed_tokens,
                                voxel_embed_tokens_plain)
+from ..utils.distributed import DataGroup, global_rand
 from .blocks import ResidualStage, reset_conv_bn
 from .heads import DetectionHead, IntentionHead, flatten_head_outputs
 
@@ -379,10 +380,11 @@ class ViTEncoder(nn.Module):
             for _ in range(cfg.depth))
         self.norm = LayerNormParams(d)
 
-    def drop_path_gates(self, batch: int, generator, device):
+    def drop_path_gates(self, batch: int, generator, device, group: DataGroup | None = None):
         """Per block, the (attention, MLP) gates: per sample 0 or 1/keep at
         the block's rate, or None where the rate is 0 or no generator is
-        given."""
+        given. Under ``group`` the draws are the global batch's, cut to this
+        rank's ``batch`` samples."""
         rates = np.linspace(0.0, self.cfg.drop_path_rate, self.cfg.depth)
         gates = []
         for rate in rates:
@@ -391,14 +393,15 @@ class ViTEncoder(nn.Module):
                 continue
             keep = 1.0 - float(rate)
             gates.append(tuple(
-                (torch.rand(batch, generator=generator, device=device) < keep).float() / keep
+                (global_rand(batch, group, generator, device) < keep).float() / keep
                 for _ in range(2)))
         return gates
 
-    def forward(self, x, ops: Ops, gelu: str, generator=None) -> torch.Tensor:
+    def forward(self, x, ops: Ops, gelu: str, generator=None,
+                group: DataGroup | None = None) -> torch.Tensor:
         """Lidar chunks or a dense NHWC BEV -> final-normed tokens; in
         training mode the unchained structure with drop-path gates drawn
-        from ``generator``."""
+        from ``generator`` (for the global batch of ``group``)."""
         cfg = self.cfg
         pe = self.patch_embed
         if isinstance(x, VoxelChunks):
@@ -416,7 +419,7 @@ class ViTEncoder(nn.Module):
         blocks = self.blocks
         if self.training or not uses_ln_chain(cfg):
             gates = self.drop_path_gates(b, generator if self.training else None,
-                                         tokens.device)
+                                         tokens.device, group)
             remat = self.training and self.remat
             for blk, g in zip(blocks, gates):  # the gates are drawn: a recompute sees them
                 if remat:
@@ -446,12 +449,13 @@ class TwoStreamViTBackbone(nn.Module):
         self.fusion = ResidualStage(2 * a, cfg.fusion_planes, cfg.fusion_layers,
                                     cfg.fusion_stride, cfg.fusion_kernel_size, dtype)
 
-    def forward(self, lidar, map_nhwc, ops: Ops, gelu: str, generator=None) -> torch.Tensor:
+    def forward(self, lidar, map_nhwc, ops: Ops, gelu: str, generator=None,
+                group: DataGroup | None = None) -> torch.Tensor:
         cfg = self.cfg
         gh, gw = cfg.grid_size
 
         def stream(enc, norm, proj, x):
-            tokens = enc(x, ops, gelu, generator)[:, 1:].contiguous()  # strip CLS
+            tokens = enc(x, ops, gelu, generator, group)[:, 1:].contiguous()  # strip CLS
             if cfg.use_fused_layernorm and cfg.fuse_ln_dense:
                 # one kernel; its GELU is the block MLPs' (the JAX kernel's _gelu)
                 h = ops.fused_ln_dense(tokens, norm.weight, norm.bias,
@@ -465,7 +469,7 @@ class TwoStreamViTBackbone(nn.Module):
             stream(self.vit_lidar, self.adapter_lidar_norm, self.adapter_lidar_proj, lidar),
             stream(self.vit_map, self.adapter_map_norm, self.adapter_map_proj, map_nhwc),
         ], dim=-1)
-        return self.fusion(feats)
+        return self.fusion(feats, group)
 
 
 class IntentNetViT(nn.Module):
@@ -500,8 +504,11 @@ class IntentNetViT(nn.Module):
         self.intention_head = IntentionHead(cfg.fusion_planes, head_cfg.num_anchors,
                                             head_cfg.num_intention_classes, pdt)
 
-    def forward(self, lidar, map_bev: torch.Tensor, generator=None):
-        """``generator`` draws the drop-path gates in training mode."""
+    def forward(self, lidar, map_bev: torch.Tensor, generator=None,
+                group: DataGroup | None = None):
+        """``generator`` draws the drop-path gates in training mode;
+        ``group``: the data-parallel group whose global batch the gates and
+        the fusion stage's BatchNorm statistics cover."""
         m = decode_map_transport(map_bev, self.cfg.map_input_channels, self.dtype)
         if self.training:
             check_trainable(self.cfg)
@@ -511,7 +518,7 @@ class IntentNetViT(nn.Module):
             lidar = lidar.to(self.dtype)
         else:
             ops = PLAIN_OPS if self.plain_ops else KERNEL_OPS
-        feats = self.backbone(lidar, m, ops, self.gelu, generator)
+        feats = self.backbone(lidar, m, ops, self.gelu, generator, group)
         cls_l, box = self.det_head(feats)
         intent = self.intention_head(feats)
         return tuple(t.float() for t in flatten_head_outputs(cls_l, box, intent))

@@ -1,7 +1,8 @@
-"""Streaming detection on one device, over the chunk or the points transport.
+"""Streaming detection over the chunk or the points transport, on one
+device or data-parallel over a mesh.
 
-Counterpart of ``intentbev/parallel/inference.py::StreamingInferencer`` on
-one device, for either model family (``cfg.model_family``):
+Counterpart of ``intentbev/parallel/inference.py::StreamingInferencer``,
+for either model family (``cfg.model_family``):
 
 - ``transport="points"`` (the default, as in JAX): the device decodes the
   points (i16 transport or f32), voxelizes them (scatter-max) and runs the
@@ -16,6 +17,13 @@ The model's logits then go through box decode and NMS on the device into
 fixed-size :class:`Detections`. :data:`VIT_SERVING_VARIANTS` names the
 ViT's serving configurations beyond the default, each with the transport it
 serves on.
+
+With a ``mesh`` (``parallel.create_mesh``) every rank serves its share of a
+global batch on its own device, JAX's multi-process contract: each call
+takes the rank's local batch (the global batch is the ranks' local batches
+in rank order, a multiple of :attr:`StreamingInferencer.batch_multiple`)
+and returns the global batch's Detections, gathered over the data axis in
+rank order. The parameters are rank 0's, broadcast at construction.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from ..ops.voxel_embed import (VoxelChunks, build_voxel_chunks, chunks_to_device
                                decode_chunk_transport, pack_chunk_transport,
                                stack_voxel_chunks, voxel_fill_bev, voxel_fill_bev_plain)
 from ..train import chunk_patch_for
+from ..utils.distributed import DataGroup, broadcast_from_first
 
 # name -> (ViTBackboneConfig switches, transport)
 VIT_SERVING_VARIANTS = {
@@ -77,13 +86,21 @@ class StreamingInferencer:
     or the serving "sigmoid"; the CNN has none). ``plain_ops`` runs every
     kernel's plain PyTorch version (the oracle on the card). ``num_chunks``
     fixes the chunk capacity per band; overfull bands drop their excess
-    chunks.
+    chunks. ``mesh``: serve data-parallel over the mesh's data axis (the
+    module docstring); ``device`` is then this rank's.
     """
 
     def __init__(self, cfg, params, device, transport: str = "points",
-                 num_chunks: int = 512, gelu: str = "erf", plain_ops: bool = False):
+                 num_chunks: int = 512, gelu: str = "erf", plain_ops: bool = False,
+                 mesh=None):
         if transport not in ("chunks", "points"):
             raise ValueError(f"transport {transport!r} not in ('chunks', 'points')")
+        self.group: DataGroup | None = None
+        if mesh is not None:
+            from .mesh import data_group, require_data_parallel
+
+            require_data_parallel(cfg.mesh)
+            self.group = data_group(mesh, cfg.mesh)
         self.cfg = cfg
         self.transport = transport
         self.num_chunks = num_chunks
@@ -93,8 +110,31 @@ class StreamingInferencer:
         model = build_model(cfg, dtype=self.dtype, gelu=gelu, plain_ops=plain_ops)
         model.load_state_dict(params)
         self.model = model.to(self.device).eval()
+        if self.group is not None:
+            broadcast_from_first([t.data for t in self.model.parameters()]
+                                 + list(self.model.buffers()), self.group)
         self.anchors = torch.from_numpy(
             generate_anchors(cfg.grid, cfg.anchors)).to(self.device)
+
+    @property
+    def batch_multiple(self) -> int:
+        """The global batch must be a multiple of the data axis's size."""
+        return 1 if self.group is None else self.group.size
+
+    def gather(self, det: Detections) -> Detections:
+        """This rank's Detections -> the global batch's, in rank order (the
+        local ones without a mesh)."""
+        if self.group is None:
+            return det
+        import torch.distributed as dist
+
+        out = []
+        for t in det:
+            send = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+            parts = [torch.empty_like(send) for _ in range(self.group.size)]
+            dist.all_gather(parts, send, group=self.group.group)
+            out.append(torch.cat(parts).to(t.dtype))
+        return Detections(*out)
 
     def build_chunks(self, points, points_valid) -> VoxelChunks:
         """Host side of the transport (callable from loader threads); see
@@ -145,15 +185,17 @@ class StreamingInferencer:
             max_pre_nms=ev.max_pre_nms, max_detections=ev.max_detections)
 
     def infer_chunks(self, chunks, map_bev, blocking: bool = True) -> Detections:
-        """Run pre-built chunks. ``blocking=False`` returns the Detections
-        on the device, without the copy to the host; :meth:`fetch` them."""
-        det = self.postprocess(*self.logits(chunks, map_bev))
+        """Run pre-built chunks (under a mesh: this rank's; the global
+        batch's Detections come back). ``blocking=False`` returns the
+        Detections on the device, without the copy to the host; :meth:`fetch`
+        them."""
+        det = self.gather(self.postprocess(*self.logits(chunks, map_bev)))
         return self.fetch(det) if blocking else det
 
     def infer_points(self, points, points_valid, map_bev, blocking: bool = True) -> Detections:
-        """Run host points over the points transport; ``blocking`` as in
-        :meth:`infer_chunks`."""
-        det = self.postprocess(*self.logits_points(points, points_valid, map_bev))
+        """Run host points over the points transport; the local batch and
+        ``blocking`` as in :meth:`infer_chunks`."""
+        det = self.gather(self.postprocess(*self.logits_points(points, points_valid, map_bev)))
         return self.fetch(det) if blocking else det
 
     @staticmethod
@@ -168,7 +210,8 @@ class StreamingInferencer:
 
     def stream(self, batches: Iterator) -> Iterator[Detections]:
         """Host Detections for each batch (a mapping with ``points``,
-        ``points_valid`` and ``map_bev``), one after the other, as the JAX
-        harness's ``stream``."""
+        ``points_valid`` and ``map_bev``; under a mesh this rank's local
+        batches, and the global batches' Detections), one after the other,
+        as the JAX harness's ``stream``."""
         for batch in batches:
             yield self(batch["points"], batch["points_valid"], batch["map_bev"])

@@ -38,6 +38,15 @@ state the checkpoints carry; JAX instead folds the step into its key
 (``fold_in(rng, step)``), so the two loops draw differently. Run it as
 ``python -m intentbev_torch.train`` (:func:`main`); it takes the CUDA
 device unless ``--device cpu`` is asked for.
+
+``distributed=True`` (``--distributed``, under ``torchrun``, whose
+environment :func:`main` passes to ``parallel.mesh.initialize_distributed``)
+trains data-parallel over the mesh of the process group
+(``parallel.make_sharded_train_step``): each rank loads its share of the
+sequences (``parallel.mesh.shard_sequences_for_process``) and steps on its
+share of every global batch; rank 0 alone logs and writes the checkpoints
+and ``metrics.jsonl``, and every rank resumes from the same checkpoint.
+A model axis wider than 1 (``--model_parallel``) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from .bev.rasterize import decode_map_transport
 from .bev.voxelize import dequantize_points, voxelize_packed
 from .ops.voxel_embed import (CNN_CHUNK_PATCH, VoxelChunks, decode_chunk_transport,
                               voxel_fill_bev, voxel_fill_bev_plain)
+from .utils.distributed import DataGroup, all_reduce_sum, global_rand, rank_slice
 
 METRICS = ("loss", "cls_loss", "box_loss", "intent_loss", "num_pos_anchors")
 
@@ -196,8 +206,39 @@ def augmented_inputs(batch, keep_mask, grid, dtype, chunk_patch: int = CNN_CHUNK
     return lidar, map_bev, gt_boxes, gt_intents
 
 
+def global_draws(aug_cfg, grid, b: int, num_anchors: int, generator, device,
+                 group: DataGroup | None = None) -> StepDraws:
+    """A step's data draws for the global batch of ``group`` (``b`` samples
+    a rank), cut to this rank: the same generator state gives the same
+    draws for a sample at any world size."""
+    size = 1 if group is None else group.size
+    dropout = draw_dropout(aug_cfg, grid.height_px, grid.width_px, b * size, generator, device)
+    return StepDraws(DropoutDraws(*(rank_slice(t, group) for t in dropout)),
+                     global_rand(b * num_anchors, group, generator, device))
+
+
+def all_reduce_grads(params, group: DataGroup | None) -> None:
+    """Sum every parameter's gradient over the group, through one flat f32
+    buffer (a parameter without a gradient takes zeros, so every rank sends
+    the same layout)."""
+    if group is None:
+        return
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1).float() for p in params])
+    flat = all_reduce_sum(flat, group)
+    offset = 0
+    for p in params:
+        n = p.numel()
+        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+        offset += n
+
+
 def make_train_step(model, cfg, anchors: torch.Tensor, optimizer,
-                    intention_weights: torch.Tensor | None = None):
+                    intention_weights: torch.Tensor | None = None,
+                    group: DataGroup | None = None):
     """-> ``step(batch, generator=None, draws=None) -> metrics``.
 
     ``model``: ``IntentNetViT`` or ``IntentNetCNN`` with f32 parameters on
@@ -211,7 +252,14 @@ def make_train_step(model, cfg, anchors: torch.Tensor, optimizer,
     leaves each parameter's gradient in ``.grad``; it returns the five
     metrics as device scalars. ``intention_weights`` f32[C] on the step's
     device: the loss's intention class weights (used only where the
-    dominant-class drop is off)."""
+    dominant-class drop is off).
+
+    ``group`` (``parallel.make_sharded_train_step``): the data-parallel
+    group whose global batch the rank's ``batch`` is a contiguous share of.
+    The step's draws (``draws`` when given, which are then the global
+    batch's) are cut to the rank; BatchNorm and the loss read the global
+    batch's statistics and denominators; the gradients are summed over the
+    group before the update; the metrics are the global batch's."""
     from .losses import detection_intention_loss
 
     grid, aug_cfg = cfg.grid, cfg.augment
@@ -224,27 +272,33 @@ def make_train_step(model, cfg, anchors: torch.Tensor, optimizer,
         b = batch["gt_boxes"].shape[0]
         with span("train/inputs"):
             if draws is None:
-                draws = StepDraws(
-                    draw_dropout(aug_cfg, grid.height_px, grid.width_px, b, generator,
-                                 anchors.device),
-                    torch.rand(b * anchors.shape[0], generator=generator,
-                               device=anchors.device))
+                draws = global_draws(aug_cfg, grid, b, anchors.shape[0], generator,
+                                     anchors.device, group)
+            elif group is not None:
+                draws = StepDraws(DropoutDraws(*(rank_slice(t, group) for t in draws.dropout)),
+                                  rank_slice(draws.intent_u, group))
             keep = dropout_keep_mask(draws.dropout, grid.height_px, grid.width_px)
             lidar, map_bev, gt_boxes, gt_intents = augmented_inputs(
                 batch, keep, grid, dtype, chunk_patch, model.plain_ops)
         with span("train/forward"):
             model.train()
-            cls_l, box_d, int_l = model(lidar, map_bev, generator)
+            cls_l, box_d, int_l = model(lidar, map_bev, generator, group)
         with span("train/loss"):
             out = detection_intention_loss(
                 cls_l, box_d, int_l, anchors, gt_boxes, gt_intents, batch["gt_valid"],
-                cfg.loss, draws.intent_u, intention_class_weights=intention_weights)
+                cfg.loss, draws.intent_u, intention_class_weights=intention_weights,
+                group=group)
         with span("train/backward"):
             optimizer.zero_grad(set_to_none=True)
             out["loss"].backward()
+            all_reduce_grads(model.parameters(), group)
         with span("train/optimizer"):
             optimizer.step()
-        return {k: out[k].detach() for k in METRICS}
+        if group is None:
+            return {k: out[k].detach() for k in METRICS}
+        terms = all_reduce_sum(torch.stack([out[k].detach() for k in METRICS[:4]]), group)
+        return {**dict(zip(METRICS[:4], terms.unbind())),
+                "num_pos_anchors": out["num_pos_anchors"].detach()}
 
     return step
 
@@ -273,14 +327,19 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
           max_steps: int | None = None, log_fn=print, use_intention_weights: bool = False,
           resume: bool = False, resume_lr: float | None = None,
           max_points_per_sweep: int = 65536, device="cuda",
-          state_out: dict | None = None) -> dict:
-    """The training loop on one device; returns the last epoch's mean
-    metrics (a partial epoch's when ``max_steps`` stops it).
+          state_out: dict | None = None, distributed: bool = False) -> dict:
+    """The training loop; returns the last epoch's mean metrics (a partial
+    epoch's when ``max_steps`` stops it).
 
-    ``device``: CUDA by default; ``"cpu"`` runs the plain versions (a CUDA
-    device that is missing raises). ``state_out``: a dict that receives
-    ``model``, ``optimizer`` and ``step`` at the end (the live objects the
-    last checkpoint was written from)."""
+    ``device``: CUDA by default (this rank's under ``distributed``);
+    ``"cpu"`` runs the plain versions (a CUDA device that is missing
+    raises). ``state_out``: a dict that receives ``model``, ``optimizer``
+    and ``step`` at the end (the live objects the last checkpoint was
+    written from). ``distributed``: data-parallel over the process group's
+    ranks (the module docstring); the global batch
+    (``cfg.train.batch_size``) must divide by the data axis, and the caller
+    brings the process group up first (:func:`main` does under
+    ``torchrun``: ``parallel.mesh.initialize_distributed``)."""
     from .boxes.anchors import generate_anchors
     from .checkpoint import latest_step, load_checkpoint, save_checkpoint
     from .data.argoverse import ArgoverseSampleLoader, ScenarioValidator, build_sequence_index
@@ -289,6 +348,23 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
     from .utils.profiling import MetricsLogger
 
     device = resolve_device(device)
+    group = mesh = None
+    local_batch_size, rank = cfg.train.batch_size, 0
+    if distributed:
+        from .parallel.mesh import create_mesh, data_group, require_data_parallel
+
+        require_data_parallel(cfg.mesh)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())  # this rank's card
+        mesh = create_mesh(cfg.mesh, device.type)
+        group = data_group(mesh, cfg.mesh)
+        if cfg.train.batch_size % group.size:
+            raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by the data "
+                             f"axis ({group.size} of mesh {tuple(mesh.shape)})")
+        rank, local_batch_size = group.rank, cfg.train.batch_size // group.size
+        if rank:
+            def log_fn(*_):  # rank 0 logs
+                return None
     dtype = torch.bfloat16 if cfg.train.compute_dtype == "bfloat16" else torch.float32
     model = build_model(cfg, dtype=dtype, param_dtype=torch.float32)
     model.reset_parameters(torch.Generator().manual_seed(cfg.train.seed))
@@ -305,11 +381,26 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
     log_fn(f"{len(scenarios)} logs, {len(sequences)} sequences")
     loader = ArgoverseSampleLoader(cfg.grid, max_gt=cfg.loss.max_gt_boxes, verbose=False,
                                    max_points_per_sweep=max_points_per_sweep)
+    local_sequences = sequences
+    if group is not None:
+        from .parallel.mesh import shard_sequences_for_process
+
+        local_sequences, _ = shard_sequences_for_process(sequences, rank, group.size,
+                                                         cfg.train.batch_size)
+        log_fn(f"distributed: mesh {tuple(mesh.shape)} (data x model), "
+               f"{len(local_sequences)} sequences and a batch of {local_batch_size} a rank")
 
     intention_weights = None
     if use_intention_weights and not cfg.loss.apply_intention_downsampling:
-        intention_weights = torch.from_numpy(_intention_weights(
-            cfg, data_dir, out_dir, sequences, loader, log_fn, num_workers)).to(device)
+        if rank == 0:  # counted (or read from the cache) once, then broadcast
+            intention_weights = torch.from_numpy(_intention_weights(
+                cfg, data_dir, out_dir, sequences, loader, log_fn, num_workers)).to(device)
+        else:
+            intention_weights = torch.empty(cfg.heads.num_intention_classes, device=device)
+        if group is not None:
+            from .utils.distributed import broadcast_from_first
+
+            broadcast_from_first([intention_weights], group)
     elif use_intention_weights:
         log_fn("Warning: intention weights requested but downsampling is on; "
                "weights are ignored by the loss (reference train_vit.py:89-91)")
@@ -336,9 +427,19 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
     set_learning_rate(optimizer, scheduler.lr)
 
     anchors = torch.from_numpy(generate_anchors(cfg.grid, cfg.anchors)).to(device)
-    step = make_train_step(model, cfg, anchors, optimizer, intention_weights)
+    if group is not None:
+        from .parallel.train_dp import make_sharded_train_step, shard_train_state
+
+        shard_train_state(model, optimizer, mesh, cfg)
+        step = make_sharded_train_step(model, cfg, anchors, optimizer, mesh, intention_weights)
+    else:
+        step = make_train_step(model, cfg, anchors, optimizer, intention_weights)
     out_path = Path(out_dir)
-    mlog = MetricsLogger(out_path / "metrics.jsonl")
+    mlog = MetricsLogger(out_path / "metrics.jsonl" if rank == 0 else None)
+
+    def save(step_: int, state: dict) -> None:
+        if rank == 0:  # the ranks' states are one state
+            save_checkpoint(out_path, step_, state, cfg)
     last_metrics: dict = {}
     t_start = time.time()
     start_step = step_count  # rate accounting: the steps this process ran
@@ -356,7 +457,7 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
     for epoch in range(start_epoch, cfg.train.num_epochs):
         skip = resume_skip if epoch == start_epoch else 0
         it = batch_iterator(
-            sequences, loader, cfg.train.batch_size, shuffle=True, seed=cfg.train.seed + epoch,
+            local_sequences, loader, local_batch_size, shuffle=True, seed=cfg.train.seed + epoch,
             num_workers=num_workers, drop_last=True, augment=cfg.augment, skip_batches=skip,
             transport=cfg.train.transport, chunk_patch=chunk_patch_for(cfg),
             chunk_capacity=cfg.train.chunk_capacity)
@@ -394,8 +495,7 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
                            f"[{rate:.1f} samples/s]")
                 if step_count % cfg.train.checkpoint_every_steps == 0:
                     # the global step: names keep sorting after a resume's
-                    save_checkpoint(out_path, step_count, ckpt_state(epoch, skip + n_batches),
-                                    cfg)
+                    save(step_count, ckpt_state(epoch, skip + n_batches))
                 if max_steps is not None and step_count >= max_steps:
                     interrupted = True
                     break
@@ -418,9 +518,10 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
             break
 
     # mid-epoch stop: the position in the epoch; clean stop: the boundary
-    save_checkpoint(out_path, step_count,
-                    ckpt_state(epoch if interrupted else epoch + 1,
-                               (skip + n_batches) if interrupted else 0), cfg)
+    save(step_count, ckpt_state(epoch if interrupted else epoch + 1,
+                                (skip + n_batches) if interrupted else 0))
+    if group is not None:
+        torch.distributed.barrier(group=group.group)  # the checkpoint is on disk for all
     log_fn(f"saved final checkpoint at step {step_count} to {out_path}")
     if state_out is not None:
         state_out.update(model=model, optimizer=optimizer, step=step_count)
@@ -458,6 +559,12 @@ def main(argv=None):
                    help="train input transport (TrainConfig.transport)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel training over the ranks of a torchrun launch "
+                        "(NCCL on the card, gloo with --device cpu)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="the mesh's model axis (tensor parallelism: not ported, raises "
+                        "above 1)")
     args = p.parse_args(argv)
 
     if args.tiny_smoke:
@@ -473,12 +580,30 @@ def main(argv=None):
     if args.no_intention_downsampling:
         cfg = dataclasses.replace(
             cfg, loss=dataclasses.replace(cfg.loss, apply_intention_downsampling=False))
+    if args.model_parallel != 1:
+        from .configs import MeshConfig
+        from .parallel.mesh import require_data_parallel
+
+        cfg = dataclasses.replace(cfg, mesh=MeshConfig(model_parallel=args.model_parallel))
+        require_data_parallel(cfg.mesh)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
-    train(cfg, args.data_dir, args.out_dir, num_workers=args.num_workers,
-          max_steps=args.max_steps, use_intention_weights=args.use_intention_weights,
-          resume=args.resume, resume_lr=args.resume_lr,
-          max_points_per_sweep=args.max_points_per_sweep, device=args.device)
+    if args.distributed:
+        import os
+
+        from .parallel.mesh import initialize_distributed
+
+        initialize_distributed(os.environ,
+                               "nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    try:
+        train(cfg, args.data_dir, args.out_dir, num_workers=args.num_workers,
+              max_steps=args.max_steps, use_intention_weights=args.use_intention_weights,
+              resume=args.resume, resume_lr=args.resume_lr,
+              max_points_per_sweep=args.max_points_per_sweep, device=args.device,
+              distributed=args.distributed)
+    finally:
+        if args.distributed and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

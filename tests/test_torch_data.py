@@ -190,15 +190,22 @@ def test_loader_samples_identical(splits, aug):
 
 def test_loader_gt_overflow_and_city_raster(splits):
     """max_gt below a frame's box count: the same truncation and the same
-    overflow count; the city raster cache is not ported and raises."""
+    overflow count; the city raster cache path gives JAX's maps, bit for
+    bit, with and without augmentation."""
     seqs = _sequences(splits[0], targ)
     jl = jarg.ArgoverseSampleLoader(_grid(True), max_gt=2, verbose=False)
     tl = targ.ArgoverseSampleLoader(_grid(False), max_gt=2, verbose=False)
     for s in seqs:
         np.testing.assert_array_equal(tl.load(s).gt_boxes, jl.load(s).gt_boxes)
     assert tl.gt_overflow_samples == jl.gt_overflow_samples > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        targ.ArgoverseSampleLoader(_grid(False), use_city_raster_cache=True)
+    jc = jarg.ArgoverseSampleLoader(_grid(True), verbose=False, use_city_raster_cache=True)
+    tc = targ.ArgoverseSampleLoader(_grid(False), verbose=False, use_city_raster_cache=True)
+    for k, s in enumerate(seqs[:2]):
+        lin = aug_linear_matrix((-1.0, 0.3, 1.05)) if k else None
+        want, got = jc.load(s, lin).map_bev, tc.load(s, lin).map_bev
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        assert got[..., 0].sum() > 0
     missing = targ.ArgoverseSampleLoader(_grid(False), verbose=False)
     bad = dataclasses.replace(seqs[0], log_id="nolabels", log_dir=str(splits[0] / "nope"))
     assert missing.load(bad) is None
