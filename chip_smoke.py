@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one CUDA card: the serving paths and the
-training steps of both model families.
+training steps of both model families, data and tensor parallel included.
 
     python3 chip_smoke.py
 
@@ -182,6 +182,22 @@ Phases (each prints a line; any failure exits nonzero with no result):
     under phase 5's limits) and the distributed eval of phase 14's
     checkpoint against phase 14's (counts and confusion matrix equal), with
     launch counts; the group is destroyed.
+16. Tensor parallelism: two child processes (``--tp-child``) on the one
+    card, a gloo group through a TCPStore on a free localhost port (NCCL
+    refuses two ranks on one device), mesh (1, 2), killed after 300 s:
+    phase 5's step (batch, weights, draws, lr 0) of the full-width ViT at
+    ``model_parallel=2``, each rank on 3 of the 6 heads (the BHTD kernels)
+    and 768 of the 1536 hidden units (the MLP kernel without LN after a
+    separate LayerNorm), against phase 5's kernel step: loss terms within
+    1e-2 relative, num_pos equal, the gradients gathered to full tensors
+    under phase 5's limits (the rule of phase 5's kernel step against its
+    plain step); the ranks' metrics equal; each rank's launch counts exact
+    (rows 16, 13, 8 and 9; none of rows 3, 6, 7 and 10); a control (both
+    ranks skip the MLP's ``reduce_from_model``) must break the rule. Then
+    B's step (``fuse_ln_dense``: row 14 on the rank's qkv shard, Dout 576)
+    the same way against phase 9's B kernel step. It prints the pair's ms a
+    step and gloo's share of it: two ranks share one card, so this is not
+    TP's speed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -206,6 +222,7 @@ INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores
 # W8A8 the bf16 noise of 24 blocks flips int8 codes, which lifts the sound
 # reading to ~2e-2; the int8 kernel itself is exact against its plain
 # version (phase 3).
+TP_TIMEOUT_S = 300  # phase 16's ranks: a hang fails the phase, not the smoke's limit
 CONFIG_LIMITS = {**{name: (2.3e-2,) * 3 for name in ("A serving_int8", "Ti A serving_int8")},
                  **{name: (1.3e-2,) * 3 for name in (
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
@@ -322,6 +339,137 @@ def dp_child(dp_dir: Path, run_dir: str, split: str) -> None:
         (dp_dir / "result.json").write_text(json.dumps({
             "metrics": {k: float(v) for k, v in metrics.items()}, "step_counts": step_counts,
             "eval": res, "confusion": confusion[-1], "eval_counts": dict(_build.launches)}))
+    finally:
+        dist.destroy_process_group()
+
+
+TP_VARIANTS = ("default", "ln_dense")  # phase 16's steps: the default switches, then B
+
+
+def tp_child(tp_dir: Path, inputs: str, rank: int, port: int) -> None:
+    """Phase 16's ranks, two processes on the one card over gloo (NCCL
+    refuses two ranks on one device), mesh (1, 2): each takes phase 5's
+    step (its batch, weights and draws, lr 0) under tensor parallelism, by
+    ``shard_train_state`` and ``make_sharded_train_step``, with its launch
+    counts and the gradients gathered to full tensors (``grads_<variant>.pt``
+    from rank 0); for the default switches also the control step with
+    the MLP's ``reduce_from_model`` skipped on both ranks (the collectives
+    stay paired), its gradients too, and 3 timed steps, gloo's time inside
+    them summed; then B's step (``fuse_ln_dense``). ``result_rank<r>.json``
+    holds the rest."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    import intentbev_torch.models.vit as vit_mod
+    from intentbev_torch.boxes import generate_anchors
+    from intentbev_torch.configs import default_vit_config
+    from intentbev_torch.models import IntentNetViT
+    from intentbev_torch.ops import _build
+    from intentbev_torch.parallel import create_mesh, make_sharded_train_step, shard_train_state
+    from intentbev_torch.parallel.inference import vit_serving_variant
+    from intentbev_torch.parallel.mesh import model_group
+    from intentbev_torch.parallel.train_dp import full_tensor
+    from intentbev_torch.train import StepDraws
+
+    check(torch.cuda.is_available(), "the tensor-parallel ranks need the CUDA card")
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, 2, rank == 0, timeout=timedelta(seconds=60))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=2,
+                            timeout=timedelta(seconds=120))
+    gloo_s = [0.0]
+    sound_all_reduce = dist.all_reduce
+
+    def timed_all_reduce(*a, **kw):  # gloo's time: the card idle before and after
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sound_all_reduce(*a, **kw)
+        torch.cuda.synchronize()
+        gloo_s[0] += time.perf_counter() - t0
+        return out
+
+    try:
+        _build.kernels()
+        dev = torch.device("cuda", 0)
+        inp = torch.load(inputs, weights_only=False)
+        draws = inp["draws"]
+        draws = StepDraws(type(draws.dropout)(*(t.to(dev) for t in draws.dropout)),
+                          draws.intent_u.to(dev))
+        batch = {k: t.to(dev) for k, t in inp["batch"].items()}
+        result = {"backend": dist.get_backend()}
+        for variant in TP_VARIANTS:
+            cfg = default_vit_config()
+            if variant != "default":
+                cfg = vit_serving_variant(cfg, variant)[0]
+            cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, model_parallel=2))
+            mesh = create_mesh(cfg.mesh, "cuda")
+            model = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.bfloat16,
+                                 param_dtype=torch.float32)
+            model.load_state_dict(inp["params"])
+            model.to(dev)
+            opt = torch.optim.SGD(model.parameters(), lr=0.0)  # phase 5's step at lr 0
+            shard_train_state(model, opt, mesh, cfg)
+            anchors = torch.from_numpy(generate_anchors(cfg.grid, cfg.anchors)).to(dev)
+            step = make_sharded_train_step(model, cfg, anchors, opt, mesh)
+            _build.reset_launch_counts()
+            metrics = step(batch, torch.Generator(device="cuda").manual_seed(1), draws)
+            torch.cuda.synchronize()
+            counts = dict(_build.launches)
+            mg = model_group(mesh, cfg.mesh)
+
+            def save_grads(name_):
+                """The rank's gradients as full tensors, gathered over the model
+                axis as a checkpoint's are; rank 0 writes them."""
+                grads = {k_: full_tensor(k_, p_.grad.detach().float(), mg, cfg).cpu()
+                         for k_, p_ in model.named_parameters()}
+                if rank == 0:
+                    torch.save(grads, tp_dir / f"grads_{name_}.pt")
+
+            save_grads(variant)
+            res = {"metrics": {k: float(v) for k, v in metrics.items()}, "counts": counts,
+                   "mesh": [list(mesh.shape), list(mesh.mesh_dim_names)],
+                   "model_axis": [mg.rank, mg.size]}
+            if variant == "default":
+                # control: both ranks skip the MLP's sum (every second call a
+                # block makes), so each carries its own partial on
+                calls = [0]
+                sound_reduce = vit_mod.reduce_from_model
+
+                def skip_mlp_reduce(t, group):
+                    calls[0] += 1
+                    return t if calls[0] % 2 == 0 else sound_reduce(t, group)
+
+                vit_mod.reduce_from_model = skip_mlp_reduce
+                try:
+                    ctrl = step(batch, torch.Generator(device="cuda").manual_seed(1), draws)
+                    res["control"] = {k: float(v) for k, v in ctrl.items()}
+                finally:
+                    vit_mod.reduce_from_model = sound_reduce
+                save_grads("control")
+                tgen = torch.Generator(device="cuda").manual_seed(2)
+                step(batch, tgen)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                dist.all_reduce = timed_all_reduce
+                step_ms, gloo_ms = [], []
+                try:
+                    for _ in range(3):
+                        gloo_s[0] = 0.0
+                        t0 = time.perf_counter()
+                        step(batch, tgen)
+                        torch.cuda.synchronize()
+                        step_ms.append((time.perf_counter() - t0) * 1e3)
+                        gloo_ms.append(gloo_s[0] * 1e3)
+                finally:
+                    dist.all_reduce = sound_all_reduce
+                res.update(step_ms=step_ms, gloo_ms=gloo_ms,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            result[variant] = res
+            del model, opt, step
+            torch.cuda.empty_cache()
+            dist.barrier()
+        (tp_dir / f"result_rank{rank}.json").write_text(json.dumps(result))
     finally:
         dist.destroy_process_group()
 
@@ -948,6 +1096,55 @@ def main() -> None:
             nbytes(x_pe, w_pe, b_pe) + batch * v.num_patches * d * 2, pe_flops, lib_conv),
     }
 
+    # Tensor parallelism's shard shapes (phase 16, model_parallel=2): row 13 at
+    # a rank's hidden 768 with the residual and fc2's bias zero (every rank
+    # but the model axis's first), and row 14 at a rank's qkv shard under B
+    # (Dout 576: 3 heads of 64 of each of q, k, v); each case as the
+    # one-process one of the same kernel (same faults, limits, work
+    # formulas). Row 16 at 3 heads of 64 over [8, 4501] is ViT-Ti's instance
+    # below, and rows 8 and 9 the one-process ones: the same shapes.
+    hid_s = hidden // 2
+    w1_s, b1_s, w2_s = w1[:hid_s].contiguous(), b1[:hid_s].contiguous(), w2[:, :hid_s].contiguous()
+    zero_b2, zero_res = torch.zeros_like(b2), torch.zeros_like(x)
+    w_qkv_s, b_qkv_s = w_qkv[:3 * d // 2].contiguous(), b_qkv[:3 * d // 2].contiguous()
+    dy_qkv_s = dy_qkv[:, :3 * d // 2].contiguous()
+    cases.update({
+        "fused_mlp_train[TP,hidden=768]": (
+            lambda: fused_mlp_train(x8, w1_s, b1_s, w2_s, zero_b2, zero_res, gate_r),
+            lambda: fused_mlp_plain(x8, w1_s, b1_s, w2_s, zero_b2, zero_res, gate=gate_r),
+            lambda: fused_mlp_plain(x8, w1_s, b1_s, w2_s, zero_b2, zero_res),
+            "gate ignored", (rel_l2,), (1e-3,), 10, 3,
+            nbytes(x8, w1_s, b1_s, w2_s, zero_b2, zero_res, gate_r) + nbytes(x),
+            mlp_flops // 2, None),
+        "fused_mlp_bwd[TP,hidden=768]": (
+            lambda: dx_twice(fused_mlp_bwd(x8, w1_s, b1_s, w2_s, gate_r, dy)),
+            lambda: dx_twice(fused_mlp_bwd_plain(x8, w1_s, b1_s, w2_s, gate_r, dy)),
+            [lambda: dx_twice(fused_mlp_bwd_plain(x8, w1_s, b1_s, w2_s, None, dy)),
+             lambda: dg_f32(lambda: fused_mlp_bwd_plain(x8, w1_s, b1_s, w2_s, gate_r, dy), x8,
+                            w1_s, b1_s, w2_s, gate_r, dy)],
+            ["gate ignored", "dg kept in f32"], BWD_METRICS[5], BWD_LIMITS[5], 5, 2,
+            3 * nbytes(x8) + nbytes(w1_s, b1_s, w2_s, gate_r) + 4 * (d + hid_s + 2 * d * hid_s),
+            5 * mlp_flops // 4, None),
+        "fused_ln_dense[TP,Dout=576]": (
+            lambda: twice(fused_ln_dense(x, ln[0], ln[1], w_qkv_s, b_qkv_s)),
+            lambda: twice(fused_ln_dense_plain(x, ln[0], ln[1], w_qkv_s, b_qkv_s)),
+            [lambda: twice(fused_ln_dense_plain(x, ln[0], ln[1], w_qkv_s,
+                                                torch.zeros_like(b_qkv_s))),
+             lambda: twice(xn_f32(x, ln[:2], w_qkv_s, b_qkv_s))],
+            ["bias left out", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 3,
+            nbytes(x, ln[0], ln[1], w_qkv_s, b_qkv_s) + rows * 3 * d, rows * d * 3 * d, None),
+        "fused_ln_dense_bwd[TP,Dout=576]": (
+            lambda: dx_twice(fused_ln_dense_bwd(x, ln[0], ln[1], w_qkv_s, b_qkv_s, dy_qkv_s)),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x, ln[0], ln[1], w_qkv_s, b_qkv_s,
+                                                      dy_qkv_s)),
+            [lambda: dx_twice(ln_dense_bwd_no_m2(x, ln[0], ln[1], w_qkv_s, b_qkv_s, dy_qkv_s)),
+             lambda: ln_dense_dx_moved(x, ln[:2], w_qkv_s, b_qkv_s, dy_qkv_s)],
+            ["no mean(dyg*xhat) term", "dxn rounded before the LN backward"],
+            BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
+            2 * nbytes(x) + nbytes(dy_qkv_s, ln[0], ln[1], w_qkv_s, b_qkv_s)
+            + 4 * (2 * d + 3 * d * d // 2 + 3 * d // 2), 2 * rows * d * 3 * d, None),
+    })
+
     # ViT-Ti (vit_tiny's widths, intentbev/import_torch.py:235: embed 192, 3
     # heads of 64, MLP 768) at its main-path shapes: the BHTD attention on
     # the views of the qkv projection output (its heads do not pair into 128
@@ -1501,7 +1698,8 @@ def main() -> None:
     print(f"train: against the f32 plain step, the kernel step reads all {k_ref[0]:.3e}, "
           f"worst {k_ref[1]:.3e} ({k_ref[2]}); the bf16 plain step all {p_ref[0]:.3e}, "
           f"worst {p_ref[1]:.3e} ({p_ref[2]})", flush=True)
-    p5_metrics, p5_grads = m_k, {k_: t.cpu() for k_, t in g_k.items()}  # phase 15 reads them
+    p5_metrics, p5_grads = m_k, {k_: t.cpu() for k_, t in g_k.items()}  # phases 15, 16
+    p5_ref = {k_: t.cpu() for k_, t in g_ref.items()}  # phase 16 reads it
     del g_k, g_p, g_c, g_ln, g_ref
 
     opt = make_optimizer(model.parameters(), cfg)
@@ -1847,6 +2045,7 @@ def main() -> None:
               f"all {sound_g[0]:.3e} < {grad_limit:g}, worst {sound_g[1]:.3e} ({sound_g[2]}) < "
               f"{worst_limit:g}; control (plain, {fault}) all {ctrl_g[0]:.3e}, worst "
               f"{ctrl_g[1]:.3e} ({ctrl_g[2]}) caught", flush=True)
+        kernel_steps[cname] = (m_k, {k_: t.cpu() for k_, t in g_k.items()})  # phase 16
         del g_k, g_p, g_c
 
         cstep_ = make_train_step(net, tcfg_, anchors, make_optimizer(net.parameters(), tcfg_))
@@ -1879,6 +2078,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         return counts
 
+    kernel_steps = {}  # label: the kernel step's (metrics, gradients)
     config_train_counts = {
         cname: train_config(cname, vit_serving_variant(cfg, variant)[0], params, per_step_c,
                             control, fault)
@@ -2720,13 +2920,129 @@ def main() -> None:
           f"14's, mAPs and intention metrics within {map_diff:.3e}; launches "
           f"{ {k_: n_ for k_, n_ in dp_eval_counts.items() if n_} }; "
           f"the child took {time.perf_counter() - t0:.1f} s", flush=True)
-    del p5_grads, dp_grads
-    tmp14.cleanup()
+    del dp_grads
     print(f"deploy: phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+
+    # 16. tensor parallelism: phase 5's step at model_parallel=2, two ranks on
+    # the one card over gloo, each in its own process (tp_child)
+    import socket
+
+    t16 = time.perf_counter()
+    tp_dir = root / "tp"
+    tp_dir.mkdir()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        tp_port = sock.getsockname()[1]
+    torch.cuda.empty_cache()
+    logs = [open(tp_dir / f"rank{r_}.log", "w") for r_ in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-child",
+                               str(tp_dir), str(dp_dir / "inputs.pt"), str(r_), str(tp_port)],
+                              stdout=logs[r_], stderr=subprocess.STDOUT)
+             for r_ in range(2)]
+    try:
+        for p_ in procs:
+            p_.wait(timeout=TP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        for p_ in procs:
+            p_.kill()
+            p_.wait()
+        fail(f"tp: the tensor-parallel ranks did not finish within {TP_TIMEOUT_S} s")
+    finally:
+        for f_ in logs:
+            f_.close()
+    for r_, p_ in enumerate(procs):
+        text = (tp_dir / f"rank{r_}.log").read_text()
+        check(p_.returncode == 0, f"tp: rank {r_} exited {p_.returncode}: {text[-4000:]}")
+    tp = [json.loads((tp_dir / f"result_rank{r_}.json").read_text()) for r_ in range(2)]
+    per_rank = {  # launches a rank makes in one step, the model axis of 2
+        "default": {"flash_attention": 2 * v.depth, "flash_attention_bwd": 2 * v.depth,
+                    "fused_mlp_train": 2 * v.depth, "fused_mlp_bwd": 2 * v.depth,
+                    "layernorm_train": 2 * (2 * v.depth + 2),
+                    "layernorm_bwd": 2 * (2 * v.depth + 2)},
+        "ln_dense": {"fused_ln_dense": 2 * v.depth + 2, "fused_ln_dense_bwd": 2 * v.depth + 2,
+                     "flash_attention": 2 * v.depth, "flash_attention_bwd": 2 * v.depth,
+                     "fused_mlp_train": 2 * v.depth, "fused_mlp_bwd": 2 * v.depth,
+                     "layernorm_train": 2 * v.depth + 2, "layernorm_bwd": 2 * v.depth + 2}}
+    refs16 = {"default": (p5_metrics, p5_grads), "ln_dense": kernel_steps["B fuse_ln_dense"]}
+    for r_, res_ in enumerate(tp):
+        check(res_["backend"] == "gloo" and res_["default"]["model_axis"] == [r_, 2],
+              f"tp: rank {r_}: backend {res_['backend']}, model axis "
+              f"{res_['default']['model_axis']}")
+        for variant in TP_VARIANTS:
+            got_c = res_[variant]["counts"]
+            want_c = {k_: per_rank[variant].get(k_, 0) for k_ in got_c}
+            check(got_c == want_c, f"tp {variant}: rank {r_} launch counts {got_c} != {want_c}")
+    # The rule: TP runs other kernels (norm2 apart, row 13 on the hidden slice,
+    # row 16 on 3 heads) and sums bf16 partials, so it is held as phase 5
+    # holds its kernel step against its plain step: loss terms within 1e-2
+    # relative, num_pos equal, gradients' relative L2 under 6e-3 overall and
+    # 0.4 the worst tensor (phase 15's DP step, the same kernels at world 1,
+    # is held within 1e-3)
+    def tp_readings(metrics_, grads_, ref_):
+        m_rel_ = {k_: abs(metrics_[k_] - ref_[0][k_]) / max(abs(ref_[0][k_]), 1e-30)
+                  for k_ in ref_[0] if k_ != "num_pos_anchors"}
+        g_ = grad_readings(grads_, ref_[1]) if grads_ is not None else (0.0, 0.0, "")
+        ok_ = (max(m_rel_.values()) < loss_limit and g_[0] < grad_limit and g_[1] < worst_limit
+               and metrics_["num_pos_anchors"] == ref_[0]["num_pos_anchors"])
+        return ok_, m_rel_, g_
+
+    tp_said = {}
+    for variant in TP_VARIANTS:
+        check(tp[0][variant]["metrics"] == tp[1][variant]["metrics"],
+              f"tp {variant}: the ranks' metrics differ: {tp[0][variant]['metrics']} vs "
+              f"{tp[1][variant]['metrics']}")
+        grads16 = torch.load(tp_dir / f"grads_{variant}.pt", weights_only=True)
+        ok, m_rel, g16 = tp_readings(tp[0][variant]["metrics"], grads16, refs16[variant])
+        # read, not checked: against phase 5's f32 plain step, as phase 5 reads
+        # its one-device kernel step
+        tp_said[variant] = (m_rel, g16, grad_readings(grads16, p5_ref)
+                            if variant == "default" else None)
+        check(ok, f"tp {variant} step vs the one-device kernel step: metrics "
+                  f"{tp[0][variant]['metrics']} vs {refs16[variant][0]} (relative {m_rel}), "
+                  f"gradients {g16}")
+        del grads16
+    grads16 = torch.load(tp_dir / "grads_control.pt", weights_only=True)
+    ok, m_rel_c, g_c16 = tp_readings(tp[0]["default"]["control"], grads16, refs16["default"])
+    del grads16
+    check(not ok, f"tp: the control (the MLP's reduce_from_model skipped) stays inside the "
+                  f"rule: metrics {tp[0]['default']['control']}, relative {m_rel_c}, "
+                  f"gradients {g_c16}")
+    tp_ms = [sum(t_["default"]["step_ms"]) / 3 for t_ in tp]
+    tp_gloo = [sum(t_["default"]["gloo_ms"]) / 3 for t_ in tp]
+    for variant in TP_VARIANTS:
+        m_rel, g16, g32 = tp_said[variant]
+        f32 = "" if g32 is None else (f"; read, not checked: against the f32 plain step "
+                                      f"all {g32[0]:.3e}, worst {g32[1]:.3e} ({g32[2]})")
+        print(f"tp {variant}: mesh {tp[0][variant]['mesh']}, gloo; the step at "
+              f"model_parallel=2 on {'phase 5' if variant == 'default' else 'phase 9 B'}'s "
+              f"batch, weights and draws vs the one-device kernel step: loss terms within "
+              f"{max(m_rel.values()):.3e} relative (limit {loss_limit:g}), gradients "
+              f"relative L2 all {g16[0]:.3e} (limit {grad_limit:g}), worst {g16[1]:.3e} "
+              f"({g16[2]}; limit {worst_limit:g}){f32}; launches a rank "
+              f"{ {k_: n_ for k_, n_ in tp[0][variant]['counts'].items() if n_} }", flush=True)
+    print(f"tp: control (both ranks skip the MLP's reduce_from_model) caught: loss terms "
+          f"{max(m_rel_c.values()):.3e} relative, gradients relative L2 all {g_c16[0]:.3e}, "
+          f"worst {g_c16[1]:.3e} ({g_c16[2]})", flush=True)
+    print(f"tp: two ranks on one card over gloo (not TP's speed): "
+          f"{tp_ms[0]:.2f} / {tp_ms[1]:.2f} ms a step on ranks 0 / 1 (steps "
+          f"{[round(t_, 2) for t_ in tp[0]['default']['step_ms']]}), gloo's all-reduces "
+          f"{tp_gloo[0]:.2f} / {tp_gloo[1]:.2f} ms of it ({tp_gloo[0] / tp_ms[0]:.3f} / "
+          f"{tp_gloo[1] / tp_ms[1]:.3f}), peak device memory "
+          f"{tp[0]['default']['peak_gib']:.2f} / {tp[1]['default']['peak_gib']:.2f} GiB a rank; "
+          f"phase 5's one-device step {vit_step_ms:.2f} ms [{card}]", flush=True)
+    del p5_grads, p5_ref, kernel_steps
+    tmp14.cleanup()  # phases 15 and 16 read phase 14's run and phase 15's inputs there
+    print(f"tp: phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
     serving_runs = (serve_counts, *config_counts.values())
     lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
     deploy_runs = (stream_counts, dp_step_counts, dp_eval_counts)  # phase 15
+    tp_runs = tuple(t_[v_]["counts"] for t_ in tp for v_ in TP_VARIANTS)  # phase 16, both ranks
+    # B's fused_ln_dense launches under TP: the 2 adapters (one-process shape) a
+    # rank, the rest its qkv shard (Dout 576)
+    tp_adapters = tuple({"fused_ln_dense": 2, "fused_ln_dense_bwd": 2} for _ in tp)
+    tp_qkv = tuple({k_: t_["ln_dense"]["counts"][k_] - 2
+                    for k_ in ("fused_ln_dense", "fused_ln_dense_bwd")} for t_ in tp)
     tiny_runs = (tiny_serve_counts, tiny_train_counts)
     kernels = []
     for name, src, replaces, runs in (
@@ -2752,16 +3068,16 @@ def main() -> None:
             ("fused_ln_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
              (train_counts, train_b, *lifecycle_runs, *deploy_runs)),
             ("layernorm_train", "layernorm.cu", "intentbev/ops/layernorm.py:53",
-             (train_counts, train_b, *lifecycle_runs, *deploy_runs)),
+             (train_counts, train_b, *lifecycle_runs, *deploy_runs, *tp_runs)),
             ("layernorm_bwd", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             (train_counts, train_b, *lifecycle_runs, *deploy_runs)),
+             (train_counts, train_b, *lifecycle_runs, *deploy_runs, *tp_runs)),
             ("voxel_fill", "voxel_fill.cu", "intentbev/ops/voxel_embed.py:507",
              (cnn_serve_counts, cnn_train_counts, vit_chunk_counts, chunk_loop_counts)),
             ("fused_mlp_int8", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
              serving_runs),
             ("fused_mlp", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103", serving_runs),
             ("fused_ln_dense", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:56",
-             (*serving_runs, train_b)),
+             (*serving_runs, train_b, *tp_adapters)),
             ("patch_embed", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
              serving_runs),
             ("fused_mlp_train", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103",
@@ -2769,12 +3085,21 @@ def main() -> None:
             ("fused_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:148",
              (train_c,)),
             ("fused_ln_dense_bwd", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:94",
-             (train_b,)),
-            # row 16, on the ViT-Ti path only
+             (train_b, *tp_adapters)),
+            # row 16: ViT-Ti's 3 heads of 64, and a rank's under TP (phase 16)
             ("flash_attention", "flash_packed.cu", "intentbev/ops/flash_attention.py:66",
-             tiny_runs),
+             (*tiny_runs, *tp_runs)),
             ("flash_attention_bwd", "flash_packed.cu",
-             "intentbev/ops/flash_attention.py:128 (dq), :152 (dk/dv)", tiny_runs),
+             "intentbev/ops/flash_attention.py:128 (dq), :152 (dk/dv)", (*tiny_runs, *tp_runs)),
+            # the shard shapes of tensor parallelism (phase 16, both ranks)
+            ("fused_mlp_train[TP,hidden=768]", "fused_ln_mlp.cu",
+             "intentbev/ops/fused_mlp.py:103", tp_runs),
+            ("fused_mlp_bwd[TP,hidden=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:148",
+             tp_runs),
+            ("fused_ln_dense[TP,Dout=576]", "fused_ln_dense.cu",
+             "intentbev/ops/fused_ln_dense.py:56", tp_qkv),
+            ("fused_ln_dense_bwd[TP,Dout=576]", "fused_ln_dense.cu",
+             "intentbev/ops/fused_ln_dense.py:94", tp_qkv),
             # the D=192 instances the ViT-Ti path runs
             ("voxel_embed[D=192]", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417",
              tiny_runs),
@@ -2832,7 +3157,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 45 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 49 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2844,5 +3169,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:
         dp_child(Path(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--tp-child"]:
+        tp_child(Path(sys.argv[2]), sys.argv[3], int(sys.argv[4]), int(sys.argv[5]))
     else:
         main()

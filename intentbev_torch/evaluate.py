@@ -25,7 +25,9 @@ global batch (``cfg.eval.batch_size``, which must divide by the data
 axis), the padded tail masked by ``sample_valid``, and the accumulators
 are summed over the ranks at the end, so the counts, the confusion matrix
 and the mAPs are one process's (the AP sums in another order). Rank 0
-logs.
+logs. A model axis wider than 1 (a checkpoint of a tensor-parallel run
+holds full tensors) holds the whole model on each of its ranks, as JAX's
+eval does: the ranks of one data index evaluate the same samples.
 
     python -m intentbev_torch.evaluate --ckpt_dir RUN --data_dir SPLIT [--device cpu]
 """
@@ -154,8 +156,8 @@ def evaluate(ckpt_dir: str, data_dir: str, cfg_override=None, num_workers: int =
         if cfg.eval.batch_size % group.size:
             raise ValueError(f"eval batch_size {cfg.eval.batch_size} not divisible by the "
                              f"data axis ({group.size} of mesh {tuple(mesh.shape)})")
-        if group.rank:
-            def log_fn(*_):  # rank 0 logs
+        if torch.distributed.get_rank():
+            def log_fn(*_):  # rank 0 logs (the model axis replicates the model)
                 return None
         log_fn(f"distributed eval: mesh {tuple(mesh.shape)} (data x model)")
     inferencer = StreamingInferencer(cfg, state["model"], device, transport="points",

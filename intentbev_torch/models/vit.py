@@ -58,6 +58,33 @@ patches), BatchNorm uses the batch statistics, and the drop-path gates
 the generator the caller passes. Training raises under ``serving_int8``
 (inference only) and for a GELU other than the exact erf.
 
+Under tensor parallelism (:meth:`IntentNetViT.set_model_group`, a model
+axis wider than 1; training only, as in JAX) each block holds its heads of
+``attn.qkv`` / ``attn.proj`` and its hidden units of ``mlp.fc1`` /
+``mlp.fc2`` (``parallel.sharding``'s layout) and runs the Megatron layout:
+
+- norm1 on the whole tokens, then ``copy_to_model`` (its backward sums the
+  ranks' partial input gradients) into the rank's qkv shard; under
+  ``fuse_ln_dense`` the LN + dense kernel takes the rank's qkv shard and
+  ``copy_to_model`` wraps x, gamma and beta, whose gradients from the
+  kernel are the rank's partials;
+- the attention over the rank's ``num_heads / mp`` heads (3 of 64 at ViT-S
+  and mp=2, which do not pair: the BHTD kernels);
+- proj on the shard without its bias, ``reduce_from_model`` (in f32), then
+  the bias, the drop-path gate and the residual, each once;
+- the MLP: norm2 as its own LayerNorm (the kernel, or FastLayerNorm's
+  plain math where ``use_fused_layernorm`` is off), ``copy_to_model``, then
+  the MLP kernel without LN on the rank's hidden slice, which adds fc2's
+  bias and the residual inside; the model axis's first rank passes them
+  and the others zeros (``first_on_model``, whose gradient is whole on
+  every rank), and ``reduce_from_model`` sums the partials. The fused LN +
+  MLP kernel adds the residual inside and its backward adds dy to dx, so
+  it has no partial form: TP does not take it. Without ``use_fused_mlp``
+  the two Linears run on the shard and fc2's bias after the sum.
+
+At a model axis of 1 nothing of this runs: the block is the one-process
+block.
+
 Tokens are not padded: the flash kernel takes any T and the LN/MLP
 kernels any row count. LayerNorm eps is 1e-6 throughout. Weights are held
 in ``param_dtype`` (the compute dtype for serving, f32 master weights for
@@ -92,7 +119,8 @@ from ..ops.layernorm import layernorm, layernorm_fn, layernorm_plain
 from ..ops.patch_embed import patch_embed, patch_embed_plain
 from ..ops.voxel_embed import (VoxelChunks, voxel_embed_tokens,
                                voxel_embed_tokens_plain)
-from ..utils.distributed import DataGroup, global_rand
+from ..utils.distributed import (DataGroup, ModelGroup, copy_to_model, first_on_model,
+                                 global_rand, reduce_from_model)
 from .blocks import ResidualStage, reset_conv_bn
 from .heads import DetectionHead, IntentionHead, flatten_head_outputs
 
@@ -254,16 +282,23 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, qkv_bias, dtype)
         self.proj = Linear(dim, dim, True, dtype)
 
-    def attend(self, qkv, residual, ops: Ops, cfg, gate=None):
+    def attend(self, qkv, residual, ops: Ops, cfg, gate=None, tp: ModelGroup | None = None):
         """residual + gate * proj(attention(qkv)): the flash entry in the
         softmax form of ``cfg.fwd_kv_chunk`` / ``cfg.unsafe_softmax``, or the
         JAX model's dense attention where ``use_flash_attention`` is off;
-        ``gate`` per-sample f32 [B] or None."""
+        ``gate`` per-sample f32 [B] or None. ``tp``: the model axis whose
+        rank holds ``num_heads / size`` heads of qkv and their proj input
+        columns (the module docstring)."""
+        heads = self.num_heads if tp is None else self.num_heads // tp.size
         if cfg.use_flash_attention:
-            o = ops.flash(qkv, self.num_heads, cfg.fwd_kv_chunk, cfg.unsafe_softmax)
+            o = ops.flash(qkv, heads, cfg.fwd_kv_chunk, cfg.unsafe_softmax)
         else:
-            o = reference_attention(*_split_qkv(qkv), self.num_heads)
-        y = self.proj(o)
+            o = reference_attention(*_split_qkv(qkv), heads)
+        if tp is None:
+            y = self.proj(o)
+        else:  # the ranks' partial products summed, then the bias once
+            y = reduce_from_model(F.linear(o, self.proj.weight.to(o.dtype)).float(), tp)
+            y = (y + self.proj.bias.float()).to(o.dtype)
         if gate is not None:
             y = y * gate.to(y.dtype)[:, None, None]
         return residual + y
@@ -315,6 +350,7 @@ class EncoderBlock(nn.Module):
         self.attn = Attention(dim, num_heads, qkv_bias, dtype)
         self.norm2 = LayerNormParams(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, int8)
+        self.tp: ModelGroup | None = None  # the model axis, when wider than 1
 
     def forward(self, x, xn, ln_next: LayerNormParams, ops: Ops, gelu: str, cfg):
         a, m = self.attn, self.mlp
@@ -327,20 +363,25 @@ class EncoderBlock(nn.Module):
         """The JAX block's structures without the chain, serving and
         training alike: takes and returns the residual stream x. ``gates``:
         (attention, MLP) per-sample f32 [B] drop-path gates, each None for
-        1 (always None serving)."""
-        fused_ln, a, m = cfg.use_fused_layernorm, self.attn, self.mlp
+        1 (always None serving). Under ``self.tp`` the rank computes on its
+        shards (the module docstring)."""
+        fused_ln, a, m, tp = cfg.use_fused_layernorm, self.attn, self.mlp, self.tp
         dt, n1 = x.dtype, self.norm1
         if (fused_ln and cfg.fuse_ln_dense and a.qkv.bias is not None
                 and not cfg.serving_int8):
             if cfg.use_flash_attention:
-                qkv = ops.fused_ln_dense(x, n1.weight, n1.bias, a.qkv.weight.to(dt),
+                # under TP dx, dgamma and dbeta are the rank's partials
+                qkv = ops.fused_ln_dense(copy_to_model(x, tp), copy_to_model(n1.weight, tp),
+                                         copy_to_model(n1.bias, tp), a.qkv.weight.to(dt),
                                          a.qkv.bias, LN_EPS, None)
             else:
-                qkv = a.qkv(folded_layernorm(x, n1.weight, n1.bias))
+                qkv = a.qkv(copy_to_model(folded_layernorm(x, n1.weight, n1.bias), tp))
         else:
-            qkv = a.qkv(_norm(x, n1, ops, fused_ln))
-        x = a.attend(qkv, x, ops, cfg, gates[0])
+            qkv = a.qkv(copy_to_model(_norm(x, n1, ops, fused_ln), tp))
+        x = a.attend(qkv, x, ops, cfg, gates[0], tp)
         gate = None if gates[1] is None else gates[1][:, None].expand(x.shape[:2])
+        if tp is not None:
+            return self._mlp_shard(x, ops, gelu, cfg, gate)
         if cfg.use_fused_mlp and fused_ln and not cfg.serving_int8:
             return ops.fused_ln_mlp_tail(
                 x, self.norm2.weight, self.norm2.bias, m.fc1.weight.to(dt), m.fc1.bias,
@@ -353,6 +394,22 @@ class EncoderBlock(nn.Module):
             return ops.fused_mlp(h, m.fc1.weight.to(dt), m.fc1.bias, m.fc2.weight.to(dt),
                                  m.fc2.bias, x, gelu, gate)
         y = m.fc2(F.gelu(m.fc1(h)))  # XLA in the JAX model: exact erf
+        if gate is not None:
+            y = y * gate.to(y.dtype)[..., None]
+        return x + y
+
+    def _mlp_shard(self, x, ops: Ops, gelu: str, cfg, gate):
+        """x + gate * mlp(norm2(x)) with this rank's hidden slice of the MLP
+        (the module docstring): norm2 whole, then the partials summed over
+        the model axis."""
+        m, tp, dt = self.mlp, self.tp, x.dtype
+        h = copy_to_model(_norm(x, self.norm2, ops, cfg.use_fused_layernorm), tp)
+        if cfg.use_fused_mlp:
+            return reduce_from_model(ops.fused_mlp(
+                h, m.fc1.weight.to(dt), m.fc1.bias, m.fc2.weight.to(dt),
+                first_on_model(m.fc2.bias, tp), first_on_model(x, tp), gelu, gate), tp)
+        y = reduce_from_model(F.linear(F.gelu(m.fc1(h)), m.fc2.weight.to(dt)).float(), tp)
+        y = (y + m.fc2.bias.float()).to(dt)
         if gate is not None:
             y = y * gate.to(y.dtype)[..., None]
         return x + y
@@ -503,6 +560,17 @@ class IntentNetViT(nn.Module):
                                       head_cfg.num_box_params, pdt)
         self.intention_head = IntentionHead(cfg.fusion_planes, head_cfg.num_anchors,
                                             head_cfg.num_intention_classes, pdt)
+        self.model_group: ModelGroup | None = None
+
+    def set_model_group(self, group: ModelGroup | None) -> None:
+        """Train over the model axis ``group``: the blocks' attention and MLP
+        parameters must then hold this rank's shards
+        (``parallel.train_dp.shard_train_state`` cuts them). A group of size
+        1, or None, is one process."""
+        self.model_group = group if group is not None and group.size > 1 else None
+        for enc in (self.backbone.vit_lidar, self.backbone.vit_map):
+            for blk in enc.blocks:
+                blk.tp = self.model_group
 
     def forward(self, lidar, map_bev: torch.Tensor, generator=None,
                 group: DataGroup | None = None):
@@ -510,6 +578,10 @@ class IntentNetViT(nn.Module):
         ``group``: the data-parallel group whose global batch the gates and
         the fusion stage's BatchNorm statistics cover."""
         m = decode_map_transport(map_bev, self.cfg.map_input_channels, self.dtype)
+        if self.model_group is not None and not self.training:
+            # neither the serving LN chain nor serving_int8 runs on shards
+            raise NotImplementedError("tensor parallelism covers training only, as in JAX: "
+                                      "serve the gathered (one-process) parameters")
         if self.training:
             check_trainable(self.cfg)
             if self.gelu != "erf":

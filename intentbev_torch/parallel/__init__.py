@@ -3,7 +3,7 @@
 from .inference import VIT_SERVING_VARIANTS, StreamingInferencer, vit_serving_variant
 from .mesh import create_mesh, initialize_distributed, local_batch_slice
 from .sharding import batch_sharding, param_shardings, replicated
-from .train_dp import make_sharded_train_step, shard_train_state
+from .train_dp import gather_train_state, make_sharded_train_step, shard_train_state
 
 __all__ = [
     "StreamingInferencer",
@@ -15,6 +15,7 @@ __all__ = [
     "batch_sharding",
     "param_shardings",
     "replicated",
+    "gather_train_state",
     "make_sharded_train_step",
     "shard_train_state",
 ]

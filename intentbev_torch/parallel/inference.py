@@ -23,7 +23,10 @@ global batch on its own device, JAX's multi-process contract: each call
 takes the rank's local batch (the global batch is the ranks' local batches
 in rank order, a multiple of :attr:`StreamingInferencer.batch_multiple`)
 and returns the global batch's Detections, gathered over the data axis in
-rank order. The parameters are rank 0's, broadcast at construction.
+rank order. The parameters are rank 0's, broadcast at construction. A
+model axis wider than 1 holds the whole model on each of its ranks, as
+JAX's serving does (its tensor parallelism shards training only): the
+ranks of one data index serve the same samples.
 """
 
 from __future__ import annotations
@@ -97,9 +100,8 @@ class StreamingInferencer:
             raise ValueError(f"transport {transport!r} not in ('chunks', 'points')")
         self.group: DataGroup | None = None
         if mesh is not None:
-            from .mesh import data_group, require_data_parallel
+            from .mesh import data_group
 
-            require_data_parallel(cfg.mesh)
             self.group = data_group(mesh, cfg.mesh)
         self.cfg = cfg
         self.transport = transport

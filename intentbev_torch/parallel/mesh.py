@@ -15,6 +15,9 @@ local batches in rank order, as JAX's contiguous batch sharding does.
   a rank loads;
 - :func:`data_group` is the mesh's data axis as a ``utils.distributed.
   DataGroup``, which the train step, the loss and the models read;
+  :func:`model_group` its model axis as a ``ModelGroup``, over which the
+  ViT blocks split their heads and hidden units in training
+  (:func:`check_model_parallel` holds the layout to what the shards need);
 - :func:`local_batch_slice` puts a rank's local batch on its device.
 """
 
@@ -27,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 from ..configs import MeshConfig
-from ..utils.distributed import DataGroup
+from ..utils.distributed import DataGroup, ModelGroup
 
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
@@ -93,14 +96,28 @@ def data_group(mesh, cfg: MeshConfig) -> DataGroup:
                      mesh.size(mesh.mesh_dim_names.index(cfg.data_axis)))
 
 
-def require_data_parallel(cfg: MeshConfig) -> None:
-    """Raise for a model axis wider than 1: tensor parallelism is not
-    ported (``ROADMAP.md`` §1 item 5)."""
-    if max(1, cfg.model_parallel) > 1:
-        raise NotImplementedError(
-            f"model_parallel={cfg.model_parallel}: tensor parallelism over the model axis "
-            "is not ported yet (ROADMAP.md section 1, item 5); the port runs data "
-            "parallel only (model_parallel=1)")
+def model_group(mesh, cfg: MeshConfig) -> ModelGroup:
+    """The mesh's model axis: its process group, this rank's index on it
+    and its size."""
+    return ModelGroup(mesh.get_group(cfg.model_axis), mesh.get_local_rank(cfg.model_axis),
+                      mesh.size(mesh.mesh_dim_names.index(cfg.model_axis)))
+
+
+def check_model_parallel(cfg) -> None:
+    """Raise ``ValueError`` where the model axis cannot split the ViT's
+    blocks into whole heads and equal hidden slices: ``model_parallel`` must
+    divide ``num_heads`` and the MLP's hidden width (``cfg``: an
+    ``ExperimentConfig``; the CNN, which nothing shards, takes any). JAX's
+    GSPMD takes any column split; a rank here computes on its own heads."""
+    mp = max(1, cfg.mesh.model_parallel)
+    if mp == 1 or cfg.model_family != "vit":
+        return
+    v = cfg.vit
+    hidden = int(v.embed_dim * v.mlp_ratio)
+    if v.num_heads % mp or hidden % mp:
+        raise ValueError(
+            f"model_parallel={mp} must divide the ViT's num_heads={v.num_heads} and its MLP "
+            f"hidden width {hidden}: each rank holds whole heads")
 
 
 def shard_sequences_for_process(sequences, process_index: int, process_count: int,

@@ -17,9 +17,23 @@ that dimension is split over or None, as a JAX ``PartitionSpec`` reads;
 :func:`replicated` give DTensor placements on a (data, model) mesh, one per
 mesh dimension, where JAX gives ``NamedSharding``s. Parameters are
 replicated over the data axis always.
+
+The tensor-parallel step (``parallel.train_dp``) holds its shards as plain
+tensors in the layout :func:`shard_state_dict` cuts and
+:func:`gather_state_dict` joins. It splits the dimension the spec names, in
+equal contiguous slices, but for ``attn.qkv``: its [3D, D] weight and [3D]
+bias are q | k | v, each head-major, and a rank holds the rows q[h], k[h]
+and v[h] of its own heads, so that its projection gives (q | k | v) of its
+heads in the layout the attention entries take. (JAX's ``P(None,
+'model')`` splits the (d, 3d) kernel into contiguous column blocks, the
+first of which is all of q and part of k; GSPMD moves the columns where
+they are needed, which a rank that computes on its own heads cannot.)
+Checkpoints hold the full tensors, in the layout of one process.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..configs import MeshConfig
 
@@ -67,3 +81,63 @@ def param_shardings(model, mesh, cfg: MeshConfig) -> dict[str, tuple]:
     tensor-parallel rules over the model axis; replicated over data)."""
     return {name: _placements(param_spec(name, p.dim(), cfg.model_axis), mesh)
             for name, p in model.named_parameters()}
+
+
+def model_dim(name: str, ndim: int, model_axis: str = "model") -> int | None:
+    """The dimension of parameter ``name`` split over the model axis, or
+    None where it is replicated."""
+    spec = param_spec(name, ndim, model_axis)
+    return spec.index(model_axis) if model_axis in spec else None
+
+
+def _head_major(name: str, t: torch.Tensor, num_heads: int) -> torch.Tensor | None:
+    """The qkv projection's [3D, ...] rows as [3, H, D/H, ...], else None."""
+    if "qkv" not in name.split("."):
+        return None
+    return t.reshape(3, num_heads, t.shape[0] // (3 * num_heads), *t.shape[1:])
+
+
+def shard_tensor(name: str, t: torch.Tensor, rank: int, mp: int, num_heads: int,
+                 model_axis: str = "model") -> torch.Tensor:
+    """Rank ``rank``'s shard of the full tensor ``t`` (parameter ``name``,
+    or its optimizer moment) over a model axis of ``mp`` ranks: a
+    contiguous copy (``t`` itself where it is replicated)."""
+    dim = model_dim(name, t.dim(), model_axis)
+    if dim is None or mp == 1:
+        return t
+    heads = _head_major(name, t, num_heads)
+    if heads is not None:
+        h = num_heads // mp
+        return heads[:, rank * h:(rank + 1) * h].reshape(-1, *t.shape[1:]).contiguous()
+    n = t.shape[dim] // mp
+    return t.narrow(dim, rank * n, n).contiguous()
+
+
+def gather_tensor(name: str, parts: list, num_heads: int,
+                  model_axis: str = "model") -> torch.Tensor:
+    """The full tensor from the ranks' shards ``parts`` (in rank order):
+    the inverse of :func:`shard_tensor`."""
+    dim = model_dim(name, parts[0].dim(), model_axis)
+    if dim is None or len(parts) == 1:
+        return parts[0]
+    if "qkv" in name.split("."):
+        h = num_heads // len(parts)
+        split = [p.reshape(3, h, -1, *p.shape[1:]) for p in parts]
+        return torch.cat(split, 1).reshape(-1, *parts[0].shape[1:])
+    return torch.cat(parts, dim)
+
+
+def shard_state_dict(full: dict, rank: int, mp: int, cfg) -> dict:
+    """Rank ``rank``'s state dict of a model axis of ``mp`` ranks from a
+    full (one-process) state dict ``full`` (``cfg``: the
+    ``ExperimentConfig``; the ViT's heads and the mesh's model axis name)."""
+    return {k: shard_tensor(k, v, rank, mp, cfg.vit.num_heads, cfg.mesh.model_axis)
+            for k, v in full.items()}
+
+
+def gather_state_dict(shards: list, cfg) -> dict:
+    """The full (one-process) state dict from the model axis's state dicts
+    ``shards`` in rank order: the inverse of :func:`shard_state_dict`."""
+    return {k: gather_tensor(k, [s[k] for s in shards], cfg.vit.num_heads,
+                             cfg.mesh.model_axis)
+            for k in shards[0]}

@@ -41,12 +41,17 @@ device unless ``--device cpu`` is asked for.
 
 ``distributed=True`` (``--distributed``, under ``torchrun``, whose
 environment :func:`main` passes to ``parallel.mesh.initialize_distributed``)
-trains data-parallel over the mesh of the process group
-(``parallel.make_sharded_train_step``): each rank loads its share of the
-sequences (``parallel.mesh.shard_sequences_for_process``) and steps on its
-share of every global batch; rank 0 alone logs and writes the checkpoints
-and ``metrics.jsonl``, and every rank resumes from the same checkpoint.
-A model axis wider than 1 (``--model_parallel``) is not ported and raises.
+trains over the (data, model) mesh of the process group
+(``parallel.make_sharded_train_step``): each index of the data axis loads
+its share of the sequences (``parallel.mesh.shard_sequences_for_process``
+over the data axis) and steps on its share of every global batch; with
+``cfg.mesh.model_parallel`` > 1 (``--model_parallel N``) the ranks of the
+model axis load the same samples and split the ViT blocks' heads and
+hidden units (tensor parallelism, ``parallel.train_dp``). Rank 0 alone
+logs and writes the checkpoints and ``metrics.jsonl``; a checkpoint holds
+full tensors, parameters and AdamW moments gathered over the model axis,
+in the layout of a one-process checkpoint, so any mesh (or one process)
+resumes from it and ``evaluate`` loads it as it is.
 """
 
 from __future__ import annotations
@@ -335,7 +340,8 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
     ``"cpu"`` runs the plain versions (a CUDA device that is missing
     raises). ``state_out``: a dict that receives ``model``, ``optimizer``
     and ``step`` at the end (the live objects the last checkpoint was
-    written from). ``distributed``: data-parallel over the process group's
+    written from; this rank's shards under tensor parallelism).
+    ``distributed``: over the (data, model) mesh of the process group's
     ranks (the module docstring); the global batch
     (``cfg.train.batch_size``) must divide by the data axis, and the caller
     brings the process group up first (:func:`main` does under
@@ -349,11 +355,10 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
 
     device = resolve_device(device)
     group = mesh = None
-    local_batch_size, rank = cfg.train.batch_size, 0
+    local_batch_size, rank, writer = cfg.train.batch_size, 0, True
     if distributed:
-        from .parallel.mesh import create_mesh, data_group, require_data_parallel
+        from .parallel.mesh import create_mesh, data_group
 
-        require_data_parallel(cfg.mesh)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())  # this rank's card
         mesh = create_mesh(cfg.mesh, device.type)
@@ -362,7 +367,8 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
             raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by the data "
                              f"axis ({group.size} of mesh {tuple(mesh.shape)})")
         rank, local_batch_size = group.rank, cfg.train.batch_size // group.size
-        if rank:
+        writer = torch.distributed.get_rank() == 0
+        if not writer:
             def log_fn(*_):  # rank 0 logs
                 return None
     dtype = torch.bfloat16 if cfg.train.compute_dtype == "bfloat16" else torch.float32
@@ -392,15 +398,13 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
 
     intention_weights = None
     if use_intention_weights and not cfg.loss.apply_intention_downsampling:
-        if rank == 0:  # counted (or read from the cache) once, then broadcast
+        if writer:  # counted (or read from the cache) once, then broadcast
             intention_weights = torch.from_numpy(_intention_weights(
                 cfg, data_dir, out_dir, sequences, loader, log_fn, num_workers)).to(device)
         else:
             intention_weights = torch.empty(cfg.heads.num_intention_classes, device=device)
         if group is not None:
-            from .utils.distributed import broadcast_from_first
-
-            broadcast_from_first([intention_weights], group)
+            torch.distributed.broadcast(intention_weights, 0)
     elif use_intention_weights:
         log_fn("Warning: intention weights requested but downsampling is on; "
                "weights are ignored by the loss (reference train_vit.py:89-91)")
@@ -435,10 +439,10 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
     else:
         step = make_train_step(model, cfg, anchors, optimizer, intention_weights)
     out_path = Path(out_dir)
-    mlog = MetricsLogger(out_path / "metrics.jsonl" if rank == 0 else None)
+    mlog = MetricsLogger(out_path / "metrics.jsonl" if writer else None)
 
     def save(step_: int, state: dict) -> None:
-        if rank == 0:  # the ranks' states are one state
+        if writer:  # the ranks' states are one state
             save_checkpoint(out_path, step_, state, cfg)
     last_metrics: dict = {}
     t_start = time.time()
@@ -446,7 +450,13 @@ def train(cfg, data_dir: str, out_dir: str, num_workers: int = 4,
 
     def ckpt_state(epoch: int, epoch_batch: int = 0) -> dict:
         # epoch_batch: batches consumed in the epoch in progress (0: a boundary)
-        return {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+        if mesh is not None and rank == 0:  # full tensors: the model axis gathers them
+            from .parallel.train_dp import gather_train_state
+
+            model_sd, optim_sd = gather_train_state(model, optimizer, mesh, cfg)
+        else:
+            model_sd, optim_sd = model.state_dict(), optimizer.state_dict()
+        return {"model": model_sd, "optimizer": optim_sd,
                 "step": step_count, "generator": generator.get_state(),
                 "loop": {**{k: v.item() for k, v in scheduler.state().items()},
                          "epoch": int(epoch), "epoch_batch": int(epoch_batch)}}
@@ -560,11 +570,12 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
     p.add_argument("--distributed", action="store_true",
-                   help="data-parallel training over the ranks of a torchrun launch "
+                   help="training over the (data, model) mesh of a torchrun launch's ranks "
                         "(NCCL on the card, gloo with --device cpu)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="the mesh's model axis (tensor parallelism: not ported, raises "
-                        "above 1)")
+                   help="with --distributed: the mesh's model axis, over which the ViT "
+                        "blocks split their heads and MLP hidden units (tensor parallelism; "
+                        "it must divide both)")
     args = p.parse_args(argv)
 
     if args.tiny_smoke:
@@ -581,11 +592,11 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, loss=dataclasses.replace(cfg.loss, apply_intention_downsampling=False))
     if args.model_parallel != 1:
-        from .configs import MeshConfig
-        from .parallel.mesh import require_data_parallel
+        from .parallel.mesh import check_model_parallel
 
-        cfg = dataclasses.replace(cfg, mesh=MeshConfig(model_parallel=args.model_parallel))
-        require_data_parallel(cfg.mesh)
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, model_parallel=args.model_parallel))
+        check_model_parallel(cfg)
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     if args.distributed:

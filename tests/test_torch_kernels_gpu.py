@@ -1397,3 +1397,93 @@ def test_fused_proj_raises(dev):
         fused_proj_fwd(x.float(), w, bias, r, gate)
     with pytest.raises(ValueError, match="bf16"):
         fused_proj_bwd(x, w, r.float(), gate)
+
+
+# Tensor parallelism's shard shapes (the full-width ViT at model_parallel=2,
+# models/vit.py): a rank's qkv projection is its 3 heads of 64 in the
+# head-aligned layout (the BHTD kernels: they do not pair), its MLP is row
+# 13 at hidden 768 with the residual and fc2's bias on the model axis's
+# first rank and zeros on the others, and under fuse_ln_dense its qkv is
+# row 14 at Dout 576. Limits those of the one-process instances above.
+TP_HIDDEN = 768
+
+
+def _tp_mlp_args(b, t, first, gated):
+    """A rank's MLP shard: h, its hidden slice of W1 / b1 / W2, and fc2's
+    bias and the residual (zeros off the first rank)."""
+    h, res = _randn((b, t, D), 1.0, 0), _randn((b, t, D), 1.0, 11)
+    _, _, w1, b1, w2, b2 = _mlp_params()
+    w1, b1 = w1[:TP_HIDDEN].contiguous(), b1[:TP_HIDDEN].contiguous()
+    w2 = w2[:, :TP_HIDDEN].contiguous()
+    if not first:
+        b2, res = torch.zeros_like(b2), torch.zeros_like(res)
+    gate = None
+    if gated:
+        gate = _gate(b, t, 9)
+        gate[0] = 0.0  # one sample dropped
+    return h, w1, b1, w2, b2, res, gate
+
+
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("b,t", [(2, 50), (8, 4501)])
+def test_fused_mlp_tp_shard(dev, b, t, gated, first, monkeypatch):
+    """Row 13 at a rank's hidden 768, forward and backward against the plain
+    versions (controls: b1 left out; GELU' skipped), two calls the same
+    bits."""
+    h, w1, b1, w2, b2, res, gate = _tp_mlp_args(b, t, first, gated)
+    reset_launch_counts()
+    y = fused_mlp_train(h, w1, b1, w2, b2, res, gate)
+    assert torch.equal(y, fused_mlp_train(h, w1, b1, w2, b2, res, gate))
+    assert _rel(y, fused_mlp_plain(h, w1, b1, w2, b2, res, gate=gate)) < MLP_LIMIT
+    assert _rel(y, fused_mlp_plain(h, w1, torch.zeros_like(b1), w2, b2, res,
+                                   gate=gate)) >= MLP_LIMIT
+    dy = _randn((b, t, D), 1.0, 10)
+    got = fused_mlp_bwd(h, w1, b1, w2, gate, dy)
+    assert all(torch.equal(a, c) for a, c in zip(got, fused_mlp_bwd(h, w1, b1, w2, gate, dy)))
+    assert launches["fused_mlp_train"] == 2 and launches["fused_mlp_bwd"] == 2
+    assert [tuple(g.shape) for g in got[1:]] == [(TP_HIDDEN, D), (TP_HIDDEN,), (D, TP_HIDDEN),
+                                                 (D,)]
+    want = fused_mlp_bwd_plain(h, w1, b1, w2, gate, dy)
+    assert max(_rels(got, want)) < MLP_BWD_LIMIT, _rels(got, want)
+    _gelu_grad_skipped(monkeypatch, "fused_mlp")
+    assert max(_rels(got, fused_mlp_bwd_plain(h, w1, b1, w2, gate, dy))) >= MLP_BWD_LIMIT
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("b,t,seq_len", [(1, 300, 300), (8, 4501, 4501)])
+def test_flash_tp_shard_takes_its_heads(dev, b, t, seq_len, rank):
+    """A rank's head-aligned qkv shard of ViT-S (3 of its 6 heads of 64)
+    goes to the BHTD kernels, and its output and gradient are those heads'
+    of the 6-head packed kernels' (limits of the BHTD tests above)."""
+    from intentbev_torch.parallel.sharding import shard_tensor
+
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    do = _randn((b, t, D), 1.0, 1)
+    cols = shard_tensor("blocks.0.attn.qkv.bias", torch.arange(3 * D, device="cuda"), rank,
+                        2, 6)
+    shard = qkv[..., cols].contiguous()
+    leaf, full = shard.clone().requires_grad_(True), qkv.clone().requires_grad_(True)
+    reset_launch_counts()
+    o = flash_attention_fn(leaf, 3, seq_len)
+    o.backward(do[..., rank * D // 2:(rank + 1) * D // 2])
+    assert launches["flash_attention"] == launches["flash_attention_bwd"] == 1
+    assert launches["flash_packed"] == launches["flash_packed_bwd"] == 0
+    o_full = flash_attention_fn(full, 6, seq_len)
+    o_full.backward(do * (torch.arange(D, device="cuda") // (D // 2) == rank))
+    assert _rel(o.detach(), o_full.detach()[..., rank * D // 2:(rank + 1) * D // 2]) < FLASH_LIMIT
+    assert _rel(leaf.grad, full.grad[..., cols]) < FLASH_BWD_LIMIT
+    assert not full.grad[..., [c for c in range(3 * D) if c not in set(cols.tolist())]].any()
+    # control: the shard cut as contiguous rows (JAX's column split) reads other heads
+    assert _rel(flash_attention_fn(qkv[..., rank * 3 * D // 2:(rank + 1) * 3 * D // 2]
+                                   .contiguous(), 3, seq_len),
+                o_full.detach()[..., rank * D // 2:(rank + 1) * D // 2]) >= FLASH_LIMIT
+
+
+@pytest.mark.parametrize("rows", LN_DENSE_ROWS)
+def test_fused_ln_dense_tp_shard(dev, rows, monkeypatch):
+    """Row 14 at a rank's qkv shard of ViT-S (Dout 576 = 3 heads of 64 of
+    each of q, k, v), forward and backward: the checks of
+    :func:`test_fused_ln_dense` and :func:`test_fused_ln_dense_bwd`."""
+    _check_ln_dense(rows, 3 * D // 2, None, D)
+    _check_ln_dense_bwd(rows, 3 * D // 2, None, D, monkeypatch)
