@@ -45,7 +45,10 @@ per frame and the host chunk-build rate.
 
 ``INTENTBEV_LNMLP_BLOCK`` and ``INTENTBEV_MLP_HCHUNK`` (``bench.py:371``,
 ``:376``) tile the TPU kernels; the port's kernels have no counterpart and
-this script reads neither. It imports no JAX.
+this script reads neither. ``INTENTBEV_CNN_FILL_LAYOUT`` (``bench.py:101``)
+is read: ``f32`` makes the CNN chunk lines' ``voxel_fill`` write the BEV in
+f32, cast to bf16 before the first convolution; ``barrier`` (an XLA
+optimization barrier) has no counterpart and is refused. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import queue
 import sys
 import threading
@@ -97,11 +101,13 @@ def _config(model_name: str, int8: bool, device, cfg=None):
 
 def build_bench(batch_size: int, points_per_sweep: int, model_name: str = "vit",
                 int8: bool = False, cells: bool = False, voxembed: bool = False,
-                device="cuda", cfg=None, seed: int = 0):
+                device="cuda", cfg=None, seed: int = 0, fill_dtype: torch.dtype | None = None):
     """-> (infer, state): ``infer(state) -> (Detections, state')`` runs one
     batch on the device and returns the input of the next, chained on its
     scores. ``cfg``: the configuration to cut (default the family's
-    default), with ``bench.py``'s serving switches applied."""
+    default), with ``bench.py``'s serving switches applied. ``fill_dtype``:
+    the dtype the CNN's chunk fill writes (default the compute dtype, to
+    which it is cast before the model)."""
     from intentbev_torch.bev.voxelize import dedup_cells_host, voxelize_cells, voxelize_packed
     from intentbev_torch.boxes import generate_anchors
     from intentbev_torch.boxes.nms import batched_postprocess
@@ -141,7 +147,8 @@ def build_bench(batch_size: int, points_per_sweep: int, model_name: str = "vit",
             lidar = chunks
             if model_name == "cnn":
                 lidar = voxel_fill_bev(chunks, (g.height_px, g.width_px),
-                                       g.lidar_total_channels, patch, dtype)
+                                       g.lidar_total_channels, patch, fill_dtype or dtype
+                                       ).to(dtype)
             det, zero = detect(lidar)
             return det, chunks._replace(val=chunks.val + zero)
         return infer, chunks
@@ -167,11 +174,12 @@ def build_bench(batch_size: int, points_per_sweep: int, model_name: str = "vit",
 
 def run_mode(metric: str, model_name: str, int8: bool = False, batch_size: int = 8,
              points_per_sweep: int = 16384, cells: bool = False, voxembed: bool = False,
-             iters: int = 20, device="cuda", cfg=None, seed: int = 0) -> dict:
+             iters: int = 20, device="cuda", cfg=None, seed: int = 0,
+             fill_dtype: torch.dtype | None = None) -> dict:
     """Time ``iters`` chained batches after one warm-up; print and return
     the JSON line."""
     infer, state = build_bench(batch_size, points_per_sweep, model_name, int8, cells,
-                               voxembed, device, cfg, seed)
+                               voxembed, device, cfg, seed, fill_dtype)
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
     det, state = infer(state)  # warm-up: cuBLAS/cuDNN handles, allocator, kernel build
     sync()
@@ -290,6 +298,12 @@ def main() -> None:
     ap.add_argument("--sustained", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    fill_layout = os.environ.get("INTENTBEV_CNN_FILL_LAYOUT", "")
+    if fill_layout == "barrier":
+        sys.exit("bench_torch: INTENTBEV_CNN_FILL_LAYOUT=barrier is XLA-only (bench.py's "
+                 "jax.lax.optimization_barrier on the fill's output); the port has no "
+                 "counterpart: unset it, or take f32")
+    fill_dtype = torch.float32 if fill_layout == "f32" else None
     if not torch.cuda.is_available():
         sys.exit("bench_torch: needs a CUDA card")
     b, seed = args.batch, args.seed
@@ -303,7 +317,7 @@ def main() -> None:
     if args.model == "cnn":
         if args.cnn_chunks:
             run_mode("bev_frames_per_sec_per_chip_cnn_chunks", "cnn", batch_size=b,
-                     voxembed=True, seed=seed)
+                     voxembed=True, seed=seed, fill_dtype=fill_dtype)
         else:
             run_mode("bev_frames_per_sec_per_chip_cnn", "cnn", batch_size=b, seed=seed)
         return
@@ -318,7 +332,8 @@ def main() -> None:
         run_sustained(batch_size=b, seed=seed)
         return
     run_mode(DEFAULT_LINES[0], "cnn", batch_size=b, seed=seed)
-    run_mode(DEFAULT_LINES[1], "cnn", batch_size=b, voxembed=True, seed=seed)
+    run_mode(DEFAULT_LINES[1], "cnn", batch_size=b, voxembed=True, seed=seed,
+             fill_dtype=fill_dtype)
     run_mode(DEFAULT_LINES[2], "vit", batch_size=b, seed=seed)
     run_sustained(batch_size=b, seed=seed)
     run_mode(DEFAULT_LINES[4], "vit", batch_size=b, voxembed=True, seed=seed)

@@ -44,7 +44,9 @@ Phases (each prints a line; any failure exits nonzero with no result):
    beside its library call (channels_last strides) and the PatchEmbed.dense
    chain as its reference; row 1's first kernel, the token-ordered hit list,
    must equal its plain version entry for entry, and two calls of row 1 the
-   same bits.
+   same bits. Row 13, the MLP without LN, runs at D=384 and 192 (ViT-Ti's
+   tails under C): serving (sigmoid GELU), the gated training forward and
+   the gated backward.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -109,7 +111,10 @@ Phases (each prints a line; any failure exits nonzero with no result):
     D=192) serves one request and takes one timed train step, under A
     ``serving_int8`` (the W8A8 MLP at D=192) and under D
     ``fuse_patch_embed`` (the dense patch embed at D=192, points) serves one
-    request each, with the checks and controls of phases 8 and 9.
+    request each, with the checks and controls of phases 8 and 9; under C
+    ``use_fused_layernorm=False`` (row 13 at D=192 after the plain
+    FastLayerNorms) it serves one request and takes 3 timed train steps
+    (24 row-13 forwards a request, 24 + 24 a step).
 11. The flash backward's forms (JAX's split and chunked backwards, the
     model's ``bwd_fused=False`` and ``bwd_kv_chunk=1152``) and the packed
     path at head dim 32: each form's kernels against their plain versions
@@ -199,15 +204,38 @@ Phases (each prints a line; any failure exits nonzero with no result):
     step and gloo's share of it: two ranks share one card, so this is not
     TP's speed.
 
+17. The last modules: reference-schema ``.pth`` files (the reference repo's
+    names, numpy draws) of the CNN, ViT-S (``vit_small_patch8_224``) and
+    ViT-Ti (``vit_tiny_patch8_224``) at full width go through ``python -m
+    intentbev_torch.import_torch`` (three processes side by side); each
+    checkpoint serves one request of 8 through the kernels, its logits held
+    against the plain path under phase 4's limit (control: the qkv rows
+    imported k-first; the CNN's conv1 kernels with kh and kw swapped). One
+    train step on phase 5's batch without ``aug_params`` (the image-space
+    augmentation, every sample flipped, rotated 5 degrees and scaled 1.03,
+    no dropout) against the same step through the plain versions under
+    phase 5's limits (control: theta with the wrong sign). ``bench_torch``'s
+    CNN chunk line with the f32 fill (``INTENTBEV_CNN_FILL_LAYOUT=f32``).
+    The four twins, each a child process, start when the imports end and
+    run side by side with each other and with those checks: the synthetic
+    dataset (1 + 1 logs of 10 frames, with labels), ``score_range_torch``
+    on phase 14's checkpoint and split (|s| < 88 over its 24 attention
+    calls), ``serve_chunks_torch --batches 2`` (its three rates) and
+    ``soak_loader_torch`` on phase 14's split (200 samples: samples/s and
+    the RSS). Their rates, read side by side, show that each twin runs; they
+    measure nothing. A twin still running when the smoke exits is killed.
+
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -225,8 +253,10 @@ INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores
 TP_TIMEOUT_S = 300  # phase 16's ranks: a hang fails the phase, not the smoke's limit
 CONFIG_LIMITS = {**{name: (2.3e-2,) * 3 for name in ("A serving_int8", "Ti A serving_int8")},
                  **{name: (1.3e-2,) * 3 for name in (
+    "import CNN", "import ViT-S", "import ViT-Ti",
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
-    "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense", "Ti D fuse_patch_embed")}}
+    "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense", "Ti C use_fused_layernorm=False",
+    "Ti D fuse_patch_embed")}}
 
 
 def fail(msg: str) -> None:
@@ -1329,6 +1359,32 @@ def main() -> None:
             ["one h scale per 32-row block", "h rounded to bf16 before its codes"],
             INT8_METRICS, INT8_LIMITS, 10, 2, nbytes(*int8_args_t) + nbytes(x_t), mlp_flops_t,
             None),
+        # row 13 at D=192, ViT-Ti's MLP tails under C: serving (sigmoid), the
+        # gated training forward (erf) and its backward, as the D=384 cases
+        "fused_mlp[D=192]": (
+            lambda: twice(fused_mlp(x8_t, w1_t, b1_t, w2_t, b2_t, x_t, gelu_mode="sigmoid")),
+            lambda: twice(fused_mlp_plain(x8_t, w1_t, b1_t, w2_t, b2_t, x_t,
+                                          gelu_mode="sigmoid")),
+            [lambda: twice(fused_mlp_plain(x8_t, w1_t, torch.zeros_like(b1_t), w2_t, b2_t, x_t,
+                                           gelu_mode="sigmoid")),
+             lambda: twice(h_f32(x8_t, w1_t, b1_t, w2_t, b2_t, "sigmoid", res_=x_t))],
+            ["b1 left out", "h kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 10, 3,
+            nbytes(x8_t, w1_t, b1_t, w2_t, b2_t, x_t) + nbytes(x_t), mlp_flops_t, None),
+        "fused_mlp_train[D=192]": (
+            lambda: fused_mlp_train(x8_t, w1_t, b1_t, w2_t, b2_t, x_t, gate_r),
+            lambda: fused_mlp_plain(x8_t, w1_t, b1_t, w2_t, b2_t, x_t, gate=gate_r),
+            lambda: fused_mlp_plain(x8_t, w1_t, b1_t, w2_t, b2_t, x_t),
+            "gate ignored", (rel_l2,), (1e-3,), 10, 3,
+            nbytes(x8_t, w1_t, b1_t, w2_t, b2_t, x_t, gate_r) + nbytes(x_t), mlp_flops_t, None),
+        "fused_mlp_bwd[D=192]": (
+            lambda: dx_twice(fused_mlp_bwd(x8_t, w1_t, b1_t, w2_t, gate_r, dy_t)),
+            lambda: dx_twice(fused_mlp_bwd_plain(x8_t, w1_t, b1_t, w2_t, gate_r, dy_t)),
+            [lambda: dx_twice(fused_mlp_bwd_plain(x8_t, w1_t, b1_t, w2_t, None, dy_t)),
+             lambda: dg_f32(lambda: fused_mlp_bwd_plain(x8_t, w1_t, b1_t, w2_t, gate_r, dy_t),
+                            x8_t, w1_t, b1_t, w2_t, gate_r, dy_t)],
+            ["gate ignored", "dg kept in f32"], BWD_METRICS[5], BWD_LIMITS[5], 5, 2,
+            3 * nbytes(x8_t) + nbytes(w1_t, b1_t, w2_t, gate_r)
+            + 4 * (dt_ + hid_t + 2 * dt_ * hid_t), 5 * mlp_flops_t // 2, None),
         # ViT-Ti's adapter instances: held, not listed (their launches count
         # under fused_ln_dense[D=192] and fused_ln_dense_bwd[D=192])
         "fused_ln_dense[adapter,D=192]": (
@@ -1467,6 +1523,7 @@ def main() -> None:
             x + mlp_chain(x, w1, b1, w2, b2, "sigmoid", ln[:2]), ln[2:]),
         "fused_ln_mlp_train": lambda: x3 + mlp_chain(x3, w1, b1, w2, b2, "erf", ln[:2]) * gate16,
         "fused_mlp": lambda: x + mlp_chain(x8, w1, b1, w2, b2, "sigmoid"),
+        "fused_mlp[D=192]": lambda: x_t + mlp_chain(x8_t, *w_t, "sigmoid"),
         "fused_ln_mlp[D=192]": lambda: mlp_next_ln(
             x_t + mlp_chain(x_t, *w_t, "sigmoid", ln_t[:2]), ln_t[2:]),
         "fused_ln_mlp_train[D=192]": lambda: train_t[0] + mlp_chain(
@@ -1622,12 +1679,15 @@ def main() -> None:
     draws = StepDraws(draw_dropout(cfg.augment, g.height_px, g.width_px, batch, gen, dev),
                       torch.rand(batch * n_anchor, generator=gen, device=dev))
 
-    def loss_and_grads(plain_ops, net=model, step_cfg=cfg):
-        """One step at lr 0 with the same draws and drop-path gates: the
-        metrics and every parameter's gradient (f32)."""
+    def loss_and_grads(plain_ops, net=model, step_cfg=cfg, batch_=None, draws_=None):
+        """One step at lr 0 with the same draws and drop-path gates (on
+        ``batch_`` with ``draws_``, by default phase 5's): the metrics and
+        every parameter's gradient (f32)."""
         net.plain_ops = plain_ops
         step0 = make_train_step(net, step_cfg, anchors, torch.optim.SGD(net.parameters(), lr=0.0))
-        m = step0(tbatch, torch.Generator(device="cuda").manual_seed(1), draws)
+        m = step0(tbatch if batch_ is None else batch_,
+                  torch.Generator(device="cuda").manual_seed(1),
+                  draws if draws_ is None else draws_)
         return ({k_: float(t) for k_, t in m.items()},
                 {k_: p_.grad.detach().float().clone() for k_, p_ in net.named_parameters()})
 
@@ -1935,11 +1995,13 @@ def main() -> None:
                                                "fused_ln_mlp": 24, "layernorm": 4}),
     }
     def serve_config(cname, vcfg, transport, per_req, failures, net_params=params,
-                     reqs=requests):
+                     reqs=requests, control=None):
         """Serve ``reqs`` under ``vcfg`` with ``net_params``: launch counts per
         request as ``per_req``, logits against the plain path (control: the
-        plain path with the erf GELU), fixed-shape finite Detections,
-        frames/s; the counts of the timed requests are returned."""
+        plain path with the erf GELU, or with ``control`` = (parameters with
+        a fault, the fault's name), those parameters), fixed-shape finite
+        Detections, frames/s; the counts of the timed requests are
+        returned."""
         vinf = StreamingInferencer(vcfg, net_params, "cuda", transport=transport, gelu="sigmoid")
         vinf(*requests[0])  # warm-up
         torch.cuda.synchronize()
@@ -1960,14 +2022,15 @@ def main() -> None:
         got = config_logits(vinf)
         want = config_logits(StreamingInferencer(vcfg, net_params, "cuda", transport=transport,
                                                  gelu="sigmoid", plain_ops=True))
-        ctrl = config_logits(StreamingInferencer(vcfg, net_params, "cuda", transport=transport,
-                                                 gelu="erf", plain_ops=True))
+        ctrl_params, fault = control or (net_params, "plain, erf GELU in the blocks")
+        ctrl = config_logits(StreamingInferencer(vcfg, ctrl_params, "cuda", transport=transport,
+                                                 gelu="sigmoid" if control else "erf",
+                                                 plain_ops=True))
         for name, a, wdt in zip(("cls", "box", "intent"), got, widths):
             check(tuple(a.shape) == (batch, n_anchor, wdt),
                   f"{cname}: {name} logits shape {tuple(a.shape)}")
         sound, ctrl_r = compare(f"{cname} logits", got, want, ctrl, (rel_l2,) * 3,
-                                CONFIG_LIMITS[cname], "plain, erf GELU in the blocks",
-                                failures)
+                                CONFIG_LIMITS[cname], fault, failures)
         for det in vdets:
             check(det.boxes_xywha.shape == (batch, ev.max_detections, 5), f"{cname}: boxes shape")
             check(det.scores.shape == det.valid.shape == (batch, ev.max_detections),
@@ -1977,7 +2040,7 @@ def main() -> None:
         fmt3 = ", ".join
         print(f"config {cname} ({transport}): launches per request {per_req}; logits kernel vs "
               f"plain, relative L2 (cls, box, intent) [{fmt3(f'{r:.3e}' for r in sound)}] under "
-              f"{CONFIG_LIMITS[cname][0]:g}; control (plain, erf GELU in the blocks) "
+              f"{CONFIG_LIMITS[cname][0]:g}; control ({fault}) "
               f"[{fmt3(f'{r:.3e}' for r in ctrl_r)}]; valid per frame "
               f"{vdets[0].valid.sum(1).tolist()}; {len(reqs) * batch / elapsed:.2f} frames/s "
               f"over {len(reqs)} requests of {batch} [{card}]", flush=True)
@@ -2207,6 +2270,13 @@ def main() -> None:
         "Ti D fuse_patch_embed", tcfg_d, transport_d,
         {"patch_embed": 1, "flash_attention": 24, "fused_ln_mlp": 24, "layernorm": 4},
         config_failures, tparams, requests[:1])
+    # and under C use_fused_layernorm=False (row 13 at D=192 after the plain
+    # FastLayerNorms), one request over chunks
+    tcfg_c, transport_c = vit_serving_variant(tcfg, "unfused_ln")
+    tiny_c_serve_counts = serve_config(
+        "Ti C use_fused_layernorm=False", tcfg_c, transport_c,
+        {"voxel_embed": 1, "flash_attention": 24, "fused_mlp": 24}, config_failures, tparams,
+        requests[:1])
     check(not config_failures, "; ".join(config_failures))
     tiny_b_train_counts = train_config(
         "Ti B fuse_ln_dense", tcfg_b, tparams,
@@ -2214,6 +2284,10 @@ def main() -> None:
          "flash_attention_bwd": 24, "fused_ln_mlp_train": 24, "fused_ln_mlp_bwd": 24,
          "layernorm_train": 2, "layernorm_bwd": 2}, *train_by_config["B fuse_ln_dense"][2:],
         steps=1)
+    tiny_c_train_counts = train_config(
+        "Ti C use_fused_layernorm=False", tcfg_c, tparams,
+        {"flash_attention": 24, "flash_attention_bwd": 24, "fused_mlp_train": 24,
+         "fused_mlp_bwd": 24}, *train_by_config["C use_fused_layernorm=False"][2:])
 
     # 11. the flash backward's forms (row 11): JAX's split and chunked
     # backwards (INTENTBEV_BWD_FUSED=0, INTENTBEV_BWD_KV_CHUNK) as the model's
@@ -3031,8 +3105,230 @@ def main() -> None:
           f"{tp[0]['default']['peak_gib']:.2f} / {tp[1]['default']['peak_gib']:.2f} GiB a rank; "
           f"phase 5's one-device step {vit_step_ms:.2f} ms [{card}]", flush=True)
     del p5_grads, p5_ref, kernel_steps
-    tmp14.cleanup()  # phases 15 and 16 read phase 14's run and phase 15's inputs there
     print(f"tp: phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # 17. the last modules: reference checkpoints imported through the CLI and
+    # served through the kernels, a train step over the image-space
+    # augmentation, and the example and tool twins through their entry points
+    from intentbev_torch.bev.augment import draw_image_aug
+    from intentbev_torch.import_torch import import_cnn_state_dict, import_vit_state_dict
+
+    t17 = time.perf_counter()
+    tmp17 = tempfile.TemporaryDirectory(prefix="smoke17_")
+    root17, repo = Path(tmp17.name), Path(__file__).resolve().parent
+
+    def reference_state_dict(rcfg, seed):
+        """A reference-schema state dict of ``rcfg``'s family at its widths:
+        the port's names mapped back (timm's interiors keep theirs; the patch
+        embed is a conv [D, C, P, P]), every value a numpy draw from ``seed``
+        (timm's std 0.02 for the ViT's weights, fan-in scaled convolutions)."""
+        rng = np.random.default_rng(seed)
+        sd = {}
+        for key, t_ in init_params(rcfg).items():
+            shape, vit_part = tuple(t_.shape), ".vit_" in key
+            if vit_part and "patch_embed" in key:
+                key = key.replace("patch_embed", "patch_embed.proj")
+                shape = shape[::-1][:2] + shape[:2] if len(shape) == 4 else shape
+            elif not vit_part:
+                key = (key.replace("fusion.blocks.", "fusion_block.").replace(".blocks.", ".")
+                       .replace("proj_conv", "downsample.0").replace("proj_bn", "downsample.1")
+                       .replace("_norm.", ".0.").replace("_proj.", ".1."))
+            if key.endswith("num_batches_tracked"):
+                sd[key] = torch.tensor(0)
+                continue
+            if key.endswith("running_var"):
+                a_ = 0.5 + rng.uniform(size=shape)
+            elif len(shape) == 4 and not vit_part:
+                a_ = rng.normal(0.0, np.prod(shape[1:]) ** -0.5, shape)
+            elif len(shape) >= 2:
+                a_ = rng.normal(0.0, 0.02, shape)
+            elif key.endswith("weight"):  # LayerNorm and BatchNorm scales
+                a_ = 1.0 + 0.1 * rng.normal(size=shape)
+            else:
+                a_ = 0.02 * rng.normal(size=shape)
+            sd[key] = torch.from_numpy(a_.astype(np.float32))
+        return sd
+
+    def faulty_reference(sd):
+        """The control's fault: the ViT's packed qkv rows taken k-first
+        (k, q, v); the CNN's conv1 kernels with their two spatial axes swapped."""
+        out = dict(sd)
+        for key, t_ in sd.items():
+            if key.endswith(("attn.qkv.weight", "attn.qkv.bias")):
+                d_ = t_.shape[0] // 3
+                out[key] = torch.cat([t_[d_:2 * d_], t_[:d_], t_[2 * d_:]])
+            elif key.endswith("conv1.weight") and ".vit_" not in key:
+                out[key] = t_.transpose(2, 3).contiguous()
+        return out
+
+    imports17 = {  # name: (config, --model, timm model name, launches per request)
+        "import CNN": (default_cnn_config(), "cnn", None, {"voxel_fill": 1}),
+        "import ViT-S": (cfg, "vit", "vit_small_patch8_224", per_request),
+        "import ViT-Ti": (tcfg, "vit", "vit_tiny_patch8_224",
+                          {"voxel_embed": 1, "layernorm": 4, "fused_ln_mlp": 2 * v.depth,
+                           "flash_attention": 2 * v.depth})}
+    ref_sds, procs = {}, {}
+    for seed, (name, (rcfg, family, timm_name, _)) in enumerate(imports17.items()):
+        ref_sds[name] = reference_state_dict(rcfg, 100 + seed)
+        pth = root17 / f"{family}{seed}.pth"
+        torch.save({"epoch": 3, "model_state_dict": ref_sds[name], "optimizer_state_dict": {},
+                    "backbone_cfg": {"vit_model_name_lidar": timm_name,
+                                     "img_size": list(rcfg.vit.img_size)} if timm_name else {}},
+                   pth)
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "intentbev_torch.import_torch", str(pth),
+             str(root17 / name.replace(" ", "_")), "--model", family],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for name, proc in procs.items():  # the three CLIs ran side by side
+        out, err = proc.communicate(timeout=300)
+        check(proc.returncode == 0 and "imported -> " in out,
+              f"{name}: the import CLI exited {proc.returncode}: {out[-2000:]} {err[-2000:]}")
+    t_import = time.perf_counter() - t17
+
+    def start_twin(*argv):
+        """Start one entry point of the repo in a child process."""
+        return (subprocess.Popen([sys.executable, *map(str, argv)], cwd=repo, text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+                argv[0], time.perf_counter())
+
+    def finish_twin(started, timeout=300):
+        """Wait for a started child: its stdout and seconds."""
+        proc, name, t0_ = started
+        out_, err_ = proc.communicate(timeout=timeout)
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}: {out_[-2000:]} "
+                                    f"{err_[-3000:]}")
+        return out_, time.perf_counter() - t0_
+
+    # the four twins, side by side with each other and with the checks
+    # below: the synthetic twin (host only), score_range_torch on phase 14's
+    # checkpoint and split, serve_chunks_torch, soak_loader_torch on phase
+    # 14's split. Their rates are read side by side: a sanity check that each
+    # runs, not a measurement of it
+    synth17 = root17 / "synth"
+    twins = {
+        "synth": start_twin("examples/make_synthetic_dataset_torch.py", "--out", synth17,
+                            "--train_logs", 1, "--val_logs", 1, "--frames", 10),
+        "score_range": start_twin("tools/score_range_torch.py", "--ckpt_dir", run_dir,
+                                  "--data_dir", split, "--batch", 2),
+        "serve_chunks": start_twin("examples/serve_chunks_torch.py", "--batches", 2),
+        "soak_loader": start_twin("tools/soak_loader_torch.py", "--data", split,
+                                  "--samples", 200, "--workers", 4)}
+
+    def stop_twins():
+        """Kill a twin still running when the smoke exits (a failed check)."""
+        for proc_, _, _ in twins.values():
+            if proc_.poll() is None:
+                proc_.kill()
+                proc_.wait()
+
+    atexit.register(stop_twins)
+    failures17 = []
+    for name, (rcfg, family, timm_name, per_req) in imports17.items():
+        state, icfg = load_checkpoint(root17 / name.replace(" ", "_"))
+        check(icfg.model_family == family and (family == "cnn" or (
+            icfg.vit.embed_dim, icfg.vit.num_heads, icfg.vit.depth)
+            == (rcfg.vit.embed_dim, rcfg.vit.num_heads, rcfg.vit.depth)),
+            f"{name}: the imported config reads {icfg.vit if family == 'vit' else icfg.cnn}")
+        bad = faulty_reference(ref_sds[name])
+        ctrl_params = (import_cnn_state_dict(bad, icfg.cnn) if family == "cnn" else
+                       import_vit_state_dict(bad, fusion_layers=icfg.vit.fusion_layers))
+        serve_config(
+            name, icfg, "chunks", per_req, failures17, state["model"], requests[:1],
+            control=(ctrl_params, "plain, the qkv rows imported k-first" if family == "vit"
+                     else "plain, conv1's kernels imported with kh and kw swapped"))
+        del state, ctrl_params, bad
+    check(not failures17, "; ".join(failures17))
+    del ref_sds
+    print(f"last modules: 3 reference checkpoints (CNN, ViT-S, ViT-Ti at full width) "
+          f"imported by python -m intentbev_torch.import_torch in {t_import:.1f} s (three "
+          f"processes side by side, the .pth writes included) and served through the "
+          f"kernels [{card}]", flush=True)
+
+    # the image-space augmentation: phase 5's batch without aug_params, every
+    # sample flipped, rotated by 5 degrees and scaled by 1.03, no dropout
+    fixed = dataclasses.replace(cfg.augment, flip_prob=1.0, rotate_prob=1.0,
+                                rotate_range_deg=(5.0, 5.0), scale_prob=1.0,
+                                scale_range=(1.03, 1.03), dropout_prob=0.0)
+    acfg = dataclasses.replace(cfg, augment=fixed)
+    lbatch = {k_: t_ for k_, t_ in tbatch.items() if k_ != "aug_params"}
+    lgen = torch.Generator(device="cuda").manual_seed(3)
+    ldraws = StepDraws(draw_dropout(fixed, g.height_px, g.width_px, batch, lgen, dev),
+                       draws.intent_u, draw_image_aug(fixed, batch, lgen, dev))
+    im = ldraws.image
+    check(bool(im.do_flip.all() and im.do_rot.all() and im.do_scale.all())
+          and not bool(ldraws.dropout.do_drop.any()), f"fixed draws: {im}")
+    lnet = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32)
+    lnet.load_state_dict(params)
+    lnet.to(dev)
+    _build.reset_launch_counts()
+    m_k, g_k = loss_and_grads(False, lnet, acfg, lbatch, ldraws)
+    legacy_counts = dict(_build.launches)
+    check(legacy_counts == {k_: vit_per_step.get(k_, 0) for k_ in legacy_counts},
+          f"image-space augmentation step: launch counts {legacy_counts} != {vit_per_step}")
+    check(all(np.isfinite(val) for val in m_k.values()) and all(
+        bool(torch.isfinite(t_).all()) for t_ in g_k.values()), f"non-finite step {m_k}")
+    m_p, g_p = loss_and_grads(True, lnet, acfg, lbatch, ldraws)
+    m_c, g_c = loss_and_grads(True, lnet, acfg, lbatch,
+                              ldraws._replace(image=im._replace(angle_deg=-im.angle_deg)))
+    del lnet
+    sound_g, ctrl_g = grad_readings(g_k, g_p), grad_readings(g_c, g_p)
+    loss_rel = abs(m_k["loss"] - m_p["loss"]) / abs(m_p["loss"])
+    ctrl_loss = abs(m_c["loss"] - m_p["loss"]) / abs(m_p["loss"])
+    said = (f"sound {sound_g[:2]} (worst {sound_g[2]}), loss {loss_rel:.3e}; control "
+            f"{ctrl_g[:2]} (worst {ctrl_g[2]}), loss {ctrl_loss:.3e}; limits {grad_limit}, "
+            f"{worst_limit}, {loss_limit}")
+    check(sound_g[0] < grad_limit and sound_g[1] < worst_limit and loss_rel < loss_limit,
+          f"image-space augmentation step: kernel vs plain reaches a limit: {said}")
+    check(ctrl_g[0] >= grad_limit or ctrl_g[1] >= worst_limit or ctrl_loss >= loss_limit,
+          f"image-space augmentation step: the control stays under the limits: {said}")
+    print(f"last modules: train step without aug_params (image-space augmentation: flip, "
+          f"5 degrees, x1.03), kernel vs plain: loss {m_k['loss']:.6f} vs {m_p['loss']:.6f} "
+          f"(rel {loss_rel:.3e} < {loss_limit:g}); gradients relative L2 all "
+          f"{sound_g[0]:.3e} < {grad_limit:g}, worst {sound_g[1]:.3e} ({sound_g[2]}) < "
+          f"{worst_limit:g}; control (plain, theta with the wrong sign) all {ctrl_g[0]:.3e}, "
+          f"worst {ctrl_g[1]:.3e}, loss {ctrl_loss:.3e} caught; launches {legacy_counts}",
+          flush=True)
+    del g_k, g_p, g_c, lbatch, ldraws
+    torch.cuda.empty_cache()
+
+    # bench_torch's CNN chunk line with INTENTBEV_CNN_FILL_LAYOUT=f32's fill
+    _build.reset_launch_counts()
+    fill_line = bench_torch.run_mode("bev_frames_per_sec_per_chip_cnn_chunks", "cnn", iters=2,
+                                     voxembed=True, fill_dtype=torch.float32)
+    check(np.isfinite(fill_line["value"]) and fill_line["value"] > 0
+          and _build.launches["voxel_fill"] == 3, f"f32 fill line {fill_line}, "
+          f"{_build.launches['voxel_fill']} voxel_fill launches")
+    torch.cuda.empty_cache()
+
+    out, secs = finish_twin(twins["score_range"])
+    found = re.search(r"global score range over (\d+) attention calls: \[([+-][\d.]+), "
+                      r"([+-][\d.]+)\]", out)
+    check(found is not None and int(found[1]) == 2 * v.depth
+          and max(abs(float(found[2])), abs(float(found[3]))) < 88.0, f"score_range: {out}")
+    print(f"last modules: score_range_torch on phase 14's checkpoint and split ({secs:.1f} s): "
+          f"{found[0]}; {out.strip().splitlines()[-1]}", flush=True)
+    out, secs = finish_twin(twins["synth"])
+    labelled = sorted(synth17.glob("*/*/annotations_with_intent.feather"))
+    check(len(labelled) == 2 and "done in" in out, f"synthetic twin: {labelled} {out[-500:]}")
+    print(f"last modules: the synthetic twin wrote 1 + 1 logs of 10 frames with labels in "
+          f"{secs:.1f} s", flush=True)
+    out, secs = finish_twin(twins["serve_chunks"])
+    rates = {k_: float(re.search(rf"^{k_}: .*?([\d.]+) (?:samples|frames)/s", out, re.M)[1])
+             for k_ in ("host chunk build", "device inference", "sustained pipeline")}
+    check(all(np.isfinite(r_) and r_ > 0 for r_ in rates.values()), f"serve_chunks: {out}")
+    print(f"last modules: serve_chunks_torch --batches 2 ({secs:.1f} s): host chunk build "
+          f"{rates['host chunk build']:g} samples/s, device {rates['device inference']:g} "
+          f"frames/s, sustained {rates['sustained pipeline']:g} frames/s [{card}]", flush=True)
+    out, secs = finish_twin(twins["soak_loader"])
+    soak = json.loads(out.strip().splitlines()[-1])
+    check(soak["samples"] >= 200 and np.isfinite(soak["value"]) and soak["value"] > 0
+          and 0 < soak["rss_start_mb"] <= soak["rss_peak_mb"], f"soak_loader: {soak}")
+    print(f"last modules: soak_loader_torch on phase 14's split ({secs:.1f} s): "
+          f"{soak['value']} samples/s over {soak['samples']} samples, RSS "
+          f"{soak['rss_start_mb']} -> {soak['rss_peak_mb']} MB (4 threads) [{card}]", flush=True)
+    tmp17.cleanup()
+    tmp14.cleanup()  # phases 15 to 17 read phase 14's run and phase 15's inputs there
+    print(f"last modules: phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
     serving_runs = (serve_counts, *config_counts.values())
     lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
@@ -3122,6 +3418,12 @@ def main() -> None:
              (tiny_a_serve_counts,)),
             ("patch_embed[D=192]", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
              (tiny_d_serve_counts,)),
+            ("fused_mlp[D=192]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103",
+             (tiny_c_serve_counts,)),
+            ("fused_mlp_train[D=192]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103",
+             (tiny_c_train_counts,)),
+            ("fused_mlp_bwd[D=192]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:148",
+             (tiny_c_train_counts,)),
             # row 11, and the packed path at head dim 32 (phase 11)
             ("flash_packed_bwd_split", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (form_counts["split"],)),
@@ -3157,7 +3459,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 49 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 52 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

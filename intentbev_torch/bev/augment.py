@@ -13,7 +13,16 @@ Counterpart of the point-space half of ``intentbev/bev/augment.py``:
   :func:`dropout_keep_mask` is the function of them, so a test can feed
   the JAX package's draws;
 - :func:`bilinear_sample`, JAX's ``_bilinear_sample``: the device map warp
-  of ``bev/city_raster.py`` samples with it.
+  of ``bev/city_raster.py`` samples with it;
+- the image-space path (``augment_bev`` / ``batched_augment_bev`` of the
+  JAX module), which the train step takes for a points batch without
+  ``aug_params``: :func:`draw_image_aug` draws the per-sample flip,
+  rotation and scale with JAX's distributions, and :func:`augment_bev` is
+  the function of those draws and the dropout's keep mask, JAX's math
+  step by step (the flip, the inverse affine about the ego origin in f32,
+  one bilinear sample over lidar and map concatenated, the map cast back
+  to its dtype, the GT rotated, scaled and wrapped, the dropout mask,
+  invalid GT kept as given).
 """
 
 from __future__ import annotations
@@ -178,3 +187,97 @@ def dropout_keep_mask(draws: DropoutDraws, h: int, w: int) -> torch.Tensor:
     in_patch = ((rows >= e(draws.r0)) & (rows < e(draws.r0 + draws.ph))
                 & (cols >= e(draws.c0)) & (cols < e(draws.c0 + draws.pw)))
     return ~(in_patch & e(active)).any(1)
+
+
+class ImageAugDraws(NamedTuple):
+    """Random numbers of the image-space augmentation, per sample: flip or
+    not, rotate or not and by how many degrees, scale or not and by what
+    factor (``angle_deg`` and ``s`` are drawn whether or not they apply, as
+    JAX draws them)."""
+
+    do_flip: torch.Tensor   # bool[B]
+    do_rot: torch.Tensor    # bool[B]
+    angle_deg: torch.Tensor  # f32[B], uniform over rotate_range_deg
+    do_scale: torch.Tensor  # bool[B]
+    s: torch.Tensor         # f32[B], uniform over scale_range
+
+
+def draw_image_aug(cfg, batch: int, generator: torch.Generator, device) -> ImageAugDraws:
+    """Draw the image-space augmentation's random numbers with the
+    distributions of ``intentbev/bev/augment.py::augment_bev``: Bernoulli
+    flip, rotation and scale with their probabilities, the angle and the
+    factor uniform over their ranges."""
+    def u(lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(batch, generator=generator, device=device)
+
+    return ImageAugDraws(u() < cfg.flip_prob, u() < cfg.rotate_prob, u(*cfg.rotate_range_deg),
+                         u() < cfg.scale_prob, u(*cfg.scale_range))
+
+
+def augment_bev(lidar_bev, map_bev, gt_boxes, gt_intentions, gt_valid, draws: ImageAugDraws,
+                keep_mask, grid):
+    """Image-space augmentation of a batch, JAX's ``batched_augment_bev`` as
+    a function of its draws: lidar [B, H, W, CL], map [B, H, W, CM], GT
+    boxes f32[B, G, 5], intentions [B, G], gt_valid [B, G], the dropout's
+    keep mask bool[B, H, W]. Returns (lidar, map, boxes, intentions):
+    lidar is f32, the dtype of the bilinear sample (as in JAX, whose
+    ``where`` promotes it); the map is cast back to its dtype before the
+    dropout mask, which has lidar's dtype."""
+    dev = lidar_bev.device
+    h, w = grid.height_px, grid.width_px
+    oy, ox, vs = grid.pixel_offset_y, grid.pixel_offset_x, grid.voxel_size_m
+
+    # flip: mirror the W axis, negate cy and yaw, swap left and right
+    flip = draws.do_flip.to(dev)
+    lidar_bev = torch.where(flip[:, None, None, None], lidar_bev.flip(2), lidar_bev)
+    map_bev = torch.where(flip[:, None, None, None], map_bev.flip(2), map_bev)
+    boxes = torch.where(flip[:, None, None],
+                        gt_boxes * torch.tensor([1.0, -1.0, 1.0, 1.0, -1.0], device=dev),
+                        gt_boxes)
+    table = torch.as_tensor(FLIP_INTENT_TABLE, device=dev).long()
+    intents = torch.where(flip[:, None], table[gt_intentions.long().clamp(min=0)].to(
+        gt_intentions.dtype), gt_intentions)
+
+    # rotate + scale as one inverse affine about the ego origin, in f32
+    f32 = torch.float32
+    do_rot, do_scale = draws.do_rot.to(dev), draws.do_scale.to(dev)
+    deg = torch.tensor(np.float32(np.pi / 180.0), device=dev)
+    theta = torch.where(do_rot, draws.angle_deg.to(dev, f32) * deg, torch.zeros((), device=dev))
+    s = torch.where(do_scale, draws.s.to(dev, f32), torch.ones((), device=dev))
+    rows = torch.arange(h, device=dev, dtype=f32)[:, None].expand(h, w)
+    cols = torch.arange(w, device=dev, dtype=f32)[None, :].expand(h, w)
+    x_out = (oy - rows) * vs
+    y_out = (cols - ox) * vs
+    ct, st = torch.cos(-theta)[:, None, None], torch.sin(-theta)[:, None, None]
+    sb = s[:, None, None]
+    x_src = (ct * x_out - st * y_out) / sb
+    y_src = (st * x_out + ct * y_out) / sb
+    src_rows = oy - x_src / vs
+    src_cols = ox + y_src / vs
+    identity = ~do_rot & ~do_scale
+
+    # lidar and map warped as one tensor; a sample that neither rotates nor
+    # scales keeps its values
+    cl, map_dtype = lidar_bev.shape[-1], map_bev.dtype
+    combined = torch.cat([lidar_bev, map_bev.to(lidar_bev.dtype)], dim=-1)
+    sampled = torch.stack([bilinear_sample(combined[i], src_rows[i], src_cols[i])
+                           for i in range(combined.shape[0])])
+    warped = torch.where(identity[:, None, None, None], combined, sampled)
+    lidar_bev = warped[..., :cl]
+    map_bev = warped[..., cl:].to(map_dtype)
+
+    # GT: rotate centres and heading, then scale cx, cy, w, l; wrap the yaw
+    ca, sa = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+    cx, cy, bw, bl, yaw = boxes.unbind(-1)
+    yaw = yaw + theta[:, None]
+    sg = s[:, None]
+    boxes = torch.stack([(cx * ca - cy * sa) * sg, (cx * sa + cy * ca) * sg, bw * sg, bl * sg,
+                         torch.atan2(torch.sin(yaw), torch.cos(yaw))], dim=-1)
+
+    keep = keep_mask[..., None].to(lidar_bev.dtype)  # promotes the map, as in JAX
+    lidar_bev = lidar_bev * keep
+    map_bev = map_bev * keep
+
+    valid = gt_valid.bool()
+    return (lidar_bev, map_bev, torch.where(valid[..., None], boxes, gt_boxes),
+            torch.where(valid, intents, gt_intentions).int())

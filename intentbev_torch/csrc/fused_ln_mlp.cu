@@ -461,7 +461,7 @@ int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
 }  // namespace
 
 // hidden must be a multiple of 64 in every entry; d (the width of x) is
-// 384 or 192 in the LN entries, 384 in those without LN.
+// 384 or 192.
 extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
                                 const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* gn, const void* bn,
@@ -492,9 +492,12 @@ extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void*
 // (1, serving).
 extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, const void* w2,
                              const void* b2, const void* res, const void* gate, void* y,
-                             int n_rows, int hidden, int gelu_mode, void* stream) {
-  return dispatch<384, false, false>(gelu_mode, h, nullptr, nullptr, w1, b1, w2, b2, nullptr,
-                                nullptr, gate, res, y, nullptr, n_rows, hidden, 0.f, stream);
+                             int n_rows, int d, int hidden, int gelu_mode, void* stream) {
+  return by_width(d, [&](auto w) {
+    return dispatch<decltype(w)::value, false, false>(gelu_mode, h, nullptr, nullptr, w1, b1,
+                                                      w2, b2, nullptr, nullptr, gate, res, y,
+                                                      nullptr, n_rows, hidden, 0.f, stream);
+  });
 }
 
 
@@ -1137,15 +1140,18 @@ extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* b
   });
 }
 
-// Backward of the MLP without LN: dh = dg W1 (bf16 [n_rows, 384]; the
-// residual's gradient is dy, added by the caller), dw1, db1, dw2, db2 as
-// above. Workspaces as above without xn_ws.
+// Backward of the MLP without LN, d = 384 or 192: dh = dg W1 (bf16
+// [n_rows, d]; the residual's gradient is dy, added by the caller), dw1,
+// db1, dw2, db2 as above. Workspaces as above without xn_ws.
 extern "C" int ibk_fused_mlp_bwd(const void* h, const void* w1, const void* b1,
                                  const void* w2, const void* gate, const void* dy, void* dh,
                                  void* dw1, void* db1, void* dw2, void* db2, void* dye_ws,
-                                 void* a_ws, void* dg_ws, void* part, int n_rows, int hidden,
-                                 int splits, void* stream) {
-  return mlp_bwd<384, false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh, nullptr, nullptr, dw1,
-                        db1, dw2, db2, nullptr, dye_ws, a_ws, dg_ws, part, n_rows, hidden,
-                        0.f, splits, stream);
+                                 void* a_ws, void* dg_ws, void* part, int n_rows, int d,
+                                 int hidden, int splits, void* stream) {
+  return by_width(d, [&](auto w) {
+    return mlp_bwd<decltype(w)::value, false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh,
+                                              nullptr, nullptr, dw1, db1, dw2, db2, nullptr,
+                                              dye_ws, a_ws, dg_ws, part, n_rows, hidden, 0.f,
+                                              splits, stream);
+  });
 }

@@ -24,6 +24,7 @@ import torch
 from ._build import check_launch, kernels, require, stream_ptr
 from .fused_ln_mlp import (GELU_MODES, _gate_arg, _gate_rows, bwd_workspace, gelu,
                            gelu_erf_grad, ln_mlp_bwd_splits)
+from .layernorm import WIDTHS
 
 
 def fused_mlp_plain(h, w1, b1, w2, b2, residual, gelu_mode: str = "erf", gate=None):
@@ -44,7 +45,7 @@ def _check_args(h, w1, b1, w2, name):
     d, hidden = h.shape[-1], w1.shape[0]
     require(h.is_cuda and h.dtype == torch.bfloat16 and h.is_contiguous(),
             f"{name}: want contiguous CUDA bf16 h, got {h.dtype} {h.device}")
-    require(d == 384, f"{name} kernel is built for D=384, got {d}")
+    require(d in WIDTHS, f"{name} kernel is built for D in {WIDTHS}, got {d}")
     require(hidden % 64 == 0, f"{name}: hidden {hidden} not a multiple of 64")
     for wname, w, shape in (("w1", w1, (hidden, d)), ("w2", w2, (d, hidden))):
         require(w.device == h.device and w.dtype == torch.bfloat16
@@ -73,15 +74,16 @@ def _launch_fwd(h, w1, b1, w2, b2, residual, gelu_mode, gate, name):
     err = kernels().ibk_fused_mlp(
         h.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         residual.data_ptr(), None if g is None else g.data_ptr(), y.data_ptr(),
-        h.numel() // d, w1.shape[0], GELU_MODES.index(gelu_mode), stream_ptr(h))
+        h.numel() // d, d, w1.shape[0], GELU_MODES.index(gelu_mode), stream_ptr(h))
     check_launch(err, name)
     return y
 
 
 def fused_mlp(h, w1, b1, w2, b2, residual, gelu_mode: str = "erf", gate=None):
-    """Serving: ``residual + gate * mlp(h)`` of contiguous bf16 [..., 384]
-    CUDA tensors (f32 biases, bf16 weights; ``gate`` f32 broadcastable to
-    h.shape[:-1], or None for 1). CPU tensors take :func:`fused_mlp_plain`."""
+    """Serving: ``residual + gate * mlp(h)`` of contiguous bf16 [..., D]
+    CUDA tensors, D in ``layernorm.WIDTHS`` (f32 biases, bf16 weights;
+    ``gate`` f32 broadcastable to h.shape[:-1], or None for 1). CPU tensors
+    take :func:`fused_mlp_plain`."""
     return _launch_fwd(h, w1, b1, w2, b2, residual, gelu_mode, gate, "fused_mlp")
 
 
@@ -137,7 +139,7 @@ def fused_mlp_bwd(h, w1, b1, w2, gate, dy):
         h.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         None if g is None else g.data_ptr(), dy.data_ptr(), dh.data_ptr(), dw1.data_ptr(),
         db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dye_ws.data_ptr(), act_ws.data_ptr(),
-        dg_ws.data_ptr(), part.data_ptr(), n, hidden, splits, stream_ptr(h))
+        dg_ws.data_ptr(), part.data_ptr(), n, d, hidden, splits, stream_ptr(h))
     check_launch(err, "fused_mlp_bwd")
     return dh, dw1, db1, dw2, db2
 

@@ -6,7 +6,10 @@ of the step does what the JAX program does:
 
 - points transport: decode the i16 transport points, apply the host-drawn
   point-space augmentation to points and GT, voxelize on the device
-  (scatter-max); chunk train transport (the host already augmented the
+  (scatter-max); a points batch without ``aug_params`` is voxelized first
+  and then takes the image-space augmentation of the BEVs and GT
+  (``bev.augment.augment_bev``, the JAX step's ``batched_augment_bev``);
+  chunk train transport (the host already augmented the
   points and built placement chunks, ``data.pipeline``): decode the
   chunks, fill the dense BEV with the ``voxel_fill`` kernel, and augment
   only the GT; either way, apply the patch-dropout mask to the lidar BEV
@@ -14,9 +17,10 @@ of the step does what the JAX program does:
 - the model forward in training mode, the loss, the backward;
 - the AdamW update.
 
-The random draws of a step (patch dropout, drop-path gates, the intention
-drop's uniforms) come from the ``torch.Generator`` the caller passes, or,
-for the dropout and the uniforms, from explicit :class:`StepDraws` (a test
+The random draws of a step (patch dropout, the image-space augmentation's
+flip, rotation and scale where the batch takes it, drop-path gates, the
+intention drop's uniforms) come from the ``torch.Generator`` the caller
+passes, or, but for the gates, from explicit :class:`StepDraws` (a test
 feeds the JAX package's draws). The metrics stay on the device. Each
 stage of the step runs in a ``torch.profiler.record_function`` span
 (``train/inputs``, which holds the fill, ``train/forward``, ``train/loss``,
@@ -66,13 +70,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .bev.augment import (DropoutDraws, augment_gt, augment_points_gt, draw_dropout,
-                          dropout_keep_mask)
+from .bev.augment import (DropoutDraws, ImageAugDraws, augment_bev, augment_gt,
+                          augment_points_gt, draw_dropout, draw_image_aug, dropout_keep_mask)
 from .bev.rasterize import decode_map_transport
 from .bev.voxelize import dequantize_points, voxelize_packed
 from .ops.voxel_embed import (CNN_CHUNK_PATCH, VoxelChunks, decode_chunk_transport,
                               voxel_fill_bev, voxel_fill_bev_plain)
-from .utils.distributed import DataGroup, all_reduce_sum, global_rand, rank_slice
+from .utils.distributed import DataGroup, all_reduce_sum, rank_slice
 
 METRICS = ("loss", "cls_loss", "box_loss", "intent_loss", "num_pos_anchors")
 
@@ -171,11 +175,19 @@ def compute_intention_class_weights(sequences, loader, num_classes: int = 8,
 
 
 class StepDraws(NamedTuple):
-    """A step's data draws: the patch dropout and the intention drop's
-    uniforms f32[B * num_anchors]."""
+    """A step's data draws: the patch dropout, the intention drop's
+    uniforms f32[B * num_anchors], and the image-space augmentation's draws
+    (None where the batch carries ``aug_params``)."""
 
     dropout: DropoutDraws
     intent_u: torch.Tensor
+    image: ImageAugDraws | None = None
+
+
+def takes_image_aug(batch) -> bool:
+    """Whether a batch takes the image-space augmentation: a points batch
+    without host-drawn ``aug_params``."""
+    return "aug_params" not in batch and "chunks" not in batch
 
 
 def chunk_patch_for(cfg) -> int:
@@ -185,14 +197,22 @@ def chunk_patch_for(cfg) -> int:
 
 
 def augmented_inputs(batch, keep_mask, grid, dtype, chunk_patch: int = CNN_CHUNK_PATCH,
-                     plain: bool = False):
+                     plain: bool = False, image_draws: ImageAugDraws | None = None):
     """Points or chunk transport -> (lidar BEV, map, gt_boxes,
     gt_intentions), the dropout's keep mask bool[B, H, W] applied to both
     BEVs. Chunks are filled with ``voxel_fill_bev`` (its plain version
-    when ``plain``) at the band geometry of ``chunk_patch``."""
+    when ``plain``) at the band geometry of ``chunk_patch``. A points batch
+    without ``aug_params`` is voxelized, then augmented in image space
+    with ``image_draws``; a chunks batch needs ``aug_params`` (the host
+    applied them to its points)."""
     if "aug_params" not in batch:
-        raise ValueError("the port's step takes the point-space path: the batch "
-                         "needs host-drawn aug_params")
+        if "chunks" in batch:
+            raise ValueError("a chunks batch needs the host-drawn aug_params its points took")
+        lidar = voxelize_packed(dequantize_points(batch["points"]), batch["points_valid"],
+                                grid, out_dtype=dtype)
+        map_in = decode_map_transport(batch["map_bev"], grid.map_channels, dtype)
+        return augment_bev(lidar, map_in, batch["gt_boxes"], batch["gt_intentions"],
+                           batch["gt_valid"], image_draws, keep_mask, grid)
     keep = keep_mask[..., None].to(dtype)
     map_bev = decode_map_transport(batch["map_bev"], grid.map_channels, dtype) * keep
     if "chunks" in batch:
@@ -212,14 +232,25 @@ def augmented_inputs(batch, keep_mask, grid, dtype, chunk_patch: int = CNN_CHUNK
 
 
 def global_draws(aug_cfg, grid, b: int, num_anchors: int, generator, device,
-                 group: DataGroup | None = None) -> StepDraws:
+                 group: DataGroup | None = None, image: bool = False) -> StepDraws:
     """A step's data draws for the global batch of ``group`` (``b`` samples
     a rank), cut to this rank: the same generator state gives the same
-    draws for a sample at any world size."""
+    draws for a sample at any world size. ``image``: draw the image-space
+    augmentation's numbers too (after the others)."""
     size = 1 if group is None else group.size
     dropout = draw_dropout(aug_cfg, grid.height_px, grid.width_px, b * size, generator, device)
-    return StepDraws(DropoutDraws(*(rank_slice(t, group) for t in dropout)),
-                     global_rand(b * num_anchors, group, generator, device))
+    intent_u = torch.rand(b * num_anchors * size, generator=generator, device=device)
+    image_draws = draw_image_aug(aug_cfg, b * size, generator, device) if image else None
+    return rank_draws(StepDraws(dropout, intent_u, image_draws), group)
+
+
+def rank_draws(draws: StepDraws, group: DataGroup | None) -> StepDraws:
+    """The global batch's draws cut to this rank's samples."""
+    def cut(t):
+        return None if t is None else rank_slice(t, group)
+
+    return StepDraws(DropoutDraws(*map(cut, draws.dropout)), cut(draws.intent_u),
+                     None if draws.image is None else ImageAugDraws(*map(cut, draws.image)))
 
 
 def all_reduce_grads(params, group: DataGroup | None) -> None:
@@ -276,15 +307,18 @@ def make_train_step(model, cfg, anchors: torch.Tensor, optimizer,
         span = torch.profiler.record_function
         b = batch["gt_boxes"].shape[0]
         with span("train/inputs"):
+            image = takes_image_aug(batch)
             if draws is None:
                 draws = global_draws(aug_cfg, grid, b, anchors.shape[0], generator,
-                                     anchors.device, group)
-            elif group is not None:
-                draws = StepDraws(DropoutDraws(*(rank_slice(t, group) for t in draws.dropout)),
-                                  rank_slice(draws.intent_u, group))
+                                     anchors.device, group, image)
+            else:
+                draws = rank_draws(draws, group)
+            if image and draws.image is None:
+                raise ValueError("a batch without aug_params takes the image-space "
+                                 "augmentation: its draws need StepDraws.image")
             keep = dropout_keep_mask(draws.dropout, grid.height_px, grid.width_px)
             lidar, map_bev, gt_boxes, gt_intents = augmented_inputs(
-                batch, keep, grid, dtype, chunk_patch, model.plain_ops)
+                batch, keep, grid, dtype, chunk_patch, model.plain_ops, draws.image)
         with span("train/forward"):
             model.train()
             cls_l, box_d, int_l = model(lidar, map_bev, generator, group)

@@ -5,7 +5,9 @@ Each factory's output is compared field by field (nested dataclasses,
 properties included), and the dict round trip is checked on the port's
 copy. The import rule is an AST scan of every module of ``intentbev_torch``
 and of its entry points: ``chip_smoke.py``, ``bench_torch.py``, every
-``tools/*_torch.py`` and every ``examples/*_torch.py`` (the demo twin).
+``tools/*_torch.py``, every ``examples/*_torch.py`` (the demo, synthetic
+dataset and chunk-serving twins) and ``tools/int8_attention_variants.py``, a
+port tool whose name lacks the suffix.
 """
 
 import ast
@@ -64,9 +66,14 @@ def test_port_imports_nothing_of_the_jax_package():
         ROOT / "tools" / "profile_torch_slice.py", ROOT / "tools" / "bench_flash_torch.py"]
     files += sorted(set((ROOT / "tools").glob("*_torch.py")) - set(files))
     files += sorted((ROOT / "examples").glob("*_torch.py"))
+    # a port tool whose name lacks the suffix
+    files.append(ROOT / "tools" / "int8_attention_variants.py")
     assert len(files) > 20
-    assert ROOT / "examples" / "end_to_end_demo_torch.py" in files
-    assert ROOT / "intentbev_torch" / "parallel" / "train_dp.py" in files
+    for entry in ("examples/end_to_end_demo_torch.py", "intentbev_torch/parallel/train_dp.py",
+                  "tools/int8_attention_variants.py", "intentbev_torch/import_torch.py",
+                  "examples/make_synthetic_dataset_torch.py", "examples/serve_chunks_torch.py",
+                  "tools/score_range_torch.py", "tools/soak_loader_torch.py"):
+        assert ROOT / entry in files and (ROOT / entry).is_file(), entry
     bad = [(p.relative_to(ROOT).as_posix(), m) for p in files for m in _imports_of(p)
            if m.split(".")[0] in ("intentbev", "jax", "jaxlib", "flax", "optax")]
     assert not bad, bad

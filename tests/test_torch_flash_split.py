@@ -438,7 +438,10 @@ def test_no_env_var_is_read_below_main():
     files = (sorted((ROOT / "intentbev_torch").rglob("*.py"))
              + [ROOT / "bench_torch.py", ROOT / "chip_smoke.py",
                 ROOT / "tools" / "bench_train_torch.py", ROOT / "tools" / "profile_torch_slice.py",
-                ROOT / "tools" / "bench_flash_torch.py"])
+                ROOT / "tools" / "bench_flash_torch.py"]
+             + [ROOT / f for f in ("examples/serve_chunks_torch.py",
+                                   "examples/make_synthetic_dataset_torch.py",
+                                   "tools/score_range_torch.py", "tools/soak_loader_torch.py")])
     bad = {p.relative_to(ROOT).as_posix(): [r for r in _env_reads(p) if r[1] != "main"]
            for p in files}
     assert not any(bad.values()), bad

@@ -42,8 +42,8 @@ not a multiple of its 128-row block, with and without the gate, both
 GELUs, D=384 and 192, LN or none; its outputs are also read by the share
 of elements that differ, which an h kept in f32 before fc2 must move. The
 Hopper LN+MLP backward (the row kernel and the dW products) runs at 1 to
-36008 rows, gated, ungated and with dropped rows, D=384 and 192 with LN and
-384 without; dx is also read by the share of elements that differ, which a
+36008 rows, gated, ungated and with dropped rows, D=384 and 192, with LN and
+without; dx is also read by the share of elements that differ, which a
 dg kept in f32 before the dxn product must move, and two calls must give the
 same bits. The Hopper LN + dense pair (row 14, forward and backward) runs
 at 1 to 36008 rows, D=384 and 192, qkv (Dout 3D, no GELU) and the adapter
@@ -200,7 +200,8 @@ def _share(got, want):
     ("fused_ln_mlp", 384, False), ("fused_ln_mlp", 192, False),
     ("fused_ln_mlp_train", 384, True), ("fused_ln_mlp_train", 384, False),
     ("fused_ln_mlp_train", 192, True), ("fused_ln_mlp_train", 192, False),
-    ("fused_mlp", 384, True), ("fused_mlp", 384, False)])
+    ("fused_mlp", 384, True), ("fused_mlp", 384, False),
+    ("fused_mlp", 192, True), ("fused_mlp", 192, False)])
 @pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
 @pytest.mark.parametrize("rows", [300, MAIN_ROWS])
 def test_ln_mlp_forward_edges(dev, rows, gelu, entry, d, gated):
@@ -556,14 +557,14 @@ def _rel_or_zero(got, want):
 
 
 @pytest.mark.parametrize("entry,d", [("fused_ln_mlp_bwd", 384), ("fused_ln_mlp_bwd", 192),
-                                     ("fused_mlp_bwd", 384)])
+                                     ("fused_mlp_bwd", 384), ("fused_mlp_bwd", 192)])
 @pytest.mark.parametrize("gating", ["gate", "none", "dropped"])
 @pytest.mark.parametrize("rows", [1, 50, 300, 4501, MAIN_ROWS])
 def test_ln_mlp_backward_edges(dev, rows, gating, entry, d):
     """The Hopper backward (64-row blocks of the row kernel, 64-row chunks
     of the dW products; rows past the last land as TMA's zeros) at row counts
     that are not a multiple of either, with a per-row gate, none, and the
-    first half of the rows dropped (gate 0), D=384 and 192 with LN, 384
+    first half of the rows dropped (gate 0), D=384 and 192, with LN and
     without: every output's relative L2 against the plain version, dx's
     share of differing elements (the control, dg kept in f32 before the dxn
     product, must move it past the limit), and two calls give the same bits.
@@ -750,6 +751,23 @@ def test_fused_mlp_int8(dev, rows, d, narrow, gelu):
         ctrl = _fused_mlp_int8_faulty(*args, gelu, "block_scale")
         assert _rel(got, ctrl) >= INT8_LIMIT and _share(got, ctrl) >= INT8_SHARE
     assert _share(got, _fused_mlp_int8_faulty(*args, gelu, "h_bf16")) >= INT8_SHARE
+
+
+@pytest.mark.parametrize("entry", ["fused_mlp", "fused_mlp_bwd"])
+def test_fused_mlp_refuses_other_widths(dev, entry):
+    """Row 13 takes D=384 and 192 (ViT-S and ViT-Ti); a ViT-B's 768 raises,
+    naming the width, and launches nothing."""
+    d = 768
+    x = _randn((64, d), 1.0, 0)
+    w1, w2 = _randn((4 * d, d), d ** -0.5, 5), _randn((d, 4 * d), (4 * d) ** -0.5, 7)
+    b1, b2 = _randn((4 * d,), 0.1, 6, torch.float32), _randn((d,), 0.1, 8, torch.float32)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="768"):
+        if entry == "fused_mlp":
+            fused_mlp(x, w1, b1, w2, b2, x)
+        else:
+            fused_mlp_bwd(x, w1, b1, w2, None, x)
+    assert launches[entry] == 0
 
 
 def test_fused_mlp_int8_refuses(dev):

@@ -167,11 +167,12 @@ def test_ln_mlp_backward_matches_jax(jax_runs, monkeypatch, d, gated):
     assert r[0] <= SHARE and max(r[1:]) <= REL, r
 
 
+@pytest.mark.parametrize("d", [384, 192])
 @pytest.mark.parametrize("gated", [True, False])
-def test_mlp_backward_matches_jax(jax_runs, monkeypatch, gated):
+def test_mlp_backward_matches_jax(jax_runs, monkeypatch, gated, d):
     """``fused_mlp_bwd_plain`` against ``fused_mlp._bwd_kernel`` through the
-    VJP of ``fused_mlp``."""
-    r = _readings(_port(False, 1, 384, gated), _jax(jax_runs, False, 1, 384, gated, monkeypatch))
+    VJP of ``fused_mlp``, at ViT-S's and ViT-Ti's widths."""
+    r = _readings(_port(False, 1, d, gated), _jax(jax_runs, False, 1, d, gated, monkeypatch))
     assert r[0] <= SHARE and max(r[1:]) <= REL, r
 
 

@@ -159,12 +159,13 @@ def test_training_forward_matches_jax(jax_runs, monkeypatch, gated, d):
     assert max(_shares(got, want)) <= SHARE, _shares(got, want)
 
 
+@pytest.mark.parametrize("d", [384, 192])
 @pytest.mark.parametrize("gelu_mode,gated", [("erf", True), ("sigmoid", False)])
-def test_mlp_without_ln_matches_jax(jax_runs, monkeypatch, gelu_mode, gated):
+def test_mlp_without_ln_matches_jax(jax_runs, monkeypatch, gelu_mode, gated, d):
     """``fused_mlp_plain`` (the gated training forward, the serving tail)
-    against ``fused_mlp._fwd``."""
-    want = _jax(jax_runs, "mlp", gelu_mode, 2, 384, gated, monkeypatch)
-    got = _port("mlp", gelu_mode, 2, 384, gated)
+    against ``fused_mlp._fwd``, at ViT-S's and ViT-Ti's widths."""
+    want = _jax(jax_runs, "mlp", gelu_mode, 2, d, gated, monkeypatch)
+    got = _port("mlp", gelu_mode, 2, d, gated)
     assert max(_shares(got, want)) <= SHARE, _shares(got, want)
 
 

@@ -51,14 +51,23 @@ def test_tiny_serves_like_jax(tiny_setup):
     check_serving(*tiny_setup, box_rtol=1e-5)
 
 
-def test_tiny_train_step_matches_jax(rng):
+@pytest.mark.parametrize("switches", ["default", "unfused_ln"])
+def test_tiny_train_step_matches_jax(rng, switches):
+    """The default structure, and C (``use_fused_layernorm=False``: the MLP
+    without LN, row 13 at D=192, after FastLayerNorm)."""
     def step_cfg(c):
         return dataclasses.replace(
-            c, vit=dataclasses.replace(_vit_switches(c.vit, "default"), drop_path_rate=0.0,
+            c, vit=dataclasses.replace(_vit_switches(c.vit, switches), drop_path_rate=0.0,
                                        **TINY),
             augment=dataclasses.replace(c.augment, dropout_prob=1.0))
 
     check_train_step(rng, step_cfg(jcfg.tiny_test_config()), step_cfg(tcfg.tiny_test_config()))
+
+
+def test_tiny_serves_like_jax_under_c():
+    """ViT-Ti under C (``use_fused_layernorm=False``): every LayerNorm is
+    FastLayerNorm's plain math and each block's tail the MLP without LN."""
+    check_serving(*serve_setup(_tiny(jcfg, use_fused_layernorm=False)), box_rtol=1e-5)
 
 
 def test_tiny_attention_takes_the_bhtd_entries(rng, monkeypatch):

@@ -155,6 +155,30 @@ def _jax_dropout_draws(keys, cfg, h, w):
                              *per.unbind(-1))
 
 
+def jax_image_draws(key, cfg, b, h, w):
+    """The random numbers ``intentbev.bev.augment.batched_augment_bev`` draws
+    from ``key`` for a batch of ``b``, as the port's (ImageAugDraws,
+    DropoutDraws): each sample's key split six ways, flip, rotation
+    (Bernoulli, then the angle), scale (Bernoulli, then the factor), then
+    the dropout's key."""
+    rows, drop_keys = [], []
+    for k in jax.random.split(key, b):
+        k_flip, k_rot_p, k_rot_a, k_scl_p, k_scl_s, k_drop = jax.random.split(k, 6)
+        rows.append((bool(jax.random.bernoulli(k_flip, float(cfg.flip_prob))),
+                     bool(jax.random.bernoulli(k_rot_p, float(cfg.rotate_prob))),
+                     np.float32(jax.random.uniform(k_rot_a, (), minval=cfg.rotate_range_deg[0],
+                                                   maxval=cfg.rotate_range_deg[1])),
+                     bool(jax.random.bernoulli(k_scl_p, float(cfg.scale_prob))),
+                     np.float32(jax.random.uniform(k_scl_s, (), minval=cfg.scale_range[0],
+                                                   maxval=cfg.scale_range[1]))))
+        drop_keys.append(k_drop)
+    cols = list(zip(*rows))
+    image = taug.ImageAugDraws(torch.tensor(cols[0]), torch.tensor(cols[1]),
+                               torch.tensor(np.array(cols[2])), torch.tensor(cols[3]),
+                               torch.tensor(np.array(cols[4])))
+    return image, _jax_dropout_draws(drop_keys, cfg, h, w)
+
+
 def test_dropout_mask_from_jax_draws():
     cfg = jcfg.AugmentConfig(dropout_prob=0.7)
     h, w = 64, 96
@@ -379,14 +403,15 @@ def test_train_step_matches_jax(rng, name):
     check_train_step(rng, *_step_configs(name))
 
 
-def check_train_step(rng, jc, tc, port_kw=None, jax_cache=None):
+def check_train_step(rng, jc, tc, port_kw=None, jax_cache=None, aug_params=True):
     """One step of the JAX config ``jc`` and its port copy ``tc`` (the
     checks of :func:`test_train_step_matches_jax`); ``port_kw``: more
     arguments of the port's ``IntentNetViT``. ``jax_cache``: a dict, filled
     and reused, of what the JAX side computes alike for one config and
     batch whatever the flash backward's form: the initial train state and
     the jitted step's metrics (forward values; each is a compile of its
-    own)."""
+    own). ``aug_params=False``: the batch carries none, so both steps take
+    the image-space augmentation (the port's with JAX's draws)."""
     g = jc.grid
     b, s, p, n_gt = 2, g.lidar_sweeps, 1500, jc.loss.max_gt_boxes
     pts, valid = _points(rng, b, s, p, g)
@@ -399,6 +424,8 @@ def check_train_step(rng, jc, tc, port_kw=None, jax_cache=None):
         "gt_boxes": boxes, "gt_intentions": intents, "gt_valid": gt_valid,
         "aug_params": np.array([[-1, 0, 1.04], [1, 0, 0.96]], np.float32),
     }
+    if not aug_params:
+        del batch["aug_params"]
     anchors = generate_anchors(g, jc.anchors)
 
     model = build_model(jc, train_mode=True)
@@ -425,7 +452,8 @@ def check_train_step(rng, jc, tc, port_kw=None, jax_cache=None):
         lo = jloss(*out, jnp.asarray(anchors), gtb, gti, jbatch["gt_valid"], jc.loss, rng_loss)
         return lo["loss"], (lo, upd["batch_stats"])
 
-    (_, (want, want_bs)), want_g = jax.value_and_grad(loss_fn, has_aux=True)(state.params)
+    (_, (want, want_bs)), want_g = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        state.params)
     variables = {"params": state.params, "batch_stats": state.batch_stats}
     variables = jax.tree_util.tree_map(np.asarray, variables)
     key = ("metrics", repr(jc), *(v.tobytes() for v in batch.values()))
@@ -434,9 +462,13 @@ def check_train_step(rng, jc, tc, port_kw=None, jax_cache=None):
             state, jbatch, rng_step)[1]
     step_metrics = cache[key]
 
-    draws = StepDraws(
-        _jax_dropout_draws(jax.random.split(rng_aug, b), jc.augment, g.height_px, g.width_px),
-        _t(np.asarray(jax.random.uniform(rng_loss, (b * anchors.shape[0],)))))
+    intent_u = _t(np.asarray(jax.random.uniform(rng_loss, (b * anchors.shape[0],))))
+    if aug_params:
+        draws = StepDraws(_jax_dropout_draws(jax.random.split(rng_aug, b), jc.augment,
+                                             g.height_px, g.width_px), intent_u)
+    else:
+        image, dropout = jax_image_draws(rng_aug, jc.augment, b, g.height_px, g.width_px)
+        draws = StepDraws(dropout, intent_u, image)
     port = IntentNetViT(tc.vit, tc.heads, dtype=torch.float32, **(port_kw or {}))
     port.load_state_dict(from_flax(variables))
     step = make_train_step(port, tc, _t(anchors), make_optimizer(port.parameters(), tc))
