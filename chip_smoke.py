@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: the serving paths and the
-training steps of both model families, data and tensor parallel included.
+training steps of both model families, data and tensor parallel included,
+and an imported ViT-B served.
 
     python3 chip_smoke.py
 
@@ -46,7 +47,10 @@ Phases (each prints a line; any failure exits nonzero with no result):
    must equal its plain version entry for entry, and two calls of row 1 the
    same bits. Row 13, the MLP without LN, runs at D=384 and 192 (ViT-Ti's
    tails under C): serving (sigmoid GELU), the gated training forward and
-   the gated backward.
+   the gated backward. ViT-B's serving kernels run at D=768 (rows 1, 4 with
+   each GELU, 5) and the packed attention at 12 heads of 64 over a model
+   width of 768 in the safe and the fixed-max form, with the D=384 cases'
+   faults and limits.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -224,6 +228,16 @@ Phases (each prints a line; any failure exits nonzero with no result):
     ``soak_loader_torch`` on phase 14's split (200 samples: samples/s and
     the RSS). Their rates, read side by side, show that each twin runs; they
     measure nothing. A twin still running when the smoke exits is killed.
+18. ViT-B: a reference-schema ``vit_base_patch8_224`` ``.pth`` (D=768, 12
+    heads of 64, hidden 3072, 12 blocks a stream, numpy draws) goes through
+    ``python -m intentbev_torch.import_torch``; the checkpoint serves 2
+    requests of 8 over chunks through the kernels in the default safe
+    softmax and under the bench lines' switches (the fixed max): launch
+    counts (rows 1 1/r, 3 or 2 24/r, 4 24/r, 5 4/r at their D=768
+    instances), logits against the plain path under phase 4's limit
+    (control: the qkv rows imported k-first), fixed-shape finite
+    Detections, frames/s with the host chunk build, and the device's ms a
+    batch (kernels and copies from a profiler trace) with its frames/s.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -253,7 +267,7 @@ INT8_OPS_PER_S = 1979e12     # H100 SXM dense int8 tensor cores
 TP_TIMEOUT_S = 300  # phase 16's ranks: a hang fails the phase, not the smoke's limit
 CONFIG_LIMITS = {**{name: (2.3e-2,) * 3 for name in ("A serving_int8", "Ti A serving_int8")},
                  **{name: (1.3e-2,) * 3 for name in (
-    "import CNN", "import ViT-S", "import ViT-Ti",
+    "import CNN", "import ViT-S", "import ViT-Ti", "ViT-B", "ViT-B fixed",
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
     "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense", "Ti C use_fused_layernorm=False",
     "Ti D fuse_patch_embed")}}
@@ -1418,6 +1432,78 @@ def main() -> None:
             2 * nbytes(x_ad_t) + nbytes(dy_ad_t, ln_t[0], ln_t[1], w_ad_t, b_ad_t)
             + 4 * (2 * dt_ + a_out * dt_ + a_out), 3 * ad_flops_t, None),
     })
+    # ViT-B (vit_base's widths, intentbev/import_torch.py:235: embed 768, 12
+    # heads of 64, MLP 3072) at its serving path's shapes: rows 1, 4 and 5 at
+    # D=768 (row 4's own kernel, the consumers splitting the output columns)
+    # and the packed attention's safe and fixed-max forms at 12 heads of 64
+    # over a model width of 768, each case as the D=384 one of the same
+    # kernel (same faults, limits and work formulas).
+    db_, hb_ = 2 * d, 12
+    hid_b = int(db_ * v.mlp_ratio)
+    x_b = randn((rows, db_), 1.0)
+    ln_b = [randn((db_,), 0.2, torch.float32) + (1 - i % 2) for i in range(4)]
+    w1_b, b1_b = randn((hid_b, db_), db_ ** -0.5), randn((hid_b,), 0.1, torch.float32)
+    w2_b, b2_b = randn((db_, hid_b), hid_b ** -0.5), randn((db_,), 0.1, torch.float32)
+    mlp_b = (x_b, ln_b[0], ln_b[1], w1_b, b1_b, w2_b, b2_b, ln_b[2], ln_b[3])
+    qkv_b = randn((batch, tokens, 3 * db_), 1.0)
+    q_b, k_b, v_b = qkv_b[..., :db_], qkv_b[..., db_:2 * db_], qkv_b[..., 2 * db_:]
+    w_pe_b, b_pe_b = randn(w_pe.shape[:3] + (db_,), 0.02), randn((db_,), 0.02, torch.float32)
+    gl_b, bl_b = ln_b[0].bfloat16(), ln_b[1].bfloat16()
+    bhtd_b = [t.reshape(batch, tokens, hb_, 64).transpose(1, 2).contiguous()
+              for t in (q_b, k_b, v_b)]
+    flash_bytes_b = nbytes(q_b, k_b, v_b) + rows * db_ * 2 + batch * hb_ * tokens * 4
+    flash_flops_b, mlp_flops_b = 2 * flash_flops, 4 * rows * db_ * hid_b
+    sdpa_b = torch.no_grad()(lambda: F.scaled_dot_product_attention(*bhtd_b))
+    cases.update({
+        "voxel_embed[D=768]": (
+            lambda: twice(voxel_embed_tokens(chunks, w_pe_b, b_pe_b, v.patch_size, hw)),
+            lambda: twice(voxel_embed_tokens_plain(chunks, w_pe_b, b_pe_b, v.patch_size, hw)),
+            lambda: twice(voxel_embed_tokens_plain(
+                chunks._replace(count=(chunks.count - 1).clamp(min=0)),
+                w_pe_b, b_pe_b, v.patch_size, hw)),
+            "last chunk of each band skipped", (rel_l2, share), VOXEL_LIMITS, 10, 3,
+            nbytes(*chunks, w_pe_b, b_pe_b) + batch * v.num_patches * db_ * 2,
+            2 * cells * db_, None),
+        "fused_ln_mlp[D=768]": (
+            lambda: twice(fused_ln_mlp(*mlp_b, gelu_mode="sigmoid")),
+            lambda: twice(fused_ln_mlp_plain(*mlp_b, gelu_mode="sigmoid")),
+            [lambda: twice(fused_ln_mlp_plain(*mlp_b, gelu_mode="erf")),
+             lambda: twice(h_f32(x_b, w1_b, b1_b, w2_b, b2_b, "sigmoid", ln_b[:2],
+                                 ln_next=ln_b[2:]))],
+            ["erf GELU", "h kept in f32"], MLP_METRICS[2], MLP_LIMITS[2], 10, 2,
+            nbytes(x_b, w1_b, b1_b, w2_b, b2_b, *ln_b) + 2 * nbytes(x_b), mlp_flops_b, None),
+        # the erf GELU's instance: held, not listed (its launches count under
+        # fused_ln_mlp[D=768])
+        "fused_ln_mlp[erf,D=768]": (
+            lambda: twice(fused_ln_mlp(*mlp_b, gelu_mode="erf")),
+            lambda: twice(fused_ln_mlp_plain(*mlp_b, gelu_mode="erf")),
+            [lambda: twice(fused_ln_mlp_plain(*mlp_b, gelu_mode="sigmoid")),
+             lambda: twice(h_f32(x_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2],
+                                 ln_next=ln_b[2:]))],
+            ["sigmoid GELU", "h kept in f32"], MLP_METRICS[2], MLP_LIMITS[2], 10, 2,
+            nbytes(x_b, w1_b, b1_b, w2_b, b2_b, *ln_b) + 2 * nbytes(x_b), mlp_flops_b, None),
+        "layernorm[D=768]": (
+            lambda: layernorm(x_b, ln_b[0], ln_b[1]),
+            lambda: layernorm_plain(x_b, ln_b[0], ln_b[1]),
+            lambda: layernorm_unbiased(x_b, ln_b[0], ln_b[1]),
+            "variance over N-1", (rel_l2,), (3e-4,), 20, 5,
+            2 * nbytes(x_b) + nbytes(ln_b[0], ln_b[1]), 0,
+            torch.no_grad()(lambda: F.layer_norm(x_b, (db_,), gl_b, bl_b, 1e-6))),
+        "flash_packed[12x64,D=768]": (
+            lambda: o_twice(flash_attention_packed(q_b, k_b, v_b, hb_)),
+            lambda: o_twice(flash_attention_packed_plain(q_b, k_b, v_b, hb_)),
+            [lambda: o_twice(flash_attention_packed_plain(q_b, k_b, v_b, hb_, None, 0, True)),
+             lambda: o_twice(flash_attention_packed_plain(q_b, k_b, v_b, hb_, tile_len))],
+            ["P rounded against the fixed max", "keys of the last partial tile masked"],
+            FWD_METRICS, FWD_LIMITS, 10, 2, flash_bytes_b, flash_flops_b, sdpa_b),
+        "flash_packed_fixed[12x64,D=768]": (
+            lambda: o_twice(flash_attention_packed(q_b, k_b, v_b, hb_, None, FWD_CHUNK, True)),
+            lambda: o_twice(flash_attention_packed_plain(q_b, k_b, v_b, hb_, None, FWD_CHUNK,
+                                                         True)),
+            lambda: o_twice(flash_attention_packed_plain(q_b, k_b, v_b, hb_)),
+            "P rounded against the row max", FWD_METRICS, FWD_LIMITS, 10, 2,
+            flash_bytes_b, flash_flops_b, sdpa_b),
+    })
     record = {}
 
     def bwd_split(fn, kinds, iters=3):
@@ -1527,7 +1613,11 @@ def main() -> None:
         "fused_ln_mlp[D=192]": lambda: mlp_next_ln(
             x_t + mlp_chain(x_t, *w_t, "sigmoid", ln_t[:2]), ln_t[2:]),
         "fused_ln_mlp_train[D=192]": lambda: train_t[0] + mlp_chain(
-            train_t[0], *w_t, "erf", ln_t[:2]) * gate16}
+            train_t[0], *w_t, "erf", ln_t[:2]) * gate16,
+        "fused_ln_mlp[D=768]": lambda: mlp_next_ln(
+            x_b + mlp_chain(x_b, w1_b, b1_b, w2_b, b2_b, "sigmoid", ln_b[:2]), ln_b[2:]),
+        "fused_ln_mlp[erf,D=768]": lambda: mlp_next_ln(
+            x_b + mlp_chain(x_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2]), ln_b[2:])}
     # and for the LN + dense pair: F.layer_norm, F.linear [+ the GELU], and
     # the backward by autograd through them
     def ln_dense_chain(x_, ln_, w_, b_, mode=None):
@@ -1587,13 +1677,13 @@ def main() -> None:
     check(torch.equal(hk.offsets, hp.offsets) and torch.equal(hk.wrow[in_list], hp.wrow[in_list])
           and torch.equal(hk.val[in_list], hp.val[in_list]),
           "voxel_hits: the kernel's hit list differs from the plain version's")
-    for w_, b_ in ((w_pe, b_pe), (w_pe_t, b_pe_t)):
+    for w_, b_ in ((w_pe, b_pe), (w_pe_t, b_pe_t), (w_pe_b, b_pe_b)):
         check(torch.equal(voxel_embed_tokens(chunks, w_, b_, v.patch_size, hw),
                           voxel_embed_tokens(chunks, w_, b_, v.patch_size, hw)),
               "voxel_embed: two calls differ")
     print(f"kernel voxel_embed: the hit list of its first kernel equals the plain version's "
-          f"({int(hp.offsets[..., -1].sum())} hits); two calls give the same bits at D={d} and "
-          f"{dt_}", flush=True)
+          f"({int(hp.offsets[..., -1].sum())} hits); two calls give the same bits at D={d}, "
+          f"{dt_} and {db_}", flush=True)
     del hk, hp, in_list
     del mlp_refs, ref, gate16, w_t, w_qkv_t, b_qkv_t, dy_qkv_t, x_ad_t, w_ad_t, b_ad_t, dy_ad_t
     del chunks, x, qkv, q, k, vv, o, lse, do, dy, x3, dy3, xhat, inv, gate, train_mlp
@@ -1602,6 +1692,7 @@ def main() -> None:
     del qkv_t, qkv_v, o_t, lse_t, o_tv, do_tv, qh_t, kh_t, vh_t, doh_t, o_sdpa_t, x_t, dy_t
     del mlp_t, train_t, xhat_t, inv_t, xl_t, y_ln_t, q32, k32, v32, do32, o32, lse32, cases
     del x8_t, w1q_t, w2q_t, int8_args_t
+    del x_b, mlp_b, qkv_b, q_b, k_b, v_b, bhtd_b, sdpa_b, gl_b, bl_b
     torch.cuda.empty_cache()
 
     # 4. the slice
@@ -3330,6 +3421,66 @@ def main() -> None:
     tmp14.cleanup()  # phases 15 to 17 read phase 14's run and phase 15's inputs there
     print(f"last modules: phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
+    # 18. ViT-B: a reference vit_base_patch8_224 checkpoint (D=768, 12 heads
+    # of 64, hidden 3072, 12 blocks a stream) through the import CLI, served
+    # at batch 8 over chunks through the D=768 instances of rows 1, 4 and 5
+    # and the packed attention at 12 heads of 64: the default safe softmax
+    # (row 3), then the bench lines' fixed max (row 2)
+    t18 = time.perf_counter()
+    tmp18 = tempfile.TemporaryDirectory(prefix="smoke18_")
+    root18 = Path(tmp18.name)
+    bcfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, embed_dim=768, num_heads=12))
+    ref_b = reference_state_dict(bcfg, 200)
+    torch.save({"epoch": 3, "model_state_dict": ref_b, "optimizer_state_dict": {},
+                "backbone_cfg": {"vit_model_name_lidar": "vit_base_patch8_224",
+                                 "img_size": list(bcfg.vit.img_size)}}, root18 / "vit_base.pth")
+    imp = subprocess.run([sys.executable, "-m", "intentbev_torch.import_torch",
+                          str(root18 / "vit_base.pth"), str(root18 / "ViT-B"), "--model", "vit"],
+                         cwd=repo, capture_output=True, text=True, timeout=300)
+    check(imp.returncode == 0 and "imported -> " in imp.stdout,
+          f"ViT-B: the import CLI exited {imp.returncode}: {imp.stdout[-2000:]} "
+          f"{imp.stderr[-2000:]}")
+    t_import_b = time.perf_counter() - t18
+    state_b, icfg_b = load_checkpoint(root18 / "ViT-B")
+    vb = icfg_b.vit
+    check((vb.embed_dim, vb.num_heads, vb.depth, int(vb.embed_dim * vb.mlp_ratio))
+          == (768, 12, v.depth, 3072), f"ViT-B: the imported config reads {vb}")
+    ctrl_b = import_vit_state_dict(faulty_reference(ref_b), fusion_layers=vb.fusion_layers)
+    del ref_b
+    per_req_b = {"voxel_embed": 1, "flash_packed": 2 * v.depth, "fused_ln_mlp": 2 * v.depth,
+                 "layernorm": 4}
+    per_req_fixed = {**{k_: n_ for k_, n_ in per_req_b.items() if k_ != "flash_packed"},
+                     "flash_packed_fixed": 2 * v.depth}
+    fixed_b = dataclasses.replace(icfg_b, vit=dataclasses.replace(
+        vb, fwd_kv_chunk=FWD_CHUNK, unsafe_softmax=True))
+    vitb_counts, failures18 = {}, []
+    for cname, bc, per_req_ in (("ViT-B", icfg_b, per_req_b),
+                                ("ViT-B fixed", fixed_b, per_req_fixed)):
+        vitb_counts[cname] = serve_config(
+            cname, bc, "chunks", per_req_, failures18, state_b["model"], requests[:2],
+            control=(ctrl_b, "plain, the qkv rows imported k-first"))
+        # the device's time for one batch of built chunks: kernels and copies
+        # from a profiler trace, and the CUDA-event span of the same call
+        inf_b = StreamingInferencer(bc, state_b["model"], "cuda", transport="chunks",
+                                    gelu="sigmoid")
+        host_b = inf_b.build_chunks(*requests[0][:2])
+        fwd_b = torch.no_grad()(lambda: inf_b.logits(host_b, requests[0][2]))
+        dev_ms = sum(bwd_split(fwd_b, {"device": ""}).values())
+        span_ms = cuda_ms(fwd_b, 3)
+        print(f"config {cname}: device {f'{dev_ms:.3f} ms' if dev_ms > 0 else 'not measured'}"
+              f" a batch of {batch} (kernels and copies, profiler trace), "
+              f"{f'{batch / dev_ms * 1e3:.1f}' if dev_ms > 0 else 'not measured'} frames/s "
+              f"on the device; CUDA-event span of the call {span_ms:.3f} ms (host chunk build "
+              f"excluded) [{card}]", flush=True)
+        del inf_b, host_b, fwd_b
+        torch.cuda.empty_cache()
+    check(not failures18, "; ".join(failures18))
+    del state_b, ctrl_b
+    tmp18.cleanup()
+    print(f"ViT-B: imported by python -m intentbev_torch.import_torch in {t_import_b:.1f} s "
+          f"(the .pth write included), served in both softmax forms; phase 18 took "
+          f"{time.perf_counter() - t18:.1f} s", flush=True)
+
     serving_runs = (serve_counts, *config_counts.values())
     lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
     deploy_runs = (stream_counts, dp_step_counts, dp_eval_counts)  # phase 15
@@ -3340,6 +3491,7 @@ def main() -> None:
     tp_qkv = tuple({k_: t_["ln_dense"]["counts"][k_] - 2
                     for k_ in ("fused_ln_dense", "fused_ln_dense_bwd")} for t_ in tp)
     tiny_runs = (tiny_serve_counts, tiny_train_counts)
+    vitb_runs = tuple(vitb_counts.values())  # phase 18, both softmax forms
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
@@ -3424,6 +3576,16 @@ def main() -> None:
              (tiny_c_train_counts,)),
             ("fused_mlp_bwd[D=192]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:148",
              (tiny_c_train_counts,)),
+            # the D=768 instances ViT-B's serving path runs (phase 18)
+            ("voxel_embed[D=768]", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417",
+             vitb_runs),
+            ("fused_ln_mlp[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:116",
+             vitb_runs),
+            ("layernorm[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:39", vitb_runs),
+            ("flash_packed[12x64,D=768]", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
+             (vitb_counts["ViT-B"],)),
+            ("flash_packed_fixed[12x64,D=768]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:157 (safe=False)", (vitb_counts["ViT-B fixed"],)),
             # row 11, and the packed path at head dim 32 (phase 11)
             ("flash_packed_bwd_split", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (form_counts["split"],)),
@@ -3459,7 +3621,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 52 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 57 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -39,8 +39,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Row LayerNorm of D = 32 * N f32 values spread as N per lane of one warp
-// (lane holds columns 2*lane + 64*i + {0, 1}, i < N / 2; N = 12 at D = 384,
-// 6 at D = 192): two-pass f32 statistics, as the JAX kernels compute them
+// (lane holds columns 2*lane + 64*i + {0, 1}, i < N / 2; N = 24 at D = 768,
+// 12 at 384, 6 at 192): two-pass f32 statistics, as the JAX kernels compute them
 // (mean, then mean of the squared deviations).
 template <int N>
 __device__ __forceinline__ void warp_ln_stats(const float (&v)[N], float eps,
@@ -92,12 +92,13 @@ __global__ void __launch_bounds__(256) col_sums_kernel(ColSums a) {
 
 }  // namespace
 
-// Model widths the row kernels are instantiated for (ViT-S 384, ViT-Ti 192):
-// calls launch(std::integral_constant<int, D>{}) for d == D, and refuses any
-// other width.
-template <typename F>
+// Model widths an entry's kernels are instantiated for, named at the entry
+// (ViT-B 768, ViT-S 384, ViT-Ti 192): by_width<W...>(d, launch) calls
+// launch(std::integral_constant<int, D>{}) for d == D among W, and refuses
+// any other width.
+template <int... W, typename F>
 static inline int by_width(int d, F&& launch) {
-  if (d == 384) return launch(std::integral_constant<int, 384>{});
-  if (d == 192) return launch(std::integral_constant<int, 192>{});
-  return (int)cudaErrorInvalidValue;
+  int err = (int)cudaErrorInvalidValue;
+  (void)((d == W && ((err = launch(std::integral_constant<int, W>{})), true)) || ...);
+  return err;
 }

@@ -206,7 +206,7 @@ extern "C" int ibk_fused_ln_dense(const void* x, const void* gamma, const void* 
   if (dout <= 0 || dout % 64 != 0) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  return by_width(d, [&](auto wd) {
+  return by_width<384, 192>(d, [&](auto wd) {
     constexpr int D = decltype(wd)::value;
     if (gelu_mode < 0) return launch_fwd<D, -1>(x, gamma, beta, w, bias, y, n_rows, dout, eps, s);
     if (gelu_mode == 0) return launch_fwd<D, 0>(x, gamma, beta, w, bias, y, n_rows, dout, eps, s);
@@ -672,7 +672,7 @@ extern "C" int ibk_fused_ln_dense_bwd(const void* x, const void* gamma, const vo
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  return by_width(d, [&](auto wd) {
+  return by_width<384, 192>(d, [&](auto wd) {
     constexpr int D = decltype(wd)::value;
     if (gelu_mode < 0)
       return ln_dense_bwd<D, false>(x, gamma, beta, w, bias, dy, dx, dgamma, dbeta, dw, dbias,

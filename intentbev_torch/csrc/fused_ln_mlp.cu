@@ -17,8 +17,10 @@
 //    intentbev/ops/fused_mlp.py::_bwd_kernel.
 //
 // The model width D is a template parameter, instantiated at 384 (ViT-S)
-// and 192 (ViT-Ti) for the LN kernels (1, 2, 4 with LN) and at 384 for the
-// MLP without LN; the hidden width is any multiple of 64.
+// and 192 (ViT-Ti) for every kernel; 1 also at 768 (ViT-B's serving chain),
+// by a kernel of its own whose consumers split the output columns
+// (ln_mlp_wide_kernel, below the narrow forward). The hidden width is any
+// multiple of 64.
 //
 // Forward (1-3: ln_mlp_fwd_kernel). Bound on the H100: tensor-core
 // throughput. At 36008 x 384 rows and a 1536-wide hidden layer a call is
@@ -458,19 +460,432 @@ int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
                                   n_rows, hidden, eps, (cudaStream_t)stream);
 }
 
+
+// 1 at D = 768 (ViT-B's serving chain). ln_mlp_fwd_kernel cannot take this
+// width: a consumer's [64, D] f32 fc2 accumulator would be 384 registers a
+// thread, and a block's 128 rows would fill 192 KB of shared memory. Here a
+// block of 384 threads owns 64 rows (96 KB), and its two consumer
+// warpgroups split the D output columns, D / 2 = 384 each: an accumulator
+// of 192 registers a thread, the D = 384 kernel's budget. Per hidden tile
+// of HT = 32 columns each consumer computes g = xn W1[tile]^T over its half
+// of K (m64n32, K = D / 2; split by N instead, each would re-read every
+// column of the rows for its 16 columns of g, and the tile took 1.29 ms
+// against 1.09), the two partials meet through shared memory, and each
+// consumer sums those of its 16 columns, adds b1, takes the GELU in f32 and
+// writes its half of h (bf16) into a shared [64, HT] h tile (two, used in
+// turn); a named barrier over both consumers makes the tile whole, and each
+// runs acc += h W2[its columns, tile]^T (two m64n192 products, A the h
+// tile, B the W2 tile's rows of its columns). fc2 of tile j is issued as
+// soon as its W2 tile lands, fc1 of tile j + 1 after it. The W1 and W2
+// rings hold one tile each ([HT, D] and [D, HT], 48 KB apiece beside the
+// rows), each kept by its own producer thread, so a tile's W1 load waits
+// only for the last fc1 and its W2 load only for the last fc2. LN2 runs in
+// place on the rows as TMA landed them, 8 rows a warp of both consumers.
+// Once the rings drain, the residual rows land in them; the epilogue adds
+// b2 and the residual in f32, writes y (rounded once) over the residual,
+// and the LN_next statistics of the f32 y take each row's sums over both
+// consumers' columns through shared memory (the mean, then the squared
+// deviations); yn goes over the xn rows. Each consumer TMA-stores its
+// column blocks of y and yn. The rounding points are the narrow kernel's:
+// f32 LN statistics, xn rounded to bf16, h rounded to bf16 before fc2, y
+// rounded once, yn from the f32 y.
+// Bound on the H100 at 36008 rows, hidden 3072: 4*N*D*H = 340 GFLOP (0.344
+// ms at 989 TFLOP/s), against 166 MB of activations (0.050 ms). W1 + W2
+// (9.4 MB bf16) sit in L2, and each 64-row block reads them once: ~5.3 GB
+// of L2 reads a call. Blocks paired in 2-block clusters, each loading half
+// of every W tile by TMA multicast into both, halve those reads but ran
+// about twice as long on the one-slot rings (each slot waits for the slower
+// block of the pair): PERF.md has the readings.
+constexpr int WIDE_ROWS = 64;
+
+template <int D>
+struct WideTiles {
+  static constexpr int HT = 32;                 // hidden tile: 16 columns a consumer
+  static constexpr int NH = D / 2;              // output columns of a consumer
+  static constexpr int RB2 = 2 * HT;            // bytes of a W2 or h tile row
+  static constexpr int XBLK = WIDE_ROWS * 128;  // one 64-column block of the rows
+  static constexpr int ROWS_B = D / 64 * XBLK;
+  static constexpr int W1_TILE = HT * D * 2, W2_TILE = D * HT * 2;
+  static constexpr int H_TILE = WIDE_ROWS * HT * 2;
+  static constexpr int EX_LD = HT / 2 + 4;          // floats a row of an exchange tile
+  static constexpr int EX_B = WIDE_ROWS * EX_LD * 4;  // [64][16] f32 partials of g
+  static constexpr int W1 = ROWS_B, W2 = W1 + W1_TILE, H = W2 + W2_TILE;
+  static constexpr int EX = H + 2 * H_TILE;
+  static constexpr int RSUM = EX + 2 * EX_B;  // [2 passes][2 consumers][64 rows] f32
+  static constexpr int BARS = RSUM + 2 * 2 * WIDE_ROWS * 4;
+  static constexpr int N_BARS = 6;
+  static constexpr int BYTES = BARS + N_BARS * 8 + 1024;  // + alignment slack
+  static_assert(NH % N2 == 0 && NH % 64 == 0 && BYTES <= 232448,
+                "width outside the kernel's tiling");
+  static_assert(W1_TILE + W2_TILE == ROWS_B, "the residual rows reload into the drained rings");
+};
+
+// mx reads x, mw1 W1 [hidden, D], mw2 W2 [D, hidden]; my and myn write y and
+// yn (rows past n_rows are not written).
+template <int D, int GELU>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+    ln_mlp_wide_kernel(const __grid_constant__ CUtensorMap mx,
+                       const __grid_constant__ CUtensorMap mw1,
+                       const __grid_constant__ CUtensorMap mw2,
+                       const __grid_constant__ CUtensorMap my,
+                       const __grid_constant__ CUtensorMap myn, const float* __restrict__ g2,
+                       const float* __restrict__ be2, const float* __restrict__ b1,
+                       const float* __restrict__ b2, const float* __restrict__ gn,
+                       const float* __restrict__ bn, int hidden, float eps) {
+  using L = WideTiles<D>;
+  constexpr int HT = L::HT, NH = L::NH;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* xfull = bar;      // the block's rows
+  uint64_t* rfull = bar + 1;  // the residual rows
+  uint64_t* w1full = bar + 2;
+  uint64_t* w1empty = bar + 3;
+  uint64_t* w2full = bar + 4;
+  uint64_t* w2empty = bar + 5;
+  float* rsum = reinterpret_cast<float*>(sm + L::RSUM);
+
+  // the warpgroup through a shuffle: warp-uniform to the compiler
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
+  const int row0 = blockIdx.x * WIDE_ROWS;
+  const int tiles = hidden / HT;
+  if (tid == 0) {
+    hopper::mbar_init(xfull, 1);
+    hopper::mbar_init(rfull, 1);
+    hopper::mbar_init(w1full, 1);
+    hopper::mbar_init(w1empty, 8);  // one per consumer warp
+    hopper::mbar_init(w2full, 1);
+    hopper::mbar_init(w2empty, 8);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producers: the rows and the W1 ring; the W2 ring, then the residual rows
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      hopper::mbar_arrive_expect_tx(xfull, L::ROWS_B);
+      for (int b = 0; b < D / 64; ++b)
+        hopper::tma_load_2d(sm + b * L::XBLK, &mx, xfull, 64 * b, row0);
+      for (int j = 0; j < tiles; ++j) {
+        hopper::mbar_wait(w1empty, (j & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(w1full, L::W1_TILE);
+        for (int b = 0; b < D / 64; ++b)
+          hopper::tma_load_2d(sm + L::W1 + b * HT * 128, &mw1, w1full, 64 * b, j * HT);
+      }
+    } else if (tid == 288) {
+      for (int j = 0; j < tiles; ++j) {
+        hopper::mbar_wait(w2empty, (j & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(w2full, L::W2_TILE);
+        for (int q = 0; q < D / N2; ++q)
+          hopper::tma_load_2d(sm + L::W2 + q * N2 * L::RB2, &mw2, w2full, j * HT, N2 * q);
+      }
+      // each consumer warp releases a tile's W1 slot before its W2 slot, so
+      // once the last W2 tile is released both rings are free
+      hopper::mbar_wait(w1empty, (tiles - 1) & 1);
+      hopper::mbar_wait(w2empty, (tiles - 1) & 1);
+      hopper::mbar_arrive_expect_tx(rfull, L::ROWS_B);
+      for (int b = 0; b < D / 64; ++b)
+        hopper::tma_load_2d(sm + L::W1 + b * L::XBLK, &mx, rfull, 64 * b, row0);
+    }
+    return;
+  }
+
+  // consumers: both on the block's 64 rows, columns NH wg .. NH (wg + 1) of y
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wt = tid % 128, warp = wt / 32, cw = tid / 32;  // cw: warp of both, 0..7
+  const int g = lane >> 2, t4 = lane & 3;
+  hopper::mbar_wait(xfull, 0);
+  ln_in_place<D, L::XBLK, WIDE_ROWS / 8>(sm, cw, lane, g2, be2, eps);  // xn = LN2(x)
+  hopper::fence_proxy_async();  // the wgmma reads below are async-proxy reads
+  hopper::named_sync(3, 256);   // every row is read by both consumers
+
+  float acc[NH / N2][N2 / 2];  // fc2: row 16 warp + g (+8), columns NH wg + N2 q + 8n + 2t4 (+1)
+#pragma unroll
+  for (int q = 0; q < NH / N2; ++q)
+#pragma unroll
+    for (int i = 0; i < N2 / 2; ++i) acc[q][i] = 0.f;
+  float gacc[16];  // one tile's g over this consumer's half of K
+  float g8[8];     // g of this consumer's 16 columns of the tile, then h
+  float* ex = reinterpret_cast<float*>(sm + L::EX);
+
+  // Descriptors come from the tiles' shared addresses made opaque in each
+  // tile: else the compiler keeps every k-step's descriptor live across the
+  // loop, which the accumulator leaves no registers for.
+  const uint32_t sbase = hopper::smem_u32(sm);
+  auto fc1 = [&]() {  // gacc = xn[:, K half wg] W1[tile, K half wg]^T
+    uint32_t a0 = sbase + wg * (D / 128) * L::XBLK, b0 = sbase + L::W1 + wg * (D / 128) * HT * 128;
+    asm volatile("" : "+r"(a0), "+r"(b0));
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk) {
+      const uint64_t da = hopper::desc_kmajor_at<128>(a0 + (kk >> 2) * L::XBLK + (kk & 3) * 32);
+      const uint64_t db = hopper::desc_kmajor_at<128>(b0 + (kk >> 2) * HT * 128 + (kk & 3) * 32);
+      hopper::wgmma_ss_n32(gacc, da, db, kk > 0);
+    }
+  };
+  // g8 = this consumer's columns (16 C ..) of g: its own partial plus the
+  // other consumer's, which each writes for the other into its exchange
+  // tile (accumulator column group n = 8n + 2t4: this consumer's are 2C,
+  // 2C + 1); the 256-thread barrier makes both partials visible
+  auto combine = [&](auto cc) {
+    constexpr int C = decltype(cc)::value;
+    const int ra = 16 * warp + g;
+    float* out = ex + C * (L::EX_B / 4);
+    const float* in = ex + (1 - C) * (L::EX_B / 4);
+    static_for<2>([&](auto i) {
+      constexpr int nn = decltype(i)::value, n = 2 * (1 - C) + nn;
+      *reinterpret_cast<float2*>(out + ra * L::EX_LD + 8 * nn + 2 * t4) =
+          make_float2(gacc[4 * n], gacc[4 * n + 1]);
+      *reinterpret_cast<float2*>(out + (ra + 8) * L::EX_LD + 8 * nn + 2 * t4) =
+          make_float2(gacc[4 * n + 2], gacc[4 * n + 3]);
+    });
+    hopper::named_sync(3, 256);
+    static_for<2>([&](auto i) {
+      constexpr int nn = decltype(i)::value, n = 2 * C + nn;
+      const float2 pa = *reinterpret_cast<const float2*>(in + ra * L::EX_LD + 8 * nn + 2 * t4);
+      const float2 pb =
+          *reinterpret_cast<const float2*>(in + (ra + 8) * L::EX_LD + 8 * nn + 2 * t4);
+      g8[4 * nn] = gacc[4 * n] + pa.x;
+      g8[4 * nn + 1] = gacc[4 * n + 1] + pa.y;
+      g8[4 * nn + 2] = gacc[4 * n + 2] + pb.x;
+      g8[4 * nn + 3] = gacc[4 * n + 3] + pb.y;
+    });
+  };
+  auto combine_g = [&]() {
+    if (wg == 0)
+      combine(std::integral_constant<int, 0>{});
+    else
+      combine(std::integral_constant<int, 1>{});
+  };
+  auto fc2 = [&](int j) {  // acc += h W2[this consumer's columns, tile j]^T
+    uint32_t a0 = sbase + L::H + (j & 1) * L::H_TILE, b0 = sbase + L::W2 + wg * NH * L::RB2;
+    asm volatile("" : "+r"(a0), "+r"(b0));
+#pragma unroll
+    for (int kk = 0; kk < HT / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < NH / N2; ++q)
+        hopper::wgmma_ss_n192(acc[q], hopper::desc_kmajor_at<L::RB2>(a0 + kk * 32),
+                              hopper::desc_kmajor_at<L::RB2>(b0 + q * N2 * L::RB2 + kk * 32), 1);
+  };
+  auto store_h = [&](int j) {  // this consumer's 16 columns of h as bf16 into h tile j % 2
+    uint8_t* hs = sm + L::H + (j & 1) * L::H_TILE;
+    // the row opaque to the compiler: else it keeps the tile's addresses in
+    // registers across the loop
+    int r = 16 * warp + g;
+    asm volatile("" : "+r"(r));
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int c = 16 * wg + 8 * n + 2 * t4;
+      *reinterpret_cast<uint32_t*>(hs + swz_row<L::RB2>(r, c)) =
+          pack_bf16x2(g8[4 * n], g8[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(hs + swz_row<L::RB2>(r + 8, c)) =
+          pack_bf16x2(g8[4 * n + 2], g8[4 * n + 3]);
+    }
+  };
+  auto release = [&](uint64_t* b) {
+    if (lane == 0) hopper::mbar_arrive(b);
+  };
+  auto settle = [&]() {  // every product issued so far has landed
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(gacc);
+#pragma unroll
+    for (int q = 0; q < NH / N2; ++q) hopper::fence_regs(acc[q]);
+  };
+
+  hopper::mbar_wait(w1full, 0);
+  hopper::wgmma_fence();
+  fc1();
+  hopper::wgmma_commit();
+  settle();
+  release(w1empty);
+  combine_g();
+  bias_gelu<GELU, true>(g8, b1 + 16 * wg + 2 * t4);
+  store_h(0);
+  hopper::fence_proxy_async();
+  hopper::named_sync(3, 256);  // h tile 0 is whole
+  for (int j = 0; j + 1 < tiles; ++j) {
+    // fc2 of tile j as soon as its W2 tile has landed, then fc1 of tile j +
+    // 1: each ring's slot is released as soon as its product is done, so
+    // the next W2 tile loads under fc1 and the GELU, the next W1 tile under
+    // the GELU and the next fc2 (with one slot a ring, issuing fc2 after
+    // fc1 left the whole W2 load exposed in every tile). h of tile j + 1
+    // goes to the other h tile, which both consumers' fc2 of tile j - 1 read
+    // before the last barrier.
+    hopper::mbar_wait(w2full, j & 1);
+    hopper::wgmma_fence();
+    fc2(j);
+    hopper::wgmma_commit();
+    hopper::mbar_wait(w1full, (j + 1) & 1);
+    hopper::wgmma_fence();  // gacc was read by the last exchange
+    fc1();
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+#pragma unroll
+    for (int q = 0; q < NH / N2; ++q) hopper::fence_regs(acc[q]);
+    release(w2empty);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(gacc);
+    release(w1empty);
+    combine_g();  // the exchange tiles: both consumers read them before the last barrier
+    bias_gelu<GELU, true>(g8, b1 + (j + 1) * HT + 16 * wg + 2 * t4);
+    store_h(j + 1);
+    hopper::fence_proxy_async();
+    hopper::named_sync(3, 256);  // h tile j + 1 is whole; fc2 of tile j is done
+  }
+  hopper::mbar_wait(w2full, (tiles - 1) & 1);
+  hopper::wgmma_fence();
+  fc2(tiles - 1);
+  hopper::wgmma_commit();
+  settle();
+  release(w2empty);
+
+  // epilogue: rows la (this thread's e < 2 values) and lb = la + 8; column
+  // group i of this consumer (columns NH wg + 8i + 2 t4, + 1) is acc[q][4n
+  // + e], 8i = N2 q + 8n
+  const int la = 16 * warp + g, lb = la + 8;
+  uint8_t* rs = sm + L::W1;  // the residual rows, laid out as the block's rows
+  hopper::mbar_wait(rfull, 0);
+  constexpr int NG = N2 / 8;
+  // The parameter vectors are read through pointers made opaque every four
+  // column groups: else the compiler loads every group's values at once,
+  // ahead of the passes, into registers the accumulator holds.
+  const float *b2p = b2 + NH * wg, *gnp = gn + NH * wg, *bnp = bn + NH * wg;
+  auto opaque = [&](auto i) {
+    if constexpr (decltype(i)::value % 4 == 0) asm volatile("" : "+l"(b2p), "+l"(gnp), "+l"(bnp));
+  };
+  // this consumer's column blocks of a tile of the block's rows, stored by
+  // TMA from one thread after the warpgroup's writes
+  auto store_cols = [&](const CUtensorMap* map, const uint8_t* tile) {
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + wg, 128);
+    if (wt == 0) {
+      for (int b = NH / 64 * wg; b < NH / 64 * (wg + 1); ++b)
+        hopper::tma_store_2d(map, tile + b * L::XBLK, 64 * b, row0);
+      hopper::bulk_commit();
+    }
+  };
+  float sa = 0.f, sb = 0.f;
+  {
+    int na = la, nb = lb, cb = NH * wg;
+    asm volatile("" : "+r"(na), "+r"(nb), "+r"(cb));
+    static_for<NH / 8>([&](auto i) {
+      constexpr int q = decltype(i)::value / NG, n = decltype(i)::value % NG;
+      const int lc = 8 * decltype(i)::value + 2 * t4, c = cb + lc;
+      opaque(i);
+      const float2 bb = make_float2(b2p[lc], b2p[lc + 1]);
+      const float2 xa = bf16x2_at(rs + swz<WIDE_ROWS>(na, c));
+      const float2 xb = bf16x2_at(rs + swz<WIDE_ROWS>(nb, c));
+      acc[q][4 * n] = (acc[q][4 * n] + bb.x) + xa.x;
+      acc[q][4 * n + 1] = (acc[q][4 * n + 1] + bb.y) + xa.y;
+      acc[q][4 * n + 2] = (acc[q][4 * n + 2] + bb.x) + xb.x;
+      acc[q][4 * n + 3] = (acc[q][4 * n + 3] + bb.y) + xb.y;
+      *reinterpret_cast<uint32_t*>(rs + swz<WIDE_ROWS>(na, c)) =
+          pack_bf16x2(acc[q][4 * n], acc[q][4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(rs + swz<WIDE_ROWS>(nb, c)) =
+          pack_bf16x2(acc[q][4 * n + 2], acc[q][4 * n + 3]);
+      sa += acc[q][4 * n] + acc[q][4 * n + 1];
+      sb += acc[q][4 * n + 2] + acc[q][4 * n + 3];
+    });
+  }
+  store_cols(&my, rs);
+  // yn = LN_next(y) from the f32 y: each row's sums over both consumers'
+  // columns meet in rsum (pass 0 the sums, pass 1 the squared deviations)
+  sa = quad_sum(sa);
+  sb = quad_sum(sb);
+  if (t4 == 0) {
+    rsum[wg * WIDE_ROWS + la] = sa;
+    rsum[wg * WIDE_ROWS + lb] = sb;
+  }
+  hopper::named_sync(3, 256);
+  const float ma = (rsum[la] + rsum[WIDE_ROWS + la]) * (1.f / D);
+  const float mb = (rsum[lb] + rsum[WIDE_ROWS + lb]) * (1.f / D);
+  float qa = 0.f, qb = 0.f;
+  static_for<NH / 8>([&](auto i) {
+    constexpr int q = decltype(i)::value / NG, n = decltype(i)::value % NG;
+    acc[q][4 * n] -= ma;
+    acc[q][4 * n + 1] -= ma;
+    acc[q][4 * n + 2] -= mb;
+    acc[q][4 * n + 3] -= mb;
+    qa += acc[q][4 * n] * acc[q][4 * n] + acc[q][4 * n + 1] * acc[q][4 * n + 1];
+    qb += acc[q][4 * n + 2] * acc[q][4 * n + 2] + acc[q][4 * n + 3] * acc[q][4 * n + 3];
+  });
+  qa = quad_sum(qa);
+  qb = quad_sum(qb);
+  if (t4 == 0) {
+    rsum[(2 + wg) * WIDE_ROWS + la] = qa;
+    rsum[(2 + wg) * WIDE_ROWS + lb] = qb;
+  }
+  hopper::named_sync(3, 256);
+  const float ia =
+      rsqrtf((rsum[2 * WIDE_ROWS + la] + rsum[3 * WIDE_ROWS + la]) * (1.f / D) + eps);
+  const float ib =
+      rsqrtf((rsum[2 * WIDE_ROWS + lb] + rsum[3 * WIDE_ROWS + lb]) * (1.f / D) + eps);
+  {
+    // yn over the xn rows (every fc1 read them before the loop's last barrier)
+    int na = la, nb = lb, cb = NH * wg;
+    asm volatile("" : "+r"(na), "+r"(nb), "+r"(cb));
+    static_for<NH / 8>([&](auto i) {
+      constexpr int q = decltype(i)::value / NG, n = decltype(i)::value % NG;
+      const int lc = 8 * decltype(i)::value + 2 * t4, c = cb + lc;
+      opaque(i);
+      const float2 gg = make_float2(gnp[lc], gnp[lc + 1]), bb = make_float2(bnp[lc], bnp[lc + 1]);
+      *reinterpret_cast<uint32_t*>(sm + swz<WIDE_ROWS>(na, c)) = pack_bf16x2(
+          acc[q][4 * n] * ia * gg.x + bb.x, acc[q][4 * n + 1] * ia * gg.y + bb.y);
+      *reinterpret_cast<uint32_t*>(sm + swz<WIDE_ROWS>(nb, c)) = pack_bf16x2(
+          acc[q][4 * n + 2] * ib * gg.x + bb.x, acc[q][4 * n + 3] * ib * gg.y + bb.y);
+    });
+  }
+  store_cols(&myn, sm);
+  if (wt == 0) hopper::bulk_wait_read();  // the stores have read the tiles
+}
+
+// x, y and yn through maps of [n_rows, D] in 64 x 64 boxes, W1 [hidden, D]
+// in 64 x HT boxes and W2 [D, hidden] in HT x 192 boxes.
+template <int D, int GELU>
+int launch_wide(const void* x, const void* g2, const void* be2, const void* w1,
+                const void* b1, const void* w2, const void* b2, const void* gn,
+                const void* bn, void* y, void* yn, int n_rows, int hidden, float eps,
+                cudaStream_t stream) {
+  using L = WideTiles<D>;
+  if (hidden % L::HT != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw1, mw2, my, myn;
+  int err;
+  if ((err = hopper::encode_2d(&mx, x, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&my, y, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&myn, yn, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mw1, w1, hidden, D, L::HT, 64)) ||
+      (err = hopper::encode_2d(&mw2, w2, D, hidden, N2, L::HT)))
+    return err;
+  auto kernel = ln_mlp_wide_kernel<D, GELU>;
+  static bool ok = false;  // the shared-memory limit is raised once
+  if ((err = raise_once(kernel, L::BYTES, ok))) return err;
+  kernel<<<(n_rows + WIDE_ROWS - 1) / WIDE_ROWS, FWD_THREADS, L::BYTES, stream>>>(
+      mx, mw1, mw2, my, myn, (const float*)g2, (const float*)be2, (const float*)b1,
+      (const float*)b2, (const float*)gn, (const float*)bn, hidden, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // hidden must be a multiple of 64 in every entry; d (the width of x) is
-// 384 or 192.
+// 384 or 192, and 768 (ViT-B, ln_mlp_wide_kernel) in the serving chain's.
 extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
                                 const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* gn, const void* bn,
                                 void* y, void* yn, int n_rows, int d, int hidden,
                                 float eps, int gelu_mode, void* stream) {
-  return by_width(d, [&](auto w) {
-    return dispatch<decltype(w)::value, true, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn,
-                                                    bn, nullptr, x, y, yn, n_rows, hidden, eps,
-                                                    stream);
+  return by_width<768, 384, 192>(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    if constexpr (D == 768) {
+      if (n_rows <= 0) return (int)cudaGetLastError();
+      cudaStream_t s = (cudaStream_t)stream;
+      return gelu_mode == 0 ? launch_wide<D, 0>(x, g2, be2, w1, b1, w2, b2, gn, bn, y, yn,
+                                                n_rows, hidden, eps, s)
+                            : launch_wide<D, 1>(x, g2, be2, w1, b1, w2, b2, gn, bn, y, yn,
+                                                n_rows, hidden, eps, s);
+    } else {
+      return dispatch<D, true, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, x,
+                                     y, yn, n_rows, hidden, eps, stream);
+    }
   });
 }
 
@@ -481,7 +896,7 @@ extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void*
                                       const void* b2, const void* gate, void* y,
                                       int n_rows, int d, int hidden, float eps,
                                       int gelu_mode, void* stream) {
-  return by_width(d, [&](auto w) {
+  return by_width<384, 192>(d, [&](auto w) {
     return dispatch<decltype(w)::value, true, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2,
                                                      nullptr, nullptr, gate, x, y, nullptr,
                                                      n_rows, hidden, eps, stream);
@@ -493,7 +908,7 @@ extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void*
 extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, const void* w2,
                              const void* b2, const void* res, const void* gate, void* y,
                              int n_rows, int d, int hidden, int gelu_mode, void* stream) {
-  return by_width(d, [&](auto w) {
+  return by_width<384, 192>(d, [&](auto w) {
     return dispatch<decltype(w)::value, false, false>(gelu_mode, h, nullptr, nullptr, w1, b1,
                                                       w2, b2, nullptr, nullptr, gate, res, y,
                                                       nullptr, n_rows, hidden, 0.f, stream);
@@ -1133,7 +1548,7 @@ extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* b
                                     void* dw2, void* db2, void* xn_ws, void* dye_ws,
                                     void* h_ws, void* dg_ws, void* part, int n_rows,
                                     int d, int hidden, float eps, int splits, void* stream) {
-  return by_width(d, [&](auto w) {
+  return by_width<384, 192>(d, [&](auto w) {
     return mlp_bwd<decltype(w)::value, true>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma,
                                              dbeta, dw1, db1, dw2, db2, xn_ws, dye_ws, h_ws,
                                              dg_ws, part, n_rows, hidden, eps, splits, stream);
@@ -1148,7 +1563,7 @@ extern "C" int ibk_fused_mlp_bwd(const void* h, const void* w1, const void* b1,
                                  void* dw1, void* db1, void* dw2, void* db2, void* dye_ws,
                                  void* a_ws, void* dg_ws, void* part, int n_rows, int d,
                                  int hidden, int splits, void* stream) {
-  return by_width(d, [&](auto w) {
+  return by_width<384, 192>(d, [&](auto w) {
     return mlp_bwd<decltype(w)::value, false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh,
                                               nullptr, nullptr, dw1, db1, dw2, db2, nullptr,
                                               dye_ws, a_ws, dg_ws, part, n_rows, hidden, 0.f,

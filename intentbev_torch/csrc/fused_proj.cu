@@ -383,7 +383,7 @@ extern "C" int ibk_fused_proj(const void* x, const void* w, const void* bias, co
   if (dout != 192 && dout != 384) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  return by_width(din, [&](auto di) {
+  return by_width<384, 192>(din, [&](auto di) {
     return launch_fwd<decltype(di)::value>(x, w, bias, res, gate, y, n_rows, dout, s);
   });
 }
@@ -399,7 +399,7 @@ extern "C" int ibk_fused_proj_bwd(const void* x, const void* w, const void* dy,
   if (n_rows <= 0 || splits <= 0 || (din != 192 && din != 384))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return by_width(dout, [&](auto dn) {
+  return by_width<384, 192>(dout, [&](auto dn) {
     return launch_bwd<decltype(dn)::value>(x, w, dy, gate, dx, dw, db, dg_ws, part, n_rows, din,
                                            splits, s);
   });

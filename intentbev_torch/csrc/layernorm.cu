@@ -5,10 +5,10 @@
 // standalone LN of block 0's norm1 and of the two adapters on the serving
 // path); the training kernels are described where they are defined below.
 // Bound on the H100: device memory. Each row is read once and written once
-// (768 + 768 bytes at D = 384, half at 192), so the floor is bytes / 3.35
-// TB/s.
-// Design: one warp per row, D / 32 values per lane held in registers (12 at
-// D = 384, 6 at D = 192; the width is a template parameter), 32-bit
+// (768 + 768 bytes at D = 384, twice that at 768, half at 192), so the floor
+// is bytes / 3.35 TB/s.
+// Design: one warp per row, D / 32 values per lane held in registers (24 at
+// D = 768, 12 at 384, 6 at 192; the width is a template parameter), 32-bit
 // (bf16x2) loads and stores; the row never touches shared memory. Eight
 // rows per 256-thread block keep enough warps in flight to cover the load
 // latency.
@@ -224,7 +224,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 extern "C" int ibk_layernorm_train(const void* x, const void* gamma, const void* beta,
                                    void* y, void* xhat, void* inv, int n_rows, int d,
                                    float eps, void* stream) {
-  return by_width(d, [&](auto w) {
+  return by_width<384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     if (n_rows > 0) {
       const int blocks = (n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
@@ -242,7 +242,7 @@ extern "C" int ibk_layernorm_train(const void* x, const void* gamma, const void*
 extern "C" int ibk_layernorm_bwd(const void* dy, const void* xhat, const void* inv,
                                  const void* gamma, void* dx, void* part, void* dgamma,
                                  void* dbeta, int n_rows, int d, void* stream) {
-  return by_width(d, [&](auto w) {
+  return by_width<384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     cudaStream_t s = (cudaStream_t)stream;
     int dev = 0, sms = 0, err;
@@ -272,9 +272,11 @@ extern "C" const char* ibk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Inference at d = 768 (ViT-B's serving path), 384 or 192; the training
+// kernels above at 384 or 192.
 extern "C" int ibk_layernorm(const void* x, const void* gamma, const void* beta,
                              void* y, int n_rows, int d, float eps, void* stream) {
-  return by_width(d, [&](auto w) {
+  return by_width<768, 384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     if (n_rows > 0) {
       const int blocks = (n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;

@@ -75,17 +75,18 @@ __device__ __forceinline__ float quad_sum(float s) {
 
 // xn = LN(x) * gamma + beta in place on a consumer's 64 rows of a tile of
 // 64-column blocks XBLK bytes apart (128-byte rows as TMA swizzles them;
-// xs 1024-byte aligned), a warp a row, 16 rows a warp: lane l holds columns
-// 2l, 2l + 1 of each block (16-byte chunk l / 4 of the row). f32 two-pass
-// statistics (warp_ln_stats), xn rounded to bf16 once. With stats, row r's
-// mean goes to stats[r] and its 1 / sigma to stats[inv_at + r].
-template <int D, int XBLK>
+// xs 1024-byte aligned), a warp a row, RPW rows a warp (16; 8 where the two
+// consumers' eight warps share 64 rows): lane l holds columns 2l, 2l + 1 of
+// each block (16-byte chunk l / 4 of the row). f32 two-pass statistics
+// (warp_ln_stats), xn rounded to bf16 once. With stats, row r's mean goes to
+// stats[r] and its 1 / sigma to stats[inv_at + r].
+template <int D, int XBLK, int RPW = 16>
 __device__ __forceinline__ void ln_in_place(uint8_t* xs, int warp, int lane,
                                             const float* __restrict__ gamma,
                                             const float* __restrict__ beta, float eps,
                                             float* stats = nullptr, int inv_at = 0) {
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = 16 * warp + rr;
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int r = RPW * warp + rr;
     uint8_t* row = xs + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) + (lane & 3) * 4;
     float v[D / 32];
 #pragma unroll

@@ -245,7 +245,7 @@ extern "C" int ibk_patch_embed(const void* x, const void* w, const void* bias, v
   if (P <= 0 || H % P || W % P || W / P > BOX_ROWS || (P * C) % 8)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
-  return by_width(d, [&](auto dw) {
+  return by_width<384, 192>(d, [&](auto dw) {
     return launch<decltype(dw)::value>(x, w, bias, out, B, H, W, C, P, (cudaStream_t)stream);
   });
 }

@@ -1,5 +1,5 @@
 // Fused voxelize + patch-embed: placement chunks -> ViT lidar tokens, at the
-// model widths D = 384 (ViT-S) and 192 (ViT-Ti).
+// model widths D = 768 (ViT-B), 384 (ViT-S) and 192 (ViT-Ti).
 //
 // Replaces: intentbev/ops/voxel_embed.py::_kernel with its placement phase
 // ::_place_band. The TPU kernel builds each 40-row BEV band densely in VMEM
@@ -13,9 +13,10 @@
 // pixel lies outside the band, and never reading chunks past count.
 // Bound on the H100: each occupied cell adds one D-wide row of W (768 bytes
 // at D = 384) into one token. W (8*8*290*384*2 = 14.25 MB, 7.1 MB at D =
-// 192) stays in the 50 MB L2, so a batch of 8 bench frames (~1.3 M occupied
-// cells) reads ~1 GB of W rows from L2: ~0.15-0.25 ms at several TB/s. The
-// bytes bound that counts each input byte once (0.022 ms) is far below.
+// 192, 28.5 MB at 768) stays in the 50 MB L2, so a batch of 8 bench frames
+// (~1.3 M occupied cells) reads ~1 GB of W rows from L2 (~2 GB at D = 768):
+// ~0.15-0.25 ms at several TB/s. The bytes bound that counts each input byte
+// once (0.022 ms) is far below.
 // Design: two kernels, one launch each a call.
 //  1. voxel_hits_kernel, a block of 32 warps a (batch, band): orders the
 //     band's hits by token (a stable counting sort) into a scratch hit list
@@ -34,8 +35,9 @@
 //  2. voxel_gather_kernel<D>, a warp a token (36000 warps at the bench, no
 //     one-block tail): walks the token's hits in order, 8 at a time, each
 //     lane loading its 16 + 8 bytes (D = 384; 8 + 4 at 192) of each hit's W
-//     row with all 16 loads in flight before their FMAs, f32 sums in
-//     registers, then the bias and one rounding. No atomics and a fixed sum
+//     row with all 16 loads in flight before their FMAs (at D = 768, 32 +
+//     16 bytes of 4 hits: the same bytes in flight), f32 sums in registers,
+//     then the bias and one rounding. No atomics and a fixed sum
 //     order: two calls give the same bits. A token with thousands of hits is
 //     walked by its one warp (slow but exact; nothing is dropped).
 #include "common.cuh"
@@ -46,7 +48,10 @@ constexpr int WINDOW = 64;  // pixels per placement window
 constexpr int CAP = 64;     // cells per chunk
 constexpr int SORT_WARPS = 32;
 constexpr int GATHER_WARPS = 8;  // tokens a gather block
-constexpr int U = 8;             // hits whose W rows a lane loads before their FMAs
+// hits whose W rows a lane loads before their FMAs: 8, 4 at D = 768 (192
+// bytes a lane either way)
+template <int D>
+constexpr int U = D == 768 ? 4 : 8;
 
 // Cell `cell` of a chunk of window wc: true, with its token within the band,
 // its W row ((dy * P + dx) * C + ch) and its value rounded to bf16, if it
@@ -178,10 +183,16 @@ __global__ void __launch_bounds__(SORT_WARPS * 32)
   }
 }
 
-// N bf16 values (N / 2 words) loaded at once: 16, 8 or 4 bytes.
+// N bf16 values (N / 2 words) loaded at once: 32 (two 16-byte loads), 16, 8
+// or 4 bytes.
 template <int N>
 __device__ __forceinline__ void load_words(uint32_t (&w)[N / 2], const bf16* p) {
-  if constexpr (N == 8) {
+  if constexpr (N == 16) {
+    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint4 s = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+    w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+    w[4] = s.x, w[5] = s.y, w[6] = s.z, w[7] = s.w;
+  } else if constexpr (N == 8) {
     const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
     w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
   } else if constexpr (N == 4) {
@@ -208,7 +219,10 @@ __device__ __forceinline__ void store_words(bf16* dst, const float* acc, const f
 #pragma unroll
   for (int i = 0; i < N / 2; ++i)
     w[i] = pack_bf16x2(acc[2 * i] + bias[2 * i], acc[2 * i + 1] + bias[2 * i + 1]);
-  if constexpr (N == 8)
+  if constexpr (N == 16) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    *(reinterpret_cast<uint4*>(dst) + 1) = make_uint4(w[4], w[5], w[6], w[7]);
+  } else if constexpr (N == 8)
     *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
   else if constexpr (N == 4)
     *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
@@ -217,16 +231,17 @@ __device__ __forceinline__ void store_words(bf16* dst, const float* acc, const f
 }
 
 // A warp a token: lane l sums columns [A l, A l + A) and [32 A + BC l, + BC).
-// Blocks an SM: 2 at D = 384 (124 registers); 4 at D = 192, where ptxas then
-// spills 8 bytes at 64 registers (so it chose on its own), yet the gather
-// ran 0.084-0.092 ms against 0.110 at 2 blocks (92 registers, no spill) on
-// the H100: at this width the warps in flight matter more.
+// Blocks an SM: 2 at D = 384 (124 registers) and 768 (U = 4 hits in flight,
+// 24 sums a lane); 4 at D = 192, where ptxas then spills 8 bytes at 64
+// registers (so it chose on its own), yet the gather ran 0.084-0.092 ms
+// against 0.110 at 2 blocks (92 registers, no spill) on the H100: at this
+// width the warps in flight matter more.
 template <int D>
-__global__ void __launch_bounds__(GATHER_WARPS * 32, D == 384 ? 2 : 4)
+__global__ void __launch_bounds__(GATHER_WARPS * 32, D == 192 ? 4 : 2)
     voxel_gather_kernel(const int2* __restrict__ hits, const int* __restrict__ offsets,
                         const bf16* __restrict__ w, const float* __restrict__ bias,
                         bf16* __restrict__ out, int n_tok, int nb, int nc, int T) {
-  constexpr int A = D / 48, BC = D / 96;
+  constexpr int A = D / 48, BC = D / 96, UH = U<D>;
   const int lane = threadIdx.x % 32;
   const int tok = blockIdx.x * GATHER_WARPS + threadIdx.x / 32;
   if (tok >= n_tok) return;
@@ -241,11 +256,11 @@ __global__ void __launch_bounds__(GATHER_WARPS * 32, D == 384 ? 2 : 4)
   for (int base = start; base < end; base += 32) {
     const int m = min(32, end - base);
     const int2 rec = lane < m ? h[base + lane] : make_int2(0, 0);
-    for (int j = 0; j < m; j += U) {
-      uint32_t ra[U][A / 2], rb[U][BC / 2];
-      float v[U];
+    for (int j = 0; j < m; j += UH) {
+      uint32_t ra[UH][A / 2], rb[UH][BC / 2];
+      float v[UH];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+      for (int u = 0; u < UH; ++u) {
         const size_t row = (size_t)__shfl_sync(0xffffffffu, rec.x, j + u) * D;
         v[u] = __int_as_float(__shfl_sync(0xffffffffu, rec.y, j + u));
         if (j + u < m) {
@@ -254,7 +269,7 @@ __global__ void __launch_bounds__(GATHER_WARPS * 32, D == 384 ? 2 : 4)
         }
       }
 #pragma unroll
-      for (int u = 0; u < U; ++u)
+      for (int u = 0; u < UH; ++u)
         if (j + u < m) {  // in hit order
           fma_words<A>(acc, ra[u], v[u]);
           fma_words<BC>(acc + A, rb[u], v[u]);
@@ -307,22 +322,21 @@ extern "C" int ibk_voxel_hits(const void* wid, const void* sl, const void* ch, c
 }
 
 // The hit list, then the tokens: w bf16 [P, P, C, d]; bias f32 [d]; out bf16
-// [B, (NB*rows_pp) * (width/P), d]; d is 384 or 192; hits and offsets the
-// scratch of ibk_voxel_hits.
+// [B, (NB*rows_pp) * (width/P), d]; d is 768, 384 or 192; hits and offsets
+// the scratch of ibk_voxel_hits.
 extern "C" int ibk_voxel_embed(const void* wid, const void* sl, const void* ch,
                                const void* val, const void* count, const void* w,
                                const void* bias, void* out, void* hits, void* offsets, int B,
                                int nb, int nc, int C, int width, int patch, int rows_pp, int d,
                                void* stream) {
-  if (d != 384 && d != 192) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = launch_hits(wid, sl, ch, val, count, hits, offsets, B, nb, nc, C, width,
-                              patch, rows_pp, s);
-  if (err != 0) return err;
-  const int T = rows_pp * (width / patch), n_tok = B * nb * T;
-  if (n_tok <= 0) return (int)cudaGetLastError();
-  return by_width(d, [&](auto dw) {
+  return by_width<768, 384, 192>(d, [&](auto dw) {
     constexpr int D = decltype(dw)::value;
+    const int err = launch_hits(wid, sl, ch, val, count, hits, offsets, B, nb, nc, C, width,
+                                patch, rows_pp, s);
+    if (err != 0) return err;
+    const int T = rows_pp * (width / patch), n_tok = B * nb * T;
+    if (n_tok <= 0) return (int)cudaGetLastError();
     voxel_gather_kernel<D><<<(n_tok + GATHER_WARPS - 1) / GATHER_WARPS, GATHER_WARPS * 32, 0,
                              s>>>((const int2*)hits, (const int*)offsets, (const bf16*)w,
                                   (const float*)bias, (bf16*)out, n_tok, nb, nc, T);

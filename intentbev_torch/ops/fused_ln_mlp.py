@@ -14,8 +14,10 @@ forward without a gate is the serving tail of the configurations that run
 no LN chain (:func:`fused_ln_mlp_train` with either GELU).
 
 Weights use PyTorch's Linear layout: ``w1`` [hidden, D], ``w2`` [D, hidden].
-The kernels take D in ``layernorm.WIDTHS`` (384, 192) and any hidden width
-that is a multiple of 64.
+The serving chain's kernel takes D in ``layernorm.SERVING_WIDTHS`` (768,
+384, 192), the training kernels D in ``layernorm.WIDTHS`` (384, 192); all
+take any hidden width that is a multiple of 64. Another width raises on
+CUDA: nothing falls back to a plain version.
 The serving drop-path gate is 1 and is not an argument. ``gelu`` is
 ``"erf"`` (exact; the JAX package's default, and the only mode training
 takes) or ``"sigmoid"`` (x * sigmoid(1.702 x), the serving variant
@@ -27,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .layernorm import WIDTHS, layernorm_plain
+from .layernorm import SERVING_WIDTHS, WIDTHS, layernorm_plain
 
 GELU_MODES = ("erf", "sigmoid")
 
@@ -68,7 +70,8 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, gamma_next, beta_next,
     hidden = w1.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"fused_ln_mlp: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d in WIDTHS, f"fused_ln_mlp kernel is built for D in {WIDTHS}, got {d}")
+    require(d in SERVING_WIDTHS,
+            f"fused_ln_mlp kernel is built for D in {SERVING_WIDTHS}, got {d}")
     require(hidden % 64 == 0, f"fused_ln_mlp: hidden {hidden} not a multiple of 64")
     for name, w, shape in (("w1", w1, (hidden, d)), ("w2", w2, (d, hidden))):
         require(w.device == x.device and w.dtype == torch.bfloat16

@@ -6,8 +6,10 @@ in the input's dtype. :func:`layernorm_fn` is the differentiable entry, the
 dispatch of the JAX ``custom_vjp``: a call that needs no gradient takes the
 inference kernel; otherwise the training forward (y, xhat, inv) runs and the
 backward kernel gives dx and the dgamma/dbeta column sums. Any number of
-rows; no padding. The kernels are built for the widths in :data:`WIDTHS`
-(ViT-S 384, ViT-Ti 192); any other width raises on CUDA.
+rows; no padding. The inference kernel is built for the widths in
+:data:`SERVING_WIDTHS` (ViT-B 768, ViT-S 384, ViT-Ti 192), the training
+kernels for those in :data:`WIDTHS` (384, 192); any other width raises on
+CUDA, and nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
 
-WIDTHS = (192, 384)  # widths the kernels are instantiated for
+WIDTHS = (192, 384)  # widths every row kernel is instantiated for
+# widths of the serving chain's kernels (rows 1, 4, 5): ViT-B's 768 too
+SERVING_WIDTHS = WIDTHS + (768,)
 
 
 def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -63,21 +67,21 @@ def _check_params(x, name, *params):
                 f"{name}: gamma/beta must be contiguous f32 [D] on x's device")
 
 
-def _check_rows(x, name):
+def _check_rows(x, name, widths=WIDTHS):
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"{name}: want contiguous CUDA bf16, got {x.dtype} {x.device}")
-    require(x.shape[-1] in WIDTHS,
-            f"{name} kernel is built for D in {WIDTHS}, got {x.shape[-1]}")
+    require(x.shape[-1] in widths,
+            f"{name} kernel is built for D in {widths}, got {x.shape[-1]}")
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis of a contiguous [..., D] bf16 tensor, D in
-    :data:`WIDTHS`; gamma/beta f32 [D]. CPU tensors take
+    :data:`SERVING_WIDTHS`; gamma/beta f32 [D]. CPU tensors take
     :func:`layernorm_plain`."""
     if x.device.type == "cpu":
         return layernorm_plain(x, gamma, beta, eps)
-    _check_rows(x, "layernorm")
+    _check_rows(x, "layernorm", SERVING_WIDTHS)
     _check_params(x, "layernorm", gamma, beta)
     d = x.shape[-1]
     y = torch.empty_like(x)

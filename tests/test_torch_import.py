@@ -246,8 +246,9 @@ def test_clis_raise_the_same_errors(tmp_path, fault):
 
 def test_vit_base_imports_serves_and_trains_on_the_cpu(tmp_path):
     """ViT-B's width (768, 12 heads of 64) at depth 1 on the tiny grid: the
-    kernels are not built for it (on the card they raise), the plain
-    versions serve it and train it here."""
+    plain versions serve it and train it here. On the card the serving
+    chain's kernels take it (rows 1, 4, 5; ``tests/test_torch_vit_base.py``
+    holds their plain versions against JAX) and the training entries raise."""
     from intentbev_torch.boxes import generate_anchors
     from intentbev_torch.train import make_optimizer, make_train_step
 

@@ -22,6 +22,8 @@ the training entries of two of them: the MLP without LN (forward with a
 drop-path gate, backward with and without one) and the LN + dense backward
 (qkv without GELU, adapter with the erf GELU). The row kernels that the
 ViT-Ti width runs (LayerNorm, LN+MLP, voxel embed) run at D=384 and D=192,
+those of ViT-B's serving path (rows 1, 4 and 5) also at D=768, where the
+training entries raise,
 and the BHTD attention (forward and backward) at head dims 64 and 32, on
 contiguous [B, H, T, D] tensors and on the views of a qkv projection
 output, at small and at ViT-Ti's main-path shapes. The packed attention's
@@ -111,6 +113,7 @@ pytestmark = pytest.mark.gpu
 
 D = 384
 WIDTHS = [384, 192]  # ViT-S and ViT-Ti
+SERVING_WIDTHS = WIDTHS + [768]  # and ViT-B: the serving chain's rows 1, 4, 5
 MAIN_ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 
 
@@ -292,7 +295,7 @@ def _check_voxel_embed(chunks, c, d, hw, control=True):
     return got, bias
 
 
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", SERVING_WIDTHS)
 @pytest.mark.parametrize("size", ["small", "main"])
 def test_voxel_embed(dev, size, d):
     if size == "small":
@@ -345,7 +348,7 @@ def _cell_chunks(bands, nc, grid, seed):
     return VoxelChunks(*(torch.from_numpy(a).cuda() for a in (wid, sl, ch, val, count)))
 
 
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", SERVING_WIDTHS)
 @pytest.mark.parametrize("case", ["empty_sample", "one_patch", "full_band"])
 def test_voxel_embed_edges(dev, case, d):
     """The flagship grid (C = 290, bands of 5 patch rows): a batch whose
@@ -1505,3 +1508,110 @@ def test_fused_ln_dense_tp_shard(dev, rows, monkeypatch):
     :func:`test_fused_ln_dense` and :func:`test_fused_ln_dense_bwd`."""
     _check_ln_dense(rows, 3 * D // 2, None, D)
     _check_ln_dense_bwd(rows, 3 * D // 2, None, D, monkeypatch)
+
+
+# ViT-B (D=768, 12 heads of 64, hidden 3072): the serving chain's kernels
+# (row 5's LayerNorm, row 4's LN+MLP with the LN_next epilogue, whose D=768
+# kernel splits the output columns between its two consumers, row 1's voxel
+# embed) against their plain versions, by the relative L2 and the share of
+# differing elements, with a one-fault control each; the packed attention
+# at 12 heads of 64 (both softmax forms of the serving lines); and the
+# training entries, which are not built for this width and raise.
+VIT_B = 768
+
+
+def _vit_b_ln_mlp(rows):
+    x = _randn((rows, VIT_B), 1.0, 0)
+    ln = [_randn((VIT_B,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2, 3, 4)]
+    w1 = _randn((4 * VIT_B, VIT_B), VIT_B ** -0.5, 5)
+    b1 = _randn((4 * VIT_B,), 0.1, 6, torch.float32)
+    w2 = _randn((VIT_B, 4 * VIT_B), (4 * VIT_B) ** -0.5, 7)
+    b2 = _randn((VIT_B,), 0.1, 8, torch.float32)
+    return x, ln, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
+@pytest.mark.parametrize("rows", [1, 63, 300, 4501, MAIN_ROWS])
+def test_vit_b_fused_ln_mlp(dev, rows, gelu):
+    """Row 4 at D=768 (64-row blocks; rows past the last land as TMA's zeros
+    and are not stored): y and yn by relative L2 and share against the plain
+    version, two calls with the same bits; controls: h kept in f32 before
+    fc2 (the share), the other GELU (the relative L2)."""
+    x, ln, w1, b1, w2, b2 = _vit_b_ln_mlp(rows)
+    args = (x, ln[0], ln[1], w1, b1, w2, b2, ln[2], ln[3])
+    reset_launch_counts()
+    got, again = fused_ln_mlp(*args, gelu_mode=gelu), fused_ln_mlp(*args, gelu_mode=gelu)
+    assert launches["fused_ln_mlp"] == 2
+    want = fused_ln_mlp_plain(*args, gelu_mode=gelu)
+    for g, w, a in zip(got, want, again):
+        assert g.shape == w.shape == (rows, VIT_B) and torch.equal(g, a)
+        assert _rel(g, w) < MLP_LIMIT and _share(g, w) < MLP_SHARE, (_rel(g, w), _share(g, w))
+    ctrl = _mlp_h_f32(x, w1, b1, w2, b2, gelu, ln=ln[:2], ln_next=ln[2:])
+    if rows > 1:  # one row holds too few values for a share
+        assert max(_share(g, c) for g, c in zip(got, ctrl)) >= MLP_SHARE
+    other = fused_ln_mlp_plain(*args, gelu_mode="sigmoid" if gelu == "erf" else "erf")
+    assert max(_rel(g, c) for g, c in zip(got, other)) >= MLP_LIMIT
+
+
+@pytest.mark.parametrize("rows", [1, 10, 4501, MAIN_ROWS])
+def test_vit_b_layernorm(dev, rows):
+    """Row 5 at D=768 (24 values a lane): relative L2 and share; control:
+    the variance over N-1."""
+    x = _randn((rows, VIT_B), 2.0, 0) + 0.5
+    g = _randn((VIT_B,), 0.3, 1, torch.float32) + 1
+    b = _randn((VIT_B,), 0.3, 2, torch.float32)
+    reset_launch_counts()
+    got = layernorm(x, g, b)
+    assert launches["layernorm"] == 1
+    want = layernorm_plain(x, g, b)
+    assert _rel(got, want) < 3e-4 and _share(got, want) < MLP_SHARE, (_rel(got, want),
+                                                                      _share(got, want))
+    ctrl = _layernorm_unbiased(x, g, b)
+    assert _rel(got, ctrl) >= 3e-4 and (rows < 10 or _share(got, ctrl) >= MLP_SHARE)
+
+
+@pytest.mark.parametrize("form", ["safe", "fixed"])
+@pytest.mark.parametrize("b,t,seq_len", [(1, 300, 250), (8, 4501, 4501)])
+def test_vit_b_flash_packed(dev, b, t, seq_len, form):
+    """Rows 3 (safe) and 2 (fixed max, the bench lines' kv_chunk 1152 and
+    unsafe softmax) at 12 heads of 64 over a model width of 768 (six head
+    pairs): o by relative L2 and share, lse; control: the other form's
+    plain version."""
+    args = {"safe": (0, False), "fixed": (1152, True)}
+    qkv = _randn((b, t, 3 * VIT_B), 1.0, 0)
+    q, k, v = qkv[..., :VIT_B], qkv[..., VIT_B:2 * VIT_B], qkv[..., 2 * VIT_B:]
+    padded = 4608 if t == 4501 else 768  # the JAX ViT's padded length
+    reset_launch_counts()
+    o, lse = flash_attention_packed(q, k, v, 12, seq_len, *args[form], padded)
+    assert launches[tfp.FWD_COUNTERS[form]] == 1 and sum(launches.values()) == 1
+    o_p, lse_p = flash_attention_packed_plain(q, k, v, 12, seq_len, *args[form], padded)
+    assert o.shape == (b, t, VIT_B) and lse.shape == (b, 12, t)
+    assert _rel(o, o_p) < FLASH_LIMIT and _share(o, o_p) < FWD_SHARE_LIMIT, (_rel(o, o_p),
+                                                                             _share(o, o_p))
+    assert float((lse - lse_p).abs().max()) < LSE_LIMIT
+    other = args["fixed" if form == "safe" else "safe"]
+    o_c, _ = flash_attention_packed_plain(q, k, v, 12, seq_len, *other, padded)
+    assert _share(o, o_c) >= FWD_SHARE_LIMIT
+
+
+def test_vit_b_training_entries_raise(dev):
+    """The training kernels (rows 6-9) are built for D=384 and 192: at 768
+    each entry raises, naming the width, launches nothing and never takes
+    its plain version; the differentiable entries too."""
+    from intentbev_torch.ops import fused_ln_mlp_fn, layernorm_fn
+
+    x, ln, w1, b1, w2, b2 = _vit_b_ln_mlp(64)
+    _, xhat, inv = layernorm_train_plain(x, ln[0], ln[1])
+    calls = {
+        "layernorm_train": lambda: layernorm_train(x, ln[0], ln[1]),
+        "layernorm_bwd": lambda: layernorm_bwd(x, xhat, inv, ln[0]),
+        "fused_ln_mlp_train": lambda: fused_ln_mlp_train(x, ln[0], ln[1], w1, b1, w2, b2),
+        "fused_ln_mlp_bwd": lambda: fused_ln_mlp_bwd(x, ln[0], ln[1], w1, b1, w2, None, x),
+        "layernorm_fn": lambda: layernorm_fn(x.clone().requires_grad_(True), ln[0], ln[1]),
+        "fused_ln_mlp_fn": lambda: fused_ln_mlp_fn(x.clone().requires_grad_(True), ln[0], ln[1],
+                                                   w1, b1, w2, b2)}
+    for name, call in calls.items():
+        reset_launch_counts()
+        with pytest.raises(ValueError, match="768"):
+            call()
+        assert sum(launches.values()) == 0, name

@@ -34,9 +34,11 @@ from intentbev_torch.weights import from_flax  # noqa: E402
 NUM_CHUNKS = 64
 
 
-def serve_setup(cfg):
-    """JAX init of ``cfg``'s model (head kernels scaled up), two samples of
-    points and map, the JAX logits over chunks and its Detections."""
+def serve_setup(cfg, jit=False, head_scale=20.0):
+    """JAX init of ``cfg``'s model (head kernels scaled up by
+    ``head_scale``), two samples of points and map, the JAX logits over
+    chunks (the model applied under one ``jax.jit`` with ``jit``) and its
+    Detections."""
     g = cfg.grid
     model = build_model(cfg)
     bev0 = jnp.zeros((1, g.height_px, g.width_px, g.lidar_total_channels))
@@ -44,7 +46,7 @@ def serve_setup(cfg):
     variables = jax.tree_util.tree_map(np.asarray, model.init(jax.random.key(0), bev0, map0))
     for head in ("det_head", "intention_head"):
         variables["params"][head]["conv"]["kernel"] = (
-            variables["params"][head]["conv"]["kernel"] * 20.0)
+            variables["params"][head]["conv"]["kernel"] * head_scale)
     pts, valid, mp = serving_batch(g, 2, 600, seed=1)
 
     chunks = jve.stack_voxel_chunks([
@@ -52,9 +54,9 @@ def serve_setup(cfg):
                                num_chunks=NUM_CHUNKS, on_overflow="drop")[0]
         for i in range(2)])
     with pltpu.force_tpu_interpret_mode():
-        want = model.apply(variables, jve.VoxelChunks(*map(jnp.asarray, chunks)),
-                           decode_map_transport(jnp.asarray(mp), g.map_channels,
-                                                jnp.float32))
+        want = (jax.jit(model.apply) if jit else model.apply)(
+            variables, jve.VoxelChunks(*map(jnp.asarray, chunks)),
+            decode_map_transport(jnp.asarray(mp), g.map_channels, jnp.float32))
     ev = cfg.eval
     det = batched_postprocess(
         *want, jnp.asarray(generate_anchors(g, cfg.anchors)),
