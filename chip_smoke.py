@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card: the serving paths and the
 training steps of both model families, data and tensor parallel included,
-and an imported ViT-B served.
+and ViT-B imported and served, and trained.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,12 @@ Phases (each prints a line; any failure exits nonzero with no result):
    the gated backward. ViT-B's serving kernels run at D=768 (rows 1, 4 with
    each GELU, 5) and the packed attention at 12 heads of 64 over a model
    width of 768 in the safe and the fixed-max form, with the D=384 cases'
-   faults and limits.
+   faults and limits. ViT-B's training kernels run at its step's shapes:
+   rows 8 and 9 at D=768, row 6 gated, row 7 (two row kernels, then the dW
+   products; printed by kernel from a profiler trace) and the packed
+   backward at 12 heads of 64 in its three forms, dq, dk and dv also read
+   by their shares of differing elements; each new case also gives the same
+   bits on two calls.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -238,6 +243,20 @@ Phases (each prints a line; any failure exits nonzero with no result):
     (control: the qkv rows imported k-first), fixed-shape finite
     Detections, frames/s with the host chunk build, and the device's ms a
     batch (kernels and copies from a profiler trace) with its frames/s.
+19. ViT-B training: ``default_vit_config()`` with ViT-B's widths (embed
+    768, 12 heads of 64, hidden 3072, depth 12, patch 8; random seeded
+    weights) takes phase 5's step (batch 8 x 4501 tokens, bf16 compute, f32
+    master weights, drop-path 0.1): one kernel step against the plain step
+    on phase 5's batch and draws by phase 5's rule (control: the plain
+    LN+MLP backward ignores the gate); one step under each of the
+    backward's other forms against the fused step by phase 11's rule,
+    counted under their own names; a warm-up and 3 timed AdamW steps with
+    exact launch counts (rows 3, 6, 7, 10 24 a step, rows 8, 9 28), ms/step,
+    peak memory and one step's device time by kernel group; then
+    ``train()`` for 3 steps on a split written by
+    ``examples/make_synthetic_dataset_torch.py`` (finite losses, a
+    checkpoint) and ``evaluate()`` of that checkpoint on its val log
+    (finite mAPs; rows 3, 4, 5 at their D=768 instances, counted).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1504,6 +1523,83 @@ def main() -> None:
             "P rounded against the row max", FWD_METRICS, FWD_LIMITS, 10, 2,
             flash_bytes_b, flash_flops_b, sdpa_b),
     })
+    # ViT-B's training step (phase 19) at its shapes: rows 8 and 9 at D=768
+    # (24 values a lane), row 6 (the wide kernel's gated form), row 7 (its
+    # two row kernels, then the dW products) and the packed backward at 12
+    # heads of 64 in its three forms (rows 10 and 11), each case as the D=384
+    # one of the same kernel, with dx's (and dq's, dk's, dv's) share of
+    # differing elements beside the relative L2
+    x3_b, dy_b = x_b.view(batch, tokens, db_), randn((rows, db_), 1.0)
+    dy3_b = dy_b.view(batch, tokens, db_)
+    train_b_args = (x3_b, ln_b[0], ln_b[1], w1_b, b1_b, w2_b)
+    _, xhat_b, inv_b = layernorm_train_plain(x_b, ln_b[0], ln_b[1])
+    o_b, lse_b = flash_attention_packed(q_b, k_b, v_b, hb_)
+    do_b = randn((batch, tokens, db_), 1.0)
+    mlp_bwd_bytes_b = (3 * nbytes(x_b) + nbytes(w1_b, b1_b, w2_b, ln_b[0], ln_b[1], gate)
+                       + 4 * (3 * db_ + hid_b + 2 * db_ * hid_b))
+    xl_b = x_b.detach().clone().requires_grad_(True)
+    gl_bg, bl_bg = (t_.clone().requires_grad_(True) for t_ in (gl_b, bl_b))
+    y_ln_b = F.layer_norm(xl_b, (db_,), gl_bg, bl_bg, 1e-6)
+    qh_b, kh_b, vh_b = (t_.detach().clone().requires_grad_(True) for t_ in bhtd_b)
+    doh_b = do_b.reshape(batch, tokens, hb_, 64).transpose(1, 2).contiguous()
+    o_sdpa_b = F.scaled_dot_product_attention(qh_b, kh_b, vh_b)
+
+    def dqkv_b(t_):
+        return tuple(t_[..., i * db_:(i + 1) * db_] for i in range(3))
+
+    def flash_bwd_b(fn, form, o_in=None):
+        return lambda: 2 * dqkv_b(fn(q_b, k_b, v_b, o_b if o_in is None else o_in, lse_b, do_b,
+                                     hb_, None, *{"fused": (True, 0), "split": (False, 0),
+                                                  "chunked": (False, FWD_CHUNK)}[form]))
+
+    # the packed backward at 12 heads of 64: dq, dk, dv by relative L2 (the
+    # limits of the D=384 fused case and of phase 11's forms), then by the
+    # share of their elements that differ (sound 0.81-0.92 %, delta left out
+    # 93-95 % of dq and dk)
+    FLASH_BWD_METRICS_B = (rel_l2,) * 3 + (share,) * 3
+    FLASH_BWD_LIMITS_B = {"fused": (1e-2,) * 3 + (2e-2,) * 3,
+                          "split": (7e-4,) * 3 + (2e-2,) * 3,
+                          "chunked": (7e-4,) * 3 + (2e-2,) * 3}
+    cases.update({
+        "layernorm_train[D=768]": (
+            lambda: layernorm_train(x_b, ln_b[0], ln_b[1]),
+            lambda: layernorm_train_plain(x_b, ln_b[0], ln_b[1]),
+            lambda: layernorm_unbiased(x_b, ln_b[0], ln_b[1], train=True),
+            "variance over N-1", (rel_l2,) * 3, (3e-4, 3e-4, 1e-5), 20, 5,
+            3 * nbytes(x_b) + nbytes(inv_b, ln_b[0], ln_b[1]), 0,
+            torch.no_grad()(lambda: F.layer_norm(x_b, (db_,), gl_b, bl_b, 1e-6))),
+        "layernorm_bwd[D=768]": (
+            lambda: dx_twice(layernorm_bwd(dy_b, xhat_b, inv_b, ln_b[0])),
+            lambda: dx_twice(layernorm_bwd_plain(dy_b, xhat_b, inv_b, ln_b[0])),
+            lambda: dx_twice(layernorm_bwd_no_m2(dy_b, xhat_b, inv_b, ln_b[0])),
+            "no mean(dyg*xhat) term", LN_BWD_METRICS, LN_BWD_LIMITS, 20, 5,
+            3 * nbytes(x_b) + nbytes(inv_b, ln_b[0]) + 2 * db_ * 4, 0,
+            lambda: torch.autograd.grad(y_ln_b, (xl_b, gl_bg, bl_bg), dy_b, retain_graph=True)),
+        "fused_ln_mlp_train[D=768]": (
+            lambda: twice(fused_ln_mlp_train(*train_b_args, b2_b, gate)),
+            lambda: twice(fused_ln_mlp_train_plain(*train_b_args, b2_b, gate)),
+            [lambda: twice(fused_ln_mlp_train_plain(*train_b_args, b2_b)),
+             lambda: twice(h_f32(x3_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2], gate))],
+            ["gate ignored", "h kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 10, 2,
+            nbytes(x_b, w1_b, b1_b, w2_b, b2_b, ln_b[0], ln_b[1], gate) + nbytes(x_b),
+            mlp_flops_b, None),
+        "fused_ln_mlp_bwd[D=768]": (
+            lambda: dx_twice(fused_ln_mlp_bwd(*train_b_args, gate, dy3_b)),
+            lambda: dx_twice(fused_ln_mlp_bwd_plain(*train_b_args, gate, dy3_b)),
+            [lambda: dx_twice(fused_ln_mlp_bwd_plain(*train_b_args, None, dy3_b)),
+             lambda: dg_f32(lambda: fused_ln_mlp_bwd_plain(*train_b_args, gate, dy3_b), x3_b,
+                            w1_b, b1_b, w2_b, gate, dy3_b, ln_b[:2])],
+            ["gate ignored", "dg kept in f32"], BWD_METRICS[7], BWD_LIMITS[7], 5, 2,
+            mlp_bwd_bytes_b, 5 * mlp_flops_b // 2, None),
+        **{f"flash_packed_bwd{'' if f_ == 'fused' else '_' + f_}[12x64,D=768]": (
+            flash_bwd_b(flash_attention_packed_bwd, f_),
+            flash_bwd_b(flash_attention_packed_bwd_plain, f_),
+            flash_bwd_b(flash_attention_packed_bwd_plain, f_, torch.zeros_like(o_b)),
+            "delta = rowsum(dO*O) left out", FLASH_BWD_METRICS_B, FLASH_BWD_LIMITS_B[f_], 5, 1,
+            nbytes(q_b, k_b, v_b, o_b, do_b, lse_b) + nbytes(qkv_b), 5 * flash_flops_b // 2,
+            lambda: torch.autograd.grad(o_sdpa_b, (qh_b, kh_b, vh_b), doh_b, retain_graph=True))
+           for f_ in ("fused", "split", "chunked")},
+    })
     record = {}
 
     def bwd_split(fn, kinds, iters=3):
@@ -1587,7 +1683,20 @@ def main() -> None:
             print(f"kernel {name}: two calls give the same bits", flush=True)
 
     check_kernels(cases)
-    same_bits(cases, ("layernorm_bwd", "layernorm_bwd[D=192]"))
+    same_bits(cases, ("layernorm_bwd", "layernorm_bwd[D=192]", "layernorm_train[D=768]",
+                      "layernorm_bwd[D=768]", "fused_ln_mlp_train[D=768]",
+                      "fused_ln_mlp_bwd[D=768]", "flash_packed_bwd[12x64,D=768]",
+                      "flash_packed_bwd_split[12x64,D=768]",
+                      "flash_packed_bwd_chunked[12x64,D=768]"))
+    # row 7 at D=768 by kernel: pass A (dh), pass B (the rows), the dW
+    # products, the column and split sums
+    parts_b = bwd_split(cases["fused_ln_mlp_bwd[D=768]"][0],
+                        {"dh": "ln_mlp_dh_kernel", "rows": "ln_mlp_bwd_wide_kernel",
+                         "dW": "dw_gemm", "sums": ""})
+    print("kernel fused_ln_mlp_bwd[D=768] by kernel (profiler trace, per call): "
+          + ", ".join(f"{k_} {t:.3f} ms" for k_, t in parts_b.items())
+          + f" (bound {record['fused_ln_mlp_bwd[D=768]']['bound_ms']:.4f} ms)  [{card}]",
+          flush=True)
     # the reference for the LN+MLP forwards (timed only, the port never
     # calls it): the same function as a chain of PyTorch calls in bf16,
     # F.layer_norm, F.linear, the GELU, F.linear and the residual (cuBLAS)
@@ -1617,7 +1726,9 @@ def main() -> None:
         "fused_ln_mlp[D=768]": lambda: mlp_next_ln(
             x_b + mlp_chain(x_b, w1_b, b1_b, w2_b, b2_b, "sigmoid", ln_b[:2]), ln_b[2:]),
         "fused_ln_mlp[erf,D=768]": lambda: mlp_next_ln(
-            x_b + mlp_chain(x_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2]), ln_b[2:])}
+            x_b + mlp_chain(x_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2]), ln_b[2:]),
+        "fused_ln_mlp_train[D=768]": lambda: x3_b + mlp_chain(
+            x3_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2]) * gate16}
     # and for the LN + dense pair: F.layer_norm, F.linear [+ the GELU], and
     # the backward by autograd through them
     def ln_dense_chain(x_, ln_, w_, b_, mode=None):
@@ -1693,6 +1804,8 @@ def main() -> None:
     del mlp_t, train_t, xhat_t, inv_t, xl_t, y_ln_t, q32, k32, v32, do32, o32, lse32, cases
     del x8_t, w1q_t, w2q_t, int8_args_t
     del x_b, mlp_b, qkv_b, q_b, k_b, v_b, bhtd_b, sdpa_b, gl_b, bl_b
+    del x3_b, dy_b, dy3_b, train_b_args, xhat_b, inv_b, o_b, lse_b, do_b, xl_b, gl_bg, bl_bg
+    del y_ln_b, qh_b, kh_b, vh_b, doh_b, o_sdpa_b
     torch.cuda.empty_cache()
 
     # 4. the slice
@@ -3481,6 +3594,177 @@ def main() -> None:
           f"(the .pth write included), served in both softmax forms; phase 18 took "
           f"{time.perf_counter() - t18:.1f} s", flush=True)
 
+    # 19. ViT-B training: default_vit_config() with ViT-B's widths (embed 768,
+    # 12 heads of 64, hidden 3072, depth 12, patch 8) takes phase 5's step
+    # (batch 8 x 4501 tokens, bf16 compute, f32 master weights and AdamW)
+    # through rows 3, 6, 7, 8, 9 and 10 at their D=768 / 12x64 instances
+    t19 = time.perf_counter()
+    vb_cfg = dataclasses.replace(cfg, vit=dataclasses.replace(v, embed_dim=768, num_heads=12))
+    vbv = vb_cfg.vit
+    check((vbv.embed_dim, vbv.num_heads, int(vbv.embed_dim * vbv.mlp_ratio), vbv.depth,
+           vbv.patch_size) == (768, 12, 3072, 12, 8), f"ViT-B config {vbv}")
+    params_vb = init_params(vb_cfg, seed=0)
+
+    def vit_b_net(**kw):
+        net = IntentNetViT(vbv, vb_cfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32,
+                           **kw)
+        net.load_state_dict(params_vb)
+        return net.to(dev)
+
+    model_vb = vit_b_net()
+    n_params_vb = sum(p_.numel() for p_ in model_vb.parameters())
+    # one kernel step against the plain step on phase 5's batch and draws, by
+    # phase 5's rule (control: the plain LN+MLP backward ignores the gate)
+    m_k, g_k = loss_and_grads(False, model_vb, vb_cfg)
+    check(all(np.isfinite(val) for val in m_k.values()), f"ViT-B: non-finite metrics {m_k}")
+    check(all(bool(torch.isfinite(t).all()) for t in g_k.values()), "ViT-B: non-finite gradient")
+    m_p, g_p = loss_and_grads(True, model_vb, vb_cfg)
+    g_c = faulty_plain("fused_ln_mlp", "fused_ln_mlp_bwd_plain",
+                       lambda f: lambda x_, ga, be, w1_, b1_, w2_, gate_, dy_, eps:
+                       f(x_, ga, be, w1_, b1_, w2_, None, dy_, eps), model_vb, vb_cfg)
+    model_vb.plain_ops = False
+    sound_g, ctrl_g = grad_readings(g_k, g_p), grad_readings(g_c, g_p)
+    loss_rel = abs(m_k["loss"] - m_p["loss"]) / abs(m_p["loss"])
+    said = (f"sound {sound_g[:2]} (worst {sound_g[2]}), control {ctrl_g[:2]} "
+            f"(worst {ctrl_g[2]}), limits {grad_limit}, {worst_limit}")
+    check(sound_g[0] < grad_limit and sound_g[1] < worst_limit and loss_rel < loss_limit,
+          f"ViT-B train step: kernel vs plain reaches a limit: {said}; loss {m_k} vs {m_p}")
+    check(ctrl_g[0] >= grad_limit or ctrl_g[1] >= worst_limit,
+          f"ViT-B train step: the control stays under the limits: {said}")
+    print(f"ViT-B train: {n_params_vb} parameters; step kernel vs plain, loss "
+          f"{m_k['loss']:.6f} vs {m_p['loss']:.6f} (rel {loss_rel:.3e} < {loss_limit:g}); "
+          f"gradients relative L2 all {sound_g[0]:.3e} < {grad_limit:g}, worst "
+          f"{sound_g[1]:.3e} ({sound_g[2]}) < {worst_limit:g}; control (plain, LN+MLP backward "
+          f"ignores the gate) all {ctrl_g[0]:.3e}, worst {ctrl_g[1]:.3e} ({ctrl_g[2]}) caught",
+          flush=True)
+    del g_p, g_c
+
+    # the backward's other forms (row 11: bwd_fused=False, bwd_kv_chunk=1152)
+    # take one step each at 12 heads of 64, against the fused step by phase
+    # 11's rule, counted under their own names
+    vitb_form_counts = {}
+    for form in ("split", "chunked"):
+        _build.reset_launch_counts()
+        m_s, g_s = loss_and_grads(False, vit_b_net(bwd_fused=False,
+                                                   bwd_kv_chunk=forms[form][1]), vb_cfg)
+        counter = fpk.BWD_COUNTERS[form]
+        vitb_form_counts[form] = dict(_build.launches)
+        check(_build.launches[counter] == 2 * vbv.depth and _build.launches["flash_packed_bwd"] == 0,
+              f"ViT-B {form} step: launches {dict(_build.launches)}")
+        r_all, r_worst, r_name = grad_readings(g_s, g_k)
+        f_rel = abs(m_s["loss"] - m_k["loss"]) / abs(m_k["loss"])
+        check(r_all < form_limit and r_worst < form_worst_limit and f_rel < form_loss_limit,
+              f"ViT-B {form} step against the fused step: all {r_all}, worst {r_worst} "
+              f"({r_name}), loss rel {f_rel}")
+        print(f"ViT-B train: step {form} vs fused, gradients relative L2 all {r_all:.3e} < "
+              f"{form_limit:g}, worst {r_worst:.3e} ({r_name}), loss rel {f_rel:.3e}; "
+              f"launches {counter} {_build.launches[counter]}", flush=True)
+        del g_s
+        torch.cuda.empty_cache()
+    del g_k
+
+    # exact launch counts and times: a warm-up, then 3 timed AdamW steps
+    opt_vb = make_optimizer(model_vb.parameters(), vb_cfg)
+    step_vb = make_train_step(model_vb, vb_cfg, anchors, opt_vb)
+    vgen = torch.Generator(device="cuda").manual_seed(2)
+    step_vb(tbatch, vgen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    step_ms, metrics = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        metrics.append(step_vb(tbatch, vgen))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    vitb_train_counts = dict(_build.launches)
+    want_counts = {k_: per_step.get(k_, 0) * len(step_ms) for k_ in vitb_train_counts}
+    check(vitb_train_counts == want_counts,
+          f"ViT-B train launch counts {vitb_train_counts} != {want_counts}")
+    for m in metrics:
+        check(all(bool(torch.isfinite(t)) for t in m.values()), f"ViT-B: non-finite metrics {m}")
+    check(all(bool(torch.isfinite(p_.grad).all()) for p_ in model_vb.parameters()),
+          "ViT-B: non-finite gradient")
+    vb_ms = sum(step_ms) / len(step_ms)
+    print(f"ViT-B train: launches over {len(step_ms)} steps {vitb_train_counts} (per step "
+          f"{per_step}); losses {[round(float(m['loss']), 6) for m in metrics]}; step ms "
+          f"{[round(t, 2) for t in step_ms]}; {vb_ms:.2f} ms/step, {batch / vb_ms * 1e3:.2f} "
+          f"samples/s at batch {batch} (phase 5's ViT-S {vit_step_ms:.2f} ms/step); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    # the step's device time by kernel group (a profiler trace of one step;
+    # a group's key is a substring of its kernels' names, the first that
+    # matches takes a kernel, "other" the rest: PyTorch's own kernels)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    groups_vb = {"attention fwd": "flash_fwd", "attention bwd": "flash_bwd",
+                 "LN+MLP fwd": "ln_mlp_wide_kernel", "LN+MLP bwd rows": "ln_mlp_",
+                 "dW products": "dw_gemm", "LN": "layernorm", "other": ""}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_vb(tbatch, vgen)
+        torch.cuda.synchronize()
+    step_parts = dict.fromkeys(groups_vb, 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            step_parts[next(k_ for k_, key in groups_vb.items() if key in ev.key)] += (
+                ev.device_time_total / 1e3)
+    trace_ms = sum(step_parts.values())
+    print("ViT-B train: one step's device time by kernel group (profiler trace): "
+          + (", ".join(f"{k_} {t:.2f} ms" for k_, t in step_parts.items())
+             + f"; total {trace_ms:.2f} ms" if trace_ms > 0 else "not measured (empty trace)")
+          + f" [{card}]", flush=True)
+    del metrics, opt_vb, step_vb, model_vb
+    torch.cuda.empty_cache()
+
+    # train() on a small split written by the synthetic dataset example (1
+    # train log of 17 frames: 8 sequences, one batch an epoch), a checkpoint,
+    # then evaluate() of it on the val log
+    tmp19 = tempfile.TemporaryDirectory(prefix="smoke19_")
+    root19 = Path(tmp19.name)
+    synth = subprocess.run([sys.executable, "examples/make_synthetic_dataset_torch.py", "--out",
+                            str(root19 / "synth"), "--train_logs", "1", "--val_logs", "1",
+                            "--frames", "17"], cwd=repo, capture_output=True, text=True,
+                           timeout=300)
+    check(synth.returncode == 0, f"ViT-B: the synthetic dataset example exited "
+                                 f"{synth.returncode}: {synth.stderr[-2000:]}")
+    tb_cfg = dataclasses.replace(vb_cfg, train=dataclasses.replace(
+        vb_cfg.train, batch_size=batch, checkpoint_every_steps=3, log_every_steps=1))
+    run19 = root19 / "run"
+    _build.reset_launch_counts()
+    train_loop(tb_cfg, str(root19 / "synth" / "train"), str(run19), num_workers=4, max_steps=3,
+               log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    vitb_loop_counts = dict(_build.launches)
+    want_counts = {k_: per_step.get(k_, 0) * 3 for k_ in vitb_loop_counts}
+    check(vitb_loop_counts == want_counts,
+          f"ViT-B train() launch counts {vitb_loop_counts} != {want_counts}")
+    records = [json.loads(ln) for ln in (run19 / "metrics.jsonl").read_text().splitlines()]
+    check([r_["step"] for r_ in records] == [1, 2, 3] and all(
+        np.isfinite(r_[k_]) for r_ in records for k_ in ("loss", "cls_loss", "box_loss",
+                                                         "intent_loss")),
+          f"ViT-B train(): logged {records}")
+    ckpt, ckpt_cfg = load_checkpoint(run19)
+    check(ckpt["step"] == 3 and ckpt_cfg.vit.embed_dim == 768, f"ViT-B checkpoint step "
+                                                               f"{ckpt['step']}")
+    del ckpt
+    _build.reset_launch_counts()
+    results19 = evaluate(str(run19), str(root19 / "synth" / "val"), num_workers=4,
+                         max_batches=1, log_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    vitb_eval_counts = dict(_build.launches)
+    per_batch = {"flash_packed": 2 * vbv.depth, "fused_ln_mlp": 2 * vbv.depth, "layernorm": 4}
+    want_counts = {k_: per_batch.get(k_, 0) for k_ in vitb_eval_counts}
+    check(vitb_eval_counts == want_counts,
+          f"ViT-B eval launch counts {vitb_eval_counts} != {want_counts}")
+    maps19 = {k_: v_ for k_, v_ in results19.items() if k_.startswith("mAP@")}
+    check(results19["num_samples"] == batch and len(maps19) == 5 and all(
+        np.isfinite(m_) and 0.0 <= m_ <= 1.0 for m_ in maps19.values()),
+          f"ViT-B eval: {results19}")
+    tmp19.cleanup()
+    print(f"ViT-B train(): 3 steps on the example's split, losses "
+          f"{[round(r_['loss'], 4) for r_ in records]}, launches {vitb_loop_counts}; evaluate() "
+          f"of its checkpoint: {results19['num_samples']} samples, mAPs {maps19}, launches "
+          f"{vitb_eval_counts}; phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
+
     serving_runs = (serve_counts, *config_counts.values())
     lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
     deploy_runs = (stream_counts, dp_step_counts, dp_eval_counts)  # phase 15
@@ -3586,6 +3870,22 @@ def main() -> None:
              (vitb_counts["ViT-B"],)),
             ("flash_packed_fixed[12x64,D=768]", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:157 (safe=False)", (vitb_counts["ViT-B fixed"],)),
+            # the D=768 / 12x64 instances ViT-B's training path runs (phase 19)
+            ("layernorm_train[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:53",
+             (vitb_train_counts, vitb_loop_counts)),
+            ("layernorm_bwd[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:66",
+             (vitb_train_counts, vitb_loop_counts)),
+            ("fused_ln_mlp_train[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
+             (vitb_train_counts, vitb_loop_counts)),
+            ("fused_ln_mlp_bwd[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
+             (vitb_train_counts, vitb_loop_counts)),
+            ("flash_packed_bwd[12x64,D=768]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:523", (vitb_train_counts, vitb_loop_counts)),
+            ("flash_packed_bwd_split[12x64,D=768]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (vitb_form_counts["split"],)),
+            ("flash_packed_bwd_chunked[12x64,D=768]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:414 (dq), :467 (dk/dv)",
+             (vitb_form_counts["chunked"],)),
             # row 11, and the packed path at head dim 32 (phase 11)
             ("flash_packed_bwd_split", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (form_counts["split"],)),
@@ -3621,7 +3921,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 57 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 64 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

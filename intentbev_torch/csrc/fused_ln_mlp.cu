@@ -17,10 +17,11 @@
 //    intentbev/ops/fused_mlp.py::_bwd_kernel.
 //
 // The model width D is a template parameter, instantiated at 384 (ViT-S)
-// and 192 (ViT-Ti) for every kernel; 1 also at 768 (ViT-B's serving chain),
-// by a kernel of its own whose consumers split the output columns
-// (ln_mlp_wide_kernel, below the narrow forward). The hidden width is any
-// multiple of 64.
+// and 192 (ViT-Ti) for every kernel; 1, 2 and 4 also at 768 (ViT-B): the
+// forwards by a kernel of their own whose consumers split the output columns
+// (ln_mlp_wide_kernel, below the narrow forward), the backward by two row
+// kernels, one for dh = dy_eff W2 and one for the rest (below the narrow
+// backward). The hidden width is any multiple of 64.
 //
 // Forward (1-3: ln_mlp_fwd_kernel). Bound on the H100: tensor-core
 // throughput. At 36008 x 384 rows and a 1536-wide hidden layer a call is
@@ -461,8 +462,9 @@ int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
 }
 
 
-// 1 at D = 768 (ViT-B's serving chain). ln_mlp_fwd_kernel cannot take this
-// width: a consumer's [64, D] f32 fc2 accumulator would be 384 registers a
+// 1 and 2 at D = 768 (ViT-B's serving chain; its training forward and
+// unchained tail: the gate over rows, no yn). ln_mlp_fwd_kernel cannot take
+// this width: a consumer's [64, D] f32 fc2 accumulator would be 384 registers a
 // thread, and a block's 128 rows would fill 192 KB of shared memory. Here a
 // block of 384 threads owns 64 rows (96 KB), and its two consumer
 // warpgroups split the D output columns, D / 2 = 384 each: an accumulator
@@ -482,8 +484,9 @@ int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
 // only for the last fc1 and its W2 load only for the last fc2. LN2 runs in
 // place on the rows as TMA landed them, 8 rows a warp of both consumers.
 // Once the rings drain, the residual rows land in them; the epilogue adds
-// b2 and the residual in f32, writes y (rounded once) over the residual,
-// and the LN_next statistics of the f32 y take each row's sums over both
+// b2, scales by the gate (1 in the chain) and adds the residual in f32,
+// writes y (rounded once) over the residual, and (in the chain) the LN_next
+// statistics of the f32 y take each row's sums over both
 // consumers' columns through shared memory (the mean, then the squared
 // deviations); yn goes over the xn rows. Each consumer TMA-stores its
 // column blocks of y and yn. The rounding points are the narrow kernel's:
@@ -520,9 +523,11 @@ struct WideTiles {
   static_assert(W1_TILE + W2_TILE == ROWS_B, "the residual rows reload into the drained rings");
 };
 
-// mx reads x, mw1 W1 [hidden, D], mw2 W2 [D, hidden]; my and myn write y and
-// yn (rows past n_rows are not written).
-template <int D, int GELU>
+// LN_OUT: the serving chain (y = x + mlp, and yn); else the training form
+// and the unchained serving tail, y = x + gate * mlp with the f32 gate over
+// rows (null: 1) and no yn. mx reads x, mw1 W1 [hidden, D], mw2 W2 [D,
+// hidden]; my and myn write y and yn (rows past n_rows are not written).
+template <int D, int GELU, bool LN_OUT>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     ln_mlp_wide_kernel(const __grid_constant__ CUtensorMap mx,
                        const __grid_constant__ CUtensorMap mw1,
@@ -531,7 +536,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                        const __grid_constant__ CUtensorMap myn, const float* __restrict__ g2,
                        const float* __restrict__ be2, const float* __restrict__ b1,
                        const float* __restrict__ b2, const float* __restrict__ gn,
-                       const float* __restrict__ bn, int hidden, float eps) {
+                       const float* __restrict__ bn, const float* __restrict__ gate,
+                       int n_rows, int hidden, float eps) {
   using L = WideTiles<D>;
   constexpr int HT = L::HT, NH = L::NH;
   extern __shared__ uint8_t smem_raw[];
@@ -743,6 +749,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   // + e], 8i = N2 q + 8n
   const int la = 16 * warp + g, lb = la + 8;
   uint8_t* rs = sm + L::W1;  // the residual rows, laid out as the block's rows
+  float gta = 1.f, gtb = 1.f;  // the gate of rows la, lb (1 in the serving chain)
+  if (!LN_OUT && gate != nullptr) {
+    gta = row0 + la < n_rows ? gate[row0 + la] : 0.f;
+    gtb = row0 + lb < n_rows ? gate[row0 + lb] : 0.f;
+  }
   hopper::mbar_wait(rfull, 0);
   constexpr int NG = N2 / 8;
   // The parameter vectors are read through pointers made opaque every four
@@ -774,10 +785,10 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       const float2 bb = make_float2(b2p[lc], b2p[lc + 1]);
       const float2 xa = bf16x2_at(rs + swz<WIDE_ROWS>(na, c));
       const float2 xb = bf16x2_at(rs + swz<WIDE_ROWS>(nb, c));
-      acc[q][4 * n] = (acc[q][4 * n] + bb.x) + xa.x;
-      acc[q][4 * n + 1] = (acc[q][4 * n + 1] + bb.y) + xa.y;
-      acc[q][4 * n + 2] = (acc[q][4 * n + 2] + bb.x) + xb.x;
-      acc[q][4 * n + 3] = (acc[q][4 * n + 3] + bb.y) + xb.y;
+      acc[q][4 * n] = (acc[q][4 * n] + bb.x) * gta + xa.x;
+      acc[q][4 * n + 1] = (acc[q][4 * n + 1] + bb.y) * gta + xa.y;
+      acc[q][4 * n + 2] = (acc[q][4 * n + 2] + bb.x) * gtb + xb.x;
+      acc[q][4 * n + 3] = (acc[q][4 * n + 3] + bb.y) * gtb + xb.y;
       *reinterpret_cast<uint32_t*>(rs + swz<WIDE_ROWS>(na, c)) =
           pack_bf16x2(acc[q][4 * n], acc[q][4 * n + 1]);
       *reinterpret_cast<uint32_t*>(rs + swz<WIDE_ROWS>(nb, c)) =
@@ -787,6 +798,10 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     });
   }
   store_cols(&my, rs);
+  if constexpr (!LN_OUT) {
+    if (wt == 0) hopper::bulk_wait_read();  // the store has read the tile
+    return;
+  }
   // yn = LN_next(y) from the f32 y: each row's sums over both consumers'
   // columns meet in rsum (pass 0 the sums, pass 1 the squared deviations)
   sa = quad_sum(sa);
@@ -839,35 +854,53 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 }
 
 // x, y and yn through maps of [n_rows, D] in 64 x 64 boxes, W1 [hidden, D]
-// in 64 x HT boxes and W2 [D, hidden] in HT x 192 boxes.
-template <int D, int GELU>
+// in 64 x HT boxes and W2 [D, hidden] in HT x 192 boxes. Without LN_OUT yn
+// is null and gate the f32 gate over rows (or null).
+template <int D, int GELU, bool LN_OUT>
 int launch_wide(const void* x, const void* g2, const void* be2, const void* w1,
                 const void* b1, const void* w2, const void* b2, const void* gn,
-                const void* bn, void* y, void* yn, int n_rows, int hidden, float eps,
-                cudaStream_t stream) {
+                const void* bn, const void* gate, void* y, void* yn, int n_rows, int hidden,
+                float eps, cudaStream_t stream) {
   using L = WideTiles<D>;
+  if (n_rows <= 0) return (int)cudaGetLastError();
   if (hidden % L::HT != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap mx, mw1, mw2, my, myn;
   int err;
   if ((err = hopper::encode_2d(&mx, x, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&my, y, n_rows, D, 64, 64)) ||
-      (err = hopper::encode_2d(&myn, yn, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&myn, LN_OUT ? yn : y, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&mw1, w1, hidden, D, L::HT, 64)) ||
       (err = hopper::encode_2d(&mw2, w2, D, hidden, N2, L::HT)))
     return err;
-  auto kernel = ln_mlp_wide_kernel<D, GELU>;
+  auto kernel = ln_mlp_wide_kernel<D, GELU, LN_OUT>;
   static bool ok = false;  // the shared-memory limit is raised once
   if ((err = raise_once(kernel, L::BYTES, ok))) return err;
   kernel<<<(n_rows + WIDE_ROWS - 1) / WIDE_ROWS, FWD_THREADS, L::BYTES, stream>>>(
       mx, mw1, mw2, my, myn, (const float*)g2, (const float*)be2, (const float*)b1,
-      (const float*)b2, (const float*)gn, (const float*)bn, hidden, eps);
+      (const float*)b2, (const float*)gn, (const float*)bn, (const float*)gate, n_rows,
+      hidden, eps);
   return (int)cudaGetLastError();
+}
+
+// One entry per LN_OUT form: gelu_mode 0 = exact erf GELU, 1 = x / (1 +
+// exp(-1.702 x)).
+template <int D, bool LN_OUT>
+int dispatch_wide(int gelu_mode, const void* x, const void* g2, const void* be2,
+                  const void* w1, const void* b1, const void* w2, const void* b2,
+                  const void* gn, const void* bn, const void* gate, void* y, void* yn,
+                  int n_rows, int hidden, float eps, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return gelu_mode == 0 ? launch_wide<D, 0, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate,
+                                                    y, yn, n_rows, hidden, eps, s)
+                        : launch_wide<D, 1, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate,
+                                                    y, yn, n_rows, hidden, eps, s);
 }
 
 }  // namespace
 
 // hidden must be a multiple of 64 in every entry; d (the width of x) is
-// 384 or 192, and 768 (ViT-B, ln_mlp_wide_kernel) in the serving chain's.
+// 384 or 192, and 768 (ViT-B, ln_mlp_wide_kernel) in the LN+MLP entries
+// (the serving chain's and the training forward's).
 extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
                                 const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* gn, const void* bn,
@@ -876,12 +909,8 @@ extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
   return by_width<768, 384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     if constexpr (D == 768) {
-      if (n_rows <= 0) return (int)cudaGetLastError();
-      cudaStream_t s = (cudaStream_t)stream;
-      return gelu_mode == 0 ? launch_wide<D, 0>(x, g2, be2, w1, b1, w2, b2, gn, bn, y, yn,
-                                                n_rows, hidden, eps, s)
-                            : launch_wide<D, 1>(x, g2, be2, w1, b1, w2, b2, gn, bn, y, yn,
-                                                n_rows, hidden, eps, s);
+      return dispatch_wide<D, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, y,
+                                    yn, n_rows, hidden, eps, stream);
     } else {
       return dispatch<D, true, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, x,
                                      y, yn, n_rows, hidden, eps, stream);
@@ -896,10 +925,14 @@ extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void*
                                       const void* b2, const void* gate, void* y,
                                       int n_rows, int d, int hidden, float eps,
                                       int gelu_mode, void* stream) {
-  return by_width<384, 192>(d, [&](auto w) {
-    return dispatch<decltype(w)::value, true, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2,
-                                                     nullptr, nullptr, gate, x, y, nullptr,
-                                                     n_rows, hidden, eps, stream);
+  return by_width<768, 384, 192>(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    if constexpr (D == 768)
+      return dispatch_wide<D, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2, nullptr, nullptr,
+                                     gate, y, nullptr, n_rows, hidden, eps, stream);
+    else
+      return dispatch<D, true, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2, nullptr, nullptr,
+                                      gate, x, y, nullptr, n_rows, hidden, eps, stream);
   });
 }
 
@@ -1466,6 +1499,599 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   if (issuer) hopper::bulk_wait_read();
 }
 
+// ---------------------------------------------------------------------------
+// The LN+MLP backward at D = 768 (ViT-B): the row kernel above cannot take
+// this width. Its block holds 64 rows of both xn and dy_eff (2 x 96 KB)
+// beside rings of W1 and W2 tiles (one slot each: 2 x 48 KB), 288 KB
+// against the 227 KB a block may have. So two row kernels, each holding one
+// tensor's rows:
+//  (A) ln_mlp_dh_kernel holds dy_eff's 64 rows and walks W2 by 32-wide
+//      hidden tiles: dh = dy_eff W2 in f32 to the dh workspace [n_rows,
+//      hidden]. JAX keeps dh in f32 until dg = dh * GELU'(g), so no
+//      rounding point moves; the cost is dh written and read again (442 MB
+//      at 36008 rows, hidden 3072). A producer warpgroup loads the rows
+//      once, then the W2 tiles into a 2-slot ring; the two consumer
+//      warpgroups take alternate tiles (slot s is consumer s's) and each
+//      runs dh[:, tile] = dy_eff W2[:, tile] (m64n32, K = D: A the rows,
+//      K-major; B the tile, MN-major) and stores its accumulator to the
+//      workspace. dy_eff = dy * gate is taken in place as the rows land
+//      (rounded to bf16), TMA-stored to dye_ws for dW2, and db2's block
+//      partials are summed from the f32 dy_eff.
+//  (B) ln_mlp_bwd_wide_kernel holds xn's 64 rows (LN2 in place as they
+//      land; TMA-stored to xn_ws for dW1) and walks W1 by 32-wide hidden
+//      tiles in a 2-slot ring, and pass A's dh by [64, 32] tiles in another
+//      (by TMA: held in registers a tile ahead, dh spilled the consumers'
+//      accumulator). Per tile each consumer recomputes g = xn W1[tile]^T for
+//      its 16 of the tile's columns (m64n16, K = D: split by N, so no
+//      partials cross between the consumers), takes t = g + b1, h =
+//      GELU(t) and dg = dh * GELU'(t) in f32, rounds h and dg into the bf16
+//      h and dg tiles that TMA stores to h_ws / dg_ws, and sums db1's block
+//      partials from the f32 dg; then each runs dxn[:, its half] += dg
+//      W1[tile, its half] (A the dg tile; B the W1 tile read MN-major, two
+//      m64n192 products across six column boxes): a [64, 384] f32
+//      accumulator, 192 registers a thread. The next tile's g is issued
+//      beside this tile's dxn. Then the consumers park dxn in f32 over xn
+//      and the drained ring (the epilogue's passes over the accumulator in
+//      registers spilled it), and the LN backward runs a warp a row, 8 rows
+//      a warp: x and dy read from device memory, dx written there (bf16),
+//      the row sums by shuffles, and the dgamma / dbeta block partials
+//      summed over the warps in a fixed order.
+// Then the col_sums_kernel, dw_gemm_kernel and split_sums_kernel of the
+// narrow widths. The rounding points are those of the kernel above.
+// ---------------------------------------------------------------------------
+
+// Pass A's shared memory at width D, from a 1024-byte boundary: dy_eff (D /
+// 64 column blocks of [64][64], 128-byte rows as TMA swizzles them), the W2
+// ring (2 slots of [D][32], 64-byte rows), db2's warp partials [8][D] f32,
+// the barriers.
+template <int D>
+struct DhTiles {
+  static constexpr int XBLK = BWD_ROWS * 128;
+  static constexpr int ROWS_B = D / 64 * XBLK;
+  static constexpr int W2_TILE = D * BHT * 2;
+  static constexpr int DYE = 0, W2 = ROWS_B, EX = W2 + 2 * W2_TILE;
+  static constexpr int BARS = EX + 8 * D * 4;
+  static constexpr int N_BARS = 5;
+  static constexpr int BYTES = BARS + N_BARS * 8 + 1024;  // + alignment slack
+  static_assert(D % W2_BOX == 0 && BYTES <= 232448, "width outside the kernel's tiling");
+};
+
+// mdy / mdye [n_rows, D] in 64 x 64 boxes, mw2 W2 [D, hidden] in 192 x 32
+// boxes; dh f32 [n_rows, hidden]; part_db2 [blocks][D].
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    ln_mlp_dh_kernel(const __grid_constant__ CUtensorMap mdy,
+                     const __grid_constant__ CUtensorMap mw2,
+                     const __grid_constant__ CUtensorMap mdye, const float* __restrict__ gate,
+                     float* __restrict__ dh, float* __restrict__ part_db2, int n_rows,
+                     int hidden) {
+  using L = DhTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* rows_full = bar;
+  uint64_t* w2full = bar + 1;   // [2]
+  uint64_t* w2empty = bar + 3;  // [2]
+  float* ex = reinterpret_cast<float*>(sm + L::EX);
+
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
+  const int row0 = blockIdx.x * BWD_ROWS;
+  const int tiles = hidden / BHT;
+  if (tid == 0) {
+    hopper::mbar_init(rows_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&w2full[s], 1);
+      hopper::mbar_init(&w2empty[s], 4);  // the warps of the consumer whose slot it is
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread issues every load
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      hopper::mbar_arrive_expect_tx(rows_full, L::ROWS_B);
+      for (int b = 0; b < D / 64; ++b)
+        hopper::tma_load_2d(sm + L::DYE + b * L::XBLK, &mdy, rows_full, 64 * b, row0);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j & 1;  // tile j is consumer s's
+        hopper::mbar_wait(&w2empty[s], ((j >> 1) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&w2full[s], L::W2_TILE);
+        uint8_t* w2t = sm + L::W2 + s * L::W2_TILE;
+        for (int q = 0; q < D / W2_BOX; ++q)
+          hopper::tma_load_2d(w2t + q * W2_BOX * 64, &mw2, &w2full[s], j * BHT, q * W2_BOX);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wt = tid % 128, warp = wt / 32, cw = tid / 32;  // cw: warp of both, 0..7
+  const int g = lane >> 2, t4 = lane & 3;
+  // dy_eff = dy * gate in place, a warp a row (lane l: columns 2l, 2l + 1 of
+  // each 64-column block); db2's partials from the f32 dy_eff
+  hopper::mbar_wait(rows_full, 0);
+  float cd[D / 32];
+#pragma unroll
+  for (int i = 0; i < D / 32; ++i) cd[i] = 0.f;
+  for (int rr = 0; rr < BWD_ROWS / 8; ++rr) {
+    const int r = (BWD_ROWS / 8) * cw + rr, grow = row0 + r;
+    const float gt = grow < n_rows ? (gate != nullptr ? gate[grow] : 1.f) : 0.f;
+    uint8_t* dr = sm + L::DYE + r * 128 + (((lane >> 2) ^ (r & 7)) << 4) + (lane & 3) * 4;
+#pragma unroll
+    for (int i = 0; i < D / 64; ++i) {
+      const float2 p = bf16x2_at(dr + i * L::XBLK);
+      const float a = p.x * gt, b = p.y * gt;
+      cd[2 * i] += a;
+      cd[2 * i + 1] += b;
+      *reinterpret_cast<uint32_t*>(dr + i * L::XBLK) = pack_bf16x2(a, b);
+    }
+  }
+  hopper::fence_proxy_async();  // the wgmma reads and the TMA store are async-proxy reads
+  hopper::named_sync(3, 256);
+  if (tid == 0) {  // dy_eff for dW2
+    for (int b = 0; b < D / 64; ++b)
+      hopper::tma_store_2d(&mdye, sm + L::DYE + b * L::XBLK, 64 * b, row0);
+    hopper::bulk_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < D / 64; ++i) {  // db2: the warps' sums, added in warp order
+    ex[cw * D + 64 * i + 2 * lane] = cd[2 * i];
+    ex[cw * D + 64 * i + 2 * lane + 1] = cd[2 * i + 1];
+  }
+  hopper::named_sync(3, 256);
+  for (int c = tid; c < D; c += 256) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += ex[w * D + c];
+    part_db2[(size_t)blockIdx.x * D + c] = s;
+  }
+
+  // the hidden tiles: consumer wg takes tiles wg, wg + 2, ...
+  const uint32_t sbase = hopper::smem_u32(sm);
+  const int ra = row0 + 16 * warp + g, rb = ra + 8;
+  float acc[BHT / 2];  // dh: row 16 warp + g (+8), column 8n + 2t4 (+1) of the tile
+  for (int j = wg; j < tiles; j += 2) {
+    hopper::mbar_wait(&w2full[wg], (j >> 1) & 1);
+    // the addresses opaque to the compiler in each tile: else it keeps every
+    // k-step's descriptor live across the loop
+    uint32_t a0 = sbase + L::DYE, b0 = sbase + L::W2 + wg * L::W2_TILE;
+    asm volatile("" : "+r"(a0), "+r"(b0));
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = hopper::desc_kmajor_at<128>(a0 + (kk >> 2) * L::XBLK + (kk & 3) * 32);
+      const uint64_t db = hopper::desc_mnmajor_at<64>(b0 + kk * 16 * 64, 8 * 64);
+      hopper::wgmma_sst<BHT, 0, 1>(acc, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&w2empty[wg]);
+#pragma unroll
+    for (int n = 0; n < BHT / 8; ++n) {
+      const int c = j * BHT + 8 * n + 2 * t4;
+      if (ra < n_rows)
+        *reinterpret_cast<float2*>(dh + (size_t)ra * hidden + c) = make_float2(acc[4 * n], acc[4 * n + 1]);
+      if (rb < n_rows)
+        *reinterpret_cast<float2*>(dh + (size_t)rb * hidden + c) =
+            make_float2(acc[4 * n + 2], acc[4 * n + 3]);
+    }
+  }
+  if (tid == 0) hopper::bulk_wait_read();  // the store has read dy_eff
+}
+
+// Pass B's shared memory at width D, from a 1024-byte boundary: xn (D / 64
+// column blocks of [64][64]), the W1 ring (2 slots of D / 64 boxes [32][64],
+// 128-byte rows), the h and dg tiles ([64][32] bf16, 64-byte rows swizzled
+// as TMA stores them) and the dh ring (2 slots of [64][32] f32, 128-byte
+// rows swizzled as TMA lands them), db1's warp partials, the rows' LN
+// statistics, the barriers. In the epilogue dxn ([64][D + 8] f32: 32 bytes
+// of padding a row keep a warp's stores off each other's banks) takes the
+// region from xn on, then the warps' dgamma / dbeta partials [8][D][2].
+template <int D>
+struct BwdWideTiles {
+  static constexpr int NH = D / 2;             // dxn columns of a consumer
+  static constexpr int XBLK = BWD_ROWS * 128;  // one 64-column block of the rows
+  static constexpr int ROWS_B = D / 64 * XBLK;
+  static constexpr int BOX1 = BHT * 128;  // one [32][64] box of a W1 tile
+  static constexpr int W1_TILE = D / 64 * BOX1;
+  static constexpr int XN = 0, W1 = ROWS_B, HG = W1 + 2 * W1_TILE;
+  static constexpr int H = HG, DG = HG + BWD_ROWS * BHT * 2;
+  static constexpr int DH_TILE = BWD_ROWS * BHT * 4, DH = DG + BWD_ROWS * BHT * 2;
+  static constexpr int HG_B = 2 * BWD_ROWS * BHT * 2 + 2 * DH_TILE;
+  static constexpr int RED = HG + HG_B;               // [2 consumers][4 warps][16]
+  static constexpr int STATS = RED + 2 * 4 * 16 * 4;  // mean [64], inv [64]
+  static constexpr int BARS = STATS + 2 * BWD_ROWS * 4;
+  static constexpr int N_BARS = 9;
+  static constexpr int BYTES = BARS + N_BARS * 8 + 1024;  // + alignment slack
+  static constexpr int DXN_LD = D + 8;  // floats a row of the parked dxn
+  static_assert(NH % N2 == 0 && BYTES <= 232448, "width outside the kernel's tiling");
+  static_assert(DH % 1024 == 0, "the dh ring is aligned to its swizzle");
+  static_assert(BWD_ROWS * DXN_LD * 4 <= RED && 8 * D * 2 * 4 <= RED,
+                "dxn and the column partials fit before db1's partials");
+};
+
+// mx / mxn [n_rows, D] in 64 x 64 boxes, mw1 W1 [hidden, D] in 32 x 64
+// boxes, mh / mdg [n_rows, hidden] in 64 x 32 boxes, mdh pass A's f32 dh
+// [n_rows, hidden] in 64 x 32 boxes; x, dy and dx [n_rows, D] for the
+// epilogue; part_db1 [blocks][hidden] and part_cols [2][blocks][D] (dgamma,
+// dbeta) take the block partials.
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    ln_mlp_bwd_wide_kernel(const __grid_constant__ CUtensorMap mx,
+                           const __grid_constant__ CUtensorMap mw1,
+                           const __grid_constant__ CUtensorMap mxn,
+                           const __grid_constant__ CUtensorMap mh,
+                           const __grid_constant__ CUtensorMap mdg,
+                           const __grid_constant__ CUtensorMap mdh, const bf16* __restrict__ x,
+                           const bf16* __restrict__ dy, bf16* __restrict__ dx,
+                           const float* __restrict__ g2, const float* __restrict__ be2,
+                           const float* __restrict__ b1, float* __restrict__ part_db1,
+                           float* __restrict__ part_cols, int n_rows, int hidden, float eps) {
+  using L = BwdWideTiles<D>;
+  constexpr int NH = L::NH, NQ = NH / N2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* rows_full = bar;   // x
+  uint64_t* w1full = bar + 1;  // [2]
+  uint64_t* w1empty = bar + 3;
+  uint64_t* dhfull = bar + 5;
+  uint64_t* dhempty = bar + 7;
+  float* red = reinterpret_cast<float*>(sm + L::RED);
+  float* stats = reinterpret_cast<float*>(sm + L::STATS);
+
+  // the warpgroup through a shuffle: warp-uniform to the compiler
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
+  const int row0 = blockIdx.x * BWD_ROWS, nb = gridDim.x;
+  const int tiles = hidden / BHT;
+  if (tid == 0) {
+    hopper::mbar_init(rows_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(&w1full[s], 1);
+      hopper::mbar_init(&w1empty[s], 8);  // each consumer warp, after its dxn product
+      hopper::mbar_init(&dhfull[s], 1);
+      hopper::mbar_init(&dhempty[s], 8);  // each consumer warp, after its GELU'
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread issues every load
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      hopper::mbar_arrive_expect_tx(rows_full, L::ROWS_B);
+      for (int b = 0; b < D / 64; ++b)
+        hopper::tma_load_2d(sm + L::XN + b * L::XBLK, &mx, rows_full, 64 * b, row0);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j & 1;
+        const uint32_t ph = ((j >> 1) & 1) ^ 1;
+        hopper::mbar_wait(&w1empty[s], ph);
+        hopper::mbar_arrive_expect_tx(&w1full[s], L::W1_TILE);
+        uint8_t* w1t = sm + L::W1 + s * L::W1_TILE;
+        for (int b = 0; b < D / 64; ++b)
+          hopper::tma_load_2d(w1t + b * L::BOX1, &mw1, &w1full[s], 64 * b, j * BHT);
+        hopper::mbar_wait(&dhempty[s], ph);
+        hopper::mbar_arrive_expect_tx(&dhfull[s], L::DH_TILE);
+        hopper::tma_load_2d(sm + L::DH + s * L::DH_TILE, &mdh, &dhfull[s], j * BHT, row0);
+      }
+    }
+    return;
+  }
+
+  // consumers: both on the block's 64 rows
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wt = tid % 128, warp = wt / 32, cw = tid / 32;  // cw: warp of both, 0..7
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool issuer = tid == 0;  // issues the TMA stores
+  const uint32_t sbase = hopper::smem_u32(sm);
+
+  // 1. xn = LN2(x) in place, a warp a row, and each row's statistics
+  hopper::mbar_wait(rows_full, 0);
+  ln_in_place<D, L::XBLK, BWD_ROWS / 8>(sm + L::XN, cw, lane, g2, be2, eps, stats, BWD_ROWS);
+  hopper::fence_proxy_async();  // the wgmma reads and TMA store are async-proxy reads
+  hopper::named_sync(3, 256);
+  if (issuer) {  // xn for dW1
+    for (int b = 0; b < D / 64; ++b)
+      hopper::tma_store_2d(&mxn, sm + L::XN + b * L::XBLK, 64 * b, row0);
+    hopper::bulk_commit();
+  }
+
+  // 2. the hidden tiles
+  float acc[NQ][N2 / 2];  // dxn: row 16 warp + g (+8), column NH wg + N2 q + 8n + 2t4 (+1)
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int i = 0; i < N2 / 2; ++i) acc[q][i] = 0.f;
+  float gacc[8];  // g of this consumer's 16 columns of the tile (16 wg + 8n + 2t4 (+1))
+  const int la = 16 * warp + g, lb = la + 8;
+
+  auto gproduct = [&](int j) {  // gacc = xn W1[tile j, this consumer's 16 rows]^T
+    uint32_t a0 = sbase + L::XN, b0 = sbase + L::W1 + (j & 1) * L::W1_TILE + wg * 16 * 128;
+    asm volatile("" : "+r"(a0), "+r"(b0));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = hopper::desc_kmajor_at<128>(a0 + (kk >> 2) * L::XBLK + (kk & 3) * 32);
+      const uint64_t db = hopper::desc_kmajor_at<128>(b0 + (kk >> 2) * L::BOX1 + (kk & 3) * 32);
+      hopper::wgmma_sst<16, 0, 0>(gacc, da, db, kk > 0);
+    }
+  };
+  auto dxn = [&](int j) {  // acc += dg W1[tile j, this consumer's columns]
+    uint32_t a0 = sbase + L::DG, b0 = sbase + L::W1 + (j & 1) * L::W1_TILE + 6 * wg * L::BOX1;
+    asm volatile("" : "+r"(a0), "+r"(b0));
+#pragma unroll
+    for (int kk = 0; kk < BHT / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const uint64_t da = hopper::desc_kmajor_at<64>(a0 + kk * 32);
+        const uint64_t db =
+            hopper::desc_mnmajor_at<128>(b0 + 3 * q * L::BOX1 + kk * 16 * 128, L::BOX1);
+        hopper::wgmma_sst<N2, 0, 1>(acc[q], da, db, 1);
+      }
+  };
+  // h = GELU(t), dg = dh * GELU'(t) (t = g + b1) of this thread's values,
+  // rounded into the h and dg tiles; db1's partials from the f32 dg. One
+  // column group (8n + 2t4, + 1) at a time, its row sums reduced before the
+  // next: values held across the groups spilled the accumulator.
+  auto elementwise = [&](int j) {
+    hopper::mbar_wait(&dhfull[j & 1], (j >> 1) & 1);
+    const uint8_t* dht = sm + L::DH + (j & 1) * L::DH_TILE;
+    float* rw = red + (wg * 4 + warp) * 16 + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int c = 16 * wg + 8 * n + 2 * t4;
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + j * BHT + c);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows la, lb
+        const int r = h ? lb : la;
+        // dh at row r, column c (+1): 128-byte rows, 16-byte chunks ^ row % 8
+        const float2 d = *reinterpret_cast<const float2*>(
+            dht + r * 128 + (((c >> 2) ^ (r & 7)) << 4) + (c & 3) * 4);
+        const float v0 = gacc[4 * n + 2 * h] + bb.x, v1 = gacc[4 * n + 2 * h + 1] + bb.y;
+        const float c0 = 0.5f * (1.f + erff(v0 * 0.70710678118654752f));
+        const float c1 = 0.5f * (1.f + erff(v1 * 0.70710678118654752f));
+        const float g0 = d.x * (c0 + v0 * 0.3989422804014327f * expf(-0.5f * v0 * v0));
+        const float g1 = d.y * (c1 + v1 * 0.3989422804014327f * expf(-0.5f * v1 * v1));
+        *reinterpret_cast<uint32_t*>(sm + L::H + swz_row<64>(r, c)) = pack_bf16x2(v0 * c0, v1 * c1);
+        *reinterpret_cast<uint32_t*>(sm + L::DG + swz_row<64>(r, c)) = pack_bf16x2(g0, g1);
+        s0 += g0;
+        s1 += g1;
+      }
+#pragma unroll
+      for (int o = 4; o <= 16; o <<= 1) {  // the warp's 16 rows
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0) {
+        rw[8 * n] = s0;
+        rw[8 * n + 1] = s1;
+      }
+    }
+    if (lane == 0) hopper::mbar_arrive(&dhempty[j & 1]);
+    hopper::named_sync(1 + wg, 128);
+    if (wt < 16) {
+      const float* rr = red + wg * 4 * 16 + wt;
+      part_db1[(size_t)blockIdx.x * hidden + j * BHT + 16 * wg + wt] =
+          ((rr[0] + rr[16]) + rr[32]) + rr[48];
+    }
+  };
+  auto release = [&](uint64_t* b) {
+    if (lane == 0) hopper::mbar_arrive(b);
+  };
+  auto landed = [&](int j) { hopper::mbar_wait(&w1full[j & 1], (j >> 1) & 1); };
+
+  // tile j: its GELU, then its dxn product and (with `more`) the next tile's
+  // g product back to back. The last tile is peeled: ptxas serialises wgmma
+  // whose waits sit under a condition.
+  auto step = [&](int j, auto more) {
+    constexpr bool MORE = decltype(more)::value;
+    // both consumers' dxn of tile j - 1 and the TMA stores of its h and dg
+    // tiles are done with those tiles (and with db1's warp partials)
+    hopper::named_sync(3, 256);
+    elementwise(j);
+    hopper::fence_proxy_async();
+    hopper::named_sync(4, 256);  // the h and dg tiles are whole
+    if (issuer) {
+      hopper::tma_store_2d(&mh, sm + L::H, j * BHT, row0);
+      hopper::tma_store_2d(&mdg, sm + L::DG, j * BHT, row0);
+      hopper::bulk_commit();
+    }
+    hopper::wgmma_fence();
+    dxn(j);
+    hopper::wgmma_commit();
+    if constexpr (MORE) {
+      landed(j + 1);
+      gproduct(j + 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // dxn of tile j: its W1 slot is free
+      release(&w1empty[j & 1]);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(gacc);
+    } else {
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) hopper::fence_regs(acc[q]);
+      release(&w1empty[j & 1]);
+    }
+    if (issuer) hopper::bulk_wait_read();
+  };
+
+  landed(0);
+  hopper::wgmma_fence();
+  gproduct(0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(gacc);
+  for (int j = 0; j + 1 < tiles; ++j) step(j, std::true_type{});
+  step(tiles - 1, std::false_type{});
+  // 3. epilogue. dxn parked in f32 over xn, the ring and the h tile, once
+  //    both consumers' last products have read them and the issuer's last
+  //    stores have read the h tile; then a warp a row: lane l holds columns
+  //    2l + 64i (+1), i < D / 64
+  hopper::named_sync(3, 256);
+  {
+    float* px = reinterpret_cast<float*>(sm) + wg * NH + 2 * t4;
+    constexpr int NG = N2 / 8;
+    int na = la, nb = lb;
+    asm volatile("" : "+r"(na), "+r"(nb));
+    static_for<NH / 8>([&](auto i) {
+      constexpr int q = decltype(i)::value / NG, n = decltype(i)::value % NG;
+      constexpr int c = 8 * decltype(i)::value;
+      *reinterpret_cast<float2*>(px + na * L::DXN_LD + c) = make_float2(acc[q][4 * n], acc[q][4 * n + 1]);
+      *reinterpret_cast<float2*>(px + nb * L::DXN_LD + c) =
+          make_float2(acc[q][4 * n + 2], acc[q][4 * n + 3]);
+    });
+  }
+  hopper::named_sync(3, 256);
+  const float* dxn_s = reinterpret_cast<const float*>(sm);
+  // gamma through a pointer opaque to the compiler: else it keeps the values
+  // LN2 loaded at these columns live across the hidden tiles
+  const float* gp = g2;
+  asm volatile("" : "+l"(gp));
+  float cg[D / 32], cb[D / 32];  // the warp's dgamma / dbeta partials at its columns
+#pragma unroll
+  for (int i = 0; i < D / 32; ++i) cg[i] = cb[i] = 0.f;
+  for (int rr = 0; rr < BWD_ROWS / 8; ++rr) {
+    const int r = (BWD_ROWS / 8) * cw + rr, grow = row0 + r;
+    if (grow >= n_rows) break;  // the rows past n_rows: dxn 0, nothing stored
+    const float mean = stats[r], inv = stats[BWD_ROWS + r];
+    const bf16* xr = x + (size_t)grow * D;
+    const bf16* dyr = dy + (size_t)grow * D;
+    float dyg[D / 32], xh[D / 32], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 64; ++i) {
+      const int c = 64 * i + 2 * lane;
+      const float2 d = *reinterpret_cast<const float2*>(dxn_s + r * L::DXN_LD + c);
+      const float2 xv = bf16x2_at(xr + c);
+      xh[2 * i] = (xv.x - mean) * inv;
+      xh[2 * i + 1] = (xv.y - mean) * inv;
+      dyg[2 * i] = d.x * gp[c];
+      dyg[2 * i + 1] = d.y * gp[c + 1];
+      s1 += dyg[2 * i] + dyg[2 * i + 1];
+      s2 += dyg[2 * i] * xh[2 * i] + dyg[2 * i + 1] * xh[2 * i + 1];
+      cg[2 * i] += d.x * xh[2 * i];
+      cg[2 * i + 1] += d.y * xh[2 * i + 1];
+      cb[2 * i] += d.x;
+      cb[2 * i + 1] += d.y;
+    }
+    const float m1 = warp_sum(s1) * (1.f / D), m2 = warp_sum(s2) * (1.f / D);
+#pragma unroll
+    for (int i = 0; i < D / 64; ++i) {
+      const int c = 64 * i + 2 * lane;
+      const float2 dv = bf16x2_at(dyr + c);
+      *reinterpret_cast<uint32_t*>(dx + (size_t)grow * D + c) =
+          pack_bf16x2(inv * (dyg[2 * i] - m1 - xh[2 * i] * m2) + dv.x,
+                      inv * (dyg[2 * i + 1] - m1 - xh[2 * i + 1] * m2) + dv.y);
+    }
+  }
+  hopper::named_sync(3, 256);  // every warp has read dxn: its region takes the partials
+  float* colp = reinterpret_cast<float*>(sm);  // [8 warps][D][2]
+#pragma unroll
+  for (int i = 0; i < D / 64; ++i) {
+    const int c = 64 * i + 2 * lane;
+    *reinterpret_cast<float4*>(colp + (cw * D + c) * 2) = make_float4(cg[2 * i], cb[2 * i],
+                                                                      cg[2 * i + 1], cb[2 * i + 1]);
+  }
+  hopper::named_sync(3, 256);
+  for (int c = tid; c < D; c += 256) {  // the warps' column sums, in warp order
+    float sg = 0.f, sb = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      sg += colp[(w * D + c) * 2];
+      sb += colp[(w * D + c) * 2 + 1];
+    }
+    part_cols[(size_t)blockIdx.x * D + c] = sg;
+    part_cols[((size_t)nb + blockIdx.x) * D + c] = sb;
+  }
+}
+
+// The block partials' sums (db1, and dgamma / dbeta with LN, db2), then dW1 =
+// dg^T xn and dW2 = dy_eff^T h in one dw_gemm_kernel launch, and their
+// split sums. part holds the row kernels' block partials ([nb][hidden],
+// then [3][nb][D]) until the dW products take it for their split partials.
+template <int D, bool LN_IN>
+int bwd_sums_and_dw(const void* xn, const void* dye_ws, const void* h_ws, const void* dg_ws,
+                    void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2, void* db2,
+                    void* part, int n_rows, int hidden, int splits, cudaStream_t s) {
+  const int nb = (n_rows + BWD_ROWS - 1) / BWD_ROWS;
+  float* p_db1 = (float*)part;
+  float* p_cols = p_db1 + (size_t)nb * hidden;  // [3][nb][D]
+  ColSums cs = {{p_db1, p_cols, p_cols + (size_t)nb * D, p_cols + (size_t)2 * nb * D},
+                {(float*)db1, LN_IN ? (float*)dgamma : nullptr, LN_IN ? (float*)dbeta : nullptr,
+                 (float*)db2},
+                {hidden, D, D, D},
+                {nb, nb, nb, nb}};
+  col_sums_kernel<<<dim3((std::max(hidden, D) + 31) / 32, 4), 256, 0, s>>>(cs);
+  int err;
+  if ((err = (int)cudaGetLastError())) return err;
+
+  CUtensorMap mp1, mq1, mp2, mq2;
+  if ((err = hopper::encode_2d(&mp1, dg_ws, n_rows, hidden, 64, 64)) ||
+      (err = hopper::encode_2d(&mq1, xn, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mp2, dye_ws, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mq2, h_ws, n_rows, hidden, 64, 64)))
+    return err;
+  static bool ok = false;  // the shared-memory limit is raised once
+  if ((err = raise_once(dw_gemm_kernel, DW_BYTES, ok))) return err;
+  const int tiles = (hidden + DW_M - 1) / DW_M * ((D + DW_N - 1) / DW_N) +
+                    (D + DW_M - 1) / DW_M * ((hidden + DW_N - 1) / DW_N);
+  const int per = ((n_rows + DW_K - 1) / DW_K + splits - 1) / splits * DW_K;
+  dw_gemm_kernel<<<tiles * splits, DW_THREADS, DW_BYTES, s>>>(
+      mp1, mq1, mp2, mq2, (float*)part, hidden, D, D, hidden, n_rows, per, splits);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int n4 = 2 * hidden * D / 4;
+  split_sums_kernel<<<(n4 + 255) / 256, 256, 0, s>>>((const float4*)part, splits,
+                                                     hidden * D / 4, n4, (float4*)dw1,
+                                                     (float4*)dw2);
+  return (int)cudaGetLastError();
+}
+
+// The backward at D = 768: pass A (dh), pass B (the rows), then the sums and
+// the dW products. dh_ws: f32 [n_rows, hidden].
+template <int D>
+int mlp_bwd_wide(const void* x, const void* g2, const void* be2, const void* w1,
+                 const void* b1, const void* w2, const void* gate, const void* dy, void* dx,
+                 void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2, void* db2,
+                 void* xn_ws, void* dye_ws, void* h_ws, void* dg_ws, void* dh_ws, void* part,
+                 int n_rows, int hidden, float eps, int splits, void* stream) {
+  using LA = DhTiles<D>;
+  using LB = BwdWideTiles<D>;
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  if (hidden % BHT != 0 || splits < 1 || dh_ws == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  CUtensorMap mx, mdy, mw1, mw2, mxn, mdye, mh, mdg, mdh;
+  int err;
+  if ((err = hopper::encode_2d(&mx, x, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mdy, dy, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mw1, w1, hidden, D, BHT, 64)) ||
+      (err = hopper::encode_2d_f32(&mdh, dh_ws, n_rows, hidden, 64, BHT)) ||
+      (err = hopper::encode_2d(&mw2, w2, D, hidden, W2_BOX, BHT)) ||
+      (err = hopper::encode_2d(&mxn, xn_ws, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mdye, dye_ws, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mh, h_ws, n_rows, hidden, 64, BHT)) ||
+      (err = hopper::encode_2d(&mdg, dg_ws, n_rows, hidden, 64, BHT)))
+    return err;
+  static bool ok_a = false, ok_b = false;  // the shared-memory limits are raised once
+  if ((err = raise_once(ln_mlp_dh_kernel<D>, LA::BYTES, ok_a)) ||
+      (err = raise_once(ln_mlp_bwd_wide_kernel<D>, LB::BYTES, ok_b)))
+    return err;
+  const int nb = (n_rows + BWD_ROWS - 1) / BWD_ROWS;
+  float* p_db1 = (float*)part;
+  float* p_cols = p_db1 + (size_t)nb * hidden;  // [3][nb][D]
+  ln_mlp_dh_kernel<D><<<nb, BWD_THREADS, LA::BYTES, s>>>(
+      mdy, mw2, mdye, (const float*)gate, (float*)dh_ws, p_cols + (size_t)2 * nb * D, n_rows,
+      hidden);
+  if ((err = (int)cudaGetLastError())) return err;
+  ln_mlp_bwd_wide_kernel<D><<<nb, BWD_THREADS, LB::BYTES, s>>>(
+      mx, mw1, mxn, mh, mdg, mdh, (const bf16*)x, (const bf16*)dy, (bf16*)dx, (const float*)g2,
+      (const float*)be2, (const float*)b1, p_db1, p_cols, n_rows, hidden, eps);
+  if ((err = (int)cudaGetLastError())) return err;
+  return bwd_sums_and_dw<D, true>(xn_ws, dye_ws, h_ws, dg_ws, dgamma, dbeta, dw1, db1, dw2, db2,
+                                  part, n_rows, hidden, splits, s);
+}
+
 // Both backwards: the row kernel, the block partials' sums, then dW1 = dg^T
 // xn (xn is x itself without LN) and dW2 = dy_eff^T h, and their sums.
 template <int D, bool LN_IN>
@@ -1491,13 +2117,8 @@ int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, cons
       (err = hopper::encode_2d(&mdg, dg_ws, n_rows, hidden, 64, BHT)) ||
       (err = hopper::encode_2d(&mdx, dx, n_rows, D, 64, 64)))
     return err;
-  static bool ok = false;  // the shared-memory limits are raised once
-  if (!ok) {
-    if ((err = raise_smem(ln_mlp_bwd_kernel<D, LN_IN>, L::BYTES)) ||
-        (err = raise_smem(dw_gemm_kernel, DW_BYTES)))
-      return err;
-    ok = true;
-  }
+  static bool ok = false;  // the shared-memory limit is raised once
+  if ((err = raise_once(ln_mlp_bwd_kernel<D, LN_IN>, L::BYTES, ok))) return err;
   const int nb = (n_rows + BWD_ROWS - 1) / BWD_ROWS;
   float* p_db1 = (float*)part;
   float* p_cols = p_db1 + (size_t)nb * hidden;  // [3][nb][D]
@@ -1505,39 +2126,17 @@ int mlp_bwd(const void* x, const void* g2, const void* be2, const void* w1, cons
       mx, mdy, mw1, mw2, mxn, mdye, mh, mdg, mdx, (const float*)g2, (const float*)be2,
       (const float*)b1, (const float*)gate, p_db1, p_cols, n_rows, hidden, eps);
   if ((err = (int)cudaGetLastError())) return err;
-  ColSums cs = {{p_db1, p_cols, p_cols + (size_t)nb * D, p_cols + (size_t)2 * nb * D},
-                {(float*)db1, LN_IN ? (float*)dgamma : nullptr, LN_IN ? (float*)dbeta : nullptr,
-                 (float*)db2},
-                {hidden, D, D, D},
-                {nb, nb, nb, nb}};
-  col_sums_kernel<<<dim3((std::max(hidden, D) + 31) / 32, 4), 256, 0, s>>>(cs);
-  if ((err = (int)cudaGetLastError())) return err;
-
-  CUtensorMap mp1, mq1, mp2, mq2;
-  if ((err = hopper::encode_2d(&mp1, dg_ws, n_rows, hidden, 64, 64)) ||
-      (err = hopper::encode_2d(&mq1, xn, n_rows, D, 64, 64)) ||
-      (err = hopper::encode_2d(&mp2, dye_ws, n_rows, D, 64, 64)) ||
-      (err = hopper::encode_2d(&mq2, h_ws, n_rows, hidden, 64, 64)))
-    return err;
-  const int tiles = (hidden + DW_M - 1) / DW_M * ((D + DW_N - 1) / DW_N) +
-                    (D + DW_M - 1) / DW_M * ((hidden + DW_N - 1) / DW_N);
-  const int per = ((n_rows + DW_K - 1) / DW_K + splits - 1) / splits * DW_K;
-  dw_gemm_kernel<<<tiles * splits, DW_THREADS, DW_BYTES, s>>>(
-      mp1, mq1, mp2, mq2, (float*)part, hidden, D, D, hidden, n_rows, per, splits);
-  if ((err = (int)cudaGetLastError())) return err;
-  const int n4 = 2 * hidden * D / 4;
-  split_sums_kernel<<<(n4 + 255) / 256, 256, 0, s>>>((const float4*)part, splits,
-                                                     hidden * D / 4, n4, (float4*)dw1,
-                                                     (float4*)dw2);
-  return (int)cudaGetLastError();
+  return bwd_sums_and_dw<D, LN_IN>(xn, dye_ws, h_ws, dg_ws, dgamma, dbeta, dw1, db1, dw2, db2,
+                                   part, n_rows, hidden, splits, s);
 }
 
 }  // namespace
 
-// Training backward (exact erf GELU), d = 384 or 192. Outputs: dx bf16
-// [n_rows, d]; dgamma, dbeta, db2 f32 [d]; db1 f32 [hidden]; dw1 f32
-// [hidden, d]; dw2 f32 [d, hidden]. Workspaces: xn_ws, dye_ws bf16
-// [n_rows, d]; h_ws, dg_ws bf16 [n_rows, hidden]; part f32 of
+// Training backward (exact erf GELU), d = 768 (the two passes), 384 or 192.
+// Outputs: dx bf16 [n_rows, d]; dgamma, dbeta, db2 f32 [d]; db1 f32
+// [hidden]; dw1 f32 [hidden, d]; dw2 f32 [d, hidden]. Workspaces: xn_ws,
+// dye_ws bf16 [n_rows, d]; h_ws, dg_ws bf16 [n_rows, hidden]; dh_ws f32
+// [n_rows, hidden] at d = 768 (else unused, may be null); part f32 of
 // max(splits * 2 * hidden * d, ceil(n_rows / 64) * (hidden + 3 * d)).
 // splits: the row splits of the dW products (ln_mlp_bwd_splits in
 // ops/fused_ln_mlp.py).
@@ -1546,12 +2145,19 @@ extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* b
                                     const void* gate, const void* dy, void* dx,
                                     void* dgamma, void* dbeta, void* dw1, void* db1,
                                     void* dw2, void* db2, void* xn_ws, void* dye_ws,
-                                    void* h_ws, void* dg_ws, void* part, int n_rows,
-                                    int d, int hidden, float eps, int splits, void* stream) {
-  return by_width<384, 192>(d, [&](auto w) {
-    return mlp_bwd<decltype(w)::value, true>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma,
-                                             dbeta, dw1, db1, dw2, db2, xn_ws, dye_ws, h_ws,
-                                             dg_ws, part, n_rows, hidden, eps, splits, stream);
+                                    void* h_ws, void* dg_ws, void* dh_ws, void* part,
+                                    int n_rows, int d, int hidden, float eps, int splits,
+                                    void* stream) {
+  return by_width<768, 384, 192>(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    if constexpr (D == 768)
+      return mlp_bwd_wide<D>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma, dbeta, dw1, db1,
+                             dw2, db2, xn_ws, dye_ws, h_ws, dg_ws, dh_ws, part, n_rows, hidden,
+                             eps, splits, stream);
+    else
+      return mlp_bwd<D, true>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma, dbeta, dw1, db1,
+                              dw2, db2, xn_ws, dye_ws, h_ws, dg_ws, part, n_rows, hidden, eps,
+                              splits, stream);
   });
 }
 

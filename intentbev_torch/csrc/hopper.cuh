@@ -113,6 +113,25 @@ static inline int encode_2d(CUtensorMap* map, const void* ptr, int rows, int col
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Map of the row-major f32 [rows, cols] matrix at ptr (row stride cols):
+// boxes of box_cols x box_rows, swizzled at the box's row width (box_cols *
+// 4 bytes: 128). Returns 0 or a cudaError_t.
+static inline int encode_2d_f32(CUtensorMap* map, const void* ptr, int rows, int cols,
+                                int box_rows, int box_cols) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (box_cols * 4 != 128) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // Map of the contiguous bf16 [d2, d1, d0] tensor at ptr: boxes of box0 x box1
 // x 1, swizzled at the box's row width (box0 * 2 bytes: 128 or 64); elements
 // outside the tensor land as zeros and are not stored. Returns 0 or a
@@ -518,6 +537,18 @@ __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a
 // box of a row-major matrix read transposed), 0 K-major (accumulator layout
 // as wgmma_ss_n128's).
 template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16t(float (&d)[8], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : IBK_F8(0)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n32t(float (&d)[16], uint64_t da, uint64_t db,
                                               int accumulate) {
   asm volatile(
@@ -564,8 +595,10 @@ __device__ __forceinline__ void wgmma_ss_n192t(float (&d)[96], uint64_t da, uint
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_sst(float (&d)[N / 2], uint64_t da, uint64_t db,
                                           int accumulate) {
-  static_assert(N == 32 || N == 96 || N == 192, "wgmma N");
-  if constexpr (N == 32)
+  static_assert(N == 16 || N == 32 || N == 96 || N == 192, "wgmma N");
+  if constexpr (N == 16)
+    wgmma_ss_n16t<TA, TB>(d, da, db, accumulate);
+  else if constexpr (N == 32)
     wgmma_ss_n32t<TA, TB>(d, da, db, accumulate);
   else if constexpr (N == 96)
     wgmma_ss_n96t<TA, TB>(d, da, db, accumulate);

@@ -13,6 +13,7 @@
 // rows per 256-thread block keep enough warps in flight to cover the load
 // latency.
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -90,78 +91,109 @@ __global__ void __launch_bounds__(32 * ROWS_PER_BLOCK)
 //   dx = inv * (dy*g - mean(dy*g) - xhat * mean(dy*g*xhat))   (bf16 out)
 //   dgamma = sum_rows dy * xhat,  dbeta = sum_rows dy          (f32)
 // Bound on the H100: device memory (dy and xhat read, dx written: 2.3 KB a
-// row at D = 384; 83.1 MB at 36008 rows, 0.0248 ms at 3.35 TB/s).
-// Design: a persistent grid, one 512-thread block an SM, each block a
-// contiguous run of rows. A row is spread over D / 12 lanes (the warp at D =
-// 384, a half-warp at 192), 12 values a lane as three 8-byte loads a tensor,
-// and each warp keeps two row steps in flight (2 rows at D = 384, 4 at 192):
-// 96 bytes a lane, ~48 KB a block, enough to run near the memory rate. The
-// row sums take shuffles over the row's lanes. Each lane sums dy * xhat and
-// dy for its 12 columns over its rows; the block adds its 16 warps' sums in
+// row at D = 384; 83.1 MB at 36008 rows, 0.0248 ms at 3.35 TB/s; twice that
+// at D = 768).
+// Design: a persistent grid, one block an SM, each block a contiguous run of
+// rows. A lane holds VPL = 12 values of a row at D = 384 and 192 (three
+// 8-byte loads a tensor; a row spread over D / 12 lanes: the warp at 384, a
+// half-warp at 192) and 24 at D = 768 (three 16-byte loads; the warp). Each
+// warp keeps two row steps in flight (2 rows at D = 384, 4 at 192, 2 at 768):
+// 96 bytes a lane at the narrow widths in 512-thread blocks, 192 bytes at 768
+// in 256-thread blocks (the registers of its 24-value sums leave no room for
+// 16 warps), ~48 KB a block either way, enough to run near the memory rate.
+// The row sums take shuffles over the row's lanes. Each lane sums dy * xhat
+// and dy for its columns over its rows; the block adds its warps' sums in
 // warp order and writes one partial row of dgamma and of dbeta, which
 // col_sums_kernel then adds in a fixed order: the result does not depend on
 // scheduling.
-constexpr int BWD_THREADS = 512, BWD_WARPS = BWD_THREADS / 32, BWD_STEPS = 2;
+constexpr int BWD_STEPS = 2;
 
-__device__ __forceinline__ void bf16x4(uint2 v, float* f) {
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = b.x;
-  f[3] = b.y;
+// The backward's layout at width D.
+template <int D>
+struct BwdLayout {
+  static constexpr int VPL = D == 768 ? 24 : 12;  // values of a row a lane
+  static constexpr int VEC = VPL / 3;             // values of one load
+  static constexpr int LPR = D / VPL;             // lanes of a row
+  static constexpr int THREADS = D == 768 ? 256 : 512;
+  static constexpr int WARPS = THREADS / 32;
+  static_assert(LPR <= 32 && 32 % LPR == 0 && (VEC == 4 || VEC == 8), "width outside the layout");
+};
+
+// VEC bf16 values from one 8- or 16-byte load.
+template <int VEC>
+using LoadT = std::conditional_t<VEC == 8, uint4, uint2>;
+
+template <int VEC>
+__device__ __forceinline__ void unpack_bf16(const LoadT<VEC>& v, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < VEC / 2; ++i) {
+    const float2 a = __bfloat1622float2(p[i]);
+    f[2 * i] = a.x;
+    f[2 * i + 1] = a.y;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ LoadT<VEC> pack_bf16(const float* f) {
+  LoadT<VEC> v;
+  uint32_t* p = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < VEC / 2; ++i) p[i] = pack_bf16x2(f[2 * i], f[2 * i + 1]);
+  return v;
 }
 
 // part: [2][gridDim.x][D] (dgamma's block partials, then dbeta's).
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(BwdLayout<D>::THREADS, 1)
     layernorm_bwd_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ xhat,
                          const float* __restrict__ inv, const float* __restrict__ gamma,
                          bf16* __restrict__ dx, float* __restrict__ part, int n_rows) {
-  constexpr int LPR = D / 12;       // lanes of a row
-  constexpr int RPW = 32 / LPR;     // rows of a warp step
+  using L = BwdLayout<D>;
+  using T = LoadT<L::VEC>;
+  constexpr int VPL = L::VPL, VEC = L::VEC, LPR = L::LPR, WARPS = L::WARPS;
+  constexpr int RPW = 32 / LPR;        // rows of a warp step
   constexpr int RI = RPW * BWD_STEPS;  // rows of a warp's iteration
-  __shared__ float red[BWD_WARPS][D];
+  __shared__ float red[WARPS][D];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q = lane % LPR, sub = lane / LPR;  // lane within its row; the row of the step
   const int lo = (int)((long long)n_rows * blockIdx.x / gridDim.x);
   const int hi = (int)((long long)n_rows * (blockIdx.x + 1) / gridDim.x);
-  // lane q holds columns 4q + 4 LPR i .. + 3, i < 3
-  float g[12], acc_g[12], acc_b[12];
+  // lane q holds columns VEC q + VEC LPR i .. + VEC - 1, i < 3
+  float g[VPL], acc_g[VPL], acc_b[VPL];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    g[i] = gamma[4 * q + 4 * LPR * (i / 4) + i % 4];
+  for (int i = 0; i < VPL; ++i) {
+    g[i] = gamma[VEC * q + VEC * LPR * (i / VEC) + i % VEC];
     acc_g[i] = acc_b[i] = 0.f;
   }
 
-  for (int r0 = lo + warp * RI; r0 < hi; r0 += BWD_WARPS * RI) {
-    uint2 rd[BWD_STEPS][3], rh[BWD_STEPS][3];
+  for (int r0 = lo + warp * RI; r0 < hi; r0 += WARPS * RI) {
+    T rd[BWD_STEPS][3], rh[BWD_STEPS][3];
     float iv[BWD_STEPS];
 #pragma unroll
     for (int u = 0; u < BWD_STEPS; ++u) {  // every load of the iteration first
       const int row = r0 + u * RPW + sub;
       const bool ok = row < hi;
-      const size_t off = (size_t)(ok ? row : lo) * D + 4 * q;
+      const size_t off = (size_t)(ok ? row : lo) * D + VEC * q;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        rd[u][i] = ok ? *reinterpret_cast<const uint2*>(dy + off + 4 * LPR * i) : make_uint2(0, 0);
-        rh[u][i] = ok ? *reinterpret_cast<const uint2*>(xhat + off + 4 * LPR * i)
-                      : make_uint2(0, 0);
+        rd[u][i] = ok ? *reinterpret_cast<const T*>(dy + off + VEC * LPR * i) : T{};
+        rh[u][i] = ok ? *reinterpret_cast<const T*>(xhat + off + VEC * LPR * i) : T{};
       }
       iv[u] = ok ? inv[row] : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < BWD_STEPS; ++u) {
       const int row = r0 + u * RPW + sub;
-      float d[12], h[12];
+      float d[VPL], h[VPL];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        bf16x4(rd[u][i], d + 4 * i);
-        bf16x4(rh[u][i], h + 4 * i);
+        unpack_bf16<VEC>(rd[u][i], d + VEC * i);
+        unpack_bf16<VEC>(rh[u][i], h + VEC * i);
       }
       float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int i = 0; i < 12; ++i) {
+      for (int i = 0; i < VPL; ++i) {
         const float dyg = d[i] * g[i];
         s1 += dyg;
         s2 += dyg * h[i];
@@ -175,17 +207,16 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       }
       const float m1 = s1 * (1.f / D), m2 = s2 * (1.f / D);
       if (row < hi) {
-        bf16* out = dx + (size_t)row * D + 4 * q;
+        bf16* out = dx + (size_t)row * D + VEC * q;
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
-          float v[4];
+          float v[VEC];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int k = 4 * i + e;
+          for (int e = 0; e < VEC; ++e) {
+            const int k = VEC * i + e;
             v[e] = iv[u] * (d[k] * g[k] - m1 - h[k] * m2);
           }
-          *reinterpret_cast<uint2*>(out + 4 * LPR * i) =
-              make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+          *reinterpret_cast<T*>(out + VEC * LPR * i) = pack_bf16<VEC>(v);
         }
       }
     }
@@ -194,24 +225,27 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   // in warp order: dgamma's partial row, then dbeta's through the same buffer
   if constexpr (RPW == 2) {
 #pragma unroll
-    for (int i = 0; i < 12; ++i) {
+    for (int i = 0; i < VPL; ++i) {
       acc_g[i] += __shfl_xor_sync(0xffffffffu, acc_g[i], 16);
       acc_b[i] += __shfl_xor_sync(0xffffffffu, acc_b[i], 16);
     }
   }
-  auto block_sums = [&](const float (&acc)[12], int k) {
+  auto block_sums = [&](const float (&acc)[VPL], int k) {
     if (sub == 0) {
 #pragma unroll
       for (int i = 0; i < 3; ++i)
-        *reinterpret_cast<float4*>(&red[warp][4 * q + 4 * LPR * i]) =
-            make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(&red[warp][VEC * q + VEC * LPR * i + e]) =
+              make_float4(acc[VEC * i + e], acc[VEC * i + e + 1], acc[VEC * i + e + 2],
+                          acc[VEC * i + e + 3]);
     }
     __syncthreads();
-    if (threadIdx.x < D) {
+    for (int c = threadIdx.x; c < D; c += L::THREADS) {
       float t = 0.f;
 #pragma unroll
-      for (int w = 0; w < BWD_WARPS; ++w) t += red[w][threadIdx.x];
-      part[((size_t)k * gridDim.x + blockIdx.x) * D + threadIdx.x] = t;
+      for (int w = 0; w < WARPS; ++w) t += red[w][c];
+      part[((size_t)k * gridDim.x + blockIdx.x) * D + c] = t;
     }
     __syncthreads();
   };
@@ -224,7 +258,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 extern "C" int ibk_layernorm_train(const void* x, const void* gamma, const void* beta,
                                    void* y, void* xhat, void* inv, int n_rows, int d,
                                    float eps, void* stream) {
-  return by_width<384, 192>(d, [&](auto w) {
+  return by_width<768, 384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     if (n_rows > 0) {
       const int blocks = (n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
@@ -242,7 +276,7 @@ extern "C" int ibk_layernorm_train(const void* x, const void* gamma, const void*
 extern "C" int ibk_layernorm_bwd(const void* dy, const void* xhat, const void* inv,
                                  const void* gamma, void* dx, void* part, void* dgamma,
                                  void* dbeta, int n_rows, int d, void* stream) {
-  return by_width<384, 192>(d, [&](auto w) {
+  return by_width<768, 384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     cudaStream_t s = (cudaStream_t)stream;
     int dev = 0, sms = 0, err;
@@ -253,7 +287,7 @@ extern "C" int ibk_layernorm_bwd(const void* dy, const void* xhat, const void* i
     const int blocks = std::max(1, std::min(sms, (n_rows + 31) / 32));
     float* pg = (float*)part;
     if (n_rows > 0) {
-      layernorm_bwd_kernel<D><<<blocks, BWD_THREADS, 0, s>>>(
+      layernorm_bwd_kernel<D><<<blocks, BwdLayout<D>::THREADS, 0, s>>>(
           (const bf16*)dy, (const bf16*)xhat, (const float*)inv, (const float*)gamma,
           (bf16*)dx, pg, n_rows);
       if ((err = (int)cudaGetLastError())) return err;
@@ -272,8 +306,8 @@ extern "C" const char* ibk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Inference at d = 768 (ViT-B's serving path), 384 or 192; the training
-// kernels above at 384 or 192.
+// Inference, like the training kernels above, at d = 768 (ViT-B), 384
+// (ViT-S) or 192 (ViT-Ti).
 extern "C" int ibk_layernorm(const void* x, const void* gamma, const void* beta,
                              void* y, int n_rows, int d, float eps, void* stream) {
   return by_width<768, 384, 192>(d, [&](auto w) {

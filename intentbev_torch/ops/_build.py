@@ -125,7 +125,7 @@ _SIGNATURES = {
     "ibk_layernorm_train": (_P,) * 6 + (_I, _I, _F, _P),
     "ibk_layernorm_bwd": (_P,) * 8 + (_I, _I, _P),
     "ibk_fused_ln_mlp_train": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
-    "ibk_fused_ln_mlp_bwd": (_P,) * 20 + (_I, _I, _I, _F, _I, _P),
+    "ibk_fused_ln_mlp_bwd": (_P,) * 21 + (_I, _I, _I, _F, _I, _P),
     "ibk_flash_bwd": (_P,) * 7 + (_I,) * 5 + (_L, _L, _F, _F, _I, _P),
     "ibk_voxel_fill": (_P,) * 6 + (_I,) * 6 + (_P,),
     "ibk_fused_mlp_int8": (_P,) * 9 + (_I, _I, _I, _I, _P),

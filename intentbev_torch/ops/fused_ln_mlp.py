@@ -14,10 +14,11 @@ forward without a gate is the serving tail of the configurations that run
 no LN chain (:func:`fused_ln_mlp_train` with either GELU).
 
 Weights use PyTorch's Linear layout: ``w1`` [hidden, D], ``w2`` [D, hidden].
-The serving chain's kernel takes D in ``layernorm.SERVING_WIDTHS`` (768,
-384, 192), the training kernels D in ``layernorm.WIDTHS`` (384, 192); all
-take any hidden width that is a multiple of 64. Another width raises on
-CUDA: nothing falls back to a plain version.
+The serving chain's kernel and the training kernels take D in
+``layernorm.VIT_B_WIDTHS`` (768, 384, 192; at 768 the backward runs as two
+row kernels, dh = dy_eff W2 into an f32 workspace, then the rest); all take
+any hidden width that is a multiple of 64. Another width raises on CUDA:
+nothing falls back to a plain version.
 The serving drop-path gate is 1 and is not an argument. ``gelu`` is
 ``"erf"`` (exact; the JAX package's default, and the only mode training
 takes) or ``"sigmoid"`` (x * sigmoid(1.702 x), the serving variant
@@ -29,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .layernorm import SERVING_WIDTHS, WIDTHS, layernorm_plain
+from .layernorm import VIT_B_WIDTHS, layernorm_plain
 
 GELU_MODES = ("erf", "sigmoid")
 
@@ -70,8 +71,8 @@ def fused_ln_mlp(x, gamma, beta, w1, b1, w2, b2, gamma_next, beta_next,
     hidden = w1.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"fused_ln_mlp: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d in SERVING_WIDTHS,
-            f"fused_ln_mlp kernel is built for D in {SERVING_WIDTHS}, got {d}")
+    require(d in VIT_B_WIDTHS,
+            f"fused_ln_mlp kernel is built for D in {VIT_B_WIDTHS}, got {d}")
     require(hidden % 64 == 0, f"fused_ln_mlp: hidden {hidden} not a multiple of 64")
     for name, w, shape in (("w1", w1, (hidden, d)), ("w2", w2, (d, hidden))):
         require(w.device == x.device and w.dtype == torch.bfloat16
@@ -122,6 +123,40 @@ def fused_ln_mlp_train_plain(x, gamma, beta, w1, b1, w2, b2, gate=None,
     return y.to(dt).reshape(x.shape)
 
 
+def fused_ln_mlp_bwd_dh_plain(w2, gate, dy):
+    """Plain version of the D=768 backward's first row kernel: ``(dh f32
+    [rows, hidden], dy_eff in dy's dtype, db2 f32)``, dh = dy_eff W2 from the
+    rounded dy_eff = dy * gate; db2 sums the f32 dy_eff."""
+    dt, d = dy.dtype, dy.shape[-1]
+    dye = dy.reshape(-1, d).float() * _gate_rows(gate, dy)
+    dye_lp = dye.to(dt)
+    return torch.matmul(dye_lp.float(), w2.to(dt).float()), dye_lp, dye.sum(0)
+
+
+def fused_ln_mlp_bwd_rows_plain(x, gamma, beta, w1, b1, dh, dy, eps: float = 1e-6):
+    """Plain version of the D=768 backward's second row kernel, from the
+    first one's f32 dh: ``(dx in x's dtype, dgamma, dbeta, xn, h, dg (the
+    last three in x's dtype), db1)``. With :func:`fused_ln_mlp_bwd_dh_plain`
+    it computes what :func:`fused_ln_mlp_bwd_plain` does, bit for bit."""
+    dt, d = x.dtype, x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * inv
+    xn = (xhat * gamma.float() + beta.float()).to(dt).float()
+    w1f = w1.to(dt).float()
+    g = torch.matmul(xn, w1f.t()) + b1.float()
+    dg = dh * gelu_erf_grad(g)
+    dg_lp = dg.to(dt).float()
+    dxn = torch.matmul(dg_lp, w1f)
+    dyg = dxn * gamma.float()
+    m1 = dyg.mean(-1, keepdim=True)
+    m2 = (dyg * xhat).mean(-1, keepdim=True)
+    dx = inv * (dyg - m1 - xhat * m2) + dy.reshape(-1, d).float()
+    return (dx.to(dt).reshape(x.shape), (dxn * xhat).sum(0), dxn.sum(0), xn.to(dt),
+            gelu(g, "erf").to(dt), dg_lp.to(dt), dg.sum(0))
+
+
 def fused_ln_mlp_bwd_plain(x, gamma, beta, w1, b1, w2, gate, dy, eps: float = 1e-6):
     """Plain backward with the JAX kernel's rounding points: xn, dy_eff =
     dy * gate, h and dg are rounded to x's dtype before each product, the
@@ -155,7 +190,7 @@ def _check_train_args(x, gamma, beta, w1, b1, w2, name):
     d, hidden = x.shape[-1], w1.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"{name}: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d in WIDTHS, f"{name} kernel is built for D in {WIDTHS}, got {d}")
+    require(d in VIT_B_WIDTHS, f"{name} kernel is built for D in {VIT_B_WIDTHS}, got {d}")
     require(hidden % 64 == 0, f"{name}: hidden {hidden} not a multiple of 64")
     for wname, w, shape in (("w1", w1, (hidden, d)), ("w2", w2, (d, hidden))):
         require(w.device == x.device and w.dtype == torch.bfloat16
@@ -262,13 +297,15 @@ def fused_ln_mlp_bwd(x, gamma, beta, w1, b1, w2, gate, dy, eps: float = 1e-6):
     splits = ln_mlp_bwd_splits(n, d, hidden, dev)
     part = bwd_workspace(n, d, hidden, splits, dev)
     xn_ws, dye_ws, h_ws, dg_ws = bf(n, d), bf(n, d), bf(n, hidden), bf(n, hidden)
+    # D=768: the first row kernel's dh = dy_eff W2, kept in f32 for the second
+    dh_ws = f32(n, hidden) if d == 768 else None
     err = kernels().ibk_fused_ln_mlp_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), None if g is None else g.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         dgamma.data_ptr(), dbeta.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
         dw2.data_ptr(), db2.data_ptr(), xn_ws.data_ptr(), dye_ws.data_ptr(),
-        h_ws.data_ptr(), dg_ws.data_ptr(), part.data_ptr(), n, d, hidden, float(eps),
-        splits, stream_ptr(x))
+        h_ws.data_ptr(), dg_ws.data_ptr(), None if dh_ws is None else dh_ws.data_ptr(),
+        part.data_ptr(), n, d, hidden, float(eps), splits, stream_ptr(x))
     check_launch(err, "fused_ln_mlp_bwd")
     return dx, dgamma, dbeta, dw1, db1, dw2, db2
 

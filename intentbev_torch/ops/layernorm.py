@@ -6,10 +6,9 @@ in the input's dtype. :func:`layernorm_fn` is the differentiable entry, the
 dispatch of the JAX ``custom_vjp``: a call that needs no gradient takes the
 inference kernel; otherwise the training forward (y, xhat, inv) runs and the
 backward kernel gives dx and the dgamma/dbeta column sums. Any number of
-rows; no padding. The inference kernel is built for the widths in
-:data:`SERVING_WIDTHS` (ViT-B 768, ViT-S 384, ViT-Ti 192), the training
-kernels for those in :data:`WIDTHS` (384, 192); any other width raises on
-CUDA, and nothing falls back to a plain version.
+rows; no padding. Every kernel is built for the widths in
+:data:`VIT_B_WIDTHS` (ViT-B 768, ViT-S 384, ViT-Ti 192); any other width
+raises on CUDA, and nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -18,9 +17,10 @@ import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
 
-WIDTHS = (192, 384)  # widths every row kernel is instantiated for
-# widths of the serving chain's kernels (rows 1, 4, 5): ViT-B's 768 too
-SERVING_WIDTHS = WIDTHS + (768,)
+WIDTHS = (192, 384)  # ViT-Ti's and ViT-S's: every row kernel is built for these
+# widths of the kernels ViT-B's serving chain and training step run (rows 1
+# and 4-9): its 768 too
+VIT_B_WIDTHS = WIDTHS + (768,)
 
 
 def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -67,21 +67,21 @@ def _check_params(x, name, *params):
                 f"{name}: gamma/beta must be contiguous f32 [D] on x's device")
 
 
-def _check_rows(x, name, widths=WIDTHS):
+def _check_rows(x, name):
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"{name}: want contiguous CUDA bf16, got {x.dtype} {x.device}")
-    require(x.shape[-1] in widths,
-            f"{name} kernel is built for D in {widths}, got {x.shape[-1]}")
+    require(x.shape[-1] in VIT_B_WIDTHS,
+            f"{name} kernel is built for D in {VIT_B_WIDTHS}, got {x.shape[-1]}")
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis of a contiguous [..., D] bf16 tensor, D in
-    :data:`SERVING_WIDTHS`; gamma/beta f32 [D]. CPU tensors take
+    :data:`VIT_B_WIDTHS`; gamma/beta f32 [D]. CPU tensors take
     :func:`layernorm_plain`."""
     if x.device.type == "cpu":
         return layernorm_plain(x, gamma, beta, eps)
-    _check_rows(x, "layernorm", SERVING_WIDTHS)
+    _check_rows(x, "layernorm")
     _check_params(x, "layernorm", gamma, beta)
     d = x.shape[-1]
     y = torch.empty_like(x)
@@ -94,7 +94,8 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def layernorm_train(x, gamma, beta, eps: float = 1e-6):
     """Training forward, ``(y, xhat, inv)``, of a contiguous [..., D] bf16
-    CUDA tensor. CPU tensors take :func:`layernorm_train_plain`."""
+    CUDA tensor, D in :data:`VIT_B_WIDTHS`. CPU tensors take
+    :func:`layernorm_train_plain`."""
     if x.device.type == "cpu":
         return layernorm_train_plain(x, gamma, beta, eps)
     _check_rows(x, "layernorm_train")
@@ -117,9 +118,10 @@ def layernorm_bwd(dy, xhat, inv, gamma):
     require(xhat.shape == dy.shape and xhat.dtype == torch.bfloat16
             and xhat.is_contiguous() and xhat.device == dy.device,
             "layernorm_bwd: xhat must be contiguous bf16 of dy's shape")
-    require(dy.data_ptr() % 8 == 0 and xhat.data_ptr() % 8 == 0,
-            "layernorm_bwd: dy and xhat must be 8-byte aligned (the kernel's loads)")
     d = dy.shape[-1]
+    align = 16 if d == 768 else 8  # the kernel's loads: 8 values a lane at 768, else 4
+    require(dy.data_ptr() % align == 0 and xhat.data_ptr() % align == 0,
+            f"layernorm_bwd: dy and xhat must be {align}-byte aligned (the kernel's loads)")
     n = dy.numel() // d
     require(inv.dtype == torch.float32 and inv.numel() == n and inv.is_contiguous()
             and inv.device == dy.device, "layernorm_bwd: inv must be contiguous f32 [rows]")

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .layernorm import SERVING_WIDTHS
+from .layernorm import VIT_B_WIDTHS
 
 WINDOW = 64  # pixels per placement window
 CAP = 64     # max cells per chunk
@@ -284,7 +284,7 @@ def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
                        grid_hw: tuple[int, int]) -> torch.Tensor:
     """Decoded chunks -> tokens [B, (H/P)*(W/P), D] in the kernel's dtype.
     ``kernel`` is the patch-embed conv weight [P, P, C, D] (bf16 on CUDA; D
-    in ``layernorm.SERVING_WIDTHS``),
+    in ``layernorm.VIT_B_WIDTHS``),
     ``bias`` f32 [D]. On CUDA two kernels run, one launch: the hit list of
     :func:`voxel_hits` into a scratch of NC * 64 entries a band (8 bytes
     each), then a warp a token sums its hits' W rows. CPU tensors take
@@ -293,8 +293,8 @@ def voxel_embed_tokens(chunks: VoxelChunks, kernel, bias, patch: int,
         return voxel_embed_tokens_plain(chunks, kernel, bias, patch, grid_hw)
     b, nb, nc, rpp, c, d = _geometry(chunks, kernel, patch, grid_hw)
     h, w = grid_hw
-    require(d in SERVING_WIDTHS,
-            f"voxel_embed kernel is built for D in {SERVING_WIDTHS}, got {d}")
+    require(d in VIT_B_WIDTHS,
+            f"voxel_embed kernel is built for D in {VIT_B_WIDTHS}, got {d}")
     require(kernel.is_cuda and kernel.dtype == torch.bfloat16 and kernel.is_contiguous(),
             "voxel_embed: kernel must be contiguous CUDA bf16")
     require(bias.device == kernel.device and bias.dtype == torch.float32

@@ -248,7 +248,8 @@ def test_vit_base_imports_serves_and_trains_on_the_cpu(tmp_path):
     """ViT-B's width (768, 12 heads of 64) at depth 1 on the tiny grid: the
     plain versions serve it and train it here. On the card the serving
     chain's kernels take it (rows 1, 4, 5; ``tests/test_torch_vit_base.py``
-    holds their plain versions against JAX) and the training entries raise."""
+    holds their plain versions against JAX) and so do the training step's
+    (rows 6-9; ``tests/test_torch_vit_base_train.py``)."""
     from intentbev_torch.boxes import generate_anchors
     from intentbev_torch.train import make_optimizer, make_train_step
 

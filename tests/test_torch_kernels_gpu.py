@@ -22,8 +22,10 @@ the training entries of two of them: the MLP without LN (forward with a
 drop-path gate, backward with and without one) and the LN + dense backward
 (qkv without GELU, adapter with the erf GELU). The row kernels that the
 ViT-Ti width runs (LayerNorm, LN+MLP, voxel embed) run at D=384 and D=192,
-those of ViT-B's serving path (rows 1, 4 and 5) also at D=768, where the
-training entries raise,
+those of ViT-B's serving path (rows 1, 4 and 5) and training step (rows
+6-9; row 7 there as two row kernels) also at D=768, with the packed
+backward's three forms at 12 heads of 64 over a model width of 768, where
+the entries of rows 13, 14, 15 and 17 raise,
 and the BHTD attention (forward and backward) at head dims 64 and 32, on
 contiguous [B, H, T, D] tensors and on the views of a qkv projection
 output, at small and at ViT-Ti's main-path shapes. The packed attention's
@@ -1515,8 +1517,9 @@ def test_fused_ln_dense_tp_shard(dev, rows, monkeypatch):
 # kernel splits the output columns between its two consumers, row 1's voxel
 # embed) against their plain versions, by the relative L2 and the share of
 # differing elements, with a one-fault control each; the packed attention
-# at 12 heads of 64 (both softmax forms of the serving lines); and the
-# training entries, which are not built for this width and raise.
+# at 12 heads of 64 (both softmax forms of the serving lines); the training
+# step's rows 6-11 at this width; and the entries built only for the narrow
+# widths, which raise.
 VIT_B = 768
 
 
@@ -1594,22 +1597,148 @@ def test_vit_b_flash_packed(dev, b, t, seq_len, form):
     assert _share(o, o_c) >= FWD_SHARE_LIMIT
 
 
-def test_vit_b_training_entries_raise(dev):
-    """The training kernels (rows 6-9) are built for D=384 and 192: at 768
-    each entry raises, naming the width, launches nothing and never takes
-    its plain version; the differentiable entries too."""
-    from intentbev_torch.ops import fused_ln_mlp_fn, layernorm_fn
+@pytest.mark.parametrize("rows", [1, 10, 300, 4501, MAIN_ROWS, 8 * 4608])
+def test_vit_b_layernorm_train_and_bwd(dev, rows):
+    """Rows 8 and 9 at D=768 (24 values a lane; the backward's 256-thread
+    blocks, 16-byte loads): as test_layernorm_train_and_bwd at the narrow
+    widths, with its limits and controls."""
+    x = _randn((rows, VIT_B), 2.0, 0) + 0.5
+    g = _randn((VIT_B,), 0.3, 1, torch.float32) + 1
+    b = _randn((VIT_B,), 0.3, 2, torch.float32)
+    reset_launch_counts()
+    y, xhat, inv = layernorm_train(x, g, b)
+    assert launches["layernorm_train"] == 1
+    y_p, xhat_p, inv_p = layernorm_train_plain(x, g, b)
+    assert _rel(y, y_p) < 3e-4 and _rel(xhat, xhat_p) < 3e-4 and _rel(inv, inv_p) < 1e-5
+    assert _rel(y, _layernorm_unbiased(x, g, b)) >= 3e-4
+    dy = _randn((rows, VIT_B), 1.0, 3)
+    got = layernorm_bwd(dy, xhat, inv, g)
+    assert launches["layernorm_bwd"] == 1 and sum(launches.values()) == 2
+    want = layernorm_bwd_plain(dy, xhat, inv, g)
+    assert max(_rels(got, want)) < LN_BWD_LIMIT, _rels(got, want)
+    assert _share(got[0], want[0]) < LN_BWD_SHARE, _share(got[0], want[0])
+    ctrl = layernorm_bwd_no_m2(dy, xhat, inv, g)
+    assert max(_rels(got, ctrl)) >= LN_BWD_LIMIT and _share(got[0], ctrl[0]) >= LN_BWD_SHARE
+    again = layernorm_bwd(dy, xhat, inv, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
+@pytest.mark.parametrize("rows", [1, 63, 300, 4501, MAIN_ROWS])
+def test_vit_b_ln_mlp_train(dev, rows, gelu, gated):
+    """Row 6 at D=768 (the wide kernel's training form: 64-row blocks, the
+    f32 gate over rows or none, no yn): y by relative L2 and share against
+    the plain version, two calls with the same bits; controls: h kept in f32
+    before fc2 (the share), the gate ignored (the relative L2)."""
+    x, ln, w1, b1, w2, b2 = _vit_b_ln_mlp(rows)
+    keep = torch.rand(rows, generator=_gen(9), device="cuda") < 0.7
+    keep[0] = False  # one row dropped
+    gate = keep.float() / 0.9 if gated else None
+    args = (x, ln[0], ln[1], w1, b1, w2, b2, gate)
+    reset_launch_counts()
+    got, again = (fused_ln_mlp_train(*args, gelu_mode=gelu) for _ in range(2))
+    assert launches["fused_ln_mlp_train"] == 2 and sum(launches.values()) == 2
+    want = fused_ln_mlp_train_plain(*args, gelu_mode=gelu)
+    assert got.shape == want.shape == (rows, VIT_B) and torch.equal(got, again)
+    assert _rel(got, want) < MLP_LIMIT and _share(got, want) < MLP_SHARE, (_rel(got, want),
+                                                                          _share(got, want))
+    if rows > 1:  # one row holds too few values for a share
+        ctrl = _mlp_h_f32(x, w1, b1, w2, b2, gelu, ln=ln[:2], gate=gate)[0]
+        assert _share(got, ctrl) >= MLP_SHARE
+    if gated:
+        ignored = fused_ln_mlp_train_plain(x, ln[0], ln[1], w1, b1, w2, b2, gelu_mode=gelu)
+        assert _rel(got, ignored) >= MLP_LIMIT
+
+
+@pytest.mark.parametrize("gating", ["gate", "none", "dropped"])
+@pytest.mark.parametrize("rows", [1, 50, 300, 4501, MAIN_ROWS])
+def test_vit_b_ln_mlp_bwd(dev, rows, gating):
+    """Row 7 at D=768, the two row kernels (dh = dy_eff W2 into the f32
+    workspace; then the rows, the LN backward and the h / dg tiles) and the
+    dW products, at row counts that are not a multiple of the 64-row block,
+    gated, ungated and with the first half of the rows dropped: every
+    output's relative L2 against the plain version, dx's share of differing
+    elements (the control, dg kept in f32 before the dxn product, must move
+    it past the limit), the gate ignored (control), two calls with the same
+    bits."""
+    x, ln, w1, b1, w2, _ = _vit_b_ln_mlp(rows)
+    dy = _randn((rows, VIT_B), 1.0, 10)
+    keep = torch.rand(rows, generator=_gen(9), device="cuda") < 0.7
+    gate = {"gate": keep.float() / 0.9, "none": None,
+            "dropped": (torch.arange(rows, device="cuda") >= rows // 2).float() / 0.9}[gating]
+    args = (x, ln[0], ln[1], w1, b1, w2, gate, dy)
+    reset_launch_counts()
+    got, again = fused_ln_mlp_bwd(*args), fused_ln_mlp_bwd(*args)
+    assert launches["fused_ln_mlp_bwd"] == 2 and sum(launches.values()) == 2
+    want = fused_ln_mlp_bwd_plain(*args)
+    rels = [_rel_or_zero(a, b) for a, b in zip(got, want)]
+    assert all(a.shape == b.shape for a, b in zip(got, want))
+    assert max(rels) < MLP_BWD_LIMIT, rels
+    if rows >= 50:
+        assert _share(got[0], want[0]) < BWD_SHARE, _share(got[0], want[0])
+        ctrl = _dx_dg_f32(*args)
+        assert _share(got[0], ctrl) >= BWD_SHARE, _share(got[0], ctrl)
+    if gating == "gate" and rows >= 50:
+        ignored = fused_ln_mlp_bwd_plain(x, ln[0], ln[1], w1, b1, w2, None, dy)
+        assert max(_rel_or_zero(a, b) for a, b in zip(got, ignored)) >= MLP_BWD_LIMIT
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
+
+
+@pytest.mark.parametrize("b,t,seq_len,chunk", FORM_SHAPES)
+def test_vit_b_flash_bwd_forms(dev, b, t, seq_len, chunk):
+    """Rows 10 and 11 at 12 heads of 64 over a model width of 768 (six head
+    pairs): the fused backward (the training step's) and the split and
+    chunked forms against their plain versions (control: delta left out),
+    each counted under its own name; at head dim 64 every form gives the
+    fused kernel's values."""
+    qkv = _randn((b, t, 3 * VIT_B), 1.0, 0)
+    q, k, v = qkv[..., :VIT_B], qkv[..., VIT_B:2 * VIT_B], qkv[..., 2 * VIT_B:]
+    do = _randn((b, t, VIT_B), 1.0, 1)
+    o, lse = flash_attention_packed(q, k, v, 12, seq_len)
+    parts = [slice(j * VIT_B, (j + 1) * VIT_B) for j in range(3)]
+
+    def bwd(fn, form, o_=o):
+        fused, kv_chunk = {"fused": (True, 0), "split": (False, 0),
+                           "chunked": (False, chunk)}[form]
+        g = fn(q, k, v, o_, lse, do, 12, seq_len, fused, kv_chunk)
+        return [g[..., p] for p in parts]
+
+    fused = None
+    for form in ("fused", "split", "chunked"):
+        reset_launch_counts()
+        got = bwd(flash_attention_packed_bwd, form)
+        assert launches[tfp.BWD_COUNTERS[form]] == 1 and sum(launches.values()) == 1
+        want = bwd(flash_attention_packed_bwd_plain, form)
+        assert max(_rels(got, want)) < ROW11_LIMIT, (form, _rels(got, want))
+        assert not got[1][:, seq_len:].any() and not got[2][:, seq_len:].any()
+        ctrl = bwd(flash_attention_packed_bwd_plain, form, torch.zeros_like(o))
+        assert max(_rels(got, ctrl)) >= ROW11_LIMIT
+        fused = got if fused is None else fused
+        assert all(torch.equal(a, f) for a, f in zip(got, fused)), form
+
+
+def test_vit_b_narrow_entries_raise(dev):
+    """Rows 13 (the MLP without LN), 14 (LN + dense), 15 (the dense patch
+    embed) and 17 (the W8A8 MLP) are built for D=384 and 192: at 768 each
+    entry raises, naming the width, launches nothing and never takes its
+    plain version."""
     x, ln, w1, b1, w2, b2 = _vit_b_ln_mlp(64)
-    _, xhat, inv = layernorm_train_plain(x, ln[0], ln[1])
+    w1q, s1 = quantize_linear(w1.float())
+    w2q, s2 = quantize_linear(w2.float())
+    w_qkv = _randn((3 * VIT_B, VIT_B), VIT_B ** -0.5, 11)
+    b_qkv = _randn((3 * VIT_B,), 0.1, 12, torch.float32)
+    x_pe = _randn((1, 16, 16, 128), 1.0, 13)
+    w_pe = _randn((8, 8, 128, VIT_B), 0.02, 14)
     calls = {
-        "layernorm_train": lambda: layernorm_train(x, ln[0], ln[1]),
-        "layernorm_bwd": lambda: layernorm_bwd(x, xhat, inv, ln[0]),
-        "fused_ln_mlp_train": lambda: fused_ln_mlp_train(x, ln[0], ln[1], w1, b1, w2, b2),
-        "fused_ln_mlp_bwd": lambda: fused_ln_mlp_bwd(x, ln[0], ln[1], w1, b1, w2, None, x),
-        "layernorm_fn": lambda: layernorm_fn(x.clone().requires_grad_(True), ln[0], ln[1]),
-        "fused_ln_mlp_fn": lambda: fused_ln_mlp_fn(x.clone().requires_grad_(True), ln[0], ln[1],
-                                                   w1, b1, w2, b2)}
+        "fused_mlp": lambda: fused_mlp(x, w1, b1, w2, b2, x),
+        "fused_mlp_train": lambda: fused_mlp_train(x, w1, b1, w2, b2, x),
+        "fused_mlp_bwd": lambda: fused_mlp_bwd(x, w1, b1, w2, None, x),
+        "fused_ln_dense": lambda: fused_ln_dense(x, ln[0], ln[1], w_qkv, b_qkv),
+        "fused_ln_dense_bwd": lambda: fused_ln_dense_bwd(x, ln[0], ln[1], w_qkv, b_qkv,
+                                                         x.repeat(1, 3)),
+        "patch_embed": lambda: patch_embed(x_pe, w_pe, b2, 8),
+        "fused_mlp_int8": lambda: fused_mlp_int8(x, w1q, s1, b1, w2q, s2, b2, x)}
     for name, call in calls.items():
         reset_launch_counts()
         with pytest.raises(ValueError, match="768"):

@@ -231,7 +231,7 @@ def test_smoke_phases_stamps_every_phase(tmp_path):
     tool = _module("tools/smoke_phases_torch.py")
     stamped = tool.stamped_source((ROOT / "chip_smoke.py").read_text())
     compile(stamped, "chip_smoke.py", "exec")
-    assert re.findall(r"_phase_stamp\('(\w+)'\)", stamped) == [str(n) for n in range(1, 19)]
+    assert re.findall(r"_phase_stamp\('(\w+)'\)", stamped) == [str(n) for n in range(1, 20)]
 
     (tmp_path / "chip_smoke.py").write_text(TOY_SMOKE)
     run = subprocess.run([sys.executable, str(ROOT / "tools" / "smoke_phases_torch.py"),

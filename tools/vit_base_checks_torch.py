@@ -1,23 +1,34 @@
-"""Card checks of the kernels on ViT-B's serving path (D=768, 12 heads of 64).
+"""Card checks of the kernels on ViT-B's paths (D=768, 12 heads of 64):
+serving and the training step.
 
-1. The compiler's report: each kernel source of the path compiled with
-   ``-Xptxas -v``; for the D=768 instances (row 4's ``ln_mlp_wide_kernel``
-   with each GELU, row 1's ``voxel_gather_kernel<768>``, row 5's
-   ``layernorm_kernel<768>``) the registers, the spill stores and loads,
-   and any ptxas warning that names them (C7514 / C7520: wgmma serialised).
-   A spill or such a warning fails the run.
-2. Each kernel against its plain version at the shapes ViT-B's serving path
-   gives it (batch 8 x 4501 tokens = 36008 rows, hidden 3072; the chunks of
-   8 frames of 16384 points, ``serving_batch`` seed 0), in bf16: the
-   relative L2 and the share of elements that differ, under the limits of
-   ``chip_smoke.py`` phase 3, and a control with one fault that must reach a
-   limit (row 4: the erf GELU, h kept in f32 before fc2; row 5: the
-   variance over N-1; row 1: the last chunk of each band skipped; rows 2
-   and 3 at [8, 4501, 768] in 12 heads of 64: another softmax form's
-   plain version). Then CUDA-event times of kernel, plain version, the
-   library call where one exists (``F.layer_norm``, SDPA) and, for row 4,
-   the same function as a chain of PyTorch calls in bf16, beside each
-   bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s).
+1. The compiler's report: each kernel source of the paths compiled with
+   ``-Xptxas -v``; for the D=768 instances (rows 4 and 6, the
+   ``ln_mlp_wide_kernel`` with each GELU, chained and gated; row 7's two
+   row kernels, ``ln_mlp_dh_kernel<768>`` and ``ln_mlp_bwd_wide_kernel<768>``;
+   row 1's ``voxel_gather_kernel<768>``; rows 5, 8 and 9,
+   ``layernorm_kernel<768>``, ``layernorm_train_kernel<768>`` and
+   ``layernorm_bwd_kernel<768>``) the registers, the spill stores and loads,
+   and any ptxas line of code C75xx that names them. A spill or a C7514 /
+   C7520 warning (wgmma serialised) fails the run; other C75xx lines are
+   printed (C7519: a warpgroup.arrive injected before a wgmma that reads
+   registers, a note the narrow backwards carry too).
+2. Each kernel against its plain version at the shapes ViT-B's paths give
+   it (batch 8 x 4501 tokens = 36008 rows, hidden 3072; the chunks of 8
+   frames of 16384 points, ``serving_batch`` seed 0; a per-sample drop-path
+   gate with sample 0 dropped), in bf16: the relative L2 and the share of
+   elements that differ, under the limits of ``chip_smoke.py`` phase 3, and
+   a control with one fault that must reach a limit (rows 4 and 6: the
+   other GELU or the gate ignored, h kept in f32 before fc2; row 7: the gate
+   ignored, dg kept in f32 before dxn; rows 5 and 8: the variance over N-1;
+   row 9: no mean(dyg*xhat) term; row 1: the last chunk of each band
+   skipped; rows 2 and 3 at [8, 4501, 768] in 12 heads of 64: another
+   softmax form's plain version; rows 10 and 11, the fused, split and
+   chunked backwards: delta left out). Then CUDA-event times of kernel,
+   plain version, the library call where one exists (``F.layer_norm`` and
+   its backward, SDPA and its backward) and, for rows 4, 6 and 7, the same
+   function as a chain of PyTorch calls in bf16 (row 7: autograd through
+   that chain), beside each bound (bytes over 3.35 TB/s or operations over
+   989 TFLOP/s).
 
     python3 tools/vit_base_checks_torch.py [--no-times]
 
@@ -39,9 +50,14 @@ sys.path.insert(0, str(ROOT))
 CSRC = ROOT / "intentbev_torch" / "csrc"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v")
 # source -> the mangled-name pieces of its D=768 instances
-INSTANCES = {"fused_ln_mlp.cu": ("ln_mlp_wide_kernelILi768ELi0E", "ln_mlp_wide_kernelILi768ELi1E"),
+INSTANCES = {"fused_ln_mlp.cu": ("ln_mlp_wide_kernelILi768ELi0ELb1E",
+                                 "ln_mlp_wide_kernelILi768ELi1ELb1E",
+                                 "ln_mlp_wide_kernelILi768ELi0ELb0E",
+                                 "ln_mlp_wide_kernelILi768ELi1ELb0E",
+                                 "ln_mlp_dh_kernelILi768E", "ln_mlp_bwd_wide_kernelILi768E"),
              "voxel_embed.cu": ("voxel_gather_kernelILi768E",),
-             "layernorm.cu": ("layernorm_kernelILi768E",)}
+             "layernorm.cu": ("layernorm_kernelILi768E", "layernorm_train_kernelILi768E",
+                              "layernorm_bwd_kernelILi768E")}
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12
 
 
@@ -71,7 +87,11 @@ def ptxas_report(nvcc: str, out: Path) -> list[str]:
         for line in log.splitlines():
             if re.search(r"C75\d\d", line) and any(k in line for k in INSTANCES[src]):
                 print(f"ptxas: {line.strip()}", flush=True)
-                problems.append(line.strip())
+                # C7514 / C7520: wgmma serialised; other C75xx lines are
+                # notes (C7519, a warpgroup.arrive injected before a wgmma
+                # that reads registers, which the narrow backwards carry too)
+                if re.search(r"C7514|C7520", line):
+                    problems.append(line.strip())
         found = [k for k in INSTANCES[src] if k in log]
         if len(found) != len(INSTANCES[src]):
             problems.append(f"{src}: instances {INSTANCES[src]} not all compiled ({found})")
@@ -89,12 +109,17 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("vit_base_checks_torch: needs a CUDA card")
     from intentbev_torch.configs import default_vit_config
-    from intentbev_torch.ops import (flash_attention_packed, flash_attention_packed_plain,
-                                     fused_ln_mlp, fused_ln_mlp_plain, layernorm,
-                                     layernorm_plain, voxel_embed_tokens,
+    from intentbev_torch.ops import (flash_attention_packed, flash_attention_packed_bwd,
+                                     flash_attention_packed_bwd_plain,
+                                     flash_attention_packed_plain, fused_ln_mlp,
+                                     fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
+                                     fused_ln_mlp_plain, fused_ln_mlp_train,
+                                     fused_ln_mlp_train_plain, layernorm, layernorm_bwd,
+                                     layernorm_bwd_plain, layernorm_plain, layernorm_train,
+                                     layernorm_train_plain, voxel_embed_tokens,
                                      voxel_embed_tokens_plain)
     from intentbev_torch.ops._build import BUILD_DIR, _nvcc
-    from intentbev_torch.ops.fused_ln_mlp import gelu
+    from intentbev_torch.ops.fused_ln_mlp import gelu, gelu_erf_grad
     from intentbev_torch.ops.voxel_embed import chunks_to_device, decode_chunk_transport
     from intentbev_torch.parallel.inference import build_chunk_transport
     from intentbev_torch.synthetic import serving_batch
@@ -182,6 +207,96 @@ def main() -> None:
         y_ = x + F.linear(h * torch.sigmoid(1.702 * h), w2, b2.bfloat16())
         return y_, F.layer_norm(y_, (d,), ln[2].bfloat16(), ln[3].bfloat16(), 1e-6)
 
+    # the training step's inputs: a per-sample drop-path gate (0 or 1/0.9,
+    # sample 0 dropped) over the tokens, upstream gradients, the saved LN
+    # forward, the attention's o and lse
+    keep = torch.rand(batch, generator=gen, device=dev) < 0.7
+    keep[0] = False
+    gate = (keep.float() / 0.9)[:, None].expand(batch, tokens).reshape(rows).contiguous()
+    dy = randn((rows, d), 1.0)
+    train = (x, ln[0], ln[1], w1, b1, w2)
+    _, xhat, inv = layernorm_train_plain(x, ln[0], ln[1])
+    o, lse = flash_attention_packed(q, k, vv, heads)
+    do = randn((batch, tokens, d), 1.0)
+    mlp_flops = 4 * rows * d * hidden
+
+    def unbiased_train(x_, g_, b_):  # the control's fault: the variance over N-1
+        xf = x_.float()
+        inv_ = torch.rsqrt(xf.var(-1, keepdim=True, correction=1) + 1e-6)
+        xh = (xf - xf.mean(-1, keepdim=True)) * inv_
+        return (xh * g_ + b_).to(x_.dtype), xh.to(x_.dtype), inv_[..., 0]
+
+    def no_m2(dy_, xhat_, inv_, g_):  # the control's fault: no mean(dyg*xhat) term
+        dyg = dy_.float() * g_
+        dx_ = inv_[..., None] * (dyg - dyg.mean(-1, keepdim=True))
+        return dx_.to(dy_.dtype), (dy_.float() * xhat_.float()).sum(0), dy_.float().sum(0)
+
+    def train_h_f32():  # the control's fault: h kept in f32 before fc2 (gated)
+        xn = layernorm_plain(x.float(), *ln[:2]).to(x.dtype).float()
+        m = gelu(xn @ w1.float().t() + b1, "erf") @ w2.float().t() + b2
+        return (m * gate[:, None] + x.float()).to(x.dtype)
+
+    def dg_f32():  # the control's fault: dg kept in f32 before the dxn product
+        xf, dyf = x.float(), dy.float()
+        xc = xf - xf.mean(-1, keepdim=True)
+        inv_ = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-6)
+        xh = xc * inv_
+        xn = (xh * ln[0] + ln[1]).to(x.dtype).float()
+        dg = ((dyf * gate[:, None]).to(x.dtype).float() @ w2.float()) * gelu_erf_grad(
+            xn @ w1.float().t() + b1)
+        dyg = (dg @ w1.float()) * ln[0]
+        dx_ = inv_ * (dyg - dyg.mean(-1, keepdim=True)
+                      - xh * (dyg * xh).mean(-1, keepdim=True)) + dyf
+        rest = fused_ln_mlp_bwd_plain(*train, gate, dy)[1:]
+        return (dx_.to(x.dtype),) * 2 + tuple(rest)
+
+    def dx_twice(r):  # a backward's dx by relative L2 and share, the rest by relative L2
+        return (r[0],) + tuple(r)
+
+    def parts(t):  # a packed gradient [B, T, 3 * d] as dq, dk, dv
+        return tuple(t[..., i * d:(i + 1) * d] for i in range(3))
+
+    forms = {"fused": (True, 0), "split": (False, 0), "chunked": (False, 1152)}
+
+    def flash_bwd(fn, form, o_=None):
+        return lambda: parts(fn(q, k, vv, o if o_ is None else o_, lse, do, heads, None,
+                                *forms[form]))
+
+    # library calls of the backwards (autograd through F.layer_norm and SDPA)
+    xl = x.detach().clone().requires_grad_(True)
+    gll, bll = (t.detach().clone().requires_grad_(True) for t in (gl, bl))
+    y_ln = F.layer_norm(xl, (d,), gll, bll, 1e-6)
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in bhtd)
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs)
+    do_h = do.reshape(batch, tokens, heads, 64).transpose(1, 2).contiguous()
+
+    def lib_ln_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(y_ln, (xl, gll, bll), dy, retain_graph=True)
+
+    def lib_sdpa_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(o_sdpa, (qs, ks, vs), do_h, retain_graph=True)
+
+    def train_chain():  # row 6 as a chain of PyTorch calls in bf16 (timed only)
+        xn = F.layer_norm(x, (d,), gl, bl, 1e-6)
+        return x + F.linear(F.gelu(F.linear(xn, w1, b1.bfloat16())), w2,
+                            b2.bfloat16()) * gate.bfloat16()[:, None]
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, gl, bl, w1, b1.bfloat16(), w2, b2.bfloat16())]
+    with torch.enable_grad():
+        xn_c = F.layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-6)
+        y_c = leaves[0] + F.linear(F.gelu(F.linear(xn_c, leaves[3], leaves[4])), leaves[5],
+                                   leaves[6]) * gate.bfloat16()[:, None]
+
+    def bwd_chain():  # row 7: autograd through that chain (timed only)
+        with torch.enable_grad():
+            return torch.autograd.grad(y_c, leaves, dy, retain_graph=True)
+
+    bwd_bytes = (3 * nbytes(x) + nbytes(w1, b1, w2, ln[0], ln[1], gate)
+                 + 4 * (3 * d + hidden + 2 * d * hidden))
+    flash_bwd_bytes = nbytes(q, k, vv, o, do, lse) + nbytes(qkv)
     cases = {  # name: (kernel, plain, [(control, fault)], metrics, limits, bytes, flops, library, reference)
         "fused_ln_mlp[D=768]": (
             lambda: twice(fused_ln_mlp(*mlp, gelu_mode="sigmoid")),
@@ -221,6 +336,39 @@ def main() -> None:
             [(lambda: o_twice(flash_attention_packed_plain(q, k, vv, heads)),
               "P rounded against the row max")], (rel_l2, share), FWD_LIMITS, flash_bytes,
             flash_flops, torch.no_grad()(lambda: F.scaled_dot_product_attention(*bhtd)), None),
+        # the training step's rows at ViT-B's shapes
+        "layernorm_train[D=768]": (
+            lambda: layernorm_train(x, ln[0], ln[1]),
+            lambda: layernorm_train_plain(x, ln[0], ln[1]),
+            [(lambda: unbiased_train(x, ln[0], ln[1]), "variance over N-1")], (rel_l2,) * 3,
+            (3e-4, 3e-4, 1e-5), 3 * nbytes(x) + nbytes(inv, ln[0], ln[1]), 0,
+            torch.no_grad()(lambda: F.layer_norm(x, (d,), gl, bl, 1e-6)), None),
+        "layernorm_bwd[D=768]": (
+            lambda: dx_twice(layernorm_bwd(dy, xhat, inv, ln[0])),
+            lambda: dx_twice(layernorm_bwd_plain(dy, xhat, inv, ln[0])),
+            [(lambda: dx_twice(no_m2(dy, xhat, inv, ln[0])), "no mean(dyg*xhat) term")],
+            (rel_l2, share, rel_l2, rel_l2), (1e-3, 2e-2, 1e-3, 1e-3),
+            3 * nbytes(x) + nbytes(inv, ln[0]) + 2 * d * 4, 0, lib_ln_bwd, None),
+        "fused_ln_mlp_train[D=768]": (
+            lambda: twice(fused_ln_mlp_train(*train, b2, gate)),
+            lambda: twice(fused_ln_mlp_train_plain(*train, b2, gate)),
+            [(lambda: twice(fused_ln_mlp_train_plain(*train, b2)), "gate ignored"),
+             (lambda: twice(train_h_f32()), "h kept in f32")], (rel_l2, share), (1e-3, 2e-2),
+            nbytes(x, w1, b1, w2, b2, ln[0], ln[1], gate) + nbytes(x), mlp_flops, None,
+            train_chain),
+        "fused_ln_mlp_bwd[D=768]": (
+            lambda: dx_twice(fused_ln_mlp_bwd(*train, gate, dy)),
+            lambda: dx_twice(fused_ln_mlp_bwd_plain(*train, gate, dy)),
+            [(lambda: dx_twice(fused_ln_mlp_bwd_plain(*train, None, dy)), "gate ignored"),
+             (dg_f32, "dg kept in f32")], (rel_l2, share) + (rel_l2,) * 6,
+            (2e-3, 2e-2) + (2e-3,) * 6, bwd_bytes, 5 * mlp_flops // 2, None, bwd_chain),
+        **{f"flash_packed_bwd{'' if f == 'fused' else '_' + f}[12x64,D=768]": (
+            flash_bwd(flash_attention_packed_bwd, f),
+            flash_bwd(flash_attention_packed_bwd_plain, f),
+            [(flash_bwd(flash_attention_packed_bwd_plain, f, torch.zeros_like(o)),
+              "delta = rowsum(dO*O) left out")], (rel_l2,) * 3, (1e-2,) * 3 if f == "fused"
+            else (7e-4,) * 3, flash_bwd_bytes, 5 * flash_flops // 2, lib_sdpa_bwd, None)
+           for f in forms},
     }
     with torch.no_grad():
         for name, (kern, plain, controls, metrics, limits, n_bytes, flops, lib, ref) in \
