@@ -54,8 +54,11 @@ Phases (each prints a line; any failure exits nonzero with no result):
    rows 8 and 9 at D=768, row 6 gated, row 7 (two row kernels, then the dW
    products; printed by kernel from a profiler trace) and the packed
    backward at 12 heads of 64 in its three forms, dq, dk and dv also read
-   by their shares of differing elements; each new case also gives the same
-   bits on two calls.
+   by their shares of differing elements. ViT-B's serving variants' kernels
+   run at D=768 with the D=384 cases' faults and limits: row 13 (serving,
+   sigmoid), row 14 (qkv, Dout 2304; the adapter with each GELU), row 15
+   (with its F.conv2d and PatchEmbed.dense yardsticks) and row 17 (each
+   GELU). Each new case also gives the same bits on two calls.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -242,7 +245,14 @@ Phases (each prints a line; any failure exits nonzero with no result):
     instances), logits against the plain path under phase 4's limit
     (control: the qkv rows imported k-first), fixed-shape finite
     Detections, frames/s with the host chunk build, and the device's ms a
-    batch (kernels and copies from a profiler trace) with its frames/s.
+    batch (kernels and copies from a profiler trace) with its frames/s. Then
+    the checkpoint serves one request under each variant of phase 8 (A
+    ``serving_int8`` over points, B ``fuse_ln_dense`` and C
+    ``use_fused_layernorm=False`` over chunks, D ``fuse_patch_embed`` over
+    points) with phase 8's checks at D=768: launch counts per request of
+    phase 8's structures (rows 17, 14, 13, 15 at their D=768 instances),
+    logits against the same variant through the plain versions under phase
+    8's limits (the same control), Detections, the device's ms a batch.
 19. ViT-B training: ``default_vit_config()`` with ViT-B's widths (embed
     768, 12 heads of 64, hidden 3072, depth 12, patch 8; random seeded
     weights) takes phase 5's step (batch 8 x 4501 tokens, bf16 compute, f32
@@ -289,7 +299,12 @@ CONFIG_LIMITS = {**{name: (2.3e-2,) * 3 for name in ("A serving_int8", "Ti A ser
     "import CNN", "import ViT-S", "import ViT-Ti", "ViT-B", "ViT-B fixed",
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
     "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense", "Ti C use_fused_layernorm=False",
-    "Ti D fuse_patch_embed")}}
+    "Ti D fuse_patch_embed")},
+                 # ViT-B under the serving variants (phase 18): phase 8's limits
+                 **{f"ViT-B {name}": lim for name, lim in (
+                     ("A serving_int8", (2.3e-2,) * 3), ("B fuse_ln_dense", (1.3e-2,) * 3),
+                     ("C use_fused_layernorm=False", (1.3e-2,) * 3),
+                     ("D fuse_patch_embed", (1.3e-2,) * 3))}}
 
 
 def fail(msg: str) -> None:
@@ -963,7 +978,9 @@ def main() -> None:
     # bias moves ~26 %, a skipped chunk the relative L2)
     PATCH_LIMITS, VOXEL_LIMITS = (1e-3, 5e-2), (3e-3, 2e-2)
     rates = {"fused_mlp_int8": INT8_OPS_PER_S,  # ops of another type than bf16
-             "fused_mlp_int8[D=192]": INT8_OPS_PER_S}
+             "fused_mlp_int8[D=192]": INT8_OPS_PER_S,
+             "fused_mlp_int8[D=768]": INT8_OPS_PER_S,
+             "fused_mlp_int8[erf,D=768]": INT8_OPS_PER_S}
     cases = {
         # json name: (kernel call, plain call, control call, the control's
         #   fault, metrics, limits, kernel iters, plain iters, bytes, flops,
@@ -1523,6 +1540,74 @@ def main() -> None:
             "P rounded against the row max", FWD_METRICS, FWD_LIMITS, 10, 2,
             flash_bytes_b, flash_flops_b, sdpa_b),
     })
+    # ViT-B's serving variants (phase 18): rows 13 (C), 14 (B: qkv and the
+    # adapter with each GELU), 15 (D) and 17 (A, each GELU) at D=768, each
+    # case as the D=384 one of the same kernel (same faults, limits and work
+    # formulas)
+    x8_b = (torch.randn(rows, db_, generator=gen, device=dev)
+            * torch.exp(0.5 * torch.randn(rows, 1, generator=gen, device=dev))).bfloat16()
+    w1q_b, s1_b = quantize_linear(w1_b.float())
+    w2q_b, s2_b = quantize_linear(w2_b.float())
+    int8_args_b = (x8_b, w1q_b, s1_b, b1_b, w2q_b, s2_b, b2_b, x_b)
+    w_qkv_b, b_qkv_b = randn((3 * db_, db_), db_ ** -0.5), randn((3 * db_,), 0.1, torch.float32)
+    x_ad_b = randn((batch * v.num_patches, db_), 1.0)
+    w_ad_b, b_ad_b = randn((a_out, db_), db_ ** -0.5), randn((a_out,), 0.1, torch.float32)
+    ad_bytes_b = nbytes(x_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b) + x_ad_b.shape[0] * a_out * 2
+    ad_flops_b = 2 * x_ad_b.shape[0] * db_ * a_out
+    w_conv_b = w_pe_b.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    b_conv_b = b_pe_b.bfloat16()
+    cases.update({
+        "fused_mlp[D=768]": (
+            lambda: twice(fused_mlp(x8_b, w1_b, b1_b, w2_b, b2_b, x_b, gelu_mode="sigmoid")),
+            lambda: twice(fused_mlp_plain(x8_b, w1_b, b1_b, w2_b, b2_b, x_b,
+                                          gelu_mode="sigmoid")),
+            [lambda: twice(fused_mlp_plain(x8_b, w1_b, torch.zeros_like(b1_b), w2_b, b2_b, x_b,
+                                           gelu_mode="sigmoid")),
+             lambda: twice(h_f32(x8_b, w1_b, b1_b, w2_b, b2_b, "sigmoid", res_=x_b))],
+            ["b1 left out", "h kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 10, 2,
+            nbytes(x8_b, w1_b, b1_b, w2_b, b2_b, x_b) + nbytes(x_b), mlp_flops_b, None),
+        "fused_ln_dense[D=768]": (
+            lambda: twice(fused_ln_dense(x_b, ln_b[0], ln_b[1], w_qkv_b, b_qkv_b)),
+            lambda: twice(fused_ln_dense_plain(x_b, ln_b[0], ln_b[1], w_qkv_b, b_qkv_b)),
+            [lambda: twice(fused_ln_dense_plain(x_b, ln_b[0], ln_b[1], w_qkv_b,
+                                                torch.zeros_like(b_qkv_b))),
+             lambda: twice(xn_f32(x_b, ln_b[:2], w_qkv_b, b_qkv_b))],
+            ["bias left out", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 2,
+            nbytes(x_b, ln_b[0], ln_b[1], w_qkv_b, b_qkv_b) + rows * 3 * db_ * 2,
+            2 * rows * db_ * 3 * db_, None),
+        # the adapters (Dout 192): held, not listed (their launches count
+        # under fused_ln_dense[D=768])
+        **{f"fused_ln_dense[adapter{',erf' if m_ == 'erf' else ''},D=768]": (
+            (lambda m_=m_: twice(fused_ln_dense(x_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b,
+                                                gelu_mode=m_))),
+            (lambda m_=m_: twice(fused_ln_dense_plain(x_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b,
+                                                      gelu_mode=m_))),
+            [(lambda m_=m_: twice(fused_ln_dense_plain(
+                x_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b,
+                gelu_mode="sigmoid" if m_ == "erf" else "erf"))),
+             (lambda m_=m_: twice(xn_f32(x_ad_b, ln_b[:2], w_ad_b, b_ad_b, m_)))],
+            ["the other GELU", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 2,
+            ad_bytes_b, ad_flops_b, None) for m_ in ("sigmoid", "erf")},
+        "patch_embed[D=768]": (
+            lambda: twice(patch_embed(x_pe, w_pe_b, b_pe_b, v.patch_size)),
+            lambda: twice(patch_embed_plain(x_pe, w_pe_b, b_pe_b, v.patch_size)),
+            [lambda: twice(patch_embed_plain(x_pe, w_pe_b.transpose(0, 1).contiguous(), b_pe_b,
+                                             v.patch_size)),
+             lambda: twice(pe_rounded(w_pe_b, b_pe_b))],
+            ["weight read as w[dx, dy]", "sum rounded to bf16 before the bias"],
+            (rel_l2, share), PATCH_LIMITS, 10, 2,
+            nbytes(x_pe, w_pe_b, b_pe_b) + batch * v.num_patches * db_ * 2, 2 * pe_flops,
+            torch.no_grad()(lambda: F.conv2d(x_pe.permute(0, 3, 1, 2), w_conv_b, b_conv_b,
+                                             stride=v.patch_size))),
+        **{f"fused_mlp_int8[{'erf,' if m_ == 'erf' else ''}D=768]": (
+            (lambda m_=m_: twice(fused_mlp_int8(*int8_args_b, m_))),
+            (lambda m_=m_: twice(fused_mlp_int8_plain(*int8_args_b, m_))),
+            [(lambda m_=m_: fused_mlp_int8_faulty(*int8_args_b, m_, "block")),
+             (lambda m_=m_: fused_mlp_int8_faulty(*int8_args_b, m_, "h_bf16"))],
+            ["one h scale per 32-row block", "h rounded to bf16 before its codes"],
+            INT8_METRICS, INT8_LIMITS, 10, 2, nbytes(*int8_args_b) + nbytes(x_b), mlp_flops_b,
+            None) for m_ in ("sigmoid", "erf")},
+    })
     # ViT-B's training step (phase 19) at its shapes: rows 8 and 9 at D=768
     # (24 values a lane), row 6 (the wide kernel's gated form), row 7 (its
     # two row kernels, then the dW products) and the packed backward at 12
@@ -1608,13 +1693,17 @@ def main() -> None:
         last part takes every other kernel: a flash backward's dk/dv and dq
         kernels and its wrapper's own (delta = rowsum(dO*O) and the rest);
         the LN + dense backward's row kernel, dW product and partial sums).
-        A trace that holds no device event at all is taken again, up to
-        three sessions (the profiler has returned one empty in a long run)."""
+        A trace in which a part that names a kernel holds no time is taken
+        again, up to five sessions: in a long run the profiler has returned
+        one with no device event, and one with an LN + dense backward's dW
+        and sums kernels but none of its row kernels. (The parts are not
+        held against the call's CUDA-event span: a small backward is bound
+        by its launches, and its kernels fill 9 % of that span.)"""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        for session in range(3):
+        for session in range(5):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
                     fn()
@@ -1625,9 +1714,11 @@ def main() -> None:
                     continue
                 part = next((p_ for p_, key in kinds.items() if key in ev.key), list(kinds)[-1])
                 parts[part] += ev.device_time_total / 1e3 / iters
-            if any(t > 0 for t in parts.values()):
+            if all(t > 0 for p_, t in parts.items() if kinds[p_]) and any(
+                    t > 0 for t in parts.values()):
                 break
-            print(f"profiler session {session + 1} held no device event; again", flush=True)
+            print(f"profiler session {session + 1} lost device events ({parts}); again",
+                  flush=True)
         check(all(t > 0 for p_, t in parts.items() if kinds[p_]),
               f"backward trace without its kernels: {parts}")
         return parts
@@ -1684,6 +1775,10 @@ def main() -> None:
 
     check_kernels(cases)
     same_bits(cases, ("layernorm_bwd", "layernorm_bwd[D=192]", "layernorm_train[D=768]",
+                      "fused_mlp[D=768]", "fused_ln_dense[D=768]",
+                      "fused_ln_dense[adapter,D=768]", "fused_ln_dense[adapter,erf,D=768]",
+                      "patch_embed[D=768]", "fused_mlp_int8[D=768]",
+                      "fused_mlp_int8[erf,D=768]",
                       "layernorm_bwd[D=768]", "fused_ln_mlp_train[D=768]",
                       "fused_ln_mlp_bwd[D=768]", "flash_packed_bwd[12x64,D=768]",
                       "flash_packed_bwd_split[12x64,D=768]",
@@ -1728,7 +1823,8 @@ def main() -> None:
         "fused_ln_mlp[erf,D=768]": lambda: mlp_next_ln(
             x_b + mlp_chain(x_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2]), ln_b[2:]),
         "fused_ln_mlp_train[D=768]": lambda: x3_b + mlp_chain(
-            x3_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2]) * gate16}
+            x3_b, w1_b, b1_b, w2_b, b2_b, "erf", ln_b[:2]) * gate16,
+        "fused_mlp[D=768]": lambda: x_b + mlp_chain(x8_b, w1_b, b1_b, w2_b, b2_b, "sigmoid")}
     # and for the LN + dense pair: F.layer_norm, F.linear [+ the GELU], and
     # the backward by autograd through them
     def ln_dense_chain(x_, ln_, w_, b_, mode=None):
@@ -1756,6 +1852,12 @@ def main() -> None:
             lambda: ln_dense_chain(x_ad_t, ln_t, w_ad_t, b_ad_t, "sigmoid")),
         "fused_ln_dense[adapter,erf,D=192]": torch.no_grad()(
             lambda: ln_dense_chain(x_ad_t, ln_t, w_ad_t, b_ad_t, "erf")),
+        "fused_ln_dense[D=768]": torch.no_grad()(
+            lambda: ln_dense_chain(x_b, ln_b, w_qkv_b, b_qkv_b)),
+        "fused_ln_dense[adapter,D=768]": torch.no_grad()(
+            lambda: ln_dense_chain(x_ad_b, ln_b, w_ad_b, b_ad_b, "sigmoid")),
+        "fused_ln_dense[adapter,erf,D=768]": torch.no_grad()(
+            lambda: ln_dense_chain(x_ad_b, ln_b, w_ad_b, b_ad_b, "erf")),
         "fused_ln_dense_bwd": ln_dense_chain_bwd(x, ln, w_qkv, b_qkv, dy_qkv),
         "fused_ln_dense_bwd[adapter]": ln_dense_chain_bwd(x_ad, ln, w_ad, b_ad, dy_ad, "erf"),
         "fused_ln_dense_bwd[D=192]": ln_dense_chain_bwd(x_t, ln_t, w_qkv_t, b_qkv_t, dy_qkv_t),
@@ -1763,7 +1865,8 @@ def main() -> None:
                                                                 dy_ad_t, "erf")})
     # the patch embeds' reference: PatchEmbed.dense, a permute copy and one matmul
     mlp_refs.update({"patch_embed": lambda: pe_dense_chain(w_pe, b_pe),
-                     "patch_embed[D=192]": lambda: pe_dense_chain(w_pe_t, b_pe_t)})
+                     "patch_embed[D=192]": lambda: pe_dense_chain(w_pe_t, b_pe_t),
+                     "patch_embed[D=768]": lambda: pe_dense_chain(w_pe_b, b_pe_b)})
     for name, ref in mlp_refs.items():
         ref_ms = cuda_ms(torch.no_grad()(ref) if "bwd" not in name else ref, 10)
         print(f"kernel {name}: kernel {record[name]['ms']:.3f} ms; reference (the same "
@@ -1772,7 +1875,8 @@ def main() -> None:
     # row 15's library call both ways: the line's library_ms takes input and
     # weight in channels_last strides; here over contiguous NCHW copies
     x_nchw = x_pe.permute(0, 3, 1, 2).contiguous()
-    for name, w_, b_ in (("patch_embed", w_pe, b_pe), ("patch_embed[D=192]", w_pe_t, b_pe_t)):
+    for name, w_, b_ in (("patch_embed", w_pe, b_pe), ("patch_embed[D=192]", w_pe_t, b_pe_t),
+                         ("patch_embed[D=768]", w_pe_b, b_pe_b)):
         w_nchw = w_.permute(3, 2, 0, 1).contiguous()
         nchw_ms = cuda_ms(torch.no_grad()(lambda: F.conv2d(
             x_nchw, w_nchw, b_.bfloat16(), stride=v.patch_size)), 3)
@@ -1804,6 +1908,7 @@ def main() -> None:
     del mlp_t, train_t, xhat_t, inv_t, xl_t, y_ln_t, q32, k32, v32, do32, o32, lse32, cases
     del x8_t, w1q_t, w2q_t, int8_args_t
     del x_b, mlp_b, qkv_b, q_b, k_b, v_b, bhtd_b, sdpa_b, gl_b, bl_b
+    del x8_b, w1q_b, w2q_b, int8_args_b, w_qkv_b, b_qkv_b, x_ad_b, w_ad_b, b_ad_b, w_conv_b
     del x3_b, dy_b, dy3_b, train_b_args, xhat_b, inv_b, o_b, lse_b, do_b, xl_b, gl_bg, bl_bg
     del y_ln_b, qh_b, kh_b, vh_b, doh_b, o_sdpa_b
     torch.cuda.empty_cache()
@@ -3538,7 +3643,9 @@ def main() -> None:
     # of 64, hidden 3072, 12 blocks a stream) through the import CLI, served
     # at batch 8 over chunks through the D=768 instances of rows 1, 4 and 5
     # and the packed attention at 12 heads of 64: the default safe softmax
-    # (row 3), then the bench lines' fixed max (row 2)
+    # (row 3), then the bench lines' fixed max (row 2); then under each
+    # serving variant of phase 8 (A-D, each over its transport: rows 17, 14
+    # with row 6's unchained tail, 13 and 15 at D=768)
     t18 = time.perf_counter()
     tmp18 = tempfile.TemporaryDirectory(prefix="smoke18_")
     root18 = Path(tmp18.name)
@@ -3566,32 +3673,53 @@ def main() -> None:
                      "flash_packed_fixed": 2 * v.depth}
     fixed_b = dataclasses.replace(icfg_b, vit=dataclasses.replace(
         vb, fwd_kv_chunk=FWD_CHUNK, unsafe_softmax=True))
-    vitb_counts, failures18 = {}, []
+    vitb_counts, vitb_variant_counts, failures18 = {}, {}, []
+
+    def vitb_device_ms(cname, bc, transport):
+        """The device's time for one batch of built chunks or points: kernels
+        and copies from a profiler trace, and the CUDA-event span of the same
+        call."""
+        inf_b = StreamingInferencer(bc, state_b["model"], "cuda", transport=transport,
+                                    gelu="sigmoid")
+        pts_, valid_, map_ = requests[0]
+        if transport == "chunks":
+            host_b = inf_b.build_chunks(pts_, valid_)
+            fwd_b = torch.no_grad()(lambda: inf_b.logits(host_b, map_))
+        else:
+            fwd_b = torch.no_grad()(lambda: inf_b.logits_points(pts_, valid_, map_))
+        dev_ms = sum(bwd_split(fwd_b, {"device": ""}).values())
+        span_ms = cuda_ms(fwd_b, 3)
+        excluded = "host chunk build excluded" if transport == "chunks" else "points in"
+        print(f"config {cname}: device {f'{dev_ms:.3f} ms' if dev_ms > 0 else 'not measured'}"
+              f" a batch of {batch} (kernels and copies, profiler trace), "
+              f"{f'{batch / dev_ms * 1e3:.1f}' if dev_ms > 0 else 'not measured'} frames/s "
+              f"on the device; CUDA-event span of the call {span_ms:.3f} ms ({excluded}) "
+              f"[{card}]", flush=True)
+        torch.cuda.empty_cache()
+
     for cname, bc, per_req_ in (("ViT-B", icfg_b, per_req_b),
                                 ("ViT-B fixed", fixed_b, per_req_fixed)):
         vitb_counts[cname] = serve_config(
             cname, bc, "chunks", per_req_, failures18, state_b["model"], requests[:2],
             control=(ctrl_b, "plain, the qkv rows imported k-first"))
-        # the device's time for one batch of built chunks: kernels and copies
-        # from a profiler trace, and the CUDA-event span of the same call
-        inf_b = StreamingInferencer(bc, state_b["model"], "cuda", transport="chunks",
-                                    gelu="sigmoid")
-        host_b = inf_b.build_chunks(*requests[0][:2])
-        fwd_b = torch.no_grad()(lambda: inf_b.logits(host_b, requests[0][2]))
-        dev_ms = sum(bwd_split(fwd_b, {"device": ""}).values())
-        span_ms = cuda_ms(fwd_b, 3)
-        print(f"config {cname}: device {f'{dev_ms:.3f} ms' if dev_ms > 0 else 'not measured'}"
-              f" a batch of {batch} (kernels and copies, profiler trace), "
-              f"{f'{batch / dev_ms * 1e3:.1f}' if dev_ms > 0 else 'not measured'} frames/s "
-              f"on the device; CUDA-event span of the call {span_ms:.3f} ms (host chunk build "
-              f"excluded) [{card}]", flush=True)
-        del inf_b, host_b, fwd_b
-        torch.cuda.empty_cache()
+        vitb_device_ms(cname, bc, "chunks")
+    # the imported ViT-B under phase 8's serving variants: one request each,
+    # launches per request of phase 8's structures (the same depth), logits
+    # against the same variant through the plain versions
+    t18v = time.perf_counter()
+    for label, (variant, per_req_) in per_request_by_config.items():
+        cname = f"ViT-B {label}"
+        bc, transport = vit_serving_variant(icfg_b, variant)
+        vitb_variant_counts[cname] = serve_config(
+            cname, bc, transport, per_req_, failures18, state_b["model"], requests[:1],
+            control=(ctrl_b, "plain, the qkv rows imported k-first"))
+        vitb_device_ms(cname, bc, transport)
     check(not failures18, "; ".join(failures18))
     del state_b, ctrl_b
     tmp18.cleanup()
     print(f"ViT-B: imported by python -m intentbev_torch.import_torch in {t_import_b:.1f} s "
-          f"(the .pth write included), served in both softmax forms; phase 18 took "
+          f"(the .pth write included), served in both softmax forms and under A-D (those "
+          f"{time.perf_counter() - t18v:.1f} s); phase 18 took "
           f"{time.perf_counter() - t18:.1f} s", flush=True)
 
     # 19. ViT-B training: default_vit_config() with ViT-B's widths (embed 768,
@@ -3775,7 +3903,8 @@ def main() -> None:
     tp_qkv = tuple({k_: t_["ln_dense"]["counts"][k_] - 2
                     for k_ in ("fused_ln_dense", "fused_ln_dense_bwd")} for t_ in tp)
     tiny_runs = (tiny_serve_counts, tiny_train_counts)
-    vitb_runs = tuple(vitb_counts.values())  # phase 18, both softmax forms
+    vitb_runs = (*vitb_counts.values(), *vitb_variant_counts.values())  # phase 18
+    vitb_a, vitb_b, vitb_c, vitb_d = vitb_variant_counts.values()  # A-D at D=768
     kernels = []
     for name, src, replaces, runs in (
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
@@ -3867,7 +3996,15 @@ def main() -> None:
              vitb_runs),
             ("layernorm[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:39", vitb_runs),
             ("flash_packed[12x64,D=768]", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
-             (vitb_counts["ViT-B"],)),
+             (vitb_counts["ViT-B"], *vitb_variant_counts.values())),
+            # the D=768 instances ViT-B's serving variants run (phase 18)
+            ("fused_mlp_int8[D=768]", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
+             (vitb_a,)),
+            ("fused_ln_dense[D=768]", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:56",
+             (vitb_b,)),
+            ("fused_mlp[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103", (vitb_c,)),
+            ("patch_embed[D=768]", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
+             (vitb_d,)),
             ("flash_packed_fixed[12x64,D=768]", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:157 (safe=False)", (vitb_counts["ViT-B fixed"],)),
             # the D=768 / 12x64 instances ViT-B's training path runs (phase 19)
@@ -3876,7 +4013,7 @@ def main() -> None:
             ("layernorm_bwd[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:66",
              (vitb_train_counts, vitb_loop_counts)),
             ("fused_ln_mlp_train[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
-             (vitb_train_counts, vitb_loop_counts)),
+             (vitb_train_counts, vitb_loop_counts, vitb_b)),
             ("fused_ln_mlp_bwd[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
              (vitb_train_counts, vitb_loop_counts)),
             ("flash_packed_bwd[12x64,D=768]", "flash_packed.cu",
@@ -3921,7 +4058,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 64 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 68 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 // Fused LayerNorm + dense [+ GELU] on Hopper, forward and training backward:
 // the qkv projection with norm1 folded in (x [36008, D] -> [36008, 3D]) and
 // the stream adapters LN -> Linear -> GELU ([36000, D] -> [36000, 192]), at
-// the model widths D = 384 (ViT-S) and 192 (ViT-Ti).
+// the model widths D = 384 (ViT-S) and 192 (ViT-Ti); the forward also at 768
+// (ViT-B).
 //
 // Forward. Replaces intentbev/ops/fused_ln_dense.py::_fwd_kernel:
 //      xn = LN(x) * gamma + beta;  y = [GELU](xn W^T + b)
@@ -21,6 +22,16 @@
 // products are issued and its own have landed), then add the bias, apply the
 // GELU, round, and TMA-store the [64, 192] tile through shared memory. x is
 // read once and y written once; W (0.9 MB for qkv) comes from L2 once a block.
+// At D = 768 a block's 128 rows (192 KB) would leave no room for the W ring
+// and the y tiles (336 KB in all against 227 KB): a block owns 64 rows (96
+// KB), normed in place by both consumers' eight warps, and the two consumers
+// split each 192-column tile by N, 96 columns each (wgmma m64n96k16 on the
+// same rows and the same W box, B offset by 96 of the box's rows); their
+// halves meet in one shared y tile, which one thread stores once both are in.
+// Four W slots fit beside the rows. Bound at 36008 rows: qkv (Dout 2304)
+// 127.4 GFLOP, 0.129 ms (operations); the adapter (Dout 192) 55.3 MB in and
+// 13.8 MB out, 0.0206 ms (bytes). W (3.5 MB for qkv) comes from L2 once a
+// block, twice as often as at 128 rows.
 //
 // Backward (below). Replaces intentbev/ops/fused_ln_dense.py::_bwd_kernel.
 #include <algorithm>
@@ -37,15 +48,21 @@ constexpr int XBLK = ROWS * 128;  // one 64-column block of the block's rows
 constexpr int FN = 192;           // output columns of a forward tile: the N of its products
 
 // The forward's shared memory at width D, from a 1024-byte boundary: the
-// block's rows (D / 64 column blocks of [128][64]), S W boxes ([192][64]),
-// each consumer's y tile (three [64][64] blocks), the barriers.
+// block's rows (D / 64 column blocks of [ROWS][64]), S W boxes ([192][64]),
+// the y tiles (three [64][64] blocks: one a consumer, or one that the
+// consumers share when they split the columns), the barriers.
 template <int D>
 struct FwdTiles {
+  static constexpr bool SPLIT_N = D == 768;    // 64 rows a block, a tile's N split
+  static constexpr int ROWS = SPLIT_N ? 64 : 128;
+  static constexpr int XBLK = ROWS * 128;      // one 64-column block of the rows
+  static constexpr int CN = SPLIT_N ? FN / 2 : FN;  // a consumer's columns of a tile
   static constexpr int KB = D / 64;           // W boxes of a tile
   static constexpr int S = D == 384 ? 3 : 4;  // slots of the W ring
   static constexpr int WBOX = FN * 128;
   static constexpr int YBLK = 64 * 128;
-  static constexpr int W = D / 64 * XBLK, Y = W + S * WBOX, BARS = Y + 2 * (FN / 64) * YBLK;
+  static constexpr int Y_TILES = SPLIT_N ? 1 : 2;
+  static constexpr int W = D / 64 * XBLK, Y = W + S * WBOX, BARS = Y + Y_TILES * (FN / 64) * YBLK;
   static constexpr int N_BARS = 2 + 2 * S;
   static constexpr int BYTES = BARS + N_BARS * 8 + 1024;  // + alignment slack
   static_assert(BYTES <= 232448, "width outside the kernel's tiling");
@@ -64,11 +81,11 @@ __global__ void __launch_bounds__(THREADS, 1)
                         const float* __restrict__ beta, const float* __restrict__ bias,
                         int dout, float eps) {
   using L = FwdTiles<D>;
-  constexpr int KB = L::KB, S = L::S;
+  constexpr int KB = L::KB, S = L::S, CN = L::CN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = hopper::align1024(smem_raw);
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BARS);
-  uint64_t* xfull = bar;  // [2] each consumer's rows
+  uint64_t* xfull = bar;  // [ROWS / 64] each 64 rows (each consumer's, or the shared ones)
   uint64_t* full = bar + 2;
   uint64_t* empty = full + S;
 
@@ -76,7 +93,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // otherwise takes the consumers' branches for divergent paths and
   // serialises their wgmma
   const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
-  const int row0 = blockIdx.x * ROWS;
+  const int row0 = blockIdx.x * L::ROWS;
   const int tiles = (dout + FN - 1) / FN;
   if (tid == 0) {
     for (int i = 0; i < 2; ++i) hopper::mbar_init(&xfull[i], 1);
@@ -91,10 +108,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (wg == 2) {  // producer: one thread issues every load
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == 256) {
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < L::ROWS / 64; ++h) {
         hopper::mbar_arrive_expect_tx(&xfull[h], 64 * D * 2);
         for (int b = 0; b < D / 64; ++b)
-          hopper::tma_load_2d(sm + b * XBLK + h * 64 * 128, &mx, &xfull[h], 64 * b,
+          hopper::tma_load_2d(sm + b * L::XBLK + h * 64 * 128, &mx, &xfull[h], 64 * b,
                               row0 + 64 * h);
       }
       for (int i = 0; i < tiles * KB; ++i) {
@@ -107,21 +124,39 @@ __global__ void __launch_bounds__(THREADS, 1)
     return;
   }
 
-  // consumers: 64 rows each
+  // consumers: 64 rows each, or both the block's 64 rows and half of each
+  // tile's columns (SPLIT_N)
   hopper::setmaxnreg_inc<CONSUMER_REGS>();
   const int wt = tid % 128, warp = wt / 32;
   const int g = lane >> 2, t4 = lane & 3;
-  hopper::mbar_wait(&xfull[wg], 0);
-  ln_in_place<D, XBLK>(sm + wg * 64 * 128, warp, lane, gamma, beta, eps);
-  hopper::fence_proxy_async();  // the wgmma reads below are async-proxy reads
-  hopper::named_sync(1 + wg, 128);
+  const int rg = L::SPLIT_N ? 0 : wg;      // this consumer's 64 rows of the block
+  const int c0 = L::SPLIT_N ? wg * CN : 0;  // and its first column of a tile
+  hopper::mbar_wait(&xfull[rg], 0);
+  if constexpr (L::SPLIT_N) {
+    ln_in_place<D, L::XBLK, 8>(sm, tid / 32, lane, gamma, beta, eps);  // 8 rows a warp
+    hopper::fence_proxy_async();  // the wgmma reads below are async-proxy reads
+    hopper::named_sync(3, 256);   // every row is read by both consumers
+  } else {
+    ln_in_place<D, XBLK>(sm + wg * 64 * 128, warp, lane, gamma, beta, eps);
+    hopper::fence_proxy_async();  // the wgmma reads below are async-proxy reads
+    hopper::named_sync(1 + wg, 128);
+  }
 
-  float acc[FN / 2];  // row 16 warp + g (+8), column 8n + 2t4 (+1) of the tile
-  uint8_t* ys = sm + L::Y + wg * (FN / 64) * L::YBLK;
+  float acc[CN / 2];  // row 16 warp + g (+8), column c0 + 8n + 2t4 (+1) of the tile
+  uint8_t* ys = sm + L::Y + (L::SPLIT_N ? 0 : wg * (FN / 64) * L::YBLK);
   const int la = 16 * warp + g, lb = la + 8;  // rows within this consumer's 64
   const uint32_t sbase = hopper::smem_u32(sm);
   auto release = [&](int i) {
     if (lane == 0) hopper::mbar_arrive(&empty[i % S]);
+  };
+  // the y tile's storer: each consumer's first thread, or (SPLIT_N, both
+  // consumers' columns in one tile) the block's first, after both
+  const bool storer = L::SPLIT_N ? tid == 0 : wt == 0;
+  auto ysync = [&]() {
+    if constexpr (L::SPLIT_N)
+      hopper::named_sync(3, 256);
+    else
+      hopper::named_sync(1 + wg, 128);
   };
   for (int j = 0; j < tiles; ++j) {
 #pragma unroll
@@ -130,13 +165,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       hopper::mbar_wait(&full[s], (i / S) & 1);
       // descriptor bases opaque to the compiler: else it keeps every
       // k-step's descriptor live across the loop
-      uint32_t a0 = sbase + wg * 64 * 128 + b * XBLK, b0 = sbase + L::W + s * L::WBOX;
+      uint32_t a0 = sbase + rg * 64 * 128 + b * L::XBLK;
+      uint32_t b0 = sbase + L::W + s * L::WBOX + c0 * 128;
       asm volatile("" : "+r"(a0), "+r"(b0));
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        hopper::wgmma_ss_n192(acc, hopper::desc_kmajor_at<128>(a0 + kk * 32),
-                              hopper::desc_kmajor_at<128>(b0 + kk * 32), b > 0 || kk > 0);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = hopper::desc_kmajor_at<128>(a0 + kk * 32);
+        const uint64_t db = hopper::desc_kmajor_at<128>(b0 + kk * 32);
+        if constexpr (L::SPLIT_N)
+          hopper::wgmma_sst<CN, 0, 0>(acc, da, db, b > 0 || kk > 0);
+        else
+          hopper::wgmma_ss_n192(acc, da, db, b > 0 || kk > 0);
+      }
       hopper::wgmma_commit();
       if (b > 0) {  // the previous box's products have landed: its slot is free
         hopper::wgmma_wait<1>();
@@ -147,12 +188,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     hopper::fence_regs(acc);
     release((j + 1) * KB - 1);
 
-    // epilogue: bias, GELU, one rounding into this consumer's y tile, which
-    // the previous tile's TMA stores have read
-    if (wt == 0) hopper::bulk_wait_read();
-    hopper::named_sync(1 + wg, 128);
-    const float* bj = bias + j * FN + 2 * t4;
-    static_for<FN / 8>([&](auto n_) {
+    // epilogue: bias, GELU, one rounding into the y tile, which the previous
+    // tile's TMA stores have read
+    if (storer) hopper::bulk_wait_read();
+    ysync();
+    const float* bj = bias + j * FN + c0 + 2 * t4;
+    static_for<CN / 8>([&](auto n_) {
       constexpr int n = decltype(n_)::value;
       const float2 bb = *reinterpret_cast<const float2*>(bj + 8 * n);
       float v[4] = {acc[4 * n] + bb.x, acc[4 * n + 1] + bb.y, acc[4 * n + 2] + bb.x,
@@ -161,26 +202,27 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[e] = gelu<ACT>(v[e]);
       }
-      const int c = 8 * n + 2 * t4;
+      const int c = c0 + 8 * n + 2 * t4;
       *reinterpret_cast<uint32_t*>(ys + swz<64>(la, c)) = pack_bf16x2(v[0], v[1]);
       *reinterpret_cast<uint32_t*>(ys + swz<64>(lb, c)) = pack_bf16x2(v[2], v[3]);
     });
     hopper::fence_proxy_async();
-    hopper::named_sync(1 + wg, 128);
-    if (wt == 0) {
+    ysync();
+    if (storer) {
       for (int c = 0; c < FN / 64; ++c)  // a last partial tile's columns up to Dout
         if (j * FN + 64 * c < dout)
-          hopper::tma_store_2d(&my, ys + c * L::YBLK, j * FN + 64 * c, row0 + 64 * wg);
+          hopper::tma_store_2d(&my, ys + c * L::YBLK, j * FN + 64 * c, row0 + 64 * rg);
       hopper::bulk_commit();
     }
   }
-  if (wt == 0) hopper::bulk_wait_read();  // the stores have read the tile
+  if (storer) hopper::bulk_wait_read();  // the stores have read the tile
 }
 
 template <int D, int ACT>
 int launch_fwd(const void* x, const void* gamma, const void* beta, const void* w,
                const void* bias, void* y, int n_rows, int dout, float eps, cudaStream_t stream) {
   using L = FwdTiles<D>;
+  constexpr int ROWS = L::ROWS;
   CUtensorMap mx, mw, my;
   int err;
   if ((err = hopper::encode_2d(&mx, x, n_rows, D, 64, 64)) ||
@@ -196,7 +238,7 @@ int launch_fwd(const void* x, const void* gamma, const void* beta, const void* w
 
 }  // namespace
 
-// x bf16 [n_rows, d], d 384 or 192; gamma, beta f32 [d]; w bf16 [dout, d];
+// x bf16 [n_rows, d], d 768, 384 or 192; gamma, beta f32 [d]; w bf16 [dout, d];
 // bias f32 [dout rounded up to a multiple of 192: the forward's column tile],
 // its values past dout unused; y bf16 [n_rows, dout]; dout a multiple of 64.
 // gelu_mode: -1 none, 0 exact erf GELU, 1 x * sigmoid(1.702 x).
@@ -206,7 +248,7 @@ extern "C" int ibk_fused_ln_dense(const void* x, const void* gamma, const void* 
   if (dout <= 0 || dout % 64 != 0) return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  return by_width<384, 192>(d, [&](auto wd) {
+  return by_width<768, 384, 192>(d, [&](auto wd) {
     constexpr int D = decltype(wd)::value;
     if (gelu_mode < 0) return launch_fwd<D, -1>(x, gamma, beta, w, bias, y, n_rows, dout, eps, s);
     if (gelu_mode == 0) return launch_fwd<D, 0>(x, gamma, beta, w, bias, y, n_rows, dout, eps, s);

@@ -17,10 +17,10 @@
 //    intentbev/ops/fused_mlp.py::_bwd_kernel.
 //
 // The model width D is a template parameter, instantiated at 384 (ViT-S)
-// and 192 (ViT-Ti) for every kernel; 1, 2 and 4 also at 768 (ViT-B): the
+// and 192 (ViT-Ti) for every kernel; 1-3 and 4 also at 768 (ViT-B): the
 // forwards by a kernel of their own whose consumers split the output columns
-// (ln_mlp_wide_kernel, below the narrow forward), the backward by two row
-// kernels, one for dh = dy_eff W2 and one for the rest (below the narrow
+// (ln_mlp_wide_kernel, below the narrow forward), the backward of 2 by two
+// row kernels, one for dh = dy_eff W2 and one for the rest (below the narrow
 // backward). The hidden width is any multiple of 64.
 //
 // Forward (1-3: ln_mlp_fwd_kernel). Bound on the H100: tensor-core
@@ -462,8 +462,10 @@ int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
 }
 
 
-// 1 and 2 at D = 768 (ViT-B's serving chain; its training forward and
-// unchained tail: the gate over rows, no yn). ln_mlp_fwd_kernel cannot take
+// 1, 2 and 3 at D = 768 (ViT-B's serving chain; its training forward and
+// unchained tail: the gate over rows, no yn; the MLP without LN, LN_IN
+// false: h read as it is, the residual from its own tensor, the serving
+// and training forms alike). ln_mlp_fwd_kernel cannot take
 // this width: a consumer's [64, D] f32 fc2 accumulator would be 384 registers a
 // thread, and a block's 128 rows would fill 192 KB of shared memory. Here a
 // block of 384 threads owns 64 rows (96 KB), and its two consumer
@@ -482,8 +484,9 @@ int dispatch(int gelu_mode, const void* x, const void* g2, const void* be2,
 // rings hold one tile each ([HT, D] and [D, HT], 48 KB apiece beside the
 // rows), each kept by its own producer thread, so a tile's W1 load waits
 // only for the last fc1 and its W2 load only for the last fc2. LN2 runs in
-// place on the rows as TMA landed them, 8 rows a warp of both consumers.
-// Once the rings drain, the residual rows land in them; the epilogue adds
+// place on the rows as TMA landed them, 8 rows a warp of both consumers
+// (without LN_IN fc1 reads them as they landed). Once the rings drain, the
+// residual rows (x, or the separate residual) land in them; the epilogue adds
 // b2, scales by the gate (1 in the chain) and adds the residual in f32,
 // writes y (rounded once) over the residual, and (in the chain) the LN_next
 // statistics of the f32 y take each row's sums over both
@@ -523,15 +526,18 @@ struct WideTiles {
   static_assert(W1_TILE + W2_TILE == ROWS_B, "the residual rows reload into the drained rings");
 };
 
-// LN_OUT: the serving chain (y = x + mlp, and yn); else the training form
-// and the unchained serving tail, y = x + gate * mlp with the f32 gate over
-// rows (null: 1) and no yn. mx reads x, mw1 W1 [hidden, D], mw2 W2 [D,
-// hidden]; my and myn write y and yn (rows past n_rows are not written).
-template <int D, int GELU, bool LN_OUT>
+// LN_IN: fc1 reads LN2(x) (res is x); else x as it is. LN_OUT (with LN_IN):
+// the serving chain (y = x + mlp, and yn); else the training form and the
+// unchained serving tail, y = res + gate * mlp with the f32 gate over rows
+// (null: 1) and no yn. mx reads x, mw1 W1 [hidden, D], mw2 W2 [D, hidden],
+// mres the residual (x itself with LN); my and myn write y and yn (rows past
+// n_rows are not written).
+template <int D, int GELU, bool LN_IN, bool LN_OUT>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     ln_mlp_wide_kernel(const __grid_constant__ CUtensorMap mx,
                        const __grid_constant__ CUtensorMap mw1,
                        const __grid_constant__ CUtensorMap mw2,
+                       const __grid_constant__ CUtensorMap mres,
                        const __grid_constant__ CUtensorMap my,
                        const __grid_constant__ CUtensorMap myn, const float* __restrict__ g2,
                        const float* __restrict__ be2, const float* __restrict__ b1,
@@ -540,6 +546,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                        int n_rows, int hidden, float eps) {
   using L = WideTiles<D>;
   constexpr int HT = L::HT, NH = L::NH;
+  static_assert(LN_IN || !LN_OUT, "the serving chain norms its input");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = hopper::align1024(smem_raw);
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BARS);
@@ -591,7 +598,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       hopper::mbar_wait(w2empty, (tiles - 1) & 1);
       hopper::mbar_arrive_expect_tx(rfull, L::ROWS_B);
       for (int b = 0; b < D / 64; ++b)
-        hopper::tma_load_2d(sm + L::W1 + b * L::XBLK, &mx, rfull, 64 * b, row0);
+        hopper::tma_load_2d(sm + L::W1 + b * L::XBLK, &mres, rfull, 64 * b, row0);
     }
     return;
   }
@@ -601,9 +608,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   const int wt = tid % 128, warp = wt / 32, cw = tid / 32;  // cw: warp of both, 0..7
   const int g = lane >> 2, t4 = lane & 3;
   hopper::mbar_wait(xfull, 0);
-  ln_in_place<D, L::XBLK, WIDE_ROWS / 8>(sm, cw, lane, g2, be2, eps);  // xn = LN2(x)
-  hopper::fence_proxy_async();  // the wgmma reads below are async-proxy reads
-  hopper::named_sync(3, 256);   // every row is read by both consumers
+  if constexpr (LN_IN) {
+    ln_in_place<D, L::XBLK, WIDE_ROWS / 8>(sm, cw, lane, g2, be2, eps);  // xn = LN2(x)
+    hopper::fence_proxy_async();  // the wgmma reads below are async-proxy reads
+    hopper::named_sync(3, 256);   // every row is read by both consumers
+  }
 
   float acc[NH / N2][N2 / 2];  // fc2: row 16 warp + g (+8), columns NH wg + N2 q + 8n + 2t4 (+1)
 #pragma unroll
@@ -853,54 +862,57 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   if (wt == 0) hopper::bulk_wait_read();  // the stores have read the tiles
 }
 
-// x, y and yn through maps of [n_rows, D] in 64 x 64 boxes, W1 [hidden, D]
-// in 64 x HT boxes and W2 [D, hidden] in HT x 192 boxes. Without LN_OUT yn
-// is null and gate the f32 gate over rows (or null).
-template <int D, int GELU, bool LN_OUT>
+// x, res, y and yn through maps of [n_rows, D] in 64 x 64 boxes, W1
+// [hidden, D] in 64 x HT boxes and W2 [D, hidden] in HT x 192 boxes. Without
+// LN_OUT yn is null and gate the f32 gate over rows (or null); with LN_IN
+// res is x.
+template <int D, int GELU, bool LN_IN, bool LN_OUT>
 int launch_wide(const void* x, const void* g2, const void* be2, const void* w1,
                 const void* b1, const void* w2, const void* b2, const void* gn,
-                const void* bn, const void* gate, void* y, void* yn, int n_rows, int hidden,
-                float eps, cudaStream_t stream) {
+                const void* bn, const void* gate, const void* res, void* y, void* yn,
+                int n_rows, int hidden, float eps, cudaStream_t stream) {
   using L = WideTiles<D>;
   if (n_rows <= 0) return (int)cudaGetLastError();
   if (hidden % L::HT != 0) return (int)cudaErrorInvalidValue;
-  CUtensorMap mx, mw1, mw2, my, myn;
+  CUtensorMap mx, mw1, mw2, mres, my, myn;
   int err;
   if ((err = hopper::encode_2d(&mx, x, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mres, res, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&my, y, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&myn, LN_OUT ? yn : y, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&mw1, w1, hidden, D, L::HT, 64)) ||
       (err = hopper::encode_2d(&mw2, w2, D, hidden, N2, L::HT)))
     return err;
-  auto kernel = ln_mlp_wide_kernel<D, GELU, LN_OUT>;
+  auto kernel = ln_mlp_wide_kernel<D, GELU, LN_IN, LN_OUT>;
   static bool ok = false;  // the shared-memory limit is raised once
   if ((err = raise_once(kernel, L::BYTES, ok))) return err;
   kernel<<<(n_rows + WIDE_ROWS - 1) / WIDE_ROWS, FWD_THREADS, L::BYTES, stream>>>(
-      mx, mw1, mw2, my, myn, (const float*)g2, (const float*)be2, (const float*)b1,
+      mx, mw1, mw2, mres, my, myn, (const float*)g2, (const float*)be2, (const float*)b1,
       (const float*)b2, (const float*)gn, (const float*)bn, (const float*)gate, n_rows,
       hidden, eps);
   return (int)cudaGetLastError();
 }
 
-// One entry per LN_OUT form: gelu_mode 0 = exact erf GELU, 1 = x / (1 +
-// exp(-1.702 x)).
-template <int D, bool LN_OUT>
+// One entry per (LN_IN, LN_OUT) form: gelu_mode 0 = exact erf GELU, 1 = x /
+// (1 + exp(-1.702 x)).
+template <int D, bool LN_IN, bool LN_OUT>
 int dispatch_wide(int gelu_mode, const void* x, const void* g2, const void* be2,
                   const void* w1, const void* b1, const void* w2, const void* b2,
-                  const void* gn, const void* bn, const void* gate, void* y, void* yn,
-                  int n_rows, int hidden, float eps, void* stream) {
+                  const void* gn, const void* bn, const void* gate, const void* res, void* y,
+                  void* yn, int n_rows, int hidden, float eps, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return gelu_mode == 0 ? launch_wide<D, 0, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate,
-                                                    y, yn, n_rows, hidden, eps, s)
-                        : launch_wide<D, 1, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate,
-                                                    y, yn, n_rows, hidden, eps, s);
+  return gelu_mode == 0
+             ? launch_wide<D, 0, LN_IN, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate, res, y,
+                                                yn, n_rows, hidden, eps, s)
+             : launch_wide<D, 1, LN_IN, LN_OUT>(x, g2, be2, w1, b1, w2, b2, gn, bn, gate, res, y,
+                                                yn, n_rows, hidden, eps, s);
 }
 
 }  // namespace
 
 // hidden must be a multiple of 64 in every entry; d (the width of x) is
-// 384 or 192, and 768 (ViT-B, ln_mlp_wide_kernel) in the LN+MLP entries
-// (the serving chain's and the training forward's).
+// 384 or 192, and 768 (ViT-B, ln_mlp_wide_kernel) in the forward entries
+// (the serving chain's, the training forward's and the MLP without LN's).
 extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
                                 const void* w1, const void* b1, const void* w2,
                                 const void* b2, const void* gn, const void* bn,
@@ -909,8 +921,8 @@ extern "C" int ibk_fused_ln_mlp(const void* x, const void* g2, const void* be2,
   return by_width<768, 384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     if constexpr (D == 768) {
-      return dispatch_wide<D, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, y,
-                                    yn, n_rows, hidden, eps, stream);
+      return dispatch_wide<D, true, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr,
+                                          x, y, yn, n_rows, hidden, eps, stream);
     } else {
       return dispatch<D, true, true>(gelu_mode, x, g2, be2, w1, b1, w2, b2, gn, bn, nullptr, x,
                                      y, yn, n_rows, hidden, eps, stream);
@@ -928,8 +940,9 @@ extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void*
   return by_width<768, 384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     if constexpr (D == 768)
-      return dispatch_wide<D, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2, nullptr, nullptr,
-                                     gate, y, nullptr, n_rows, hidden, eps, stream);
+      return dispatch_wide<D, true, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2, nullptr,
+                                           nullptr, gate, x, y, nullptr, n_rows, hidden, eps,
+                                           stream);
     else
       return dispatch<D, true, false>(gelu_mode, x, g2, be2, w1, b1, w2, b2, nullptr, nullptr,
                                       gate, x, y, nullptr, n_rows, hidden, eps, stream);
@@ -941,10 +954,16 @@ extern "C" int ibk_fused_ln_mlp_train(const void* x, const void* g2, const void*
 extern "C" int ibk_fused_mlp(const void* h, const void* w1, const void* b1, const void* w2,
                              const void* b2, const void* res, const void* gate, void* y,
                              int n_rows, int d, int hidden, int gelu_mode, void* stream) {
-  return by_width<384, 192>(d, [&](auto w) {
-    return dispatch<decltype(w)::value, false, false>(gelu_mode, h, nullptr, nullptr, w1, b1,
-                                                      w2, b2, nullptr, nullptr, gate, res, y,
-                                                      nullptr, n_rows, hidden, 0.f, stream);
+  return by_width<768, 384, 192>(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    if constexpr (D == 768)
+      return dispatch_wide<D, false, false>(gelu_mode, h, nullptr, nullptr, w1, b1, w2, b2,
+                                            nullptr, nullptr, gate, res, y, nullptr, n_rows,
+                                            hidden, 0.f, stream);
+    else
+      return dispatch<D, false, false>(gelu_mode, h, nullptr, nullptr, w1, b1, w2, b2, nullptr,
+                                       nullptr, gate, res, y, nullptr, n_rows, hidden, 0.f,
+                                       stream);
   });
 }
 

@@ -1,5 +1,5 @@
 // Patch embed of a dense NHWC BEV on Hopper: tokens = conv_PxP,sP(x) + bias,
-// at the model widths D = 384 (ViT-S) and 192 (ViT-Ti).
+// at the model widths D = 768 (ViT-B), 384 (ViT-S) and 192 (ViT-Ti).
 // Replaces intentbev/ops/patch_embed.py::_kernel, which slices a VMEM band of
 // patch rows into 64 (dy, dx) [M, C] x [C, D] matmuls.
 //
@@ -15,7 +15,8 @@
 // 4500, D]) is M = 36000, K = 18560: 513 GFLOP at D = 384, 0.519 ms at 989
 // TFLOP/s, against 1.378 GB (x 1.336 GB) of bytes, 0.411 ms at 3.35 TB/s; at
 // D = 192 the bytes bound (1.357 GB, 0.405 ms) is above the operations' (0.259
-// ms), and holds only if x is read from device memory once.
+// ms), and holds only if x is read from device memory once; at D = 768 the
+// operations' (1.026 TFLOP, 1.038 ms).
 // Design (warp-specialised, 512 threads: three consumer warpgroups and a
 // producer warpgroup whose one thread issues every TMA load):
 //  - M: a tile is two patch rows, each a 96-row box (gw <= 96; a 96-row box
@@ -26,7 +27,8 @@
 //  - N: a block takes 192 output columns, a [64, 192] f32 accumulator a
 //    consumer (96 registers); at D = 384 the two column halves are two
 //    neighbouring blocks that walk the same patch rows in step, so the
-//    second read of each A box comes from L2 and x leaves device memory once.
+//    second read of each A box comes from L2 and x leaves device memory once
+//    (at D = 768 four blocks, three of the four reads from L2).
 //  - K: per dy, ceil(P*C / 64) boxes of 64 columns (128-byte rows): P*C =
 //    2320 = 36*64 + 16, and TMA fills the 37th box past 2320 with zeros in both
 //    operands (a 3-D map over W [P, P*C, D] ends each dy's slab), so nothing
@@ -41,7 +43,8 @@
 //    zeros, and the consumer whose 64 rows are all outside the output issues
 //    no products). At the bench's R = 400: D = 384, 66 groups of 6-7 rows,
 //    the longest 3 pairs and a single, ~3.67 tile times against 3.03 on
-//    average; D = 192, 132 groups of 3-4 rows, 2 tile times against 1.52.
+//    average; D = 192, 132 groups of 3-4 rows, 2 tile times against 1.52;
+//    D = 768, 33 groups of 12-13 rows, 7 tile times against 6.06.
 //  - Epilogue: the f32 bias, one rounding to bf16, each consumer's [64, 64]
 //    column blocks staged swizzled in shared memory and stored by TMA through
 //    a 3-D map over the tokens [R, gw, D] in boxes of 32 tokens: rows past gw
@@ -238,14 +241,14 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
 }  // namespace
 
 // x bf16 [B, H, W, C] (NHWC, 16-byte aligned); w bf16 [P, P, C, d]; bias f32
-// [d]; out bf16 [B, (H/P)*(W/P), d]. d is 384 or 192; needs H and W multiples
+// [d]; out bf16 [B, (H/P)*(W/P), d]. d is 768, 384 or 192; needs H and W multiples
 // of P, W/P <= 96 and P*C a multiple of 8 (TMA's 16-byte row stride).
 extern "C" int ibk_patch_embed(const void* x, const void* w, const void* bias, void* out,
                                int B, int H, int W, int C, int d, int P, void* stream) {
   if (P <= 0 || H % P || W % P || W / P > BOX_ROWS || (P * C) % 8)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
-  return by_width<384, 192>(d, [&](auto dw) {
+  return by_width<768, 384, 192>(d, [&](auto dw) {
     return launch<decltype(dw)::value>(x, w, bias, out, B, H, W, C, P, (cudaStream_t)stream);
   });
 }

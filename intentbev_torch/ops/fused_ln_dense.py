@@ -9,6 +9,8 @@ adapters, ``a = GELU(LN(x) Wa^T + b)``. ``w`` is PyTorch's Linear layout
 :func:`fused_ln_dense_fn` is the differentiable entry (the JAX
 ``custom_vjp``): the forward kernel, then the backward kernel, which gives
 dx, dgamma, dbeta, dW and db. Training takes no GELU or the exact erf one.
+The forward is built for the widths of :data:`VIT_B_WIDTHS` (ViT-B's 768
+too), the backward for those of :data:`WIDTHS`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from ._build import check_launch, kernels, require, stream_ptr
 from .fused_ln_mlp import GELU_MODES, dw_splits, dw_tiles, gelu, gelu_erf_grad
 from .layernorm import layernorm_plain
 
-WIDTHS = (384, 192)  # model widths the kernels are built for (ViT-S, ViT-Ti)
+WIDTHS = (384, 192)  # model widths the backward is built for (ViT-S, ViT-Ti)
+VIT_B_WIDTHS = (768,) + WIDTHS  # and the forward (ViT-B, ViT-S, ViT-Ti)
 DOUT_STEP = 64       # Dout is a multiple of a TMA box's 64 columns
 FWD_TILE = 192       # the forward kernel's column tile: it reads the bias a tile at a time
 ROWS = 128           # rows of a row kernel's block
@@ -38,11 +41,11 @@ def fused_ln_dense_plain(x, gamma, beta, w, bias, eps: float = 1e-6,
     return y.to(dt)
 
 
-def _check_args(x, gamma, beta, w, bias, name):
+def _check_args(x, gamma, beta, w, bias, name, widths):
     d, dout = x.shape[-1], w.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"{name}: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d in WIDTHS, f"{name} kernel is built for D in {WIDTHS}, got {d}")
+    require(d in widths, f"{name} kernel is built for D in {widths}, got {d}")
     require(dout % DOUT_STEP == 0 and dout > 0,
             f"{name}: Dout {dout} not a multiple of {DOUT_STEP}")
     require(w.device == x.device and w.dtype == torch.bfloat16
@@ -57,13 +60,14 @@ def _check_args(x, gamma, beta, w, bias, name):
 def fused_ln_dense(x, gamma, beta, w, bias, eps: float = 1e-6,
                    gelu_mode: str | None = None):
     """[GELU](LN(x) w^T + bias) of a contiguous bf16 [..., D] CUDA tensor, D
-    384 or 192 (gamma, beta, bias f32; w bf16 [Dout, D], Dout a multiple of
-    64) -> bf16 [..., Dout]. CPU tensors take :func:`fused_ln_dense_plain`."""
+    in :data:`VIT_B_WIDTHS` (gamma, beta, bias f32; w bf16 [Dout, D], Dout a
+    multiple of 64) -> bf16 [..., Dout]. CPU tensors take
+    :func:`fused_ln_dense_plain`."""
     if gelu_mode is not None and gelu_mode not in GELU_MODES:
         raise ValueError(f"gelu mode {gelu_mode!r} not in (None, *{GELU_MODES})")
     if x.device.type == "cpu":
         return fused_ln_dense_plain(x, gamma, beta, w, bias, eps, gelu_mode)
-    _check_args(x, gamma, beta, w, bias, "fused_ln_dense")
+    _check_args(x, gamma, beta, w, bias, "fused_ln_dense", VIT_B_WIDTHS)
     d, dout = x.shape[-1], w.shape[0]
     y = torch.empty(x.shape[:-1] + (dout,), dtype=x.dtype, device=x.device)
     mode = -1 if gelu_mode is None else GELU_MODES.index(gelu_mode)
@@ -118,7 +122,7 @@ def fused_ln_dense_bwd(x, gamma, beta, w, bias, dy, eps: float = 1e-6,
     _train_gelu(gelu_mode)
     if x.device.type == "cpu":
         return fused_ln_dense_bwd_plain(x, gamma, beta, w, bias, dy, eps, gelu_mode)
-    _check_args(x, gamma, beta, w, bias, "fused_ln_dense_bwd")
+    _check_args(x, gamma, beta, w, bias, "fused_ln_dense_bwd", WIDTHS)
     d, dout = x.shape[-1], w.shape[0]
     n = x.numel() // d
     require(n > 0, "fused_ln_dense_bwd: no rows")

@@ -15,6 +15,9 @@ serving entry, :func:`fused_mlp_train` the training forward, and
 :func:`fused_mlp_fn` the differentiable entry: its backward kernel gives dh,
 dW1, db1, dW2 and db2, and the residual's gradient is dy itself, ungated, as
 in the JAX ``custom_vjp`` (no gradient for the gate, a random mask).
+The forward kernel is built for the widths of ``layernorm.VIT_B_WIDTHS``
+(at ViT-B's 768 by ``ln_mlp_wide_kernel``), the backward for those of
+``layernorm.WIDTHS``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from ._build import check_launch, kernels, require, stream_ptr
 from .fused_ln_mlp import (GELU_MODES, _gate_arg, _gate_rows, bwd_workspace, gelu,
                            gelu_erf_grad, ln_mlp_bwd_splits)
-from .layernorm import WIDTHS
+from .layernorm import VIT_B_WIDTHS, WIDTHS
 
 
 def fused_mlp_plain(h, w1, b1, w2, b2, residual, gelu_mode: str = "erf", gate=None):
@@ -41,11 +44,11 @@ def fused_mlp_plain(h, w1, b1, w2, b2, residual, gelu_mode: str = "erf", gate=No
     return (m + residual.reshape(-1, d).float()).to(dt).reshape(h.shape)
 
 
-def _check_args(h, w1, b1, w2, name):
+def _check_args(h, w1, b1, w2, name, widths):
     d, hidden = h.shape[-1], w1.shape[0]
     require(h.is_cuda and h.dtype == torch.bfloat16 and h.is_contiguous(),
             f"{name}: want contiguous CUDA bf16 h, got {h.dtype} {h.device}")
-    require(d in WIDTHS, f"{name} kernel is built for D in {WIDTHS}, got {d}")
+    require(d in widths, f"{name} kernel is built for D in {widths}, got {d}")
     require(hidden % 64 == 0, f"{name}: hidden {hidden} not a multiple of 64")
     for wname, w, shape in (("w1", w1, (hidden, d)), ("w2", w2, (d, hidden))):
         require(w.device == h.device and w.dtype == torch.bfloat16
@@ -61,7 +64,7 @@ def _launch_fwd(h, w1, b1, w2, b2, residual, gelu_mode, gate, name):
         raise ValueError(f"gelu mode {gelu_mode!r} not in {GELU_MODES}")
     if h.device.type == "cpu":
         return fused_mlp_plain(h, w1, b1, w2, b2, residual, gelu_mode, gate)
-    _check_args(h, w1, b1, w2, name)
+    _check_args(h, w1, b1, w2, name, VIT_B_WIDTHS)
     d = h.shape[-1]
     require(residual.shape == h.shape and residual.dtype == h.dtype
             and residual.is_contiguous() and residual.device == h.device,
@@ -81,7 +84,7 @@ def _launch_fwd(h, w1, b1, w2, b2, residual, gelu_mode, gate, name):
 
 def fused_mlp(h, w1, b1, w2, b2, residual, gelu_mode: str = "erf", gate=None):
     """Serving: ``residual + gate * mlp(h)`` of contiguous bf16 [..., D]
-    CUDA tensors, D in ``layernorm.WIDTHS`` (f32 biases, bf16 weights;
+    CUDA tensors, D in ``layernorm.VIT_B_WIDTHS`` (f32 biases, bf16 weights;
     ``gate`` f32 broadcastable to h.shape[:-1], or None for 1). CPU tensors
     take :func:`fused_mlp_plain`."""
     return _launch_fwd(h, w1, b1, w2, b2, residual, gelu_mode, gate, "fused_mlp")
@@ -117,7 +120,7 @@ def fused_mlp_bwd(h, w1, b1, w2, gate, dy):
     tensors take the plain version."""
     if h.device.type == "cpu":
         return fused_mlp_bwd_plain(h, w1, b1, w2, gate, dy)
-    _check_args(h, w1, b1, w2, "fused_mlp_bwd")
+    _check_args(h, w1, b1, w2, "fused_mlp_bwd", WIDTHS)
     require(dy.shape == h.shape and dy.dtype == torch.bfloat16 and dy.is_contiguous()
             and dy.device == h.device, "fused_mlp_bwd: dy must be contiguous bf16 like h")
     g = _gate_arg(gate, h, "fused_mlp_bwd")

@@ -24,7 +24,7 @@ from ._build import check_launch, kernels, require, stream_ptr
 from .fused_ln_mlp import GELU_MODES, gelu
 from .int8 import int_matmul, quantize_rows
 
-WIDTHS = (384, 192)  # the model widths the kernel is built for
+VIT_B_WIDTHS = (768, 384, 192)  # the model widths the kernel is built for
 HIDDEN_STEP = 128  # the hidden width is a multiple of two of its 64-wide tiles
 
 
@@ -43,7 +43,7 @@ def fused_mlp_int8_plain(x, w1q, s1, b1, w2q, s2, b2, residual, gelu_mode: str =
 
 def fused_mlp_int8(x, w1q, s1, b1, w2q, s2, b2, residual, gelu_mode: str = "erf"):
     """W8A8 ``residual + mlp(x)`` of contiguous bf16 [..., D] CUDA tensors,
-    D 384 or 192 and the hidden width a multiple of ``HIDDEN_STEP`` (int8
+    D in :data:`VIT_B_WIDTHS` and the hidden width a multiple of ``HIDDEN_STEP`` (int8
     codes, f32 scales and biases). CPU tensors take
     :func:`fused_mlp_int8_plain`."""
     if gelu_mode not in GELU_MODES:
@@ -53,7 +53,8 @@ def fused_mlp_int8(x, w1q, s1, b1, w2q, s2, b2, residual, gelu_mode: str = "erf"
     d, hidden = x.shape[-1], w1q.shape[0]
     require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
             f"fused_mlp_int8: want contiguous CUDA bf16 x, got {x.dtype} {x.device}")
-    require(d in WIDTHS, f"fused_mlp_int8 kernel is built for D in {WIDTHS}, got {d}")
+    require(d in VIT_B_WIDTHS,
+            f"fused_mlp_int8 kernel is built for D in {VIT_B_WIDTHS}, got {d}")
     require(hidden > 0 and hidden % HIDDEN_STEP == 0,
             f"fused_mlp_int8: hidden {hidden} not a multiple of {HIDDEN_STEP}")
     require(residual.shape == x.shape and residual.dtype == x.dtype

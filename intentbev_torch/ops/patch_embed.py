@@ -6,7 +6,7 @@ Counterpart of ``intentbev/ops/patch_embed.py::patch_embed_matmul``, behind
 channels: tokens = conv_PxP,sP(x) + bias over x [B, H, W, C] with the conv
 kernel in the JAX layout [P, P, C, D], tokens [B, (H/P)*(W/P), D] in
 row-major patch order, in x's dtype. The kernel is built for the model
-widths D in ``layernorm.WIDTHS`` (384 and 192).
+widths D in ``layernorm.VIT_B_WIDTHS`` (768, 384 and 192).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .layernorm import WIDTHS
+from .layernorm import VIT_B_WIDTHS
 
 MAX_TOKENS_PER_ROW = 96  # the kernel's TMA box of one patch row's tokens
 
@@ -35,7 +35,7 @@ def patch_embed_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 def patch_embed(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                 patch: int) -> torch.Tensor:
     """Tokens of a contiguous bf16 NHWC CUDA BEV (kernel bf16 [P, P, C, D],
-    D in ``layernorm.WIDTHS``; bias f32 [D]; W/P <= 96 and P*C a multiple of
+    D in ``layernorm.VIT_B_WIDTHS``; bias f32 [D]; W/P <= 96 and P*C a multiple of
     8). CPU tensors take :func:`patch_embed_plain`."""
     if x.device.type == "cpu":
         return patch_embed_plain(x, kernel, bias, patch)
@@ -48,7 +48,7 @@ def patch_embed(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     require(w // p <= MAX_TOKENS_PER_ROW,
             f"patch_embed: {w // p} tokens a patch row > {MAX_TOKENS_PER_ROW}")
     require((p * c) % 8 == 0, f"patch_embed: P*C = {p * c} not a multiple of 8")
-    require(d in WIDTHS, f"patch_embed kernel is built for D in {WIDTHS}, got {d}")
+    require(d in VIT_B_WIDTHS, f"patch_embed kernel is built for D in {VIT_B_WIDTHS}, got {d}")
     require(kernel.device == x.device and kernel.dtype == torch.bfloat16
             and tuple(kernel.shape) == (p, p, c, d) and kernel.is_contiguous(),
             f"patch_embed: kernel must be contiguous bf16 {(p, p, c, d)}")

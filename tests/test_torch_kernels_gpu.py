@@ -115,7 +115,7 @@ pytestmark = pytest.mark.gpu
 
 D = 384
 WIDTHS = [384, 192]  # ViT-S and ViT-Ti
-SERVING_WIDTHS = WIDTHS + [768]  # and ViT-B: the serving chain's rows 1, 4, 5
+SERVING_WIDTHS = WIDTHS + [768]  # and ViT-B: the serving rows 1, 4, 5, 13-15, 17
 MAIN_ROWS = 8 * 4501  # flagship batch 8 x 4501 tokens
 
 
@@ -732,18 +732,19 @@ def int8_inputs(rows, seed=0, d=D, hidden=None):
     return x, w1q, s1, b1, w2q, s2, b2, res
 
 
-# Row 17 (csrc/fused_mlp_int8.cu): 128-row blocks, the hidden dimension in
-# steps of 64 (D=384) or 128 (D=192). Readings: relative L2 and the share of
-# y's elements that differ from the plain version (which the kernel matches
-# bit for bit); controls: one h scale per 32-row block, h rounded to bf16
-# before its codes; and two calls give the same bits.
+# Row 17 (csrc/fused_mlp_int8.cu): 64-row blocks, the hidden dimension in
+# steps of 128; at D=768 pass 2 once for each half of the output columns.
+# Readings: relative L2 and the share of y's elements that differ from the
+# plain version (which the kernel matches bit for bit); controls: one h
+# scale per 32-row block, h rounded to bf16 before its codes; and two calls
+# give the same bits.
 @pytest.mark.parametrize("gelu", ["erf", "sigmoid"])
 @pytest.mark.parametrize("narrow", [False, True])
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", SERVING_WIDTHS)
 @pytest.mark.parametrize("rows", [1, 100, 300, 36000, MAIN_ROWS])
 def test_fused_mlp_int8(dev, rows, d, narrow, gelu):
     # hidden 4d, or 4d - 128: a tile count that the kernel's ring slots (3 at
-    # D=384, 4 at 192) do not divide
+    # D=384, 4 at 192, 2 at 768; at 768 46 tiles a column pass) do not divide
     args = int8_inputs(rows, d=d, hidden=4 * d - 128 * narrow)
     reset_launch_counts()
     got = fused_mlp_int8(*args, gelu)
@@ -760,14 +761,15 @@ def test_fused_mlp_int8(dev, rows, d, narrow, gelu):
 
 @pytest.mark.parametrize("entry", ["fused_mlp", "fused_mlp_bwd"])
 def test_fused_mlp_refuses_other_widths(dev, entry):
-    """Row 13 takes D=384 and 192 (ViT-S and ViT-Ti); a ViT-B's 768 raises,
+    """Row 13's forward takes D=768, 384 and 192 and its backward 384 and
+    192: a width outside them (256 forward, ViT-B's 768 backward) raises,
     naming the width, and launches nothing."""
-    d = 768
+    d = 256 if entry == "fused_mlp" else 768
     x = _randn((64, d), 1.0, 0)
     w1, w2 = _randn((4 * d, d), d ** -0.5, 5), _randn((d, 4 * d), (4 * d) ** -0.5, 7)
     b1, b2 = _randn((4 * d,), 0.1, 6, torch.float32), _randn((d,), 0.1, 8, torch.float32)
     reset_launch_counts()
-    with pytest.raises(ValueError, match="768"):
+    with pytest.raises(ValueError, match=str(d)):
         if entry == "fused_mlp":
             fused_mlp(x, w1, b1, w2, b2, x)
         else:
@@ -776,7 +778,7 @@ def test_fused_mlp_refuses_other_widths(dev, entry):
 
 
 def test_fused_mlp_int8_refuses(dev):
-    """Widths other than 384 and 192, and a hidden width off the kernel's step."""
+    """Widths other than 768, 384 and 192, and a hidden width off the kernel's step."""
     for d, hidden in ((256, 1024), (384, 96), (192, 64)):
         with pytest.raises(ValueError):
             fused_mlp_int8(*int8_inputs(64, d=d, hidden=hidden), "sigmoid")
@@ -793,10 +795,11 @@ def test_fused_mlp(dev, rows, gelu):
     assert _rel(got, ctrl) >= MLP_LIMIT  # control: b1 left out
 
 
-# Row 14 (the LN + dense pair, csrc/fused_ln_dense.cu): 128-row blocks, so
-# row counts below, at and past a block and one not a multiple of it (the
-# adapter's 36000, qkv's 36008); D = 384 and 192; Dout = 3D (qkv, no GELU)
-# and 192 (the adapter: the erf GELU of training, the serving sigmoid one).
+# Row 14 (the LN + dense pair, csrc/fused_ln_dense.cu): 128-row blocks (the
+# forward's 64 at D = 768), so row counts below, at and past a block and one
+# not a multiple of it (the adapter's 36000, qkv's 36008); D = 384 and 192,
+# and 768 for the forward; Dout = 3D (qkv, no GELU) and 192 (the adapter:
+# the erf GELU of training, the serving sigmoid one).
 LN_DENSE_ROWS = [1, 100, 300, 8 * 4500, MAIN_ROWS]
 LN_DENSE_CASES = [(3, None), (1, "erf"), (1, "sigmoid")]  # (Dout: 3D, or 192; GELU)
 
@@ -819,7 +822,7 @@ def _xn_f32(x, g, b, w, bias, gelu):
     return (gelu_fn(y, gelu) if gelu else y).to(x.dtype)
 
 
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", SERVING_WIDTHS)
 @pytest.mark.parametrize("dout_x,gelu", LN_DENSE_CASES)
 @pytest.mark.parametrize("rows", LN_DENSE_ROWS)
 def test_fused_ln_dense(dev, rows, dout_x, gelu, d):
@@ -836,7 +839,7 @@ def test_fused_ln_dense(dev, rows, dout_x, gelu, d):
 LN_DENSE_NARROW = [64, 128, 320]
 
 
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", SERVING_WIDTHS)
 @pytest.mark.parametrize("gelu", [None, "erf", "sigmoid"])
 @pytest.mark.parametrize("dout", LN_DENSE_NARROW)
 @pytest.mark.parametrize("rows", [300, MAIN_ROWS])
@@ -868,13 +871,14 @@ def _check_ln_dense(rows, dout, gelu, d):
 PATCH_SHARE = 5e-2  # share of row 15's tokens that may differ from the plain version
 
 
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", SERVING_WIDTHS)
 @pytest.mark.parametrize("shape", [(1, 8, 8, 128), (2, 16, 96, 290), (3, 24, 720, 290),
                                    (8, 400, 720, 290)])
 def test_patch_embed(dev, shape, d):
     """Row 15 on ragged shapes (one token; 12 tokens a patch row; gw = 90 over
     9 patch rows, an odd count; the full bench batch), C = 128 where P*C is a
-    multiple of 64: the tokens' relative L2 and share of differing elements
+    multiple of 64, at D = 768 four blocks a group of patch rows (more groups
+    than patch rows in the small shapes): the tokens' relative L2 and share of differing elements
     against the plain version, two calls with the same bits; controls: the
     weight read as w[dx, dy] (relative L2) and the sum rounded to bf16
     before the bias (share)."""
@@ -1718,27 +1722,45 @@ def test_vit_b_flash_bwd_forms(dev, b, t, seq_len, chunk):
         assert all(torch.equal(a, f) for a, f in zip(got, fused)), form
 
 
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("gelu", ["sigmoid", "erf"])
+@pytest.mark.parametrize("rows", [1, 63, 300, 4501, MAIN_ROWS])
+def test_vit_b_fused_mlp(dev, rows, gelu, gated):
+    """Row 13 at D=768 (the wide kernel without its LN: h as it is, the
+    residual its own tensor; serving, and the gate over rows that the same
+    kernel takes): y by relative L2 and share against the plain version, two
+    calls with the same bits; controls: h kept in f32 before fc2 (the
+    share), b1 left out (the relative L2)."""
+    _, _, w1, b1, w2, b2 = _vit_b_ln_mlp(rows)
+    h, res = _randn((rows, VIT_B), 1.0, 20), _randn((rows, VIT_B), 1.0, 21)
+    keep = torch.rand(rows, generator=_gen(9), device="cuda") < 0.7
+    gate = keep.float() / 0.9 if gated else None
+    reset_launch_counts()
+    got, again = (fused_mlp(h, w1, b1, w2, b2, res, gelu, gate) for _ in range(2))
+    assert launches["fused_mlp"] == 2 and sum(launches.values()) == 2
+    want = fused_mlp_plain(h, w1, b1, w2, b2, res, gelu, gate)
+    assert got.shape == want.shape == (rows, VIT_B) and torch.equal(got, again)
+    assert _rel(got, want) < MLP_LIMIT and _share(got, want) < MLP_SHARE, (_rel(got, want),
+                                                                          _share(got, want))
+    if rows > 1:  # one row holds too few values for a share
+        ctrl = _mlp_h_f32(h, w1, b1, w2, b2, gelu, gate=gate, res=res)[0]
+        assert _share(got, ctrl) >= MLP_SHARE
+    if gate is None or gate.any():  # every row dropped: y is the residual
+        ctrl = fused_mlp_plain(h, w1, torch.zeros_like(b1), w2, b2, res, gelu, gate)
+        assert _rel(got, ctrl) >= MLP_LIMIT
+
+
 def test_vit_b_narrow_entries_raise(dev):
-    """Rows 13 (the MLP without LN), 14 (LN + dense), 15 (the dense patch
-    embed) and 17 (the W8A8 MLP) are built for D=384 and 192: at 768 each
-    entry raises, naming the width, launches nothing and never takes its
-    plain version."""
+    """The backwards of rows 13 (the MLP without LN) and 14 (LN + dense) are
+    built for D=384 and 192: at 768 each entry raises, naming the width,
+    launches nothing and never takes its plain version."""
     x, ln, w1, b1, w2, b2 = _vit_b_ln_mlp(64)
-    w1q, s1 = quantize_linear(w1.float())
-    w2q, s2 = quantize_linear(w2.float())
     w_qkv = _randn((3 * VIT_B, VIT_B), VIT_B ** -0.5, 11)
     b_qkv = _randn((3 * VIT_B,), 0.1, 12, torch.float32)
-    x_pe = _randn((1, 16, 16, 128), 1.0, 13)
-    w_pe = _randn((8, 8, 128, VIT_B), 0.02, 14)
     calls = {
-        "fused_mlp": lambda: fused_mlp(x, w1, b1, w2, b2, x),
-        "fused_mlp_train": lambda: fused_mlp_train(x, w1, b1, w2, b2, x),
         "fused_mlp_bwd": lambda: fused_mlp_bwd(x, w1, b1, w2, None, x),
-        "fused_ln_dense": lambda: fused_ln_dense(x, ln[0], ln[1], w_qkv, b_qkv),
         "fused_ln_dense_bwd": lambda: fused_ln_dense_bwd(x, ln[0], ln[1], w_qkv, b_qkv,
-                                                         x.repeat(1, 3)),
-        "patch_embed": lambda: patch_embed(x_pe, w_pe, b2, 8),
-        "fused_mlp_int8": lambda: fused_mlp_int8(x, w1q, s1, b1, w2q, s2, b2, x)}
+                                                         x.repeat(1, 3))}
     for name, call in calls.items():
         reset_launch_counts()
         with pytest.raises(ValueError, match="768"):

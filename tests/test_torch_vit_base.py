@@ -18,26 +18,55 @@ row 1: the cell value kept in f32 before its product).
 
 Then a depth-1 ViT-B on the tiny grid, initialised by JAX and carried by
 ``from_flax``, serves as ``tests/test_torch_slice.py`` serves the tiny
-config: logits to 1e-4 (f32, summation order), the same Detections.
+config: logits to 1e-4 (f32, summation order), the same Detections; and so
+under each serving variant of ``VIT_SERVING_VARIANTS`` (A ``serving_int8``,
+B ``fuse_ln_dense``, C ``use_fused_layernorm=False``, D
+``fuse_patch_embed``: rows 17, 14, 13 and 15 at D=768 on the card) over the
+variant's transport, D on the bench's 290 lidar channels, as
+``tests/test_torch_variants.py`` serves the tiny config. A's logits are
+read relative to their scale, limit ``INT8_LOGITS``: JAX's model takes the
+unfused int8 pair with the exact erf, and the two sides' f32 block inputs
+(LayerNorm, attention) differ in their last bits, so the codes of the 768
+values of a row of x and the 3072 of h flip where such a difference
+straddles a rounding boundary (3e-4 holds the tiny config's 32 and 128).
+Sound readings 6.8e-4-8.7e-4; the control, the port serving the bf16 MLP
+without ``serving_int8``, reads 1.0e-2-1.2e-2 and must exceed the limit.
+The codes A loads through ``from_flax`` are JAX's ``quantize_cols`` of the
+f32 parameters, bit for bit, at this width.
 """
 
 import dataclasses
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.experimental.pallas import tpu as pltpu
 
 torch = pytest.importorskip("torch")
 
 from intentbev import configs as jcfg  # noqa: E402
+from intentbev.bev.rasterize import decode_map_transport  # noqa: E402
+from intentbev.boxes.anchors import generate_anchors  # noqa: E402
+from intentbev.boxes.nms import batched_postprocess  # noqa: E402
+from intentbev.models import build_model  # noqa: E402
+from intentbev.ops import int8 as jint8  # noqa: E402
 from intentbev.ops import voxel_embed as jve  # noqa: E402
+from intentbev_torch import configs as tcfg  # noqa: E402
+from intentbev_torch.bev.voxelize import voxelize_packed  # noqa: E402
+from intentbev_torch.models import IntentNetViT  # noqa: E402
 from intentbev_torch.ops import voxel_embed as tve  # noqa: E402
+from intentbev_torch.parallel import StreamingInferencer  # noqa: E402
+from intentbev_torch.parallel.inference import VIT_SERVING_VARIANTS  # noqa: E402
+from intentbev_torch.synthetic import serving_batch  # noqa: E402
+from intentbev_torch.weights import from_flax  # noqa: E402
 from intentbev_torch.ops.fused_ln_mlp import fused_ln_mlp_plain, gelu  # noqa: E402
 from intentbev_torch.ops.layernorm import layernorm_plain  # noqa: E402
 from test_torch_patch_embed import (C, HW, P, _bf16, _case, _compile, _to_torch,  # noqa: E402
                                     _unrounded)
-from test_torch_slice import check_from_flax, check_serving, serve_setup  # noqa: E402
+from test_torch_slice import NUM_CHUNKS, check_from_flax, check_serving, serve_setup  # noqa: E402
+from test_torch_variants import WIDE_GRID  # noqa: E402
 
 jfl = importlib.import_module("intentbev.ops.fused_ln_mlp")
 jfm = importlib.import_module("intentbev.ops.fused_mlp")
@@ -47,6 +76,7 @@ D, HIDDEN, N = 768, 3072, 128  # ViT-B's width and MLP; rows of the row-kernel c
 EPS = 1e-6
 SHARE = 1e-2  # limit on the share of an output's elements that differ
 VIT_B = dict(embed_dim=D, num_heads=12, depth=1)
+INT8_LOGITS = 3e-3  # limit on A's logits' max |d| over their largest value
 
 
 def _share(got, want):
@@ -180,10 +210,115 @@ def test_vit_b_from_flax_covers_the_model(vit_b_setup):
     check_from_flax(*vit_b_setup[:2])
 
 
-def test_vit_b_serves_like_jax(vit_b_setup):
+def _variant_config(pkg_cfg, switches, wide):
+    """The depth-1 ViT-B of ``vit_b_setup`` under ``switches``, on the bench's
+    290 lidar channels with ``wide`` (the patch-embed kernel takes >= 128)."""
+    base = pkg_cfg.tiny_test_config()
+    grid = dataclasses.replace(base.grid, **WIDE_GRID) if wide else base.grid
+    return dataclasses.replace(base, grid=grid, vit=dataclasses.replace(
+        base.vit, lidar_input_channels=grid.lidar_total_channels, use_flash_attention=True,
+        **VIT_B, **switches))
+
+
+@pytest.fixture(scope="module")
+def wide_variables():
+    """JAX parameters of the depth-1 ViT-B on 290 lidar channels (D's),
+    head kernels as initialised (``vit_b_setup``'s reason)."""
+    cfg = _variant_config(jcfg, {}, True)
+    g = cfg.grid
+    bev0 = jnp.zeros((1, g.height_px, g.width_px, g.lidar_total_channels))
+    map0 = jnp.zeros((1, g.height_px, g.width_px, g.map_channels))
+    return jax.tree_util.tree_map(np.asarray, build_model(cfg).init(jax.random.key(0), bev0,
+                                                                    map0))
+
+
+def _check_variant(name, vit_b_setup, request, monkeypatch):
+    """Serving variant ``name``: the port's StreamingInferencer over the
+    variant's transport against the JAX model's logits and Detections."""
+    monkeypatch.setattr(jfm, "_GELU_MODE", "erf")  # the port serves the erf GELU here
+    switches, transport = VIT_SERVING_VARIANTS[name]
+    wide = "fuse_patch_embed" in switches
+    jc, tc = (_variant_config(c, switches, wide) for c in (jcfg, tcfg))
+    variables = request.getfixturevalue("wide_variables") if wide else vit_b_setup[1]
+    g = tc.grid
+    pts, valid, mp = serving_batch(g, 2, 600, seed=1)
+    inf = StreamingInferencer(tc, from_flax(variables), "cpu", transport=transport,
+                              num_chunks=NUM_CHUNKS)
+    if transport == "chunks":
+        got = inf.logits(inf.build_chunks(pts, valid), mp)
+        lidar = jve.VoxelChunks(*map(jnp.asarray, jve.stack_voxel_chunks([
+            jve.build_voxel_chunks(pts[i], valid[i], g, tc.vit.patch_size,
+                                   num_chunks=NUM_CHUNKS, on_overflow="drop")[0]
+            for i in range(2)])))
+    else:
+        got = inf.logits_points(pts, valid, mp)
+        lidar = jnp.asarray(voxelize_packed(torch.from_numpy(pts), torch.from_numpy(valid),
+                                            g).numpy())
+    args = (variables, lidar, decode_map_transport(jnp.asarray(mp), g.map_channels,
+                                                   jnp.float32))
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.jit(build_model(jc).apply)(*args)
+
+    def scaled_err(a, b):
+        return float(np.abs(a.numpy() - np.asarray(b)).max() / np.abs(np.asarray(b)).max())
+
+    if name == "int8":  # relative to the logits' scale (the module docstring)
+        ctrl = StreamingInferencer(_variant_config(tcfg, {}, False), from_flax(variables), "cpu",
+                                   transport=transport).logits_points(pts, valid, mp)
+        sound = [scaled_err(a, b) for a, b in zip(got, want)]
+        control = [scaled_err(a, b) for a, b in zip(ctrl, want)]
+        print(f"ViT-B int8 logits: {sound} of their scale, control (no int8) {control}")
+        assert max(sound) < INT8_LOGITS, sound
+        assert min(control) >= INT8_LOGITS, control
+    else:
+        for part, a, b in zip(("cls", "box", "intent"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=1e-4,
+                                       err_msg=f"{name} {part}")
+    ev = tc.eval
+    want_det = batched_postprocess(
+        *want, jnp.asarray(generate_anchors(g, jc.anchors)),
+        confidence_threshold=ev.confidence_threshold, nms_iou_threshold=ev.nms_iou_threshold,
+        max_pre_nms=ev.max_pre_nms, max_detections=ev.max_detections)
+    det = inf(pts, valid, mp)
+    for field in ("num_conf", "num_kept"):
+        np.testing.assert_array_equal(getattr(det, field), np.asarray(getattr(want_det, field)),
+                                      err_msg=f"{name} {field}")
+    if name == "int8":  # flipped codes may swap two detections of near-equal scores
+        np.testing.assert_array_equal(np.sort(det.intentions * det.valid, -1), np.sort(
+            np.asarray(want_det.intentions) * np.asarray(want_det.valid), -1))
+        return
+    for field in ("valid", "intentions"):
+        np.testing.assert_array_equal(getattr(det, field), np.asarray(getattr(want_det, field)),
+                                      err_msg=f"{name} {field}")
+    np.testing.assert_allclose(det.boxes_xywha, np.asarray(want_det.boxes_xywha), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["default", *VIT_SERVING_VARIANTS])
+def test_vit_b_serves_like_jax(vit_b_setup, request, monkeypatch, variant):
     """The port's StreamingInferencer against the JAX model's logits (12
     heads of 64 pair into the packed attention on both sides) and
-    Detections."""
+    Detections, by default and under each serving variant."""
     cfg = vit_b_setup[0]
     assert (cfg.vit.embed_dim, cfg.vit.num_heads, cfg.vit.depth) == (768, 12, 1)
-    check_serving(*vit_b_setup, box_rtol=1e-5)
+    if variant == "default":
+        check_serving(*vit_b_setup, box_rtol=1e-5)
+    else:
+        _check_variant(variant, vit_b_setup, request, monkeypatch)
+
+
+def test_vit_b_int8_codes_match_jax(vit_b_setup):
+    """The codes and scales ViT-B loads under ``serving_int8`` (D=768,
+    hidden 3072) are JAX's quantize_cols of the f32 parameters."""
+    cfg = _variant_config(tcfg, dict(serving_int8=True), False)
+    variables = vit_b_setup[1]
+    model = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.bfloat16)
+    model.load_state_dict(from_flax(variables))
+    for stream in ("vit_lidar", "vit_map"):
+        (blk,) = getattr(model.backbone, stream).blocks
+        p = variables["params"]["backbone"][stream]["block0"]["mlp"]
+        for fc, q_name, s_name in (("fc1", "w1q", "s1"), ("fc2", "w2q", "s2")):
+            qj, sj = jint8.quantize_cols(jnp.asarray(p[fc]["kernel"], jnp.float32))
+            assert getattr(blk.mlp, q_name).shape == np.asarray(qj).T.shape
+            np.testing.assert_array_equal(getattr(blk.mlp, q_name).numpy(), np.asarray(qj).T)
+            np.testing.assert_array_equal(getattr(blk.mlp, s_name).numpy(), np.asarray(sj)[0])

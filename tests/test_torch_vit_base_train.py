@@ -175,15 +175,16 @@ ENTRIES = {
     fused_ln_mlp.fused_ln_mlp_train: ("VIT_B_WIDTHS", "fused_ln_mlp.cu",
                                       "ibk_fused_ln_mlp_train"),
     fused_ln_mlp.fused_ln_mlp_bwd: ("VIT_B_WIDTHS", "fused_ln_mlp.cu", "ibk_fused_ln_mlp_bwd"),
-    fused_mlp.fused_mlp: ("WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp"),
-    fused_mlp.fused_mlp_train: ("WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp"),
+    fused_mlp.fused_mlp: ("VIT_B_WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp"),
+    fused_mlp.fused_mlp_train: ("VIT_B_WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp"),
     fused_mlp.fused_mlp_bwd: ("WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp_bwd"),
-    fused_ln_dense.fused_ln_dense: ("WIDTHS", "fused_ln_dense.cu", "ibk_fused_ln_dense"),
+    fused_ln_dense.fused_ln_dense: ("VIT_B_WIDTHS", "fused_ln_dense.cu", "ibk_fused_ln_dense"),
     fused_ln_dense.fused_ln_dense_bwd: ("WIDTHS", "fused_ln_dense.cu",
                                         "ibk_fused_ln_dense_bwd"),
-    patch_embed.patch_embed: ("WIDTHS", "patch_embed.cu", "ibk_patch_embed"),
+    patch_embed.patch_embed: ("VIT_B_WIDTHS", "patch_embed.cu", "ibk_patch_embed"),
     voxel_embed.voxel_embed_tokens: ("VIT_B_WIDTHS", "voxel_embed.cu", "ibk_voxel_embed"),
-    fused_mlp_int8.fused_mlp_int8: ("WIDTHS", "fused_mlp_int8.cu", "ibk_fused_mlp_int8"),
+    fused_mlp_int8.fused_mlp_int8: ("VIT_B_WIDTHS", "fused_mlp_int8.cu",
+                                    "ibk_fused_mlp_int8"),
 }
 
 
@@ -205,7 +206,8 @@ def _checked_widths(fn, depth=3):
 def test_entry_widths_are_its_kernels(fn):
     """The widths an entry accepts on CUDA are the ``by_width`` instances of
     the C++ entry it calls: the training rows 6-9 and the serving rows 1, 4,
-    5 take ViT-B's 768, rows 13, 14, 15 and 17 only 384 and 192."""
+    5, 13, 14, 15 and 17 take ViT-B's 768; the backwards of rows 13 and 14
+    only 384 and 192."""
     const, src, entry = ENTRIES[fn]
     mod = inspect.getmodule(fn)
     assert _checked_widths(fn) == {const}, (fn.__name__, _checked_widths(fn))

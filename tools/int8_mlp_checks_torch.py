@@ -15,12 +15,16 @@ beyond its comparison with the plain version.
    value's GELU, which the filter rarely enters) and of pass 2's, each over
    the hidden values a thread handles in it: instructions a hidden element,
    and their time at the card's issue rate (132 SMs x 4 schedulers x 32
-   lanes at the maximum SM clock) for 36008 rows and hidden 4D.
+   lanes at the maximum SM clock) for 36008 rows and hidden 4D: the
+   function's bound (one pass 2), and at D=768, where pass 2 runs once a
+   half of the output columns, the kernel's own issue time.
 3. Where a block's time goes: a copy of the kernel with ``clock64`` stamps
    at its phases (x landed, the first row and the rest of x's codes, pass
    1, pass 2, the residual's wait, the epilogue, y's store), run at 36008
-   rows, D=384 and 192, both GELUs, on random codes; the mean cycles a
-   block, and the stamped kernel's ms (CUDA events, 20 calls).
+   rows, D=768, 384 and 192, both GELUs, on random codes; the mean cycles a
+   block, and the stamped kernel's ms (CUDA events, 20 calls). At D=768
+   "pass 2" spans both column passes and the first one's epilogue, and "y
+   store" the second's (the residual read and y written in device memory).
 
     python3 tools/int8_mlp_checks_torch.py [--no-stamps]
 
@@ -159,7 +163,7 @@ int main() {
   const char* names[9] = {"x landed", "row 0", "rows 1-7", "x sync", "pass 1", "pass 2",
                           "residual wait", "epilogue math", "y store"};
   static unsigned long long st[1024][2][10];
-  for (int d : {384, 192}) {
+  for (int d : {768, 384, 192}) {
     const int hid = 4 * d;
     bf16 *x, *res, *y;
     int8_t *w1, *w2;
@@ -224,12 +228,16 @@ STAMPS = (
     ("  // xq is read by wgmma, and TMA writes over the rows of x once every warp\n",
      "  STAMP(3);\n", True),
     ("  const float xs_a = xsc[ra], xs_b = xsc[rb];\n", "  STAMP(4);\n", False),
-    ("  // 3. pass 2: the codes of each tile of h", "  STAMP(5);\n", True),
-    ("  // 4. epilogue:", "  STAMP(6);\n", True),
-    ("  hopper::mbar_wait(rfull, 0);\n", "  STAMP(7);\n", False),
-    ("  hopper::fence_proxy_async();\n  both();\n  if (tid == 0) {", "  STAMP(8);\n", True),
-    ("    hopper::bulk_wait_read();  // the stores have read the tile\n",
-     "  }\n  {\n    STAMP(9);\n", False),
+    ("  // 3. pass 2, once a column pass:", "  STAMP(5);\n", True),
+    ("    // 4. epilogue of the column pass:", "    STAMP(6);\n", True),
+    ("      hopper::mbar_wait(rfull, 0);\n", "      STAMP(7);\n", False),
+    ("      hopper::fence_proxy_async();\n      both();\n      if (tid == 0) {",
+     "      STAMP(8);\n", True),
+    ("        hopper::bulk_wait_read();  // the stores have read the tile\n",
+     "      }\n      {\n        STAMP(9);\n", False),
+    # two column passes (D=768): the epilogue in device memory
+    ("      const bool in_a = row0 + ra < n_rows", "      STAMP(7);\n      STAMP(8);\n", True),
+    ("    }\n  }\n}\n\n// W1q [hidden, D]", "      STAMP(9);\n", True),
 )
 
 
@@ -282,10 +290,13 @@ def elementwise_bound(nvcc: str, out: Path, clock_mhz: float) -> None:
         # two tiles a loop, 16 values a thread a tile (32 columns x 64 rows / 128)
         per = [(n - k) / 32 for n, k in loops[:2]]
         elems = 36008 * 4 * d
+        passes2 = 2 if d == 768 else 1  # the kernel's column passes of pass 2
         print(json.dumps({"D": d, "gelu": gelu, "pass1_loop": loops[0], "pass2_loop": loops[1],
                           "instructions_a_hidden_element": [round(v, 1) for v in per],
                           "total": round(sum(per), 1),
                           "elementwise_bound_ms": round(elems * sum(per) / issue * 1e3, 4),
+                          "kernel_issue_ms": round(
+                              elems * (per[0] + passes2 * per[1]) / issue * 1e3, 4),
                           "clock_mhz": clock_mhz}), flush=True)
 
 

@@ -1,13 +1,16 @@
 """Card checks of the kernels on ViT-B's paths (D=768, 12 heads of 64):
-serving and the training step.
+serving, the serving variants A-D and the training step.
 
 1. The compiler's report: each kernel source of the paths compiled with
    ``-Xptxas -v``; for the D=768 instances (rows 4 and 6, the
-   ``ln_mlp_wide_kernel`` with each GELU, chained and gated; row 7's two
-   row kernels, ``ln_mlp_dh_kernel<768>`` and ``ln_mlp_bwd_wide_kernel<768>``;
-   row 1's ``voxel_gather_kernel<768>``; rows 5, 8 and 9,
-   ``layernorm_kernel<768>``, ``layernorm_train_kernel<768>`` and
-   ``layernorm_bwd_kernel<768>``) the registers, the spill stores and loads,
+   ``ln_mlp_wide_kernel`` with each GELU, chained and gated, and row 13,
+   the same kernel without its LN; row 7's two row kernels,
+   ``ln_mlp_dh_kernel<768>`` and ``ln_mlp_bwd_wide_kernel<768>``; row 1's
+   ``voxel_gather_kernel<768>``; rows 5, 8 and 9, ``layernorm_kernel<768>``,
+   ``layernorm_train_kernel<768>`` and ``layernorm_bwd_kernel<768>``; row
+   14's ``ln_dense_fwd_kernel<768, *>``, row 15's ``patch_embed_kernel<768>``
+   and row 17's ``mlp_int8_fwd_kernel<768, *>``) the registers, the spill
+   stores and loads,
    and any ptxas line of code C75xx that names them. A spill or a C7514 /
    C7520 warning (wgmma serialised) fails the run; other C75xx lines are
    printed (C7519: a warpgroup.arrive injected before a wgmma that reads
@@ -23,12 +26,17 @@ serving and the training step.
    row 9: no mean(dyg*xhat) term; row 1: the last chunk of each band
    skipped; rows 2 and 3 at [8, 4501, 768] in 12 heads of 64: another
    softmax form's plain version; rows 10 and 11, the fused, split and
-   chunked backwards: delta left out). Then CUDA-event times of kernel,
+   chunked backwards: delta left out; row 13: h kept in f32 before fc2;
+   row 14, qkv (Dout 2304) and the adapter (Dout 192) with each GELU: xn
+   kept in f32 before the product; row 15 on the bench's dense BEV [8, 400,
+   720, 290]: the sum rounded to bf16 before the bias; row 17 with each
+   GELU: one h scale per 32-row block). Then CUDA-event times of kernel,
    plain version, the library call where one exists (``F.layer_norm`` and
-   its backward, SDPA and its backward) and, for rows 4, 6 and 7, the same
-   function as a chain of PyTorch calls in bf16 (row 7: autograd through
-   that chain), beside each bound (bytes over 3.35 TB/s or operations over
-   989 TFLOP/s).
+   its backward, SDPA and its backward, ``F.conv2d``) and, for rows 4, 6,
+   7, 13, 14 and 15, the same function as a chain of PyTorch calls in bf16
+   (row 7: autograd through that chain; row 15: ``PatchEmbed.dense``),
+   beside each bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s
+   bf16, 1979 TOP/s int8).
 
     python3 tools/vit_base_checks_torch.py [--no-times]
 
@@ -50,15 +58,20 @@ sys.path.insert(0, str(ROOT))
 CSRC = ROOT / "intentbev_torch" / "csrc"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v")
 # source -> the mangled-name pieces of its D=768 instances
-INSTANCES = {"fused_ln_mlp.cu": ("ln_mlp_wide_kernelILi768ELi0ELb1E",
-                                 "ln_mlp_wide_kernelILi768ELi1ELb1E",
-                                 "ln_mlp_wide_kernelILi768ELi0ELb0E",
-                                 "ln_mlp_wide_kernelILi768ELi1ELb0E",
+INSTANCES = {"fused_ln_mlp.cu": ("ln_mlp_wide_kernelILi768ELi0ELb1ELb1E",
+                                 "ln_mlp_wide_kernelILi768ELi1ELb1ELb1E",
+                                 "ln_mlp_wide_kernelILi768ELi0ELb1ELb0E",
+                                 "ln_mlp_wide_kernelILi768ELi1ELb1ELb0E",
+                                 "ln_mlp_wide_kernelILi768ELi0ELb0ELb0E",
+                                 "ln_mlp_wide_kernelILi768ELi1ELb0ELb0E",
                                  "ln_mlp_dh_kernelILi768E", "ln_mlp_bwd_wide_kernelILi768E"),
+             "fused_ln_dense.cu": ("ln_dense_fwd_kernelILi768E",),
+             "patch_embed.cu": ("patch_embed_kernelILi768E",),
+             "fused_mlp_int8.cu": ("mlp_int8_fwd_kernelILi768E",),
              "voxel_embed.cu": ("voxel_gather_kernelILi768E",),
              "layernorm.cu": ("layernorm_kernelILi768E", "layernorm_train_kernelILi768E",
                               "layernorm_bwd_kernelILi768E")}
-HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12
+HBM_BYTES_PER_S, BF16_FLOPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 1979e12
 
 
 def ptxas_report(nvcc: str, out: Path) -> list[str]:
@@ -111,13 +124,16 @@ def main() -> None:
     from intentbev_torch.configs import default_vit_config
     from intentbev_torch.ops import (flash_attention_packed, flash_attention_packed_bwd,
                                      flash_attention_packed_bwd_plain,
-                                     flash_attention_packed_plain, fused_ln_mlp,
-                                     fused_ln_mlp_bwd, fused_ln_mlp_bwd_plain,
-                                     fused_ln_mlp_plain, fused_ln_mlp_train,
-                                     fused_ln_mlp_train_plain, layernorm, layernorm_bwd,
-                                     layernorm_bwd_plain, layernorm_plain, layernorm_train,
-                                     layernorm_train_plain, voxel_embed_tokens,
-                                     voxel_embed_tokens_plain)
+                                     flash_attention_packed_plain, fused_ln_dense,
+                                     fused_ln_dense_plain, fused_ln_mlp, fused_ln_mlp_bwd,
+                                     fused_ln_mlp_bwd_plain, fused_ln_mlp_plain,
+                                     fused_ln_mlp_train, fused_ln_mlp_train_plain, fused_mlp,
+                                     fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
+                                     layernorm, layernorm_bwd, layernorm_bwd_plain,
+                                     layernorm_plain, layernorm_train, layernorm_train_plain,
+                                     patch_embed, patch_embed_plain, quantize_linear,
+                                     voxel_embed_tokens, voxel_embed_tokens_plain)
+    from intentbev_torch.ops.int8 import int_matmul, quantize_rows
     from intentbev_torch.ops._build import BUILD_DIR, _nvcc
     from intentbev_torch.ops.fused_ln_mlp import gelu, gelu_erf_grad
     from intentbev_torch.ops.voxel_embed import chunks_to_device, decode_chunk_transport
@@ -171,6 +187,9 @@ def main() -> None:
         xf = x_.float()
         inv = torch.rsqrt(xf.var(-1, keepdim=True, correction=1) + 1e-6)
         return ((xf - xf.mean(-1, keepdim=True)) * inv * g_ + b_).to(x_.dtype)
+
+    def _sig(h):  # the serving GELU, x * sigmoid(1.702 x)
+        return h * torch.sigmoid(1.702 * h)
 
     def twice(r):  # each output by relative L2, then by its share of differing elements
         r = r if isinstance(r, tuple) else (r,)
@@ -296,6 +315,61 @@ def main() -> None:
 
     bwd_bytes = (3 * nbytes(x) + nbytes(w1, b1, w2, ln[0], ln[1], gate)
                  + 4 * (3 * d + hidden + 2 * d * hidden))
+
+    # the serving variants' rows: 13 (C), 14 (B: qkv and the adapter), 15
+    # (D, on the bench's dense BEV) and 17 (A: rows of varied scale, the
+    # codes of f32 weights)
+    x8 = (torch.randn(rows, d, generator=gen, device=dev)
+          * torch.exp(0.5 * torch.randn(rows, 1, generator=gen, device=dev))).bfloat16()
+    w1q, s1 = quantize_linear(w1.float())
+    w2q, s2 = quantize_linear(w2.float())
+    int8_args = (x8, w1q, s1, b1, w2q, s2, b2, x)
+    w_qkv, b_qkv = randn((3 * d, d), d ** -0.5), randn((3 * d,), 0.1, torch.float32)
+    a_out = v.adapter_out_channels
+    x_ad = randn((batch * v.num_patches, d), 1.0)
+    w_ad, b_ad = randn((a_out, d), d ** -0.5), randn((a_out,), 0.1, torch.float32)
+    x_pe = randn((batch, g.height_px, g.width_px, v.lidar_input_channels), 1.0)
+    w_conv = w_pe.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    pe_flops = 2 * batch * v.num_patches * v.patch_size ** 2 * v.lidar_input_channels * d
+
+    def mlp_h_f32():  # the control's fault: h kept in f32 before fc2 (no LN)
+        y_ = gelu(x8.float() @ w1.float().t() + b1, "sigmoid") @ w2.float().t() + b2
+        return (y_ + x.float()).to(x.dtype)
+
+    def xn_f32(x_, w_, b_, mode):  # the control's fault: xn kept in f32 before the product
+        y_ = layernorm_plain(x_.float(), ln[0], ln[1]) @ w_.float().t() + b_
+        return (gelu(y_, mode) if mode else y_).to(x_.dtype)
+
+    def ln_dense_chain(x_, w_, b_, mode):  # row 14 as a chain of PyTorch calls (timed only)
+        y_ = F.linear(F.layer_norm(x_, (d,), gl, bl, 1e-6), w_, b_.bfloat16())
+        return (F.gelu(y_) if mode == "erf" else y_ * torch.sigmoid(1.702 * y_)) if mode else y_
+
+    def pe_rounded():  # the control's fault: the f32 sum rounded to bf16 before the bias
+        return (patch_embed_plain(x_pe, w_pe, torch.zeros_like(b_pe), v.patch_size).float()
+                + b_pe).bfloat16()
+
+    def pe_dense_chain():  # row 15 as PatchEmbed.dense: a permute copy, one matmul
+        p_ = v.patch_size
+        xp = x_pe.reshape(batch, g.height_px // p_, p_, g.width_px // p_, p_, -1)
+        xp = xp.permute(0, 1, 3, 2, 4, 5).reshape(batch, v.num_patches, -1)
+        return torch.matmul(xp, w_pe.reshape(-1, d)) + b_pe.bfloat16()
+
+    def int8_block_scale(mode):  # the control's fault: one h scale per 32-row block
+        xq, xs = quantize_rows(x8)
+        h = gelu(int_matmul(xq, w1q.t()) * xs * s1 + b1, mode)
+        amax = F.pad(h.abs().amax(-1), (0, -rows % 32)).reshape(-1, 32).amax(-1)
+        hs = amax.repeat_interleave(32)[:rows, None].clamp(min=1e-8) / 127.0
+        hq = torch.clamp(torch.round(h / hs), -127, 127)
+        return (int_matmul(hq, w2q.t()) * hs * s2 + b2 + x.float()).to(x.dtype)
+
+    def ln_dense_case(x_, w_, b_, mode, ref):
+        n_ = x_.shape[0] * w_.shape[0]
+        return (lambda: twice(fused_ln_dense(x_, ln[0], ln[1], w_, b_, gelu_mode=mode)),
+                lambda: twice(fused_ln_dense_plain(x_, ln[0], ln[1], w_, b_, gelu_mode=mode)),
+                [(lambda: twice(xn_f32(x_, w_, b_, mode)), "xn kept in f32")],
+                (rel_l2, share), (1e-3, 2e-2),
+                nbytes(x_, ln[0], ln[1], w_, b_) + n_ * 2, 2 * n_ * d, None,
+                torch.no_grad()(lambda: ln_dense_chain(x_, w_, b_, mode)) if ref else None)
     flash_bwd_bytes = nbytes(q, k, vv, o, do, lse) + nbytes(qkv)
     cases = {  # name: (kernel, plain, [(control, fault)], metrics, limits, bytes, flops, library, reference)
         "fused_ln_mlp[D=768]": (
@@ -369,6 +443,30 @@ def main() -> None:
               "delta = rowsum(dO*O) left out")], (rel_l2,) * 3, (1e-2,) * 3 if f == "fused"
             else (7e-4,) * 3, flash_bwd_bytes, 5 * flash_flops // 2, lib_sdpa_bwd, None)
            for f in forms},
+        # the serving variants' rows
+        "fused_mlp[D=768]": (
+            lambda: twice(fused_mlp(x8, w1, b1, w2, b2, x, gelu_mode="sigmoid")),
+            lambda: twice(fused_mlp_plain(x8, w1, b1, w2, b2, x, gelu_mode="sigmoid")),
+            [(lambda: twice(mlp_h_f32()), "h kept in f32")], (rel_l2, share), (1e-3, 2e-2),
+            nbytes(x8, w1, b1, w2, b2, x) + nbytes(x), mlp_flops, None,
+            lambda: x + F.linear(_sig(F.linear(x8, w1, b1.bfloat16())), w2, b2.bfloat16())),
+        "fused_ln_dense[D=768]": ln_dense_case(x, w_qkv, b_qkv, None, True),
+        "fused_ln_dense[adapter,D=768]": ln_dense_case(x_ad, w_ad, b_ad, "sigmoid", True),
+        "fused_ln_dense[adapter,erf,D=768]": ln_dense_case(x_ad, w_ad, b_ad, "erf", True),
+        "patch_embed[D=768]": (
+            lambda: twice(patch_embed(x_pe, w_pe, b_pe, v.patch_size)),
+            lambda: twice(patch_embed_plain(x_pe, w_pe, b_pe, v.patch_size)),
+            [(lambda: twice(pe_rounded()), "sum rounded to bf16 before the bias")],
+            (rel_l2, share), (1e-3, 5e-2),
+            nbytes(x_pe, w_pe, b_pe) + batch * v.num_patches * d * 2, pe_flops,
+            torch.no_grad()(lambda: F.conv2d(x_pe.permute(0, 3, 1, 2), w_conv, b_pe.bfloat16(),
+                                             stride=v.patch_size)), pe_dense_chain),
+        **{f"fused_mlp_int8[{'erf,' if m == 'erf' else ''}D=768]": (
+            (lambda m=m: twice(fused_mlp_int8(*int8_args, m))),
+            (lambda m=m: twice(fused_mlp_int8_plain(*int8_args, m))),
+            [((lambda m=m: twice(int8_block_scale(m))), "one h scale per 32-row block")],
+            (rel_l2, share), (5e-4, 1e-3), nbytes(*int8_args) + nbytes(x),
+            (mlp_flops, INT8_OPS_PER_S), None, None) for m in ("sigmoid", "erf")},
     }
     with torch.no_grad():
         for name, (kern, plain, controls, metrics, limits, n_bytes, flops, lib, ref) in \
@@ -391,7 +489,8 @@ def main() -> None:
                 line["library_ms"] = cuda_ms(lib, 10) if lib is not None else None
                 if ref is not None:
                     line["reference_ms"] = cuda_ms(ref, 10)
-                t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+                ops, rate = flops if isinstance(flops, tuple) else (flops, BF16_FLOPS_PER_S)
+                t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
                 line["bound_ms"], line["bound_by"] = max(
                     (t_bytes, "bytes"), (t_ops, "operations"))
             line["card"] = card
