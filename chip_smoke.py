@@ -58,7 +58,11 @@ Phases (each prints a line; any failure exits nonzero with no result):
    run at D=768 with the D=384 cases' faults and limits: row 13 (serving,
    sigmoid), row 14 (qkv, Dout 2304; the adapter with each GELU), row 15
    (with its F.conv2d and PatchEmbed.dense yardsticks) and row 17 (each
-   GELU). Each new case also gives the same bits on two calls.
+   GELU). ViT-B's training variants' kernels run at D=768 too: row 13's
+   gated training forward and its backward (printed by kernel; dh's share
+   under a limit of its own) and row 14's backward (qkv and the adapter
+   with the erf GELU), beside the same functions by autograd through the
+   bf16 PyTorch chain. Each new case also gives the same bits on two calls.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -262,7 +266,12 @@ Phases (each prints a line; any failure exits nonzero with no result):
     backward's other forms against the fused step by phase 11's rule,
     counted under their own names; a warm-up and 3 timed AdamW steps with
     exact launch counts (rows 3, 6, 7, 10 24 a step, rows 8, 9 28), ms/step,
-    peak memory and one step's device time by kernel group; then
+    peak memory and one step's device time by kernel group; the same model
+    under B ``fuse_ln_dense`` and C ``use_fused_layernorm=False`` by phase
+    9's rule (one step against the plain step, controls: B the adapters'
+    LN + dense backward without GELU', C the MLP backward ignoring the gate;
+    3 timed steps with phase 9's exact counts, rows 14 and 13 at D=768,
+    ms/step, peak memory, one step's device time by kernel group); then
     ``train()`` for 3 steps on a split written by
     ``examples/make_synthetic_dataset_torch.py`` (finite losses, a
     checkpoint) and ``evaluate()`` of that checkpoint on its val log
@@ -1685,6 +1694,58 @@ def main() -> None:
             lambda: torch.autograd.grad(o_sdpa_b, (qh_b, kh_b, vh_b), doh_b, retain_graph=True))
            for f_ in ("fused", "split", "chunked")},
     })
+    # ViT-B's training variants (phase 19): row 13's gated training forward
+    # and backward (C; the backward's two row kernels without their LN) and
+    # row 14's backward (B; qkv, Dout 2304, and the adapter, Dout 192 with
+    # the erf GELU: the wide row kernel) at D=768, each case as the D=384 one
+    # of the same kernel (same faults and work formulas). Row 13's dh share
+    # has its own limit: a dg that rounds to the other bf16 neighbour moves
+    # its whole row of dh, and a row holds 3072 dg values here (sound
+    # 1.0-1.4 % on the card, 0.55 % at D=384; dg kept in f32 27-37 %).
+    dy_qkv_b, dy_ad_b = randn((rows, 3 * db_), 1.0), randn((x_ad_b.shape[0], a_out), 1.0)
+    BWD_LIMITS_B5 = (2e-3, 5e-2) + (2e-3,) * 4
+    cases.update({
+        "fused_mlp_train[D=768]": (
+            lambda: fused_mlp_train(x8_b, w1_b, b1_b, w2_b, b2_b, x_b, gate_r),
+            lambda: fused_mlp_plain(x8_b, w1_b, b1_b, w2_b, b2_b, x_b, gate=gate_r),
+            lambda: fused_mlp_plain(x8_b, w1_b, b1_b, w2_b, b2_b, x_b),
+            "gate ignored", (rel_l2,), (1e-3,), 10, 2,
+            nbytes(x8_b, w1_b, b1_b, w2_b, b2_b, x_b, gate_r) + nbytes(x_b), mlp_flops_b, None),
+        "fused_mlp_bwd[D=768]": (
+            lambda: dx_twice(fused_mlp_bwd(x8_b, w1_b, b1_b, w2_b, gate_r, dy_b)),
+            lambda: dx_twice(fused_mlp_bwd_plain(x8_b, w1_b, b1_b, w2_b, gate_r, dy_b)),
+            [lambda: dx_twice(fused_mlp_bwd_plain(x8_b, w1_b, b1_b, w2_b, None, dy_b)),
+             lambda: dg_f32(lambda: fused_mlp_bwd_plain(x8_b, w1_b, b1_b, w2_b, gate_r, dy_b),
+                            x8_b, w1_b, b1_b, w2_b, gate_r, dy_b)],
+            ["gate ignored", "dg kept in f32"], BWD_METRICS[5], BWD_LIMITS_B5, 5, 2,
+            3 * nbytes(x8_b) + nbytes(w1_b, b1_b, w2_b, gate_r)
+            + 4 * (db_ + hid_b + 2 * db_ * hid_b), 5 * mlp_flops_b // 2, None),
+        "fused_ln_dense_bwd[D=768]": (
+            lambda: dx_twice(fused_ln_dense_bwd(x_b, ln_b[0], ln_b[1], w_qkv_b, b_qkv_b,
+                                                dy_qkv_b)),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x_b, ln_b[0], ln_b[1], w_qkv_b, b_qkv_b,
+                                                      dy_qkv_b)),
+            [lambda: dx_twice(ln_dense_bwd_no_m2(x_b, ln_b[0], ln_b[1], w_qkv_b, b_qkv_b,
+                                                 dy_qkv_b)),
+             lambda: ln_dense_dx_moved(x_b, ln_b[:2], w_qkv_b, b_qkv_b, dy_qkv_b)],
+            ["no mean(dyg*xhat) term", "dxn rounded before the LN backward"],
+            BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
+            2 * nbytes(x_b) + nbytes(dy_qkv_b, ln_b[0], ln_b[1], w_qkv_b, b_qkv_b)
+            + 4 * (2 * db_ + 3 * db_ * db_ + 3 * db_), 2 * 2 * rows * db_ * 3 * db_, None),
+        # the adapters' instance: held, not listed (its launches count under
+        # fused_ln_dense_bwd[D=768])
+        "fused_ln_dense_bwd[adapter,D=768]": (
+            lambda: dx_twice(fused_ln_dense_bwd(x_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b, dy_ad_b,
+                                                gelu_mode="erf")),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b,
+                                                      dy_ad_b, gelu_mode="erf")),
+            [lambda: dx_twice(gelu_grad_skipped("fused_ln_dense", lambda: fused_ln_dense_bwd_plain(
+                x_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b, dy_ad_b, gelu_mode="erf"))),
+             lambda: ln_dense_dx_moved(x_ad_b, ln_b[:2], w_ad_b, b_ad_b, dy_ad_b, "erf")],
+            ["GELU' skipped", "dg kept in f32"], BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
+            2 * nbytes(x_ad_b) + nbytes(dy_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b)
+            + 4 * (2 * db_ + a_out * db_ + a_out), 3 * ad_flops_b, None),
+    })
     record = {}
 
     def bwd_split(fn, kinds, iters=3):
@@ -1724,7 +1785,7 @@ def main() -> None:
         return parts
 
     flash_parts = {"dk/dv": "flash_bwd_dkdv", "dq": "flash_bwd_dq", "wrapper": ""}
-    ln_dense_parts = {"rows": "ln_dense_bwd_kernel", "dW": "dw_gemm", "sums": ""}
+    ln_dense_parts = {"rows": "ln_dense_bwd", "dW": "dw_gemm", "sums": ""}  # either row kernel
 
     def check_kernels(cases):
         """Each case's kernel against its plain version and control; its
@@ -1782,16 +1843,18 @@ def main() -> None:
                       "layernorm_bwd[D=768]", "fused_ln_mlp_train[D=768]",
                       "fused_ln_mlp_bwd[D=768]", "flash_packed_bwd[12x64,D=768]",
                       "flash_packed_bwd_split[12x64,D=768]",
-                      "flash_packed_bwd_chunked[12x64,D=768]"))
-    # row 7 at D=768 by kernel: pass A (dh), pass B (the rows), the dW
-    # products, the column and split sums
-    parts_b = bwd_split(cases["fused_ln_mlp_bwd[D=768]"][0],
-                        {"dh": "ln_mlp_dh_kernel", "rows": "ln_mlp_bwd_wide_kernel",
-                         "dW": "dw_gemm", "sums": ""})
-    print("kernel fused_ln_mlp_bwd[D=768] by kernel (profiler trace, per call): "
-          + ", ".join(f"{k_} {t:.3f} ms" for k_, t in parts_b.items())
-          + f" (bound {record['fused_ln_mlp_bwd[D=768]']['bound_ms']:.4f} ms)  [{card}]",
-          flush=True)
+                      "flash_packed_bwd_chunked[12x64,D=768]", "fused_mlp_train[D=768]",
+                      "fused_mlp_bwd[D=768]", "fused_ln_dense_bwd[D=768]",
+                      "fused_ln_dense_bwd[adapter,D=768]"))
+    # rows 7 and 13 at D=768 by kernel: pass A (dh), pass B (the rows), the
+    # dW products, the column and split sums
+    for name in ("fused_ln_mlp_bwd[D=768]", "fused_mlp_bwd[D=768]"):
+        parts_b = bwd_split(cases[name][0],
+                            {"dh": "ln_mlp_dh_kernel", "rows": "ln_mlp_bwd_wide_kernel",
+                             "dW": "dw_gemm", "sums": ""})
+        print(f"kernel {name} by kernel (profiler trace, per call): "
+              + ", ".join(f"{k_} {t:.3f} ms" for k_, t in parts_b.items())
+              + f" (bound {record[name]['bound_ms']:.4f} ms)  [{card}]", flush=True)
     # the reference for the LN+MLP forwards (timed only, the port never
     # calls it): the same function as a chain of PyTorch calls in bf16,
     # F.layer_norm, F.linear, the GELU, F.linear and the residual (cuBLAS)
@@ -1840,6 +1903,14 @@ def main() -> None:
         y_ = F.gelu(y_) if mode == "erf" else y_
         return lambda: torch.autograd.grad(y_, leaves, dy_, retain_graph=True)
 
+    def mlp_chain_bwd(h_, w1_, b1_, w2_, b2_, gate_, dy_):
+        """The gated MLP without LN as a chain (F.linear, the erf GELU,
+        F.linear, gate), its backward by autograd."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in
+                  (h_, w1_, b1_.bfloat16(), w2_, b2_.bfloat16())]
+        y_ = F.linear(F.gelu(F.linear(*leaves[:3])), *leaves[3:]) * gate_.bfloat16()[:, None]
+        return lambda: torch.autograd.grad(y_, leaves, dy_, retain_graph=True)
+
     mlp_refs.update({
         "fused_ln_dense": torch.no_grad()(lambda: ln_dense_chain(x, ln, w_qkv, b_qkv)),
         "fused_ln_dense[adapter]": torch.no_grad()(
@@ -1862,7 +1933,13 @@ def main() -> None:
         "fused_ln_dense_bwd[adapter]": ln_dense_chain_bwd(x_ad, ln, w_ad, b_ad, dy_ad, "erf"),
         "fused_ln_dense_bwd[D=192]": ln_dense_chain_bwd(x_t, ln_t, w_qkv_t, b_qkv_t, dy_qkv_t),
         "fused_ln_dense_bwd[adapter,D=192]": ln_dense_chain_bwd(x_ad_t, ln_t, w_ad_t, b_ad_t,
-                                                                dy_ad_t, "erf")})
+                                                                dy_ad_t, "erf"),
+        "fused_mlp_train[D=768]": lambda: x_b + mlp_chain(
+            x8_b, w1_b, b1_b, w2_b, b2_b, "erf") * gate_r.bfloat16()[:, None],
+        "fused_mlp_bwd[D=768]": mlp_chain_bwd(x8_b, w1_b, b1_b, w2_b, b2_b, gate_r, dy_b),
+        "fused_ln_dense_bwd[D=768]": ln_dense_chain_bwd(x_b, ln_b, w_qkv_b, b_qkv_b, dy_qkv_b),
+        "fused_ln_dense_bwd[adapter,D=768]": ln_dense_chain_bwd(x_ad_b, ln_b, w_ad_b, b_ad_b,
+                                                                dy_ad_b, "erf")})
     # the patch embeds' reference: PatchEmbed.dense, a permute copy and one matmul
     mlp_refs.update({"patch_embed": lambda: pe_dense_chain(w_pe, b_pe),
                      "patch_embed[D=192]": lambda: pe_dense_chain(w_pe_t, b_pe_t),
@@ -1910,7 +1987,7 @@ def main() -> None:
     del x_b, mlp_b, qkv_b, q_b, k_b, v_b, bhtd_b, sdpa_b, gl_b, bl_b
     del x8_b, w1q_b, w2q_b, int8_args_b, w_qkv_b, b_qkv_b, x_ad_b, w_ad_b, b_ad_b, w_conv_b
     del x3_b, dy_b, dy3_b, train_b_args, xhat_b, inv_b, o_b, lse_b, do_b, xl_b, gl_bg, bl_bg
-    del y_ln_b, qh_b, kh_b, vh_b, doh_b, o_sdpa_b
+    del y_ln_b, qh_b, kh_b, vh_b, doh_b, o_sdpa_b, dy_qkv_b, dy_ad_b
     torch.cuda.empty_cache()
 
     # 4. the slice
@@ -2363,6 +2440,26 @@ def main() -> None:
         config_counts[cname] = serve_config(cname, vcfg, transport, per_req, config_failures)
     check(not config_failures, "; ".join(config_failures))
 
+    def step_groups(label, run_step, groups):
+        """One step's device time by kernel group, from a profiler trace (a
+        group's key is a substring of its kernels' names, the first that
+        matches takes a kernel, "other" the rest: PyTorch's own kernels)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_step()
+            torch.cuda.synchronize()
+        parts = dict.fromkeys(groups, 0.0)
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                parts[next(k_ for k_, key in groups.items() if key in ev.key)] += (
+                    ev.device_time_total / 1e3)
+        total = sum(parts.values())
+        print(f"{label}: one step's device time by kernel group (profiler trace): "
+              + (", ".join(f"{k_} {t:.2f} ms" for k_, t in parts.items())
+                 + f"; total {total:.2f} ms" if total > 0 else "not measured (empty trace)")
+              + f" [{card}]", flush=True)
+
     # 9. ViT training under B fuse_ln_dense and C use_fused_layernorm=False
     def adapter_no_gelu_grad(f):
         # B's control: the adapters' (erf GELU) LN + dense backward without GELU'
@@ -2386,12 +2483,15 @@ def main() -> None:
              lambda f: lambda h_, w1_, b1_, w2_, gate_, dy_: f(h_, w1_, b1_, w2_, None, dy_)),
             "MLP backward ignores the gate"),
     }
-    def train_config(cname, tcfg_, net_params, per_step_c, control, fault, steps=3):
+    def train_config(cname, tcfg_, net_params, per_step_c, control, fault, steps=3,
+                     groups=None):
         """Train the ViT under ``tcfg_`` from ``net_params``: one step's loss
         and gradients against the plain step, and the plain step with
         ``control`` (module, plain backward, fault) caught; then a warm-up
         and ``steps`` timed steps whose launch counts are ``per_step_c``
-        each. Returns the timed steps' counts."""
+        each; with ``groups`` (name: a substring of its kernels' names, the
+        first that matches takes a kernel), one more step's device time by
+        kernel group from a profiler trace. Returns the timed steps' counts."""
         c_mod, c_name, c_fault = control
         net = IntentNetViT(tcfg_.vit, tcfg_.heads, dtype=torch.bfloat16,
                            param_dtype=torch.float32)
@@ -2446,6 +2546,8 @@ def main() -> None:
               f"{[round(t, 2) for t in step_ms]}; {ms_step:.2f} ms/step, "
               f"{batch / ms_step * 1e3:.2f} samples/s at batch {batch}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+        if groups is not None:
+            step_groups(f"config {cname} train", lambda: cstep_(tbatch, tgen), groups)
         del net, cstep_, metrics
         torch.cuda.empty_cache()
         return counts
@@ -3819,29 +3921,31 @@ def main() -> None:
           f"{[round(t, 2) for t in step_ms]}; {vb_ms:.2f} ms/step, {batch / vb_ms * 1e3:.2f} "
           f"samples/s at batch {batch} (phase 5's ViT-S {vit_step_ms:.2f} ms/step); peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
-    # the step's device time by kernel group (a profiler trace of one step;
-    # a group's key is a substring of its kernels' names, the first that
-    # matches takes a kernel, "other" the rest: PyTorch's own kernels)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # the step's device time by kernel group (rows 6 and 7 are the LN+MLP
+    # kernels; under C row 13's are the same kernels without their LN)
     groups_vb = {"attention fwd": "flash_fwd", "attention bwd": "flash_bwd",
                  "LN+MLP fwd": "ln_mlp_wide_kernel", "LN+MLP bwd rows": "ln_mlp_",
+                 "LN+dense fwd": "ln_dense_fwd", "LN+dense bwd rows": "ln_dense_bwd",
                  "dW products": "dw_gemm", "LN": "layernorm", "other": ""}
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step_vb(tbatch, vgen)
-        torch.cuda.synchronize()
-    step_parts = dict.fromkeys(groups_vb, 0.0)
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            step_parts[next(k_ for k_, key in groups_vb.items() if key in ev.key)] += (
-                ev.device_time_total / 1e3)
-    trace_ms = sum(step_parts.values())
-    print("ViT-B train: one step's device time by kernel group (profiler trace): "
-          + (", ".join(f"{k_} {t:.2f} ms" for k_, t in step_parts.items())
-             + f"; total {trace_ms:.2f} ms" if trace_ms > 0 else "not measured (empty trace)")
-          + f" [{card}]", flush=True)
+    step_groups("ViT-B train", lambda: step_vb(tbatch, vgen), groups_vb)
     del metrics, opt_vb, step_vb, model_vb
     torch.cuda.empty_cache()
+
+    # ViT-B under B fuse_ln_dense and C use_fused_layernorm=False: phase 9's
+    # rule (one step against the plain step, its control caught: B the
+    # adapters' backward without GELU', C the MLP backward ignoring the
+    # gate; then a warm-up and 3 timed steps with phase 9's exact counts),
+    # the backwards of rows 14 (B) and 13 (C) at D=768, and one step's
+    # device time by kernel group
+    t19v = time.perf_counter()
+    kernel_steps = {}  # train_config keeps each kernel step here; only phase 16 read them
+    vitb_variant_train = {
+        cname: train_config(f"ViT-B {cname}", vit_serving_variant(vb_cfg, variant)[0], params_vb,
+                            per_step_c, control, fault, groups=groups_vb)
+        for cname, (variant, per_step_c, control, fault) in train_by_config.items()}
+    vitb_train_b, vitb_train_c = vitb_variant_train.values()
+    del kernel_steps
+    print(f"ViT-B train under B and C took {time.perf_counter() - t19v:.1f} s", flush=True)
 
     # train() on a small split written by the synthetic dataset example (1
     # train log of 17 frames: 8 sequences, one batch an epoch), a checkpoint,
@@ -3996,12 +4100,12 @@ def main() -> None:
              vitb_runs),
             ("layernorm[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:39", vitb_runs),
             ("flash_packed[12x64,D=768]", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
-             (vitb_counts["ViT-B"], *vitb_variant_counts.values())),
+             (vitb_counts["ViT-B"], *vitb_variant_counts.values(), vitb_train_b, vitb_train_c)),
             # the D=768 instances ViT-B's serving variants run (phase 18)
             ("fused_mlp_int8[D=768]", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
              (vitb_a,)),
             ("fused_ln_dense[D=768]", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:56",
-             (vitb_b,)),
+             (vitb_b, vitb_train_b)),
             ("fused_mlp[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103", (vitb_c,)),
             ("patch_embed[D=768]", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
              (vitb_d,)),
@@ -4009,15 +4113,22 @@ def main() -> None:
              "intentbev/ops/flash_packed.py:157 (safe=False)", (vitb_counts["ViT-B fixed"],)),
             # the D=768 / 12x64 instances ViT-B's training path runs (phase 19)
             ("layernorm_train[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:53",
-             (vitb_train_counts, vitb_loop_counts)),
+             (vitb_train_counts, vitb_loop_counts, vitb_train_b)),
             ("layernorm_bwd[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             (vitb_train_counts, vitb_loop_counts)),
+             (vitb_train_counts, vitb_loop_counts, vitb_train_b)),
             ("fused_ln_mlp_train[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
-             (vitb_train_counts, vitb_loop_counts, vitb_b)),
+             (vitb_train_counts, vitb_loop_counts, vitb_b, vitb_train_b)),
             ("fused_ln_mlp_bwd[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
-             (vitb_train_counts, vitb_loop_counts)),
-            ("flash_packed_bwd[12x64,D=768]", "flash_packed.cu",
-             "intentbev/ops/flash_packed.py:523", (vitb_train_counts, vitb_loop_counts)),
+             (vitb_train_counts, vitb_loop_counts, vitb_train_b)),
+            ("flash_packed_bwd[12x64,D=768]", "flash_packed.cu", "intentbev/ops/flash_packed.py:523",
+             (vitb_train_counts, vitb_loop_counts, vitb_train_b, vitb_train_c)),
+            # the D=768 instances ViT-B's training variants run (phase 19)
+            ("fused_mlp_train[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103",
+             (vitb_train_c,)),
+            ("fused_mlp_bwd[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:148",
+             (vitb_train_c,)),
+            ("fused_ln_dense_bwd[D=768]", "fused_ln_dense.cu",
+             "intentbev/ops/fused_ln_dense.py:94", (vitb_train_b,)),
             ("flash_packed_bwd_split[12x64,D=768]", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (vitb_form_counts["split"],)),
             ("flash_packed_bwd_chunked[12x64,D=768]", "flash_packed.cu",
@@ -4058,7 +4169,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 68 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 71 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

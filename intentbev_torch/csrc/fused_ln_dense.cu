@@ -1,8 +1,7 @@
 // Fused LayerNorm + dense [+ GELU] on Hopper, forward and training backward:
 // the qkv projection with norm1 folded in (x [36008, D] -> [36008, 3D]) and
 // the stream adapters LN -> Linear -> GELU ([36000, D] -> [36000, 192]), at
-// the model widths D = 384 (ViT-S) and 192 (ViT-Ti); the forward also at 768
-// (ViT-B).
+// the model widths D = 768 (ViT-B), 384 (ViT-S) and 192 (ViT-Ti).
 //
 // Forward. Replaces intentbev/ops/fused_ln_dense.py::_fwd_kernel:
 //      xn = LN(x) * gamma + beta;  y = [GELU](xn W^T + b)
@@ -298,6 +297,29 @@ extern "C" int ibk_fused_ln_dense(const void* x, const void* gamma, const void* 
 // fixed order (col_sums_kernel, split_sums_kernel): deterministic, no
 // atomics. Rows past n_rows land as TMA's zeros (dy = 0, so dg and dxn are 0)
 // and are not stored.
+// At D = 768 (ViT-B) the row kernel above cannot fit: 128 rows of x are 192
+// KB, and a consumer's whole [64, D] dxn would be 384 registers. So
+// ln_dense_bwd_wide_kernel, as the forward at 768 and the LN+MLP backward's
+// wide row kernel: a block owns 64 rows (96 KB, normed in place by both
+// consumers' eight warps, 563 blocks at 36008 rows), and both consumers work
+// on them, each holding dxn for its half of D ([64, 384] f32, 192
+// registers, what the narrow kernel holds at 384). Per Dout tile of 32, in a
+// 2-slot ring of the W tile [32, 768] and the dy tile [64, 32] (52 KB a
+// slot): without GELU each consumer runs dxn[:, half] += dy_tile W_tile[:,
+// half] (two m64n192 products across its six column boxes) and a producer
+// warp sums db from the landed dy tiles; with GELU each consumer first
+// computes 16 of the tile's 32 columns of g = xn W_tile^T (m64n16, K = 768:
+// split by N, so no partials cross), writes dg = dy GELU'(g + b) rounded to
+// bf16 into one shared dg tile (TMA-stored to dg_ws) with db's column sums
+// from the f32 dg, and once both halves are in (a named barrier) both run
+// the dxn product from it. The LN backward's row sums (of dxn gamma and dxn
+// gamma xhat) are each consumer's over its 384 columns, added across the two
+// through shared memory in a fixed order; dx = inv (dxn gamma - m1 - xhat
+// m2) over x reloaded into the drained ring, TMA-stored; dgamma / dbeta
+// block partials, then the same col_sums_kernel and dw_gemm_kernel. The
+// rounding points are the narrow kernel's. Bound at 36008 rows: qkv (Dout
+// 2304) 2 products, 254.9 GFLOP, 0.2577 ms (operations); the adapter (Dout
+// 192, erf) 3 products, 31.9 GFLOP (0.032 ms) against 125 MB (0.0373 ms).
 // ---------------------------------------------------------------------------
 namespace {
 
@@ -643,6 +665,355 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (wt == 0) hopper::bulk_wait_read();  // the dx stores have read the tile
 }
 
+// The wide row kernel's shared memory at width D, from a 1024-byte boundary:
+// the block's 64 rows (x, then xn; D / 64 column blocks of [64][64]), S ring
+// slots (the W tile: D / 64 boxes [32][64]; the dy tile [64][32], 64-byte
+// rows), with GELU the shared dg tile ([64][32] bf16, 64-byte rows swizzled
+// as TMA stores them) and db's warp partials, the rows' LN statistics, the
+// consumers' row sums, the barriers. Once the ring drains it takes x again,
+// and the rows' area the column partials.
+template <int D, bool GELU>
+struct BwdWideTiles {
+  static constexpr int ROWS = 64;
+  static constexpr int XBLK = ROWS * 128;  // one 64-column block of the rows
+  static constexpr int NH = D / 2;         // dxn columns of a consumer
+  static constexpr int S = 2;
+  static constexpr int WBOX = BN * 128;
+  static constexpr int W_TILE = D / 64 * WBOX, DY_TILE = ROWS * BN * 2;
+  static constexpr int SLOT = W_TILE + DY_TILE;
+  static constexpr int ROWS_B = D / 64 * XBLK;
+  static constexpr int RING = ROWS_B, DG = RING + S * SLOT;
+  static constexpr int RED = DG + (GELU ? DY_TILE : 0);            // [2 consumers][4 warps][16]
+  static constexpr int STATS = RED + (GELU ? 2 * 4 * 16 * 4 : 0);  // mean [64], inv [64]
+  static constexpr int RSUM = STATS + 2 * ROWS * 4;                // [2 consumers][64][2]
+  static constexpr int BARS = RSUM + 2 * ROWS * 2 * 4;
+  static constexpr int N_BARS = 2 + 2 * S;
+  static constexpr int BYTES = BARS + N_BARS * 8 + 1024;  // + alignment slack
+  static_assert(NH % FN == 0 && BYTES <= 232448, "width outside the kernel's tiling");
+  static_assert(ROWS_B <= S * SLOT, "x reloads into the drained ring");
+  static_assert(8 * NH * 2 * 4 <= RING, "the column partials fit over the rows");
+  static_assert(SLOT % 1024 == 0, "ring slots stay aligned to their swizzle");
+};
+
+// The maps and partials of ln_dense_bwd_kernel, with mdy's boxes [64, 32]
+// and part_db [blocks][dout] (the block's 64 rows).
+template <int D, bool GELU>
+__global__ void __launch_bounds__(THREADS, 1)
+    ln_dense_bwd_wide_kernel(const __grid_constant__ CUtensorMap mx,
+                             const __grid_constant__ CUtensorMap mw,
+                             const __grid_constant__ CUtensorMap mdy,
+                             const __grid_constant__ CUtensorMap mxn,
+                             const __grid_constant__ CUtensorMap mdg,
+                             const __grid_constant__ CUtensorMap mdx,
+                             const float* __restrict__ gamma, const float* __restrict__ beta,
+                             const float* __restrict__ bias, float* __restrict__ part_db,
+                             float* __restrict__ part_cols, int dout, float eps) {
+  using L = BwdWideTiles<D, GELU>;
+  constexpr int S = L::S, NH = L::NH, Q = NH / FN, ROWS_ = L::ROWS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* xfull = bar;      // the rows
+  uint64_t* again = bar + 1;  // them again, for the LN epilogue
+  uint64_t* full = bar + 2;
+  uint64_t* empty = full + S;
+  float* stats = reinterpret_cast<float*>(sm + L::STATS);
+  float* rsum = reinterpret_cast<float*>(sm + L::RSUM);
+
+  // the warpgroup through a shuffle: warp-uniform to the compiler
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0), lane = tid % 32;
+  const int row0 = blockIdx.x * ROWS_, nb = gridDim.x;
+  const int tiles = dout / BN;
+  if (tid == 0) {
+    hopper::mbar_init(xfull, 1);
+    hopper::mbar_init(again, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      // each consumer warp after its products; without GELU also the warp
+      // that sums db
+      hopper::mbar_init(&empty[s], GELU ? 8 : 9);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const int pw = (tid - 256) / 32;
+    if (tid == 256) {  // one thread issues every load
+      hopper::mbar_arrive_expect_tx(xfull, L::ROWS_B);
+      for (int b = 0; b < D / 64; ++b)
+        hopper::tma_load_2d(sm + b * L::XBLK, &mx, xfull, 64 * b, row0);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % S;
+        hopper::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], L::SLOT);
+        uint8_t* slot = sm + L::RING + s * L::SLOT;
+        for (int b = 0; b < D / 64; ++b)
+          hopper::tma_load_2d(slot + b * L::WBOX, &mw, &full[s], 64 * b, BN * j);
+        hopper::tma_load_2d(slot + L::W_TILE, &mdy, &full[s], BN * j, row0);
+      }
+      // every slot's last tile released: x again into the ring
+      for (int j = max(tiles - S, 0); j < tiles; ++j)
+        hopper::mbar_wait(&empty[j % S], (j / S) & 1);
+      hopper::mbar_arrive_expect_tx(again, L::ROWS_B);
+      for (int b = 0; b < D / 64; ++b)
+        hopper::tma_load_2d(sm + L::RING + b * L::XBLK, &mx, again, 64 * b, row0);
+    } else if (!GELU && pw == 1) {
+      // db = the column sums of dy (dg = dy) over the block's 64 rows: lane
+      // l sums columns c = 2 (l % 16), + 1 over rows 32 (l / 16) .. + 31
+      // (row r's pair at r * 64 + (c / 8 ^ r / 2 % 4) * 16 + c % 8 * 2 of the
+      // tile), and the two half-warps' sums are added
+      const int c = 2 * (lane % 16), r0 = 32 * (lane / 16);
+      const uint32_t t0 = hopper::smem_u32(sm + L::RING + L::W_TILE) + r0 * 64 + (c % 8) * 2;
+      float* out = part_db + (size_t)blockIdx.x * dout + c;
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % S;
+        hopper::mbar_wait(&full[s], (j / S) & 1);
+        const uint32_t t = t0 + s * L::SLOT;
+        float2 sum = make_float2(0.f, 0.f);
+#pragma unroll 4
+        for (int r = 0; r < 32; ++r) {
+          const float2 v = lds_bf16x2(t + r * 64 + (((c >> 3) ^ ((r >> 1) & 3)) << 4));
+          sum.x += v.x;
+          sum.y += v.y;
+        }
+        sum.x += __shfl_xor_sync(0xffffffffu, sum.x, 16);
+        sum.y += __shfl_xor_sync(0xffffffffu, sum.y, 16);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+        if (lane < 16) *reinterpret_cast<float2*>(out + BN * j) = sum;
+      }
+    }
+    return;
+  }
+
+  // consumers: both on the block's 64 rows, each on half of D
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wt = tid % 128, warp = wt / 32, cw = tid / 32;  // cw: warp of both, 0..7
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool issuer = tid == 0;  // issues the TMA stores
+  const uint32_t sbase = hopper::smem_u32(sm);
+
+  // 1. xn = LN(x) in place, 8 rows a warp, TMA-stored to xn_ws for dW
+  hopper::mbar_wait(xfull, 0);
+  ln_in_place<D, L::XBLK, ROWS_ / 8>(sm, cw, lane, gamma, beta, eps, stats, ROWS_);
+  hopper::fence_proxy_async();  // the wgmma reads and TMA stores are async-proxy reads
+  hopper::named_sync(3, 256);   // every row is read by both consumers
+  if (issuer) {
+    for (int b = 0; b < D / 64; ++b)
+      hopper::tma_store_2d(&mxn, sm + b * L::XBLK, 64 * b, row0);
+    hopper::bulk_commit();
+  }
+
+  // 2. the Dout tiles
+  float acc[Q][FN / 2];  // dxn: row 16 warp + g (+8), column NH wg + 192 q + 8n + 2t4 (+1)
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int i = 0; i < FN / 2; ++i) acc[q][i] = 0.f;
+  const int la = 16 * warp + g, lb = la + 8;
+  auto release = [&](int j) {
+    if (lane == 0) hopper::mbar_arrive(&empty[j % S]);
+  };
+  // acc += dg W_tile[:, this consumer's half]: A the shared dg tile (GELU)
+  // or the slot's dy tile, K-major (64-byte rows); B the W tile MN-major, N
+  // = 192 across three column boxes. Descriptor bases opaque to the
+  // compiler: else it keeps every k-step's descriptor live across the loop.
+  auto dxn = [&](int s) {
+    uint32_t a0 = sbase + (GELU ? L::DG : L::RING + s * L::SLOT + L::W_TILE);
+    uint32_t b0 = sbase + L::RING + s * L::SLOT + NH / 64 * wg * L::WBOX;
+    asm volatile("" : "+r"(a0), "+r"(b0));
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        hopper::wgmma_sst<FN, 0, 1>(
+            acc[q], hopper::desc_kmajor_at<64>(a0 + kk * 32),
+            hopper::desc_mnmajor_at<128>(b0 + 3 * q * L::WBOX + kk * 16 * 128, L::WBOX), 1);
+  };
+
+  if constexpr (!GELU) {
+    for (int j = 0; j < tiles; ++j) {
+      hopper::mbar_wait(&full[j % S], (j / S) & 1);
+      hopper::wgmma_fence();
+      dxn(j % S);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // tile j - 1's products have landed: its slot is free
+      if (j > 0) release(j - 1);
+    }
+  } else {
+    float gacc[8];  // g of this consumer's 16 columns: row la (lb), column 16 wg + 8n + 2t4 (+1)
+    float* red = reinterpret_cast<float*>(sm + L::RED) + wg * 4 * 16;  // [4 warps][16]
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % S;
+      hopper::mbar_wait(&full[s], (j / S) & 1);
+      {  // g = xn W_tile[16 wg .. + 15]^T: A the rows, B the W tile, both K-major
+        uint32_t a0 = sbase, b0 = sbase + L::RING + s * L::SLOT + wg * 16 * 128;
+        asm volatile("" : "+r"(a0), "+r"(b0));
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_sst<16, 0, 0>(
+              gacc, hopper::desc_kmajor_at<128>(a0 + (kk >> 2) * L::XBLK + (kk & 3) * 32),
+              hopper::desc_kmajor_at<128>(b0 + (kk >> 2) * L::WBOX + (kk & 3) * 32), kk > 0);
+        hopper::wgmma_commit();
+      }
+      hopper::wgmma_wait<0>();  // and tile j - 1's dxn: its slot is free
+      hopper::fence_regs(gacc);
+      if (j > 0) release(j - 1);
+      if (issuer) hopper::bulk_wait_read();  // tile j - 1's dg store has read the tile
+      hopper::named_sync(3, 256);  // both consumers' dxn of tile j - 1 have read it
+      // dg = dy GELU'(g + b) in f32 at this consumer's 16 columns: its
+      // column sums over the warp's 16 rows (db), rounded to bf16 into the
+      // dg tile. Element (r, c) of a [64][32] tile of 64-byte rows lies at r
+      // * 64 + (c / 8 ^ r / 2 % 4) * 16 + c % 8 * 2: for column 16 wg + 8n +
+      // 2 t4 of rows la and lb = la + 8, a row offset + ((2 wg + n ^ key) *
+      // 16), the same key.
+      const uint32_t dys = sbase + L::RING + s * L::SLOT + L::W_TILE;
+      const uint32_t dgs = sbase + L::DG;
+      const int row_a = la * 64 + 4 * t4, key = (la >> 1) & 3;
+      const float* bj = bias + BN * j + 16 * wg + 2 * t4;
+      static_for<2>([&](auto n_) {
+        constexpr int n = decltype(n_)::value;
+        asm volatile("" : "+l"(bj));
+        const int off = row_a + (((2 * wg + n) ^ key) << 4);
+        const float2 bb = *reinterpret_cast<const float2*>(bj + 8 * n);
+        const float2 da = lds_bf16x2(dys + off), db = lds_bf16x2(dys + off + 512);
+        const float g0 = da.x * dgelu_erf(gacc[4 * n] + bb.x);
+        const float g1 = da.y * dgelu_erf(gacc[4 * n + 1] + bb.y);
+        const float g2 = db.x * dgelu_erf(gacc[4 * n + 2] + bb.x);
+        const float g3 = db.y * dgelu_erf(gacc[4 * n + 3] + bb.y);
+        sts_b32(dgs + off, pack_bf16x2(g0, g1));
+        sts_b32(dgs + off + 512, pack_bf16x2(g2, g3));
+        float s0 = g0 + g2, s1 = g1 + g3;
+#pragma unroll
+        for (int o = 4; o <= 16; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (g == 0) *reinterpret_cast<float2*>(red + warp * 16 + 8 * n + 2 * t4) = make_float2(s0, s1);
+      });
+      hopper::fence_proxy_async();
+      hopper::named_sync(3, 256);  // the dg tile and db's warp sums are whole
+      if (issuer) {
+        hopper::tma_store_2d(&mdg, sm + L::DG, BN * j, row0);
+        hopper::bulk_commit();
+      }
+      if (wt < 16)
+        part_db[(size_t)blockIdx.x * dout + BN * j + 16 * wg + wt] =
+            ((red[wt] + red[16 + wt]) + red[32 + wt]) + red[48 + wt];
+      hopper::wgmma_fence();
+      dxn(s);
+      hopper::wgmma_commit();
+    }
+  }
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int q = 0; q < Q; ++q) hopper::fence_regs(acc[q]);
+  release(tiles - 1);
+
+  // 3. epilogue: rows la, lb of this thread's values; x again in the ring,
+  //    dx in its place; the column partials over the rows (whose xn and dg
+  //    stores have read their tiles). Column c = NH wg + 8i + 2t4 of row la
+  //    lies at (c / 64) XBLK + la * 128 + ((i % 8 ^ g) * 16) + 4 t4 of the
+  //    ring; lb is 1024 bytes on.
+  hopper::mbar_wait(again, 0);
+  if (issuer) hopper::bulk_wait_read();
+  hopper::named_sync(3, 256);
+  const float ma = stats[la], ia = stats[ROWS_ + la];
+  const float mb = stats[lb], ib = stats[ROWS_ + lb];
+  // The row base, the swizzle key and the gamma pointer are made opaque to
+  // the compiler at each pass (the pointer every four column groups): else
+  // it keeps the passes' addresses or loads ahead in registers the
+  // accumulator needs.
+  const float* gp = gamma + NH * wg;
+  uint32_t xa0 = sbase + L::RING + NH / 64 * wg * L::XBLK + la * 128 + 4 * t4;
+  int key = g;
+  auto at = [&](auto i) {
+    constexpr int I = decltype(i)::value;
+    if constexpr (I % 4 == 0) asm volatile("" : "+l"(gp), "+r"(key));
+    return xa0 + (I / 8) * L::XBLK + (((I % 8) ^ key) << 4);
+  };
+  asm volatile("" : "+r"(xa0));
+  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;  // this half's row sums of dyg, dyg xhat
+  static_for<NH / 8>([&](auto i) {
+    constexpr int q = decltype(i)::value / (FN / 8), n = decltype(i)::value % (FN / 8);
+    const int c = 8 * decltype(i)::value + 2 * t4;
+    const uint32_t pa = at(i);
+    const float2 gg = make_float2(gp[c], gp[c + 1]);
+    const float2 xa = lds_bf16x2(pa), xb = lds_bf16x2(pa + 1024);
+    const float ya0 = acc[q][4 * n] * gg.x, ya1 = acc[q][4 * n + 1] * gg.y;
+    const float yb0 = acc[q][4 * n + 2] * gg.x, yb1 = acc[q][4 * n + 3] * gg.y;
+    s1a += ya0 + ya1;
+    s1b += yb0 + yb1;
+    s2a += ya0 * ((xa.x - ma) * ia) + ya1 * ((xa.y - ma) * ia);
+    s2b += yb0 * ((xb.x - mb) * ib) + yb1 * ((xb.y - mb) * ib);
+  });
+  s1a = quad_sum(s1a);
+  s2a = quad_sum(s2a);
+  s1b = quad_sum(s1b);
+  s2b = quad_sum(s2b);
+  if (t4 == 0) {
+    rsum[(wg * ROWS_ + la) * 2] = s1a;
+    rsum[(wg * ROWS_ + la) * 2 + 1] = s2a;
+    rsum[(wg * ROWS_ + lb) * 2] = s1b;
+    rsum[(wg * ROWS_ + lb) * 2 + 1] = s2b;
+  }
+  hopper::named_sync(3, 256);  // both halves' row sums are in
+  const float m1a = (rsum[la * 2] + rsum[(ROWS_ + la) * 2]) * (1.f / D);
+  const float m2a = (rsum[la * 2 + 1] + rsum[(ROWS_ + la) * 2 + 1]) * (1.f / D);
+  const float m1b = (rsum[lb * 2] + rsum[(ROWS_ + lb) * 2]) * (1.f / D);
+  const float m2b = (rsum[lb * 2 + 1] + rsum[(ROWS_ + lb) * 2 + 1]) * (1.f / D);
+  asm volatile("" : "+r"(xa0));
+  // this warp's column partials [NH][2] (dgamma, dbeta) over the rows' area
+  uint32_t cs = sbase + cw * NH * 2 * 4 + 8 * 2 * t4;
+  static_for<NH / 8>([&](auto i) {
+    constexpr int q = decltype(i)::value / (FN / 8), n = decltype(i)::value % (FN / 8);
+    const int c = 8 * decltype(i)::value + 2 * t4;
+    const uint32_t pa = at(i);
+    const float2 gg = make_float2(gp[c], gp[c + 1]);
+    const float2 xa = lds_bf16x2(pa), xb = lds_bf16x2(pa + 1024);
+    const float ha0 = (xa.x - ma) * ia, ha1 = (xa.y - ma) * ia;
+    const float hb0 = (xb.x - mb) * ib, hb1 = (xb.y - mb) * ib;
+    sts_b32(pa, pack_bf16x2(ia * (acc[q][4 * n] * gg.x - m1a - ha0 * m2a),
+                            ia * (acc[q][4 * n + 1] * gg.y - m1a - ha1 * m2a)));
+    sts_b32(pa + 1024, pack_bf16x2(ib * (acc[q][4 * n + 2] * gg.x - m1b - hb0 * m2b),
+                                   ib * (acc[q][4 * n + 3] * gg.y - m1b - hb1 * m2b)));
+    float cg0 = acc[q][4 * n] * ha0 + acc[q][4 * n + 2] * hb0;
+    float cg1 = acc[q][4 * n + 1] * ha1 + acc[q][4 * n + 3] * hb1;
+    float cb0 = acc[q][4 * n] + acc[q][4 * n + 2], cb1 = acc[q][4 * n + 1] + acc[q][4 * n + 3];
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1) {  // the warp's 16 rows
+      cg0 += __shfl_xor_sync(0xffffffffu, cg0, o);
+      cg1 += __shfl_xor_sync(0xffffffffu, cg1, o);
+      cb0 += __shfl_xor_sync(0xffffffffu, cb0, o);
+      cb1 += __shfl_xor_sync(0xffffffffu, cb1, o);
+    }
+    if (g == 0) sts_f4(cs + 8 * 8 * decltype(i)::value, make_float4(cg0, cb0, cg1, cb1));
+  });
+  hopper::fence_proxy_async();
+  hopper::named_sync(3, 256);  // dx and every warp's column partials are in
+  if (issuer) {
+    for (int b = 0; b < D / 64; ++b)
+      hopper::tma_store_2d(&mdx, sm + L::RING + b * L::XBLK, 64 * b, row0);
+    hopper::bulk_commit();
+  }
+  const float* cwp = reinterpret_cast<const float*>(sm);
+  for (int c = tid; c < D; c += 256) {  // the warps' sums of c's half, in warp order
+    const float* w0 = cwp + (c / NH) * 4 * NH * 2 + (c % NH) * 2;
+    float sg = 0.f, sb = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      sg += w0[w * NH * 2];
+      sb += w0[w * NH * 2 + 1];
+    }
+    part_cols[(size_t)blockIdx.x * D + c] = sg;
+    part_cols[((size_t)nb + blockIdx.x) * D + c] = sb;
+  }
+  if (issuer) hopper::bulk_wait_read();  // the dx stores have read the ring
+}
+
 // The row kernel, the block partials' sums, then dW = dg^T xn and its split
 // sums.
 template <int D, bool GELU>
@@ -650,32 +1021,43 @@ int ln_dense_bwd(const void* x, const void* gamma, const void* beta, const void*
                  const void* bias, const void* dy, void* dx, void* dgamma, void* dbeta,
                  void* dw, void* dbias, void* xn_ws, void* dg_ws, void* part, int n_rows,
                  int dout, float eps, int splits, cudaStream_t s) {
-  using L = BwdTiles<D, GELU>;
+  // D = 768: the wide row kernel, 64 rows a block and one db partial a
+  // block; else 128 rows, one db partial a consumer
+  constexpr bool WIDE = D == 768;
+  constexpr int R = WIDE ? 64 : ROWS, DB_PARTS = R / 64;
   const void* dg = GELU ? dg_ws : dy;  // the dW product's P
   CUtensorMap mx, mw, mdy, mxn, mdg, mdx;
   int err;
   if ((err = hopper::encode_2d(&mx, x, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&mw, w, dout, D, BN, 64)) ||
-      (err = hopper::encode_2d(&mdy, dy, n_rows, dout, ROWS, BN)) ||
+      (err = hopper::encode_2d(&mdy, dy, n_rows, dout, R, BN)) ||
       (err = hopper::encode_2d(&mxn, xn_ws, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&mdg, dg, n_rows, dout, 64, BN)) ||
       (err = hopper::encode_2d(&mdx, dx, n_rows, D, 64, 64)))
     return err;
-  static bool ok = false, ok_dw = false;  // the shared-memory limits are raised once
-  if ((err = raise_once(ln_dense_bwd_kernel<D, GELU>, L::BYTES, ok)) ||
-      (err = raise_once(dw_gemm_kernel, DW_BYTES, ok_dw)))
-    return err;
-  const int nb = (n_rows + ROWS - 1) / ROWS;
+  const int nb = (n_rows + R - 1) / R;
   float* p_db = (float*)part;
-  float* p_cols = p_db + (size_t)2 * nb * dout;  // [2][nb][D]
-  ln_dense_bwd_kernel<D, GELU><<<nb, THREADS, L::BYTES, s>>>(
-      mx, mw, mdy, mxn, mdg, mdx, (const float*)gamma, (const float*)beta, (const float*)bias,
-      p_db, p_cols, dout, eps);
+  float* p_cols = p_db + (size_t)DB_PARTS * nb * dout;  // [2][nb][D]
+  static bool ok = false, ok_dw = false;  // the shared-memory limits are raised once
+  if ((err = raise_once(dw_gemm_kernel, DW_BYTES, ok_dw))) return err;
+  if constexpr (WIDE) {
+    using L = BwdWideTiles<D, GELU>;
+    if ((err = raise_once(ln_dense_bwd_wide_kernel<D, GELU>, L::BYTES, ok))) return err;
+    ln_dense_bwd_wide_kernel<D, GELU><<<nb, THREADS, L::BYTES, s>>>(
+        mx, mw, mdy, mxn, mdg, mdx, (const float*)gamma, (const float*)beta, (const float*)bias,
+        p_db, p_cols, dout, eps);
+  } else {
+    using L = BwdTiles<D, GELU>;
+    if ((err = raise_once(ln_dense_bwd_kernel<D, GELU>, L::BYTES, ok))) return err;
+    ln_dense_bwd_kernel<D, GELU><<<nb, THREADS, L::BYTES, s>>>(
+        mx, mw, mdy, mxn, mdg, mdx, (const float*)gamma, (const float*)beta, (const float*)bias,
+        p_db, p_cols, dout, eps);
+  }
   if ((err = (int)cudaGetLastError())) return err;
   ColSums cs = {{p_db, p_cols, p_cols + (size_t)nb * D, nullptr},
                 {(float*)dbias, (float*)dgamma, (float*)dbeta, nullptr},
                 {dout, D, D, 0},
-                {2 * nb, nb, nb, 0}};
+                {DB_PARTS * nb, nb, nb, 0}};
   col_sums_kernel<<<dim3((std::max(dout, D) + 31) / 32, 3), 256, 0, s>>>(cs);
   if ((err = (int)cudaGetLastError())) return err;
 
@@ -698,12 +1080,13 @@ int ln_dense_bwd(const void* x, const void* gamma, const void* beta, const void*
 
 }  // namespace
 
-// Backward of ibk_fused_ln_dense (gelu_mode -1 none, 0 exact erf GELU), d 384
-// or 192, dout a multiple of 64. Outputs: dx bf16 [n_rows, d]; dgamma, dbeta
-// f32 [d]; dw f32 [dout, d]; dbias f32 [dout]. Workspaces: xn_ws bf16
+// Backward of ibk_fused_ln_dense (gelu_mode -1 none, 0 exact erf GELU), d 768,
+// 384 or 192, dout a multiple of 64. Outputs: dx bf16 [n_rows, d]; dgamma,
+// dbeta f32 [d]; dw f32 [dout, d]; dbias f32 [dout]. Workspaces: xn_ws bf16
 // [n_rows, d]; dg_ws bf16 [n_rows, dout] (GELU only); part f32 of
-// max(splits * dout * d, 2 * ceil(n_rows / 128) * (dout + d)). splits: the
-// row splits of the dW product (ops/fused_ln_dense.py).
+// max(splits * dout * d, ceil(n_rows / R) * (R / 64 * dout + 2 * d)), R the
+// row kernel's block (64 at d = 768, else 128). splits: the row splits of
+// the dW product (ops/fused_ln_dense.py).
 extern "C" int ibk_fused_ln_dense_bwd(const void* x, const void* gamma, const void* beta,
                                       const void* w, const void* bias, const void* dy,
                                       void* dx, void* dgamma, void* dbeta, void* dw,
@@ -714,7 +1097,7 @@ extern "C" int ibk_fused_ln_dense_bwd(const void* x, const void* gamma, const vo
     return (int)cudaErrorInvalidValue;
   if (n_rows <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  return by_width<384, 192>(d, [&](auto wd) {
+  return by_width<768, 384, 192>(d, [&](auto wd) {
     constexpr int D = decltype(wd)::value;
     if (gelu_mode < 0)
       return ln_dense_bwd<D, false>(x, gamma, beta, w, bias, dy, dx, dgamma, dbeta, dw, dbias,

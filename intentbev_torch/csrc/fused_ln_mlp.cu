@@ -19,9 +19,9 @@
 // The model width D is a template parameter, instantiated at 384 (ViT-S)
 // and 192 (ViT-Ti) for every kernel; 1-3 and 4 also at 768 (ViT-B): the
 // forwards by a kernel of their own whose consumers split the output columns
-// (ln_mlp_wide_kernel, below the narrow forward), the backward of 2 by two
-// row kernels, one for dh = dy_eff W2 and one for the rest (below the narrow
-// backward). The hidden width is any multiple of 64.
+// (ln_mlp_wide_kernel, below the narrow forward), the backwards of 2 and 3
+// by two row kernels, one for dh = dy_eff W2 and one for the rest (below
+// the narrow backward). The hidden width is any multiple of 64.
 //
 // Forward (1-3: ln_mlp_fwd_kernel). Bound on the H100: tensor-core
 // throughput. At 36008 x 384 rows and a 1536-wide hidden layer a call is
@@ -1557,6 +1557,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 //      summed over the warps in a fixed order.
 // Then the col_sums_kernel, dw_gemm_kernel and split_sums_kernel of the
 // narrow widths. The rounding points are those of the kernel above.
+// Without LN (LN_IN false: row 13's backward, intentbev/ops/fused_mlp.py::
+// _bwd_kernel, at D = 768) pass A runs unchanged and pass B reads h's rows
+// as they land (no LN in place, no xn_ws: the dW1 product reads h itself);
+// its epilogue rounds dxn once into the drained rows' area straight from the
+// accumulator (no parking, no LN backward, no dgamma / dbeta partials), and
+// TMA stores it as the entry's dh.
 // ---------------------------------------------------------------------------
 
 // Pass A's shared memory at width D, from a 1024-byte boundary: dy_eff (D /
@@ -1731,19 +1737,21 @@ struct BwdWideTiles {
                 "dxn and the column partials fit before db1's partials");
 };
 
-// mx / mxn [n_rows, D] in 64 x 64 boxes, mw1 W1 [hidden, D] in 32 x 64
+// mx / mxn / mdx [n_rows, D] in 64 x 64 boxes, mw1 W1 [hidden, D] in 32 x 64
 // boxes, mh / mdg [n_rows, hidden] in 64 x 32 boxes, mdh pass A's f32 dh
-// [n_rows, hidden] in 64 x 32 boxes; x, dy and dx [n_rows, D] for the
-// epilogue; part_db1 [blocks][hidden] and part_cols [2][blocks][D] (dgamma,
-// dbeta) take the block partials.
-template <int D>
+// [n_rows, hidden] in 64 x 32 boxes; with LN_IN x, dy and dx [n_rows, D] for
+// the epilogue, and part_cols [2][blocks][D] (dgamma, dbeta) the block
+// partials (without, dx goes out through mdx and mxn is not read);
+// part_db1 [blocks][hidden].
+template <int D, bool LN_IN>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     ln_mlp_bwd_wide_kernel(const __grid_constant__ CUtensorMap mx,
                            const __grid_constant__ CUtensorMap mw1,
                            const __grid_constant__ CUtensorMap mxn,
                            const __grid_constant__ CUtensorMap mh,
                            const __grid_constant__ CUtensorMap mdg,
-                           const __grid_constant__ CUtensorMap mdh, const bf16* __restrict__ x,
+                           const __grid_constant__ CUtensorMap mdh,
+                           const __grid_constant__ CUtensorMap mdx, const bf16* __restrict__ x,
                            const bf16* __restrict__ dy, bf16* __restrict__ dx,
                            const float* __restrict__ g2, const float* __restrict__ be2,
                            const float* __restrict__ b1, float* __restrict__ part_db1,
@@ -1807,14 +1815,17 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const uint32_t sbase = hopper::smem_u32(sm);
 
   // 1. xn = LN2(x) in place, a warp a row, and each row's statistics
+  //    (without LN the rows are read as they landed)
   hopper::mbar_wait(rows_full, 0);
-  ln_in_place<D, L::XBLK, BWD_ROWS / 8>(sm + L::XN, cw, lane, g2, be2, eps, stats, BWD_ROWS);
-  hopper::fence_proxy_async();  // the wgmma reads and TMA store are async-proxy reads
-  hopper::named_sync(3, 256);
-  if (issuer) {  // xn for dW1
-    for (int b = 0; b < D / 64; ++b)
-      hopper::tma_store_2d(&mxn, sm + L::XN + b * L::XBLK, 64 * b, row0);
-    hopper::bulk_commit();
+  if constexpr (LN_IN) {
+    ln_in_place<D, L::XBLK, BWD_ROWS / 8>(sm + L::XN, cw, lane, g2, be2, eps, stats, BWD_ROWS);
+    hopper::fence_proxy_async();  // the wgmma reads and TMA store are async-proxy reads
+    hopper::named_sync(3, 256);
+    if (issuer) {  // xn for dW1
+      for (int b = 0; b < D / 64; ++b)
+        hopper::tma_store_2d(&mxn, sm + L::XN + b * L::XBLK, 64 * b, row0);
+      hopper::bulk_commit();
+    }
   }
 
   // 2. the hidden tiles
@@ -1945,11 +1956,37 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   hopper::fence_regs(gacc);
   for (int j = 0; j + 1 < tiles; ++j) step(j, std::true_type{});
   step(tiles - 1, std::false_type{});
-  // 3. epilogue. dxn parked in f32 over xn, the ring and the h tile, once
+  // 3. epilogue. Without LN: dxn rounded once into the rows' area (both
+  //    consumers' last products have read it), from the accumulator, and
+  //    TMA-stored as dx. Column c = NH wg + 8i + 2t4 of row la lies at
+  //    (c / 64) XBLK + la * 128 + ((i % 8 ^ g) * 16) + 4 t4; lb is 1024
+  //    bytes on.
+  hopper::named_sync(3, 256);
+  if constexpr (!LN_IN) {
+    constexpr int NG = N2 / 8;
+    uint32_t xa0 = sbase + L::XN + NH / 64 * wg * L::XBLK + la * 128 + 4 * t4;
+    int key = g;
+    asm volatile("" : "+r"(xa0), "+r"(key));
+    static_for<NH / 8>([&](auto i) {
+      constexpr int I = decltype(i)::value, q = I / NG, n = I % NG;
+      const uint32_t pa = xa0 + (I / 8) * L::XBLK + (((I % 8) ^ key) << 4);
+      sts_b32(pa, pack_bf16x2(acc[q][4 * n], acc[q][4 * n + 1]));
+      sts_b32(pa + 1024, pack_bf16x2(acc[q][4 * n + 2], acc[q][4 * n + 3]));
+    });
+    hopper::fence_proxy_async();
+    hopper::named_sync(3, 256);
+    if (issuer) {
+      for (int b = 0; b < D / 64; ++b)
+        hopper::tma_store_2d(&mdx, sm + L::XN + b * L::XBLK, 64 * b, row0);
+      hopper::bulk_commit();
+      hopper::bulk_wait_read();
+    }
+    return;
+  }
+  // With LN: dxn parked in f32 over xn, the ring and the h tile, once
   //    both consumers' last products have read them and the issuer's last
   //    stores have read the h tile; then a warp a row: lane l holds columns
   //    2l + 64i (+1), i < D / 64
-  hopper::named_sync(3, 256);
   {
     float* px = reinterpret_cast<float*>(sm) + wg * NH + 2 * t4;
     constexpr int NG = N2 / 8;
@@ -2068,8 +2105,9 @@ int bwd_sums_and_dw(const void* xn, const void* dye_ws, const void* h_ws, const 
 }
 
 // The backward at D = 768: pass A (dh), pass B (the rows), then the sums and
-// the dW products. dh_ws: f32 [n_rows, hidden].
-template <int D>
+// the dW products (dW1 from xn_ws, or without LN from x itself). dh_ws: f32
+// [n_rows, hidden].
+template <int D, bool LN_IN>
 int mlp_bwd_wide(const void* x, const void* g2, const void* be2, const void* w1,
                  const void* b1, const void* w2, const void* gate, const void* dy, void* dx,
                  void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2, void* db2,
@@ -2080,21 +2118,23 @@ int mlp_bwd_wide(const void* x, const void* g2, const void* be2, const void* w1,
   if (n_rows <= 0) return (int)cudaGetLastError();
   if (hidden % BHT != 0 || splits < 1 || dh_ws == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  CUtensorMap mx, mdy, mw1, mw2, mxn, mdye, mh, mdg, mdh;
+  const void* xn = LN_IN ? xn_ws : x;
+  CUtensorMap mx, mdy, mw1, mw2, mxn, mdye, mh, mdg, mdh, mdx;
   int err;
   if ((err = hopper::encode_2d(&mx, x, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&mdy, dy, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&mw1, w1, hidden, D, BHT, 64)) ||
       (err = hopper::encode_2d_f32(&mdh, dh_ws, n_rows, hidden, 64, BHT)) ||
       (err = hopper::encode_2d(&mw2, w2, D, hidden, W2_BOX, BHT)) ||
-      (err = hopper::encode_2d(&mxn, xn_ws, n_rows, D, 64, 64)) ||
+      (err = hopper::encode_2d(&mxn, xn, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&mdye, dye_ws, n_rows, D, 64, 64)) ||
       (err = hopper::encode_2d(&mh, h_ws, n_rows, hidden, 64, BHT)) ||
-      (err = hopper::encode_2d(&mdg, dg_ws, n_rows, hidden, 64, BHT)))
+      (err = hopper::encode_2d(&mdg, dg_ws, n_rows, hidden, 64, BHT)) ||
+      (err = hopper::encode_2d(&mdx, dx, n_rows, D, 64, 64)))
     return err;
   static bool ok_a = false, ok_b = false;  // the shared-memory limits are raised once
   if ((err = raise_once(ln_mlp_dh_kernel<D>, LA::BYTES, ok_a)) ||
-      (err = raise_once(ln_mlp_bwd_wide_kernel<D>, LB::BYTES, ok_b)))
+      (err = raise_once(ln_mlp_bwd_wide_kernel<D, LN_IN>, LB::BYTES, ok_b)))
     return err;
   const int nb = (n_rows + BWD_ROWS - 1) / BWD_ROWS;
   float* p_db1 = (float*)part;
@@ -2103,12 +2143,12 @@ int mlp_bwd_wide(const void* x, const void* g2, const void* be2, const void* w1,
       mdy, mw2, mdye, (const float*)gate, (float*)dh_ws, p_cols + (size_t)2 * nb * D, n_rows,
       hidden);
   if ((err = (int)cudaGetLastError())) return err;
-  ln_mlp_bwd_wide_kernel<D><<<nb, BWD_THREADS, LB::BYTES, s>>>(
-      mx, mw1, mxn, mh, mdg, mdh, (const bf16*)x, (const bf16*)dy, (bf16*)dx, (const float*)g2,
-      (const float*)be2, (const float*)b1, p_db1, p_cols, n_rows, hidden, eps);
+  ln_mlp_bwd_wide_kernel<D, LN_IN><<<nb, BWD_THREADS, LB::BYTES, s>>>(
+      mx, mw1, mxn, mh, mdg, mdh, mdx, (const bf16*)x, (const bf16*)dy, (bf16*)dx,
+      (const float*)g2, (const float*)be2, (const float*)b1, p_db1, p_cols, n_rows, hidden, eps);
   if ((err = (int)cudaGetLastError())) return err;
-  return bwd_sums_and_dw<D, true>(xn_ws, dye_ws, h_ws, dg_ws, dgamma, dbeta, dw1, db1, dw2, db2,
-                                  part, n_rows, hidden, splits, s);
+  return bwd_sums_and_dw<D, LN_IN>(xn, dye_ws, h_ws, dg_ws, dgamma, dbeta, dw1, db1, dw2, db2,
+                                   part, n_rows, hidden, splits, s);
 }
 
 // Both backwards: the row kernel, the block partials' sums, then dW1 = dg^T
@@ -2170,9 +2210,9 @@ extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* b
   return by_width<768, 384, 192>(d, [&](auto w) {
     constexpr int D = decltype(w)::value;
     if constexpr (D == 768)
-      return mlp_bwd_wide<D>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma, dbeta, dw1, db1,
-                             dw2, db2, xn_ws, dye_ws, h_ws, dg_ws, dh_ws, part, n_rows, hidden,
-                             eps, splits, stream);
+      return mlp_bwd_wide<D, true>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma, dbeta, dw1,
+                                   db1, dw2, db2, xn_ws, dye_ws, h_ws, dg_ws, dh_ws, part,
+                                   n_rows, hidden, eps, splits, stream);
     else
       return mlp_bwd<D, true>(x, g2, be2, w1, b1, w2, gate, dy, dx, dgamma, dbeta, dw1, db1,
                               dw2, db2, xn_ws, dye_ws, h_ws, dg_ws, part, n_rows, hidden, eps,
@@ -2180,18 +2220,24 @@ extern "C" int ibk_fused_ln_mlp_bwd(const void* x, const void* g2, const void* b
   });
 }
 
-// Backward of the MLP without LN, d = 384 or 192: dh = dg W1 (bf16
-// [n_rows, d]; the residual's gradient is dy, added by the caller), dw1,
-// db1, dw2, db2 as above. Workspaces as above without xn_ws.
+// Backward of the MLP without LN, d = 768 (the two passes with LN_IN
+// false), 384 or 192: dh = dg W1 (bf16 [n_rows, d]; the residual's gradient
+// is dy, added by the caller), dw1, db1, dw2, db2 as above. Workspaces as
+// above without xn_ws (dh_ws f32 [n_rows, hidden] at d = 768, else unused).
 extern "C" int ibk_fused_mlp_bwd(const void* h, const void* w1, const void* b1,
                                  const void* w2, const void* gate, const void* dy, void* dh,
                                  void* dw1, void* db1, void* dw2, void* db2, void* dye_ws,
-                                 void* a_ws, void* dg_ws, void* part, int n_rows, int d,
-                                 int hidden, int splits, void* stream) {
-  return by_width<384, 192>(d, [&](auto w) {
-    return mlp_bwd<decltype(w)::value, false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh,
-                                              nullptr, nullptr, dw1, db1, dw2, db2, nullptr,
-                                              dye_ws, a_ws, dg_ws, part, n_rows, hidden, 0.f,
-                                              splits, stream);
+                                 void* a_ws, void* dg_ws, void* dh_ws, void* part, int n_rows,
+                                 int d, int hidden, int splits, void* stream) {
+  return by_width<768, 384, 192>(d, [&](auto w) {
+    constexpr int D = decltype(w)::value;
+    if constexpr (D == 768)
+      return mlp_bwd_wide<D, false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh, nullptr,
+                                    nullptr, dw1, db1, dw2, db2, nullptr, dye_ws, a_ws, dg_ws,
+                                    dh_ws, part, n_rows, hidden, 0.f, splits, stream);
+    else
+      return mlp_bwd<D, false>(h, nullptr, nullptr, w1, b1, w2, gate, dy, dh, nullptr, nullptr,
+                               dw1, db1, dw2, db2, nullptr, dye_ws, a_ws, dg_ws, part, n_rows,
+                               hidden, 0.f, splits, stream);
   });
 }

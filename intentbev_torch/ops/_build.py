@@ -130,7 +130,7 @@ _SIGNATURES = {
     "ibk_voxel_fill": (_P,) * 6 + (_I,) * 6 + (_P,),
     "ibk_fused_mlp_int8": (_P,) * 9 + (_I, _I, _I, _I, _P),
     "ibk_fused_mlp": (_P,) * 8 + (_I,) * 4 + (_P,),
-    "ibk_fused_mlp_bwd": (_P,) * 15 + (_I,) * 4 + (_P,),
+    "ibk_fused_mlp_bwd": (_P,) * 16 + (_I,) * 4 + (_P,),
     "ibk_fused_ln_dense": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
     "ibk_fused_ln_dense_bwd": (_P,) * 14 + (_I, _I, _I, _F, _I, _I, _P),
     "ibk_patch_embed": (_P,) * 4 + (_I,) * 6 + (_P,),

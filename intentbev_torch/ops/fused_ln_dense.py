@@ -9,8 +9,9 @@ adapters, ``a = GELU(LN(x) Wa^T + b)``. ``w`` is PyTorch's Linear layout
 :func:`fused_ln_dense_fn` is the differentiable entry (the JAX
 ``custom_vjp``): the forward kernel, then the backward kernel, which gives
 dx, dgamma, dbeta, dW and db. Training takes no GELU or the exact erf one.
-The forward is built for the widths of :data:`VIT_B_WIDTHS` (ViT-B's 768
-too), the backward for those of :data:`WIDTHS`.
+Both are built for the widths of :data:`VIT_B_WIDTHS` (at ViT-B's 768 on
+64-row blocks whose two consumers split the columns); another width raises
+on CUDA.
 """
 
 from __future__ import annotations
@@ -19,13 +20,10 @@ import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
 from .fused_ln_mlp import GELU_MODES, dw_splits, dw_tiles, gelu, gelu_erf_grad
-from .layernorm import layernorm_plain
+from .layernorm import VIT_B_WIDTHS, layernorm_plain
 
-WIDTHS = (384, 192)  # model widths the backward is built for (ViT-S, ViT-Ti)
-VIT_B_WIDTHS = (768,) + WIDTHS  # and the forward (ViT-B, ViT-S, ViT-Ti)
 DOUT_STEP = 64       # Dout is a multiple of a TMA box's 64 columns
 FWD_TILE = 192       # the forward kernel's column tile: it reads the bias a tile at a time
-ROWS = 128           # rows of a row kernel's block
 
 
 def fused_ln_dense_plain(x, gamma, beta, w, bias, eps: float = 1e-6,
@@ -122,7 +120,7 @@ def fused_ln_dense_bwd(x, gamma, beta, w, bias, dy, eps: float = 1e-6,
     _train_gelu(gelu_mode)
     if x.device.type == "cpu":
         return fused_ln_dense_bwd_plain(x, gamma, beta, w, bias, dy, eps, gelu_mode)
-    _check_args(x, gamma, beta, w, bias, "fused_ln_dense_bwd", WIDTHS)
+    _check_args(x, gamma, beta, w, bias, "fused_ln_dense_bwd", VIT_B_WIDTHS)
     d, dout = x.shape[-1], w.shape[0]
     n = x.numel() // d
     require(n > 0, "fused_ln_dense_bwd: no rows")
@@ -135,12 +133,14 @@ def fused_ln_dense_bwd(x, gamma, beta, w, bias, dy, eps: float = 1e-6,
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     # the dW product's row splits (dw_gemm_kernel), and the f32 partials:
-    # its split partials, or (before it) the row kernel's per-consumer db
-    # and per-block dgamma and dbeta partials
+    # its split partials, or (before it) the row kernel's db partials (one
+    # for each 64 rows of a block: 64 rows at D=768, else 128) and per-block
+    # dgamma and dbeta partials
     splits = dw_splits(n, dw_tiles(dout, d), dev)
     dx = torch.empty_like(x)
     dgamma, dbeta, dw, db = f32(d), f32(d), f32(dout, d), f32(dout)
-    part = f32(max(splits * dout * d, 2 * -(-n // ROWS) * (dout + d)))
+    rows = 64 if d == 768 else 128
+    part = f32(max(splits * dout * d, -(-n // rows) * (rows // 64 * dout + 2 * d)))
     xn_ws = torch.empty(n, d, dtype=torch.bfloat16, device=dev)
     dg_ws = torch.empty(n, dout, dtype=torch.bfloat16, device=dev) if gelu_mode else None
     err = kernels().ibk_fused_ln_dense_bwd(

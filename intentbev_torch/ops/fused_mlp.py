@@ -15,9 +15,10 @@ serving entry, :func:`fused_mlp_train` the training forward, and
 :func:`fused_mlp_fn` the differentiable entry: its backward kernel gives dh,
 dW1, db1, dW2 and db2, and the residual's gradient is dy itself, ungated, as
 in the JAX ``custom_vjp`` (no gradient for the gate, a random mask).
-The forward kernel is built for the widths of ``layernorm.VIT_B_WIDTHS``
-(at ViT-B's 768 by ``ln_mlp_wide_kernel``), the backward for those of
-``layernorm.WIDTHS``.
+Both are built for the widths of ``layernorm.VIT_B_WIDTHS``: at ViT-B's
+768 the forward by ``ln_mlp_wide_kernel`` and the backward by two row
+kernels (dh = dy_eff W2 into an f32 workspace, then the rest), each without
+its LN; another width raises on CUDA.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 from ._build import check_launch, kernels, require, stream_ptr
 from .fused_ln_mlp import (GELU_MODES, _gate_arg, _gate_rows, bwd_workspace, gelu,
                            gelu_erf_grad, ln_mlp_bwd_splits)
-from .layernorm import VIT_B_WIDTHS, WIDTHS
+from .layernorm import VIT_B_WIDTHS
 
 
 def fused_mlp_plain(h, w1, b1, w2, b2, residual, gelu_mode: str = "erf", gate=None):
@@ -120,7 +121,7 @@ def fused_mlp_bwd(h, w1, b1, w2, gate, dy):
     tensors take the plain version."""
     if h.device.type == "cpu":
         return fused_mlp_bwd_plain(h, w1, b1, w2, gate, dy)
-    _check_args(h, w1, b1, w2, "fused_mlp_bwd", WIDTHS)
+    _check_args(h, w1, b1, w2, "fused_mlp_bwd", VIT_B_WIDTHS)
     require(dy.shape == h.shape and dy.dtype == torch.bfloat16 and dy.is_contiguous()
             and dy.device == h.device, "fused_mlp_bwd: dy must be contiguous bf16 like h")
     g = _gate_arg(gate, h, "fused_mlp_bwd")
@@ -138,11 +139,14 @@ def fused_mlp_bwd(h, w1, b1, w2, gate, dy):
     dye_ws = torch.empty_like(h)
     act_ws = torch.empty(n, hidden, dtype=torch.bfloat16, device=h.device)
     dg_ws = torch.empty_like(act_ws)
+    # D=768: the first row kernel's dh = dy_eff W2, kept in f32 for the second
+    dh_ws = f32(n, hidden) if d == 768 else None
     err = kernels().ibk_fused_mlp_bwd(
         h.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         None if g is None else g.data_ptr(), dy.data_ptr(), dh.data_ptr(), dw1.data_ptr(),
         db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), dye_ws.data_ptr(), act_ws.data_ptr(),
-        dg_ws.data_ptr(), part.data_ptr(), n, d, hidden, splits, stream_ptr(h))
+        dg_ws.data_ptr(), None if dh_ws is None else dh_ws.data_ptr(), part.data_ptr(), n, d,
+        hidden, splits, stream_ptr(h))
     check_launch(err, "fused_mlp_bwd")
     return dh, dw1, db1, dw2, db2
 

@@ -17,10 +17,8 @@ import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
 
-WIDTHS = (192, 384)  # ViT-Ti's and ViT-S's: every row kernel is built for these
-# widths of the kernels ViT-B's serving chain and training step run (rows 1
-# and 4-9): its 768 too
-VIT_B_WIDTHS = WIDTHS + (768,)
+# the model widths every kernel entry is built for: ViT-Ti's, ViT-S's, ViT-B's
+VIT_B_WIDTHS = (192, 384, 768)
 
 
 def layernorm_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -761,10 +761,9 @@ def test_fused_mlp_int8(dev, rows, d, narrow, gelu):
 
 @pytest.mark.parametrize("entry", ["fused_mlp", "fused_mlp_bwd"])
 def test_fused_mlp_refuses_other_widths(dev, entry):
-    """Row 13's forward takes D=768, 384 and 192 and its backward 384 and
-    192: a width outside them (256 forward, ViT-B's 768 backward) raises,
-    naming the width, and launches nothing."""
-    d = 256 if entry == "fused_mlp" else 768
+    """Row 13's forward and backward take D=768, 384 and 192: a width
+    outside them (256) raises, naming the width, and launches nothing."""
+    d = 256
     x = _randn((64, d), 1.0, 0)
     w1, w2 = _randn((4 * d, d), d ** -0.5, 5), _randn((d, 4 * d), (4 * d) ** -0.5, 7)
     b1, b2 = _randn((4 * d,), 0.1, 6, torch.float32), _randn((d,), 0.1, 8, torch.float32)
@@ -1750,19 +1749,86 @@ def test_vit_b_fused_mlp(dev, rows, gelu, gated):
         assert _rel(got, ctrl) >= MLP_LIMIT
 
 
-def test_vit_b_narrow_entries_raise(dev):
+def test_variant_backwards_refuse_other_widths(dev):
     """The backwards of rows 13 (the MLP without LN) and 14 (LN + dense) are
-    built for D=384 and 192: at 768 each entry raises, naming the width,
-    launches nothing and never takes its plain version."""
-    x, ln, w1, b1, w2, b2 = _vit_b_ln_mlp(64)
-    w_qkv = _randn((3 * VIT_B, VIT_B), VIT_B ** -0.5, 11)
-    b_qkv = _randn((3 * VIT_B,), 0.1, 12, torch.float32)
+    built for D=768, 384 and 192: at 256 each entry raises, naming the
+    width, launches nothing and never takes its plain version."""
+    d = 256
+    x = _randn((64, d), 1.0, 0)
+    ln = [_randn((d,), 0.2, s, torch.float32) + (1 - s % 2) for s in (1, 2)]
+    w1, w2 = _randn((4 * d, d), d ** -0.5, 5), _randn((d, 4 * d), (4 * d) ** -0.5, 7)
+    b1 = _randn((4 * d,), 0.1, 6, torch.float32)
+    w_qkv = _randn((3 * d, d), d ** -0.5, 11)
+    b_qkv = _randn((3 * d,), 0.1, 12, torch.float32)
     calls = {
         "fused_mlp_bwd": lambda: fused_mlp_bwd(x, w1, b1, w2, None, x),
         "fused_ln_dense_bwd": lambda: fused_ln_dense_bwd(x, ln[0], ln[1], w_qkv, b_qkv,
                                                          x.repeat(1, 3))}
     for name, call in calls.items():
         reset_launch_counts()
-        with pytest.raises(ValueError, match="768"):
+        with pytest.raises(ValueError, match=str(d)):
             call()
         assert sum(launches.values()) == 0, name
+
+
+# The backwards of ViT-B's training variants: row 13's (C; the two row
+# kernels without their LN) and row 14's (B; ln_dense_bwd_wide_kernel, 64-row
+# blocks whose consumers split dxn's columns) at D=768, at row counts below,
+# at and past a 64-row block, the flagship's 4501 and 36008 (the adapter's
+# 36000). Row 13's dh share has its own limit: a dg that rounds to the other
+# bf16 neighbour moves its whole row of dh, and a row holds 3072 dg values
+# here, twice D=384's (at 36008 rows on the card: sound 1.0-1.4 % against
+# 0.55 % at 384; the dg-in-f32 control moves 27-37 %).
+VIT_B_DH_SHARE = 5e-2
+VIT_B_ROWS = [1, 63, 64, 65, 4501]
+
+
+@pytest.mark.parametrize("rows,gating,hidden", [
+    (r, g, 4 * VIT_B) for r in VIT_B_ROWS + [MAIN_ROWS] for g in ("gate", "none")]
+    + [(r, g, 2 * VIT_B) for r in (65, MAIN_ROWS) for g in ("gate", "none")])
+def test_vit_b_fused_mlp_bwd(dev, rows, gating, hidden, monkeypatch):
+    """Row 13's backward at D=768, hidden 3072 and a tensor-parallel rank's
+    1536: every output's relative L2 against the plain version (control:
+    the gate ignored, or without one GELU' skipped), dh's share of
+    differing elements from 50 rows on (control: dg kept in f32 before dh =
+    dg W1), the launch counted, and two calls give the same bits."""
+    h, dy = _randn((rows, VIT_B), 1.0, 0), _randn((rows, VIT_B), 1.0, 10)
+    w1 = _randn((hidden, VIT_B), VIT_B ** -0.5, 5)
+    b1 = _randn((hidden,), 0.1, 6, torch.float32)
+    w2 = _randn((VIT_B, hidden), hidden ** -0.5, 7)
+    keep = torch.rand(rows, generator=_gen(9), device="cuda") < 0.7
+    gate = keep.float() / 0.9 if gating == "gate" else None
+    args = (h, w1, b1, w2, gate, dy)
+    reset_launch_counts()
+    got, again = fused_mlp_bwd(*args), fused_mlp_bwd(*args)
+    assert launches["fused_mlp_bwd"] == 2 and sum(launches.values()) == 2
+    want = fused_mlp_bwd_plain(*args)
+    assert [tuple(t.shape) for t in got] == [(rows, VIT_B), (hidden, VIT_B), (hidden,),
+                                             (VIT_B, hidden), (VIT_B,)]
+    rels = [_rel_or_zero(a, b) for a, b in zip(got, want)]
+    assert max(rels) < MLP_BWD_LIMIT, rels
+    if rows >= 50:
+        assert _share(got[0], want[0]) < VIT_B_DH_SHARE, _share(got[0], want[0])
+        ctrl = _dx_dg_f32(h, None, None, w1, b1, w2, gate, dy, ln=False)
+        assert _share(got[0], ctrl) >= VIT_B_DH_SHARE, _share(got[0], ctrl)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
+    if gate is None:
+        _gelu_grad_skipped(monkeypatch, "fused_mlp")
+    ctrl = fused_mlp_bwd_plain(h, w1, b1, w2, None, dy)  # or the gate ignored
+    assert max(_rels(got, ctrl)) >= MLP_BWD_LIMIT
+
+
+VIT_B_DENSE_CASES = [(3 * VIT_B, None), (192, "erf"), (64, None), (64, "erf")]  # (Dout, GELU)
+
+
+@pytest.mark.parametrize("rows,dout,gelu", [
+    (r, dout, gelu) for r in VIT_B_ROWS for dout, gelu in VIT_B_DENSE_CASES]
+    + [(MAIN_ROWS, 3 * VIT_B, None), (8 * 4500, 192, "erf"), (MAIN_ROWS, 64, None),
+       (MAIN_ROWS, 64, "erf")])
+def test_vit_b_fused_ln_dense_bwd(dev, rows, dout, gelu, monkeypatch):
+    """Row 14's backward at D=768: qkv (Dout 2304, no GELU), the adapter
+    (Dout 192, the erf GELU) and Dout 64 (one 64-column box, each GELU):
+    the checks of :func:`test_fused_ln_dense_bwd` (every output's relative
+    L2 with its control, dx's share from 100 rows on with its control, two
+    calls bit for bit)."""
+    _check_ln_dense_bwd(rows, dout, gelu, VIT_B, monkeypatch)

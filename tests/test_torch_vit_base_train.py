@@ -19,11 +19,15 @@ f32 in dW2, db1 summed from the bf16 dg); rows 8 and 9 (the VJP of ``fused_layer
 two passes compose to the one plain backward bit for bit.
 
 Then a depth-1 ViT-B on the tiny grid, initialised by JAX and carried by
-``from_flax``, takes one train step as ``tests/test_torch_train.py`` does.
+``from_flax``, takes one train step as ``tests/test_torch_train.py`` does:
+under the default switches, B ``fuse_ln_dense`` (row 14's backward at
+D=768) and C ``use_fused_layernorm=False`` (row 13's); those two
+backwards' plain versions are held against JAX's kernels in
+``tests/test_torch_vit_base_variants_train.py``.
 
 Last, the widths: each Python entry of a kernel accepts exactly the widths
 its C++ entry instantiates (``by_width<...>`` in ``intentbev_torch/csrc``),
-so no entry takes a width its kernel refuses.
+so no entry takes a width its kernel refuses; every entry takes 768.
 """
 
 import dataclasses
@@ -135,14 +139,16 @@ def test_rows8_9_control_exceeds_the_limit(jax_runs):
     assert r[0] > ln_cases.SHARE and max(r[1:]) <= ln_cases.REL, r
 
 
-def test_vit_b_train_step_matches_jax(rng):
-    """A depth-1 ViT-B on the tiny grid, the default switches (fused LN,
-    fused MLP, the packed flash attention at 12 heads of 64): one train
-    step's metrics and every gradient against JAX's, by
+@pytest.mark.parametrize("switches", ["default", "ln_dense", "unfused_ln"])
+def test_vit_b_train_step_matches_jax(rng, switches):
+    """A depth-1 ViT-B on the tiny grid (the packed flash attention at 12
+    heads of 64) under the default switches (fused LN, fused MLP), B
+    ``fuse_ln_dense`` and C ``use_fused_layernorm=False``: one train step's
+    metrics and every gradient against JAX's, by
     :func:`test_torch_train.check_train_step`'s limits."""
     def step_cfg(c):
         return dataclasses.replace(
-            c, vit=dataclasses.replace(_vit_switches(c.vit, "default"), drop_path_rate=0.0,
+            c, vit=dataclasses.replace(_vit_switches(c.vit, switches), drop_path_rate=0.0,
                                        **VIT_B),
             augment=dataclasses.replace(c.augment, dropout_prob=1.0))
 
@@ -177,9 +183,9 @@ ENTRIES = {
     fused_ln_mlp.fused_ln_mlp_bwd: ("VIT_B_WIDTHS", "fused_ln_mlp.cu", "ibk_fused_ln_mlp_bwd"),
     fused_mlp.fused_mlp: ("VIT_B_WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp"),
     fused_mlp.fused_mlp_train: ("VIT_B_WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp"),
-    fused_mlp.fused_mlp_bwd: ("WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp_bwd"),
+    fused_mlp.fused_mlp_bwd: ("VIT_B_WIDTHS", "fused_ln_mlp.cu", "ibk_fused_mlp_bwd"),
     fused_ln_dense.fused_ln_dense: ("VIT_B_WIDTHS", "fused_ln_dense.cu", "ibk_fused_ln_dense"),
-    fused_ln_dense.fused_ln_dense_bwd: ("WIDTHS", "fused_ln_dense.cu",
+    fused_ln_dense.fused_ln_dense_bwd: ("VIT_B_WIDTHS", "fused_ln_dense.cu",
                                         "ibk_fused_ln_dense_bwd"),
     patch_embed.patch_embed: ("VIT_B_WIDTHS", "patch_embed.cu", "ibk_patch_embed"),
     voxel_embed.voxel_embed_tokens: ("VIT_B_WIDTHS", "voxel_embed.cu", "ibk_voxel_embed"),
@@ -205,12 +211,12 @@ def _checked_widths(fn, depth=3):
 @pytest.mark.parametrize("fn", list(ENTRIES), ids=lambda f: f.__name__)
 def test_entry_widths_are_its_kernels(fn):
     """The widths an entry accepts on CUDA are the ``by_width`` instances of
-    the C++ entry it calls: the training rows 6-9 and the serving rows 1, 4,
-    5, 13, 14, 15 and 17 take ViT-B's 768; the backwards of rows 13 and 14
-    only 384 and 192."""
+    the C++ entry it calls, and every entry takes ViT-B's 768: the training
+    rows 6-9, the serving rows 1, 4, 5, 13, 14, 15 and 17, and the
+    backwards of rows 13 and 14."""
     const, src, entry = ENTRIES[fn]
     mod = inspect.getmodule(fn)
     assert _checked_widths(fn) == {const}, (fn.__name__, _checked_widths(fn))
     assert entry in inspect.getsource(mod)
     assert tuple(sorted(getattr(mod, const))) == _instances(src, entry), (fn.__name__, const)
-    assert (768 in getattr(mod, const)) == (const != "WIDTHS")
+    assert 768 in getattr(mod, const), (fn.__name__, const)

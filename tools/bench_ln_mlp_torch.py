@@ -15,7 +15,11 @@ and the backward entries on the same tensors (``--only bwd``):
 - ``fused_ln_mlp_bwd``: row 7, the LN+MLP backward, with the per-sample
   gate, at D=384 and 192;
 - ``fused_mlp_bwd``: row 13's backward, the MLP without LN (configuration
-  C), gated, at D=384.
+  C), gated, at D=384 and 192.
+
+Each backward line (these and row 14's) also prints a SHA-256 digest of
+its outputs on the seeded inputs, so that one call on two trees shows
+whether their kernels give the same bits.
 
 and row 14, the LN + dense pair (``--only ln_dense``; configuration B), at
 D=384 and 192: ``fused_ln_dense`` as the qkv projection (Dout 3D, no GELU;
@@ -247,12 +251,11 @@ def main() -> None:
         bwd_args = (x, ln[0], ln[1], w1, b1, w2, gate, dy)
         report(f"fused_ln_mlp_bwd[gated]{tag}", lambda: fused_ln_mlp_bwd(*bwd_args),
                lambda: fused_ln_mlp_bwd_plain(*bwd_args), chain_grads(True), 5 * flops // 2,
-               split=bwd_kinds)
-        if d == 384:
-            mlp_args_ = (x, w1, b1, w2, gate, dy)
-            report("fused_mlp_bwd[gated]", lambda: fused_mlp_bwd(*mlp_args_),
-                   lambda: fused_mlp_bwd_plain(*mlp_args_), chain_grads(False),
-                   5 * flops // 2, split=bwd_kinds)
+               split=bwd_kinds, digest=True)
+        mlp_args_ = (x, w1, b1, w2, gate, dy)
+        report(f"fused_mlp_bwd[gated]{tag}", lambda: fused_mlp_bwd(*mlp_args_),
+               lambda: fused_mlp_bwd_plain(*mlp_args_), chain_grads(False),
+               5 * flops // 2, split=bwd_kinds, digest=True)
 
     def ln_dense_cases(d, tag):
         """Row 14 at width d: qkv and an adapter, forward and backward."""
@@ -286,7 +289,7 @@ def main() -> None:
                    lambda: fused_ln_dense_bwd(*bwd_args, gelu_mode=bwd_mode),
                    lambda: fused_ln_dense_bwd_plain(*bwd_args, gelu_mode=bwd_mode),
                    lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True),
-                   (3 if bwd_mode else 2) * flops, split=bwd_kinds,
+                   (3 if bwd_mode else 2) * flops, split=bwd_kinds, digest=True,
                    n_bytes=2 * (2 * n * d + n * dout + dout * d) + 4 * (dout * d + dout + 2 * d))
             del x, dy, out, leaves
             torch.cuda.empty_cache()

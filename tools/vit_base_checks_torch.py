@@ -5,10 +5,12 @@ serving, the serving variants A-D and the training step.
    ``-Xptxas -v``; for the D=768 instances (rows 4 and 6, the
    ``ln_mlp_wide_kernel`` with each GELU, chained and gated, and row 13,
    the same kernel without its LN; row 7's two row kernels,
-   ``ln_mlp_dh_kernel<768>`` and ``ln_mlp_bwd_wide_kernel<768>``; row 1's
+   ``ln_mlp_dh_kernel<768>`` and ``ln_mlp_bwd_wide_kernel<768, *>``, the
+   latter also without its LN for row 13's backward; row 1's
    ``voxel_gather_kernel<768>``; rows 5, 8 and 9, ``layernorm_kernel<768>``,
    ``layernorm_train_kernel<768>`` and ``layernorm_bwd_kernel<768>``; row
-   14's ``ln_dense_fwd_kernel<768, *>``, row 15's ``patch_embed_kernel<768>``
+   14's ``ln_dense_fwd_kernel<768, *>`` and ``ln_dense_bwd_wide_kernel<768,
+   *>``, row 15's ``patch_embed_kernel<768>``
    and row 17's ``mlp_int8_fwd_kernel<768, *>``) the registers, the spill
    stores and loads,
    and any ptxas line of code C75xx that names them. A spill or a C7514 /
@@ -30,11 +32,16 @@ serving, the serving variants A-D and the training step.
    row 14, qkv (Dout 2304) and the adapter (Dout 192) with each GELU: xn
    kept in f32 before the product; row 15 on the bench's dense BEV [8, 400,
    720, 290]: the sum rounded to bf16 before the bias; row 17 with each
-   GELU: one h scale per 32-row block). Then CUDA-event times of kernel,
+   GELU: one h scale per 32-row block; the training variants' backwards,
+   row 13 gated: the gate ignored, dg kept in f32 before dh = dg W1, dh's
+   share under a limit of its own; row 14 for qkv: no mean(dyg*xhat) term,
+   dxn rounded before the LN backward, and for the adapter with the erf
+   GELU: GELU' skipped, dg kept in f32). Then CUDA-event times of kernel,
    plain version, the library call where one exists (``F.layer_norm`` and
    its backward, SDPA and its backward, ``F.conv2d``) and, for rows 4, 6,
    7, 13, 14 and 15, the same function as a chain of PyTorch calls in bf16
-   (row 7: autograd through that chain; row 15: ``PatchEmbed.dense``),
+   (the backwards of rows 7, 13 and 14: autograd through that chain; row
+   15: ``PatchEmbed.dense``),
    beside each bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s
    bf16, 1979 TOP/s int8).
 
@@ -47,6 +54,7 @@ failed check exits nonzero.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import re
 import subprocess
@@ -64,8 +72,11 @@ INSTANCES = {"fused_ln_mlp.cu": ("ln_mlp_wide_kernelILi768ELi0ELb1ELb1E",
                                  "ln_mlp_wide_kernelILi768ELi1ELb1ELb0E",
                                  "ln_mlp_wide_kernelILi768ELi0ELb0ELb0E",
                                  "ln_mlp_wide_kernelILi768ELi1ELb0ELb0E",
-                                 "ln_mlp_dh_kernelILi768E", "ln_mlp_bwd_wide_kernelILi768E"),
-             "fused_ln_dense.cu": ("ln_dense_fwd_kernelILi768E",),
+                                 "ln_mlp_dh_kernelILi768E", "ln_mlp_bwd_wide_kernelILi768ELb1E",
+                                 "ln_mlp_bwd_wide_kernelILi768ELb0E"),
+             "fused_ln_dense.cu": ("ln_dense_fwd_kernelILi768E",
+                                   "ln_dense_bwd_wide_kernelILi768ELb0E",
+                                   "ln_dense_bwd_wide_kernelILi768ELb1E"),
              "patch_embed.cu": ("patch_embed_kernelILi768E",),
              "fused_mlp_int8.cu": ("mlp_int8_fwd_kernelILi768E",),
              "voxel_embed.cu": ("voxel_gather_kernelILi768E",),
@@ -125,10 +136,12 @@ def main() -> None:
     from intentbev_torch.ops import (flash_attention_packed, flash_attention_packed_bwd,
                                      flash_attention_packed_bwd_plain,
                                      flash_attention_packed_plain, fused_ln_dense,
+                                     fused_ln_dense_bwd, fused_ln_dense_bwd_plain,
                                      fused_ln_dense_plain, fused_ln_mlp, fused_ln_mlp_bwd,
                                      fused_ln_mlp_bwd_plain, fused_ln_mlp_plain,
                                      fused_ln_mlp_train, fused_ln_mlp_train_plain, fused_mlp,
-                                     fused_mlp_int8, fused_mlp_int8_plain, fused_mlp_plain,
+                                     fused_mlp_bwd, fused_mlp_bwd_plain, fused_mlp_int8,
+                                     fused_mlp_int8_plain, fused_mlp_plain,
                                      layernorm, layernorm_bwd, layernorm_bwd_plain,
                                      layernorm_plain, layernorm_train, layernorm_train_plain,
                                      patch_embed, patch_embed_plain, quantize_linear,
@@ -371,6 +384,71 @@ def main() -> None:
                 nbytes(x_, ln[0], ln[1], w_, b_) + n_ * 2, 2 * n_ * d, None,
                 torch.no_grad()(lambda: ln_dense_chain(x_, w_, b_, mode)) if ref else None)
     flash_bwd_bytes = nbytes(q, k, vv, o, do, lse) + nbytes(qkv)
+
+    # the training variants' backwards: row 13 (C; on x8, gated) and row 14
+    # (B; qkv on x and the adapter on x_ad), each as the smoke holds it
+    dy_qkv, dy_ad = randn((rows, 3 * d), 1.0), randn((x_ad.shape[0], a_out), 1.0)
+
+    def mlp_dg_f32():  # the control's fault: dg kept in f32 before dh = dg W1
+        dg = ((dy.float() * gate[:, None]).to(x.dtype).float() @ w2.float()) * gelu_erf_grad(
+            x8.float() @ w1.float().t() + b1)
+        return dx_twice(((dg @ w1.float()).to(x.dtype),)
+                        + tuple(fused_mlp_bwd_plain(x8, w1, b1, w2, gate, dy)[1:]))
+
+    def dense_no_m2():  # the control's fault (qkv): the LN backward without its m2 term
+        dxn = dy_qkv.float() @ w_qkv.float()
+        return dx_twice((no_m2(dxn, xhat, inv, ln[0])[0],) + tuple(
+            fused_ln_dense_bwd_plain(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv)[1:]))
+
+    def dense_dx_moved(x_, w_, b_, dy_, mode):
+        # the control's fault for dx's share: with the GELU dg kept in f32
+        # before dxn, without it dxn rounded to bf16 before the LN backward
+        xf = x_.float()
+        xc = xf - xf.mean(-1, keepdim=True)
+        inv_ = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-6)
+        xh = xc * inv_
+        dg = dy_.float()
+        if mode:
+            xn = (xh * ln[0] + ln[1]).to(x_.dtype).float()
+            dg = dg * gelu_erf_grad(xn @ w_.float().t() + b_)
+        dxn = dg @ w_.float()
+        if not mode:
+            dxn = dxn.to(x_.dtype).float()
+        dyg = dxn * ln[0]
+        dx_ = inv_ * (dyg - dyg.mean(-1, keepdim=True) - xh * (dyg * xh).mean(-1, keepdim=True))
+        return dx_twice((dx_.to(x_.dtype),) + tuple(
+            fused_ln_dense_bwd_plain(x_, ln[0], ln[1], w_, b_, dy_, gelu_mode=mode)[1:]))
+
+    def dense_no_gelu_grad():  # the control's fault (adapter): GELU' taken as 1
+        mod = importlib.import_module("intentbev_torch.ops.fused_ln_dense")
+        sound = mod.gelu_erf_grad
+        mod.gelu_erf_grad = torch.ones_like
+        try:
+            return dx_twice(fused_ln_dense_bwd_plain(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad,
+                                                     gelu_mode="erf"))
+        finally:
+            mod.gelu_erf_grad = sound
+
+    def autograd_chain(leaf_ts, fn, dy_):  # a backward's reference: autograd through fn
+        leaves_ = [t.detach().clone().requires_grad_(True) for t in leaf_ts]
+        with torch.enable_grad():
+            out_ = fn(*leaves_)
+
+        def run():
+            with torch.enable_grad():
+                return torch.autograd.grad(out_, leaves_, dy_, retain_graph=True)
+        return run
+
+    mlp_chain_bwd = autograd_chain(
+        (x8, w1, b1.bfloat16(), w2, b2.bfloat16()),
+        lambda h_, w1_, b1_, w2_, b2_: F.linear(F.gelu(F.linear(h_, w1_, b1_)), w2_, b2_)
+        * gate.bfloat16()[:, None], dy)
+
+    def dense_chain_bwd(x_, w_, b_, dy_, mode):
+        return autograd_chain(
+            (x_, gl, bl, w_, b_.bfloat16()),
+            lambda x2, g2, b2_, w2_, bb: (lambda y_: F.gelu(y_) if mode else y_)(
+                F.linear(F.layer_norm(x2, (d,), g2, b2_, 1e-6), w2_, bb)), dy_)
     cases = {  # name: (kernel, plain, [(control, fault)], metrics, limits, bytes, flops, library, reference)
         "fused_ln_mlp[D=768]": (
             lambda: twice(fused_ln_mlp(*mlp, gelu_mode="sigmoid")),
@@ -461,6 +539,36 @@ def main() -> None:
             nbytes(x_pe, w_pe, b_pe) + batch * v.num_patches * d * 2, pe_flops,
             torch.no_grad()(lambda: F.conv2d(x_pe.permute(0, 3, 1, 2), w_conv, b_pe.bfloat16(),
                                              stride=v.patch_size)), pe_dense_chain),
+        # the training variants' backwards (rows 13 and 14)
+        "fused_mlp_bwd[D=768]": (
+            lambda: dx_twice(fused_mlp_bwd(x8, w1, b1, w2, gate, dy)),
+            lambda: dx_twice(fused_mlp_bwd_plain(x8, w1, b1, w2, gate, dy)),
+            [(lambda: dx_twice(fused_mlp_bwd_plain(x8, w1, b1, w2, None, dy)), "gate ignored"),
+             (mlp_dg_f32, "dg kept in f32")], (rel_l2, share) + (rel_l2,) * 4,
+            (2e-3, 5e-2) + (2e-3,) * 4,
+            3 * nbytes(x8) + nbytes(w1, b1, w2, gate) + 4 * (d + hidden + 2 * d * hidden),
+            5 * mlp_flops // 2, None, mlp_chain_bwd),
+        "fused_ln_dense_bwd[D=768]": (
+            lambda: dx_twice(fused_ln_dense_bwd(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv)),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x, ln[0], ln[1], w_qkv, b_qkv, dy_qkv)),
+            [(dense_no_m2, "no mean(dyg*xhat) term"),
+             (lambda: dense_dx_moved(x, w_qkv, b_qkv, dy_qkv, None),
+              "dxn rounded before the LN backward")], (rel_l2, share) + (rel_l2,) * 4,
+            (2e-3, 2e-2) + (2e-3,) * 4,
+            2 * nbytes(x) + nbytes(dy_qkv, ln[0], ln[1], w_qkv, b_qkv)
+            + 4 * (2 * d + 3 * d * d + 3 * d), 2 * 2 * rows * d * 3 * d, None,
+            dense_chain_bwd(x, w_qkv, b_qkv, dy_qkv, None)),
+        "fused_ln_dense_bwd[adapter,D=768]": (
+            lambda: dx_twice(fused_ln_dense_bwd(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad,
+                                                gelu_mode="erf")),
+            lambda: dx_twice(fused_ln_dense_bwd_plain(x_ad, ln[0], ln[1], w_ad, b_ad, dy_ad,
+                                                      gelu_mode="erf")),
+            [(dense_no_gelu_grad, "GELU' skipped"),
+             (lambda: dense_dx_moved(x_ad, w_ad, b_ad, dy_ad, "erf"), "dg kept in f32")],
+            (rel_l2, share) + (rel_l2,) * 4, (2e-3, 2e-2) + (2e-3,) * 4,
+            2 * nbytes(x_ad) + nbytes(dy_ad, ln[0], ln[1], w_ad, b_ad)
+            + 4 * (2 * d + a_out * d + a_out), 3 * 2 * x_ad.shape[0] * d * a_out, None,
+            dense_chain_bwd(x_ad, w_ad, b_ad, dy_ad, "erf")),
         **{f"fused_mlp_int8[{'erf,' if m == 'erf' else ''}D=768]": (
             (lambda m=m: twice(fused_mlp_int8(*int8_args, m))),
             (lambda m=m: twice(fused_mlp_int8_plain(*int8_args, m))),
