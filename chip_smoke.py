@@ -63,6 +63,14 @@ Phases (each prints a line; any failure exits nonzero with no result):
    under a limit of its own) and row 14's backward (qkv and the adapter
    with the erf GELU), beside the same functions by autograd through the
    bf16 PyTorch chain. Each new case also gives the same bits on two calls.
+   Tensor parallelism's rank shapes at ViT-B's and ViT-Ti's widths (the
+   layouts of phases 20 and 21) run with the one-process cases' faults,
+   limits and work formulas: row 13's gated training forward and backward
+   at each hidden slice (D=768: 1536, 1024, 768, 512, 384, 256; D=192:
+   384, 256, 192; residual and fc2's bias zero), row 14 forward and
+   backward at each qkv shard (D=768: Dout 1152, 768, 576, 384, 192; D=192:
+   384, 192), the packed attention forward and backward at 4 and 2 heads of
+   64 on a rank's qkv slice, and the BHTD one at 1 head of 64.
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -218,7 +226,8 @@ Phases (each prints a line; any failure exits nonzero with no result):
     B's step (``fuse_ln_dense``: row 14 on the rank's qkv shard, Dout 576)
     the same way against phase 9's B kernel step. It prints the pair's ms a
     step and gloo's share of it: two ranks share one card, so this is not
-    TP's speed.
+    TP's speed. The two ranks read a spec of their runs (phase 20 gives
+    them others).
 
 17. The last modules: reference-schema ``.pth`` files (the reference repo's
     names, numpy draws) of the CNN, ViT-S (``vit_small_patch8_224``) and
@@ -276,6 +285,29 @@ Phases (each prints a line; any failure exits nonzero with no result):
     ``examples/make_synthetic_dataset_torch.py`` (finite losses, a
     checkpoint) and ``evaluate()`` of that checkpoint on its val log
     (finite mAPs; rows 3, 4, 5 at their D=768 instances, counted).
+20. Tensor parallelism at ViT-B's and ViT-Ti's widths: phase 16's two
+    ranks (``--tp-child``) and rule at ``model_parallel=2``, on phase 5's
+    batch and draws, at full width and depth: ViT-B (6 heads of 64 a rank,
+    the packed kernels; 1536 hidden units) on phase 19's weights under the
+    default switches and under B (row 14 on the rank's qkv shard, Dout
+    1152) against phase 19's kernel steps, and ViT-Ti (the uneven split: 2
+    heads on rank 0, the packed kernels, and 1 on rank 1, the BHTD ones; 384
+    hidden units) on phase 10's weights against phase 10's kernel step,
+    with phase 16's control; launch counts exact a rank by its heads; ms a
+    step, gloo's share and each rank's peak device memory.
+21. Tensor parallelism at the other layouts JAX's sharding takes for those
+    widths: one gloo group of 12 ranks on the card (``--tp-sweep-child``),
+    each layout a (data, model) mesh of them at depth 1 under B with one
+    sample a data rank: ViT-B at model axes 3, 4, 6 and 12 (4, 3, 2, 1 heads
+    a rank), ViT-Ti at 2, 3 and 4 (a rank with no heads), each step held
+    against the one-device kernel step of its config on the same samples
+    and draws by phase 16's rule with a limit of its own on the gradients
+    (1.5e-2: up to 12 bf16-rounded partials a sum, one sample a data rank;
+    phase 16's control at ViT-B's 12 ranks must break it), the ranks'
+    metrics equal, launch counts exact a rank by its heads, the slowest
+    rank's seconds by part. Phases 20 and 21 launch every rank shape that
+    phase 3 holds for them but ViT-B's hidden slice of 384 (model_parallel=8,
+    which 12 ranks do not take).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -433,23 +465,58 @@ def dp_child(dp_dir: Path, run_dir: str, split: str) -> None:
 TP_VARIANTS = ("default", "ln_dense")  # phase 16's steps: the default switches, then B
 
 
-def tp_child(tp_dir: Path, inputs: str, rank: int, port: int) -> None:
-    """Phase 16's ranks, two processes on the one card over gloo (NCCL
-    refuses two ranks on one device), mesh (1, 2): each takes phase 5's
-    step (its batch, weights and draws, lr 0) under tensor parallelism, by
-    ``shard_train_state`` and ``make_sharded_train_step``, with its launch
-    counts and the gradients gathered to full tensors (``grads_<variant>.pt``
-    from rank 0); for the default switches also the control step with
-    the MLP's ``reduce_from_model`` skipped on both ranks (the collectives
-    stay paired), its gradients too, and 3 timed steps, gloo's time inside
-    them summed; then B's step (``fuse_ln_dense``). ``result_rank<r>.json``
+@contextlib.contextmanager
+def mlp_reduce_skipped():
+    """Phase 16's control inside: every rank skips the MLP's
+    ``reduce_from_model`` (every second call a block makes), so each carries
+    its own partial on; the collectives stay paired."""
+    import intentbev_torch.models.vit as vit_mod
+
+    calls = [0]
+    sound_reduce = vit_mod.reduce_from_model
+
+    def skip_mlp_reduce(t, group):
+        calls[0] += 1
+        return t if calls[0] % 2 == 0 else sound_reduce(t, group)
+
+    vit_mod.reduce_from_model = skip_mlp_reduce
+    try:
+        yield
+    finally:
+        vit_mod.reduce_from_model = sound_reduce
+
+
+def full_grads(model, group, cfg) -> dict:
+    """A TP rank's gradients (f32) as full tensors on the host, gathered over
+    the model axis ``group`` as a checkpoint's are: every rank of it calls."""
+    from intentbev_torch.parallel.train_dp import full_tensor
+
+    return {k: full_tensor(k, p.grad.detach().float(), group, cfg).cpu()
+            for k, p in model.named_parameters()}
+
+
+def tp_child(tp_dir: Path, spec_path: str, rank: int, port: int) -> None:
+    """A tensor-parallel rank of phases 16 and 20, two processes on the one
+    card over gloo (NCCL refuses two ranks on one device), mesh (1, 2). The
+    spec (a torch file) names phase 5's batch and draws (``inputs``) and the
+    runs, in order: each takes phase 5's step (lr 0) of a model (``vit``:
+    widths over ``default_vit_config()``; ``params``: a file of its weights,
+    or None for the inputs' ViT-S) under a kernel switch (``variant``:
+    default or B) at ``model_parallel=2``, by ``shard_train_state`` and
+    ``make_sharded_train_step``, with its launch counts and the gradients
+    gathered to full tensors (``grads_<name>.pt`` from rank 0). A run with
+    ``control`` also takes the control step with the MLP's
+    ``reduce_from_model`` skipped on both ranks (every second call a block
+    makes; the collectives stay paired), its gradients too
+    (``grads_<name>_control.pt``). Each run's times (ms a step, gloo's time
+    inside it summed) and peak device memory are its first step's, or with
+    ``timed`` steps those steps' after ``warmup`` more. ``result_rank<r>.json``
     holds the rest."""
     from datetime import timedelta
 
     import torch
     import torch.distributed as dist
 
-    import intentbev_torch.models.vit as vit_mod
     from intentbev_torch.boxes import generate_anchors
     from intentbev_torch.configs import default_vit_config
     from intentbev_torch.models import IntentNetViT
@@ -457,8 +524,8 @@ def tp_child(tp_dir: Path, inputs: str, rank: int, port: int) -> None:
     from intentbev_torch.parallel import create_mesh, make_sharded_train_step, shard_train_state
     from intentbev_torch.parallel.inference import vit_serving_variant
     from intentbev_torch.parallel.mesh import model_group
-    from intentbev_torch.parallel.train_dp import full_tensor
     from intentbev_torch.train import StepDraws
+    from intentbev_torch.utils.distributed import head_share
 
     check(torch.cuda.is_available(), "the tensor-parallel ranks need the CUDA card")
     torch.cuda.set_device(0)
@@ -479,69 +546,71 @@ def tp_child(tp_dir: Path, inputs: str, rank: int, port: int) -> None:
     try:
         _build.kernels()
         dev = torch.device("cuda", 0)
-        inp = torch.load(inputs, weights_only=False)
+        spec = torch.load(spec_path, weights_only=False)
+        inp = torch.load(spec["inputs"], weights_only=False)
         draws = inp["draws"]
         draws = StepDraws(type(draws.dropout)(*(t.to(dev) for t in draws.dropout)),
                           draws.intent_u.to(dev))
         batch = {k: t.to(dev) for k, t in inp["batch"].items()}
         result = {"backend": dist.get_backend()}
-        for variant in TP_VARIANTS:
+        for run in spec["runs"]:
+            name = run["name"]
             cfg = default_vit_config()
-            if variant != "default":
-                cfg = vit_serving_variant(cfg, variant)[0]
+            cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, **run["vit"]))
+            if run["variant"] != "default":
+                cfg = vit_serving_variant(cfg, run["variant"])[0]
             cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, model_parallel=2))
             mesh = create_mesh(cfg.mesh, "cuda")
             model = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.bfloat16,
                                  param_dtype=torch.float32)
-            model.load_state_dict(inp["params"])
+            model.load_state_dict(inp["params"] if run["params"] is None else
+                                  torch.load(run["params"], mmap=True, weights_only=True))
             model.to(dev)
             opt = torch.optim.SGD(model.parameters(), lr=0.0)  # phase 5's step at lr 0
             shard_train_state(model, opt, mesh, cfg)
             anchors = torch.from_numpy(generate_anchors(cfg.grid, cfg.anchors)).to(dev)
             step = make_sharded_train_step(model, cfg, anchors, opt, mesh)
             _build.reset_launch_counts()
-            metrics = step(batch, torch.Generator(device="cuda").manual_seed(1), draws)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gloo_s[0] = 0.0
+            dist.all_reduce = timed_all_reduce
+            t0 = time.perf_counter()
+            try:
+                metrics = step(batch, torch.Generator(device="cuda").manual_seed(1), draws)
+                torch.cuda.synchronize()
+            finally:
+                dist.all_reduce = sound_all_reduce
+            timing = ([(time.perf_counter() - t0) * 1e3], [gloo_s[0] * 1e3],
+                      torch.cuda.max_memory_allocated() / 2**30)
             counts = dict(_build.launches)
             mg = model_group(mesh, cfg.mesh)
 
-            def save_grads(name_):
-                """The rank's gradients as full tensors, gathered over the model
-                axis as a checkpoint's are; rank 0 writes them."""
-                grads = {k_: full_tensor(k_, p_.grad.detach().float(), mg, cfg).cpu()
-                         for k_, p_ in model.named_parameters()}
+            def save_grads(name_):  # rank 0 writes them
+                grads = full_grads(model, mg, cfg)
                 if rank == 0:
                     torch.save(grads, tp_dir / f"grads_{name_}.pt")
 
-            save_grads(variant)
+            save_grads(name)
             res = {"metrics": {k: float(v) for k, v in metrics.items()}, "counts": counts,
                    "mesh": [list(mesh.shape), list(mesh.mesh_dim_names)],
-                   "model_axis": [mg.rank, mg.size]}
-            if variant == "default":
-                # control: both ranks skip the MLP's sum (every second call a
-                # block makes), so each carries its own partial on
-                calls = [0]
-                sound_reduce = vit_mod.reduce_from_model
-
-                def skip_mlp_reduce(t, group):
-                    calls[0] += 1
-                    return t if calls[0] % 2 == 0 else sound_reduce(t, group)
-
-                vit_mod.reduce_from_model = skip_mlp_reduce
-                try:
+                   "model_axis": [mg.rank, mg.size],
+                   "heads": head_share(cfg.vit.num_heads, mg.size, mg.rank)[1]}
+            if run.get("control"):
+                with mlp_reduce_skipped():
                     ctrl = step(batch, torch.Generator(device="cuda").manual_seed(1), draws)
-                    res["control"] = {k: float(v) for k, v in ctrl.items()}
-                finally:
-                    vit_mod.reduce_from_model = sound_reduce
-                save_grads("control")
+                res["control"] = {k: float(v) for k, v in ctrl.items()}
+                save_grads(f"{name}_control")
+            if run.get("timed"):
                 tgen = torch.Generator(device="cuda").manual_seed(2)
-                step(batch, tgen)  # warm-up
+                for _ in range(run["warmup"]):
+                    step(batch, tgen)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 dist.all_reduce = timed_all_reduce
                 step_ms, gloo_ms = [], []
                 try:
-                    for _ in range(3):
+                    for _ in range(run["timed"]):
                         gloo_s[0] = 0.0
                         t0 = time.perf_counter()
                         step(batch, tgen)
@@ -550,13 +619,130 @@ def tp_child(tp_dir: Path, inputs: str, rank: int, port: int) -> None:
                         gloo_ms.append(gloo_s[0] * 1e3)
                 finally:
                     dist.all_reduce = sound_all_reduce
-                res.update(step_ms=step_ms, gloo_ms=gloo_ms,
-                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-            result[variant] = res
+                timing = step_ms, gloo_ms, torch.cuda.max_memory_allocated() / 2**30
+            res.update(zip(("step_ms", "gloo_ms", "peak_gib"), timing))
+            result[name] = res
             del model, opt, step
             torch.cuda.empty_cache()
             dist.barrier()
         (tp_dir / f"result_rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+# Phase 21: one gloo group of 12 ranks on the card (every model axis below
+# divides it; the data axis takes the rest), each layout a (data, model) mesh
+# of them under B at depth 1, one sample a data rank: the rank shapes of
+# ViT-B's and ViT-Ti's layouts that phase 20 (model_parallel=2) does not run.
+# ViT-B's model axis of 8, which 12 does not take, adds only its hidden slice
+# of 384 (phase 3 holds it); a group of 24 ranks, which takes it, cost too
+# much of the smoke's time limit
+TP_SWEEP_WORLD = 12
+TP_SWEEP = (("ViT-B", 3), ("ViT-B", 4), ("ViT-B", 6), ("ViT-B", 12),
+            ("ViT-Ti", 2), ("ViT-Ti", 3), ("ViT-Ti", 4))
+TP_SWEEP_WIDTHS = {"ViT-B": (768, 12), "ViT-Ti": (192, 3)}  # embed, heads (hidden 4x)
+TP_SWEEP_CONTROL = ("ViT-B", 12)  # the layout that also takes phase 16's control step
+# Phase 21's limit of the gradients' relative L2 over all parameters (its
+# loss and worst-tensor limits are phase 16's): each sum over the model axis
+# adds the bf16 roundings of up to 12 partials, on one sample a data rank;
+# sound 3.0e-3 to 6.5e-3 (the most at 12 ranks), the control 0.17 (PERF.md)
+TP_SWEEP_GRAD_LIMIT = 1.5e-2
+
+
+def tp_sweep_config(model: str, mp: int):
+    """Phase 21's config of ``model`` at ``model_parallel=mp``:
+    ``default_vit_config()`` at the model's widths, depth 1, under B."""
+    from intentbev_torch.configs import default_vit_config
+    from intentbev_torch.parallel.inference import vit_serving_variant
+
+    cfg = default_vit_config()
+    embed, heads = TP_SWEEP_WIDTHS[model]
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(
+        cfg.vit, embed_dim=embed, num_heads=heads, depth=1),
+        mesh=dataclasses.replace(cfg.mesh, model_parallel=mp))
+    return vit_serving_variant(cfg, "ln_dense")[0]
+
+
+def tp_sweep_child(sweep_dir: Path, rank: int, port: int) -> None:
+    """A rank of phase 21: for each layout of TP_SWEEP, one step (lr 0) of
+    its config (``tp_sweep_config``, the weights ``params_<model>.pt``) by
+    ``shard_train_state`` and ``make_sharded_train_step`` on the rank's
+    sample (its index on the data axis) of ``batch.pt``, the draws from a
+    generator seeded 1 (the global batch's, cut to the rank); its launch
+    counts, and the gradients gathered over the model axis to full tensors
+    (``grads_<model>_<mp>.pt`` from rank 0). ``result_rank<r>.json`` holds
+    the metrics, counts and head shares."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from intentbev_torch.boxes import generate_anchors
+    from intentbev_torch.models import IntentNetViT
+    from intentbev_torch.ops import _build
+    from intentbev_torch.parallel import create_mesh, make_sharded_train_step, shard_train_state
+    from intentbev_torch.parallel.mesh import data_group, model_group
+    from intentbev_torch.utils.distributed import head_share
+
+    t0 = time.perf_counter()
+    check(torch.cuda.is_available(), "the tensor-parallel ranks need the CUDA card")
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, TP_SWEEP_WORLD, rank == 0,
+                          timeout=timedelta(seconds=120))
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=TP_SWEEP_WORLD,
+                            timeout=timedelta(seconds=120))
+    try:
+        _build.kernels()
+        dev = torch.device("cuda", 0)
+        batch = torch.load(sweep_dir / "batch.pt", weights_only=True)
+        meshes, result = {}, {"start_s": time.perf_counter() - t0}
+        for model_name, mp in TP_SWEEP:
+            t1 = time.perf_counter()
+            cfg = tp_sweep_config(model_name, mp)
+            if mp not in meshes:
+                meshes[mp] = create_mesh(cfg.mesh, "cuda")
+            mesh = meshes[mp]
+            dg, mg = data_group(mesh, cfg.mesh), model_group(mesh, cfg.mesh)
+            net = IntentNetViT(cfg.vit, cfg.heads, dtype=torch.bfloat16,
+                               param_dtype=torch.float32)
+            net.load_state_dict(torch.load(sweep_dir / f"params_{model_name}.pt", mmap=True,
+                                           weights_only=True))
+            net.to(dev)
+            opt = torch.optim.SGD(net.parameters(), lr=0.0)
+            shard_train_state(net, opt, mesh, cfg)
+            anchors = torch.from_numpy(generate_anchors(cfg.grid, cfg.anchors)).to(dev)
+            step = make_sharded_train_step(net, cfg, anchors, opt, mesh)
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            metrics = step({k: t[dg.rank:dg.rank + 1].to(dev) for k, t in batch.items()},
+                           torch.Generator(device="cuda").manual_seed(1))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            counts = dict(_build.launches)
+            grads = full_grads(net, mg, cfg)
+            if rank == 0:
+                torch.save(grads, sweep_dir / f"grads_{model_name}_{mp}.pt")
+            del grads
+            control = None
+            if (model_name, mp) == TP_SWEEP_CONTROL:
+                with mlp_reduce_skipped():
+                    control = {k: float(v) for k, v in step(
+                        {k: t[dg.rank:dg.rank + 1].to(dev) for k, t in batch.items()},
+                        torch.Generator(device="cuda").manual_seed(1)).items()}
+                grads = full_grads(net, mg, cfg)
+                if rank == 0:
+                    torch.save(grads, sweep_dir / f"grads_{model_name}_{mp}_control.pt")
+                del grads
+            result[f"{model_name} {mp}"] = {
+                "metrics": {k: float(v) for k, v in metrics.items()}, "counts": counts,
+                "heads": head_share(cfg.vit.num_heads, mg.size, mg.rank)[1],
+                "axes": [dg.rank, dg.size, mg.rank, mg.size], "control": control,
+                "seconds": [t2 - t1, t3 - t2, time.perf_counter() - t3]}
+            del net, opt, step
+            torch.cuda.empty_cache()
+        (sweep_dir / f"result_rank{rank}.json").write_text(json.dumps(result))
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -1746,6 +1932,130 @@ def main() -> None:
             2 * nbytes(x_ad_b) + nbytes(dy_ad_b, ln_b[0], ln_b[1], w_ad_b, b_ad_b)
             + 4 * (2 * db_ + a_out * db_ + a_out), 3 * ad_flops_b, None),
     })
+    # Tensor parallelism's rank shapes at ViT-B's and ViT-Ti's widths (phase
+    # 20 at model_parallel=2, phase 21 at the other layouts up to 12 ranks;
+    # ViT-B's hidden slice of 384, at model_parallel=8, is held, not listed):
+    # row 13 on each rank's hidden slice (the residual and fc2's bias zero: a
+    # rank other than the model axis's first), row 14 on each rank's qkv shard
+    # under B (Dout 3 x 64 x its heads), the packed attention on a rank's qkv
+    # slice at 4 and 2 heads of 64 and the BHTD one at 1; each case as the
+    # one-process case of the same kernel (same faults, limits, work formulas)
+    TP_HIDDEN = {768: (1536, 1024, 768, 512, 384, 256), 192: (384, 256, 192)}
+    TP_DOUT = {768: (1152, 768, 576, 384, 192), 192: (384, 192)}
+    tp_mlp = {768: (x8_b, w1_b, b1_b, w2_b, dy_b), 192: (x8_t, w1_t, b1_t, w2_t, dy_t)}
+    tp_lnd = {768: (x_b, ln_b, w_qkv_b, b_qkv_b, dy_qkv_b),
+              192: (x_t, ln_t, w_qkv_t, b_qkv_t, dy_qkv_t)}
+    for d_, hids in TP_HIDDEN.items():
+        h_in, w1_f, b1_f, w2_f, dy_f = tp_mlp[d_]
+        z_b2 = torch.zeros(d_, device=dev)
+        z_res = torch.zeros_like(h_in)
+        for hid_ in hids:
+            w1_h, b1_h = w1_f[:hid_].contiguous(), b1_f[:hid_].contiguous()
+            w2_h = w2_f[:, :hid_].contiguous()
+            flops_h = 4 * rows * d_ * hid_
+            cases[f"fused_mlp_train[TP,D={d_},hidden={hid_}]"] = (
+                (lambda a=(h_in, w1_h, b1_h, w2_h, z_b2, z_res): fused_mlp_train(*a, gate_r)),
+                (lambda a=(h_in, w1_h, b1_h, w2_h, z_b2, z_res): fused_mlp_plain(*a,
+                                                                                 gate=gate_r)),
+                (lambda a=(h_in, w1_h, b1_h, w2_h, z_b2, z_res): fused_mlp_plain(*a)),
+                "gate ignored", (rel_l2,), (1e-3,), 10, 3,
+                nbytes(h_in, w1_h, b1_h, w2_h, z_b2, z_res, gate_r) + nbytes(h_in), flops_h, None)
+            cases[f"fused_mlp_bwd[TP,D={d_},hidden={hid_}]"] = (
+                (lambda a=(h_in, w1_h, b1_h, w2_h, gate_r, dy_f): dx_twice(fused_mlp_bwd(*a))),
+                (lambda a=(h_in, w1_h, b1_h, w2_h, gate_r, dy_f): dx_twice(
+                    fused_mlp_bwd_plain(*a))),
+                [(lambda a=(h_in, w1_h, b1_h, w2_h, None, dy_f): dx_twice(
+                    fused_mlp_bwd_plain(*a))),
+                 (lambda a=(h_in, w1_h, b1_h, w2_h, gate_r, dy_f): dg_f32(
+                     lambda: fused_mlp_bwd_plain(*a), *a))],
+                ["gate ignored", "dg kept in f32"], BWD_METRICS[5],
+                BWD_LIMITS_B5 if d_ == 768 else BWD_LIMITS[5], 5, 2,
+                3 * nbytes(h_in) + nbytes(w1_h, b1_h, w2_h, gate_r)
+                + 4 * (d_ + hid_ + 2 * d_ * hid_), 5 * flops_h // 2, None)
+    for d_, douts in TP_DOUT.items():
+        x_in, ln_in, w_f, b_f, dy_f = tp_lnd[d_]
+        for dout_ in douts:
+            w_o, b_o = w_f[:dout_].contiguous(), b_f[:dout_].contiguous()
+            dy_o = dy_f[:, :dout_].contiguous()
+            a_o = (x_in, ln_in[0], ln_in[1], w_o, b_o)
+            cases[f"fused_ln_dense[TP,D={d_},Dout={dout_}]"] = (
+                (lambda a=a_o: twice(fused_ln_dense(*a))),
+                (lambda a=a_o: twice(fused_ln_dense_plain(*a))),
+                [(lambda a=a_o: twice(fused_ln_dense_plain(*a[:4], torch.zeros_like(a[4])))),
+                 (lambda a=a_o, ln_=ln_in: twice(xn_f32(a[0], ln_[:2], a[3], a[4])))],
+                ["bias left out", "xn kept in f32"], MLP_METRICS[1], MLP_LIMITS[1], 20, 3,
+                nbytes(*a_o) + rows * dout_ * 2, 2 * rows * d_ * dout_, None)
+            cases[f"fused_ln_dense_bwd[TP,D={d_},Dout={dout_}]"] = (
+                (lambda a=a_o, dy_=dy_o: dx_twice(fused_ln_dense_bwd(*a, dy_))),
+                (lambda a=a_o, dy_=dy_o: dx_twice(fused_ln_dense_bwd_plain(*a, dy_))),
+                [(lambda a=a_o, dy_=dy_o: dx_twice(ln_dense_bwd_no_m2(*a, dy_))),
+                 (lambda a=a_o, ln_=ln_in, dy_=dy_o: ln_dense_dx_moved(a[0], ln_[:2], a[3], a[4],
+                                                                       dy_))],
+                ["no mean(dyg*xhat) term", "dxn rounded before the LN backward"],
+                BWD_METRICS[5], BWD_LIMITS[5], 10, 2,
+                2 * nbytes(x_in) + nbytes(dy_o, ln_in[0], ln_in[1], w_o, b_o)
+                + 4 * (2 * d_ + dout_ * d_ + dout_), 2 * 2 * rows * d_ * dout_, None)
+    for h_ in (4, 2):  # the packed kernels on a rank's qkv slice [8, 4501, 3 x 64 x h]
+        dm_ = 64 * h_
+        qkv_h = randn((batch, tokens, 3 * dm_), 1.0)
+        q_h, k_h, v_h = (qkv_h[..., i * dm_:(i + 1) * dm_] for i in range(3))
+        o_h, lse_h = flash_attention_packed(q_h, k_h, v_h, h_)
+        do_h = randn((batch, tokens, dm_), 1.0)
+        bhtd_h = [t_.reshape(batch, tokens, h_, 64).transpose(1, 2).contiguous().requires_grad_()
+                  for t_ in (q_h, k_h, v_h)]
+        o_sdpa_h = F.scaled_dot_product_attention(*bhtd_h)
+        doh_h = do_h.reshape(batch, tokens, h_, 64).transpose(1, 2).contiguous()
+        flops_a = 4 * batch * tokens * tokens * dm_
+        qkv_a = (q_h, k_h, v_h)
+
+        def split3(t_, dm=dm_):
+            return tuple(t_[..., i * dm:(i + 1) * dm] for i in range(3))
+
+        cases[f"flash_packed[TP,{h_}x64]"] = (
+            (lambda a=qkv_a, h=h_: o_twice(flash_attention_packed(*a, h))),
+            (lambda a=qkv_a, h=h_: o_twice(flash_attention_packed_plain(*a, h))),
+            [(lambda a=qkv_a, h=h_: o_twice(flash_attention_packed_plain(*a, h, None, 0, True))),
+             (lambda a=qkv_a, h=h_: o_twice(flash_attention_packed_plain(*a, h, tile_len)))],
+            ["P rounded against the fixed max", "keys of the last partial tile masked"],
+            FWD_METRICS, FWD_LIMITS, 10, 3, nbytes(q_h, k_h, v_h, o_h, lse_h), flops_a,
+            torch.no_grad()(lambda b_=bhtd_h: F.scaled_dot_product_attention(*b_)))
+        cases[f"flash_packed_bwd[TP,{h_}x64]"] = (
+            (lambda a=qkv_a + (o_h, lse_h, do_h), h=h_, sp=split3: sp(
+                flash_attention_packed_bwd(*a, h))),
+            (lambda a=qkv_a + (o_h, lse_h, do_h), h=h_, sp=split3: sp(
+                flash_attention_packed_bwd_plain(*a, h))),
+            (lambda a=qkv_a + (torch.zeros_like(o_h), lse_h, do_h), h=h_, sp=split3: sp(
+                flash_attention_packed_bwd_plain(*a, h))),
+            "delta = rowsum(dO*O) left out", (rel_l2,) * 3, (1e-2,) * 3, 5, 2,
+            nbytes(q_h, k_h, v_h, o_h, do_h, lse_h) + nbytes(qkv_h), 5 * flops_a // 2,
+            (lambda o_=o_sdpa_h, b_=bhtd_h, d_=doh_h: torch.autograd.grad(o_, b_, d_,
+                                                                          retain_graph=True)))
+    # the BHTD kernels at 1 head of 64, on the views of a rank's qkv [8, 4501, 192]
+    qkv_1 = randn((batch, tokens, 192), 1.0)
+    qkv_1v = [heads_view(qkv_1[..., i * 64:(i + 1) * 64], 1) for i in range(3)]
+    o_1, lse_1 = flash_attention_packed_layout(*(qkv_1[..., i * 64:(i + 1) * 64]
+                                                 for i in range(3)), 1)
+    o_1v, do_1v = heads_view(o_1, 1), heads_view(randn((batch, tokens, 64), 1.0), 1)
+    bhtd_1 = [t_.contiguous().requires_grad_(t_ is not do_1v) for t_ in (*qkv_1v, do_1v)]
+    o_sdpa_1 = F.scaled_dot_product_attention(*bhtd_1[:3])
+    flops_1 = 4 * batch * tokens * tokens * 64
+    cases.update({
+        "flash_attention[TP,1x64]": (
+            lambda: o_twice(flash_attention_fwd(*qkv_1v, out=o_1v)),
+            lambda: o_twice(flash_attention_fwd_plain(*qkv_1v)),
+            [lambda: o_twice(bhtd_plain_form(*qkv_1v)),
+             lambda: o_twice(flash_attention_fwd_plain(*qkv_1v, tile_len))],
+            ["P rounded against the fixed max", "keys of the last partial tile masked"],
+            FWD_METRICS, FWD_LIMITS, 10, 3, nbytes(qkv_1, o_1, lse_1), flops_1,
+            torch.no_grad()(lambda: F.scaled_dot_product_attention(*bhtd_1[:3]))),
+        "flash_attention_bwd[TP,1x64]": (
+            lambda: flash_attention_bwd(*qkv_1v, o_1v, lse_1, do_1v),
+            lambda: flash_attention_bwd_plain(*qkv_1v, o_1v, lse_1, do_1v),
+            lambda: bhtd_attn_plain_ctl(*qkv_1v, o_1v, lse_1, do_1v),
+            "delta = rowsum(dO*O) left out", (rel_l2,) * 3, (1e-2,) * 3, 5, 2,
+            nbytes(qkv_1, o_1, o_1, lse_1) + nbytes(qkv_1), 5 * flops_1 // 2,
+            lambda: torch.autograd.grad(o_sdpa_1, bhtd_1[:3], bhtd_1[3], retain_graph=True)),
+    })
     record = {}
 
     def bwd_split(fn, kinds, iters=3):
@@ -1986,6 +2296,9 @@ def main() -> None:
     del x8_t, w1q_t, w2q_t, int8_args_t
     del x_b, mlp_b, qkv_b, q_b, k_b, v_b, bhtd_b, sdpa_b, gl_b, bl_b
     del x8_b, w1q_b, w2q_b, int8_args_b, w_qkv_b, b_qkv_b, x_ad_b, w_ad_b, b_ad_b, w_conv_b
+    del tp_mlp, tp_lnd, h_in, w1_f, b1_f, w2_f, dy_f, z_b2, z_res, w1_h, b1_h, w2_h, x_in
+    del ln_in, w_f, b_f, w_o, b_o, dy_o, a_o, qkv_h, q_h, k_h, v_h, o_h, lse_h, do_h, bhtd_h
+    del o_sdpa_h, doh_h, qkv_a, qkv_1, qkv_1v, o_1, lse_1, o_1v, do_1v, bhtd_1, o_sdpa_1
     del x3_b, dy_b, dy3_b, train_b_args, xhat_b, inv_b, o_b, lse_b, do_b, xl_b, gl_bg, bl_bg
     del y_ln_b, qh_b, kh_b, vh_b, doh_b, o_sdpa_b, dy_qkv_b, dy_ad_b
     torch.cuda.empty_cache()
@@ -2628,6 +2941,7 @@ def main() -> None:
           f"< {grad_limit:g}, worst {sound_g[1]:.3e} ({sound_g[2]}) < {worst_limit:g}; control "
           f"(plain, LN+MLP backward ignores the gate) all {ctrl_g[0]:.3e}, worst "
           f"{ctrl_g[1]:.3e} ({ctrl_g[2]}) caught", flush=True)
+    ti_step = (m_k, {k_: t.cpu() for k_, t in g_k.items()})  # phase 20 reads it
     del g_k, g_p, g_c
     tstep = make_train_step(tnet, tcfg, anchors, make_optimizer(tnet.parameters(), tcfg))
     tgen = torch.Generator(device="cuda").manual_seed(2)
@@ -3412,50 +3726,80 @@ def main() -> None:
     # the one card over gloo, each in its own process (tp_child)
     import socket
 
+    def run_ranks(dir_, n_, child_args, what):
+        """Start ``n_`` processes of this file, rank r with the arguments
+        ``child_args(r, port)`` (a free localhost port for their store), wait
+        for them (a hang fails after TP_TIMEOUT_S), check that each exited 0
+        and read each one's ``result_rank<r>.json``."""
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port_ = sock.getsockname()[1]
+        torch.cuda.empty_cache()
+        t0_ = time.perf_counter()
+        logs_ = [open(dir_ / f"rank{r_}.log", "w") for r_ in range(n_)]
+        procs_ = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                    *map(str, child_args(r_, port_))],
+                                   stdout=logs_[r_], stderr=subprocess.STDOUT)
+                  for r_ in range(n_)]
+        try:
+            for p_ in procs_:
+                p_.wait(timeout=max(1.0, TP_TIMEOUT_S - (time.perf_counter() - t0_)))
+        except subprocess.TimeoutExpired:
+            for p_ in procs_:
+                p_.kill()
+                p_.wait()
+            fail(f"{what}: the {n_} ranks did not finish within {TP_TIMEOUT_S} s")
+        finally:
+            for f_ in logs_:
+                f_.close()
+        for r_, p_ in enumerate(procs_):
+            text = (dir_ / f"rank{r_}.log").read_text()
+            check(p_.returncode == 0, f"{what}: rank {r_} exited {p_.returncode}: {text[-4000:]}")
+        return [json.loads((dir_ / f"result_rank{r_}.json").read_text()) for r_ in range(n_)]
+
+    def tp_ranks(tp_dir_, runs_):
+        """The two ranks of ``tp_child`` on the spec of ``runs_`` (phase 5's
+        batch and draws from phase 15's inputs)."""
+        tp_dir_.mkdir(exist_ok=True)
+        torch.save({"inputs": str(dp_dir / "inputs.pt"), "runs": runs_}, tp_dir_ / "spec.pt")
+        return run_ranks(tp_dir_, 2, lambda r_, port_: ("--tp-child", tp_dir_,
+                                                         tp_dir_ / "spec.pt", r_, port_), "tp")
+
+    def tp_rank_counts(depth_, heads_r, variant_):
+        """The launches one TP step makes on a rank that holds ``heads_r``
+        heads of 64 (a ViT of ``depth_`` blocks a stream, the default
+        switches or B): row 13 on its hidden slice a block, the attention
+        (packed where its heads pair, BHTD where not, none without heads),
+        norm2 and the final norms apart (and norm1 but under B), row 14 on
+        its qkv shard under B (none without heads) beside the 2 adapters."""
+        blocks = 2 * depth_
+        want = {"fused_mlp_train": blocks, "fused_mlp_bwd": blocks}
+        if heads_r:
+            attn = ("flash_packed", "flash_packed_bwd") if heads_r % 2 == 0 else (
+                "flash_attention", "flash_attention_bwd")
+            want.update({attn[0]: blocks, attn[1]: blocks})
+        if variant_ == "ln_dense":
+            n_lnd = 2 + (blocks if heads_r else 0)
+            want.update(fused_ln_dense=n_lnd, fused_ln_dense_bwd=n_lnd,
+                        layernorm_train=blocks + 2, layernorm_bwd=blocks + 2)
+        else:
+            want.update(layernorm_train=2 * (blocks + 2), layernorm_bwd=2 * (blocks + 2))
+        return want
+
     t16 = time.perf_counter()
     tp_dir = root / "tp"
-    tp_dir.mkdir()
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        tp_port = sock.getsockname()[1]
-    torch.cuda.empty_cache()
-    logs = [open(tp_dir / f"rank{r_}.log", "w") for r_ in range(2)]
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-child",
-                               str(tp_dir), str(dp_dir / "inputs.pt"), str(r_), str(tp_port)],
-                              stdout=logs[r_], stderr=subprocess.STDOUT)
-             for r_ in range(2)]
-    try:
-        for p_ in procs:
-            p_.wait(timeout=TP_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        for p_ in procs:
-            p_.kill()
-            p_.wait()
-        fail(f"tp: the tensor-parallel ranks did not finish within {TP_TIMEOUT_S} s")
-    finally:
-        for f_ in logs:
-            f_.close()
-    for r_, p_ in enumerate(procs):
-        text = (tp_dir / f"rank{r_}.log").read_text()
-        check(p_.returncode == 0, f"tp: rank {r_} exited {p_.returncode}: {text[-4000:]}")
-    tp = [json.loads((tp_dir / f"result_rank{r_}.json").read_text()) for r_ in range(2)]
-    per_rank = {  # launches a rank makes in one step, the model axis of 2
-        "default": {"flash_attention": 2 * v.depth, "flash_attention_bwd": 2 * v.depth,
-                    "fused_mlp_train": 2 * v.depth, "fused_mlp_bwd": 2 * v.depth,
-                    "layernorm_train": 2 * (2 * v.depth + 2),
-                    "layernorm_bwd": 2 * (2 * v.depth + 2)},
-        "ln_dense": {"fused_ln_dense": 2 * v.depth + 2, "fused_ln_dense_bwd": 2 * v.depth + 2,
-                     "flash_attention": 2 * v.depth, "flash_attention_bwd": 2 * v.depth,
-                     "fused_mlp_train": 2 * v.depth, "fused_mlp_bwd": 2 * v.depth,
-                     "layernorm_train": 2 * v.depth + 2, "layernorm_bwd": 2 * v.depth + 2}}
+    tp = tp_ranks(tp_dir, [
+        {"name": "default", "vit": {}, "variant": "default", "params": None, "control": True,
+         "warmup": 1, "timed": 3},
+        {"name": "ln_dense", "vit": {}, "variant": "ln_dense", "params": None}])
     refs16 = {"default": (p5_metrics, p5_grads), "ln_dense": kernel_steps["B fuse_ln_dense"]}
     for r_, res_ in enumerate(tp):
         check(res_["backend"] == "gloo" and res_["default"]["model_axis"] == [r_, 2],
               f"tp: rank {r_}: backend {res_['backend']}, model axis "
               f"{res_['default']['model_axis']}")
         for variant in TP_VARIANTS:
-            got_c = res_[variant]["counts"]
-            want_c = {k_: per_rank[variant].get(k_, 0) for k_ in got_c}
+            got_c = res_[variant]["counts"]  # 3 of ViT-S's 6 heads a rank
+            want_c = {k_: tp_rank_counts(v.depth, 3, variant).get(k_, 0) for k_ in got_c}
             check(got_c == want_c, f"tp {variant}: rank {r_} launch counts {got_c} != {want_c}")
     # The rule: TP runs other kernels (norm2 apart, row 13 on the hidden slice,
     # row 16 on 3 heads) and sums bf16 partials, so it is held as phase 5
@@ -3463,11 +3807,11 @@ def main() -> None:
     # relative, num_pos equal, gradients' relative L2 under 6e-3 overall and
     # 0.4 the worst tensor (phase 15's DP step, the same kernels at world 1,
     # is held within 1e-3)
-    def tp_readings(metrics_, grads_, ref_):
+    def tp_readings(metrics_, grads_, ref_, all_limit=grad_limit):
         m_rel_ = {k_: abs(metrics_[k_] - ref_[0][k_]) / max(abs(ref_[0][k_]), 1e-30)
                   for k_ in ref_[0] if k_ != "num_pos_anchors"}
         g_ = grad_readings(grads_, ref_[1]) if grads_ is not None else (0.0, 0.0, "")
-        ok_ = (max(m_rel_.values()) < loss_limit and g_[0] < grad_limit and g_[1] < worst_limit
+        ok_ = (max(m_rel_.values()) < loss_limit and g_[0] < all_limit and g_[1] < worst_limit
                and metrics_["num_pos_anchors"] == ref_[0]["num_pos_anchors"])
         return ok_, m_rel_, g_
 
@@ -3486,7 +3830,7 @@ def main() -> None:
                   f"{tp[0][variant]['metrics']} vs {refs16[variant][0]} (relative {m_rel}), "
                   f"gradients {g16}")
         del grads16
-    grads16 = torch.load(tp_dir / "grads_control.pt", weights_only=True)
+    grads16 = torch.load(tp_dir / "grads_default_control.pt", weights_only=True)
     ok, m_rel_c, g_c16 = tp_readings(tp[0]["default"]["control"], grads16, refs16["default"])
     del grads16
     check(not ok, f"tp: the control (the MLP's reduce_from_model skipped) stays inside the "
@@ -3738,7 +4082,6 @@ def main() -> None:
           f"{soak['value']} samples/s over {soak['samples']} samples, RSS "
           f"{soak['rss_start_mb']} -> {soak['rss_peak_mb']} MB (4 threads) [{card}]", flush=True)
     tmp17.cleanup()
-    tmp14.cleanup()  # phases 15 to 17 read phase 14's run and phase 15's inputs there
     print(f"last modules: phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
     # 18. ViT-B: a reference vit_base_patch8_224 checkpoint (D=768, 12 heads
@@ -3853,6 +4196,7 @@ def main() -> None:
                        lambda f: lambda x_, ga, be, w1_, b1_, w2_, gate_, dy_, eps:
                        f(x_, ga, be, w1_, b1_, w2_, None, dy_, eps), model_vb, vb_cfg)
     model_vb.plain_ops = False
+    vb_step = (m_k, {k_: t.cpu() for k_, t in g_k.items()})  # phase 20 reads it
     sound_g, ctrl_g = grad_readings(g_k, g_p), grad_readings(g_c, g_p)
     loss_rel = abs(m_k["loss"] - m_p["loss"]) / abs(m_p["loss"])
     said = (f"sound {sound_g[:2]} (worst {sound_g[2]}), control {ctrl_g[:2]} "
@@ -3944,6 +4288,7 @@ def main() -> None:
                             per_step_c, control, fault, groups=groups_vb)
         for cname, (variant, per_step_c, control, fault) in train_by_config.items()}
     vitb_train_b, vitb_train_c = vitb_variant_train.values()
+    vb_b_step = kernel_steps["ViT-B B fuse_ln_dense"]  # phase 20 reads it
     del kernel_steps
     print(f"ViT-B train under B and C took {time.perf_counter() - t19v:.1f} s", flush=True)
 
@@ -3997,6 +4342,157 @@ def main() -> None:
           f"of its checkpoint: {results19['num_samples']} samples, mAPs {maps19}, launches "
           f"{vitb_eval_counts}; phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
 
+    # 20. tensor parallelism at ViT-B's and ViT-Ti's widths: phase 16's
+    # ranks and rule at model_parallel=2 on phase 5's batch and draws, ViT-B
+    # (6 heads of 64 a rank: the packed kernels; hidden 1536; under B row 14
+    # at Dout 1152) against phase 19's kernel steps and ViT-Ti (2 heads on
+    # rank 0, the packed kernels, and 1 on rank 1, the BHTD ones; hidden 384)
+    # against phase 10's, both at full width and depth
+    t20 = time.perf_counter()
+    tp20_dir = root / "tp20"
+    tp20_dir.mkdir()
+    torch.save(params_vb, tp20_dir / "params_vitb.pt")
+    torch.save(tparams, tp20_dir / "params_viti.pt")
+    del params_vb
+    widths20 = {"ViT-B": (vbv, tp20_dir / "params_vitb.pt"),
+                "ViT-Ti": (tcfg.vit, tp20_dir / "params_viti.pt")}
+    # name, widths, kernel switch, its one-device kernel step, control; the
+    # times are the checked step's (ViT-B's take 11-14 s on gloo, against
+    # ~0.3 s of a warm-up's own cost)
+    runs20 = [("ViT-B", "ViT-B", "default", vb_step, {}),
+              ("ViT-B B", "ViT-B", "ln_dense", vb_b_step, {}),
+              ("ViT-Ti", "ViT-Ti", "default", ti_step, {"control": True})]
+    tp20 = tp_ranks(tp20_dir, [
+        {"name": name, "variant": variant, "params": str(widths20[w_][1]),
+         "vit": {"embed_dim": widths20[w_][0].embed_dim,
+                 "num_heads": widths20[w_][0].num_heads}, **extra}
+        for name, w_, variant, _, extra in runs20])
+    for name, w_, variant, ref_, _ in runs20:
+        vw = widths20[w_][0]
+        for r_, res_ in enumerate(tp20):
+            got_c, heads_r = res_[name]["counts"], res_[name]["heads"]
+            want_r = tp_rank_counts(vw.depth, heads_r, variant)
+            want_c = {k_: want_r.get(k_, 0) for k_ in got_c}
+            check(res_[name]["model_axis"] == [r_, 2] and got_c == want_c,
+                  f"tp {name}: rank {r_} ({heads_r} heads) model axis "
+                  f"{res_[name]['model_axis']}, launch counts {got_c} != {want_c}")
+        check(tp20[0][name]["metrics"] == tp20[1][name]["metrics"],
+              f"tp {name}: the ranks' metrics differ: {tp20[0][name]['metrics']} vs "
+              f"{tp20[1][name]['metrics']}")
+        grads20 = torch.load(tp20_dir / f"grads_{name}.pt", weights_only=True)
+        ok, m_rel, g20 = tp_readings(tp20[0][name]["metrics"], grads20, ref_)
+        check(ok, f"tp {name} step vs the one-device kernel step: metrics "
+                  f"{tp20[0][name]['metrics']} vs {ref_[0]} (relative {m_rel}), gradients {g20}")
+        del grads20
+        said = ""
+        if "control" in tp20[0][name]:
+            grads20 = torch.load(tp20_dir / f"grads_{name}_control.pt", weights_only=True)
+            ok, m_rel_c, g_c20 = tp_readings(tp20[0][name]["control"], grads20, ref_)
+            del grads20
+            check(not ok, f"tp {name}: the control (the MLP's reduce_from_model skipped) stays "
+                          f"inside the rule: relative {m_rel_c}, gradients {g_c20}")
+            said = (f"; control (both ranks skip the MLP's reduce_from_model) caught: loss "
+                    f"terms {max(m_rel_c.values()):.3e} relative, gradients all {g_c20[0]:.3e}, "
+                    f"worst {g_c20[1]:.3e} ({g_c20[2]})")
+        ms_ = [t_[name]["step_ms"][0] for t_ in tp20]
+        gl_ = [t_[name]["gloo_ms"][0] for t_ in tp20]
+        print(f"tp {name}: mesh {tp20[0][name]['mesh']}, gloo; heads a rank "
+              f"{[t_[name]['heads'] for t_ in tp20]} of {vw.num_heads}, hidden "
+              f"{int(vw.embed_dim * vw.mlp_ratio) // 2} a rank, depth {vw.depth}; the step at "
+              f"model_parallel=2 on phase 5's batch, weights of phase "
+              f"{19 if w_ == 'ViT-B' else 10} and draws vs its one-device kernel "
+              f"step: loss terms within {max(m_rel.values()):.3e} relative (limit "
+              f"{loss_limit:g}), gradients relative L2 all {g20[0]:.3e} (limit {grad_limit:g}), "
+              f"worst {g20[1]:.3e} ({g20[2]}; limit {worst_limit:g}){said}; launches a rank "
+              f"{[{k_: n_ for k_, n_ in t_[name]['counts'].items() if n_} for t_ in tp20]}; "
+              f"two ranks on one card over gloo (not TP's speed): the checked step {ms_[0]:.2f} / "
+              f"{ms_[1]:.2f} ms on ranks 0 / 1, gloo's all-reduces {gl_[0]:.2f} / {gl_[1]:.2f} "
+              f"ms of it ({gl_[0] / ms_[0]:.3f} / {gl_[1] / ms_[1]:.3f}), peak device memory "
+              f"{tp20[0][name]['peak_gib']:.2f} / {tp20[1][name]['peak_gib']:.2f} GiB a rank "
+              f"[{card}]", flush=True)
+    del vb_step, vb_b_step, ti_step
+    print(f"tp: phase 20 took {time.perf_counter() - t20:.1f} s", flush=True)
+
+    # 21. tensor parallelism at the other layouts of ViT-B and ViT-Ti (model
+    # axes 3 to 12; ViT-Ti's 2 under B): TP_SWEEP's layouts in one gloo group
+    # of 12 ranks on the card (tp_sweep_child), each at depth 1 under B with
+    # one sample a data rank, held against the one-device kernel step of its
+    # config on the same global batch and draws by phase 16's rule
+    t21 = time.perf_counter()
+    sweep_dir = root / "tp21"
+    sweep_dir.mkdir()
+    sweep_batch = train_batch(g, TP_SWEEP_WORLD // 2, 16384, cfg.loss.max_gt_boxes, seed=1)
+    torch.save({k_: torch.from_numpy(a) for k_, a in sweep_batch.items()},
+               sweep_dir / "batch.pt")
+    sweep_params = {m_: init_params(tp_sweep_config(m_, 1), seed=0) for m_ in TP_SWEEP_WIDTHS}
+    for m_, p_ in sweep_params.items():
+        torch.save(p_, sweep_dir / f"params_{m_}.pt")
+    sweep = run_ranks(sweep_dir, TP_SWEEP_WORLD,
+                      lambda r_, port_: ("--tp-sweep-child", sweep_dir, r_, port_), "tp sweep")
+    t21_ranks = time.perf_counter() - t21
+    for model_name, mp in TP_SWEEP:
+        key = f"{model_name} {mp}"
+        scfg = tp_sweep_config(model_name, mp)
+        sv = scfg.vit
+        for r_, res_ in enumerate(sweep):
+            heads_r = res_[key]["heads"]
+            want_r = tp_rank_counts(sv.depth, heads_r, "ln_dense")
+            got_c = res_[key]["counts"]
+            want_c = {k_: want_r.get(k_, 0) for k_ in got_c}
+            check(got_c == want_c, f"tp sweep {key}: rank {r_} ({heads_r} heads) launch counts "
+                                   f"{got_c} != {want_c}")
+            check(res_[key]["metrics"] == sweep[0][key]["metrics"],
+                  f"tp sweep {key}: rank {r_}'s metrics {res_[key]['metrics']} differ from rank "
+                  f"0's {sweep[0][key]['metrics']}")
+        n_dp = TP_SWEEP_WORLD // mp
+        net = IntentNetViT(sv, scfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32)
+        net.load_state_dict(sweep_params[model_name])
+        net.to(dev)
+        one_cfg = dataclasses.replace(scfg, mesh=dataclasses.replace(scfg.mesh,
+                                                                     model_parallel=1))
+        m1 = make_train_step(net, one_cfg, anchors, torch.optim.SGD(net.parameters(), lr=0.0))(
+            {k_: torch.from_numpy(a[:n_dp]).to(dev) for k_, a in sweep_batch.items()},
+            torch.Generator(device="cuda").manual_seed(1))
+        ref21 = ({k_: float(t) for k_, t in m1.items()},
+                 {k_: p_.grad.detach().float().cpu() for k_, p_ in net.named_parameters()})
+        del net, m1
+        grads21 = torch.load(sweep_dir / f"grads_{model_name}_{mp}.pt", weights_only=True)
+        ok, m_rel, g21 = tp_readings(sweep[0][key]["metrics"], grads21, ref21,
+                                     TP_SWEEP_GRAD_LIMIT)
+        check(ok, f"tp sweep {key} step vs the one-device kernel step: metrics "
+                  f"{sweep[0][key]['metrics']} vs {ref21[0]} (relative {m_rel}), gradients {g21}")
+        said21 = ""
+        if sweep[0][key]["control"] is not None:
+            grads21 = torch.load(sweep_dir / f"grads_{model_name}_{mp}_control.pt",
+                                 weights_only=True)
+            ok, m_rel_c, g_c21 = tp_readings(sweep[0][key]["control"], grads21, ref21,
+                                             TP_SWEEP_GRAD_LIMIT)
+            check(not ok, f"tp sweep {key}: the control (the MLP's reduce_from_model skipped) "
+                          f"stays inside the rule: relative {m_rel_c}, gradients {g_c21}")
+            said21 = (f"; control (every rank skips the MLP's reduce_from_model) caught: loss "
+                      f"terms {max(m_rel_c.values()):.3e} relative, gradients all "
+                      f"{g_c21[0]:.3e}, worst {g_c21[1]:.3e} ({g_c21[2]})")
+        del grads21, ref21
+        heads21 = [res_[key]["heads"] for res_ in sweep if res_[key]["axes"][0] == 0]
+        secs21 = [max(res_[key]["seconds"][i_] for res_ in sweep) for i_ in range(3)]
+        print(f"tp sweep {key}: mesh ({n_dp}, {mp}), gloo, depth {sv.depth}, B, one sample a "
+              f"data rank; heads a rank {heads21} of {sv.num_heads} (qkv Dout "
+              f"{sorted({192 * h_ for h_ in heads21 if h_})}), hidden "
+              f"{int(sv.embed_dim * sv.mlp_ratio) // mp} a rank; the step vs its one-device "
+              f"kernel step on the same {n_dp} samples and draws: loss terms within "
+              f"{max(m_rel.values()):.3e} relative (limit {loss_limit:g}), gradients relative "
+              f"L2 all {g21[0]:.3e} (limit {TP_SWEEP_GRAD_LIMIT:g}), worst {g21[1]:.3e} ({g21[2]}; "
+              f"limit {worst_limit:g}){said21}; the slowest rank's seconds: load and shard "
+              f"{secs21[0]:.1f}, the step {secs21[1]:.1f}, the gradients gathered "
+              f"{secs21[2]:.1f}", flush=True)
+    del sweep_params, sweep_batch
+    torch.cuda.empty_cache()
+    tmp14.cleanup()  # phases 15 to 17, 20 and 21 read phase 14's run and phase 15's inputs there
+    print(f"tp sweep: {TP_SWEEP_WORLD} ranks ran {len(TP_SWEEP)} layouts in {t21_ranks:.1f} s "
+          f"(their start, to the group and the kernel library: up to "
+          f"{max(res_['start_s'] for res_ in sweep):.1f} s); "
+          f"phase 21 took {time.perf_counter() - t21:.1f} s", flush=True)
+
     serving_runs = (serve_counts, *config_counts.values())
     lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
     deploy_runs = (stream_counts, dp_step_counts, dp_eval_counts)  # phase 15
@@ -4007,6 +4503,36 @@ def main() -> None:
     tp_qkv = tuple({k_: t_["ln_dense"]["counts"][k_] - 2
                     for k_ in ("fused_ln_dense", "fused_ln_dense_bwd")} for t_ in tp)
     tiny_runs = (tiny_serve_counts, tiny_train_counts)
+    # tensor parallelism at ViT-B's and ViT-Ti's widths (phases 20 and 21):
+    # (D, its layout's hidden a rank, its variant, its heads, its counts) a
+    # rank a run; each rank shape's launches are those of the ranks that ran it
+    tp_rank_runs = [(widths20[w_][0].embed_dim,
+                     int(widths20[w_][0].embed_dim * widths20[w_][0].mlp_ratio) // 2, var_,
+                     t_[n_]["heads"], t_[n_]["counts"])
+                    for n_, w_, var_, _, _ in runs20 for t_ in tp20]
+    tp_rank_runs += [(TP_SWEEP_WIDTHS[m_][0], 4 * TP_SWEEP_WIDTHS[m_][0] // mp_, "ln_dense",
+                      t_[f"{m_} {mp_}"]["heads"], t_[f"{m_} {mp_}"]["counts"])
+                     for m_, mp_ in TP_SWEEP for t_ in sweep]
+
+    def tp_shape(d_=None, hidden_=None, heads_=None, dout_=None):
+        """The counts of the TP ranks that ran a shape: width ``d_``, hidden
+        slice ``hidden_``, ``heads_`` heads, or under B a qkv shard of
+        ``dout_`` columns (the counts of row 14 without the 2 adapters)."""
+        out = []
+        for d_r, hid_r, var_r, heads_r, c_r in tp_rank_runs:
+            if ((d_ is not None and d_r != d_) or (hidden_ is not None and hid_r != hidden_)
+                    or (heads_ is not None and heads_r != heads_)):
+                continue
+            if dout_ is not None:
+                if var_r != "ln_dense" or 192 * heads_r != dout_:
+                    continue
+                c_r = {k_: c_r[k_] - 2 for k_ in ("fused_ln_dense", "fused_ln_dense_bwd")}
+            out.append(c_r)
+        return tuple(out)
+
+    tp_adapters20 = {d_: tuple({"fused_ln_dense": 2, "fused_ln_dense_bwd": 2}
+                               for d_r, _, var_r, _, _ in tp_rank_runs
+                               if var_r == "ln_dense" and d_r == d_) for d_ in (768, 192)}
     vitb_runs = (*vitb_counts.values(), *vitb_variant_counts.values())  # phase 18
     vitb_a, vitb_b, vitb_c, vitb_d = vitb_variant_counts.values()  # A-D at D=768
     kernels = []
@@ -4014,7 +4540,7 @@ def main() -> None:
             ("voxel_embed", "voxel_embed.cu", "intentbev/ops/voxel_embed.py:417", serving_runs),
             ("flash_packed", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
              (*serving_runs, train_counts, train_b, train_c, form_counts["split"],
-              form_counts["chunked"], *lifecycle_runs, *deploy_runs)),
+              form_counts["chunked"], *lifecycle_runs, *deploy_runs, *tp_shape(heads_=6))),
             # the forward's fixed max (bench.py's serving form: the bench lines)
             # and chunked safe form (phase 11)
             ("flash_packed_fixed", "flash_packed.cu",
@@ -4027,7 +4553,8 @@ def main() -> None:
             ("layernorm", "layernorm.cu", "intentbev/ops/layernorm.py:39",
              (*serving_runs, eval_counts, *deploy_runs)),
             ("flash_packed_bwd", "flash_packed.cu", "intentbev/ops/flash_packed.py:523",
-             (train_counts, train_b, train_c, *lifecycle_runs, *deploy_runs)),
+             (train_counts, train_b, train_c, *lifecycle_runs, *deploy_runs,
+              *tp_shape(heads_=6))),
             ("fused_ln_mlp_train", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
              (train_counts, *config_counts.values(), train_b, *lifecycle_runs, *deploy_runs)),
             ("fused_ln_mlp_bwd", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
@@ -4053,9 +4580,10 @@ def main() -> None:
              (train_b, *tp_adapters)),
             # row 16: ViT-Ti's 3 heads of 64, and a rank's under TP (phase 16)
             ("flash_attention", "flash_packed.cu", "intentbev/ops/flash_attention.py:66",
-             (*tiny_runs, *tp_runs)),
+             (*tiny_runs, *tp_runs, *tp_shape(heads_=3))),
             ("flash_attention_bwd", "flash_packed.cu",
-             "intentbev/ops/flash_attention.py:128 (dq), :152 (dk/dv)", (*tiny_runs, *tp_runs)),
+             "intentbev/ops/flash_attention.py:128 (dq), :152 (dk/dv)",
+             (*tiny_runs, *tp_runs, *tp_shape(heads_=3))),
             # the shard shapes of tensor parallelism (phase 16, both ranks)
             ("fused_mlp_train[TP,hidden=768]", "fused_ln_mlp.cu",
              "intentbev/ops/fused_mlp.py:103", tp_runs),
@@ -4076,13 +4604,13 @@ def main() -> None:
             ("fused_ln_mlp_bwd[D=192]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
              tiny_runs),
             ("layernorm_train[D=192]", "layernorm.cu", "intentbev/ops/layernorm.py:53",
-             tiny_runs),
+             (*tiny_runs, *tp_shape(d_=192))),
             ("layernorm_bwd[D=192]", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             tiny_runs),
+             (*tiny_runs, *tp_shape(d_=192))),
             ("fused_ln_dense[D=192]", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:56",
-             (tiny_b_serve_counts, tiny_b_train_counts)),
+             (tiny_b_serve_counts, tiny_b_train_counts, *tp_adapters20[192])),
             ("fused_ln_dense_bwd[D=192]", "fused_ln_dense.cu",
-             "intentbev/ops/fused_ln_dense.py:94", (tiny_b_train_counts,)),
+             "intentbev/ops/fused_ln_dense.py:94", (tiny_b_train_counts, *tp_adapters20[192])),
             ("fused_mlp_int8[D=192]", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
              (tiny_a_serve_counts,)),
             ("patch_embed[D=192]", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
@@ -4105,7 +4633,7 @@ def main() -> None:
             ("fused_mlp_int8[D=768]", "fused_mlp_int8.cu", "intentbev/ops/fused_mlp_int8.py:42",
              (vitb_a,)),
             ("fused_ln_dense[D=768]", "fused_ln_dense.cu", "intentbev/ops/fused_ln_dense.py:56",
-             (vitb_b, vitb_train_b)),
+             (vitb_b, vitb_train_b, *tp_adapters20[768])),
             ("fused_mlp[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:103", (vitb_c,)),
             ("patch_embed[D=768]", "patch_embed.cu", "intentbev/ops/patch_embed.py:51",
              (vitb_d,)),
@@ -4113,9 +4641,9 @@ def main() -> None:
              "intentbev/ops/flash_packed.py:157 (safe=False)", (vitb_counts["ViT-B fixed"],)),
             # the D=768 / 12x64 instances ViT-B's training path runs (phase 19)
             ("layernorm_train[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:53",
-             (vitb_train_counts, vitb_loop_counts, vitb_train_b)),
+             (vitb_train_counts, vitb_loop_counts, vitb_train_b, *tp_shape(d_=768))),
             ("layernorm_bwd[D=768]", "layernorm.cu", "intentbev/ops/layernorm.py:66",
-             (vitb_train_counts, vitb_loop_counts, vitb_train_b)),
+             (vitb_train_counts, vitb_loop_counts, vitb_train_b, *tp_shape(d_=768))),
             ("fused_ln_mlp_train[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:135",
              (vitb_train_counts, vitb_loop_counts, vitb_b, vitb_train_b)),
             ("fused_ln_mlp_bwd[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_ln_mlp.py:215",
@@ -4128,7 +4656,7 @@ def main() -> None:
             ("fused_mlp_bwd[D=768]", "fused_ln_mlp.cu", "intentbev/ops/fused_mlp.py:148",
              (vitb_train_c,)),
             ("fused_ln_dense_bwd[D=768]", "fused_ln_dense.cu",
-             "intentbev/ops/fused_ln_dense.py:94", (vitb_train_b,)),
+             "intentbev/ops/fused_ln_dense.py:94", (vitb_train_b, *tp_adapters20[768])),
             ("flash_packed_bwd_split[12x64,D=768]", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)", (vitb_form_counts["split"],)),
             ("flash_packed_bwd_chunked[12x64,D=768]", "flash_packed.cu",
@@ -4149,6 +4677,23 @@ def main() -> None:
             ("flash_packed_bwd_chunked[D=32]", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:414 (dq), :467 (dk/dv)",
              (form_counts["chunked[D=32]"],)),
+            # tensor parallelism's rank shapes at ViT-B's and ViT-Ti's widths
+            # (phases 20 and 21: the ranks that ran each)
+            *((f"fused_mlp_{k_}[TP,D={d_},hidden={h_}]", "fused_ln_mlp.cu",
+               f"intentbev/ops/fused_mlp.py:{ln_}", tp_shape(d_=d_, hidden_=h_))
+              for d_, hs_ in TP_HIDDEN.items() for h_ in hs_ if (d_, h_) != (768, 384)
+              for k_, ln_ in (("train", 103), ("bwd", 148))),
+            *((f"fused_ln_dense{k_}[TP,D={d_},Dout={o_}]", "fused_ln_dense.cu",
+               f"intentbev/ops/fused_ln_dense.py:{ln_}", tp_shape(d_=d_, dout_=o_))
+              for d_, os_ in TP_DOUT.items() for o_ in os_
+              for k_, ln_ in (("", 56), ("_bwd", 94))),
+            *((f"flash_packed{k_}[TP,{h_}x64]", "flash_packed.cu",
+               f"intentbev/ops/flash_packed.py:{ln_}", tp_shape(heads_=h_))
+              for h_ in (4, 2) for k_, ln_ in (("", 122), ("_bwd", 523))),
+            ("flash_attention[TP,1x64]", "flash_packed.cu", "intentbev/ops/flash_attention.py:66",
+             tp_shape(heads_=1)),
+            ("flash_attention_bwd[TP,1x64]", "flash_packed.cu",
+             "intentbev/ops/flash_attention.py:128 (dq), :152 (dk/dv)", tp_shape(heads_=1)),
             # rows 18 and 19, the library ops of ops.experimental (phase 13)
             ("flash_int8", "flash_int8.cu", "intentbev/ops/experimental/flash_int8.py:49",
              (exp_counts["flash_int8"],)),
@@ -4169,7 +4714,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 71 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 107 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4183,5 +4728,7 @@ if __name__ == "__main__":
         dp_child(Path(sys.argv[2]), sys.argv[3], sys.argv[4])
     elif sys.argv[1:2] == ["--tp-child"]:
         tp_child(Path(sys.argv[2]), sys.argv[3], int(sys.argv[4]), int(sys.argv[5]))
+    elif sys.argv[1:2] == ["--tp-sweep-child"]:
+        tp_sweep_child(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))
     else:
         main()

@@ -68,8 +68,14 @@ axis wider than 1; training only, as in JAX) each block holds its heads of
   ``fuse_ln_dense`` the LN + dense kernel takes the rank's qkv shard and
   ``copy_to_model`` wraps x, gamma and beta, whose gradients from the
   kernel are the rank's partials;
-- the attention over the rank's ``num_heads / mp`` heads (3 of 64 at ViT-S
-  and mp=2, which do not pair: the BHTD kernels);
+- the attention over the rank's run of whole heads
+  (``utils.distributed.head_share``: ``num_heads / mp`` where the axis
+  divides the head count, else one more on the first ``num_heads % mp``
+  ranks; 3 of 64 at ViT-S and mp=2, which do not pair: the BHTD kernels;
+  6 of 64 at ViT-B and mp=2: the packed ones). A rank with no heads (an
+  axis wider than the head count) runs no qkv product and no attention:
+  its partial is ``zero_partial`` of the qkv product's inputs, whose zero
+  gradients keep their ``copy_to_model`` sums paired with its peers';
 - proj on the shard without its bias, ``reduce_from_model`` (in f32), then
   the bias, the drop-path gate and the residual, each once;
 - the MLP: norm2 as its own LayerNorm (the kernel, or FastLayerNorm's
@@ -120,7 +126,7 @@ from ..ops.patch_embed import patch_embed, patch_embed_plain
 from ..ops.voxel_embed import (VoxelChunks, voxel_embed_tokens,
                                voxel_embed_tokens_plain)
 from ..utils.distributed import (DataGroup, ModelGroup, copy_to_model, first_on_model,
-                                 global_rand, reduce_from_model)
+                                 global_rand, head_share, reduce_from_model, zero_partial)
 from .blocks import ResidualStage, reset_conv_bn
 from .heads import DetectionHead, IntentionHead, flatten_head_outputs
 
@@ -282,23 +288,36 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, qkv_bias, dtype)
         self.proj = Linear(dim, dim, True, dtype)
 
+    def local_heads(self, tp: ModelGroup | None) -> int:
+        """The heads this rank computes: all, or its share on the model axis
+        ``tp`` (``head_share``: whole heads, possibly none)."""
+        return self.num_heads if tp is None else head_share(self.num_heads, tp.size, tp.rank)[1]
+
     def attend(self, qkv, residual, ops: Ops, cfg, gate=None, tp: ModelGroup | None = None):
         """residual + gate * proj(attention(qkv)): the flash entry in the
         softmax form of ``cfg.fwd_kv_chunk`` / ``cfg.unsafe_softmax``, or the
         JAX model's dense attention where ``use_flash_attention`` is off;
         ``gate`` per-sample f32 [B] or None. ``tp``: the model axis whose
-        rank holds ``num_heads / size`` heads of qkv and their proj input
+        rank holds its share of whole heads of qkv and their proj input
         columns (the module docstring)."""
-        heads = self.num_heads if tp is None else self.num_heads // tp.size
+        heads = self.local_heads(tp)
         if cfg.use_flash_attention:
             o = ops.flash(qkv, heads, cfg.fwd_kv_chunk, cfg.unsafe_softmax)
         else:
             o = reference_attention(*_split_qkv(qkv), heads)
         if tp is None:
             y = self.proj(o)
-        else:  # the ranks' partial products summed, then the bias once
-            y = reduce_from_model(F.linear(o, self.proj.weight.to(o.dtype)).float(), tp)
-            y = (y + self.proj.bias.float()).to(o.dtype)
+            if gate is not None:
+                y = y * gate.to(y.dtype)[:, None, None]
+            return residual + y
+        return self.attend_partial(F.linear(o, self.proj.weight.to(o.dtype)).float(), residual,
+                                   gate, tp)
+
+    def attend_partial(self, y, residual, gate, tp: ModelGroup):
+        """residual + gate * (proj's bias + the sum over the model axis of
+        the ranks' partial products ``y``, f32): the bias, the gate and the
+        residual each once."""
+        y = (reduce_from_model(y, tp) + self.proj.bias.float()).to(residual.dtype)
         if gate is not None:
             y = y * gate.to(y.dtype)[:, None, None]
         return residual + y
@@ -367,18 +386,22 @@ class EncoderBlock(nn.Module):
         shards (the module docstring)."""
         fused_ln, a, m, tp = cfg.use_fused_layernorm, self.attn, self.mlp, self.tp
         dt, n1 = x.dtype, self.norm1
-        if (fused_ln and cfg.fuse_ln_dense and a.qkv.bias is not None
-                and not cfg.serving_int8):
-            if cfg.use_flash_attention:
-                # under TP dx, dgamma and dbeta are the rank's partials
-                qkv = ops.fused_ln_dense(copy_to_model(x, tp), copy_to_model(n1.weight, tp),
-                                         copy_to_model(n1.bias, tp), a.qkv.weight.to(dt),
-                                         a.qkv.bias, LN_EPS, None)
-            else:
-                qkv = a.qkv(copy_to_model(folded_layernorm(x, n1.weight, n1.bias), tp))
+        ln_dense = (fused_ln and cfg.fuse_ln_dense and a.qkv.bias is not None
+                    and not cfg.serving_int8)
+        if ln_dense and cfg.use_flash_attention:
+            # the qkv product's inputs: under TP dx, dgamma and dbeta are the
+            # rank's partials
+            ins = (copy_to_model(x, tp), copy_to_model(n1.weight, tp), copy_to_model(n1.bias, tp))
         else:
-            qkv = a.qkv(copy_to_model(_norm(x, n1, ops, fused_ln), tp))
-        x = a.attend(qkv, x, ops, cfg, gates[0], tp)
+            xn = (folded_layernorm(x, n1.weight, n1.bias) if ln_dense
+                  else _norm(x, n1, ops, fused_ln))
+            ins = (copy_to_model(xn, tp),)
+        if not a.local_heads(tp):  # no heads on this rank: no qkv product, no attention
+            x = a.attend_partial(zero_partial(*ins), x, gates[0], tp)
+        else:
+            qkv = (ops.fused_ln_dense(*ins, a.qkv.weight.to(dt), a.qkv.bias, LN_EPS, None)
+                   if len(ins) == 3 else a.qkv(ins[0]))
+            x = a.attend(qkv, x, ops, cfg, gates[0], tp)
         gate = None if gates[1] is None else gates[1][:, None].expand(x.shape[:2])
         if tp is not None:
             return self._mlp_shard(x, ops, gelu, cfg, gate)

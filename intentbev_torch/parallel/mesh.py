@@ -17,7 +17,7 @@ local batches in rank order, as JAX's contiguous batch sharding does.
   DataGroup``, which the train step, the loss and the models read;
   :func:`model_group` its model axis as a ``ModelGroup``, over which the
   ViT blocks split their heads and hidden units in training
-  (:func:`check_model_parallel` holds the layout to what the shards need);
+  (:func:`check_model_parallel` admits the layouts JAX's sharding takes);
 - :func:`local_batch_slice` puts a rank's local batch on its device.
 """
 
@@ -104,20 +104,23 @@ def model_group(mesh, cfg: MeshConfig) -> ModelGroup:
 
 
 def check_model_parallel(cfg) -> None:
-    """Raise ``ValueError`` where the model axis cannot split the ViT's
-    blocks into whole heads and equal hidden slices: ``model_parallel`` must
-    divide ``num_heads`` and the MLP's hidden width (``cfg``: an
-    ``ExperimentConfig``; the CNN, which nothing shards, takes any). JAX's
-    GSPMD takes any column split; a rank here computes on its own heads."""
+    """Raise ``ValueError`` where JAX's sharded step refuses the layout: the
+    model axis must divide each dimension its rules split, the ViT's
+    ``embed_dim`` (``attn.qkv``'s output, ``attn.proj``'s input) and its MLP
+    hidden width (``cfg``: an ``ExperimentConfig``; the CNN, which nothing
+    shards, takes any). The head count does not matter: a rank here holds
+    a run of whole heads, one more on the first ``num_heads % mp`` ranks and
+    none where the axis is wider than the head count (``sharding``)."""
     mp = max(1, cfg.mesh.model_parallel)
     if mp == 1 or cfg.model_family != "vit":
         return
     v = cfg.vit
     hidden = int(v.embed_dim * v.mlp_ratio)
-    if v.num_heads % mp or hidden % mp:
+    if v.embed_dim % mp or hidden % mp:
         raise ValueError(
-            f"model_parallel={mp} must divide the ViT's num_heads={v.num_heads} and its MLP "
-            f"hidden width {hidden}: each rank holds whole heads")
+            f"model_parallel={mp} must divide the ViT's embed_dim={v.embed_dim} and its MLP "
+            f"hidden width {hidden}, the dimensions the model axis splits (as JAX's sharding "
+            f"requires)")
 
 
 def shard_sequences_for_process(sequences, process_index: int, process_count: int,

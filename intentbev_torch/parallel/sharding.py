@@ -20,15 +20,20 @@ replicated over the data axis always.
 
 The tensor-parallel step (``parallel.train_dp``) holds its shards as plain
 tensors in the layout :func:`shard_state_dict` cuts and
-:func:`gather_state_dict` joins. It splits the dimension the spec names, in
-equal contiguous slices, but for ``attn.qkv``: its [3D, D] weight and [3D]
-bias are q | k | v, each head-major, and a rank holds the rows q[h], k[h]
-and v[h] of its own heads, so that its projection gives (q | k | v) of its
-heads in the layout the attention entries take. (JAX's ``P(None,
-'model')`` splits the (d, 3d) kernel into contiguous column blocks, the
-first of which is all of q and part of k; GSPMD moves the columns where
-they are needed, which a rank that computes on its own heads cannot.)
-Checkpoints hold the full tensors, in the layout of one process.
+:func:`gather_state_dict` joins: whole heads of the attention, equal
+contiguous slices of the MLP's hidden units. Rank r holds the contiguous run
+of heads ``utils.distributed.head_share`` gives it (the first ``num_heads %
+mp`` ranks one head more; none where the axis is wider than the head count):
+the rows q[h], k[h] and v[h] of its heads of ``attn.qkv``'s [3D, D] weight
+and [3D] bias (q | k | v, each head-major), so that its projection gives (q
+| k | v) of its heads in the layout the attention entries take, and the
+input columns of those heads of ``attn.proj``. (JAX's ``P(None, 'model')``
+splits the (d, 3d) kernel into contiguous column blocks, the first of which
+is all of q and part of k; GSPMD moves the columns where they are needed,
+which a rank that computes on its own heads cannot. JAX takes any layout
+whose model axis divides each split dimension, the head count aside:
+``mesh.check_model_parallel`` admits the same.) Checkpoints hold the full
+tensors, in the layout of one process.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ..configs import MeshConfig
+from ..utils.distributed import head_share
 
 
 def param_spec(name: str, ndim: int, model_axis: str = "model") -> tuple:
@@ -90,11 +96,13 @@ def model_dim(name: str, ndim: int, model_axis: str = "model") -> int | None:
     return spec.index(model_axis) if model_axis in spec else None
 
 
-def _head_major(name: str, t: torch.Tensor, num_heads: int) -> torch.Tensor | None:
-    """The qkv projection's [3D, ...] rows as [3, H, D/H, ...], else None."""
-    if "qkv" not in name.split("."):
-        return None
-    return t.reshape(3, num_heads, t.shape[0] // (3 * num_heads), *t.shape[1:])
+def split_sizes(name: str, size: int, mp: int, num_heads: int) -> list[int]:
+    """The ranks' extents (in rank order) of the model-split dimension, of
+    full extent ``size``, of parameter ``name``: whole heads of the
+    attention's (``size / num_heads`` a head), equal slices of the MLP's."""
+    if {"qkv", "proj"} & set(name.split(".")):
+        return [head_share(num_heads, mp, r)[1] * (size // num_heads) for r in range(mp)]
+    return [size // mp] * mp
 
 
 def shard_tensor(name: str, t: torch.Tensor, rank: int, mp: int, num_heads: int,
@@ -105,12 +113,12 @@ def shard_tensor(name: str, t: torch.Tensor, rank: int, mp: int, num_heads: int,
     dim = model_dim(name, t.dim(), model_axis)
     if dim is None or mp == 1:
         return t
-    heads = _head_major(name, t, num_heads)
-    if heads is not None:
-        h = num_heads // mp
-        return heads[:, rank * h:(rank + 1) * h].reshape(-1, *t.shape[1:]).contiguous()
-    n = t.shape[dim] // mp
-    return t.narrow(dim, rank * n, n).contiguous()
+    if "qkv" in name.split("."):  # [3D, ...] rows as [3, H, D/H, ...]: its heads of each
+        first, n = head_share(num_heads, mp, rank)
+        heads = t.reshape(3, num_heads, t.shape[0] // (3 * num_heads), *t.shape[1:])
+        return heads[:, first:first + n].reshape(-1, *t.shape[1:]).contiguous()
+    sizes = split_sizes(name, t.shape[dim], mp, num_heads)
+    return t.narrow(dim, sum(sizes[:rank]), sizes[rank]).contiguous()
 
 
 def gather_tensor(name: str, parts: list, num_heads: int,
@@ -121,8 +129,8 @@ def gather_tensor(name: str, parts: list, num_heads: int,
     if dim is None or len(parts) == 1:
         return parts[0]
     if "qkv" in name.split("."):
-        h = num_heads // len(parts)
-        split = [p.reshape(3, h, -1, *p.shape[1:]) for p in parts]
+        rows = sum(p.shape[0] for p in parts) // (3 * num_heads)  # the head dim
+        split = [p.reshape(3, p.shape[0] // (3 * rows), rows, *p.shape[1:]) for p in parts]
         return torch.cat(split, 1).reshape(-1, *parts[0].shape[1:])
     return torch.cat(parts, dim)
 

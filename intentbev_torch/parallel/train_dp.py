@@ -22,7 +22,8 @@ with the mesh's data axis as its group:
 Over a model axis wider than 1 (``MeshConfig.model_parallel``; the ViT's
 blocks, :func:`mesh.check_model_parallel`) each rank holds its shards of
 ``attn.qkv`` / ``attn.proj`` and ``mlp.fc1`` / ``mlp.fc2`` in the layout of
-``parallel.sharding`` (the qkv rows of whole heads), its AdamW moments of
+``parallel.sharding`` (the qkv rows of whole heads, unevenly split where the
+axis does not divide the head count), its AdamW moments of
 those shards, and the rest whole; the blocks' collectives
 (``utils.distributed.copy_to_model`` / ``reduce_from_model``, in
 ``models/vit.py``) give every replicated parameter the same gradient on
@@ -39,7 +40,7 @@ import torch
 
 from ..utils.distributed import all_gather_over, broadcast_from_first
 from .mesh import check_model_parallel, data_group, model_group
-from .sharding import gather_tensor, model_dim, shard_tensor
+from .sharding import gather_tensor, model_dim, shard_tensor, split_sizes
 
 
 @torch.no_grad()
@@ -71,11 +72,22 @@ def full_tensor(name: str, t: torch.Tensor, group, cfg) -> torch.Tensor:
     """The full tensor of this rank's shard ``t`` of parameter ``name`` (or
     of a tensor shaped like it: its gradient, an AdamW moment), gathered over
     the model axis ``group``, so every rank of it must call; ``t`` itself
-    where the parameter is replicated."""
+    where the parameter is replicated. The ranks' shards of the attention
+    differ in size where the axis does not divide the head count: each is
+    padded to the largest for the gather (which takes one shape) and cut
+    back after it."""
     axis = cfg.mesh.model_axis
-    if group.size == 1 or model_dim(name, t.dim(), axis) is None:
+    dim = model_dim(name, t.dim(), axis)
+    if group.size == 1 or dim is None:
         return t
-    return gather_tensor(name, all_gather_over(t, group), cfg.vit.num_heads, axis)
+    v, kind = cfg.vit, name.split(".")
+    size = (3 * v.embed_dim if "qkv" in kind else v.embed_dim if "proj" in kind
+            else int(v.embed_dim * v.mlp_ratio))
+    sizes = split_sizes(name, size, group.size, v.num_heads)
+    pad = [0, 0] * (t.dim() - 1 - dim) + [0, max(sizes) - t.shape[dim]]
+    parts = all_gather_over(torch.nn.functional.pad(t, pad), group)
+    return gather_tensor(name, [p.narrow(dim, 0, n) for p, n in zip(parts, sizes)],
+                         v.num_heads, axis)
 
 
 def gather_train_state(model, optimizer, mesh, cfg) -> tuple[dict, dict]:

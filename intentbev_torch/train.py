@@ -272,6 +272,24 @@ def all_reduce_grads(params, group: DataGroup | None) -> None:
         offset += n
 
 
+def grad_buckets(model) -> list[list]:
+    """The parameters in the flat buffers that :func:`all_reduce_grads` sums
+    over the data axis: all in one, or under tensor parallelism (a model
+    with a ``model_group``) the replicated ones apart from the model axis's
+    shards. A collective's summation order follows its buffer's length, and
+    the shards of the attention differ in size between the ranks of the
+    model axis where it does not divide the head count: a buffer of the
+    replicated parameters alone has one layout on every rank of the axis,
+    so their sums keep the same bits there."""
+    if getattr(model, "model_group", None) is None:
+        return [list(model.parameters())]
+    from .parallel.sharding import model_dim
+
+    named = list(model.named_parameters())
+    return [[p for n, p in named if model_dim(n, p.dim()) is None],
+            [p for n, p in named if model_dim(n, p.dim()) is not None]]
+
+
 def make_train_step(model, cfg, anchors: torch.Tensor, optimizer,
                     intention_weights: torch.Tensor | None = None,
                     group: DataGroup | None = None):
@@ -330,7 +348,8 @@ def make_train_step(model, cfg, anchors: torch.Tensor, optimizer,
         with span("train/backward"):
             optimizer.zero_grad(set_to_none=True)
             out["loss"].backward()
-            all_reduce_grads(model.parameters(), group)
+            for params in grad_buckets(model):
+                all_reduce_grads(params, group)
         with span("train/optimizer"):
             optimizer.step()
         if group is None:

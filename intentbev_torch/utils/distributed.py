@@ -33,7 +33,15 @@ inserts its collectives in the JAX package:
 - :func:`first_on_model`: a replicated tensor on the model axis's first
   rank and zeros on the others, its gradient whole on every rank, for a
   term a kernel adds inside a row-parallel partial (the residual and fc2's
-  bias of the MLP kernel), which the sum then counts once.
+  bias of the MLP kernel), which the sum then counts once;
+- :func:`zero_partial`: the partial of a rank that holds no share of a
+  row-parallel product (no heads: more ranks than heads), zeros made from
+  the inputs its peers' products read, which get zero gradients, so the
+  ``copy_to_model`` sums of their backward stay paired on every rank.
+
+:func:`head_share` is a rank's run of whole heads when the model axis does
+not divide the head count: the first ``num_heads % size`` ranks take one
+head more, as ``numpy.array_split`` splits.
 
 Everything takes ``group=None`` to mean one process holding the whole
 batch (or model): no collective runs. A model group of size 1 launches
@@ -145,6 +153,15 @@ def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
     return out.to(t.dtype)
 
 
+def head_share(num_heads: int, size: int, rank: int) -> tuple[int, int]:
+    """(first head, number of heads) of rank ``rank`` on a model axis of
+    ``size`` ranks: contiguous runs of whole heads, the first ``num_heads %
+    size`` ranks one head more than the rest (zero where ``size`` exceeds
+    ``num_heads``)."""
+    base, extra = divmod(num_heads, size)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
@@ -176,6 +193,17 @@ class _FirstOnModel(torch.autograd.Function):
         return grad, None
 
 
+class _ZeroPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.metas = [(t.shape, t.dtype, t.device) for t in inputs]
+        return torch.zeros(inputs[0].shape, dtype=torch.float32, device=inputs[0].device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tuple(torch.zeros(s, dtype=dt, device=dev) for s, dt, dev in ctx.metas)
+
+
 def _tp(group: ModelGroup | None) -> bool:
     return group is not None and group.size > 1
 
@@ -198,3 +226,11 @@ def first_on_model(t: torch.Tensor, group: ModelGroup | None) -> torch.Tensor:
     then sums: the sum holds ``t`` once. Its gradient is passed whole on
     every rank, so a replicated ``t`` gets the same gradient everywhere."""
     return _FirstOnModel.apply(t, group.rank == 0) if _tp(group) else t
+
+
+def zero_partial(*inputs: torch.Tensor) -> torch.Tensor:
+    """An f32 zero partial shaped like ``inputs[0]`` for
+    :func:`reduce_from_model`, from a rank with no share of the product that
+    would read ``inputs`` (each a ``copy_to_model`` output); every input gets
+    a zero gradient, so their backward sums run on this rank too."""
+    return _ZeroPartial.apply(*inputs)

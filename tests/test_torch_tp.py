@@ -34,7 +34,8 @@ Readings and tolerances:
 - every replicated parameter's gradient is the same, bit for bit, on the
   ranks of one data index; a rank's qkv output is its heads' columns of
   the full output; ``shard_state_dict`` then ``gather_state_dict`` is the
-  identity; the layout check raises naming the numbers;
+  identity; the layout check raises naming the numbers where JAX's
+  sharding refuses the layout, and takes ViT-Ti's 3 heads at mp=2;
 - ``train()`` at mp=2: its checkpoints hold full tensors in the
   one-process layout; a TP checkpoint resumes in one process, a
   one-process checkpoint under TP, and a TP checkpoint under TP, each to
@@ -427,15 +428,21 @@ def test_qkv_shard_is_its_heads_columns(mp):
 
 
 def test_layout_check_names_the_numbers():
+    """The check refuses where JAX's sharding does (a model axis that does
+    not divide the embed width or the MLP hidden width), naming the
+    numbers; a head count the axis does not divide is taken, as JAX takes
+    it (``tests/test_torch_tp_layouts.py`` holds the rule against JAX's
+    sharded step)."""
     from intentbev_torch.parallel.mesh import check_model_parallel
 
-    with pytest.raises(ValueError, match=r"model_parallel=3 .*num_heads=2 .*128"):
+    with pytest.raises(ValueError, match=r"model_parallel=3 .*embed_dim=32 .*128"):
         check_model_parallel(_configs(tcfg, mp=3))
     vit_s = tcfg.default_vit_config()
     vit_ti = dataclasses.replace(vit_s, vit=dataclasses.replace(vit_s.vit, embed_dim=192,
                                                                  num_heads=3))
-    with pytest.raises(ValueError, match=r"model_parallel=2 .*num_heads=3 .*768"):
-        check_model_parallel(dataclasses.replace(vit_ti, mesh=tcfg.MeshConfig(model_parallel=2)))
+    with pytest.raises(ValueError, match=r"model_parallel=5 .*embed_dim=192 .*768"):
+        check_model_parallel(dataclasses.replace(vit_ti, mesh=tcfg.MeshConfig(model_parallel=5)))
+    check_model_parallel(dataclasses.replace(vit_ti, mesh=tcfg.MeshConfig(model_parallel=2)))
     check_model_parallel(dataclasses.replace(vit_s, mesh=tcfg.MeshConfig(model_parallel=2)))
     check_model_parallel(_configs(tcfg, mp=2))
     check_model_parallel(dataclasses.replace(_configs(tcfg, mp=3), model_family="cnn"))
