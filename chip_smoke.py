@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one CUDA card: the serving paths and the
 training steps of both model families, data and tensor parallel included,
-and ViT-B imported and served, and trained.
+ViT-B imported and served, and trained, and head layouts off head dims 32
+and 64 (ViT-B at 8 heads of 96, ViT-S at 3 of 128) served and trained.
 
     python3 chip_smoke.py
 
@@ -70,7 +71,19 @@ Phases (each prints a line; any failure exits nonzero with no result):
    384, 256, 192; residual and fc2's bias zero), row 14 forward and
    backward at each qkv shard (D=768: Dout 1152, 768, 576, 384, 192; D=192:
    384, 192), the packed attention forward and backward at 4 and 2 heads of
-   64 on a rank's qkv slice, and the BHTD one at 1 head of 64.
+   64 on a rank's qkv slice, and the BHTD one at 1 head of 64. The head
+   dims off 32 and 64, which run on the kernels' instances 32, 64 and 128
+   with the columns past the head dim read as TMA's zeros: the BHTD
+   attention forward and backward at 48x16, 16x48, 16x72, 16x80, 8x96,
+   16x104 and 6x128 on the views of a qkv projection output (H*D = 768
+   where D divides it), the packed attention at 24x16 and 3x128 over ViT-S's
+   width in each softmax form and each backward form, o, dq, dk and dv read
+   by relative L2 and share of differing elements, SDPA's time beside; the
+   controls where the instance is wider than the head: the plain version
+   fed the next head's columns past the head dim, and the plain version at
+   the instance's scale; then the BHTD entries over every other head into
+   NaN-filled packed buffers (skipped heads stay NaN, run heads hold the
+   all-heads call's bits).
 4. serving: the full-width ViT (default_vit_config, random seeded weights,
    bf16, the serving sigmoid GELU) serves 3 requests of 8 synthetic frames
    through ``StreamingInferencer``; the launch counts show every kernel ran,
@@ -308,6 +321,23 @@ Phases (each prints a line; any failure exits nonzero with no result):
     rank's seconds by part. Phases 20 and 21 launch every rank shape that
     phase 3 holds for them but ViT-B's hidden slice of 384 (model_parallel=8,
     which 12 ranks do not take).
+22. Head dims off 32 and 64 on the model paths: a reference-schema
+    ``vit_base_patch8_224`` ``.pth`` goes through ``python -m
+    intentbev_torch.import_torch ... --num_heads 8`` (ViT-B's widths in 8
+    heads of 96: the BHTD kernels on their 128 instance) and serves 2
+    requests of 8 over chunks with phase 18's checks (launches, logits
+    against the plain path under phase 4's limit, control the qkv rows
+    imported k-first, Detections, the device's ms a batch); then
+    ``default_vit_config()`` at those widths takes phase 5's step from the
+    imported weights by phase 9's rule (one step against the plain step,
+    control the LN+MLP backward ignoring the gate, 3 timed steps with exact
+    counts, ms/step, peak memory). ViT-S in 3 heads of 128 (the packed
+    kernels on their 128 instance) serves 2 requests in each softmax form
+    (safe, fixed max, chunked at 1152 keys) with phase 8's checks, trains
+    under the fused backward by phase 9's rule, and under the split and the
+    chunked backwards each step against its own plain step by phase 5's
+    rule and read against the fused step (at head dim 128 the forms round
+    in other places), with 3 timed steps each and exact counts.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -340,7 +370,8 @@ CONFIG_LIMITS = {**{name: (2.3e-2,) * 3 for name in ("A serving_int8", "Ti A ser
     "import CNN", "import ViT-S", "import ViT-Ti", "ViT-B", "ViT-B fixed",
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
     "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense", "Ti C use_fused_layernorm=False",
-    "Ti D fuse_patch_embed")},
+    "Ti D fuse_patch_embed", "ViT-B 8x96", "ViT-S 3x128", "ViT-S 3x128 fixed",
+    "ViT-S 3x128 chunked")},
                  # ViT-B under the serving variants (phase 18): phase 8's limits
                  **{f"ViT-B {name}": lim for name, lim in (
                      ("A serving_int8", (2.3e-2,) * 3), ("B fuse_ln_dense", (1.3e-2,) * 3),
@@ -2301,6 +2332,220 @@ def main() -> None:
     del o_sdpa_h, doh_h, qkv_a, qkv_1, qkv_1v, o_1, lse_1, o_1v, do_1v, bhtd_1, o_sdpa_1
     del x3_b, dy_b, dy3_b, train_b_args, xhat_b, inv_b, o_b, lse_b, do_b, xl_b, gl_bg, bl_bg
     del y_ln_b, qh_b, kh_b, vh_b, doh_b, o_sdpa_b, dy_qkv_b, dy_ad_b
+    torch.cuda.empty_cache()
+
+    # Head dims off 32 and 64 (the kernels' instances 32, 64 and 128, columns
+    # past the head dim read as TMA's zeros): the BHTD attention at ViT-B's
+    # width where the head dim divides 768 (48x16, 16x48, 8x96: ViT-B at 8
+    # heads, 6x128) and in 16 heads otherwise (16x72, 16x80, 16x104), on the
+    # views of a qkv projection output, forward and backward; the packed
+    # attention at ViT-S's width in 24 heads of 16 and 3 of 128 (ViT-S at 3
+    # heads), each softmax form and each backward form. The forward also
+    # reads o's share of differing elements, the backward dq's, dk's and
+    # dv's, with phase 3's and phase 11's limits. Controls beside those of
+    # the 6x64 cases, where the instance is wider than the head: the plain
+    # version fed the next head's columns past the head dim (what a box that
+    # read past it would give), and the plain version with the instance's
+    # scale in place of the head dim's. Then the neighbour-columns check:
+    # the BHTD entries over every other head write into packed buffers
+    # filled with NaN, whose skipped heads must stay NaN, and whose run
+    # heads must hold the all-heads call's bits. qkv buffers carry 128
+    # columns past v's last head, so that the controls' wide views stay
+    # inside them.
+    t3h = time.perf_counter()
+    fa_mod = importlib.import_module("intentbev_torch.ops.flash_attention")
+
+    @contextlib.contextmanager
+    def plain_scale(s_dim, packed=False):
+        """The plain versions' scale taken as 1/sqrt(s_dim) whatever the
+        width of their inputs (the BHTD ``_scale``, or the packed
+        ``scales``), restored after."""
+        mod, name = (fpk, "scales") if packed else (fa_mod, "_scale")
+        sound_fn = getattr(mod, name)
+        if packed:
+            setattr(mod, name, lambda dh_, dtype_: (
+                float(torch.tensor(s_dim ** -0.5, dtype=dtype_)), s_dim ** -0.5))
+        else:
+            setattr(mod, name, lambda d_, dtype_: torch.tensor(s_dim ** -0.5, dtype=dtype_))
+        try:
+            yield
+        finally:
+            setattr(mod, name, sound_fn)
+
+    def wide_heads(buf_, part, dm_, h_, d_, width):
+        """[B, H, T, width] views of columns part*dm_ + h*d_ .. + width of the
+        qkv buffer: each head's d_ columns and the next ones."""
+        return torch.as_strided(buf_, (batch, h_, tokens, width),
+                                (buf_.stride(0), d_, buf_.stride(1), 1), part * dm_)
+
+    def past_d(buf_, dm_, h_, d_, inst_):
+        """The control's fault: the BHTD plain forward fed inst_ columns of
+        each head (the next head's past d_), at the scale of d_; o cut to
+        d_ columns."""
+        with plain_scale(d_):
+            o_w, lse_w = flash_attention_fwd_plain(
+                *(wide_heads(buf_, i, dm_, h_, d_, inst_) for i in range(3)))
+        return o_w[..., :d_], o_w[..., :d_], lse_w
+
+    def instance_scale(fn, s_dim, packed=False):
+        """fn() with the control's fault: the instance's scale s_dim."""
+        with plain_scale(s_dim, packed):
+            return fn()
+
+    def bhtd_packed_o(r):
+        """A BHTD forward's (o, o, lse) with o in the packed [B, T, H*D] layout."""
+        o_p = r[0].transpose(1, 2).reshape(batch, tokens, -1)
+        return o_p, o_p, r[2]
+
+    # the backwards' readings and limits: those of the 12x64 cases above
+    forms_hd = {"fused": (True, 0), "split": (False, 0), "chunked": (False, FWD_CHUNK)}
+    hd_cases, hd_nan = {}, {}
+
+    def neighbour_columns(label, buf_, dm_, h_, o_all, lse_all, do_all, g_all):
+        """The BHTD entries over every other head into NaN-filled packed
+        buffers: skipped heads stay NaN, run heads hold the all-heads bits."""
+        q_a, k_a, v_a = (heads_view(buf_[..., i * dm_:(i + 1) * dm_], h_)[:, ::2]
+                         for i in range(3))
+        o_nan = torch.full((batch, tokens, dm_), float("nan"), device=dev, dtype=torch.bfloat16)
+        o_a, lse_a = flash_attention_fwd(q_a, k_a, v_a, out=heads_view(o_nan, h_)[:, ::2])
+        g_nan = torch.full((batch, tokens, 3 * dm_), float("nan"), device=dev,
+                           dtype=torch.bfloat16)
+        g_views = tuple(heads_view(g_nan[..., i * dm_:(i + 1) * dm_], h_)[:, ::2]
+                        for i in range(3))
+        flash_attention_bwd(q_a, k_a, v_a, o_a, lse_a, heads_view(do_all, h_)[:, ::2],
+                            out=g_views)
+        torch.cuda.synchronize()
+        parts_ = [heads_view(t_[..., i * dm_:(i + 1) * dm_], h_) for t_ in (g_nan,)
+                  for i in range(3)] + [heads_view(o_nan, h_)]
+        skipped = all(bool(torch.isnan(p_[:, 1::2]).all()) for p_ in parts_)
+        filled = not any(bool(torch.isnan(p_[:, ::2]).any()) for p_ in parts_)
+        same = (torch.equal(o_a, heads_view(o_all, h_)[:, ::2])
+                and torch.equal(lse_a, lse_all[:, ::2])
+                and all(torch.equal(g_v, g_[:, ::2]) for g_v, g_ in zip(g_views, g_all)))
+        check(skipped and filled and same,
+              f"{label}: neighbour columns: skipped heads NaN {skipped}, run heads without "
+              f"NaN {filled}, run heads' bits those of the all-heads call {same}")
+        hd_nan[label] = True
+        del o_nan, g_nan, o_a, lse_a, g_views, parts_
+
+    for d_h in (16, 48, 72, 80, 96, 104, 128):
+        h_h = 768 // d_h if 768 % d_h == 0 else 16
+        dm_h, inst_h, tag = h_h * d_h, fa_mod.instance(d_h), f"{h_h}x{d_h}"
+        buf_h = randn((batch, tokens, 3 * dm_h + 128), 1.0)
+        qkv_hv = [heads_view(buf_h[..., i * dm_h:(i + 1) * dm_h], h_h) for i in range(3)]
+        o_hp = torch.empty(batch, tokens, dm_h, device=dev, dtype=torch.bfloat16)
+        o_hv, lse_hv = flash_attention_fwd(*qkv_hv, out=heads_view(o_hp, h_h))
+        do_hp = randn((batch, tokens, dm_h), 1.0)
+        do_hv = heads_view(do_hp, h_h)
+        sdpa_in = [t_.contiguous().requires_grad_(True) for t_ in qkv_hv]
+        sdpa_out = F.scaled_dot_product_attention(*sdpa_in)
+        flops_h = 4 * batch * h_h * tokens * tokens * d_h
+        fwd_controls = [lambda q_=qkv_hv: o_twice(bhtd_plain_form(*q_))]
+        fwd_faults = ["P rounded against the fixed max"]
+        bwd_controls = [lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv:
+                        twice(bhtd_attn_plain_ctl(*q_, o_, l_, do_))]
+        bwd_faults = ["delta = rowsum(dO*O) left out"]
+        if inst_h > d_h:
+            fwd_controls += [
+                lambda b_=buf_h, dm_=dm_h, h_=h_h, d_=d_h, i_=inst_h: past_d(b_, dm_, h_, d_, i_),
+                lambda q_=qkv_hv, i_=inst_h: instance_scale(
+                    lambda: o_twice(flash_attention_fwd_plain(*q_)), i_)]
+            fwd_faults += [f"the next head's columns past {d_h} read",
+                           f"the scale of the {inst_h} instance"]
+            bwd_controls.append(lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv, i_=inst_h:
+                                instance_scale(lambda: twice(
+                                    flash_attention_bwd_plain(*q_, o_, l_, do_)), i_))
+            bwd_faults.append(f"the scale of the {inst_h} instance")
+        hd_cases[f"flash_attention[{tag}]"] = (
+            lambda q_=qkv_hv, o_=o_hv: o_twice(flash_attention_fwd(*q_, out=o_)),
+            lambda q_=qkv_hv: o_twice(flash_attention_fwd_plain(*q_)),
+            fwd_controls, fwd_faults, FWD_METRICS, FWD_LIMITS, 10, 3,
+            nbytes(*qkv_hv, o_hv, lse_hv), flops_h,
+            torch.no_grad()(lambda s_=sdpa_in: F.scaled_dot_product_attention(*s_)))
+        hd_cases[f"flash_attention_bwd[{tag}]"] = (
+            lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv: twice(
+                flash_attention_bwd(*q_, o_, l_, do_)),
+            lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv: twice(
+                flash_attention_bwd_plain(*q_, o_, l_, do_)),
+            bwd_controls, bwd_faults, FLASH_BWD_METRICS_B, FLASH_BWD_LIMITS_B["fused"], 5, 2,
+            nbytes(*qkv_hv, o_hv, do_hv, lse_hv) + 3 * nbytes(o_hv), 5 * flops_h // 2,
+            lambda s_=sdpa_in, o_=sdpa_out, do_=do_hv: torch.autograd.grad(
+                o_, s_, do_, retain_graph=True))
+        neighbour_columns(f"flash_attention[{tag}]", buf_h, dm_h, h_h, o_hp, lse_hv, do_hp,
+                          flash_attention_bwd(*qkv_hv, o_hv, lse_hv, do_hv))
+
+    # the packed layouts: 24 heads of 16 (the 32 instance) and 3 of 128
+    for h_h in (24, 3):
+        d_h = d // h_h
+        inst_h, tag = fa_mod.instance(d_h), f"{h_h}x{d_h}"
+        exact_h = d_h in (16, 64)  # the bf16 scale is a power of two: the forms agree
+        buf_h = randn((batch, tokens, 3 * d + 128), 1.0)
+        q_h, k_h, v_h = (buf_h[..., i * d:(i + 1) * d] for i in range(3))
+        o_h, lse_h = flash_attention_packed(q_h, k_h, v_h, h_h)
+        do_hp = randn((batch, tokens, d), 1.0)
+        sdpa_in = [heads_view(t_, h_h).contiguous().requires_grad_(True) for t_ in (q_h, k_h, v_h)]
+        sdpa_out = F.scaled_dot_product_attention(*sdpa_in)
+        lib_f = torch.no_grad()(lambda s_=sdpa_in: F.scaled_dot_product_attention(*s_))
+
+        def lib_b(s_=sdpa_in, o_=sdpa_out, do_=heads_view(do_hp, h_h)):
+            return torch.autograd.grad(o_, s_, do_, retain_graph=True)
+
+        def pk_fwd(fn, form, q_=q_h, k_=k_h, v_=v_h, h_=h_h):
+            args = {"safe": (), "fixed": (FWD_CHUNK, True), "chunked": (FWD_CHUNK,)}[form]
+            return lambda: o_twice(fn(q_, k_, v_, h_, None, *args))
+
+        def pk_bwd(fn, form, o_in=None, q_=q_h, k_=k_h, v_=v_h, o_=o_h, l_=lse_h, do_=do_hp,
+                   h_=h_h):
+            return lambda: twice(dqkv_parts(fn(
+                q_, k_, v_, o_ if o_in is None else o_in, l_, do_, h_, None, *forms_hd[form])))
+
+        fwd_bytes = nbytes(q_h, k_h, v_h, o_h, lse_h)
+        for form in ("safe", "fixed", "chunked"):
+            name = f"{fpk.FWD_COUNTERS[form]}[{tag}]"
+            other = "fixed" if form != "fixed" else "safe"
+            controls = [pk_fwd(flash_attention_packed_plain, other)]
+            faults = [f"P rounded against the {other} form's max"]
+            if form == "safe" and inst_h > d_h:
+                controls += [
+                    lambda b_=buf_h, h_=h_h, d_=d_h, i_=inst_h: bhtd_packed_o(
+                        past_d(b_, d, h_, d_, i_)),
+                    lambda c_=pk_fwd(flash_attention_packed_plain, "safe"), i_=inst_h:
+                    instance_scale(c_, i_, packed=True)]
+                faults += [f"the next head's columns past {d_h} read",
+                           f"the scale of the {inst_h} instance"]
+            hd_cases[name] = (pk_fwd(flash_attention_packed, form),
+                              pk_fwd(flash_attention_packed_plain, form), controls, faults,
+                              FWD_METRICS, FWD_LIMITS, 10, 3, fwd_bytes,
+                              4 * batch * tokens * tokens * d, lib_f)
+        for form in ("fused", "split", "chunked"):
+            name = f"{fpk.BWD_COUNTERS[form]}[{tag}]"
+            controls = [pk_bwd(flash_attention_packed_bwd_plain, form, torch.zeros_like(o_h))]
+            faults = ["delta = rowsum(dO*O) left out"]
+            if not exact_h:
+                other = {"fused": "split", "split": "fused", "chunked": "split"}[form]
+                controls.append(pk_bwd(flash_attention_packed_bwd_plain, other))
+                faults.append(f"{other}'s rounding")
+            if inst_h > d_h:
+                controls.append(lambda c_=pk_bwd(flash_attention_packed_bwd_plain, form),
+                                i_=inst_h: instance_scale(c_, i_, packed=True))
+                faults.append(f"the scale of the {inst_h} instance")
+            hd_cases[name] = (pk_bwd(flash_attention_packed_bwd, form),
+                              pk_bwd(flash_attention_packed_bwd_plain, form), controls, faults,
+                              FLASH_BWD_METRICS_B, FLASH_BWD_LIMITS_B[form], 5, 2,
+                              nbytes(q_h, k_h, v_h, o_h, do_hp, lse_h) + 3 * nbytes(o_h),
+                              10 * batch * tokens * tokens * d, lib_b)
+        qkv_pv = [heads_view(t_, h_h) for t_ in (q_h, k_h, v_h)]
+        o_pv, lse_pv = flash_attention_fwd(*qkv_pv)
+        neighbour_columns(f"flash_packed[{tag}] (its instance by the BHTD entries)", buf_h, d,
+                          h_h, o_pv.transpose(1, 2).reshape(batch, tokens, d), lse_pv, do_hp,
+                          flash_attention_bwd(*qkv_pv, o_pv, lse_pv, heads_view(do_hp, h_h)))
+    check_kernels(hd_cases)
+    same_bits(hd_cases, [n_ for n_ in hd_cases if "_bwd" in n_])
+    print(f"kernel head dims: {len(hd_cases)} cases; neighbour columns held for "
+          f"{len(hd_nan)} layouts (skipped heads NaN, run heads the all-heads bits); took "
+          f"{time.perf_counter() - t3h:.1f} s  [{card}]", flush=True)
+    del hd_cases, buf_h, qkv_hv, o_hp, o_hv, lse_hv, do_hp, do_hv, sdpa_in, sdpa_out
+    del q_h, k_h, v_h, o_h, lse_h, qkv_pv, o_pv, lse_pv
     torch.cuda.empty_cache()
 
     # 4. the slice
@@ -4493,6 +4738,164 @@ def main() -> None:
           f"{max(res_['start_s'] for res_ in sweep):.1f} s); "
           f"phase 21 took {time.perf_counter() - t21:.1f} s", flush=True)
 
+    # 22. head dims off 32 and 64 on the model paths: ViT-B's widths in 8
+    # heads of 96 (the BHTD kernels on their 128 instance), a reference
+    # vit_base_patch8_224 checkpoint imported through the CLI with
+    # --num_heads 8, served over chunks and trained on phase 5's batch; and
+    # ViT-S in 3 heads of 128 (the packed kernels on their 128 instance),
+    # served in the three softmax forms and trained under the three
+    # backward forms, on phase 4's parameters (3 heads of 128 take the same
+    # shapes as 6 of 64)
+    t22 = time.perf_counter()
+    tmp22 = tempfile.TemporaryDirectory(prefix="smoke22_")
+    root22 = Path(tmp22.name)
+    failures22, hd_counts = [], {}
+
+    def device_ms(cname, vcfg, net_params):
+        """The device's time for one batch of built chunks: kernels and
+        copies from a profiler trace, beside the CUDA-event span of the call."""
+        inf_ = StreamingInferencer(vcfg, net_params, "cuda", transport="chunks", gelu="sigmoid")
+        pts_, valid_, map_ = requests[0]
+        host_ = inf_.build_chunks(pts_, valid_)
+        fwd_ = torch.no_grad()(lambda: inf_.logits(host_, map_))
+        dev_ms = sum(bwd_split(fwd_, {"device": ""}).values())
+        span_ms = cuda_ms(fwd_, 3)
+        print(f"config {cname}: device {f'{dev_ms:.3f} ms' if dev_ms > 0 else 'not measured'} "
+              f"a batch of {batch} (kernels and copies, profiler trace), "
+              f"{f'{batch / dev_ms * 1e3:.1f}' if dev_ms > 0 else 'not measured'} frames/s on "
+              f"the device; CUDA-event span of the call {span_ms:.3f} ms (host chunk build "
+              f"excluded) [{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+    h8cfg = dataclasses.replace(cfg, vit=dataclasses.replace(v, embed_dim=768, num_heads=12))
+    ref_h8 = reference_state_dict(h8cfg, 220)
+    torch.save({"epoch": 3, "model_state_dict": ref_h8, "optimizer_state_dict": {},
+                "backbone_cfg": {"vit_model_name_lidar": "vit_base_patch8_224",
+                                 "img_size": list(h8cfg.vit.img_size)}}, root22 / "vit_base.pth")
+    imp = subprocess.run([sys.executable, "-m", "intentbev_torch.import_torch",
+                          str(root22 / "vit_base.pth"), str(root22 / "ViT-B-8"), "--model", "vit",
+                          "--num_heads", "8"], cwd=repo, capture_output=True, text=True,
+                         timeout=300)
+    check(imp.returncode == 0 and "imported -> " in imp.stdout,
+          f"ViT-B 8x96: the import CLI exited {imp.returncode}: {imp.stdout[-2000:]} "
+          f"{imp.stderr[-2000:]}")
+    state_h8, icfg_h8 = load_checkpoint(root22 / "ViT-B-8")
+    vh8 = icfg_h8.vit
+    check((vh8.embed_dim, vh8.num_heads, vh8.depth, int(vh8.embed_dim * vh8.mlp_ratio))
+          == (768, 8, v.depth, 3072), f"ViT-B 8x96: the imported config reads {vh8}")
+    ctrl_h8 = import_vit_state_dict(faulty_reference(ref_h8), fusion_layers=vh8.fusion_layers)
+    del ref_h8
+    per_req_h8 = {"voxel_embed": 1, "flash_attention": 2 * v.depth, "fused_ln_mlp": 2 * v.depth,
+                  "layernorm": 4}
+    hd_counts["ViT-B 8x96"] = serve_config(
+        "ViT-B 8x96", icfg_h8, "chunks", per_req_h8, failures22, state_h8["model"], requests[:2],
+        control=(ctrl_h8, "plain, the qkv rows imported k-first"))
+    device_ms("ViT-B 8x96", icfg_h8, state_h8["model"])
+    del ctrl_h8
+    # default_vit_config() at those widths, from the imported weights: one
+    # kernel step against the plain step by phase 5's rule (control: the
+    # plain LN+MLP backward ignores the gate), 3 timed steps with exact counts
+    kernel_steps = {}  # train_config keeps each kernel step here
+    gate_fault = ("fused_ln_mlp", "fused_ln_mlp_bwd_plain",
+                  lambda f: lambda x_, ga, be, w1_, b1_, w2_, gate_, dy_, eps:
+                  f(x_, ga, be, w1_, b1_, w2_, None, dy_, eps))
+    h8_train = dataclasses.replace(cfg, vit=dataclasses.replace(v, embed_dim=768, num_heads=8))
+    per_step_h8 = {**{k_: n_ for k_, n_ in per_step.items() if "flash" not in k_},
+                   "flash_attention": 2 * v.depth, "flash_attention_bwd": 2 * v.depth}
+    hd_counts["ViT-B 8x96 train"] = train_config(
+        "ViT-B 8x96", h8_train, state_h8["model"], per_step_h8, gate_fault,
+        "LN+MLP backward ignores the gate")
+    del state_h8
+    torch.cuda.empty_cache()
+    t22b = time.perf_counter() - t22
+
+    # ViT-S in 3 heads of 128: served in each softmax form (phase 8's checks)
+    s3 = dataclasses.replace(v, num_heads=3)
+    s3_forms = {"ViT-S 3x128": ("flash_packed", s3),
+                "ViT-S 3x128 fixed": ("flash_packed_fixed", dataclasses.replace(
+                    s3, fwd_kv_chunk=FWD_CHUNK, unsafe_softmax=True)),
+                "ViT-S 3x128 chunked": ("flash_packed_chunked", dataclasses.replace(
+                    s3, fwd_kv_chunk=FWD_CHUNK))}
+    for cname, (counter, vs_) in s3_forms.items():
+        per_req_s3 = {**{k_: n_ for k_, n_ in per_request.items() if k_ != "flash_packed"},
+                      counter: 2 * v.depth}
+        hd_counts[cname] = serve_config(cname, dataclasses.replace(cfg, vit=vs_), "chunks",
+                                        per_req_s3, failures22, params, requests[:2])
+        device_ms(cname, dataclasses.replace(cfg, vit=vs_), params)
+    check(not failures22, "; ".join(failures22))
+    # and trained under each backward form: the fused one by phase 5's rule
+    # with 3 timed steps; split and chunked each against its own plain step
+    # by phase 5's rule, and read against the fused step (at head dim 128
+    # the bf16 scale is inexact, so the forms round in other places and are
+    # not one function: phase 11's bit-level limits, which hold at 64, do
+    # not apply; they must stay inside phase 5's), then 3 timed steps each
+    s3_cfg = dataclasses.replace(cfg, vit=s3)
+    hd_counts["ViT-S 3x128 train"] = train_config(
+        "ViT-S 3x128", s3_cfg, params, per_step, gate_fault, "LN+MLP backward ignores the gate")
+    m_f3, g_f3 = kernel_steps["ViT-S 3x128"]
+    g_f3 = {k_: t_.to(dev) for k_, t_ in g_f3.items()}
+    for form in ("split", "chunked"):
+        fused_, ck_ = forms[form]
+        net3 = IntentNetViT(s3, cfg.heads, dtype=torch.bfloat16, param_dtype=torch.float32,
+                            bwd_fused=fused_, bwd_kv_chunk=ck_)
+        net3.load_state_dict(params)
+        net3.to(dev)
+        counter = fpk.BWD_COUNTERS[form]
+        _build.reset_launch_counts()
+        m_s, g_s = loss_and_grads(False, net3, s3_cfg)
+        check(_build.launches[counter] == 2 * v.depth and _build.launches["flash_packed_bwd"] == 0,
+              f"ViT-S 3x128 {form} step: launches {dict(_build.launches)}")
+        m_sp, g_sp = loss_and_grads(True, net3, s3_cfg)
+        net3.plain_ops = False
+        sound_g, fused_g = grad_readings(g_s, g_sp), grad_readings(g_s, g_f3)
+        loss_rel = abs(m_s["loss"] - m_sp["loss"]) / abs(m_sp["loss"])
+        loss_f = abs(m_s["loss"] - m_f3["loss"]) / abs(m_f3["loss"])
+        check(sound_g[0] < grad_limit and sound_g[1] < worst_limit and loss_rel < loss_limit,
+              f"ViT-S 3x128 {form} step: kernel vs plain reaches a limit: {sound_g}, loss "
+              f"{m_s} vs {m_sp}")
+        check(fused_g[0] < grad_limit and fused_g[1] < worst_limit and loss_f < loss_limit,
+              f"ViT-S 3x128 {form} step against the fused step: {fused_g}, loss {loss_f}")
+        print(f"config ViT-S 3x128 train: step {form} kernel vs plain, loss rel {loss_rel:.3e}, "
+              f"gradients relative L2 all {sound_g[0]:.3e} < {grad_limit:g}, worst "
+              f"{sound_g[1]:.3e} ({sound_g[2]}) < {worst_limit:g}; against the fused step all "
+              f"{fused_g[0]:.3e}, worst {fused_g[1]:.3e} ({fused_g[2]}), loss rel {loss_f:.3e}; "
+              f"launches {counter} {_build.launches[counter]}", flush=True)
+        del g_s, g_sp
+        step3 = make_train_step(net3, s3_cfg, anchors, make_optimizer(net3.parameters(), s3_cfg))
+        gen3 = torch.Generator(device="cuda").manual_seed(2)
+        step3(tbatch, gen3)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        step_ms, metrics = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            metrics.append(step3(tbatch, gen3))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(_build.launches)
+        per_step_f = {**per_step, "flash_packed_bwd": 0, counter: 2 * v.depth}
+        want_counts = {k_: per_step_f.get(k_, 0) * len(step_ms) for k_ in counts}
+        check(counts == want_counts, f"ViT-S 3x128 {form} train launch counts {counts} != "
+                                     f"{want_counts}")
+        check(all(bool(torch.isfinite(t)) for m in metrics for t in m.values()),
+              f"ViT-S 3x128 {form}: non-finite metrics {metrics}")
+        hd_counts[f"ViT-S 3x128 train {form}"] = counts
+        ms_step = sum(step_ms) / len(step_ms)
+        print(f"config ViT-S 3x128 train {form}: launches per step "
+              f"{ {k_: n // 3 for k_, n in counts.items() if n} }; losses "
+              f"{[round(float(m['loss']), 6) for m in metrics]}; step ms "
+              f"{[round(t, 2) for t in step_ms]}; {ms_step:.2f} ms/step, "
+              f"{batch / ms_step * 1e3:.2f} samples/s at batch {batch}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+        del net3, step3, metrics
+        torch.cuda.empty_cache()
+    del kernel_steps, g_f3
+    tmp22.cleanup()
+    print(f"head dims: ViT-B 8x96 imported, served and trained in {t22b:.1f} s; ViT-S 3x128 "
+          f"served in three forms and trained under three in {time.perf_counter() - t22 - t22b:.1f}"
+          f" s; phase 22 took {time.perf_counter() - t22:.1f} s", flush=True)
+
     serving_runs = (serve_counts, *config_counts.values())
     lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
     deploy_runs = (stream_counts, dp_step_counts, dp_eval_counts)  # phase 15
@@ -4677,6 +5080,29 @@ def main() -> None:
             ("flash_packed_bwd_chunked[D=32]", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:414 (dq), :467 (dk/dv)",
              (form_counts["chunked[D=32]"],)),
+            # the head-dim-128 instances on the model paths (phase 22): row 16
+            # at ViT-B's 8 heads of 96, rows 2, 3, 10 and 11 at ViT-S's 3 of 128
+            ("flash_attention[8x96]", "flash_packed.cu", "intentbev/ops/flash_attention.py:66",
+             (hd_counts["ViT-B 8x96"], hd_counts["ViT-B 8x96 train"])),
+            ("flash_attention_bwd[8x96]", "flash_packed.cu",
+             "intentbev/ops/flash_attention.py:128 (dq), :152 (dk/dv)",
+             (hd_counts["ViT-B 8x96 train"],)),
+            ("flash_packed[3x128]", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
+             (hd_counts["ViT-S 3x128"], hd_counts["ViT-S 3x128 train"],
+              hd_counts["ViT-S 3x128 train split"], hd_counts["ViT-S 3x128 train chunked"])),
+            ("flash_packed_fixed[3x128]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:157 (safe=False)", (hd_counts["ViT-S 3x128 fixed"],)),
+            ("flash_packed_chunked[3x128]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:157 (safe=True)",
+             (hd_counts["ViT-S 3x128 chunked"],)),
+            ("flash_packed_bwd[3x128]", "flash_packed.cu", "intentbev/ops/flash_packed.py:523",
+             (hd_counts["ViT-S 3x128 train"],)),
+            ("flash_packed_bwd_split[3x128]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:350 (dq), :377 (dk/dv)",
+             (hd_counts["ViT-S 3x128 train split"],)),
+            ("flash_packed_bwd_chunked[3x128]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:414 (dq), :467 (dk/dv)",
+             (hd_counts["ViT-S 3x128 train chunked"],)),
             # tensor parallelism's rank shapes at ViT-B's and ViT-Ti's widths
             # (phases 20 and 21: the ranks that ran each)
             *((f"fused_mlp_{k_}[TP,D={d_},hidden={h_}]", "fused_ln_mlp.cu",
@@ -4714,7 +5140,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 107 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 115 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,27 @@
 // Attention with lse, forward and backward, over strided [B, H, T, D] views:
 // the packed [B, T, H*D] layout of the ViT's qkv projection (heads that pair
-// into 128 lanes: D = 64 or 32) and the BHTD layout (any other head layout).
-// Every kernel reads q, k, v (and dO) through four-dimensional TMA tensor
-// maps (csrc/hopper.cuh) and runs every product on wgmma; the head dim is a
-// template parameter (32 or 64).
+// into 128 lanes: D divides 128) and the BHTD layout (any other head
+// layout). Every kernel reads q, k, v (and dO) through four-dimensional TMA
+// tensor maps (csrc/hopper.cuh) and runs every product on wgmma.
+//
+// Head dims. The kernels are instantiated for three widths HD (32, 64, 128)
+// and take any head dim D from 8 to 128 in steps of 8 on the smallest
+// instance at least D (Inst below). The tensor map keeps the true D as its
+// innermost dimension with boxes of the instance's width (or two boxes of 64
+// columns at HD = 128), so the columns from D to HD land as TMA's zeros, not
+// as the next head's data: every product over them adds exactly nothing,
+// and the epilogues write only the first D columns. A packed row of a head
+// is 2*D bytes, a multiple of TMA's 16-byte stride only where D is a
+// multiple of 8. The scale is that of D (1/sqrt(D), rounded as each
+// caller's JAX kernel rounds it), never the instance's. EXACT (a template
+// parameter) says the bf16 scale is a power of two, so that scaling a bf16
+// operand and scaling the f32 sums give the same bits and the kernels skip
+// the scaled copy of q or k: the entries set it at D = 64 only (at D = 16,
+// the other power of two in range, the copy is exact and gives the same
+// bits).
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -20,7 +37,6 @@ __device__ __forceinline__ long long at(const Strides& s, int b, int h, int r) {
   return (long long)b * s.b + (long long)h * s.h + (long long)r * s.t;
 }
 
-constexpr int RING_ROWS = 128;  // rows of a ring tile: two 64-row TMA boxes
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ONE_PER_SM = 120 * 1024;  // more than half an SM's shared memory
 // registers a thread (setmaxnreg): 128 * 24 + 256 * 240 = 384 * 168, the
@@ -40,6 +56,48 @@ __device__ __forceinline__ uint4 scale_bf16x8(uint4 raw, float scale) {
   return out;
 }
 
+// The tiles of the instance HD: 64-row TMA boxes of BOXC columns (RB-byte
+// rows, swizzled at RB), NB of them side by side for a 64-row tile of HD
+// columns (TILE bytes); ring tiles of KT rows (two 64-row tiles up to HD =
+// 64; at HD = 128 one, which keeps the score accumulators [64 x KT] at 32
+// registers and the rings inside 227 KB). QS: the products read q (and, in
+// the dq pass, dO) from shared memory (wgmma A descriptors), not from
+// register fragments, which at HD = 128 would take 32 registers each.
+template <int HD>
+struct Inst {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "instance width");
+  static constexpr int BOXC = HD < 64 ? HD : 64;
+  static constexpr int RB = 2 * BOXC;
+  static constexpr int NB = HD / BOXC;
+  static constexpr int BOX = 64 * RB;
+  static constexpr int TILE = NB * BOX;  // 64 * HD * 2
+  static constexpr int KT = HD == 128 ? 64 : 128;
+  static constexpr int KTILE = KT / 64 * TILE;
+  static constexpr int KB = BOXC / 16;  // 16-wide k-steps in a box
+  static constexpr bool QS = HD == 128;
+};
+
+// Rows row..row + 63 of head h, batch b (every column box) into the 64-row
+// tile at dst, completing on bar.
+template <int HD>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* m, uint64_t* bar,
+                                          int h, int row, int b) {
+  using I = Inst<HD>;
+#pragma unroll
+  for (int c = 0; c < I::NB; ++c)
+    hopper::tma_load_4d(dst + c * I::BOX, m, bar, c * I::BOXC, h, row, b);
+}
+
+// A ring tile: KT rows from row0 into consecutive 64-row tiles at dst.
+template <int HD>
+__device__ __forceinline__ void load_ring_tile(uint8_t* dst, const CUtensorMap* m, uint64_t* bar,
+                                               int h, int row0, int b) {
+  using I = Inst<HD>;
+#pragma unroll
+  for (int i = 0; i < I::KT / 64; ++i)
+    load_rows<HD>(dst + i * I::TILE, m, bar, h, row0 + 64 * i, b);
+}
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -54,24 +112,45 @@ __device__ __forceinline__ void scale_tile(const uint8_t* src, uint8_t* dst, int
         scale_bf16x8(reinterpret_cast<const uint4*>(src)[i], scale);
 }
 
-// acc[64 x 128] = A B^T over the head dim (the scores S, S^T and dP, dP^T):
-// A this warpgroup's 64-row tile, B a 128-row tile of the ring, both K-major.
-template <int RB, int HD>
-__device__ __forceinline__ void scores(float (&acc)[64], const uint8_t* a, const uint8_t* b) {
+// acc[64 x N] = A B^T over the head dim (the scores S, S^T and dP, dP^T):
+// A this warpgroup's 64-row tile, B an N-row tile of the ring (N = KT), both
+// K-major; k-step kk lies in column box kk / KB.
+template <int HD, int N>
+__device__ __forceinline__ void scores(float (&acc)[N / 2], const uint8_t* a, const uint8_t* b) {
+  using I = Inst<HD>;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    hopper::wgmma_ss_n128(acc, hopper::desc_kmajor<RB>(a, kk), hopper::desc_kmajor<RB>(b, kk),
-                          kk > 0);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = kk / I::KB * I::BOX;
+    hopper::wgmma_ss_k<N>(acc, hopper::desc_kmajor<I::RB>(a + off, kk % I::KB),
+                          hopper::desc_kmajor<I::RB>(b + off, kk % I::KB), kk > 0);
+  }
 }
 
 // The same with A from registers: this warpgroup's rows as A fragments, 16
-// columns each.
-template <int RB, int HD>
-__device__ __forceinline__ void scores(float (&acc)[64], const uint32_t (&a)[HD / 16][4],
+// columns each (the instances up to HD = 64, whose ring tiles are 128 rows).
+template <int HD, int N>
+__device__ __forceinline__ void scores(float (&acc)[N / 2], const uint32_t (&a)[HD / 16][4],
                                        const uint8_t* b) {
+  static_assert(N == 128 && Inst<HD>::NB == 1, "register A: the 32 and 64 instances");
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    hopper::wgmma_rs_n128(acc, a[kk], hopper::desc_kmajor<RB>(b, kk), kk > 0);
+    hopper::wgmma_rs_n128(acc, a[kk], hopper::desc_kmajor<Inst<HD>::RB>(b, kk), kk > 0);
+}
+
+// acc[64 x HD] += A B over k-step kk of a ring tile's rows: A the bf16
+// fragments a of this warpgroup's 16 columns of P, P^T, dS or dS^T, B the
+// tile's rows 16kk..16kk+15 read MN-major (N = HD; at HD = 128 across its
+// two column boxes, BOX bytes apart).
+template <int HD>
+__device__ __forceinline__ void accumulate(float (&acc)[HD / 2], const uint32_t (&a)[4],
+                                           const uint8_t* tile, int kk) {
+  using I = Inst<HD>;
+  if constexpr (I::NB == 1)
+    hopper::wgmma_rs<HD>(acc, a, hopper::desc_mnmajor<I::RB>(tile, kk), 1);
+  else
+    hopper::wgmma_rs<HD>(
+        acc, a, hopper::desc_mnmajor_at<I::RB>(hopper::smem_u32(tile) + kk * 16 * I::RB, I::BOX),
+        1);
 }
 
 // ---------------------------------------------------------------------------
@@ -131,7 +210,8 @@ enum Form { SAFE = 0, FIXED = 1, CHUNKED_SAFE = 2 };  // the C entries' form num
 //    for tile i);
 //  - consumer warpgroups of 64 query rows: 3 at head dim 32, whose
 //    exponentials (twice as many per product as at 64) want more warps to
-//    hide their latency, 2 at 64 (a third slows every form there);
+//    hide their latency, 2 at 64 and 128 (a third slows every form at 64,
+//    and at 128 its o accumulator would not leave the registers);
 //  - with 2 consumers, pass 1 takes the scores of an item's two tiles at
 //    once (with 3, the registers allow one at a time);
 //  - FIXED takes turns to issue pass 2's products (pingpong), so that one
@@ -151,56 +231,83 @@ struct FwdShape {
 };
 
 // Shared memory of the forward: q (64 rows per consumer), then per ring slot
-// k and v of 128 keys, then each consumer's o staging tile, then the
-// barriers. The tiles start on 1024-byte boundaries.
+// two ring tiles (k and v of KT keys, or pass 1's two k tiles), then each
+// consumer's o staging tile, then the barriers. The tiles start on
+// 1024-byte boundaries. HD = 128: 32 + 3 x 32 + 34 KB.
 template <int HD, int FORM>
 struct FwdSmem {
-  static constexpr int TILE = 64 * HD * 2;
+  using I = Inst<HD>;
+  static constexpr int TILE = I::TILE;
   static constexpr int OLD = HD + 8;  // o staging row (bf16): conflict-free 4-byte writes
-  static constexpr int Q = 0, RING = FwdShape<HD, FORM>::CONSUMERS * TILE, SLOT = 4 * TILE;
+  static constexpr int Q = 0, RING = FwdShape<HD, FORM>::CONSUMERS * TILE, SLOT = 2 * I::KTILE;
   static constexpr int O = RING + FWD_STAGES * SLOT;
   static constexpr int BARS = O + FwdShape<HD, FORM>::CONSUMERS * 64 * OLD * 2;
   static constexpr int BYTES = BARS + (1 + 2 * FWD_STAGES) * 8;
 };
 
-// op over the 32 values of one row of this thread's part of a 64 x 128
-// accumulator (ROW 0: row g, elements 4n, 4n + 1; ROW 2: row g + 8), as a tree
-// of depth 5 rather than a chain of 32.
-template <int ROW, typename Op>
-__device__ __forceinline__ float tree(const float (&s)[64], Op op) {
-  float t[16];
+// op over the NV / 2 values of one row of this thread's part of a 64 x
+// (2 NV) accumulator, NV = 64 or 32 (ROW 0: row g, elements 4n, 4n + 1;
+// ROW 2: row g + 8), as a tree of depth 5 or 4 rather than a chain. Every
+// step is written out: a loop over the step widths left t in local memory.
+template <int ROW, int NV, typename Op>
+__device__ __forceinline__ float tree(const float (&s)[NV], Op op) {
+  static_assert(NV == 64 || NV == 32, "a 128- or 64-key tile");
+  constexpr int M = NV / 4;
+  float t[M];
 #pragma unroll
-  for (int n = 0; n < 16; ++n) t[n] = op(s[4 * n + ROW], s[4 * n + ROW + 1]);
+  for (int n = 0; n < M; ++n) t[n] = op(s[4 * n + ROW], s[4 * n + ROW + 1]);
+  if constexpr (M == 16) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) t[n] = op(t[n], t[n + 8]);
+    for (int n = 0; n < 8; ++n) t[n] = op(t[n], t[n + 8]);
+  }
 #pragma unroll
   for (int n = 0; n < 4; ++n) t[n] = op(t[n], t[n + 4]);
   return op(op(t[0], t[2]), op(t[1], t[3]));
 }
 
+struct MaxOp {
+  __device__ __forceinline__ float operator()(float x, float y) const { return fmaxf(x, y); }
+};
+struct AddOp {
+  __device__ __forceinline__ float operator()(float x, float y) const { return x + y; }
+};
+
 // Scores of keys at or past seq_len -> -inf (the accumulator layout of
 // hopper::wgmma_ss_n128; key0 the tile's first key).
-__device__ __forceinline__ void mask_keys(float (&sc)[64], int key0, int seq_len, int t4) {
+template <int NV>
+__device__ __forceinline__ void mask_keys(float (&sc)[NV], int key0, int seq_len, int t4) {
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < NV / 4; ++n) {
     const int key = key0 + 8 * n + 2 * t4;
     if (key >= seq_len) sc[4 * n + 0] = sc[4 * n + 2] = -INFINITY;
     if (key + 1 >= seq_len) sc[4 * n + 1] = sc[4 * n + 3] = -INFINITY;
   }
 }
 
-// group_tiles: 128-key tiles per CHUNKED_SAFE group (kv_chunk / 128).
-template <int HD, int FORM>
+// Pass 1's running row maxima over tile j's scores s (keys at or past
+// seq_len masked first).
+template <int NV>
+__device__ __forceinline__ void row_max(float (&s)[NV], int j, int seq_len, int t4, float& mx0,
+                                        float& mx1) {
+  constexpr int KT = NV * 2;
+  if ((j + 1) * KT > seq_len) mask_keys(s, j * KT, seq_len, t4);
+  mx0 = fmaxf(mx0, tree<0>(s, MaxOp()));
+  mx1 = fmaxf(mx1, tree<2>(s, MaxOp()));
+}
+
+// group_tiles: KT-key tiles per CHUNKED_SAFE group (kv_chunk / KT); D the
+// true head dim (its first D columns of o are written).
+template <int HD, int FORM, bool EXACT>
 __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
                      const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, Strides os,
-                     float* __restrict__ lse, int T, int seq_len, int H, int group_tiles,
+                     float* __restrict__ lse, int T, int seq_len, int H, int D, int group_tiles,
                      float scale) {
+  using I = Inst<HD>;
   using L = FwdSmem<HD, FORM>;
   using Shape = FwdShape<HD, FORM>;
-  constexpr int RB = HD * 2, TILE = L::TILE, CONSUMERS = Shape::CONSUMERS;
-  constexpr bool EXACT = HD == 64;  // the bf16 scale is a power of two
+  constexpr int TILE = L::TILE, CONSUMERS = Shape::CONSUMERS, KT = I::KT, SN = KT / 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = hopper::align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
@@ -223,7 +330,7 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
   __syncthreads();
 
   const int wg = tid / 128;
-  const int n_tiles = (seq_len + RING_ROWS - 1) / RING_ROWS;
+  const int n_tiles = (seq_len + KT - 1) / KT;
   // tiles per softmax group: one group of every tile, but CHUNKED_SAFE's
   const int group = FORM == CHUNKED_SAFE ? group_tiles : n_tiles;
   if (wg == CONSUMERS) {  // producer: one thread issues every load
@@ -231,20 +338,16 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
     if (tid == 128 * CONSUMERS) {
       hopper::mbar_arrive_expect_tx(qbar, CONSUMERS * TILE);
       for (int i = 0; i < CONSUMERS; ++i)
-        hopper::tma_load_4d(sm + L::Q + i * TILE, &mq, qbar, 0, h, q0 + 64 * i, b);
+        load_rows<HD>(sm + L::Q + i * TILE, &mq, qbar, h, q0 + 64 * i, b);
       // an item is the k tiles j and j + 1 (pass 1: a slot holds two) or the
       // k and v tiles j (pass 2)
       auto load = [&](int it, const CUtensorMap* m0, int j0, const CUtensorMap* m1, int j1) {
         const int s = it % FWD_STAGES;
         uint8_t* slot = sm + L::RING + s * L::SLOT;
         hopper::mbar_wait(&empty[s], ((it / FWD_STAGES) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], (m1 ? 4 : 2) * TILE);
-        for (int i = 0; i < 2; ++i) {
-          hopper::tma_load_4d(slot + i * TILE, m0, &full[s], 0, h, j0 * RING_ROWS + 64 * i, b);
-          if (m1)
-            hopper::tma_load_4d(slot + (2 + i) * TILE, m1, &full[s], 0, h,
-                                j1 * RING_ROWS + 64 * i, b);
-        }
+        hopper::mbar_arrive_expect_tx(&full[s], (m1 ? 2 : 1) * I::KTILE);
+        load_ring_tile<HD>(slot, m0, &full[s], h, j0 * KT, b);
+        if (m1) load_ring_tile<HD>(slot + I::KTILE, m1, &full[s], h, j1 * KT, b);
       };
       int item = 0;
       for (int g0 = 0; g0 < n_tiles; g0 += group) {
@@ -263,11 +366,15 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
     hopper::mbar_wait(qbar, 0);
     if constexpr (!EXACT) {  // qh = bf16(q * scale), this warpgroup's rows
       scale_tile(qt, qt, TILE, scale, wt, 128);
+      if constexpr (I::QS) hopper::fence_proxy_async();  // read by wgmma
       hopper::named_sync(1 + wg, 128);
     }
-    uint32_t qa[HD / 16][4];  // this warp's q (qh) rows
+    uint32_t qa[I::QS ? 1 : HD / 16][4];  // this warp's q (qh) rows, where not QS
+    if constexpr (!I::QS) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) hopper::ldmatrix_a<RB>(qa[kk], qt, 16 * warp, kk, lane);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hopper::ldmatrix_a<I::RB>(qa[kk], qt, 16 * warp, kk, lane);
+    }
     // scores in log2 units: s * c; m in the units of the raw sums
     const float c = EXACT ? scale * LOG2E : LOG2E;
     float acc[HD / 2];
@@ -283,8 +390,8 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
     // that product. Under Shape::PINGPONG the consumers also take turns to
     // issue pass 2's products (named barriers 8 + wg; 1 + wg are each
     // warpgroup's own).
-    float sc[64], sn[64];
-    uint32_t pa[8][4];  // P of the tile before, bf16 A fragments
+    float sc[SN], sn[SN];
+    uint32_t pa[KT / 16][4];  // P of the tile before, bf16 A fragments
     auto slot_of = [&](int it) { return sm + L::RING + (it % FWD_STAGES) * L::SLOT; };
     auto landed = [&](int it) { hopper::mbar_wait(&full[it % FWD_STAGES], (it / FWD_STAGES) & 1); };
     auto release = [&](int it) {
@@ -296,8 +403,12 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
     auto their_turn = [&]() {
       if (Shape::PINGPONG) hopper::named_arrive(8 + (wg + 1) % CONSUMERS, 256);
     };
-    auto masked = [&](float (&s)[64], int j) {  // keys at or past seq_len in tile j
-      if ((j + 1) * RING_ROWS > seq_len) mask_keys(s, j * RING_ROWS, seq_len, t4);
+    // S = Q K^T of the ring tile at kt into sc, or into sn
+    auto score = [&](const uint8_t* kt) {
+      if constexpr (I::QS) scores<HD, KT>(sc, qt, kt); else scores<HD, KT>(sc, qa, kt);
+    };
+    auto score_next = [&](const uint8_t* kt) {
+      if constexpr (I::QS) scores<HD, KT>(sn, qt, kt); else scores<HD, KT>(sn, qa, kt);
     };
     if (Shape::PINGPONG && wg == CONSUMERS - 1) their_turn();  // consumer 0 issues first
     int item = 0;
@@ -305,48 +416,43 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
       const int n = min(group, n_tiles - g0);  // tiles of this group
       if constexpr (FORM != FIXED) {  // pass 1: the max up to the group's last key
         float mx0 = m0, mx1 = m1;
-        auto row_max = [&](float (&s)[64], int j) {
-          masked(s, j);
-          mx0 = fmaxf(mx0, tree<0>(s, [](float x, float y) { return fmaxf(x, y); }));
-          mx1 = fmaxf(mx1, tree<2>(s, [](float x, float y) { return fmaxf(x, y); }));
-        };
         int i = 0;
         for (; i + 1 < n; i += 2, ++item) {  // an item of two k tiles
           landed(item);
           if constexpr (Shape::PAIR) {
             hopper::wgmma_fence();
-            scores<RB, HD>(sc, qa, slot_of(item));
+            score(slot_of(item));
             hopper::wgmma_commit();
-            scores<RB, HD>(sn, qa, slot_of(item) + 2 * TILE);
+            score_next(slot_of(item) + I::KTILE);
             hopper::wgmma_commit();
             hopper::wgmma_wait<1>();
             hopper::fence_regs(sc);
-            row_max(sc, g0 + i);
+            row_max(sc, g0 + i, seq_len, t4, mx0, mx1);
             hopper::wgmma_wait<0>();
             hopper::fence_regs(sn);
             release(item);
-            row_max(sn, g0 + i + 1);
+            row_max(sn, g0 + i + 1, seq_len, t4, mx0, mx1);
           } else {
             for (int t = 0; t < 2; ++t) {
               hopper::wgmma_fence();
-              scores<RB, HD>(sc, qa, slot_of(item) + 2 * t * TILE);
+              score(slot_of(item) + t * I::KTILE);
               hopper::wgmma_commit();
               hopper::wgmma_wait<0>();
               hopper::fence_regs(sc);
               if (t == 1) release(item);
-              row_max(sc, g0 + i + t);
+              row_max(sc, g0 + i + t, seq_len, t4, mx0, mx1);
             }
           }
         }
         if (i < n) {  // an item of one
           landed(item);
           hopper::wgmma_fence();
-          scores<RB, HD>(sc, qa, slot_of(item));
+          score(slot_of(item));
           hopper::wgmma_commit();
           hopper::wgmma_wait<0>();
           hopper::fence_regs(sc);
           release(item);
-          row_max(sc, g0 + i);
+          row_max(sc, g0 + i, seq_len, t4, mx0, mx1);
           ++item;
         }
 #pragma unroll
@@ -372,29 +478,28 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
       // pass 2: P = exp(s - m) rounded to bf16, O += P V
       const float mc0 = m0 * c, mc1 = m1 * c;
       auto pv = [&](int it) {  // O += P V of item it (P in pa)
-        const uint8_t* vs = slot_of(it) + 2 * TILE;
+        const uint8_t* vs = slot_of(it) + I::KTILE;
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          hopper::wgmma_rs<HD>(acc, pa[kk], hopper::desc_mnmajor<RB>(vs, kk), 1);
+        for (int kk = 0; kk < KT / 16; ++kk) accumulate<HD>(acc, pa[kk], vs, kk);
         hopper::wgmma_commit();
       };
       auto softmax = [&](int j) {  // sc -> P = exp(s - m) in place, row sums
-        masked(sc, j);
+        if ((j + 1) * KT > seq_len) mask_keys(sc, j * KT, seq_len, t4);
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
+        for (int e = 0; e < SN / 4; ++e) {
           sc[4 * e + 0] = hopper::ex2(fmaf(sc[4 * e + 0], c, -mc0));
           sc[4 * e + 1] = hopper::ex2(fmaf(sc[4 * e + 1], c, -mc0));
           sc[4 * e + 2] = hopper::ex2(fmaf(sc[4 * e + 2], c, -mc1));
           sc[4 * e + 3] = hopper::ex2(fmaf(sc[4 * e + 3], c, -mc1));
         }
-        l0 += tree<0>(sc, [](float x, float y) { return x + y; });
-        l1 += tree<2>(sc, [](float x, float y) { return x + y; });
+        l0 += tree<0>(sc, AddOp());
+        l1 += tree<2>(sc, AddOp());
       };
 
       landed(item);
       my_turn();
       hopper::wgmma_fence();
-      scores<RB, HD>(sc, qa, slot_of(item));
+      score(slot_of(item));
       hopper::wgmma_commit();
       their_turn();
       hopper::wgmma_wait<0>();
@@ -405,7 +510,7 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
         landed(item + i);
         my_turn();
         hopper::wgmma_fence();
-        scores<RB, HD>(sc, qa, slot_of(item + i));
+        score(slot_of(item + i));
         hopper::wgmma_commit();
         pv(item + i - 1);
         their_turn();
@@ -444,17 +549,17 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
           pack_bf16x2(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
     }
     const int r0 = q0 + 64 * wg + w0, r1 = r0 + 8;
-    if (t4 == 0) {  // m in natural units: at head dim 64 the sums were unscaled
+    if (t4 == 0) {  // m in natural units: where EXACT the sums were unscaled
       const size_t lbase = ((size_t)b * H + h) * T;
       const float mu = EXACT ? scale : 1.f;
       if (r0 < T) lse[lbase + r0] = m0 * mu + logf(l0);
       if (r1 < T) lse[lbase + r1] = m1 * mu + logf(l1);
     }
     hopper::named_sync(1 + wg, 128);
-    for (int i = wt; i < 64 * HD / 8; i += 128) {
+    for (int i = wt; i < 64 * HD / 8; i += 128) {  // the first D columns only
       const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
       const int row = q0 + 64 * wg + r;
-      if (row < T)
+      if (row < T && c8 < D)
         *reinterpret_cast<uint4*>(o + at(os, b, h, row) + c8) =
             *reinterpret_cast<const uint4*>(ost + r * L::OLD + c8);
     }
@@ -527,12 +632,21 @@ __global__ void __launch_bounds__(FwdShape<HD, FORM>::THREADS, 1)
 //    S = Q K^T and dP = dO V^T (m64n128, A in registers, B K-major), p and t
 //    in registers (keys at or past seq_len: p = 0), dQ += dS K with B the k
 //    tile read MN-major.
-// Tiles are swizzled at their row width (128 bytes at head dim 64, 64 at
-// 32), which is both the TMA map's and the wgmma descriptors' mode. dq,
-// dk and dv are written through their strides: into one [B, T, 3*H*D]
-// gradient of the qkv projection (packed) or into any [B, H, T, D] views.
-// dkdv's scores keep A in shared memory: k and v as register fragments
-// beside the 128-wide S^T and dP^T would pass the 240 registers.
+// Tiles are swizzled at their box's row width (128 bytes at head dims 64
+// and 128, 64 at 32), which is both the TMA map's and the wgmma
+// descriptors' mode. dq, dk and dv are written through their strides (their
+// first D columns): into one [B, T, 3*H*D] gradient of the qkv projection
+// (packed) or into any [B, H, T, D] views. dkdv's scores keep A in shared
+// memory: k and v as register fragments beside the 128-wide S^T and dP^T
+// would pass the 240 registers.
+// The instance HD = 128 (any head dim from 72): a 128-query ring tile of
+// q, dO and qh would take 3 slots of 96 KB and the [64 x 128] S^T, dP^T
+// beside dk, dv [64 x 128] 256 registers. Its ring tiles are 64 rows (3
+// slots of 48 KB beside k and v's 64 KB in dkdv; of 32 KB beside q and dO's
+// 64 KB in dq), so the scores take m64n64 (S^T, dP^T 32 registers each:
+// dk + dv + both 192); a row of 256 bytes lands as two boxes of 64 columns
+// (desc_mnmajor_at for the MN-major products); the dq pass reads q and dO
+// as wgmma A descriptors from shared memory (no register fragments).
 // Tried and dropped (PERF.md): issuing the next tile's scores under this
 // tile's products, a pingpong of the two consumers, 4-5 ring slots, a
 // producer of one warp; each measured slower or no faster.
@@ -544,33 +658,34 @@ constexpr int BWD_THREADS = 384;  // two consumer warpgroups and a producer
 constexpr int BWD_STAGES = 3;     // ring slots
 
 // Shared memory of the dk/dv kernel: k and v of the block's 128 keys (two
-// 64-row tiles each), then per ring slot q, dO (and qh) of 128 rows each,
+// 64-row tiles each), then per ring slot q, dO (and qh) of KT rows each,
 // then lse and delta per slot, then the barriers. Every tile starts on a
 // 1024-byte boundary.
-template <int HD, int MODE>
+template <int HD, int MODE, bool EXACT>
 struct DkdvSmem {
-  static constexpr int TILE = 64 * HD * 2;
-  static constexpr bool EXACT = HD == 64;  // the bf16 scale is a power of two
+  using I = Inst<HD>;
+  static constexpr int TILE = I::TILE;
   static constexpr bool QH = !EXACT && MODE != CHUNKED;  // a scaled copy of q
   static constexpr bool KH = !EXACT && MODE == CHUNKED;  // k scaled in place
-  static constexpr int SLOT = (QH ? 3 : 2) * 2 * TILE;  // q, dO (, qh): 128 rows each
+  static constexpr int SLOT = (QH ? 3 : 2) * I::KTILE;  // q, dO (, qh): KT rows each
   static constexpr int K = 0, V = 2 * TILE, RING = 4 * TILE;
   static constexpr int LSE = RING + BWD_STAGES * SLOT;
-  static constexpr int DELTA = LSE + BWD_STAGES * RING_ROWS * 4;
-  static constexpr int BARS = DELTA + BWD_STAGES * RING_ROWS * 4;
+  static constexpr int DELTA = LSE + BWD_STAGES * I::KT * 4;
+  static constexpr int BARS = DELTA + BWD_STAGES * I::KT * 4;
   static constexpr int BYTES = BARS + (1 + 3 * BWD_STAGES) * 8;
 };
 
 template <int HD>
 struct DqSmem {
-  static constexpr int TILE = 64 * HD * 2;
-  static constexpr int Q = 0, DO = 2 * TILE, RING = 4 * TILE, SLOT = 4 * TILE;  // k, v
+  using I = Inst<HD>;
+  static constexpr int TILE = I::TILE;
+  static constexpr int Q = 0, DO = 2 * TILE, RING = 4 * TILE, SLOT = 2 * I::KTILE;  // k, v
   static constexpr int BARS = RING + BWD_STAGES * SLOT;
   static constexpr int BYTES = BARS + (1 + 2 * BWD_STAGES) * 8;
 };
 
-// MODE: FUSED (also BHTD's dk/dv), SPLIT or CHUNKED.
-template <int HD, int MODE>
+// MODE: FUSED (also BHTD's dk/dv), SPLIT or CHUNKED; D the true head dim.
+template <int HD, int MODE, bool EXACT>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mk,
@@ -578,10 +693,11 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
                           const __grid_constant__ CUtensorMap mdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dk_out, bf16* __restrict__ dv_out, Strides gs,
-                          int T, int seq_len, int H, float scale_b, float scale_f) {
+                          int T, int seq_len, int H, int D, float scale_b, float scale_f) {
   static_assert(MODE == FUSED || MODE == SPLIT || MODE == CHUNKED, "dkdv mode");
-  using L = DkdvSmem<HD, MODE>;
-  constexpr int RB = HD * 2, TILE = L::TILE;
+  using I = Inst<HD>;
+  using L = DkdvSmem<HD, MODE, EXACT>;
+  constexpr int TILE = L::TILE, KT = I::KT, SN = KT / 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = hopper::align1024(smem_raw);
   float* lse_s = reinterpret_cast<float*>(sm + L::LSE);
@@ -599,7 +715,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   if (k0 >= seq_len) {  // every key of the block is masked: dk = dv = 0
     for (int i = tid; i < 128 * HD / 8; i += BWD_THREADS) {
       const int r = i / (HD / 8), c8 = (i % (HD / 8)) * 8;
-      if (k0 + r < T) {
+      if (k0 + r < T && c8 < D) {
         const long long off = at(gs, b, h, k0 + r) + c8;
         *reinterpret_cast<uint4*>(dk_out + off) = make_uint4(0, 0, 0, 0);
         *reinterpret_cast<uint4*>(dv_out + off) = make_uint4(0, 0, 0, 0);
@@ -619,15 +735,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   __syncthreads();
 
   const int wg = tid / 128;
-  const int n_q = (T + RING_ROWS - 1) / RING_ROWS;
+  const int n_q = (T + KT - 1) / KT;
   if (wg == 2) {  // producer
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
     const int p = tid - 256;
     if (p == 0) {
       hopper::mbar_arrive_expect_tx(kvbar, 4 * TILE);
       for (int i = 0; i < 2; ++i) {
-        hopper::tma_load_4d(sm + L::K + i * TILE, &mk, kvbar, 0, h, k0 + 64 * i, b);
-        hopper::tma_load_4d(sm + L::V + i * TILE, &mv, kvbar, 0, h, k0 + 64 * i, b);
+        load_rows<HD>(sm + L::K + i * TILE, &mk, kvbar, h, k0 + 64 * i, b);
+        load_rows<HD>(sm + L::V + i * TILE, &mv, kvbar, h, k0 + 64 * i, b);
       }
     }
     const size_t lbase = ((size_t)b * H + h) * T;
@@ -643,19 +759,19 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       uint8_t* slot = sm + L::RING + s * L::SLOT;
       if (j < n_q) {
         // the row's lse and delta are read while the slot is still in use
-        const int r = j * RING_ROWS + p;
+        // (rows of the tile: threads p < KT)
+        const int r = j * KT + p;
         const float l = r < T ? lse[lbase + r] * LOG2E : INFINITY;  // p = 0 past T
         const float d = r < T ? delta[lbase + r] : 0.f;
         hopper::mbar_wait(&empty[s], ph ^ 1);
-        lse_s[s * RING_ROWS + p] = l;
-        delta_s[s * RING_ROWS + p] = d;
+        if (p < KT) {
+          lse_s[s * KT + p] = l;
+          delta_s[s * KT + p] = d;
+        }
         if (p == 0) {
-          hopper::mbar_arrive_expect_tx(&full[s], 4 * TILE);
-          for (int i = 0; i < 2; ++i) {
-            const int row = j * RING_ROWS + 64 * i;
-            hopper::tma_load_4d(slot + i * TILE, &mq, &full[s], 0, h, row, b);
-            hopper::tma_load_4d(slot + (2 + i) * TILE, &mdo, &full[s], 0, h, row, b);
-          }
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * I::KTILE);
+          load_ring_tile<HD>(slot, &mq, &full[s], h, j * KT, b);
+          load_ring_tile<HD>(slot + I::KTILE, &mdo, &full[s], h, j * KT, b);
         } else {
           hopper::mbar_arrive(&full[s]);
         }
@@ -664,7 +780,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
         const int i = j - LAG, si = i % BWD_STAGES;
         uint8_t* qslot = sm + L::RING + si * L::SLOT;
         hopper::mbar_wait(&full[si], (i / BWD_STAGES) & 1);
-        scale_tile(qslot, qslot + 4 * TILE, 2 * TILE, scale_b, p, 128);
+        scale_tile(qslot, qslot + 2 * I::KTILE, I::KTILE, scale_b, p, 128);
         hopper::fence_proxy_async();
         hopper::mbar_arrive(&ready[si]);
       }
@@ -682,7 +798,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       hopper::named_sync(1 + wg, 128);
     }
     // scores in log2 units: s * c - lse * log2(e)
-    const float c = L::EXACT ? scale_b * LOG2E : LOG2E;
+    const float c = EXACT ? scale_b * LOG2E : LOG2E;
     float dk[HD / 2], dv[HD / 2];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -691,24 +807,24 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       const int s = j % BWD_STAGES;
       const uint32_t ph = (j / BWD_STAGES) & 1;
       const uint8_t* qs = sm + L::RING + s * L::SLOT;
-      const uint8_t* dos = qs + 2 * TILE;
-      const uint8_t* qh = L::QH ? qs + 4 * TILE : qs;          // the scores' q
-      const uint8_t* qk = MODE == FUSED ? qh : qs;              // dk's q
+      const uint8_t* dos = qs + I::KTILE;
+      const uint8_t* qh = L::QH ? qs + 2 * I::KTILE : qs;  // the scores' q
+      const uint8_t* qk = MODE == FUSED ? qh : qs;         // dk's q
       hopper::mbar_wait(&full[s], ph);
       if constexpr (L::QH) hopper::mbar_wait(&ready[s], ph);
 
-      float sc[64], dp[64];  // S^T and dP^T [key][query]
+      float sc[SN], dp[SN];  // S^T and dP^T [key][query]
       hopper::wgmma_fence();
-      scores<RB, HD>(sc, kt, qh);
+      scores<HD, KT>(sc, kt, qh);
       hopper::wgmma_commit();
-      scores<RB, HD>(dp, vt, dos);
+      scores<HD, KT>(dp, vt, dos);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sc);
-      const float* ls = lse_s + s * RING_ROWS;
-      const float* ds = delta_s + s * RING_ROWS;
+      const float* ls = lse_s + s * KT;
+      const float* ds = delta_s + s * KT;
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < SN / 4; ++n) {
         const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t4);
         sc[4 * n + 0] = hopper::ex2(sc[4 * n + 0] * c - l.x);
         sc[4 * n + 1] = hopper::ex2(sc[4 * n + 1] * c - l.y);
@@ -718,23 +834,21 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < SN / 4; ++n) {
         const float2 d = *reinterpret_cast<const float2*>(ds + 8 * n + 2 * t4);
         dp[4 * n + 0] = sc[4 * n + 0] * (dp[4 * n + 0] - d.x);
         dp[4 * n + 1] = sc[4 * n + 1] * (dp[4 * n + 1] - d.y);
         dp[4 * n + 2] = sc[4 * n + 2] * (dp[4 * n + 2] - d.x);
         dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - d.y);
       }
-      uint32_t pa[8][4], ta[8][4];
+      uint32_t pa[KT / 16][4], ta[KT / 16][4];
       hopper::pack_a(pa, sc);
       hopper::pack_a(ta, dp);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        hopper::wgmma_rs<HD>(dv, pa[kk], hopper::desc_mnmajor<RB>(dos, kk), 1);
+      for (int kk = 0; kk < KT / 16; ++kk) accumulate<HD>(dv, pa[kk], dos, kk);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        hopper::wgmma_rs<HD>(dk, ta[kk], hopper::desc_mnmajor<RB>(qk, kk), 1);
+      for (int kk = 0; kk < KT / 16; ++kk) accumulate<HD>(dk, ta[kk], qk, kk);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dv);
@@ -742,14 +856,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
 
-    // dk's epilogue scale: FUSED's products ran over qh (or, at head dim 64,
-    // over q with the exact 1/8 left for here); SPLIT and CHUNKED scale the
-    // f32 sum by sf, then round once
-    const float sdk = MODE == FUSED ? (L::EXACT ? scale_b : 1.f) : scale_f;
+    // dk's epilogue scale: FUSED's products ran over qh (or, where EXACT,
+    // over q with the exact scale left for here); SPLIT and CHUNKED scale
+    // the f32 sum by sf, then round once
+    const float sdk = MODE == FUSED ? (EXACT ? scale_b : 1.f) : scale_f;
     const int r0 = k0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
     const float z0 = r0 < seq_len ? 1.f : 0.f, z1 = r1 < seq_len ? 1.f : 0.f;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
+      if (n * 8 >= D) break;  // the first D columns only
       const int col = n * 8 + 2 * t4;
       if (r0 < T) {
         const long long off = at(gs, b, h, r0) + col;
@@ -769,20 +884,20 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   }
 }
 
-// MODE: FUSED (also SPLIT's and CHUNKED's dq) or BHTD.
-template <int HD, int MODE>
+// MODE: FUSED (also SPLIT's and CHUNKED's dq) or BHTD; D the true head dim.
+template <int HD, int MODE, bool EXACT>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
                         const __grid_constant__ CUtensorMap mk,
                         const __grid_constant__ CUtensorMap mv,
                         const __grid_constant__ CUtensorMap mdo,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq_out, Strides gs, int T, int seq_len, int H,
+                        bf16* __restrict__ dq_out, Strides gs, int T, int seq_len, int H, int D,
                         float scale_b, float scale_f) {
   static_assert(MODE == FUSED || MODE == BHTD, "dq mode");
+  using I = Inst<HD>;
   using L = DqSmem<HD>;
-  constexpr int RB = HD * 2, TILE = L::TILE;
-  constexpr bool EXACT = HD == 64;
+  constexpr int TILE = L::TILE, KT = I::KT, SN = KT / 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = hopper::align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
@@ -805,26 +920,23 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   __syncthreads();
 
   const int wg = tid / 128;
-  const int n_k = (seq_len + RING_ROWS - 1) / RING_ROWS;
+  const int n_k = (seq_len + KT - 1) / KT;
   if (wg == 2) {  // producer: one thread issues every load
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
     if (tid == 256) {
       hopper::mbar_arrive_expect_tx(qbar, 4 * TILE);
       for (int i = 0; i < 2; ++i) {
-        hopper::tma_load_4d(sm + L::Q + i * TILE, &mq, qbar, 0, h, q0 + 64 * i, b);
-        hopper::tma_load_4d(sm + L::DO + i * TILE, &mdo, qbar, 0, h, q0 + 64 * i, b);
+        load_rows<HD>(sm + L::Q + i * TILE, &mq, qbar, h, q0 + 64 * i, b);
+        load_rows<HD>(sm + L::DO + i * TILE, &mdo, qbar, h, q0 + 64 * i, b);
       }
       for (int j = 0; j < n_k; ++j) {
         const int s = j % BWD_STAGES;
         const uint32_t ph = (j / BWD_STAGES) & 1;
         uint8_t* slot = sm + L::RING + s * L::SLOT;
         hopper::mbar_wait(&empty[s], ph ^ 1);
-        hopper::mbar_arrive_expect_tx(&full[s], 4 * TILE);
-        for (int i = 0; i < 2; ++i) {
-          const int row = j * RING_ROWS + 64 * i;
-          hopper::tma_load_4d(slot + i * TILE, &mk, &full[s], 0, h, row, b);
-          hopper::tma_load_4d(slot + (2 + i) * TILE, &mv, &full[s], 0, h, row, b);
-        }
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * I::KTILE);
+        load_ring_tile<HD>(slot, &mk, &full[s], h, j * KT, b);
+        load_ring_tile<HD>(slot + I::KTILE, &mv, &full[s], h, j * KT, b);
       }
     }
   } else {  // consumers: 64 queries each
@@ -846,11 +958,14 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       hopper::fence_proxy_async();
       hopper::named_sync(1 + wg, 128);
     }
-    uint32_t qa[HD / 16][4], oa[HD / 16][4];  // this warp's q (qh) and dO rows
+    // this warp's q (qh) and dO rows as A fragments, where not QS
+    uint32_t qa[I::QS ? 1 : HD / 16][4], oa[I::QS ? 1 : HD / 16][4];
+    if constexpr (!I::QS) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      hopper::ldmatrix_a<RB>(qa[kk], qt, 16 * warp, kk, lane);
-      hopper::ldmatrix_a<RB>(oa[kk], ot, 16 * warp, kk, lane);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        hopper::ldmatrix_a<I::RB>(qa[kk], qt, 16 * warp, kk, lane);
+        hopper::ldmatrix_a<I::RB>(oa[kk], ot, 16 * warp, kk, lane);
+      }
     }
     const float c = EXACT ? scale_b * LOG2E : LOG2E;
     float dq[HD / 2];
@@ -861,20 +976,20 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       const int s = j % BWD_STAGES;
       const uint32_t ph = (j / BWD_STAGES) & 1;
       const uint8_t* ks = sm + L::RING + s * L::SLOT;
-      const uint8_t* vs = ks + 2 * TILE;
+      const uint8_t* vs = ks + I::KTILE;
       hopper::mbar_wait(&full[s], ph);
 
-      float sc[64], dp[64];  // S and dP [query][key]
+      float sc[SN], dp[SN];  // S and dP [query][key]
       hopper::wgmma_fence();
-      scores<RB, HD>(sc, qa, ks);
+      if constexpr (I::QS) scores<HD, KT>(sc, qt, ks); else scores<HD, KT>(sc, qa, ks);
       hopper::wgmma_commit();
-      scores<RB, HD>(dp, oa, vs);
+      if constexpr (I::QS) scores<HD, KT>(dp, ot, vs); else scores<HD, KT>(dp, oa, vs);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sc);
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {  // keys past seq_len: p = 0
-        const int key = j * RING_ROWS + 8 * n + 2 * t4;
+      for (int n = 0; n < SN / 4; ++n) {  // keys past seq_len: p = 0
+        const int key = j * KT + 8 * n + 2 * t4;
         const bool m0 = key < seq_len, m1 = key + 1 < seq_len;
         sc[4 * n + 0] = m0 ? hopper::ex2(sc[4 * n + 0] * c - l0) : 0.f;
         sc[4 * n + 1] = m1 ? hopper::ex2(sc[4 * n + 1] * c - l0) : 0.f;
@@ -884,18 +999,17 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < SN / 4; ++n) {
         dp[4 * n + 0] = sc[4 * n + 0] * (dp[4 * n + 0] - d0);
         dp[4 * n + 1] = sc[4 * n + 1] * (dp[4 * n + 1] - d0);
         dp[4 * n + 2] = sc[4 * n + 2] * (dp[4 * n + 2] - d1);
         dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - d1);
       }
-      uint32_t ta[8][4];
+      uint32_t ta[KT / 16][4];
       hopper::pack_a(ta, dp);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        hopper::wgmma_rs<HD>(dq, ta[kk], hopper::desc_mnmajor<RB>(ks, kk), 1);
+      for (int kk = 0; kk < KT / 16; ++kk) accumulate<HD>(dq, ta[kk], ks, kk);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dq);
@@ -904,6 +1018,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) {
+      if (n * 8 >= D) break;  // the first D columns only
       const int col = n * 8 + 2 * t4;
 #pragma unroll
       for (int e = 0; e < 4; ++e)  // BHTD: rounded to bf16, then the bf16 scale
@@ -929,11 +1044,18 @@ int allow_smem(K kernel, int bytes, bool& done) {
   return (int)err;
 }
 
-template <int HD, int FORM>
+// The maps of q, k, v (and dO) at the instance HD: dims (D, H, T, B) with
+// the true D, boxes of 64 rows and Inst<HD>::BOXC columns.
+template <int HD>
+int encode(CUtensorMap* map, const void* x, Strides st, int B, int H, int T, int D) {
+  return hopper::encode_bhtd(map, x, B, H, T, D, st.b, st.h, st.t, 64, Inst<HD>::BOXC);
+}
+
+template <int HD, int FORM, bool EXACT>
 int launch_fwd_form(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o,
-                    Strides os, void* lse, int B, int T, int seq_len, int H, int group_tiles,
-                    float scale, cudaStream_t s) {
-  auto* kern = flash_fwd_kernel<HD, FORM>;
+                    Strides os, void* lse, int B, int T, int seq_len, int H, int D,
+                    int group_tiles, float scale, cudaStream_t s) {
+  auto* kern = flash_fwd_kernel<HD, FORM, EXACT>;
   // + alignment slack; at least ONE_PER_SM, so that no second block shares
   // the SM's registers with the one whose consumers raise theirs
   constexpr int bytes = cmax(FwdSmem<HD, FORM>::BYTES + 1024, ONE_PER_SM);
@@ -943,63 +1065,65 @@ int launch_fwd_form(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensor
   using Shape = FwdShape<HD, FORM>;
   dim3 grid((T + Shape::ROWS - 1) / Shape::ROWS, H, B);
   kern<<<grid, Shape::THREADS, bytes, s>>>(mq, mk, mv, (bf16*)o, os, (float*)lse, T, seq_len, H,
-                                        group_tiles, scale);
+                                        D, group_tiles, scale);
   return (int)cudaGetLastError();
 }
 
 // form: SAFE, FIXED or CHUNKED_SAFE (kv_chunk keys a group, a multiple of
-// RING_ROWS); scale the bf16-rounded 1/sqrt(D). q, k, v share the strides
-// `in` and are read through tensor maps (dims (D, H, T, B), 64-row boxes),
-// as the backward reads them.
-template <int HD>
+// the instance's key tile); scale the bf16-rounded 1/sqrt(D). q, k, v share
+// the strides `in` and are read through tensor maps (dims (D, H, T, B),
+// 64-row boxes), as the backward reads them.
+template <int HD, bool EXACT>
 int launch_fwd(const void* q, const void* k, const void* v, Strides in, void* o, Strides os,
-               void* lse, int B, int T, int seq_len, int H, float scale, int form, int kv_chunk,
-               void* stream) {
+               void* lse, int B, int T, int seq_len, int H, int D, float scale, int form,
+               int kv_chunk, void* stream) {
+  constexpr int KT = Inst<HD>::KT;
   if (B <= 0 || T <= 0 || seq_len <= 0) return (int)cudaGetLastError();
-  if (form == CHUNKED_SAFE && (kv_chunk <= 0 || kv_chunk % RING_ROWS != 0))
+  if (form == CHUNKED_SAFE && (kv_chunk <= 0 || kv_chunk % KT != 0))
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   int err;
-  if ((err = hopper::encode_bhtd(&mq, q, B, H, T, HD, in.b, in.h, in.t, 64)) ||
-      (err = hopper::encode_bhtd(&mk, k, B, H, T, HD, in.b, in.h, in.t, 64)) ||
-      (err = hopper::encode_bhtd(&mv, v, B, H, T, HD, in.b, in.h, in.t, 64)))
+  if ((err = encode<HD>(&mq, q, in, B, H, T, D)) || (err = encode<HD>(&mk, k, in, B, H, T, D)) ||
+      (err = encode<HD>(&mv, v, in, B, H, T, D)))
     return err;
   cudaStream_t s = (cudaStream_t)stream;
   if (form == SAFE)
-    return launch_fwd_form<HD, SAFE>(mq, mk, mv, o, os, lse, B, T, seq_len, H, 0, scale, s);
+    return launch_fwd_form<HD, SAFE, EXACT>(mq, mk, mv, o, os, lse, B, T, seq_len, H, D, 0,
+                                            scale, s);
   if (form == FIXED)
-    return launch_fwd_form<HD, FIXED>(mq, mk, mv, o, os, lse, B, T, seq_len, H, 0, scale, s);
+    return launch_fwd_form<HD, FIXED, EXACT>(mq, mk, mv, o, os, lse, B, T, seq_len, H, D, 0,
+                                             scale, s);
   if (form == CHUNKED_SAFE)
-    return launch_fwd_form<HD, CHUNKED_SAFE>(mq, mk, mv, o, os, lse, B, T, seq_len, H,
-                                             kv_chunk / RING_ROWS, scale, s);
+    return launch_fwd_form<HD, CHUNKED_SAFE, EXACT>(mq, mk, mv, o, os, lse, B, T, seq_len, H, D,
+                                                    kv_chunk / KT, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // mode: FUSED, SPLIT, CHUNKED or BHTD; scale_b the bf16-rounded scale,
 // scale_f the f32 one (BHTD takes scale_b for both). q, k, v share the
 // strides `in`; each tensor is read through its own tensor map (dims (D, H,
-// T, B), byte strides twice the element strides, 64-row boxes), which
-// ops/flash_attention.py::tma_geometry computes alike and checks.
-template <int HD, int MODE>
+// T, B), byte strides twice the element strides, 64-row boxes of the
+// instance's columns), which ops/flash_attention.py::tma_geometry computes
+// alike and checks.
+template <int HD, int MODE, bool EXACT>
 int launch_bwd(const void* q, const void* k, const void* v, Strides in, const void* dout,
                Strides dos_, const void* lse, const void* delta, void* dq, void* dk, void* dv,
-               Strides gs, int B, int T, int seq_len, int H, float scale_b, float scale_f,
+               Strides gs, int B, int T, int seq_len, int H, int D, float scale_b, float scale_f,
                void* stream) {
   constexpr int DKDV = MODE == BHTD ? FUSED : MODE;  // BHTD's dk/dv are FUSED's
   constexpr int DQ = MODE == BHTD ? BHTD : FUSED;    // every packed mode's dq is FUSED's
   if (B <= 0 || T <= 0 || seq_len <= 0) return (int)cudaGetLastError();
   CUtensorMap mq, mk, mv, mdo;
   int err;
-  if ((err = hopper::encode_bhtd(&mq, q, B, H, T, HD, in.b, in.h, in.t, 64)) ||
-      (err = hopper::encode_bhtd(&mk, k, B, H, T, HD, in.b, in.h, in.t, 64)) ||
-      (err = hopper::encode_bhtd(&mv, v, B, H, T, HD, in.b, in.h, in.t, 64)) ||
-      (err = hopper::encode_bhtd(&mdo, dout, B, H, T, HD, dos_.b, dos_.h, dos_.t, 64)))
+  if ((err = encode<HD>(&mq, q, in, B, H, T, D)) || (err = encode<HD>(&mk, k, in, B, H, T, D)) ||
+      (err = encode<HD>(&mv, v, in, B, H, T, D)) ||
+      (err = encode<HD>(&mdo, dout, dos_, B, H, T, D)))
     return err;
-  auto* kdkdv = flash_bwd_dkdv_kernel<HD, DKDV>;
-  auto* kdq = flash_bwd_dq_kernel<HD, DQ>;
+  auto* kdkdv = flash_bwd_dkdv_kernel<HD, DKDV, EXACT>;
+  auto* kdq = flash_bwd_dq_kernel<HD, DQ, EXACT>;
   // + alignment slack; at least ONE_PER_SM, so that no second block shares
   // the SM's registers with the one whose consumers raise theirs
-  constexpr int dkdv_bytes = cmax(DkdvSmem<HD, DKDV>::BYTES + 1024, ONE_PER_SM);
+  constexpr int dkdv_bytes = cmax(DkdvSmem<HD, DKDV, EXACT>::BYTES + 1024, ONE_PER_SM);
   constexpr int dq_bytes = cmax(DqSmem<HD>::BYTES + 1024, ONE_PER_SM);
   static bool dkdv_ok = false, dq_ok = false;
   if ((err = allow_smem(kdkdv, dkdv_bytes, dkdv_ok)) || (err = allow_smem(kdq, dq_bytes, dq_ok)))
@@ -1008,53 +1132,64 @@ int launch_bwd(const void* q, const void* k, const void* v, Strides in, const vo
   dim3 grid((T + 127) / 128, H, B);
   kdkdv<<<grid, BWD_THREADS, dkdv_bytes, s>>>(mq, mk, mv, mdo, (const float*)lse,
                                               (const float*)delta, (bf16*)dk, (bf16*)dv, gs, T,
-                                              seq_len, H, scale_b, scale_f);
+                                              seq_len, H, D, scale_b, scale_f);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   kdq<<<grid, BWD_THREADS, dq_bytes, s>>>(mq, mk, mv, mdo, (const float*)lse,
-                                          (const float*)delta, (bf16*)dq, gs, T, seq_len, H,
+                                          (const float*)delta, (bf16*)dq, gs, T, seq_len, H, D,
                                           scale_b, scale_f);
   return (int)cudaGetLastError();
 }
 
-// Packed backward at head dim D in {32, 64}, in mode FUSED, SPLIT or CHUNKED.
-template <int HD>
+// Packed backward at the instance HD, in mode FUSED, SPLIT or CHUNKED.
+template <int HD, bool EXACT>
 int launch_bwd_packed(int mode, const void* q, const void* k, const void* v, Strides in,
                       const void* dout, Strides dos_, const void* lse, const void* delta,
                       void* dq, void* dk, void* dv, Strides gs, int B, int T, int seq_len,
-                      int H, float scale_b, float scale_f, void* stream) {
+                      int H, int D, float scale_b, float scale_f, void* stream) {
   if (mode == FUSED)
-    return launch_bwd<HD, FUSED>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
-                                 seq_len, H, scale_b, scale_f, stream);
+    return launch_bwd<HD, FUSED, EXACT>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B,
+                                        T, seq_len, H, D, scale_b, scale_f, stream);
   if (mode == SPLIT)
-    return launch_bwd<HD, SPLIT>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
-                                 seq_len, H, scale_b, scale_f, stream);
+    return launch_bwd<HD, SPLIT, EXACT>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B,
+                                        T, seq_len, H, D, scale_b, scale_f, stream);
   if (mode == CHUNKED)
-    return launch_bwd<HD, CHUNKED>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
-                                   seq_len, H, scale_b, scale_f, stream);
+    return launch_bwd<HD, CHUNKED, EXACT>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs,
+                                          B, T, seq_len, H, D, scale_b, scale_f, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// Calls launch(std::integral_constant<int, HD>{}, std::bool_constant<EXACT>{})
+// for head dim D's instance: HD the smallest of 32, 64, 128 at least D, and
+// EXACT where the bf16 scale 1/sqrt(D) is the power of two 1/8 (D = 64).
+// Refuses a head dim under 8, over 128 or off a multiple of 8.
+template <typename F>
+int by_head_dim(int D, F&& launch) {
+  if (D < 8 || D > 128 || D % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (D == 64) return launch(std::integral_constant<int, 64>{}, std::true_type{});
+  if (D <= 32) return launch(std::integral_constant<int, 32>{}, std::false_type{});
+  if (D <= 64) return launch(std::integral_constant<int, 64>{}, std::false_type{});
+  return launch(std::integral_constant<int, 128>{}, std::false_type{});
 }
 
 }  // namespace
 
-// Packed layout, head dim D in {32, 64} (heads that pair into 128 lanes).
-// q/k/v: bf16, element (b, t, h*D + d) at b*batch_stride + t*row_stride +
-// h*D + d; o: bf16 [B, T, H*D] contiguous; lse: f32 [B, H, T]. scale: the
-// bf16-rounded 1/sqrt(D), by which q is scaled in bf16. form: 0 SAFE, 1
-// FIXED, 2 CHUNKED_SAFE (kv_chunk keys a group, a multiple of 128).
+// Packed layout, head dim D from 8 to 128 in steps of 8 (heads that pair
+// into 128 lanes: D divides 128). q/k/v: bf16, element (b, t, h*D + d) at
+// b*batch_stride + t*row_stride + h*D + d; o: bf16 [B, T, H*D] contiguous;
+// lse: f32 [B, H, T]. scale: the bf16-rounded 1/sqrt(D), by which q is
+// scaled in bf16. form: 0 SAFE, 1 FIXED, 2 CHUNKED_SAFE (kv_chunk keys a
+// group, a multiple of 128).
 extern "C" int ibk_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int B, int T, int seq_len, int H, int D,
                              long long row_stride, long long batch_stride,
                              float scale, int form, int kv_chunk, void* stream) {
   const long long dm = (long long)H * D;
   const Strides in{batch_stride, D, row_stride}, os{T * dm, D, dm};
-  if (D == 64)
-    return launch_fwd<64>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, form, kv_chunk,
-                          stream);
-  if (D == 32)
-    return launch_fwd<32>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, form, kv_chunk,
-                          stream);
-  return (int)cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto hd, auto exact) {
+    return launch_fwd<decltype(hd)::value, decltype(exact)::value>(
+        q, k, v, in, o, os, lse, B, T, seq_len, H, D, scale, form, kv_chunk, stream);
+  });
 }
 
 // Backward: q/k/v as in the forward; dout bf16 [B, T, H*D] contiguous; lse,
@@ -1069,30 +1204,27 @@ extern "C" int ibk_flash_bwd(const void* q, const void* k, const void* v, const 
   const long long dm = (long long)H * D;
   bf16* g = (bf16*)dqkv;
   const Strides in{batch_stride, D, row_stride}, dos_{T * dm, D, dm}, gs{3 * T * dm, D, 3 * dm};
-  if (D == 64)
-    return launch_bwd_packed<64>(mode, q, k, v, in, dout, dos_, lse, delta, g, g + dm,
-                                 g + 2 * dm, gs, B, T, seq_len, H, scale_b, scale_f, stream);
-  if (D == 32)
-    return launch_bwd_packed<32>(mode, q, k, v, in, dout, dos_, lse, delta, g, g + dm,
-                                 g + 2 * dm, gs, B, T, seq_len, H, scale_b, scale_f, stream);
-  return (int)cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto hd, auto exact) {
+    return launch_bwd_packed<decltype(hd)::value, decltype(exact)::value>(
+        mode, q, k, v, in, dout, dos_, lse, delta, g, g + dm, g + 2 * dm, gs, B, T, seq_len, H,
+        D, scale_b, scale_f, stream);
+  });
 }
 
-// BHTD layout, head dim D in {32, 64}: q, k, v share the element strides
-// (in_b, in_h, in_t) of a [B, H, T, D] view, o has (o_b, o_h, o_t); lse f32
-// [B, H, T] contiguous. scale: the bf16-rounded 1/sqrt(D). The JAX BHTD
-// kernel takes the true row max: SAFE.
+// BHTD layout, head dim D from 8 to 128 in steps of 8: q, k, v share the
+// element strides (in_b, in_h, in_t) of a [B, H, T, D] view, o has (o_b,
+// o_h, o_t); lse f32 [B, H, T] contiguous. scale: the bf16-rounded
+// 1/sqrt(D). The JAX BHTD kernel takes the true row max: SAFE.
 extern "C" int ibk_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int T, int seq_len, int H, int D,
                                   long long in_b, long long in_h, long long in_t,
                                   long long o_b, long long o_h, long long o_t, float scale,
                                   void* stream) {
   const Strides in{in_b, in_h, in_t}, os{o_b, o_h, o_t};
-  if (D == 64)
-    return launch_fwd<64>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, SAFE, 0, stream);
-  if (D == 32)
-    return launch_fwd<32>(q, k, v, in, o, os, lse, B, T, seq_len, H, scale, SAFE, 0, stream);
-  return (int)cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto hd, auto exact) {
+    return launch_fwd<decltype(hd)::value, decltype(exact)::value>(
+        q, k, v, in, o, os, lse, B, T, seq_len, H, D, scale, SAFE, 0, stream);
+  });
 }
 
 // Backward: q, k, v as in the forward; dout with strides (do_b, do_h,
@@ -1106,11 +1238,9 @@ extern "C" int ibk_flash_attn_bwd(const void* q, const void* k, const void* v,
                                   long long g_b, long long g_h, long long g_t, float scale,
                                   void* stream) {
   const Strides in{in_b, in_h, in_t}, dos_{do_b, do_h, do_t}, gs{g_b, g_h, g_t};
-  if (D == 64)
-    return launch_bwd<64, BHTD>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
-                                seq_len, H, scale, scale, stream);
-  if (D == 32)
-    return launch_bwd<32, BHTD>(q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T,
-                                seq_len, H, scale, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  return by_head_dim(D, [&](auto hd, auto exact) {
+    return launch_bwd<decltype(hd)::value, BHTD, decltype(exact)::value>(
+        q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T, seq_len, H, D, scale, scale,
+        stream);
+  });
 }

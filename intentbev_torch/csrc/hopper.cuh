@@ -4,28 +4,31 @@
 //
 // Tensor maps. A [B, H, T, D] bf16 view with unit stride along D is read
 // through a four-dimensional map (d, head, row, batch) whose byte strides
-// are twice the view's element strides; one box is 64 rows of one head
-// (D x 1 x 64 x 1). The same map covers a column slice of a packed
-// [B, T, 3*H*D] projection output (head stride D), a [B, H, T, D] view of
-// it, and a contiguous [B, H, T, D]. Rows past T land as zeros. The rows of
-// a box are 2*D bytes, so the tile is swizzled at that width: 128 bytes at
-// D = 64, 64 bytes at D = 32, which is also the swizzle mode of the wgmma
-// descriptors that read it. The maps are encoded by cuTensorMapEncodeTiled
-// of libcuda, looked up at run time through the CUDA runtime, so the
-// library does not link libcuda. A row-major [rows, cols] matrix is read
+// are twice the view's element strides; one box is 64 rows of one head and
+// C columns (C x 1 x 64 x 1), C = 32 or 64. The same map covers a column
+// slice of a packed [B, T, 3*H*D] projection output (head stride D), a
+// [B, H, T, D] view of it, and a contiguous [B, H, T, D]. Rows past T, and
+// columns at or past D where a box is wider than the head, land as zeros.
+// The rows of a box are 2*C bytes, so the tile is swizzled at that width:
+// 128 bytes at C = 64, 64 bytes at C = 32, which is also the swizzle mode
+// of the wgmma descriptors that read it. The maps are encoded by
+// cuTensorMapEncodeTiled of libcuda, looked up at run time through the CUDA
+// runtime, so the library does not link libcuda. A row-major [rows, cols] matrix is read
 // through a two-dimensional map (encode_2d), in boxes of up to 128 bytes of
 // a row, swizzled at the box's row width; rows past the last land as zeros.
 //
-// wgmma operands (PTX ISA, "Shared Memory Matrix Layout"): a tile of rows of
-// 2*D bytes as TMA lands it is
+// wgmma operands (PTX ISA, "Shared Memory Matrix Layout"): a box of rows of
+// 2*C bytes as TMA lands it is
 //  - K-major when the contraction runs along D (S = Q K^T: B = K):
-//    8-row groups 8 * 2*D bytes apart (SBO); a 16-wide step of K moves the
-//    start address by 32 bytes;
+//    8-row groups 8 * 2*C bytes apart (SBO); a 16-wide step of K moves the
+//    start address by 32 bytes, and past a box's C columns to the next box;
 //  - MN-major when the contraction runs along the rows (dV = P^T dO: B =
-//    dO, K = its rows, N = D): the 8-row groups of K are again 8 * 2*D
-//    bytes apart; a 16-row step of K moves the start by 16 * 2*D bytes. N
-//    = D fits one swizzle width, so the stride between N blocks is never
-//    used; both offsets get the 8-row group stride.
+//    dO, K = its rows, N = D): the 8-row groups of K are again 8 * 2*C
+//    bytes apart; a 16-row step of K moves the start by 16 * 2*C bytes.
+//    Where N fits one box the stride between N blocks is never used and
+//    both offsets get the 8-row group stride; where N spans two boxes of 64
+//    columns (D = 128) the box stride is the leading offset
+//    (desc_mnmajor_at).
 #pragma once
 
 #include <cuda.h>
@@ -70,20 +73,22 @@ static inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // Map of the bf16 [B, H, T, D] view at ptr with element strides (sb, sh, st)
-// (unit stride along D): dims (D, H, T, B), boxes of `rows` rows of one head,
-// swizzled at 2*D bytes. Returns 0 or a cudaError_t.
+// (unit stride along D): dims (D, H, T, B), boxes of `rows` rows of one head
+// and `cols` columns (32 or 64; a box may reach past D, whose columns land
+// as zeros, never as the next head's), swizzled at 2*cols bytes. Returns 0
+// or a cudaError_t.
 static inline int encode_bhtd(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
-                              long long sb, long long sh, long long st, int rows) {
+                              long long sb, long long sh, long long st, int rows, int cols) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)(sh * 2), (cuuint64_t)(st * 2),
                                  (cuuint64_t)(sb * 2)};
-  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle sw =
-      D * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                   : (D * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
+      cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : (cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
   if (sw == CU_TENSOR_MAP_SWIZZLE_NONE) return (int)cudaErrorInvalidValue;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
@@ -418,7 +423,8 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers (as above), B
-// K-major.
+// K-major (TB 0) or MN-major (TB 1).
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db, int accumulate) {
   asm volatile(
@@ -428,10 +434,10 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : IBK_F8(0), IBK_F8(8), IBK_F8(16), IBK_F8(24), IBK_F8(32), IBK_F8(40), IBK_F8(48),
         IBK_F8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the layout of an
@@ -743,15 +749,32 @@ __device__ __forceinline__ void wgmma_s8_rs(int (&d)[N / 2], const uint32_t (&a)
 
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], A from registers, B MN-major, N in
-// {64, 32} (the products that accumulate over rows: dV, dK, dQ).
+// {128, 64, 32} (the products that accumulate over rows: O, dV, dK, dQ; at
+// N = 128 B spans two 128-byte column boxes, whose stride is the
+// descriptor's leading offset: desc_mnmajor_at).
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  static_assert(N == 64 || N == 32, "wgmma N");
-  if constexpr (N == 64)
+  static_assert(N == 128 || N == 64 || N == 32, "wgmma N");
+  if constexpr (N == 128)
+    wgmma_rs_n128<1>(d, a, db, accumulate);
+  else if constexpr (N == 64)
     wgmma_rs_n64(d, a, db, accumulate);
   else
     wgmma_rs_n32(d, a, db, accumulate);
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B from shared memory, both
+// K-major, N in {128, 64} (the score products S = Q K^T and their kin over
+// a key or query tile of N rows).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_k(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  static_assert(N == 128 || N == 64, "wgmma N");
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, da, db, accumulate);
+  else
+    wgmma_ss_n64(d, da, db, accumulate);
 }
 
 // The A fragments of a wgmma_rs product from a [64 x 16 KS] accumulator of

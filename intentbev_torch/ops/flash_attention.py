@@ -9,19 +9,27 @@ pair into 128 lanes (``intentbev/ops/flash_packed.py:778``), as ViT-Ti's 3
 heads of 64 do not. The rounding points are the JAX wrapper's: q is scaled
 in its own dtype by the scale rounded to that dtype, and q's gradient is the
 kernel's dq rounded to q's dtype, then multiplied by that scale in q's dtype
-(the autodiff of the scaling). At head dim 64 the scale 1/8 is exact; at 32
-the bf16 scale is 0.1767578125, not 32**-0.5.
+(the autodiff of the scaling). The scale is that of the head dim D, never of
+the kernel instance that runs it. At head dims 16 and 64 the scales 1/4 and
+1/8 are exact; at 32 the bf16 scale is 0.1767578125, not 32**-0.5, and at
+48, 96 or 128 none is exact either.
 
 Keys at or past ``seq_len`` are masked, so callers pad nothing (the JAX
 wrapper pads T to its 512-row block; padded query rows add nothing to any
 gradient). The kernels take bf16 CUDA views with unit stride along D and
 batch, head and row strides that are multiples of 8, q, k and v sharing
 theirs; so the packed qkv projection output passes as strided views with no
-transposes (the JAX fallback transposes, which changes no value). Head dims
-:data:`HEAD_DIMS` are built; any other raises on CUDA. CPU tensors take the
-plain versions. :func:`flash_attention` is the differentiable public entry
-over [B, H, T, D]; :func:`flash_attention_qkv` the one over the model's qkv
-projection output.
+transposes (the JAX fallback transposes, which changes no value). CPU
+tensors take the plain versions. :func:`flash_attention` is the
+differentiable public entry over [B, H, T, D]; :func:`flash_attention_qkv`
+the one over the model's qkv projection output.
+
+Head dims: the kernels are instantiated for the widths :data:`HEAD_DIMS` (32,
+64, 128) and take any head dim D from 8 to 128 in steps of 8 on the smallest
+instance at least D (:func:`instance`): TMA reads the columns from D to the
+instance's width as zeros, and the epilogues write only the first D. A head
+dim off a multiple of 8 (a packed head row of 2*D bytes, which TMA cannot
+stride) or above 128 raises on CUDA, as does every other refused shape.
 """
 
 from __future__ import annotations
@@ -32,8 +40,20 @@ import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
 
-HEAD_DIMS = (32, 64)  # head dims the kernels are instantiated for
+HEAD_DIMS = (32, 64, 128)  # the kernels' instance widths (csrc/flash_packed.cu Inst)
+HEAD_DIM_STEP, HEAD_DIM_MAX = 8, 128  # the head dims they take: 8, 16, ..., 128
 BOX_ROWS = 64  # rows of one TMA box of the flash kernels
+BOX_COLS_MAX = 64  # columns of the widest box (128-byte rows, the widest swizzle)
+
+
+def instance(d: int) -> int:
+    """The kernel instance that runs head dim ``d``: the smallest of
+    :data:`HEAD_DIMS` at least ``d``. Raises ValueError for a head dim the
+    kernels do not take (under 8, above 128, or off a multiple of 8)."""
+    if d % HEAD_DIM_STEP or not HEAD_DIM_STEP <= d <= HEAD_DIM_MAX:
+        raise ValueError(f"head dim {d} has no flash kernel instance: the kernels take "
+                         f"{HEAD_DIM_STEP} to {HEAD_DIM_MAX} in steps of {HEAD_DIM_STEP}")
+    return next(w for w in HEAD_DIMS if w >= d)
 
 
 def _scale(d: int, dtype: torch.dtype) -> torch.Tensor:
@@ -110,7 +130,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, seq_len: int | None = None):
 class TmaGeometry(NamedTuple):
     """A TMA tensor map over a [B, H, T, D] view, innermost dimension first:
     ``dims`` (D, H, T, B), ``strides`` the byte strides of H, T and B,
-    ``box`` (D, 1, BOX_ROWS, 1) and ``swizzle`` the bytes of a box row."""
+    ``box`` (C, 1, BOX_ROWS, 1) with C the instance's columns (its width, or
+    64 at 128, read as two boxes side by side) and ``swizzle`` the bytes of
+    a box row."""
 
     dims: tuple[int, int, int, int]
     strides: tuple[int, int, int]
@@ -123,10 +145,11 @@ def tma_geometry(x: torch.Tensor, name: str = "x") -> TmaGeometry:
     view ``x`` (``launch_fwd`` and ``launch_bwd`` in ``csrc/flash_packed.cu``
     encode the same from the element strides they are given): four
     dimensions (d, head, row, batch) with byte strides from the view's
-    strides, boxes of
-    :data:`BOX_ROWS` rows of one head, swizzled at the box row's bytes (128
-    at D = 64, 64 at D = 32). Raises ValueError on a view TMA cannot take: a
-    head dim without a swizzle of its row width, a stride along D other
+    strides, the true head dim innermost, boxes of :data:`BOX_ROWS` rows of
+    one head and the columns of D's :func:`instance` (32 up to D = 32, 64 up
+    to 64, two boxes of 64 up to 128; columns at or past D land as zeros),
+    swizzled at the box row's bytes (64 or 128). Raises ValueError on a view
+    TMA cannot take: a head dim without an instance, a stride along D other
     than 1, or a base address or stride that is not a multiple of 16 bytes.
     Pure arithmetic on the view's shape, strides and address: any device."""
     # messages are formatted only on failure: every flash call runs this
@@ -134,9 +157,10 @@ def tma_geometry(x: torch.Tensor, name: str = "x") -> TmaGeometry:
         raise ValueError(f"tma_geometry: {name} must be [B, H, T, D], got {tuple(x.shape)}")
     b, h, t, d = x.shape
     size = x.element_size()
-    if d * size not in (64, 128):
-        raise ValueError(f"tma_geometry: {name} rows of {d * size} bytes have no swizzle "
-                         "mode (64 or 128)")
+    try:
+        cols = min(instance(d), BOX_COLS_MAX)
+    except ValueError as e:
+        raise ValueError(f"tma_geometry: {name} {e}") from None
     if x.stride(3) != 1:
         raise ValueError(f"tma_geometry: {name} stride along D is {x.stride(3)}, not 1")
     sb, sh, st, _ = x.stride()
@@ -144,7 +168,7 @@ def tma_geometry(x: torch.Tensor, name: str = "x") -> TmaGeometry:
     if x.data_ptr() % 16 or strides[0] % 16 or strides[1] % 16 or strides[2] % 16:
         raise ValueError(f"tma_geometry: {name} base address {x.data_ptr():#x} or byte "
                          f"strides {strides} not a multiple of 16")
-    return TmaGeometry((d, h, t, b), strides, (d, 1, BOX_ROWS, 1), d * size)
+    return TmaGeometry((d, h, t, b), strides, (cols, 1, BOX_ROWS, 1), cols * size)
 
 
 def _check_view(name, x, shape, device):
@@ -160,8 +184,10 @@ def _check_view(name, x, shape, device):
 def _check_inputs(q, k, v, seq_len):
     require(q.dim() == 4, f"flash_attention: want [B, H, T, D], got {tuple(q.shape)}")
     b, h, t, d = q.shape
-    require(d in HEAD_DIMS, f"flash_attention kernels are built for head dims {HEAD_DIMS}, "
-            f"got {d}")
+    try:
+        instance(d)
+    except ValueError as e:
+        raise ValueError(f"flash_attention: {e}") from None
     seq_len = t if seq_len is None else int(seq_len)
     require(0 < seq_len <= t, f"flash_attention: seq_len {seq_len} outside (0, {t}]")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -172,8 +198,8 @@ def _check_inputs(q, k, v, seq_len):
 
 
 def flash_attention_fwd(q, k, v, seq_len: int | None = None, out=None):
-    """Forward kernel over bf16 CUDA [B, H, T, D] views (D in
-    :data:`HEAD_DIMS`; q, k, v sharing strides). ``out``: a [B, H, T, D]
+    """Forward kernel over bf16 CUDA [B, H, T, D] views (D from 8 to 128 in
+    steps of 8, :func:`instance`; q, k, v sharing strides). ``out``: a [B, H, T, D]
     bf16 view to write o into (any strides the kernel takes), or None for a
     new contiguous one. Returns ``(o, lse f32 [B, H, T])``. CPU tensors take
     :func:`flash_attention_fwd_plain`."""

@@ -10,10 +10,13 @@ is the differentiable entry over the qkv output. :func:`reference_attention`
 is the dense attention the JAX model runs where ``use_flash_attention`` is
 off, in plain PyTorch.
 
-The packed kernels are built for head dims :data:`HEAD_DIMS` (32 and 64);
-any other head dim whose heads pair raises on CUDA. As in JAX, q is scaled
-in its own dtype by 1/sqrt(D) rounded to that dtype, and the epilogues of dq
-(and of dk, where the scale comes last) multiply by the f32 scale.
+The packed kernels take the head dims whose heads pair into 128 lanes (8,
+16, 32, 64 and 128) on the instances :data:`.flash_attention.HEAD_DIMS`
+(32, 64, 128; head dims 8 and 16 on the 32 instance, their columns past D
+read as zeros; see :mod:`.flash_attention`); any other head dim raises on
+CUDA. As in JAX, q is scaled in its own dtype by 1/sqrt(D) rounded to that
+dtype, and the epilogues of dq (and of dk, where the scale comes last)
+multiply by the f32 scale.
 
 The backward takes JAX's three forms (``_bwd``, ``:649-660``), chosen by
 explicit arguments where JAX reads ``INTENTBEV_BWD_FUSED`` and
@@ -52,8 +55,8 @@ import warnings
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .flash_attention import (HEAD_DIMS, flash_attention_packed_layout, flash_attention_qkv,
-                              heads_view, tma_geometry)
+from .flash_attention import (flash_attention_packed_layout, flash_attention_qkv, heads_view,
+                              instance, tma_geometry)
 
 LANE_BLOCK = 128  # the JAX packed kernels' lane block
 # JAX pads T to a multiple of its forward and backward row blocks
@@ -210,9 +213,11 @@ def _check_qkv(name, q, k, v, num_heads, seq_len):
     dh = dm // num_heads
     seq_len = t if seq_len is None else int(seq_len)
     require(0 < seq_len <= t, f"{name}: seq_len {seq_len} outside (0, {t}]")
-    require(dh * num_heads == dm and dh in HEAD_DIMS,
-            f"{name}: the packed kernels are built for head dims {HEAD_DIMS}, got head dim "
-            f"{dm / num_heads:g} ({dm} over {num_heads} heads)")
+    require(dh * num_heads == dm, f"{name}: {dm} columns do not split into {num_heads} heads")
+    try:
+        instance(dh)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e} ({dm} over {num_heads} heads)") from None
     for x_name, x in (("q", q), ("k", k), ("v", v)):
         require(x.is_cuda and x.device == q.device and x.dtype == torch.bfloat16
                 and tuple(x.shape) == (b, t, dm),
@@ -229,7 +234,7 @@ def flash_attention_packed(q, k, v, num_heads: int, seq_len: int | None = None,
                            kv_chunk: int = 0, unsafe_softmax: bool = False,
                            padded_len: int | None = None):
     """softmax(q k^T / sqrt(D) + key mask) v per head over [B, T, H*D] bf16
-    CUDA tensors (D in :data:`HEAD_DIMS`), in the softmax form
+    CUDA tensors (D from 8 to 128 in steps of 8), in the softmax form
     :func:`fwd_form` picks for ``padded_len`` rows (default T; counted
     apart: :data:`FWD_COUNTERS`); returns ``(o, lse)``. The chunked form
     takes a ``kv_chunk`` that is a multiple of :data:`KEY_TILE`. Heads that

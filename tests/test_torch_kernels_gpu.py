@@ -33,7 +33,13 @@ three backward forms (fused, split, chunked: row 11) run at 6 heads of 64
 and at 12 heads of 32, with the packed forward at head dim 32; the Hopper
 backward kernels (TMA rings, wgmma) also on ragged tiles and a 128-key
 block wholly past seq_len, twice each (the same bits), and refuse a view
-TMA cannot take. The Hopper forward runs JAX's three softmax forms (the
+TMA cannot take. Every head dim from 8 to 128 in steps of 8 runs in the
+BHTD family and every one that pairs (8, 16, 32, 64, 128) in the packed
+one (the instances 32, 64, 128), with the controls of a box read past the
+head dim and of the instance's scale, and the BHTD entries over every other
+head write into NaN-filled packed buffers whose skipped heads must stay
+NaN; head dims off a multiple of 8 or above 128 raise. The Hopper forward
+runs JAX's three softmax forms (the
 monolithic safe, the fixed max and the chunked safe) on the same shapes,
 each against its plain version in that form and, as a control, another
 form's: the relative L2 and the share of o's elements that differ. The library
@@ -434,7 +440,7 @@ def test_cuda_tensors_never_take_the_plain_version(dev):
         layernorm(x, torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
     with pytest.raises(ValueError):  # f32 input
         layernorm(x.float(), torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
-    q = torch.randn(1, 3, 64, 48, device="cuda", dtype=torch.bfloat16)  # head dim 48
+    q = torch.randn(1, 3, 64, 44, device="cuda", dtype=torch.bfloat16)  # head dim 44
     with pytest.raises(ValueError):
         flash_attention_fwd(q, q, q)
 
@@ -1100,16 +1106,6 @@ def test_flash_bwd_forms_head_dim_64(dev, b, t, seq_len, chunk):
         assert all(torch.equal(a, f) for a, f in zip(got, fused)), form
 
 
-def test_packed_head_dim_128_raises(dev):
-    """Heads of 128 pair into 128 lanes, but the packed kernels are built for
-    head dims 32 and 64: the entries raise, naming the head dim."""
-    x = _randn((1, 64, 256), 1.0, 0)
-    with pytest.raises(ValueError, match="head dim 128"):
-        flash_attention_packed(x, x, x, 2)
-    with pytest.raises(ValueError, match="head dim 128"):
-        flash_attention_packed_bwd(x, x, x, x, torch.zeros(1, 2, 64, device="cuda"), x, 2)
-
-
 # The Hopper backward (TMA tile rings, wgmma): every form at both head dims
 # on shapes that leave ragged 64- and 128-row tiles, one where a whole
 # 128-key block lies past seq_len (T=400, seq_len 250), and the main path's.
@@ -1246,6 +1242,144 @@ def test_flash_fwd_chunk_off_the_key_tile_raises(dev):
     x = _randn((1, 300, D), 1.0, 0)
     with pytest.raises(ValueError, match="kv_chunk 192"):
         flash_attention_packed(x, x, x, 6, None, 192)
+
+
+# Head dims 8 to 128 in steps of 8 (csrc/flash_packed.cu runs each on the
+# instance 32, 64 or 128 at least as wide: TMA reads the columns past D as
+# zeros, the epilogues write the first D). Limits those of the head dims 32
+# and 64 above; the controls show that the checks see the two faults a wider
+# instance invites: a box that reads the next head's columns past D, and
+# the instance's scale in place of D's. The BHTD entries run over every
+# other head of packed q | k | v columns (head stride 2D) and write into
+# packed buffers filled with NaN: the heads they skip must stay NaN, the
+# ones they run must hold no NaN (nothing written past D, nothing left out).
+HEAD_DIMS_ALL = list(range(8, 129, 8))
+PACKED_HEAD_DIMS = [8, 16, 32, 64, 128]  # those whose heads pair into 128 lanes
+tfa = importlib.import_module("intentbev_torch.ops.flash_attention")
+
+
+def _instance_scale(monkeypatch, d):
+    """The plain versions' scale fixed at 1/sqrt(d) (rounded to the dtype),
+    whatever width their inputs have."""
+    monkeypatch.setattr(tfa, "_scale", lambda _d, dtype: torch.tensor(d ** -0.5, dtype=dtype))
+
+
+def _alternate_heads(x, d, heads):
+    """Heads 0, 2, ... of the packed [B, T, heads*d] x as a [B, heads/2, T, d] view."""
+    return heads_view(x, heads)[:, ::2]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS_ALL)
+def test_flash_attention_every_head_dim(dev, d, monkeypatch):
+    b, t, seq_len, heads = 1, 300, 250, 4
+    inst = tfa.instance(d)
+    width = heads * d + 128  # room for the columns past the last head's D
+    src = [_randn((b, t, width), 1.0, s) for s in range(4)]
+    q, k, v, do = (_alternate_heads(x[..., :heads * d], d, heads) for x in src)
+    o_buf = torch.full((b, t, heads * d), float("nan"), device="cuda", dtype=torch.bfloat16)
+    reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, seq_len, out=_alternate_heads(o_buf, d, heads))
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, seq_len)
+    assert _rel(o, o_p) < FLASH_LIMIT and _share(o, o_p) < FWD_SHARE_LIMIT, (
+        d, _rel(o, o_p), _share(o, o_p))
+    assert float((lse - lse_p).abs().max()) < LSE_LIMIT
+    skipped = heads_view(o_buf, heads)[:, 1::2]
+    assert torch.isnan(skipped).all() and not torch.isnan(o).any()
+    g_buf = torch.full((b, t, 3 * heads * d), float("nan"), device="cuda", dtype=torch.bfloat16)
+    outs = tuple(_alternate_heads(g_buf[..., j * heads * d:(j + 1) * heads * d], d, heads)
+                 for j in range(3))
+    got = flash_attention_bwd(q, k, v, o, lse, do, seq_len, out=outs)
+    again = flash_attention_bwd(q, k, v, o, lse, do, seq_len)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, seq_len)
+    assert max(_rels(got, want)) < FLASH_BWD_LIMIT, _rels(got, want)
+    assert not got[1][:, :, seq_len:].any() and not got[2][:, :, seq_len:].any()
+    for j in range(3):
+        part = heads_view(g_buf[..., j * heads * d:(j + 1) * heads * d], heads)
+        assert torch.isnan(part[:, 1::2]).all() and not torch.isnan(part[:, ::2]).any()
+    assert launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 2
+    # controls: where the instance is wider, the next head's columns read
+    # past D (the scale still D's), and the instance's scale in place of D's
+    if inst > d:
+        _instance_scale(monkeypatch, d)
+        wide = [torch.as_strided(x, (b, heads // 2, t, inst),
+                                 (x.stride(0), 2 * d, x.stride(1), 1)) for x in src]
+        o_c = flash_attention_fwd_plain(*wide[:3], seq_len)[0][..., :d]
+        assert _rel(o, o_c) >= FLASH_LIMIT or _share(o, o_c) >= FWD_SHARE_LIMIT
+        _instance_scale(monkeypatch, inst)
+        o_c, lse_c = flash_attention_fwd_plain(q, k, v, seq_len)
+        assert _share(o, o_c) >= FWD_SHARE_LIMIT or float((lse - lse_c).abs().max()) >= LSE_LIMIT
+
+
+@pytest.mark.parametrize("d", PACKED_HEAD_DIMS)
+def test_flash_packed_every_head_dim(dev, d, monkeypatch):
+    """The packed kernels over [1, 300, 384] q | k | v slices (keys past 250
+    masked) at every head dim that pairs: each softmax form (control:
+    another form's plain version) and each backward form (controls: delta
+    left out, and where D's bf16 scale is not a power of two another form's
+    rounding), dk = dv = 0 past seq_len, no NaN, two calls the same bits; the
+    instance's scale in place of D's is caught by lse where they differ."""
+    b, t, seq_len, heads = 1, 300, 250, D // d
+    qkv = _randn((b, t, 3 * D), 1.0, 0)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    do = _randn((b, t, D), 1.0, 1)
+    plain = {form: flash_attention_packed_plain(q, k, v, heads, seq_len, *args)
+             for form, args in FWD_FORMS.items()}
+    for form, args in FWD_FORMS.items():
+        reset_launch_counts()
+        o, lse = flash_attention_packed(q, k, v, heads, seq_len, *args)
+        again = flash_attention_packed(q, k, v, heads, seq_len, *args)
+        assert launches[tfp.FWD_COUNTERS[form]] == 2 and sum(launches.values()) == 2
+        assert torch.equal(o, again[0]) and not torch.isnan(o).any(), form
+        o_p, lse_p = plain[form]
+        assert _rel(o, o_p) < FLASH_LIMIT and _share(o, o_p) < FWD_SHARE_LIMIT, (
+            d, form, _rel(o, o_p), _share(o, o_p))
+        assert float((lse - lse_p).abs().max()) < LSE_LIMIT, form
+        other = "fixed" if form != "fixed" else "safe"
+        assert _share(o, plain[other][0]) >= FWD_SHARE_LIMIT, (d, form, other)
+    o, lse = flash_attention_packed(q, k, v, heads, seq_len)
+    exact = d in (16, 64)  # the bf16 scale is a power of two
+    for form in MODES_OF_FORM:
+        args = (q, k, v, o, lse, do, heads, seq_len, form, 256)
+        reset_launch_counts()
+        got = _packed_bwd_parts(flash_attention_packed_bwd, *args)
+        again = _packed_bwd_parts(flash_attention_packed_bwd, *args)
+        assert launches[tfp.BWD_COUNTERS[form]] == 2 and sum(launches.values()) == 2
+        assert all(torch.equal(a, c) for a, c in zip(got, again)), form
+        assert not got[1][:, seq_len:].any() and not got[2][:, seq_len:].any()
+        want = _packed_bwd_parts(flash_attention_packed_bwd_plain, *args)
+        assert max(_rels(got, want)) < ROW11_LIMIT, (d, form, _rels(got, want))
+        ctrl = _packed_bwd_parts(flash_attention_packed_bwd_plain, q, k, v,
+                                 torch.zeros_like(o), *args[4:])
+        assert max(_rels(got, ctrl)) >= ROW11_LIMIT, (d, form)
+        if not exact:
+            ctrl = _packed_bwd_parts(flash_attention_packed_bwd_plain, *args[:8],
+                                     OTHER_FORM[form], 256)
+            assert max(_rels(got, ctrl)) >= ROW11_LIMIT, (d, form, _rels(got, ctrl))
+    inst = tfa.instance(d)
+    if inst != d:
+        monkeypatch.setattr(tfp, "scales", lambda dh, dtype: (
+            float(torch.tensor(inst ** -0.5, dtype=dtype)), inst ** -0.5))
+        lse_c = flash_attention_packed_plain(q, k, v, heads, seq_len)[1]
+        assert float((lse - lse_c).abs().max()) >= LSE_LIMIT
+
+
+def test_flash_head_dims_without_an_instance_raise(dev):
+    """Head dims off a multiple of 8 or above 128 raise on CUDA in both
+    families, naming the head dim, and launch nothing."""
+    reset_launch_counts()
+    for d in (12, 136, 256):
+        x = _randn((1, 3, 64, d), 1.0, 0)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            flash_attention_fwd(x, x, x)
+        with pytest.raises(ValueError, match=f"head dim {d}"):
+            flash_attention_bwd(x, x, x, x, torch.zeros(1, 3, 64, device="cuda"), x)
+    x = _randn((1, 64, 512), 1.0, 0)  # 2 heads of 256: forward by the BHTD route
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash_attention_packed(x, x, x, 2)
+    with pytest.raises(ValueError, match="head dim 256"):
+        flash_attention_packed_bwd(x, x, x, x, torch.zeros(1, 2, 64, device="cuda"), x, 2)
+    assert sum(launches.values()) == 0
 
 
 # Rows 18 and 19 (limits those of chip_smoke.py phase 13). The int8 kernel
