@@ -371,7 +371,8 @@ CONFIG_LIMITS = {**{name: (2.3e-2,) * 3 for name in ("A serving_int8", "Ti A ser
     "B fuse_ln_dense", "C use_fused_layernorm=False", "D fuse_patch_embed",
     "E fwd_kv_chunk=1152", "Ti B fuse_ln_dense", "Ti C use_fused_layernorm=False",
     "Ti D fuse_patch_embed", "ViT-B 8x96", "ViT-S 3x128", "ViT-S 3x128 fixed",
-    "ViT-S 3x128 chunked")},
+    "ViT-S 3x128 chunked", "ViT-B 3x256", "ViT-B 1x768", "ViT-S 32x12", "ViT-S 96x4",
+    "ViT-S 96x4 fixed")},
                  # ViT-B under the serving variants (phase 18): phase 8's limits
                  **{f"ViT-B {name}": lim for name, lim in (
                      ("A serving_int8", (2.3e-2,) * 3), ("B fuse_ln_dense", (1.3e-2,) * 3),
@@ -2162,7 +2163,8 @@ def main() -> None:
                                   else flash_parts)
                 print(f"kernel {name} by kernel (profiler trace, per call): "
                       + ", ".join(f"{k_} {t:.3f} ms" for k_, t in parts.items())
-                      + f"; {flops / ms / 1e9:.1f} TFLOP/s of the bound's work "
+                      + f"; {(flops[0][0] if isinstance(flops, list) else flops) / ms / 1e9:.1f}"
+                      " TFLOP/s of the bound's products "
                       f"(bound {bound_ms:.4f} ms)  [{card}]", flush=True)
 
     def same_bits(cases_, names):
@@ -2399,7 +2401,26 @@ def main() -> None:
 
     # the backwards' readings and limits: those of the 12x64 cases above
     forms_hd = {"fused": (True, 0), "split": (False, 0), "chunked": (False, FWD_CHUNK)}
-    hd_cases, hd_nan = {}, {}
+    hd_cases, hd_nan, sdpa_backends = {}, {}, {}
+    # the exponentials' rate: 16 a clock per SM at the card's top SM clock
+    ex2_rate = 16 * torch.cuda.get_device_properties(0).multi_processor_count * float(
+        subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    ) * 1e6
+
+    def sdpa_backend(fn):
+        """The backend SDPA picked for fn(), by the names of its kernels in a
+        profiler trace."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = " ".join(ev.key for ev in prof.key_averages()).lower()
+        for key, backend in (("flash", "flash"), ("cudnn", "cudnn"), ("fmha", "efficient"),
+                             ("efficient", "efficient"), ("cutlass", "efficient")):
+            if key in names:
+                return backend
+        return "math" if names else "not measured (empty trace)"
 
     def neighbour_columns(label, buf_, dm_, h_, o_all, lse_all, do_all, g_all):
         """The BHTD entries over every other head into NaN-filled packed
@@ -2430,7 +2451,7 @@ def main() -> None:
 
     for d_h in (16, 48, 72, 80, 96, 104, 128):
         h_h = 768 // d_h if 768 % d_h == 0 else 16
-        dm_h, inst_h, tag = h_h * d_h, fa_mod.instance(d_h), f"{h_h}x{d_h}"
+        dm_h, inst_h, tag = h_h * d_h, fa_mod.instance(d_h).inst, f"{h_h}x{d_h}"
         buf_h = randn((batch, tokens, 3 * dm_h + 128), 1.0)
         qkv_hv = [heads_view(buf_h[..., i * dm_h:(i + 1) * dm_h], h_h) for i in range(3)]
         o_hp = torch.empty(batch, tokens, dm_h, device=dev, dtype=torch.bfloat16)
@@ -2474,20 +2495,26 @@ def main() -> None:
         neighbour_columns(f"flash_attention[{tag}]", buf_h, dm_h, h_h, o_hp, lse_hv, do_hp,
                           flash_attention_bwd(*qkv_hv, o_hv, lse_hv, do_hv))
 
-    # the packed layouts: 24 heads of 16 (the 32 instance) and 3 of 128
-    for h_h in (24, 3):
+    # the packed layouts: 24 heads of 16 (the 32 instance), 3 of 128 and 96
+    # of 4 (rows padded to 8 columns; SDPA on the padded rows at the head
+    # dim's scale, the same function)
+    for h_h in (24, 3, 96):
         d_h = d // h_h
-        inst_h, tag = fa_mod.instance(d_h), f"{h_h}x{d_h}"
-        exact_h = d_h in (16, 64)  # the bf16 scale is a power of two: the forms agree
+        (inst_h, _, dp_h), tag = fa_mod.instance(d_h), f"{h_h}x{d_h}"
+        exact_h = d_h in (4, 16, 64)  # the bf16 scale is a power of two: the forms agree
         buf_h = randn((batch, tokens, 3 * d + 128), 1.0)
         q_h, k_h, v_h = (buf_h[..., i * d:(i + 1) * d] for i in range(3))
         o_h, lse_h = flash_attention_packed(q_h, k_h, v_h, h_h)
         do_hp = randn((batch, tokens, d), 1.0)
-        sdpa_in = [heads_view(t_, h_h).contiguous().requires_grad_(True) for t_ in (q_h, k_h, v_h)]
-        sdpa_out = F.scaled_dot_product_attention(*sdpa_in)
-        lib_f = torch.no_grad()(lambda s_=sdpa_in: F.scaled_dot_product_attention(*s_))
+        sdpa_in = [F.pad(heads_view(t_, h_h), (0, dp_h - d_h)).contiguous().requires_grad_(True)
+                   for t_ in (q_h, k_h, v_h)]
+        sdpa_out = F.scaled_dot_product_attention(*sdpa_in, scale=d_h ** -0.5)
+        lib_f = torch.no_grad()(
+            lambda s_=sdpa_in, c_=d_h ** -0.5: F.scaled_dot_product_attention(*s_, scale=c_))
+        sdpa_backends[tag] = sdpa_backend(lib_f)
 
-        def lib_b(s_=sdpa_in, o_=sdpa_out, do_=heads_view(do_hp, h_h)):
+        def lib_b(s_=sdpa_in, o_=sdpa_out,
+                  do_=F.pad(heads_view(do_hp, h_h), (0, dp_h - d_h)).contiguous()):
             return torch.autograd.grad(o_, s_, do_, retain_graph=True)
 
         def pk_fwd(fn, form, q_=q_h, k_=k_h, v_=v_h, h_=h_h):
@@ -2513,10 +2540,19 @@ def main() -> None:
                     instance_scale(c_, i_, packed=True)]
                 faults += [f"the next head's columns past {d_h} read",
                            f"the scale of the {inst_h} instance"]
+            if dp_h > d_h:  # rows padded: the pad holding the next head's columns, Dp's scale
+                controls += [
+                    lambda b_=buf_h, h_=h_h, d_=d_h, p_=dp_h: bhtd_packed_o(
+                        past_d(b_, d, h_, d_, p_)),
+                    lambda c_=pk_fwd(flash_attention_packed_plain, form), p_=dp_h:
+                    instance_scale(c_, p_, packed=True)]
+                faults += [f"the pad to {dp_h} columns holding the next head's",
+                           f"the scale of the padded row {dp_h}"]
             hd_cases[name] = (pk_fwd(flash_attention_packed, form),
                               pk_fwd(flash_attention_packed_plain, form), controls, faults,
                               FWD_METRICS, FWD_LIMITS, 10, 3, fwd_bytes,
-                              4 * batch * tokens * tokens * d, lib_f)
+                              [(4 * batch * tokens * tokens * d, BF16_FLOPS_PER_S),
+                               (batch * h_h * tokens * tokens, ex2_rate)], lib_f)
         for form in ("fused", "split", "chunked"):
             name = f"{fpk.BWD_COUNTERS[form]}[{tag}]"
             controls = [pk_bwd(flash_attention_packed_bwd_plain, form, torch.zeros_like(o_h))]
@@ -2529,16 +2565,113 @@ def main() -> None:
                 controls.append(lambda c_=pk_bwd(flash_attention_packed_bwd_plain, form),
                                 i_=inst_h: instance_scale(c_, i_, packed=True))
                 faults.append(f"the scale of the {inst_h} instance")
+            if dp_h > d_h:
+                controls.append(lambda c_=pk_bwd(flash_attention_packed_bwd_plain, form),
+                                p_=dp_h: instance_scale(c_, p_, packed=True))
+                faults.append(f"the scale of the padded row {dp_h}")
             hd_cases[name] = (pk_bwd(flash_attention_packed_bwd, form),
                               pk_bwd(flash_attention_packed_bwd_plain, form), controls, faults,
                               FLASH_BWD_METRICS_B, FLASH_BWD_LIMITS_B[form], 5, 2,
                               nbytes(q_h, k_h, v_h, o_h, do_hp, lse_h) + 3 * nbytes(o_h),
-                              10 * batch * tokens * tokens * d, lib_b)
+                              [(10 * batch * tokens * tokens * d, BF16_FLOPS_PER_S),
+                               (batch * h_h * tokens * tokens, ex2_rate)], lib_b)
         qkv_pv = [heads_view(t_, h_h) for t_ in (q_h, k_h, v_h)]
         o_pv, lse_pv = flash_attention_fwd(*qkv_pv)
         neighbour_columns(f"flash_packed[{tag}] (its instance by the BHTD entries)", buf_h, d,
                           h_h, o_pv.transpose(1, 2).reshape(batch, tokens, d), lse_pv, do_hp,
                           flash_attention_bwd(*qkv_pv, o_pv, lse_pv, heads_view(do_hp, h_h)))
+    # Head dims above 128 and off a multiple of 8, the BHTD
+    # attention: at ViT-B's width in 4x192, 3x256, 2x384 and 1x768 (the
+    # chunked kernels: two to six blocks a head, each 128 output columns)
+    # and 64x12, at ViT-S's in 32x12, 64x6 and 128x3 (rows padded to 16 or
+    # 8 columns), on the views of a qkv projection output, forward and
+    # backward, the readings and limits of the cases above. Controls beside
+    # those of the 6x64 cases: above 128, the plain version with S reduced
+    # over one chunk of 128 columns (what a chunk that skipped the others'
+    # columns would give); off a multiple of 8, the plain version fed the
+    # next head's columns in the pad (what a copy that left them there
+    # would give to a map over the padded row) and the plain version at the
+    # padded row's scale. Each bound is the larger of the products (4 and 10
+    # B*H*T*T*d at 989 TFLOP/s) and the B*H*T*T exponentials (16 a clock per
+    # SM). SDPA is timed on the same inputs (off a multiple of 8 on the
+    # zero-padded rows at the head dim's scale: the same function), with the
+    # backend it picked. Then the neighbour-columns check at 64x12.
+    # The share of o's (and the gradients') elements that differ grows with
+    # the head dim: S sums d products in another order than cuBLAS's, and
+    # a bf16 P tips more often. At [8, H, 4501, d] on the H100 o's share
+    # read 1.07 % at 6x128, 1.36 % at 4x192, 2.14 % at 2x384 and 3.42 % at
+    # 1x768 (relative L2 2.7e-4 to 4.7e-4), dq's 0.9-2.0 %. Above 128 each
+    # share limit is therefore phase 3's times sqrt(d / 128) (4.9 % at 768);
+    # the controls read 30-100 %.
+    def one_chunk(fn, *a):
+        """fn with q and k cut to their first 128 columns (the control's fault)."""
+        cut = [torch.cat([x_[..., :128], torch.zeros_like(x_[..., 128:])], -1) for x_ in a[:2]]
+        return fn(*cut, *a[2:])
+
+    for h_h, d_h in ((4, 192), (3, 256), (2, 384), (1, 768), (64, 12), (32, 12), (64, 6),
+                     (128, 3)):
+        (inst_h, chunks_h, dp_h), tag = fa_mod.instance(d_h), f"{h_h}x{d_h}"
+        dm_h = h_h * d_h
+        buf_h = randn((batch, tokens, 3 * dm_h + 128), 1.0)
+        qkv_hv = [heads_view(buf_h[..., i * dm_h:(i + 1) * dm_h], h_h) for i in range(3)]
+        o_hp = torch.empty(batch, tokens, dm_h, device=dev, dtype=torch.bfloat16)
+        o_hv, lse_hv = flash_attention_fwd(*qkv_hv, out=heads_view(o_hp, h_h))
+        do_hp = randn((batch, tokens, dm_h), 1.0)
+        do_hv = heads_view(do_hp, h_h)
+        sdpa_in = [F.pad(t_, (0, dp_h - d_h)).contiguous().requires_grad_(True) for t_ in qkv_hv]
+        sdpa_out = F.scaled_dot_product_attention(*sdpa_in, scale=d_h ** -0.5)
+        lib_f = torch.no_grad()(
+            lambda s_=sdpa_in, c_=d_h ** -0.5: F.scaled_dot_product_attention(*s_, scale=c_))
+        sdpa_backends[tag] = sdpa_backend(lib_f)
+        fwd_controls = [lambda q_=qkv_hv: o_twice(bhtd_plain_form(*q_))]
+        fwd_faults = ["P rounded against the fixed max"]
+        bwd_controls = [lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv:
+                        twice(bhtd_attn_plain_ctl(*q_, o_, l_, do_))]
+        bwd_faults = ["delta = rowsum(dO*O) left out"]
+        if chunks_h > 1:
+            fwd_controls.append(lambda q_=qkv_hv: o_twice(one_chunk(flash_attention_fwd_plain,
+                                                                    *q_)))
+            fwd_faults.append("S over one chunk of 128 columns")
+            bwd_controls.append(lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv: twice(
+                one_chunk(flash_attention_bwd_plain, *q_, o_, l_, do_)))
+            bwd_faults.append("S over one chunk of 128 columns")
+        if dp_h > d_h:
+            fwd_controls += [
+                lambda b_=buf_h, dm_=dm_h, h_=h_h, d_=d_h, p_=dp_h: past_d(b_, dm_, h_, d_, p_),
+                lambda q_=qkv_hv, p_=dp_h: instance_scale(
+                    lambda: o_twice(flash_attention_fwd_plain(*q_)), p_)]
+            fwd_faults += [f"the pad to {dp_h} columns holding the next head's",
+                           f"the scale of the padded row {dp_h}"]
+            bwd_controls.append(lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv, p_=dp_h:
+                                instance_scale(lambda: twice(
+                                    flash_attention_bwd_plain(*q_, o_, l_, do_)), p_))
+            bwd_faults.append(f"the scale of the padded row {dp_h}")
+        ops_h = 4 * batch * h_h * tokens * tokens * d_h
+        ex2_h = (batch * h_h * tokens * tokens, ex2_rate)
+        wide_h = max(1.0, (d_h / 128) ** 0.5)
+        fwd_lim = (FWD_LIMITS[0], FWD_LIMITS[1] * wide_h, FWD_LIMITS[2])
+        bwd_lim = tuple(lim * (wide_h if i >= 3 else 1.0)
+                        for i, lim in enumerate(FLASH_BWD_LIMITS_B["fused"]))
+        hd_cases[f"flash_attention[{tag}]"] = (
+            lambda q_=qkv_hv, o_=o_hv: o_twice(flash_attention_fwd(*q_, out=o_)),
+            lambda q_=qkv_hv: o_twice(flash_attention_fwd_plain(*q_)),
+            fwd_controls, fwd_faults, FWD_METRICS, fwd_lim, 5, 2,
+            nbytes(*qkv_hv, o_hv, lse_hv), [(ops_h, BF16_FLOPS_PER_S), ex2_h], lib_f)
+        hd_cases[f"flash_attention_bwd[{tag}]"] = (
+            lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv: twice(
+                flash_attention_bwd(*q_, o_, l_, do_)),
+            lambda q_=qkv_hv, o_=o_hv, l_=lse_hv, do_=do_hv: twice(
+                flash_attention_bwd_plain(*q_, o_, l_, do_)),
+            bwd_controls, bwd_faults, FLASH_BWD_METRICS_B, bwd_lim, 3, 1,
+            nbytes(*qkv_hv, o_hv, do_hv, lse_hv) + 3 * nbytes(o_hv),
+            [(5 * ops_h // 2, BF16_FLOPS_PER_S), ex2_h],
+            lambda s_=sdpa_in, o_=sdpa_out, do_=F.pad(do_hv, (0, dp_h - d_h)).contiguous():
+            torch.autograd.grad(o_, s_, do_, retain_graph=True))
+        if tag == "64x12":
+            neighbour_columns(f"flash_attention[{tag}]", buf_h, dm_h, h_h, o_hp, lse_hv, do_hp,
+                              flash_attention_bwd(*qkv_hv, o_hv, lse_hv, do_hv))
+    print("kernel head dims: SDPA's backends " + ", ".join(
+        f"{t_} {b_}" for t_, b_ in sdpa_backends.items()) + f"  [{card}]", flush=True)
     check_kernels(hd_cases)
     same_bits(hd_cases, [n_ for n_ in hd_cases if "_bwd" in n_])
     print(f"kernel head dims: {len(hd_cases)} cases; neighbour columns held for "
@@ -4890,11 +5023,101 @@ def main() -> None:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
         del net3, step3, metrics
         torch.cuda.empty_cache()
-    del kernel_steps, g_f3
+    del g_f3
+    kernel_steps.clear()
     tmp22.cleanup()
     print(f"head dims: ViT-B 8x96 imported, served and trained in {t22b:.1f} s; ViT-S 3x128 "
           f"served in three forms and trained under three in {time.perf_counter() - t22 - t22b:.1f}"
           f" s; phase 22 took {time.perf_counter() - t22:.1f} s", flush=True)
+
+    # 23. head dims above 128 and off a multiple of 8 on the model paths:
+    # ViT-B's widths in 3 heads of 256 (the chunked BHTD kernels, two
+    # chunks), a reference vit_base_patch8_224 checkpoint imported through
+    # the CLI with --num_heads 3, served over chunks (2 requests) and
+    # trained on phase 5's batch; in 1 head of 768 (six chunks; the same
+    # weights) one request and one checked step; ViT-S in 32 heads of 12
+    # (the BHTD kernels over rows padded to 16 columns) served and trained
+    # on phase 4's parameters; and in 96 heads of 4 (the packed kernels over
+    # rows padded to 8) one request in the safe and one in the fixed form.
+    # Phase 22's checks: launches exact, logits against the plain path
+    # under phase 8's limit, a kernel step against the plain step by phase
+    # 5's rule with its control, ms a batch and a step, peak memory.
+    t23 = time.perf_counter()
+    tmp23 = tempfile.TemporaryDirectory(prefix="smoke23_")
+    root23 = Path(tmp23.name)
+    failures23, wide_counts = [], {}
+    per_req_bhtd = {**{k_: n_ for k_, n_ in per_request.items() if k_ != "flash_packed"},
+                    "flash_attention": 2 * v.depth}
+
+    def serve_wide(cname, vcfg_, per_req_, net_params, reqs, control=None):
+        """serve_config and device_ms, with the serving path's peak memory."""
+        torch.cuda.reset_peak_memory_stats()
+        wide_counts[cname] = serve_config(cname, vcfg_, "chunks", per_req_, failures23,
+                                          net_params, reqs, control=control)
+        print(f"config {cname}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (serving, with the plain "
+              f"path's logits) [{card}]", flush=True)
+        device_ms(cname, vcfg_, net_params)
+
+    b3cfg = dataclasses.replace(cfg, vit=dataclasses.replace(v, embed_dim=768, num_heads=12))
+    ref_b3 = reference_state_dict(b3cfg, 230)
+    torch.save({"epoch": 3, "model_state_dict": ref_b3, "optimizer_state_dict": {},
+                "backbone_cfg": {"vit_model_name_lidar": "vit_base_patch8_224",
+                                 "img_size": list(b3cfg.vit.img_size)}}, root23 / "vit_base.pth")
+    imp = subprocess.run([sys.executable, "-m", "intentbev_torch.import_torch",
+                          str(root23 / "vit_base.pth"), str(root23 / "ViT-B-3"), "--model", "vit",
+                          "--num_heads", "3"], cwd=repo, capture_output=True, text=True,
+                         timeout=300)
+    check(imp.returncode == 0 and "imported -> " in imp.stdout,
+          f"ViT-B 3x256: the import CLI exited {imp.returncode}: {imp.stdout[-2000:]} "
+          f"{imp.stderr[-2000:]}")
+    state_b3, icfg_b3 = load_checkpoint(root23 / "ViT-B-3")
+    vb3 = icfg_b3.vit
+    check((vb3.embed_dim, vb3.num_heads, vb3.depth, int(vb3.embed_dim * vb3.mlp_ratio))
+          == (768, 3, v.depth, 3072), f"ViT-B 3x256: the imported config reads {vb3}")
+    ctrl_b3 = import_vit_state_dict(faulty_reference(ref_b3), fusion_layers=vb3.fusion_layers)
+    del ref_b3
+    per_req_b8 = {"voxel_embed": 1, "flash_attention": 2 * v.depth, "fused_ln_mlp": 2 * v.depth,
+                  "layernorm": 4}
+    serve_wide("ViT-B 3x256", icfg_b3, per_req_b8, state_b3["model"], requests[:2],
+               (ctrl_b3, "plain, the qkv rows imported k-first"))
+    del ctrl_b3
+    per_step_bhtd = {**{k_: n_ for k_, n_ in per_step.items() if "flash" not in k_},
+                     "flash_attention": 2 * v.depth, "flash_attention_bwd": 2 * v.depth}
+    wide_counts["ViT-B 3x256 train"] = train_config(
+        "ViT-B 3x256", dataclasses.replace(cfg, vit=dataclasses.replace(
+            v, embed_dim=768, num_heads=3)), state_b3["model"], per_step_bhtd, gate_fault,
+        "LN+MLP backward ignores the gate")
+    t23b = time.perf_counter() - t23
+    b1cfg = dataclasses.replace(icfg_b3, vit=dataclasses.replace(vb3, num_heads=1))
+    serve_wide("ViT-B 1x768", b1cfg, per_req_b8, state_b3["model"], requests[:1])
+    wide_counts["ViT-B 1x768 train"] = train_config(
+        "ViT-B 1x768", dataclasses.replace(cfg, vit=dataclasses.replace(
+            v, embed_dim=768, num_heads=1)), state_b3["model"], per_step_bhtd, gate_fault,
+        "LN+MLP backward ignores the gate", steps=1)
+    del state_b3
+    torch.cuda.empty_cache()
+    t23c = time.perf_counter() - t23 - t23b
+
+    s32 = dataclasses.replace(cfg, vit=dataclasses.replace(v, num_heads=32))
+    serve_wide("ViT-S 32x12", s32, per_req_bhtd, params, requests[:2])
+    wide_counts["ViT-S 32x12 train"] = train_config(
+        "ViT-S 32x12", s32, params, per_step_bhtd, gate_fault, "LN+MLP backward ignores the gate")
+    s96 = dataclasses.replace(v, num_heads=96)
+    for cname, (counter, vs_) in {
+            "ViT-S 96x4": ("flash_packed", s96),
+            "ViT-S 96x4 fixed": ("flash_packed_fixed", dataclasses.replace(
+                s96, fwd_kv_chunk=FWD_CHUNK, unsafe_softmax=True))}.items():
+        serve_wide(cname, dataclasses.replace(cfg, vit=vs_), {
+            **{k_: n_ for k_, n_ in per_request.items() if k_ != "flash_packed"},
+            counter: 2 * v.depth}, params, requests[:1])
+    check(not failures23, "; ".join(failures23))
+    del kernel_steps
+    tmp23.cleanup()
+    print(f"head dims: ViT-B 3x256 imported, served and trained in {t23b:.1f} s; ViT-B 1x768 "
+          f"served and one step in {t23c:.1f} s; ViT-S 32x12 served and trained, 96x4 served in "
+          f"two forms in {time.perf_counter() - t23 - t23b - t23c:.1f} s; phase 23 took "
+          f"{time.perf_counter() - t23:.1f} s", flush=True)
 
     serving_runs = (serve_counts, *config_counts.values())
     lifecycle_runs = (loop_counts, chunk_loop_counts, eval_counts)  # phase 14
@@ -5103,6 +5326,20 @@ def main() -> None:
             ("flash_packed_bwd_chunked[3x128]", "flash_packed.cu",
              "intentbev/ops/flash_packed.py:414 (dq), :467 (dk/dv)",
              (hd_counts["ViT-S 3x128 train chunked"],)),
+            # the chunked and padded-row instances on the model paths (phase
+            # 23): row 16 at ViT-B's 3 heads of 256 and 1 of 768 and ViT-S's 32
+            # of 12, rows 3 and 2 at ViT-S's 96 of 4
+            *((f"flash_attention{k_}[{t_}]", "flash_packed.cu",
+               f"intentbev/ops/flash_attention.py:{ln_}",
+               tuple(wide_counts[c_] for c_ in cs_ if k_ == "" or "train" in c_))
+              for t_, cs_ in (("3x256", ("ViT-B 3x256", "ViT-B 3x256 train")),
+                              ("1x768", ("ViT-B 1x768", "ViT-B 1x768 train")),
+                              ("32x12", ("ViT-S 32x12", "ViT-S 32x12 train")))
+              for k_, ln_ in (("", "66"), ("_bwd", "128 (dq), :152 (dk/dv)"))),
+            ("flash_packed[96x4]", "flash_packed.cu", "intentbev/ops/flash_packed.py:122",
+             (wide_counts["ViT-S 96x4"],)),
+            ("flash_packed_fixed[96x4]", "flash_packed.cu",
+             "intentbev/ops/flash_packed.py:157 (safe=False)", (wide_counts["ViT-S 96x4 fixed"],)),
             # tensor parallelism's rank shapes at ViT-B's and ViT-Ti's widths
             # (phases 20 and 21: the ranks that ran each)
             *((f"fused_mlp_{k_}[TP,D={d_},hidden={h_}]", "fused_ln_mlp.cu",
@@ -5140,7 +5377,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": f"intentbev_torch/csrc/{src}",
                         "replaces": replaces, "launches": sum(c[counter] for c in runs),
                         **r})
-    check(len(kernels) == 115 and all(k_["launches"] > 0 for k_ in kernels),
+    check(len(kernels) == 123 and all(k_["launches"] > 0 for k_ in kernels),
           f"a kernel of the paths never launched: {[(k_['name'], k_['launches']) for k_ in kernels]}")
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,15 +5,19 @@
 // tensor maps (csrc/hopper.cuh) and runs every product on wgmma.
 //
 // Head dims. The kernels are instantiated for three widths HD (32, 64, 128)
-// and take any head dim D from 8 to 128 in steps of 8 on the smallest
-// instance at least D (Inst below). The tensor map keeps the true D as its
-// innermost dimension with boxes of the instance's width (or two boxes of 64
-// columns at HD = 128), so the columns from D to HD land as TMA's zeros, not
-// as the next head's data: every product over them adds exactly nothing,
-// and the epilogues write only the first D columns. A packed row of a head
-// is 2*D bytes, a multiple of TMA's 16-byte stride only where D is a
-// multiple of 8. The scale is that of D (1/sqrt(D), rounded as each
-// caller's JAX kernel rounds it), never the instance's. EXACT (a template
+// and take any head dim D from 1 to 128 on the smallest instance at least D
+// (Inst below); above 128 the chunked kernels (flash_*_wide_kernel) take
+// it, each block owning 128 columns of its output (plan_of). The tensor map keeps the
+// true D as its innermost dimension with boxes of the instance's width (or
+// two boxes of 64 columns at HD = 128), so the columns from D to HD land as
+// TMA's zeros, not as the next head's data: every product over them adds
+// exactly nothing, and the epilogues write only the first D columns
+// (rounded up to 8: a D off a multiple of 8 writes into padded rows). A
+// head's row of 2*D bytes is a stride TMA takes only where D is a multiple
+// of 8, so the callers copy other heads into rows padded to a multiple of 8
+// columns and pass views of their first D. The scale is that of D
+// (1/sqrt(D), rounded as each caller's JAX kernel rounds it), never the
+// instance's nor the padded row's. EXACT (a template
 // parameter) says the bf16 scale is a power of two, so that scaling a bf16
 // operand and scaling the f32 sums give the same bits and the kernels skip
 // the scaled copy of q or k: the entries set it at D = 64 only (at D = 16,
@@ -1034,6 +1038,512 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 128 (row 16: the BHTD kernels; such heads never pair into
+// 128 lanes, so the packed route never sees them). The accumulators of a
+// whole head do not fit: at D = 256 the forward's o alone would take 128
+// registers a consumer thread, dk + dv 256, and a resident q for two 64-row
+// consumers 256 * D bytes of shared memory (192 KB at 768). So each block
+// owns one chunk of at most WIDE_COLS = 128 columns of its output (o, dq, or
+// dk and dv), a grid axis runs over the ceil(D / 128) chunks, and every
+// chunk keeps the 128 instance's register layout (64-key tiles, the scores
+// m64n64). The score products S = qh k^T and dP = dO v^T reduce over the
+// whole head dim in 64-column boxes that stream through the ring beside the
+// rows they meet (q stays in no block), so every chunk computes the same S,
+// P and dP: the forward does 2c + 1 products of T*T*D against the bound's
+// 2, the backward 5c + 3 against 5 (c the chunks; dk and dv take a pass
+// each, S^T in both). Only chunk 0 writes lse.
+// q arrives scaled, qh = bf16(q * scale), as the JAX wrapper scales it
+// before its kernels (intentbev/ops/flash_attention.py:291), so the scores
+// need no scale and dq's epilogue is the BHTD one: bf16(bf16(dS k) * sb).
+//
+// A ring item is either a score box, the 64 columns kb of 128 rows of the
+// block's own tensor (A: each consumer's 64 rows, K-major) and of 64 rows of
+// the streamed one (B, K-major), 24 KB; or a chunk tile, 64 rows of one or
+// two tensors at the chunk's 128 columns (two 64-column boxes, read
+// MN-major by the products that accumulate over rows), 16 or 32 KB. Every
+// wgmma group is waited for inside its item, so none is in flight across a
+// loop's back edge.
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_COLS = 128;  // output columns a block owns (Inst<128>'s layout)
+using Wide = Inst<WIDE_COLS>;   // BOX 8 KB (64 rows x 64 columns), TILE 16 KB, KT 64
+constexpr int WIDE_SCORE = 3 * Wide::BOX;  // a score item: A 2 boxes (128 rows), B 1
+
+// Loads score box kb: rows a0..a0+127 of ma (A) and b0..b0+63 of mb (B).
+__device__ __forceinline__ void load_score_box(uint8_t* dst, const CUtensorMap* ma, int a0,
+                                               const CUtensorMap* mb, int b0, uint64_t* bar,
+                                               int kb, int h, int b) {
+  hopper::tma_load_4d(dst, ma, bar, 64 * kb, h, a0, b);
+  hopper::tma_load_4d(dst + Wide::BOX, ma, bar, 64 * kb, h, a0 + 64, b);
+  hopper::tma_load_4d(dst + 2 * Wide::BOX, mb, bar, 64 * kb, h, b0, b);
+}
+
+// Loads the chunk tile: rows r0..r0+63 of m at columns c0..c0+127.
+__device__ __forceinline__ void load_chunk_tile(uint8_t* dst, const CUtensorMap* m, int r0,
+                                                int c0, uint64_t* bar, int h, int b) {
+  hopper::tma_load_4d(dst, m, bar, c0, h, r0, b);
+  hopper::tma_load_4d(dst + Wide::BOX, m, bar, c0 + 64, h, r0, b);
+}
+
+// acc[64 x 64] (+)= this consumer's 64 A rows times the item's 64 B rows^T
+// over the box's 64 columns (first: the first box of a product).
+__device__ __forceinline__ void score_box(float (&acc)[32], const uint8_t* item, int wg,
+                                          bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::wgmma_ss_k<64>(acc, hopper::desc_kmajor<Wide::RB>(item + wg * Wide::BOX, kk),
+                           hopper::desc_kmajor<Wide::RB>(item + 2 * Wide::BOX, kk),
+                           first && kk == 0 ? 0 : 1);
+}
+
+constexpr int WIDE_FWD_STAGES = 6, WIDE_DQ_STAGES = 6, WIDE_DKDV_STAGES = 6;
+
+// A consumer's ring: items in the producer's order, each slot released by
+// the consumer's four warps.
+template <int STAGES>
+struct WideRing {
+  uint8_t* base;
+  int slot_bytes;
+  uint64_t *full, *empty;
+  __device__ __forceinline__ uint8_t* slot(int it) const {
+    return base + (it % STAGES) * slot_bytes;
+  }
+  __device__ __forceinline__ void landed(int it) const {
+    hopper::mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+  }
+  __device__ __forceinline__ void release(int it, int lane) const {
+    if (lane == 0) hopper::mbar_arrive(&empty[it % STAGES]);
+  }
+  // the producer's wait for slot it to be free
+  __device__ __forceinline__ void free_slot(int it) const {
+    hopper::mbar_wait(&empty[it % STAGES], ((it / STAGES) & 1) ^ 1);
+  }
+};
+
+// acc = the product over the head dim's nkb boxes, items it.. (it advanced).
+template <int STAGES>
+__device__ __forceinline__ void wide_scores(float (&acc)[32], const WideRing<STAGES>& ring,
+                                            int& it, int nkb, int wg, int lane) {
+  for (int kb = 0; kb < nkb; ++kb, ++it) {
+    ring.landed(it);
+    hopper::wgmma_fence();
+    score_box(acc, ring.slot(it), wg, kb == 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    ring.release(it, lane);
+  }
+}
+
+// The forward's shared memory: the ring, then each consumer's o staging tile
+// (rows of 136 bf16), then the barriers.
+struct WideFwdSmem {
+  static constexpr int SLOT = WIDE_SCORE;  // a v chunk tile (16 KB) fits
+  static constexpr int OLD = WIDE_COLS + 8;
+  static constexpr int RING = 0, O = WIDE_FWD_STAGES * SLOT;
+  static constexpr int BARS = O + 2 * 64 * OLD * 2;
+  static constexpr int BYTES = BARS + 2 * WIDE_FWD_STAGES * 8;
+};
+
+// The forward (SAFE, the BHTD kernel's true row max) over chunk blockIdx.x %
+// chunks of o: block (128 queries, chunk), head, batch; two consumers of 64
+// queries and a producer warpgroup whose first thread issues every load.
+// Pass 1 runs the scores and the row max; pass 2 the scores again, P =
+// exp(s - m) rounded to bf16 and O += P V over the chunk's columns of v.
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                          Strides os, float* __restrict__ lse, int T, int seq_len, int H, int D,
+                          int chunks) {
+  using L = WideFwdSmem;
+  constexpr int STAGES = WIDE_FWD_STAGES, KT = 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  const WideRing<STAGES> ring{sm + L::RING, L::SLOT, bars, bars + STAGES};
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x % chunks, q0 = blockIdx.x / chunks * 128;
+  const int c0 = chunk * WIDE_COLS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&ring.full[s], 1);
+      hopper::mbar_init(&ring.empty[s], 8);  // one per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  const int n_tiles = (seq_len + KT - 1) / KT, nkb = (D + 63) / 64;
+  if (wg == 2) {  // producer
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      int it = 0;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int j = 0; j < n_tiles; ++j) {
+          for (int kb = 0; kb < nkb; ++kb, ++it) {
+            ring.free_slot(it);
+            uint64_t* bar = &ring.full[it % STAGES];
+            hopper::mbar_arrive_expect_tx(bar, WIDE_SCORE);
+            load_score_box(ring.slot(it), &mq, q0, &mk, j * KT, bar, kb, h, b);
+          }
+          if (pass == 1) {
+            ring.free_slot(it);
+            uint64_t* bar = &ring.full[it % STAGES];
+            hopper::mbar_arrive_expect_tx(bar, Wide::TILE);
+            load_chunk_tile(ring.slot(it), &mv, j * KT, c0, bar, h, b);
+            ++it;
+          }
+        }
+    }
+  } else {  // consumers: 64 queries each
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
+    const int t4 = lane & 3, g = lane >> 2;
+    float acc[64], sc[32];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int it = 0;
+    float m0 = -INFINITY, m1 = -INFINITY;
+    for (int j = 0; j < n_tiles; ++j) {  // pass 1: the row max
+      wide_scores(sc, ring, it, nkb, wg, lane);
+      row_max(sc, j, seq_len, t4, m0, m1);
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o_));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o_));
+    }
+    const float c = LOG2E, mc0 = m0 * c, mc1 = m1 * c;  // the scores are qh k^T
+    float l0 = 0.f, l1 = 0.f;
+    for (int j = 0; j < n_tiles; ++j) {  // pass 2: P = exp(s - m), O += P V
+      wide_scores(sc, ring, it, nkb, wg, lane);
+      if ((j + 1) * KT > seq_len) mask_keys(sc, j * KT, seq_len, t4);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sc[4 * e + 0] = hopper::ex2(fmaf(sc[4 * e + 0], c, -mc0));
+        sc[4 * e + 1] = hopper::ex2(fmaf(sc[4 * e + 1], c, -mc0));
+        sc[4 * e + 2] = hopper::ex2(fmaf(sc[4 * e + 2], c, -mc1));
+        sc[4 * e + 3] = hopper::ex2(fmaf(sc[4 * e + 3], c, -mc1));
+      }
+      l0 += tree<0>(sc, AddOp());
+      l1 += tree<2>(sc, AddOp());
+      uint32_t pa[4][4];
+      hopper::pack_a(pa, sc);
+      ring.landed(it);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) accumulate<WIDE_COLS>(acc, pa[kk], ring.slot(it), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      ring.release(it, lane);
+      ++it;
+    }
+#pragma unroll
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+    }
+    // o = (P V) / d through this warpgroup's staging tile, 16 bytes a store
+    bf16* ost = reinterpret_cast<bf16*>(sm + L::O) + wg * 64 * L::OLD;
+    const int w0 = 16 * warp + g;
+#pragma unroll
+    for (int n = 0; n < WIDE_COLS / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(ost + w0 * L::OLD + col) =
+          pack_bf16x2(acc[4 * n + 0] / l0, acc[4 * n + 1] / l0);
+      *reinterpret_cast<uint32_t*>(ost + (w0 + 8) * L::OLD + col) =
+          pack_bf16x2(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
+    }
+    const int r0 = q0 + 64 * wg + w0, r1 = r0 + 8;
+    if (chunk == 0 && t4 == 0) {  // one writer of lse: every chunk has the same m and d
+      const size_t lbase = ((size_t)b * H + h) * T;
+      if (r0 < T) lse[lbase + r0] = m0 + logf(l0);
+      if (r1 < T) lse[lbase + r1] = m1 + logf(l1);
+    }
+    hopper::named_sync(1 + wg, 128);
+    for (int i = wt; i < 64 * WIDE_COLS / 8; i += 128) {  // the chunk's columns below D
+      const int r = i / (WIDE_COLS / 8), c8 = (i % (WIDE_COLS / 8)) * 8;
+      const int row = q0 + 64 * wg + r;
+      if (row < T && c0 + c8 < D)
+        *reinterpret_cast<uint4*>(o + at(os, b, h, row) + c0 + c8) =
+            *reinterpret_cast<const uint4*>(ost + r * L::OLD + c8);
+    }
+  }
+}
+
+// The dq pass: block (128 queries, chunk), head, batch. Per 64-key tile the
+// ring carries S's boxes (qh rows, k tile), dP's (dO rows, v tile), then the
+// k tile at the chunk's columns for dQ += dS K.
+struct WideDqSmem {
+  static constexpr int SLOT = WIDE_SCORE;  // a k chunk tile (16 KB) fits
+  static constexpr int BARS = WIDE_DQ_STAGES * SLOT;
+  static constexpr int BYTES = BARS + 2 * WIDE_DQ_STAGES * 8;
+};
+
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq_out, Strides gs, int T, int seq_len, int H, int D,
+                         int chunks, float scale_b) {
+  using L = WideDqSmem;
+  constexpr int STAGES = WIDE_DQ_STAGES, KT = 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  const WideRing<STAGES> ring{sm, L::SLOT, bars, bars + STAGES};
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x % chunks, q0 = blockIdx.x / chunks * 128;
+  const int c0 = chunk * WIDE_COLS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&ring.full[s], 1);
+      hopper::mbar_init(&ring.empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  const int n_k = (seq_len + KT - 1) / KT, nkb = (D + 63) / 64;
+  if (wg == 2) {  // producer
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 256) {
+      int it = 0;
+      for (int j = 0; j < n_k; ++j) {
+        for (int pr = 0; pr < 2; ++pr)  // S's boxes, then dP's
+          for (int kb = 0; kb < nkb; ++kb, ++it) {
+            ring.free_slot(it);
+            uint64_t* bar = &ring.full[it % STAGES];
+            hopper::mbar_arrive_expect_tx(bar, WIDE_SCORE);
+            load_score_box(ring.slot(it), pr ? &mdo : &mq, q0, pr ? &mv : &mk, j * KT, bar, kb,
+                           h, b);
+          }
+        ring.free_slot(it);
+        uint64_t* bar = &ring.full[it % STAGES];
+        hopper::mbar_arrive_expect_tx(bar, Wide::TILE);
+        load_chunk_tile(ring.slot(it), &mk, j * KT, c0, bar, h, b);
+        ++it;
+      }
+    }
+  } else {  // consumers: 64 queries each
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
+    const int t4 = lane & 3, g = lane >> 2;
+    const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+    const size_t lbase = ((size_t)b * H + h) * T;
+    // rows past T read dO = 0, so t = 0 there; their dq is not written
+    const float l0 = r0 < T ? lse[lbase + r0] * LOG2E : 0.f;
+    const float l1 = r1 < T ? lse[lbase + r1] * LOG2E : 0.f;
+    const float d0 = r0 < T ? delta[lbase + r0] : 0.f;
+    const float d1 = r1 < T ? delta[lbase + r1] : 0.f;
+    float dq[64], sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    int it = 0;
+    for (int j = 0; j < n_k; ++j) {
+      wide_scores(sc, ring, it, nkb, wg, lane);
+      wide_scores(dp, ring, it, nkb, wg, lane);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {  // keys past seq_len: p = 0
+        const int key = j * KT + 8 * n + 2 * t4;
+        const bool k0 = key < seq_len, k1 = key + 1 < seq_len;
+        sc[4 * n + 0] = k0 ? hopper::ex2(sc[4 * n + 0] * LOG2E - l0) : 0.f;
+        sc[4 * n + 1] = k1 ? hopper::ex2(sc[4 * n + 1] * LOG2E - l0) : 0.f;
+        sc[4 * n + 2] = k0 ? hopper::ex2(sc[4 * n + 2] * LOG2E - l1) : 0.f;
+        sc[4 * n + 3] = k1 ? hopper::ex2(sc[4 * n + 3] * LOG2E - l1) : 0.f;
+        dp[4 * n + 0] = sc[4 * n + 0] * (dp[4 * n + 0] - d0);
+        dp[4 * n + 1] = sc[4 * n + 1] * (dp[4 * n + 1] - d0);
+        dp[4 * n + 2] = sc[4 * n + 2] * (dp[4 * n + 2] - d1);
+        dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - d1);
+      }
+      uint32_t ta[4][4];
+      hopper::pack_a(ta, dp);
+      ring.landed(it);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) accumulate<WIDE_COLS>(dq, ta[kk], ring.slot(it), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+      ring.release(it, lane);
+      ++it;
+    }
+#pragma unroll
+    for (int n = 0; n < WIDE_COLS / 8; ++n) {
+      const int col = c0 + n * 8 + 2 * t4;
+      if (c0 + n * 8 >= D) break;  // the chunk's columns below D
+      // BHTD: rounded to bf16, then the bf16 scale
+      if (r0 < T)
+        *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r0) + col) = pack_bf16x2(
+            bf16_round(dq[4 * n]) * scale_b, bf16_round(dq[4 * n + 1]) * scale_b);
+      if (r1 < T)
+        *reinterpret_cast<uint32_t*>(dq_out + at(gs, b, h, r1) + col) = pack_bf16x2(
+            bf16_round(dq[4 * n + 2]) * scale_b, bf16_round(dq[4 * n + 3]) * scale_b);
+    }
+  }
+}
+
+// The dk and dv passes: block (128 keys, chunk), head, batch; DK picks the
+// output. Per 64-query tile the ring carries S^T's boxes (k rows, qh tile),
+// for dk also dP^T's (v rows, dO tile), then the tile at the chunk's
+// columns (qh for dK += dS^T qh, dO for dV += P^T dO) with the tile's lse
+// and delta, which the producer warpgroup stages beside it. dk and dv take
+// a pass each: both accumulators (128 registers) beside S^T and dP^T left
+// ptxas too few registers for its wgmma (C7512 and a 48-byte spill), and the
+// dv pass needs no dP^T.
+struct WideDkdvSmem {
+  static constexpr int SLOT = WIDE_SCORE;  // a chunk tile (16 KB) fits
+  static constexpr int LSE = WIDE_DKDV_STAGES * SLOT;
+  static constexpr int DELTA = LSE + WIDE_DKDV_STAGES * 64 * 4;
+  static constexpr int BARS = DELTA + WIDE_DKDV_STAGES * 64 * 4;
+  static constexpr int BYTES = BARS + 2 * WIDE_DKDV_STAGES * 8;
+};
+
+template <bool DK>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mk,
+                               const __grid_constant__ CUtensorMap mv,
+                               const __grid_constant__ CUtensorMap mdo,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               bf16* __restrict__ out, Strides gs, int T, int seq_len, int H,
+                               int D, int chunks) {
+  using L = WideDkdvSmem;
+  constexpr int STAGES = WIDE_DKDV_STAGES, KT = 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  const WideRing<STAGES> ring{sm, L::SLOT, bars, bars + STAGES};
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x % chunks, k0 = blockIdx.x / chunks * 128;
+  const int c0 = chunk * WIDE_COLS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (k0 >= seq_len) {  // every key of the block is masked: dk = dv = 0
+    for (int i = tid; i < 128 * WIDE_COLS / 8; i += 384) {
+      const int r = i / (WIDE_COLS / 8), c8 = c0 + (i % (WIDE_COLS / 8)) * 8;
+      if (k0 + r < T && c8 < D)
+        *reinterpret_cast<uint4*>(out + at(gs, b, h, k0 + r) + c8) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&ring.full[s], 128);  // the producer warpgroup
+      hopper::mbar_init(&ring.empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  const int n_q = (T + KT - 1) / KT, nkb = (D + 63) / 64;
+  if (wg == 2) {  // producer: every thread walks the items, the first loads
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const int p = tid - 256;
+    const size_t lbase = ((size_t)b * H + h) * T;
+    int it = 0;
+    for (int j = 0; j < n_q; ++j) {
+      for (int pr = 0; pr < (DK ? 2 : 1); ++pr)  // S^T's boxes, then dP^T's
+        for (int kb = 0; kb < nkb; ++kb, ++it) {
+          ring.free_slot(it);
+          uint64_t* bar = &ring.full[it % STAGES];
+          if (p == 0) {
+            hopper::mbar_arrive_expect_tx(bar, WIDE_SCORE);
+            load_score_box(ring.slot(it), pr ? &mv : &mk, k0, pr ? &mdo : &mq, j * KT, bar, kb,
+                           h, b);
+          } else {
+            hopper::mbar_arrive(bar);
+          }
+        }
+      // the tile's lse and delta (rows past T: lse = +inf, so p = 0), read
+      // before the slot is free
+      const int r = j * KT + p;
+      const float l = r < T ? lse[lbase + r] * LOG2E : INFINITY;
+      const float d = DK && r < T ? delta[lbase + r] : 0.f;
+      ring.free_slot(it);
+      const int s = it % STAGES;
+      float* lse_s = reinterpret_cast<float*>(sm + L::LSE) + s * KT;
+      float* delta_s = reinterpret_cast<float*>(sm + L::DELTA) + s * KT;
+      if (p < KT) {
+        lse_s[p] = l;
+        delta_s[p] = d;
+      }
+      uint64_t* bar = &ring.full[s];
+      if (p == 0) {
+        hopper::mbar_arrive_expect_tx(bar, Wide::TILE);
+        load_chunk_tile(ring.slot(it), DK ? &mq : &mdo, j * KT, c0, bar, h, b);
+      } else {
+        hopper::mbar_arrive(bar);
+      }
+      ++it;
+    }
+  } else {  // consumers: 64 keys each
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
+    const int t4 = lane & 3, g = lane >> 2;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int it = 0;
+    for (int j = 0; j < n_q; ++j) {
+      float sc[32], dp[32];  // S^T and dP^T [key][query]
+      wide_scores(sc, ring, it, nkb, wg, lane);
+      if constexpr (DK) wide_scores(dp, ring, it, nkb, wg, lane);
+      ring.landed(it);
+      const int s = it % STAGES;
+      const float* ls = reinterpret_cast<const float*>(sm + L::LSE) + s * KT;
+      const float* ds = reinterpret_cast<const float*>(sm + L::DELTA) + s * KT;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t4);
+        sc[4 * n + 0] = hopper::ex2(sc[4 * n + 0] * LOG2E - l.x);
+        sc[4 * n + 1] = hopper::ex2(sc[4 * n + 1] * LOG2E - l.y);
+        sc[4 * n + 2] = hopper::ex2(sc[4 * n + 2] * LOG2E - l.x);
+        sc[4 * n + 3] = hopper::ex2(sc[4 * n + 3] * LOG2E - l.y);
+        if constexpr (DK) {
+          const float2 d = *reinterpret_cast<const float2*>(ds + 8 * n + 2 * t4);
+          dp[4 * n + 0] = sc[4 * n + 0] * (dp[4 * n + 0] - d.x);
+          dp[4 * n + 1] = sc[4 * n + 1] * (dp[4 * n + 1] - d.y);
+          dp[4 * n + 2] = sc[4 * n + 2] * (dp[4 * n + 2] - d.x);
+          dp[4 * n + 3] = sc[4 * n + 3] * (dp[4 * n + 3] - d.y);
+        }
+      }
+      uint32_t fa[4][4];  // dS^T (dk) or P^T (dv) as bf16 A fragments
+      if constexpr (DK) hopper::pack_a(fa, dp); else hopper::pack_a(fa, sc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) accumulate<WIDE_COLS>(acc, fa[kk], ring.slot(it), kk);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      ring.release(it, lane);
+      ++it;
+    }
+    const int r0 = k0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+    const float z0 = r0 < seq_len ? 1.f : 0.f, z1 = r1 < seq_len ? 1.f : 0.f;
+#pragma unroll
+    for (int n = 0; n < WIDE_COLS / 8; ++n) {
+      if (c0 + n * 8 >= D) break;  // the chunk's columns below D
+      const int col = c0 + n * 8 + 2 * t4;
+      if (r0 < T)
+        *reinterpret_cast<uint32_t*>(out + at(gs, b, h, r0) + col) =
+            pack_bf16x2(acc[4 * n] * z0, acc[4 * n + 1] * z0);
+      if (r1 < T)
+        *reinterpret_cast<uint32_t*>(out + at(gs, b, h, r1) + col) =
+            pack_bf16x2(acc[4 * n + 2] * z1, acc[4 * n + 3] * z1);
+    }
+  }
+}
+
 // Raises a kernel's dynamic shared-memory limit to `bytes` (once).
 template <typename K>
 int allow_smem(K kernel, int bytes, bool& done) {
@@ -1159,13 +1669,86 @@ int launch_bwd_packed(int mode, const void* q, const void* k, const void* v, Str
   return (int)cudaErrorInvalidValue;
 }
 
+// The maps of the chunked instance: boxes of 64 rows and 64 columns.
+int encode_wide(CUtensorMap* map, const void* x, Strides st, int B, int H, int T, int D) {
+  return hopper::encode_bhtd(map, x, B, H, T, D, st.b, st.h, st.t, 64, 64);
+}
+
+// Output chunks of head dim D (ceil(D / WIDE_COLS)).
+constexpr int wide_chunks(int D) { return (D + WIDE_COLS - 1) / WIDE_COLS; }
+
+int launch_wide_fwd(const void* q, Strides qs, const void* k, const void* v, Strides in, void* o,
+                    Strides os, void* lse, int B, int T, int seq_len, int H, int D, void* stream) {
+  if (B <= 0 || T <= 0 || seq_len <= 0) return (int)cudaGetLastError();
+  CUtensorMap mq, mk, mv;
+  int err;
+  if ((err = encode_wide(&mq, q, qs, B, H, T, D)) || (err = encode_wide(&mk, k, in, B, H, T, D)) ||
+      (err = encode_wide(&mv, v, in, B, H, T, D)))
+    return err;
+  constexpr int bytes = cmax(WideFwdSmem::BYTES + 1024, ONE_PER_SM);
+  static bool ok = false;
+  if ((err = allow_smem(flash_fwd_wide_kernel, bytes, ok))) return err;
+  const int chunks = wide_chunks(D);
+  dim3 grid((T + 127) / 128 * chunks, H, B);
+  flash_fwd_wide_kernel<<<grid, 384, bytes, (cudaStream_t)stream>>>(
+      mq, mk, mv, (bf16*)o, os, (float*)lse, T, seq_len, H, D, chunks);
+  return (int)cudaGetLastError();
+}
+
+int launch_wide_bwd(const void* q, Strides qs, const void* k, const void* v, Strides in,
+                    const void* dout, Strides dos_, const void* lse, const void* delta, void* dq,
+                    void* dk, void* dv, Strides gs, int B, int T, int seq_len, int H, int D,
+                    float scale_b, void* stream) {
+  if (B <= 0 || T <= 0 || seq_len <= 0) return (int)cudaGetLastError();
+  CUtensorMap mq, mk, mv, mdo;
+  int err;
+  if ((err = encode_wide(&mq, q, qs, B, H, T, D)) || (err = encode_wide(&mk, k, in, B, H, T, D)) ||
+      (err = encode_wide(&mv, v, in, B, H, T, D)) ||
+      (err = encode_wide(&mdo, dout, dos_, B, H, T, D)))
+    return err;
+  constexpr int dkdv_bytes = cmax(WideDkdvSmem::BYTES + 1024, ONE_PER_SM);
+  constexpr int dq_bytes = cmax(WideDqSmem::BYTES + 1024, ONE_PER_SM);
+  static bool dk_ok = false, dv_ok = false, dq_ok = false;
+  if ((err = allow_smem(flash_bwd_dkdv_wide_kernel<true>, dkdv_bytes, dk_ok)) ||
+      (err = allow_smem(flash_bwd_dkdv_wide_kernel<false>, dkdv_bytes, dv_ok)) ||
+      (err = allow_smem(flash_bwd_dq_wide_kernel, dq_bytes, dq_ok)))
+    return err;
+  const int chunks = wide_chunks(D);
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((T + 127) / 128 * chunks, H, B);
+  for (const bool dk_pass : {false, true}) {
+    auto* kern = dk_pass ? flash_bwd_dkdv_wide_kernel<true> : flash_bwd_dkdv_wide_kernel<false>;
+    kern<<<grid, 384, dkdv_bytes, s>>>(mq, mk, mv, mdo, (const float*)lse, (const float*)delta,
+                                       (bf16*)(dk_pass ? dk : dv), gs, T, seq_len, H, D, chunks);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_bwd_dq_wide_kernel<<<grid, 384, dq_bytes, s>>>(mq, mk, mv, mdo, (const float*)lse,
+                                                   (const float*)delta, (bf16*)dq, gs, T, seq_len,
+                                                   H, D, chunks, scale_b);
+  return (int)cudaGetLastError();
+}
+
+// The plan of head dim D, which ops/flash_attention.py::instance mirrors:
+// the instance (the smallest of 32, 64, 128 at least D; above 128 the
+// chunked kernels, each block 128 output columns), the output chunks (1;
+// ceil(D / 128) above 128) and the padded row (D rounded up to 8 columns:
+// a head's row of 2 * padded bytes is a stride TMA takes; the callers copy
+// heads whose D is off a multiple of 8 into rows of that width).
+struct Plan {
+  int inst, chunks, padded;
+};
+constexpr Plan plan_of(int D) {
+  return {D <= 32 ? 32 : D <= 64 ? 64 : 128, D <= 128 ? 1 : wide_chunks(D), (D + 7) / 8 * 8};
+}
+
 // Calls launch(std::integral_constant<int, HD>{}, std::bool_constant<EXACT>{})
-// for head dim D's instance: HD the smallest of 32, 64, 128 at least D, and
-// EXACT where the bf16 scale 1/sqrt(D) is the power of two 1/8 (D = 64).
-// Refuses a head dim under 8, over 128 or off a multiple of 8.
+// for head dim D's instance (plan_of), EXACT where the bf16 scale 1/sqrt(D)
+// is the power of two 1/8 (D = 64). Refuses D < 1 and the chunked head dims
+// above 128, which take the ibk_flash_attn_wide_* entries.
 template <typename F>
 int by_head_dim(int D, F&& launch) {
-  if (D < 8 || D > 128 || D % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (D < 1 || plan_of(D).chunks != 1) return (int)cudaErrorInvalidValue;
   if (D == 64) return launch(std::integral_constant<int, 64>{}, std::true_type{});
   if (D <= 32) return launch(std::integral_constant<int, 32>{}, std::false_type{});
   if (D <= 64) return launch(std::integral_constant<int, 64>{}, std::false_type{});
@@ -1174,36 +1757,50 @@ int by_head_dim(int D, F&& launch) {
 
 }  // namespace
 
-// Packed layout, head dim D from 8 to 128 in steps of 8 (heads that pair
-// into 128 lanes: D divides 128). q/k/v: bf16, element (b, t, h*D + d) at
-// b*batch_stride + t*row_stride + h*D + d; o: bf16 [B, T, H*D] contiguous;
-// lse: f32 [B, H, T]. scale: the bf16-rounded 1/sqrt(D), by which q is
-// scaled in bf16. form: 0 SAFE, 1 FIXED, 2 CHUNKED_SAFE (kv_chunk keys a
-// group, a multiple of 128).
+// out[0..2] = plan_of(D): instance, chunks, padded row. cudaErrorInvalidValue
+// for D < 1.
+extern "C" int ibk_flash_plan(int D, int* out) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_of(D);
+  out[0] = p.inst;
+  out[1] = p.chunks;
+  out[2] = p.padded;
+  return 0;
+}
+
+// Packed layout, head dim D from 1 to 128 (heads that pair into 128 lanes:
+// D divides 128). q/k/v: bf16, element (b, t, h, d) at b*batch_stride +
+// t*row_stride + h*head_stride + d (head_stride D, or the padded row of a D
+// off a multiple of 8); o: bf16 [B, T, H, head_stride] contiguous, its first
+// D columns a head written; lse: f32 [B, H, T]. scale: the bf16-rounded
+// 1/sqrt(D), by which q is scaled in bf16. form: 0 SAFE, 1 FIXED, 2
+// CHUNKED_SAFE (kv_chunk keys a group, a multiple of 128).
 extern "C" int ibk_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int B, int T, int seq_len, int H, int D,
-                             long long row_stride, long long batch_stride,
+                             long long row_stride, long long batch_stride, long long head_stride,
                              float scale, int form, int kv_chunk, void* stream) {
-  const long long dm = (long long)H * D;
-  const Strides in{batch_stride, D, row_stride}, os{T * dm, D, dm};
+  const long long hs = head_stride, dm = (long long)H * hs;
+  const Strides in{batch_stride, hs, row_stride}, os{T * dm, hs, dm};
   return by_head_dim(D, [&](auto hd, auto exact) {
     return launch_fwd<decltype(hd)::value, decltype(exact)::value>(
         q, k, v, in, o, os, lse, B, T, seq_len, H, D, scale, form, kv_chunk, stream);
   });
 }
 
-// Backward: q/k/v as in the forward; dout bf16 [B, T, H*D] contiguous; lse,
-// delta f32 [B, H, T]; dqkv bf16 [B, T, 3*H*D] contiguous (dq | dk | dv).
-// mode: 0 FUSED, 1 SPLIT, 2 CHUNKED (the rounding points of the JAX
-// kernels above); scale_b / scale_f: 1/sqrt(D) rounded to bf16 / in f32.
+// Backward: q/k/v as in the forward; dout bf16 [B, T, H, head_stride]
+// contiguous; lse, delta f32 [B, H, T]; dqkv bf16 [B, T, 3, H, head_stride]
+// contiguous (dq | dk | dv; the first D columns a head written). mode: 0
+// FUSED, 1 SPLIT, 2 CHUNKED (the rounding points of the JAX kernels above);
+// scale_b / scale_f: 1/sqrt(D) rounded to bf16 / in f32.
 extern "C" int ibk_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dqkv, int B, int T,
                              int seq_len, int H, int D, long long row_stride,
-                             long long batch_stride, float scale_b, float scale_f, int mode,
-                             void* stream) {
-  const long long dm = (long long)H * D;
+                             long long batch_stride, long long head_stride, float scale_b,
+                             float scale_f, int mode, void* stream) {
+  const long long hs = head_stride, dm = (long long)H * hs;
   bf16* g = (bf16*)dqkv;
-  const Strides in{batch_stride, D, row_stride}, dos_{T * dm, D, dm}, gs{3 * T * dm, D, 3 * dm};
+  const Strides in{batch_stride, hs, row_stride}, dos_{T * dm, hs, dm},
+      gs{3 * T * dm, hs, 3 * dm};
   return by_head_dim(D, [&](auto hd, auto exact) {
     return launch_bwd_packed<decltype(hd)::value, decltype(exact)::value>(
         mode, q, k, v, in, dout, dos_, lse, delta, g, g + dm, g + 2 * dm, gs, B, T, seq_len, H,
@@ -1211,10 +1808,10 @@ extern "C" int ibk_flash_bwd(const void* q, const void* k, const void* v, const 
   });
 }
 
-// BHTD layout, head dim D from 8 to 128 in steps of 8: q, k, v share the
-// element strides (in_b, in_h, in_t) of a [B, H, T, D] view, o has (o_b,
-// o_h, o_t); lse f32 [B, H, T] contiguous. scale: the bf16-rounded
-// 1/sqrt(D). The JAX BHTD kernel takes the true row max: SAFE.
+// BHTD layout, head dim D from 1 to 128: q, k, v share the element strides
+// (in_b, in_h, in_t) of a [B, H, T, D] view, o has (o_b, o_h, o_t); lse f32
+// [B, H, T] contiguous. scale: the bf16-rounded 1/sqrt(D). The JAX BHTD
+// kernel takes the true row max: SAFE.
 extern "C" int ibk_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int T, int seq_len, int H, int D,
                                   long long in_b, long long in_h, long long in_t,
@@ -1243,4 +1840,37 @@ extern "C" int ibk_flash_attn_bwd(const void* q, const void* k, const void* v,
         q, k, v, in, dout, dos_, lse, delta, dq, dk, dv, gs, B, T, seq_len, H, D, scale, scale,
         stream);
   });
+}
+
+// BHTD layout, head dim D above 128 (plan_of: chunks > 1): qh = bf16(q *
+// scale) with its own strides (qh_b, qh_h, qh_t), as the JAX wrapper scales
+// q before its kernels; k and v share (in_b, in_h, in_t); o (o_b, o_h,
+// o_t); lse f32 [B, H, T] contiguous, written by chunk 0's blocks.
+extern "C" int ibk_flash_attn_wide_fwd(const void* qh, const void* k, const void* v, void* o,
+                                       void* lse, int B, int T, int seq_len, int H, int D,
+                                       long long qh_b, long long qh_h, long long qh_t,
+                                       long long in_b, long long in_h, long long in_t,
+                                       long long o_b, long long o_h, long long o_t,
+                                       void* stream) {
+  if (D < 1 || plan_of(D).chunks < 2) return (int)cudaErrorInvalidValue;
+  return launch_wide_fwd(qh, Strides{qh_b, qh_h, qh_t}, k, v, Strides{in_b, in_h, in_t}, o,
+                         Strides{o_b, o_h, o_t}, lse, B, T, seq_len, H, D, stream);
+}
+
+// Backward above 128: qh, k, v as in the forward; dout (do_b, do_h, do_t);
+// lse, delta f32 [B, H, T]; dq, dk, dv bf16 views sharing (g_b, g_h, g_t).
+// scale: the bf16-rounded 1/sqrt(D), dq's epilogue scale (dq = bf16(bf16(dS
+// k) * scale), the autodiff of q's scaling).
+extern "C" int ibk_flash_attn_wide_bwd(const void* qh, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dq, void* dk, void* dv, int B, int T, int seq_len,
+                                       int H, int D, long long qh_b, long long qh_h,
+                                       long long qh_t, long long in_b, long long in_h,
+                                       long long in_t, long long do_b, long long do_h,
+                                       long long do_t, long long g_b, long long g_h,
+                                       long long g_t, float scale, void* stream) {
+  if (D < 1 || plan_of(D).chunks < 2) return (int)cudaErrorInvalidValue;
+  return launch_wide_bwd(qh, Strides{qh_b, qh_h, qh_t}, k, v, Strides{in_b, in_h, in_t}, dout,
+                         Strides{do_b, do_h, do_t}, lse, delta, dq, dk, dv,
+                         Strides{g_b, g_h, g_t}, B, T, seq_len, H, D, scale, stream);
 }

@@ -119,14 +119,15 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ibk_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "ibk_fused_ln_mlp": (_P,) * 11 + (_I, _I, _I, _F, _I, _P),
-    "ibk_flash_fwd": (_P,) * 5 + (_I,) * 5 + (_L, _L, _F, _I, _I, _P),
+    "ibk_flash_fwd": (_P,) * 5 + (_I,) * 5 + (_L, _L, _L, _F, _I, _I, _P),
+    "ibk_flash_plan": (_I, _P),
     "ibk_voxel_embed": (_P,) * 10 + (_I,) * 8 + (_P,),
     "ibk_voxel_hits": (_P,) * 7 + (_I,) * 7 + (_P,),
     "ibk_layernorm_train": (_P,) * 6 + (_I, _I, _F, _P),
     "ibk_layernorm_bwd": (_P,) * 8 + (_I, _I, _P),
     "ibk_fused_ln_mlp_train": (_P,) * 9 + (_I, _I, _I, _F, _I, _P),
     "ibk_fused_ln_mlp_bwd": (_P,) * 21 + (_I, _I, _I, _F, _I, _P),
-    "ibk_flash_bwd": (_P,) * 7 + (_I,) * 5 + (_L, _L, _F, _F, _I, _P),
+    "ibk_flash_bwd": (_P,) * 7 + (_I,) * 5 + (_L, _L, _L, _F, _F, _I, _P),
     "ibk_voxel_fill": (_P,) * 6 + (_I,) * 6 + (_P,),
     "ibk_fused_mlp_int8": (_P,) * 9 + (_I, _I, _I, _I, _P),
     "ibk_fused_mlp": (_P,) * 8 + (_I,) * 4 + (_P,),
@@ -136,6 +137,8 @@ _SIGNATURES = {
     "ibk_patch_embed": (_P,) * 4 + (_I,) * 6 + (_P,),
     "ibk_flash_attn_fwd": (_P,) * 5 + (_I,) * 5 + (_L,) * 6 + (_F, _P),
     "ibk_flash_attn_bwd": (_P,) * 9 + (_I,) * 5 + (_L,) * 9 + (_F, _P),
+    "ibk_flash_attn_wide_fwd": (_P,) * 5 + (_I,) * 5 + (_L,) * 9 + (_P,),
+    "ibk_flash_attn_wide_bwd": (_P,) * 9 + (_I,) * 5 + (_L,) * 12 + (_F, _P),
     "ibk_flash_int8": (_P,) * 9 + (_I,) * 6 + (_L, _L, _F, _P),
     "ibk_fused_proj": (_P,) * 6 + (_I,) * 3 + (_P,),
     "ibk_fused_proj_bwd": (_P,) * 9 + (_I,) * 4 + (_P,),

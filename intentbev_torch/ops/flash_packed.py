@@ -10,13 +10,16 @@ is the differentiable entry over the qkv output. :func:`reference_attention`
 is the dense attention the JAX model runs where ``use_flash_attention`` is
 off, in plain PyTorch.
 
-The packed kernels take the head dims whose heads pair into 128 lanes (8,
-16, 32, 64 and 128) on the instances :data:`.flash_attention.HEAD_DIMS`
-(32, 64, 128; head dims 8 and 16 on the 32 instance, their columns past D
-read as zeros; see :mod:`.flash_attention`); any other head dim raises on
-CUDA. As in JAX, q is scaled in its own dtype by 1/sqrt(D) rounded to that
-dtype, and the epilogues of dq (and of dk, where the scale comes last)
-multiply by the f32 scale.
+The packed kernels take the head dims whose heads pair into 128 lanes (1,
+2, 4, 8, 16, 32, 64 and 128) on the instances
+:data:`.flash_attention.HEAD_DIMS` (32, 64, 128; head dims under 32 on the
+32 instance, their columns past D read as zeros; see
+:mod:`.flash_attention`). Head dims 1, 2 and 4, whose head rows TMA cannot
+stride, are copied into zero-filled rows of 8 columns a head (the entries
+take a head stride) and the outputs' first D columns copied back. As in
+JAX, q is scaled in its own dtype by 1/sqrt(D) rounded to that dtype, and
+the epilogues of dq (and of dk, where the scale comes last) multiply by the
+f32 scale.
 
 The backward takes JAX's three forms (``_bwd``, ``:649-660``), chosen by
 explicit arguments where JAX reads ``INTENTBEV_BWD_FUSED`` and
@@ -55,8 +58,8 @@ import warnings
 import torch
 
 from ._build import check_launch, kernels, require, stream_ptr
-from .flash_attention import (flash_attention_packed_layout, flash_attention_qkv, heads_view,
-                              instance, tma_geometry)
+from .flash_attention import (flash_attention_packed_layout, flash_attention_qkv, head_groups,
+                              instance, padded_rows, tma_geometry)
 
 LANE_BLOCK = 128  # the JAX packed kernels' lane block
 # JAX pads T to a multiple of its forward and backward row blocks
@@ -174,13 +177,17 @@ def flash_attention_packed_plain(q, k, v, num_heads: int, seq_len: int | None = 
 
     o = torch.empty(b, t, dm, dtype=dt, device=q.device)
     lse = torch.empty(b, num_heads, t, dtype=torch.float32, device=q.device)
-    for i in range(b):  # one sample at a time bounds the [H, T, T] scores
-        qh = (heads(q[i]).float() * scale).to(dt).float()
-        s = torch.matmul(qh, heads(k[i]).float().transpose(-1, -2))
-        if seq_len < t:
-            s[..., seq_len:] = float("-inf")
-        oh, lse[i] = softmax_pv(s, heads(v[i]).float(), dt, form, kv_chunk)
-        o[i] = oh.transpose(0, 1).reshape(t, dm).to(dt)
+    for i in range(b):  # a sample and a group of heads at a time bound the scores
+        oi = torch.empty(num_heads, t, dh, dtype=dt, device=q.device)
+        for g in head_groups(num_heads, t):
+            qh = (heads(q[i])[g].float() * scale).to(dt).float()
+            s = torch.matmul(qh, heads(k[i])[g].float().transpose(-1, -2))
+            if seq_len < t:
+                s[..., seq_len:] = float("-inf")
+            oh, lse[i, g] = softmax_pv(s, heads(v[i])[g].float(), dt, form, kv_chunk)
+            oi[g] = oh.to(dt)
+            del s, oh
+        o[i] = oi.transpose(0, 1).reshape(t, dm)
     return o, lse
 
 
@@ -207,15 +214,15 @@ def reference_attention(q, k, v, num_heads: int, kv_len: int | None = None):
 
 
 def _check_qkv(name, q, k, v, num_heads, seq_len):
-    """-> (b, t, dm, head dim, seq_len) of packed bf16 CUDA q, k, v that
-    share 16-byte-aligned rows."""
+    """-> (b, t, dm, head dim, seq_len, plan) of packed bf16 CUDA q, k, v of
+    one shape."""
     b, t, dm = q.shape
     dh = dm // num_heads
     seq_len = t if seq_len is None else int(seq_len)
     require(0 < seq_len <= t, f"{name}: seq_len {seq_len} outside (0, {t}]")
     require(dh * num_heads == dm, f"{name}: {dm} columns do not split into {num_heads} heads")
     try:
-        instance(dh)
+        plan = instance(dh)
     except ValueError as e:
         raise ValueError(f"{name}: {e} ({dm} over {num_heads} heads)") from None
     for x_name, x in (("q", q), ("k", k), ("v", v)):
@@ -223,42 +230,61 @@ def _check_qkv(name, q, k, v, num_heads, seq_len):
                 and tuple(x.shape) == (b, t, dm),
                 f"{name}: {x_name} must be CUDA bf16 {(b, t, dm)}, got "
                 f"{x.dtype} {tuple(x.shape)} {x.device}")
-        require(x.stride() == q.stride() and x.stride(-1) == 1
-                and x.stride(1) % 8 == 0 and x.stride(0) % 8 == 0
-                and x.data_ptr() % 16 == 0,
-                f"{name}: {x_name} strides {x.stride()} not shared 16-byte-aligned rows")
-    return b, t, dm, dh, seq_len
+    return b, t, dm, dh, seq_len, plan
+
+
+def _kernel_qkv(name, q, k, v, num_heads, plan):
+    """q, k, v as the [B, T, H, D] views the kernels read (head stride D, or
+    the padded row): the tensors themselves, or where the head dim is off a
+    multiple of 8 their copies in zero-filled rows of ``plan.padded``
+    columns (one buffer, so that they share strides)."""
+    b, t, dm = q.shape
+    dh = dm // num_heads
+    if plan.padded != dh:
+        buf = q.new_zeros(b, t, 3, num_heads, plan.padded)
+        for i, x in enumerate((q, k, v)):
+            buf[:, :, i, :, :dh] = x.reshape(b, t, num_heads, dh)
+        views = tuple(buf[:, :, i, :, :dh] for i in range(3))
+    else:
+        views = tuple(x.unflatten(-1, (num_heads, dh)) for x in (q, k, v))
+    for x_name, x in zip("qkv", views):
+        require(x.stride() == views[0].stride() and x.stride(-1) == 1,
+                f"{name}: {x_name} strides {x.stride()} differ from q's")
+        tma_geometry(x.transpose(1, 2), name=x_name)
+    return views
 
 
 def flash_attention_packed(q, k, v, num_heads: int, seq_len: int | None = None,
                            kv_chunk: int = 0, unsafe_softmax: bool = False,
                            padded_len: int | None = None):
     """softmax(q k^T / sqrt(D) + key mask) v per head over [B, T, H*D] bf16
-    CUDA tensors (D from 8 to 128 in steps of 8), in the softmax form
-    :func:`fwd_form` picks for ``padded_len`` rows (default T; counted
-    apart: :data:`FWD_COUNTERS`); returns ``(o, lse)``. The chunked form
-    takes a ``kv_chunk`` that is a multiple of :data:`KEY_TILE`. Heads that
-    do not pair take the BHTD kernel (:mod:`.flash_attention`). CPU tensors
-    take :func:`flash_attention_packed_plain`."""
+    CUDA tensors (any head dim D >= 1), in the softmax form :func:`fwd_form`
+    picks for ``padded_len`` rows (default T; counted apart:
+    :data:`FWD_COUNTERS`); returns ``(o, lse)``. The chunked form takes a
+    ``kv_chunk`` that is a multiple of :data:`KEY_TILE`. Heads that do not
+    pair take the BHTD kernel (:mod:`.flash_attention`). CPU tensors take
+    :func:`flash_attention_packed_plain`."""
     if not pairs_heads(q.shape[-1] // num_heads, num_heads):
         return flash_attention_packed_layout(q, k, v, num_heads, seq_len)
     if q.device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, num_heads, seq_len, kv_chunk,
                                             unsafe_softmax, padded_len)
-    b, t, dm, dh, seq_len = _check_qkv("flash", q, k, v, num_heads, seq_len)
+    b, t, dm, dh, seq_len, plan = _check_qkv("flash", q, k, v, num_heads, seq_len)
     form = fwd_form(t if padded_len is None else padded_len, kv_chunk, unsafe_softmax)
     require(form != "chunked" or kv_chunk % KEY_TILE == 0,
             f"flash: the chunked forward takes kv_chunk in multiples of {KEY_TILE} keys, "
             f"got kv_chunk {kv_chunk}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        tma_geometry(heads_view(x, num_heads), name=name)
-    o = torch.empty(b, t, dm, dtype=q.dtype, device=q.device)
+    qv, kv, vv = _kernel_qkv("flash", q, k, v, num_heads, plan)
+    # o in rows of the kernels' head stride: [B, T, H, row], its first D columns a head
+    o_rows = torch.empty(b, t, num_heads, qv.stride(2), dtype=q.dtype, device=q.device)
     lse = torch.empty(b, num_heads, t, dtype=torch.float32, device=q.device)
     err = kernels().ibk_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, t, seq_len, num_heads, dh, q.stride(1), q.stride(0), scales(dh, q.dtype)[0],
-        FWD_FORMS.index(form), kv_chunk if form == "chunked" else 0, stream_ptr(q))
+        qv.data_ptr(), kv.data_ptr(), vv.data_ptr(), o_rows.data_ptr(), lse.data_ptr(),
+        b, t, seq_len, num_heads, dh, qv.stride(1), qv.stride(0), qv.stride(2),
+        scales(dh, q.dtype)[0], FWD_FORMS.index(form), kv_chunk if form == "chunked" else 0,
+        stream_ptr(q))
     check_launch(err, FWD_COUNTERS[form])
+    o = o_rows.view(b, t, dm) if o_rows.shape[-1] == dh else o_rows[..., :dh].reshape(b, t, dm)
     return o, lse
 
 
@@ -292,25 +318,28 @@ def flash_attention_packed_bwd_plain(q, k, v, o, lse, do, num_heads: int,
         return p, (p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta)).to(dt).float()
 
     dqkv = torch.empty(b, t, 3 * dm, dtype=dt, device=q.device)
-    for i in range(b):  # one sample at a time bounds the [H, T, T] scores
-        qf, kh, vh, oh, doh = heads(q[i]), heads(k[i]), heads(v[i]), heads(o[i]), heads(do[i])
-        qh = (qf * sb).to(dt).float()
-        lse_i = lse[i].float()
-        delta = (doh * oh).sum(-1, keepdim=True)
-        p, tt = grad_s(torch.matmul(qh, kh.transpose(-1, -2)), doh, vh, delta, lse_i)
-        dq = torch.matmul(tt, kh) * sf
-        if mode == "chunked":  # dk/dv from the scores kh q^T
-            ks = (kh * sb).to(dt).float()
-            p, tt = grad_s(torch.matmul(qf, ks.transpose(-1, -2)), doh, vh, delta, lse_i)
-        dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
-        if mode == "fused":
-            dk = torch.matmul(tt.transpose(-1, -2), qh)
-        else:
-            dk = torch.matmul(tt.transpose(-1, -2), qf) * sf
-        dk[:, seq_len:] = 0
-        dv[:, seq_len:] = 0
-        for j, g in enumerate((dq, dk, dv)):
-            dqkv[i, :, j * dm:(j + 1) * dm] = g.transpose(0, 1).reshape(t, dm).to(dt)
+    for i in range(b):  # a sample and a group of heads at a time bound the scores
+        gi = torch.empty(3, num_heads, t, dh, dtype=dt, device=q.device)
+        for g in head_groups(num_heads, t):
+            qf, kh, vh, oh, doh = (heads(x[i])[g] for x in (q, k, v, o, do))
+            qh = (qf * sb).to(dt).float()
+            lse_i = lse[i, g].float()
+            delta = (doh * oh).sum(-1, keepdim=True)
+            p, tt = grad_s(torch.matmul(qh, kh.transpose(-1, -2)), doh, vh, delta, lse_i)
+            gi[0, g] = (torch.matmul(tt, kh) * sf).to(dt)
+            if mode == "chunked":  # dk/dv from the scores kh q^T
+                ks = (kh * sb).to(dt).float()
+                p, tt = grad_s(torch.matmul(qf, ks.transpose(-1, -2)), doh, vh, delta, lse_i)
+            dv = torch.matmul(p.to(dt).float().transpose(-1, -2), doh)
+            if mode == "fused":
+                dk = torch.matmul(tt.transpose(-1, -2), qh)
+            else:
+                dk = torch.matmul(tt.transpose(-1, -2), qf) * sf
+            dk[:, seq_len:] = 0
+            dv[:, seq_len:] = 0
+            gi[1, g], gi[2, g] = dk.to(dt), dv.to(dt)
+            del p, tt
+        dqkv[i] = gi.permute(2, 0, 1, 3).reshape(t, 3 * dm)
     return dqkv
 
 
@@ -326,25 +355,27 @@ def flash_attention_packed_bwd(q, k, v, o, lse, do, num_heads: int,
     if q.device.type == "cpu":
         return flash_attention_packed_bwd_plain(q, k, v, o, lse, do, num_heads, seq_len,
                                                 bwd_fused, bwd_kv_chunk, padded_len)
-    b, t, dm, dh, seq_len = _check_qkv("flash bwd", q, k, v, num_heads, seq_len)
+    b, t, dm, dh, seq_len, plan = _check_qkv("flash bwd", q, k, v, num_heads, seq_len)
     mode = bwd_mode(t if padded_len is None else padded_len, bwd_fused, bwd_kv_chunk)
-    do = do.contiguous()
     for name, x in (("o", o), ("do", do)):
         require(x.device == q.device and x.dtype == torch.bfloat16
                 and tuple(x.shape) == (b, t, dm), f"flash bwd: {name} must be bf16 {(b, t, dm)}")
     require(lse.dtype == torch.float32 and tuple(lse.shape) == (b, num_heads, t)
             and lse.is_contiguous(), "flash bwd: lse must be contiguous f32 [B, H, T]")
-    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
-        tma_geometry(heads_view(x, num_heads), name=name)
+    qv, kv, vv = _kernel_qkv("flash bwd", q, k, v, num_heads, plan)
+    row = qv.stride(2)  # the kernels' head stride: D, or the padded row
+    heads_do = do.reshape(b, t, num_heads, dh)
+    do_rows = heads_do.contiguous() if row == dh else padded_rows(heads_do, row)
+    tma_geometry(do_rows.transpose(1, 2), name="do")
     delta = (do.float() * o).reshape(b, t, num_heads, dh) \
         .sum(-1).transpose(1, 2).contiguous()
-    dqkv = torch.empty(b, t, 3 * dm, dtype=q.dtype, device=q.device)
+    g_rows = torch.empty(b, t, 3, num_heads, row, dtype=q.dtype, device=q.device)
     err = kernels().ibk_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dqkv.data_ptr(), b, t, seq_len, num_heads, dh, q.stride(1),
-        q.stride(0), *scales(dh, q.dtype), BWD_MODES.index(mode), stream_ptr(q))
+        qv.data_ptr(), kv.data_ptr(), vv.data_ptr(), do_rows.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), g_rows.data_ptr(), b, t, seq_len, num_heads, dh, qv.stride(1),
+        qv.stride(0), row, *scales(dh, q.dtype), BWD_MODES.index(mode), stream_ptr(q))
     check_launch(err, BWD_COUNTERS[mode])
-    return dqkv
+    return g_rows.view(b, t, 3 * dm) if row == dh else g_rows[..., :dh].reshape(b, t, 3 * dm)
 
 
 class _FlashFn(torch.autograd.Function):

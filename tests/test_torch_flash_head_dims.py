@@ -221,8 +221,8 @@ def test_tma_geometry_takes_the_instance(d):
     the instance's columns (D's instance up to 64, two boxes of 64 at 128),
     swizzled at the box row's bytes; on a packed slice of a [8, 4501,
     3*H*D] qkv output (3 heads) and on a contiguous [2, 3, 1000, D]."""
-    inst = instance(d)
-    assert inst == min(w for w in (32, 64, 128) if w >= d)
+    inst, chunks, padded = instance(d)
+    assert (inst, chunks, padded) == (min(w for w in (32, 64, 128) if w >= d), 1, d)
     cols = min(inst, 64)
     qkv = torch.empty(8, 4501, 9 * d, dtype=torch.bfloat16, device="meta")
     row = 9 * d * 2
@@ -236,12 +236,23 @@ def test_tma_geometry_takes_the_instance(d):
 
 @pytest.mark.parametrize("d", [4, 12, 44, 130, 136, 192, 256])
 def test_tma_geometry_refuses_head_dims_without_an_instance(d):
-    """Off a multiple of 8 (a head row TMA cannot stride) or above 128."""
-    with pytest.raises(ValueError, match=f"head dim {d}"):
-        instance(d)
+    """Every head dim has a plan now (off a multiple of 8: rows padded to
+    the next; above 128: chunks of 128 output columns); what TMA cannot
+    take is an unpadded head row off a multiple of 8, which raises naming
+    the padded row, and a head dim under 1."""
+    inst, chunks, padded = instance(d)
+    assert (inst, chunks, padded) == (
+        min(w for w in (32, 64, 128) if w >= d) if d <= 128 else 128, -(-d // 128),
+        -(-d // 8) * 8)
     x = torch.empty(1, 2, 64, d, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match=f"head dim {d}"):
-        tma_geometry(x)
+    if d % 8:
+        with pytest.raises(ValueError, match=f"head dim {d}: rows of {padded}"):
+            tma_geometry(x)
+    else:
+        assert tma_geometry(x).box == (64, 1, 64, 1)
+    assert tma_geometry(x.new_empty(1, 2, 64, padded)[..., :d]).dims == (d, 2, 64, 1)
+    with pytest.raises(ValueError, match="head dim 0"):
+        instance(0)
 
 
 # The head layouts of the named widths that the importer's --num_heads (or

@@ -7,7 +7,8 @@ of H, T and B, boxes of 64 rows of one head, and a swizzle as wide as a box
 row. The views are those the model hands the kernels, on the meta device
 (no memory; an address is the view's byte offset), at the flagship's
 [8, 4501] tokens. A view TMA cannot take raises before any launch (the
-box of every head dim from 8 to 128: ``tests/test_torch_flash_head_dims.py``).
+box of every head dim: ``tests/test_torch_flash_head_dims.py`` and
+``tests/test_torch_flash_wide_heads.py``).
 """
 
 import pytest
@@ -58,7 +59,7 @@ def test_what_tma_cannot_take_raises():
     odd = torch.empty(B, T, 3 * 384 + 4, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="byte strides"):  # rows of 2312 bytes
         tma_geometry(heads_view(odd[..., :384], 6))
-    with pytest.raises(ValueError, match="head dim 192"):  # no instance above 128
-        tma_geometry(heads_view(qkv[..., :384], 2))
+    with pytest.raises(ValueError, match="head dim 12: rows of 16"):  # unpadded 24-byte rows
+        tma_geometry(heads_view(qkv[..., :384], 32))
     with pytest.raises(ValueError, match="stride along D"):
         tma_geometry(heads_view(qkv[..., :768:2], 6))  # every other column

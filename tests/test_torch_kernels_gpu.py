@@ -110,6 +110,7 @@ from intentbev_torch.ops import (  # noqa: E402
 from intentbev_torch.ops.experimental import (  # noqa: E402
     flash_attention_packed_int8, flash_attention_packed_int8_plain, fused_dense_residual,
     fused_proj_bwd, fused_proj_bwd_plain, fused_proj_fwd, fused_proj_fwd_plain)
+from intentbev_torch.ops._build import kernels  # noqa: E402
 from intentbev_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_packed_layout, heads_view)
 from intentbev_torch.ops.voxel_embed import (  # noqa: E402
@@ -440,7 +441,7 @@ def test_cuda_tensors_never_take_the_plain_version(dev):
         layernorm(x, torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
     with pytest.raises(ValueError):  # f32 input
         layernorm(x.float(), torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"))
-    q = torch.randn(1, 3, 64, 44, device="cuda", dtype=torch.bfloat16)  # head dim 44
+    q = torch.randn(1, 3, 64, 44, device="cuda")  # f32: the kernels take bf16
     with pytest.raises(ValueError):
         flash_attention_fwd(q, q, q)
 
@@ -1253,8 +1254,11 @@ def test_flash_fwd_chunk_off_the_key_tile_raises(dev):
 # other head of packed q | k | v columns (head stride 2D) and write into
 # packed buffers filled with NaN: the heads they skip must stay NaN, the
 # ones they run must hold no NaN (nothing written past D, nothing left out).
-HEAD_DIMS_ALL = list(range(8, 129, 8))
-PACKED_HEAD_DIMS = [8, 16, 32, 64, 128]  # those whose heads pair into 128 lanes
+# every head dim up to 136 (off a multiple of 8: rows padded to the next;
+# 136 the first two-chunk one) and the chunked ones above
+HEAD_DIMS_ALL = list(range(8, 129, 8)) + [d for d in range(1, 137) if d % 8 or d > 128] + [
+    192, 256, 384, 512, 768, 1024]
+PACKED_HEAD_DIMS = [8, 16, 32, 64, 128, 1, 2, 4]  # those whose heads pair into 128 lanes
 tfa = importlib.import_module("intentbev_torch.ops.flash_attention")
 
 
@@ -1272,7 +1276,7 @@ def _alternate_heads(x, d, heads):
 @pytest.mark.parametrize("d", HEAD_DIMS_ALL)
 def test_flash_attention_every_head_dim(dev, d, monkeypatch):
     b, t, seq_len, heads = 1, 300, 250, 4
-    inst = tfa.instance(d)
+    inst = tfa.instance(d).inst
     width = heads * d + 128  # room for the columns past the last head's D
     src = [_randn((b, t, width), 1.0, s) for s in range(4)]
     q, k, v, do = (_alternate_heads(x[..., :heads * d], d, heads) for x in src)
@@ -1338,7 +1342,7 @@ def test_flash_packed_every_head_dim(dev, d, monkeypatch):
         other = "fixed" if form != "fixed" else "safe"
         assert _share(o, plain[other][0]) >= FWD_SHARE_LIMIT, (d, form, other)
     o, lse = flash_attention_packed(q, k, v, heads, seq_len)
-    exact = d in (16, 64)  # the bf16 scale is a power of two
+    exact = d in (1, 4, 16, 64)  # the bf16 scale is a power of two
     for form in MODES_OF_FORM:
         args = (q, k, v, o, lse, do, heads, seq_len, form, 256)
         reset_launch_counts()
@@ -1356,7 +1360,7 @@ def test_flash_packed_every_head_dim(dev, d, monkeypatch):
             ctrl = _packed_bwd_parts(flash_attention_packed_bwd_plain, *args[:8],
                                      OTHER_FORM[form], 256)
             assert max(_rels(got, ctrl)) >= ROW11_LIMIT, (d, form, _rels(got, ctrl))
-    inst = tfa.instance(d)
+    inst = tfa.instance(d).inst
     if inst != d:
         monkeypatch.setattr(tfp, "scales", lambda dh, dtype: (
             float(torch.tensor(inst ** -0.5, dtype=dtype)), inst ** -0.5))
@@ -1365,21 +1369,42 @@ def test_flash_packed_every_head_dim(dev, d, monkeypatch):
 
 
 def test_flash_head_dims_without_an_instance_raise(dev):
-    """Head dims off a multiple of 8 or above 128 raise on CUDA in both
-    families, naming the head dim, and launch nothing."""
+    """Every head dim from 1 has a plan, and the library's plan is the
+    Python one (``instance``) up to 1024; a head dim under 1 raises on CUDA,
+    naming it, and launches nothing; the C entries refuse
+    the other family's head dims (the narrow ones above 128, the chunked
+    ones up to 128) before any launch."""
+    for d in range(1, 1025):
+        assert tfa.kernel_plan(d) == tfa.instance(d), d
     reset_launch_counts()
-    for d in (12, 136, 256):
-        x = _randn((1, 3, 64, d), 1.0, 0)
-        with pytest.raises(ValueError, match=f"head dim {d}"):
-            flash_attention_fwd(x, x, x)
-        with pytest.raises(ValueError, match=f"head dim {d}"):
-            flash_attention_bwd(x, x, x, x, torch.zeros(1, 3, 64, device="cuda"), x)
-    x = _randn((1, 64, 512), 1.0, 0)  # 2 heads of 256: forward by the BHTD route
-    with pytest.raises(ValueError, match="head dim 256"):
-        flash_attention_packed(x, x, x, 2)
-    with pytest.raises(ValueError, match="head dim 256"):
-        flash_attention_packed_bwd(x, x, x, x, torch.zeros(1, 2, 64, device="cuda"), x, 2)
+    x = _randn((1, 3, 64, 0), 1.0, 0)
+    with pytest.raises(ValueError, match="head dim 0"):
+        flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="head dim 0"):
+        flash_attention_bwd(x, x, x, x, torch.zeros(1, 3, 64, device="cuda"), x)
+    lib = kernels()
+    zero = (0,) * 5
+    assert lib.ibk_flash_attn_fwd(*zero, 1, 64, 64, 1, 136, *(0,) * 6, 1.0, 0) != 0
+    assert lib.ibk_flash_attn_wide_fwd(*zero, 1, 64, 64, 1, 128, *(0,) * 9, 0) != 0
+    assert lib.ibk_flash_fwd(*zero, 1, 64, 64, 1, 0, 0, 0, 0, 1.0, 0, 0, 0) != 0
     assert sum(launches.values()) == 0
+
+
+def test_flash_wide_head_faults_are_seen(dev, monkeypatch):
+    """At 2 heads of 256 (two output chunks): the plain version with S
+    reduced over one chunk's 128 columns only, and with the scale of 128 in
+    place of 256's, each exceeds the limits the kernel meets."""
+    b, t, seq_len, heads, d = 1, 300, 250, 2, 256
+    q, k, v, do = (_randn((b, heads, t, d), 1.0, s) for s in range(4))
+    o, lse = flash_attention_fwd(q, k, v, seq_len)
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, seq_len)
+    assert _rel(o, o_p) < FLASH_LIMIT and _share(o, o_p) < FWD_SHARE_LIMIT
+    half = [torch.cat([x[..., :128], torch.zeros_like(x[..., 128:])], -1) for x in (q, k)]
+    o_c, lse_c = flash_attention_fwd_plain(*half, v, seq_len)
+    assert _share(o, o_c) >= FWD_SHARE_LIMIT and float((lse - lse_c).abs().max()) >= LSE_LIMIT
+    _instance_scale(monkeypatch, 128)
+    o_c, lse_c = flash_attention_fwd_plain(q, k, v, seq_len)
+    assert _share(o, o_c) >= FWD_SHARE_LIMIT or float((lse - lse_c).abs().max()) >= LSE_LIMIT
 
 
 # Rows 18 and 19 (limits those of chip_smoke.py phase 13). The int8 kernel

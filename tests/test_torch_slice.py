@@ -34,11 +34,12 @@ from intentbev_torch.weights import from_flax  # noqa: E402
 NUM_CHUNKS = 64
 
 
-def serve_setup(cfg, jit=False, head_scale=20.0):
+def serve_setup(cfg, jit=True, head_scale=20.0):
     """JAX init of ``cfg``'s model (head kernels scaled up by
     ``head_scale``), two samples of points and map, the JAX logits over
-    chunks (the model applied under one ``jax.jit`` with ``jit``) and its
-    Detections."""
+    chunks (the model applied under one ``jax.jit`` with ``jit``: applied op
+    by op, an interpret-mode store callback has deadlocked against the main
+    thread's dispatch in a parallel run) and its Detections."""
     g = cfg.grid
     model = build_model(cfg)
     bev0 = jnp.zeros((1, g.height_px, g.width_px, g.lidar_total_channels))

@@ -22,7 +22,7 @@
   and its last line at the tiny config;
 - ``bench_torch.py`` refuses ``INTENTBEV_CNN_FILL_LAYOUT=barrier`` and runs
   its CNN chunk line with the f32 fill;
-- ``tools/smoke_phases_torch.py`` stamps each of ``chip_smoke.py``'s 22
+- ``tools/smoke_phases_torch.py`` stamps each of ``chip_smoke.py``'s 23
   phases, and on a toy smoke gives each phase's seconds and the exit code.
 """
 
@@ -231,7 +231,7 @@ def test_smoke_phases_stamps_every_phase(tmp_path):
     tool = _module("tools/smoke_phases_torch.py")
     stamped = tool.stamped_source((ROOT / "chip_smoke.py").read_text())
     compile(stamped, "chip_smoke.py", "exec")
-    assert re.findall(r"_phase_stamp\('(\w+)'\)", stamped) == [str(n) for n in range(1, 23)]
+    assert re.findall(r"_phase_stamp\('(\w+)'\)", stamped) == [str(n) for n in range(1, 24)]
 
     (tmp_path / "chip_smoke.py").write_text(TOY_SMOKE)
     run = subprocess.run([sys.executable, str(ROOT / "tools" / "smoke_phases_torch.py"),
